@@ -1,0 +1,125 @@
+"""Build and load the hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface and loaded with ``ctypes``. The
+library name carries a hash of the sources, so an edited source builds a
+new library at its first use; the build goes to ``build/`` inside the
+package (listed in ``.gitignore``). Nothing here runs at import time.
+
+Every C entry point takes its tensors as pointers, the stream last, and
+returns ``cudaGetLastError()``; :func:`check` turns a nonzero code into
+an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "build"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+F = ctypes.c_float
+
+# C signatures: name -> argtypes (restype is int, the cudaError_t).
+SIGNATURES = {
+    # q, k, v, out, q_seg, kv_seg, B, H, Sq, Skv, D,
+    # q strides (b, h, s), k strides, v strides, out strides,
+    # kv_valid (-1 = none), causal, scale, stream
+    "k1_flash_attention_bf16": [P, P, P, P, P, P, I, I, I, I, I,
+                                I, I, I, I, I, I, I, I, I, I, I, I,
+                                I, I, F, P],
+    # x, M, K, x_dtype (0 bf16, 1 f32), xq, sx, stream
+    "k2_quantize_rows": [P, I, I, I, P, P, P],
+    # xq, w, M, N, K, sx, sw, bias, out, out_mode (0 s32, 1 bf16, 2 f32),
+    # stream
+    "k2_int8_gemm": [P, P, I, I, I, P, P, P, P, I, P],
+}
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"):
+        path = Path(cand) / "bin" / "nvcc"
+        if cand and path.exists():
+            return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for p in sorted(CSRC_DIR.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(ARCH_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libltx_kernels_{source_hash()}.so"
+
+
+def build(force: bool = False) -> tuple[Path, float, str]:
+    """Compile the kernels unless a library for these sources exists.
+
+    Returns ``(path, seconds, ptxas_report)``; seconds and report are
+    0 and "" when nothing was compiled."""
+    out = library_path()
+    if out.exists() and not force:
+        return out, 0.0, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+           "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo",
+           "-o", str(tmp), *map(str, sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out, seconds, proc.stderr
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built from ``csrc/`` at first use."""
+    path, _, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(code: int, what: str) -> None:
+    if code != 0:
+        import torch
+
+        name = torch.cuda.get_device_name() if torch.cuda.is_available() else "?"
+        raise RuntimeError(f"{what}: CUDA error {code} on {name}")
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

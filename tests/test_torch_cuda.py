@@ -1,0 +1,108 @@
+"""Kernels K1 and K2 on the card against their plain versions.
+
+This file imports torch and the port only (no jax), so it runs on the
+machine with the GPU:  python -m pytest tests/test_torch_cuda.py -q
+Every test takes the ``cuda`` fixture, which skips where there is no CUDA
+device; the marker ``cuda`` selects them. Tolerances: K1 bf16 against the
+fp32 plain version at atol = rtol = 2e-2; K2's int8 activations and int32
+accumulators exactly, its outputs at 1e-2 relative (one bf16 rounding).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ltx_video_gpupoor_tpu_torch.ops import flash_attention as fa
+from ltx_video_gpupoor_tpu_torch.ops import int8_matmul as im
+from ltx_video_gpupoor_tpu_torch.ops.quant import quantize_weights
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _randn(gen, *shape):
+    return torch.randn(*shape, generator=gen, device=gen.device)
+
+
+@pytest.mark.parametrize("d,sq,skv,seg,causal,kv_valid", [
+    (64, 300, 300, False, False, None),
+    (64, 130, 77, True, False, None),
+    (128, 200, 200, False, True, 150),
+])
+def test_k1_matches_plain(cuda, d, sq, skv, seg, causal, kv_valid):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (_randn(gen, 2, 3, n, d).bfloat16() for n in (sq, skv, skv))
+    args = []
+    if seg:
+        args = [torch.ones(2, sq, dtype=torch.int32, device=cuda),
+                torch.ones(2, skv, dtype=torch.int32, device=cuda)]
+        args[1][0, 40:] = 0
+        args[0][1, 5] = 7                      # sees no key
+    before = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, *args, causal=causal, kv_valid=kv_valid)
+    assert fa.flash_attention.launches == before + 1
+    ref = fa.reference_attention(q.float(), k.float(), v.float(), *args,
+                                 causal=causal, kv_valid=kv_valid)
+    torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=2e-2)
+    if seg:
+        assert float(out[1, :, 5].float().abs().max()) == 0.0
+
+
+def test_k1_reads_head_split_views(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    b, s, h, d = 2, 97, 4, 64
+    q, k, v = (_randn(gen, b, s, h * d).bfloat16().view(b, s, h, d)
+               .transpose(1, 2) for _ in range(3))
+    out = fa.flash_attention(q, k, v)
+    assert out.stride() == q.stride()
+    ref = fa.reference_attention(q.float(), k.float(), v.float())
+    torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=2e-2)
+
+
+def test_k1_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 1, 8, 32, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros(1, 1, 8, 64, device=cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fa.flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("m,k,n,dtype", [(67, 256, 200, torch.bfloat16),
+                                         (3, 2048, 384, torch.float32),
+                                         (300, 48, 130, torch.bfloat16)])
+def test_k2_matches_plain(cuda, m, k, n, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x = (_randn(gen, m, k) * 3).to(dtype)
+    x[1] = 0
+    ql = quantize_weights(_randn(gen, n, k) * k ** -0.5)
+    xq, sx, acc = im.int8_linear_acc(x, ql.w_int8)
+    pq, ps = im.quantize_rows_plain(x)
+    assert torch.equal(xq, pq) and torch.equal(sx, ps[:, 0])
+    assert torch.equal(acc, im.int8_gemm_acc_plain(pq, ql.w_int8))
+    bias = _randn(gen, n)
+    before = im.int8_linear.launches
+    out = im.int8_linear(x, ql.w_int8, ql.scale, bias)
+    assert im.int8_linear.launches == before + 1
+    ref = im.int8_linear_plain(x, ql.w_int8, ql.scale, bias)
+    assert out.dtype == dtype
+    torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-6)
+    np.testing.assert_allclose(out[1].float().cpu().numpy(),
+                               bias.to(dtype).float().cpu().numpy(), atol=1e-6)
+
+
+def test_k2_rejects_what_it_does_not_take(cuda):
+    w8 = torch.zeros(32, 40, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="K % 16"):
+        im.int8_linear(torch.zeros(3, 40, device=cuda), w8,
+                       torch.ones(32, device=cuda))
+    w8 = torch.zeros(32, 48, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="on cpu"):
+        im.int8_linear(torch.zeros(3, 48, device=cuda), w8,
+                       torch.ones(32))
