@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of LTX-Video 2B text-to-video on one NVIDIA GPU.
 
-    python3 chip_smoke.py      # one card; about a minute on an H100
+    python3 chip_smoke.py              # one card; about a minute on an H100
+    python3 chip_smoke.py --profile    # and a device-time breakdown
 
 Phases, one output line each (or a few):
 
@@ -23,6 +24,9 @@ Phases, one output line each (or a few):
             (256x256x9, 512x320x41, 704x480x121; 8 steps, CFG + STG,
             stochastic sampling, decode noise), each with its stage times
             (T5, denoise, decode), peak memory and kernel launch counts.
+7. profile  only with --profile: one more 704x480x121 request under
+            torch.profiler; its device span, busy time, idle share and
+            device time by kernel group, read from the exported trace.
 
 Then a JSON line with one entry per kernel, and last the line
 {"ok": true, "device": {...}}. Any failure raises: the script exits
@@ -304,13 +308,6 @@ def phase_timing(gen):
 # phase 6: main path
 # --------------------------------------------------------------------------
 
-def _sync(dev):
-    import torch
-
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
 def ltx2b_config():
     from ltx_video_gpupoor_tpu_torch.models.ltx import transformer3d as tf
 
@@ -329,7 +326,7 @@ def vae_config():
         {**vaem.LTX_VAE_CONFIG_097, "timestep_conditioning": True})
 
 
-def build_models(dev, cfg, vcfg, t5_cfg):
+def build_models(cfg, vcfg):
     import torch
 
     from ltx_video_gpupoor_tpu_torch.core.dtypes import DEFAULT_POLICY
@@ -338,6 +335,7 @@ def build_models(dev, cfg, vcfg, t5_cfg):
     from ltx_video_gpupoor_tpu_torch.models.ltx import vae as vaem
     from ltx_video_gpupoor_tpu_torch.ops.quant import quantize_params
 
+    dev = torch.device("cuda")
     t0 = time.perf_counter()
     dit = tf.init_params(tf.LTXTransformer3D(cfg, DEFAULT_POLICY, device=dev),
                          torch.Generator(device=dev).manual_seed(SEED))
@@ -348,28 +346,27 @@ def build_models(dev, cfg, vcfg, t5_cfg):
     vae = vaem.init_params(vaem.CausalVAEDecoder(vcfg, DEFAULT_POLICY,
                                                  device=dev),
                            torch.Generator(device=dev).manual_seed(SEED + 1))
-    t5 = t5m.init_params(t5m.T5Encoder(t5_cfg, device=dev,
+    t5 = t5m.init_params(t5m.T5Encoder(t5m.T5_XXL, device=dev,
                                        dtype=torch.bfloat16),
                          torch.Generator(device=dev).manual_seed(SEED + 2))
-    _sync(dev)
+    torch.cuda.synchronize()
     n_dit = sum(t.numel() for t in dit.state_dict().values())
     n_t5 = sum(t.numel() for t in t5.state_dict().values())
-    mem = (torch.cuda.memory_allocated(dev) / 2**30
-           if dev.type == "cuda" else 0.0)
     log(f"[path] built DiT ({cfg.num_layers} layers, {n_dit / 1e9:.3f}e9 "
         f"values, int8_dynamic), VAE decoder (timestep-conditioned), T5 "
-        f"({t5_cfg.num_layers} layers, {n_t5 / 1e9:.3f}e9 values, bf16) in "
-        f"{time.perf_counter() - t0:.1f} s; {mem:.2f} GiB allocated")
+        f"({t5.cfg.num_layers} layers, {n_t5 / 1e9:.3f}e9 values, bf16) in "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     return dit, dense_cut, vae, t5
 
 
-def reference_check(cfg, dense_cut, dev, grid_fhw=(2, 8, 8)):
+def reference_check(cfg, dense_cut):
     """A 2-layer cut of the DiT (the main model's own first two blocks) on
-    ``dev`` with the kernels against the same cut on the CPU with the plain
-    versions, both int8_dynamic in bf16, at the 256x256x9 request's token
-    count. Bar: 30 dB PSNR on the velocity (bf16 roundings that differ
-    between a kernel and its plain version can flip an int8 code of the
-    next linear's activations)."""
+    the card with the kernels against the same cut on the CPU with the
+    plain versions, both int8_dynamic in bf16, at the 256x256x9 request's
+    token count. Bar: 30 dB PSNR on the velocity (bf16 roundings that
+    differ between a kernel and its plain version can flip an int8 code of
+    the next linear's activations)."""
     import dataclasses
 
     import numpy as np
@@ -383,12 +380,12 @@ def reference_check(cfg, dense_cut, dev, grid_fhw=(2, 8, 8)):
 
     cut = dataclasses.replace(cfg, num_layers=2)
     models = []
-    for d in (dev, torch.device("cpu")):
+    for d in (torch.device("cuda"), torch.device("cpu")):
         m = tf.LTXTransformer3D(cut, DEFAULT_POLICY, device=d)
         m.load_state_dict(dense_cut)
         models.append(quantize_params(m))
     g = torch.Generator().manual_seed(SEED + 3)
-    f, h, w = grid_fhw
+    f, h, w = 2, 8, 8
     lat = torch.randn(3, f * h * w, cfg.in_channels, generator=g)
     grid = torch.stack(torch.meshgrid(torch.arange(f), torch.arange(h),
                                       torch.arange(w), indexing="ij"))
@@ -405,11 +402,10 @@ def reference_check(cfg, dense_cut, dev, grid_fhw=(2, 8, 8)):
               skip_layer_strategy=tf.SkipLayerStrategy.AttentionValues)
     with torch.no_grad():
         l0, a0 = im.int8_linear.launches, fa.flash_attention.launches
-        out = models[0](*(x.to(dev) for x in (lat, grid, t, cap, mask)), **kw)
-        _sync(dev)
-        if dev.type == "cuda":
-            assert im.int8_linear.launches > l0, "K2 not launched"
-            assert fa.flash_attention.launches > a0, "K1 not launched"
+        out = models[0](*(x.cuda() for x in (lat, grid, t, cap, mask)), **kw)
+        torch.cuda.synchronize()
+        assert im.int8_linear.launches > l0, "K2 not launched"
+        assert fa.flash_attention.launches > a0, "K1 not launched"
         ref = models[1](lat, grid, t, cap, mask, **kw)
     o = out.float().cpu().numpy()
     r = ref.float().numpy()
@@ -418,12 +414,12 @@ def reference_check(cfg, dense_cut, dev, grid_fhw=(2, 8, 8)):
     mse = float(np.mean((o - r) ** 2))
     db = 10 * np.log10(peak ** 2 / mse) if mse > 0 else float("inf")
     log(f"[path] reference check, 2-layer cut at full width, kernels on "
-        f"{dev.type} vs plain versions on the CPU: PSNR {db:.2f} dB (bar 30)")
+        f"the card vs plain versions on the CPU: PSNR {db:.2f} dB (bar 30)")
     assert db >= 30.0, f"reference check {db:.2f} dB < 30"
     return db
 
 
-def encode_prompts(t5, dev, seq=256):
+def encode_prompts(t5, seq=256):
     import torch
 
     from ltx_video_gpupoor_tpu_torch.models import t5 as t5m
@@ -433,17 +429,17 @@ def encode_prompts(t5, dev, seq=256):
     mask = torch.zeros(2, seq, dtype=torch.int32)
     mask[0, :20] = 1        # negative prompt
     mask[1, :77] = 1        # positive prompt
-    ids, mask = ids.to(dev), mask.to(dev)
-    _sync(dev)
+    ids, mask = ids.cuda(), mask.cuda()
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     emb = t5m.encode(t5, ids, mask)
-    _sync(dev)
+    torch.cuda.synchronize()
     sec = time.perf_counter() - t0
     assert emb.shape == (2, seq, t5.cfg.dim) and torch.isfinite(emb).all()
     return emb, mask, sec
 
 
-def run_request(gen, t5, height, width, frames, dev):
+def run_request(gen, t5, height, width, frames):
     """One request: T5 encode of its prompts, then ``generate``."""
     import torch
 
@@ -454,7 +450,7 @@ def run_request(gen, t5, height, width, frames, dev):
     checks = {}
 
     def on_stage(name, value):
-        _sync(dev)
+        torch.cuda.synchronize()
         marks[name] = time.perf_counter()
         if name == "decode":
             checks["latents_finite"] = bool(torch.isfinite(value).all())
@@ -462,21 +458,19 @@ def run_request(gen, t5, height, width, frames, dev):
         if name == "postprocess":
             checks["pixels_finite"] = bool(torch.isfinite(value.float()).all())
 
-    _sync(dev)
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     im.int8_linear.launches = 0
     fa.flash_attention.launches = 0
     t0 = time.perf_counter()
-    emb, mask, t5_sec = encode_prompts(t5, dev)
+    emb, mask, t5_sec = encode_prompts(t5)
     frames_u8 = gen.generate(emb, mask, height=height, width=width,
                              frame_num=frames, frame_rate=25.0, seed=SEED,
                              on_stage=on_stage)
     t_end = time.perf_counter()
     launches = {"K1": fa.flash_attention.launches,
                 "K2": im.int8_linear.launches}
-    peak = (torch.cuda.max_memory_allocated(dev) / 2**30
-            if dev.type == "cuda" else 0.0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
     denoise = marks["decode"] - marks["denoise"]
     decode = marks["postprocess"] - marks["decode"]
     post = t_end - marks["postprocess"]
@@ -492,13 +486,14 @@ def run_request(gen, t5, height, width, frames, dev):
     assert frames_u8.dtype.name == "uint8" and \
         frames_u8.shape == (frames, height, width, 3), frames_u8.shape
     assert checks["latents_finite"] and checks["pixels_finite"]
-    if dev.type == "cuda":
-        assert launches["K1"] > 0 and launches["K2"] > 0, launches
+    assert launches["K1"] > 0 and launches["K2"] > 0, launches
     assert frames_u8.std() > 0, "constant frames"
     return launches
 
 
-def phase_path(dev, cfg, vcfg, t5_cfg, requests=REQUESTS, grid_fhw=(2, 8, 8)):
+def phase_path():
+    """Build the models, check a cut against the plain versions, then serve
+    REQUESTS; returns the launch counts per request and the generator."""
     import torch
 
     from ltx_video_gpupoor_tpu_torch.pipelines.ltx_pipeline import LTXPipeline
@@ -506,22 +501,107 @@ def phase_path(dev, cfg, vcfg, t5_cfg, requests=REQUESTS, grid_fhw=(2, 8, 8)):
         LTXVideoGenerator,
     )
 
-    dit, dense_cut, vae, t5 = build_models(dev, cfg, vcfg, t5_cfg)
-    reference_check(cfg, dense_cut, dev, grid_fhw)
+    cfg = ltx2b_config()
+    dit, dense_cut, vae, t5 = build_models(cfg, vae_config())
+    reference_check(cfg, dense_cut)
     del dense_cut
     gen = LTXVideoGenerator(LTXPipeline(dit, vae),
                             pipeline_config="ltxv-2b-0.9.6-distilled")
     launches = []
-    for height, width, frames in requests:
-        launches.append(run_request(gen, t5, height, width, frames, dev))
-        if dev.type == "cuda":
-            torch.cuda.empty_cache()
-    return launches
+    for height, width, frames in REQUESTS:
+        launches.append(run_request(gen, t5, height, width, frames))
+        torch.cuda.empty_cache()
+    return launches, gen, t5
+
+
+# --------------------------------------------------------------------------
+# phase 7 (--profile): where the device time of the headline request goes
+# --------------------------------------------------------------------------
+
+# kernel name fragment -> group, first match wins
+KERNEL_GROUPS = [
+    ("flash_fwd_kernel", "K1 flash attention"),
+    ("int8_gemm_kernel", "K2 int8 GEMM"),
+    ("quantize_rows_kernel", "K2 row quantize"),
+    ("fprop", "cuDNN conv3d (VAE)"),
+    ("cudnn", "cuDNN conv3d (VAE)"),
+    ("nvjet", "cuBLAS GEMM (T5)"),
+    ("gemm", "cuBLAS GEMM (T5)"),
+]
+
+
+def summarize_trace(path):
+    """Device time of a torch.profiler chrome trace, from its ``kernel``,
+    ``gpu_memcpy`` and ``gpu_memset`` events: the span from the first
+    start to the last end, busy time (the union of the intervals, so
+    overlap counts once), the idle share 1 - busy/span, and the summed
+    durations by kernel group (all other kernels are PyTorch's own
+    elementwise, reduction and copy kernels)."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                  and e.get("ph") == "X"]
+    if not events:
+        raise RuntimeError(f"{path}: the trace holds no device events")
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    span = max(e for _, e in spans) - spans[0][0]
+    groups = {}
+    for e in events:
+        group = "PyTorch elementwise and copies"
+        if e["cat"] == "kernel":
+            name = e["name"].lower()
+            group = next((g for frag, g in KERNEL_GROUPS if frag in name),
+                         group)
+        ms, n = groups.get(group, (0.0, 0))
+        groups[group] = (ms + e["dur"] / 1e3, n + 1)
+    return {"span_ms": span / 1e3, "busy_ms": busy / 1e3,
+            "idle_share": 1 - busy / span, "groups": groups}
+
+
+def phase_profile(gen, t5, height=480, width=704, frames=121):
+    """Profile one more headline request (T5 encode and generate) under
+    torch.profiler; the trace goes to the ignored build directory."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out_dir = os.path.join(ROOT, "ltx_video_gpupoor_tpu_torch", "build")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"trace_{width}x{height}x{frames}.json")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        emb, mask, _ = encode_prompts(t5)
+        gen.generate(emb, mask, height=height, width=width, frame_num=frames,
+                     frame_rate=25.0, seed=SEED)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    prof.export_chrome_trace(path)
+    s = summarize_trace(path)
+    log(f"[profile] {width}x{height}x{frames} with the profiler on: wall "
+        f"{wall:.3f} s; device span {s['span_ms']:.1f} ms, busy "
+        f"{s['busy_ms']:.1f} ms, idle {100 * s['idle_share']:.2f} %; "
+        f"trace {os.path.relpath(path, ROOT)}")
+    for group, (ms, n) in sorted(s["groups"].items(), key=lambda kv: -kv[1][0]):
+        log(f"[profile]   {group}: {ms:.1f} ms "
+            f"({100 * ms / s['busy_ms']:.1f} % of busy), {n} events")
+    return s
 
 
 def main(argv=None) -> int:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
-        argv)
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="after the main path, profile one more 704x480x121 "
+                    "request and print the device time by kernel group")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -534,10 +614,9 @@ def main(argv=None) -> int:
     k1_err = phase_k1(gen)
     k2_err = phase_k2(gen)
     times = phase_timing(gen)
-    from ltx_video_gpupoor_tpu_torch.models.t5 import T5_XXL
-
-    launches = phase_path(torch.device("cuda"), ltx2b_config(), vae_config(),
-                          T5_XXL)
+    launches, generator, t5 = phase_path()
+    if args.profile:
+        phase_profile(generator, t5)
     k1_t, k2_t = times["K1 self"], times[f"K2 {K2_TIMED}"]
     kernels = [
         {"name": "flash_attention (exact online softmax)", "route": "cuda",

@@ -14,7 +14,7 @@ are still to be ported (ROADMAP queue 1 step 12).
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -87,20 +87,15 @@ def maybe_quantized_matmul(p: Linear, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def quantize_params(
-    model: nn.Module,
-    should_quantize: Callable[[str], bool] = lambda name: True,
-    mode: str = "dynamic",
-) -> nn.Module:
-    """Quantize, in place, every :class:`Linear` of ``model`` whose module
-    path passes ``should_quantize``; returns the model."""
+def quantize_params(model: nn.Module, mode: str = "dynamic") -> nn.Module:
+    """Quantize, in place, every :class:`Linear` of ``model``; returns the
+    model."""
     if mode != "dynamic":
         raise NotImplementedError(
             f"quantize_params(mode={mode!r}): only 'dynamic' is ported; the "
             "weight-only int8/int4 and mixed tiers are ROADMAP queue 1 "
             "step 12")
-    for name, mod in model.named_modules():
-        if isinstance(mod, Linear) and not mod.quantized \
-                and should_quantize(name):
+    for mod in model.modules():
+        if isinstance(mod, Linear) and not mod.quantized:
             mod.quantize_()
     return model

@@ -1,7 +1,10 @@
 """chip_smoke.py refuses to report a result it cannot have measured: it
 exits nonzero and prints no ``"ok"`` line without a CUDA device, and in a
-directory that holds the script but not the repository."""
+directory that holds the script but not the repository. Its --profile
+phase reads device time from a torch.profiler trace, checked here on a
+small synthetic one."""
 
+import json
 import os
 import shutil
 import subprocess
@@ -34,3 +37,29 @@ def test_fails_alone(tmp_path):
     out = _run(tmp_path)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_summarize_trace_counts_overlap_once(tmp_path):
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    def ev(cat, name, ts, dur):
+        return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur}
+
+    trace = {"traceEvents": [
+        ev("kernel", "void flash_fwd_kernel<64>(...)", 0.0, 1000.0),
+        ev("kernel", "void int8_gemm_kernel<1>(...)", 500.0, 1000.0),
+        ev("kernel", "sm90_xmma_fprop_implicit_gemm_bf16", 3000.0, 500.0),
+        ev("gpu_memcpy", "Memcpy DtoH", 3500.0, 500.0),
+        ev("cpu_op", "aten::mm", 0.0, 9000.0),       # host time: not counted
+    ]}
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps(trace))
+    s = chip_smoke.summarize_trace(str(path))
+    assert s["span_ms"] == 4.0                # 0 .. 4000 us
+    assert s["busy_ms"] == 2.5                # 0-1500 and 3000-4000 us
+    assert abs(s["idle_share"] - 0.375) < 1e-12
+    assert s["groups"] == {"K1 flash attention": (1.0, 1),
+                           "K2 int8 GEMM": (1.0, 1),
+                           "cuDNN conv3d (VAE)": (0.5, 1),
+                           "PyTorch elementwise and copies": (0.5, 1)}

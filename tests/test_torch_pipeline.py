@@ -6,9 +6,10 @@ Both sides get the same weights (core/from_jax.py), the same token ids
 and the same initial noise, injected with ``noise=``. Sampling is
 deterministic (``stochastic_sampling=False``) and the decode noise scale
 is 0: the JAX and torch generators never draw the same numbers, so these
-are the only stochastic inputs both sides can share. Everything runs in
-fp32 on the CPU. The bar is the repo's oracle bar (PARITY.md): >= 40 dB
-PSNR on the latents and on the decoded uint8 frames.
+are the only stochastic inputs both sides can share. The JAX side runs
+in fp32 on the CPU; the port runs in fp32 too, and once more in the
+card's bf16 policy. The bar is the repo's oracle bar (PARITY.md):
+>= 40 dB PSNR on the latents and on the decoded uint8 frames.
 """
 
 import jax
@@ -25,7 +26,7 @@ from ltx_video_gpupoor_tpu.pipelines import ltx_pipeline as jpipe
 from ltx_video_gpupoor_tpu.serving import orchestrator as jorch
 from ltx_video_gpupoor_tpu_torch.configs import LTXV_2B_096_DISTILLED
 from ltx_video_gpupoor_tpu_torch.core import from_jax
-from ltx_video_gpupoor_tpu_torch.core.dtypes import FP32_POLICY
+from ltx_video_gpupoor_tpu_torch.core.dtypes import DEFAULT_POLICY, FP32_POLICY
 from ltx_video_gpupoor_tpu_torch.models import t5 as tt5
 from ltx_video_gpupoor_tpu_torch.models.ltx import transformer3d as ttf
 from ltx_video_gpupoor_tpu_torch.models.ltx import vae as tvae
@@ -97,7 +98,9 @@ def weights():
     return tf_p, vcfg, vae_p, t5_p, ids, mask
 
 
-def _run(weights, tier, output_type):
+def _run(weights, tier, output_type, policy=FP32_POLICY):
+    """The JAX package in fp32 against the port under ``policy`` (the T5
+    weights in its ``param_dtype``, as on the card)."""
     tf_p, vcfg, vae_p, t5_p, ids, mask = weights
     if tier == "int8_dynamic":
         tf_p = jq.quantize_params(tf_p, mode="dynamic")
@@ -116,16 +119,14 @@ def _run(weights, tier, output_type):
         output_type=output_type)
 
     # port
-    t5 = tt5.T5Encoder(tt5.T5Config(**T5_KW))
+    t5 = tt5.T5Encoder(tt5.T5Config(**T5_KW), dtype=policy.param_dtype)
     t5.load_state_dict(from_jax.state_dict(_np_tree(t5_p)))
     temb = tt5.encode(t5, torch.from_numpy(ids), torch.from_numpy(mask))
-    model = ttf.LTXTransformer3D(ttf.LTXTransformerConfig(**TF_KW),
-                                 FP32_POLICY)
+    model = ttf.LTXTransformer3D(ttf.LTXTransformerConfig(**TF_KW), policy)
     if tier == "int8_dynamic":
         quantize_params(model)
     model.load_state_dict(from_jax.state_dict(_np_tree(tf_p)))
-    vae = tvae.CausalVAEDecoder(tvae.VAEConfig.from_dict(VAE_DICT),
-                                FP32_POLICY)
+    vae = tvae.CausalVAEDecoder(tvae.VAEConfig.from_dict(VAE_DICT), policy)
     vae.load_state_dict(from_jax.vae_decoder_state_dict(_np_tree(vae_p)))
     gen = torch_orch.LTXVideoGenerator(tpipe.LTXPipeline(model, vae),
                                        pipeline_config=CONFIG)
@@ -151,6 +152,21 @@ def test_slice_latents_match_jax(weights):
     assert np.isfinite(out).all()
     db = _psnr(ref, out)
     assert db >= PSNR_BAR_DB, f"latents {db:.2f} dB"
+
+
+@pytest.mark.parametrize("output_type", ["latent", "pixels"])
+def test_slice_bf16_compute_matches_jax(weights, output_type):
+    """The card's program (DEFAULT_POLICY: bf16 weights, DiT and VAE
+    activations in bf16, int8_dynamic) against the JAX package, whose DiT
+    sees fp32 latents and so runs fp32 activations."""
+    ref, out = _run(weights, "int8_dynamic", output_type, DEFAULT_POLICY)
+    assert out.shape == ref.shape
+    if output_type == "pixels":
+        assert out.dtype == np.uint8
+        ref, out = (a.astype(np.float32) / 127.5 - 1 for a in (ref, out))
+    assert np.isfinite(out).all()
+    db = _psnr(ref, out)
+    assert db >= PSNR_BAR_DB, f"{output_type} {db:.2f} dB"
 
 
 def test_generator_rejects_unported_branches(weights):
