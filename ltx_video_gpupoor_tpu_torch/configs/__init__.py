@@ -1,11 +1,13 @@
-"""LTX pipeline configuration registry.
+"""Pipeline configuration registry.
 
-Pinned copies of ``ltx_video_gpupoor_tpu/configs/__init__.py:81-117``
-(``LTXV_2B_096_DEV``, ``LTXV_2B_096_DISTILLED``) and its
-``load_ltx_pipeline_config``. They are copies because importing the JAX
-package imports jax; ``tests/test_torch_configs.py`` pins them equal to
-the originals. The 13B multi-scale configs join with the multi-scale
-pipeline (ROADMAP queue 1 step 10).
+Pinned copies of ``ltx_video_gpupoor_tpu/configs/__init__.py``: the LTX
+configs (:81-117, ``LTXV_2B_096_DEV``, ``LTXV_2B_096_DISTILLED``) with
+``load_ltx_pipeline_config``, and the Wan configs (:135-163,
+``WAN_SHARED``, ``WAN_CONFIGS``, ``WAN_SUPPORTED_SIZES``). They are copies
+because importing the JAX package imports jax;
+``tests/test_torch_configs.py`` pins them equal to the originals. The 13B
+multi-scale configs join with the multi-scale pipeline (ROADMAP queue 1
+step 10).
 """
 
 from __future__ import annotations
@@ -58,3 +60,38 @@ def load_ltx_pipeline_config(name: str) -> dict:
 
     with open(name) as f:
         return yaml.safe_load(f)
+
+
+# ---------------------------------------------------------------------------
+# Wan configs (``wan/configs/*.py``)
+# ---------------------------------------------------------------------------
+
+WAN_SHARED = {
+    "text_len": 512,
+    "t5_tokenizer": "google/umt5-xxl",
+    "vae_stride": (4, 8, 8),
+    "patch_size": (1, 2, 2),
+    "sample_neg_prompt": (
+        "色调艳丽，过曝，静态，细节模糊不清，字幕，风格，作品，画作，画面，静止，整体发灰，最差质量，"
+        "低质量，JPEG压缩残留，丑陋的，残缺的，多余的手指，画得不好的手部，画得不好的脸部，畸形的，"
+        "毁容的，形态畸形的肢体，手指融合，静止不动的画面，杂乱的背景，三条腿，背景人很多，倒着走"
+    ),
+    "num_train_timesteps": 1000,
+}
+
+WAN_CONFIGS = {
+    "t2v-1.3B": {**WAN_SHARED, "dim": 1536, "ffn_dim": 8960, "freq_dim": 256,
+                 "num_heads": 12, "num_layers": 30, "model_type": "t2v"},
+    "t2v-14B": {**WAN_SHARED, "dim": 5120, "ffn_dim": 13824, "freq_dim": 256,
+                "num_heads": 40, "num_layers": 40, "model_type": "t2v"},
+    "i2v-14B": {**WAN_SHARED, "dim": 5120, "ffn_dim": 13824, "freq_dim": 256,
+                "num_heads": 40, "num_layers": 40, "model_type": "i2v",
+                "in_dim": 36},
+}
+
+# supported generation sizes (``wan/configs/__init__.py:34-58``)
+WAN_SUPPORTED_SIZES = {
+    "t2v-1.3B": ("480*832", "832*480"),
+    "t2v-14B": ("720*1280", "1280*720", "480*832", "832*480"),
+    "i2v-14B": ("720*1280", "1280*720", "480*832", "832*480"),
+}

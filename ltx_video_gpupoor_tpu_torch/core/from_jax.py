@@ -8,7 +8,8 @@ JAX keys as attribute names, so the conversion is mechanical:
 - ``kernel`` leaves become ``weight``. A 2-D kernel (linear, JAX
   ``[in, out]``) is transposed to torch's ``[out, in]``; a 5-D kernel
   (conv, JAX ``(kt, kh, kw, cin, cout)``) is permuted to
-  ``(cout, cin, kt, kh, kw)``.
+  ``(cout, cin, kt, kh, kw)``, a 4-D one (the Wan VAE's framewise 2-D
+  convs, JAX ``(kh, kw, cin, cout)``) to ``(cout, cin, kh, kw)``.
 - int8 leaves ``{w_int8_dyn [K, N] int8, scale [N] f32}`` become
   ``w_int8_dyn [N, K]`` (row-major, K contiguous: the column-major B
   operand that kernel K2 reads) and ``scale [N]``.
@@ -43,6 +44,8 @@ def _leaf(name: str, a: np.ndarray) -> tuple[str, torch.Tensor]:
             return "weight", t.T.contiguous()
         if t.dim() == 5:
             return "weight", t.permute(4, 3, 0, 1, 2).contiguous()
+        if t.dim() == 4:
+            return "weight", t.permute(3, 2, 0, 1).contiguous()
         raise ValueError(f"kernel of rank {t.dim()}")
     if name == "w_int8_dyn":
         return name, t.T.contiguous()
@@ -86,7 +89,9 @@ def _index(tree, i):
 def state_dict(tree: dict, stacked: Iterable[str] = STACKED) -> dict:
     """A JAX parameter tree -> the flat ``state_dict`` of the port module
     with the same keys: ``transformer3d.init_params`` (optionally after
-    ``quantize_params(mode="dynamic")``) -> ``LTXTransformer3D``,
+    ``quantize_params(mode="dynamic")``) -> ``LTXTransformer3D``, the Wan
+    ``model.init_params`` (stacked ``blocks``, ``[1, 6, D]`` modulation
+    leaves, the 5-D patch conv; optionally quantized) -> ``WanModel``,
     ``t5.init_params`` -> ``T5Encoder``."""
     out: dict[str, torch.Tensor] = {}
     _walk(tree, "", out, tuple(stacked))
@@ -98,4 +103,11 @@ def vae_decoder_state_dict(params: dict) -> dict:
     encoder and ``quant_conv`` are dropped)."""
     keep = {k: v for k, v in params.items()
             if k not in ("encoder", "quant_conv")}
+    return state_dict(keep)
+
+
+def wan_vae_decoder_state_dict(params: dict) -> dict:
+    """Wan ``models/wan/vae.init_params`` tree -> ``WanVAEDecoder`` (the
+    encoder and its ``conv1`` are dropped)."""
+    keep = {k: v for k, v in params.items() if k not in ("encoder", "conv1")}
     return state_dict(keep)

@@ -2,7 +2,9 @@
 
 Port of ``ltx_video_gpupoor_tpu/models/t5.py``: ``T5Config``, ``T5_XXL``
 (:45, google/t5-v1.1-xxl with one shared relative-position bias),
-``relative_position_bucket``, ``relative_bias``, ``_attn`` (:134) and
+``UMT5_XXL`` (:43, google/umt5-xxl with per-layer position biases, the
+Wan text encoder), ``relative_position_bucket``, ``relative_bias``,
+``_attn`` (:134) and
 ``encode`` (:150). T5 attention stays plain PyTorch, as in JAX where it is
 an einsum: it needs an additive position bias, and at 256 tokens it is a
 small cost next to the DiT. Like the JAX encoder, activations are fp32
@@ -34,6 +36,7 @@ class T5Config:
     max_dist: int = 128
 
 
+UMT5_XXL = T5Config()
 T5_XXL = T5Config(vocab_size=32128, shared_pos=True)
 
 

@@ -1,0 +1,422 @@
+"""Wan 2.1 diffusion transformer (WanModel), text-to-video.
+
+Port of ``ltx_video_gpupoor_tpu/models/wan/model.py``: ``WanConfig``,
+``WAN_T2V_1_3B``, ``WAN_T2V_14B`` (:48-98), ``sinusoidal_embedding_1d``,
+``patch_embed`` (Conv3d), ``unpatchify``, ``_mod``, ``_gate``,
+``_self_attention`` (full-dim q/k RMS norm, RoPE shared by the heads),
+``_cross_attention`` (segment ids from ``context_mask``), ``_ffn`` with
+``ffn_chunks``, ``block_forward`` with the SLG keep mask,
+``time_modulation``, ``embed_text`` and ``forward`` (:100-593) with
+``compute=True``.
+
+The parameter tree becomes modules whose attribute names are the JAX
+keys (``core/from_jax.py`` relies on that); the per-layer ``lax.scan``
+becomes a loop over ``blocks``. Every linear is an ``ops.quant.Linear``,
+so ``quantize_params(model)`` moves the DiT onto kernel K2; attention at
+head dim 128 resolves to kernel K4 (``ops/attention.py``). Activations run
+in the policy's ``compute_dtype``; modulation and the timestep path stay
+fp32. The tokens live in ``[B, L, D]``, the latent video in JAX's
+channels-last ``[B, F, H, W, C]``.
+
+Not ported: i2v (CLIP context, ROADMAP queue 1 step 13), VACE, ReCamMaster,
+fps conditioning and the TeaCache skip (``compute=False``), which raise
+``NotImplementedError`` naming their ROADMAP entry.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from einops import rearrange
+from torch import nn
+
+from ...core.dtypes import DEFAULT_POLICY, DtypePolicy
+from ...ops.attention import attention
+from ...ops.norms import layer_norm, rms_norm
+from ...ops.quant import Linear
+from ...ops.rope import apply_rotary_emb_shared_heads, full_to_half
+
+
+@dataclasses.dataclass(frozen=True)
+class WanConfig:
+    model_type: str = "t2v"  # t2v | i2v
+    patch_size: tuple = (1, 2, 2)
+    text_len: int = 512
+    in_dim: int = 16
+    dim: int = 2048
+    ffn_dim: int = 8192
+    freq_dim: int = 256
+    text_dim: int = 4096
+    out_dim: int = 16
+    num_heads: int = 16
+    num_layers: int = 32
+    qk_norm: bool = True
+    attention_score_bound: Optional[float] = None
+    cross_attn_norm: bool = True
+    eps: float = 1e-6
+    vace_layers: Optional[tuple] = None
+    vace_in_dim: Optional[int] = None
+    recammaster: bool = False
+    inject_sample_info: bool = False
+    ffn_chunks: int = 1
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.num_heads
+
+
+WAN_T2V_1_3B = WanConfig(
+    model_type="t2v", dim=1536, ffn_dim=8960, num_heads=12, num_layers=30)
+WAN_T2V_14B = WanConfig(
+    model_type="t2v", dim=5120, ffn_dim=13824, num_heads=40, num_layers=40)
+
+_TO_PORT = "ROADMAP queue 1 step 13"
+
+
+def sinusoidal_embedding_1d(dim: int, position: torch.Tensor) -> torch.Tensor:
+    """``[cos | sin]`` with ``10000^(-i/half)`` frequencies, fp32."""
+    half = dim // 2
+    # the power in float64, rounded once (an fp32 pow differs by an ulp
+    # between libraries)
+    expo = -torch.arange(half, dtype=torch.float32) / half
+    freqs = torch.pow(torch.tensor(10000.0, dtype=torch.float64),
+                      expo.double()).float().to(position.device)
+    angles = position.float()[..., None] * freqs
+    return torch.cat([torch.cos(angles), torch.sin(angles)], dim=-1)
+
+
+class _Weight(nn.Module):
+    """A norm's ``weight`` (and optional ``bias``) leaf."""
+
+    def __init__(self, dim: int, bias: bool = False, *, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim, device=device, dtype=dtype),
+                                   requires_grad=False)
+        self.bias = (nn.Parameter(torch.zeros(dim, device=device, dtype=dtype),
+                                  requires_grad=False) if bias else None)
+
+
+class _Attn(nn.Module):
+    def __init__(self, cfg: WanConfig, **kw):
+        super().__init__()
+        d = cfg.dim
+        self.q = Linear(d, d, **kw)
+        self.k = Linear(d, d, **kw)
+        self.v = Linear(d, d, **kw)
+        self.o = Linear(d, d, **kw)
+        self.norm_q = _Weight(d, **kw)
+        self.norm_k = _Weight(d, **kw)
+
+
+class _MLP(nn.Module):
+    def __init__(self, d_in: int, d_hidden: int, d_out: int, **kw):
+        super().__init__()
+        self.fc1 = Linear(d_in, d_hidden, **kw)
+        self.fc2 = Linear(d_hidden, d_out, **kw)
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: WanConfig, **kw):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.dim
+        self.modulation = nn.Parameter(
+            torch.empty(1, 6, d, device=kw.get("device"),
+                        dtype=kw.get("dtype")), requires_grad=False)
+        self.self_attn = _Attn(cfg, **kw)
+        self.cross_attn = _Attn(cfg, **kw)
+        self.ffn = _MLP(d, cfg.ffn_dim, d, **kw)
+        self.norm3 = _Weight(d, True, **kw) if cfg.cross_attn_norm else None
+
+    def forward(self, x, e0, freqs, context, context_mask, keep=None,
+                attn_mode="auto"):
+        return block_forward(self, self.cfg, x, e0, freqs, context,
+                             context_mask, keep, attn_mode)
+
+
+class _Head(nn.Module):
+    def __init__(self, cfg: WanConfig, **kw):
+        super().__init__()
+        self.modulation = nn.Parameter(
+            torch.empty(1, 2, cfg.dim, device=kw.get("device"),
+                        dtype=kw.get("dtype")), requires_grad=False)
+        self.head = Linear(cfg.dim, math.prod(cfg.patch_size) * cfg.out_dim,
+                           **kw)
+
+
+class _PatchEmbed(nn.Module):
+    def __init__(self, cfg: WanConfig, *, device=None, dtype=torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(
+            torch.empty(cfg.dim, cfg.in_dim, *cfg.patch_size, device=device,
+                        dtype=dtype), requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(cfg.dim, device=device,
+                                             dtype=dtype), requires_grad=False)
+
+
+class WanModel(nn.Module):
+    """The denoiser; :meth:`forward` returns ``(velocity, residual)``."""
+
+    def __init__(self, cfg: WanConfig, policy: DtypePolicy = DEFAULT_POLICY,
+                 *, device=None):
+        super().__init__()
+        if cfg.model_type != "t2v":
+            raise NotImplementedError(
+                f"Wan {cfg.model_type}: only t2v is ported; i2v (CLIP "
+                f"context) is {_TO_PORT}")
+        for flag in ("vace_layers", "recammaster", "inject_sample_info"):
+            if getattr(cfg, flag):
+                raise NotImplementedError(f"WanConfig.{flag}: {_TO_PORT}")
+        self.cfg = cfg
+        self.compute_dtype = policy.compute_dtype
+        kw = dict(device=device, dtype=policy.param_dtype)
+        d = cfg.dim
+        self.patch_embedding = _PatchEmbed(cfg, **kw)
+        self.text_embedding = _MLP(cfg.text_dim, d, d, **kw)
+        self.time_embedding = _MLP(cfg.freq_dim, d, d, **kw)
+        self.time_projection = Linear(d, 6 * d, **kw)
+        self.blocks = nn.ModuleList(Block(cfg, **kw)
+                                    for _ in range(cfg.num_layers))
+        self.head = _Head(cfg, **kw)
+
+    def forward(
+        self,
+        x: torch.Tensor,                  # [B, F, H, W, C_in]
+        t: torch.Tensor,                  # [B] or [B, G]
+        context: torch.Tensor,            # [B, text_len, text_dim]
+        context_mask: torch.Tensor,       # [B, text_len]
+        freqs: tuple,                     # (cos, sin) [L, head_dim]
+        clip_features=None,
+        vace_context=None,
+        slg_keep: Optional[torch.Tensor] = None,   # [num_layers, B] 1 = run
+        cam_emb=None,
+        fps_idx=None,
+        previous_residual=None,
+        compute: bool = True,
+        attn_mode: str = "auto",
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        for name, val in (("clip_features (i2v)", clip_features),
+                          ("vace_context", vace_context),
+                          ("cam_emb (ReCamMaster)", cam_emb),
+                          ("fps_idx", fps_idx),
+                          ("previous_residual (TeaCache)", previous_residual)):
+            if val is not None:
+                raise NotImplementedError(f"Wan forward {name}: {_TO_PORT}")
+        if compute is not True:
+            raise NotImplementedError(
+                f"Wan forward compute=False (the TeaCache skip): {_TO_PORT}")
+        return forward(self, x, t, context, context_mask, freqs, slg_keep,
+                       attn_mode)
+
+
+def patch_embed(p: _PatchEmbed, cfg: WanConfig, video: torch.Tensor
+                ) -> tuple[torch.Tensor, tuple]:
+    """video ``[B, F, H, W, C]`` -> tokens ``[B, L, D]``, grid
+    ``(F, H/ph, W/pw)``."""
+    y = F.conv3d(video.permute(0, 4, 1, 2, 3), p.weight.to(video.dtype),
+                 stride=cfg.patch_size)
+    y = y + p.bias.to(y.dtype)[:, None, None, None]
+    b, d, f, h, w = y.shape
+    return y.flatten(2).transpose(1, 2).contiguous(), (f, h, w)
+
+
+def unpatchify(x: torch.Tensor, grid: tuple, cfg: WanConfig) -> torch.Tensor:
+    """tokens ``[B, L, out*prod(patch)]`` -> video ``[B, F*pt, H*ph, W*pw,
+    out]``."""
+    f, h, w = grid
+    pt, ph, pw = cfg.patch_size
+    return rearrange(x, "b (f h w) (p q r c) -> b (f p) (h q) (w r) c",
+                     f=f, h=h, w=w, p=pt, q=ph, r=pw, c=cfg.out_dim)
+
+
+def _mod(x, e_shift, e_scale):
+    """x ``[B, L, D]``; ``e_* [B, G, D]``: modulate per token group."""
+    b, l, d = x.shape
+    g = e_shift.shape[1]
+    if g == 1:
+        return x * (1 + e_scale) + e_shift
+    xg = x.reshape(b, g, l // g, d)
+    return (xg * (1 + e_scale[:, :, None]) + e_shift[:, :, None]).reshape(
+        b, l, d)
+
+
+def _gate(x, y, e_gate):
+    b, l, d = x.shape
+    g = e_gate.shape[1]
+    if g == 1:
+        return x + y * e_gate
+    xg = x.reshape(b, g, l // g, d)
+    yg = y.reshape(b, g, l // g, d)
+    return (xg + yg * e_gate[:, :, None]).reshape(b, l, d)
+
+
+def _self_attention(p: _Attn, cfg: WanConfig, x, freqs, attn_mode):
+    b, s, d = x.shape
+    n, hd = cfg.num_heads, cfg.head_dim
+    q, k, v = p.q(x), p.k(x), p.v(x)
+    if cfg.qk_norm:
+        q = rms_norm(q, p.norm_q.weight, eps=cfg.eps)
+        k = rms_norm(k, p.norm_k.weight, eps=cfg.eps)
+    cos, sin = freqs  # half layout [L, hd/2]
+    cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    qh = apply_rotary_emb_shared_heads(q.reshape(b, s, n, hd), cos, sin)
+    kh = apply_rotary_emb_shared_heads(k.reshape(b, s, n, hd), cos, sin)
+    vh = v.reshape(b, s, n, hd).transpose(1, 2)
+    sb = cfg.attention_score_bound if cfg.qk_norm else None
+    out = attention(qh, kh, vh, mode=attn_mode, score_bound=sb)
+    return p.o(out.transpose(1, 2).reshape(b, s, d))
+
+
+def _cross_attention(p: _Attn, cfg: WanConfig, x, context, context_mask,
+                     attn_mode):
+    b, s, d = x.shape
+    n, hd = cfg.num_heads, cfg.head_dim
+    q = p.q(x)
+    if cfg.qk_norm:
+        q = rms_norm(q, p.norm_q.weight, eps=cfg.eps)
+    k = p.k(context)
+    if cfg.qk_norm:
+        k = rms_norm(k, p.norm_k.weight, eps=cfg.eps)
+    v = p.v(context)
+    sc = context.shape[1]
+    out = attention(
+        q.reshape(b, s, n, hd).transpose(1, 2),
+        k.reshape(b, sc, n, hd).transpose(1, 2),
+        v.reshape(b, sc, n, hd).transpose(1, 2),
+        torch.ones(b, s, dtype=torch.int32, device=x.device),
+        context_mask.to(torch.int32),
+        mode=attn_mode,
+        score_bound=cfg.attention_score_bound if cfg.qk_norm else None,
+    )
+    return p.o(out.transpose(1, 2).reshape(b, s, d))
+
+
+def _ffn(cfg: WanConfig, p: _MLP, x):
+    """FFN, token-chunked by ``cfg.ffn_chunks`` to bound the ffn_dim-wide
+    intermediate."""
+    def part(c):
+        return p.fc2(F.gelu(p.fc1(c), approximate="tanh"))
+
+    if cfg.ffn_chunks <= 1:
+        return part(x)
+    s = x.shape[1]
+    n = cfg.ffn_chunks
+    pad = (-s) % n
+    xp = F.pad(x, (0, 0, 0, pad)) if pad else x
+    out = torch.cat([part(c) for c in xp.chunk(n, dim=1)], dim=1)
+    return out[:, :s] if pad else out
+
+
+def block_forward(p: Block, cfg: WanConfig, x, e0, freqs, context,
+                  context_mask, keep=None, attn_mode="auto"):
+    """One block; ``e0 [B, G, 6, D]`` fp32, ``keep [B]`` (1 = run the
+    block, 0 = skip it, SLG) or None."""
+    e = p.modulation.float()[:, None] + e0           # [B, G, 6, D]
+    e = [e[:, :, i].to(x.dtype) for i in range(6)]
+    original = x
+    h = _mod(layer_norm(x, eps=cfg.eps), e[0], e[1])
+    x = _gate(x, _self_attention(p.self_attn, cfg, h, freqs, attn_mode), e[2])
+    if p.norm3 is not None:
+        h = layer_norm(x, p.norm3.weight, p.norm3.bias, eps=cfg.eps)
+    else:
+        h = x
+    x = x + _cross_attention(p.cross_attn, cfg, h, context, context_mask,
+                             attn_mode)
+    h = _mod(layer_norm(x, eps=cfg.eps), e[3], e[4])
+    x = _gate(x, _ffn(cfg, p.ffn, h), e[5])
+    if keep is not None:
+        m = keep.to(x.dtype)[:, None, None]
+        x = x * m + original * (1 - m)
+    return x
+
+
+def time_modulation(model: WanModel, cfg: WanConfig, t: torch.Tensor):
+    """t ``[B]`` or ``[B, G]`` -> (e ``[B, G, D]``, e0 ``[B, G, 6, D]``),
+    fp32."""
+    tb = torch.as_tensor(t)
+    if tb.dim() == 1:
+        tb = tb[:, None]
+    b, g = tb.shape
+    emb = sinusoidal_embedding_1d(cfg.freq_dim, tb.reshape(-1))
+    te = model.time_embedding
+    e = te.fc2(F.silu(te.fc1(emb)))                  # [B*G, D]
+    e0 = model.time_projection(F.silu(e))
+    return (e.reshape(b, g, cfg.dim).float(),
+            e0.reshape(b, g, 6, cfg.dim).float())
+
+
+def embed_text(model: WanModel, cfg: WanConfig,
+               text_embeds: torch.Tensor) -> torch.Tensor:
+    """UMT5 embeddings ``[B, text_len, text_dim]`` -> ``[B, text_len, D]``."""
+    te = model.text_embedding
+    return te.fc2(F.gelu(te.fc1(text_embeds), approximate="tanh"))
+
+
+def forward(model: WanModel, x, t, context, context_mask, freqs,
+            slg_keep=None, attn_mode="auto"):
+    """One denoiser evaluation: (velocity ``[B, F, H, W, C_out]``, the
+    token-space residual ``out_tokens - in_tokens``)."""
+    cfg = model.cfg
+    dev = x.device
+    tokens, grid = patch_embed(model.patch_embedding, cfg,
+                               x.to(model.compute_dtype))
+    b = tokens.shape[0]
+    cos, sin = freqs
+    if cos.shape[-1] == cfg.head_dim:
+        # one conversion per forward: the blocks take the half layout
+        cos, sin = full_to_half(cos), full_to_half(sin)
+    freqs = (cos.to(dev), sin.to(dev))
+    t = torch.as_tensor(t, dtype=torch.float32, device=dev)
+    e, e0 = time_modulation(model, cfg, t)
+    ctx = embed_text(model, cfg, context.to(device=dev, dtype=tokens.dtype))
+    cmask = context_mask.to(device=dev, dtype=torch.int32).contiguous()
+    if slg_keep is not None:
+        slg_keep = torch.as_tensor(slg_keep).cpu()
+    out = tokens
+    for i, blk in enumerate(model.blocks):
+        keep = None
+        # a layer whose streams all run needs no blend (x*1 + y*0 == x)
+        if slg_keep is not None and bool((slg_keep[i] != 1).any()):
+            keep = slg_keep[i].to(dev)
+        out = blk(out, e0, freqs, ctx, cmask, keep, attn_mode)
+    residual = out - tokens
+
+    # the head runs in fp32 whatever the policy: guidance multiplies the
+    # difference of two velocities by guide_scale, and with it their
+    # rounding (JAX's Wan activations follow its fp32 latents throughout)
+    hm = model.head.modulation.float()               # [1, 2, D]
+    he = hm[:, None] + e[:, :, None]                 # [B, G, 2, D]
+    y = _mod(layer_norm(out.float(), eps=cfg.eps), he[:, :, 0], he[:, :, 1])
+    y = model.head.head(y)
+    return unpatchify(y, grid, cfg), residual
+
+
+@torch.no_grad()
+def init_params(model: WanModel, generator: torch.Generator) -> WanModel:
+    """Random weights in the JAX ``init_params`` distribution: linear
+    kernels N(0, 1/d_in), zero biases, unit norm weights, the patch
+    conv N(0, 1/fan_in), modulation tables N(0, 1/D). Draws on the
+    model's device from ``generator``."""
+    d = model.cfg.dim
+
+    def randn(t):
+        return torch.randn(t.shape, generator=generator, device=t.device,
+                           dtype=t.dtype)
+
+    for mod in model.modules():
+        if isinstance(mod, Linear) and not mod.quantized:
+            mod.weight.copy_(randn(mod.weight) * mod.d_in ** -0.5)
+            if mod.bias is not None:
+                mod.bias.zero_()
+    pe = model.patch_embedding
+    pe.weight.copy_(randn(pe.weight) * math.prod(pe.weight.shape[1:]) ** -0.5)
+    pe.bias.zero_()
+    for name, p in model.named_parameters():
+        if name.endswith("modulation"):
+            p.copy_(randn(p) / d ** 0.5)
+    return model

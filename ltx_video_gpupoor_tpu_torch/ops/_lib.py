@@ -39,6 +39,12 @@ SIGNATURES = {
     "k1_flash_attention_bf16": [P, P, P, P, P, P, I, I, I, I, I,
                                 I, I, I, I, I, I, I, I, I, I, I, I,
                                 I, I, F, P],
+    # q8, k8, v (int8 or bf16), out, q_seg, kv_seg, q_scale, k_scale,
+    # v_scale, B, H, Sq, Skv, D, q/k/v/out strides (b, h, s),
+    # ks_block, nks, kv_valid (-1 = none), causal, pv_int8, stream
+    "k4_flash_attention_int8": [P, P, P, P, P, P, P, P, P, I, I, I, I, I,
+                                I, I, I, I, I, I, I, I, I, I, I, I,
+                                I, I, I, I, I, P],
     # x, M, K, x_dtype (0 bf16, 1 f32), xq, sx, stream
     "k2_quantize_rows": [P, I, I, I, P, P, P],
     # xq, w, M, N, K, sx, sw, bias, out, out_mode (0 s32, 1 bf16, 2 f32),

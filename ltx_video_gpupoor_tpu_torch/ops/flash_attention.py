@@ -1,30 +1,65 @@
-"""Attention kernel K1 and its plain version.
+"""Attention kernels K1 (exact) and K4 (int8) and their plain versions.
 
 Port of ``ltx_video_gpupoor_tpu/ops/flash_attention.py``:
 
 - :func:`reference_attention` is ``reference_attention`` (:908-944), the
-  plain PyTorch version: fp32 scores, segment/causal masks, fully masked
-  rows give 0. It also takes the kernel's static ``kv_valid`` tail.
+  plain PyTorch version of K1: fp32 scores, segment/causal masks, fully
+  masked rows give 0. It also takes the kernel's static ``kv_valid`` tail.
 - :func:`flash_attention` is ``flash_attention`` (:412) in its exact
   online-softmax tier, backed by ``csrc/flash_attention.cu`` (which
   replaces ``_flash_kernel``, :160). It takes any sequence length (the
-  kernel masks its own ragged edge), so the TPU's 128-multiple rule,
-  block fitting and sub-block plans have no counterpart here.
+  kernel masks its own ragged edge).
+- :func:`flash_attention_int8` is the same function with ``qk_int8=True``
+  (``pv_int8`` either way): the quantize prologue (:484-533) is
+  :func:`int8_prologue`, shared by both versions; the plain version is
+  :func:`int8_attention_plain` and the kernel ``csrc/flash_attention_int8.cu``
+  (K4, the int8 branches of ``_flash_kernel``: scores :218-239, P.V
+  :270-292, the x127 fold :321-327, finalize :393-401).
 
-Layout ``[B, H, S, D]``; the kernel reads any strides whose last one is 1,
+The int8 tiers' numerics depend on JAX's compiled kv block: K scales are
+per block in the QK+PV tier, and P is quantized against the running max
+as of each block. :func:`fit_blocks` is a pinned copy of the JAX block
+fitting (equal-tested), and both versions use its kv block for the K
+scales; the plain version also steps its online softmax by that block
+(JAX's ``nsub=1`` plan). The kernel steps by 64-row tiles, so it agrees
+with JAX's numerics to int8 noise, not bit for bit; stepped by the
+kernel's tile, the plain version runs the kernel's math, and
+:func:`int8_tile_bound` states how far the two may lie apart.
+
+Layout ``[B, H, S, D]``; the kernels read any strides whose last one is 1,
 so head-split views of ``[B, S, H*D]`` projections need no copy. The
-bounded-score (K3), int8 (K4) and head-packed (K6) tiers are still to be
-ported (ROADMAP queue 2).
+bounded-score (K3) and head-packed (K6) tiers are still to be ported
+(ROADMAP queue 2).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
+M_FLOOR = -1e20
 LOG2E = 1.4426950408889634
+LOG2_127 = 6.9886846867721655  # log2(127): the int8-PV exponent fold
+LN2_F32 = 0.6931471824645996    # float32(ln 2)
+INV127_F32 = 0.007874015718698502  # float32(1 / 127)
+# the scale of JAX's ones column of V times the x127 fold, float32(
+# float32(1/127)**2 * 127): it rounds to float32(1/127)
+SUM_COL_SCALE = INV127_F32
+
+# the JAX package's default blocks and scores-tile budget (:32-41)
+DEFAULT_BLOCK_Q = 768
+DEFAULT_BLOCK_KV = 4096
+SCORES_TILE_ELEMS = 1 << 21
+K4_TILE_KV = 64  # K4's kv tile (BKV in csrc/flash_attention_int8.cu)
+# K4 against its plain version at K4_TILE_KV (int8_tile_bound): P codes
+# that may round apart in a row, and the largest mean |difference| as a
+# share of the mean |output|
+K4_TILE_FLIPS = 4
+K4_TILE_MEAN_REL = 5e-4
 
 
 def _check_seg_pair(q_segment_ids, kv_segment_ids):
@@ -73,7 +108,22 @@ def reference_attention(
     return o.to(q.dtype)
 
 
-def _check_cuda_operands(q, k, v, q_seg, kv_seg):
+def _check_layout(kernel: str, name: str, t: torch.Tensor, dtype, device):
+    if t.dtype != dtype:
+        raise ValueError(f"{kernel} takes {str(dtype)[6:]} {name}, got "
+                         f"{t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, q on {device}")
+    if t.stride(3) != 1:
+        raise ValueError(f"{name} needs a unit stride on the head dim")
+    if any(st * t.element_size() % 16 for st in t.stride()[:3]) \
+            or t.data_ptr() % 16:
+        raise ValueError(f"{name} strides must be 16-byte aligned")
+    if max(t.stride()) >= 2**31:
+        raise ValueError(f"{name} strides must fit the kernel's int32")
+
+
+def _check_cuda_operands(q, k, v, q_seg, kv_seg, kernel="K1"):
     b, h, sq, d = q.shape
     if k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be [B, H, S, D]")
@@ -82,18 +132,9 @@ def _check_cuda_operands(q, k, v, q_seg, kv_seg):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if d not in (64, 128):
-        raise ValueError(f"K1 takes head dims 64 and 128, got {d}")
+        raise ValueError(f"{kernel} takes head dims 64 and 128, got {d}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"K1 takes bfloat16, got {name} {t.dtype}")
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.stride(3) != 1:
-            raise ValueError(f"{name} needs a unit stride on the head dim")
-        if any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16:
-            raise ValueError(f"{name} strides must be 16-byte aligned")
-        if max(t.stride()) >= 2**31:
-            raise ValueError(f"{name} strides must fit the kernel's int32")
+        _check_layout(kernel, name, t, torch.bfloat16, q.device)
     if q_seg is not None:
         for name, t, n in (("q_segment_ids", q_seg, sq),
                            ("kv_segment_ids", kv_seg, k.shape[2])):
@@ -152,6 +193,392 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K4: the int8 tiers
+# --------------------------------------------------------------------------
+
+def round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def fit_blocks(sq: int, skv: int, block_q: int = DEFAULT_BLOCK_Q,
+               block_kv: int = DEFAULT_BLOCK_KV) -> tuple[int, int]:
+    """Pinned copy of the JAX ``fit_blocks`` (:130-157): the largest
+    128-multiple divisor of each (128-padded) length under the cap, the
+    kv cap further bound by the scores-tile budget."""
+    def fit(cap, s):
+        cap = min(cap, s)
+        best, b = 128, 128
+        while b <= cap:
+            if s % b == 0:
+                best = b
+            b += 128
+        return best
+
+    block_q = fit(block_q, sq)
+    block_kv = fit(min(block_kv, max(128, SCORES_TILE_ELEMS // block_q)), skv)
+    return block_q, block_kv
+
+
+class Int8Operands(NamedTuple):
+    """What the quantize prologue hands to K4 or to its plain version.
+
+    ``q_scale`` carries the softmax scale times log2(e); ``k_scale`` has
+    one entry per ``k_block`` kv rows (the kv block in the QK+PV tier, 1
+    in the QK tier); ``v_scale`` (QK+PV tier) multiplies the int32 P.V
+    per channel, JAX's ``v_scale * 127``; ``kv_block`` is the JAX kernel's
+    kv block."""
+
+    q8: torch.Tensor          # int8 [B, H, Sq, D]
+    q_scale: torch.Tensor     # fp32 [B, H, Sq]
+    k8: torch.Tensor          # int8 [B, H, Skv, D]
+    k_scale: torch.Tensor     # fp32 [B, H, ceil(Skv / k_block)]
+    k_block: int
+    v: torch.Tensor           # int8 (QK+PV tier) or the input dtype
+    v_scale: torch.Tensor | None   # fp32 [B, H, D]
+    kv_block: int
+
+
+def _absmax_scale(x: torch.Tensor, dims) -> torch.Tensor:
+    """``max(amax|x|, 1e-6) / 127`` over ``dims``, as XLA computes it:
+    a multiply by float32(1/127) (XLA rewrites a division by a constant;
+    the IEEE quotient differs by an ulp in about 4% of rows)."""
+    return torch.clamp(x.abs().amax(dim=dims), min=1e-6) * INV127_F32
+
+
+def int8_prologue(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  scale: float | None = None, pv_int8: bool = True,
+                  block_kv: int = DEFAULT_BLOCK_KV) -> Int8Operands:
+    """The int8 tiers' quantize prologue (JAX :484-533), plain torch ops.
+    ``block_kv`` is the kv block requested of JAX's kernel; the k scales
+    take the block that :func:`fit_blocks` makes of it.
+
+    The k and v scales take their absmax over every kv row (rows that a
+    segment mask hides included, as in JAX; its zero padding rows add
+    nothing)."""
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    if scale is None:
+        scale = d ** -0.5
+    _, kv_block = fit_blocks(round_up(sq, 128), round_up(skv, 128),
+                             DEFAULT_BLOCK_Q, block_kv)
+    qf = q.float()
+    q_s = _absmax_scale(qf, -1)
+    q8 = torch.round(qf / q_s[..., None]).to(torch.int8)
+    del qf
+    q_scale = (q_s * (scale * LOG2E)).contiguous()
+    kf = k.float()
+    if pv_int8:
+        nkv = round_up(skv, 128) // kv_block
+        kp = F.pad(kf, (0, 0, 0, nkv * kv_block - skv))
+        k_s = _absmax_scale(kp.reshape(b, h, nkv, kv_block, d), (3, 4))
+        k8 = torch.round(kp.reshape(b, h, nkv, kv_block, d)
+                         / k_s[..., None, None])
+        k8 = k8.reshape(b, h, -1, d)[:, :, :skv].to(torch.int8)
+        k_block = kv_block
+    else:
+        k_s = _absmax_scale(kf, -1)
+        k8 = torch.round(kf / k_s[..., None]).to(torch.int8)
+        k_block = 1
+    del kf
+    v_scale = None
+    if pv_int8:
+        vf = v.float()
+        v_s = _absmax_scale(vf, 2)                        # [B, H, D]
+        v = torch.round(vf / v_s[:, :, None, :]).to(torch.int8)
+        del vf
+        v_scale = (v_s * INV127_F32 * 127.0).contiguous()
+    return Int8Operands(q8, q_scale, k8, k_s.contiguous(), k_block, v,
+                        v_scale, kv_block)
+
+
+def _masks(q_seg, kv_seg, rows, cols, kv_valid, causal):
+    """[B or 1, 1, rows, cols] bool: which scores stay (None = all)."""
+    keep = None
+
+    def both(a, m):
+        return m if a is None else a & m
+
+    if q_seg is not None:
+        qs = q_seg[:, None, rows, None]
+        ks = kv_seg[:, None, None, cols]
+        keep = both(keep, (qs == ks) & (ks > 0))
+    if kv_valid is not None:
+        keep = both(keep, (cols < kv_valid)[None, None, None, :])
+    if causal:
+        keep = both(keep, (rows[:, None] >= cols[None, :])[None, None])
+    return keep
+
+
+def _exp2(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.exp2`` as XLA lowers it, ``exp(float32(ln 2) * x)``.
+    ``torch.exp2`` differs from it by an ulp in most elements, which
+    flips ``round(p)`` codes of the int8-PV tier about 5 times per 1e6
+    scores; this form flipped none in 4e6."""
+    return torch.exp(x * LN2_F32)
+
+
+def _int8_tiles(ops: Int8Operands, q_seg, kv_seg, causal, kv_valid,
+                block_kv):
+    """K4's masked scores in the exp2 domain, tile by tile: yields
+    ``(r0, r1, c0, c1, s)`` for q rows ``r0:r1`` (chunks that keep a tile
+    at ``B*H*2**22`` scores) against kv rows ``c0:c1`` (steps of
+    ``block_kv``), kv innermost. The int8 products are exact in fp32 (at
+    most ``127**2 * D``, below 2**24 for D <= 1024)."""
+    b, h, sq, d = ops.q8.shape
+    skv = ops.k8.shape[2]
+    s_dtype = torch.float32 if d <= 1024 else torch.float64
+    dev = ops.q8.device
+    q_chunk = max(1, (1 << 22) // block_kv)
+    for r0 in range(0, sq, q_chunk):
+        r1 = min(r0 + q_chunk, sq)
+        rows = torch.arange(r0, r1, device=dev)
+        qc = ops.q8[:, :, r0:r1].to(s_dtype)
+        qs = ops.q_scale[:, :, r0:r1, None]
+        for c0 in range(0, skv, block_kv):
+            c1 = min(c0 + block_kv, skv)
+            cols = torch.arange(c0, c1, device=dev)
+            s32 = (qc @ ops.k8[:, :, c0:c1].to(s_dtype).transpose(-1, -2)
+                   ).float()
+            ks = ops.k_scale[:, :, None, cols // ops.k_block]
+            if ops.v_scale is not None:  # per-block k scale: qs * ks first
+                s = s32 * (qs * ks)
+            else:
+                s = (s32 * qs) * ks
+            del s32
+            keep = _masks(q_seg, kv_seg, rows, cols, kv_valid, causal)
+            if keep is not None:
+                s = torch.where(keep, s, NEG_INF)
+            yield r0, r1, c0, c1, s
+
+
+def int8_attention_plain(
+    ops: Int8Operands,
+    q_segment_ids: torch.Tensor | None = None,
+    kv_segment_ids: torch.Tensor | None = None,
+    *,
+    causal: bool = False,
+    kv_valid: int | None = None,
+    out_dtype: torch.dtype = torch.float32,
+    block_kv: int | None = None,
+) -> torch.Tensor:
+    """The plain PyTorch version of K4: JAX's int8 kernel body with one
+    sub-block per kv block (``nsub=1``), stepping its online softmax over
+    ``block_kv`` rows at a time: by default ``ops.kv_block``, JAX's
+    block; ``K4_TILE_KV`` steps as the kernel does, which makes P's
+    quantization the kernel's. (The k scales keep ``ops.k_block``.) P.V
+    runs in float64: a kv block may sum 127**2 * 4096 > 2**24.
+
+    At a head dim that is not a 128 multiple JAX appends a ones column
+    to V, so the denominator sums the rounded p: ``127 * sum(p8)`` times
+    the column's scale (QK+PV tier), the bf16 p (QK tier)."""
+    _check_seg_pair(q_segment_ids, kv_segment_ids)
+    b, h, sq, d = ops.q8.shape
+    v, v_scale = ops.v, ops.v_scale
+    pv_int8 = v_scale is not None
+    sum_rounded = d % 128 != 0
+    if block_kv is None:
+        block_kv = ops.kv_block
+    dev = ops.q8.device
+    out = torch.empty(b, h, sq, d, dtype=out_dtype, device=dev)
+    for r0, r1, c0, c1, s in _int8_tiles(ops, q_segment_ids, kv_segment_ids,
+                                         causal, kv_valid, block_kv):
+        if c0 == 0:
+            m = torch.full((b, h, r1 - r0, 1), M_FLOOR, device=dev)
+            l = torch.zeros((b, h, r1 - r0, 1), device=dev)
+            acc = torch.zeros((b, h, r1 - r0, d), device=dev)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = _exp2(m - m_new)
+        if pv_int8:
+            p = _exp2(s - (m_new - LOG2_127))
+            del s
+            p8 = torch.round(p).double()
+            pv = (p8 @ v[:, :, c0:c1].double()).float() * \
+                v_scale[:, :, None, :]
+            if sum_rounded:
+                l_blk = (p8.sum(-1, keepdim=True) * 127).float() * \
+                    SUM_COL_SCALE
+            else:
+                l_blk = p.sum(-1, keepdim=True)
+            del p8
+        else:
+            p = _exp2(s - m_new)
+            del s
+            pr = p.to(v.dtype).float()
+            pv = pr @ v[:, :, c0:c1].float()
+            l_blk = (pr if sum_rounded else p).sum(-1, keepdim=True)
+            del pr
+        del p
+        l = alpha * l + l_blk
+        acc = acc * alpha + pv
+        m = m_new
+        if c1 == ops.k8.shape[2]:
+            out[:, :, r0:r1] = (acc / torch.where(l > 0, l, 1.0)
+                                ).to(out_dtype)
+    return out
+
+
+def int8_row_mass(
+    ops: Int8Operands,
+    q_segment_ids: torch.Tensor | None = None,
+    kv_segment_ids: torch.Tensor | None = None,
+    *,
+    causal: bool = False,
+    kv_valid: int | None = None,
+) -> torch.Tensor:
+    """fp32 ``[B, H, Sq]``: each q row's softmax mass over K4's scores in
+    units of its largest term, ``sum_j 2**(s_j - max s)``: at least 1
+    where a key is kept, 0 where none is."""
+    b, h, sq, _ = ops.q8.shape
+    dev = ops.q8.device
+    mass = torch.empty(b, h, sq, device=dev)
+    for r0, r1, c0, c1, s in _int8_tiles(ops, q_segment_ids, kv_segment_ids,
+                                         causal, kv_valid, ops.kv_block):
+        if c0 == 0:
+            m = torch.full((b, h, r1 - r0, 1), M_FLOOR, device=dev)
+            l = torch.zeros((b, h, r1 - r0, 1), device=dev)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        l = l * _exp2(m - m_new) + _exp2(s - m_new).sum(-1, keepdim=True)
+        m = m_new
+        if c1 == ops.k8.shape[2]:
+            mass[:, :, r0:r1] = l[..., 0]
+    return mass
+
+
+def int8_tile_bound(
+    ops: Int8Operands,
+    plain: torch.Tensor,
+    q_segment_ids: torch.Tensor | None = None,
+    kv_segment_ids: torch.Tensor | None = None,
+    *,
+    causal: bool = False,
+    kv_valid: int | None = None,
+) -> torch.Tensor:
+    """How far K4's bf16 output may lie from ``plain``, the plain version
+    stepped by ``K4_TILE_KV`` on the same operands, element by element.
+
+    The two run the same math; fp32 summation order and exp2f's
+    approximation differ. Where that rounds a P code (QK+PV tier) or a
+    bf16 p (QK tier) the other way, the row moves by at most ``vmax /
+    (127 * mass)`` (``vmax`` the channel's largest ``|v|``, ``mass`` from
+    :func:`int8_row_mass`; a bf16 p moves by less). The bound allows
+    ``K4_TILE_FLIPS`` such roundings, then one bf16 rounding apart. A
+    wrong row's error is of the size of its output, which at a large
+    mass lies far above the bound."""
+    mass = int8_row_mass(ops, q_segment_ids, kv_segment_ids, causal=causal,
+                         kv_valid=kv_valid)
+    if ops.v_scale is not None:
+        vmax = ops.v_scale * 127.0                       # [B, H, D]
+    else:
+        vmax = ops.v.float().abs().amax(dim=2)
+    flips = (K4_TILE_FLIPS / 127.0) * vmax[:, :, None, :] \
+        / mass.clamp(min=1.0)[..., None]
+    _, e = torch.frexp(plain.float().abs() + flips)
+    # bf16 has 8 significant bits: its ulp below 2**e is 2**(e - 8)
+    return flips + torch.ldexp(torch.ones_like(flips), e - 8)
+
+
+def _check_int8_operands(ops: Int8Operands, device):
+    for name, t in (("q8", ops.q8), ("k8", ops.k8)):
+        _check_layout("K4", name, t, torch.int8, device)
+    _check_layout("K4", "v", ops.v,
+                  torch.int8 if ops.v_scale is not None else torch.bfloat16,
+                  device)
+    b, h, sq, d = ops.q8.shape
+    nks = -(-ops.k8.shape[2] // ops.k_block)
+    for name, t, shape in (("q_scale", ops.q_scale, (b, h, sq)),
+                           ("k_scale", ops.k_scale, (b, h, nks)),
+                           ("v_scale", ops.v_scale, (b, h, d))):
+        if t is None:
+            continue
+        if t.shape != shape or t.dtype != torch.float32 \
+                or not t.is_contiguous() or t.device != device:
+            raise ValueError(f"K4 {name} must be contiguous fp32 {shape} on "
+                             f"{device}, got {t.dtype} {tuple(t.shape)}")
+
+
+def int8_attention_cuda(
+    ops: Int8Operands,
+    q_segment_ids: torch.Tensor | None = None,
+    kv_segment_ids: torch.Tensor | None = None,
+    *,
+    causal: bool = False,
+    kv_valid: int | None = None,
+    out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Launch K4 on prologue operands that lie on the card; the result is
+    bf16, written into ``out`` (any 16-byte aligned layout) if given.
+    Each launch adds one to ``flash_attention_int8.launches``."""
+    from . import _lib
+
+    _check_seg_pair(q_segment_ids, kv_segment_ids)
+    _check_int8_operands(ops, ops.q8.device)
+    b, h, sq, d = ops.q8.shape
+    skv = ops.k8.shape[2]
+    if out is None:
+        out = torch.empty(b, h, sq, d, dtype=torch.bfloat16,
+                          device=ops.q8.device)
+    elif out.shape != ops.q8.shape:
+        raise ValueError(f"K4 out must be {tuple(ops.q8.shape)}")
+    else:
+        _check_layout("K4", "out", out, torch.bfloat16, ops.q8.device)
+    seg_q = q_segment_ids.data_ptr() if q_segment_ids is not None else None
+    seg_kv = kv_segment_ids.data_ptr() if kv_segment_ids is not None else None
+    pv_int8 = ops.v_scale is not None
+    code = _lib.library().k4_flash_attention_int8(
+        ops.q8.data_ptr(), ops.k8.data_ptr(), ops.v.data_ptr(),
+        out.data_ptr(), seg_q, seg_kv, ops.q_scale.data_ptr(),
+        ops.k_scale.data_ptr(),
+        ops.v_scale.data_ptr() if pv_int8 else None,
+        b, h, sq, skv, d,
+        *ops.q8.stride()[:3], *ops.k8.stride()[:3], *ops.v.stride()[:3],
+        *out.stride()[:3],
+        ops.k_block, ops.k_scale.shape[2],
+        -1 if kv_valid is None else int(kv_valid), int(bool(causal)),
+        int(pv_int8), _lib.stream_ptr(ops.q8.device),
+    )
+    _lib.check(code, "K4 flash_attention_int8 launch")
+    flash_attention_int8.launches += 1
+    return out
+
+
+def flash_attention_int8(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_segment_ids: torch.Tensor | None = None,
+    kv_segment_ids: torch.Tensor | None = None,
+    *,
+    scale: float | None = None,
+    causal: bool = False,
+    kv_valid: int | None = None,
+    pv_int8: bool = True,
+) -> torch.Tensor:
+    """int8 flash attention over ``[B, H, S, D]``: the QK+PV tier
+    (``pallas_int8pv``) or, with ``pv_int8=False``, the QK tier
+    (``pallas_int8``), at JAX's default blocks.
+
+    CPU tensors take :func:`int8_attention_plain`; CUDA tensors (bf16,
+    D in {64, 128}) launch K4 or raise. The output has q's dtype and, on
+    the card, q's memory layout."""
+    _check_seg_pair(q_segment_ids, kv_segment_ids)
+    if q.device.type == "cuda":
+        _check_cuda_operands(q, k, v, q_segment_ids, kv_segment_ids, "K4")
+    elif q.device.type != "cpu":
+        raise ValueError(f"K4 runs on CUDA or the CPU, not {q.device}")
+    ops = int8_prologue(q, k, v, scale=scale, pv_int8=pv_int8)
+    if q.device.type == "cpu":
+        return int8_attention_plain(ops, q_segment_ids, kv_segment_ids,
+                                    causal=causal, kv_valid=kv_valid,
+                                    out_dtype=q.dtype)
+    return int8_attention_cuda(ops, q_segment_ids, kv_segment_ids,
+                               causal=causal, kv_valid=kv_valid,
+                               out=torch.empty_like(q))
+
+
+flash_attention_int8.launches = 0
 
 
 def attention_flops(b: int, h: int, sq: int, skv: int, d: int) -> int:

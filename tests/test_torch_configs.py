@@ -32,6 +32,40 @@ def test_pipeline_configs_equal_jax(name):
     assert tcfg.LTX_PIPELINE_CONFIGS[name]["guidance_scale"] != -1
 
 
+def test_wan_configs_equal_jax():
+    assert tcfg.WAN_SHARED == jcfg.WAN_SHARED
+    assert tcfg.WAN_CONFIGS == jcfg.WAN_CONFIGS
+    assert tcfg.WAN_SUPPORTED_SIZES == jcfg.WAN_SUPPORTED_SIZES
+
+
+def test_wan_model_configs_equal_jax():
+    """The Wan DiT, VAE and UMT5 configs; the DiT configs agree with the
+    registry."""
+    import dataclasses
+
+    from ltx_video_gpupoor_tpu.models import t5 as jt5
+    from ltx_video_gpupoor_tpu.models.wan import model as jwm
+    from ltx_video_gpupoor_tpu.models.wan import vae as jwv
+    from ltx_video_gpupoor_tpu_torch.models import t5 as tt5
+    from ltx_video_gpupoor_tpu_torch.models.wan import model as twm
+    from ltx_video_gpupoor_tpu_torch.models.wan import vae as twv
+
+    for t, j in ((twm.WAN_T2V_1_3B, jwm.WAN_T2V_1_3B),
+                 (twm.WAN_T2V_14B, jwm.WAN_T2V_14B),
+                 (twm.WanConfig(), jwm.WanConfig()),
+                 (twv.WanVAEConfig(), jwv.WanVAEConfig()),
+                 (tt5.UMT5_XXL, jt5.UMT5_XXL), (tt5.T5_XXL, jt5.T5_XXL)):
+        assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    for name, cfg in (("t2v-1.3B", twm.WAN_T2V_1_3B),
+                      ("t2v-14B", twm.WAN_T2V_14B)):
+        reg = tcfg.WAN_CONFIGS[name]
+        assert all(getattr(cfg, f) == reg[f] for f in
+                   ("dim", "ffn_dim", "freq_dim", "num_heads", "num_layers",
+                    "model_type", "text_len", "patch_size"))
+    np.testing.assert_array_equal(twv.WAN_LATENT_MEAN, jwv.WAN_LATENT_MEAN)
+    np.testing.assert_array_equal(twv.WAN_LATENT_STD, jwv.WAN_LATENT_STD)
+
+
 def test_vae_config_equal_jax():
     assert tvae.LTX_VAE_CONFIG_097 == jvae.LTX_VAE_CONFIG_097
     t = tvae.VAEConfig.from_dict(tvae.LTX_VAE_CONFIG_097)
@@ -80,7 +114,7 @@ def test_port_imports_without_jax():
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m.startswith('ltx_video_gpupoor_tpu.'))\n"
         "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 15 else 0)\n"
+        "sys.exit(1 if bad or len(names) < 22 else 0)\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

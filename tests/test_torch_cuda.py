@@ -1,4 +1,4 @@
-"""Kernels K1 and K2 on the card against their plain versions.
+"""Kernels K1, K2 and K4 on the card against their plain versions.
 
 This file imports torch and the port only (no jax), so it runs on the
 machine with the GPU:  python -m pytest tests/test_torch_cuda.py -q
@@ -6,6 +6,18 @@ Every test takes the ``cuda`` fixture, which skips where there is no CUDA
 device; the marker ``cuda`` selects them. Tolerances: K1 bf16 against the
 fp32 plain version at atol = rtol = 2e-2; K2's int8 activations and int32
 accumulators exactly, its outputs at 1e-2 relative (one bf16 rounding).
+K4 (int8 attention, both tiers) against its plain version on the same
+prologue operands, stepping its online softmax (a) by the kernel's 64-row
+tile, the same math: every element within ``int8_tile_bound`` (a few P
+codes that round the other way, each moving a row by at most
+max|v| / (127 * its softmax mass), then one bf16 rounding), and the mean
+abs difference under 5e-4 of the mean |output|; (b) by JAX's kv block,
+where P is quantized against other running maxima: max < 1e-1, mean
+< 1e-3. Against exact fp32 attention the kernel's mean abs error is at
+most 1.1x the plain version's: it adds no error to the tier's own.
+(The 3e-2 max bound of the JAX tier tests holds on their inputs; the
+tiers' own math exceeds it on other draws, 0.05 at worst in 12 CPU
+draws, so it is no bound for every input.)
 """
 
 import numpy as np
@@ -106,3 +118,86 @@ def test_k2_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="on cpu"):
         im.int8_linear(torch.zeros(3, 48, device=cuda), w8,
                        torch.ones(32))
+
+
+K4_BLOCK_MAX, K4_BLOCK_MEAN = 1e-1, 1e-3
+
+
+def _k4_tile_ok(ops, kern, tile, *args, **kw):
+    """K4's output against the plain version stepped by K4's tile."""
+    diff = (kern.float() - tile.float()).abs()
+    bound = fa.int8_tile_bound(ops, tile, *args, **kw)
+    return (float((diff / bound).max()) <= 1.0 and float(diff.mean())
+            <= fa.K4_TILE_MEAN_REL * float(tile.float().abs().mean()))
+
+
+@pytest.mark.parametrize("pv_int8", [True, False])
+@pytest.mark.parametrize("d,sq,skv,seg,causal,kv_valid,block_kv", [
+    (128, 300, 300, False, False, None, 4096),   # ragged S
+    (64, 256, 700, False, False, None, 256),     # several kv blocks, D=64
+    (128, 130, 77, True, False, None, 4096),     # text segments, a lost row
+    (128, 500, 500, False, False, 333, 128),     # kv_valid tail
+    (64, 200, 200, False, True, None, 128),      # causal
+])
+def test_k4_matches_plain(cuda, pv_int8, d, sq, skv, seg, causal, kv_valid,
+                          block_kv):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (_randn(gen, 2, 3, n, d).bfloat16() for n in (sq, skv, skv))
+    args = []
+    if seg:
+        args = [torch.ones(2, sq, dtype=torch.int32, device=cuda),
+                torch.ones(2, skv, dtype=torch.int32, device=cuda)]
+        args[1][0, 40:] = 0
+        args[0][1, 5] = 7                      # sees no key
+    kw = dict(causal=causal, kv_valid=kv_valid)
+    before = fa.flash_attention_int8.launches
+    out = fa.flash_attention_int8(q, k, v, *args, pv_int8=pv_int8, **kw)
+    assert fa.flash_attention_int8.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    kern = fa.int8_attention_cuda(fa.int8_prologue(q, k, v, pv_int8=pv_int8),
+                                  *args, **kw)
+    assert fa.flash_attention_int8.launches == before + 2
+    torch.testing.assert_close(out, kern, atol=0, rtol=0)
+    ops = fa.int8_prologue(q, k, v, pv_int8=pv_int8, block_kv=block_kv)
+    kern = fa.int8_attention_cuda(ops, *args, **kw)
+    tile = fa.int8_attention_plain(ops, *args, block_kv=fa.K4_TILE_KV,
+                                   out_dtype=q.dtype, **kw)
+    assert _k4_tile_ok(ops, kern, tile, *args, **kw)
+    plain = fa.int8_attention_plain(ops, *args, out_dtype=q.dtype, **kw)
+    block = (kern.float() - plain).abs()
+    assert float(block.max()) < K4_BLOCK_MAX
+    assert float(block.mean()) < K4_BLOCK_MEAN
+    exact = fa.reference_attention(q.float(), k.float(), v.float(), *args,
+                                   **kw)
+    assert float((kern.float() - exact).abs().mean()) <= \
+        1.1 * float((plain - exact).abs().mean()) + 1e-5
+    if seg:
+        assert float(out[1, :, 5].float().abs().max()) == 0.0
+
+
+def test_k4_reads_head_split_views(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    b, s, h, d = 2, 97, 4, 128
+    q, k, v = (_randn(gen, b, s, h * d).bfloat16().view(b, s, h, d)
+               .transpose(1, 2) for _ in range(3))
+    out = fa.flash_attention_int8(q, k, v)
+    assert out.stride() == q.stride()
+    ops = fa.int8_prologue(q, k, v)
+    ref = fa.int8_attention_plain(ops, block_kv=fa.K4_TILE_KV,
+                                  out_dtype=q.dtype)
+    assert _k4_tile_ok(ops, out, ref)
+
+
+def test_k4_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 1, 8, 32, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention_int8(q, q, q)
+    q = torch.zeros(1, 1, 8, 128, device=cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fa.flash_attention_int8(q, q, q)
+    q = torch.zeros(1, 1, 8, 128, dtype=torch.bfloat16, device=cuda)
+    ops = fa.int8_prologue(q, q, q)
+    with pytest.raises(ValueError, match="int8 v"):
+        fa.int8_attention_cuda(ops._replace(v=q))
+    with pytest.raises(ValueError, match="k_scale"):
+        fa.int8_attention_cuda(ops._replace(k_scale=ops.k_scale[..., :0]))
