@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's text-to-video paths on one NVIDIA GPU:
-LTX-Video 2B and Wan 2.1 t2v-1.3B.
+"""Drive the PyTorch port's paths on one NVIDIA GPU: LTX-Video 2B
+text-to-video, LTX-Video 13B image-to-video through the two-pass
+multi-scale pipeline, and Wan 2.1 t2v-1.3B.
 
-    python3 chip_smoke.py              # one card; a few minutes on an H100
+    python3 chip_smoke.py              # one card; several minutes on an H100
     python3 chip_smoke.py --profile    # and device-time breakdowns
 
 Phases, one output line each (or a few):
@@ -12,36 +13,86 @@ Phases, one output line each (or a few):
 3. K1       the attention kernel against its plain version at the main
             path's shapes (self-attention B=3 H=32 S=5280 D=64; cross-
             attention to 256 masked text tokens with one q row that sees
-            no key; D=128; ragged S), bf16 against fp32, atol=rtol=2e-2.
-4. K2       the dynamic-int8 linear at every main-path shape (LTX-2B and
-            Wan-1.3B): the int8 activations and int32 accumulators equal
+            no key; the 13B shapes B=1 H=32 S=3840 and 15360 D=128 on
+            head-split views, cross-attention to 256 text tokens with
+            segments and self-attention; ragged S), bf16 against fp32,
+            atol=rtol=2e-2.
+4. K2       the dynamic-int8 linear at every main-path shape (LTX-2B,
+            Wan-1.3B and LTX-13B at both passes' token counts: 4096->4096,
+            4096->16384, 16384->4096, patchify, proj_out, the caption and
+            adaLN projections): the int8 activations and int32 accumulators equal
             the plain version's exactly, the outputs agree to 1e-2
             relative.
 5. K4       the int8 attention kernel, both tiers (QK+PV, QK), against its
             plain version on the same prologue operands at the Wan shapes
             (self-attention B=2 H=12 S=32760 D=128 on head-split views;
             cross-attention to 512 text tokens with padding and a q row
-            that sees no key), and at D=64, ragged, kv_valid and causal
+            that sees no key), at the 13B shapes (self-attention B=1 H=32
+            S=3840 and 15360 D=128; cross-attention to 256 text tokens
+            with segments), and at D=64, ragged, kv_valid and causal
             shapes. The plain version steps its online softmax by the
             kernel's 64-row tile, the kernel's math: every element within
             int8_tile_bound (a few P codes apart, each worth max|v| /
             (127 * the row's softmax mass), then one bf16 rounding), the
             mean difference under 5e-4 of the mean |output|; planted
-            faults at the self-attention shape (the last q tile zeroed,
+            faults at the self-attention shapes (the last q tile zeroed,
             a channel without its v scale) must fail that check. By JAX's
             kv block: max < 1e-1, mean < 1e-3. Against exact fp32
             attention the kernel's mean abs error is at most 1.1x the
             plain version's.
+5b. K3     the bounded-score tier of the exact kernel against its plain
+            version at the 13B shapes (self-attention B=1 H=32 S=3840 and
+            15360 D=128 on head-split views; cross-attention to 256 text
+            tokens with padding and a q row that sees no key) and at
+            ragged, kv_valid, causal and D=64 shapes, with one q row whose
+            scores lie over the bound: every element within two bf16 ulps
+            of the plain version plus 2**-9 of its largest output; planted
+            faults (the last q tile zeroed, a head scaled by 1 + 2**-5)
+            must fail that check.
+5c. K5     the fused adaLN prologue + int8 linear at the 13B shapes (M
+            3840 and 15360, K 4096, N 12288 and 16384, 16 groups, so a
+            group edge lies inside a GEMM tile) and at a ragged one: the
+            int8 codes and row scales of the row kernel and the int32
+            product equal the plain version's exactly, the outputs agree
+            to 1e-2 relative; a planted fault (two groups' modulation rows
+            swapped) must fail the check.
+5d. K6     the head-packed kernel against its plain version at the 13B
+            shapes (B=1 S=3840 and 15360, 32 heads of 128), at the LTX-2B
+            shape (B=3 S=5280, 32 heads of 64), on slices of a fused q/k/v
+            projection, ragged with a kv_valid tail and with an odd head
+            count: K3's check and planted faults.
 6. timing   each kernel and its plain version, CUDA events, median of 5
-            (K4's plain version at the self-attention shape: median of 3).
+            (plain versions at the large attention shapes: median of 3),
+            and the one PyTorch call that computes the same function where
+            there is one (scaled_dot_product_attention for K1 and K6,
+            torch._int_mm for K2's GEMM alone), timed here and used
+            nowhere in the port; each kernel's bound (the larger of its
+            operations over the card's peak rate and its bytes over the
+            memory rate) is computed from the timed shapes.
 7. path     LTX-2B at full width (28 layers, 32x64 heads, int8_dynamic),
             the 0.9.7 VAE decoder and T5-XXL, random weights from seeds:
             a 2-layer cut of the DiT on the card against the plain
-            versions on the CPU, then three requests through
+            versions on the CPU, then two requests through
             a T5 encode of seeded token ids and LTXVideoGenerator.generate
-            (256x256x9, 512x320x41, 704x480x121; 8 steps, CFG + STG,
-            stochastic sampling, decode noise), each with its stage times
-            (T5, denoise, decode), peak memory and kernel launch counts.
+            (256x256x9, 704x480x121; 8 steps, CFG + STG, stochastic
+            sampling, decode noise), each with its stage times (T5,
+            denoise, decode), peak memory and kernel launch counts.
+7b. ltx13b  the LTX-2B DiT is freed; LTX-13B at full width and depth (48
+            layers, 32x128 heads, inner 4096, int8_dynamic, built and
+            quantized layer by layer), the 0.9.7 VAE with its encoder, the
+            latent upsampler (mid 512, 4 blocks a stage) and the same
+            T5-XXL: a 2-layer cut of the DiT on the card against the plain
+            versions on the CPU in each tier, then three image-to-video
+            requests at 992x608x121 from a seeded synthetic image through
+            LTXVideoGenerator.generate with ltxv-13b-0.9.7-distilled (pass
+            1 at 640x384, 3840 tokens, 7 steps; latent upsample; AdaIN;
+            pass 2 at 1280x768, 15360 tokens, 3 steps; VAE decode in
+            temporal tiles; resize back): (a) auto (K4 + K2), (b)
+            pallas_hp with the fused prologue (K6, K5, K1 for the
+            cross-attention, K2 for the rest), (c) attention_score_bound=40
+            (K3 + K2). The launch counts are read per pass; the script
+            fails unless K5 and K6 were launched in both passes of (b) and
+            K3 in both passes of (c).
 8. wan      the LTX models are freed; Wan 2.1 t2v-1.3B at full width (30
             layers, 12x128 heads, ffn 8960, int8_dynamic), UMT5-XXL (24
             layers, d 4096, bf16) and the Wan VAE decoder (dim 96, z 16),
@@ -54,12 +105,17 @@ Phases, one output line each (or a few):
             tokens a stream) in the default tier (K4 QK+PV) and in the
             QK tier, and 832x480x81 (32760 tokens); stage times, peak
             memory, launch counts of K2 and K4.
-9. profile  only with --profile: one more 704x480x121 LTX request and one
-            more 832x480x81 Wan request under torch.profiler; device span,
-            busy time, idle share and device time by kernel group (K1, K2,
-            K4, ...), read from the exported traces.
+9. profile  only with --profile: one more 704x480x121 LTX-2B request, one
+            more 13B request of kind (b) and one of kind (c) and one more
+            832x480x81 Wan request under torch.profiler; device span, busy
+            time, idle share and device time by kernel group (K1/K6, K3,
+            K2, K4, K5, ...), read from the exported traces; the build
+            phase also builds once with one source after another and
+            prints that time beside the parallel build's.
 
-Then a JSON line with one entry per kernel, and last the line
+Then a JSON line with one entry per kernel (its launches on its path, its
+error against the plain version, its time, the plain version's, its bound
+and the library call's), and last the line
 {"ok": true, "device": {...}}. Any failure raises: the script exits
 nonzero and prints no result. It needs CUDA and this repository.
 """
@@ -82,6 +138,14 @@ K2_SOURCE = "ltx_video_gpupoor_tpu_torch/csrc/int8_linear.cu"
 K2_REPLACES = "ltx_video_gpupoor_tpu/ops/int8_matmul.py:40"
 K4_SOURCE = "ltx_video_gpupoor_tpu_torch/csrc/flash_attention_int8.cu"
 K4_REPLACES = "ltx_video_gpupoor_tpu/ops/flash_attention.py:160"
+K3_REPLACES = "ltx_video_gpupoor_tpu/ops/flash_attention.py:294"
+K5_SOURCE = "ltx_video_gpupoor_tpu_torch/csrc/fused_prologue.cu"
+K5_REPLACES = "ltx_video_gpupoor_tpu/ops/fused_prologue.py:104"
+K6_REPLACES = "ltx_video_gpupoor_tpu/ops/flash_attention.py:663"
+# the card's published peaks (H100 SXM, dense): operations per second by
+# operand type, and bytes per second of device memory
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
+PEAK_BYTES = 3.35e12
 # K4 against its plain version stepped by JAX's kv block (see _k4_case):
 # P against other running maxima (0.034 max, 1.4e-4 mean emulated on the
 # CPU at the cross shape)
@@ -119,7 +183,42 @@ WAN_REQUESTS = [(480, 832, 17, "auto"), (480, 832, 17, "pallas_int8"),
 WAN_STEPS = 4
 WAN_CFG_ZERO_STEP = 0    # the default 5 of 50 steps, cut with the steps
 
-REQUESTS = [(256, 256, 9), (320, 512, 41), (480, 704, 121)]  # (H, W, F)
+REQUESTS = [(256, 256, 9), (480, 704, 121)]  # (H, W, F)
+
+# LTX-13B: image-to-video at 992x608x121 (pass 1 at 640x384 = 16 x 12 x 20
+# latents = 3840 tokens, pass 2 at 1280x768 = 15360 tokens); attention
+# shapes (B, H, Sq, Skv, D) and the fused prologue's (M, K, N, groups)
+LTX13B_REQUEST = (608, 992, 121)
+LTX13B_PASS_TOKENS = (3840, 15360)
+LTX13B_SELF = [(1, 32, n, n, 128) for n in LTX13B_PASS_TOKENS]
+LTX13B_CROSS = [(1, 32, n, 256, 128) for n in LTX13B_PASS_TOKENS]
+K5_SHAPES = [("pass 1 qkv", 3840, 4096, 12288, 16),
+             ("pass 1 proj_in", 3840, 4096, 16384, 16),
+             ("pass 2 qkv", 15360, 4096, 12288, 16),
+             ("pass 2 proj_in", 15360, 4096, 16384, 16)]
+K5_TIMED = "pass 2 qkv"
+LTX13B_BOUND = 40.0
+# the 13B DiT's linears that K2 runs (tiers a and c: all of them; tier b:
+# those the fused prologue does not take), one stream of each pass's
+# tokens, 256 text tokens, 16 latent frames with a timestep each
+for _p, _m in enumerate(LTX13B_PASS_TOKENS, 1):
+    K2_SHAPES += [
+        (f"13B pass {_p} qkvo 4096->4096", _m, 4096, 4096, "bf16"),
+        (f"13B pass {_p} ffn_in 4096->16384", _m, 4096, 16384, "bf16"),
+        (f"13B pass {_p} ffn_out 16384->4096", _m, 16384, 4096, "bf16"),
+        (f"13B pass {_p} patchify 128->4096", _m, 128, 4096, "bf16"),
+        (f"13B pass {_p} proj_out 4096->128", _m, 4096, 128, "bf16"),
+    ]
+K2_SHAPES += [
+    ("13B caption, cross kv 4096->4096 M=256", 256, 4096, 4096, "bf16"),
+    ("13B adaln emb 256->4096 M=16", 16, 256, 4096, "fp32"),
+    ("13B adaln emb 4096->4096 M=16", 16, 4096, 4096, "fp32"),
+    ("13B adaln 4096->24576 M=16", 16, 4096, 24576, "fp32"),
+]
+# (name, attention mode, fused prologue on, score bound)
+LTX13B_TIERS = [("a: auto", "auto", False, None),
+                ("b: pallas_hp + fused prologue", "pallas_hp", True, None),
+                ("c: score bound", "auto", False, LTX13B_BOUND)]
 
 
 def log(msg: str) -> None:
@@ -166,9 +265,14 @@ def phase_device():
     return name, (smi[0] if smi else "")
 
 
-def phase_build():
+def phase_build(compare=False):
+    """Build the kernel library, every source's nvcc started together;
+    ``compare``: first once with one source after another, for its time."""
     from ltx_video_gpupoor_tpu_torch.ops import _lib
 
+    if compare:
+        log(f"[build] one source after another: "
+            f"{_lib.build(force=True, parallel=False)[1]:.2f} s")
     path, seconds, report = _lib.build(force=True)
     _lib.library()
     lines = [ln.strip() for ln in report.splitlines()
@@ -213,12 +317,12 @@ def _k1_case(name, b, h, sq, skv, d, *, packed=False, seg=None, causal=False,
                              kv_valid=kv_valid)
     torch.cuda.synchronize()
     err = 0.0
-    for i in range(b):        # the fp32 plain version, one batch row at a time
-        sl = slice(i, i + 1)
-        ref = fa.reference_attention(
-            q[sl].float(), k[sl].float(), v[sl].float(),
-            *(s_[sl] if s_ is not None else None for s_ in segs),
-            causal=causal, kv_valid=kv_valid)
+    for i in range(b):        # the fp32 plain version, one batch row and a
+        sl = slice(i, i + 1)  # few heads at a time
+        seg_i = [s_[sl] if s_ is not None else None for s_ in segs]
+        ref = _by_heads(lambda a, b_, c: fa.reference_attention(
+            a, b_, c, *seg_i, causal=causal, kv_valid=kv_valid),
+            q[sl].float(), k[sl].float(), v[sl].float())
         torch.testing.assert_close(out[sl].float(), ref, atol=2e-2, rtol=2e-2,
                                    msg=lambda m: f"K1 {name}: {m}")
         err = max(err, float((out[sl].float() - ref).abs().max()))
@@ -242,6 +346,8 @@ def _cross_segments(b, sq, skv):
 
 
 def phase_k1(gen):
+    import torch
+
     errs = []
     e, out, _ = _k1_case("self-attention", 3, 32, 5280, 5280, 64,
                          packed=True, gen=gen)
@@ -252,6 +358,17 @@ def phase_k1(gen):
     assert float(out[0, :, 17].float().abs().max()) == 0.0, \
         "K1: a row with no valid key must be 0"
     errs.append(_k1_case("D=128", 1, 8, 2048, 2048, 128, gen=gen)[0])
+    # the 13B path: tier (b) runs its cross-attention through K1
+    for i, shape in enumerate(LTX13B_CROSS):
+        e, out, _ = _k1_case(f"13B cross-attention pass {i + 1}", *shape,
+                             packed=True, seg=_cross_segments, gen=gen)
+        errs.append(e)
+        assert float(out[0, :, 17].float().abs().max()) == 0.0, \
+            "K1: a row with no valid key must be 0"
+    for i, shape in enumerate(LTX13B_SELF):
+        errs.append(_k1_case(f"13B self-attention pass {i + 1}", *shape,
+                             packed=True, gen=gen)[0])
+        torch.cuda.empty_cache()
     errs.append(_k1_case("ragged S, kv_valid", 2, 4, 1000, 1000, 64,
                          kv_valid=777, gen=gen)[0])
     errs.append(_k1_case("ragged causal", 1, 2, 333, 333, 128, causal=True,
@@ -417,8 +534,8 @@ def _k4_case(name, b, h, sq, skv, d, *, pv_int8, gen, packed=False,
 
 
 def phase_k4(gen):
-    """Both tiers at the Wan shapes and at the edges; returns the worst
-    error per tier."""
+    """Both tiers at the Wan and the 13B shapes and at the edges; returns
+    the worst error per tier."""
     import torch
 
     from ltx_video_gpupoor_tpu_torch.ops import flash_attention as fa
@@ -430,6 +547,15 @@ def phase_k4(gen):
         errs[pv].append(_k4_case("wan cross-attention", *WAN_CROSS,
                                  pv_int8=pv, gen=gen, packed=True,
                                  seg=_cross_segments))
+        # the 13B path: tier (a) runs both attentions through K4
+        for i, shape in enumerate(LTX13B_SELF):
+            errs[pv].append(_k4_case(f"13B self-attention pass {i + 1}",
+                                     *shape, pv_int8=pv, gen=gen, packed=True,
+                                     plant=i == 1))
+        for i, shape in enumerate(LTX13B_CROSS):
+            errs[pv].append(_k4_case(f"13B cross-attention pass {i + 1}",
+                                     *shape, pv_int8=pv, gen=gen, packed=True,
+                                     seg=_cross_segments))
         errs[pv].append(_k4_case("D=64 ragged S, kv_valid", 2, 4, 1000, 1000,
                                  64, pv_int8=pv, gen=gen, kv_valid=777))
         errs[pv].append(_k4_case("D=64 text segments", 3, 4, 700, 300, 64,
@@ -447,6 +573,278 @@ def phase_k4(gen):
 
 
 # --------------------------------------------------------------------------
+# phases 5b-5d: K3, K6 (the exact kernel's other entries) and K5
+# --------------------------------------------------------------------------
+
+def _by_heads(fn, q, k, v, heads_per_call=4):
+    """``fn(q, k, v)`` over ``[B, H, S, D]`` a few heads at a time: the
+    plain versions hold whole score matrices (2**30 fp32 scores for 4
+    heads at S=15360)."""
+    import torch
+
+    return torch.cat([fn(q[:, h0:h0 + heads_per_call],
+                         k[:, h0:h0 + heads_per_call],
+                         v[:, h0:h0 + heads_per_call])
+                      for h0 in range(0, q.shape[1], heads_per_call)], dim=1)
+
+
+def _exact_check(kern, plain):
+    """The exact kernel's entries (K3, K6) against their plain versions on
+    the same bf16 operands. The two differ by fp32 summation order,
+    exp2f's approximation and the final bf16 rounding, so every element
+    must lie within two bf16 ulps of the plain version (2**-7 relative)
+    plus 2**-9 of its largest output (for outputs near 0, where the
+    summands cancel). Returns (largest |difference| / bound, max abs
+    error)."""
+    diff = (kern.float() - plain.float()).abs()
+    bound = plain.float().abs() * 2.0 ** -7 \
+        + float(plain.float().abs().max()) * 2.0 ** -9
+    return float((diff / bound).max()), float(diff.max())
+
+
+def _exact_planted(name, kern, plain, head_axis):
+    """Two planted faults must fail ``_exact_check``: the last 64-row q
+    tile zeroed, and one head scaled by 1 + 2**-5 (four bf16 ulps)."""
+    seq_axis = 2 if head_axis == 1 else 1
+    n = kern.shape[seq_axis]
+    zeroed = kern.clone()
+    zeroed.narrow(seq_axis, (n - 1) // 64 * 64, n - (n - 1) // 64 * 64).zero_()
+    scaled = kern.clone()
+    if head_axis == 1:
+        scaled[:, 1] = (scaled[:, 1].float() * (1 + 2.0 ** -5)).to(kern.dtype)
+    else:       # packed [B, S, H*D]: head 1 is the second block of columns
+        d = plain.shape[-1] // head_axis
+        scaled[..., d:2 * d] = (scaled[..., d:2 * d].float()
+                                * (1 + 2.0 ** -5)).to(kern.dtype)
+    found = []
+    for fault, out in (("last q tile zeroed", zeroed),
+                       ("a head scaled by 1 + 2**-5", scaled)):
+        ratio, _ = _exact_check(out, plain)
+        assert ratio > 1.0, f"{name}: the check passes a planted fault ({fault})"
+        found.append(f"{fault}: {ratio:.1f} of the bound")
+    return "; planted faults fail it (" + "; ".join(found) + ")"
+
+
+def _k3_case(name, b, h, sq, skv, d, *, gen, bound=LTX13B_BOUND, packed=False,
+             seg=None, causal=False, kv_valid=None, plant=False):
+    """K3 against its plain version; one q row is scaled so that its
+    scores lie over the bound (they tie at it in both)."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = (_heads(b, h, n, d, gen, packed) for n in (sq, skv, skv))
+    q[0, 0, min(3, sq - 1)] *= 60
+    segs = seg(b, sq, skv) if seg else (None, None)
+    kw = dict(causal=causal, kv_valid=kv_valid, score_bound=bound)
+    before = fa.flash_attention.launches
+    kern = fa.flash_attention(q, k, v, *segs, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before, "K3 counted as K1"
+    assert torch.isfinite(kern.float()).all(), f"K3 {name}: non-finite"
+    plain = _by_heads(lambda a, b_, c: fa.bounded_attention_plain(
+        a, b_, c, *segs, **kw), q, k, v)
+    ratio, err = _exact_check(kern, plain)
+    assert ratio <= 1.0, (f"K3 {name}: max_abs_err {err:.3e}, {ratio:.3f} of "
+                          "the bound")
+    planted = _exact_planted(f"K3 {name}", kern, plain, 1) if plant else ""
+    if seg:
+        assert float(kern[0, :, 17].float().abs().max()) == 0.0, \
+            f"K3 {name}: a row with no valid key must be 0"
+    log(f"[K3] {name}: B={b} H={h} Sq={sq} Skv={skv} D={d} bound={bound} "
+        f"max_abs_err={err:.3e}, {ratio:.3f} of the bound{planted} ok")
+    return err
+
+
+def phase_k3(gen):
+    import torch
+
+    errs = []
+    for i, shape in enumerate(LTX13B_SELF):
+        errs.append(_k3_case(f"13B self-attention pass {i + 1}", *shape,
+                             gen=gen, packed=True, plant=i == 1))
+        torch.cuda.empty_cache()
+    for i, shape in enumerate(LTX13B_CROSS):
+        errs.append(_k3_case(f"13B cross-attention pass {i + 1}", *shape,
+                             gen=gen, packed=True, seg=_cross_segments))
+    errs.append(_k3_case("D=64 ragged S, kv_valid", 2, 4, 1000, 1000, 64,
+                         gen=gen, kv_valid=777, bound=20.0))
+    errs.append(_k3_case("D=64 text segments", 3, 4, 700, 300, 64, gen=gen,
+                         seg=_cross_segments, bound=20.0))
+    errs.append(_k3_case("ragged causal", 1, 2, 333, 333, 128, gen=gen,
+                         causal=True, bound=20.0))
+    torch.cuda.empty_cache()
+    return max(errs)
+
+
+def _k6_case(name, b, s, heads, d, *, gen, kv_valid=None, fused_qkv=False,
+             plant=False):
+    """K6 against its plain version on ``[B, S, H*D]`` operands (slices of
+    one fused projection with ``fused_qkv``)."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    if fused_qkv:
+        qkv = torch.randn(b, s, 3 * heads * d, generator=gen, device=dev,
+                          dtype=torch.bfloat16)
+        q, k, v = qkv.chunk(3, dim=-1)
+    else:
+        q, k, v = (torch.randn(b, s, heads * d, generator=gen, device=dev,
+                               dtype=torch.bfloat16) for _ in range(3))
+    kern = fa.flash_attention_hp(q, k, v, heads=heads, kv_valid=kv_valid)
+    torch.cuda.synchronize()
+    assert kern.shape == q.shape and kern.is_contiguous()
+    assert torch.isfinite(kern.float()).all(), f"K6 {name}: non-finite"
+
+    def split(t):
+        return t.reshape(b, t.shape[1], heads, d).transpose(1, 2)
+
+    plain = _by_heads(lambda a, b_, c: fa.reference_attention(
+        a, b_, c, kv_valid=kv_valid), split(q), split(k), split(v))
+    plain = plain.transpose(1, 2).reshape(b, s, heads * d)
+    ratio, err = _exact_check(kern, plain)
+    assert ratio <= 1.0, (f"K6 {name}: max_abs_err {err:.3e}, {ratio:.3f} of "
+                          "the bound")
+    planted = _exact_planted(f"K6 {name}", kern, plain, heads) if plant else ""
+    log(f"[K6] {name}: B={b} S={s} H={heads} D={d} kv_valid={kv_valid} "
+        f"max_abs_err={err:.3e}, {ratio:.3f} of the bound{planted} ok")
+    return err
+
+
+def phase_k6(gen):
+    import torch
+
+    errs = []
+    for i, (b, h, n, _, d) in enumerate(LTX13B_SELF):
+        errs.append(_k6_case(f"13B self-attention pass {i + 1}", b, n, h, d,
+                             gen=gen, fused_qkv=True, plant=i == 1))
+        torch.cuda.empty_cache()
+    errs.append(_k6_case("LTX-2B self-attention, D=64 pairs", 3, 5280, 32, 64,
+                         gen=gen))
+    errs.append(_k6_case("ragged S, kv_valid, D=64", 2, 1000, 4, 64, gen=gen,
+                         kv_valid=777))
+    errs.append(_k6_case("odd head count, D=64", 1, 333, 3, 64, gen=gen,
+                         fused_qkv=True))
+    torch.cuda.empty_cache()
+    return max(errs)
+
+
+def _k5_operands(m, k, n, groups, gen, bias=True):
+    """x with rows of varied size (one of them 0), adaLN rows, int8 weights
+    as q, k, v side by side."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.ops.quant import quantize_weights
+
+    dev = torch.device("cuda")
+    x = torch.randn(m, k, generator=gen, device=dev)
+    x = (x * torch.rand(m, 1, generator=gen, device=dev) * 4).bfloat16()
+    x[1] = 0
+    scale = (torch.randn(groups, k, generator=gen, device=dev) * 0.3).bfloat16()
+    shift = (torch.randn(groups, k, generator=gen, device=dev) * 0.3).bfloat16()
+    ql = quantize_weights(torch.randn(n, k, generator=gen, device=dev)
+                          * k ** -0.5)
+    b = torch.randn(n, generator=gen, device=dev) * 0.1 if bias else None
+    return x, scale, shift, ql.w_int8, ql.scale, b
+
+
+def _k5_agrees(x, scale, shift, w8, sw, bias, rows, eps, plain_mod=None):
+    """Whether K5 on ``(x, scale, shift)`` equals the plain version (on
+    ``plain_mod`` = other (scale, shift) to plant a fault): int8 codes, row
+    scales and the int32 product exactly, outputs to 1e-2 relative.
+    Returns (ok, max abs error, what failed)."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.ops import fused_prologue as fp
+    from ltx_video_gpupoor_tpu_torch.ops import int8_matmul as im
+
+    p_scale, p_shift = plain_mod or (scale, shift)
+    kw = dict(rows_per_group=rows, eps=eps)
+    hq, sx, acc = fp.norm_mod_int8_acc(x, scale, shift, w8, **kw)
+    out = fp.norm_mod_int8_matmul(x, scale, shift, w8, sw, bias, **kw)
+    torch.cuda.synchronize()
+    pq, ps = fp.norm_mod_quantize_plain(x, p_scale, p_shift, **kw)
+    failed = []
+    if not torch.equal(hq, pq):
+        failed.append(f"int8 codes differ in {float((hq != pq).float().mean()):.2e}"
+                      " of the elements")
+    if not torch.equal(sx, ps[:, 0]):
+        failed.append("row scales differ")
+    if not torch.equal(acc, im.int8_gemm_acc_plain(pq, w8)):
+        failed.append("int32 products differ")
+    ref = fp.norm_mod_int8_matmul_plain(x, p_scale, p_shift, w8, sw, bias, **kw)
+    err = float((out.float() - ref.float()).abs().max())
+    if not torch.allclose(out.float(), ref.float(), rtol=1e-2, atol=1e-6):
+        failed.append(f"outputs differ (max {err:.3e})")
+    assert out.dtype == x.dtype and out.shape == (x.shape[0], w8.shape[0])
+    return not failed, err, "; ".join(failed)
+
+
+def phase_k5(gen):
+    import torch
+
+    worst = 0.0
+    cases = [(name, m, k, n, g, True) for name, m, k, n, g in K5_SHAPES]
+    cases.append(("ragged M=240, N=200, 3 groups, no bias", 240, 4096, 200, 3,
+                  False))
+    for name, m, k, n, g, bias in cases:
+        x, scale, shift, w8, sw, b = _k5_operands(m, k, n, g, gen, bias)
+        ok, err, why = _k5_agrees(x, scale, shift, w8, sw, b, m // g, 1e-6)
+        assert ok, f"K5 {name}: {why}"
+        planted = ""
+        if name == K5_TIMED:
+            swapped = (scale.roll(1, 0), shift.roll(1, 0))
+            bad, _, why = _k5_agrees(x, scale, shift, w8, sw, b, m // g, 1e-6,
+                                     plain_mod=swapped)
+            assert not bad, "K5: the check passes a planted fault"
+            planted = f"; a planted fault (groups' rows swapped) fails it ({why})"
+        worst = max(worst, err)
+        log(f"[K5] {name}: M={m} K={k} N={n} groups={g} rows/group={m // g} "
+            f"int8 codes, row scales and int32 product exact, "
+            f"max_abs_err={err:.3e}{planted} ok")
+        del x, scale, shift, w8, sw, b
+    torch.cuda.empty_cache()
+    return worst
+
+
+# --------------------------------------------------------------------------
+# the bounds: the least time the card could take
+# --------------------------------------------------------------------------
+
+def bound_ms(ops_by_type: dict, nbytes: float) -> tuple[float, str]:
+    """(milliseconds, "operations" or "bytes"): the larger of the
+    operations over the card's peak rate for their type and the bytes
+    (each input read once, each output written once) over its memory
+    rate."""
+    t_ops = sum(n / PEAK_OPS[kind] for kind, n in ops_by_type.items())
+    t_bytes = nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def attention_bound(b, h, sq, skv, d, *, qk="bf16", pv="bf16", q_bytes=2,
+                    kv_bytes=2, v_bytes=2, extra_bytes=0):
+    """Unmasked attention: two products of 2*B*H*Sq*Skv*D operations; q
+    and the bf16 output once, k and v once."""
+    half = 2 * b * h * sq * skv * d
+    ops = {}
+    for kind in (qk, pv):
+        ops[kind] = ops.get(kind, 0) + half
+    nbytes = b * h * d * (sq * (q_bytes + 2) + skv * (kv_bytes + v_bytes)) \
+        + extra_bytes
+    return bound_ms(ops, nbytes)
+
+
+def linear_bound(m, k, n, *, x_bytes=2, out_bytes=2, extra_bytes=0):
+    """A dynamic-int8 linear: 2*M*K*N int8 operations; x, the int8
+    weights, scales and bias, and the output once."""
+    nbytes = m * k * x_bytes + n * k + 8 * n + m * n * out_bytes + extra_bytes
+    return bound_ms({"int8": 2 * m * k * n}, nbytes)
+
+
+# --------------------------------------------------------------------------
 # phase 6: timing
 # --------------------------------------------------------------------------
 
@@ -457,6 +855,8 @@ def phase_timing(gen):
     from ltx_video_gpupoor_tpu_torch.ops import int8_matmul as im
 
     times = {}
+    info = {}     # name -> (bound ms, what bounds it, library call ms or None)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     b, h, s, d = 3, 32, 5280, 64
     q, k, v = (_heads(b, h, s, d, gen, True) for _ in range(3))
 
@@ -468,8 +868,12 @@ def phase_timing(gen):
     plain = cuda_time_ms(plain_self, reps=3, warmup=1)
     flops = fa.attention_flops(b, h, s, s, d)
     times["K1 self"] = (kern, plain)
+    lib = cuda_time_ms(lambda: sdpa(q, k, v))
+    info["K1 self"] = (*attention_bound(b, h, s, s, d), lib)
     log(f"[time] K1 self-attention B=3 H=32 S=5280 D=64: kernel {kern:.3f} ms "
-        f"({flops / kern / 1e9:.1f} TFLOP/s), plain {plain:.3f} ms")
+        f"({flops / kern / 1e9:.1f} TFLOP/s), plain {plain:.3f} ms, bound "
+        f"{info['K1 self'][0]:.3f} ms ({info['K1 self'][1]}), "
+        f"scaled_dot_product_attention {lib:.3f} ms")
     kc, vc = (_heads(b, h, 256, d, gen, False) for _ in range(2))
     q_seg, kv_seg = _cross_segments(b, s, 256)
     kern_c = cuda_time_ms(lambda: fa.flash_attention(q, kc, vc, q_seg, kv_seg))
@@ -480,11 +884,15 @@ def phase_timing(gen):
         f"plain {plain_c:.3f} ms")
     del q, k, v, kc, vc
 
-    # K4 at the Wan shapes: the kernel body and the plain version on the
+    # K4 at the Wan and the 13B shapes: the kernel body and the plain version on the
     # same prologue operands, and the shared prologue on its own
-    for name, (b, h, sq, skv, d), seg in (("self", WAN_SELF, None),
-                                          ("cross", WAN_CROSS,
-                                           _cross_segments)):
+    k4_shapes = [("self", WAN_SELF, None), ("cross", WAN_CROSS,
+                                            _cross_segments)]
+    for i in range(len(LTX13B_PASS_TOKENS)):
+        k4_shapes += [(f"13B pass {i + 1} self", LTX13B_SELF[i], None),
+                      (f"13B pass {i + 1} cross", LTX13B_CROSS[i],
+                       _cross_segments)]
+    for name, (b, h, sq, skv, d), seg in k4_shapes:
         q, k, v = (_heads(b, h, n, d, gen, True) for n in (sq, skv, skv))
         segs = seg(b, sq, skv) if seg else (None, None)
         for pv in (True, False):
@@ -496,10 +904,19 @@ def phase_timing(gen):
                                  reps=3, warmup=1)
             flops = fa.attention_flops(b, h, sq, skv, d)
             times[f"K4 {tier} {name}"] = (kern, plain)
+            # the kernel body's operands: int8 q and k, int8 or bf16 v,
+            # fp32 row, block and channel scales
+            scales = 4 * (ops.q_scale.numel() + ops.k_scale.numel()
+                          + (ops.v_scale.numel() if pv else 0))
+            bnd = attention_bound(
+                b, h, sq, skv, d, qk="int8", pv="int8" if pv else "bf16",
+                q_bytes=1, kv_bytes=1, v_bytes=1 if pv else 2,
+                extra_bytes=scales)
+            info[f"K4 {tier} {name}"] = (*bnd, None)
             log(f"[time] K4 {tier} {name}-attention B={b} H={h} Sq={sq} "
                 f"Skv={skv} D={d}: kernel {kern:.3f} ms "
                 f"({flops / kern / 1e9:.1f} TOP/s), plain {plain:.3f} ms, "
-                f"prologue {pro:.3f} ms")
+                f"prologue {pro:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]})")
             del ops
         del q, k, v
         torch.cuda.empty_cache()
@@ -512,11 +929,115 @@ def phase_timing(gen):
         plain = cuda_time_ms(lambda: im.int8_linear_plain(x, w8, sw, bias),
                              reps=3, warmup=1)
         times[f"K2 {name}"] = (kern, plain)
+        xb = 2 if dtype == "bf16" else 4
+        bnd = linear_bound(m, kk, n, x_bytes=xb, out_bytes=xb)
+        lib = None
+        if m >= 1024 and n >= 1024:
+            # the GEMM alone: int8 [M, K] @ [K, N] -> int32
+            xq = im.quantize_rows_plain(x)[0]
+            lib = cuda_time_ms(lambda: torch._int_mm(xq, w8.t()))
+            del xq
+        info[f"K2 {name}"] = (*bnd, lib)
         log(f"[time] K2 {name} M={m}: kernel {kern:.3f} ms "
-            f"({2 * m * kk * n / kern / 1e9:.1f} TOP/s), plain {plain:.3f} ms")
+            f"({2 * m * kk * n / kern / 1e9:.1f} TOP/s), plain {plain:.3f} ms, "
+            f"bound {bnd[0]:.3f} ms ({bnd[1]}), torch._int_mm (GEMM alone) "
+            + (f"{lib:.3f} ms" if lib is not None else "none"))
         del x, w8, sw, bias
     torch.cuda.empty_cache()
-    return times
+
+    # K3 and K6 at the 13B self-attention shapes (K3 also at the cross
+    # shape), K6 at the LTX-2B shape; the library call is SDPA on the
+    # head-split views (exact attention: K6's function, not K3's clamp)
+    for i, (b, h, n, _, d) in enumerate(LTX13B_SELF):
+        qkv = torch.randn(b, n, 3 * h * d, generator=gen, device="cuda",
+                          dtype=torch.bfloat16)
+        qp, kp, vp = qkv.chunk(3, dim=-1)
+        q, k, v = (t.reshape(b, n, h, d).transpose(1, 2) for t in (qp, kp, vp))
+        reps = dict(reps=3, warmup=1)
+        k3 = cuda_time_ms(lambda: fa.flash_attention(
+            q, k, v, score_bound=LTX13B_BOUND))
+        k3_plain = cuda_time_ms(lambda: _by_heads(
+            lambda a, b_, c: fa.bounded_attention_plain(
+                a, b_, c, score_bound=LTX13B_BOUND), q, k, v), **reps)
+        k6 = cuda_time_ms(lambda: fa.flash_attention_hp(qp, kp, vp, heads=h))
+        k6_plain = cuda_time_ms(lambda: _by_heads(fa.reference_attention,
+                                                  q, k, v), **reps)
+        k1 = cuda_time_ms(lambda: fa.flash_attention(q, k, v))
+        lib = cuda_time_ms(lambda: sdpa(q, k, v))
+        bnd = attention_bound(b, h, n, n, d)
+        times[f"K3 self pass {i + 1}"] = (k3, k3_plain)
+        times[f"K6 self pass {i + 1}"] = (k6, k6_plain)
+        # K1 on the same views computes K6's function: one plain version
+        times[f"K1 self pass {i + 1}"] = (k1, k6_plain)
+        info[f"K1 self pass {i + 1}"] = (*bnd, lib)
+        info[f"K3 self pass {i + 1}"] = (*bnd, None)
+        info[f"K6 self pass {i + 1}"] = (*bnd, lib)
+        flops = fa.attention_flops(b, h, n, n, d)
+        log(f"[time] 13B self-attention pass {i + 1} B={b} H={h} S={n} D={d}: "
+            f"K3 {k3:.3f} ms ({flops / k3 / 1e9:.1f} TFLOP/s, plain "
+            f"{k3_plain:.3f} ms), K6 {k6:.3f} ms ({flops / k6 / 1e9:.1f} "
+            f"TFLOP/s, plain {k6_plain:.3f} ms), K1 on the head-split views "
+            f"{k1:.3f} ms (K6's plain version), bound {bnd[0]:.3f} ms ({bnd[1]}), "
+            f"scaled_dot_product_attention {lib:.3f} ms")
+        kc, vc = (_heads(b, h, 256, d, gen, True) for _ in range(2))
+        q_seg, kv_seg = _cross_segments(b, n, 256)
+        k3c = cuda_time_ms(lambda: fa.flash_attention(
+            q, kc, vc, q_seg, kv_seg, score_bound=LTX13B_BOUND))
+        k1c = cuda_time_ms(lambda: fa.flash_attention(q, kc, vc, q_seg,
+                                                      kv_seg))
+        k3c_plain = cuda_time_ms(lambda: fa.bounded_attention_plain(
+            q, kc, vc, q_seg, kv_seg, score_bound=LTX13B_BOUND), **reps)
+        k1c_plain = cuda_time_ms(lambda: fa.reference_attention(
+            q, kc, vc, q_seg, kv_seg), **reps)
+        times[f"K3 cross pass {i + 1}"] = (k3c, k3c_plain)
+        times[f"K1 cross pass {i + 1}"] = (k1c, k1c_plain)
+        # the data's work: 200 of the 256 text tokens are valid
+        bnd_c = attention_bound(b, h, n, 200, d)
+        info[f"K3 cross pass {i + 1}"] = (*bnd_c, None)
+        info[f"K1 cross pass {i + 1}"] = (*bnd_c, None)
+        log(f"[time] 13B cross-attention pass {i + 1} Sq={n} Skv=256: K3 "
+            f"{k3c:.3f} ms (plain {k3c_plain:.3f} ms), K1 {k1c:.3f} ms (plain "
+            f"{k1c_plain:.3f} ms), bound {bnd_c[0]:.3f} ms ({bnd_c[1]})")
+        del qkv, qp, kp, vp, q, k, v, kc, vc
+        torch.cuda.empty_cache()
+    b, n, h, d = 3, 5280, 32, 64
+    qp, kp, vp = (torch.randn(b, n, h * d, generator=gen, device="cuda",
+                              dtype=torch.bfloat16) for _ in range(3))
+    k6 = cuda_time_ms(lambda: fa.flash_attention_hp(qp, kp, vp, heads=h))
+    log(f"[time] K6 at the LTX-2B shape B=3 S=5280 H=32 D=64: {k6:.3f} ms "
+        f"(K1 on the head-split views: {times['K1 self'][0]:.3f} ms)")
+    del qp, kp, vp
+
+    from ltx_video_gpupoor_tpu_torch.ops import fused_prologue as fp
+    from ltx_video_gpupoor_tpu_torch.ops.norms import rms_norm
+
+    for name, m, kk, n, g in K5_SHAPES:
+        x, scale, shift, w8, sw, bias = _k5_operands(m, kk, n, g, gen)
+        kw = dict(rows_per_group=m // g, eps=1e-6)
+        kern = cuda_time_ms(lambda: fp.norm_mod_int8_matmul(
+            x, scale, shift, w8, sw, bias, **kw))
+        rows = cuda_time_ms(lambda: fp.norm_mod_quantize_rows(
+            x, scale, shift, **kw))
+        plain = cuda_time_ms(lambda: fp.norm_mod_int8_matmul_plain(
+            x, scale, shift, w8, sw, bias, **kw), reps=3, warmup=1)
+
+        def unfused():      # what the tier replaces: norm, modulate, K2
+            hh = rms_norm(x, eps=1e-6).reshape(g, m // g, kk)
+            hh = (hh * (1 + scale[:, None]) + shift[:, None]).reshape(m, kk)
+            return im.int8_linear(hh, w8, sw, bias)
+
+        chain = cuda_time_ms(unfused)
+        bnd = linear_bound(m, kk, n, extra_bytes=2 * g * kk * 2)
+        times[f"K5 {name}"] = (kern, plain)
+        info[f"K5 {name}"] = (*bnd, None)
+        log(f"[time] K5 {name} M={m} K={kk} N={n} groups={g}: kernel "
+            f"{kern:.3f} ms ({2 * m * kk * n / kern / 1e9:.1f} TOP/s; its row "
+            f"kernel alone {rows:.3f} ms), plain {plain:.3f} ms, the unfused "
+            f"chain (PyTorch norm and modulation, then K2) {chain:.3f} ms, "
+            f"bound {bnd[0]:.3f} ms ({bnd[1]})")
+        del x, scale, shift, w8, sw, bias
+    torch.cuda.empty_cache()
+    return times, info
 
 
 # --------------------------------------------------------------------------
@@ -675,8 +1196,7 @@ def run_request(gen, t5, height, width, frames):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    im.int8_linear.launches = 0
-    fa.flash_attention.launches = 0
+    reset_kernel_counts()
     t0 = time.perf_counter()
     emb, mask, t5_sec = encode_prompts(t5)
     frames_u8 = gen.generate(emb, mask, height=height, width=width,
@@ -727,6 +1247,296 @@ def phase_path():
         launches.append(run_request(gen, t5, height, width, frames))
         torch.cuda.empty_cache()
     return launches, gen, t5
+
+
+# --------------------------------------------------------------------------
+# phase 7b: the LTX-13B image-to-video path
+# --------------------------------------------------------------------------
+
+def ltx13b_config():
+    from ltx_video_gpupoor_tpu_torch.models.ltx import transformer3d as tf
+
+    return tf.LTXTransformerConfig(
+        num_attention_heads=32, attention_head_dim=128, in_channels=128,
+        out_channels=128, num_layers=48, cross_attention_dim=4096,
+        caption_channels=4096)
+
+
+def build_ltx13b_models(cfg, vcfg):
+    """The 13B DiT built and quantized one block at a time (the dense bf16
+    copy of 48 blocks never stands whole), the VAE with its encoder and
+    the latent upsampler, random weights from seeds; also the dense bf16
+    weights of the first two blocks and of everything outside the blocks,
+    on the CPU."""
+    import dataclasses
+
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.core.dtypes import DEFAULT_POLICY
+    from ltx_video_gpupoor_tpu_torch.models.ltx import latent_upsampler as lup
+    from ltx_video_gpupoor_tpu_torch.models.ltx import transformer3d as tf
+    from ltx_video_gpupoor_tpu_torch.models.ltx import vae as vaem
+    from ltx_video_gpupoor_tpu_torch.ops.quant import quantize_params
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    dit = tf.init_params(tf.LTXTransformer3D(
+        dataclasses.replace(cfg, num_layers=0), DEFAULT_POLICY, device=dev), g)
+    dit.cfg = cfg
+    dense_cut = {k: v.cpu() for k, v in dit.state_dict().items()}
+    quantize_params(dit)
+    kw = dict(device=dev, dtype=DEFAULT_POLICY.param_dtype)
+    for i in range(cfg.num_layers):
+        blk = tf.init_params(tf.Block(cfg, **kw), g)
+        if i < 2:
+            dense_cut.update({f"blocks.{i}.{k}": v.cpu()
+                              for k, v in blk.state_dict().items()})
+        dit.blocks.append(quantize_params(blk))
+    vae = vaem.init_params(vaem.CausalVAE(vcfg, DEFAULT_POLICY, device=dev),
+                           torch.Generator(device=dev).manual_seed(SEED + 21))
+    up = lup.init_params(
+        lup.LatentUpsampler(lup.LatentUpsamplerConfig(
+            in_channels=128, mid_channels=512, num_blocks_per_stage=4,
+            dims=3), DEFAULT_POLICY, device=dev),
+        torch.Generator(device=dev).manual_seed(SEED + 22))
+    torch.cuda.synchronize()
+    n_dit = sum(t.numel() for t in dit.state_dict().values())
+    n_up = sum(t.numel() for t in up.state_dict().values())
+    log(f"[ltx13b] built DiT ({cfg.num_layers} layers, "
+        f"{cfg.num_attention_heads}x{cfg.attention_head_dim} heads, "
+        f"{n_dit / 1e9:.3f}e9 values, int8_dynamic, layer by layer), VAE "
+        f"with encoder (timestep-conditioned decoder), upsampler "
+        f"({n_up / 1e6:.1f}e6 values) in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    return dit, dense_cut, vae, up
+
+
+def set_score_bound(dit, bound):
+    """Switch the DiT (and its blocks, which hold the config too) to
+    ``attention_score_bound=bound`` (None = the exact softmax)."""
+    import dataclasses
+
+    cfg = dataclasses.replace(dit.cfg, attention_score_bound=bound)
+    dit.cfg = cfg
+    for blk in dit.blocks:
+        blk.cfg = cfg
+
+
+def set_fused_prologue(on: bool):
+    if on:
+        os.environ["LTXV_TPU_FUSED_PROLOGUE"] = "1"
+    else:
+        os.environ.pop("LTXV_TPU_FUSED_PROLOGUE", None)
+
+
+def kernel_counts():
+    from ltx_video_gpupoor_tpu_torch.ops import flash_attention as fa
+    from ltx_video_gpupoor_tpu_torch.ops import fused_prologue as fp
+    from ltx_video_gpupoor_tpu_torch.ops import int8_matmul as im
+
+    return {"K1": fa.flash_attention.launches,
+            "K2": im.int8_linear.launches,
+            "K3": fa.flash_attention.bounded_launches,
+            "K4": fa.flash_attention_int8.launches,
+            "K5": fp.norm_mod_int8_matmul.launches,
+            "K6": fa.flash_attention_hp.launches}
+
+
+def reset_kernel_counts():
+    from ltx_video_gpupoor_tpu_torch.ops import flash_attention as fa
+    from ltx_video_gpupoor_tpu_torch.ops import fused_prologue as fp
+    from ltx_video_gpupoor_tpu_torch.ops import int8_matmul as im
+
+    fa.flash_attention.launches = 0
+    fa.flash_attention.bounded_launches = 0
+    fa.flash_attention_int8.launches = 0
+    fa.flash_attention_hp.launches = 0
+    im.int8_linear.launches = 0
+    fp.norm_mod_int8_matmul.launches = 0
+
+
+# the kernels each tier must launch, and those it must not
+LTX13B_EXPECT = {"a: auto": (("K4", "K2"), ("K1", "K3", "K5", "K6")),
+                 "b: pallas_hp + fused prologue": (("K6", "K5", "K1", "K2"),
+                                                   ("K3", "K4")),
+                 "c: score bound": (("K3", "K2"), ("K1", "K4", "K5", "K6"))}
+
+
+def ltx13b_reference_check(cfg, dense_cut):
+    """A 2-layer cut of the 13B DiT (the main model's own first two
+    blocks) on the card with the kernels against the same cut on the CPU
+    with the plain versions, both int8_dynamic in bf16, in each of the
+    three tiers: one stream, 2 latent frames of 4x4 tokens with their own
+    timesteps (16 rows a group, so the fused prologue engages), text
+    padding. Bar: 30 dB PSNR on the velocity, as for the other paths."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.core.dtypes import DEFAULT_POLICY
+    from ltx_video_gpupoor_tpu_torch.models.ltx import transformer3d as tf
+    from ltx_video_gpupoor_tpu_torch.ops.quant import quantize_params
+
+    cut = dataclasses.replace(cfg, num_layers=2)
+    models = []
+    for d in (torch.device("cuda"), torch.device("cpu")):
+        m = tf.LTXTransformer3D(cut, DEFAULT_POLICY, device=d)
+        m.load_state_dict(dense_cut)
+        models.append(quantize_params(m))
+    g = torch.Generator().manual_seed(SEED + 23)
+    f, h, w = 2, 4, 4
+    lat = torch.randn(1, f * h * w, cfg.in_channels, generator=g)
+    grid = torch.stack(torch.meshgrid(torch.arange(f), torch.arange(h),
+                                      torch.arange(w), indexing="ij"))
+    grid = (grid.reshape(1, 3, -1).float()
+            * torch.tensor([8 / 30, 32.0, 32.0])[None, :, None])
+    t = torch.tensor([[0.0, 0.9]])        # a conditioned first frame
+    cap = torch.randn(1, 256, cfg.caption_channels, generator=g)
+    mask = torch.ones(1, 256, dtype=torch.int32)
+    mask[:, 77:] = 0
+    dbs = []
+    for name, mode, fused, bound in LTX13B_TIERS:
+        set_fused_prologue(fused)
+        for m in models:
+            set_score_bound(m, bound)
+        with torch.no_grad():
+            reset_kernel_counts()
+            out = models[0](*(x.cuda() for x in (lat, grid, t, cap, mask)),
+                            attn_mode=mode)
+            torch.cuda.synchronize()
+            counts = kernel_counts()
+            ref = models[1](lat, grid, t, cap, mask, attn_mode=mode)
+        must, must_not = LTX13B_EXPECT[name]
+        assert all(counts[k] > 0 for k in must) and \
+            not any(counts[k] for k in must_not), (name, counts)
+        o = out.float().cpu().numpy()
+        r = ref.float().numpy()
+        assert np.isfinite(o).all() and o.shape == r.shape
+        peak = max(np.abs(r).max(), np.abs(o).max()) * 2
+        mse = float(np.mean((o - r) ** 2))
+        db = 10 * np.log10(peak ** 2 / mse) if mse > 0 else float("inf")
+        log(f"[ltx13b] reference check, tier ({name}), 2-layer cut at full "
+            f"width, kernels on the card vs plain versions on the CPU: PSNR "
+            f"{db:.2f} dB (bar 30), launches {counts}")
+        assert db >= 30.0, f"13B reference check ({name}) {db:.2f} dB < 30"
+        dbs.append(db)
+    set_fused_prologue(False)
+    return dbs
+
+
+def synthetic_image(height, width):
+    """A seeded uint8 image at the request's size: smooth colour
+    gradients with noise on top."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 24)
+    yy, xx = np.mgrid[0:height, 0:width]
+    img = np.stack([128 + 90 * np.sin(xx / 53.0 + yy / 91.0),
+                    128 + 90 * np.cos(yy / 37.0),
+                    (xx + yy) * 255.0 / (height + width)], axis=-1)
+    img = img + rng.normal(0, 6, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def run_ltx13b_request(gen, t5, name, mode, fused, bound, *, check=True):
+    """One image-to-video request in one tier: T5 encode, then
+    ``generate`` with ``image_start``; returns the launch counts of pass 1
+    (media encode included) and of pass 2."""
+    import torch
+
+    height, width, frames = LTX13B_REQUEST
+    dit = gen.pipeline.transformer
+    set_fused_prologue(fused)
+    set_score_bound(dit, bound)
+    marks, checks, pass1 = {}, {}, {}
+
+    def on_stage(stage, value):
+        torch.cuda.synchronize()
+        marks[stage] = time.perf_counter()
+        if stage == "pass2":
+            pass1.update(kernel_counts())
+            checks["pass2_shape"] = tuple(value.shape)
+        if stage == "upsample":
+            checks["pass1_shape"] = tuple(value.shape)
+        if stage == "decode":
+            checks["latents_finite"] = bool(torch.isfinite(value).all())
+            checks["latent_shape"] = tuple(value.shape)
+        if stage == "postprocess":
+            checks["pixels_finite"] = bool(torch.isfinite(value.float()).all())
+            checks["pixel_shape"] = tuple(value.shape)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    emb, mask, t5_sec = encode_prompts(t5)
+    frames_u8 = gen.generate(
+        emb, mask, height=height, width=width, frame_num=frames,
+        frame_rate=30.0, seed=SEED, image_start=synthetic_image(height, width),
+        attn_mode=mode, on_stage=on_stage)
+    t_end = time.perf_counter()
+    total = kernel_counts()
+    pass2 = {k: total[k] - pass1[k] for k in total}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    set_fused_prologue(False)
+    set_score_bound(dit, None)
+    log(f"[ltx13b] request ({name}) {width}x{height}x{frames} i2v: pass 1 "
+        f"{checks['pass1_shape'][1:4]} latents, pass 2 "
+        f"{checks['pass2_shape'][1:4]}; t5={t5_sec:.3f} s "
+        f"pass1={marks['upsample'] - marks['pass1']:.3f} s "
+        f"upsample+adain={marks['pass2'] - marks['upsample']:.3f} s "
+        f"pass2={marks['decode'] - marks['pass2']:.3f} s "
+        f"decode={marks['postprocess'] - marks['decode']:.3f} s "
+        f"(pixels {checks['pixel_shape'][1:4]}) "
+        f"resize+postprocess={t_end - marks['postprocess']:.3f} s "
+        f"total={t_end - t0:.3f} s peak={peak:.2f} GiB "
+        f"frames={frames_u8.dtype.name}{list(frames_u8.shape)} "
+        f"latents_finite={checks['latents_finite']} "
+        f"pixels_finite={checks['pixels_finite']} launches pass 1 {pass1} "
+        f"pass 2 {pass2}")
+    if check:
+        assert frames_u8.dtype.name == "uint8" and \
+            frames_u8.shape == (frames, height, width, 3), frames_u8.shape
+        assert checks["pass1_shape"][1:4] == (16, 12, 20), checks
+        assert checks["latent_shape"][1:4] == (16, 24, 40), checks
+        assert checks["latents_finite"] and checks["pixels_finite"]
+        assert frames_u8.std() > 0, "constant frames"
+        must, must_not = LTX13B_EXPECT[name]
+        for counts in (pass1, pass2):
+            assert all(counts[k] > 0 for k in must), (name, counts)
+            assert not any(counts[k] for k in must_not), (name, counts)
+    return pass1, pass2
+
+
+def phase_ltx13b(t5):
+    """Build the 13B models, check a cut in each tier, serve one request
+    per tier; returns the launch counts per tier (both passes summed) and
+    the generator."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.pipelines.ltx_pipeline import LTXPipeline
+    from ltx_video_gpupoor_tpu_torch.pipelines.multiscale import (
+        MultiScalePipeline,
+    )
+    from ltx_video_gpupoor_tpu_torch.serving.orchestrator import (
+        LTXVideoGenerator,
+    )
+
+    cfg = ltx13b_config()
+    dit, dense_cut, vae, up = build_ltx13b_models(cfg, vae_config())
+    ltx13b_reference_check(cfg, dense_cut)
+    del dense_cut
+    pipe = LTXPipeline(dit, vae)
+    gen = LTXVideoGenerator(pipe, multiscale=MultiScalePipeline(pipe, up),
+                            pipeline_config="ltxv-13b-0.9.7-distilled")
+    launches = {}
+    for name, mode, fused, bound in LTX13B_TIERS:
+        p1, p2 = run_ltx13b_request(gen, t5, name, mode, fused, bound)
+        launches[name] = {k: p1[k] + p2[k] for k in p1}
+        torch.cuda.empty_cache()
+    return launches, gen
 
 
 # --------------------------------------------------------------------------
@@ -877,9 +1687,7 @@ def run_wan_request(pipe, umt5, height, width, frames, mode):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    im.int8_linear.launches = 0
-    fa.flash_attention.launches = 0
-    fa.flash_attention_int8.launches = 0
+    reset_kernel_counts()
     t0 = time.perf_counter()
     emb, mask, t5_sec = encode_wan_prompts(umt5)
     video = pipe.generate_t2v(
@@ -942,9 +1750,12 @@ def phase_wan():
 
 # kernel name fragment -> group, first match wins
 KERNEL_GROUPS = [
-    ("flash_fwd_kernel", "K1 flash attention"),
+    ("flash_fwd_kernel<128, true", "K3 bounded-score flash attention"),
+    ("flash_fwd_kernel<64, true", "K3 bounded-score flash attention"),
+    ("flash_fwd_kernel", "K1 / K6 exact flash attention"),
+    ("norm_mod_quantize_rows_kernel", "K5 prologue row kernel"),
     ("flash_int8_kernel", "K4 int8 flash attention"),
-    ("int8_gemm_kernel", "K2 int8 GEMM"),
+    ("int8_gemm_kernel", "K2 / K5 int8 GEMM"),
     ("quantize_rows_kernel", "K2 row quantize"),
     ("fprop", "cuDNN conv3d (VAE)"),
     ("cudnn", "cuDNN conv3d (VAE)"),
@@ -1041,12 +1852,37 @@ def profile_wan(pipe, umt5, height=480, width=832, frames=81):
     return profile_request(f"wan_{width}x{height}x{frames}", run)
 
 
+def profile_ltx13b(gen, t5, tier):
+    """One more 13B request of ``LTX13B_TIERS[tier]``; the trace must hold
+    the kernel groups that only this tier launches."""
+    name, mode, fused, bound = LTX13B_TIERS[tier]
+    h, w, f = LTX13B_REQUEST
+    s = profile_request(
+        f"ltx13b_{w}x{h}x{f}_tier_{name[0]}",
+        lambda: run_ltx13b_request(gen, t5, name, mode, fused, bound,
+                                   check=False))
+    want = {1: "K5 prologue row kernel",
+            2: "K3 bounded-score flash attention"}[tier]
+    assert want in s["groups"], (want, sorted(s["groups"]))
+    return s
+
+
+def kernel_entry(name, source, replaces, launches, err, times, info, key):
+    """One entry of the ``kernels`` line, from the timed shape ``key``."""
+    bound, bound_by, library = info[key]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": times[key][0], "plain_ms": times[key][1],
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": library}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="after each path, profile one more headline "
-                    "request (LTX 704x480x121, Wan 832x480x81) and print "
-                    "the device time by kernel group")
+                    "request (LTX-2B 704x480x121, LTX-13B 992x608x121 in "
+                    "tiers (b) and (c), Wan 832x480x81) and print the device time by "
+                    "kernel group")
     args = ap.parse_args(argv)
     import torch
 
@@ -1054,44 +1890,64 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    t_start = time.perf_counter()
     kind, _ = phase_device()
-    phase_build()
+    phase_build(compare=args.profile)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     k1_err = phase_k1(gen)
     k2_err = phase_k2(gen)
     k4_err = phase_k4(gen)
-    times = phase_timing(gen)
+    k3_err = phase_k3(gen)
+    k5_err = phase_k5(gen)
+    k6_err = phase_k6(gen)
+    times, info = phase_timing(gen)
+    log(f"[clock] kernel checks and timings done at "
+        f"{time.perf_counter() - t_start:.0f} s")
     ltx_launches, generator, t5 = phase_path()
     if args.profile:
         profile_ltx(generator, t5)
-    del generator, t5        # free the LTX models for the Wan path
+    del generator            # free the LTX-2B DiT; the 13B path keeps T5
     torch.cuda.empty_cache()
+    log(f"[clock] LTX-2B path done at {time.perf_counter() - t_start:.0f} s")
+    ltx13b_launches, generator13b = phase_ltx13b(t5)
+    if args.profile:
+        profile_ltx13b(generator13b, t5, 1)
+        profile_ltx13b(generator13b, t5, 2)
+    del generator13b, t5     # free the LTX models for the Wan path
+    torch.cuda.empty_cache()
+    log(f"[clock] LTX-13B path done at {time.perf_counter() - t_start:.0f} s")
     wan_launches, pipe, umt5 = phase_wan()
     if args.profile:
         profile_wan(pipe, umt5)
-    k1_t = times["K1 self"]
-    k2_t = times[f"K2 {K2_TIMED}"]
+    log(f"[clock] Wan path done at {time.perf_counter() - t_start:.0f} s")
     by_tier = dict(zip((m for *_, m in WAN_REQUESTS), wan_launches))
+    tier_b, tier_c = LTX13B_TIERS[1][0], LTX13B_TIERS[2][0]
+    k2_key = f"K2 {K2_TIMED}"
+    k5_key = f"K5 {K5_TIMED}"
     kernels = [
-        {"name": "flash_attention (exact online softmax)", "route": "cuda",
-         "source": K1_SOURCE, "replaces": K1_REPLACES,
-         "launches": ltx_launches[-1]["K1"], "max_abs_err": k1_err,
-         "ms": k1_t[0], "plain_ms": k1_t[1]},
-        {"name": "int8_linear (dynamic int8)", "route": "cuda",
-         "source": K2_SOURCE, "replaces": K2_REPLACES,
-         "launches": wan_launches[-1]["K2"], "max_abs_err": k2_err,
-         "ms": k2_t[0], "plain_ms": k2_t[1]},
-        {"name": "flash_attention_int8 (int8 QK + int8 PV)", "route": "cuda",
-         "source": K4_SOURCE, "replaces": K4_REPLACES,
-         "launches": wan_launches[-1]["K4"], "max_abs_err": k4_err[0],
-         "ms": times["K4 int8pv self"][0],
-         "plain_ms": times["K4 int8pv self"][1]},
-        {"name": "flash_attention_int8 (int8 QK + bf16 PV)", "route": "cuda",
-         "source": K4_SOURCE, "replaces": K4_REPLACES,
-         "launches": by_tier["pallas_int8"]["K4"], "max_abs_err": k4_err[1],
-         "ms": times["K4 int8qk self"][0],
-         "plain_ms": times["K4 int8qk self"][1]},
+        kernel_entry("flash_attention (exact online softmax)", K1_SOURCE,
+                     K1_REPLACES, ltx_launches[-1]["K1"], k1_err, times, info,
+                     "K1 self"),
+        kernel_entry("int8_linear (dynamic int8)", K2_SOURCE, K2_REPLACES,
+                     wan_launches[-1]["K2"], k2_err, times, info, k2_key),
+        kernel_entry("flash_attention_int8 (int8 QK + int8 PV)", K4_SOURCE,
+                     K4_REPLACES, wan_launches[-1]["K4"], k4_err[0], times,
+                     info, "K4 int8pv self"),
+        kernel_entry("flash_attention_int8 (int8 QK + bf16 PV)", K4_SOURCE,
+                     K4_REPLACES, by_tier["pallas_int8"]["K4"], k4_err[1],
+                     times, info, "K4 int8qk self"),
+        kernel_entry("flash_attention (bounded scores, no running max)",
+                     K1_SOURCE, K3_REPLACES, ltx13b_launches[tier_c]["K3"],
+                     k3_err, times, info, "K3 self pass 2"),
+        kernel_entry("norm_mod_int8_matmul (fused adaLN prologue + int8 "
+                     "linear)", K5_SOURCE, K5_REPLACES,
+                     ltx13b_launches[tier_b]["K5"], k5_err, times, info,
+                     k5_key),
+        kernel_entry("flash_attention_hp (head-packed exact attention)",
+                     K1_SOURCE, K6_REPLACES, ltx13b_launches[tier_b]["K6"],
+                     k6_err, times, info, "K6 self pass 2"),
     ]
+    assert all(k["launches"] > 0 for k in kernels), kernels
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

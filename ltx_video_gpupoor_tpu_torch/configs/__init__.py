@@ -1,18 +1,82 @@
 """Pipeline configuration registry.
 
 Pinned copies of ``ltx_video_gpupoor_tpu/configs/__init__.py``: the LTX
-configs (:81-117, ``LTXV_2B_096_DEV``, ``LTXV_2B_096_DISTILLED``) with
-``load_ltx_pipeline_config``, and the Wan configs (:135-163,
-``WAN_SHARED``, ``WAN_CONFIGS``, ``WAN_SUPPORTED_SIZES``). They are copies
-because importing the JAX package imports jax;
-``tests/test_torch_configs.py`` pins them equal to the originals. The 13B
-multi-scale configs join with the multi-scale pipeline (ROADMAP queue 1
-step 10).
+configs (:17-117: the two 13B multi-scale configs ``LTXV_13B_097_DEV``
+and ``LTXV_13B_097_DISTILLED``, ``LTXV_2B_096_DEV``,
+``LTXV_2B_096_DISTILLED``) with ``load_ltx_pipeline_config``, and the Wan
+configs (:135-163, ``WAN_SHARED``, ``WAN_CONFIGS``,
+``WAN_SUPPORTED_SIZES``). They are copies because importing the JAX
+package imports jax; ``tests/test_torch_configs.py`` pins them equal to
+the originals.
 """
 
 from __future__ import annotations
 
 import copy
+
+LTXV_13B_097_DEV = {
+    "pipeline_type": "multi-scale",
+    "checkpoint_path": "ltxv-13b-0.9.7-dev.safetensors",
+    "downscale_factor": 0.6666666,
+    "spatial_upscaler_model_path": "ltxv-spatial-upscaler-0.9.7.safetensors",
+    "stg_mode": "attention_values",
+    "decode_timestep": 0.05,
+    "decode_noise_scale": 0.025,
+    "precision": "bfloat16",
+    "sampler": "from_checkpoint",
+    "prompt_enhancement_words_threshold": 120,
+    "stochastic_sampling": False,
+    "first_pass": {
+        "guidance_scale": [1, 1, 6, 8, 6, 1, 1],
+        "stg_scale": [0, 0, 4, 4, 4, 2, 1],
+        "rescaling_scale": [1, 1, 0.5, 0.5, 1, 1, 1],
+        "guidance_timesteps": [1.0, 0.996, 0.9933, 0.9850, 0.9767, 0.9008,
+                               0.6180],
+        "skip_block_list": [[], [11, 25, 35, 39], [22, 35, 39], [28], [28],
+                            [28], [28]],
+        "num_inference_steps": 30,
+        "skip_final_inference_steps": 3,
+        "cfg_star_rescale": True,
+    },
+    "second_pass": {
+        "guidance_scale": [1],
+        "stg_scale": [1],
+        "rescaling_scale": [1],
+        "guidance_timesteps": [1.0],
+        "skip_block_list": [27],
+        "num_inference_steps": 30,
+        "skip_initial_inference_steps": 17,
+        "cfg_star_rescale": True,
+    },
+}
+
+LTXV_13B_097_DISTILLED = {
+    "pipeline_type": "multi-scale",
+    "checkpoint_path": "ltxv-13b-0.9.7-distilled.safetensors",
+    "downscale_factor": 0.6666666,
+    "spatial_upscaler_model_path": "ltxv-spatial-upscaler-0.9.7.safetensors",
+    "stg_mode": "attention_values",
+    "decode_timestep": 0.05,
+    "decode_noise_scale": 0.025,
+    "precision": "bfloat16",
+    "sampler": "from_checkpoint",
+    "prompt_enhancement_words_threshold": 120,
+    "stochastic_sampling": False,
+    "first_pass": {
+        "timesteps": [1.0000, 0.9937, 0.9875, 0.9812, 0.9750, 0.9094, 0.7250],
+        "guidance_scale": 1,
+        "stg_scale": 0,
+        "rescaling_scale": 1,
+        "skip_block_list": [42],
+    },
+    "second_pass": {
+        "timesteps": [0.9094, 0.7250, 0.4219],
+        "guidance_scale": 1,
+        "stg_scale": 0,
+        "rescaling_scale": 1,
+        "skip_block_list": [42],
+    },
+}
 
 LTXV_2B_096_DEV = {
     "pipeline_type": "base",
@@ -47,6 +111,8 @@ LTXV_2B_096_DISTILLED = {
 }
 
 LTX_PIPELINE_CONFIGS = {
+    "ltxv-13b-0.9.7-dev": LTXV_13B_097_DEV,
+    "ltxv-13b-0.9.7-distilled": LTXV_13B_097_DISTILLED,
     "ltxv-2b-0.9.6-dev": LTXV_2B_096_DEV,
     "ltxv-2b-0.9.6-distilled": LTXV_2B_096_DISTILLED,
 }

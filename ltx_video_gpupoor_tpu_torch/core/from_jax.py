@@ -106,6 +106,19 @@ def vae_decoder_state_dict(params: dict) -> dict:
     return state_dict(keep)
 
 
+def vae_state_dict(params: dict) -> dict:
+    """``models/ltx/vae.init_params`` tree -> ``CausalVAE`` (encoder,
+    decoder, statistics and, where the config has them, the quant
+    convs)."""
+    return state_dict(params)
+
+
+def upsampler_state_dict(params: dict) -> dict:
+    """``models/ltx/latent_upsampler.init_params`` tree ->
+    ``LatentUpsampler`` (4-D kernels are its framewise 2-D convs)."""
+    return state_dict(params)
+
+
 def wan_vae_decoder_state_dict(params: dict) -> dict:
     """Wan ``models/wan/vae.init_params`` tree -> ``WanVAEDecoder`` (the
     encoder and its ``conv1`` are dropped)."""

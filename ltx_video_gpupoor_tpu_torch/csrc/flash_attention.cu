@@ -1,8 +1,11 @@
-// K1: exact online-softmax flash attention forward, bf16, for sm_90a.
+// K1, K3 and K6: flash attention forward, bf16, for sm_90a.
 //
-// Replaces the exact tier of the Pallas TPU kernel
+// K1 replaces the exact tier of the Pallas TPU kernel
 // ltx_video_gpupoor_tpu/ops/flash_attention.py::_flash_kernel (reached
-// through flash_attention, :412 -> pl.pallas_call :631).
+// through flash_attention, :412 -> pl.pallas_call :631). K3 replaces the
+// same kernel's bounded-score branch (:294-313) and K6 the head-packed
+// kernel _hp_kernel (:663, reached through flash_attention_hp, :804 ->
+// pl.pallas_call :866); both are described after K1.
 //
 // Computes o = softmax(q k^T * scale) v over [B, H, S, D] views (any
 // strides with a unit last stride), D in {64, 128}, any Sq and Skv. Masks:
@@ -24,6 +27,26 @@
 // of QK^T are reused in registers as the A operand of PV. The ragged edge
 // is masked in the kernel, so no sequence padding is needed. This is the
 // simple first version: wgmma, TMA and warp specialisation come later.
+//
+// K3 (template flag BOUNDED) is the same block without its running max:
+// p = exp2(min(s, sb) - sb) with the fixed offset sb = bound * log2(e), so
+// the per-tile row max, its two shuffles, the rescale factor and the
+// rescale of the accumulator are gone and acc += P V. A masked score stays
+// at NEG_INF, whose exp2 is exactly 0 (as on the TPU); the min() keeps a
+// score over the bound finite; a row that sees no key returns 0. The
+// denominator is the plain sum of p in fp32 at D=128 and the sum of the
+// bf16-rounded p at D=64, where the TPU kernel reads it off a ones column
+// of V. What bounds it is what bounds K1, less the max work.
+//
+// K6 is the entry k6_flash_attention_hp_bf16: q, k, v and the output stay
+// in the projections' [B, S, H*D] layout. On the TPU that needed a kernel
+// of its own (a block is 128 lanes wide, so D=64 packs a pair of heads per
+// block and computes their scores through a mix/diff identity). Here a
+// block addresses its head's rows through strides (head D, row H*D or
+// the row stride of a fused q/k/v projection), each row one contiguous 128- or 256-byte segment, so every
+// head's scores are computed directly by the K1 block at any head count;
+// the entry derives the head stride and takes the static kv_valid tail,
+// the TPU kernel's only mask.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,8 +104,12 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
+// Blocks an SM: at D=128 three (168 registers a thread is the most that
+// lets three 128-thread blocks share the 65536 registers; left alone, the
+// bounded kernel takes 174 and runs two), at D=64 four (128 registers;
+// told only "three", the compiler spends 140-146 and loses the fourth).
+template <int D, bool BOUNDED>
+__global__ void __launch_bounds__(NTHREADS, D == 64 ? 4 : 3)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
                  const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
@@ -91,7 +118,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  long long ksb, long long ksh, long long kss,
                  long long vsb, long long vsh, long long vss,
                  long long osb, long long osh, long long oss,
-                 int kv_valid, int causal, float scale_log2) {
+                 int kv_valid, int causal, float scale_log2,
+                 float bound_log2) {
   constexpr int LD = D + 8;
   constexpr int KD = D / 16;   // k16 steps over the head dim
   constexpr int ND = D / 8;    // n8 tiles over the head dim
@@ -183,37 +211,60 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const int ks = kseg_s[cl];
           ok = ok && ks > 0 && ks == (e < 2 ? qs0 : qs1);
         }
-        s[j][e] = ok ? s[j][e] * scale_log2 : NEG_INF;
+        if (BOUNDED) {
+          s[j][e] = ok ? fminf(s[j][e] * scale_log2, bound_log2) - bound_log2
+                       : NEG_INF;
+        } else {
+          s[j][e] = ok ? s[j][e] * scale_log2 : NEG_INF;
+        }
       }
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+      if (!BOUNDED) {
+        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+      }
     }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float ls0 = 0.f, ls1 = 0.f;
+    if (BOUNDED) {
+      // fixed offset: no running max, no rescale
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      s[j][0] = exp2f(s[j][0] - mn0);
-      s[j][1] = exp2f(s[j][1] - mn0);
-      s[j][2] = exp2f(s[j][2] - mn1);
-      s[j][3] = exp2f(s[j][3] - mn1);
-      ls0 += s[j][0] + s[j][1];
-      ls1 += s[j][2] + s[j][3];
-    }
-    l0 = l0 * a0 + ls0;  // per-thread partial sums; reduced at the end
-    l1 = l1 * a1 + ls1;
+      for (int j = 0; j < NS; ++j) {
 #pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      acc[n][0] *= a0;
-      acc[n][1] *= a0;
-      acc[n][2] *= a1;
-      acc[n][3] *= a1;
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(s[j][e]);
+          // at D=64 the denominator sums the bf16 p that the product sees
+          if (D == 64) p = __bfloat162float(__float2bfloat16_rn(p));
+          s[j][e] = p;
+        }
+        l0 += s[j][0] + s[j][1];
+        l1 += s[j][2] + s[j][3];
+      }
+    } else {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float ls0 = 0.f, ls1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        s[j][0] = exp2f(s[j][0] - mn0);
+        s[j][1] = exp2f(s[j][1] - mn0);
+        s[j][2] = exp2f(s[j][2] - mn1);
+        s[j][3] = exp2f(s[j][3] - mn1);
+        ls0 += s[j][0] + s[j][1];
+        ls1 += s[j][2] + s[j][3];
+      }
+      l0 = l0 * a0 + ls0;  // per-thread partial sums; reduced at the end
+      l1 = l1 * a1 + ls1;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        acc[n][0] *= a0;
+        acc[n][1] *= a0;
+        acc[n][2] *= a1;
+        acc[n][3] *= a1;
+      }
     }
 
     // acc += P V, with P taken from the score registers
@@ -258,13 +309,18 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 }  // namespace
 
-extern "C" int k1_flash_attention_bf16(
-    const void* q, const void* k, const void* v, void* o,
-    const void* q_seg, const void* kv_seg,
-    int B, int H, int Sq, int Skv, int D,
-    int qsb, int qsh, int qss, int ksb, int ksh, int kss,
-    int vsb, int vsh, int vss, int osb, int osh, int oss,
-    int kv_valid, int causal, float scale_log2, void* stream) {
+namespace {
+
+template <bool BOUNDED>
+int launch_flash(const void* q, const void* k, const void* v, void* o,
+                 const void* q_seg, const void* kv_seg,
+                 int B, int H, int Sq, int Skv, int D,
+                 long long qsb, long long qsh, long long qss,
+                 long long ksb, long long ksh, long long kss,
+                 long long vsb, long long vsh, long long vss,
+                 long long osb, long long osh, long long oss,
+                 int kv_valid, int causal, float scale_log2,
+                 float bound_log2, void* stream) {
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* qp = static_cast<const bf16*>(q);
@@ -275,15 +331,61 @@ extern "C" int k1_flash_attention_bf16(
   const int* ksg = static_cast<const int*>(kv_seg);
   if (Sq <= 0 || B <= 0 || H <= 0) return cudaGetLastError();
   if (D == 64) {
-    flash_fwd_kernel<64><<<grid, NTHREADS, 0, st>>>(
+    flash_fwd_kernel<64, BOUNDED><<<grid, NTHREADS, 0, st>>>(
         qp, kp, vp, op, qsg, ksg, Sq, Skv, qsb, qsh, qss, ksb, ksh, kss,
-        vsb, vsh, vss, osb, osh, oss, kv_valid, causal, scale_log2);
+        vsb, vsh, vss, osb, osh, oss, kv_valid, causal, scale_log2,
+        bound_log2);
   } else if (D == 128) {
-    flash_fwd_kernel<128><<<grid, NTHREADS, 0, st>>>(
+    flash_fwd_kernel<128, BOUNDED><<<grid, NTHREADS, 0, st>>>(
         qp, kp, vp, op, qsg, ksg, Sq, Skv, qsb, qsh, qss, ksb, ksh, kss,
-        vsb, vsh, vss, osb, osh, oss, kv_valid, causal, scale_log2);
+        vsb, vsh, vss, osb, osh, oss, kv_valid, causal, scale_log2,
+        bound_log2);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int k1_flash_attention_bf16(
+    const void* q, const void* k, const void* v, void* o,
+    const void* q_seg, const void* kv_seg,
+    int B, int H, int Sq, int Skv, int D,
+    int qsb, int qsh, int qss, int ksb, int ksh, int kss,
+    int vsb, int vsh, int vss, int osb, int osh, int oss,
+    int kv_valid, int causal, float scale_log2, void* stream) {
+  return launch_flash<false>(q, k, v, o, q_seg, kv_seg, B, H, Sq, Skv, D,
+                             qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss,
+                             osb, osh, oss, kv_valid, causal, scale_log2,
+                             0.f, stream);
+}
+
+// K3: bound_log2 = score_bound * log2(e)
+extern "C" int k3_flash_attention_bounded_bf16(
+    const void* q, const void* k, const void* v, void* o,
+    const void* q_seg, const void* kv_seg,
+    int B, int H, int Sq, int Skv, int D,
+    int qsb, int qsh, int qss, int ksb, int ksh, int kss,
+    int vsb, int vsh, int vss, int osb, int osh, int oss,
+    int kv_valid, int causal, float scale_log2, float bound_log2,
+    void* stream) {
+  return launch_flash<true>(q, k, v, o, q_seg, kv_seg, B, H, Sq, Skv, D,
+                            qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss,
+                            osb, osh, oss, kv_valid, causal, scale_log2,
+                            bound_log2, stream);
+}
+
+// K6: q and out [B, S, H*D], k and v [B, Skv, H*D], each with a unit last
+// stride and its own batch and token strides (a slice of a fused q/k/v
+// projection is read in place); head h starts D*h values into a token's row
+extern "C" int k6_flash_attention_hp_bf16(
+    const void* q, const void* k, const void* v, void* o,
+    int B, int S, int Skv, int H, int D,
+    int qsb, int qss, int ksb, int kss, int vsb, int vss, int osb, int oss,
+    int kv_valid, float scale_log2, void* stream) {
+  return launch_flash<false>(q, k, v, o, nullptr, nullptr, B, H, S, Skv, D,
+                             qsb, D, qss, ksb, D, kss, vsb, D, vss,
+                             osb, D, oss, kv_valid, 0, scale_log2, 0.f,
+                             stream);
 }

@@ -3,18 +3,22 @@
 Port of ``ltx_video_gpupoor_tpu/models/ltx/transformer3d.py``:
 ``LTXTransformerConfig``, ``init_params`` (:112), ``timestep_embedding``,
 ``_block_forward`` (:256-422: adaLN-single, qk RMS-norm, RoPE, self- and
-cross-attention, the GELU FFN, the STG skip strategies),
-``compute_freqs`` (:425) and ``forward`` (:442).
+cross-attention, the GELU FFN and its token-chunked form ``_ffn``
+(:228), the STG skip strategies, the fused adaLN prologue tier, kernel
+K5, :278-308 and :398-412, and the bounded-score tier, kernel K3,
+:337), ``compute_freqs`` (:425) and ``forward`` (:442).
 
 The parameter tree becomes modules whose attribute names are the JAX
 keys (``core/from_jax.py`` relies on that); the per-layer ``lax.scan``
 becomes a loop over ``blocks``. Every linear is an ``ops.quant.Linear``,
 so ``quantize_params(model)`` moves the whole DiT onto kernel K2, and
-attention runs through kernel K1. Activations run in the policy's
+attention runs through ``ops.attention`` (kernels K1, K3, K4, K6 by
+mode). With ``LTXV_TPU_FUSED_PROLOGUE`` set, the norm, the modulation
+and the q/k/v (and ``proj_in``) linears of a block run as kernel K5
+under the gates of the JAX block. Activations run in the policy's
 ``compute_dtype``; modulation and the timestep path stay fp32.
 
-Not ported yet: the fused adaLN prologue (kernel K5, :282-305,
-:398-412), the ``ulysses:`` branch (:339-350), TeaCache
+Not ported yet: the ``ulysses:`` branch (:339-350), TeaCache
 (``previous_residual``) and the rope-on-heads layout; see ROADMAP.
 """
 
@@ -29,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...core.dtypes import DEFAULT_POLICY, DtypePolicy
+from ...ops import fused_prologue as _fp
 from ...ops.attention import attention, attention_packed
 from ...ops.norms import layer_norm, rms_norm
 from ...ops.quant import Linear
@@ -45,6 +50,9 @@ class LTXTransformerConfig:
     cross_attention_dim: int = 2048
     caption_channels: int = 4096
     qk_norm: Optional[str] = "rms_norm"
+    # static |logit| bound that selects the attention kernels' max-free
+    # softmax (kernel K3; only with qk_norm). An empirical bound on
+    # trained attention sharpness: logits beyond it tie at the bound.
     attention_score_bound: Optional[float] = None
     standardization_norm: str = "rms_norm"  # or "layer_norm"
     activation_fn: str = "gelu-approximate"  # or "geglu" / "gelu"
@@ -55,6 +63,8 @@ class LTXTransformerConfig:
     timestep_scale_multiplier: float = 1000.0
     ffn_mult: int = 4
     frequency_embedding_size: int = 256
+    # token-chunked FFN (1 = off): bounds the 4x-wide intermediate
+    ffn_chunks: int = 1
 
     @property
     def inner_dim(self) -> int:
@@ -103,8 +113,23 @@ class FeedForward(nn.Module):
         self.proj_in = Linear(cfg.inner_dim, cfg.ffn_dim * mult, **kw)
         self.proj_out = Linear(cfg.ffn_dim, cfg.inner_dim, **kw)
 
-    def forward(self, activation_fn: str, x: torch.Tensor) -> torch.Tensor:
-        h = self.proj_in(x)
+    def forward(self, activation_fn: str, x: torch.Tensor,
+                chunks: int = 1) -> torch.Tensor:
+        """The FFN, over ``chunks`` token chunks if more than one (the
+        JAX ``_ffn``: the tokens are padded to a multiple of the count)."""
+        if chunks <= 1:
+            return self.activate_project(activation_fn, self.proj_in(x))
+        s = x.shape[1]
+        pad = (-s) % chunks
+        xp = F.pad(x, (0, 0, 0, pad)) if pad else x
+        out = torch.cat([
+            self.activate_project(activation_fn, self.proj_in(c))
+            for c in xp.chunk(chunks, dim=1)], dim=1)
+        return out[:, :s] if pad else out
+
+    def activate_project(self, activation_fn: str,
+                         h: torch.Tensor) -> torch.Tensor:
+        """Activation and ``proj_out`` on the output of ``proj_in``."""
         if activation_fn == "geglu":
             h, gate = h.chunk(2, dim=-1)
             h = h * F.gelu(gate)
@@ -175,12 +200,33 @@ class Block(nn.Module):
         sb = cfg.attention_score_bound if cfg.qk_norm else None
         original_x = x
 
+        # the fused adaLN prologue tier (opt-in): norm + modulate +
+        # activation quantizer + the int8 q/k/v and proj_in products as
+        # kernel K5. AttentionSkip needs h itself, so it stays unfused.
+        g = ada.shape[1]
+        use_fused = (
+            _fp.enabled_mode() is not None
+            and cfg.standardization_norm == "rms_norm"
+            and not (skip_mask is not None
+                     and skip_strategy == SkipLayerStrategy.AttentionSkip)
+            and _fp.supports([self.attn1.to_q, self.attn1.to_k,
+                              self.attn1.to_v], s, g))
+
         # self-attention
-        h = _modulate(self._std_norm(x), scale_msa, shift_msa)
         a1 = self.attn1
-        q = a1.norm("q_norm", a1.to_q(h))
-        k = a1.norm("k_norm", a1.to_k(h))
-        v = a1.to_v(h)
+        if use_fused:
+            qkv = _fp.apply_fused(x, ada_v[:, :, 1], ada_v[:, :, 0],
+                                  [a1.to_q, a1.to_k, a1.to_v],
+                                  eps=cfg.norm_eps)
+            q, k, v = qkv.chunk(3, dim=-1)
+            q = a1.norm("q_norm", q)
+            k = a1.norm("k_norm", k)
+            h = None
+        else:
+            h = _modulate(self._std_norm(x), scale_msa, shift_msa)
+            q = a1.norm("q_norm", a1.to_q(h))
+            k = a1.norm("k_norm", a1.to_k(h))
+            v = a1.to_v(h)
         cos, sin = freqs
         q = apply_rotary_emb(q, cos, sin)
         k = apply_rotary_emb(k, cos, sin)
@@ -209,8 +255,16 @@ class Block(nn.Module):
         x = x + a2.to_out(ca.transpose(1, 2).reshape(b, s, heads * hd))
 
         # feed-forward
-        h = _modulate(self._std_norm(x), scale_mlp, shift_mlp)
-        x = x + _gated(gate_mlp, self.ff(cfg.activation_fn, h))
+        if (use_fused and cfg.ffn_chunks <= 1
+                and cfg.activation_fn in ("geglu", "gelu-approximate", "gelu")
+                and _fp.supports([self.ff.proj_in], s, g)):
+            hp = _fp.apply_fused(x, ada_v[:, :, 4], ada_v[:, :, 3],
+                                 [self.ff.proj_in], eps=cfg.norm_eps)
+            ffn = self.ff.activate_project(cfg.activation_fn, hp)
+        else:
+            h = _modulate(self._std_norm(x), scale_mlp, shift_mlp)
+            ffn = self.ff(cfg.activation_fn, h, cfg.ffn_chunks)
+        x = x + _gated(gate_mlp, ffn)
 
         if skip_mask is not None and \
                 skip_strategy == SkipLayerStrategy.TransformerBlock:

@@ -1,18 +1,24 @@
-"""LTX causal 3-D video VAE: the decoder.
+"""LTX causal 3-D video VAE.
 
-Port of the decoder half of ``ltx_video_gpupoor_tpu/models/ltx/vae.py``:
-``VAEConfig``, ``LTX_VAE_CONFIG_097`` (:129-153, a pinned copy),
-``causal_conv3d`` (:160) as a plain ``conv3d`` (the JAX package's
-``framewise_conv_sum`` is a TPU reformulation), ``_resnet_forward``,
-``_depth_to_space_up``, ``_pixel_shuffle_3d``, ``_unpatchify_pixels``,
-timestep conditioning, ``decode`` (:675) and ``un_normalize_latents``
-(:761). Decoder blocks: ``res_x``, ``res_x_y`` and the ``compress_*``
-upsamplers; ``attn_res_x`` and the encoder join with i2v conditioning
-(ROADMAP queue 1 step 9).
+Port of ``ltx_video_gpupoor_tpu/models/ltx/vae.py``: ``VAEConfig``,
+``LTX_VAE_CONFIG_097`` (:129-153, a pinned copy), ``causal_conv3d``
+(:160) as a plain ``conv3d`` (the JAX package's ``framewise_conv_sum`` is
+a TPU reformulation), ``_resnet_forward`` (:477), ``_vae_attention``
+(:517) and the ``attn_res_x`` mid blocks, ``_space_to_depth_down``
+(:558), ``_depth_to_space_up`` (:594), ``_pixel_shuffle_3d``, the pixel
+patchifiers, timestep conditioning, ``encode`` (:634), ``decode`` (:675),
+``sample_posterior`` (:742), ``normalize_latents`` (:753) and
+``un_normalize_latents`` (:761). Encoder blocks: ``res_x``, ``res_x_y``,
+the strided ``compress_*`` convolutions and the space-to-depth
+``compress_*_res``; decoder blocks: ``res_x``, ``attn_res_x``,
+``res_x_y`` and the ``compress_*`` upsamplers.
 
-:func:`decode` keeps the JAX layouts, ``[B, F, H, W, C]`` in and out;
-inside, tensors are channels-first ``[B, C, F, H, W]``, the layout of
-PyTorch's ``conv3d``, and kernels ``[C_out, C_in, kt, kh, kw]``.
+:class:`CausalVAEDecoder` is the decoder half with the latent statistics
+(all that text-to-video needs); :class:`CausalVAE` adds the encoder.
+:func:`encode` and :func:`decode` keep the JAX layouts, ``[B, F, H, W,
+C]`` in and out; inside, tensors are channels-first ``[B, C, F, H, W]``,
+the layout of PyTorch's ``conv3d``, and kernels ``[C_out, C_in, kt, kh,
+kw]``.
 """
 
 from __future__ import annotations
@@ -28,7 +34,8 @@ from einops import rearrange
 from torch import nn
 
 from ...core.dtypes import DEFAULT_POLICY, DtypePolicy
-from ...ops.norms import group_norm, layer_norm, pixel_norm
+from ...ops.attention import attention as mha
+from ...ops.norms import group_norm, layer_norm, pixel_norm, rms_norm
 from ...ops.quant import Linear
 from .transformer3d import timestep_embedding
 
@@ -87,6 +94,9 @@ class VAEConfig:
             spatial_padding_mode=cfg.get("spatial_padding_mode", "zeros"),
         )
 
+    def enc_blocks(self) -> list[tuple[str, dict]]:
+        return [(n, dict(p)) for n, p in self.encoder_blocks]
+
     def dec_blocks(self) -> list[tuple[str, dict]]:
         return [(n, dict(p)) for n, p in self.decoder_blocks]
 
@@ -134,6 +144,22 @@ LTX_VAE_CONFIG_097 = {
 
 _UP_STRIDES = {"compress_time": (2, 1, 1), "compress_space": (1, 2, 2),
                "compress_all": (2, 2, 2)}
+_DOWN_STRIDES = {**_UP_STRIDES, "compress_all_x_y": (2, 2, 2)}
+_DOWN_RES_STRIDES = {"compress_all_res": (2, 2, 2),
+                     "compress_space_res": (1, 2, 2),
+                     "compress_time_res": (2, 1, 1)}
+
+
+def _encoder_plan(cfg: VAEConfig):
+    """[(block, params, c_in, c_out)] of the encoder."""
+    plan = []
+    ch = cfg.encoder_base_channels or cfg.base_channels
+    for name, bp in cfg.enc_blocks():
+        cin = ch
+        if name in ("res_x_y", "compress_all_x_y", *_DOWN_RES_STRIDES):
+            ch = bp.get("multiplier", 2) * ch
+        plan.append((name, bp, cin, ch))
+    return plan
 
 
 def _decoder_plan(cfg: VAEConfig):
@@ -251,21 +277,65 @@ class ResBlock(nn.Module):
         return sc + h
 
 
+class HeadNormWeight(nn.Module):
+    def __init__(self, dim: int, *, device=None, dtype=torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim, device=device, dtype=dtype),
+                                   requires_grad=False)
+
+
+class VAEAttention(nn.Module):
+    """Self-attention over all voxels with a residual connection and a
+    per-head rms qk-norm (the norm weight's width is the head dim)."""
+
+    def __init__(self, cin: int, head_dim: int, **kw):
+        super().__init__()
+        self.to_q = Linear(cin, cin, **kw)
+        self.to_k = Linear(cin, cin, **kw)
+        self.to_v = Linear(cin, cin, **kw)
+        self.to_out = Linear(cin, cin, **kw)
+        self.q_norm = HeadNormWeight(head_dim, **kw)
+        self.k_norm = HeadNormWeight(head_dim, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, f, h, w = x.shape
+        tokens = x.flatten(2).transpose(1, 2)                # [B, N, C]
+        d = self.q_norm.weight.shape[0]
+        heads = c // d
+
+        def split(t):
+            return t.reshape(b, -1, heads, d).transpose(1, 2)
+
+        qh = rms_norm(split(self.to_q(tokens)), self.q_norm.weight, eps=1e-5)
+        kh = rms_norm(split(self.to_k(tokens)), self.k_norm.weight, eps=1e-5)
+        out = mha(qh, kh, split(self.to_v(tokens)))
+        out = self.to_out(out.transpose(1, 2).reshape(b, -1, c))
+        return (tokens + out).transpose(1, 2).reshape(b, c, f, h, w)
+
+
 class MidBlock(nn.Module):
-    def __init__(self, cfg, cin, num_layers, inject_noise, timestep_cond, **kw):
+    def __init__(self, cfg, cin, num_layers, inject_noise, timestep_cond,
+                 attention_head_dim: int = -1, **kw):
         super().__init__()
         self.res_blocks = nn.ModuleList(
             ResBlock(cfg, cin, cin, inject_noise, timestep_cond, **kw)
             for _ in range(num_layers))
         if timestep_cond:
             self.time_embedder = TimeEmbedder(cin * 4, **kw)
+        if attention_head_dim > 0:
+            hd = attention_head_dim if attention_head_dim < cin else cin
+            self.attention_blocks = nn.ModuleList(
+                VAEAttention(cin, hd, **kw) for _ in range(num_layers))
 
     def forward(self, x, causal, timestep, generator):
         temb = None
         if hasattr(self, "time_embedder") and timestep is not None:
             temb = _pixart_time_embed(self.time_embedder, timestep, x.shape[0])
-        for rb in self.res_blocks:
+        attn = getattr(self, "attention_blocks", None)
+        for i, rb in enumerate(self.res_blocks):
             x = rb(x, causal, temb, generator)
+            if attn is not None:
+                x = attn[i](x)
         return x
 
 
@@ -297,8 +367,10 @@ class Decoder(nn.Module):
                 blocks.append(Upsample(
                     cin, int(np.prod(stride)) * cin // reduction, **kw))
             elif name == "attn_res_x":
-                raise NotImplementedError(
-                    "attn_res_x decoder blocks: ROADMAP queue 1 step 9")
+                blocks.append(MidBlock(
+                    cfg, cin, bp["num_layers"], bp.get("inject_noise", False),
+                    cfg.timestep_conditioning,
+                    attention_head_dim=bp["attention_head_dim"], **kw))
             else:
                 raise ValueError(f"unknown decoder block {name}")
         self.up_blocks = nn.ModuleList(blocks)
@@ -313,6 +385,47 @@ class Decoder(nn.Module):
             self.last_scale_shift_table = nn.Parameter(
                 torch.empty(2, final_ch, device=kw.get("device"),
                             dtype=kw.get("dtype")), requires_grad=False)
+
+
+class Downsample(nn.Module):
+    """The conv of a space-to-depth ``compress_*_res`` block."""
+
+    def __init__(self, cin, cout, **kw):
+        super().__init__()
+        self.conv = Conv3d(cin, cout, **kw)
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: VAEConfig, **kw):
+        super().__init__()
+        plan = _encoder_plan(cfg)
+        base = cfg.encoder_base_channels or cfg.base_channels
+        self.conv_in = Conv3d(cfg.in_channels * cfg.patch_size ** 2, base,
+                              **kw)
+        blocks = []
+        for name, bp, cin, cout in plan:
+            if name == "res_x":
+                blocks.append(MidBlock(cfg, cin, bp["num_layers"], False,
+                                       False, **kw))
+            elif name == "res_x_y":
+                blocks.append(ResBlock(cfg, cin, cout, False, False, **kw))
+            elif name in _DOWN_STRIDES:
+                blocks.append(Conv3d(cin, cout, **kw))
+            elif name in _DOWN_RES_STRIDES:
+                stride = _DOWN_RES_STRIDES[name]
+                blocks.append(Downsample(cin, cout // int(np.prod(stride)),
+                                         **kw))
+            else:
+                raise ValueError(f"unknown encoder block {name}")
+        self.down_blocks = nn.ModuleList(blocks)
+        last_ch = plan[-1][3] if plan else base
+        self.conv_norm_out = NormParams(cfg.norm_layer, last_ch, **kw)
+        out_ch = cfg.latent_channels
+        if cfg.latent_log_var == "per_channel":
+            out_ch *= 2
+        elif cfg.latent_log_var in ("uniform", "constant"):
+            out_ch += 1
+        self.conv_out = Conv3d(last_ch, out_ch, **kw)
 
 
 class LatentStats(nn.Module):
@@ -337,6 +450,19 @@ class CausalVAEDecoder(nn.Module):
                                           cfg.latent_channels, 1, **kw)
         self.per_channel_statistics = LatentStats(cfg.latent_channels,
                                                   device=device)
+
+
+class CausalVAE(CausalVAEDecoder):
+    """Encoder, decoder and latent statistics."""
+
+    def __init__(self, cfg: VAEConfig, policy: DtypePolicy = DEFAULT_POLICY,
+                 *, device=None):
+        super().__init__(cfg, policy, device=device)
+        kw = dict(device=device, dtype=policy.param_dtype)
+        self.encoder = Encoder(cfg, **kw)
+        if cfg.use_quant_conv:
+            self.quant_conv = Conv3d(2 * cfg.latent_channels,
+                                     2 * cfg.latent_channels, 1, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -415,10 +541,87 @@ def _depth_to_space_up(up: Upsample, x, stride, causal, residual, reduction,
     return y
 
 
+def _space_to_depth_down(down: Downsample, x, stride, spatial_mode):
+    """``compress_*_res``: a causal conv and a space-to-depth, plus the
+    group mean of the input's space-to-depth as the skip branch."""
+    if stride[0] == 2:
+        x = torch.cat([x[:, :, :1], x], dim=2)
+    p1, p2, p3 = stride
+    x_in = rearrange(x, "b c (d p1) (h p2) (w p3) -> b (c p1 p2 p3) d h w",
+                     p1=p1, p2=p2, p3=p3)
+    out_ch = down.conv.weight.shape[0] * int(np.prod(stride))
+    group = x_in.shape[1] // out_ch
+    x_in = rearrange(x_in, "b (c g) d h w -> b c g d h w", g=group).mean(dim=2)
+    y = causal_conv3d(down.conv, x, causal=True, spatial_mode=spatial_mode)
+    y = rearrange(y, "b c (d p1) (h p2) (w p3) -> b (c p1 p2 p3) d h w",
+                  p1=p1, p2=p2, p3=p3)
+    return y + x_in
+
+
+def _patchify_pixels(x: torch.Tensor, p: int) -> torch.Tensor:
+    if p == 1:
+        return x
+    return rearrange(x, "b c f (h q) (w r) -> b (c r q) f h w", q=p, r=p)
+
+
 def _unpatchify_pixels(x: torch.Tensor, p: int) -> torch.Tensor:
     if p == 1:
         return x
     return rearrange(x, "b (c r q) f h w -> b c f (h q) (w r)", q=p, r=p)
+
+
+def encode(vae: CausalVAE, media: torch.Tensor) -> torch.Tensor:
+    """Encode pixels ``[B, F, H, W, C]`` in [-1, 1] to the latent mean and
+    log-variance ``[B, F', H', W', 2*latent]`` in the policy's compute
+    dtype. The encoder is always causal."""
+    cfg = vae.cfg
+    enc = vae.encoder
+    mode = cfg.spatial_padding_mode
+    x = media.to(vae.compute_dtype).permute(0, 4, 1, 2, 3)
+    x = _patchify_pixels(x, cfg.patch_size)
+    x = causal_conv3d(enc.conv_in, x, causal=True, spatial_mode=mode)
+    for (name, _, _, _), blk in zip(_encoder_plan(cfg), enc.down_blocks):
+        if name == "res_x":
+            x = blk(x, True, None, None)
+        elif name == "res_x_y":
+            x = blk(x, True, None, None)
+        elif name in _DOWN_STRIDES:
+            x = causal_conv3d(blk, x, stride=_DOWN_STRIDES[name], causal=True,
+                              spatial_mode=mode)
+        else:
+            x = _space_to_depth_down(blk, x, _DOWN_RES_STRIDES[name], mode)
+    x = _norm(cfg, enc.conv_norm_out, x)
+    x = causal_conv3d(enc.conv_out, F.silu(x), causal=True, spatial_mode=mode)
+    if cfg.latent_log_var == "uniform":
+        x = torch.cat([x, x[:, -1:].expand(-1, x.shape[1] - 2, -1, -1, -1)],
+                      dim=1)
+    elif cfg.latent_log_var == "constant":
+        x = x[:, :-1]
+        x = torch.cat([x, torch.full_like(x, -30.0)], dim=1)
+    if cfg.use_quant_conv:
+        x = causal_conv3d(vae.quant_conv, x)
+    return x.permute(0, 2, 3, 4, 1)
+
+
+def sample_posterior(encoded: torch.Tensor,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
+    """Split mean / log-variance; the mean (the mode) without a
+    generator, else a sample."""
+    mean, logvar = encoded.chunk(2, dim=-1)
+    if generator is None:
+        return mean
+    std = torch.exp(0.5 * torch.clamp(logvar, -30.0, 20.0))
+    return mean + std * torch.randn(mean.shape, generator=generator,
+                                    device=mean.device, dtype=mean.dtype)
+
+
+def normalize_latents(latents: torch.Tensor,
+                      stats: "LatentStats") -> torch.Tensor:
+    """Pixel-latent to DiT space: ``(z - mean) / std`` per channel."""
+    mean = stats.mean_of_means.to(latents.dtype)
+    std = stats.std_of_means.to(latents.dtype)
+    return (latents - mean) / std
 
 
 def decode(
@@ -449,7 +652,7 @@ def decode(
 
     _, plan = _decoder_plan(cfg)
     for (name, bp, _, _), blk in zip(plan, dec.up_blocks):
-        if name == "res_x":
+        if name in ("res_x", "attn_res_x"):
             x = blk(x, causal, scaled_t, generator)
         elif name == "res_x_y":
             x = blk(x, causal, None, generator)
@@ -482,7 +685,8 @@ def un_normalize_latents(latents: torch.Tensor,
 @torch.no_grad()
 def init_params(vae: CausalVAEDecoder, generator: torch.Generator
                 ) -> CausalVAEDecoder:
-    """Random decoder weights in the JAX ``init_params`` distribution."""
+    """Random weights in the JAX ``init_params`` distribution (decoder,
+    and encoder where the module has one)."""
     def randn(t):
         return torch.randn(t.shape, generator=generator, device=t.device,
                            dtype=t.dtype)

@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface and loaded with ``ctypes``. The
-library name carries a hash of the sources, so an edited source builds a
-new library at its first use; the build goes to ``build/`` inside the
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` (one
+``nvcc -c`` per source, all started together) and the objects are linked
+into one shared library with a plain C interface, loaded with ``ctypes``.
+The library name carries a hash of the sources, so an edited source builds
+a new library at its first use; the build goes to ``build/`` inside the
 package (listed in ``.gitignore``). Nothing here runs at import time.
 
 Every C entry point takes its tensors as pointers, the stream last, and
@@ -39,6 +40,14 @@ SIGNATURES = {
     "k1_flash_attention_bf16": [P, P, P, P, P, P, I, I, I, I, I,
                                 I, I, I, I, I, I, I, I, I, I, I, I,
                                 I, I, F, P],
+    # K1's arguments, then bound_log2 before the stream
+    "k3_flash_attention_bounded_bf16": [P, P, P, P, P, P, I, I, I, I, I,
+                                        I, I, I, I, I, I, I, I, I, I, I, I,
+                                        I, I, F, F, P],
+    # q, k, v, out ([B, S, H*D]), B, S, Skv, H, D, q/k/v/out strides
+    # (batch, token), kv_valid (-1 = none), scale, stream
+    "k6_flash_attention_hp_bf16": [P, P, P, P, I, I, I, I, I,
+                                   I, I, I, I, I, I, I, I, I, F, P],
     # q8, k8, v (int8 or bf16), out, q_seg, kv_seg, q_scale, k_scale,
     # v_scale, B, H, Sq, Skv, D, q/k/v/out strides (b, h, s),
     # ks_block, nks, kv_valid (-1 = none), causal, pv_int8, stream
@@ -50,6 +59,12 @@ SIGNATURES = {
     # xq, w, M, N, K, sx, sw, bias, out, out_mode (0 s32, 1 bf16, 2 f32),
     # stream
     "k2_int8_gemm": [P, P, I, I, I, P, P, P, P, I, P],
+    # x, scale, shift, M, K, rows_per_group, eps, xq, sx, stream
+    "k5_norm_mod_quantize_rows": [P, P, P, I, I, I, F, P, P, P],
+    # x, scale, shift, M, K, rows_per_group, eps, xq, sx (scratch), w, N,
+    # sw, bias, out, out_mode (0 s32, 1 bf16), stream
+    "k5_norm_mod_int8_matmul": [P, P, P, I, I, I, F, P, P, P, I, P, P, P, I,
+                                P],
 }
 
 
@@ -81,28 +96,52 @@ def library_path() -> Path:
     return BUILD_DIR / f"libltx_kernels_{source_hash()}.so"
 
 
-def build(force: bool = False) -> tuple[Path, float, str]:
+def build(force: bool = False,
+          parallel: bool = True) -> tuple[Path, float, str]:
     """Compile the kernels unless a library for these sources exists.
 
-    Returns ``(path, seconds, ptxas_report)``; seconds and report are
-    0 and "" when nothing was compiled."""
+    ``parallel=False`` compiles one source after another, to measure what
+    starting them together saves. Returns ``(path, seconds,
+    ptxas_report)``; seconds and report are 0 and "" when nothing was
+    compiled."""
     out = library_path()
     if out.exists() and not force:
         return out, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo",
-           "-o", str(tmp), *map(str, sources())]
+    nvcc = _nvcc()
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs, results = [], []
+    for src, obj in zip(sources(), objects):
+        procs.append(subprocess.Popen(
+            [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-c", "-Xcompiler",
+             "-fPIC", "-Xptxas=-v", "-lineinfo", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        if not parallel:
+            results.append((procs[-1], *procs[-1].communicate()))
+    if parallel:
+        results = [(proc, *proc.communicate()) for proc in procs]
+    try:
+        for proc, stdout, stderr in results:
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{stdout}\n{stderr}")
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+             *map(str, objects)], capture_output=True, text=True)
+        if link.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    report = "".join(stderr for _, _, stderr in results)
     os.replace(tmp, out)
-    return out, seconds, proc.stderr
+    return out, seconds, report
 
 
 @functools.cache

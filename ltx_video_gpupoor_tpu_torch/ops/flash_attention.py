@@ -1,4 +1,5 @@
-"""Attention kernels K1 (exact) and K4 (int8) and their plain versions.
+"""Attention kernels K1 (exact), K3 (bounded scores), K4 (int8) and K6
+(head-packed) and their plain versions.
 
 Port of ``ltx_video_gpupoor_tpu/ops/flash_attention.py``:
 
@@ -8,7 +9,14 @@ Port of ``ltx_video_gpupoor_tpu/ops/flash_attention.py``:
 - :func:`flash_attention` is ``flash_attention`` (:412) in its exact
   online-softmax tier, backed by ``csrc/flash_attention.cu`` (which
   replaces ``_flash_kernel``, :160). It takes any sequence length (the
-  kernel masks its own ragged edge).
+  kernel masks its own ragged edge). With ``score_bound=`` it is the
+  bounded-score tier (:294-313), kernel K3 (the ``BOUNDED`` flag of the
+  same source), whose plain version is :func:`bounded_attention_plain`.
+- :func:`flash_attention_hp` is ``flash_attention_hp`` (:804, Pallas
+  ``_hp_kernel`` :663), kernel K6: exact attention that reads and writes
+  the projections' ``[B, S, H*D]`` layout; its plain version is
+  :func:`flash_attention_hp_plain`. The 128-padding and the even head
+  count that the TPU kernel needs at D=64 are gone.
 - :func:`flash_attention_int8` is the same function with ``qk_int8=True``
   (``pv_int8`` either way): the quantize prologue (:484-533) is
   :func:`int8_prologue`, shared by both versions; the plain version is
@@ -27,9 +35,7 @@ kernel's tile, the plain version runs the kernel's math, and
 :func:`int8_tile_bound` states how far the two may lie apart.
 
 Layout ``[B, H, S, D]``; the kernels read any strides whose last one is 1,
-so head-split views of ``[B, S, H*D]`` projections need no copy. The
-bounded-score (K3) and head-packed (K6) tiers are still to be ported
-(ROADMAP queue 2).
+so head-split views of ``[B, S, H*D]`` projections need no copy.
 """
 
 from __future__ import annotations
@@ -108,6 +114,48 @@ def reference_attention(
     return o.to(q.dtype)
 
 
+def bounded_attention_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_segment_ids: torch.Tensor | None = None,
+    kv_segment_ids: torch.Tensor | None = None,
+    *,
+    score_bound: float,
+    scale: float | None = None,
+    causal: bool = False,
+    kv_valid: int | None = None,
+) -> torch.Tensor:
+    """The plain version of K3 (JAX ``_update``, :296-313): softmax with
+    the fixed exponent offset ``p = exp2(min(s, sb) - sb)``, ``sb =
+    score_bound * log2(e)``, no running max. A masked score gives p = 0
+    exactly (in JAX and in the kernel its exp2 underflows to 0; here a
+    ``where`` says so), so a row that sees no key returns 0. P meets V in
+    V's dtype. The denominator is the fp32 sum of p at a head dim that
+    is a multiple of 128; elsewhere JAX reads it off a ones column of V,
+    so it sums the p rounded to V's dtype."""
+    sq, d = q.shape[2], q.shape[3]
+    skv = k.shape[2]
+    if scale is None:
+        scale = d ** -0.5
+    _check_seg_pair(q_segment_ids, kv_segment_ids)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) \
+        * (scale * LOG2E)
+    dev = q.device
+    keep = _masks(q_segment_ids, kv_segment_ids,
+                  torch.arange(sq, device=dev), torch.arange(skv, device=dev),
+                  kv_valid, causal)
+    sb = score_bound * LOG2E
+    p = torch.exp2(torch.clamp(s, max=sb) - sb)
+    if keep is not None:
+        p = torch.where(keep, p, 0.0)
+    pr = p.to(v.dtype).float()
+    l = (pr if d % 128 else p).sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhqk,bhkd->bhqd", pr, v.float())
+    o = o / torch.where(l > 0, l, 1.0)
+    return o.to(q.dtype)
+
+
 def _check_layout(kernel: str, name: str, t: torch.Tensor, dtype, device):
     if t.dtype != dtype:
         raise ValueError(f"{kernel} takes {str(dtype)[6:]} {name}, got "
@@ -155,14 +203,22 @@ def flash_attention(
     scale: float | None = None,
     causal: bool = False,
     kv_valid: int | None = None,
+    score_bound: float | None = None,
 ) -> torch.Tensor:
-    """Exact flash attention over ``[B, H, S, D]``.
+    """Exact flash attention over ``[B, H, S, D]``; with ``score_bound``
+    the bounded-score tier (logits beyond the bound tie at it).
 
-    CPU tensors take :func:`reference_attention`; CUDA tensors launch K1
-    (bf16, D in {64, 128}) or raise. The output has q's dtype and, on the
-    card, q's memory layout."""
+    CPU tensors take :func:`reference_attention` (or
+    :func:`bounded_attention_plain`); CUDA tensors launch K1 (K3 with a
+    bound; bf16, D in {64, 128}) or raise. The output has q's dtype and,
+    on the card, q's memory layout. K1 launches count in ``launches``,
+    K3's in ``bounded_launches``."""
     _check_seg_pair(q_segment_ids, kv_segment_ids)
     if q.device.type == "cpu":
+        if score_bound is not None:
+            return bounded_attention_plain(
+                q, k, v, q_segment_ids, kv_segment_ids, scale=scale,
+                causal=causal, kv_valid=kv_valid, score_bound=score_bound)
         return reference_attention(
             q, k, v, q_segment_ids, kv_segment_ids, scale=scale,
             causal=causal, kv_valid=kv_valid)
@@ -178,21 +234,115 @@ def flash_attention(
     out = torch.empty_like(q)  # q's layout: head-split views stay views
     seg_q = q_segment_ids.data_ptr() if q_segment_ids is not None else None
     seg_kv = kv_segment_ids.data_ptr() if kv_segment_ids is not None else None
-    code = _lib.library().k1_flash_attention_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        seg_q, seg_kv, b, h, sq, skv, d,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *out.stride()[:3],
-        -1 if kv_valid is None else int(kv_valid), int(bool(causal)),
-        ctypes.c_float(float(scale) * LOG2E),
-        _lib.stream_ptr(q.device),
-    )
-    _lib.check(code, "K1 flash_attention launch")
-    flash_attention.launches += 1
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            seg_q, seg_kv, b, h, sq, skv, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3],
+            -1 if kv_valid is None else int(kv_valid), int(bool(causal)),
+            ctypes.c_float(float(scale) * LOG2E))
+    if score_bound is None:
+        code = _lib.library().k1_flash_attention_bf16(
+            *args, _lib.stream_ptr(q.device))
+        _lib.check(code, "K1 flash_attention launch")
+        flash_attention.launches += 1
+    else:
+        code = _lib.library().k3_flash_attention_bounded_bf16(
+            *args, ctypes.c_float(float(score_bound) * LOG2E),
+            _lib.stream_ptr(q.device))
+        _lib.check(code, "K3 bounded flash_attention launch")
+        flash_attention.bounded_launches += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.bounded_launches = 0
+
+
+# --------------------------------------------------------------------------
+# K6: the head-packed kernel
+# --------------------------------------------------------------------------
+
+def flash_attention_hp_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    heads: int,
+    scale: float | None = None,
+    kv_valid: int | None = None,
+) -> torch.Tensor:
+    """The plain version of K6: :func:`reference_attention` on the head
+    split of ``[B, S, H*D]``, merged back."""
+    b, s, hd_total = q.shape
+    d = hd_total // heads
+
+    def split(t):
+        return t.reshape(b, t.shape[1], heads, d).transpose(1, 2)
+
+    o = reference_attention(split(q), split(k), split(v), scale=scale,
+                            kv_valid=kv_valid)
+    return o.transpose(1, 2).reshape(b, s, hd_total)
+
+
+def flash_attention_hp(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    heads: int,
+    scale: float | None = None,
+    kv_valid: int | None = None,
+) -> torch.Tensor:
+    """Exact attention over head-packed ``[B, S, H*D]`` tensors, D in
+    {64, 128}, any S and any head count; ``kv_valid`` masks a kv tail.
+
+    CPU tensors take :func:`flash_attention_hp_plain`; CUDA tensors (bf16,
+    unit last stride: a slice of a fused q/k/v projection is read in
+    place) launch K6 or raise. The output is a new ``[B, S, H*D]``."""
+    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape \
+            or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
+        raise ValueError(f"q, k, v must be [B, S, H*D]: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    b, s, hd_total = q.shape
+    if hd_total % heads:
+        raise ValueError(f"width {hd_total} does not split into {heads} heads")
+    d = hd_total // heads
+    if d not in (64, 128):
+        raise ValueError(f"flash_attention_hp supports d in (64, 128), "
+                         f"got {d}")
+    if q.device.type == "cpu":
+        return flash_attention_hp_plain(q, k, v, heads=heads, scale=scale,
+                                        kv_valid=kv_valid)
+    if q.device.type != "cuda":
+        raise ValueError(f"K6 runs on CUDA or the CPU, not {q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"K6 takes bf16 {name}, got {t.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.stride(2) != 1 or t.data_ptr() % 16 \
+                or any(st % 8 for st in t.stride()[:2]):
+            raise ValueError(f"K6 needs {name} with a unit last stride and "
+                             f"16-byte aligned rows, got strides {t.stride()}")
+        if max(t.stride()) * max(t.shape[0], 1) >= 2**31:
+            raise ValueError(f"{name} strides must fit the kernel's int32")
+    from . import _lib
+
+    if scale is None:
+        scale = d ** -0.5
+    out = torch.empty((b, s, hd_total), dtype=q.dtype, device=q.device)
+    code = _lib.library().k6_flash_attention_hp_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, s, k.shape[1], heads, d,
+        *q.stride()[:2], *k.stride()[:2], *v.stride()[:2], *out.stride()[:2],
+        -1 if kv_valid is None else int(kv_valid),
+        ctypes.c_float(float(scale) * LOG2E), _lib.stream_ptr(q.device))
+    _lib.check(code, "K6 flash_attention_hp launch")
+    flash_attention_hp.launches += 1
+    return out
+
+
+flash_attention_hp.launches = 0
 
 
 # --------------------------------------------------------------------------

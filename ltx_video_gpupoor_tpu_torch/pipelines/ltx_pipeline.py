@@ -1,18 +1,26 @@
-"""LTX-Video text-to-video pipeline (single-scale pass).
+"""LTX-Video generation pipeline (single-scale pass): text-, image- and
+video-to-video.
 
-Port of ``ltx_video_gpupoor_tpu/pipelines/ltx_pipeline.py``, t2v only:
-``latent_to_pixel_coords`` (:64), ``GuidanceSchedule`` and
-``build_guidance_schedule`` (:264-383), ``denoise`` (:418-655; its
-``lax.scan`` is a host loop here) with CFG, CFG-star, STG and rescaling,
-``_decode_full`` (:109) with decode-timestep noise, ``LTXPipeline.generate``
-(:711, without conditioning items; ``noise=`` injection kept) and
-``LTXPipeline.decode`` (:917, untiled).
+Port of ``ltx_video_gpupoor_tpu/pipelines/ltx_pipeline.py``:
+``ConditioningItem`` (:54), ``latent_to_pixel_coords`` (:64),
+``_decode_full`` (:109) with decode-timestep noise and the tiled decode,
+``prepare_conditioning`` (:158: in-grid items and the extra-token prefix
+of a non-first item) and ``apply_conditioning`` (:241),
+``GuidanceSchedule`` and ``build_guidance_schedule`` (:264-383),
+``denoise`` (:418-655; its ``lax.scan`` is a host loop here) with CFG,
+CFG-star, STG, rescaling and the per-step noise refresh of conditioned
+tokens (``image_cond_noise_scale``), ``LTXPipeline.generate`` (:711:
+conditioning items, ``media_latents`` / ``initial_timestep``, the extra
+frame groups; ``noise=`` injection kept), ``_decode_tiles`` (:885) and
+``LTXPipeline.decode`` (:917).
 
 Randomness comes from one explicit ``torch.Generator`` on the latents'
-device: the initial noise (unless ``noise=`` is given), the stochastic
-sampling noise of each step, and the decode noise, drawn in that order.
-Not ported yet: conditioning items, TeaCache, tiling, sequence
-parallelism and the interrupt hooks (ROADMAP queue 1 steps 9-11).
+device: the initial noise (unless ``noise=`` is given), the noise of each
+extra conditioning token block, then per step the conditioning-noise
+refresh and the stochastic sampling noise, and last the decode noise,
+drawn in that order. Not ported yet: TeaCache, sequence parallelism, the
+multi-chip tiled decode and the interrupt hooks (ROADMAP queue 1 steps
+11 and 15).
 """
 
 from __future__ import annotations
@@ -33,6 +41,16 @@ from ..models.ltx.transformer3d import (
 from ..schedulers import rf
 
 
+@dataclasses.dataclass
+class ConditioningItem:
+    """In-grid conditioning media: pixels ``[F, H, W, C]`` in [-1, 1]
+    placed at ``frame_number`` (which must map onto the latent grid)."""
+
+    media: np.ndarray | torch.Tensor
+    frame_number: int = 0
+    strength: float = 1.0
+
+
 def latent_to_pixel_coords(latent_coords: torch.Tensor,
                            scale_factors: tuple[int, int, int],
                            causal_fix: bool = True) -> torch.Tensor:
@@ -44,6 +62,92 @@ def latent_to_pixel_coords(latent_coords: torch.Tensor,
         pixel = pixel.clone()
         pixel[:, 0] = torch.clamp(pixel[:, 0] + 1 - scale_factors[0], min=0)
     return pixel
+
+
+def resize_bilinear(frames: torch.Tensor, height: int,
+                    width: int) -> torch.Tensor:
+    """Bilinear resize of ``[..., H, W, C]`` frames with half-pixel
+    centres, antialiased where it shrinks (what ``jax.image.resize(...,
+    "bilinear")`` computes)."""
+    lead = frames.shape[:-3]
+    flat = frames.reshape(-1, *frames.shape[-3:]).permute(0, 3, 1, 2)
+    flat = torch.nn.functional.interpolate(
+        flat, size=(height, width), mode="bilinear", align_corners=False,
+        antialias=True)
+    return flat.permute(0, 2, 3, 1).reshape(*lead, height, width, -1)
+
+
+def encode_media(vae: ltx_vae.CausalVAE, media: torch.Tensor) -> torch.Tensor:
+    """Pixels ``[B, F, H, W, C]`` -> normalized latents (the posterior's
+    mode) in fp32."""
+    if not hasattr(vae, "encoder"):
+        raise ValueError("conditioning media need a VAE with its encoder "
+                         "(models.ltx.vae.CausalVAE)")
+    z = ltx_vae.sample_posterior(ltx_vae.encode(vae, media)).float()
+    return ltx_vae.normalize_latents(z, vae.per_channel_statistics)
+
+
+@torch.no_grad()
+def prepare_conditioning(
+    init_latents: torch.Tensor,     # [B, F', H', W', C] noise-free latents
+    items: Sequence[ConditioningItem],
+    vae: ltx_vae.CausalVAE,
+    num_prefix_latent_frames: int = 2,
+) -> tuple[torch.Tensor, torch.Tensor, list]:
+    """Write conditioning latents into the grid. An item at frame 0 lands
+    on the grid. Of an item at a later frame, the part beyond a prefix of
+    ``num_prefix_latent_frames`` latent frames lands on the grid, and the
+    prefix (or a lone frame) becomes extra tokens carried beside the
+    sequence. Returns ``(latents, mask [B, F', H', W'], extras)``, each
+    extra ``(z [B, fp, H', W', C], frame_number, strength)``."""
+    b, f_lat, h_lat, w_lat, c = init_latents.shape
+    dev = init_latents.device
+    mask = torch.zeros((b, f_lat, h_lat, w_lat), dtype=init_latents.dtype,
+                       device=dev)
+    latents = init_latents.clone()
+    t_factor = vae.cfg.temporal_downscale_factor
+    sf = vae.cfg.spatial_downscale_factor
+    height, width = h_lat * sf, w_lat * sf
+    extras = []
+    for item in items:
+        media = torch.as_tensor(item.media, dtype=torch.float32, device=dev)
+        if media.dim() == 4:
+            media = media[None]
+        if media.shape[2] != height or media.shape[3] != width:
+            # items arrive at the request's size; each pass resizes to its
+            # own
+            media = resize_bilinear(media, height, width)
+        z = encode_media(vae, media).to(latents.dtype)
+        if item.frame_number % t_factor:
+            raise ValueError(f"conditioning frame {item.frame_number} not "
+                             "on the latent grid")
+        fz = z.shape[1]
+        if item.frame_number == 0:
+            latents[:, :fz] = z
+            mask[:, :fz] = item.strength
+            continue
+        fp = min(num_prefix_latent_frames, fz)
+        if fz > fp:
+            f_start = item.frame_number // t_factor + fp
+            if f_start + (fz - fp) > f_lat:
+                raise ValueError(
+                    f"conditioning item at frame {item.frame_number} "
+                    f"extends past the latent grid "
+                    f"({f_start + fz - fp} > {f_lat})")
+            latents[:, f_start:f_start + fz - fp] = z[:, fp:]
+            mask[:, f_start:f_start + fz - fp] = item.strength
+        extras.append((z[:, :fp], item.frame_number, item.strength))
+    return latents, mask, extras
+
+
+def apply_conditioning(init_latents, items, vae):
+    """The in-grid view of :func:`prepare_conditioning`, for callers that
+    carry no extra tokens."""
+    latents, mask, extras = prepare_conditioning(init_latents, items, vae)
+    if extras:
+        raise ValueError("out-of-grid conditioning requires the extra-token "
+                         "path (LTXPipeline.generate)")
+    return latents, mask
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,9 +252,14 @@ def denoise(
     num_frame_groups: int,
     stochastic_sampling: bool = False,
     attn_mode: str = "auto",
+    init_latents: Optional[torch.Tensor] = None,
+    image_cond_noise_scale: float = 0.0,
 ) -> torch.Tensor:
     """The denoise loop; the guidance streams are batch rows
-    ``[uncond, cond, perturbed]`` of one transformer call per step."""
+    ``[uncond, cond, perturbed]`` of one transformer call per step.
+    With ``image_cond_noise_scale`` > 0, every step first re-noises the
+    fully conditioned tokens around ``init_latents`` (the latents as they
+    entered, by default) by ``scale * noise * t**2``."""
     num_conds = schedule.num_conds
     n_tokens = latents.shape[1]
     if latents.shape[0] != 1:
@@ -182,8 +291,17 @@ def denoise(
     tokens_per_group = n_tokens // num_frame_groups
     skip_masks = torch.as_tensor(schedule.skip_layer_mask)
 
+    if init_latents is None:
+        init_latents = latents
+
     for i in range(len(ts_host)):
         t = float(ts_host[i])
+        if image_cond_noise_scale > 0.0:
+            noise = torch.randn(latents.shape, generator=generator,
+                                device=dev, dtype=latents.dtype)
+            need = (conditioning_mask > 1.0 - 1e-6)[..., None]
+            noised = init_latents + image_cond_noise_scale * noise * (t ** 2)
+            latents = torch.where(need, noised, latents)
         t_tokens = torch.minimum(torch.tensor(t, device=dev),
                                  1.0 - conditioning_mask)          # [1, N]
         t_groups = t_tokens.reshape(1, num_frame_groups,
@@ -236,9 +354,10 @@ def denoise(
 @torch.no_grad()
 def decode_full(vae: ltx_vae.CausalVAEDecoder, latent_grid: torch.Tensor,
                 decode_timestep: float, decode_noise_scale: float,
-                generator: Optional[torch.Generator]) -> torch.Tensor:
+                generator: Optional[torch.Generator], z_tile: int = 0,
+                hw_tile: int = 0) -> torch.Tensor:
     """Un-normalize, noise to the decode timestep (timestep-conditioned
-    VAEs only), decode."""
+    VAEs only), decode: tiled if ``z_tile`` or ``hw_tile`` is set."""
     z = ltx_vae.un_normalize_latents(latent_grid, vae.per_channel_statistics)
     t = None
     gen = None
@@ -250,15 +369,24 @@ def decode_full(vae: ltx_vae.CausalVAEDecoder, latent_grid: torch.Tensor,
         t = torch.tensor(decode_timestep, dtype=torch.float32,
                          device=z.device)
         gen = generator
+    if z_tile or hw_tile:
+        from ..models.ltx.vae_tiling import tiled_decode
+
+        return tiled_decode(vae, z, z_tile=z_tile, hw_tile=hw_tile,
+                            timestep=t, generator=gen)
     return ltx_vae.decode(vae, z, t, gen)
 
 
 @dataclasses.dataclass
 class LTXPipeline:
-    """The DiT and the VAE decoder; methods drive them."""
+    """The DiT and the VAE (its decoder; the encoder too where media
+    condition the request); methods drive them."""
 
     transformer: LTXTransformer3D
     vae: ltx_vae.CausalVAEDecoder
+    # (z_tile latent frames, hw_tile pixels) of the VAE decode; None =
+    # by size: untiled up to 704x480x121 voxels, tiled above
+    vae_tile_size: Optional[tuple] = None
 
     def latent_shape(self, height: int, width: int, num_frames: int):
         sf = self.vae.cfg.spatial_downscale_factor
@@ -277,12 +405,16 @@ class LTXPipeline:
         timesteps: Optional[Sequence[float]] = None,
         frame_rate: float = 25.0,
         generator: Optional[torch.Generator] = None,
+        conditioning_items: Sequence[ConditioningItem] = (),
+        media_latents: Optional[torch.Tensor] = None,
+        initial_timestep: Optional[float] = None,
         guidance_scale=3.0,
         stg_scale=0.0,
         rescaling_scale=1.0,
         skip_block_list=None,
         guidance_timesteps=None,
         skip_layer_strategy=SkipLayerStrategy.AttentionValues,
+        image_cond_noise_scale: float = 0.0,
         stochastic_sampling: bool = False,
         sampler: str = "Uniform",
         shifting: Optional[str] = "SD3",
@@ -309,16 +441,60 @@ class LTXPipeline:
                                 generator=generator, device=dev,
                                 dtype=torch.float32)
         noise = torch.as_tensor(noise, dtype=torch.float32, device=dev)
-        init = patchifier.unpatchify(noise, h_lat, w_lat, c)
+        noise_grid = patchifier.unpatchify(noise, h_lat, w_lat, c)
+
+        if media_latents is not None:
+            t0 = float(ts[0]) if initial_timestep is None else initial_timestep
+            init = t0 * noise_grid + (1 - t0) * media_latents.to(
+                device=dev, dtype=torch.float32)
+        else:
+            init = noise_grid
+
+        cond_mask_grid = torch.zeros((1, f_lat, h_lat, w_lat),
+                                     dtype=torch.float32, device=dev)
+        extras = []
+        if conditioning_items:
+            cond_latents, cond_mask_grid, extras = prepare_conditioning(
+                torch.zeros((1, f_lat, h_lat, w_lat, c), dtype=torch.float32,
+                            device=dev),
+                conditioning_items, self.vae)
+            # lerp(noised init, clean conditioning latents, strength)
+            init = init + cond_mask_grid[..., None] * (cond_latents - init)
+
         tokens, latent_coords = patchifier.patchify(init)
-        cond_mask_tokens = torch.zeros((1, tokens.shape[1]),
-                                       dtype=torch.float32, device=dev)
+        cond_mask_tokens = cond_mask_grid.reshape(1, -1)
         vcfg = self.vae.cfg
         scale_factors = (vcfg.temporal_downscale_factor,
                          vcfg.spatial_downscale_factor,
                          vcfg.spatial_downscale_factor)
         pixel_coords = latent_to_pixel_coords(
             latent_coords, scale_factors, causal_fix=True).float()
+
+        # out-of-grid conditioning: extra tokens prepended with their own
+        # pixel coordinates (the frame axis offset by the media's frame
+        # number), mask = strength, latents = lerp(noise, z, strength)
+        num_extra_tokens = 0
+        extra_frame_groups = 0
+        if extras:
+            ex_tokens, ex_coords, ex_masks = [], [], []
+            for z, frame_number, strength_i in extras:
+                zt, z_coords = patchifier.patchify(z.float())
+                ex_noise = torch.randn(zt.shape, generator=generator,
+                                       device=dev, dtype=torch.float32)
+                zt = ex_noise + strength_i * (zt - ex_noise)
+                pc = latent_to_pixel_coords(z_coords, scale_factors,
+                                            causal_fix=True).float()
+                pc[:, 0] = pc[:, 0] + float(frame_number)
+                ex_tokens.append(zt)
+                ex_coords.append(pc)
+                ex_masks.append(torch.full((1, zt.shape[1]), strength_i,
+                                           dtype=torch.float32, device=dev))
+                extra_frame_groups += z.shape[1]
+            tokens = torch.cat(ex_tokens + [tokens], dim=1)
+            pixel_coords = torch.cat(ex_coords + [pixel_coords], dim=2)
+            cond_mask_tokens = torch.cat(ex_masks + [cond_mask_tokens], dim=1)
+            num_extra_tokens = sum(t.shape[1] for t in ex_tokens)
+
         pixel_coords[:, 0] = pixel_coords[:, 0] * (1.0 / frame_rate)
 
         schedule = build_guidance_schedule(
@@ -330,17 +506,40 @@ class LTXPipeline:
         latents = denoise(
             self.transformer, tokens, cond_mask_tokens, pixel_coords, ts,
             schedule, prompt_embeds, prompt_mask, generator,
-            num_frame_groups=f_lat, stochastic_sampling=stochastic_sampling,
-            attn_mode=attn_mode)
+            num_frame_groups=f_lat + extra_frame_groups,
+            stochastic_sampling=stochastic_sampling, attn_mode=attn_mode,
+            init_latents=tokens,
+            image_cond_noise_scale=image_cond_noise_scale)
+        if num_extra_tokens:
+            latents = latents[:, num_extra_tokens:]
         latent_grid = patchifier.unpatchify(latents, h_lat, w_lat, c)
         if output_type == "latent":
             return latent_grid
         return self.decode(latent_grid, decode_timestep, decode_noise_scale,
                            generator)
 
+    def _decode_tiles(self, z: torch.Tensor) -> tuple[int, int]:
+        """(z_tile, hw_tile) for this latent shape, by a voxel budget:
+        untiled up to 704x480x121, temporal tiles of 4 latent frames when
+        one such tile fits that budget, else spatial tiles of 512 too."""
+        if self.vae_tile_size is not None:
+            return self.vae_tile_size
+        sf = self.vae.cfg.spatial_downscale_factor
+        tf = self.vae.cfg.temporal_downscale_factor
+        h, w = z.shape[2] * sf, z.shape[3] * sf
+        frames = (z.shape[1] - 1) * tf + 1
+        envelope = 704 * 480 * 121
+        if h * w * frames <= envelope:
+            return (0, 0)
+        if h * w * (4 * tf + 1) <= envelope:
+            return (4, 0)
+        return (4, 512)
+
     def decode(self, latent_grid, decode_timestep=0.0,
                decode_noise_scale=None, generator=None):
         if decode_noise_scale is None:
             decode_noise_scale = decode_timestep
+        z_tile, hw_tile = self._decode_tiles(latent_grid)
         return decode_full(self.vae, latent_grid, decode_timestep,
-                           decode_noise_scale, generator)
+                           decode_noise_scale, generator, z_tile=z_tile,
+                           hw_tile=hw_tile)

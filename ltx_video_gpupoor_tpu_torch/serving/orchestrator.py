@@ -2,10 +2,13 @@
 
 Port of ``ltx_video_gpupoor_tpu/serving/orchestrator.py``:
 ``pad_dimensions`` (:68), ``build_timesteps`` (:76) and
-``LTXVideoGenerator.generate`` (:158) on the ``"base"`` pipeline branch
-(:364-391), returning uint8 ``[F, H, W, 3]`` frames. The multi-scale
-branch, i2v/v2v media, ``yuv420`` output, resolution bucketing and
-TeaCache raise ``NotImplementedError`` (ROADMAP queue 1 steps 9-11).
+``LTXVideoGenerator.generate`` (:158): text-to-video, an image as first
+and/or last frame, a video as conditioning or (``strength < 1``) as the
+start of a video-to-video run (:198-275), the ``"base"`` branch
+(:364-391) and the two-pass multi-scale branch (:312-363), the bilinear
+resize back to the padded size (:395-405), uint8 ``[F, H, W, 3]`` frames.
+``yuv420`` output, resolution bucketing and TeaCache raise
+``NotImplementedError`` (ROADMAP queue 1 step 11).
 """
 
 from __future__ import annotations
@@ -18,7 +21,13 @@ import torch
 
 from ..configs import load_ltx_pipeline_config
 from ..models.ltx.transformer3d import SkipLayerStrategy
-from ..pipelines.ltx_pipeline import LTXPipeline
+from ..pipelines.ltx_pipeline import (
+    ConditioningItem,
+    LTXPipeline,
+    encode_media,
+    resize_bilinear,
+)
+from ..pipelines.multiscale import MultiScalePipeline
 from ..schedulers import rf
 from ..utils import media as media_utils
 
@@ -92,9 +101,13 @@ def _pass_kwargs(pass_cfg: dict, stg_strategy):
 
 @dataclasses.dataclass
 class LTXVideoGenerator:
-    """End-to-end text-to-video generation with the reference's knobs."""
+    """End-to-end t2v / i2v / v2v generation with the reference's knobs.
+    ``pipeline_config`` names a registry entry or is the config itself
+    (the JAX package defaults to ``"ltxv-13b-0.9.7-distilled"``, which
+    needs ``multiscale``)."""
 
     pipeline: LTXPipeline
+    multiscale: Optional[MultiScalePipeline] = None
     pipeline_config: dict | str = "ltxv-2b-0.9.6-distilled"
 
     def __post_init__(self):
@@ -112,67 +125,170 @@ class LTXVideoGenerator:
         frame_num: int = 81,
         frame_rate: float = 30.0,
         seed: int = 42,
-        image_start: Optional[np.ndarray] = None,
+        image_start: Optional[np.ndarray] = None,   # [H, W, 3]
         image_end: Optional[np.ndarray] = None,
-        input_video: Optional[np.ndarray] = None,
+        input_video: Optional[np.ndarray] = None,   # [F, H, W, 3]
+        image_cond_noise_scale: float = 0.15,
+        fit_into_canvas: bool = True,
         sampling_steps: Optional[int] = None,
+        strength: float = 1.0,
         output_type: str = "pixels",
         bucket_resolution: bool = False,
         teacache_multiplier: float = 0.0,
         noise: Optional[torch.Tensor] = None,
+        noise_pass1: Optional[torch.Tensor] = None,
+        noise_pass2: Optional[torch.Tensor] = None,
+        attn_mode: str = "auto",
         on_stage=None,
     ):
         """Generate frames: uint8 ``[F, H, W, 3]`` numpy on the host
         (``output_type="pixels"``) or the latent grid (``"latent"``).
 
+        ``image_start`` / ``image_end`` (uint8, or float in [-1, 1])
+        condition the first / last frame; ``input_video`` (float in
+        [-1, 1]) conditions the leading frames or, with ``strength < 1``,
+        is encoded, noised to ``strength`` and denoised from there.
         ``seed`` seeds one ``torch.Generator`` on the model's device;
-        ``noise`` ([1, tokens, C] fp32) replaces the initial noise draw.
-        ``on_stage(name, value)``, if given, is called as each stage
-        starts: ``("denoise", None)``, ``("decode", latent grid)`` and
-        ``("postprocess", decoded pixels in [-1, 1])``."""
-        for name, value, step in (
-                ("image_start", image_start is not None, 9),
-                ("image_end", image_end is not None, 9),
-                ("input_video", input_video is not None, 9),
-                ("bucket_resolution", bucket_resolution, 11),
-                ("teacache_multiplier", teacache_multiplier > 0, 11)):
+        ``noise`` ([1, tokens, C] fp32) replaces the initial noise draw of
+        the base pipeline, ``noise_pass1`` / ``noise_pass2`` those of the
+        two multi-scale passes. ``attn_mode`` selects the attention tier
+        (``ops.attention``). ``on_stage(name, value)``, if given, is
+        called as each stage starts: ``("denoise", None)``, in the
+        multi-scale branch also ``("pass1", None)``, ``("upsample",
+        latents)`` and ``("pass2", latents)``, then ``("decode", latent
+        grid)`` and ``("postprocess", decoded pixels in [-1, 1])``."""
+        for name, value in (("bucket_resolution", bucket_resolution),
+                            ("teacache_multiplier", teacache_multiplier > 0)):
             if value:
-                raise NotImplementedError(
-                    f"{name}: ROADMAP queue 1 step {step}")
+                raise NotImplementedError(f"{name}: ROADMAP queue 1 step 11")
         if output_type not in ("pixels", "latent"):
             raise NotImplementedError(
                 f"output_type={output_type!r}: ROADMAP queue 1 step 11")
         cfg = dict(self.pipeline_config)
-        if cfg.get("pipeline_type") == "multi-scale":
-            raise NotImplementedError(
-                "multi-scale pipeline configs: ROADMAP queue 1 step 10")
         stg_strategy = STG_MODES[cfg.get("stg_mode", "attention_values")]
         dev = self.pipeline.transformer.proj_out.bias.device
         generator = torch.Generator(device=dev).manual_seed(seed)
 
+        if input_video is not None:
+            height, width = input_video.shape[1:3]
+        elif image_start is not None:
+            ih, iw = image_start.shape[:2]
+            height, width = media_utils.calculate_new_dimensions(
+                height, width, ih, iw, fit_into_canvas, 32)
         height = min(height, MAX_HEIGHT)
         width = min(width, MAX_WIDTH)
         frame_num = min(frame_num, MAX_FRAMES)
         hp, wp, fp = pad_dimensions(height, width, frame_num)
         padding = media_utils.calculate_padding(height, width, hp, wp)
 
-        pass_cfg = {k: cfg[k] for k in (
-            "guidance_scale", "stg_scale", "rescaling_scale",
-            "skip_block_list", "guidance_timesteps", "num_inference_steps",
-            "timesteps") if k in cfg}
-        if sampling_steps is not None:
-            pass_cfg["num_inference_steps"] = sampling_steps
+        conditioning = []
+        media_video = None
+        if input_video is not None and (input_video.shape[1] != height
+                                        or input_video.shape[2] != width):
+            # the working dims moved off the video's own (the MAX clamp):
+            # resize the frames before padding
+            input_video = np.stack([
+                media_utils.resize_image(f, height, width)
+                for f in np.asarray(input_video)])
+        if input_video is not None and strength < 1.0:
+            # v2v: the whole video, trimmed to the padded frame count, is
+            # encoded at each branch's working resolution
+            media_video = media_utils.pad_media(input_video[:fp], padding)
+        elif input_video is not None:
+            # conditioning video: trimmed to N * temporal_factor + 1 frames
+            tsf = self.pipeline.vae.cfg.temporal_downscale_factor
+            n = min(input_video.shape[0], frame_num)
+            n = (n - 1) // tsf * tsf + 1
+            item = media_utils.pad_media(input_video[:n], padding)
+            conditioning.append(ConditioningItem(item, 0, 1.0))
+        if image_start is not None:
+            img = media_utils.prepare_conditioning_image(image_start, height,
+                                                         width)
+            conditioning.append(ConditioningItem(
+                media_utils.pad_media(img, padding), 0, 1.0))
+        if image_end is not None:
+            img = media_utils.prepare_conditioning_image(image_end, height,
+                                                         width)
+            conditioning.append(ConditioningItem(
+                media_utils.pad_media(img, padding), fp - 1, 1.0))
+
+        common = dict(
+            frame_rate=frame_rate,
+            conditioning_items=conditioning,
+            image_cond_noise_scale=(image_cond_noise_scale if conditioning
+                                    else 0.0),
+            stochastic_sampling=cfg.get("stochastic_sampling", False),
+            attn_mode=attn_mode,
+        )
         f_lat, h_lat, w_lat = self.pipeline.latent_shape(hp, wp, fp)
-        ts = build_timesteps(pass_cfg, f_lat * h_lat * w_lat,
-                             cfg.get("sampler"))
+        n_tokens = f_lat * h_lat * w_lat
+
+        def encode_video(video: np.ndarray, th: int, tw: int):
+            if video.shape[1] != th or video.shape[2] != tw:
+                video = np.stack([media_utils.resize_image(f, th, tw)
+                                  for f in video])
+            return encode_media(self.pipeline.vae, torch.as_tensor(
+                video, dtype=torch.float32, device=dev)[None])
+
+        max_t = strength if media_video is not None else 1.0
         if on_stage is not None:
             on_stage("denoise", None)
-        latents = self.pipeline.generate(
-            prompt_embeds, prompt_mask, height=hp, width=wp, num_frames=fp,
-            timesteps=ts, generator=generator, output_type="latent",
-            frame_rate=frame_rate,
-            stochastic_sampling=cfg.get("stochastic_sampling", False),
-            noise=noise, **_pass_kwargs(pass_cfg, stg_strategy))
+        if cfg.get("pipeline_type") == "multi-scale":
+            if self.multiscale is None:
+                raise ValueError(
+                    "multi-scale config requires a latent upsampler "
+                    "(LTXVideoGenerator(multiscale=MultiScalePipeline(...)))")
+            first = dict(cfg["first_pass"])
+            second = dict(cfg["second_pass"])
+            if sampling_steps is not None:
+                # the user's step count overrides both passes' counts;
+                # explicit timestep lists still win in build_timesteps
+                first["num_inference_steps"] = sampling_steps
+                second["num_inference_steps"] = sampling_steps
+            ms = self.multiscale
+            df = cfg.get("downscale_factor")
+            if df is not None and df != ms.downscale_factor:
+                ms = dataclasses.replace(ms, downscale_factor=df)
+            # pass-1 dims from the same computation the multi-scale
+            # pipeline will run
+            dh, dw = ms.downscaled_dims(hp, wp)
+            fl, hl, wl = self.pipeline.latent_shape(dh, dw, fp)
+            ts1 = build_timesteps(first, fl * hl * wl, cfg.get("sampler"),
+                                  max_timestep=max_t)
+            # strength truncates both passes' schedules
+            ts2 = build_timesteps(second, n_tokens, cfg.get("sampler"),
+                                  max_timestep=max_t)
+            first_kw = dict(timesteps=ts1, **_pass_kwargs(first, stg_strategy))
+            if media_video is not None:
+                first_kw.update(
+                    media_latents=encode_video(media_video, dh, dw),
+                    initial_timestep=float(ts1[0]))
+            latents = ms.generate(
+                prompt_embeds, prompt_mask, height=hp, width=wp,
+                num_frames=fp, first_pass=first_kw,
+                second_pass=dict(timesteps=ts2,
+                                 **_pass_kwargs(second, stg_strategy)),
+                generator=generator, output_type="latent",
+                noise_pass1=noise_pass1, noise_pass2=noise_pass2,
+                on_stage=on_stage, **common)
+        else:
+            pass_cfg = {k: cfg[k] for k in (
+                "guidance_scale", "stg_scale", "rescaling_scale",
+                "skip_block_list", "guidance_timesteps",
+                "num_inference_steps", "timesteps") if k in cfg}
+            if sampling_steps is not None:
+                pass_cfg["num_inference_steps"] = sampling_steps
+            ts = build_timesteps(pass_cfg, n_tokens, cfg.get("sampler"),
+                                 max_timestep=max_t)
+            extra = {}
+            if media_video is not None:
+                extra = dict(media_latents=encode_video(media_video, hp, wp),
+                             initial_timestep=float(ts[0]))
+            latents = self.pipeline.generate(
+                prompt_embeds, prompt_mask, height=hp, width=wp,
+                num_frames=fp, timesteps=ts, generator=generator,
+                output_type="latent", noise=noise,
+                **_pass_kwargs(pass_cfg, stg_strategy), **common, **extra)
         if output_type == "latent":
             return latents
         if on_stage is not None:
@@ -181,6 +297,11 @@ class LTXVideoGenerator:
                                   cfg.get("decode_noise_scale"), generator)
         if on_stage is not None:
             on_stage("postprocess", px)
-        frames = media_utils.crop_padding(px[0], padding, frame_num)
+        frames = px[0]
+        if frames.shape[1] != hp or frames.shape[2] != wp:
+            # multi-scale pass 2 decodes at twice the downscaled dims,
+            # which can exceed the request: resize back to the padded size
+            frames = resize_bilinear(frames.float(), hp, wp)
+        frames = media_utils.crop_padding(frames, padding, frame_num)
         frames = torch.clamp((frames.float() + 1.0) * 127.5, 0, 255)
         return frames.to(torch.uint8).cpu().numpy()

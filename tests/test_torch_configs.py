@@ -28,8 +28,13 @@ def test_pipeline_configs_equal_jax(name):
         jcfg.load_ltx_pipeline_config(name)
     # a loaded config is a copy: editing it leaves the registry alone
     cfg = tcfg.load_ltx_pipeline_config(name)
-    cfg["guidance_scale"] = -1
-    assert tcfg.LTX_PIPELINE_CONFIGS[name]["guidance_scale"] != -1
+    cfg["decode_timestep"] = -1
+    assert tcfg.LTX_PIPELINE_CONFIGS[name]["decode_timestep"] != -1
+    for nested in ("first_pass", "second_pass"):
+        if nested in cfg:
+            cfg[nested]["skip_block_list"] = None
+            assert tcfg.LTX_PIPELINE_CONFIGS[name][nested][
+                "skip_block_list"] is not None
 
 
 def test_wan_configs_equal_jax():

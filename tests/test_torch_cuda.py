@@ -1,4 +1,4 @@
-"""Kernels K1, K2 and K4 on the card against their plain versions.
+"""Kernels K1 to K6 on the card against their plain versions.
 
 This file imports torch and the port only (no jax), so it runs on the
 machine with the GPU:  python -m pytest tests/test_torch_cuda.py -q
@@ -18,13 +18,20 @@ most 1.1x the plain version's: it adds no error to the tier's own.
 (The 3e-2 max bound of the JAX tier tests holds on their inputs; the
 tiers' own math exceeds it on other draws, 0.05 at worst in 12 CPU
 draws, so it is no bound for every input.)
+K3 (bounded scores) and K6 (head-packed) against their plain versions at
+K1's atol = rtol = 2e-2. K5 (fused adaLN prologue): the int8 codes and
+row scales of its row kernel and the int32 product exactly, as for K2
+(the mean of squares is rounded from a float64 sum on both sides, and
+``rsqrt`` is the same device function), its outputs at 1e-2 relative.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from ltx_video_gpupoor_tpu_torch.ops import attention as attn
 from ltx_video_gpupoor_tpu_torch.ops import flash_attention as fa
+from ltx_video_gpupoor_tpu_torch.ops import fused_prologue as fp
 from ltx_video_gpupoor_tpu_torch.ops import int8_matmul as im
 from ltx_video_gpupoor_tpu_torch.ops.quant import quantize_weights
 
@@ -201,3 +208,115 @@ def test_k4_rejects_what_it_does_not_take(cuda):
         fa.int8_attention_cuda(ops._replace(v=q))
     with pytest.raises(ValueError, match="k_scale"):
         fa.int8_attention_cuda(ops._replace(k_scale=ops.k_scale[..., :0]))
+
+
+@pytest.mark.parametrize("d,sq,skv,seg,causal,kv_valid", [
+    (128, 300, 300, False, False, None),         # ragged S
+    (64, 300, 300, False, False, 211),           # D=64: bf16 denominator
+    (128, 130, 77, True, False, None),           # text segments, a lost row
+    (64, 200, 200, False, True, None),           # causal
+])
+def test_k3_matches_plain(cuda, d, sq, skv, seg, causal, kv_valid):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (_randn(gen, 2, 3, n, d).bfloat16() for n in (sq, skv, skv))
+    q[0, 0, 3] *= 40                               # scores over the bound
+    args = []
+    if seg:
+        args = [torch.ones(2, sq, dtype=torch.int32, device=cuda),
+                torch.ones(2, skv, dtype=torch.int32, device=cuda)]
+        args[1][0, 40:] = 0
+        args[0][1, 5] = 7                          # sees no key
+    kw = dict(causal=causal, kv_valid=kv_valid)
+    before = (fa.flash_attention.bounded_launches, fa.flash_attention.launches)
+    out = fa.flash_attention(q, k, v, *args, score_bound=16.0, **kw)
+    assert (fa.flash_attention.bounded_launches,
+            fa.flash_attention.launches) == (before[0] + 1, before[1])
+    ref = fa.bounded_attention_plain(q, k, v, *args, score_bound=16.0, **kw)
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    # within the bound it is exact attention
+    q[0, 0, 3] /= 40
+    out = fa.flash_attention(q, k, v, *args, score_bound=40.0, **kw)
+    exact = fa.reference_attention(q.float(), k.float(), v.float(), *args,
+                                   **kw)
+    torch.testing.assert_close(out.float(), exact, atol=2e-2, rtol=2e-2)
+    if seg:
+        assert float(out[1, :, 5].float().abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("heads,d,s,kv_valid", [(4, 64, 300, None),
+                                                (3, 128, 200, 150),
+                                                (3, 64, 97, None)])
+def test_k6_matches_plain(cuda, heads, d, s, kv_valid):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v = (_randn(gen, 2, s, heads * d).bfloat16() for _ in range(3))
+    before = fa.flash_attention_hp.launches
+    out = fa.flash_attention_hp(q, k, v, heads=heads, kv_valid=kv_valid)
+    assert fa.flash_attention_hp.launches == before + 1
+    assert out.shape == q.shape and out.is_contiguous()
+    ref = fa.flash_attention_hp_plain(q.float(), k.float(), v.float(),
+                                      heads=heads, kv_valid=kv_valid)
+    torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=2e-2)
+
+
+def test_k6_reads_a_fused_qkv_projection_in_place(cuda):
+    """q, k and v as slices of one [B, S, 3*H*D] projection, through the
+    dispatch: ``pallas_hp`` launches K6 and nothing else."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    b, s, heads, d = 2, 130, 2, 128
+    qkv = _randn(gen, b, s, 3 * heads * d).bfloat16()
+    q, k, v = qkv.chunk(3, dim=-1)
+    before = (fa.flash_attention_hp.launches, fa.flash_attention.launches)
+    out = attn.attention_packed(q, k, v, heads, mode="pallas_hp")
+    assert (fa.flash_attention_hp.launches, fa.flash_attention.launches) == \
+        (before[0] + 1, before[1])
+    ref = fa.flash_attention_hp_plain(q.float(), k.float(), v.float(),
+                                      heads=heads)
+    torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=2e-2)
+    with pytest.raises(ValueError, match="bf16"):
+        fa.flash_attention_hp(q.float(), k.float(), v.float(), heads=heads)
+
+
+@pytest.mark.parametrize("m,k,n,groups,bias", [(64, 256, 384, 1, True),
+                                               (96, 4096, 200, 4, False),
+                                               (48, 64, 130, 2, True)])
+def test_k5_matches_plain(cuda, m, k, n, groups, bias):
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x = (_randn(gen, m, k) * 3).bfloat16()
+    x[1] = 0                                       # s_x floors at 1e-8
+    scale = (_randn(gen, groups, k) * 0.3).bfloat16()
+    shift = (_randn(gen, groups, k) * 0.3).bfloat16()
+    if groups == 1:
+        shift[:] = 0                               # so that row 1 stays 0
+    ql = quantize_weights(_randn(gen, n, k) * k ** -0.5)
+    b = _randn(gen, n) if bias else None
+    kw = dict(rows_per_group=m // groups, eps=1e-6)
+    before = (fp.norm_mod_int8_matmul.launches, im.int8_linear.launches)
+    hq, sx = fp.norm_mod_quantize_rows(x, scale, shift, **kw)
+    pq, ps = fp.norm_mod_quantize_plain(x, scale, shift, **kw)
+    assert torch.equal(hq, pq) and torch.equal(sx, ps[:, 0])
+    hq, sx, acc = fp.norm_mod_int8_acc(x, scale, shift, ql.w_int8, **kw)
+    assert torch.equal(hq, pq) and torch.equal(sx, ps[:, 0])
+    assert torch.equal(acc, im.int8_gemm_acc_plain(pq, ql.w_int8))
+    out = fp.norm_mod_int8_matmul(x, scale, shift, ql.w_int8, ql.scale, b,
+                                  **kw)
+    assert (fp.norm_mod_int8_matmul.launches, im.int8_linear.launches) == \
+        (before[0] + 1, before[1])
+    ref = fp.norm_mod_int8_matmul_plain(x, scale, shift, ql.w_int8, ql.scale,
+                                        b, **kw)
+    assert out.dtype == torch.bfloat16 and out.shape == (m, n)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-6)
+
+
+def test_k5_rejects_what_it_does_not_take(cuda):
+    x = torch.zeros(32, 64, device=cuda)
+    w8 = torch.zeros(16, 64, dtype=torch.int8, device=cuda)
+    ws = torch.ones(16, device=cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        fp.norm_mod_int8_matmul(x, x[:1], x[:1], w8, ws, rows_per_group=32)
+    x = x.bfloat16()
+    with pytest.raises(ValueError, match="on cpu"):
+        fp.norm_mod_int8_matmul(x, x[:1], x[:1], w8.cpu(), ws,
+                                rows_per_group=32)
+    with pytest.raises(ValueError, match="scale shape"):
+        fp.norm_mod_int8_matmul(x, x[:2], x[:2], w8, ws, rows_per_group=32)

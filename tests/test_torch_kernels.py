@@ -1,5 +1,6 @@
-"""Kernels K1 (attention), K2 (dynamic int8) and K4 (int8 attention)
-against the JAX package.
+"""Kernels K1 (attention), K2 (dynamic int8), K3 (bounded-score
+attention), K4 (int8 attention), K5 (fused adaLN prologue + int8 linear)
+and K6 (head-packed attention) against the JAX package.
 
 On the CPU the wrappers take their plain versions; those are held against
 the JAX functions the Pallas kernels are held against in
@@ -14,7 +15,13 @@ against exact attention at the tiers' 3e-2 on the inputs of the JAX tier
 tests. That bound is a maximum over samples that the tiers' own math
 exceeds on other draws (0.05 at worst in 12 draws of 6 heads), so on
 other inputs the check against exact attention is a mean abs error under
-3e-3 (the tiers sit near 1.6e-3). The CUDA kernels themselves
+3e-3 (the tiers sit near 1.6e-3). K3's and K6's plain versions are held
+against the interpreted Pallas kernels at the fp32 attention tolerance.
+K5's plain version is held bit for bit (bf16) against the interpreted
+Pallas kernel compiled with ``xla_allow_excess_precision`` off: XLA's CPU
+default keeps the last bf16 sum of the modulation in fp32, which neither
+the JAX kernel's dtypes nor the TPU say; against the default compile the
+bar is the JAX package's own 5e-2. The CUDA kernels themselves
 are compared with the plain versions on the card by
 tests/test_torch_cuda.py and chip_smoke.py.
 """
@@ -25,11 +32,14 @@ import numpy as np
 import pytest
 import torch
 
+from ltx_video_gpupoor_tpu.ops import attention as jattn
 from ltx_video_gpupoor_tpu.ops import flash_attention as jfa
+from ltx_video_gpupoor_tpu.ops import fused_prologue as jfp
 from ltx_video_gpupoor_tpu.ops import int8_matmul as jim
 from ltx_video_gpupoor_tpu.ops import quant as jq
 from ltx_video_gpupoor_tpu_torch.ops import attention as tattn
 from ltx_video_gpupoor_tpu_torch.ops import flash_attention as tfa
+from ltx_video_gpupoor_tpu_torch.ops import fused_prologue as tfp
 from ltx_video_gpupoor_tpu_torch.ops import int8_matmul as tim
 from ltx_video_gpupoor_tpu_torch.ops import quant as tq
 
@@ -135,28 +145,47 @@ def test_attention_packed_matches_jax():
 @pytest.mark.parametrize("mode,entry", [
     ("pallas_hp", "K6"), ("ulysses:sp", "step 15"),
     ("xla", "reference_attention")])
-def test_unported_attention_tiers_raise(mode, entry):
+def test_unported_attention_tiers_raise(monkeypatch, mode, entry):
+    """``ulysses:`` and ``xla`` raise with their ROADMAP entry.
+    ``pallas_hp`` (K6) is ported: head-split callers get the exact kernel
+    and packed callers the head-packed one; a ``score_bound`` (K3) goes to
+    the exact kernel's bounded tier."""
+    calls = []
+    monkeypatch.setattr(tattn, "flash_attention",
+                        lambda *a, score_bound=None, **k: calls.append(
+                            ("K1" if score_bound is None else "K3")))
+    monkeypatch.setattr(tattn, "flash_attention_hp",
+                        lambda *a, **k: calls.append("K6"))
     q = torch.zeros(1, 1, 8, 64)
-    with pytest.raises(NotImplementedError, match=entry):
+    if mode == "pallas_hp":
         tattn.attention(q, q, q, mode=mode)
-    with pytest.raises(NotImplementedError, match="K3"):
-        tattn.attention(q, q, q, score_bound=40.0)
+        tattn.attention_packed(torch.zeros(1, 8, 128), torch.zeros(1, 8, 128),
+                               torch.zeros(1, 8, 128), 2, mode=mode)
+        assert calls == ["K1", "K6"]
+    else:
+        with pytest.raises(NotImplementedError, match=entry):
+            tattn.attention(q, q, q, mode=mode)
+    calls.clear()
+    tattn.attention(q, q, q, score_bound=40.0)
+    assert calls == ["K3"]
 
 
 @pytest.mark.parametrize("head_dim", [None, 32, 64, 80, 128, 256])
 def test_auto_tier_matches_jax_tpu_policy(monkeypatch, head_dim):
     """``auto`` resolves as the JAX package resolves it on the TPU: exact
     (K1) at head dims up to 64, the int8 QK+PV tier (K4) above and for an
-    unknown head dim; explicit tiers stay as given."""
-    from ltx_video_gpupoor_tpu.ops import attention as jattn
-
+    unknown head dim, the exact kernel (its bounded tier, K3) whenever a
+    ``score_bound`` is given; explicit tiers stay as given, bound or not
+    (``tests/test_flash_attention.py:308-322``)."""
     monkeypatch.setattr(jattn, "_default_backend_is_tpu", lambda: True)
     monkeypatch.setattr(jattn, "_FORCED_MODE", "auto")
-    assert tattn.resolve_mode("auto", None, head_dim) == \
-        jattn.resolve_mode("auto", None, head_dim)
-    for mode in ("pallas", "pallas_int8", "pallas_int8pv"):
-        assert tattn.resolve_mode(mode, None, head_dim) == \
-            jattn.resolve_mode(mode, None, head_dim) == mode
+    for bound in (None, 40.0):
+        assert tattn.resolve_mode("auto", bound, head_dim) == \
+            jattn.resolve_mode("auto", bound, head_dim)
+        for mode in ("pallas", "pallas_hp", "pallas_int8", "pallas_int8pv"):
+            assert tattn.resolve_mode(mode, bound, head_dim) == \
+                jattn.resolve_mode(mode, bound, head_dim) == mode
+    assert tattn.resolve_mode("auto", 40.0, head_dim) == "pallas"
 
 
 @pytest.mark.parametrize("mode,d,tier", [
@@ -164,11 +193,14 @@ def test_auto_tier_matches_jax_tpu_policy(monkeypatch, head_dim):
     ("pallas_int8", 64, "K4qk"), ("pallas_int8pv", 64, "K4pv")])
 def test_attention_dispatches_by_tier(monkeypatch, mode, d, tier):
     """``attention`` reaches the tier ``resolve_mode`` names; an explicit
-    ``pallas_int8pv`` drops a score bound (as in JAX), every other tier
-    with a bound raises (K3)."""
+    ``pallas_int8pv`` drops a score bound (as in JAX), ``auto`` and
+    ``pallas`` with a bound reach the bounded tier (K3), and
+    ``pallas_int8`` with a bound is not ported."""
     calls = []
-    monkeypatch.setattr(tattn, "flash_attention",
-                        lambda *a, **k: calls.append("K1"))
+    monkeypatch.setattr(
+        tattn, "flash_attention",
+        lambda *a, score_bound=None, **k: calls.append(
+            "K1" if score_bound is None else f"K3:{score_bound}"))
     monkeypatch.setattr(
         tattn, "flash_attention_int8",
         lambda *a, pv_int8, **k: calls.append("K4pv" if pv_int8 else "K4qk"))
@@ -178,15 +210,362 @@ def test_attention_dispatches_by_tier(monkeypatch, mode, d, tier):
     if mode == "pallas_int8pv":
         tattn.attention(q, q, q, mode=mode, score_bound=40.0)
         assert calls == [tier, tier]
-    else:
-        with pytest.raises(NotImplementedError, match="K3"):
+    elif mode == "pallas_int8":
+        with pytest.raises(NotImplementedError, match="step 12"):
             tattn.attention(q, q, q, mode=mode, score_bound=40.0)
+    else:
+        tattn.attention(q, q, q, mode=mode, score_bound=40.0)
+        assert calls == [tier, "K3:40.0"]
 
 
 def test_k1_rejects_kv_only_segments():
     q = torch.zeros(1, 1, 8, 64)
     with pytest.raises(ValueError, match="kv_segment_ids"):
         tfa.flash_attention(q, q, q, None, torch.ones(1, 8, dtype=torch.int32))
+
+
+# --------------------------------------------------------------------------
+# K3: the bounded-score tier
+# --------------------------------------------------------------------------
+
+def _bounded_segments(b, s):
+    seg = np.zeros((b, s), np.int32)
+    seg[0, :200] = 1
+    seg[1, :100] = 1
+    seg[1, 100:] = 2
+    return seg
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", ["plain", "kv_valid", "segments"])
+def test_k3_plain_matches_pallas_interpret(d, case):
+    """``flash_attention(score_bound=32)`` against the interpreted Pallas
+    kernel's bounded branch and against exact attention, on the inputs of
+    tests/test_flash_attention.py:106-130. At d=64 both denominators sum
+    the p that meets V (fp32 here, so the same numbers)."""
+    b, h, s = 2, 2, 384
+    q, k, v = _qkv(7, b, h, s, s, d)
+    seg = _bounded_segments(b, s) if case == "segments" else None
+    kv_valid = 300 if case == "kv_valid" else None
+    segs = () if seg is None else (seg, seg)
+    ref = jfa.flash_attention(*map(jnp.asarray, (q, k, v) + segs),
+                              kv_valid=kv_valid, score_bound=32.0,
+                              block_q=128, block_kv=128, interpret=True)
+    out = tfa.flash_attention(*_t(q, k, v, *segs), kv_valid=kv_valid,
+                              score_bound=32.0)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL,
+                               rtol=RTOL)
+    exact = tfa.reference_attention(*_t(q, k, v, *segs), kv_valid=kv_valid)
+    np.testing.assert_allclose(out.numpy(), exact.numpy(), atol=ATOL,
+                               rtol=RTOL)
+    if case == "segments":      # rows whose segment id is 0 see no key
+        np.testing.assert_array_equal(out[0, :, 200:].numpy(), 0.0)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_k3_plain_bf16_denominator_and_scores_over_the_bound(d):
+    """bf16 operands: at d=64 the denominator sums the bf16-rounded p (the
+    ones column of the JAX kernel), at d=128 the fp32 p; and logits far
+    beyond the bound stay finite, tied at the bound
+    (tests/test_flash_attention.py:133). Tolerance: one bf16 ulp of
+    outputs below 4."""
+    b, h, s = 1, 2, 256
+    q, k, v = _qkv(8, b, h, s, s, d)
+    jb = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    tb = [t.to(torch.bfloat16) for t in _t(q, k, v)]
+    ref = jfa.flash_attention(*jb, score_bound=32.0, block_q=128,
+                              block_kv=128, interpret=True)
+    out = tfa.flash_attention(*tb, score_bound=32.0)
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               atol=2 ** -7, rtol=2 ** -7)
+    big = [a * 100.0 for a in (q, k)] + [v]
+    ref = jfa.flash_attention(*map(jnp.asarray, big), score_bound=32.0,
+                              block_q=128, block_kv=128, interpret=True)
+    out = tfa.flash_attention(*_t(*big), score_bound=32.0)
+    assert np.isfinite(out.numpy()).all()
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4,
+                               rtol=1e-4)
+
+
+def test_k3_int8pv_with_a_bound_keeps_the_running_max():
+    """JAX's kernel refuses ``pv_int8`` with a bound
+    (ops/flash_attention.py:477-483) and its dispatch drops the bound
+    under ``pallas_int8pv``; the port's dispatch does the same."""
+    q, k, v = _qkv(9, 1, 2, 128, 128, 128)
+    with pytest.raises(ValueError, match="pv_int8"):
+        jfa.flash_attention(*map(jnp.asarray, (q, k, v)), score_bound=20.0,
+                            qk_int8=True, pv_int8=True, interpret=True)
+    a = tattn.attention(*_t(q, k, v), mode="pallas_int8pv", score_bound=20.0)
+    b_ = tattn.attention(*_t(q, k, v), mode="pallas_int8pv")
+    assert torch.equal(a, b_)
+
+
+# --------------------------------------------------------------------------
+# K6: the head-packed kernel
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("heads,d,s,valid", [(4, 64, 384, 300),
+                                             (3, 128, 256, None)])
+def test_k6_plain_matches_pallas_interpret(heads, d, s, valid):
+    """``flash_attention_hp`` against the interpreted Pallas kernel, paired
+    (d=64, with a kv tail) and single (d=128), on the shapes of
+    tests/test_flash_attention.py:397-434."""
+    rng = np.random.default_rng(23)
+    b = 2
+    q, k, v = (rng.standard_normal((b, s, heads * d)).astype(np.float32)
+               for _ in range(3))
+    ref = jfa.flash_attention_hp(*map(jnp.asarray, (q, k, v)), heads=heads,
+                                 kv_valid=valid, block_q=128, block_kv=128,
+                                 interpret=True)
+    out = tfa.flash_attention_hp(*_t(q, k, v), heads=heads, kv_valid=valid)
+    assert out.shape == (b, s, heads * d)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL,
+                               rtol=RTOL)
+
+
+@pytest.mark.parametrize("heads,d,bound,lengths,tier", [
+    (4, 64, None, "equal", "K6"), (2, 128, None, "equal", "K6"),
+    (3, 128, None, "equal", "K6"), (3, 64, None, "equal", "split"),
+    (4, 32, None, "equal", "split"), (4, 64, 30.0, "equal", "split"),
+    (4, 64, None, "unequal", "raise")])
+def test_attention_packed_hp_gates_match_jax(monkeypatch, heads, d, bound,
+                                             lengths, tier):
+    """``attention_packed`` takes K6 for ``pallas_hp`` when d is 64 or 128,
+    no bound is set and (d=64) the head count is even; rejects unequal
+    q/kv lengths there; else splits the heads. The JAX dispatch with its
+    backend patched to the TPU takes the same branch."""
+    monkeypatch.setattr(jattn, "_default_backend_is_tpu", lambda: True)
+    monkeypatch.setattr(jattn, "_FORCED_MODE", "auto")
+    jcalls, tcalls = [], []
+    monkeypatch.setattr(jattn, "flash_attention_hp",
+                        lambda q, *a, **k: jcalls.append("K6") or q)
+    monkeypatch.setattr(jattn, "attention",
+                        lambda q, *a, **k: jcalls.append("split") or q)
+    monkeypatch.setattr(tattn, "flash_attention_hp",
+                        lambda q, *a, **k: tcalls.append("K6") or q)
+    monkeypatch.setattr(tattn, "attention",
+                        lambda q, *a, **k: tcalls.append("split") or q)
+    s, skv = 128, (128 if lengths == "equal" else 256)
+    q = np.zeros((1, s, heads * d), np.float32)
+    kv = np.zeros((1, skv, heads * d), np.float32)
+    kw = dict(mode="pallas_hp", score_bound=bound)
+    if tier == "raise":
+        with pytest.raises(ValueError, match="equal length"):
+            jattn.attention_packed(*map(jnp.asarray, (q, kv, kv)), heads, **kw)
+        with pytest.raises(ValueError, match="equal length"):
+            tattn.attention_packed(*_t(q, kv, kv), heads, **kw)
+        return
+    jattn.attention_packed(*map(jnp.asarray, (q, kv, kv)), heads, **kw)
+    tattn.attention_packed(*_t(q, kv, kv), heads, **kw)
+    assert jcalls == tcalls == [tier]
+
+
+def test_k6_any_length_and_head_count():
+    """The port's kernel masks its own ragged edge and takes any head
+    count, so the wrapper needs neither the 128-padding nor the even head
+    count of the TPU kernel."""
+    rng = np.random.default_rng(24)
+    b, s, heads, d = 1, 200, 3, 64
+    q, k, v = (rng.standard_normal((b, s, heads * d)).astype(np.float32)
+               for _ in range(3))
+    ref = jattn.attention_packed(*map(jnp.asarray, (q, k, v)), heads,
+                                 mode="xla")
+    out = tfa.flash_attention_hp(*_t(q, k, v), heads=heads)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL,
+                               rtol=RTOL)
+    with pytest.raises(ValueError, match="64, 128"):
+        tfa.flash_attention_hp(torch.zeros(1, 8, 96), torch.zeros(1, 8, 96),
+                               torch.zeros(1, 8, 96), heads=3)
+
+
+# --------------------------------------------------------------------------
+# K5: the fused adaLN prologue + int8 linear
+# --------------------------------------------------------------------------
+
+def _k5_operands(groups, bias, m=64, k=256, n=384, dtype=np.float32):
+    rng = np.random.default_rng(groups)
+    x = (rng.standard_normal((m, k)) * 2).astype(np.float32)
+    w = rng.standard_normal((k, n)).astype(np.float32) * k ** -0.5
+    jw = jq.quantize_weights(jnp.asarray(w, jnp.bfloat16))
+    scale = (rng.standard_normal((groups, k)) * 0.1).astype(np.float32)
+    shift = (rng.standard_normal((groups, k)) * 0.1).astype(np.float32)
+    b = (np.arange(n, dtype=np.float32) * 1e-3) if bias else None
+    return x, scale, shift, jw, b
+
+
+@pytest.mark.parametrize("groups,bias", [(1, True), (2, False), (4, True)])
+def test_k5_plain_matches_pallas_interpret(groups, bias):
+    """bf16, the cases of tests/test_fused_prologue.py:30 and one more
+    with 4 groups: equal bit for bit to the interpreted kernel compiled
+    without excess precision, except in rows whose mean of squares or
+    rsqrt XLA and torch round an ulp apart (about a third of the rows;
+    in about one of 50 of those a bf16 rounding of h then flips, and
+    with it some int8 codes of that row): at most one row in 32 may
+    differ, by one bf16 ulp of the outputs (2**-5 below 8); and within
+    the JAX package's own 5e-2 of the default compile."""
+    x, scale, shift, jw, b = _k5_operands(groups, bias)
+    m = x.shape[0]
+    jargs = (jnp.asarray(x, jnp.bfloat16), jnp.asarray(scale, jnp.bfloat16),
+             jnp.asarray(shift, jnp.bfloat16), jw.w_int8, jw.scale,
+             None if b is None else jnp.asarray(b))
+    kw = dict(rows_per_group=m // groups, eps=1e-5, interpret=True)
+    strict = jfp.norm_mod_int8_matmul.lower(*jargs, **kw).compile(
+        compiler_options={"xla_allow_excess_precision": False})(*jargs)
+    default = jfp.norm_mod_int8_matmul(*jargs, **kw)
+    out = tfp.norm_mod_int8_matmul(
+        torch.from_numpy(x).to(torch.bfloat16),
+        torch.from_numpy(scale).to(torch.bfloat16),
+        torch.from_numpy(shift).to(torch.bfloat16),
+        torch.from_numpy(np.asarray(jw.w_int8).T.copy()),
+        torch.from_numpy(np.array(jw.scale)),
+        None if b is None else torch.from_numpy(b),
+        rows_per_group=m // groups, eps=1e-5)
+    assert out.dtype == torch.bfloat16
+    o = out.float().numpy()
+    s_ = np.asarray(strict.astype(jnp.float32))
+    rows = (o != s_).any(axis=1)
+    assert rows.mean() <= 1 / 32, np.nonzero(rows)[0]
+    np.testing.assert_allclose(o, s_, atol=2 ** -5, rtol=2 ** -7)
+    np.testing.assert_allclose(o, np.asarray(default.astype(jnp.float32)),
+                               atol=5e-2, rtol=5e-2)
+
+
+def test_k5_plain_matches_pallas_interpret_fp32():
+    """fp32 activations (no bf16 roundings in the chain): the int8 codes
+    are the same, so the outputs agree to fp32 rounding of the epilogue."""
+    x, scale, shift, jw, b = _k5_operands(2, True)
+    m = x.shape[0]
+    ref = jfp.norm_mod_int8_matmul(
+        jnp.asarray(x), jnp.asarray(scale), jnp.asarray(shift), jw.w_int8,
+        jw.scale, jnp.asarray(b), rows_per_group=m // 2, eps=1e-5,
+        interpret=True)
+    out = tfp.norm_mod_int8_matmul(
+        *_t(x, scale, shift), torch.from_numpy(np.asarray(jw.w_int8).T.copy()),
+        torch.from_numpy(np.array(jw.scale)), torch.from_numpy(b),
+        rows_per_group=m // 2, eps=1e-5)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_k5_group_rows_and_shape_checks():
+    """Row r reads group r // rows_per_group: with a group size that has
+    no 16-multiple divisor (the TPU kernel refuses it,
+    tests/test_fused_prologue.py:52; a block here holds one row) the rows
+    of group 1 still get group 1's modulation. Shape errors raise as in
+    JAX."""
+    m, k, n = 48, 64, 64
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    w = tq.quantize_weights(torch.from_numpy(
+        rng.standard_normal((n, k)).astype(np.float32)))
+    scale = torch.zeros(2, k)
+    shift = torch.zeros(2, k)
+    shift[1] = 3.0
+    out = tfp.norm_mod_int8_matmul(x, scale, shift, w.w_int8, w.scale,
+                                   rows_per_group=24, eps=1e-5)
+    for g in (0, 1):
+        ref = tfp.norm_mod_int8_matmul(
+            x[24 * g:24 * g + 24], scale[g:g + 1], shift[g:g + 1], w.w_int8,
+            w.scale, rows_per_group=24, eps=1e-5)
+        assert torch.equal(out[24 * g:24 * g + 24], ref)
+    with pytest.raises(ValueError, match="straddle"):
+        jfp.norm_mod_int8_matmul(
+            jnp.ones((m, k), jnp.bfloat16), jnp.zeros((2, k), jnp.bfloat16),
+            jnp.zeros((2, k), jnp.bfloat16), jnp.ones((k, n), jnp.int8),
+            jnp.ones((n,)), None, rows_per_group=24, eps=1e-5, interpret=True)
+    with pytest.raises(ValueError, match="rows_per_group"):
+        tfp.norm_mod_int8_matmul(x, scale, shift, w.w_int8, w.scale,
+                                 rows_per_group=36)
+    with pytest.raises(ValueError, match="scale shape"):
+        tfp.norm_mod_int8_matmul(x, scale[:1], shift[:1], w.w_int8, w.scale,
+                                 rows_per_group=24)
+
+
+def test_k5_supports_equal_jax_on_a_grid():
+    """``supports`` agrees with the JAX gate over tokens x groups, and on
+    the linears' tiers and bias layouts
+    (tests/test_fused_prologue.py:69)."""
+    jw = jq.quantize_weights(jnp.ones((8, 16), jnp.bfloat16))
+    jgood = {"w_int8_dyn": jw.w_int8, "scale": jw.scale}
+    jbias = dict(jgood, bias=jnp.zeros((16,)))
+    jdense = {"kernel": jnp.ones((8, 16))}
+
+    def tlin(bias, quantized=True):
+        lin = tq.Linear(8, 16, bias)
+        if quantized:
+            lin.weight.fill_(1.0)
+            lin.quantize_()
+        return lin
+
+    for s in (16, 32, 33, 48, 64, 240, 350, 3840):
+        for g in (1, 2, 3, 4, 16):
+            assert tfp.supports([tlin(False)], s, g) == \
+                jfp.supports([jgood], s, g), (s, g)
+    assert tfp.supports([tlin(True), tlin(True)], 32, 1) == \
+        jfp.supports([jbias, jbias], 32, 1) is True
+    assert tfp.supports([tlin(False), tlin(True)], 32, 1) == \
+        jfp.supports([jgood, jbias], 32, 1) is False
+    assert tfp.supports([tlin(False, quantized=False)], 32, 1) == \
+        jfp.supports([jdense], 32, 1) is False
+
+
+def test_k5_enabled_mode_follows_the_jax_switch(monkeypatch):
+    for raw in ("", "0", "off", "1", "interpret", "TRUE"):
+        monkeypatch.setenv("LTXV_TPU_FUSED_PROLOGUE", raw)
+        assert (tfp.enabled_mode() is None) == (jfp.enabled_mode() is None)
+    monkeypatch.delenv("LTXV_TPU_FUSED_PROLOGUE")
+    assert tfp.enabled_mode() is None and jfp.enabled_mode() is None
+
+
+def test_k5_fused_weights_are_views_of_one_buffer():
+    """``apply_fused`` runs q, k, v as one product over their weights side
+    by side, concatenated at each call as in JAX: the linears' own buffers
+    stay as they were (no view of a shared buffer, nothing cached on the
+    modules), a single linear's buffers pass through uncopied, and a
+    reloaded state dict or a bias changed in place is picked up."""
+    rng = np.random.default_rng(6)
+    lins = []
+    for _ in range(3):
+        lin = tq.Linear(64, 32, True)
+        lin.weight.copy_(torch.from_numpy(
+            rng.standard_normal((32, 64)).astype(np.float32)))
+        lin.bias.copy_(torch.from_numpy(
+            rng.standard_normal(32).astype(np.float32)))
+        lin.quantize_()
+        lins.append(lin)
+    x = torch.from_numpy(rng.standard_normal((2, 32, 64)).astype(np.float32))
+    sc = torch.from_numpy(rng.standard_normal((2, 2, 64)).astype(np.float32))
+    ptrs = [(lin.w_int8_dyn.data_ptr(), lin.w_int8_dyn.untyped_storage().size())
+            for lin in lins]
+    keys = [set(vars(lin)) for lin in lins]
+    out = tfp.apply_fused(x, sc * 0.1, sc * 0.2, lins, eps=1e-6)
+    assert out.shape == (2, 32, 96)
+    assert ptrs == [(lin.w_int8_dyn.data_ptr(),
+                     lin.w_int8_dyn.untyped_storage().size()) for lin in lins]
+    assert keys == [set(vars(lin)) for lin in lins]
+    w, ws, bias = tfp.fused_weights(lins)
+    assert w.shape == (96, 64) and torch.equal(w[32:64], lins[1].w_int8_dyn)
+    assert torch.equal(ws[64:], lins[2].scale)
+    w1, ws1, _ = tfp.fused_weights(lins[:1])
+    assert w1 is lins[0].w_int8_dyn and ws1 is lins[0].scale
+    # against the unfused chain of the same linears
+    from ltx_video_gpupoor_tpu_torch.ops.norms import rms_norm
+    h = rms_norm(x, eps=1e-6).reshape(2, 2, 16, 64)
+    h = (h * (1 + 0.1 * sc[:, :, None]) + 0.2 * sc[:, :, None]).reshape(x.shape)
+    ref = torch.cat([lin(h) for lin in lins], dim=-1)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+    state = {k: v.clone() for k, v in lins[2].state_dict().items()}
+    state["w_int8_dyn"] = -state["w_int8_dyn"]
+    lins[2].load_state_dict(state)
+    out2 = tfp.apply_fused(x, sc * 0.1, sc * 0.2, lins, eps=1e-6)
+    torch.testing.assert_close(out2[..., 64:], 2 * lins[2].bias - out[..., 64:],
+                               atol=1e-5, rtol=1e-5)
+    with torch.no_grad():
+        lins[0].bias.add_(1.0)             # in place: the same pointer
+    out3 = tfp.apply_fused(x, sc * 0.1, sc * 0.2, lins, eps=1e-6)
+    torch.testing.assert_close(out3[..., :32], out2[..., :32] + 1.0,
+                               atol=1e-5, rtol=1e-5)
 
 
 # --------------------------------------------------------------------------

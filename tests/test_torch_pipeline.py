@@ -170,22 +170,29 @@ def test_slice_bf16_compute_matches_jax(weights, output_type):
 
 
 def test_generator_rejects_unported_branches(weights):
+    """``yuv420``, TeaCache and resolution bucketing raise with their
+    ROADMAP step. Image conditioning and the multi-scale configs are
+    ported (tests/test_torch_ltx13b.py): what they still refuse is a VAE
+    without its encoder and a multi-scale config without an upsampler."""
     vae = tvae.CausalVAEDecoder(tvae.VAEConfig.from_dict(VAE_DICT),
                                 FP32_POLICY)
     model = ttf.LTXTransformer3D(ttf.LTXTransformerConfig(**TF_KW),
                                  FP32_POLICY)
     gen = torch_orch.LTXVideoGenerator(tpipe.LTXPipeline(model, vae))
     emb, mask = torch.zeros(2, 4, 32), torch.ones(2, 4)
-    for kw, msg in ((dict(image_start=np.zeros((32, 32, 3))), "step 9"),
+    for kw, msg in ((dict(bucket_resolution=True), "step 11"),
                     (dict(output_type="yuv420"), "step 11"),
                     (dict(teacache_multiplier=1.5), "step 11")):
         with pytest.raises(NotImplementedError, match=msg):
             gen.generate(emb, mask, **kw)
+    with pytest.raises(ValueError, match="encoder"):
+        gen.generate(emb, mask, height=32, width=32, frame_num=9,
+                     image_start=np.zeros((32, 32, 3), np.uint8))
     ms = torch_orch.LTXVideoGenerator(
         tpipe.LTXPipeline(model, vae),
-        pipeline_config={"pipeline_type": "multi-scale"})
-    with pytest.raises(NotImplementedError, match="step 10"):
-        ms.generate(emb, mask)
+        pipeline_config="ltxv-13b-0.9.7-distilled")
+    with pytest.raises(ValueError, match="latent upsampler"):
+        ms.generate(emb, mask, height=32, width=32, frame_num=9)
 
 
 @pytest.mark.parametrize("h,w,f", [(480, 704, 121), (250, 250, 10)])
