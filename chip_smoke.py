@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one NVIDIA GPU: LTX-Video 2B
 text-to-video, LTX-Video 13B image-to-video through the two-pass
-multi-scale pipeline, and Wan 2.1 t2v-1.3B.
+multi-scale pipeline (one request of it through the HTTP server), the CLI,
+Wan 2.1 t2v-1.3B, the ring-attention kernel and the attention
+micro-benchmark tool.
 
     python3 chip_smoke.py              # one card; several minutes on an H100
     python3 chip_smoke.py --profile    # and device-time breakdowns
@@ -61,6 +63,24 @@ Phases, one output line each (or a few):
             shape (B=3 S=5280, 32 heads of 64), on slices of a fused q/k/v
             projection, ragged with a kv_valid tail and with an odd head
             count: K3's check and planted faults.
+5e. K8     the sub-block-pipelined attention kernel against its plain
+            version (the same sub-blocks, the same roundings) at B=2 H=32
+            S=5376 D=64 for nsub 1, 2, 4, 8 and at B=1 H=2 S=1344 with
+            64-row kv tiles: K3's check; a planted fault (two sub-blocks'
+            V rows swapped) must fail it. Then the tool's own main() runs
+            (ltx_video_gpupoor_tpu_torch.tools.mb_selfattn_pipeline): its
+            check against exact attention, K1 and K8 per nsub timed (each
+            instance's registers are in the build phase's ptxas lines).
+5f. K7     the ring-attention kernel (the whole ring in one cooperative
+            launch) for p = 2, 4, 8 at B=1 H=12 S=32768 D=128 in bf16
+            against the same ring in plain PyTorch (K3's check) and
+            against one K1 call on the joined tensors, twice in a row on
+            one workspace; a planted fault (a rank skips a step's math)
+            must fail the check; p = 1 runs without a workspace; at the
+            JAX tests' shapes (B=1 H=2 S=64 D=32 and S=32 D=16, p = 8) in
+            fp32 (atol 2e-5) and bf16 (atol 3e-2) through the CUDA-core
+            body; on a dp2 x sp2 x tp2 mesh the rings that the neighbour
+            ids spell out.
 6. timing   each kernel and its plain version, CUDA events, median of 5
             (plain versions at the large attention shapes: median of 3),
             and the one PyTorch call that computes the same function where
@@ -92,7 +112,19 @@ Phases, one output line each (or a few):
             cross-attention, K2 for the rest), (c) attention_score_bound=40
             (K3 + K2). The launch counts are read per pass; the script
             fails unless K5 and K6 were launched in both passes of (b) and
-            K3 in both passes of (c).
+            K3 in both passes of (c). Request (b) goes through the server:
+7c. server  InferenceService around the 13B models with one warm-up
+            bucket (which must complete, through K5, K6 and K2),
+            create_stdlib_server on 127.0.0.1 in a thread, and
+            urllib: POST / with a base64 PNG of the synthetic image at
+            992x608x121 (the tier chosen as a server process chooses it:
+            set_attention_mode("pallas_hp") and LTXV_TPU_FUSED_PROLOGUE=1),
+            GET of the returned /download/ URL (an mp4 that load_video
+            reads back to 121 frames of 608x992), a POST with a field
+            missing (400), a path that leaves outputs/ (404), GET
+            /metrics (the request's seconds by stage, the mp4 write among
+            them). Then one request through the CLI's main() at 256x256x9
+            on the demo model.
 8. wan      the LTX models are freed; Wan 2.1 t2v-1.3B at full width (30
             layers, 12x128 heads, ffn 8960, int8_dynamic), UMT5-XXL (24
             layers, d 4096, bf16) and the Wan VAE decoder (dim 96, z 16),
@@ -142,6 +174,10 @@ K3_REPLACES = "ltx_video_gpupoor_tpu/ops/flash_attention.py:294"
 K5_SOURCE = "ltx_video_gpupoor_tpu_torch/csrc/fused_prologue.cu"
 K5_REPLACES = "ltx_video_gpupoor_tpu/ops/fused_prologue.py:104"
 K6_REPLACES = "ltx_video_gpupoor_tpu/ops/flash_attention.py:663"
+K7_SOURCE = "ltx_video_gpupoor_tpu_torch/csrc/ring_attention.cu"
+K7_REPLACES = "ltx_video_gpupoor_tpu/parallel/ring_rdma.py:43"
+K8_SOURCE = "ltx_video_gpupoor_tpu_torch/csrc/flash_attention_pipelined.cu"
+K8_REPLACES = "tools/mb_selfattn_pipeline.py:32"
 # the card's published peaks (H100 SXM, dense): operations per second by
 # operand type, and bytes per second of device memory
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
@@ -185,6 +221,23 @@ WAN_CFG_ZERO_STEP = 0    # the default 5 of 50 steps, cut with the steps
 
 REQUESTS = [(256, 256, 9), (480, 704, 121)]  # (H, W, F)
 
+# K7: the Wan-1.3B self-attention width at the nearest length that every p
+# times a 64-row tile divides; the JAX tests' shapes for the CUDA-core body
+RING_SHAPE = (1, 12, 32768, 128)
+RING_RANKS = (2, 4, 8)
+RING_TIMED_P = 4
+RING_SMALL = [(1, 2, 64, 32), (1, 2, 32, 16)]
+RING_MESH = (("dp", 2), ("sp", 2), ("tp", 2))
+# K8: the tool's shape, and its check's shape with 64-row kv tiles
+K8_SHAPE = (2, 32, 5376, 64)
+K8_SMALL = (1, 2, 1344, 64)
+K8_JSON_NSUB = 4
+# pass 1 at 256x256 and pass 2 at 512x512: 64 and 256 tokens a latent
+# frame, multiples of 16, so the warm-up runs K5 as the request does (at
+# 384x384 the config's factor 0.6666666 gives 255, snapped to 224: 49)
+SERVER_WARMUP = "416x416x9"
+CLI_REQUEST = (256, 256, 9)
+
 # LTX-13B: image-to-video at 992x608x121 (pass 1 at 640x384 = 16 x 12 x 20
 # latents = 3840 tokens, pass 2 at 1280x768 = 15360 tokens); attention
 # shapes (B, H, Sq, Skv, D) and the fused prologue's (M, K, N, groups)
@@ -219,6 +272,7 @@ K2_SHAPES += [
 LTX13B_TIERS = [("a: auto", "auto", False, None),
                 ("b: pallas_hp + fused prologue", "pallas_hp", True, None),
                 ("c: score bound", "auto", False, LTX13B_BOUND)]
+LTX13B_SERVED = "b: pallas_hp + fused prologue"   # goes through the server
 
 
 def log(msg: str) -> None:
@@ -731,6 +785,219 @@ def phase_k6(gen):
     return max(errs)
 
 
+# --------------------------------------------------------------------------
+# phases 5e-5f: K8 (the pipelined attention tool) and K7 (ring attention)
+# --------------------------------------------------------------------------
+
+def phase_k8(gen, times, info):
+    """K8 against its plain version, then the tool's own ``main``; fills
+    ``times`` / ``info`` and returns (max abs error, launches of K8 in the
+    tool's run)."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.tools import mb_selfattn_pipeline as mb
+
+    errs = []
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for shape, block_kv in ((K8_SHAPE, 128), (K8_SMALL, 64)):
+        b, h, s_, d = shape
+        q, k, v = (_heads(b, h, s_, d, gen, False) for _ in range(3))
+        for nsub in mb.NSUBS[block_kv]:
+            kw = dict(block_kv=block_kv, nsub=nsub)
+            kern = mb.pipelined_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            assert torch.isfinite(kern.float()).all(), f"K8 {kw}: non-finite"
+            plain = mb.pipelined_attention_plain(q, k, v, **kw)
+            ratio, err = _exact_check(kern, plain)
+            assert ratio <= 1.0, (f"K8 {shape} {kw}: max_abs_err {err:.3e}, "
+                                  f"{ratio:.3f} of the bound")
+            # planted fault: the V rows of the first two sub-blocks (or, at
+            # nsub = 1, of two halves of the first) change places
+            half = block_kv // max(nsub, 2)
+            vs = v.clone()
+            vs[:, :, :half] = v[:, :, half:2 * half]
+            vs[:, :, half:2 * half] = v[:, :, :half]
+            fault, _ = _exact_check(mb.pipelined_attention(q, k, vs, **kw),
+                                    plain)
+            assert fault > 1.0, f"K8 {kw}: the check passes swapped V rows"
+            errs.append(err)
+            log(f"[K8] B={b} H={h} S={s_} D={d} block_kv={block_kv} "
+                f"nsub={nsub}: max_abs_err={err:.3e}, {ratio:.3f} of the "
+                f"bound; swapped V rows fail it ({fault:.1f} of the bound) ok")
+            if shape == K8_SHAPE:
+                pl = cuda_time_ms(lambda: mb.pipelined_attention_plain(
+                    q, k, v, **kw), reps=3, warmup=1)
+                times[f"K8 nsub {nsub}"] = (None, pl)
+        if shape == K8_SHAPE:
+            lib = cuda_time_ms(lambda: sdpa(q, k, v))
+        del q, k, v
+        torch.cuda.empty_cache()
+    # the entry point itself: its check, K1 and K8 timed
+    reset_kernel_counts()
+    result = mb.main([])
+    counts = kernel_counts()
+    assert result["err"] < 2e-2, result
+    assert counts["K8"] > 0 and counts["K1"] > 0, counts
+    b, h, s_, d = K8_SHAPE
+    bnd = attention_bound(b, h, s_, s_, d)
+    flops = 4 * b * h * s_ * s_ * d
+    for nsub, ms in result["pipelined_ms"].items():
+        times[f"K8 nsub {nsub}"] = (ms, times[f"K8 nsub {nsub}"][1])
+        info[f"K8 nsub {nsub}"] = (*bnd, lib)
+        log(f"[time] K8 B={b} H={h} S={s_} D={d} nsub={nsub}: kernel "
+            f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+            f"{times[f'K8 nsub {nsub}'][1]:.3f} ms, K1 (the production "
+            f"kernel) {result['production_ms']:.3f} ms, bound {bnd[0]:.3f} "
+            f"ms ({bnd[1]}), scaled_dot_product_attention {lib:.3f} ms")
+    return max(errs), counts["K8"]
+
+
+def _ring_mesh_rings():
+    """The rings of RING_MESH's ``sp`` axis, each a list of global device
+    ids in ring order, found by following right neighbours; every device's
+    left and right must be each other's inverse."""
+    import itertools
+
+    from ltx_video_gpupoor_tpu_torch.parallel import ring_rdma as rr
+
+    names = [n for n, _ in RING_MESH]
+    right, left = {}, {}
+    for idx in itertools.product(*(range(n) for _, n in RING_MESH)):
+        coords = dict(zip(names, idx))
+        me = rr.logical_id(RING_MESH, "sp", coords["sp"], coords)
+        left[me], right[me] = rr.ring_neighbours(RING_MESH, "sp", coords)
+    assert all(left[right[d]] == d for d in right), (left, right)
+    rings, seen = [], set()
+    for start in sorted(right):
+        if start in seen:
+            continue
+        ring, d = [], start
+        while d not in seen:
+            seen.add(d)
+            ring.append(d)
+            d = right[d]
+        rings.append(ring)
+    return rings
+
+
+def phase_k7(gen, times, info):
+    """K7 against the plain ring and against K1 on the joined tensors;
+    fills ``times`` / ``info`` and returns (max abs error, launches of the
+    main path's call)."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.ops import flash_attention as fa
+    from ltx_video_gpupoor_tpu_torch.parallel import ring_rdma as rr
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    # the CUDA-core body at the JAX tests' shapes, both types, p = 8 (and a
+    # one-rank ring, which has no workspace and touches no counter)
+    for shape in RING_SMALL:
+        for dtype, atol in ((torch.float32, 2e-5), (torch.bfloat16, 3e-2)):
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda",
+                                   dtype=torch.float32).to(dtype)
+                       for _ in range(3))
+            for p in (8, 1):
+                shards = [t.chunk(p, dim=2) for t in (q, k, v)]
+                plain = torch.cat(rr.ring_attention_plain(*shards), dim=2)
+                for call in range(2):      # the second sees the first's flags
+                    out = rr.ring_attention_rdma_sharded(q, k, v, p)
+                    torch.cuda.synchronize()
+                    err = float((out.float() - plain.float()).abs().max())
+                    assert err <= atol, (shape, dtype, p, call, err)
+                exact = float((out.float() - fa.reference_attention(
+                    q, k, v).float()).abs().max())
+                assert exact <= atol, (shape, dtype, p, exact)
+                log(f"[K7] CUDA-core body {tuple(shape)} {str(dtype)[6:]} "
+                    f"p={p}: max_abs_err={err:.3e} against the plain ring, "
+                    f"{exact:.3e} against exact attention (atol {atol}), "
+                    "two calls ok")
+    assert rr.ring_attention_rdma.launches_simple > 0
+    assert not any(key[0] == 1 for key in rr._workspaces), \
+        "a one-rank ring must not allocate a workspace"
+
+    # a dp2 x sp2 x tp2 mesh: dp cuts the batch, tp the heads, sp the ring
+    rings = _ring_mesh_rings()
+    assert sorted(map(tuple, rings)) == [(0, 2), (1, 3), (4, 6), (5, 7)], rings
+    q, k, v = (torch.randn(2, 2, 64, 32, generator=gen, device="cuda")
+               for _ in range(3))
+    ref = fa.reference_attention(q, k, v)
+    for ring in rings:
+        dp, tp = ring[0] // 4, ring[0] % 2      # row-major (dp, sp, tp)
+        # device id -> its shard: batch row dp, head tp, sequence half sp
+        pick = [[t[dp:dp + 1, tp:tp + 1].chunk(2, dim=2)[(dev // 2) % 2]
+                 for dev in ring] for t in (q, k, v)]
+        out = torch.cat(rr.ring_attention_rdma(*pick), dim=2)
+        err = float((out - ref[dp:dp + 1, tp:tp + 1]).abs().max())
+        assert err <= 2e-5, (ring, err)
+    log(f"[K7] dp2 x sp2 x tp2 mesh: sp rings {rings} from the neighbour "
+        "ids, each against exact attention on its batch row and head, "
+        "atol 2e-5 ok")
+
+    # the tensor-core body at the Wan-1.3B self-attention width
+    b, h, s_, d = RING_SHAPE
+    q, k, v = (_heads(b, h, s_, d, gen, True) for _ in range(3))
+    k1 = fa.flash_attention(q, k, v)
+    bnd = attention_bound(b, h, s_, s_, d)
+    flops = fa.attention_flops(b, h, s_, s_, d)
+    k1_ms = cuda_time_ms(lambda: fa.flash_attention(q, k, v))
+    lib = cuda_time_ms(lambda: sdpa(q, k, v))
+    errs = []
+    before = rr.ring_attention_rdma.launches_tc
+    for p in (1,) + RING_RANKS:
+        shards = [t.chunk(p, dim=2) for t in (q, k, v)]
+        plain = torch.cat(rr.ring_attention_plain(*shards), dim=2)
+        for call in range(2):
+            out = rr.ring_attention_rdma_sharded(q, k, v, p)
+            torch.cuda.synchronize()
+            assert torch.isfinite(out.float()).all(), f"K7 p={p}: non-finite"
+            ratio, err = _exact_check(out, plain)
+            assert ratio <= 1.0, (f"K7 p={p} call {call}: max_abs_err "
+                                  f"{err:.3e}, {ratio:.3f} of the bound")
+        # K1 and K7 each lie within the bound of the fp32 ring: two apart
+        ratio_k1, err_k1 = _exact_check(out, k1)
+        assert ratio_k1 <= 2.0, (p, ratio_k1, err_k1)
+        planted = ""
+        if p == RING_TIMED_P:
+            bad = torch.cat(rr.ring_attention_rdma(*shards, _fault=(1, 1)),
+                            dim=2)
+            fault, _ = _exact_check(bad, plain)
+            assert fault > 1.0, "K7: the check passes a skipped ring step"
+            again, _ = _exact_check(
+                rr.ring_attention_rdma_sharded(q, k, v, p), plain)
+            assert again <= 1.0, again
+            planted = (f"; rank 1 skipping step 1 fails it ({fault:.1f} of "
+                       f"the bound), the next call passes ({again:.3f})")
+        errs.append(err)
+        ms = cuda_time_ms(lambda: rr.ring_attention_rdma_sharded(q, k, v, p))
+        pl = cuda_time_ms(lambda: rr.ring_attention_plain(*shards), reps=3,
+                          warmup=1)
+        times[f"K7 p={p}"] = (ms, pl)
+        info[f"K7 p={p}"] = (*bnd, lib)
+        log(f"[K7] tensor-core body B={b} H={h} S={s_} D={d} p={p}: "
+            f"max_abs_err={err:.3e}, {ratio:.3f} of the bound against the "
+            f"plain ring, {ratio_k1:.3f} against one K1 call on the joined "
+            f"tensors, two calls on one workspace{planted} ok")
+        log(f"[time] K7 ring attention p={p}: kernel {ms:.3f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s), plain ring {pl:.3f} ms, one "
+            f"K1 call on the joined tensors {k1_ms:.3f} ms, bound "
+            f"{bnd[0]:.3f} ms ({bnd[1]}), scaled_dot_product_attention "
+            f"{lib:.3f} ms")
+        del plain, shards
+        torch.cuda.empty_cache()
+    assert rr.ring_attention_rdma.launches_tc > before
+    # the main path's own run: the sharded entry point, counts from zero
+    reset_kernel_counts()
+    out = rr.ring_attention_rdma_sharded(q, k, v, RING_TIMED_P)
+    torch.cuda.synchronize()
+    launches = kernel_counts()["K7"]
+    assert launches == rr.ring_attention_rdma.launches_tc == 1, launches
+    del q, k, v, k1, out
+    rr.release_workspaces()      # slots and state of every ring run here
+    torch.cuda.empty_cache()
+    return max(errs), launches
+
+
 def _k5_operands(m, k, n, groups, gen, bias=True):
     """x with rows of varied size (one of them 0), adaLN rows, int8 weights
     as q, k, v side by side."""
@@ -1004,7 +1271,16 @@ def phase_timing(gen):
     qp, kp, vp = (torch.randn(b, n, h * d, generator=gen, device="cuda",
                               dtype=torch.bfloat16) for _ in range(3))
     k6 = cuda_time_ms(lambda: fa.flash_attention_hp(qp, kp, vp, heads=h))
-    log(f"[time] K6 at the LTX-2B shape B=3 S=5280 H=32 D=64: {k6:.3f} ms "
+
+    def k6_plain():          # one batch row at a time, as K1's plain version
+        for i in range(b):
+            fa.flash_attention_hp_plain(qp[i:i + 1], kp[i:i + 1],
+                                        vp[i:i + 1], heads=h)
+
+    k6_plain_ms = cuda_time_ms(k6_plain, reps=3, warmup=1)
+    times["K6 LTX-2B"] = (k6, k6_plain_ms)
+    log(f"[time] K6 at the LTX-2B shape B=3 S=5280 H=32 D=64: {k6:.3f} ms, "
+        f"plain {k6_plain_ms:.3f} ms "
         f"(K1 on the head-split views: {times['K1 self'][0]:.3f} ms)")
     del qp, kp, vp
 
@@ -1335,12 +1611,17 @@ def kernel_counts():
     from ltx_video_gpupoor_tpu_torch.ops import fused_prologue as fp
     from ltx_video_gpupoor_tpu_torch.ops import int8_matmul as im
 
+    from ltx_video_gpupoor_tpu_torch.parallel import ring_rdma as rr
+    from ltx_video_gpupoor_tpu_torch.tools import mb_selfattn_pipeline as mb
+
     return {"K1": fa.flash_attention.launches,
             "K2": im.int8_linear.launches,
             "K3": fa.flash_attention.bounded_launches,
             "K4": fa.flash_attention_int8.launches,
             "K5": fp.norm_mod_int8_matmul.launches,
-            "K6": fa.flash_attention_hp.launches}
+            "K6": fa.flash_attention_hp.launches,
+            "K7": rr.ring_attention_rdma.launches,
+            "K8": mb.pipelined_attention.launches}
 
 
 def reset_kernel_counts():
@@ -1354,13 +1635,22 @@ def reset_kernel_counts():
     fa.flash_attention_hp.launches = 0
     im.int8_linear.launches = 0
     fp.norm_mod_int8_matmul.launches = 0
+    from ltx_video_gpupoor_tpu_torch.parallel import ring_rdma as rr
+    from ltx_video_gpupoor_tpu_torch.tools import mb_selfattn_pipeline as mb
+
+    rr.ring_attention_rdma.launches = 0
+    rr.ring_attention_rdma.launches_tc = 0
+    rr.ring_attention_rdma.launches_simple = 0
+    mb.pipelined_attention.launches = 0
 
 
 # the kernels each tier must launch, and those it must not
-LTX13B_EXPECT = {"a: auto": (("K4", "K2"), ("K1", "K3", "K5", "K6")),
+LTX13B_EXPECT = {"a: auto": (("K4", "K2"),
+                             ("K1", "K3", "K5", "K6", "K7", "K8")),
                  "b: pallas_hp + fused prologue": (("K6", "K5", "K1", "K2"),
-                                                   ("K3", "K4")),
-                 "c: score bound": (("K3", "K2"), ("K1", "K4", "K5", "K6"))}
+                                                   ("K3", "K4", "K7", "K8")),
+                 "c: score bound": (("K3", "K2"),
+                                    ("K1", "K4", "K5", "K6", "K7", "K8"))}
 
 
 def ltx13b_reference_check(cfg, dense_cut):
@@ -1440,15 +1730,19 @@ def synthetic_image(height, width):
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
-def run_ltx13b_request(gen, t5, name, mode, fused, bound, *, check=True):
+def run_ltx13b_request(gen, t5, name, mode, fused, bound, *, check=True,
+                       serve=None):
     """One image-to-video request in one tier: T5 encode, then
-    ``generate`` with ``image_start``; returns the launch counts of pass 1
-    (media encode included) and of pass 2."""
+    ``generate`` with ``image_start``, or, with ``serve``, whatever
+    ``serve(on_stage)`` does to get the frames (the HTTP server's route,
+    which picks the tier and the text conditioning itself); returns the
+    launch counts of pass 1 (media encode included) and of pass 2."""
     import torch
 
     height, width, frames = LTX13B_REQUEST
     dit = gen.pipeline.transformer
-    set_fused_prologue(fused)
+    if serve is None:
+        set_fused_prologue(fused)
     set_score_bound(dit, bound)
     marks, checks, pass1 = {}, {}, {}
 
@@ -1471,11 +1765,16 @@ def run_ltx13b_request(gen, t5, name, mode, fused, bound, *, check=True):
     torch.cuda.reset_peak_memory_stats()
     reset_kernel_counts()
     t0 = time.perf_counter()
-    emb, mask, t5_sec = encode_prompts(t5)
-    frames_u8 = gen.generate(
-        emb, mask, height=height, width=width, frame_num=frames,
-        frame_rate=30.0, seed=SEED, image_start=synthetic_image(height, width),
-        attn_mode=mode, on_stage=on_stage)
+    if serve is None:
+        emb, mask, t5_sec = encode_prompts(t5)
+        frames_u8 = gen.generate(
+            emb, mask, height=height, width=width, frame_num=frames,
+            frame_rate=30.0, seed=SEED,
+            image_start=synthetic_image(height, width),
+            attn_mode=mode, on_stage=on_stage)
+    else:
+        t5_sec = 0.0
+        frames_u8 = serve(on_stage)
     t_end = time.perf_counter()
     total = kernel_counts()
     pass2 = {k: total[k] - pass1[k] for k in total}
@@ -1512,8 +1811,8 @@ def run_ltx13b_request(gen, t5, name, mode, fused, bound, *, check=True):
 
 def phase_ltx13b(t5):
     """Build the 13B models, check a cut in each tier, serve one request
-    per tier; returns the launch counts per tier (both passes summed) and
-    the generator."""
+    per tier (tier (b) through the HTTP server, ``phase_server``); returns
+    the launch counts per tier (both passes summed) and the generator."""
     import torch
 
     from ltx_video_gpupoor_tpu_torch.pipelines.ltx_pipeline import LTXPipeline
@@ -1533,10 +1832,165 @@ def phase_ltx13b(t5):
                             pipeline_config="ltxv-13b-0.9.7-distilled")
     launches = {}
     for name, mode, fused, bound in LTX13B_TIERS:
-        p1, p2 = run_ltx13b_request(gen, t5, name, mode, fused, bound)
+        if name == LTX13B_SERVED:
+            p1, p2 = phase_server(gen, t5, name, mode, fused, bound)
+        else:
+            p1, p2 = run_ltx13b_request(gen, t5, name, mode, fused, bound)
         launches[name] = {k: p1[k] + p2[k] for k in p1}
         torch.cuda.empty_cache()
     return launches, gen
+
+
+# --------------------------------------------------------------------------
+# phase 7c: the HTTP server and the CLI
+# --------------------------------------------------------------------------
+
+def _http(url, body=None):
+    """(status, bytes) of a GET, or of a POST of ``body`` as JSON."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(
+        url, data=data, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def phase_server(gen, t5, name, mode, fused, bound):
+    """The tier-(b) 13B request through ``InferenceService`` and the
+    stdlib HTTP server over a real socket, then the error answers and
+    ``/metrics``; returns the launch counts of the request's two passes."""
+    import base64
+    import io
+    import threading
+
+    import numpy as np
+    from PIL import Image
+
+    from ltx_video_gpupoor_tpu_torch.ops.attention import set_attention_mode
+    from ltx_video_gpupoor_tpu_torch.serving import model_zoo, server
+    from ltx_video_gpupoor_tpu_torch.utils import media
+    from ltx_video_gpupoor_tpu_torch.utils.observability import Metrics
+
+    height, width, frames = LTX13B_REQUEST
+    out_dir = os.path.join(ROOT, "outputs")
+    # the tier as a server process picks it: process-wide, before start-up
+    set_attention_mode(mode)
+    set_fused_prologue(fused)
+    Metrics.reset()
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    service = server.InferenceService(
+        model=model_zoo.LoadedModel(generator=gen), outputs_dir=out_dir,
+        warmup_spec=SERVER_WARMUP)
+    service._warmup_thread.join()
+    warm = time.perf_counter() - t0
+    # a warm-up logs a failed bucket and carries on: the bucket must have
+    # run to its end, through the tier's kernels
+    warm_counts = kernel_counts()
+    counters = Metrics.snapshot()["counters"]
+    assert counters.get("warmup_ok") == 1 and not counters.get(
+        "warmup_failed"), f"the warm-up bucket did not complete: {counters}"
+    assert all(warm_counts[k] > 0 for k in ("K5", "K6", "K2")), warm_counts
+    httpd = server.create_stdlib_server(service, host="127.0.0.1", port=0)
+    root = f"http://127.0.0.1:{httpd.server_address[1]}"
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    log(f"[server] InferenceService around the 13B models, warm-up bucket "
+        f"{SERVER_WARMUP} completed in {warm:.3f} s (launches "
+        f"{warm_counts}); serving on {root}")
+    buf = io.BytesIO()
+    Image.fromarray(synthetic_image(height, width)).save(buf, format="PNG")
+    body = {"image": base64.b64encode(buf.getvalue()).decode(),
+            "prompt": "a seeded synthetic gradient comes alive",
+            "negative_prompt": "worst quality", "height": height,
+            "width": width, "num_frames": frames, "frame_rate": 30,
+            "num_inference_steps": 10, "creation_id": "chip_smoke"}
+    seen = {}
+
+    def serve(on_stage):
+        real = gen.generate
+        gen.generate = lambda *a, **k: real(*a, on_stage=on_stage, **k)
+        try:
+            status, payload = _http(root + "/", body)
+        finally:
+            del gen.generate
+        assert status == 200, (status, payload[:500])
+        url = json.loads(payload)[0]["video"]
+        assert url.startswith(root + "/download/video_"), url
+        t1 = time.perf_counter()
+        status, mp4 = _http(url)
+        assert status == 200 and len(mp4) > 0, (status, len(mp4))
+        path = os.path.join(out_dir, "downloaded.mp4")
+        with open(path, "wb") as f:
+            f.write(mp4)
+        video = media.load_video(path)
+        seen.update(url=url, mp4_bytes=len(mp4),
+                    download_s=time.perf_counter() - t1)
+        return np.clip(np.round((video + 1.0) * 127.5), 0, 255).astype(
+            np.uint8)
+
+    try:
+        p1, p2 = run_ltx13b_request(gen, t5, name, mode, fused, bound,
+                                    serve=serve)
+        status, payload = _http(root + "/", {k: v for k, v in body.items()
+                                             if k != "prompt"})
+        assert status == 400 and b"Missing fields: prompt" in payload, \
+            (status, payload)
+        status, payload = _http(root + "/download/..%2Fchip_smoke.py")
+        assert status == 404, (status, payload[:200])
+        status, payload = _http(root + "/metrics")
+        metrics = json.loads(payload)
+        assert status == 200 and metrics["counters"]["requests_ok"] == 1, \
+            metrics
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join()
+        set_attention_mode("auto")
+        set_fused_prologue(False)
+    g = metrics["gauges"]
+    stages = {k.split("/", 1)[1]: v for k, v in g.items()
+              if k.startswith("last_stage_s/")}
+    assert stages["save_video"] > 0 and stages["generate"] > 0, stages
+    log(f"[server] POST / {width}x{height}x{frames} answered 200 in "
+        f"{g['last_request_s']:.3f} s: "
+        + " ".join(f"{k}={v:.3f}s" for k, v in stages.items())
+        + f"; GET {seen['url'].rsplit('/', 1)[1]}: {seen['mp4_bytes']} bytes, "
+        f"read back to {frames} frames, {seen['download_s']:.3f} s with the "
+        "decode; a missing field answers 400, a path out of outputs/ 404, "
+        "GET /metrics 200")
+    return p1, p2
+
+
+def phase_cli():
+    """One request through the CLI's ``main`` on the demo model."""
+    from ltx_video_gpupoor_tpu_torch.serving import cli
+    from ltx_video_gpupoor_tpu_torch.utils import media
+
+    height, width, frames = CLI_REQUEST
+    path = os.path.join(ROOT, "outputs", "cli_demo.mp4")
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    out = cli.main(["--demo", "--prompt", "a red fox in the snow",
+                    "--height", str(height), "--width", str(width),
+                    "--video-length", str(frames), "--seed", str(SEED),
+                    "--output-path", path])
+    sec = time.perf_counter() - t0
+    counts = kernel_counts()
+    video = media.load_video(out)
+    assert out == path and os.path.getsize(path) > 0
+    assert video.shape == (frames, height, width, 3), video.shape
+    assert counts["K1"] > 0, counts
+    log(f"[cli] main(--demo ... {width}x{height}x{frames}) wrote "
+        f"{os.path.relpath(out, ROOT)} ({os.path.getsize(path)} bytes, "
+        f"{video.shape[0]} frames) in {sec:.3f} s with the model build; "
+        f"launches {counts}")
+    return counts
 
 
 # --------------------------------------------------------------------------
@@ -1901,6 +2355,8 @@ def main(argv=None) -> int:
     k5_err = phase_k5(gen)
     k6_err = phase_k6(gen)
     times, info = phase_timing(gen)
+    k8_err, k8_launches = phase_k8(gen, times, info)
+    k7_err, k7_launches = phase_k7(gen, times, info)
     log(f"[clock] kernel checks and timings done at "
         f"{time.perf_counter() - t_start:.0f} s")
     ltx_launches, generator, t5 = phase_path()
@@ -1916,6 +2372,7 @@ def main(argv=None) -> int:
     del generator13b, t5     # free the LTX models for the Wan path
     torch.cuda.empty_cache()
     log(f"[clock] LTX-13B path done at {time.perf_counter() - t_start:.0f} s")
+    phase_cli()
     wan_launches, pipe, umt5 = phase_wan()
     if args.profile:
         profile_wan(pipe, umt5)
@@ -1946,7 +2403,17 @@ def main(argv=None) -> int:
         kernel_entry("flash_attention_hp (head-packed exact attention)",
                      K1_SOURCE, K6_REPLACES, ltx13b_launches[tier_b]["K6"],
                      k6_err, times, info, "K6 self pass 2"),
+        kernel_entry("ring_attention_rdma (ring attention, the whole ring "
+                     f"in one cooperative launch, p={RING_TIMED_P})",
+                     K7_SOURCE, K7_REPLACES, k7_launches, k7_err, times, info,
+                     f"K7 p={RING_TIMED_P}"),
+        kernel_entry("pipelined_attention (sub-block-pipelined attention, "
+                     f"nsub={K8_JSON_NSUB})", K8_SOURCE, K8_REPLACES,
+                     k8_launches, k8_err, times, info,
+                     f"K8 nsub {K8_JSON_NSUB}"),
     ]
+    kernels[-1]["ms_by_nsub"] = {
+        str(n): times[f"K8 nsub {n}"][0] for n in (1, 2, 4, 8)}
     assert all(k["launches"] > 0 for k in kernels), kernels
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -30,9 +30,11 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+U = ctypes.c_uint
 F = ctypes.c_float
 
-# C signatures: name -> argtypes (restype is int, the cudaError_t).
+# C signatures: name -> argtypes (restype is int, the cudaError_t, but for
+# RESTYPES).
 SIGNATURES = {
     # q, k, v, out, q_seg, kv_seg, B, H, Sq, Skv, D,
     # q strides (b, h, s), k strides, v strides, out strides,
@@ -65,7 +67,26 @@ SIGNATURES = {
     # sw, bias, out, out_mode (0 s32, 1 bf16), stream
     "k5_norm_mod_int8_matmul": [P, P, P, I, I, I, F, P, P, P, I, P, P, P, I,
                                 P],
+    # q, k, v, out, B, H, S, D, q/k/v/out strides (b, h, s), block_kv, nsub,
+    # D**-0.5 * log2(e), stream
+    "k8_flash_attention_pipelined_bf16": [P, P, P, P, I, I, I, I,
+                                          I, I, I, I, I, I, I, I, I, I, I, I,
+                                          I, I, F, P],
+    # body (0 tensor cores, 1 CUDA cores fp32, 2 CUDA cores bf16), p, B*H,
+    # S/p, D -> blocks per rank of one cooperative launch (-1: none)
+    "k7_ring_blocks": [I, I, I, I, I],
+    # body, B*H, S/p, D -> floats of softmax state per rank (a long long)
+    "k7_ring_state_floats": [I, I, I, I],
+    # per-rank pointer arrays q, k, v, out, kslot, vslot, state; the
+    # arrived and done counters; body, p, B, H, S/p, D; q/k/v/out strides
+    # (b, h, s); blocks per rank, the counters' target, scale, the planted
+    # fault's rank and step (-1 = none), stream
+    "k7_ring_attention": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                          I, I, I, I, I, I, I, I, I, I, I, I,
+                          I, U, F, I, I, P],
 }
+# entries that return something other than a cudaError_t
+RESTYPES = {"k7_ring_state_floats": ctypes.c_longlong}
 
 
 def _nvcc() -> str:
@@ -152,7 +173,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = RESTYPES.get(name, ctypes.c_int)
     return lib
 
 

@@ -10,12 +10,17 @@ tier (K4) at 128 and above or an unknown head dim. ``pallas_int8`` and
 the bound (:192-196), and ``pallas_int8`` with a bound raises, as the JAX
 kernel has no such combination on the port's path. ``pallas_hp`` runs the
 head-packed kernel (K6) from :func:`attention_packed` and is ``pallas``
-for head-split callers (:162-165). The 128-multiple padding (:172-191,
+for head-split callers (:162-165). :func:`set_attention_mode` (:63) and
+the ``LTXV_TPU_ATTN`` environment variable (:40) pin what ``auto`` means
+for the whole process, as the CLI's ``--attention`` does. The
+128-multiple padding (:172-191,
 :289-298) is gone: the kernels mask their own ragged edge. ``xla`` and
 ``ulysses:`` raise ``NotImplementedError`` naming their ROADMAP entry.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -32,6 +37,31 @@ _TO_PORT = {
 _VALID_MODES = ("auto", "pallas", "pallas_hp", "pallas_int8", "pallas_int8pv")
 
 
+def _checked_mode(mode: str, what: str) -> str:
+    if mode in _TO_PORT:
+        raise NotImplementedError(f"{what}{mode!r}: {_TO_PORT[mode]}")
+    if mode not in _VALID_MODES:
+        raise ValueError(f"{what}{mode!r}: expected one of {_VALID_MODES}")
+    return mode
+
+
+# Process-wide override: what ``auto`` resolves through. From LTXV_TPU_ATTN,
+# so a deployment can pin a tier without code; empty means unset.
+_FORCED_MODE = _checked_mode(os.environ.get("LTXV_TPU_ATTN") or "auto",
+                             "LTXV_TPU_ATTN=")
+
+
+def set_attention_mode(mode: str) -> None:
+    """Pin the tier that ``auto`` means in this process (the CLI's
+    ``--attention``); ``"auto"`` hands the choice back to the policy."""
+    global _FORCED_MODE
+    _FORCED_MODE = _checked_mode(mode, "attention mode ")
+
+
+def get_attention_mode() -> str:
+    return _FORCED_MODE
+
+
 def resolve_mode(mode: str, score_bound: float | None = None,
                  head_dim: int | None = None) -> str:
     """Resolve ``auto`` to a concrete tier, as the JAX package does on the
@@ -43,6 +73,8 @@ def resolve_mode(mode: str, score_bound: float | None = None,
         raise NotImplementedError(
             f"attention mode {mode!r}: sequence parallelism is ROADMAP "
             "queue 1 step 15")
+    if mode == "auto":
+        mode = _FORCED_MODE
     if mode == "auto":
         if score_bound is not None:
             return "pallas"

@@ -254,12 +254,18 @@ def denoise(
     attn_mode: str = "auto",
     init_latents: Optional[torch.Tensor] = None,
     image_cond_noise_scale: float = 0.0,
+    interrupt_flag=None,
+    progress_callback=None,
 ) -> torch.Tensor:
     """The denoise loop; the guidance streams are batch rows
     ``[uncond, cond, perturbed]`` of one transformer call per step.
     With ``image_cond_noise_scale`` > 0, every step first re-noises the
     fully conditioned tokens around ``init_latents`` (the latents as they
-    entered, by default) by ``scale * noise * t**2``."""
+    entered, by default) by ``scale * noise * t**2``. ``interrupt_flag``
+    (a callable, ``core.interrupt.InterruptFlag``) is consulted before
+    every step and raises ``Interrupted``; ``progress_callback(i,
+    n_steps)`` is called after step ``i``."""
+    from ..core.interrupt import check
     num_conds = schedule.num_conds
     n_tokens = latents.shape[1]
     if latents.shape[0] != 1:
@@ -295,6 +301,7 @@ def denoise(
         init_latents = latents
 
     for i in range(len(ts_host)):
+        check(interrupt_flag)
         t = float(ts_host[i])
         if image_cond_noise_scale > 0.0:
             noise = torch.randn(latents.shape, generator=generator,
@@ -348,6 +355,8 @@ def denoise(
                            generator=generator)
         to_denoise = (t - 1e-6 < (1.0 - conditioning_mask))[..., None]
         latents = torch.where(to_denoise, denoised, latents)
+        if progress_callback is not None:
+            progress_callback(i, len(ts_host))
     return latents
 
 
@@ -424,9 +433,15 @@ class LTXPipeline:
         decode_noise_scale: Optional[float] = None,
         attn_mode: str = "auto",
         noise: Optional[torch.Tensor] = None,
+        interrupt_flag=None,
+        progress_callback=None,
     ):
         """Returns the latent grid ``[1, F', H', W', C]`` fp32
-        (``output_type="latent"``) or pixels ``[1, F, H, W, 3]``."""
+        (``output_type="latent"``) or pixels ``[1, F, H, W, 3]``.
+        ``interrupt_flag`` and ``progress_callback`` go to
+        :func:`denoise`."""
+        from ..utils.observability import stage as _stage
+
         dev = self.transformer.proj_out.bias.device
         f_lat, h_lat, w_lat = self.latent_shape(height, width, num_frames)
         c = self.transformer.cfg.in_channels
@@ -454,10 +469,11 @@ class LTXPipeline:
                                      dtype=torch.float32, device=dev)
         extras = []
         if conditioning_items:
-            cond_latents, cond_mask_grid, extras = prepare_conditioning(
-                torch.zeros((1, f_lat, h_lat, w_lat, c), dtype=torch.float32,
-                            device=dev),
-                conditioning_items, self.vae)
+            with _stage("cond_encode", sync=lambda: cond_latents):
+                cond_latents, cond_mask_grid, extras = prepare_conditioning(
+                    torch.zeros((1, f_lat, h_lat, w_lat, c),
+                                dtype=torch.float32, device=dev),
+                    conditioning_items, self.vae)
             # lerp(noised init, clean conditioning latents, strength)
             init = init + cond_mask_grid[..., None] * (cond_latents - init)
 
@@ -503,20 +519,25 @@ class LTXPipeline:
             rescaling_scale=rescaling_scale, skip_block_list=skip_block_list,
             guidance_timesteps=guidance_timesteps,
             skip_layer_strategy=skip_layer_strategy)
-        latents = denoise(
-            self.transformer, tokens, cond_mask_tokens, pixel_coords, ts,
-            schedule, prompt_embeds, prompt_mask, generator,
-            num_frame_groups=f_lat + extra_frame_groups,
-            stochastic_sampling=stochastic_sampling, attn_mode=attn_mode,
-            init_latents=tokens,
-            image_cond_noise_scale=image_cond_noise_scale)
+        with _stage("denoise", sync=lambda: latents):
+            latents = denoise(
+                self.transformer, tokens, cond_mask_tokens, pixel_coords, ts,
+                schedule, prompt_embeds, prompt_mask, generator,
+                num_frame_groups=f_lat + extra_frame_groups,
+                stochastic_sampling=stochastic_sampling, attn_mode=attn_mode,
+                init_latents=tokens,
+                image_cond_noise_scale=image_cond_noise_scale,
+                interrupt_flag=interrupt_flag,
+                progress_callback=progress_callback)
         if num_extra_tokens:
             latents = latents[:, num_extra_tokens:]
         latent_grid = patchifier.unpatchify(latents, h_lat, w_lat, c)
         if output_type == "latent":
             return latent_grid
-        return self.decode(latent_grid, decode_timestep, decode_noise_scale,
-                           generator)
+        with _stage("vae_decode", sync=lambda: px):
+            px = self.decode(latent_grid, decode_timestep, decode_noise_scale,
+                             generator)
+        return px
 
     def _decode_tiles(self, z: torch.Tensor) -> tuple[int, int]:
         """(z_tile, hw_tile) for this latent shape, by a voxel budget:

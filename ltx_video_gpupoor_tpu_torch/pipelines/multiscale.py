@@ -87,19 +87,24 @@ class MultiScalePipeline:
         ``on_stage(name, value)``, if given, is called as ``("pass1",
         None)``, ``("upsample", pass-1 latents)`` and ``("pass2",
         upsampled latents)`` start."""
+        from ..utils.observability import stage as _stage
+
         dh, dw = self.downscaled_dims(height, width)
         if on_stage is not None:
             on_stage("pass1", None)
-        latents = self.pipeline.generate(
-            prompt_embeds, prompt_mask, height=dh, width=dw,
-            num_frames=num_frames, generator=generator, output_type="latent",
-            noise=noise_pass1, **first_pass, **kwargs)
+        with _stage("pass1"):
+            latents = self.pipeline.generate(
+                prompt_embeds, prompt_mask, height=dh, width=dw,
+                num_frames=num_frames, generator=generator,
+                output_type="latent", noise=noise_pass1, **first_pass,
+                **kwargs)
         if on_stage is not None:
             on_stage("upsample", latents)
-        up = upsample_latents(self.upsampler,
-                              self.pipeline.vae.per_channel_statistics,
-                              latents)
-        up = adain_filter_latent(up, latents, factor=1.0)
+        with _stage("upsample_adain", sync=lambda: up):
+            up = upsample_latents(self.upsampler,
+                                  self.pipeline.vae.per_channel_statistics,
+                                  latents)
+            up = adain_filter_latent(up, latents, factor=1.0)
 
         second = dict(second_pass)
         # pass 2 re-noises the upsampled latents to its first timestep
@@ -107,10 +112,11 @@ class MultiScalePipeline:
         t0 = float(ts2[0]) if ts2 is not None else None
         if on_stage is not None:
             on_stage("pass2", up)
-        return self.pipeline.generate(
-            prompt_embeds, prompt_mask, height=dh * 2, width=dw * 2,
-            num_frames=num_frames, generator=generator,
-            media_latents=up, initial_timestep=t0, output_type=output_type,
-            decode_timestep=decode_timestep,
-            decode_noise_scale=decode_noise_scale, noise=noise_pass2,
-            **second, **kwargs)
+        with _stage("pass2"):
+            return self.pipeline.generate(
+                prompt_embeds, prompt_mask, height=dh * 2, width=dw * 2,
+                num_frames=num_frames, generator=generator,
+                media_latents=up, initial_timestep=t0,
+                output_type=output_type, decode_timestep=decode_timestep,
+                decode_noise_scale=decode_noise_scale, noise=noise_pass2,
+                **second, **kwargs)

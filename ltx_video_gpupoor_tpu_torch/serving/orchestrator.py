@@ -6,14 +6,16 @@ Port of ``ltx_video_gpupoor_tpu/serving/orchestrator.py``:
 and/or last frame, a video as conditioning or (``strength < 1``) as the
 start of a video-to-video run (:198-275), the ``"base"`` branch
 (:364-391) and the two-pass multi-scale branch (:312-363), the bilinear
-resize back to the padded size (:395-405), uint8 ``[F, H, W, 3]`` frames.
-``yuv420`` output, resolution bucketing and TeaCache raise
-``NotImplementedError`` (ROADMAP queue 1 step 11).
+resize back to the padded size (:395-405), uint8 ``[F, H, W, 3]`` frames
+or planar YUV420 (``_rgb_to_yuv420``, :36), resolution bucketing (:198-212)
+and the ambient stage marks (``utils/observability.py::stage``). TeaCache
+raises ``NotImplementedError`` (ROADMAP queue 1 step 11).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Optional
 
 import numpy as np
@@ -30,6 +32,29 @@ from ..pipelines.ltx_pipeline import (
 from ..pipelines.multiscale import MultiScalePipeline
 from ..schedulers import rf
 from ..utils import media as media_utils
+from ..utils import resolution
+from ..utils.observability import stage as _stage
+
+logger = logging.getLogger(__name__)
+
+
+def _rgb_to_yuv420(frames: torch.Tensor):
+    """[F, H, W, 3] float in [-1, 1] -> planar YUV420 uint8 (BT.601
+    limited range, swscale's default for RGB24->YUV420P), on the frames'
+    device, so the host fetch moves 1.5 bytes a pixel instead of 3."""
+    rgb = (frames.float() + 1.0) * 0.5
+    m = torch.tensor(
+        [[65.481, -37.797, 112.0],
+         [128.553, -74.203, -93.786],
+         [24.966, 112.0, -18.214]], dtype=torch.float32, device=rgb.device)
+    yuv = rgb @ m + torch.tensor([16.0, 128.0, 128.0], dtype=torch.float32,
+                                 device=rgb.device)
+    y = torch.clamp(torch.round(yuv[..., 0]), 0, 255).to(torch.uint8)
+    f, h, w = y.shape
+    c = yuv[..., 1:].reshape(f, h // 2, 2, w // 2, 2, 2).mean(dim=(2, 4))
+    c = torch.clamp(torch.round(c), 0, 255).to(torch.uint8)
+    return y, c[..., 0], c[..., 1]
+
 
 STG_MODES = {
     "attention_values": SkipLayerStrategy.AttentionValues,
@@ -142,7 +167,11 @@ class LTXVideoGenerator:
         on_stage=None,
     ):
         """Generate frames: uint8 ``[F, H, W, 3]`` numpy on the host
-        (``output_type="pixels"``) or the latent grid (``"latent"``).
+        (``output_type="pixels"``), a tuple of host uint8 planes ``(y
+        [F, H, W], u [F, H/2, W/2], v [F, H/2, W/2])`` (``"yuv420"``,
+        BT.601; uint8 RGB instead when a target dim is odd) or the latent
+        grid (``"latent"``). ``bucket_resolution`` snaps the size to the
+        nearest aspect-ratio bin (``utils/resolution.py``).
 
         ``image_start`` / ``image_end`` (uint8, or float in [-1, 1])
         condition the first / last frame; ``input_video`` (float in
@@ -157,13 +186,11 @@ class LTXVideoGenerator:
         multi-scale branch also ``("pass1", None)``, ``("upsample",
         latents)`` and ``("pass2", latents)``, then ``("decode", latent
         grid)`` and ``("postprocess", decoded pixels in [-1, 1])``."""
-        for name, value in (("bucket_resolution", bucket_resolution),
-                            ("teacache_multiplier", teacache_multiplier > 0)):
-            if value:
-                raise NotImplementedError(f"{name}: ROADMAP queue 1 step 11")
-        if output_type not in ("pixels", "latent"):
+        if teacache_multiplier > 0:
             raise NotImplementedError(
-                f"output_type={output_type!r}: ROADMAP queue 1 step 11")
+                "teacache_multiplier: ROADMAP queue 1 step 11")
+        if output_type not in ("pixels", "yuv420", "latent"):
+            raise ValueError(f"unknown output_type {output_type!r}")
         cfg = dict(self.pipeline_config)
         stg_strategy = STG_MODES[cfg.get("stg_mode", "attention_values")]
         dev = self.pipeline.transformer.proj_out.bias.device
@@ -178,39 +205,49 @@ class LTXVideoGenerator:
         height = min(height, MAX_HEIGHT)
         width = min(width, MAX_WIDTH)
         frame_num = min(frame_num, MAX_FRAMES)
+        if bucket_resolution:
+            # arbitrary user sizes land on a bounded set of shapes
+            req = (height, width, frame_num)
+            height, width, frame_num = resolution.bucketed_dimensions(
+                height, width, frame_num)
+            if (height, width, frame_num) != req:
+                logger.info(
+                    "bucket_resolution: request %dx%dx%df -> %dx%dx%df",
+                    req[0], req[1], req[2], height, width, frame_num)
         hp, wp, fp = pad_dimensions(height, width, frame_num)
         padding = media_utils.calculate_padding(height, width, hp, wp)
 
         conditioning = []
         media_video = None
-        if input_video is not None and (input_video.shape[1] != height
-                                        or input_video.shape[2] != width):
-            # the working dims moved off the video's own (the MAX clamp):
-            # resize the frames before padding
-            input_video = np.stack([
-                media_utils.resize_image(f, height, width)
-                for f in np.asarray(input_video)])
-        if input_video is not None and strength < 1.0:
-            # v2v: the whole video, trimmed to the padded frame count, is
-            # encoded at each branch's working resolution
-            media_video = media_utils.pad_media(input_video[:fp], padding)
-        elif input_video is not None:
-            # conditioning video: trimmed to N * temporal_factor + 1 frames
-            tsf = self.pipeline.vae.cfg.temporal_downscale_factor
-            n = min(input_video.shape[0], frame_num)
-            n = (n - 1) // tsf * tsf + 1
-            item = media_utils.pad_media(input_video[:n], padding)
-            conditioning.append(ConditioningItem(item, 0, 1.0))
-        if image_start is not None:
-            img = media_utils.prepare_conditioning_image(image_start, height,
-                                                         width)
-            conditioning.append(ConditioningItem(
-                media_utils.pad_media(img, padding), 0, 1.0))
-        if image_end is not None:
-            img = media_utils.prepare_conditioning_image(image_end, height,
-                                                         width)
-            conditioning.append(ConditioningItem(
-                media_utils.pad_media(img, padding), fp - 1, 1.0))
+        with _stage("media_prep"):
+            if input_video is not None and (input_video.shape[1] != height
+                                            or input_video.shape[2] != width):
+                # the working dims moved off the video's own (the MAX clamp
+                # or the bucketing): resize the frames before padding
+                input_video = np.stack([
+                    media_utils.resize_image(f, height, width)
+                    for f in np.asarray(input_video)])
+            if input_video is not None and strength < 1.0:
+                # v2v: the whole video, trimmed to the padded frame count,
+                # is encoded at each branch's working resolution
+                media_video = media_utils.pad_media(input_video[:fp], padding)
+            elif input_video is not None:
+                # conditioning video: trimmed to N * temporal_factor + 1
+                tsf = self.pipeline.vae.cfg.temporal_downscale_factor
+                n = min(input_video.shape[0], frame_num)
+                n = (n - 1) // tsf * tsf + 1
+                item = media_utils.pad_media(input_video[:n], padding)
+                conditioning.append(ConditioningItem(item, 0, 1.0))
+            if image_start is not None:
+                img = media_utils.prepare_conditioning_image(
+                    image_start, height, width)
+                conditioning.append(ConditioningItem(
+                    media_utils.pad_media(img, padding), 0, 1.0))
+            if image_end is not None:
+                img = media_utils.prepare_conditioning_image(
+                    image_end, height, width)
+                conditioning.append(ConditioningItem(
+                    media_utils.pad_media(img, padding), fp - 1, 1.0))
 
         common = dict(
             frame_rate=frame_rate,
@@ -293,15 +330,21 @@ class LTXVideoGenerator:
             return latents
         if on_stage is not None:
             on_stage("decode", latents)
-        px = self.pipeline.decode(latents, cfg.get("decode_timestep", 0.0),
-                                  cfg.get("decode_noise_scale"), generator)
+        with _stage("vae_decode", sync=lambda: px):
+            px = self.pipeline.decode(
+                latents, cfg.get("decode_timestep", 0.0),
+                cfg.get("decode_noise_scale"), generator)
         if on_stage is not None:
             on_stage("postprocess", px)
-        frames = px[0]
-        if frames.shape[1] != hp or frames.shape[2] != wp:
-            # multi-scale pass 2 decodes at twice the downscaled dims,
-            # which can exceed the request: resize back to the padded size
-            frames = resize_bilinear(frames.float(), hp, wp)
-        frames = media_utils.crop_padding(frames, padding, frame_num)
-        frames = torch.clamp((frames.float() + 1.0) * 127.5, 0, 255)
-        return frames.to(torch.uint8).cpu().numpy()
+        with _stage("resize_quant_fetch"):
+            frames = px[0]
+            if frames.shape[1] != hp or frames.shape[2] != wp:
+                # multi-scale pass 2 decodes at twice the downscaled dims,
+                # which can exceed the request: resize back to the padded
+                # size
+                frames = resize_bilinear(frames.float(), hp, wp)
+            frames = media_utils.crop_padding(frames, padding, frame_num)
+            if output_type == "yuv420" and height % 2 == 0 and width % 2 == 0:
+                return tuple(p.cpu().numpy() for p in _rgb_to_yuv420(frames))
+            frames = torch.clamp((frames.float() + 1.0) * 127.5, 0, 255)
+            return frames.to(torch.uint8).cpu().numpy()

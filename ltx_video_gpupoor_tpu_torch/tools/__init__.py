@@ -1,0 +1,1 @@
+"""Micro-benchmark tools of the port; each runs on the card."""

@@ -7,14 +7,17 @@ and ``tests/test_torch_i2v_modules.py`` pin them equal):
 ``calculate_new_dimensions`` (:26), ``calculate_padding`` (:45),
 ``pad_media`` (:58), ``crop_padding`` (:72, slices numpy arrays and torch
 tensors alike), ``resize_image`` (:79), ``resize_and_crop_image`` (:95),
-``gaussian_blur_3x3`` (:122), ``crf_compress`` (:163) and
-``prepare_conditioning_image`` (:224).
+``gaussian_blur_3x3`` (:122), ``crf_compress`` (:163),
+``prepare_conditioning_image`` (:224), ``yuv420_to_rgb`` (:242),
+``save_video`` (:257) and ``load_video`` (:322).
 
 ``crf_compress`` keeps the ffmpeg route and the cv2 JPEG approximation;
 the JAX package's preferred route over its native libx264 shim
 (``runtime/h264_codec.cpp``) is not ported (ROADMAP queue 1 step 11), so
 on a machine with neither an ffmpeg binary nor cv2 the frame passes
-through unchanged. mp4 writing joins with serving (the same step).
+through unchanged. ``save_video`` and ``load_video`` keep the imageio
+route (tried only where imageio and an ffmpeg backend exist) and the
+OpenCV ``mp4v`` route; the native shim's routes wait with it.
 """
 
 from __future__ import annotations
@@ -236,3 +239,87 @@ def prepare_conditioning_image(
     if apply_crf:
         img = crf_compress(img)
     return (img * 2.0 - 1.0)[None].astype(np.float32)
+
+
+def yuv420_to_rgb(y: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """Host inverse of the device BT.601 RGB->YUV420 (nearest chroma
+    upsample), for writers that need RGB frames."""
+    yf = (y.astype(np.float32) - 16.0) / 219.0
+    cu = (u.astype(np.float32) - 128.0) / 224.0
+    cv = (v.astype(np.float32) - 128.0) / 224.0
+    cu = cu.repeat(2, axis=1).repeat(2, axis=2)[:, : y.shape[1], : y.shape[2]]
+    cv = cv.repeat(2, axis=1).repeat(2, axis=2)[:, : y.shape[1], : y.shape[2]]
+    r = yf + 1.402 * cv
+    g = yf - 0.344136 * cu - 0.714136 * cv
+    b = yf + 1.772 * cu
+    rgb = np.stack([r, g, b], axis=-1)
+    return np.clip(np.round(rgb * 255.0), 0, 255).astype(np.uint8)
+
+
+def save_video(frames, path: str, fps: float = 30.0, retries: int = 5) -> str:
+    """mp4 writer with a retry loop.
+
+    frames: [F, H, W, 3] float in [-1, 1] or uint8, or a planar-YUV420
+    tuple ``(y, u, v)`` from the orchestrator's ``output_type="yuv420"``
+    (converted back to RGB here: no writer of this package takes planes).
+    imageio with libx264 where it and an ffmpeg backend exist, else
+    OpenCV's ``mp4v``."""
+    if isinstance(frames, tuple):
+        frames = yuv420_to_rgb(*frames)
+    if frames.dtype != np.uint8:
+        frames = np.clip((frames + 1.0) * 127.5, 0, 255).astype(np.uint8)
+    err = None
+    for _ in range(retries):
+        try:
+            import imageio
+
+            with imageio.get_writer(
+                path, fps=fps, codec="libx264", quality=8,
+                pixelformat="yuv420p",
+            ) as writer:
+                for frame in frames:
+                    writer.append_data(frame)
+            return path
+        except ImportError as e:
+            err = e
+            break
+        except Exception as e:  # a transient file-system race: retry
+            err = e
+    try:
+        import cv2
+
+        h, w = frames.shape[1:3]
+        writer = cv2.VideoWriter(
+            path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h)
+        )
+        if writer.isOpened():
+            for frame in frames:
+                writer.write(np.ascontiguousarray(frame[..., ::-1]))
+            writer.release()
+            return path
+    except Exception as e:
+        err = e
+    raise RuntimeError(f"failed to write video after {retries} tries: {err}")
+
+
+def load_video(path: str) -> np.ndarray:
+    """Read a video into [F, H, W, 3] float32 in [-1, 1]."""
+    try:
+        import imageio
+
+        frames = [np.asarray(f) for f in imageio.get_reader(path)]
+    except Exception:
+        import cv2
+
+        cap = cv2.VideoCapture(path)
+        frames = []
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            frames.append(frame[..., ::-1])
+        cap.release()
+    if not frames:
+        raise RuntimeError(f"no frames could be read from {path}")
+    arr = np.stack(frames).astype(np.float32)
+    return arr / 127.5 - 1.0

@@ -1,4 +1,4 @@
-"""Kernels K1 to K6 on the card against their plain versions.
+"""Kernels K1 to K8 on the card against their plain versions.
 
 This file imports torch and the port only (no jax), so it runs on the
 machine with the GPU:  python -m pytest tests/test_torch_cuda.py -q
@@ -23,6 +23,13 @@ K1's atol = rtol = 2e-2. K5 (fused adaLN prologue): the int8 codes and
 row scales of its row kernel and the int32 product exactly, as for K2
 (the mean of squares is rounded from a float64 sum on both sides, and
 ``rsqrt`` is the same device function), its outputs at 1e-2 relative.
+K8 (sub-block-pipelined attention) against its plain version, which takes
+the same sub-blocks with the same roundings: every element within two
+bf16 ulps plus 2**-9 of the largest output. K7 (ring attention, the whole
+ring in one cooperative launch) against the plain ring: the CUDA-core body
+at fp32 atol 2e-5 and bf16 atol 3e-2 (the tolerances of the JAX package's
+tests), the tensor-core body at K8's bound; each twice in a row on one
+workspace, so that a call cannot take the previous call's flags.
 """
 
 import numpy as np
@@ -34,6 +41,8 @@ from ltx_video_gpupoor_tpu_torch.ops import flash_attention as fa
 from ltx_video_gpupoor_tpu_torch.ops import fused_prologue as fp
 from ltx_video_gpupoor_tpu_torch.ops import int8_matmul as im
 from ltx_video_gpupoor_tpu_torch.ops.quant import quantize_weights
+from ltx_video_gpupoor_tpu_torch.parallel import ring_rdma as rr
+from ltx_video_gpupoor_tpu_torch.tools import mb_selfattn_pipeline as mb
 
 pytestmark = pytest.mark.cuda
 
@@ -320,3 +329,97 @@ def test_k5_rejects_what_it_does_not_take(cuda):
                                 rows_per_group=32)
     with pytest.raises(ValueError, match="scale shape"):
         fp.norm_mod_int8_matmul(x, x[:2], x[:2], w8, ws, rows_per_group=32)
+
+
+def _within_two_ulps(kern, plain):
+    diff = (kern.float() - plain.float()).abs()
+    bound = plain.float().abs() * 2.0 ** -7 \
+        + float(plain.float().abs().max()) * 2.0 ** -9
+    return bool((diff <= bound).all())
+
+
+@pytest.mark.parametrize("block_kv,nsub", [
+    (128, 1), (128, 2), (128, 4), (128, 8), (64, 1), (64, 2), (64, 4)])
+def test_k8_matches_plain(cuda, block_kv, nsub):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (_randn(gen, 1, 3, 640, 64).bfloat16() for _ in range(3))
+    before = mb.pipelined_attention.launches
+    out = mb.pipelined_attention(q, k, v, block_kv=block_kv, nsub=nsub)
+    torch.cuda.synchronize()
+    assert mb.pipelined_attention.launches == before + 1
+    plain = mb.pipelined_attention_plain(q, k, v, block_kv=block_kv,
+                                         nsub=nsub)
+    assert _within_two_ulps(out, plain)
+    exact = fa.reference_attention(q, k, v)
+    torch.testing.assert_close(out.float(), exact.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_k8_reads_head_split_views_and_rejects(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (_randn(gen, 2, 256, 4 * 64).bfloat16().view(2, 256, 4, 64)
+               .transpose(1, 2) for _ in range(3))
+    out = mb.pipelined_attention(q, k, v, nsub=4)
+    assert out.stride() == q.stride()
+    assert _within_two_ulps(out, mb.pipelined_attention_plain(q, k, v,
+                                                              nsub=4))
+    with pytest.raises(ValueError, match="bfloat16"):
+        mb.pipelined_attention(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError, match="multiple of the kv tile"):
+        mb.pipelined_attention(q[:, :, :192], k[:, :, :192], v[:, :, :192])
+
+
+@pytest.mark.parametrize("dtype,shape,p,atol", [
+    (torch.float32, (1, 2, 64, 32), 8, 2e-5),
+    (torch.float32, (2, 3, 48, 20), 4, 2e-5),
+    (torch.bfloat16, (1, 2, 32, 16), 8, 3e-2),
+    (torch.bfloat16, (1, 2, 96, 64), 2, 3e-2),     # 48 rows a rank: no tile
+    (torch.float32, (1, 2, 64, 32), 1, 2e-5),
+])
+def test_k7_cuda_core_body_matches_plain(cuda, dtype, shape, p, atol):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (_randn(gen, *shape).to(dtype) for _ in range(3))
+    plain = torch.cat(rr.ring_attention_plain(
+        q.chunk(p, 2), k.chunk(p, 2), v.chunk(p, 2)), 2)
+    before = rr.ring_attention_rdma.launches_simple
+    for _ in range(2):
+        out = rr.ring_attention_rdma_sharded(q, k, v, p)
+        torch.cuda.synchronize()
+        assert float((out.float() - plain.float()).abs().max()) <= atol
+    assert rr.ring_attention_rdma.launches_simple == before + 2
+    exact = fa.reference_attention(q, k, v)
+    assert float((out.float() - exact.float()).abs().max()) <= atol
+
+
+@pytest.mark.parametrize("d,s,p", [(64, 512, 4), (128, 1024, 8),
+                                   (128, 256, 1), (64, 384, 2)])
+def test_k7_tensor_core_body_matches_plain(cuda, d, s, p):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (_randn(gen, 2, s, 3 * d).bfloat16().view(2, s, 3, d)
+               .transpose(1, 2) for _ in range(3))
+    shards = [t.chunk(p, 2) for t in (q, k, v)]
+    plain = torch.cat(rr.ring_attention_plain(*shards), 2)
+    before = rr.ring_attention_rdma.launches_tc
+    for _ in range(2):
+        out = rr.ring_attention_rdma_sharded(q, k, v, p)
+        torch.cuda.synchronize()
+        assert _within_two_ulps(out, plain)
+    assert rr.ring_attention_rdma.launches_tc == before + 2
+    if p > 2:       # a rank that skips a step must show
+        bad = torch.cat(rr.ring_attention_rdma(*shards, _fault=(1, 1)), 2)
+        assert not _within_two_ulps(bad, plain)
+        assert _within_two_ulps(rr.ring_attention_rdma_sharded(q, k, v, p),
+                                plain)
+    rr.release_workspaces()
+
+
+def test_k7_rejects_what_it_does_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q = _randn(gen, 1, 2, 64, 32)
+    with pytest.raises(ValueError, match="K7 takes"):
+        rr.ring_attention_rdma_sharded(q.double(), q.double(), q.double(), 2)
+    with pytest.raises(ValueError, match="K7 takes"):
+        big = _randn(gen, 1, 2, 64, 256)
+        rr.ring_attention_rdma_sharded(big, big, big, 2)
+    with pytest.raises(ValueError, match="at most"):
+        rr.ring_attention_rdma_sharded(q, q, q, 32)
