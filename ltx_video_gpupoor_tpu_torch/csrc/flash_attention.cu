@@ -1,23 +1,26 @@
-// K1, K3 and K6: flash attention forward, bf16, for sm_90a.
+// K3: flash attention forward with bounded scores, bf16, for sm_90a.
 //
-// K1 replaces the exact tier of the Pallas TPU kernel
+// Replaces the bounded-score branch (:294-313) of the Pallas TPU kernel
 // ltx_video_gpupoor_tpu/ops/flash_attention.py::_flash_kernel (reached
-// through flash_attention, :412 -> pl.pallas_call :631). K3 replaces the
-// same kernel's bounded-score branch (:294-313) and K6 the head-packed
-// kernel _hp_kernel (:663, reached through flash_attention_hp, :804 ->
-// pl.pallas_call :866); both are described after K1.
+// through flash_attention, :412 -> pl.pallas_call :631). The exact tier of
+// that kernel (K1) and the head-packed kernel (K6) are
+// flash_attention_wgmma.cu.
 //
-// Computes o = softmax(q k^T * scale) v over [B, H, S, D] views (any
-// strides with a unit last stride), D in {64, 128}, any Sq and Skv. Masks:
-// a static kv_valid tail, segment ids (attend iff q_seg == kv_seg and
-// kv_seg > 0) and causal. Rows that see no key return 0, as on the TPU
-// (the running max starts at M_FLOOR, masked scores sit at NEG_INF, so
-// their exp2 underflows to exactly 0 and the sum l stays 0).
+// Computes o = sum_j p_j v_j / sum_j p_j with p = exp2(min(s, sb) - sb), s =
+// q k^T * scale * log2(e) and the fixed offset sb = bound * log2(e), over
+// [B, H, S, D] views (any strides with a unit last stride), D in {64, 128},
+// any Sq and Skv. Masks: a static kv_valid tail, segment ids (attend iff
+// q_seg == kv_seg and kv_seg > 0) and causal. There is no running max, so no
+// per-tile row max, no rescale factor and no rescale of the accumulator. A
+// masked score stays at NEG_INF, whose exp2 is exactly 0 (as on the TPU); the
+// min() keeps a score over the bound finite; a row that sees no key returns
+// 0. The denominator is the plain sum of p in fp32 at D=128 and the sum of
+// the bf16-rounded p at D=64, where the TPU kernel reads it off a ones column
+// of V.
 //
-// What bounds it on an H100: at the LTX-2B shape (S=5280, D=64) the
-// kernel is bound by the tensor cores and by the softmax's exp2 and max
-// work on the CUDA cores, not by memory (each K/V tile is reused by all
-// 64 q rows of the block and all q tiles hit L2).
+// What bounds it on an H100: the tensor cores and the softmax's exp2 work on
+// the CUDA cores, not memory (each K/V tile is reused by all 64 q rows of
+// the block and all q tiles hit L2).
 // Design: one block of 4 warps per (q tile of 64 rows, head, batch); each
 // warp owns 16 q rows. The TPU's sequential kv grid axis becomes a loop
 // over 64-row kv tiles inside the block. Q fragments stay in registers
@@ -27,26 +30,6 @@
 // of QK^T are reused in registers as the A operand of PV. The ragged edge
 // is masked in the kernel, so no sequence padding is needed. This is the
 // simple first version: wgmma, TMA and warp specialisation come later.
-//
-// K3 (template flag BOUNDED) is the same block without its running max:
-// p = exp2(min(s, sb) - sb) with the fixed offset sb = bound * log2(e), so
-// the per-tile row max, its two shuffles, the rescale factor and the
-// rescale of the accumulator are gone and acc += P V. A masked score stays
-// at NEG_INF, whose exp2 is exactly 0 (as on the TPU); the min() keeps a
-// score over the bound finite; a row that sees no key returns 0. The
-// denominator is the plain sum of p in fp32 at D=128 and the sum of the
-// bf16-rounded p at D=64, where the TPU kernel reads it off a ones column
-// of V. What bounds it is what bounds K1, less the max work.
-//
-// K6 is the entry k6_flash_attention_hp_bf16: q, k, v and the output stay
-// in the projections' [B, S, H*D] layout. On the TPU that needed a kernel
-// of its own (a block is 128 lanes wide, so D=64 packs a pair of heads per
-// block and computes their scores through a mix/diff identity). Here a
-// block addresses its head's rows through strides (head D, row H*D or
-// the row stride of a fused q/k/v projection), each row one contiguous 128- or 256-byte segment, so every
-// head's scores are computed directly by the K1 block at any head count;
-// the entry derives the head stride and takes the static kv_valid tail,
-// the TPU kernel's only mask.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,7 +43,6 @@ constexpr int BQ = 64;        // q rows per block: 4 warps x 16
 constexpr int BKV = 64;       // kv rows per tile
 constexpr int NTHREADS = 128;
 constexpr float NEG_INF = -1e30f;
-constexpr float M_FLOOR = -1e20f;
 
 __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -106,11 +88,11 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
 
 // Blocks an SM: at D=128 three (168 registers a thread is the most that
 // lets three 128-thread blocks share the 65536 registers; left alone, the
-// bounded kernel takes 174 and runs two), at D=64 four (128 registers;
+// kernel takes 174 and runs two), at D=64 four (128 registers;
 // told only "three", the compiler spends 140-146 and loses the fourth).
-template <int D, bool BOUNDED>
+template <int D>
 __global__ void __launch_bounds__(NTHREADS, D == 64 ? 4 : 3)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+flash_bounded_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
                  const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
                  int Sq, int Skv,
@@ -165,7 +147,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (kv_valid >= 0 && kv_valid < kv_end) kv_end = kv_valid;
   if (causal && q0 + BQ < kv_end) kv_end = q0 + BQ;
 
-  float m0 = M_FLOOR, m1 = M_FLOOR, l0 = 0.f, l1 = 0.f;
+  float l0 = 0.f, l1 = 0.f;
   float acc[ND][4];
 #pragma unroll
   for (int n = 0; n < ND; ++n) {
@@ -196,8 +178,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
 
-    // scale into the exp2 domain and mask
-    float mx0 = NEG_INF, mx1 = NEG_INF;
+    // scale into the exp2 domain, clamp at the bound, mask; the offset is
+    // fixed: no running max, no rescale
 #pragma unroll
     for (int j = 0; j < NS; ++j) {
 #pragma unroll
@@ -211,60 +193,21 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const int ks = kseg_s[cl];
           ok = ok && ks > 0 && ks == (e < 2 ? qs0 : qs1);
         }
-        if (BOUNDED) {
-          s[j][e] = ok ? fminf(s[j][e] * scale_log2, bound_log2) - bound_log2
-                       : NEG_INF;
-        } else {
-          s[j][e] = ok ? s[j][e] * scale_log2 : NEG_INF;
-        }
-      }
-      if (!BOUNDED) {
-        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+        s[j][e] = ok ? fminf(s[j][e] * scale_log2, bound_log2) - bound_log2
+                     : NEG_INF;
       }
     }
-    if (BOUNDED) {
-      // fixed offset: no running max, no rescale
 #pragma unroll
-      for (int j = 0; j < NS; ++j) {
+    for (int j = 0; j < NS; ++j) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float p = exp2f(s[j][e]);
-          // at D=64 the denominator sums the bf16 p that the product sees
-          if (D == 64) p = __bfloat162float(__float2bfloat16_rn(p));
-          s[j][e] = p;
-        }
-        l0 += s[j][0] + s[j][1];
-        l1 += s[j][2] + s[j][3];
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(s[j][e]);
+        // at D=64 the denominator sums the bf16 p that the product sees
+        if (D == 64) p = __bfloat162float(__float2bfloat16_rn(p));
+        s[j][e] = p;
       }
-    } else {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-      const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);
-      m0 = mn0;
-      m1 = mn1;
-      float ls0 = 0.f, ls1 = 0.f;
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        s[j][0] = exp2f(s[j][0] - mn0);
-        s[j][1] = exp2f(s[j][1] - mn0);
-        s[j][2] = exp2f(s[j][2] - mn1);
-        s[j][3] = exp2f(s[j][3] - mn1);
-        ls0 += s[j][0] + s[j][1];
-        ls1 += s[j][2] + s[j][3];
-      }
-      l0 = l0 * a0 + ls0;  // per-thread partial sums; reduced at the end
-      l1 = l1 * a1 + ls1;
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        acc[n][0] *= a0;
-        acc[n][1] *= a0;
-        acc[n][2] *= a1;
-        acc[n][3] *= a1;
-      }
+      l0 += s[j][0] + s[j][1];
+      l1 += s[j][2] + s[j][3];
     }
 
     // acc += P V, with P taken from the score registers
@@ -309,18 +252,15 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 }  // namespace
 
-namespace {
-
-template <bool BOUNDED>
-int launch_flash(const void* q, const void* k, const void* v, void* o,
-                 const void* q_seg, const void* kv_seg,
-                 int B, int H, int Sq, int Skv, int D,
-                 long long qsb, long long qsh, long long qss,
-                 long long ksb, long long ksh, long long kss,
-                 long long vsb, long long vsh, long long vss,
-                 long long osb, long long osh, long long oss,
-                 int kv_valid, int causal, float scale_log2,
-                 float bound_log2, void* stream) {
+// K3: bound_log2 = score_bound * log2(e)
+extern "C" int k3_flash_attention_bounded_bf16(
+    const void* q, const void* k, const void* v, void* o,
+    const void* q_seg, const void* kv_seg,
+    int B, int H, int Sq, int Skv, int D,
+    int qsb, int qsh, int qss, int ksb, int ksh, int kss,
+    int vsb, int vsh, int vss, int osb, int osh, int oss,
+    int kv_valid, int causal, float scale_log2, float bound_log2,
+    void* stream) {
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* qp = static_cast<const bf16*>(q);
@@ -331,12 +271,12 @@ int launch_flash(const void* q, const void* k, const void* v, void* o,
   const int* ksg = static_cast<const int*>(kv_seg);
   if (Sq <= 0 || B <= 0 || H <= 0) return cudaGetLastError();
   if (D == 64) {
-    flash_fwd_kernel<64, BOUNDED><<<grid, NTHREADS, 0, st>>>(
+    flash_bounded_kernel<64><<<grid, NTHREADS, 0, st>>>(
         qp, kp, vp, op, qsg, ksg, Sq, Skv, qsb, qsh, qss, ksb, ksh, kss,
         vsb, vsh, vss, osb, osh, oss, kv_valid, causal, scale_log2,
         bound_log2);
   } else if (D == 128) {
-    flash_fwd_kernel<128, BOUNDED><<<grid, NTHREADS, 0, st>>>(
+    flash_bounded_kernel<128><<<grid, NTHREADS, 0, st>>>(
         qp, kp, vp, op, qsg, ksg, Sq, Skv, qsb, qsh, qss, ksb, ksh, kss,
         vsb, vsh, vss, osb, osh, oss, kv_valid, causal, scale_log2,
         bound_log2);
@@ -344,48 +284,4 @@ int launch_flash(const void* q, const void* k, const void* v, void* o,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-extern "C" int k1_flash_attention_bf16(
-    const void* q, const void* k, const void* v, void* o,
-    const void* q_seg, const void* kv_seg,
-    int B, int H, int Sq, int Skv, int D,
-    int qsb, int qsh, int qss, int ksb, int ksh, int kss,
-    int vsb, int vsh, int vss, int osb, int osh, int oss,
-    int kv_valid, int causal, float scale_log2, void* stream) {
-  return launch_flash<false>(q, k, v, o, q_seg, kv_seg, B, H, Sq, Skv, D,
-                             qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss,
-                             osb, osh, oss, kv_valid, causal, scale_log2,
-                             0.f, stream);
-}
-
-// K3: bound_log2 = score_bound * log2(e)
-extern "C" int k3_flash_attention_bounded_bf16(
-    const void* q, const void* k, const void* v, void* o,
-    const void* q_seg, const void* kv_seg,
-    int B, int H, int Sq, int Skv, int D,
-    int qsb, int qsh, int qss, int ksb, int ksh, int kss,
-    int vsb, int vsh, int vss, int osb, int osh, int oss,
-    int kv_valid, int causal, float scale_log2, float bound_log2,
-    void* stream) {
-  return launch_flash<true>(q, k, v, o, q_seg, kv_seg, B, H, Sq, Skv, D,
-                            qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss,
-                            osb, osh, oss, kv_valid, causal, scale_log2,
-                            bound_log2, stream);
-}
-
-// K6: q and out [B, S, H*D], k and v [B, Skv, H*D], each with a unit last
-// stride and its own batch and token strides (a slice of a fused q/k/v
-// projection is read in place); head h starts D*h values into a token's row
-extern "C" int k6_flash_attention_hp_bf16(
-    const void* q, const void* k, const void* v, void* o,
-    int B, int S, int Skv, int H, int D,
-    int qsb, int qss, int ksb, int kss, int vsb, int vss, int osb, int oss,
-    int kv_valid, float scale_log2, void* stream) {
-  return launch_flash<false>(q, k, v, o, nullptr, nullptr, B, H, S, Skv, D,
-                             qsb, D, qss, ksb, D, kss, vsb, D, vss,
-                             osb, D, oss, kv_valid, 0, scale_log2, 0.f,
-                             stream);
 }

@@ -37,7 +37,7 @@
 // softmax's exp2/max/round work on the CUDA cores, not by memory: each
 // K/V tile is reused by the 64 q rows of a block and the tiles of a head
 // stay in L2.
-// Design: the K1 layout with int8 operands. One block of 4 warps per (q
+// Design: K3's layout (flash_attention.cu) with int8 operands. One block of 4 warps per (q
 // tile of 64 rows, head, batch); each warp owns 16 q rows whose int8 Q
 // fragments stay in registers. K tiles go to shared memory as rows; both
 // products run on mma.sync m16n8k32 s8 with s32 accumulation. The s32
@@ -46,7 +46,7 @@
 // the scores a thread already holds (columns 8j + 2t + {0,1}) are exactly
 // its A-fragment columns, and V is written transposed ([D][kv], ldmatrix
 // has no 8-bit transpose) in that same permuted order, 4x4 bytes at a
-// time with byte permutes. In the QK tier P.V is K1's bf16 m16n8k16 path.
+// time with byte permutes. In the QK tier P.V is K3's bf16 m16n8k16 path.
 // Simple first version: no wgmma, TMA or warp specialisation.
 
 #include <cuda_bf16.h>
@@ -372,7 +372,7 @@ flash_int8_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
         acc[n][3] += static_cast<float>(pv[3]) * vsc[n][1];
       }
     } else {
-      // QK tier: K1's bf16 P.V, P from the score registers
+      // QK tier: K3's bf16 P.V, P from the score registers
 #pragma unroll
       for (int kk = 0; kk < BKV / 16; ++kk) {
         uint32_t pa[4];

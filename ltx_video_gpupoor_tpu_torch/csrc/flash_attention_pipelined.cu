@@ -17,7 +17,7 @@
 // of those bf16-rounded p (on the TPU a ones column of V collects it).
 //
 // What was chosen here. The TPU's 768 x 2688 blocks answer its VMEM; here a
-// block of 4 warps owns 64 q rows (16 a warp, as K1) and walks kv tiles of
+// block of 4 warps owns 64 q rows (16 a warp, as K3) and walks kv tiles of
 // BKV = 128 rows held in shared memory (K and V, rows padded by 16 bytes),
 // cut into NSUB = 1, 2, 4 or 8 sub-blocks of 128, 64, 32 or 16 rows; 16 is
 // one mma.sync depth of P.V. A 64-row tile (NSUB 1, 2, 4) serves lengths
@@ -30,8 +30,9 @@
 //
 // What bounds it on an H100: as K1 at D=64, the tensor cores and the
 // softmax's exp2 and max work, not memory. Everything else (synchronous
-// tile loads, mma.sync m16n8k16, V fragments read by scalar loads) is K1's,
-// so that the two differ in the order of issue alone.
+// tile loads, mma.sync m16n8k16, V fragments read by scalar loads) is that
+// of flash_attention.cu (K3's block, and K1's before its wgmma redesign), so
+// that the two differ in the order of issue alone.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -45,7 +45,8 @@
 //   peer-mapped pointers; that launch is not written here.
 //
 // Two bodies do the tile math under the one protocol. The tensor-core body
-// (bf16, D 64 or 128, shards that the 64-row tile divides) is K1's: a block
+// (bf16, D 64 or 128, shards that the 64-row tile divides) is that of
+// flash_attention.cu (K3's, and K1's before its wgmma redesign): a block
 // of 4 warps owns 64 q rows, kv tiles of 64 rows go through shared memory,
 // mma.sync m16n8k16 with fp32 accumulation, the softmax in the exp2 domain.
 // The CUDA-core body (fp32 or bf16 in, every product in fp32, one thread a
@@ -189,7 +190,7 @@ __device__ __forceinline__ void load_tile(bf16* dst, const Block& blk, int H,
   }
 }
 
-// One (head, q tile) item against one kv block: K1's loop over 64-row kv
+// One (head, q tile) item against one kv block: K3's loop over 64-row kv
 // tiles, with the running state loaded from and stored to the item's
 // private rows of `state` (m0, m1, l0, l1, acc[...] per thread).
 template <int D>

@@ -38,18 +38,19 @@ F = ctypes.c_float
 SIGNATURES = {
     # q, k, v, out, q_seg, kv_seg, B, H, Sq, Skv, D,
     # q strides (b, h, s), k strides, v strides, out strides,
-    # kv_valid (-1 = none), causal, scale, stream
+    # kv_valid (-1 = none), causal, mask kind (flash_attention.MASK_KINDS),
+    # scale, stream
     "k1_flash_attention_bf16": [P, P, P, P, P, P, I, I, I, I, I,
                                 I, I, I, I, I, I, I, I, I, I, I, I,
-                                I, I, F, P],
-    # K1's arguments, then bound_log2 before the stream
+                                I, I, I, F, P],
+    # K1's arguments without the mask kind, then bound_log2 before the stream
     "k3_flash_attention_bounded_bf16": [P, P, P, P, P, P, I, I, I, I, I,
                                         I, I, I, I, I, I, I, I, I, I, I, I,
                                         I, I, F, F, P],
     # q, k, v, out ([B, S, H*D]), B, S, Skv, H, D, q/k/v/out strides
-    # (batch, token), kv_valid (-1 = none), scale, stream
+    # (batch, token), kv_valid (-1 = none), mask kind, scale, stream
     "k6_flash_attention_hp_bf16": [P, P, P, P, I, I, I, I, I,
-                                   I, I, I, I, I, I, I, I, I, F, P],
+                                   I, I, I, I, I, I, I, I, I, I, F, P],
     # q8, k8, v (int8 or bf16), out, q_seg, kv_seg, q_scale, k_scale,
     # v_scale, B, H, Sq, Skv, D, q/k/v/out strides (b, h, s),
     # ks_block, nks, kv_valid (-1 = none), causal, pv_int8, stream

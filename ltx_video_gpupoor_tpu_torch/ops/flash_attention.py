@@ -7,16 +7,19 @@ Port of ``ltx_video_gpupoor_tpu/ops/flash_attention.py``:
   plain PyTorch version of K1: fp32 scores, segment/causal masks, fully
   masked rows give 0. It also takes the kernel's static ``kv_valid`` tail.
 - :func:`flash_attention` is ``flash_attention`` (:412) in its exact
-  online-softmax tier, backed by ``csrc/flash_attention.cu`` (which
+  online-softmax tier, backed by ``csrc/flash_attention_wgmma.cu`` (which
   replaces ``_flash_kernel``, :160). It takes any sequence length (the
   kernel masks its own ragged edge). With ``score_bound=`` it is the
-  bounded-score tier (:294-313), kernel K3 (the ``BOUNDED`` flag of the
-  same source), whose plain version is :func:`bounded_attention_plain`.
+  bounded-score tier (:294-313), kernel K3 (``csrc/flash_attention.cu``),
+  whose plain version is :func:`bounded_attention_plain`.
 - :func:`flash_attention_hp` is ``flash_attention_hp`` (:804, Pallas
   ``_hp_kernel`` :663), kernel K6: exact attention that reads and writes
-  the projections' ``[B, S, H*D]`` layout; its plain version is
-  :func:`flash_attention_hp_plain`. The 128-padding and the even head
-  count that the TPU kernel needs at D=64 are gone.
+  the projections' ``[B, S, H*D]`` layout, the other entry of K1's source;
+  its plain version is :func:`flash_attention_hp_plain`. The 128-padding
+  and the even head count that the TPU kernel needs at D=64 are gone.
+- :func:`mask_kind` chooses, from a call's static properties, which
+  instance of K1/K6's block runs: the one without mask code, the one that
+  compares columns in the last kv tile only, or the general one.
 - :func:`flash_attention_int8` is the same function with ``qk_int8=True``
   (``pv_int8`` either way): the quantize prologue (:484-533) is
   :func:`int8_prologue`, shared by both versions; the plain version is
@@ -66,6 +69,10 @@ K4_TILE_KV = 64  # K4's kv tile (BKV in csrc/flash_attention_int8.cu)
 # share of the mean |output|
 K4_TILE_FLIPS = 4
 K4_TILE_MEAN_REL = 5e-4
+# K1/K6: the kv tile of csrc/flash_attention_wgmma.cu and the instances of
+# its block by the mask code they carry (the C entry's ``mask_kind``)
+K1_TILE_KV = 128
+MASK_KINDS = ("none", "tail", "general")
 
 
 def _check_seg_pair(q_segment_ids, kv_segment_ids):
@@ -156,6 +163,25 @@ def bounded_attention_plain(
     return o.to(q.dtype)
 
 
+def mask_kind(skv: int, kv_valid: int | None = None, *,
+              segments: bool = False, causal: bool = False) -> str:
+    """Which instance of K1/K6's block a call takes (one of
+    :data:`MASK_KINDS`), from what the call fixes before it runs:
+
+    - ``"general"`` with segment ids or ``causal``: segment ids compare in
+      every kv tile; causal skips the tiles above the diagonal and compares
+      on the diagonal tile;
+    - ``"tail"`` where the keys in sight, ``min(skv, kv_valid)``, end inside
+      a kv tile of :data:`K1_TILE_KV` rows: only that last tile compares
+      columns (the TPU kernel peels the block that straddles ``kv_valid``
+      the same way);
+    - ``"none"`` otherwise: the block carries no mask code at all."""
+    if segments or causal:
+        return "general"
+    kv_end = skv if kv_valid is None else max(0, min(skv, int(kv_valid)))
+    return "tail" if kv_end % K1_TILE_KV else "none"
+
+
 def _check_layout(kernel: str, name: str, t: torch.Tensor, dtype, device):
     if t.dtype != dtype:
         raise ValueError(f"{kernel} takes {str(dtype)[6:]} {name}, got "
@@ -238,16 +264,22 @@ def flash_attention(
             seg_q, seg_kv, b, h, sq, skv, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3],
-            -1 if kv_valid is None else int(kv_valid), int(bool(causal)),
-            ctypes.c_float(float(scale) * LOG2E))
+            -1 if kv_valid is None else max(0, int(kv_valid)),
+            int(bool(causal)))
+    scale_log2 = ctypes.c_float(float(scale) * LOG2E)
     if score_bound is None:
+        if not scale > 0:
+            raise ValueError(f"K1 takes a positive scale, got {scale}")
+        kind = mask_kind(skv, kv_valid, segments=q_segment_ids is not None,
+                         causal=causal)
         code = _lib.library().k1_flash_attention_bf16(
-            *args, _lib.stream_ptr(q.device))
+            *args, MASK_KINDS.index(kind), scale_log2,
+            _lib.stream_ptr(q.device))
         _lib.check(code, "K1 flash_attention launch")
         flash_attention.launches += 1
     else:
         code = _lib.library().k3_flash_attention_bounded_bf16(
-            *args, ctypes.c_float(float(score_bound) * LOG2E),
+            *args, scale_log2, ctypes.c_float(float(score_bound) * LOG2E),
             _lib.stream_ptr(q.device))
         _lib.check(code, "K3 bounded flash_attention launch")
         flash_attention.bounded_launches += 1
@@ -330,12 +362,15 @@ def flash_attention_hp(
 
     if scale is None:
         scale = d ** -0.5
+    if not scale > 0:
+        raise ValueError(f"K6 takes a positive scale, got {scale}")
     out = torch.empty((b, s, hd_total), dtype=q.dtype, device=q.device)
     code = _lib.library().k6_flash_attention_hp_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, s, k.shape[1], heads, d,
         *q.stride()[:2], *k.stride()[:2], *v.stride()[:2], *out.stride()[:2],
-        -1 if kv_valid is None else int(kv_valid),
+        -1 if kv_valid is None else max(0, int(kv_valid)),
+        MASK_KINDS.index(mask_kind(k.shape[1], kv_valid)),
         ctypes.c_float(float(scale) * LOG2E), _lib.stream_ptr(q.device))
     _lib.check(code, "K6 flash_attention_hp launch")
     flash_attention_hp.launches += 1
@@ -686,7 +721,8 @@ def int8_attention_cuda(
         *ops.q8.stride()[:3], *ops.k8.stride()[:3], *ops.v.stride()[:3],
         *out.stride()[:3],
         ops.k_block, ops.k_scale.shape[2],
-        -1 if kv_valid is None else int(kv_valid), int(bool(causal)),
+        -1 if kv_valid is None else max(0, int(kv_valid)),
+        int(bool(causal)),
         int(pv_int8), _lib.stream_ptr(ops.q8.device),
     )
     _lib.check(code, "K4 flash_attention_int8 launch")

@@ -1,7 +1,8 @@
 """Experiment: software-pipelined flash-attention kernel at the LTX shape.
 
 Port of ``tools/mb_selfattn_pipeline.py`` of the JAX package. Hypothesis,
-restated for the card: the production kernel (K1) serializes per kv tile,
+restated for the card: an mma.sync attention block (K1's, when this was
+written; K1 has since moved to wgmma) serializes per kv tile,
 Q.K^T on the tensor cores, then max and exp2 on the CUDA cores and the
 special-function unit, then P.V on the tensor cores. Cutting the kv tile
 into sub-blocks and issuing the next sub-block's Q.K^T before this one's

@@ -2,7 +2,11 @@
 exits nonzero and prints no ``"ok"`` line without a CUDA device, and in a
 directory that holds the script but not the repository. Its --profile
 phase reads device time from a torch.profiler trace, checked here on a
-small synthetic one."""
+small synthetic one. ``--kernels-only`` stops after the kernel phases and
+prints no result line; the default run drives every path and ends with
+it."""
+
+import collections
 
 import json
 import os
@@ -47,7 +51,8 @@ def test_summarize_trace_counts_overlap_once(tmp_path):
         return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur}
 
     trace = {"traceEvents": [
-        ev("kernel", "void flash_fwd_kernel<64, false>(...)", 0.0, 1000.0),
+        ev("kernel", "void (anonymous namespace)::flash_wgmma_kernel<64, 0>"
+           "(...)", 0.0, 1000.0),
         ev("kernel", "void int8_gemm_kernel<1>(...)", 500.0, 1000.0),
         ev("kernel", "sm90_xmma_fprop_implicit_gemm_bf16", 3000.0, 500.0),
         ev("gpu_memcpy", "Memcpy DtoH", 3500.0, 500.0),
@@ -65,10 +70,77 @@ def test_summarize_trace_counts_overlap_once(tmp_path):
                            "PyTorch elementwise and copies": (0.5, 1)}
     # the bounded tier and the prologue's row kernel have groups of their own
     trace["traceEvents"] += [
-        ev("kernel", "void (anonymous namespace)::flash_fwd_kernel<128, true>"
+        ev("kernel", "void (anonymous namespace)::flash_bounded_kernel<128>"
            "(...)", 5000.0, 250.0),
         ev("kernel", "norm_mod_quantize_rows_kernel(...)", 6000.0, 125.0)]
     path.write_text(json.dumps(trace))
     groups = chip_smoke.summarize_trace(str(path))["groups"]
     assert groups["K3 bounded-score flash attention"] == (0.25, 1)
     assert groups["K5 prologue row kernel"] == (0.125, 1)
+
+
+def _stubbed_main(monkeypatch, capsys, argv):
+    """``chip_smoke.main`` with every phase replaced by a stub that records
+    its name: (exit code, the phases in order, the printed lines)."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    ran = []
+    ones = collections.defaultdict(lambda: 1)
+    timed = collections.defaultdict(lambda: (1.0, 1.0))
+    info = collections.defaultdict(lambda: (1.0, "operations", None))
+    results = {
+        "phase_device": ("a card", "a card, 700.00 W"),
+        "phase_build": 1.0, "phase_k1": 0.0, "phase_k2": 0.0,
+        "phase_k4": (0.0, 0.0), "phase_k3": 0.0, "phase_k5": 0.0,
+        "phase_k6": 0.0, "phase_timing": (timed, info),
+        "phase_k8": (0.0, 1), "phase_k7": (0.0, 1),
+        "phase_path": ([ones], object(), object()),
+        "phase_ltx13b": (collections.defaultdict(lambda: ones), object()),
+        "phase_cli": None,
+        "phase_wan": ([ones] * len(chip_smoke.WAN_REQUESTS), object(),
+                      object()),
+    }
+    for name, result in results.items():
+        def stub(*args, _name=name, _result=result, **kwargs):
+            ran.append(_name)
+            return _result
+        monkeypatch.setattr(chip_smoke, name, stub)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    monkeypatch.setattr(torch, "Generator",
+                        lambda device=None: torch._C.Generator("cpu"))
+    code = chip_smoke.main(argv)
+    return code, ran, capsys.readouterr().out.strip().splitlines()
+
+
+KERNEL_PHASES = ["phase_device", "phase_build", "phase_k1", "phase_k2",
+                 "phase_k4", "phase_k3", "phase_k5", "phase_k6",
+                 "phase_timing", "phase_k8", "phase_k7"]
+
+
+def test_kernels_only_stops_before_the_paths(monkeypatch, capsys):
+    code, ran, lines = _stubbed_main(monkeypatch, capsys, ["--kernels-only"])
+    assert code == 0
+    assert ran == KERNEL_PHASES
+    assert not any('"ok"' in ln or '"kernels"' in ln for ln in lines)
+
+
+def test_default_run_drives_every_path_and_ends_with_the_result(
+        monkeypatch, capsys):
+    code, ran, lines = _stubbed_main(monkeypatch, capsys, [])
+    assert code == 0
+    assert ran == KERNEL_PHASES + ["phase_path", "phase_ltx13b", "phase_cli",
+                                   "phase_wan"]
+    assert json.loads(lines[-1]) == {"ok": True, "device": {
+        "platform": "gpu", "kind": "a card", "count": 1}}
+    kernels = json.loads(lines[-2])["kernels"]
+    assert len(kernels) == 9
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    assert all(keys <= set(k) for k in kernels)
+    by_name = {k["name"].split(" (")[0]: k["source"] for k in kernels}
+    assert by_name["flash_attention_hp"].endswith("flash_attention_wgmma.cu")
+    assert [k["source"] for k in kernels
+            if "bounded" in k["name"]][0].endswith("csrc/flash_attention.cu")

@@ -129,6 +129,89 @@ def test_k1_plain_causal_and_kv_valid():
                                rtol=RTOL)
 
 
+def _pad_rows(x, axis, multiple=128, keep=None):
+    """Zero rows up to a 128 multiple, as the JAX dispatch pads; ``keep``
+    first cuts the rows past the 128 multiple that holds ``keep`` of them
+    (the Pallas kernels mask a ``kv_valid`` tail in the last block only;
+    rows that no query sees change nothing)."""
+    if keep is not None:
+        x = np.take(x, range(min(x.shape[axis], -(-keep // multiple)
+                                 * multiple)), axis=axis)
+    pad = -x.shape[axis] % multiple
+    widths = [(0, 0)] * x.ndim
+    widths[axis] = (0, pad)
+    return np.pad(x, widths)
+
+
+# (Sq, Skv, kv_valid): each edge of the CUDA block's 128-row tiles
+K1_TILE_EDGES = [
+    (127, 255, None), (128, 256, None), (129, 257, None), (383, 128, None),
+    (130, 1, None),
+    (256, 512, 500),       # kv_valid inside the last tile
+    (256, 512, 384),       # at a tile edge
+    (256, 512, 300),       # a whole tile short
+]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,skv,kv_valid", K1_TILE_EDGES)
+def test_k1_plain_matches_pallas_interpret_at_tile_edges(sq, skv, kv_valid, d):
+    """K1's plain version at the shapes that land on each mask kind and
+    tile edge of the CUDA block, against the interpreted Pallas kernel fed
+    as the JAX dispatch feeds it (zero rows up to a 128 multiple, the real
+    length as ``kv_valid``); fp32, atol = rtol = 2e-5."""
+    q, k, v = _qkv(40 + sq, 1, 2, sq, skv, d)
+    valid = skv if kv_valid is None else min(skv, kv_valid)
+    ref = jfa.flash_attention(
+        jnp.asarray(_pad_rows(q, 2)),
+        *(jnp.asarray(_pad_rows(a, 2, keep=valid)) for a in (k, v)),
+        kv_valid=valid, block_q=128, block_kv=128, interpret=True)[:, :, :sq]
+    out = tfa.flash_attention(*_t(q, k, v), kv_valid=kv_valid)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL,
+                               rtol=RTOL)
+
+
+def test_k1_plain_sees_no_key_with_kv_valid_zero():
+    q, k, v = _qkv(5, 1, 2, 130, 130, 64)
+    out = tfa.flash_attention(*_t(q, k, v), kv_valid=0)
+    np.testing.assert_array_equal(out.numpy(), 0.0)
+
+
+@pytest.mark.parametrize("name,skv,kv_valid,segments,causal,kind", [
+    # the three models' calls (tokens of one stream; text of 256 or 512)
+    ("LTX-2B self, 704x480x121", 5280, None, False, False, "tail"),
+    ("LTX-2B cross", 256, None, True, False, "general"),
+    ("LTX-13B pass 1 self", 3840, None, False, False, "none"),
+    ("LTX-13B pass 2 self", 15360, None, False, False, "none"),
+    ("LTX-13B cross", 256, None, True, False, "general"),
+    ("Wan self, 832x480x81", 32760, None, False, False, "tail"),
+    ("LTX-2B self, 256x256x9", 128, None, False, False, "none"),
+    # K6: no mask but the static tail
+    ("K6 without kv_valid", 15360, None, False, False, "none"),
+    ("K6 kv_valid inside a tile", 3840, 3800, False, False, "tail"),
+    ("K6 kv_valid at a tile edge", 3840, 3712, False, False, "none"),
+    ("K6 kv_valid past the end", 3840, 5000, False, False, "none"),
+    # edges
+    ("ragged", 1000, None, False, False, "tail"),
+    ("ragged, kv_valid at a tile edge", 1000, 896, False, False, "none"),
+    ("one key", 1, None, False, False, "tail"),
+    ("no key in sight", 512, 0, False, False, "none"),
+    ("causal", 512, None, False, True, "general"),
+    ("causal, ragged", 333, None, False, True, "general"),
+    ("segments and kv_valid", 512, 300, True, False, "general"),
+])
+def test_k1_mask_kind_of_a_call(name, skv, kv_valid, segments, causal, kind):
+    """The host-side choice of the block's instance: no mask code, the
+    column compare in the last kv tile only, or the general masks."""
+    assert tfa.mask_kind(skv, kv_valid, segments=segments,
+                         causal=causal) == kind
+    assert kind in tfa.MASK_KINDS
+    # "none" is only ever chosen where no score needs masking
+    if kind == "none":
+        end = skv if kv_valid is None else min(skv, kv_valid)
+        assert end % tfa.K1_TILE_KV == 0 and not segments and not causal
+
+
 def test_attention_packed_matches_jax():
     from ltx_video_gpupoor_tpu.ops.attention import attention_packed
 
@@ -320,6 +403,27 @@ def test_k6_plain_matches_pallas_interpret(heads, d, s, valid):
                                  interpret=True)
     out = tfa.flash_attention_hp(*_t(q, k, v), heads=heads, kv_valid=valid)
     assert out.shape == (b, s, heads * d)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL,
+                               rtol=RTOL)
+
+
+@pytest.mark.parametrize("heads,d,s,valid", [
+    (2, 64, 127, None), (2, 64, 256, None), (2, 128, 257, None),
+    (3, 128, 384, 256), (2, 64, 384, 255), (2, 128, 512, 300)])
+def test_k6_plain_matches_pallas_interpret_at_tile_edges(heads, d, s, valid):
+    """K6's plain version at the CUDA block's tile edges against the
+    interpreted Pallas kernel on zero rows up to a 128 multiple, the real
+    length (or ``valid``) as its ``kv_valid``; fp32, atol = rtol = 2e-5."""
+    rng = np.random.default_rng(60 + s)
+    q, k, v = (rng.standard_normal((2, s, heads * d)).astype(np.float32)
+               for _ in range(3))
+    kv_valid = s if valid is None else valid
+    ref = jfa.flash_attention_hp(
+        jnp.asarray(_pad_rows(q, 1)),
+        *(jnp.asarray(_pad_rows(a, 1, keep=kv_valid)) for a in (k, v)),
+        heads=heads, kv_valid=kv_valid, block_q=128, block_kv=128,
+        interpret=True)[:, :s]
+    out = tfa.flash_attention_hp(*_t(q, k, v), heads=heads, kv_valid=valid)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL,
                                rtol=RTOL)
 
