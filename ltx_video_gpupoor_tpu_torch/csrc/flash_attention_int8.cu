@@ -11,402 +11,602 @@
 // int8_prologue), shared with the plain version.
 //
 // Inputs are the prologue's int8 q and k ([B, H, S, D], any strides with
-// a unit last one), v int8 (QK+PV tier) or bf16 (QK tier), fp32 q scales
-// [B, H, Sq] with scale*log2(e) folded in, fp32 k scales with one entry
-// per `ks_block` kv rows ([B, H, nks]: per kv block of the JAX kernel in
-// the QK+PV tier, per row in the QK tier), and in the QK+PV tier fp32 v
-// scales [B, H, D] (JAX's v_scale * 127). Masks as in K1: a kv_valid
-// tail, segment ids (attend iff q_seg == kv_seg and kv_seg > 0), causal;
-// rows that see no key return 0. D in {64, 128}, any Sq and Skv.
+// a unit last one, 16-byte aligned), fp32 q scales [B, H, Sq] with
+// scale*log2(e) folded in, and in the QK+PV tier v as V^T [B, H, D, Spad]
+// int8 in the kernel's kv order (ops/flash_attention.py::k4_v_layout, see
+// below), fp32 k scales per kv block of the JAX kernel ([B, H, nks], a
+// block a 128 multiple) and fp32 v scales [B, H, D] (JAX's v_scale * 127);
+// in the QK tier v bf16 [B, H, S, D] and one fp32 k scale a kv row, padded
+// to rows of nks = Spad entries. Masks as in K1: a kv_valid tail, segment
+// ids (attend iff q_seg == kv_seg and kv_seg > 0), causal; rows that see no
+// key return 0. D in {64, 128}, any Sq and Skv.
 //
 // Math per kv tile, as in JAX: s = s32 * (qs * ks) (QK+PV) or
-// (s32 * qs) * ks (QK); online softmax in the exp2 domain with the
-// running max m; in the QK+PV tier p = exp2(s - (m - log2 127)) lies in
-// [0, 127] and rounds half to even to an int8 code p8, and
-// acc = acc * alpha + (p8 . v8) * v_scale. The denominator l sums the
-// fp32 p, or, where JAX's head dim is not a 128 multiple (its ones column
-// of V, "sum_col"), the rounded p: 127 * sum(p8) * SUM_COL_SCALE in the
-// QK+PV tier, sum(bf16(p)) in the QK tier. o = acc / l.
-// One difference by design: JAX updates its running max once per kv
-// block (4096 rows at the Wan shape), this kernel once per 64-row tile,
-// so p is quantized against a different max and the two agree to int8
-// noise, not bit for bit.
+// (s32 * qs) * ks (QK); online softmax in the exp2 domain with the running
+// max m; in the QK+PV tier p = exp2(s - (m - log2 127)) lies in [0, 127] and
+// rounds half to even to an int8 code p8, and acc = acc * alpha + (p8 . v8)
+// * v_scale. The denominator l sums the fp32 p, or, where JAX's head dim is
+// not a 128 multiple (its ones column of V, "sum_col"), the rounded p:
+// 127 * sum(p8) * SUM_COL_SCALE in the QK+PV tier, sum(bf16(p)) in the QK
+// tier. o = acc / l. JAX moves its running max once a kv block (4096 rows
+// at the Wan shape), this kernel once a 128-row tile, so p is quantized
+// against another max and the two agree to int8 noise, not bit for bit.
 //
-// What bounds it on an H100: at the Wan 2.1 1.3B self-attention shape
-// (B=2, H=12, S=32760, D=128) it is bound by the tensor cores and the
-// softmax's exp2/max/round work on the CUDA cores, not by memory: each
-// K/V tile is reused by the 64 q rows of a block and the tiles of a head
-// stay in L2.
-// Design: K3's layout (flash_attention.cu) with int8 operands. One block of 4 warps per (q
-// tile of 64 rows, head, batch); each warp owns 16 q rows whose int8 Q
-// fragments stay in registers. K tiles go to shared memory as rows; both
-// products run on mma.sync m16n8k32 s8 with s32 accumulation. The s32
-// score accumulator's layout is not the int8 A-fragment layout, so P is
-// not staged: the kv order inside each 32-row chunk is permuted so that
-// the scores a thread already holds (columns 8j + 2t + {0,1}) are exactly
-// its A-fragment columns, and V is written transposed ([D][kv], ldmatrix
-// has no 8-bit transpose) in that same permuted order, 4x4 bytes at a
-// time with byte permutes. In the QK tier P.V is K3's bf16 m16n8k16 path.
-// Simple first version: no wgmma, TMA or warp specialisation.
+// What bounds it on an H100: the softmax on the CUDA cores, not the tensor
+// cores. One ex2 a score (16 a clock an SM) takes 6.97 ms at the Wan 2.1
+// self-attention shape (B2 H12 S32760 D128), above the 6.66 ms int8 tensor
+// bound; the rest of a score's work (max, scale, offset, rounding, sums)
+// runs on the FMA and integer pipes beside it. Memory does not bound it.
+//
+// Design: K1's block (flash_attention_wgmma.cu) with int8 products.
+// - 128 q rows a block in two consumer warpgroups of 64; 256 threads,
+//   thread 0 issues every TMA load from inside its warpgroup's loop.
+// - Q.K^T is wgmma m64n128k32 s32.s8.s8 with Q (loaded once) and the K tile
+//   from shared memory, both K-major as the prologue writes them: rows of
+//   128 bytes under the 128-byte swizzle at D=128, of 64 bytes under the
+//   64-byte swizzle at D=64. The s32 scores become floats exactly by the
+//   exponent trick (|s32| < 2**22): bits(s32 + 0x4B400000) - 1.5 * 2**23.
+// - P.V in the QK+PV tier is wgmma m64nDk32 s32.s8.s8 with P from
+//   registers. A thread holds score columns 8j + 2t + {0, 1}; the s8 A
+//   fragment wants 4 consecutive k-bytes 4t..4t+3 (+16) of each 32-wide
+//   k-step. So the kv order inside each 32-row chunk is permuted: logical
+//   column 4t + i (+16) holds kv row 2t + {0, 1, 8, 9}[i] (+16), the
+//   columns a thread already holds, and V arrives as V^T (8-bit wgmma
+//   reads B K-major only) in that order, laid out by the wrapper. A code is
+//   the low byte of bits(p + 1.5 * 2**23): the add rounds half to even.
+//   In the QK tier P.V is K1's bf16 product (transposed-B descriptor).
+// - K, V (and the QK tier's k scales, by a bulk copy) arrive by TMA into a
+//   two-deep ring under the math; Q.K^T of tile j and P.V of tile j - 1 are
+//   issued together and tile j's softmax runs while P.V is in flight.
+// - Instances by mask kind, as K1: none, tail (the last tile compares),
+//   general (segment ids, causal).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr int BQ = 64;        // q rows per block: 4 warps x 16
-constexpr int BKV = 64;       // kv rows per tile
-constexpr int NTHREADS = 128;
-constexpr float NEG_INF = -1e30f;
-constexpr float M_FLOOR = -1e20f;
 constexpr float LOG2_127 = 6.9886846867721655f;
 // the scale that JAX's ones column of V carries into the denominator in
 // the QK+PV tier: float32(float32(1/127)^2 * 127), which is float32(1/127)
 constexpr float SUM_COL_SCALE = 0.007874015718698502f;
+constexpr float MAGIC = 12582912.0f;  // 1.5 * 2**23, bits 0x4B400000
+constexpr uint32_t MAGIC_BITS = 0x4B400000u;
+constexpr int K4_THREADS = 256;
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
+// an s32 of magnitude under 2**22 as a float, exactly
+__device__ __forceinline__ float i2f(uint32_t x) {
+  return __uint_as_float(x + MAGIC_BITS) - MAGIC;
+}
+
+// ---- s8 wgmma -----------------------------------------------------------------
+
+// d (64 x 128 s32) += a (64 x 32 int8, shared, K-major) * b (128 x 32
+// int8, shared, K-major)^T; d is overwritten where scale_d == 0
+__device__ __forceinline__ void wgmma_s8_ss_n128(uint32_t (&d)[64], uint64_t desc_a,
+    uint64_t desc_b, int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// d (64 x 128 s32) += a (64 x 32 int8, registers) * b (128 x 32 int8,
+// shared, K-major)^T
+__device__ __forceinline__ void wgmma_s8_rs_n128(uint32_t (&d)[64], uint32_t a0, uint32_t a1,
+    uint32_t a2, uint32_t a3, uint64_t desc_b, int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
 }
 
-__device__ __forceinline__ uint32_t ld32(const void* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_f(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_h(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// p in [0, 127] -> int8 code, round half to even (jnp.round)
-__device__ __forceinline__ int code8(float p) {
-  return min(max(__float2int_rn(p), 0), 127);
-}
-
-__device__ __forceinline__ uint32_t pack4(int c0, int c1, int c2, int c3) {
-  return static_cast<uint32_t>(c0) | (static_cast<uint32_t>(c1) << 8) |
-         (static_cast<uint32_t>(c2) << 16) | (static_cast<uint32_t>(c3) << 24);
-}
-
-// rows [row0, row0 + 64) of a slice with `ROWB` bytes per row and row
-// stride `ss` bytes into a shared tile of `LDB` bytes per row; rows past
-// `nrows` are zero
-template <int ROWB, int LDB>
-__device__ __forceinline__ void load_rows(uint8_t* dst, const uint8_t* src,
-                                          long long ss, int row0, int nrows) {
-  constexpr int CPR = ROWB / 16;
-  for (int i = threadIdx.x; i < BKV * CPR; i += NTHREADS) {
-    const int r = i / CPR, c = i % CPR;
-    const int gr = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gr < nrows) {
-      val = *reinterpret_cast<const uint4*>(src + gr * ss + c * 16);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LDB + c * 16) = val;
-  }
-}
-
-// an int8 V tile [64 kv, D] -> Vt [D][LDVT] in the permuted kv order: the
-// logical column t*4 + i (+16) of a 32-row chunk holds physical kv row
-// 2t + {0, 1, 8, 9}[i] (+16), the order in which a thread holds its score
-// columns. Each step moves a 4 (kv) x 4 (d) byte block: four 32-bit loads
-// of four kv rows, a byte transpose, four 32-bit stores of four d rows.
-template <int D, int LDVT>
-__device__ __forceinline__ void load_vt(uint8_t* dst, const uint8_t* src,
-                                        long long ss, int row0, int nrows) {
-  constexpr int NQ = BKV / 4;  // logical kv quads
-  for (int i = threadIdx.x; i < NQ * (D / 4); i += NTHREADS) {
-    const int lq = i % NQ, dq = i / NQ;
-    const int rb = (lq >> 2) * 16 + 2 * (lq & 3);  // chunk*32 + hi*16 + 2t
-    const int rows[4] = {rb, rb + 1, rb + 8, rb + 9};
-    uint32_t w[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int gr = row0 + rows[r];
-      w[r] = gr < nrows ? ld32(src + gr * ss + dq * 4) : 0u;
-    }
-    const uint32_t x01l = __byte_perm(w[0], w[1], 0x5140);
-    const uint32_t x01h = __byte_perm(w[0], w[1], 0x7362);
-    const uint32_t x23l = __byte_perm(w[2], w[3], 0x5140);
-    const uint32_t x23h = __byte_perm(w[2], w[3], 0x7362);
-    uint8_t* out = dst + (dq * 4) * LDVT + lq * 4;
-    *reinterpret_cast<uint32_t*>(out) = __byte_perm(x01l, x23l, 0x5410);
-    *reinterpret_cast<uint32_t*>(out + LDVT) = __byte_perm(x01l, x23l, 0x7632);
-    *reinterpret_cast<uint32_t*>(out + 2 * LDVT) =
-        __byte_perm(x01h, x23h, 0x5410);
-    *reinterpret_cast<uint32_t*>(out + 3 * LDVT) =
-        __byte_perm(x01h, x23h, 0x7632);
-  }
+// the same with a 64 x 32 b
+__device__ __forceinline__ void wgmma_s8_rs_n64(uint32_t (&d)[32], uint32_t a0, uint32_t a1,
+    uint32_t a2, uint32_t a3, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
 }
 
 template <int D, bool PV8>
-__global__ void __launch_bounds__(NTHREADS)
-flash_int8_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
-                  const void* __restrict__ vptr, bf16* __restrict__ o,
-                  const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
-                  const float* __restrict__ qscale,
-                  const float* __restrict__ kscale,
-                  const float* __restrict__ vscale,
-                  int Sq, int Skv,
-                  long long qsb, long long qsh, long long qss,
-                  long long ksb, long long ksh, long long kss,
-                  long long vsb, long long vsh, long long vss,
-                  long long osb, long long osh, long long oss,
-                  int ks_block, int nks, int kv_valid, int causal) {
+struct K4Cfg {
+  static constexpr int QK_LAYOUT = D == 128 ? SWIZZLE_128B : SWIZZLE_64B;
+  static constexpr int QK_SBO = 8 * D;  // bytes between 8-row groups
+  static constexpr int Q_BYTES = BQ * D;
+  static constexpr int K_BYTES = BKV * D;
+  // V^T int8 [D x 128 kv] (QK+PV), or V bf16 [128 kv x D] in panels (QK)
+  static constexpr int V_BYTES = PV8 ? D * BKV : BKV * D * 2;
+  static constexpr int KS_BYTES = PV8 ? 0 : BKV * 4;  // a tile's k scales
+  static constexpr int STAGES = 2;
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * K_BYTES;
+  static constexpr int KS_OFF = V_OFF + STAGES * V_BYTES;
+  static constexpr int VSC_OFF = KS_OFF + STAGES * KS_BYTES;
+  static constexpr int BAR_OFFSET = VSC_OFF + (PV8 ? D * 4 : 0);
+  static constexpr int SMEM_BYTES = 1024 + BAR_OFFSET + 8 * (1 + 4 * STAGES);
+};
+
+// sc = Q K^T (s32) for one kv tile, issued and committed, not waited for
+template <int D, bool PV8>
+__device__ __forceinline__ void qk_issue_s8(uint32_t (&sc)[64],
+                                            uint32_t q_rows, uint32_t k_tile) {
+  using C = K4Cfg<D, PV8>;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 32; ++kk) {
+    wgmma_s8_ss_n128(sc, wgmma_desc(q_rows + kk * 32, 16, C::QK_SBO,
+                                    C::QK_LAYOUT),
+                     wgmma_desc(k_tile + kk * 32, 16, C::QK_SBO,
+                                C::QK_LAYOUT), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// pv = P8 . V8 (s32, fresh) for one kv tile: P8 from registers (k-step kk
+// takes logical kv columns 32 kk .. 32 kk + 31), V^T [D x 128] from shared
+// memory; issued and committed, not waited for
+template <int D>
+__device__ __forceinline__ void pv_issue_s8(uint32_t (&pv)[D / 2],
+                                            uint32_t (&p8)[16],
+                                            uint32_t vt_tile) {
+  pin(pv);
+  pin(p8);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BKV / 32; ++kk) {
+    const uint64_t dv = wgmma_desc(vt_tile + kk * 32, 16, 1024);
+    if constexpr (D == 128) {
+      wgmma_s8_rs_n128(pv, p8[4 * kk], p8[4 * kk + 1], p8[4 * kk + 2],
+                       p8[4 * kk + 3], dv, kk > 0);
+    } else {
+      wgmma_s8_rs_n64(pv, p8[4 * kk], p8[4 * kk + 1], p8[4 * kk + 2],
+                      p8[4 * kk + 3], dv, kk > 0);
+    }
+  }
+  wgmma_commit();
+}
+
+// One online-softmax step in the exp2 domain, in place: s becomes p =
+// exp2(s - m) (QK) or exp2(s - (m - log2 127)) (QK+PV) with m the running
+// max; ls0 and ls1 are this thread's sums of the fp32 p; a0 and a1 the
+// factors that the accumulator's two rows owe the new max.
+template <bool PV8>
+__device__ __forceinline__ void softmax_k4(float (&s)[64], float& m0,
+                                           float& m1, float& a0, float& a1,
+                                           float& ls0, float& ls1) {
+  float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+  for (int jn = 0; jn < 16; ++jn) {
+    mx0 = fmaxf(mx0, fmaxf(s[4 * jn], s[4 * jn + 1]));
+    mx1 = fmaxf(mx1, fmaxf(s[4 * jn + 2], s[4 * jn + 3]));
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  a0 = ex2(m0 - mn0);
+  a1 = ex2(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  // the x127 fold: in the QK+PV tier p lives in [0, 127], the int8 grid
+  const float off0 = PV8 ? mn0 - LOG2_127 : mn0;
+  const float off1 = PV8 ? mn1 - LOG2_127 : mn1;
+  ls0 = 0.f;
+  ls1 = 0.f;
+#pragma unroll
+  for (int jn = 0; jn < 16; ++jn) {
+    s[4 * jn] = ex2(s[4 * jn] - off0);
+    s[4 * jn + 1] = ex2(s[4 * jn + 1] - off0);
+    s[4 * jn + 2] = ex2(s[4 * jn + 2] - off1);
+    s[4 * jn + 3] = ex2(s[4 * jn + 3] - off1);
+    ls0 += s[4 * jn] + s[4 * jn + 1];
+    ls1 += s[4 * jn + 2] + s[4 * jn + 3];
+  }
+}
+
+// p in [0, 127] -> int8 codes in the A-fragment order of the s8 P.V:
+// k-step kk takes score tiles 4 kk .. 4 kk + 3; its register 0 holds rows
+// g's codes of tiles 4 kk (elements 0, 1) and 4 kk + 1 (0, 1), register 1
+// the same of row g + 8 (elements 2, 3), registers 2 and 3 tiles 4 kk + 2
+// and 4 kk + 3. With `rounded`, cs0 / cs1 return the sums of the codes.
+template <bool ROUNDED>
+__device__ __forceinline__ void pack_codes(const float (&p)[64],
+                                           uint32_t (&p8)[16], float& cs0,
+                                           float& cs1) {
+  cs0 = 0.f;
+  cs1 = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      // register r: tiles 4 kk + 2 (r >> 1) and + 1, elements 2 (r & 1) + {0, 1}
+      const int j0 = 4 * kk + 2 * (r >> 1), e = 2 * (r & 1);
+      const float c0 = p[4 * j0 + e] + MAGIC, c1 = p[4 * j0 + e + 1] + MAGIC;
+      const float c2 = p[4 * j0 + 4 + e] + MAGIC;
+      const float c3 = p[4 * j0 + 4 + e + 1] + MAGIC;
+      const uint32_t lo = __byte_perm(__float_as_uint(c0), __float_as_uint(c1),
+                                      0x0040);
+      const uint32_t hi = __byte_perm(__float_as_uint(c2), __float_as_uint(c3),
+                                      0x0040);
+      p8[4 * kk + r] = __byte_perm(lo, hi, 0x5410);
+      if (ROUNDED) {
+        const float sum = ((c0 - MAGIC) + (c1 - MAGIC)) +
+                          ((c2 - MAGIC) + (c3 - MAGIC));
+        if (r & 1) cs1 += sum; else cs0 += sum;
+      }
+    }
+  }
+}
+
+// tile j of an operand goes to stage j % STAGES, its full barrier completes
+// phase (j / STAGES) & 1, and so does its empty barrier when every consumer
+// warp has released it
+template <int STAGES>
+__device__ __forceinline__ void ring_wait_empty(uint32_t empty, int j) {
+  if (j >= STAGES) {
+    mbar_wait(empty + 8 * (j % STAGES), ((j / STAGES) & 1) ^ 1);
+  }
+}
+
+template <int D, bool PV8, int MASK>
+__global__ void __launch_bounds__(K4_THREADS, 1)
+flash_int8_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap,
+                        bf16* __restrict__ o, const int* __restrict__ q_seg,
+                        const int* __restrict__ kv_seg,
+                        const float* __restrict__ qscale,
+                        const float* __restrict__ kscale,
+                        const float* __restrict__ vscale, int Sq, int Skv,
+                        long long osb, long long osh, long long oss,
+                        int ks_block, int nks, int kv_end, int causal) {
+  using C = K4Cfg<D, PV8>;
+  constexpr int STAGES = C::STAGES;
   constexpr bool SUM_ROUNDED = D % 128 != 0;  // JAX's sum_col
-  constexpr int LDK = D + 16;     // bytes per shared K row
-  constexpr int LDVT = BKV + 16;  // bytes per shared V^T row (QK+PV)
-  constexpr int LDV = D + 8;      // bf16 per shared V row (QK)
-  constexpr int KD = D / 32;      // k32 steps over the head dim
-  constexpr int ND = D / 8;       // n8 tiles over the head dim
-  constexpr int NS = BKV / 8;     // n8 tiles over the kv tile
-  __shared__ __align__(16) uint8_t Ks[BKV * LDK];
-  __shared__ __align__(16) uint8_t Vt[PV8 ? D * LDVT : 16];
-  __shared__ __align__(16) bf16 Vs[PV8 ? 8 : BKV * LDV];
-  __shared__ int kseg_s[BKV];
-  __shared__ float ksc_s[BKV];
+  extern __shared__ uint8_t smem_raw[];
+
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint8_t* base_ptr = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t sQ = base;
+  const uint32_t sK = base + C::K_OFF;
+  const uint32_t sV = base + C::V_OFF;
+  const uint32_t sKS = base + C::KS_OFF;
+  float* vsc_s = reinterpret_cast<float*>(
+      const_cast<uint8_t*>(base_ptr) + C::VSC_OFF);
+  const uint32_t q_full = base + C::BAR_OFFSET;
+  const uint32_t k_full = q_full + 8;
+  const uint32_t k_empty = k_full + 8 * STAGES;
+  const uint32_t v_full = k_empty + 8 * STAGES;
+  const uint32_t v_empty = v_full + 8 * STAGES;
 
   const int b = blockIdx.z, h = blockIdx.y;
   const long long bh = static_cast<long long>(b) * gridDim.y + h;
   const int q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
-  const int row1 = row0 + 8;
+  const int wg = threadIdx.x >> 7;
 
-  const uint8_t* qb = reinterpret_cast<const uint8_t*>(q) + b * qsb + h * qsh;
-  const uint8_t* kb = reinterpret_cast<const uint8_t*>(k) + b * ksb + h * ksh;
-  const bool has_seg = q_seg != nullptr;
-  int qs0 = 0, qs1 = 0;
-  if (has_seg) {
-    qs0 = row0 < Sq ? q_seg[(long long)b * Sq + row0] : 0;
-    qs1 = row1 < Sq ? q_seg[(long long)b * Sq + row1] : 0;
+  int kv_lim = kv_end;  // columns at or past it are masked for every row
+  if (MASK == MASK_GENERAL && causal && q0 + BQ < kv_lim) kv_lim = q0 + BQ;
+  const int n_tiles = (kv_lim + BKV - 1) / BKV;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, 8);  // one arrival a consumer warp
+      mbar_init(v_empty + 8 * s, 8);
+    }
+    mbar_init_fence();
   }
-  const float qsc0 = row0 < Sq ? qscale[bh * Sq + row0] : 0.f;
-  const float qsc1 = row1 < Sq ? qscale[bh * Sq + row1] : 0.f;
-
-  // Q fragments (m16n8k32 A: rows g / g+8, bytes 4t..4t+3 and +16),
-  // staged through the K tile's shared memory
-  load_rows<D, LDK>(Ks, qb, qss, q0, Sq);
+  if (PV8) {
+    for (int i = threadIdx.x; i < D; i += K4_THREADS) {
+      vsc_s[i] = vscale[bh * D + i];
+    }
+  }
   __syncthreads();
-  uint32_t qf[KD][4];
-  {
-    const uint8_t* r0p = Ks + (warp * 16 + g) * LDK + t * 4;
-    const uint8_t* r1p = r0p + 8 * LDK;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      qf[kk][0] = ld32(r0p + kk * 32);
-      qf[kk][1] = ld32(r1p + kk * 32);
-      qf[kk][2] = ld32(r0p + kk * 32 + 16);
-      qf[kk][3] = ld32(r1p + kk * 32 + 16);
-    }
+
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wg_row0 = q0 + wg * 64;
+  Rows r;
+  r.row0 = wg_row0 + warp * 16 + g;
+  r.row1 = r.row0 + 8;
+  r.qs0 = r.qs1 = 0;
+  r.kv_seg = nullptr;
+  r.Skv = Skv;
+  r.kv_lim = kv_lim;
+  r.causal = causal;
+  if (MASK == MASK_GENERAL && q_seg != nullptr) {
+    r.qs0 = r.row0 < Sq ? q_seg[(long long)b * Sq + r.row0] : 0;
+    r.qs1 = r.row1 < Sq ? q_seg[(long long)b * Sq + r.row1] : 0;
+    r.kv_seg = kv_seg + (long long)b * Skv;
   }
-
-  // per-channel v scales of this thread's output columns (QK+PV)
-  float vsc[PV8 ? ND : 1][2];
-  if constexpr (PV8) {
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      vsc[n][0] = vscale[bh * D + n * 8 + t * 2];
-      vsc[n][1] = vscale[bh * D + n * 8 + t * 2 + 1];
+  const float qsc0 = r.row0 < Sq ? qscale[bh * Sq + r.row0] : 0.f;
+  const float qsc1 = r.row1 < Sq ? qscale[bh * Sq + r.row1] : 0.f;
+  auto needs_mask = [&](int j) {
+    if (MASK == MASK_TAIL) return j == n_tiles - 1;
+    if (MASK == MASK_GENERAL) {
+      return r.kv_seg != nullptr || (j + 1) * BKV > kv_lim ||
+             (causal && (j + 1) * BKV - 1 > wg_row0);
     }
-  }
+    return false;
+  };
+  const bool loads = threadIdx.x == 0;
+  auto load_k = [&](int j) {
+    ring_wait_empty<STAGES>(k_empty, j);
+    const int s = j % STAGES;
+    mbar_expect_tx(k_full + 8 * s, C::K_BYTES + C::KS_BYTES);
+    tma_load_4d(sK + s * C::K_BYTES, &kmap, k_full + 8 * s, 0, j * BKV, h, b);
+    if (!PV8) {
+      bulk_load(sKS + s * C::KS_BYTES, kscale + bh * nks + j * BKV,
+                C::KS_BYTES, k_full + 8 * s);
+    }
+  };
+  auto load_v = [&](int j) {
+    ring_wait_empty<STAGES>(v_empty, j);
+    const int s = j % STAGES;
+    const uint32_t dst = sV + s * C::V_BYTES;
+    mbar_expect_tx(v_full + 8 * s, C::V_BYTES);
+    if (PV8) {
+      tma_load_4d(dst, &vmap, v_full + 8 * s, j * BKV, 0, h, b);
+    } else {
+#pragma unroll
+      for (int p = 0; p < D / 64; ++p) {
+        tma_load_4d(dst + p * PANEL_BYTES, &vmap, v_full + 8 * s, p * 64,
+                    j * BKV, h, b);
+      }
+    }
+  };
+  // the QK+PV tier's k scale of tile j (one kv block's)
+  auto block_scale = [&](int j) {
+    return PV8 ? kscale[bh * nks + (j * BKV) / ks_block] : 0.f;
+  };
+  // the s32 scores of tile j (stage s) as floats in the exp2 domain; ks:
+  // block_scale(j)
+  auto scores = [&](const uint32_t (&sc)[64], float (&sf)[64], float ks,
+                    int s) {
+    if (PV8) {
+      const float f0 = qsc0 * ks, f1 = qsc1 * ks;
+#pragma unroll
+      for (int jn = 0; jn < 16; ++jn) {
+        sf[4 * jn] = i2f(sc[4 * jn]) * f0;
+        sf[4 * jn + 1] = i2f(sc[4 * jn + 1]) * f0;
+        sf[4 * jn + 2] = i2f(sc[4 * jn + 2]) * f1;
+        sf[4 * jn + 3] = i2f(sc[4 * jn + 3]) * f1;
+      }
+    } else {
+      const float* ks = reinterpret_cast<const float*>(
+          base_ptr + C::KS_OFF + s * C::KS_BYTES);
+#pragma unroll
+      for (int jn = 0; jn < 16; ++jn) {
+        const float2 k2 = *reinterpret_cast<const float2*>(ks + jn * 8 + 2 * t);
+        sf[4 * jn] = (i2f(sc[4 * jn]) * qsc0) * k2.x;
+        sf[4 * jn + 1] = (i2f(sc[4 * jn + 1]) * qsc0) * k2.y;
+        sf[4 * jn + 2] = (i2f(sc[4 * jn + 2]) * qsc1) * k2.x;
+        sf[4 * jn + 3] = (i2f(sc[4 * jn + 3]) * qsc1) * k2.y;
+      }
+    }
+  };
 
-  int kv_end = Skv;
-  if (kv_valid >= 0 && kv_valid < kv_end) kv_end = kv_valid;
-  if (causal && q0 + BQ < kv_end) kv_end = q0 + BQ;
-
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   float m0 = M_FLOOR, m1 = M_FLOOR, l0 = 0.f, l1 = 0.f;
-  float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  }
 
-  for (int kv0 = 0; kv0 < kv_end; kv0 += BKV) {
-    __syncthreads();  // every warp is done with the previous tile
-    load_rows<D, LDK>(Ks, kb, kss, kv0, Skv);
-    if constexpr (PV8) {
-      const uint8_t* vb = reinterpret_cast<const uint8_t*>(vptr) +
-                          b * vsb + h * vsh;
-      load_vt<D, LDVT>(Vt, vb, vss, kv0, Skv);
-    } else {
-      const uint8_t* vb = reinterpret_cast<const uint8_t*>(vptr) +
-                          2 * (b * vsb + h * vsh);
-      load_rows<2 * D, 2 * LDV>(reinterpret_cast<uint8_t*>(Vs), vb, 2 * vss,
-                                kv0, Skv);
-    }
-    for (int i = threadIdx.x; i < BKV; i += NTHREADS) {
-      const int c = kv0 + i;
-      kseg_s[i] = has_seg && c < Skv ? kv_seg[(long long)b * Skv + c] : 0;
-      ksc_s[i] = c < Skv ? kscale[bh * nks + c / ks_block] : 0.f;
-    }
-    __syncthreads();
-
-    int s32[NS][4];
+  if (n_tiles > 0) {
+    const uint32_t sQw = sQ + wg * (64 * D);  // this warpgroup's rows
+    // P of the tile whose P.V is next: int8 codes or bf16 pairs
+    uint32_t p[PV8 ? 16 : 32];
+    uint32_t pv[PV8 ? D / 2 : 1];
 #pragma unroll
-    for (int j = 0; j < NS; ++j) s32[j][0] = s32[j][1] = s32[j][2] = s32[j][3] = 0;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        const uint8_t* kp = Ks + (j * 8 + g) * LDK + kk * 32 + t * 4;
-        mma_s8(s32[j], qf[kk], ld32(kp), ld32(kp + 16));
-      }
-    }
-
-    // dequantize into the exp2 domain and mask
-    float s[NS][4];
-    float mx0 = NEG_INF, mx1 = NEG_INF;
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int cl = j * 8 + t * 2 + (e & 1);
-        const int col = kv0 + cl;
-        const int row = e < 2 ? row0 : row1;
-        bool ok = col < kv_end;
-        if (causal) ok = ok && row >= col;
-        if (has_seg) {
-          const int ks = kseg_s[cl];
-          ok = ok && ks > 0 && ks == (e < 2 ? qs0 : qs1);
+    for (int i = 0; i < (PV8 ? D / 2 : 1); ++i) pv[i] = 0u;
+    float a0, a1;
+    // P -> registers and the denominator's step, from the p of one tile
+    auto take_p = [&](float (&sf)[64], float ls0, float ls1) {
+      if constexpr (PV8) {
+        float cs0, cs1;
+        pack_codes<SUM_ROUNDED>(sf, p, cs0, cs1);
+        if (SUM_ROUNDED) {
+          ls0 = (cs0 * 127.f) * SUM_COL_SCALE;
+          ls1 = (cs1 * 127.f) * SUM_COL_SCALE;
         }
-        const float qv = e < 2 ? qsc0 : qsc1;
-        const float sf = static_cast<float>(s32[j][e]);
-        const float val = PV8 ? sf * (qv * ksc_s[cl]) : (sf * qv) * ksc_s[cl];
-        s[j][e] = ok ? val : NEG_INF;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    // x127 fold: in the QK+PV tier p lives in [0, 127], the int8 grid
-    const float off0 = PV8 ? mn0 - LOG2_127 : mn0;
-    const float off1 = PV8 ? mn1 - LOG2_127 : mn1;
-    float ls0 = 0.f, ls1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      s[j][0] = exp2f(s[j][0] - off0);
-      s[j][1] = exp2f(s[j][1] - off0);
-      s[j][2] = exp2f(s[j][2] - off1);
-      s[j][3] = exp2f(s[j][3] - off1);
-    }
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      acc[n][0] *= a0;
-      acc[n][1] *= a0;
-      acc[n][2] *= a1;
-      acc[n][3] *= a1;
-    }
-
-    if constexpr (PV8) {
-      // P as int8 A fragments straight from the score registers: chunk
-      // c covers score tiles 4c..4c+3, logical column t*4 + i is tile
-      // 4c + i/2 element i%2 (rows g: elements 0,1; rows g+8: 2,3)
-      uint32_t pa[BKV / 32][4];
-      int is0 = 0, is1 = 0;
-#pragma unroll
-      for (int c = 0; c < BKV / 32; ++c) {
-        int cd[4][4];
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) cd[jj][e] = code8(s[4 * c + jj][e]);
-          is0 += cd[jj][0] + cd[jj][1];
-          is1 += cd[jj][2] + cd[jj][3];
-        }
-        pa[c][0] = pack4(cd[0][0], cd[0][1], cd[1][0], cd[1][1]);
-        pa[c][1] = pack4(cd[0][2], cd[0][3], cd[1][2], cd[1][3]);
-        pa[c][2] = pack4(cd[2][0], cd[2][1], cd[3][0], cd[3][1]);
-        pa[c][3] = pack4(cd[2][2], cd[2][3], cd[3][2], cd[3][3]);
-      }
-      if constexpr (SUM_ROUNDED) {
-        ls0 = static_cast<float>(is0 * 127) * SUM_COL_SCALE;
-        ls1 = static_cast<float>(is1 * 127) * SUM_COL_SCALE;
       } else {
+        pack_p(sf, p);
+        if (SUM_ROUNDED) {  // l sums the bf16 p that P.V multiplies
+          ls0 = ls1 = 0.f;
 #pragma unroll
-        for (int j = 0; j < NS; ++j) {
-          ls0 += s[j][0] + s[j][1];
-          ls1 += s[j][2] + s[j][3];
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        int pv[4] = {0, 0, 0, 0};
-        const uint8_t* vp = Vt + (n * 8 + g) * LDVT + t * 4;
-#pragma unroll
-        for (int c = 0; c < BKV / 32; ++c) {
-          mma_s8(pv, pa[c], ld32(vp + c * 32), ld32(vp + c * 32 + 16));
-        }
-        acc[n][0] += static_cast<float>(pv[0]) * vsc[n][0];
-        acc[n][1] += static_cast<float>(pv[1]) * vsc[n][1];
-        acc[n][2] += static_cast<float>(pv[2]) * vsc[n][0];
-        acc[n][3] += static_cast<float>(pv[3]) * vsc[n][1];
-      }
-    } else {
-      // QK tier: K3's bf16 P.V, P from the score registers
-#pragma unroll
-      for (int kk = 0; kk < BKV / 16; ++kk) {
-        uint32_t pa[4];
-        pa[0] = pack_f(s[2 * kk][0], s[2 * kk][1]);
-        pa[1] = pack_f(s[2 * kk][2], s[2 * kk][3]);
-        pa[2] = pack_f(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        pa[3] = pack_f(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-        if constexpr (SUM_ROUNDED) {  // l sums the bf16 p that P.V multiplies
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const __nv_bfloat162 pr = *reinterpret_cast<__nv_bfloat162*>(&pa[r]);
+          for (int i = 0; i < 32; ++i) {
+            const __nv_bfloat162 pr = *reinterpret_cast<__nv_bfloat162*>(&p[i]);
             const float sum = __low2float(pr) + __high2float(pr);
-            if (r & 1) ls1 += sum; else ls0 += sum;
+            if (i & 1) ls1 += sum; else ls0 += sum;
           }
         }
-        const bf16* vp = Vs + (kk * 16 + t * 2) * LDV + g;
+      }
+      l0 = l0 * a0 + ls0;
+      l1 = l1 * a1 + ls1;
+    };
+    auto issue_pv = [&](int s) {
+      if constexpr (PV8) {
+        pv_issue_s8<D>(pv, p, sV + s * C::V_BYTES);
+      } else {
+        pv_issue_bf16<D>(acc, p, sV + s * C::V_BYTES);
+      }
+    };
+    // after P.V of a tile has landed: the QK+PV tier adds (p8 . v8) * v
+    // scale; then both take the next tile's factors (1 after the last)
+    auto fold_pv = [&](float f0, float f1) {
+      if constexpr (PV8) {
+        pin(pv);
 #pragma unroll
-        for (int n = 0; n < ND; ++n) {
-          const bf16* vn = vp + n * 8;
-          const uint32_t b0 = pack_h(vn[0], vn[LDV]);
-          const uint32_t b1 = pack_h(vn[8 * LDV], vn[9 * LDV]);
-          mma_bf16(acc[n], pa, b0, b1);
+        for (int n = 0; n < D / 8; ++n) {
+          const float2 vs =
+              *reinterpret_cast<const float2*>(vsc_s + n * 8 + 2 * t);
+          acc[4 * n] = fmaf(i2f(pv[4 * n]), vs.x, acc[4 * n]) * f0;
+          acc[4 * n + 1] = fmaf(i2f(pv[4 * n + 1]), vs.y, acc[4 * n + 1]) * f0;
+          acc[4 * n + 2] = fmaf(i2f(pv[4 * n + 2]), vs.x, acc[4 * n + 2]) * f1;
+          acc[4 * n + 3] = fmaf(i2f(pv[4 * n + 3]), vs.y, acc[4 * n + 3]) * f1;
+        }
+      } else {
+        pin(acc);
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          acc[4 * n] *= f0;
+          acc[4 * n + 1] *= f0;
+          acc[4 * n + 2] *= f1;
+          acc[4 * n + 3] *= f1;
         }
       }
-      if constexpr (!SUM_ROUNDED) {
-#pragma unroll
-        for (int j = 0; j < NS; ++j) {
-          ls0 += s[j][0] + s[j][1];
-          ls1 += s[j][2] + s[j][3];
-        }
+    };
+
+    if (loads) {
+      mbar_expect_tx(q_full, C::Q_BYTES);
+      tma_load_4d(sQ, &qmap, q_full, 0, q0, h, b);
+      for (int j = 0; j < STAGES && j < n_tiles; ++j) {  // the stages are empty
+        load_k(j);
+        load_v(j);
       }
     }
-    l0 = l0 * a0 + ls0;  // per-thread partial sums; reduced at the end
-    l1 = l1 * a1 + ls1;
+
+    // tile 0: scores and softmax; its P.V is issued with tile 1's Q.K^T
+    {
+      uint32_t sc[64];
+      float sf[64], ls0, ls1;
+      const float ks = block_scale(0);
+      mbar_wait(q_full, 0);
+      mbar_wait(k_full, 0);
+      qk_issue_s8<D, PV8>(sc, sQw, sK);
+      wgmma_wait<0>();
+      pin(sc);
+      scores(sc, sf, ks, 0);
+      __syncwarp();  // the warp's reads of the stage's k scales are done
+      if (lane == 0) mbar_arrive(k_empty);
+      if (needs_mask(0)) mask_tile<MASK>(sf, r, 0, t);
+      softmax_k4<PV8>(sf, m0, m1, a0, a1, ls0, ls1);
+      take_p(sf, ls0, ls1);
+    }
+
+    // One step of the loop, for tile j >= 1, as K1's: `masked` says at
+    // compile time whether the tile compares (MASK_ALWAYS), does not
+    // (MASK_NEVER) or finds out (MASK_ASK).
+    auto step = [&](int j, auto masked) {
+      const int s = j % STAGES, sp = (j - 1) % STAGES;
+      // K of tile j - 1 was released in the last iteration, V of tile j - 2
+      // in the one before: their stages take the tiles STAGES further on
+      if (loads && j - 1 + STAGES < n_tiles) load_k(j - 1 + STAGES);
+      if (loads && j >= 2 && j - 2 + STAGES < n_tiles) load_v(j - 2 + STAGES);
+      uint32_t sc[64];
+      float sf[64], ls0, ls1;
+      const float ks = block_scale(j);
+      mbar_wait(k_full + 8 * s, (j / STAGES) & 1);
+      qk_issue_s8<D, PV8>(sc, sQw, sK + s * C::K_BYTES);
+      mbar_wait(v_full + 8 * sp, ((j - 1) / STAGES) & 1);
+      issue_pv(sp);
+      wgmma_wait<1>();  // the scores of tile j are in
+      pin(sc);
+      scores(sc, sf, ks, s);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(k_empty + 8 * s);
+      // tile j's softmax runs under tile j - 1's P.V
+      constexpr int how = decltype(masked)::value;
+      if (how == MASK_ALWAYS || (how == MASK_ASK && needs_mask(j))) {
+        mask_tile<MASK>(sf, r, j * BKV, t);
+      }
+      softmax_k4<PV8>(sf, m0, m1, a0, a1, ls0, ls1);
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(v_empty + 8 * sp);
+      fold_pv(a0, a1);
+      take_p(sf, ls0, ls1);
+    };
+    if (MASK == MASK_GENERAL) {
+      for (int j = 1; j < n_tiles; ++j) step(j, How<MASK_ASK>{});
+    } else {
+      const int n_free = MASK == MASK_TAIL ? n_tiles - 1 : n_tiles;
+      for (int j = 1; j < n_free; ++j) step(j, How<MASK_NEVER>{});
+      if (MASK == MASK_TAIL && n_tiles > 1) {
+        step(n_tiles - 1, How<MASK_ALWAYS>{});
+      }
+    }
+
+    const int sl = (n_tiles - 1) % STAGES;
+    mbar_wait(v_full + 8 * sl, ((n_tiles - 1) / STAGES) & 1);
+    issue_pv(sl);
+    wgmma_wait<0>();
+    fold_pv(1.f, 1.f);
   }
 
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
@@ -417,37 +617,112 @@ flash_int8_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
   const float d1 = l1 > 0.f ? l1 : 1.f;
   bf16* ob = o + b * osb + h * osh;
 #pragma unroll
-  for (int n = 0; n < ND; ++n) {
+  for (int n = 0; n < D / 8; ++n) {
     const int c = n * 8 + t * 2;
-    if (row0 < Sq) {
-      *reinterpret_cast<uint32_t*>(ob + row0 * oss + c) =
-          pack_f(acc[n][0] / d0, acc[n][1] / d0);
+    if (r.row0 < Sq) {
+      *reinterpret_cast<uint32_t*>(ob + r.row0 * oss + c) =
+          pack_f(acc[4 * n] / d0, acc[4 * n + 1] / d0);
     }
-    if (row1 < Sq) {
-      *reinterpret_cast<uint32_t*>(ob + row1 * oss + c) =
-          pack_f(acc[n][2] / d1, acc[n][3] / d1);
+    if (r.row1 < Sq) {
+      *reinterpret_cast<uint32_t*>(ob + r.row1 * oss + c) =
+          pack_f(acc[4 * n + 2] / d1, acc[4 * n + 3] / d1);
     }
   }
 }
 
+// ---- host side ------------------------------------------------------------------
+
+// int8 (D, S, H, B) with byte strides (ss, sh, sb): boxes of [128 rows x D
+// bytes], the 128-byte swizzle at D=128, the 64-byte one at D=64
+bool make_qk_map(CUtensorMap* map, const void* ptr, int D, int S, int H, int B,
+                 long long ss, long long sh, long long sb) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const long long strides[3] = {ss, sh, sb};
+  const cuuint32_t box[4] = {(cuuint32_t)D, 128, 1, 1};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 4, ptr, dims,
+                    strides, box,
+                    D == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                             : CU_TENSOR_MAP_SWIZZLE_64B);
+}
+
+// V^T int8 (Spad, D, H, B) with byte strides (row, sh, sb): boxes of [D
+// rows x 128 kv bytes], 128-byte swizzle
+bool make_vt_map(CUtensorMap* map, const void* ptr, int D, int Spad, int H,
+                 int B, long long row, long long sh, long long sb) {
+  const cuuint64_t dims[4] = {(cuuint64_t)Spad, (cuuint64_t)D, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const long long strides[3] = {row, sh, sb};
+  const cuuint32_t box[4] = {128, (cuuint32_t)D, 1, 1};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 4, ptr, dims,
+                    strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// bf16 V (D, S, H, B) with element strides: K1's panels of [128 x 64]
+bool make_v_map(CUtensorMap* map, const void* ptr, int D, int S, int H, int B,
+                long long ss, long long sh, long long sb) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const long long strides[3] = {ss * 2, sh * 2, sb * 2};
+  const cuuint32_t box[4] = {64, 128, 1, 1};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 4, ptr, dims,
+                    strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+struct Call {
+  const void *q, *k, *v;
+  void* o;
+  const int *q_seg, *kv_seg;
+  const float *qsc, *ksc, *vsc;
+  int B, H, Sq, Skv;
+  long long qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss;
+  int ks_block, nks, kv_end, causal;
+  cudaStream_t stream;
+};
+
+template <int D, bool PV8, int MASK>
+int launch_instance(const Call& c) {
+  CUtensorMap qmap = {}, kmap = {}, vmap = {};
+  if (c.kv_end > 0) {  // with no key in sight the block loads nothing
+    const int spad = (c.Skv + BKV - 1) / BKV * BKV;
+    const bool ok =
+        make_qk_map(&qmap, c.q, D, c.Sq, c.H, c.B, c.qss, c.qsh, c.qsb) &&
+        make_qk_map(&kmap, c.k, D, c.Skv, c.H, c.B, c.kss, c.ksh, c.ksb) &&
+        (PV8 ? make_vt_map(&vmap, c.v, D, spad, c.H, c.B, c.vss, c.vsh, c.vsb)
+             : make_v_map(&vmap, c.v, D, c.Skv, c.H, c.B, c.vss, c.vsh,
+                          c.vsb));
+    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = flash_int8_wgmma_kernel<D, PV8, MASK>;
+  constexpr int smem = K4Cfg<D, PV8>::SMEM_BYTES;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((c.Sq + BQ - 1) / BQ, c.H, c.B);
+  kernel<<<grid, K4_THREADS, smem, c.stream>>>(
+      qmap, kmap, vmap, static_cast<bf16*>(c.o), c.q_seg, c.kv_seg, c.qsc,
+      c.ksc, c.vsc, c.Sq, c.Skv, c.osb, c.osh, c.oss, c.ks_block, c.nks,
+      c.kv_end, c.causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D, bool PV8>
-void launch(dim3 grid, cudaStream_t st, const void* q, const void* k,
-            const void* v, void* o, const void* q_seg, const void* kv_seg,
-            const void* qsc, const void* ksc, const void* vsc, int Sq, int Skv,
-            int qsb, int qsh, int qss, int ksb, int ksh, int kss,
-            int vsb, int vsh, int vss, int osb, int osh, int oss,
-            int ks_block, int nks, int kv_valid, int causal) {
-  flash_int8_kernel<D, PV8><<<grid, NTHREADS, 0, st>>>(
-      static_cast<const int8_t*>(q), static_cast<const int8_t*>(k), v,
-      static_cast<bf16*>(o), static_cast<const int*>(q_seg),
-      static_cast<const int*>(kv_seg), static_cast<const float*>(qsc),
-      static_cast<const float*>(ksc), static_cast<const float*>(vsc), Sq, Skv,
-      qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss, ks_block,
-      nks, kv_valid, causal);
+int launch_kind(const Call& c, int mask_kind) {
+  if (mask_kind == MASK_NONE) return launch_instance<D, PV8, MASK_NONE>(c);
+  if (mask_kind == MASK_TAIL) return launch_instance<D, PV8, MASK_TAIL>(c);
+  return launch_instance<D, PV8, MASK_GENERAL>(c);
 }
 
 }  // namespace
 
+// q8, k8 [B, H, S, D] int8 with element strides (b, h, s); v: QK+PV tier
+// V^T [B, H, D, Spad] int8 in the kernel's kv order (Spad = Skv rounded up
+// to 128) with strides (b, h, d), QK tier bf16 [B, H, S, D] with strides
+// (b, h, s); out bf16 with strides (b, h, s). k scales: QK+PV tier one per
+// `ks_block` kv rows (a 128 multiple), nks a (b, h) row; QK tier one a kv
+// row (ks_block 1) in rows of nks = Spad entries. kv_valid -1 = none;
+// mask_kind 0 none, 1 tail, 2 general (ops/flash_attention.py::mask_kind);
+// a kind that masks less than the call needs is refused.
 extern "C" int k4_flash_attention_int8(
     const void* q, const void* k, const void* v, void* o,
     const void* q_seg, const void* kv_seg,
@@ -456,28 +731,31 @@ extern "C" int k4_flash_attention_int8(
     int qsb, int qsh, int qss, int ksb, int ksh, int kss,
     int vsb, int vsh, int vss, int osb, int osh, int oss,
     int ks_block, int nks, int kv_valid, int causal, int pv_int8,
-    void* stream) {
+    int mask_kind, void* stream) {
   if (Sq <= 0 || B <= 0 || H <= 0) return cudaGetLastError();
-  if (ks_block <= 0 || (pv_int8 && v_scale == nullptr)) {
+  const int spad = (Skv + BKV - 1) / BKV * BKV;
+  if (pv_int8 ? (v_scale == nullptr || ks_block <= 0 || ks_block % BKV != 0)
+              : (ks_block != 1 || nks != spad)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define K4_ARGS                                                              \
-  grid, st, q, k, v, o, q_seg, kv_seg, q_scale, k_scale, v_scale, Sq, Skv,   \
-      qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss, ks_block,  \
-      nks, kv_valid, causal
-  if (D == 64 && pv_int8) {
-    launch<64, true>(K4_ARGS);
-  } else if (D == 64) {
-    launch<64, false>(K4_ARGS);
-  } else if (D == 128 && pv_int8) {
-    launch<128, true>(K4_ARGS);
-  } else if (D == 128) {
-    launch<128, false>(K4_ARGS);
-  } else {
+  Call c = {q, k, v, o, static_cast<const int*>(q_seg),
+            static_cast<const int*>(kv_seg),
+            static_cast<const float*>(q_scale),
+            static_cast<const float*>(k_scale),
+            static_cast<const float*>(v_scale), B, H, Sq, Skv,
+            qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss,
+            ks_block, nks, Skv, causal, static_cast<cudaStream_t>(stream)};
+  if (kv_valid >= 0 && kv_valid < c.kv_end) c.kv_end = kv_valid;
+  int need = MASK_NONE;
+  if (c.kv_end % BKV != 0) need = MASK_TAIL;
+  if (q_seg != nullptr || causal) need = MASK_GENERAL;
+  if (mask_kind < need || mask_kind > MASK_GENERAL ||
+      (q_seg == nullptr) != (kv_seg == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef K4_ARGS
-  return static_cast<int>(cudaGetLastError());
+  if (D == 64 && pv_int8) return launch_kind<64, true>(c, mask_kind);
+  if (D == 64) return launch_kind<64, false>(c, mask_kind);
+  if (D == 128 && pv_int8) return launch_kind<128, true>(c, mask_kind);
+  if (D == 128) return launch_kind<128, false>(c, mask_kind);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -55,27 +55,9 @@
 //   D=64 with a producer (384 threads), 154 without, 186 at D=128 (256
 //   threads); no spills; one block an SM (145 and 161 KB of shared memory).
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
-
-constexpr int BQ = 128;        // q rows a block: 2 warpgroups x 64
-constexpr int BKV = 128;       // kv rows a tile
-constexpr int PANEL_BYTES = 128 * 128;  // 128 rows x 64 bf16, 128B-swizzled
-constexpr float NEG_INF = -1e30f;
-constexpr float M_FLOOR = -1e20f;
-constexpr int MASK_NONE = 0, MASK_TAIL = 1, MASK_GENERAL = 2;
-// whether one step of the kv loop compares: see `step` in the kernel
-constexpr int MASK_NEVER = 0, MASK_ALWAYS = 1, MASK_ASK = 2;
-template <int HOW>
-struct How {
-  static constexpr int value = HOW;
-};
 
 // One schedule runs in two layouts of the block, because of registers. The
 // schedule keeps 64 (scores, written by the Q K^T in flight) + 32 (P, read by
@@ -106,65 +88,7 @@ struct Cfg {
   static constexpr int SMEM_BYTES = 1024 + BAR_OFFSET + 8 * (1 + 4 * STAGES);
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---- mbarriers ------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-// Wait until the phase of `parity` has completed. A wait that outlasts two
-// seconds traps: a fault shows as a failed launch, not as a hang.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  uint32_t spins = 0;
-  unsigned long long t0 = 0;
-  while (true) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if ((++spins & 1023u) == 0) {
-      unsigned long long now;
-      asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
-      if (t0 == 0) t0 = now;
-      if (now - t0 > 2000000000ull) __trap();
-    }
-  }
-}
-
 // ---- TMA --------------------------------------------------------------------
-
-// one [128 rows x 64 values] box at (c0, row, head, batch) into a panel
-__device__ __forceinline__ void tma_load_panel(uint32_t dst,
-                                               const CUtensorMap* map,
-                                               uint32_t bar, int c0, int row,
-                                               int head, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
-         "r"(row), "r"(head), "r"(batch)
-      : "memory");
-}
 
 template <int D>
 __device__ __forceinline__ void tma_load_tile(uint32_t dst,
@@ -174,47 +98,11 @@ __device__ __forceinline__ void tma_load_tile(uint32_t dst,
   mbar_expect_tx(bar, Cfg<D>::TILE_BYTES);
 #pragma unroll
   for (int p = 0; p < Cfg<D>::PANELS; ++p) {
-    tma_load_panel(dst + p * PANEL_BYTES, map, bar, p * 64, row, head, batch);
+    tma_load_4d(dst + p * PANEL_BYTES, map, bar, p * 64, row, head, batch);
   }
 }
 
 // ---- wgmma ------------------------------------------------------------------
-
-// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets in 16-byte units, layout type 1 in bits 62-63.
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// Pins registers that a wgmma reads or writes on one side of its fence or
-// wait: the compiler may not move their ordinary uses across this point.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
-}
 
 // d (64 x 128 fp32) = a (64 x 16 bf16, shared, K-major) * b (128 x 16 bf16,
 // shared, K-major)^T, added to d where scale_d != 0
@@ -254,92 +142,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-// d (64 x 128) += a (64 x 16 bf16, registers) * b (16 x 128 bf16, shared,
-// N-contiguous: the transposed-B form)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], uint32_t a0, uint32_t a1,
-    uint32_t a2, uint32_t a3, uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31, "
-      " %32, %33, %34, %35, %36, %37, %38, %39, "
-      " %40, %41, %42, %43, %44, %45, %46, %47, "
-      " %48, %49, %50, %51, %52, %53, %54, %55, "
-      " %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
-}
-
-// the same with a 16 x 64 b
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], uint32_t a0, uint32_t a1,
-    uint32_t a2, uint32_t a3, uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// two floats -> bf16x2, the first in the low half
-__device__ __forceinline__ uint32_t pack_f(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // ---- the block ----------------------------------------------------------------
-
-// named barriers 1 and 2 hand the tensor cores from one consumer warpgroup
-// to the other (0 is __syncthreads')
-__device__ __forceinline__ void bar_sync(int id) {
-  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
-}
 
 // sc = Q K^T for one kv tile, issued and committed, not waited for
 template <int D>
@@ -353,62 +156,6 @@ __device__ __forceinline__ void qk_issue(float (&sc)[64], uint32_t q_rows,
                   wgmma_desc(k_tile + off, 16, 1024), kk > 0);
   }
   wgmma_commit();
-}
-
-// acc += P V for one kv tile, P from registers (k-step kk takes kv rows
-// 16 kk .. 16 kk + 15), issued and committed, not waited for
-template <int D>
-__device__ __forceinline__ void pv_issue(float (&acc)[D / 2],
-                                         uint32_t (&p)[32], uint32_t v_tile) {
-  pin(acc);
-  pin(p);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < BKV / 16; ++kk) {
-    const uint64_t dv = wgmma_desc(v_tile + kk * 2048, PANEL_BYTES, 1024);
-    if constexpr (D == 128) {
-      wgmma_rs_n128(acc, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
-                    p[4 * kk + 3], dv, 1);
-    } else {
-      wgmma_rs_n64(acc, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
-                   p[4 * kk + 3], dv, 1);
-    }
-  }
-  wgmma_commit();
-}
-
-// what a consumer thread knows of its two rows and of the call's masks
-struct Rows {
-  int row0, row1, qs0, qs1;
-  const int* kv_seg;  // this batch row's kv segment ids, or null
-  int Skv, kv_lim, causal;
-};
-
-// masked scores go to NEG_INF
-template <int MASK>
-__device__ __forceinline__ void mask_tile(float (&sc)[64], const Rows& r,
-                                          int kv0, int t) {
-#pragma unroll
-  for (int jn = 0; jn < 16; ++jn) {
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int col = kv0 + jn * 8 + t * 2 + c;
-      bool ok0 = col < r.kv_lim, ok1 = ok0;
-      if (MASK == MASK_GENERAL) {
-        if (r.causal) {
-          ok0 = ok0 && r.row0 >= col;
-          ok1 = ok1 && r.row1 >= col;
-        }
-        if (r.kv_seg != nullptr) {
-          const int ks = col < r.Skv ? r.kv_seg[col] : 0;
-          ok0 = ok0 && ks > 0 && ks == r.qs0;
-          ok1 = ok1 && ks > 0 && ks == r.qs1;
-        }
-      }
-      if (!ok0) sc[4 * jn + c] = NEG_INF;
-      if (!ok1) sc[4 * jn + 2 + c] = NEG_INF;
-    }
-  }
 }
 
 // One online-softmax step in the exp2 domain, in place: sc becomes p =
@@ -445,16 +192,6 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], float c,
   }
   l0 = l0 * a0 + ls0;
   l1 = l1 * a1 + ls1;
-}
-
-// p rounded to bf16 in the A-fragment order of the P V product
-__device__ __forceinline__ void pack_p(const float (&sc)[64],
-                                       uint32_t (&p)[32]) {
-#pragma unroll
-  for (int jn = 0; jn < 16; ++jn) {
-    p[2 * jn] = pack_f(sc[4 * jn], sc[4 * jn + 1]);
-    p[2 * jn + 1] = pack_f(sc[4 * jn + 2], sc[4 * jn + 3]);
-  }
 }
 
 // Tile j of an operand goes to stage j % STAGES; its full barrier completes
@@ -511,8 +248,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       mbar_init(k_empty + 8 * s, 8);  // one arrival a consumer warp
       mbar_init(v_empty + 8 * s, 8);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -568,7 +304,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     uint32_t p[32];
     float a0, a1;
     constexpr bool pingpong = PRODUCER;
-    if (pingpong && wg == 1) bar_arrive(1);  // warpgroup 0 goes first
+    if (pingpong && wg == 1) bar_arrive(1, 256);  // warpgroup 0 goes first
     if (loads) tma_load_tile<D>(sQ, &qmap, q_full, q0, h, b);
     for (int j = 0; j < STAGES && j < n_tiles; ++j) {  // the stages are empty
       if (loads) refill<D>(sK, k_full, k_empty, &kmap, j, h, b);
@@ -605,11 +341,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       }
       float sc[64];
       mbar_wait(k_full + 8 * s, (j / STAGES) & 1);
-      if (pingpong) bar_sync(1 + wg);
+      if (pingpong) bar_sync(1 + wg, 256);
       qk_issue<D>(sc, sQw, sK + s * C::TILE_BYTES);
       mbar_wait(v_full + 8 * sp, ((j - 1) / STAGES) & 1);
-      pv_issue<D>(acc, p, sV + sp * C::TILE_BYTES);
-      if (pingpong) bar_arrive(2 - wg);
+      pv_issue_bf16<D>(acc, p, sV + sp * C::TILE_BYTES);
+      if (pingpong) bar_arrive(2 - wg, 256);
       wgmma_wait<1>();  // the scores of tile j are in
       pin(sc);
       if (lane == 0) mbar_arrive(k_empty + 8 * s);
@@ -645,7 +381,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
     const int sl = (n_tiles - 1) % STAGES;
     mbar_wait(v_full + 8 * sl, ((n_tiles - 1) / STAGES) & 1);
-    pv_issue<D>(acc, p, sV + sl * C::TILE_BYTES);
+    pv_issue_bf16<D>(acc, p, sV + sl * C::TILE_BYTES);
     wgmma_wait<0>();
     pin(acc);
   }
@@ -673,49 +409,17 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
 // ---- host side ------------------------------------------------------------------
 
-typedef CUresult (*EncodeTiledFn)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is not a runtime call: its address is taken through
-// the runtime, so that the library links without libcuda
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess) {
-      cudaGetLastError();
-      p = nullptr;
-    }
-    return reinterpret_cast<EncodeTiledFn>(p);
-  }();
-  return fn;
-}
-
 // (D, S, H, B) bf16 with element strides (1, ss, sh, sb); boxes of one
 // panel; rows past S read as 0. The stride of a one-long axis is never used,
 // so it is set to one that always encodes.
 bool make_map(CUtensorMap* map, const void* ptr, int D, int S, int H, int B,
               long long ss, long long sh, long long sb) {
-  EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
                               (cuuint64_t)B};
-  const cuuint64_t row = (cuuint64_t)D * 2;
-  const cuuint64_t strides[3] = {S > 1 ? (cuuint64_t)ss * 2 : row,
-                                 H > 1 ? (cuuint64_t)sh * 2 : row,
-                                 B > 1 ? (cuuint64_t)sb * 2 : row};
+  const long long strides[3] = {ss * 2, sh * 2, sb * 2};
   const cuuint32_t box[4] = {64, 128, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 4, ptr, dims,
+                    strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 struct Call {

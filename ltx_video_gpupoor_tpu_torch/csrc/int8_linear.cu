@@ -11,30 +11,40 @@
 //   y   = acc * s_x * s_w (+ bias)                   fp32, cast to x's dtype
 // (the TPU kernel floors amax at 1e-6 and does not clip).
 //
-// What bounds it on an H100: at the LTX-2B shapes (M = 3 x 5280, K and N
-// of 2048 to 8192) the GEMM does 64 to 256 int8 operations per byte it
-// reads, so it is bound by the tensor cores; the quantize pass reads the
-// activation once and writes a quarter of it, so it is bound by memory.
+// What bounds it on an H100: at the main path's shapes (M of 3840 to 65520,
+// K and N of 1536 to 16384) the product does hundreds to thousands of int8
+// operations per byte it moves, so the tensor cores bound it (1979 TOP/s);
+// the quantize pass reads the activation once and writes a quarter of it,
+// so it is bound by memory.
+//
 // Design: two launches. k2_quantize_rows gives one block to each row, so
 // the row's absmax needs no cross-block reduction (the TPU kernel got the
-// same by holding the full K in VMEM). k2_int8_gemm computes a 128x128
-// output tile per block of 8 warps over 64-byte K steps staged in padded
-// shared memory (conflict-free fragment reads), on mma.sync m16n8k32
-// s8.s8.s32, and applies the scale/bias epilogue in registers, so the
-// int32 accumulator never reaches device memory (out_mode 0 writes it, for
-// the exactness check only). Weights are stored [N, K] row-major (torch's
-// [out, in]), which is the column-major B operand the instruction reads.
-// M and N are masked in the kernel; K must be a multiple of 16 so that each
-// 16-byte load is either wholly inside a row or wholly past its end.
-// This is the simple first version: no cp.async pipeline, no wgmma.
+// same by holding the full K in VMEM); folding it into the GEMM would read
+// each row once per column tile. k2_int8_gemm (also K5's product) is a
+// Hopper GEMM:
+// - One block computes a 128 x 256 output tile in two consumer warpgroups
+//   of 64 rows, on wgmma.mma_async m64n256k32 s32.s8.s8. 8-bit wgmma reads
+//   both operands K-major, and x_q [M, K] and the weights [N, K] (torch's
+//   [out, in]) are K-major already: nothing is rearranged.
+// - Operands arrive by TMA: one 2-D tensor map each for x_q and w, the
+//   128-byte swizzle, a k-step of 128 bytes (one swizzle span), into a ring
+//   of four 48 KB stages, each with a full and an empty mbarrier. Thread 0
+//   issues the loads from inside its warpgroup's loop, as K1 does at D=128:
+//   the 64 x 256 s32 accumulator takes 128 registers a thread, which a
+//   third (producer) warpgroup would cut to 168 in all. TMA's zero fill
+//   covers the ragged M, N and K edges; K % 16 == 0 is TMA's stride rule.
+// - The tiles are walked in groups of eight row tiles, so that a wave of
+//   132 blocks reads a few MB of x_q and w and keeps them in L2.
+// - Epilogue through shared memory: the accumulator goes to the drained
+//   ring as int32 rows (padded to 1056 bytes, conflict-free), then each
+//   thread reads 4 columns of a row, applies acc * s_x * s_w (+ bias) in
+//   that order (no FMA: the plain version's roundings), and stores 16
+//   bytes (s32, fp32) or 8 (bf16) a thread, rows masked at M, columns at N.
+//   out_mode 0 writes the int32 accumulator, for the exactness check only.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
 
 __device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -76,110 +86,256 @@ __global__ void quantize_rows_kernel(const T* __restrict__ x, int K,
   if (threadIdx.x == 0) sx[row] = s;
 }
 
-constexpr int BM = 128, BN = 128, BK = 64;
-constexpr int LDS = BK + 16;  // padded row: 80 bytes = 20 words
-constexpr int GEMM_THREADS = 256;
-constexpr int MT = 4, NT = 4;  // per warp: 4 m16 x 4 n8 tiles = 64 x 32
+constexpr int GBM = 128, GBN = 256;   // output tile
+constexpr int GBK = 128;              // bytes of K a stage: one swizzle span
+constexpr int G_STAGES = 4;
+constexpr int G_THREADS = 256;        // two consumer warpgroups
+constexpr int G_GROUP = 8;            // row tiles walked together
+constexpr int A_BYTES = GBM * GBK;    // 16 KB
+constexpr int B_BYTES = GBN * GBK;    // 32 KB
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int G_BAR_OFFSET = G_STAGES * STAGE_BYTES;
+constexpr int G_SMEM = 1024 + G_BAR_OFFSET + 8 * 2 * G_STAGES;
+constexpr int ACC_PITCH = GBN * 4 + 32;  // bytes of a staged int32 row
+static_assert(2 * 64 * ACC_PITCH <= G_BAR_OFFSET, "staging fits the ring");
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
+// d (64 x 256 s32) += a (64 x 32 int8, shared, K-major) * b (256 x 32
+// int8, shared, K-major)^T; d is overwritten where scale_d == 0
+__device__ __forceinline__ void wgmma_s8_ss_n256(uint32_t (&d)[128], uint64_t desc_a,
+    uint64_t desc_b, int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63, "
+      " %64, %65, %66, %67, %68, %69, %70, %71, "
+      " %72, %73, %74, %75, %76, %77, %78, %79, "
+      " %80, %81, %82, %83, %84, %85, %86, %87, "
+      " %88, %89, %90, %91, %92, %93, %94, %95, "
+      " %96, %97, %98, %99, %100, %101, %102, %103, "
+      " %104, %105, %106, %107, %108, %109, %110, %111, "
+      " %112, %113, %114, %115, %116, %117, %118, %119, "
+      " %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]),
+        "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]),
+        "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),
+        "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
+        "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]),
+        "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]),
+        "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-__device__ __forceinline__ uint32_t lds32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// rows [r0, r0 + 128) x bytes [k0, k0 + 64) of a [rows, K] int8 matrix
-__device__ __forceinline__ void load_tile(int8_t* dst, const int8_t* src,
-                                          int rows, int K, int r0, int k0) {
-  for (int i = threadIdx.x; i < BM * (BK / 16); i += GEMM_THREADS) {
-    const int r = i >> 2, c = i & 3;
-    const int gr = r0 + r, gk = k0 + c * 16;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gr < rows && gk < K) {
-      val = *reinterpret_cast<const uint4*>(src + (long long)gr * K + gk);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LDS + c * 16) = val;
-  }
+// x_q tile kt of rows m0.. and w tile kt of rows n0.. into stage kt % STAGES
+__device__ __forceinline__ void gemm_refill(uint32_t ring, uint32_t full,
+                                            uint32_t empty,
+                                            const CUtensorMap* amap,
+                                            const CUtensorMap* bmap, int kt,
+                                            int m0, int n0) {
+  const int s = kt % G_STAGES;
+  if (kt >= G_STAGES) mbar_wait(empty + 8 * s, ((kt / G_STAGES) & 1) ^ 1);
+  const uint32_t dst = ring + s * STAGE_BYTES;
+  mbar_expect_tx(full + 8 * s, STAGE_BYTES);
+  tma_load_2d(dst, amap, full + 8 * s, kt * GBK, m0);
+  tma_load_2d(dst + A_BYTES, bmap, full + 8 * s, kt * GBK, n0);
 }
 
 template <int MODE>  // 0: int32 accumulator, 1: bf16, 2: fp32
-__global__ void __launch_bounds__(GEMM_THREADS)
-int8_gemm_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ w,
-                 int M, int N, int K, const float* __restrict__ sx,
-                 const float* __restrict__ sw, const float* __restrict__ bias,
-                 void* __restrict__ out) {
-  __shared__ __align__(16) int8_t As[BM * LDS];
-  __shared__ __align__(16) int8_t Bs[BN * LDS];
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+__global__ void __launch_bounds__(G_THREADS, 1)
+int8_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
+                       const __grid_constant__ CUtensorMap bmap, int M, int N,
+                       int K, const float* __restrict__ sx,
+                       const float* __restrict__ sw,
+                       const float* __restrict__ bias, void* __restrict__ out) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* ring_ptr = smem_raw + (ring - smem_u32(smem_raw));
+  const uint32_t full = ring + G_BAR_OFFSET;
+  const uint32_t empty = full + 8 * G_STAGES;
+
+  // grouped walk: G_GROUP row tiles sweep every column tile together
+  const int mt = (M + GBM - 1) / GBM, nt = (N + GBN - 1) / GBN;
+  const int per_group = G_GROUP * nt;
+  const int group = blockIdx.x / per_group, in_group = blockIdx.x % per_group;
+  const int first = group * G_GROUP;
+  const int rows_in_group = min(mt - first, G_GROUP);
+  const int m0 = (first + in_group % rows_in_group) * GBM;
+  const int n0 = (in_group / rows_in_group) * GBN;
+  const int nk = (K + GBK - 1) / GBK;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < G_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);  // one arrival a consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const bool loads = threadIdx.x == 0;
+  uint32_t acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0u;
+
+  if (loads) {
+    for (int kt = 0; kt < G_STAGES && kt < nk; ++kt) {
+      gemm_refill(ring, full, empty, &amap, &bmap, kt, m0, n0);
+    }
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % G_STAGES;
+    const uint32_t a_rows = ring + s * STAGE_BYTES + wg * (64 * GBK);
+    const uint32_t b_rows = ring + s * STAGE_BYTES + A_BYTES;
+    mbar_wait(full + 8 * s, (kt / G_STAGES) & 1);
+    pin(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < GBK / 32; ++kk) {
+      wgmma_s8_ss_n256(acc, wgmma_desc(a_rows + kk * 32, 16, 1024),
+                       wgmma_desc(b_rows + kk * 32, 16, 1024), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the products of step kt - 1 are done
+    pin(acc);
+    if (kt > 0) {
+      if (lane == 0) mbar_arrive(empty + 8 * ((kt - 1) % G_STAGES));
+      if (loads && kt - 1 + G_STAGES < nk) {
+        gemm_refill(ring, full, empty, &amap, &bmap, kt - 1 + G_STAGES, m0,
+                    n0);
+      }
+    }
+  }
+  wgmma_wait<0>();
+  pin(acc);
+  __syncthreads();  // both warpgroups are done with the ring
+
+  // stage this warpgroup's 64 rows as int32 (columns 8 j + 2 t + {0, 1} of
+  // rows g and g + 8 of the warp's 16)
   const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps
-
-  int acc[MT][NT][4];
+  uint8_t* stage = ring_ptr + wg * 64 * ACC_PITCH;
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    __syncthreads();
-    load_tile(As, xq, M, K, m0, k0);
-    load_tile(Bs, w, N, K, n0, k0);
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 32) {
-      uint32_t af[MT][4], bfr[NT][2];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const int8_t* p = As + (wm * 64 + i * 16 + g) * LDS + ks + t * 4;
-        af[i][0] = lds32(p);
-        af[i][1] = lds32(p + 8 * LDS);
-        af[i][2] = lds32(p + 16);
-        af[i][3] = lds32(p + 8 * LDS + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int8_t* p = Bs + (wn * 32 + j * 8 + g) * LDS + ks + t * 4;
-        bfr[j][0] = lds32(p);
-        bfr[j][1] = lds32(p + 16);
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma_s8(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
-    }
+  for (int j = 0; j < GBN / 8; ++j) {
+    const int r = warp * 16 + g, c = j * 8 + t * 2;
+    *reinterpret_cast<uint2*>(stage + r * ACC_PITCH + c * 4) =
+        make_uint2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<uint2*>(stage + (r + 8) * ACC_PITCH + c * 4) =
+        make_uint2(acc[4 * j + 2], acc[4 * j + 3]);
   }
+  bar_sync(1 + wg, 128);
 
+  // 4 columns of one row a thread: rows of 64 chunks, 2 rows an iteration
+  const int tid = threadIdx.x & 127;
+  const bool vec = N % 4 == 0;
+#pragma unroll 4
+  for (int it = 0; it < 32; ++it) {
+    const int r = it * 2 + (tid >> 6), c = (tid & 63) * 4;
+    const int row = m0 + wg * 64 + r, col = n0 + c;
+    if (row >= M || col >= N) continue;
+    const int4 a = *reinterpret_cast<const int4*>(stage + r * ACC_PITCH + c * 4);
+    const int av[4] = {a.x, a.y, a.z, a.w};
+    const long long idx = (long long)row * N + col;
+    const int n_here = min(4, N - col);
+    if (MODE == 0) {
+      if (vec) {
+        *reinterpret_cast<int4*>(static_cast<int*>(out) + idx) = a;
+      } else {
+        for (int e = 0; e < n_here; ++e) static_cast<int*>(out)[idx + e] = av[e];
+      }
+      continue;
+    }
+    const float s_row = sx[row];
+    float y[4];
 #pragma unroll
-  for (int i = 0; i < MT; ++i) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = m0 + wm * 64 + i * 16 + g + (e >= 2 ? 8 : 0);
-        const int col = n0 + wn * 32 + j * 8 + t * 2 + (e & 1);
-        if (row >= M || col >= N) continue;
-        const long long idx = (long long)row * N + col;
-        if (MODE == 0) {
-          static_cast<int*>(out)[idx] = acc[i][j][e];
-        } else {
-          float y = static_cast<float>(acc[i][j][e]) * sx[row] * sw[col];
-          if (bias != nullptr) y += bias[col];
-          if (MODE == 1) {
-            static_cast<bf16*>(out)[idx] = __float2bfloat16_rn(y);
-          } else {
-            static_cast<float*>(out)[idx] = y;
-          }
-        }
+    for (int e = 0; e < 4; ++e) {
+      const int ce = e < n_here ? col + e : col;
+      y[e] = __fmul_rn(__fmul_rn(static_cast<float>(av[e]), s_row), sw[ce]);
+      if (bias != nullptr) y[e] = __fadd_rn(y[e], bias[ce]);
+    }
+    if (MODE == 1) {
+      bf16* o = static_cast<bf16*>(out) + idx;
+      if (vec) {
+        *reinterpret_cast<uint2*>(o) =
+            make_uint2(pack_f(y[0], y[1]), pack_f(y[2], y[3]));
+      } else {
+        for (int e = 0; e < n_here; ++e) o[e] = __float2bfloat16_rn(y[e]);
+      }
+    } else {
+      float* o = static_cast<float*>(out) + idx;
+      if (vec) {
+        *reinterpret_cast<float4*>(o) = make_float4(y[0], y[1], y[2], y[3]);
+      } else {
+        for (int e = 0; e < n_here; ++e) o[e] = y[e];
       }
     }
   }
+}
+
+// [rows, K] int8, row-major, as a 2-D map (K, rows) with boxes of
+// [box_rows x 128 bytes] under the 128-byte swizzle
+bool make_gemm_map(CUtensorMap* map, const void* ptr, int rows, int K,
+                   int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
+  const long long strides[1] = {K};
+  const cuuint32_t box[2] = {GBK, (cuuint32_t)box_rows};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 2, ptr, dims,
+                    strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+template <int MODE>
+int launch_gemm(const void* xq, const void* w, int M, int N, int K,
+                const float* sx, const float* sw, const float* bias, void* out,
+                cudaStream_t st) {
+  CUtensorMap amap = {}, bmap = {};
+  if (!make_gemm_map(&amap, xq, M, K, GBM) ||
+      !make_gemm_map(&bmap, w, N, K, GBN)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = int8_gemm_wgmma_kernel<MODE>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = ((M + GBM - 1) / GBM) * ((N + GBN - 1) / GBN);
+  kernel<<<tiles, G_THREADS, G_SMEM, st>>>(amap, bmap, M, N, K, sx, sw, bias,
+                                           out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -200,26 +356,23 @@ extern "C" int k2_quantize_rows(const void* x, int M, int K, int x_dtype,
   return static_cast<int>(cudaGetLastError());
 }
 
+// xq [M, K] and w [N, K] int8 (16-byte aligned), sx [M], sw [N] and bias
+// [N] (or null) fp32 -> out [M, N]: out_mode 0 int32 accumulator, 1 bf16,
+// 2 fp32. K must be a positive multiple of 16.
 extern "C" int k2_int8_gemm(const void* xq, const void* w, int M, int N, int K,
                             const void* sx, const void* sw, const void* bias,
                             void* out, int out_mode, void* stream) {
   if (M <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
-  if (K % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  if (K <= 0 || K % 16 != 0 || reinterpret_cast<uintptr_t>(xq) % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int8_t* a = static_cast<const int8_t*>(xq);
-  const int8_t* b = static_cast<const int8_t*>(w);
   const float* fsx = static_cast<const float*>(sx);
   const float* fsw = static_cast<const float*>(sw);
   const float* fb = static_cast<const float*>(bias);
-  if (out_mode == 0) {
-    int8_gemm_kernel<0><<<grid, GEMM_THREADS, 0, st>>>(a, b, M, N, K, fsx, fsw, fb, out);
-  } else if (out_mode == 1) {
-    int8_gemm_kernel<1><<<grid, GEMM_THREADS, 0, st>>>(a, b, M, N, K, fsx, fsw, fb, out);
-  } else if (out_mode == 2) {
-    int8_gemm_kernel<2><<<grid, GEMM_THREADS, 0, st>>>(a, b, M, N, K, fsx, fsw, fb, out);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (out_mode == 0) return launch_gemm<0>(xq, w, M, N, K, fsx, fsw, fb, out, st);
+  if (out_mode == 1) return launch_gemm<1>(xq, w, M, N, K, fsx, fsw, fb, out, st);
+  if (out_mode == 2) return launch_gemm<2>(xq, w, M, N, K, fsx, fsw, fb, out, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

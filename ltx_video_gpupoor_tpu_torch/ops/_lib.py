@@ -51,12 +51,13 @@ SIGNATURES = {
     # (batch, token), kv_valid (-1 = none), mask kind, scale, stream
     "k6_flash_attention_hp_bf16": [P, P, P, P, I, I, I, I, I,
                                    I, I, I, I, I, I, I, I, I, I, F, P],
-    # q8, k8, v (int8 or bf16), out, q_seg, kv_seg, q_scale, k_scale,
-    # v_scale, B, H, Sq, Skv, D, q/k/v/out strides (b, h, s),
-    # ks_block, nks, kv_valid (-1 = none), causal, pv_int8, stream
+    # q8, k8, v (V^T int8 in K4's kv order, or bf16), out, q_seg, kv_seg,
+    # q_scale, k_scale, v_scale, B, H, Sq, Skv, D, q/k/v/out strides
+    # (b, h, s; V^T: b, h, d), ks_block, nks, kv_valid (-1 = none), causal,
+    # pv_int8, mask kind, stream
     "k4_flash_attention_int8": [P, P, P, P, P, P, P, P, P, I, I, I, I, I,
                                 I, I, I, I, I, I, I, I, I, I, I, I,
-                                I, I, I, I, I, P],
+                                I, I, I, I, I, I, P],
     # x, M, K, x_dtype (0 bf16, 1 f32), xq, sx, stream
     "k2_quantize_rows": [P, I, I, I, P, P, P],
     # xq, w, M, N, K, sx, sw, bias, out, out_mode (0 s32, 1 bf16, 2 f32),

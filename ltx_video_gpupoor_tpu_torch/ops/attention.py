@@ -10,12 +10,15 @@ tier (K4) at 128 and above or an unknown head dim. ``pallas_int8`` and
 the bound (:192-196), and ``pallas_int8`` with a bound raises, as the JAX
 kernel has no such combination on the port's path. ``pallas_hp`` runs the
 head-packed kernel (K6) from :func:`attention_packed` and is ``pallas``
-for head-split callers (:162-165). :func:`set_attention_mode` (:63) and
+for head-split callers (:162-165). ``xla`` runs
+:func:`~.flash_attention.reference_attention`, the plain fp32 attention,
+on either device (:167-170; a ``score_bound`` is ignored there, as in
+JAX). :func:`set_attention_mode` (:63) and
 the ``LTXV_TPU_ATTN`` environment variable (:40) pin what ``auto`` means
 for the whole process, as the CLI's ``--attention`` does. The
 128-multiple padding (:172-191,
-:289-298) is gone: the kernels mask their own ragged edge. ``xla`` and
-``ulysses:`` raise ``NotImplementedError`` naming their ROADMAP entry.
+:289-298) is gone: the kernels mask their own ragged edge. ``ulysses:``
+raises ``NotImplementedError`` naming its ROADMAP step.
 """
 
 from __future__ import annotations
@@ -28,18 +31,14 @@ from .flash_attention import (
     flash_attention,
     flash_attention_hp,
     flash_attention_int8,
+    reference_attention,
 )
 
-_TO_PORT = {
-    "xla": "ROADMAP queue 1 step 2 (the port has no XLA tier; its plain "
-           "version is ops.flash_attention.reference_attention)",
-}
-_VALID_MODES = ("auto", "pallas", "pallas_hp", "pallas_int8", "pallas_int8pv")
+_VALID_MODES = ("auto", "pallas", "pallas_hp", "pallas_int8", "pallas_int8pv",
+                "xla")
 
 
 def _checked_mode(mode: str, what: str) -> str:
-    if mode in _TO_PORT:
-        raise NotImplementedError(f"{what}{mode!r}: {_TO_PORT[mode]}")
     if mode not in _VALID_MODES:
         raise ValueError(f"{what}{mode!r}: expected one of {_VALID_MODES}")
     return mode
@@ -82,8 +81,6 @@ def resolve_mode(mode: str, score_bound: float | None = None,
                 else "pallas_int8pv")
     if mode in _VALID_MODES:
         return mode
-    if mode in _TO_PORT:
-        raise NotImplementedError(f"attention mode {mode!r}: {_TO_PORT[mode]}")
     raise ValueError(f"unknown attention mode {mode!r}")
 
 
@@ -110,6 +107,9 @@ def attention(
         q_segment_ids = q_segment_ids.to(torch.int32).contiguous()
     if kv_segment_ids is not None:
         kv_segment_ids = kv_segment_ids.to(torch.int32).contiguous()
+    if mode == "xla":
+        return reference_attention(q, k, v, q_segment_ids, kv_segment_ids,
+                                   scale=scale, causal=causal)
     if mode == "pallas":
         return flash_attention(q, k, v, q_segment_ids, kv_segment_ids,
                                scale=scale, causal=causal,

@@ -25,14 +25,16 @@ Port of ``ltx_video_gpupoor_tpu/ops/flash_attention.py``:
   :func:`int8_prologue`, shared by both versions; the plain version is
   :func:`int8_attention_plain` and the kernel ``csrc/flash_attention_int8.cu``
   (K4, the int8 branches of ``_flash_kernel``: scores :218-239, P.V
-  :270-292, the x127 fold :321-327, finalize :393-401).
+  :270-292, the x127 fold :321-327, finalize :393-401). Its QK+PV tier
+  reads V transposed and in its own kv order, laid out by
+  :func:`k4_v_layout`.
 
 The int8 tiers' numerics depend on JAX's compiled kv block: K scales are
 per block in the QK+PV tier, and P is quantized against the running max
 as of each block. :func:`fit_blocks` is a pinned copy of the JAX block
 fitting (equal-tested), and both versions use its kv block for the K
 scales; the plain version also steps its online softmax by that block
-(JAX's ``nsub=1`` plan). The kernel steps by 64-row tiles, so it agrees
+(JAX's ``nsub=1`` plan). The kernel steps by 128-row tiles, so it agrees
 with JAX's numerics to int8 noise, not bit for bit; stepped by the
 kernel's tile, the plain version runs the kernel's math, and
 :func:`int8_tile_bound` states how far the two may lie apart.
@@ -63,7 +65,13 @@ SUM_COL_SCALE = INV127_F32
 DEFAULT_BLOCK_Q = 768
 DEFAULT_BLOCK_KV = 4096
 SCORES_TILE_ELEMS = 1 << 21
-K4_TILE_KV = 64  # K4's kv tile (BKV in csrc/flash_attention_int8.cu)
+K4_TILE_KV = 128  # K4's kv tile (BKV in csrc/flash_attention_int8.cu)
+# K4's kv order inside each 32-row chunk in the QK+PV tier: logical column
+# 4t + i (+16) holds kv row 2t + (0, 1, 8, 9)[i] (+16), the score columns
+# that thread t of a quad holds in the wgmma accumulator, so that its s8 P
+# fragment (4 consecutive k-bytes) packs from registers (k4_v_layout)
+K4_KV_ORDER = tuple(half + 2 * t + i for half in (0, 16) for t in range(4)
+                    for i in (0, 1, 8, 9))
 # K4 against its plain version at K4_TILE_KV (int8_tile_bound): P codes
 # that may round apart in a row, and the largest mean |difference| as a
 # share of the mean |output|
@@ -407,6 +415,21 @@ def fit_blocks(sq: int, skv: int, block_q: int = DEFAULT_BLOCK_Q,
     return block_q, block_kv
 
 
+def k4_v_layout(v8: torch.Tensor) -> torch.Tensor:
+    """int8 ``[B, H, S, D]`` -> ``[B, H, D, Spad]`` (Spad = S rounded up to
+    :data:`K4_TILE_KV`, zero rows past S): V transposed, so that the kv
+    axis is the one K4's s8 P.V reads contiguously (8-bit wgmma reads B
+    K-major only), with the kv rows of each 32-row chunk in
+    :data:`K4_KV_ORDER`. P.V over the permuted columns of P is P.V."""
+    b, h, s, d = v8.shape
+    sp = round_up(s, K4_TILE_KV)
+    if sp != s:
+        v8 = F.pad(v8, (0, 0, 0, sp - s))
+    order = torch.tensor(K4_KV_ORDER, device=v8.device)
+    v8 = v8.reshape(b, h, sp // 32, 32, d).index_select(3, order)
+    return v8.permute(0, 1, 4, 2, 3).reshape(b, h, d, sp).contiguous()
+
+
 class Int8Operands(NamedTuple):
     """What the quantize prologue hands to K4 or to its plain version.
 
@@ -694,8 +717,11 @@ def int8_attention_cuda(
     out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Launch K4 on prologue operands that lie on the card; the result is
-    bf16, written into ``out`` (any 16-byte aligned layout) if given.
-    Each launch adds one to ``flash_attention_int8.launches``."""
+    bf16, written into ``out`` (any 16-byte aligned layout) if given. The
+    QK+PV tier's V goes through :func:`k4_v_layout` first, the QK tier's
+    per-row k scales are padded to rows of a whole number of tiles (both
+    part of the launch's time). Each launch adds one to
+    ``flash_attention_int8.launches``."""
     from . import _lib
 
     _check_seg_pair(q_segment_ids, kv_segment_ids)
@@ -712,18 +738,30 @@ def int8_attention_cuda(
     seg_q = q_segment_ids.data_ptr() if q_segment_ids is not None else None
     seg_kv = kv_segment_ids.data_ptr() if kv_segment_ids is not None else None
     pv_int8 = ops.v_scale is not None
+    if pv_int8:
+        if ops.k_block % K4_TILE_KV:
+            raise ValueError(f"K4 takes k scales per {K4_TILE_KV}-multiple "
+                             f"kv block, got {ops.k_block}")
+        v = k4_v_layout(ops.v)
+        k_scale = ops.k_scale
+    else:
+        v = ops.v
+        spad = round_up(skv, K4_TILE_KV)
+        k_scale = F.pad(ops.k_scale, (0, spad - skv)).contiguous()
+    kind = mask_kind(skv, kv_valid, segments=q_segment_ids is not None,
+                     causal=causal)
     code = _lib.library().k4_flash_attention_int8(
-        ops.q8.data_ptr(), ops.k8.data_ptr(), ops.v.data_ptr(),
+        ops.q8.data_ptr(), ops.k8.data_ptr(), v.data_ptr(),
         out.data_ptr(), seg_q, seg_kv, ops.q_scale.data_ptr(),
-        ops.k_scale.data_ptr(),
+        k_scale.data_ptr(),
         ops.v_scale.data_ptr() if pv_int8 else None,
         b, h, sq, skv, d,
-        *ops.q8.stride()[:3], *ops.k8.stride()[:3], *ops.v.stride()[:3],
+        *ops.q8.stride()[:3], *ops.k8.stride()[:3], *v.stride()[:3],
         *out.stride()[:3],
-        ops.k_block, ops.k_scale.shape[2],
+        ops.k_block, k_scale.shape[2],
         -1 if kv_valid is None else max(0, int(kv_valid)),
-        int(bool(causal)),
-        int(pv_int8), _lib.stream_ptr(ops.q8.device),
+        int(bool(causal)), int(pv_int8), MASK_KINDS.index(kind),
+        _lib.stream_ptr(ops.q8.device),
     )
     _lib.check(code, "K4 flash_attention_int8 launch")
     flash_attention_int8.launches += 1

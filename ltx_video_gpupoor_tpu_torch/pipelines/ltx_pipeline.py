@@ -426,6 +426,7 @@ class LTXPipeline:
         image_cond_noise_scale: float = 0.0,
         stochastic_sampling: bool = False,
         sampler: str = "Uniform",
+        shift: Optional[float] = None,
         shifting: Optional[str] = "SD3",
         target_shift_terminal: Optional[float] = 0.1,
         output_type: str = "latent",
@@ -446,7 +447,7 @@ class LTXPipeline:
         f_lat, h_lat, w_lat = self.latent_shape(height, width, num_frames)
         c = self.transformer.cfg.in_channels
         sched = rf.make_schedule(
-            num_inference_steps, sampler=sampler,
+            num_inference_steps, sampler=sampler, shift=shift,
             shifting=shifting, n_media_tokens=f_lat * h_lat * w_lat,
             target_shift_terminal=target_shift_terminal, timesteps=timesteps)
         ts = sched.timesteps.numpy()

@@ -1,7 +1,7 @@
 """Rectified-flow Euler scheduler with per-token timesteps.
 
 Port of ``ltx_video_gpupoor_tpu/schedulers/rf.py``: the Uniform /
-LinearQuadratic initial schedules, the SD3 and SimpleDiffusion
+LinearQuadratic / Constant (with its ``shift``) initial schedules, the SD3 and SimpleDiffusion
 resolution-dependent shifts, :func:`make_schedule` (:126),
 :func:`lower_timestep` and :func:`step` (:176) with scalar or per-token
 timesteps and stochastic resampling, and :func:`add_noise`.
@@ -86,13 +86,20 @@ class RectifiedFlowSchedule:
     timesteps: torch.Tensor  # [steps] fp32
 
 
-def initial_timesteps(num_steps: int, sampler: str = "Uniform"
-                      ) -> torch.Tensor:
+def initial_timesteps(num_steps: int, sampler: str = "Uniform",
+                      shift: Optional[float] = None) -> torch.Tensor:
+    """``get_initial_timesteps``: ``Constant`` is the Uniform grid under
+    :func:`time_shift` by ``shift``, which it requires."""
     if sampler == "Uniform":
         return torch.linspace(1.0, 1.0 / num_steps, num_steps,
                               dtype=torch.float32)
     if sampler == "LinearQuadratic":
         return linear_quadratic_schedule(num_steps)
+    if sampler == "Constant":
+        if shift is None:
+            raise ValueError("the Constant sampler requires a shift")
+        return time_shift(shift, 1.0, torch.linspace(
+            1.0, 1.0 / num_steps, num_steps, dtype=torch.float32)).float()
     raise ValueError(f"unknown sampler {sampler!r}")
 
 
@@ -100,6 +107,7 @@ def make_schedule(
     num_steps: Optional[int] = None,
     *,
     sampler: str = "Uniform",
+    shift: Optional[float] = None,
     shifting: Optional[str] = None,
     n_media_tokens: Optional[int] = None,
     target_shift_terminal: Optional[float] = None,
@@ -113,7 +121,7 @@ def make_schedule(
         ts = torch.as_tensor(timesteps, dtype=torch.float32).cpu()
     else:
         num_steps = min(num_train_timesteps, num_steps)
-        ts = initial_timesteps(num_steps, sampler)
+        ts = initial_timesteps(num_steps, sampler, shift)
         if shifting == "SD3":
             ts = sd3_resolution_dependent_shift(n_media_tokens, ts,
                                                 target_shift_terminal)

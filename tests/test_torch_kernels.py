@@ -229,28 +229,84 @@ def test_attention_packed_matches_jax():
     ("pallas_hp", "K6"), ("ulysses:sp", "step 15"),
     ("xla", "reference_attention")])
 def test_unported_attention_tiers_raise(monkeypatch, mode, entry):
-    """``ulysses:`` and ``xla`` raise with their ROADMAP entry.
-    ``pallas_hp`` (K6) is ported: head-split callers get the exact kernel
-    and packed callers the head-packed one; a ``score_bound`` (K3) goes to
-    the exact kernel's bounded tier."""
+    """``ulysses:`` raises with its ROADMAP step. ``xla`` runs the plain
+    fp32 attention (``reference_attention``) and no kernel, for head-split
+    and head-packed callers alike. ``pallas_hp`` (K6) is ported:
+    head-split callers get the exact kernel and packed callers the
+    head-packed one; a ``score_bound`` (K3) goes to the exact kernel's
+    bounded tier."""
     calls = []
     monkeypatch.setattr(tattn, "flash_attention",
                         lambda *a, score_bound=None, **k: calls.append(
                             ("K1" if score_bound is None else "K3")))
     monkeypatch.setattr(tattn, "flash_attention_hp",
                         lambda *a, **k: calls.append("K6"))
+    monkeypatch.setattr(tattn, "flash_attention_int8",
+                        lambda *a, **k: calls.append("K4"))
+    monkeypatch.setattr(tattn, "reference_attention",
+                        lambda *a, **k: calls.append("reference_attention")
+                        or a[0])
     q = torch.zeros(1, 1, 8, 64)
-    if mode == "pallas_hp":
-        tattn.attention(q, q, q, mode=mode)
-        tattn.attention_packed(torch.zeros(1, 8, 128), torch.zeros(1, 8, 128),
-                               torch.zeros(1, 8, 128), 2, mode=mode)
-        assert calls == ["K1", "K6"]
-    else:
+    if mode == "ulysses:sp":
         with pytest.raises(NotImplementedError, match=entry):
             tattn.attention(q, q, q, mode=mode)
+    else:
+        tattn.attention(q, q, q, mode=mode, score_bound=40.0)
+        tattn.attention_packed(torch.zeros(1, 8, 128), torch.zeros(1, 8, 128),
+                               torch.zeros(1, 8, 128), 2, mode=mode)
+        assert calls == (["K3", "K6"] if mode == "pallas_hp"
+                         else [entry, entry])
     calls.clear()
     tattn.attention(q, q, q, score_bound=40.0)
     assert calls == ["K3"]
+
+
+@pytest.mark.parametrize("seg,causal,bound", [(False, False, None),
+                                              (True, False, 40.0),
+                                              (False, True, None)])
+def test_xla_tier_matches_jax(monkeypatch, seg, causal, bound):
+    """``xla`` is JAX's ``reference_attention`` on either side, through
+    ``attention`` (segments, causal; a ``score_bound`` is ignored there),
+    ``attention_packed``, ``set_attention_mode`` and ``LTXV_TPU_ATTN``."""
+    import importlib
+
+    q, k, v = _qkv(21, 2, 3, 200, 130 if seg else 200, 64)
+    segs = ()
+    if seg:
+        q_seg = np.ones((2, 200), np.int32)
+        q_seg[1, 9] = 4                    # a row that matches no key
+        kv_seg = np.ones((2, 130), np.int32)
+        kv_seg[0, 70:] = 0
+        segs = (q_seg, kv_seg)
+    kw = dict(causal=causal, score_bound=bound)
+    ref = jattn.attention(*map(jnp.asarray, (q, k, v) + segs), mode="xla",
+                          **kw)
+    out = tattn.attention(*_t(q, k, v, *segs), mode="xla", **kw)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL,
+                               rtol=RTOL)
+    if seg:
+        np.testing.assert_array_equal(out[1, :, 9].numpy(), 0.0)
+    b, s, heads, d = 2, 200, 3, 64
+    qp, kp, vp = (np.ascontiguousarray(x.transpose(0, 2, 1, 3)).reshape(
+        b, s, heads * d) for x in _qkv(22, b, heads, s, s, d))
+    ref = jattn.attention_packed(*map(jnp.asarray, (qp, kp, vp)), heads,
+                                 mode="xla")
+    try:
+        tattn.set_attention_mode("xla")
+        assert tattn.resolve_mode("auto", 40.0, head_dim=128) == "xla"
+        out = tattn.attention_packed(*_t(qp, kp, vp), heads)
+    finally:
+        tattn.set_attention_mode("auto")
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL,
+                               rtol=RTOL)
+    monkeypatch.setenv("LTXV_TPU_ATTN", "xla")
+    fresh = importlib.reload(tattn)
+    try:
+        assert fresh.get_attention_mode() == "xla"
+    finally:
+        monkeypatch.delenv("LTXV_TPU_ATTN")
+        importlib.reload(tattn)
+    assert tattn.get_attention_mode() == "auto"
 
 
 @pytest.mark.parametrize("head_dim", [None, 32, 64, 80, 128, 256])
@@ -815,7 +871,7 @@ def test_k4_tile_bound_rejects_planted_faults(pv_int8):
 
     assert ratios(tile) == (0.0, 0.0)
     zeroed = tile.clone()
-    zeroed[:, :, 960:] = 0                 # the last (ragged) 64-row q tile
+    zeroed[:, :, 896:] = 0                 # the last (ragged) 128-row q tile
     worst, mean = ratios(zeroed)
     assert worst > 10 and mean > tfa.K4_TILE_MEAN_REL
     scale = ops.v_scale[:, :, 5] if pv_int8 else torch.full((1, 2), 0.5)
@@ -823,6 +879,58 @@ def test_k4_tile_bound_rejects_planted_faults(pv_int8):
     dropped[..., 5] = (dropped[..., 5].float() / scale[..., None]).bfloat16()
     worst, mean = ratios(dropped)
     assert worst > 10 and mean > tfa.K4_TILE_MEAN_REL
+
+
+@pytest.mark.parametrize("s", [256, 333])
+def test_k4_v_layout_is_the_kernels_kv_order(s):
+    """``k4_v_layout`` against a numpy statement of the permutation:
+    V^T[d, 32c + L] = V[32c + order(L), d], order(4t + i (+16)) = 2t +
+    (0, 1, 8, 9)[i] (+16), zero columns past S; and P.V over P's columns
+    in that order is P.V."""
+    rng = np.random.default_rng(23)
+    v8 = rng.integers(-127, 128, (2, 3, s, 128)).astype(np.int8)
+    vt = tfa.k4_v_layout(torch.from_numpy(v8)).numpy()
+    sp = -(-s // 128) * 128
+    assert vt.shape == (2, 3, 128, sp)
+    order = [half + 2 * t + i for half in (0, 16) for t in range(4)
+             for i in (0, 1, 8, 9)]
+    assert sorted(order) == list(range(32)) and tuple(order) == \
+        tfa.K4_KV_ORDER
+    padded = np.zeros((2, 3, sp, 128), np.int8)
+    padded[:, :, :s] = v8
+    rows = np.array([32 * c + order[l] for c in range(sp // 32)
+                     for l in range(32)])
+    np.testing.assert_array_equal(vt, padded[:, :, rows].transpose(0, 1, 3, 2))
+    p8 = rng.integers(0, 128, (2, 3, 40, sp)).astype(np.int64)
+    p8[..., s:] = 0
+    np.testing.assert_array_equal(
+        p8[..., rows] @ vt.astype(np.int64).transpose(0, 1, 3, 2),
+        p8 @ padded.astype(np.int64))
+
+
+@pytest.mark.parametrize("pv_int8", [True, False])
+@pytest.mark.parametrize("d,s,kv_valid", [(128, 1024, 1000),  # Wan-like
+                                          (64, 384, 333)])    # ragged
+def test_k4_plain_at_the_kernels_tile_matches_pallas_interpret(
+        pv_int8, d, s, kv_valid):
+    """The plain version stepped as the kernel steps (``K4_TILE_KV`` = 128
+    rows) against the interpreted Pallas tier at JAX's default blocks,
+    which moves its running max once a kv block (1024 and 384 rows here):
+    P is quantized against other maxima, so the two agree to int8 noise
+    (chip_smoke's bar for the kernel against JAX's block: max 1e-1, mean
+    1e-3). Stepped by JAX's block the plain version is JAX's
+    (test_k4_plain_matches_pallas_interpret)."""
+    q, k, v = _qkv(24, 1, 2, s, s, d)
+    ref = np.asarray(jfa.flash_attention(
+        *map(jnp.asarray, (q, k, v)), qk_int8=True, pv_int8=pv_int8,
+        kv_valid=kv_valid, interpret=True))
+    ops = tfa.int8_prologue(*_t(q, k, v), pv_int8=pv_int8)
+    assert ops.kv_block == s
+    tile = tfa.int8_attention_plain(ops, kv_valid=kv_valid,
+                                    block_kv=tfa.K4_TILE_KV).numpy()
+    diff = np.abs(tile - ref)
+    assert diff.max() < 1e-1 and diff.mean() < 1e-3, (diff.max(), diff.mean())
+    assert float(np.abs(ref).mean()) > 10 * diff.mean()
 
 
 def test_k4_rejects_kv_only_segments_and_other_devices():

@@ -82,6 +82,9 @@ def test_patchify_roundtrip_matches_jax():
     dict(num_steps=30, sampler="LinearQuadratic"),
     dict(num_steps=10, shifting="SimpleDiffusion", n_media_tokens=5280),
     dict(timesteps=[1.0, 0.9937, 0.9875, 0.7250]),
+    dict(num_steps=8, sampler="Constant", shift=1.5, shifting=None),
+    dict(num_steps=12, sampler="Constant", shift=0.7, shifting="SD3",
+         n_media_tokens=5280, target_shift_terminal=0.1),
 ])
 def test_rf_schedules_match_jax(kw):
     kw = dict(kw)
@@ -90,6 +93,19 @@ def test_rf_schedules_match_jax(kw):
     jsched = jrf.make_schedule(n, **{k: (jnp.asarray(v) if k == "timesteps"
                                          else v) for k, v in kw.items()})
     _close(tsched.timesteps, jsched.timesteps, 1e-6)
+
+
+@pytest.mark.parametrize("n,shift", [(1, 2.0), (7, 1.0), (30, 3.5)])
+def test_rf_constant_sampler_matches_jax(n, shift):
+    """``Constant`` is the Uniform grid shifted by ``shift``, which it
+    requires."""
+    _close(trf.initial_timesteps(n, "Constant", shift),
+           jrf.initial_timesteps(n, "Constant", shift), 1e-6)
+    assert trf.initial_timesteps(n, "Constant", shift).dtype == torch.float32
+    with pytest.raises(ValueError, match="shift"):
+        trf.initial_timesteps(n, "Constant")
+    with pytest.raises(ValueError, match="sampler"):
+        trf.initial_timesteps(n, "Quadratic")
 
 
 def test_rf_steps_match_jax():

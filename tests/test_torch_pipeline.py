@@ -196,6 +196,49 @@ def test_generator_rejects_unported_branches(weights):
         ms.generate(emb, mask, height=32, width=32, frame_num=9)
 
 
+@pytest.mark.parametrize("sampler,shift", [("Constant", 2.5),
+                                           ("Uniform", None)])
+def test_generate_threads_sampler_and_shift(monkeypatch, sampler, shift):
+    """``generate(sampler=, shift=)`` reaches ``make_schedule`` in both
+    packages (JAX :734, :755) and gives the same schedule."""
+    class Stop(Exception):
+        pass
+
+    seen = {}
+
+    def spy(name, make):
+        def wrapped(*args, **kwargs):
+            seen[name] = np.asarray(make(*args, **kwargs).timesteps)
+            raise Stop
+        return wrapped
+
+    make_schedule = tpipe.rf.make_schedule
+    monkeypatch.setattr(tpipe.rf, "make_schedule",
+                        spy("port", make_schedule))
+    monkeypatch.setattr(jpipe.rf, "make_schedule",
+                        spy("jax", jpipe.rf.make_schedule))
+    vae = tvae.CausalVAEDecoder(tvae.VAEConfig.from_dict(VAE_DICT),
+                                FP32_POLICY)
+    model = ttf.LTXTransformer3D(ttf.LTXTransformerConfig(**TF_KW),
+                                 FP32_POLICY)
+    kw = dict(height=H, width=W, num_frames=FRAMES, num_inference_steps=6,
+              sampler=sampler, shift=shift)
+    pipe = tpipe.LTXPipeline(model, vae)
+    with pytest.raises(Stop):
+        pipe.generate(torch.zeros(2, 4, 32), torch.ones(2, 4), **kw)
+    jp = jpipe.LTXPipeline(transformer_params={},
+                           transformer_cfg=jtf.LTXTransformerConfig(**TF_KW),
+                           vae_params={},
+                           vae_cfg=jvae.VAEConfig.from_dict(VAE_DICT))
+    with pytest.raises(Stop):
+        jp.generate(jnp.zeros((2, 4, 32)), jnp.ones((2, 4)), **kw)
+    np.testing.assert_allclose(seen["port"], seen["jax"], atol=1e-6)
+    uniform = np.asarray(make_schedule(
+        6, shifting="SD3", n_media_tokens=int(np.prod(pipe.latent_shape(
+            H, W, FRAMES))), target_shift_terminal=0.1).timesteps)
+    assert np.allclose(seen["port"], uniform) == (sampler == "Uniform")
+
+
 @pytest.mark.parametrize("h,w,f", [(480, 704, 121), (250, 250, 10)])
 def test_orchestrator_helpers_match_jax(h, w, f):
     assert torch_orch.pad_dimensions(h, w, f) == jorch.pad_dimensions(h, w, f)

@@ -286,25 +286,31 @@ def test_cli_raises_for_what_is_not_ported():
         with pytest.raises(NotImplementedError, match="ROADMAP") as e:
             tcli.main(base + extra)
         assert what in str(e.value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main(base + ["--demo", "--attention", "xla"])
 
 
-def test_cli_demo_end_to_end(tmp_path):
+@pytest.mark.parametrize("tier", ["pallas", "xla"])
+def test_cli_demo_end_to_end(tmp_path, monkeypatch, tier):
+    """The demo request end to end under ``--attention``; ``xla`` runs
+    every attention through ``reference_attention`` and no kernel."""
     from ltx_video_gpupoor_tpu_torch.ops import attention as tattn
 
+    calls = []
+    plain = tattn.reference_attention
+    monkeypatch.setattr(tattn, "reference_attention",
+                        lambda *a, **k: calls.append(1) or plain(*a, **k))
     out = str(tmp_path / "vid.mp4")
     try:
         path = tcli.main([
             "--prompt", "a cat", "--demo", "--device", "cpu", "--height",
             "64", "--width", "64", "--video-length", "9",
             "--num-inference-steps", "2", "--output-path", out,
-            "--attention", "pallas"])
-        assert tattn.get_attention_mode() == "pallas"
+            "--attention", tier])
+        assert tattn.get_attention_mode() == tier
     finally:
         tattn.set_attention_mode("auto")
     assert path == out and os.path.getsize(out) > 0
     assert tmedia.load_video(out).shape == (9, 64, 64, 3)
+    assert bool(calls) == (tier == "xla")
 
 
 def test_hash_prompt_embeds_shape_and_determinism():
