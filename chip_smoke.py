@@ -28,12 +28,15 @@ Phases, one output line each (or a few):
             version plus 2**-9 of its largest output; planted faults (the
             last q tile zeroed, a head scaled by 1 + 2**-5) must fail that
             check.
-4. K2       the dynamic-int8 linear at every main-path shape (LTX-2B,
-            Wan-1.3B and LTX-13B at both passes' token counts: 4096->4096,
-            4096->16384, 16384->4096, patchify, proj_out, the caption and
-            adaLN projections): the int8 activations and int32 accumulators equal
-            the plain version's exactly, the outputs agree to 1e-2
-            relative.
+4. K2       the dynamic-int8 linear (wgmma s8, TMA tile loads) at every
+            main-path shape (LTX-2B, Wan-1.3B and LTX-13B at both passes'
+            token counts: 4096->4096, 4096->16384, 16384->4096, patchify,
+            proj_out, the caption and adaLN projections) and at ragged
+            ones (M 1, 17, 129; N off the 256-column tile; K 16, 48,
+            8960): the int8 activations and int32 accumulators equal the
+            plain version's exactly, the outputs agree to 1e-2 relative;
+            a planted fault (the last 16-byte K step dropped from the
+            plain accumulator) must fail the check.
 5. K4       the int8 attention kernel, both tiers (QK+PV, QK), against its
             plain version on the same prologue operands at the Wan shapes
             (self-attention B=2 H=12 S=32760 D=128 on head-split views;
@@ -41,8 +44,9 @@ Phases, one output line each (or a few):
             that sees no key), at the 13B shapes (self-attention B=1 H=32
             S=3840 and 15360 D=128; cross-attention to 256 text tokens
             with segments), and at D=64, ragged, kv_valid and causal
-            shapes. The plain version steps its online softmax by the
-            kernel's 64-row tile, the kernel's math: every element within
+            shapes, so that every mask kind of the block runs (none, tail,
+            general). The plain version steps its online softmax by the
+            kernel's 128-row tile, the kernel's math: every element within
             int8_tile_bound (a few P codes apart, each worth max|v| /
             (127 * the row's softmax mass), then one bf16 rounding), the
             mean difference under 5e-4 of the mean |output|; planted
@@ -93,13 +97,17 @@ Phases, one output line each (or a few):
 6. timing   each kernel and its plain version, CUDA events, median of 5
             (plain versions at the large attention shapes: median of 3),
             and the one PyTorch call that computes the same function where
-            there is one (scaled_dot_product_attention for K1 and K6,
-            torch._int_mm for K2's GEMM alone), timed here and used
-            nowhere in the port; K1's and K6's times stand beside those of
-            the block they replaced, and beside the same call through the
-            tail and the general mask instance; each kernel's bound (the larger of its
-            operations over the card's peak rate and its bytes over the
-            memory rate) is computed from the timed shapes.
+            there is one (scaled_dot_product_attention for K1 and K6, with
+            a boolean key mask for K1's cross-attention, torch._int_mm for
+            K2's GEMM alone), timed here and used nowhere in the port;
+            K1's, K2's, K4's and K6's times stand beside those of the
+            kernels they replaced, K1's beside the same call through the
+            tail and the general mask instance, K4's beside K1 at the same
+            shape, K2's row quantize apart; each kernel's bound (the larger
+            of its operations over the card's peak rate and its bytes over
+            the memory rate; for K4 also its exponentials, one ex2 a score
+            at 16 a clock an SM at the card's highest SM clock) is
+            computed from the timed shapes.
 7. path     LTX-2B at full width (28 layers, 32x64 heads, int8_dynamic),
             the 0.9.7 VAE decoder and T5-XXL, random weights from seeds:
             a 2-layer cut of the DiT on the card against the plain
@@ -141,18 +149,23 @@ Phases, one output line each (or a few):
             layers, d 4096, bf16) and the Wan VAE decoder (dim 96, z 16),
             random weights from seeds: a 2-layer cut of the DiT at
             832x480x17 on the card against the plain versions on the CPU,
-            then three requests through a UMT5 encode of seeded token ids
+            then four requests through a UMT5 encode of seeded token ids
             and WanPipeline.generate_t2v (UniPC, shift 5, guide scale 5,
             CFG-Zero-star, tiled VAE decode; 4 steps, the alpha rescale
             from step 1 as from step 6 of 50): 832x480x17 (7800
             tokens a stream) in the default tier (K4 QK+PV) and in the
-            QK tier, and 832x480x81 (32760 tokens); stage times, peak
-            memory, launch counts of K2 and K4.
+            QK tier, and 832x480x81 (32760 tokens) in the exact tier (K1)
+            and in the default one; stage times, peak memory, launch
+            counts of K1, K2 and K4.
 9. profile  only with --profile: one more 704x480x121 LTX-2B request, one
             more 13B request of kind (b) and one of kind (c) and one more
-            832x480x81 Wan request under torch.profiler; device span, busy
-            time, idle share and device time by kernel group (K1/K6, K3,
-            K2, K4, K5, ...), read from the exported traces; the build
+            832x480x81 Wan request, each twice under torch.profiler: as it
+            is, for the device span, busy time and idle share, then with
+            scopes around the port's ops, for the device time by kernel
+            group (K1/K6, K3, K2, K4, K5, ...; PyTorch's own kernels by the
+            op that launched them: RoPE, norms, GELU/GEGLU, K4's quantize
+            prologue, casts and copies, the rest), read from the exported
+            traces; the build
             phase also builds once with one source after another and
             prints that time beside the parallel build's.
 
@@ -195,15 +208,32 @@ K8_REPLACES = "tools/mb_selfattn_pipeline.py:32"
 # operand type, and bytes per second of device memory
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
 PEAK_BYTES = 3.35e12
-# K1 and K6 before their redesign (the mma.sync block with 64-row tiles), ms
-# on an NVIDIA H100 80GB HBM3 at 700 W as this script's phase_timing measured
-# them then (PERF.md's kernel table), printed beside the new times
+# K1 and K6 before their redesign (the mma.sync block with 64-row tiles),
+# and K2, K4 and K5 on their mma.sync kernels, ms on an NVIDIA H100 80GB
+# HBM3 at 700 W as this script's phase_timing measured them then (PERF.md's
+# kernel table), printed beside the new times
 ACCEPTED_MS = {
     "K1 self": 6.251, "K1 cross": 0.433, "K6 LTX-2B": 6.160,
     "K1 self pass 1": 3.050, "K1 self pass 2": 39.318,
     "K6 self pass 1": 2.928, "K6 self pass 2": 39.376,
     "K1 cross pass 1": 0.300, "K1 cross pass 2": 0.928,
+    "K2 wan ffn_in 1536->8960": 8.047, "K2 ffn_in 2048->8192": 2.229,
+    "K2 13B pass 2 qkvo 4096->4096": 2.441,
+    "K2 13B pass 2 ffn_in 4096->16384": 10.732,
+    "K2 13B pass 2 ffn_out 16384->4096": 10.480,
+    "K4 int8pv self": 106.033, "K4 int8qk self": 101.711,
+    "K4 int8pv 13B pass 2 self": 31.990, "K4 int8qk 13B pass 2 self": 30.921,
+    "K4 int8pv 13B pass 2 cross": 0.812,
+    "K5 pass 2 qkv": 7.984, "K5 pass 2 proj_in": 10.756,
+    "K5 pass 1 qkv": 2.061, "K5 pass 1 proj_in": 2.789,
 }
+# one ex2 a score on the special-function units: 16 a clock on each SM at
+# compute capability 9.0 (the CUDA C++ Programming Guide's instruction
+# throughput table), at the card's highest SM clock, which phase_device
+# reads, so that the floor is one the card could reach
+EX2_PER_SM_CLOCK = 16
+# the H100 SXM's published highest SM clock, where nvidia-smi gives none
+SM_CLOCK_MAX_MHZ = 1980.0
 # K4 against its plain version stepped by JAX's kv block (see _k4_case):
 # P against other running maxima (0.034 max, 1.4e-4 mean emulated on the
 # CPU at the cross shape)
@@ -232,12 +262,24 @@ K2_SHAPES = [
     ("wan time_projection 1536->9216 M=2", 2, 1536, 9216, "fp32"),
 ]
 K2_TIMED = "wan ffn_in 1536->8960"
+# ragged K2 shapes: M 1, 17, 129; N off the 256-column tile (and off a
+# multiple of 4, the 16-byte store); K 16, 48, 8960
+K2_RAGGED = [
+    ("ragged M=1 K=16", 1, 16, 200, "bf16"),
+    ("ragged M=17 K=48 N=257", 17, 48, 257, "fp32"),
+    ("ragged M=129 K=8960 N=600", 129, 8960, 600, "bf16"),
+    ("ragged M=1000 K=4096 N=4100", 1000, 4096, 4100, "bf16"),
+]
+K2_PLANTED = "13B pass 2 ffn_in 4096->16384"
 
 # Wan 2.1 1.3B attention shapes (B, H, Sq, Skv, D)
 WAN_SELF = (2, 12, 32760, 32760, 128)
 WAN_CROSS = (2, 12, 32760, 512, 128)
+# (H, W, F, attention tier); the exact tier at 832x480x81 beside the
+# default (int8 QK+PV) one says which a served request should pin; the
+# default one comes last (the kernels line reads its launches)
 WAN_REQUESTS = [(480, 832, 17, "auto"), (480, 832, 17, "pallas_int8"),
-                (480, 832, 81, "auto")]      # (H, W, F, attention tier)
+                (480, 832, 81, "pallas"), (480, 832, 81, "auto")]
 WAN_STEPS = 4
 WAN_CFG_ZERO_STEP = 0    # the default 5 of 50 steps, cut with the steps
 
@@ -338,7 +380,24 @@ def phase_device():
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     log(smi[0] if smi else "nvidia-smi: no output")
-    return name, (smi[0] if smi else "")
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.split()
+    try:
+        mhz, origin = float(clock[0]), "nvidia-smi clocks.max.sm"
+    except (IndexError, ValueError):
+        mhz, origin = SM_CLOCK_MAX_MHZ, "the published maximum"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ex2_per_s = sms * EX2_PER_SM_CLOCK * mhz * 1e6
+    log(f"[device] ex2 floor: {sms} SMs x {EX2_PER_SM_CLOCK} a clock x "
+        f"{mhz:.0f} MHz ({origin}) = {ex2_per_s:.4g} /s")
+    return name, ex2_per_s
+
+
+# the kernels on wgmma, by a fragment of their mangled names
+WGMMA_KERNELS = ("flash_wgmma_kernel", "int8_gemm_wgmma_kernel",
+                 "flash_int8_wgmma_kernel")
 
 
 def phase_build(compare=False):
@@ -365,10 +424,12 @@ def phase_build(compare=False):
                                      else ""))
         elif "Used" in ln or ("spill" in ln and "0 bytes spill" not in ln):
             log("    " + ln.replace("ptxas info    : ", ""))
-            # K1/K6's block keeps two wgmma groups in flight: a spill there
-            # is a fault of the design (K3's mma.sync block spills 16 bytes)
-            assert "Used" in ln or "flash_wgmma_kernel" not in entry, \
-                f"the wgmma block spills: {ln} ({entry})"
+            # the wgmma kernels (K1/K6, K2, K4) keep wgmma groups in flight:
+            # a spill there is a fault of the design (K3's mma.sync block
+            # spills 16 bytes)
+            assert "Used" in ln or not any(
+                k in entry for k in WGMMA_KERNELS), \
+                f"a wgmma kernel spills: {ln} ({entry})"
     serialized = [ln.strip() for ln in report.splitlines()
                   if "serializ" in ln.lower()]
     assert not serialized, "ptxas serialized wgmma:\n" + "\n".join(serialized)
@@ -513,7 +574,7 @@ def phase_k2(gen):
     from ltx_video_gpupoor_tpu_torch.ops import int8_matmul as im
 
     worst = 0.0
-    for name, m, k, n, dtype in K2_SHAPES:
+    for name, m, k, n, dtype in K2_SHAPES + K2_RAGGED:
         x, w8, sw, bias = _k2_operands(m, k, n, dtype, gen)
         xq, sx, acc = im.int8_linear_acc(x, w8)
         pq, ps = im.quantize_rows_plain(x)
@@ -521,6 +582,15 @@ def phase_k2(gen):
         assert torch.equal(sx, ps[:, 0]), f"K2 {name}: row scales differ"
         pacc = im.int8_gemm_acc_plain(pq, w8)
         assert torch.equal(acc, pacc), f"K2 {name}: int32 accumulators differ"
+        planted = ""
+        if name == K2_PLANTED:
+            # a GEMM that dropped its last 16-byte K step must fail
+            short = im.int8_gemm_acc_plain(pq[:, :-16], w8[:, :-16])
+            wrong = float((acc != short).float().mean())
+            assert wrong > 0, "K2: the check passes a planted fault"
+            planted = (f"; a planted fault (the last K step dropped) fails "
+                       f"it in {wrong:.2%} of the elements")
+            del short
         out = im.int8_linear(x, w8, sw, bias)
         ref = im.int8_linear_plain(x, w8, sw, bias)
         torch.cuda.synchronize()
@@ -530,7 +600,7 @@ def phase_k2(gen):
         err = float((out.float() - ref.float()).abs().max())
         worst = max(worst, err)
         log(f"[K2] {name}: M={m} K={k} N={n} x={dtype} int8/int32 exact, "
-            f"max_abs_err={err:.3e} ok")
+            f"max_abs_err={err:.3e}{planted} ok")
         del x, w8, sw, bias, xq, sx, acc, pq, ps, pacc, out, ref
     return worst
 
@@ -572,7 +642,7 @@ def _k4_tile_check(kern, tile, bound):
 def _k4_case(name, b, h, sq, skv, d, *, pv_int8, gen, packed=False,
              seg=None, causal=False, kv_valid=None, exact=True, plant=False):
     """K4 against its plain version on the same prologue operands: (a)
-    stepping the online softmax by the kernel's 64-row tile, the same
+    stepping the online softmax by the kernel's 128-row tile, the same
     math, where only fp32 summation order and exp2f's approximation
     differ: every element within int8_tile_bound, the mean within
     K4_TILE_MEAN_REL of the mean |output|; with ``plant``, two planted
@@ -603,7 +673,7 @@ def _k4_case(name, b, h, sq, skv, d, *, pv_int8, gen, packed=False,
     planted = ""
     if plant:
         zeroed = kern.clone()
-        zeroed[:, :, (sq - 1) // 64 * 64:] = 0
+        zeroed[:, :, (sq - 1) // 128 * 128:] = 0
         dropped = kern.clone()
         c_scale = ops.v_scale[:, :, 5, None] if pv_int8 else 0.5
         dropped[..., 5] = (kern[..., 5].float() / c_scale).to(kern.dtype)
@@ -635,8 +705,11 @@ def _k4_case(name, b, h, sq, skv, d, *, pv_int8, gen, packed=False,
         assert float(kern[0, :, 17].float().abs().max()) == 0.0, \
             f"K4 {name}: a row with no valid key must be 0"
     tier = "QK+PV" if pv_int8 else "QK"
+    kind = fa.mask_kind(skv, kv_valid, segments=seg is not None,
+                        causal=causal)
     log(f"[K4] {name} ({tier}): B={b} H={h} Sq={sq} Skv={skv} D={d} "
-        f"kv_block={ops.kv_block}: vs plain at the kernel's tile max "
+        f"mask kind {kind} kv_block={ops.kv_block}: vs plain at the "
+        f"kernel's tile max "
         f"{err:.3e}, {ratio:.3f} of the bound, mean {rel:.3e} of the mean "
         f"|output|{planted}; at JAX's block max {err_j:.3e} mean "
         f"{mean_j:.3e}{msg} ok")
@@ -1216,7 +1289,32 @@ def _host_us_a_launch(fn, calls=200):
     return host / calls * 1e6
 
 
-def phase_timing(gen):
+def _key_mask(kv_seg):
+    """SDPA's boolean mask for the text keys in sight ([B, 1, 1, Skv]):
+    every q row sees a key, so its fully masked rows (NaN) do not arise."""
+    return (kv_seg > 0)[:, None, None, :]
+
+
+def _cross_bound(h, sq, d, kv_seg, qk="bf16", pv="bf16", q_bytes=2,
+                 kv_bytes=2, v_bytes=2):
+    """A cross-attention's bound for the keys this call's data keeps in
+    sight (each batch row its own count): the products over those keys,
+    q and the bf16 output once, the kept k and v once."""
+    keys = int((kv_seg > 0).sum())
+    b = kv_seg.shape[0]
+    ops = {}
+    for kind in (qk, pv):
+        ops[kind] = ops.get(kind, 0) + 2 * h * sq * keys * d
+    return bound_ms(ops, b * h * sq * d * (q_bytes + 2)
+                    + h * keys * d * (kv_bytes + v_bytes))
+
+
+def _ex2_ms(n_scores, ex2_per_s):
+    """The exponent floor: one ex2 a score on the special-function units."""
+    return n_scores / ex2_per_s * 1e3
+
+
+def phase_timing(gen, ex2_per_s):
     import torch
 
     from ltx_video_gpupoor_tpu_torch.ops import flash_attention as fa
@@ -1248,8 +1346,12 @@ def phase_timing(gen):
     plain_c = cuda_time_ms(lambda: fa.reference_attention(
         q, kc, vc, q_seg, kv_seg), reps=3, warmup=1)
     times["K1 cross"] = (kern_c, plain_c)
+    lib_c = cuda_time_ms(lambda: sdpa(q, kc, vc, attn_mask=_key_mask(kv_seg)))
+    info["K1 cross"] = (*_cross_bound(h, s, d, kv_seg), lib_c)
     log(f"[time] K1 cross-attention Sq=5280 Skv=256: kernel {kern_c:.3f} ms, "
-        f"plain {plain_c:.3f} ms")
+        f"plain {plain_c:.3f} ms, bound {info['K1 cross'][0]:.3f} ms "
+        f"({info['K1 cross'][1]}; the keys in sight), "
+        f"scaled_dot_product_attention with a boolean key mask {lib_c:.3f} ms")
     log("[time]   " + "; ".join(_vs_accepted(times, key)
                                 for key in ("K1 self", "K1 cross")))
     # what the mask code costs: the same call through the tail instance (one
@@ -1277,6 +1379,11 @@ def phase_timing(gen):
     for name, (b, h, sq, skv, d), seg in k4_shapes:
         q, k, v = (_heads(b, h, n, d, gen, True) for n in (sq, skv, skv))
         segs = seg(b, sq, skv) if seg else (None, None)
+        keys = b * skv if seg is None else int((segs[1] > 0).sum())
+        ex2 = _ex2_ms(h * sq * keys, ex2_per_s)
+        k1 = None
+        if seg is None:      # K1 at the same shape, the exact tier
+            k1 = cuda_time_ms(lambda: fa.flash_attention(q, k, v))
         for pv in (True, False):
             tier = "int8pv" if pv else "int8qk"
             ops = fa.int8_prologue(q, k, v, pv_int8=pv)
@@ -1290,19 +1397,45 @@ def phase_timing(gen):
             # fp32 row, block and channel scales
             scales = 4 * (ops.q_scale.numel() + ops.k_scale.numel()
                           + (ops.v_scale.numel() if pv else 0))
-            bnd = attention_bound(
-                b, h, sq, skv, d, qk="int8", pv="int8" if pv else "bf16",
-                q_bytes=1, kv_bytes=1, v_bytes=1 if pv else 2,
-                extra_bytes=scales)
+            kw = dict(qk="int8", pv="int8" if pv else "bf16", q_bytes=1,
+                      kv_bytes=1, v_bytes=1 if pv else 2)
+            if seg is None:
+                tensor = attention_bound(b, h, sq, skv, d, extra_bytes=scales,
+                                         **kw)
+            else:
+                tensor = _cross_bound(h, sq, d, segs[1], **kw)
+            # the larger of the tensor bound and the exponentials' floor
+            bnd = max(tensor, (ex2, "operations"))
             info[f"K4 {tier} {name}"] = (*bnd, None)
+            key = f"K4 {tier} {name}"
+            vs_k1 = f", K1 {k1:.3f} ms ({kern / k1:.2f}x)" if k1 else ""
+            accepted = (f", the accepted mma.sync kernel "
+                        f"{ACCEPTED_MS[key]:.3f} ms "
+                        f"({ACCEPTED_MS[key] / kern:.2f}x)"
+                        if key in ACCEPTED_MS else "")
             log(f"[time] K4 {tier} {name}-attention B={b} H={h} Sq={sq} "
                 f"Skv={skv} D={d}: kernel {kern:.3f} ms "
                 f"({flops / kern / 1e9:.1f} TOP/s), plain {plain:.3f} ms, "
-                f"prologue {pro:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]})")
+                f"prologue {pro:.3f} ms, bound {bnd[0]:.3f} ms (int8 "
+                f"tensor {tensor[0]:.3f} ms, ex2 floor {ex2:.3f} ms)"
+                f"{vs_k1}{accepted}")
             del ops
         del q, k, v
         torch.cuda.empty_cache()
 
+    from ltx_video_gpupoor_tpu_torch.ops import _lib
+
+    lib_k = _lib.library()
+    stream = _lib.stream_ptr(torch.device("cuda"))
+    # K2 encodes two tensor maps on the host at every GEMM launch; its row
+    # quantize takes plain pointers
+    xs, ws, ss, _ = _k2_operands(16, 256, 256, "bf16", gen)
+    k2_us = _host_us_a_launch(lambda: im.int8_linear(xs, ws, ss))
+    q_us = _host_us_a_launch(lambda: im._quantize_rows_cuda(lib_k, xs, stream))
+    log(f"[time] host time a launch at M=16 K=256 N=256: K2 {k2_us:.1f} us "
+        f"(row quantize, then the GEMM with two tensor maps encoded), its "
+        f"row quantize alone {q_us:.1f} us")
+    del xs, ws, ss
     for name, m, kk, n, dtype in K2_SHAPES:
         if m < 100 and name != "adaln 2048->12288 M=48":
             continue
@@ -1310,21 +1443,32 @@ def phase_timing(gen):
         kern = cuda_time_ms(lambda: im.int8_linear(x, w8, sw, bias))
         plain = cuda_time_ms(lambda: im.int8_linear_plain(x, w8, sw, bias),
                              reps=3, warmup=1)
+        # its two launches apart: the row quantize, then the GEMM with the
+        # scale / bias epilogue
+        rows = cuda_time_ms(lambda: im._quantize_rows_cuda(lib_k, x, stream))
+        xq, sx = im._quantize_rows_cuda(lib_k, x, stream)
+        gemm = cuda_time_ms(lambda: im._gemm_cuda(lib_k, xq, sx, w8, sw, bias,
+                                                  x.dtype, stream))
         times[f"K2 {name}"] = (kern, plain)
         xb = 2 if dtype == "bf16" else 4
         bnd = linear_bound(m, kk, n, x_bytes=xb, out_bytes=xb)
         lib = None
         if m >= 1024 and n >= 1024:
             # the GEMM alone: int8 [M, K] @ [K, N] -> int32
-            xq = im.quantize_rows_plain(x)[0]
             lib = cuda_time_ms(lambda: torch._int_mm(xq, w8.t()))
-            del xq
         info[f"K2 {name}"] = (*bnd, lib)
+        key = f"K2 {name}"
         log(f"[time] K2 {name} M={m}: kernel {kern:.3f} ms "
-            f"({2 * m * kk * n / kern / 1e9:.1f} TOP/s), plain {plain:.3f} ms, "
+            f"({2 * m * kk * n / kern / 1e9:.1f} TOP/s; row quantize "
+            f"{rows:.3f} ms, GEMM with its epilogue {gemm:.3f} ms, "
+            f"{2 * m * kk * n / gemm / 1e9:.1f} TOP/s), plain {plain:.3f} ms, "
             f"bound {bnd[0]:.3f} ms ({bnd[1]}), torch._int_mm (GEMM alone) "
-            + (f"{lib:.3f} ms" if lib is not None else "none"))
-        del x, w8, sw, bias
+            + (f"{lib:.3f} ms (kernel {kern / lib:.2f}x, GEMM "
+               f"{gemm / lib:.2f}x)" if lib is not None else "none")
+            + (f", the accepted mma.sync kernel {ACCEPTED_MS[key]:.3f} ms "
+               f"({ACCEPTED_MS[key] / kern:.2f}x)" if key in ACCEPTED_MS
+               else ""))
+        del x, w8, sw, bias, xq, sx
     torch.cuda.empty_cache()
 
     # K3 and K6 at the 13B self-attention shapes (K3 also at the cross
@@ -1375,12 +1519,16 @@ def phase_timing(gen):
         times[f"K3 cross pass {i + 1}"] = (k3c, k3c_plain)
         times[f"K1 cross pass {i + 1}"] = (k1c, k1c_plain)
         # the data's work: 200 of the 256 text tokens are valid
-        bnd_c = attention_bound(b, h, n, 200, d)
+        bnd_c = _cross_bound(h, n, d, kv_seg)
+        lib_c = cuda_time_ms(lambda: sdpa(q, kc, vc,
+                                          attn_mask=_key_mask(kv_seg)))
         info[f"K3 cross pass {i + 1}"] = (*bnd_c, None)
-        info[f"K1 cross pass {i + 1}"] = (*bnd_c, None)
+        info[f"K1 cross pass {i + 1}"] = (*bnd_c, lib_c)
         log(f"[time] 13B cross-attention pass {i + 1} Sq={n} Skv=256: K3 "
             f"{k3c:.3f} ms (plain {k3c_plain:.3f} ms), K1 {k1c:.3f} ms (plain "
-            f"{k1c_plain:.3f} ms), bound {bnd_c[0]:.3f} ms ({bnd_c[1]})")
+            f"{k1c_plain:.3f} ms), bound {bnd_c[0]:.3f} ms ({bnd_c[1]}), "
+            f"scaled_dot_product_attention with a boolean key mask "
+            f"{lib_c:.3f} ms")
         log("[time]   " + "; ".join(
             _vs_accepted(times, f"{key} pass {i + 1}")
             for key in ("K1 self", "K6 self", "K1 cross")))
@@ -1430,7 +1578,9 @@ def phase_timing(gen):
             f"{kern:.3f} ms ({2 * m * kk * n / kern / 1e9:.1f} TOP/s; its row "
             f"kernel alone {rows:.3f} ms), plain {plain:.3f} ms, the unfused "
             f"chain (PyTorch norm and modulation, then K2) {chain:.3f} ms, "
-            f"bound {bnd[0]:.3f} ms ({bnd[1]})")
+            f"bound {bnd[0]:.3f} ms ({bnd[1]}), the accepted mma.sync GEMM "
+            f"{ACCEPTED_MS['K5 ' + name]:.3f} ms "
+            f"({ACCEPTED_MS['K5 ' + name] / kern:.2f}x)")
         del x, scale, shift, w8, sw, bias
     torch.cuda.empty_cache()
     return times, info
@@ -2292,8 +2442,11 @@ def run_wan_request(pipe, umt5, height, width, frames, mode):
         f"pixels_finite={pixels_finite} launches={launches}")
     assert frames_u8.shape == (frames, height, width, 3), frames_u8.shape
     assert checks["latents_finite"] and pixels_finite
-    assert launches["K4"] > 0 and launches["K2"] > 0, launches
-    assert launches["K1"] == 0, launches     # every Wan head dim is 128
+    assert launches["K2"] > 0, launches
+    # every Wan head dim is 128: auto takes the int8 tier, as JAX does
+    exact = mode == "pallas"
+    assert (launches["K1"] > 0) == exact and (launches["K4"] > 0) != exact, \
+        launches
     assert frames_u8.std() > 0, "constant frames"
     return launches
 
@@ -2327,14 +2480,38 @@ KERNEL_GROUPS = [
     ("flash_bounded_kernel", "K3 bounded-score flash attention"),
     ("flash_wgmma_kernel", "K1 / K6 exact flash attention"),
     ("norm_mod_quantize_rows_kernel", "K5 prologue row kernel"),
-    ("flash_int8_kernel", "K4 int8 flash attention"),
-    ("int8_gemm_kernel", "K2 / K5 int8 GEMM"),
+    ("flash_int8", "K4 int8 flash attention"),
+    ("int8_gemm", "K2 / K5 int8 GEMM"),
     ("quantize_rows_kernel", "K2 row quantize"),
     ("fprop", "cuDNN conv3d (VAE)"),
     ("cudnn", "cuDNN conv3d (VAE)"),
     ("nvjet", "cuBLAS GEMM (T5)"),
     ("gemm", "cuBLAS GEMM (T5)"),
 ]
+ELEMENTWISE = "PyTorch elementwise and copies"
+# PyTorch's own kernels, by the port's function that launched them: during a
+# profiled request these are wrapped in record_function scopes of these
+# names (module, attribute, scope); a kernel takes the innermost scope
+# around its launch
+PROFILED_OPS = [
+    ("models.ltx.transformer3d", "apply_rotary_emb", "RoPE"),
+    ("models.wan.model", "apply_rotary_emb_shared_heads", "RoPE"),
+    ("models.ltx.transformer3d", "rms_norm", "norms"),
+    ("models.ltx.transformer3d", "layer_norm", "norms"),
+    ("models.wan.model", "rms_norm", "norms"),
+    ("models.wan.model", "layer_norm", "norms"),
+    ("models.ltx.transformer3d.F", "gelu", "GELU / GEGLU"),
+    ("models.wan.model.F", "gelu", "GELU / GEGLU"),
+    ("ops.flash_attention", "int8_prologue", "K4 quantize prologue (torch)"),
+]
+
+
+def _op_group(name):
+    """A PyTorch kernel's group by its name alone: casts and copies."""
+    name = name.lower()
+    if "copy" in name or "cast" in name or "memcpy" in name:
+        return "casts and copies"
+    return None
 
 
 def summarize_trace(path):
@@ -2342,14 +2519,41 @@ def summarize_trace(path):
     ``gpu_memcpy`` and ``gpu_memset`` events: the span from the first
     start to the last end, busy time (the union of the intervals, so
     overlap counts once), the idle share 1 - busy/span, and the summed
-    durations by kernel group (all other kernels are PyTorch's own
-    elementwise, reduction and copy kernels)."""
+    durations by kernel group. PyTorch's own kernels are split by the
+    ``record_function`` scope (PROFILED_OPS) around the launch that the
+    kernel's correlation id names, then casts and copies by name, the rest
+    as "other"."""
     with open(path) as f:
-        events = [e for e in json.load(f)["traceEvents"]
-                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
-                  and e.get("ph") == "X"]
+        trace = json.load(f)["traceEvents"]
+    events = [e for e in trace
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+              and e.get("ph") == "X"]
     if not events:
         raise RuntimeError(f"{path}: the trace holds no device events")
+    # the host-side launch of each correlation id, and the scopes by thread
+    launch = {}
+    scopes = {}
+    for e in trace:
+        if e.get("ph") != "X":
+            continue
+        if e.get("cat") == "cuda_runtime":
+            corr = e.get("args", {}).get("correlation")
+            if corr is not None:
+                launch[corr] = (e.get("tid"), e["ts"])
+        elif e.get("cat") == "user_annotation":
+            scopes.setdefault(e.get("tid"), []).append(
+                (e["ts"], e["ts"] + e["dur"], e["name"]))
+
+    def scope_of(e):
+        where = launch.get(e.get("args", {}).get("correlation"))
+        if where is None:
+            return None
+        inner = None
+        for t0, t1, name in scopes.get(where[0], ()):
+            if t0 <= where[1] <= t1 and (inner is None or t0 >= inner[0]):
+                inner = (t0, name)
+        return inner[1] if inner else None
+
     spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s, e in spans[1:]:
@@ -2362,44 +2566,104 @@ def summarize_trace(path):
     span = max(e for _, e in spans) - spans[0][0]
     groups = {}
     for e in events:
-        group = "PyTorch elementwise and copies"
+        group = None
         if e["cat"] == "kernel":
             name = e["name"].lower()
             group = next((g for frag, g in KERNEL_GROUPS if frag in name),
-                         group)
+                         None)
+        if group is None:
+            sub = scope_of(e) or _op_group(e["name"]) or "other"
+            group = f"{ELEMENTWISE}: {sub}"
         ms, n = groups.get(group, (0.0, 0))
         groups[group] = (ms + e["dur"] / 1e3, n + 1)
     return {"span_ms": span / 1e3, "busy_ms": busy / 1e3,
             "idle_share": 1 - busy / span, "groups": groups}
 
 
-def profile_request(name, run):
-    """Run one more request (``run()``) under torch.profiler and print
-    its device span, busy time, idle share and time by kernel group; the
-    trace goes to the ignored build directory."""
+class _ProfiledOps:
+    """While open, the port's functions of PROFILED_OPS run inside
+    ``record_function`` scopes named by their group; restored on exit."""
+
+    def __enter__(self):
+        import importlib
+        import types
+
+        import torch
+
+        self.saved = []
+        for mod, attr, label in PROFILED_OPS:
+            path = mod.split(".")
+            functional = path[-1] == "F"
+            owner = importlib.import_module(
+                "ltx_video_gpupoor_tpu_torch." + ".".join(
+                    path[:-1] if functional else path))
+            if functional:
+                # the module's own torch.nn.functional, a copy: the scope
+                # reaches no other module (T5's GELU stays out of it)
+                own = types.ModuleType(owner.F.__name__)
+                own.__dict__.update(vars(owner.F))
+                self.saved.append((owner, "F", owner.F))
+                setattr(owner, "F", own)
+                owner = own
+            fn = getattr(owner, attr)
+
+            def scoped(*a, _fn=fn, _label=label, **k):
+                with torch.profiler.record_function(_label):
+                    return _fn(*a, **k)
+
+            self.saved.append((owner, attr, fn))
+            setattr(owner, attr, scoped)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in reversed(self.saved):
+            setattr(owner, attr, fn)
+        return False
+
+
+def _traced(path, run, scoped):
+    """``run()`` under torch.profiler, its trace exported to ``path``,
+    with PROFILED_OPS's scopes on if ``scoped``; (wall s, summary)."""
+    import contextlib
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    out_dir = os.path.join(ROOT, "ltx_video_gpupoor_tpu_torch", "build")
-    os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, f"trace_{name}.json")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _ProfiledOps() if scoped else contextlib.nullcontext(), \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     prof.export_chrome_trace(path)
-    s = summarize_trace(path)
+    return wall, summarize_trace(path)
+
+
+def profile_request(name, run):
+    """Run one more request (``run()``) twice under torch.profiler: as it
+    is, for its device span, busy time and idle share, then with
+    PROFILED_OPS's scopes on (host work at every scoped call, which would
+    widen the gaps) for the time by kernel group; the traces go to the
+    ignored build directory. Returns the second run's summary."""
+    out_dir = os.path.join(ROOT, "ltx_video_gpupoor_tpu_torch", "build")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"trace_{name}.json")
+    wall, s = _traced(path, run, scoped=False)
     log(f"[profile] {name} with the profiler on: wall "
         f"{wall:.3f} s; device span {s['span_ms']:.1f} ms, busy "
         f"{s['busy_ms']:.1f} ms, idle {100 * s['idle_share']:.2f} %; "
         f"trace {os.path.relpath(path, ROOT)}")
-    for group, (ms, n) in sorted(s["groups"].items(), key=lambda kv: -kv[1][0]):
+    path = os.path.join(out_dir, f"trace_{name}_scoped.json")
+    wall, g = _traced(path, run, scoped=True)
+    log(f"[profile] {name} again with the op scopes on: wall {wall:.3f} s; "
+        f"device span {g['span_ms']:.1f} ms, busy {g['busy_ms']:.1f} ms, "
+        f"idle {100 * g['idle_share']:.2f} %; by kernel group:")
+    for group, (ms, n) in sorted(g["groups"].items(), key=lambda kv: -kv[1][0]):
         log(f"[profile]   {group}: {ms:.1f} ms "
-            f"({100 * ms / s['busy_ms']:.1f} % of busy), {n} events")
-    return s
+            f"({100 * ms / g['busy_ms']:.1f} % of busy), {n} events")
+    return g
 
 
 def profile_ltx(gen, t5, height=480, width=704, frames=121):
@@ -2468,7 +2732,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, ROOT)
     t_start = time.perf_counter()
-    kind, _ = phase_device()
+    kind, ex2_per_s = phase_device()
     phase_build(compare=args.profile)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     k1_err = phase_k1(gen)
@@ -2477,7 +2741,7 @@ def main(argv=None) -> int:
     k3_err = phase_k3(gen)
     k5_err = phase_k5(gen)
     k6_err = phase_k6(gen)
-    times, info = phase_timing(gen)
+    times, info = phase_timing(gen, ex2_per_s)
     k8_err, k8_launches = phase_k8(gen, times, info)
     k7_err, k7_launches = phase_k7(gen, times, info)
     log(f"[clock] kernel checks and timings done at "

@@ -60,6 +60,9 @@
 //   issued together and tile j's softmax runs while P.V is in flight.
 // - Instances by mask kind, as K1: none, tail (the last tile compares),
 //   general (segment ids, causal).
+// Registers a thread (ptxas): QK tier 203-214 at D=128, QK+PV tier 232-255
+// (the s32 P.V accumulator in flight adds 64), 163-215 at D=64; no spills,
+// one block an SM.
 
 #include "hopper.cuh"
 

@@ -28,11 +28,13 @@
 //   [out, in]) are K-major already: nothing is rearranged.
 // - Operands arrive by TMA: one 2-D tensor map each for x_q and w, the
 //   128-byte swizzle, a k-step of 128 bytes (one swizzle span), into a ring
-//   of four 48 KB stages, each with a full and an empty mbarrier. Thread 0
-//   issues the loads from inside its warpgroup's loop, as K1 does at D=128:
-//   the 64 x 256 s32 accumulator takes 128 registers a thread, which a
-//   third (producer) warpgroup would cut to 168 in all. TMA's zero fill
-//   covers the ragged M, N and K edges; K % 16 == 0 is TMA's stride rule.
+//   of four 48 KB stages, each with a full and an empty mbarrier. A ninth
+//   warp issues every load: with thread 0 of a consumer doing it between
+//   a wgmma's issue and its wait, ptxas serialized the wgmma (C7518, the
+//   wait on an empty barrier in a divergent path). 288 threads leave 168
+//   registers a thread; the 64 x 256 s32 accumulator and the rest take
+//   154. TMA's zero fill covers the ragged M, N and K edges; K % 16 == 0 is
+//   TMA's stride rule.
 // - The tiles are walked in groups of eight row tiles, so that a wave of
 //   132 blocks reads a few MB of x_q and w and keeps them in L2.
 // - Epilogue through shared memory: the accumulator goes to the drained
@@ -89,7 +91,8 @@ __global__ void quantize_rows_kernel(const T* __restrict__ x, int K,
 constexpr int GBM = 128, GBN = 256;   // output tile
 constexpr int GBK = 128;              // bytes of K a stage: one swizzle span
 constexpr int G_STAGES = 4;
-constexpr int G_THREADS = 256;        // two consumer warpgroups
+constexpr int G_CONSUMERS = 256;      // two consumer warpgroups
+constexpr int G_THREADS = G_CONSUMERS + 32;  // and one producer warp
 constexpr int G_GROUP = 8;            // row tiles walked together
 constexpr int A_BYTES = GBM * GBK;    // 16 KB
 constexpr int B_BYTES = GBN * GBK;    // 32 KB
@@ -208,18 +211,23 @@ int8_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
   }
   __syncthreads();
 
+  if (threadIdx.x >= G_CONSUMERS) {
+    // ---- the producer warp: its first thread keeps the ring full ----
+    if (threadIdx.x == G_CONSUMERS) {
+      for (int kt = 0; kt < nk; ++kt) {
+        gemm_refill(ring, full, empty, &amap, &bmap, kt, m0, n0);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: 64 rows of the tile a warpgroup ----
   const int wg = threadIdx.x >> 7;
   const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
-  const bool loads = threadIdx.x == 0;
   uint32_t acc[128];
 #pragma unroll
   for (int i = 0; i < 128; ++i) acc[i] = 0u;
 
-  if (loads) {
-    for (int kt = 0; kt < G_STAGES && kt < nk; ++kt) {
-      gemm_refill(ring, full, empty, &amap, &bmap, kt, m0, n0);
-    }
-  }
   for (int kt = 0; kt < nk; ++kt) {
     const int s = kt % G_STAGES;
     const uint32_t a_rows = ring + s * STAGE_BYTES + wg * (64 * GBK);
@@ -235,17 +243,11 @@ int8_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
     wgmma_commit();
     wgmma_wait<1>();  // the products of step kt - 1 are done
     pin(acc);
-    if (kt > 0) {
-      if (lane == 0) mbar_arrive(empty + 8 * ((kt - 1) % G_STAGES));
-      if (loads && kt - 1 + G_STAGES < nk) {
-        gemm_refill(ring, full, empty, &amap, &bmap, kt - 1 + G_STAGES, m0,
-                    n0);
-      }
-    }
+    if (kt > 0 && lane == 0) mbar_arrive(empty + 8 * ((kt - 1) % G_STAGES));
   }
   wgmma_wait<0>();
   pin(acc);
-  __syncthreads();  // both warpgroups are done with the ring
+  bar_sync(1, G_CONSUMERS);  // both warpgroups are done with the ring
 
   // stage this warpgroup's 64 rows as int32 (columns 8 j + 2 t + {0, 1} of
   // rows g and g + 8 of the warp's 16)
@@ -259,7 +261,7 @@ int8_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
     *reinterpret_cast<uint2*>(stage + (r + 8) * ACC_PITCH + c * 4) =
         make_uint2(acc[4 * j + 2], acc[4 * j + 3]);
   }
-  bar_sync(1 + wg, 128);
+  bar_sync(2 + wg, 128);
 
   // 4 columns of one row a thread: rows of 64 chunks, 2 rows an iteration
   const int tid = threadIdx.x & 127;

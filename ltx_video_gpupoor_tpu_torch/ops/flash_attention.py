@@ -26,8 +26,8 @@ Port of ``ltx_video_gpupoor_tpu/ops/flash_attention.py``:
   :func:`int8_attention_plain` and the kernel ``csrc/flash_attention_int8.cu``
   (K4, the int8 branches of ``_flash_kernel``: scores :218-239, P.V
   :270-292, the x127 fold :321-327, finalize :393-401). Its QK+PV tier
-  reads V transposed and in its own kv order, laid out by
-  :func:`k4_v_layout`.
+  reads V transposed and in its own kv order, which the prologue writes
+  (:func:`k4_v_layout`).
 
 The int8 tiers' numerics depend on JAX's compiled kv block: K scales are
 per block in the QK+PV tier, and P is quantized against the running max
@@ -415,36 +415,58 @@ def fit_blocks(sq: int, skv: int, block_q: int = DEFAULT_BLOCK_Q,
     return block_q, block_kv
 
 
-def k4_v_layout(v8: torch.Tensor) -> torch.Tensor:
-    """int8 ``[B, H, S, D]`` -> ``[B, H, D, Spad]`` (Spad = S rounded up to
-    :data:`K4_TILE_KV`, zero rows past S): V transposed, so that the kv
-    axis is the one K4's s8 P.V reads contiguously (8-bit wgmma reads B
-    K-major only), with the kv rows of each 32-row chunk in
-    :data:`K4_KV_ORDER`. P.V over the permuted columns of P is P.V."""
-    b, h, s, d = v8.shape
+def _k4_v_view(vt: torch.Tensor) -> torch.Tensor:
+    """A K4 V^T buffer ``[B, H, D, Spad]`` seen as its kv rows, 8-D ``(b,
+    h, chunk, half, a, t, c, d)``: kv row ``32 chunk + 16 half + 8a + 2t
+    + c`` lies at column ``32 chunk + 16 half + 4t + 2a + c``
+    (:data:`K4_KV_ORDER`)."""
+    b, h, d, sp = vt.shape
+    return vt.view(b, h, d, sp // 32, 2, 4, 2, 2).permute(0, 1, 3, 4, 6, 5,
+                                                          7, 2)
+
+
+def k4_v_layout(v: torch.Tensor) -> torch.Tensor:
+    """``[B, H, S, D]`` int8 codes (or floats that hold them) -> int8
+    ``[B, H, D, Spad]`` (Spad = S rounded up to :data:`K4_TILE_KV`, zero
+    columns past S): V transposed, so that the kv axis is the one K4's s8
+    P.V reads contiguously (8-bit wgmma reads B K-major only), with the kv
+    rows of each 32-row chunk in :data:`K4_KV_ORDER`. One strided copy, no
+    index tensor. P.V over the permuted columns of P is P.V."""
+    b, h, s, d = v.shape
     sp = round_up(s, K4_TILE_KV)
     if sp != s:
-        v8 = F.pad(v8, (0, 0, 0, sp - s))
-    order = torch.tensor(K4_KV_ORDER, device=v8.device)
-    v8 = v8.reshape(b, h, sp // 32, 32, d).index_select(3, order)
-    return v8.permute(0, 1, 4, 2, 3).reshape(b, h, d, sp).contiguous()
+        v = F.pad(v, (0, 0, 0, sp - s))
+    vt = torch.empty(b, h, d, sp, dtype=torch.int8, device=v.device)
+    _k4_v_view(vt).copy_(v.reshape(b, h, sp // 32, 2, 2, 4, 2, d))
+    return vt
+
+
+def k4_v_rows(vt: torch.Tensor, s: int) -> torch.Tensor:
+    """The inverse of :func:`k4_v_layout`: int8 ``[B, H, S, D]``, the
+    first ``s`` kv rows (a copy)."""
+    b, h, d, sp = vt.shape
+    return _k4_v_view(vt).reshape(b, h, sp, d)[:, :, :s]
 
 
 class Int8Operands(NamedTuple):
     """What the quantize prologue hands to K4 or to its plain version.
 
-    ``q_scale`` carries the softmax scale times log2(e); ``k_scale`` has
-    one entry per ``k_block`` kv rows (the kv block in the QK+PV tier, 1
-    in the QK tier); ``v_scale`` (QK+PV tier) multiplies the int32 P.V
-    per channel, JAX's ``v_scale * 127``; ``kv_block`` is the JAX kernel's
-    kv block."""
+    The tensors are laid out as K4 reads them, and the plain version
+    reads the same ones. ``q_scale`` carries the softmax scale times
+    log2(e); ``k_scale`` has one entry per ``k_block`` kv rows (the kv
+    block in the QK+PV tier, 1 in the QK tier) over Skv rounded up to
+    :data:`K4_TILE_KV` (zero past Skv); ``v`` is, in the QK+PV tier, the
+    int8 codes as :func:`k4_v_layout` lays them out (:func:`k4_v_rows`
+    gives them back as rows); ``v_scale`` (QK+PV tier) multiplies the
+    int32 P.V per channel, JAX's ``v_scale * 127``; ``kv_block`` is the
+    JAX kernel's kv block."""
 
     q8: torch.Tensor          # int8 [B, H, Sq, D]
     q_scale: torch.Tensor     # fp32 [B, H, Sq]
     k8: torch.Tensor          # int8 [B, H, Skv, D]
-    k_scale: torch.Tensor     # fp32 [B, H, ceil(Skv / k_block)]
+    k_scale: torch.Tensor     # fp32 [B, H, round_up(Skv, 128) / k_block]
     k_block: int
-    v: torch.Tensor           # int8 (QK+PV tier) or the input dtype
+    v: torch.Tensor           # int8 [B, H, D, Spad] or the input [B, H, Skv, D]
     v_scale: torch.Tensor | None   # fp32 [B, H, D]
     kv_block: int
 
@@ -465,13 +487,15 @@ def int8_prologue(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     The k and v scales take their absmax over every kv row (rows that a
     segment mask hides included, as in JAX; its zero padding rows add
-    nothing)."""
+    nothing). The QK+PV tier's v codes are written straight into K4's V^T
+    layout, so a launch copies nothing."""
     b, h, sq, d = q.shape
     skv = k.shape[2]
     if scale is None:
         scale = d ** -0.5
-    _, kv_block = fit_blocks(round_up(sq, 128), round_up(skv, 128),
-                             DEFAULT_BLOCK_Q, block_kv)
+    spad = round_up(skv, K4_TILE_KV)
+    _, kv_block = fit_blocks(round_up(sq, 128), spad, DEFAULT_BLOCK_Q,
+                             block_kv)
     qf = q.float()
     q_s = _absmax_scale(qf, -1)
     q8 = torch.round(qf / q_s[..., None]).to(torch.int8)
@@ -479,8 +503,8 @@ def int8_prologue(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q_scale = (q_s * (scale * LOG2E)).contiguous()
     kf = k.float()
     if pv_int8:
-        nkv = round_up(skv, 128) // kv_block
-        kp = F.pad(kf, (0, 0, 0, nkv * kv_block - skv))
+        nkv = spad // kv_block
+        kp = F.pad(kf, (0, 0, 0, spad - skv))
         k_s = _absmax_scale(kp.reshape(b, h, nkv, kv_block, d), (3, 4))
         k8 = torch.round(kp.reshape(b, h, nkv, kv_block, d)
                          / k_s[..., None, None])
@@ -489,13 +513,16 @@ def int8_prologue(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         k_s = _absmax_scale(kf, -1)
         k8 = torch.round(kf / k_s[..., None]).to(torch.int8)
+        k_s = F.pad(k_s, (0, spad - skv))
         k_block = 1
     del kf
     v_scale = None
     if pv_int8:
-        vf = v.float()
+        vf = torch.empty(b, h, spad, d, device=v.device)
+        vf[:, :, :skv] = v
+        vf[:, :, skv:] = 0
         v_s = _absmax_scale(vf, 2)                        # [B, H, D]
-        v = torch.round(vf / v_s[:, :, None, :]).to(torch.int8)
+        v = k4_v_layout(torch.round(vf / v_s[:, :, None, :]))
         del vf
         v_scale = (v_s * INV127_F32 * 127.0).contiguous()
     return Int8Operands(q8, q_scale, k8, k_s.contiguous(), k_block, v,
@@ -586,6 +613,8 @@ def int8_attention_plain(
     b, h, sq, d = ops.q8.shape
     v, v_scale = ops.v, ops.v_scale
     pv_int8 = v_scale is not None
+    if pv_int8:
+        v = k4_v_rows(v, ops.k8.shape[2])
     sum_rounded = d % 128 != 0
     if block_kv is None:
         block_kv = ops.kv_block
@@ -691,13 +720,21 @@ def int8_tile_bound(
 def _check_int8_operands(ops: Int8Operands, device):
     for name, t in (("q8", ops.q8), ("k8", ops.k8)):
         _check_layout("K4", name, t, torch.int8, device)
-    _check_layout("K4", "v", ops.v,
-                  torch.int8 if ops.v_scale is not None else torch.bfloat16,
-                  device)
     b, h, sq, d = ops.q8.shape
-    nks = -(-ops.k8.shape[2] // ops.k_block)
+    spad = round_up(ops.k8.shape[2], K4_TILE_KV)
+    if ops.v_scale is None:
+        _check_layout("K4", "v", ops.v, torch.bfloat16, device)
+    elif ops.v.shape != (b, h, d, spad) or ops.v.dtype != torch.int8 \
+            or not ops.v.is_contiguous() or ops.v.device != device:
+        raise ValueError(f"K4 takes int8 v as k4_v_layout lays it out, "
+                         f"contiguous {(b, h, d, spad)} on {device}; got "
+                         f"{ops.v.dtype} {tuple(ops.v.shape)}")
+    if ops.k_block % K4_TILE_KV and ops.k_block != 1:
+        raise ValueError(f"K4 takes k scales per row or per {K4_TILE_KV}-"
+                         f"multiple kv block, got {ops.k_block}")
     for name, t, shape in (("q_scale", ops.q_scale, (b, h, sq)),
-                           ("k_scale", ops.k_scale, (b, h, nks)),
+                           ("k_scale", ops.k_scale,
+                            (b, h, spad // ops.k_block)),
                            ("v_scale", ops.v_scale, (b, h, d))):
         if t is None:
             continue
@@ -717,11 +754,8 @@ def int8_attention_cuda(
     out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Launch K4 on prologue operands that lie on the card; the result is
-    bf16, written into ``out`` (any 16-byte aligned layout) if given. The
-    QK+PV tier's V goes through :func:`k4_v_layout` first, the QK tier's
-    per-row k scales are padded to rows of a whole number of tiles (both
-    part of the launch's time). Each launch adds one to
-    ``flash_attention_int8.launches``."""
+    bf16, written into ``out`` (any 16-byte aligned layout) if given. Each
+    launch adds one to ``flash_attention_int8.launches``."""
     from . import _lib
 
     _check_seg_pair(q_segment_ids, kv_segment_ids)
@@ -738,27 +772,17 @@ def int8_attention_cuda(
     seg_q = q_segment_ids.data_ptr() if q_segment_ids is not None else None
     seg_kv = kv_segment_ids.data_ptr() if kv_segment_ids is not None else None
     pv_int8 = ops.v_scale is not None
-    if pv_int8:
-        if ops.k_block % K4_TILE_KV:
-            raise ValueError(f"K4 takes k scales per {K4_TILE_KV}-multiple "
-                             f"kv block, got {ops.k_block}")
-        v = k4_v_layout(ops.v)
-        k_scale = ops.k_scale
-    else:
-        v = ops.v
-        spad = round_up(skv, K4_TILE_KV)
-        k_scale = F.pad(ops.k_scale, (0, spad - skv)).contiguous()
     kind = mask_kind(skv, kv_valid, segments=q_segment_ids is not None,
                      causal=causal)
     code = _lib.library().k4_flash_attention_int8(
-        ops.q8.data_ptr(), ops.k8.data_ptr(), v.data_ptr(),
+        ops.q8.data_ptr(), ops.k8.data_ptr(), ops.v.data_ptr(),
         out.data_ptr(), seg_q, seg_kv, ops.q_scale.data_ptr(),
-        k_scale.data_ptr(),
+        ops.k_scale.data_ptr(),
         ops.v_scale.data_ptr() if pv_int8 else None,
         b, h, sq, skv, d,
-        *ops.q8.stride()[:3], *ops.k8.stride()[:3], *v.stride()[:3],
+        *ops.q8.stride()[:3], *ops.k8.stride()[:3], *ops.v.stride()[:3],
         *out.stride()[:3],
-        ops.k_block, k_scale.shape[2],
+        ops.k_block, ops.k_scale.shape[2],
         -1 if kv_valid is None else max(0, int(kv_valid)),
         int(bool(causal)), int(pv_int8), MASK_KINDS.index(kind),
         _lib.stream_ptr(ops.q8.device),

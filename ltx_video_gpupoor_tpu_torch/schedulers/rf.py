@@ -1,10 +1,10 @@
 """Rectified-flow Euler scheduler with per-token timesteps.
 
-Port of ``ltx_video_gpupoor_tpu/schedulers/rf.py``: the Uniform /
-LinearQuadratic / Constant (with its ``shift``) initial schedules, the SD3 and SimpleDiffusion
-resolution-dependent shifts, :func:`make_schedule` (:126),
-:func:`lower_timestep` and :func:`step` (:176) with scalar or per-token
-timesteps and stochastic resampling, and :func:`add_noise`.
+Port of ``ltx_video_gpupoor_tpu/schedulers/rf.py``: the Uniform,
+LinearQuadratic and Constant (with its ``shift``) initial schedules, the
+SD3 and SimpleDiffusion resolution-dependent shifts, :func:`make_schedule`
+(:126), :func:`lower_timestep` and :func:`step` (:176) with scalar or
+per-token timesteps and stochastic resampling, and :func:`add_noise`.
 
 Schedules are float32 tensors on the CPU (they are host-side metadata);
 ``step`` runs on the sample's device. Stochastic sampling draws its noise

@@ -64,10 +64,11 @@ def test_summarize_trace_counts_overlap_once(tmp_path):
     assert s["span_ms"] == 4.0                # 0 .. 4000 us
     assert s["busy_ms"] == 2.5                # 0-1500 and 3000-4000 us
     assert abs(s["idle_share"] - 0.375) < 1e-12
-    assert s["groups"] == {"K1 / K6 exact flash attention": (1.0, 1),
-                           "K2 / K5 int8 GEMM": (1.0, 1),
-                           "cuDNN conv3d (VAE)": (0.5, 1),
-                           "PyTorch elementwise and copies": (0.5, 1)}
+    assert s["groups"] == {
+        "K1 / K6 exact flash attention": (1.0, 1),
+        "K2 / K5 int8 GEMM": (1.0, 1),
+        "cuDNN conv3d (VAE)": (0.5, 1),
+        "PyTorch elementwise and copies: casts and copies": (0.5, 1)}
     # the bounded tier and the prologue's row kernel have groups of their own
     trace["traceEvents"] += [
         ev("kernel", "void (anonymous namespace)::flash_bounded_kernel<128>"
@@ -77,6 +78,71 @@ def test_summarize_trace_counts_overlap_once(tmp_path):
     groups = chip_smoke.summarize_trace(str(path))["groups"]
     assert groups["K3 bounded-score flash attention"] == (0.25, 1)
     assert groups["K5 prologue row kernel"] == (0.125, 1)
+    # PyTorch's own kernels go by the innermost record_function scope
+    # around their launch (matched through the correlation id), the
+    # redesigned kernels by their names
+    def launched(name, ts, dur, corr, host_ts):
+        k = ev("kernel", name, ts, dur)
+        k["args"] = {"correlation": corr}
+        r = ev("cuda_runtime", "cudaLaunchKernel", host_ts, 5.0)
+        r["args"] = {"correlation": corr}
+        return [k, r]
+
+    scope = ev("user_annotation", "RoPE", 100.0, 50.0)
+    inner = ev("user_annotation", "norms", 120.0, 10.0)
+    for e in (scope, inner):
+        e["tid"] = 7
+    trace["traceEvents"] += [scope, inner]
+    trace["traceEvents"] += launched("elementwise_kernel<mul>", 7000.0, 100.0,
+                                     1, 110.0)
+    trace["traceEvents"] += launched("elementwise_kernel<rsqrt>", 7100.0,
+                                     50.0, 2, 125.0)
+    trace["traceEvents"] += launched("elementwise_kernel<add>", 7200.0, 25.0,
+                                     3, 900.0)
+    for e in trace["traceEvents"]:
+        if e["cat"] == "cuda_runtime":
+            e["tid"] = 7
+    trace["traceEvents"] += [
+        ev("kernel", "void (anonymous namespace)::flash_int8_wgmma_kernel"
+           "<128, true, 1>(...)", 8000.0, 500.0),
+        ev("kernel", "void (anonymous namespace)::int8_gemm_wgmma_kernel<1>"
+           "(...)", 9000.0, 250.0)]
+    path.write_text(json.dumps(trace))
+    groups = chip_smoke.summarize_trace(str(path))["groups"]
+    assert groups["PyTorch elementwise and copies: RoPE"] == (0.1, 1)
+    assert groups["PyTorch elementwise and copies: norms"] == (0.05, 1)
+    assert groups["PyTorch elementwise and copies: other"] == (0.025, 1)
+    assert groups["K4 int8 flash attention"] == (0.5, 1)
+    assert groups["K2 / K5 int8 GEMM"] == (1.25, 2)
+
+
+def test_profiled_ops_scope_only_the_ports_own_calls():
+    """--profile's op scopes wrap the port's functions, GELU through each
+    model module's own copy of torch.nn.functional, so that no other
+    caller of torch.nn.functional.gelu lands in the DiT's GELU group;
+    everything is restored on exit."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from ltx_video_gpupoor_tpu_torch.models.ltx import transformer3d
+    from ltx_video_gpupoor_tpu_torch.models.wan import model as wan_model
+
+    gelu, functional = torch.nn.functional.gelu, transformer3d.F
+    rope = transformer3d.apply_rotary_emb
+    x = torch.ones(4)
+    with chip_smoke._ProfiledOps():
+        assert torch.nn.functional.gelu is gelu
+        for mod in (transformer3d, wan_model):
+            assert mod.F is not functional and mod.F.gelu is not gelu
+            assert mod.F.silu is torch.nn.functional.silu
+        assert transformer3d.apply_rotary_emb is not rope
+        with torch.profiler.profile() as prof:
+            transformer3d.F.gelu(x)
+            torch.nn.functional.gelu(x)
+        names = [e.name for e in prof.events()]
+        assert names.count("GELU / GEGLU") == 1
+    assert transformer3d.F is functional and wan_model.F is functional
+    assert transformer3d.apply_rotary_emb is rope
+    assert torch.nn.functional.gelu is gelu
 
 
 def _stubbed_main(monkeypatch, capsys, argv):
@@ -90,7 +156,7 @@ def _stubbed_main(monkeypatch, capsys, argv):
     timed = collections.defaultdict(lambda: (1.0, 1.0))
     info = collections.defaultdict(lambda: (1.0, "operations", None))
     results = {
-        "phase_device": ("a card", "a card, 700.00 W"),
+        "phase_device": ("a card", 4.18e12),
         "phase_build": 1.0, "phase_k1": 0.0, "phase_k2": 0.0,
         "phase_k4": (0.0, 0.0), "phase_k3": 0.0, "phase_k5": 0.0,
         "phase_k6": 0.0, "phase_timing": (timed, info),

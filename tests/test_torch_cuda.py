@@ -8,10 +8,12 @@ attention on wgmma) against their plain versions on the same bf16 operands:
 every element within two bf16 ulps plus 2**-9 of the largest output
 (``_within_two_ulps``), at shapes that land on each mask kind of the block and
 on each edge of its 128-row tiles; K2's int8 activations and int32
-accumulators exactly, its outputs at 1e-2 relative (one bf16 rounding).
-K4 (int8 attention, both tiers) against its plain version on the same
-prologue operands, stepping its online softmax (a) by the kernel's 64-row
-tile, the same math: every element within ``int8_tile_bound`` (a few P
+accumulators exactly (at ragged M, N and K: M 1, 17, 129; N off the
+256-column tile; K 16, 48, 8960; a dropped K tail must fail the check),
+its outputs at 1e-2 relative (one bf16 rounding).
+K4 (int8 attention, both tiers, every mask kind) against its plain version
+on the same prologue operands, stepping its online softmax (a) by the
+kernel's 128-row tile, the same math: every element within ``int8_tile_bound`` (a few P
 codes that round the other way, each moving a row by at most
 max|v| / (127 * its softmax mass), then one bf16 rounding), and the mean
 abs difference under 5e-4 of the mean |output|; (b) by JAX's kv block,
@@ -134,16 +136,24 @@ def test_k1_rejects_what_it_does_not_take(cuda):
 
 @pytest.mark.parametrize("m,k,n,dtype", [(67, 256, 200, torch.bfloat16),
                                          (3, 2048, 384, torch.float32),
-                                         (300, 48, 130, torch.bfloat16)])
+                                         (300, 48, 130, torch.bfloat16),
+                                         (1, 16, 200, torch.bfloat16),
+                                         (17, 48, 257, torch.float32),
+                                         (129, 8960, 600, torch.bfloat16),
+                                         (1000, 4096, 4100, torch.bfloat16)])
 def test_k2_matches_plain(cuda, m, k, n, dtype):
     gen = torch.Generator(device=cuda).manual_seed(2)
     x = (_randn(gen, m, k) * 3).to(dtype)
-    x[1] = 0
+    if m > 1:
+        x[1] = 0
     ql = quantize_weights(_randn(gen, n, k) * k ** -0.5)
     xq, sx, acc = im.int8_linear_acc(x, ql.w_int8)
     pq, ps = im.quantize_rows_plain(x)
     assert torch.equal(xq, pq) and torch.equal(sx, ps[:, 0])
     assert torch.equal(acc, im.int8_gemm_acc_plain(pq, ql.w_int8))
+    # a kernel that dropped its last 16-byte K step would not pass
+    dropped = im.int8_gemm_acc_plain(pq[:, :-16], ql.w_int8[:, :-16])
+    assert not torch.equal(acc, dropped)
     bias = _randn(gen, n)
     before = im.int8_linear.launches
     out = im.int8_linear(x, ql.w_int8, ql.scale, bias)
@@ -151,8 +161,10 @@ def test_k2_matches_plain(cuda, m, k, n, dtype):
     ref = im.int8_linear_plain(x, ql.w_int8, ql.scale, bias)
     assert out.dtype == dtype
     torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-6)
-    np.testing.assert_allclose(out[1].float().cpu().numpy(),
-                               bias.to(dtype).float().cpu().numpy(), atol=1e-6)
+    if m > 1:
+        np.testing.assert_allclose(out[1].float().cpu().numpy(),
+                                   bias.to(dtype).float().cpu().numpy(),
+                                   atol=1e-6)
 
 
 def test_k2_rejects_what_it_does_not_take(cuda):
@@ -179,11 +191,13 @@ def _k4_tile_ok(ops, kern, tile, *args, **kw):
 
 @pytest.mark.parametrize("pv_int8", [True, False])
 @pytest.mark.parametrize("d,sq,skv,seg,causal,kv_valid,block_kv", [
-    (128, 300, 300, False, False, None, 4096),   # ragged S
+    (128, 300, 300, False, False, None, 4096),   # ragged S: tail
     (64, 256, 700, False, False, None, 256),     # several kv blocks, D=64
     (128, 130, 77, True, False, None, 4096),     # text segments, a lost row
     (128, 500, 500, False, False, 333, 128),     # kv_valid tail
-    (64, 200, 200, False, True, None, 128),      # causal
+    (64, 200, 200, False, True, None, 128),      # causal: general
+    (128, 256, 512, False, False, None, 256),    # no mask code: none
+    (64, 384, 384, False, False, 256, 128),      # kv_valid on a tile: none
 ])
 def test_k4_matches_plain(cuda, pv_int8, d, sq, skv, seg, causal, kv_valid,
                           block_kv):
@@ -209,6 +223,9 @@ def test_k4_matches_plain(cuda, pv_int8, d, sq, skv, seg, causal, kv_valid,
     tile = fa.int8_attention_plain(ops, *args, block_kv=fa.K4_TILE_KV,
                                    out_dtype=q.dtype, **kw)
     assert _k4_tile_ok(ops, kern, tile, *args, **kw)
+    zeroed = kern.clone()                      # a planted fault: the last
+    zeroed[:, :, (sq - 1) // 128 * 128:] = 0   # q tile never written
+    assert not _k4_tile_ok(ops, zeroed, tile, *args, **kw)
     plain = fa.int8_attention_plain(ops, *args, out_dtype=q.dtype, **kw)
     block = (kern.float() - plain).abs()
     assert float(block.max()) < K4_BLOCK_MAX

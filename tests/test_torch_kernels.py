@@ -251,11 +251,12 @@ def test_unported_attention_tiers_raise(monkeypatch, mode, entry):
         with pytest.raises(NotImplementedError, match=entry):
             tattn.attention(q, q, q, mode=mode)
     else:
+        tattn.attention(q, q, q, mode=mode)
         tattn.attention(q, q, q, mode=mode, score_bound=40.0)
         tattn.attention_packed(torch.zeros(1, 8, 128), torch.zeros(1, 8, 128),
                                torch.zeros(1, 8, 128), 2, mode=mode)
-        assert calls == (["K3", "K6"] if mode == "pallas_hp"
-                         else [entry, entry])
+        assert calls == (["K1", "K3", "K6"] if mode == "pallas_hp"
+                         else [entry, entry, entry])
     calls.clear()
     tattn.attention(q, q, q, score_bound=40.0)
     assert calls == ["K3"]
@@ -817,7 +818,9 @@ def test_k4_scales_take_masked_rows_and_the_jax_block():
     np.testing.assert_allclose(float(ops.v_scale[0, 0, 3]), 60.0 / 127,
                                rtol=1e-6)
     qk = tfa.int8_prologue(q, k, v, pv_int8=False)
-    assert qk.k_block == 1 and qk.k_scale.shape == (1, 1, 300)
+    # the QK tier: a k scale a row, zero past Skv to a whole K4 tile
+    assert qk.k_block == 1 and qk.k_scale.shape == (1, 1, 384)
+    assert float(qk.k_scale[..., 300:].abs().max()) == 0.0
     assert qk.v_scale is None and qk.v.dtype == torch.float32
     # JAX's ones column of V (head dims that are not a 128 multiple):
     # scale 1/127, code 127, and its scale times the x127 fold
@@ -906,6 +909,17 @@ def test_k4_v_layout_is_the_kernels_kv_order(s):
     np.testing.assert_array_equal(
         p8[..., rows] @ vt.astype(np.int64).transpose(0, 1, 3, 2),
         p8 @ padded.astype(np.int64))
+    # k4_v_rows undoes it, and the prologue writes its v codes so laid out
+    np.testing.assert_array_equal(
+        tfa.k4_v_rows(torch.from_numpy(vt), s).numpy(), v8)
+    q = torch.from_numpy(rng.standard_normal((2, 3, 50, 128), np.float32))
+    vf = torch.from_numpy(rng.standard_normal((2, 3, s, 128), np.float32))
+    ops = tfa.int8_prologue(q, vf, vf)
+    codes = torch.round(vf / tfa._absmax_scale(vf, 2)[:, :, None, :])
+    np.testing.assert_array_equal(tfa.k4_v_rows(ops.v, s).numpy(),
+                                  codes.to(torch.int8).numpy())
+    np.testing.assert_array_equal(
+        ops.v.numpy(), tfa.k4_v_layout(codes.to(torch.int8)).numpy())
 
 
 @pytest.mark.parametrize("pv_int8", [True, False])
