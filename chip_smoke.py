@@ -13,7 +13,8 @@ Phases, one output line each (or a few):
 
 1. device   the card, its power limit, TF32 switched off for matmul/cuDNN.
 2. build    nvcc builds csrc/ into the kernel library (seconds, registers);
-            fails if ptxas serialized a wgmma or K1/K6's block spills.
+            fails if ptxas serialized a wgmma or a kernel on K1's block
+            (K1/K6, K7's tensor-core body, K8) or K2/K4 spills.
 3. K1       the exact attention kernel (wgmma, TMA tile loads) against its
             plain version at the main path's shapes (self-attention B=3
             H=32 S=5280 D=64; cross-attention to 256 masked text tokens
@@ -76,24 +77,29 @@ Phases, one output line each (or a few):
             shape (B=3 S=5280, 32 heads of 64), on slices of a fused q/k/v
             projection, ragged with a kv_valid tail and with an odd head
             count: K3's check and planted faults.
-5e. K8     the sub-block-pipelined attention kernel against its plain
-            version (the same sub-blocks, the same roundings) at B=2 H=32
-            S=5376 D=64 for nsub 1, 2, 4, 8 and at B=1 H=2 S=1344 with
-            64-row kv tiles: K3's check; a planted fault (two sub-blocks'
-            V rows swapped) must fail it. Then the tool's own main() runs
+5e. K8     the sub-block-pipelined attention kernel (K1's D=64 block,
+            the Q.K^T of the next sub-block issued before this one's
+            softmax) against its plain version (the same sub-blocks, the
+            same roundings) at B=2 H=32 S=5376 D=64 for nsub 1, 2, 4, 8 and
+            at B=1 H=2 S=1344 (a ragged last q tile) with 64-row kv tiles:
+            K3's check; a planted fault (two sub-blocks' V rows swapped)
+            must fail it. Then the tool's own main() runs
             (ltx_video_gpupoor_tpu_torch.tools.mb_selfattn_pipeline): its
             check against exact attention, K1 and K8 per nsub timed (each
             instance's registers are in the build phase's ptxas lines).
 5f. K7     the ring-attention kernel (the whole ring in one cooperative
-            launch) for p = 2, 4, 8 at B=1 H=12 S=32768 D=128 in bf16
-            against the same ring in plain PyTorch (K3's check) and
-            against one K1 call on the joined tensors, twice in a row on
-            one workspace; a planted fault (a rank skips a step's math)
-            must fail the check; p = 1 runs without a workspace; at the
-            JAX tests' shapes (B=1 H=2 S=64 D=32 and S=32 D=16, p = 8) in
+            launch; its tensor-core body is K1's block) for p = 1, 2, 4, 8
+            at B=1 H=12 S=32768 D=128 in bf16 against the same ring in
+            plain PyTorch (K3's check) and against one K1 call on the
+            joined tensors, twice in a row on one workspace; a planted
+            fault (a rank skips a step's math) must fail the check; p = 1
+            runs without a workspace; where S/p is an odd multiple of 64
+            (the block's tail instance) at D 64 and 128; at the JAX
+            tests' shapes (B=1 H=2 S=64 D=32 and S=32 D=16, p = 8) in
             fp32 (atol 2e-5) and bf16 (atol 3e-2) through the CUDA-core
             body; on a dp2 x sp2 x tp2 mesh the rings that the neighbour
-            ids spell out.
+            ids spell out. Its time line gives the softmax state it moves
+            through device memory.
 6. timing   each kernel and its plain version, CUDA events, median of 5
             (plain versions at the large attention shapes: median of 3),
             and the one PyTorch call that computes the same function where
@@ -209,7 +215,7 @@ K8_REPLACES = "tools/mb_selfattn_pipeline.py:32"
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
 PEAK_BYTES = 3.35e12
 # K1 and K6 before their redesign (the mma.sync block with 64-row tiles),
-# and K2, K4 and K5 on their mma.sync kernels, ms on an NVIDIA H100 80GB
+# and K2, K4, K5, K7 and K8 on their mma.sync kernels, ms on an NVIDIA H100 80GB
 # HBM3 at 700 W as this script's phase_timing measured them then (PERF.md's
 # kernel table), printed beside the new times
 ACCEPTED_MS = {
@@ -226,6 +232,10 @@ ACCEPTED_MS = {
     "K4 int8pv 13B pass 2 cross": 0.812,
     "K5 pass 2 qkv": 7.984, "K5 pass 2 proj_in": 10.756,
     "K5 pass 1 qkv": 2.061, "K5 pass 1 proj_in": 2.789,
+    # K7 and K8 on their mma.sync bodies (chip run 4 of PR 4)
+    "K7 p=1": 48.614, "K7 p=2": 47.305, "K7 p=4": 48.115, "K7 p=8": 50.555,
+    "K8 nsub 1": 2.900, "K8 nsub 2": 3.033, "K8 nsub 4": 3.060,
+    "K8 nsub 8": 3.463,
 }
 # one ex2 a score on the special-function units: 16 a clock on each SM at
 # compute capability 9.0 (the CUDA C++ Programming Guide's instruction
@@ -292,6 +302,11 @@ RING_RANKS = (2, 4, 8)
 RING_TIMED_P = 4
 RING_SMALL = [(1, 2, 64, 32), (1, 2, 32, 16)]
 RING_MESH = (("dp", 2), ("sp", 2), ("tp", 2))
+# the tensor-core body where S/p is an odd multiple of 64 (its tail
+# instance: the last kv tile masked, q rows past S/p not stored): (B, H, S,
+# D, p)
+RING_TAIL = [(1, 3, 8 * 192, 128, 8), (2, 2, 2 * 64, 64, 2),
+             (1, 2, 4 * 320, 64, 4), (1, 2, 64, 128, 1)]
 # K8: the tool's shape, and its check's shape with 64-row kv tiles
 K8_SHAPE = (2, 32, 5376, 64)
 K8_SMALL = (1, 2, 1344, 64)
@@ -395,9 +410,11 @@ def phase_device():
     return name, ex2_per_s
 
 
-# the kernels on wgmma, by a fragment of their mangled names
+# the kernels on wgmma, by a fragment of their mangled names (K7's
+# tensor-core instances are ring_kernel<0, ...>)
 WGMMA_KERNELS = ("flash_wgmma_kernel", "int8_gemm_wgmma_kernel",
-                 "flash_int8_wgmma_kernel")
+                 "flash_int8_wgmma_kernel", "ring_kernelILi0E",
+                 "flash_pipelined_kernel")
 
 
 def phase_build(compare=False):
@@ -417,16 +434,17 @@ def phase_build(compare=False):
     for ln in lines:
         if "Compiling entry" in ln:
             entry = ln.split("'")[1] if "'" in ln else ln
-            # the template arguments (ILi<D>ELi<mask kind>E) tell the
-            # instances of one kernel apart
-            targs = re.search(r"I((?:L[ib]\d+E)+)E+v", entry)
+            # the template arguments (ILi<D>ELi<mask kind>E, and K7's
+            # element type) tell the instances of one kernel apart
+            targs = re.search(r"I((?:L[ib]\d+E)+(?:\d+__nv_bfloat16|f)?)E+v",
+                              entry)
             log("  " + entry[:60] + (" <" + targs.group(1) + ">" if targs
                                      else ""))
         elif "Used" in ln or ("spill" in ln and "0 bytes spill" not in ln):
             log("    " + ln.replace("ptxas info    : ", ""))
-            # the wgmma kernels (K1/K6, K2, K4) keep wgmma groups in flight:
-            # a spill there is a fault of the design (K3's mma.sync block
-            # spills 16 bytes)
+            # the wgmma kernels (K1/K6, K2, K4, K7, K8) keep wgmma groups in
+            # flight: a spill there is a fault of the design (K3's mma.sync
+            # block spills 16 bytes)
             assert "Used" in ln or not any(
                 k in entry for k in WGMMA_KERNELS), \
                 f"a wgmma kernel spills: {ln} ({entry})"
@@ -980,8 +998,10 @@ def phase_k8(gen, times, info):
         log(f"[time] K8 B={b} H={h} S={s_} D={d} nsub={nsub}: kernel "
             f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
             f"{times[f'K8 nsub {nsub}'][1]:.3f} ms, K1 (the production "
-            f"kernel) {result['production_ms']:.3f} ms, bound {bnd[0]:.3f} "
-            f"ms ({bnd[1]}), scaled_dot_product_attention {lib:.3f} ms")
+            f"kernel) {result['production_ms']:.3f} ms "
+            f"({ms / result['production_ms']:.3f}x), bound {bnd[0]:.3f} "
+            f"ms ({bnd[1]}), scaled_dot_product_attention {lib:.3f} ms; "
+            + _vs_accepted(times, f"K8 nsub {nsub}"))
     return max(errs), counts["K8"]
 
 
@@ -1019,9 +1039,11 @@ def phase_k7(gen, times, info):
     main path's call)."""
     import torch
 
+    from ltx_video_gpupoor_tpu_torch.ops import _lib
     from ltx_video_gpupoor_tpu_torch.ops import flash_attention as fa
     from ltx_video_gpupoor_tpu_torch.parallel import ring_rdma as rr
 
+    lib_k = _lib.library()
     sdpa = torch.nn.functional.scaled_dot_product_attention
     # the CUDA-core body at the JAX tests' shapes, both types, p = 8 (and a
     # one-rank ring, which has no workspace and touches no counter)
@@ -1067,6 +1089,22 @@ def phase_k7(gen, times, info):
         "ids, each against exact attention on its batch row and head, "
         "atol 2e-5 ok")
 
+    # the tensor-core body's tail instances
+    before = rr.ring_attention_rdma.launches_tc
+    for b, h, s_, d, p in RING_TAIL:
+        q, k, v = (_heads(b, h, s_, d, gen, True) for _ in range(3))
+        shards = [t.chunk(p, dim=2) for t in (q, k, v)]
+        plain = torch.cat(rr.ring_attention_plain(*shards), dim=2)
+        for call in range(2):
+            out = rr.ring_attention_rdma_sharded(q, k, v, p)
+            torch.cuda.synchronize()
+            ratio, err = _exact_check(out, plain)
+            assert ratio <= 1.0, (b, h, s_, d, p, call, err, ratio)
+        log(f"[K7] tensor-core body, tail instance B={b} H={h} S={s_} D={d} "
+            f"p={p} (S/p={s_ // p}): max_abs_err={err:.3e}, {ratio:.3f} of "
+            "the bound against the plain ring, two calls on one workspace ok")
+    assert rr.ring_attention_rdma.launches_tc == before + 2 * len(RING_TAIL)
+
     # the tensor-core body at the Wan-1.3B self-attention width
     b, h, s_, d = RING_SHAPE
     q, k, v = (_heads(b, h, s_, d, gen, True) for _ in range(3))
@@ -1107,15 +1145,22 @@ def phase_k7(gen, times, info):
                           warmup=1)
         times[f"K7 p={p}"] = (ms, pl)
         info[f"K7 p={p}"] = (*bnd, lib)
+        # softmax state through device memory: every rank stores it after
+        # each step but the last and loads it before each but the first
+        state = 4 * p * 2 * (p - 1) * lib_k.k7_ring_state_floats(
+            0, b * h, s_ // p, d)
         log(f"[K7] tensor-core body B={b} H={h} S={s_} D={d} p={p}: "
             f"max_abs_err={err:.3e}, {ratio:.3f} of the bound against the "
             f"plain ring, {ratio_k1:.3f} against one K1 call on the joined "
             f"tensors, two calls on one workspace{planted} ok")
         log(f"[time] K7 ring attention p={p}: kernel {ms:.3f} ms "
             f"({flops / ms / 1e9:.1f} TFLOP/s), plain ring {pl:.3f} ms, one "
-            f"K1 call on the joined tensors {k1_ms:.3f} ms, bound "
-            f"{bnd[0]:.3f} ms ({bnd[1]}), scaled_dot_product_attention "
-            f"{lib:.3f} ms")
+            f"K1 call on the joined tensors {k1_ms:.3f} ms ({ms / k1_ms:.3f}x"
+            f"), bound {bnd[0]:.3f} ms ({bnd[1]}), "
+            f"scaled_dot_product_attention {lib:.3f} ms; softmax state "
+            f"{state / 1e9:.3f} GB through device memory "
+            f"({state / PEAK_BYTES * 1e3:.3f} ms at the memory rate); "
+            + _vs_accepted(times, f"K7 p={p}"))
         del plain, shards
         torch.cuda.empty_cache()
     assert rr.ring_attention_rdma.launches_tc > before
@@ -1384,6 +1429,12 @@ def phase_timing(gen, ex2_per_s):
         k1 = None
         if seg is None:      # K1 at the same shape, the exact tier
             k1 = cuda_time_ms(lambda: fa.flash_attention(q, k, v))
+            k1_lib = cuda_time_ms(lambda: sdpa(q, k, v))
+            k1_bnd = attention_bound(b, h, sq, skv, d)
+            log(f"[time] K1 {name}-attention B={b} H={h} Sq={sq} Skv={skv} "
+                f"D={d}: kernel {k1:.3f} ms, bound {k1_bnd[0]:.3f} ms "
+                f"({k1_bnd[1]}), scaled_dot_product_attention {k1_lib:.3f} "
+                "ms")
         for pv in (True, False):
             tier = "int8pv" if pv else "int8qk"
             ops = fa.int8_prologue(q, k, v, pv_int8=pv)
@@ -1624,7 +1675,7 @@ def build_models(cfg, vcfg):
     dense_cut = {k: v.cpu() for k, v in dit.state_dict().items()
                  if not k.startswith("blocks.")
                  or k.split(".")[1] in ("0", "1")}
-    quantize_params(dit)
+    quantize_params(dit, mode="dynamic")
     vae = vaem.init_params(vaem.CausalVAEDecoder(vcfg, DEFAULT_POLICY,
                                                  device=dev),
                            torch.Generator(device=dev).manual_seed(SEED + 1))
@@ -1665,7 +1716,7 @@ def reference_check(cfg, dense_cut):
     for d in (torch.device("cuda"), torch.device("cpu")):
         m = tf.LTXTransformer3D(cut, DEFAULT_POLICY, device=d)
         m.load_state_dict(dense_cut)
-        models.append(quantize_params(m))
+        models.append(quantize_params(m, mode="dynamic"))
     g = torch.Generator().manual_seed(SEED + 3)
     f, h, w = 2, 8, 8
     lat = torch.randn(3, f * h * w, cfg.in_channels, generator=g)
@@ -1831,14 +1882,14 @@ def build_ltx13b_models(cfg, vcfg):
         dataclasses.replace(cfg, num_layers=0), DEFAULT_POLICY, device=dev), g)
     dit.cfg = cfg
     dense_cut = {k: v.cpu() for k, v in dit.state_dict().items()}
-    quantize_params(dit)
+    quantize_params(dit, mode="dynamic")
     kw = dict(device=dev, dtype=DEFAULT_POLICY.param_dtype)
     for i in range(cfg.num_layers):
         blk = tf.init_params(tf.Block(cfg, **kw), g)
         if i < 2:
             dense_cut.update({f"blocks.{i}.{k}": v.cpu()
                               for k, v in blk.state_dict().items()})
-        dit.blocks.append(quantize_params(blk))
+        dit.blocks.append(quantize_params(blk, mode="dynamic"))
     vae = vaem.init_params(vaem.CausalVAE(vcfg, DEFAULT_POLICY, device=dev),
                            torch.Generator(device=dev).manual_seed(SEED + 21))
     up = lup.init_params(
@@ -1944,7 +1995,7 @@ def ltx13b_reference_check(cfg, dense_cut):
     for d in (torch.device("cuda"), torch.device("cpu")):
         m = tf.LTXTransformer3D(cut, DEFAULT_POLICY, device=d)
         m.load_state_dict(dense_cut)
-        models.append(quantize_params(m))
+        models.append(quantize_params(m, mode="dynamic"))
     g = torch.Generator().manual_seed(SEED + 23)
     f, h, w = 2, 4, 4
     lat = torch.randn(1, f * h * w, cfg.in_channels, generator=g)
@@ -2287,7 +2338,7 @@ def build_wan_models():
     dense_cut = {k: v.cpu() for k, v in dit.state_dict().items()
                  if not k.startswith("blocks.")
                  or k.split(".")[1] in ("0", "1")}
-    quantize_params(dit)
+    quantize_params(dit, mode="dynamic")
     vae = wv.init_params(wv.WanVAEDecoder(wv.WanVAEConfig(), DEFAULT_POLICY,
                                           device=dev),
                          torch.Generator(device=dev).manual_seed(SEED + 11))
@@ -2332,7 +2383,7 @@ def wan_reference_check(dense_cut, height=480, width=832, frames=17):
     for d in (torch.device("cuda"), torch.device("cpu")):
         m = wm.WanModel(cut, DEFAULT_POLICY, device=d)
         m.load_state_dict(dense_cut)
-        models.append(quantize_params(m))
+        models.append(quantize_params(m, mode="dynamic"))
     g = torch.Generator().manual_seed(SEED + 13)
     f, h, w = (frames - 1) // 4 + 1, height // 8, width // 8
     x = torch.randn(2, f, h, w, cut.in_dim, generator=g)

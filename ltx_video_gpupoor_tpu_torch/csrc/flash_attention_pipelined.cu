@@ -4,8 +4,8 @@
 //
 // Replaces the Pallas TPU kernel tools/mb_selfattn_pipeline.py::_kernel
 // (reached through pipelined_attention, :81 -> pl.pallas_call :93), an
-// experiment beside the production kernel (K1): does giving the scheduler
-// independent matrix work to interleave with the exponentials move an
+// experiment beside the production kernel (K1): does giving the tensor
+// cores independent matrix work to run under the exponentials move an
 // attention kernel?
 //
 // Computes o = softmax(q k^T / sqrt(D)) v over [B, H, S, D] views (any
@@ -16,250 +16,243 @@
 // per sub-block; p = exp2(s - m) meets V as bf16; the denominator is the sum
 // of those bf16-rounded p (on the TPU a ones column of V collects it).
 //
-// What was chosen here. The TPU's 768 x 2688 blocks answer its VMEM; here a
-// block of 4 warps owns 64 q rows (16 a warp, as K3) and walks kv tiles of
-// BKV = 128 rows held in shared memory (K and V, rows padded by 16 bytes),
-// cut into NSUB = 1, 2, 4 or 8 sub-blocks of 128, 64, 32 or 16 rows; 16 is
-// one mma.sync depth of P.V. A 64-row tile (NSUB 1, 2, 4) serves lengths
-// that 128 does not divide. NSUB and BKV are template values, so the loop
-// over sub-blocks is unrolled and both score fragments (this sub-block's
-// and the next one's) live in registers. The order of issue is the point:
-// the mma.sync group of sub-block t+1 stands in the source before the max,
-// exp2 and P.V of sub-block t. As on the TPU the overlap stops at the tile's
-// edge: the first Q.K^T of a tile waits for the tile's loads.
+// Design: K1's D=64 block (attention_block.cuh) in its producer layout. 128
+// q rows a block in two consumer warpgroups, a producer warpgroup whose
+// first thread keeps a four-stage TMA ring of K and V tiles full, both
+// products on wgmma with P from registers. The TPU's 768 x 2688 blocks
+// answer its VMEM; here the kv tile is TR = 128 rows (64 for lengths that
+// 128 does not divide, the tool's check at S = 1344), the sub-block BSUB =
+// block_kv / nsub rows: 128, 64, 32 or 16, each a legal wgmma width.
+// - Q is scaled and rounded in place in shared memory after its TMA load
+//   (the 128-byte swizzle moves 16-byte chunks within a row, and every
+//   value takes the same factor), then fence.proxy.async makes the stores
+//   visible to wgmma, which reads Q through the async proxy.
+// - nsub 1 (BSUB = 128) is K1's own schedule with these roundings: Q.K^T of
+//   tile j and P.V of tile j - 1 in flight together, the consumers taking
+//   turns on the tensor cores. Two 128-wide score fragments, the look-ahead
+//   below would need, do not fit the 168 registers a thread of 384.
+// - BSUB <= 64: the sub-blocks run as one sequence across the tiles. The
+//   Q.K^T of sub-block u + 1 (m64nBSUBk16, D/16 of them) is committed
+//   before the max, exp2 and P.V of sub-block u, together with the P.V of
+//   u - 1 (BSUB/16 k-steps of m64n64k16), and both run under u's softmax.
+//   At BSUB = 16 each Q.K^T is m64n16k16 and each P.V a single k16 step:
+//   issue overhead, which is what the tool measures. (64, 1) computes what
+//   (128, 2) computes, on 64-row tiles, so it runs this loop too.
+// q rows past S (the check's 1344 rows leave half a q tile) read as 0 and
+// are not stored.
 //
-// What bounds it on an H100: as K1 at D=64, the tensor cores and the
-// softmax's exp2 and max work, not memory. Everything else (synchronous
-// tile loads, mma.sync m16n8k16, V fragments read by scalar loads) is that
-// of flash_attention.cu (K3's block, and K1's before its wgmma redesign), so
-// that the two differ in the order of issue alone.
+// What bounds it on an H100: as K1 at D=64, the tensor cores and just as
+// much the exponentials (one ex2 a score takes as long on the special
+// function units as both products of a 64-wide head), not memory.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "attention_block.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
+constexpr int HD = 64;  // the head dim K8 takes
+using C = Cfg<HD>;
 
-constexpr int D = 64;
-constexpr int BQ = 64;        // q rows per block: 4 warps x 16
-constexpr int NTHREADS = 128;
-constexpr int LD = D + 8;     // padded shared row
-constexpr int KD = D / 16;    // k16 steps over the head dim
-constexpr int ND = D / 8;     // n8 tiles over the head dim
-constexpr float M_FLOOR = -1e20f;
-
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ void sts128(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
 }
 
-__device__ __forceinline__ uint32_t pack_f(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_h(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// `rows` rows from row0 of a [S, D] slice with row stride `ss` into a padded
-// shared tile; with SCALE each value is multiplied by c in fp32 and rounded
-// back to bf16 (the q prologue)
-template <bool SCALE>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long ss, int row0, int rows,
-                                          float c) {
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < rows * CPR; i += NTHREADS) {
-    const int r = i / CPR, ch = i % CPR;
-    uint4 val = *reinterpret_cast<const uint4*>(src + (row0 + r) * ss + ch * 8);
-    if (SCALE) {
-      bf16* e = reinterpret_cast<bf16*>(&val);
+// this warpgroup's 64 rows of Q (8 KB) times c, rounded to bf16, in place;
+// then visible to the warpgroup's wgmma
+__device__ __forceinline__ void scale_q(uint32_t rows, float c, int wg) {
+  for (int i = threadIdx.x & 127; i < 64 * 128 / 16; i += 128) {
+    uint4 val = lds128(rows + i * 16);
+    bf16* e = reinterpret_cast<bf16*>(&val);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        e[j] = __float2bfloat16_rn(__bfloat162float(e[j]) * c);
-      }
+    for (int j = 0; j < 8; ++j) {
+      e[j] = __float2bfloat16_rn(__bfloat162float(e[j]) * c);
     }
-    *reinterpret_cast<uint4*>(dst + r * LD + ch * 8) = val;
+    sts128(rows + i * 16, val);
   }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  bar_sync(3 + wg, 128);  // 1 and 2 are the consumers' turns
 }
 
-// scores of one sub-block: s[j] (n8 tile j of its BSUB rows) = q k^T
-template <int NSB>
-__device__ __forceinline__ void qk_sub(float (&s)[NSB][4],
-                                       const uint32_t (&qf)[KD][4],
-                                       const bf16* ks, int g, int t) {
-#pragma unroll
-  for (int j = 0; j < NSB; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-#pragma unroll
-    for (int j = 0; j < NSB; ++j) {
-      const bf16* kp = ks + (j * 8 + g) * LD + kk * 16 + t * 2;
-      mma16816(s[j], qf[kk], ld32(kp), ld32(kp + 8));
+// One consumer warpgroup's 64 q rows against n_tiles kv tiles of TR rows,
+// sub-block by sub-block (BSUB rows each). Step u issues the Q.K^T of
+// u + 1 and the P.V of u - 1 together, takes the max, exp2 and sum of u
+// under both, then waits for both: no wgmma group is in flight from one
+// step to the next (ptxas serializes every wgmma of a loop whose groups
+// stay in flight across its back edge while other code reads their
+// accumulators).
+template <int TR, int BSUB>
+__device__ __forceinline__ void attend_ahead(const Ring& rg, int n_tiles,
+                                             float (&acc)[HD / 2], float& m0,
+                                             float& m1, float& l0,
+                                             float& l1) {
+  constexpr int SPT = TR / BSUB;  // sub-blocks a tile
+  constexpr int NS = BSUB / 2;    // scores a thread of one sub-block
+  constexpr int STAGES = C::STAGES;
+  const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
+  const uint32_t sQw = rg.sQ + wg * (64 * 128);
+  // sub-block u's rows of the K or V ring: tile u / SPT, rows from
+  // (u % SPT) * BSUB, 128 bytes a row
+  auto rows = [&](uint32_t ring, int u) {
+    return ring + (u / SPT) % STAGES * C::TILE_BYTES + u % SPT * BSUB * 128;
+  };
+  auto stage = [&](int u) { return (u / SPT) % STAGES; };
+  auto phase = [&](int u) { return (u / SPT / STAGES) & 1; };
+  const int n_sub = n_tiles * SPT;
+  float sc[NS];   // scores of sub-block u, then its p
+  float sn[NS];   // scores of u + 1, written by the Q.K^T in flight
+  uint32_t p[NS / 2];
+  float a0, a1;
+
+  mbar_wait(rg.k_full, 0);
+  qk_issue<HD, BSUB>(sc, sQw, rows(rg.sK, 0));
+  wgmma_wait<0>();
+  pin(sc);
+  // Step u: sc holds its scores, p the P of u - 1 (unless `first`), acc
+  // the rows up to u - 1 but for u - 1's P.V; `ahead`: u + 1 exists. Every
+  // sub-block waits for its tile's barriers: after the tile's first they
+  // have completed and return at once.
+  auto step = [&](int u, auto first, auto ahead) {
+    constexpr bool is_first = decltype(first)::value;
+    constexpr bool next = decltype(ahead)::value;
+    // Q.K^T of u is done with its K rows
+    if (u % SPT == SPT - 1 && lane == 0) {
+      mbar_arrive(rg.k_empty + 8 * stage(u));
     }
+    if (next) {  // u + 1's Q.K^T goes before u's softmax
+      mbar_wait(rg.k_full + 8 * stage(u + 1), phase(u + 1));
+      qk_issue<HD, BSUB>(sn, sQw, rows(rg.sK, u + 1));
+    }
+    if (!is_first) {
+      mbar_wait(rg.v_full + 8 * stage(u - 1), phase(u - 1));
+      pv_issue_bf16<HD, BSUB>(acc, p, rows(rg.sV, u - 1));
+    }
+    softmax_tile<NS, true>(sc, 1.f, m0, m1, l0, l1, a0, a1);
+    wgmma_wait<0>();
+    pin(acc);
+    pin(sn);
+    if (!is_first && (u - 1) % SPT == SPT - 1 && lane == 0) {
+      mbar_arrive(rg.v_empty + 8 * stage(u - 1));
+    }
+    rescale<HD>(acc, a0, a1);
+    pack_rounded(sc, p);
+    if (next) {
+#pragma unroll
+      for (int i = 0; i < NS; ++i) sc[i] = sn[i];
+    }
+  };
+  using Yes = How<1>;
+  using No = How<0>;
+  if (n_sub == 1) {
+    step(0, Yes{}, No{});
+  } else {
+    step(0, Yes{}, Yes{});
+    for (int u = 1; u + 1 < n_sub; ++u) step(u, No{}, Yes{});
+    step(n_sub - 1, No{}, No{});
   }
+  // the last sub-block's P.V
+  mbar_wait(rg.v_full + 8 * stage(n_sub - 1), phase(n_sub - 1));
+  pv_issue_bf16<HD, BSUB>(acc, p, rows(rg.sV, n_sub - 1));
+  wgmma_wait<0>();
+  pin(acc);
 }
 
-template <int BKV, int NSUB>
-__global__ void __launch_bounds__(NTHREADS)
-flash_pipelined_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, bf16* __restrict__ o,
-                       int S,
-                       long long qsb, long long qsh, long long qss,
-                       long long ksb, long long ksh, long long kss,
-                       long long vsb, long long vsh, long long vss,
-                       long long osb, long long osh, long long oss,
-                       float c) {
-  constexpr int BSUB = BKV / NSUB;  // kv rows per sub-block
-  constexpr int NSB = BSUB / 8;     // n8 tiles of scores per sub-block
-  static_assert(BSUB % 16 == 0, "a sub-block is a multiple of one P.V depth");
-  __shared__ __align__(16) bf16 Ks[BKV * LD];
-  __shared__ __align__(16) bf16 Vs[BKV * LD];
-
+template <int TR, int BSUB>
+__global__ void __launch_bounds__(384, 1)
+flash_pipelined_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap,
+                       bf16* __restrict__ o, int S, long long osb,
+                       long long osh, long long oss, float c) {
+  extern __shared__ uint8_t smem_raw[];
+  const Ring rg = ring_layout<HD>(smem_raw);
   const int b = blockIdx.z, h = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
-  const int row1 = row0 + 8;
+  const int wg = threadIdx.x >> 7;
+  const int n_tiles = S / TR;
 
-  const bf16* qb = q + b * qsb + h * qsh;
-  const bf16* kb = k + b * ksb + h * ksh;
-  const bf16* vb = v + b * vsb + h * vsh;
-
-  // q * (D**-0.5 * log2 e), rounded to bf16, staged through the K tile
-  load_tile<true>(Ks, qb, qss, q0, BQ, c);
+  if (threadIdx.x == 0) ring_init<HD>(rg);
   __syncthreads();
-  uint32_t qf[KD][4];
-  {
-    const bf16* r0p = Ks + (warp * 16 + g) * LD + t * 2;
-    const bf16* r1p = r0p + 8 * LD;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      qf[kk][0] = ld32(r0p + kk * 16);
-      qf[kk][1] = ld32(r1p + kk * 16);
-      qf[kk][2] = ld32(r0p + kk * 16 + 8);
-      qf[kk][3] = ld32(r1p + kk * 16 + 8);
+
+  if (wg == 2) {
+    // ---- producer warpgroup: one thread keeps the K and V rings full ----
+    if (threadIdx.x == 256) {
+      produce<HD>(rg, &qmap, &kmap, &vmap, q0, h, b, n_tiles, TR);
     }
+    return;
   }
 
+  // ---- consumers: 64 q rows a warpgroup ----
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  Rows r;
+  r.row0 = q0 + wg * 64 + warp * 16 + g;
+  r.row1 = r.row0 + 8;
+  r.qs0 = r.qs1 = 0;
+  r.kv_seg = nullptr;
+  r.Skv = r.kv_lim = S;
+  r.causal = 0;
+
+  // q * (D**-0.5 * log2 e), rounded to bf16 once
+  mbar_wait(rg.q_full, 0);
+  scale_q(rg.sQ + wg * (64 * 128), c, wg);
+
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
   float m0 = M_FLOOR, m1 = M_FLOOR, l0 = 0.f, l1 = 0.f;
-  float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  if constexpr (BSUB == BKV) {
+    // the scores are in the exp2 domain already: c = 1
+    const Tiles tl = {&qmap, &kmap, &vmap, q0, h, b, n_tiles, 0, 0, 1.f};
+    attend_tiles<HD, MASK_NONE, true, false, true>(
+        rg, tl, r, [](int) { return false; }, acc, m0, m1, l0, l1);
+  } else {
+    attend_ahead<TR, BSUB>(rg, n_tiles, acc, m0, m1, l0, l1);
   }
 
-  for (int kv0 = 0; kv0 < S; kv0 += BKV) {
-    __syncthreads();  // every warp is done with the previous tile
-    load_tile<false>(Ks, kb, kss, kv0, BKV, 0.f);
-    load_tile<false>(Vs, vb, vss, kv0, BKV, 0.f);
-    __syncthreads();
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  store_rows<HD>(acc, l0 > 0.f ? l0 : 1.f, l1 > 0.f ? l1 : 1.f,
+                 o + b * osb + h * osh, oss, r.row0, r.row1, S, t);
+}
 
-    // two score fragments: sub-block u in s[u & 1] (at NSUB = 1 the second
-    // is never touched and takes no register)
-    float s[2][NSB][4];
-    qk_sub<NSB>(s[0], qf, Ks, g, t);
-#pragma unroll
-    for (int u = 0; u < NSUB; ++u) {
-      float (&sc)[NSB][4] = s[u & 1];
-      if (u + 1 < NSUB) {
-        // the next sub-block's Q.K^T, issued before this one's softmax
-        qk_sub<NSB>(s[(u + 1) & 1], qf, Ks + (u + 1) * BSUB * LD, g, t);
-      }
-      float mx0 = sc[0][0], mx1 = sc[0][2];
-#pragma unroll
-      for (int j = 0; j < NSB; ++j) {
-        mx0 = fmaxf(mx0, fmaxf(sc[j][0], sc[j][1]));
-        mx1 = fmaxf(mx1, fmaxf(sc[j][2], sc[j][3]));
-      }
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-      const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);
-      m0 = mn0;
-      m1 = mn1;
-      float ls0 = 0.f, ls1 = 0.f;
-#pragma unroll
-      for (int j = 0; j < NSB; ++j) {
-        // p as the product sees it: the denominator sums the rounded p
-        sc[j][0] = round_bf16(exp2f(sc[j][0] - mn0));
-        sc[j][1] = round_bf16(exp2f(sc[j][1] - mn0));
-        sc[j][2] = round_bf16(exp2f(sc[j][2] - mn1));
-        sc[j][3] = round_bf16(exp2f(sc[j][3] - mn1));
-        ls0 += sc[j][0] + sc[j][1];
-        ls1 += sc[j][2] + sc[j][3];
-      }
-      l0 = l0 * a0 + ls0;  // per-thread partial sums; reduced at the end
-      l1 = l1 * a1 + ls1;
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        acc[n][0] *= a0;
-        acc[n][1] *= a0;
-        acc[n][2] *= a1;
-        acc[n][3] *= a1;
-      }
-      // acc += P V over this sub-block's rows, P from the score registers
-#pragma unroll
-      for (int kk = 0; kk < BSUB / 16; ++kk) {
-        uint32_t pa[4];
-        pa[0] = pack_f(sc[2 * kk][0], sc[2 * kk][1]);
-        pa[1] = pack_f(sc[2 * kk][2], sc[2 * kk][3]);
-        pa[2] = pack_f(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
-        pa[3] = pack_f(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
-        const bf16* vp = Vs + (u * BSUB + kk * 16 + t * 2) * LD + g;
-#pragma unroll
-        for (int n = 0; n < ND; ++n) {
-          const bf16* vn = vp + n * 8;
-          const uint32_t b0 = pack_h(vn[0], vn[LD]);
-          const uint32_t b1 = pack_h(vn[8 * LD], vn[9 * LD]);
-          mma16816(acc[n], pa, b0, b1);
-        }
-      }
-    }
-  }
+struct Call {
+  const void *q, *k, *v;
+  void* o;
+  int B, H, S;
+  long long qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss;
+  float c;
+  cudaStream_t stream;
+};
 
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float d0 = l0 > 0.f ? l0 : 1.f;
-  const float d1 = l1 > 0.f ? l1 : 1.f;
-  bf16* ob = o + b * osb + h * osh;
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    const int col = n * 8 + t * 2;
-    *reinterpret_cast<uint32_t*>(ob + row0 * oss + col) =
-        pack_f(acc[n][0] / d0, acc[n][1] / d0);
-    *reinterpret_cast<uint32_t*>(ob + row1 * oss + col) =
-        pack_f(acc[n][2] / d1, acc[n][3] / d1);
+template <int TR, int BSUB>
+int launch(const Call& a) {
+  CUtensorMap qmap = {}, kmap = {}, vmap = {};
+  if (!make_map(&qmap, a.q, HD, a.S, a.H, a.B, a.qss, a.qsh, a.qsb) ||
+      !make_map(&kmap, a.k, HD, a.S, a.H, a.B, a.kss, a.ksh, a.ksb, TR) ||
+      !make_map(&vmap, a.v, HD, a.S, a.H, a.B, a.vss, a.vsh, a.vsb, TR)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  auto kernel = flash_pipelined_kernel<TR, BSUB>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.S + BQ - 1) / BQ, a.H, a.B);
+  kernel<<<grid, 384, C::SMEM_BYTES, a.stream>>>(
+      qmap, kmap, vmap, static_cast<bf16*>(a.o), a.S, a.osb, a.osh, a.oss,
+      a.c);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
-
-#define K8_LAUNCH(BKV_, NSUB_)                                               \
-  flash_pipelined_kernel<BKV_, NSUB_><<<grid, NTHREADS, 0, st>>>(            \
-      qp, kp, vp, op, S, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb,   \
-      osh, oss, c)
 
 // q, k, v, out [B, H, S, 64] bf16 with a unit last stride; block_kv 128
 // (nsub 1, 2, 4, 8) or 64 (nsub 1, 2, 4); S a multiple of block_kv;
@@ -270,25 +263,21 @@ extern "C" int k8_flash_attention_pipelined_bf16(
     int qsb, int qsh, int qss, int ksb, int ksh, int kss,
     int vsb, int vsh, int vss, int osb, int osh, int oss,
     int block_kv, int nsub, float c, void* stream) {
-  if (Dh != D || S <= 0 || B <= 0 || H <= 0 || S % BQ || S % block_kv) {
+  if (Dh != HD || S <= 0 || B <= 0 || H <= 0 ||
+      (block_kv != 64 && block_kv != 128) || S % block_kv) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid(S / BQ, H, B);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
-  bf16* op = static_cast<bf16*>(o);
-  const int key = block_kv * 16 + nsub;
-  switch (key) {
-    case 128 * 16 + 1: K8_LAUNCH(128, 1); break;
-    case 128 * 16 + 2: K8_LAUNCH(128, 2); break;
-    case 128 * 16 + 4: K8_LAUNCH(128, 4); break;
-    case 128 * 16 + 8: K8_LAUNCH(128, 8); break;
-    case 64 * 16 + 1: K8_LAUNCH(64, 1); break;
-    case 64 * 16 + 2: K8_LAUNCH(64, 2); break;
-    case 64 * 16 + 4: K8_LAUNCH(64, 4); break;
+  const Call a = {q, k, v, o, B, H, S, qsb, qsh, qss, ksb, ksh, kss,
+                  vsb, vsh, vss, osb, osh, oss, c,
+                  static_cast<cudaStream_t>(stream)};
+  switch (block_kv * 16 + nsub) {
+    case 128 * 16 + 1: return launch<128, 128>(a);
+    case 128 * 16 + 2: return launch<128, 64>(a);
+    case 128 * 16 + 4: return launch<128, 32>(a);
+    case 128 * 16 + 8: return launch<128, 16>(a);
+    case 64 * 16 + 1: return launch<64, 64>(a);
+    case 64 * 16 + 2: return launch<64, 32>(a);
+    case 64 * 16 + 4: return launch<64, 16>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,9 @@
 // What the Hopper kernels share: mbarriers, TMA loads, wgmma descriptors,
 // fences and register pins, tensor-map encoding, and the attention blocks'
-// mask code (csrc/flash_attention_wgmma.cu: K1/K6; flash_attention_int8.cu:
-// K4; int8_linear.cu: K2 takes the first four). Every function is inline
-// and lives in an anonymous namespace, so each source gets its own copy.
+// P.V product and mask code (flash_attention_int8.cu: K4; int8_linear.cu:
+// K2 takes the first four; K1's block, which K6, K7 and K8 run too, adds
+// its own in attention_block.cuh). Every function is inline and lives in an
+// anonymous namespace, so each source gets its own copy.
 //
 // Descriptors. A tile that wgmma reads from shared memory is K-major with
 // rows of 128 bytes (64 bf16 or 128 int8 values) under the 128-byte
@@ -248,16 +249,18 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], uint32_t a0, uint32
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
 }
 
-// acc += P V for one kv tile, P from registers (k-step kk takes kv rows
-// 16 kk .. 16 kk + 15), issued and committed, not waited for
-template <int D>
+// acc += P V for KV kv rows (a tile, or K8's sub-block of one), P from
+// registers (k-step kk takes kv rows 16 kk .. 16 kk + 15), issued and
+// committed, not waited for
+template <int D, int KV = BKV>
 __device__ __forceinline__ void pv_issue_bf16(float (&acc)[D / 2],
-                                         uint32_t (&p)[32], uint32_t v_tile) {
+                                         uint32_t (&p)[KV / 4],
+                                         uint32_t v_tile) {
   pin(acc);
   pin(p);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < BKV / 16; ++kk) {
+  for (int kk = 0; kk < KV / 16; ++kk) {
     const uint64_t dv = wgmma_desc(v_tile + kk * 2048, PANEL_BYTES, 1024);
     if constexpr (D == 128) {
       wgmma_rs_n128(acc, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
@@ -271,10 +274,11 @@ __device__ __forceinline__ void pv_issue_bf16(float (&acc)[D / 2],
 }
 
 // p rounded to bf16 in the A-fragment order of the P V product
-__device__ __forceinline__ void pack_p(const float (&sc)[64],
-                                       uint32_t (&p)[32]) {
+template <int N>
+__device__ __forceinline__ void pack_p(const float (&sc)[N],
+                                       uint32_t (&p)[N / 2]) {
 #pragma unroll
-  for (int jn = 0; jn < 16; ++jn) {
+  for (int jn = 0; jn < N / 4; ++jn) {
     p[2 * jn] = pack_f(sc[4 * jn], sc[4 * jn + 1]);
     p[2 * jn + 1] = pack_f(sc[4 * jn + 2], sc[4 * jn + 3]);
   }

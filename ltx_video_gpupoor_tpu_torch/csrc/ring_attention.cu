@@ -19,7 +19,9 @@
 //   more (head, q tile) items than they could keep in registers from one
 //   ring step to the next. An item belongs to one block for the whole call
 //   (item i to block i % nblk), so its state is private to that block and
-//   is stored thread by thread, in no layout a reader would expect.
+//   is stored thread by thread, in no layout a reader would expect. The
+//   first step does not load it and the last does not store it: at p = 1 it
+//   never leaves registers.
 // - make_async_remote_copy + DMA semaphores become 16-byte stores through
 //   the right neighbour's slot pointer, then __threadfence_system() and a
 //   counter raised with release semantics at system scope; the receiver
@@ -27,6 +29,11 @@
 //   shard, and does so BEFORE its math of the step (:78-91), so the stores
 //   drain while the tensor cores work. Step 0 reads the rank's own k and v
 //   in place (the TPU kernel first copies them into slot 0).
+// - The tensor-core body reads a slot with TMA, the async proxy, while the
+//   peer wrote it with generic stores: a proxy fence (fence.proxy.async)
+//   follows the acquire before thread 0 issues a TMA load of it, and
+//   precedes the release of `done`, which lets the peer overwrite a slot
+//   this rank's TMA loads have read.
 // - The neighbour barrier of :71-77 guards a slot that is about to be
 //   overwritten. Here the sender waits until EVERY block of the right
 //   neighbour has finished the step that read that slot (`done`, counted
@@ -39,37 +46,41 @@
 //   signals for its own.
 // - Ranks wait on each other, so all blocks must be resident at once: one
 //   cudaLaunchCooperativeKernel, its grid sized from the occupancy query.
-//   Every spin is bounded: a protocol fault traps instead of hanging.
+//   Every spin is bounded: a protocol fault traps instead of hanging. The
+//   ring waits only between items, where no wgmma group is in flight.
 // - The kernel takes each rank's buffers as base pointers. On a host with
 //   several cards the same kernel would be launched once a device with
 //   peer-mapped pointers; that launch is not written here.
 //
-// Two bodies do the tile math under the one protocol. The tensor-core body
-// (bf16, D 64 or 128, shards that the 64-row tile divides) is that of
-// flash_attention.cu (K3's, and K1's before its wgmma redesign): a block
-// of 4 warps owns 64 q rows, kv tiles of 64 rows go through shared memory,
-// mma.sync m16n8k16 with fp32 accumulation, the softmax in the exp2 domain.
-// The CUDA-core body (fp32 or bf16 in, every product in fp32, one thread a
-// q row, the step's max taken before its exponentials, as on the TPU)
-// takes every other shape; it only ever sees test-sized ones.
+// Two bodies do the tile math under the one protocol.
+// - The tensor-core body (bf16, D 64 or 128, shards of a multiple of 64
+//   rows) is K1's block (attention_block.cuh): an item is 128 q rows of one
+//   (batch, head) in two consumer warpgroups, Q and the kv tiles of 128 rows
+//   come by TMA into the mbarrier ring, both products run on wgmma with P
+//   from registers, the softmax is in the exp2 domain (the scale arrives
+//   times log2 e). The block keeps its ring's position across items and
+//   steps. Shards that 128 does not divide take K1's tail instance: TMA
+//   zero-fills the rows past S/p, the last kv tile masks them, and q rows
+//   past S/p are not stored. Tensor maps (q, k, v of each rank, and its two
+//   k and two v slots) live in a device buffer: the slots' maps are written
+//   once a workspace, the inputs' at every call.
+// - The CUDA-core body (fp32 or bf16 in, every product in fp32, one thread a
+//   q row, the step's max taken before its exponentials, as on the TPU)
+//   takes every other shape; it only ever sees test-sized ones.
 //
 // What bounds it on an H100: the math, as K1 (6.6e12 FLOP at the Wan-1.3B
-// width against 3 * 2 * 25 MB of copies a rank at p = 4).
+// width against 3 * 2 * 25 MB of copies a rank at p = 4, and about 1.2 GB of
+// softmax state written and read back in all at p = 4).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "attention_block.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
 constexpr int MAXP = 16;
-constexpr int NTHREADS = 128;
-constexpr int BQ = 64;
-constexpr int BKV = 64;
+constexpr int NTHREADS = 128;     // the CUDA-core body's block
+constexpr int TC_THREADS = 256;   // the tensor-core body's: K1's two consumers
+constexpr int TC_ROWS = 64;       // S/p the tensor-core body takes: multiples
 constexpr int MAXD_SIMPLE = 128;
-constexpr float NEG_INF = -1e30f;
 constexpr float L_FLOOR = 1e-20f;
 // about ten seconds at the card's clock: far beyond any honest wait
 constexpr long long SPIN_LIMIT = 20000000000LL;
@@ -93,7 +104,14 @@ struct RingArgs {
 
 // ---------------------------------------------------------------- protocol
 
+// generic-proxy accesses to global memory ordered with async-proxy (TMA)
+// ones
+__device__ __forceinline__ void proxy_fence() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void signal(unsigned* flag) {
+  proxy_fence();
   __threadfence_system();
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -116,6 +134,7 @@ __device__ __forceinline__ void wait_for(const unsigned* flag,
       if (clock64() - t0 > SPIN_LIMIT) __trap();
       __nanosleep(100);
     }
+    proxy_fence();  // thread 0 issues the TMA loads of what arrived
   }
   __syncthreads();
 }
@@ -137,9 +156,9 @@ __device__ void copy_share(const Block& src, char* dst, int H, int BH, int Sl,
                            int row_bytes, int esize) {
   const int cpr = row_bytes / 16;
   const long long total = static_cast<long long>(BH) * Sl * cpr;
-  for (long long i = blockIdx.x * static_cast<long long>(NTHREADS) +
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
-       i < total; i += static_cast<long long>(gridDim.x) * NTHREADS) {
+       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
     const long long row = i / cpr;
     const int ch = static_cast<int>(i % cpr);
     const int bh = static_cast<int>(row / Sl), s = static_cast<int>(row % Sl);
@@ -151,197 +170,96 @@ __device__ void copy_share(const Block& src, char* dst, int H, int BH, int Sl,
 
 // ------------------------------------------------- the tensor-core body
 
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// Tensor maps a rank reads, in the buffer `maps`: q, k, v of rank r at
+// 3 r .. 3 r + 2; its k slots 0, 1 and v slots 0, 1 at 3 p + 4 r .. + 3.
+__device__ __forceinline__ const CUtensorMap* kv_map(const CUtensorMap* maps,
+                                                     int p, int rank,
+                                                     int step, int v) {
+  if (step == 0) return maps + 3 * rank + 1 + v;
+  return maps + 3 * p + 4 * rank + 2 * v + step % 2;
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// the buffer's maps were written by a copy before the launch: the tensor
+// map proxy must not use what it may hold of an earlier call's
+__device__ __forceinline__ void map_acquire(const CUtensorMap* map) {
+  asm volatile("fence.proxy.tensormap::generic.acquire.gpu [%0], 128;\n"
+               :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
-__device__ __forceinline__ uint32_t pack_f(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_h(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// 64 rows from row0 of head-slice `bh` of a block into a padded shared tile
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const Block& blk, int H,
-                                          int bh, int row0) {
-  constexpr int LD = D + 8;
-  constexpr int CPR = D / 8;
-  const bf16* src = reinterpret_cast<const bf16*>(blk.base) +
-                    row_offset(blk, H, bh, 0);
-  for (int i = threadIdx.x; i < BKV * CPR; i += NTHREADS) {
-    const int r = i / CPR, c = i % CPR;
-    const uint4 val = __ldcg(reinterpret_cast<const uint4*>(
-        src + (row0 + r) * blk.ss + c * 8));
-    *reinterpret_cast<uint4*>(dst + r * LD + c * 8) = val;
-  }
-}
-
-// One (head, q tile) item against one kv block: K3's loop over 64-row kv
-// tiles, with the running state loaded from and stored to the item's
-// private rows of `state` (m0, m1, l0, l1, acc[...] per thread).
-template <int D>
-__device__ void tc_item(const RingArgs& a, int rank, int item,
-                        const Block& kblk, const Block& vblk, bool first,
-                        bool last, bf16* Ks, bf16* Vs) {
-  constexpr int LD = D + 8;
-  constexpr int KD = D / 16;
-  constexpr int ND = D / 8;
-  constexpr int NS = BKV / 8;
-  constexpr int NSTATE = 4 + ND * 4;
-  const int tiles = a.Sl / BQ;
-  const int bh = item / tiles, q0 = (item % tiles) * BQ;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
-
-  const Block qblk{static_cast<const char*>(a.q[rank]), a.qsb, a.qsh, a.qss};
-  __syncthreads();  // the previous item is done with the tiles
-  load_tile<D>(Ks, qblk, a.H, bh, q0);
-  __syncthreads();
-  uint32_t qf[KD][4];
-  {
-    const bf16* r0p = Ks + (warp * 16 + g) * LD + t * 2;
-    const bf16* r1p = r0p + 8 * LD;
+// The rank's items of one step on K1's block: per item, the state in (or
+// the first step's empty one), the kv block of this step folded in, the
+// state out (or, at the last step, the output). `it` and `q_phase` are the
+// ring's position and Q's barrier phase, carried across items and steps.
+template <int D, int MASK>
+__device__ void tc_step(const RingArgs& a, const CUtensorMap* maps, int rank,
+                        int step, int items, const Ring& rg, int& it,
+                        int& q_phase) {
+  constexpr int NST = 4 + D / 2;  // state floats a thread: m, l, acc
+  const bool first = step == 0, last = step == a.p - 1;
+  const int q_tiles = (a.Sl + BQ - 1) / BQ;
+  const int n_tiles = (a.Sl + BKV - 1) / BKV;
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  Rows r;
+  r.qs0 = r.qs1 = 0;
+  r.kv_seg = nullptr;
+  r.Skv = r.kv_lim = a.Sl;
+  r.causal = 0;
+  // the tail instance's last kv tile holds rows past S/p
+  auto needs_mask = [&](int j) {
+    return MASK == MASK_TAIL && j == n_tiles - 1;
+  };
+  Tiles tl;
+  tl.qmap = maps + 3 * rank;
+  tl.kmap = kv_map(maps, a.p, rank, step, 0);
+  tl.vmap = kv_map(maps, a.p, rank, step, 1);
+  tl.n_tiles = n_tiles;
+  tl.c = a.scale;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int bh = item / q_tiles;
+    tl.q0 = (item % q_tiles) * BQ;
+    tl.h = bh % a.H;
+    tl.b = bh / a.H;
+    tl.it = it;
+    tl.q_phase = q_phase;
+    r.row0 = tl.q0 + wg * 64 + warp * 16 + g;
+    r.row1 = r.row0 + 8;
+    float* st = a.state[rank] +
+                static_cast<long long>(item) * NST * TC_THREADS + threadIdx.x;
+    float acc[D / 2];
+    float m0 = M_FLOOR, m1 = M_FLOOR, l0 = 0.f, l1 = 0.f;
+    if (first) {
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      qf[kk][0] = ld32(r0p + kk * 16);
-      qf[kk][1] = ld32(r1p + kk * 16);
-      qf[kk][2] = ld32(r0p + kk * 16 + 8);
-      qf[kk][3] = ld32(r1p + kk * 16 + 8);
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    } else {
+      m0 = st[0];
+      m1 = st[TC_THREADS];
+      l0 = st[2 * TC_THREADS];
+      l1 = st[3 * TC_THREADS];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = st[(4 + i) * TC_THREADS];
     }
-  }
-
-  float* st = a.state[rank] +
-              static_cast<long long>(item) * NSTATE * NTHREADS + threadIdx.x;
-  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
-  float acc[ND][4];
-  if (first) {
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-    }
-  } else {
-    m0 = st[0 * NTHREADS];
-    m1 = st[1 * NTHREADS];
-    l0 = st[2 * NTHREADS];
-    l1 = st[3 * NTHREADS];
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n][e] = st[(4 + n * 4 + e) * NTHREADS];
-    }
-  }
-
-  for (int kv0 = 0; kv0 < a.Sl; kv0 += BKV) {
+    // every warp is done with the last item's Q before thread 0 loads this
+    // item's into its place
     __syncthreads();
-    load_tile<D>(Ks, kblk, a.H, bh, kv0);
-    load_tile<D>(Vs, vblk, a.H, bh, kv0);
-    __syncthreads();
-
-    float s[NS][4];
+    attend_tiles<D, MASK, false, true>(rg, tl, r, needs_mask, acc, m0, m1,
+                                       l0, l1);
+    it += n_tiles;
+    q_phase ^= 1;
+    if (!last) {
+      st[0] = m0;
+      st[TC_THREADS] = m1;
+      st[2 * TC_THREADS] = l0;
+      st[3 * TC_THREADS] = l1;
 #pragma unroll
-    for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        const bf16* kp = Ks + (j * 8 + g) * LD + kk * 16 + t * 2;
-        mma16816(s[j], qf[kk], ld32(kp), ld32(kp + 8));
-      }
+      for (int i = 0; i < D / 2; ++i) st[(4 + i) * TC_THREADS] = acc[i];
+      continue;
     }
-    float mx0 = NEG_INF, mx1 = NEG_INF;
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] *= a.scale;
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float ls0 = 0.f, ls1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      s[j][0] = exp2f(s[j][0] - mn0);
-      s[j][1] = exp2f(s[j][1] - mn0);
-      s[j][2] = exp2f(s[j][2] - mn1);
-      s[j][3] = exp2f(s[j][3] - mn1);
-      ls0 += s[j][0] + s[j][1];
-      ls1 += s[j][2] + s[j][3];
-    }
-    l0 = l0 * a0 + ls0;  // per-thread partial sums; reduced at the end
-    l1 = l1 * a1 + ls1;
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      acc[n][0] *= a0;
-      acc[n][1] *= a0;
-      acc[n][2] *= a1;
-      acc[n][3] *= a1;
-    }
-#pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_f(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_f(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_f(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_f(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const bf16* vp = Vs + (kk * 16 + t * 2) * LD + g;
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        const bf16* vn = vp + n * 8;
-        const uint32_t b0 = pack_h(vn[0], vn[LD]);
-        const uint32_t b1 = pack_h(vn[8 * LD], vn[9 * LD]);
-        mma16816(acc[n], pa, b0, b1);
-      }
-    }
-  }
-
-  if (!last) {
-    st[0 * NTHREADS] = m0;
-    st[1 * NTHREADS] = m1;
-    st[2 * NTHREADS] = l0;
-    st[3 * NTHREADS] = l1;
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[(4 + n * 4 + e) * NTHREADS] = acc[n][e];
-    }
-    return;
-  }
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float d0 = fmaxf(l0, L_FLOOR), d1 = fmaxf(l1, L_FLOOR);
-  bf16* ob = static_cast<bf16*>(a.o[rank]) + (bh / a.H) * a.osb +
-             (bh % a.H) * a.osh;
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    const int c = n * 8 + t * 2;
-    *reinterpret_cast<uint32_t*>(ob + row0 * a.oss + c) =
-        pack_f(acc[n][0] / d0, acc[n][1] / d0);
-    *reinterpret_cast<uint32_t*>(ob + row1 * a.oss + c) =
-        pack_f(acc[n][2] / d1, acc[n][3] / d1);
+    l0 = quad_sum(l0);
+    l1 = quad_sum(l1);
+    bf16* ob = static_cast<bf16*>(a.o[rank]) + tl.b * a.osb + tl.h * a.osh;
+    store_rows<D>(acc, fmaxf(l0, L_FLOOR), fmaxf(l1, L_FLOOR), ob, a.oss,
+                  r.row0, r.row1, a.Sl, t);
   }
 }
 
@@ -426,13 +344,13 @@ __device__ void simple_item(const RingArgs& a, int rank, int item,
 
 // ---------------------------------------------------------------- the ring
 
-// BODY 0: tensor cores, bf16, D = DT; BODY 1: CUDA cores, T in
-template <int BODY, int DT, typename T>
-__global__ void __launch_bounds__(NTHREADS)
-ring_kernel(const RingArgs a, int items) {
-  constexpr int LDS = BODY == 0 ? BKV * (DT + 8) : 8;
-  __shared__ __align__(16) bf16 Ks[LDS];
-  __shared__ __align__(16) bf16 Vs[LDS];
+// BODY 0: tensor cores, bf16, D = DT, MASK none or tail; BODY 1: CUDA
+// cores, T in
+template <int BODY, int DT, int MASK, typename T>
+__global__ void __launch_bounds__(BODY == 0 ? TC_THREADS : NTHREADS, 1)
+ring_kernel(const RingArgs a, const CUtensorMap* __restrict__ maps,
+            int items) {
+  extern __shared__ uint8_t smem_raw[];  // the tensor-core body's block
   const int rank = blockIdx.y;
   const int p = a.p;
   const int right = (rank + 1) % p;
@@ -440,6 +358,20 @@ ring_kernel(const RingArgs a, int items) {
   const int row_bytes = a.D * esize;
   const long long slot_bytes =
       static_cast<long long>(a.BH) * a.Sl * row_bytes;
+  Ring rg;
+  int it = 0, q_phase = 0;
+  if constexpr (BODY == 0) {
+    rg = ring_layout<DT>(smem_raw);
+    if (threadIdx.x == 0) {
+      ring_init<DT>(rg);
+      for (int step = 0; step < p && step < 3; ++step) {
+        if (step == 0) map_acquire(maps + 3 * rank);
+        map_acquire(kv_map(maps, p, rank, step, 0));
+        map_acquire(kv_map(maps, p, rank, step, 1));
+      }
+    }
+    __syncthreads();
+  }
 
   for (int step = 0; step < p; ++step) {
     Block kblk, vblk;
@@ -471,11 +403,10 @@ ring_kernel(const RingArgs a, int items) {
 
     // the math of this step, while the block for the next one is in flight
     if (!(rank == a.fault_rank && step == a.fault_step)) {
-      for (int item = blockIdx.x; item < items; item += gridDim.x) {
-        if constexpr (BODY == 0) {
-          tc_item<DT>(a, rank, item, kblk, vblk, step == 0, step == p - 1, Ks,
-                      Vs);
-        } else {
+      if constexpr (BODY == 0) {
+        tc_step<DT, MASK>(a, maps, rank, step, items, rg, it, q_phase);
+      } else {
+        for (int item = blockIdx.x; item < items; item += gridDim.x) {
           simple_item<T>(a, rank, item, kblk, vblk, step == 0, step == p - 1);
         }
       }
@@ -488,44 +419,73 @@ ring_kernel(const RingArgs a, int items) {
   }
 }
 
-template <int BODY, int DT, typename T>
+// dynamic shared memory of an instance, set as its attribute (above 48 KB a
+// kernel must ask for it); -1 on failure
+template <int BODY, int DT, int MASK, typename T>
+int prepare() {
+  if constexpr (BODY == 0) {
+    if (cudaFuncSetAttribute(ring_kernel<BODY, DT, MASK, T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Cfg<DT>::SMEM_BYTES) != cudaSuccess) {
+      return -1;
+    }
+    return Cfg<DT>::SMEM_BYTES;
+  }
+  return 0;
+}
+
+template <int BODY, int DT, int MASK, typename T>
 int blocks_for(int p, int items) {
   int dev = 0, sms = 0, per_sm = 0, coop = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
+  const int smem = prepare<BODY, DT, MASK, T>();
+  if (smem < 0 || cudaGetDevice(&dev) != cudaSuccess) return -1;
   cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (!coop ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, ring_kernel<BODY, DT, T>, NTHREADS, 0) != cudaSuccess) {
+          &per_sm, ring_kernel<BODY, DT, MASK, T>,
+          BODY == 0 ? TC_THREADS : NTHREADS, smem) != cudaSuccess) {
     return -1;
   }
   const int cap = per_sm * sms / p;
   return items < cap ? items : cap;
 }
 
-template <int BODY, int DT, typename T>
-int launch_ring(const RingArgs& a, int items, int nblk, cudaStream_t st) {
+template <int BODY, int DT, int MASK, typename T>
+int launch_ring(const RingArgs& a, const void* maps, int items, int nblk,
+                cudaStream_t st) {
+  const int smem = prepare<BODY, DT, MASK, T>();
+  if (smem < 0) return static_cast<int>(cudaErrorInvalidValue);
   RingArgs args = a;
-  void* params[] = {&args, &items};
+  const CUtensorMap* map_arg = static_cast<const CUtensorMap*>(maps);
+  void* params[] = {&args, &map_arg, &items};
   const dim3 grid(nblk, a.p);
   const cudaError_t err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(ring_kernel<BODY, DT, T>), grid,
-      dim3(NTHREADS), params, 0, st);
+      reinterpret_cast<void*>(ring_kernel<BODY, DT, MASK, T>), grid,
+      dim3(BODY == 0 ? TC_THREADS : NTHREADS), params, smem, st);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-// body: 0 tensor cores (bf16, D 64 / 128), 1 CUDA cores fp32 in, 2 CUDA
-// cores bf16 in
-#define K7_DISPATCH(FN, ...)                                        \
-  (body == 0 && D == 64    ? FN<0, 64, bf16>(__VA_ARGS__)           \
-   : body == 0 && D == 128 ? FN<0, 128, bf16>(__VA_ARGS__)          \
-   : body == 1             ? FN<1, 0, float>(__VA_ARGS__)           \
-   : body == 2             ? FN<1, 0, bf16>(__VA_ARGS__)            \
-                           : -1)
+// body: 0 tensor cores (bf16, D 64 / 128; `tail`: S/p not a multiple of
+// the 128-row tile), 1 CUDA cores fp32 in, 2 CUDA cores bf16 in
+#define K7_DISPATCH(FN, ...)                                                \
+  (body == 0 && D == 64 && !tail    ? FN<0, 64, MASK_NONE, bf16>(__VA_ARGS__) \
+   : body == 0 && D == 64           ? FN<0, 64, MASK_TAIL, bf16>(__VA_ARGS__) \
+   : body == 0 && D == 128 && !tail ? FN<0, 128, MASK_NONE, bf16>(__VA_ARGS__) \
+   : body == 0 && D == 128          ? FN<0, 128, MASK_TAIL, bf16>(__VA_ARGS__) \
+   : body == 1                      ? FN<1, 0, MASK_NONE, float>(__VA_ARGS__) \
+   : body == 2                      ? FN<1, 0, MASK_NONE, bf16>(__VA_ARGS__) \
+                                    : -1)
 
 int item_count(int body, int BH, int Sl) {
-  if (body == 0) return BH * (Sl / BQ);
+  if (body == 0) return BH * ((Sl + BQ - 1) / BQ);
   return (BH * Sl + NTHREADS - 1) / NTHREADS;
+}
+
+bool takes(int body, int p, int Sl, int D) {
+  if (p < 1 || p > MAXP || body < 0 || body > 2 || Sl < 1) return false;
+  if (body == 0) return Sl % TC_ROWS == 0 && (D == 64 || D == 128);
+  return D <= MAXD_SIMPLE;
 }
 
 }  // namespace
@@ -533,9 +493,8 @@ int item_count(int body, int BH, int Sl) {
 // blocks per rank that one cooperative launch of the whole ring can hold
 // (at most one per item); -1 if the device cannot launch it
 extern "C" int k7_ring_blocks(int body, int p, int BH, int Sl, int D) {
-  if (p < 1 || p > MAXP || body < 0 || body > 2) return -1;
-  if (body == 0 && (Sl % BQ || (D != 64 && D != 128))) return -1;
-  if (body != 0 && D > MAXD_SIMPLE) return -1;
+  if (!takes(body, p, Sl, D)) return -1;
+  const bool tail = Sl % BKV != 0;
   const int items = item_count(body, BH, Sl);
   const int n = K7_DISPATCH(blocks_for, p, items);
   return n < 1 ? -1 : n;
@@ -545,21 +504,23 @@ extern "C" int k7_ring_blocks(int body, int p, int BH, int Sl, int D) {
 extern "C" long long k7_ring_state_floats(int body, int BH, int Sl, int D) {
   if (body == 0) {
     return static_cast<long long>(item_count(body, BH, Sl)) *
-           (4 + D / 8 * 4) * NTHREADS;
+           (4 + D / 2) * TC_THREADS;
   }
   return static_cast<long long>(BH) * Sl * (2 + D);
 }
 
 // q, k, v, o, kslot, vslot, state: host arrays of p device pointers (rank
 // r's [B, H, Sl, D] shards with the common strides below, its two packed
-// kv slots, its state); arrived, done: [p, p] counters, never reset;
-// target = epoch * nblk; fault_rank / fault_step: -1, or a rank that skips
-// the math of a step (a planted fault for the check of the checks)
+// kv slots, its state); maps: the tensor-core body's device buffer of
+// 7 p (3 p at p = 1) tensor maps, 64-byte aligned, of which the slots' are
+// written only when maps_ready is 0; arrived, done: [p, p] counters, never
+// reset; target = epoch * nblk; fault_rank / fault_step: -1, or a rank that
+// skips the math of a step (a planted fault for the check of the checks)
 extern "C" int k7_ring_attention(
     const void* const* q, const void* const* k, const void* const* v,
     void* const* o, void* const* kslot, void* const* vslot,
-    void* const* state, void* arrived, void* done,
-    int body, int p, int B, int H, int Sl, int D,
+    void* const* state, void* maps, int maps_ready, void* arrived,
+    void* done, int body, int p, int B, int H, int Sl, int D,
     int qsb, int qsh, int qss, int ksb, int ksh, int kss,
     int vsb, int vsh, int vss, int osb, int osh, int oss,
     int nblk, unsigned target, float scale, int fault_rank, int fault_step,
@@ -592,7 +553,40 @@ extern "C" int k7_ring_attention(
   a.scale = scale;
   a.fault_rank = fault_rank;
   a.fault_step = fault_step;
-  const int items = item_count(body, B * H, Sl);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return K7_DISPATCH(launch_ring, a, items, nblk, st);
+  if (body == 0) {
+    if (maps == nullptr || reinterpret_cast<uintptr_t>(maps) % 64 ||
+        (p > 1 && (kslot == nullptr || vslot == nullptr))) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    CUtensorMap host[7 * MAXP];
+    bool ok = true;
+    for (int r = 0; r < p; ++r) {
+      ok = ok && make_map(&host[3 * r], q[r], D, Sl, H, B, qss, qsh, qsb) &&
+           make_map(&host[3 * r + 1], k[r], D, Sl, H, B, kss, ksh, ksb) &&
+           make_map(&host[3 * r + 2], v[r], D, Sl, H, B, vss, vsh, vsb);
+    }
+    const bool slots = p > 1 && !maps_ready;
+    const long long sh = static_cast<long long>(Sl) * D;
+    const long long slot_bytes = static_cast<long long>(B) * H * sh * 2;
+    for (int r = 0; slots && r < p; ++r) {
+      for (int s = 0; s < 2; ++s) {
+        const char* ks = static_cast<const char*>(kslot[r]) + s * slot_bytes;
+        const char* vs = static_cast<const char*>(vslot[r]) + s * slot_bytes;
+        ok = ok &&
+             make_map(&host[3 * p + 4 * r + s], ks, D, Sl, H, B, D, sh,
+                      H * sh) &&
+             make_map(&host[3 * p + 4 * r + 2 + s], vs, D, Sl, H, B, D, sh,
+                      H * sh);
+      }
+    }
+    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+    const cudaError_t err = cudaMemcpyAsync(
+        maps, host, (slots ? 7 : 3) * p * sizeof(CUtensorMap),
+        cudaMemcpyHostToDevice, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int items = item_count(body, B * H, Sl);
+  const bool tail = Sl % BKV != 0;
+  return K7_DISPATCH(launch_ring, a, maps, items, nblk, st);
 }

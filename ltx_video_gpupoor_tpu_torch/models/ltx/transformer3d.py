@@ -11,7 +11,7 @@ K5, :278-308 and :398-412, and the bounded-score tier, kernel K3,
 The parameter tree becomes modules whose attribute names are the JAX
 keys (``core/from_jax.py`` relies on that); the per-layer ``lax.scan``
 becomes a loop over ``blocks``. Every linear is an ``ops.quant.Linear``,
-so ``quantize_params(model)`` moves the whole DiT onto kernel K2, and
+so ``quantize_params(model, mode="dynamic")`` moves the whole DiT onto kernel K2, and
 attention runs through ``ops.attention`` (kernels K1, K3, K4, K6 by
 mode). With ``LTXV_TPU_FUSED_PROLOGUE`` set, the norm, the modulation
 and the q/k/v (and ``proj_in``) linears of a block run as kernel K5

@@ -12,7 +12,7 @@ Port of ``ltx_video_gpupoor_tpu/models/wan/model.py``: ``WanConfig``,
 The parameter tree becomes modules whose attribute names are the JAX
 keys (``core/from_jax.py`` relies on that); the per-layer ``lax.scan``
 becomes a loop over ``blocks``. Every linear is an ``ops.quant.Linear``,
-so ``quantize_params(model)`` moves the DiT onto kernel K2; attention at
+so ``quantize_params(model, mode="dynamic")`` moves the DiT onto kernel K2; attention at
 head dim 128 resolves to kernel K4 (``ops/attention.py``). Activations run
 in the policy's ``compute_dtype``; modulation and the timestep path stay
 fp32. The tokens live in ``[B, L, D]``, the latent video in JAX's

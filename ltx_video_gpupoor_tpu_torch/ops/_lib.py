@@ -79,11 +79,12 @@ SIGNATURES = {
     "k7_ring_blocks": [I, I, I, I, I],
     # body, B*H, S/p, D -> floats of softmax state per rank (a long long)
     "k7_ring_state_floats": [I, I, I, I],
-    # per-rank pointer arrays q, k, v, out, kslot, vslot, state; the
-    # arrived and done counters; body, p, B, H, S/p, D; q/k/v/out strides
-    # (b, h, s); blocks per rank, the counters' target, scale, the planted
-    # fault's rank and step (-1 = none), stream
-    "k7_ring_attention": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+    # per-rank pointer arrays q, k, v, out, kslot, vslot, state; the tensor
+    # maps' buffer and whether its slot maps are written; the arrived and
+    # done counters; body, p, B, H, S/p, D; q/k/v/out strides (b, h, s);
+    # blocks per rank, the counters' target, scale, the planted fault's rank
+    # and step (-1 = none), stream
+    "k7_ring_attention": [P, P, P, P, P, P, P, P, I, P, P, I, I, I, I, I, I,
                           I, I, I, I, I, I, I, I, I, I, I, I,
                           I, U, F, I, I, P],
 }

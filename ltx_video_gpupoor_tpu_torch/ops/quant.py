@@ -87,9 +87,10 @@ def maybe_quantized_matmul(p: Linear, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def quantize_params(model: nn.Module, mode: str = "dynamic") -> nn.Module:
+def quantize_params(model: nn.Module, mode: str = "wo") -> nn.Module:
     """Quantize, in place, every :class:`Linear` of ``model``; returns the
-    model."""
+    model. The default mode is JAX's (``"wo"``, not ported yet, so it
+    raises): a caller names ``mode="dynamic"``."""
     if mode != "dynamic":
         raise NotImplementedError(
             f"quantize_params(mode={mode!r}): only 'dynamic' is ported; the "

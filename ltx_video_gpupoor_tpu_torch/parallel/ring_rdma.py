@@ -15,9 +15,11 @@ and every rank folds the block it holds into an fp32 online softmax
   slots and the softmax state live in device memory, a transfer is plain
   stores through the neighbour's slot pointer followed by a release of a
   counter, and the counters carry a call epoch (see the source's
-  header). Two bodies do the tile math: tensor cores (bf16, D 64 or 128,
-  shards that a 64-row tile divides) and CUDA cores in fp32 (every other
-  shape and type; test-sized shapes only). Which one ran is counted in
+  header). Two bodies do the tile math (:func:`ring_body` picks one): K1's
+  ``wgmma`` block on the tensor cores (bf16, D 64 or 128, shards of a
+  multiple of 64 rows; its tensor maps live in a device buffer, the slots'
+  written once a workspace) and CUDA cores in fp32 (every other shape and
+  type; test-sized shapes only). Which one ran is counted in
   ``ring_attention_rdma.launches_tc`` and ``.launches_simple``; their sum
   is ``.launches``.
 - :func:`ring_attention_rdma_sharded` is ``ring_attention_rdma_sharded``
@@ -41,8 +43,9 @@ NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 L_FLOOR = 1e-20
 MAX_RANKS = 16       # MAXP in csrc/ring_attention.cu
-TILE = 64            # the tensor-core body's q and kv tile
+TILE = 64            # the tensor-core body takes S/p in multiples of it
 MAX_D_SIMPLE = 128   # the CUDA-core body keeps a row in local memory
+MAP_BYTES = 128      # a CUtensorMap; the buffer holds 3 a rank, 4 more a slot
 # the plain version holds one [heads, S/p, S/p] fp32 score block at a time
 PLAIN_SCORE_ELEMS = 1 << 29
 
@@ -132,9 +135,19 @@ def ring_attention_plain(q_shards, k_shards, v_shards,
             for r in range(p)]
 
 
+def _map_buffer(n_maps, device):
+    """Device bytes for ``n_maps`` tensor maps and the 64-byte aligned
+    address of the first."""
+    buf = torch.empty(n_maps * MAP_BYTES + 64, dtype=torch.uint8,
+                      device=device)
+    return buf, buf.data_ptr() + (-buf.data_ptr() % 64)
+
+
 class _Workspace:
     """What a ring of one shape keeps between calls: per rank two kv slots
-    and the softmax state, and the counters with the epoch they stand at."""
+    and the softmax state, the counters with the epoch they stand at, and
+    for the tensor-core body the tensor maps (the slots' are written at the
+    first call, the inputs' at every call)."""
 
     def __init__(self, p, body, b, h, s_loc, d, dtype, device, lib):
         n_state = lib.k7_ring_state_floats(body, b * h, s_loc, d)
@@ -145,6 +158,8 @@ class _Workspace:
                       for _ in range(p)]
         self.flags = torch.zeros(2, p, p, dtype=torch.int32, device=device)
         self.target = 0
+        self.maps, self.maps_ptr = _map_buffer(7 * p, device)
+        self.maps_ready = False
 
 
 _workspaces: dict = {}
@@ -175,6 +190,23 @@ def _common_strides(name, shards):
     return strides[:3]
 
 
+def ring_body(dtype: torch.dtype, s_loc: int, d: int) -> int:
+    """Which body of K7 takes shards of ``S/p = s_loc`` rows and head dim
+    ``d``: 0, K1's ``wgmma`` block (bf16, D 64 or 128, ``s_loc`` a multiple
+    of 64; a multiple that 128 does not divide takes the block's tail
+    instance); 1 or 2, the CUDA-core body in fp32 or bf16 (D up to 128 with
+    16-byte rows). Raises ``ValueError`` for what neither takes."""
+    if dtype == torch.bfloat16 and d in (64, 128) and s_loc % TILE == 0:
+        return 0
+    if dtype in (torch.float32, torch.bfloat16) and d <= MAX_D_SIMPLE \
+            and d * dtype.itemsize % 16 == 0:
+        return 1 if dtype == torch.float32 else 2
+    raise ValueError(
+        f"K7 takes bf16 at D 64/128 with S/p a multiple of {TILE}, or "
+        f"fp32/bf16 at D <= {MAX_D_SIMPLE} with 16-byte rows; got "
+        f"{dtype} S/p={s_loc} D={d}")
+
+
 def ring_attention_rdma(q_shards, k_shards, v_shards,
                         scale: float | None = None, *, out_shards=None,
                         _fault: tuple[int, int] | None = None):
@@ -203,16 +235,7 @@ def ring_attention_rdma(q_shards, k_shards, v_shards,
         raise ValueError(f"K7 runs on CUDA or the CPU, not {ref.device}")
     if p > MAX_RANKS:
         raise ValueError(f"K7 takes at most {MAX_RANKS} ranks, got {p}")
-    if ref.dtype == torch.bfloat16 and d in (64, 128) and s_loc % TILE == 0:
-        body = 0
-    elif ref.dtype in (torch.float32, torch.bfloat16) and d <= MAX_D_SIMPLE \
-            and d * ref.element_size() % 16 == 0:
-        body = 1 if ref.dtype == torch.float32 else 2
-    else:
-        raise ValueError(
-            f"K7 takes bf16 at D 64/128 with S/p a multiple of {TILE}, or "
-            f"fp32/bf16 at D <= {MAX_D_SIMPLE} with 16-byte rows; got "
-            f"{ref.dtype} S/p={s_loc} D={d}")
+    body = ring_body(ref.dtype, s_loc, d)
     from ..ops import _lib
 
     lib = _lib.library()
@@ -233,6 +256,12 @@ def ring_attention_rdma(q_shards, k_shards, v_shards,
                                            ref.device, lib)
     if ws is not None:
         ws.target = (ws.target + nblk) % 2 ** 32
+    maps_ptr, maps_ready = None, 0
+    if body == 0:
+        if ws is None:   # one rank: its q, k and v maps, for this call
+            _maps, maps_ptr = _map_buffer(3, ref.device)
+        else:
+            maps_ptr, maps_ready = ws.maps_ptr, int(ws.maps_ready)
     fault_rank, fault_step = _fault if _fault is not None else (-1, -1)
     code = lib.k7_ring_attention(
         _pointer_array(q_shards), _pointer_array(k_shards),
@@ -240,6 +269,7 @@ def ring_attention_rdma(q_shards, k_shards, v_shards,
         _pointer_array(ws.kslot) if ws else None,
         _pointer_array(ws.vslot) if ws else None,
         _pointer_array(ws.state) if ws else None,
+        maps_ptr, maps_ready,
         ws.flags[0].data_ptr() if ws else None,
         ws.flags[1].data_ptr() if ws else None,
         body, p, b, h, s_loc, d, *strides[0], *strides[1], *strides[2],
@@ -247,6 +277,8 @@ def ring_attention_rdma(q_shards, k_shards, v_shards,
         ctypes.c_float(float(scale) * (LOG2E if body == 0 else 1.0)),
         fault_rank, fault_step, _lib.stream_ptr(ref.device))
     _lib.check(code, "K7 ring_attention_rdma launch")
+    if ws is not None and body == 0:
+        ws.maps_ready = True
     ring_attention_rdma.launches += 1
     if body == 0:
         ring_attention_rdma.launches_tc += 1

@@ -160,7 +160,7 @@ def infer(args) -> str:
     if args.quantize_transformer:
         from ..ops.quant import quantize_params
 
-        quantize_params(pipe.transformer)
+        quantize_params(pipe.transformer, mode="dynamic")
     if args.VAE_tile_size is not None:
         # 0 disables tiling entirely; otherwise hw tile pixels (+ z tiling)
         pipe.vae_tile_size = (

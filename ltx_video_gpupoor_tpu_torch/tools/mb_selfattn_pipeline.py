@@ -1,20 +1,23 @@
 """Experiment: software-pipelined flash-attention kernel at the LTX shape.
 
 Port of ``tools/mb_selfattn_pipeline.py`` of the JAX package. Hypothesis,
-restated for the card: an mma.sync attention block (K1's, when this was
-written; K1 has since moved to wgmma) serializes per kv tile,
-Q.K^T on the tensor cores, then max and exp2 on the CUDA cores and the
+restated for the card: an attention block serializes per kv tile, Q.K^T on
+the tensor cores, then max and exp2 on the CUDA cores and the
 special-function unit, then P.V on the tensor cores. Cutting the kv tile
 into sub-blocks and issuing the next sub-block's Q.K^T before this one's
-softmax hands the warp scheduler independent tensor-core work to run under
-the exponentials.
+softmax hands the tensor cores independent work to run under the
+exponentials. K1's ``wgmma`` block already overlaps a tile's exponentials
+with the previous tile's P.V; the tool asks whether the finer cut adds to
+that.
 
 - :func:`pipelined_attention` is ``pipelined_attention`` (:81), backed by
   ``csrc/flash_attention_pipelined.cu`` (kernel K8, which replaces the
-  Pallas ``_kernel``, :32). The TPU's 768 x 2688 blocks answer its VMEM;
-  the kernel's q tile is 64 rows and its kv tile ``block_kv`` = 128 rows
-  (64 for lengths that 128 does not divide), cut into ``nsub`` sub-blocks
-  of at least 16 rows. Launches count in ``pipelined_attention.launches``.
+  Pallas ``_kernel``, :32): K1's D=64 block (``wgmma``, a producer
+  warpgroup, a four-stage TMA ring). The TPU's 768 x 2688 blocks answer its
+  VMEM; the kernel's q tile is 128 rows (a ragged last one is not stored
+  past S) and its kv tile ``block_kv`` = 128 rows (64 for lengths that 128
+  does not divide), cut into ``nsub`` sub-blocks of at least 16 rows.
+  Launches count in ``pipelined_attention.launches``.
 - :func:`pipelined_attention_plain` is its plain PyTorch version: the same
   sub-blocks in the same order with the same roundings.
 - :func:`main` does what the JAX tool's does (:120-147): the check at a
@@ -39,7 +42,6 @@ import torch
 B, H, S, D = 2, 32, 5376, 64
 LOG2E = 1.4426950408889634
 M_FLOOR = -1e20
-BLOCK_Q = 64                      # the kernel's q tile
 NSUBS = {128: (1, 2, 4, 8), 64: (1, 2, 4)}   # block_kv -> nsub it is built for
 SMALL = (1, 2, 1344)              # the check's B, H, S: 64-row kv tiles
 
@@ -50,9 +52,9 @@ def _check_blocks(s: int, d: int, block_kv: int, nsub: int) -> None:
     if block_kv not in NSUBS or nsub not in NSUBS[block_kv]:
         raise ValueError(f"K8 is built for (block_kv, nsub) in {NSUBS}, got "
                          f"({block_kv}, {nsub})")
-    if s % block_kv or s % BLOCK_Q:
+    if s % block_kv:
         raise ValueError(f"K8 takes no mask: S={s} must be a multiple of the "
-                         f"kv tile {block_kv} and the q tile {BLOCK_Q}")
+                         f"kv tile {block_kv}")
 
 
 def pipelined_attention_plain(q: torch.Tensor, k: torch.Tensor,

@@ -27,13 +27,16 @@ K3 (bounded scores) against its plain version at atol = rtol = 2e-2. K5 (fused a
 row scales of its row kernel and the int32 product exactly, as for K2
 (the mean of squares is rounded from a float64 sum on both sides, and
 ``rsqrt`` is the same device function), its outputs at 1e-2 relative.
-K8 (sub-block-pipelined attention) against its plain version, which takes
-the same sub-blocks with the same roundings: every element within two
-bf16 ulps plus 2**-9 of the largest output. K7 (ring attention, the whole
-ring in one cooperative launch) against the plain ring: the CUDA-core body
-at fp32 atol 2e-5 and bf16 atol 3e-2 (the tolerances of the JAX package's
-tests), the tensor-core body at K8's bound; each twice in a row on one
-workspace, so that a call cannot take the previous call's flags.
+K8 (sub-block-pipelined attention on K1's block) against its plain
+version, which takes the same sub-blocks with the same roundings, at
+every (block_kv, nsub) it is built for and with a ragged last q tile:
+every element within two bf16 ulps plus 2**-9 of the largest output. K7
+(ring attention, the whole ring in one cooperative launch) against the
+plain ring: the CUDA-core body at fp32 atol 2e-5 and bf16 atol 3e-2 (the
+tolerances of the JAX package's tests), the tensor-core body (K1's block)
+at K8's bound at p = 1, 2, 4, 8 and where S/p is an odd multiple of 64;
+each twice in a row on one workspace, so that a call cannot take the
+previous call's flags.
 """
 
 import numpy as np
@@ -399,6 +402,18 @@ def test_k8_matches_plain(cuda, block_kv, nsub):
                                rtol=2e-2)
 
 
+@pytest.mark.parametrize("nsub", [1, 2, 4])
+def test_k8_ragged_q_tile_matches_plain(cuda, nsub):
+    """S = 320 fills two and a half of the kernel's 128-row q tiles: the
+    rows past S read as 0 and are not stored (in [B, H, S, D] they would
+    land on the next head's first rows)."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (_randn(gen, 2, 2, 320, 64).bfloat16() for _ in range(3))
+    out = mb.pipelined_attention(q, k, v, block_kv=64, nsub=nsub)
+    assert _within_two_ulps(out, mb.pipelined_attention_plain(
+        q, k, v, block_kv=64, nsub=nsub))
+
+
 def test_k8_reads_head_split_views_and_rejects(cuda):
     gen = torch.Generator(device=cuda).manual_seed(1)
     q, k, v = (_randn(gen, 2, 256, 4 * 64).bfloat16().view(2, 256, 4, 64)
@@ -436,7 +451,10 @@ def test_k7_cuda_core_body_matches_plain(cuda, dtype, shape, p, atol):
 
 
 @pytest.mark.parametrize("d,s,p", [(64, 512, 4), (128, 1024, 8),
-                                   (128, 256, 1), (64, 384, 2)])
+                                   (128, 256, 1), (64, 384, 2),
+                                   # S/p an odd multiple of 64: the tail
+                                   (128, 8 * 192, 8), (64, 64, 1),
+                                   (128, 4 * 320, 4)])
 def test_k7_tensor_core_body_matches_plain(cuda, d, s, p):
     gen = torch.Generator(device=cuda).manual_seed(3)
     q, k, v = (_randn(gen, 2, s, 3 * d).bfloat16().view(2, s, 3, d)

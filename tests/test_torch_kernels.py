@@ -26,6 +26,8 @@ are compared with the plain versions on the card by
 tests/test_torch_cuda.py and chip_smoke.py.
 """
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -52,6 +54,22 @@ K4_FLIP_SHARE = 1e-3        # ... except rows where a p code rounds apart:
 K4_FLIP_ATOL = 5e-3         # at most this share of elements, by this much
 K4_EXACT_TOL = 3e-2         # tests/test_flash_attention.py:144-226
 K4_EXACT_MEAN = 3e-3        # mean abs error against exact attention
+
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """The plain versions here run on the calling thread alone. Under load
+    (five more pytest workers), the first ``torch.exp`` that a freshly
+    started intra-op worker thread computes can come out about 4e-5
+    relative off on that thread's share of the tensor (the second half of
+    K1's scores at two threads, seen in 4 of 36 fresh processes; a second
+    call, or one thread, is right every time), which moved 29 outputs of
+    ``test_k1_plain_matches_pallas_interpret[128-128]`` past 2e-5 when it
+    was a worker's first test."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _qkv(seed, b, h, sq, skv, d):
@@ -1020,7 +1038,7 @@ def test_linear_tiers_dispatch():
     lin.bias.data.copy_(torch.from_numpy(b))
     dense = lin(torch.from_numpy(x))
     np.testing.assert_allclose(dense.numpy(), x @ w + b, atol=1e-5, rtol=1e-5)
-    tq.quantize_params(lin)
+    tq.quantize_params(lin, mode="dynamic")
     assert lin.quantized and not hasattr(lin, "weight")
     ref = jq.maybe_quantized_matmul(
         jq.quantize_params({"l": {"kernel": jnp.asarray(w),
@@ -1030,6 +1048,19 @@ def test_linear_tiers_dispatch():
                                np.asarray(ref), atol=INT8_TOL, rtol=INT8_TOL)
     with pytest.raises(NotImplementedError, match="step 12"):
         tq.quantize_params(tq.Linear(16, 16), mode="wo")
+
+
+def test_quantize_params_defaults_to_jax_mode():
+    """The default mode is JAX's weight-only ``"wo"``, which is not ported:
+    a call without ``mode`` raises and leaves the model dense instead of
+    quietly quantizing another tier."""
+    default = inspect.signature(tq.quantize_params).parameters["mode"].default
+    assert default == inspect.signature(
+        jq.quantize_params).parameters["mode"].default == "wo"
+    lin = tq.Linear(16, 16)
+    with pytest.raises(NotImplementedError, match="mode='wo'.*step 12"):
+        tq.quantize_params(lin)
+    assert not lin.quantized and hasattr(lin, "weight")
 
 
 def test_k2_rejects_bad_operands():

@@ -177,7 +177,7 @@ def _port_generator(weights, cfg_extra, policy):
     emb = tt5.encode(t5, torch.from_numpy(ids), torch.from_numpy(mask))
     model = ttf.LTXTransformer3D(
         ttf.LTXTransformerConfig(**TF_KW, **cfg_extra), policy)
-    quantize_params(model)
+    quantize_params(model, mode="dynamic")
     model.load_state_dict(from_jax.state_dict(_np_tree(tf_p)))
     vae = tvae.CausalVAE(tvae.VAEConfig.from_dict(VAE_DICT), policy)
     vae.load_state_dict(from_jax.vae_state_dict(_np_tree(vae_p)))

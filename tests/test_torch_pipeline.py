@@ -124,7 +124,7 @@ def _run(weights, tier, output_type, policy=FP32_POLICY):
     temb = tt5.encode(t5, torch.from_numpy(ids), torch.from_numpy(mask))
     model = ttf.LTXTransformer3D(ttf.LTXTransformerConfig(**TF_KW), policy)
     if tier == "int8_dynamic":
-        quantize_params(model)
+        quantize_params(model, mode="dynamic")
     model.load_state_dict(from_jax.state_dict(_np_tree(tf_p)))
     vae = tvae.CausalVAEDecoder(tvae.VAEConfig.from_dict(VAE_DICT), policy)
     vae.load_state_dict(from_jax.vae_decoder_state_dict(_np_tree(vae_p)))

@@ -132,3 +132,27 @@ def test_ring_wrapper_rejects_what_it_does_not_take():
     with pytest.raises(ValueError, match=r"\[B, H, S/p, D\]"):
         trr.ring_attention_rdma([q[0]], [k[0]], [v[0]])
     assert trr.ring_attention_rdma.launches == 0   # no kernel on the CPU
+
+
+@pytest.mark.parametrize("dtype,s_loc,d,body", [
+    (torch.bfloat16, 128, 128, 0),     # whole 128-row tiles
+    (torch.bfloat16, 192, 128, 0),     # 64 * odd: K1's tail instance
+    (torch.bfloat16, 64, 64, 0),       # one tile, half of it masked
+    (torch.bfloat16, 48, 64, 2),       # no 64-row multiple: CUDA cores
+    (torch.bfloat16, 128, 32, 2),
+    (torch.float32, 128, 128, 1),
+])
+def test_ring_body_choice_at_tile_edges(dtype, s_loc, d, body):
+    """Which body the wrapper launches on the card: the tensor-core body
+    (K1's block) takes bf16 shards of any multiple of 64 rows at D 64 and
+    128, also where 128 does not divide S/p."""
+    assert trr.ring_body(dtype, s_loc, d) == body
+
+
+def test_ring_body_choice_rejects():
+    with pytest.raises(ValueError, match="K7 takes"):
+        trr.ring_body(torch.float64, 128, 64)
+    with pytest.raises(ValueError, match="K7 takes"):
+        trr.ring_body(torch.bfloat16, 64, 256)
+    with pytest.raises(ValueError, match="K7 takes"):
+        trr.ring_body(torch.float32, 64, 2)      # 8-byte rows

@@ -67,6 +67,23 @@ def test_pipelined_plain_matches_jax_kernel_interpreted(monkeypatch, nsub):
     assert tmb.pipelined_attention.launches == 0      # no kernel on the CPU
 
 
+def test_pipelined_plain_matches_jax_kernel_at_a_ragged_q_tile(monkeypatch):
+    """S = 320 with 64-row kv tiles: the card kernel's 128-row q tile is
+    ragged there, the wrapper takes it (S a multiple of the kv tile), and
+    the plain version agrees with the JAX kernel run on 64-row q blocks."""
+    q, k, v = _inputs(3, (1, 2, 320, 64))
+    monkeypatch.setattr(jmb.pl, "pallas_call", functools.partial(
+        pl.pallas_call, interpret=True))
+    ref = np.asarray(jmb.pipelined_attention(
+        *(jnp.asarray(t, jnp.bfloat16) for t in (q, k, v)),
+        block_q=64, block_kv=64, nsub=2), np.float32)
+    out = tmb.pipelined_attention(
+        *(torch.from_numpy(t).bfloat16() for t in (q, k, v)), block_kv=64,
+        nsub=2)
+    diff = np.abs(out.float().numpy() - ref)
+    assert (diff <= _bound(ref)).all(), float((diff / _bound(ref)).max())
+
+
 def test_pipelined_plain_steps_by_the_sub_block():
     """The math depends on the sub-block alone: (128, 4) and (64, 2) both
     step by 32 rows and agree bit for bit; (128, 1) takes its max over 128

@@ -36,7 +36,7 @@ def _np_tree(tree):
 def _port_transformer(jparams, cfg_kw, policy=FP32_POLICY, quantized=False):
     model = ttf.LTXTransformer3D(ttf.LTXTransformerConfig(**cfg_kw), policy)
     if quantized:
-        quantize_params(model)
+        quantize_params(model, mode="dynamic")
     model.load_state_dict(from_jax.state_dict(_np_tree(jparams)))
     return model
 
@@ -100,7 +100,7 @@ def test_transformer_int8_dynamic_matches_jax(jparams, strategy):
     np.testing.assert_allclose(out, ref, atol=INT8_TOL, rtol=INT8_TOL)
     # the port's own quantization of the fp32 weights gives the same codes
     mine = _port_transformer(jparams, TF_KW)
-    quantize_params(mine)
+    quantize_params(mine, mode="dynamic")
     for (name, a), (_, b) in zip(sorted(model.state_dict().items()),
                                  sorted(mine.state_dict().items())):
         np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=name)

@@ -205,7 +205,7 @@ def _dit(policy=FP32_POLICY, quant=False, key=0):
         jp = jq.quantize_params(jp, mode="dynamic")
     model = twm.WanModel(twm.WanConfig(**DIT_KW), policy)
     if quant:
-        quantize_params(model)
+        quantize_params(model, mode="dynamic")
     model.load_state_dict(from_jax.state_dict(_np_tree(jp)))
     return jp, model
 
@@ -320,7 +320,7 @@ def _port_pipe(weights, policy, quant):
     emb = tt5.encode(t5, torch.from_numpy(ids), torch.from_numpy(mask))
     model = twm.WanModel(twm.WanConfig(**DIT_KW), policy)
     if quant:
-        quantize_params(model)
+        quantize_params(model, mode="dynamic")
         dit = jq.quantize_params(dit, mode="dynamic")
     model.load_state_dict(from_jax.state_dict(_np_tree(dit)))
     vae = twv.WanVAEDecoder(twv.WanVAEConfig(**VAE_KW), policy)
