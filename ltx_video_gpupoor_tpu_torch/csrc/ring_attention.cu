@@ -150,22 +150,38 @@ __device__ __forceinline__ long long row_offset(const Block& blk, int H,
   return (bh / H) * blk.sb + (bh % H) * blk.sh + s * blk.ss;
 }
 
-// this block's share of a [BH, Sl, D] block into a packed slot, 16 bytes a
-// thread; read past L1 (the source may be a slot a peer has just written)
+// This block's share of a [BH, Sl, D] block into a packed slot, 16 bytes a
+// thread, COPY_LOADS loads in flight before their stores: every block copies
+// before its math, so the card does nothing else meanwhile, and with one
+// load in flight a thread the seven copies of p = 8 cost 1.0 ms more at the
+// Wan width. Read past L1 (the source may be a slot a peer has just
+// written). Chunks are counted in 32 bits: the host keeps a shard under
+// 2**31 of them.
+constexpr int COPY_LOADS = 8;
+
 __device__ void copy_share(const Block& src, char* dst, int H, int BH, int Sl,
                            int row_bytes, int esize) {
-  const int cpr = row_bytes / 16;
-  const long long total = static_cast<long long>(BH) * Sl * cpr;
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const long long row = i / cpr;
-    const int ch = static_cast<int>(i % cpr);
-    const int bh = static_cast<int>(row / Sl), s = static_cast<int>(row % Sl);
-    const uint4 val = __ldcg(reinterpret_cast<const uint4*>(
-        src.base + row_offset(src, H, bh, s) * esize + ch * 16));
-    *reinterpret_cast<uint4*>(dst + row * row_bytes + ch * 16) = val;
+  const unsigned cpr = row_bytes / 16;
+  const unsigned total = static_cast<unsigned>(BH) * Sl * cpr;
+  const unsigned stride = gridDim.x * blockDim.x;
+  auto from = [&](unsigned i) {
+    const unsigned row = i / cpr, ch = i % cpr;
+    const int bh = row / Sl, s = row % Sl;
+    return reinterpret_cast<const uint4*>(
+        src.base + row_offset(src, H, bh, s) * esize + ch * 16);
+  };
+  auto to = [&](unsigned i) {
+    return reinterpret_cast<uint4*>(dst + static_cast<size_t>(i) * 16);
+  };
+  unsigned i = blockIdx.x * blockDim.x + threadIdx.x;
+  for (; i + (COPY_LOADS - 1) * stride < total; i += COPY_LOADS * stride) {
+    uint4 val[COPY_LOADS];
+#pragma unroll
+    for (int u = 0; u < COPY_LOADS; ++u) val[u] = __ldcg(from(i + u * stride));
+#pragma unroll
+    for (int u = 0; u < COPY_LOADS; ++u) *to(i + u * stride) = val[u];
   }
+  for (; i < total; i += stride) *to(i) = __ldcg(from(i));
 }
 
 // ------------------------------------------------- the tensor-core body
@@ -482,8 +498,13 @@ int item_count(int body, int BH, int Sl) {
   return (BH * Sl + NTHREADS - 1) / NTHREADS;
 }
 
-bool takes(int body, int p, int Sl, int D) {
+bool takes(int body, int p, int BH, int Sl, int D) {
   if (p < 1 || p > MAXP || body < 0 || body > 2 || Sl < 1) return false;
+  // copy_share counts a shard's 16-byte chunks in 32 bits
+  const int esize = body == 1 ? 4 : 2;
+  if (static_cast<long long>(BH) * Sl * D * esize / 16 >= (1LL << 31)) {
+    return false;
+  }
   if (body == 0) return Sl % TC_ROWS == 0 && (D == 64 || D == 128);
   return D <= MAXD_SIMPLE;
 }
@@ -493,7 +514,7 @@ bool takes(int body, int p, int Sl, int D) {
 // blocks per rank that one cooperative launch of the whole ring can hold
 // (at most one per item); -1 if the device cannot launch it
 extern "C" int k7_ring_blocks(int body, int p, int BH, int Sl, int D) {
-  if (!takes(body, p, Sl, D)) return -1;
+  if (!takes(body, p, BH, Sl, D)) return -1;
   const bool tail = Sl % BKV != 0;
   const int items = item_count(body, BH, Sl);
   const int n = K7_DISPATCH(blocks_for, p, items);
