@@ -1431,10 +1431,15 @@ def phase_timing(gen, ex2_per_s):
             k1 = cuda_time_ms(lambda: fa.flash_attention(q, k, v))
             k1_lib = cuda_time_ms(lambda: sdpa(q, k, v))
             k1_bnd = attention_bound(b, h, sq, skv, d)
+            k1_plain = ""
+            if name == "self":    # the Wan shape: 8.6 GB of scores a head
+                k1_plain = ", plain {:.3f} ms".format(cuda_time_ms(
+                    lambda: _by_heads(fa.reference_attention, q, k, v,
+                                      heads_per_call=1), reps=3, warmup=1))
             log(f"[time] K1 {name}-attention B={b} H={h} Sq={sq} Skv={skv} "
-                f"D={d}: kernel {k1:.3f} ms, bound {k1_bnd[0]:.3f} ms "
-                f"({k1_bnd[1]}), scaled_dot_product_attention {k1_lib:.3f} "
-                "ms")
+                f"D={d}: kernel {k1:.3f} ms{k1_plain}, bound "
+                f"{k1_bnd[0]:.3f} ms ({k1_bnd[1]}), "
+                f"scaled_dot_product_attention {k1_lib:.3f} ms")
         for pv in (True, False):
             tier = "int8pv" if pv else "int8qk"
             ops = fa.int8_prologue(q, k, v, pv_int8=pv)
