@@ -196,13 +196,16 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 
 K1_SOURCE = "ltx_video_gpupoor_tpu_torch/csrc/flash_attention_wgmma.cu"
-K3_SOURCE = "ltx_video_gpupoor_tpu_torch/csrc/flash_attention.cu"
+K3_SOURCE = K1_SOURCE        # K1's block at a fixed exponent offset
 K1_REPLACES = "ltx_video_gpupoor_tpu/ops/flash_attention.py:160"
 K2_SOURCE = "ltx_video_gpupoor_tpu_torch/csrc/int8_linear.cu"
 K2_REPLACES = "ltx_video_gpupoor_tpu/ops/int8_matmul.py:40"
 K4_SOURCE = "ltx_video_gpupoor_tpu_torch/csrc/flash_attention_int8.cu"
 K4_REPLACES = "ltx_video_gpupoor_tpu/ops/flash_attention.py:160"
 K3_REPLACES = "ltx_video_gpupoor_tpu/ops/flash_attention.py:294"
+# K3q: the int8 Q.K^T branch (:218-239) under the bounded step (:296)
+K3Q_SOURCE = K4_SOURCE
+K3Q_REPLACES = "ltx_video_gpupoor_tpu/ops/flash_attention.py:218"
 K5_SOURCE = "ltx_video_gpupoor_tpu_torch/csrc/fused_prologue.cu"
 K5_REPLACES = "ltx_video_gpupoor_tpu/ops/fused_prologue.py:104"
 K6_REPLACES = "ltx_video_gpupoor_tpu/ops/flash_attention.py:663"
@@ -324,6 +327,8 @@ LTX13B_REQUEST = (608, 992, 121)
 LTX13B_PASS_TOKENS = (3840, 15360)
 LTX13B_SELF = [(1, 32, n, n, 128) for n in LTX13B_PASS_TOKENS]
 LTX13B_CROSS = [(1, 32, n, 256, 128) for n in LTX13B_PASS_TOKENS]
+# LTX-2B's self-attention at 704x480x121: three guidance streams of 5280
+LTX2B_SELF = (3, 32, 5280, 5280, 64)
 K5_SHAPES = [("pass 1 qkv", 3840, 4096, 12288, 16),
              ("pass 1 proj_in", 3840, 4096, 16384, 16),
              ("pass 2 qkv", 15360, 4096, 12288, 16),
@@ -347,10 +352,13 @@ K2_SHAPES += [
     ("13B adaln emb 4096->4096 M=16", 16, 4096, 4096, "fp32"),
     ("13B adaln 4096->24576 M=16", 16, 4096, 24576, "fp32"),
 ]
-# (name, attention mode, fused prologue on, score bound)
+# (name, attention mode, fused prologue on, score bound); a request runs
+# with set_attention_mode(mode), as LTXV_TPU_ATTN=mode does for a process
 LTX13B_TIERS = [("a: auto", "auto", False, None),
                 ("b: pallas_hp + fused prologue", "pallas_hp", True, None),
-                ("c: score bound", "auto", False, LTX13B_BOUND)]
+                ("c: score bound", "auto", False, LTX13B_BOUND),
+                ("d: pallas_int8 + score bound", "pallas_int8", False,
+                 LTX13B_BOUND)]
 LTX13B_SERVED = "b: pallas_hp + fused prologue"   # goes through the server
 
 
@@ -415,11 +423,35 @@ def phase_device():
 WGMMA_KERNELS = ("flash_wgmma_kernel", "int8_gemm_wgmma_kernel",
                  "flash_int8_wgmma_kernel", "ring_kernelILi0E",
                  "flash_pipelined_kernel")
+# Registers a thread of every instance of K1/K6, K2, K4, K7 and K8 as the
+# parent tree built them (PR 7's final sources, nvcc on the card), by
+# kernel and mangled template arguments; K1/K6's and K4's instances carry
+# the BOUNDED flag (false) since K3 and K3q joined them. phase_build prints
+# each instance beside its entry here: an edit of attention_block.cuh or
+# hopper.cuh that moves one shows as MOVED. (Printed, not asserted: another
+# nvcc would move them all.)
+PARENT_REGISTERS = {}
+
+
+def _instance(entry):
+    """``kernel<template arguments>`` of a ptxas entry's mangled name (a
+    name is mangled as its length, then itself)."""
+    names = [(m.group(2)[:int(m.group(1))], m.start(2))
+             for m in re.finditer(r"(?=(\d+)([a-z_]\w*))", entry)]
+    names = [(n, at) for n, at in names if n.endswith("_kernel")]
+    if not names:
+        return entry[:60]
+    # digits of the file hash before the length can spell a longer name
+    name, at = min(names, key=lambda c: len(c[0]))
+    targs = re.match(r"I((?:L[ib]\d+E|\d+__nv_bfloat16|f)+)E+v",
+                     entry[at + len(name):])
+    return name + (f"<{targs.group(1)}>" if targs else "")
 
 
 def phase_build(compare=False):
     """Build the kernel library, every source's nvcc started together;
-    ``compare``: first once with one source after another, for its time."""
+    ``compare``: first once with one source after another, for its time.
+    Returns the registers a thread of each instance."""
     from ltx_video_gpupoor_tpu_torch.ops import _lib
 
     if compare:
@@ -430,28 +462,38 @@ def phase_build(compare=False):
     lines = [ln.strip() for ln in report.splitlines()
              if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
     log(f"[build] {os.path.relpath(path, ROOT)} in {seconds:.2f} s")
-    entry = ""
+    entry, regs = "", {}
     for ln in lines:
         if "Compiling entry" in ln:
             entry = ln.split("'")[1] if "'" in ln else ln
             # the template arguments (ILi<D>ELi<mask kind>E, and K7's
             # element type) tell the instances of one kernel apart
-            targs = re.search(r"I((?:L[ib]\d+E)+(?:\d+__nv_bfloat16|f)?)E+v",
-                              entry)
-            log("  " + entry[:60] + (" <" + targs.group(1) + ">" if targs
-                                     else ""))
+            log("  " + _instance(entry))
         elif "Used" in ln or ("spill" in ln and "0 bytes spill" not in ln):
-            log("    " + ln.replace("ptxas info    : ", ""))
-            # the wgmma kernels (K1/K6, K2, K4, K7, K8) keep wgmma groups in
-            # flight: a spill there is a fault of the design (K3's mma.sync
-            # block spills 16 bytes)
+            note = ""
+            used = re.search(r"Used (\d+) registers", ln)
+            if used:
+                n = regs[_instance(entry)] = int(used.group(1))
+                was = PARENT_REGISTERS.get(_instance(entry))
+                if was is not None:
+                    note = (" (the parent's registers)" if was == n else
+                            f" (MOVED: the parent's {was})")
+            log("    " + ln.replace("ptxas info    : ", "") + note)
+            # every kernel on wgmma (K1/K3/K6, K2, K4/K3q, K7, K8) keeps
+            # wgmma groups in flight: a spill there is a fault of the design
             assert "Used" in ln or not any(
                 k in entry for k in WGMMA_KERNELS), \
                 f"a wgmma kernel spills: {ln} ({entry})"
     serialized = [ln.strip() for ln in report.splitlines()
                   if "serializ" in ln.lower()]
     assert not serialized, "ptxas serialized wgmma:\n" + "\n".join(serialized)
-    return seconds
+    moved = sorted(k for k, n in regs.items()
+                   if PARENT_REGISTERS.get(k, n) != n)
+    known = sum(k in PARENT_REGISTERS for k in regs)
+    log(f"[build] {known} instances of K1/K6, K2, K4, K7 and K8 beside the "
+        f"parent's registers: " + (f"MOVED {moved}" if moved else
+                                   "every one at its parent's"))
+    return regs
 
 
 # --------------------------------------------------------------------------
@@ -847,8 +889,11 @@ def _k3_case(name, b, h, sq, skv, d, *, gen, bound=LTX13B_BOUND, packed=False,
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == before, "K3 counted as K1"
     assert torch.isfinite(kern.float()).all(), f"K3 {name}: non-finite"
-    plain = _by_heads(lambda a, b_, c: fa.bounded_attention_plain(
-        a, b_, c, *segs, **kw), q, k, v)
+    plain = torch.cat([        # one batch row and a few heads at a time
+        _by_heads(lambda a, b_, c: fa.bounded_attention_plain(
+            a, b_, c, *(s_[i:i + 1] if s_ is not None else None
+                        for s_ in segs), **kw),
+            q[i:i + 1], k[i:i + 1], v[i:i + 1]) for i in range(b)])
     ratio, err = _exact_check(kern, plain)
     assert ratio <= 1.0, (f"K3 {name}: max_abs_err {err:.3e}, {ratio:.3f} of "
                           "the bound")
@@ -856,12 +901,19 @@ def _k3_case(name, b, h, sq, skv, d, *, gen, bound=LTX13B_BOUND, packed=False,
     if seg:
         assert float(kern[0, :, 17].float().abs().max()) == 0.0, \
             f"K3 {name}: a row with no valid key must be 0"
-    log(f"[K3] {name}: B={b} H={h} Sq={sq} Skv={skv} D={d} bound={bound} "
-        f"max_abs_err={err:.3e}, {ratio:.3f} of the bound{planted} ok")
+    kind = fa.mask_kind(skv, kv_valid, segments=seg is not None,
+                        causal=causal)
+    log(f"[K3] {name}: B={b} H={h} Sq={sq} Skv={skv} D={d} mask kind {kind} "
+        f"bound={bound} max_abs_err={err:.3e}, {ratio:.3f} of the "
+        f"bound{planted} ok")
     return err
 
 
 def phase_k3(gen):
+    """K3 on K1's block at both head dims and every mask kind: the 13B
+    shapes, the LTX-2B self-attention shape (D=64, the producer layout and
+    its rounded denominator), and ragged, kv_valid, causal and segment
+    cases."""
     import torch
 
     errs = []
@@ -872,12 +924,107 @@ def phase_k3(gen):
     for i, shape in enumerate(LTX13B_CROSS):
         errs.append(_k3_case(f"13B cross-attention pass {i + 1}", *shape,
                              gen=gen, packed=True, seg=_cross_segments))
+    errs.append(_k3_case("LTX-2B self-attention", *LTX2B_SELF, gen=gen,
+                         packed=True, plant=True))
+    torch.cuda.empty_cache()
     errs.append(_k3_case("D=64 ragged S, kv_valid", 2, 4, 1000, 1000, 64,
                          gen=gen, kv_valid=777, bound=20.0))
+    errs.append(_k3_case("D=64 no mask code", 2, 4, 1024, 1024, 64, gen=gen,
+                         bound=20.0))
+    errs.append(_k3_case("D=64 within the ring", 1, 2, 384, 384, 64,
+                         gen=gen, bound=20.0))
     errs.append(_k3_case("D=64 text segments", 3, 4, 700, 300, 64, gen=gen,
                          seg=_cross_segments, bound=20.0))
+    errs.append(_k3_case("D=128 ragged S", 1, 4, 1000, 1000, 128, gen=gen,
+                         bound=20.0))
     errs.append(_k3_case("ragged causal", 1, 2, 333, 333, 128, gen=gen,
                          causal=True, bound=20.0))
+    errs.append(_k3_case("D=64 causal", 1, 2, 700, 700, 64, gen=gen,
+                         causal=True, bound=20.0))
+    torch.cuda.empty_cache()
+    return max(errs)
+
+
+def _k3q_case(name, b, h, sq, skv, d, *, gen, bound=LTX13B_BOUND,
+              packed=False, seg=None, causal=False, kv_valid=None,
+              plant=False):
+    """K3q against its plain version on the same prologue operands. With
+    per-row k scales and no running max nothing depends on a kv block, so
+    the two differ only by fp32 summation order, exp2's approximation and
+    the bf16 roundings: K3's check (``_exact_check``). One q row is scaled
+    so that its scores lie over the bound."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = (_heads(b, h, n, d, gen, packed) for n in (sq, skv, skv))
+    q[0, 0, min(3, sq - 1)] *= 60
+    segs = seg(b, sq, skv) if seg else (None, None)
+    kw = dict(causal=causal, kv_valid=kv_valid, score_bound=bound)
+    ops = fa.int8_prologue(q, k, v, pv_int8=False)
+    before = kernel_counts()
+    kern = fa.int8_attention_cuda(ops, *segs, **kw)
+    torch.cuda.synchronize()
+    after = kernel_counts()
+    moved = {k_: after[k_] - before[k_] for k_ in after
+             if after[k_] != before[k_]}
+    assert moved == {"K3q": 1}, f"K3q {name}: launch counts moved {moved}"
+    assert torch.isfinite(kern.float()).all(), f"K3q {name}: non-finite"
+    plain = fa.int8_attention_plain(ops, *segs, out_dtype=q.dtype, **kw)
+    ratio, err = _exact_check(kern, plain)
+    assert ratio <= 1.0, (f"K3q {name}: max_abs_err {err:.3e}, {ratio:.3f} "
+                          "of the bound")
+    planted = _exact_planted(f"K3q {name}", kern, plain, 1) if plant else ""
+    if seg:
+        assert float(kern[0, :, 17].float().abs().max()) == 0.0, \
+            f"K3q {name}: a row with no valid key must be 0"
+    kind = fa.mask_kind(skv, kv_valid, segments=seg is not None,
+                        causal=causal)
+    log(f"[K3q] {name}: B={b} H={h} Sq={sq} Skv={skv} D={d} mask kind "
+        f"{kind} bound={bound} max_abs_err={err:.3e}, {ratio:.3f} of the "
+        f"bound{planted} ok")
+    return err
+
+
+def phase_k3q(gen):
+    """K3q at tier (d)'s shapes (the 13B self- and cross-attention of both
+    passes), the LTX-2B self-attention shape, and ragged, kv_valid, causal
+    and segment cases at both head dims: every mask kind. Then the
+    wrapper: prologue + kernel, in q's layout."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.ops import flash_attention as fa
+
+    errs = []
+    for i, shape in enumerate(LTX13B_SELF):
+        errs.append(_k3q_case(f"13B self-attention pass {i + 1}", *shape,
+                              gen=gen, packed=True, plant=i == 1))
+        torch.cuda.empty_cache()
+    for i, shape in enumerate(LTX13B_CROSS):
+        errs.append(_k3q_case(f"13B cross-attention pass {i + 1}", *shape,
+                              gen=gen, packed=True, seg=_cross_segments))
+    errs.append(_k3q_case("LTX-2B self-attention", *LTX2B_SELF, gen=gen,
+                          packed=True, plant=True))
+    torch.cuda.empty_cache()
+    errs.append(_k3q_case("D=64 ragged S, kv_valid", 2, 4, 1000, 1000, 64,
+                          gen=gen, kv_valid=777, bound=20.0))
+    errs.append(_k3q_case("D=64 no mask code", 2, 4, 1024, 1024, 64,
+                          gen=gen, bound=20.0))
+    errs.append(_k3q_case("D=64 text segments", 3, 4, 700, 300, 64, gen=gen,
+                          seg=_cross_segments, bound=20.0))
+    errs.append(_k3q_case("D=128 ragged S", 1, 4, 1000, 1000, 128, gen=gen,
+                          bound=20.0))
+    errs.append(_k3q_case("ragged causal", 1, 2, 333, 333, 128, gen=gen,
+                          causal=True, bound=20.0))
+    errs.append(_k3q_case("D=64 causal", 1, 2, 700, 700, 64, gen=gen,
+                          causal=True, bound=20.0))
+    q, k, v = (_heads(2, 12, 4000, 128, gen, True) for _ in range(3))
+    out = fa.flash_attention_int8(q, k, v, pv_int8=False,
+                                  score_bound=LTX13B_BOUND)
+    ref = fa.int8_attention_cuda(fa.int8_prologue(q, k, v, pv_int8=False),
+                                 score_bound=LTX13B_BOUND)
+    assert out.stride() == q.stride() and torch.equal(out, ref)
+    log("[K3q] wrapper: prologue + kernel in q's head-split layout ok")
     torch.cuda.empty_cache()
     return max(errs)
 
@@ -1359,6 +1506,62 @@ def _ex2_ms(n_scores, ex2_per_s):
     return n_scores / ex2_per_s * 1e3
 
 
+def _bounded_times(times, info, name, q, k, v, segs, ex2_per_s, k1_ms):
+    """K3 and K3q on one shape: kernel, plain version (one batch row and a
+    few heads at a time), K3q's prologue apart; bounds: the larger of the
+    tensor bound (bf16 products for K3; int8 Q.K^T and bf16 P.V for K3q,
+    its int8 q and k, bf16 v and fp32 row scales once) and the ex2 floor
+    (one a score in sight). No PyTorch call clamps the scores: no library
+    time."""
+    from ltx_video_gpupoor_tpu_torch.ops import flash_attention as fa
+
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    kv_seg = segs[1]
+    keys = b * skv if kv_seg is None else int((kv_seg > 0).sum())
+    ex2 = _ex2_ms(h * sq * keys, ex2_per_s)
+    kw = dict(score_bound=LTX13B_BOUND)
+    reps = dict(reps=3, warmup=1)
+
+    def by_rows(fn):
+        for i in range(b):
+            _by_heads(lambda a, b_, c: fn(
+                a, b_, c, *(s_[i:i + 1] if s_ is not None else None
+                            for s_ in segs)),
+                q[i:i + 1], k[i:i + 1], v[i:i + 1])
+
+    k3 = cuda_time_ms(lambda: fa.flash_attention(q, k, v, *segs, **kw))
+    k3_plain = cuda_time_ms(lambda: by_rows(
+        lambda *a: fa.bounded_attention_plain(*a, **kw)), **reps)
+    ops = fa.int8_prologue(q, k, v, pv_int8=False)
+    k3q = cuda_time_ms(lambda: fa.int8_attention_cuda(ops, *segs, **kw))
+    pro = cuda_time_ms(lambda: fa.int8_prologue(q, k, v, pv_int8=False))
+    k3q_plain = cuda_time_ms(lambda: fa.int8_attention_plain(
+        ops, *segs, **kw), **reps)
+    scales = 4 * (ops.q_scale.numel() + ops.k_scale.numel())
+    q8 = dict(qk="int8", pv="bf16", q_bytes=1, kv_bytes=1, v_bytes=2)
+    if kv_seg is None:
+        t3 = attention_bound(b, h, sq, skv, d)
+        t3q = attention_bound(b, h, sq, skv, d, extra_bytes=scales, **q8)
+    else:
+        t3 = _cross_bound(h, sq, d, kv_seg)
+        t3q = _cross_bound(h, sq, d, kv_seg, **q8)
+    for kern, key, plain, tensor in ((k3, "K3", k3_plain, t3),
+                                     (k3q, "K3q", k3q_plain, t3q)):
+        times[f"{key} {name}"] = (kern, plain)
+        info[f"{key} {name}"] = (*max(tensor, (ex2, "operations")), None)
+    flops = fa.attention_flops(1, h, sq, keys, d)
+    log(f"[time] K3 / K3q {name} B={b} H={h} Sq={sq} Skv={skv} D={d} "
+        f"bound={LTX13B_BOUND}: K3 {k3:.3f} ms ({flops / k3 / 1e9:.1f} "
+        f"TFLOP/s; plain {k3_plain:.3f} ms; bound {t3[0]:.3f} ms bf16 "
+        f"tensor, ex2 floor {ex2:.3f} ms), K3q {k3q:.3f} ms "
+        f"({flops / k3q / 1e9:.1f} TOP/s; plain {k3q_plain:.3f} ms; "
+        f"prologue {pro:.3f} ms; bound {t3q[0]:.3f} ms int8 QK + bf16 PV "
+        f"tensor ({t3q[1]})), K1 {k1_ms:.3f} ms (K3 {k3 / k1_ms:.2f}x, K3q "
+        f"{k3q / k1_ms:.2f}x)")
+    del ops
+
+
 def phase_timing(gen, ex2_per_s):
     import torch
 
@@ -1402,15 +1605,19 @@ def phase_timing(gen, ex2_per_s):
     # what the mask code costs: the same call through the tail instance (one
     # key fewer) and the general one (segment ids that hide nothing)
     log("[time]   " + _mask_kind_times(q, k, v, kern))
+    # K3 and K3q at the LTX-2B self-attention shape, where the ex2 floor
+    # lies just under the tensor bound
+    _bounded_times(times, info, "LTX-2B self", q, k, v, (None, None),
+                   ex2_per_s, kern)
     del q, k, v, kc, vc
-    # K1 encodes three tensor maps on the host at every launch; K3's block
-    # takes plain pointers
+    torch.cuda.empty_cache()
+    # K1 and K3 encode three tensor maps on the host at every launch
     qs, ks, vs = (_heads(1, 2, 128, 64, gen, False) for _ in range(3))
     k1_us = _host_us_a_launch(lambda: fa.flash_attention(qs, ks, vs))
     k3_us = _host_us_a_launch(lambda: fa.flash_attention(qs, ks, vs,
                                                          score_bound=20.0))
-    log(f"[time] host time a launch at B=1 H=2 S=128 D=64: K1 {k1_us:.1f} us "
-        f"(three tensor maps encoded), K3 {k3_us:.1f} us")
+    log(f"[time] host time a launch at B=1 H=2 S=128 D=64: K1 {k1_us:.1f} us, "
+        f"K3 {k3_us:.1f} us (three tensor maps encoded)")
     del qs, ks, vs
 
     # K4 at the Wan and the 13B shapes: the kernel body and the plain version on the
@@ -1527,61 +1734,51 @@ def phase_timing(gen, ex2_per_s):
         del x, w8, sw, bias, xq, sx
     torch.cuda.empty_cache()
 
-    # K3 and K6 at the 13B self-attention shapes (K3 also at the cross
-    # shape), K6 at the LTX-2B shape; the library call is SDPA on the
-    # head-split views (exact attention: K6's function, not K3's clamp)
+    # K3, K3q and K6 at the 13B self-attention shapes (K3 and K3q also at
+    # the cross shape), K6 at the LTX-2B shape; the library call is SDPA on
+    # the head-split views (exact attention: K6's function, not K3's clamp)
     for i, (b, h, n, _, d) in enumerate(LTX13B_SELF):
         qkv = torch.randn(b, n, 3 * h * d, generator=gen, device="cuda",
                           dtype=torch.bfloat16)
         qp, kp, vp = qkv.chunk(3, dim=-1)
         q, k, v = (t.reshape(b, n, h, d).transpose(1, 2) for t in (qp, kp, vp))
         reps = dict(reps=3, warmup=1)
-        k3 = cuda_time_ms(lambda: fa.flash_attention(
-            q, k, v, score_bound=LTX13B_BOUND))
-        k3_plain = cuda_time_ms(lambda: _by_heads(
-            lambda a, b_, c: fa.bounded_attention_plain(
-                a, b_, c, score_bound=LTX13B_BOUND), q, k, v), **reps)
         k6 = cuda_time_ms(lambda: fa.flash_attention_hp(qp, kp, vp, heads=h))
         k6_plain = cuda_time_ms(lambda: _by_heads(fa.reference_attention,
                                                   q, k, v), **reps)
         k1 = cuda_time_ms(lambda: fa.flash_attention(q, k, v))
         lib = cuda_time_ms(lambda: sdpa(q, k, v))
         bnd = attention_bound(b, h, n, n, d)
-        times[f"K3 self pass {i + 1}"] = (k3, k3_plain)
         times[f"K6 self pass {i + 1}"] = (k6, k6_plain)
         # K1 on the same views computes K6's function: one plain version
         times[f"K1 self pass {i + 1}"] = (k1, k6_plain)
         info[f"K1 self pass {i + 1}"] = (*bnd, lib)
-        info[f"K3 self pass {i + 1}"] = (*bnd, None)
         info[f"K6 self pass {i + 1}"] = (*bnd, lib)
         flops = fa.attention_flops(b, h, n, n, d)
         log(f"[time] 13B self-attention pass {i + 1} B={b} H={h} S={n} D={d}: "
-            f"K3 {k3:.3f} ms ({flops / k3 / 1e9:.1f} TFLOP/s, plain "
-            f"{k3_plain:.3f} ms), K6 {k6:.3f} ms ({flops / k6 / 1e9:.1f} "
+            f"K6 {k6:.3f} ms ({flops / k6 / 1e9:.1f} "
             f"TFLOP/s, plain {k6_plain:.3f} ms), K1 on the head-split views "
             f"{k1:.3f} ms (K6's plain version), bound {bnd[0]:.3f} ms ({bnd[1]}), "
             f"scaled_dot_product_attention {lib:.3f} ms")
         log("[time]   " + _mask_kind_times(q, k, v, k1))
+        _bounded_times(times, info, f"self pass {i + 1}", q, k, v,
+                       (None, None), ex2_per_s, k1)
         kc, vc = (_heads(b, h, 256, d, gen, True) for _ in range(2))
         q_seg, kv_seg = _cross_segments(b, n, 256)
-        k3c = cuda_time_ms(lambda: fa.flash_attention(
-            q, kc, vc, q_seg, kv_seg, score_bound=LTX13B_BOUND))
         k1c = cuda_time_ms(lambda: fa.flash_attention(q, kc, vc, q_seg,
                                                       kv_seg))
-        k3c_plain = cuda_time_ms(lambda: fa.bounded_attention_plain(
-            q, kc, vc, q_seg, kv_seg, score_bound=LTX13B_BOUND), **reps)
         k1c_plain = cuda_time_ms(lambda: fa.reference_attention(
             q, kc, vc, q_seg, kv_seg), **reps)
-        times[f"K3 cross pass {i + 1}"] = (k3c, k3c_plain)
+        _bounded_times(times, info, f"cross pass {i + 1}", q, kc, vc,
+                       (q_seg, kv_seg), ex2_per_s, k1c)
         times[f"K1 cross pass {i + 1}"] = (k1c, k1c_plain)
         # the data's work: 200 of the 256 text tokens are valid
         bnd_c = _cross_bound(h, n, d, kv_seg)
         lib_c = cuda_time_ms(lambda: sdpa(q, kc, vc,
                                           attn_mask=_key_mask(kv_seg)))
-        info[f"K3 cross pass {i + 1}"] = (*bnd_c, None)
         info[f"K1 cross pass {i + 1}"] = (*bnd_c, lib_c)
-        log(f"[time] 13B cross-attention pass {i + 1} Sq={n} Skv=256: K3 "
-            f"{k3c:.3f} ms (plain {k3c_plain:.3f} ms), K1 {k1c:.3f} ms (plain "
+        log(f"[time] 13B cross-attention pass {i + 1} Sq={n} Skv=256: "
+            f"K1 {k1c:.3f} ms (plain "
             f"{k1c_plain:.3f} ms), bound {bnd_c[0]:.3f} ms ({bnd_c[1]}), "
             f"scaled_dot_product_attention with a boolean key mask "
             f"{lib_c:.3f} ms")
@@ -1943,6 +2140,7 @@ def kernel_counts():
     return {"K1": fa.flash_attention.launches,
             "K2": im.int8_linear.launches,
             "K3": fa.flash_attention.bounded_launches,
+            "K3q": fa.flash_attention_int8.bounded_launches,
             "K4": fa.flash_attention_int8.launches,
             "K5": fp.norm_mod_int8_matmul.launches,
             "K6": fa.flash_attention_hp.launches,
@@ -1958,6 +2156,7 @@ def reset_kernel_counts():
     fa.flash_attention.launches = 0
     fa.flash_attention.bounded_launches = 0
     fa.flash_attention_int8.launches = 0
+    fa.flash_attention_int8.bounded_launches = 0
     fa.flash_attention_hp.launches = 0
     im.int8_linear.launches = 0
     fp.norm_mod_int8_matmul.launches = 0
@@ -1972,18 +2171,23 @@ def reset_kernel_counts():
 
 # the kernels each tier must launch, and those it must not
 LTX13B_EXPECT = {"a: auto": (("K4", "K2"),
-                             ("K1", "K3", "K5", "K6", "K7", "K8")),
-                 "b: pallas_hp + fused prologue": (("K6", "K5", "K1", "K2"),
-                                                   ("K3", "K4", "K7", "K8")),
+                             ("K1", "K3", "K3q", "K5", "K6", "K7", "K8")),
+                 "b: pallas_hp + fused prologue": (
+                     ("K6", "K5", "K1", "K2"),
+                     ("K3", "K3q", "K4", "K7", "K8")),
                  "c: score bound": (("K3", "K2"),
-                                    ("K1", "K4", "K5", "K6", "K7", "K8"))}
+                                    ("K1", "K3q", "K4", "K5", "K6", "K7",
+                                     "K8")),
+                 "d: pallas_int8 + score bound": (
+                     ("K3q", "K2"),
+                     ("K1", "K3", "K4", "K5", "K6", "K7", "K8"))}
 
 
 def ltx13b_reference_check(cfg, dense_cut):
     """A 2-layer cut of the 13B DiT (the main model's own first two
     blocks) on the card with the kernels against the same cut on the CPU
     with the plain versions, both int8_dynamic in bf16, in each of the
-    three tiers: one stream, 2 latent frames of 4x4 tokens with their own
+    four tiers: one stream, 2 latent frames of 4x4 tokens with their own
     timesteps (16 rows a group, so the fused prologue engages), text
     padding. Bar: 30 dB PSNR on the velocity, as for the other paths."""
     import dataclasses
@@ -2062,8 +2266,13 @@ def run_ltx13b_request(gen, t5, name, mode, fused, bound, *, check=True,
     ``generate`` with ``image_start``, or, with ``serve``, whatever
     ``serve(on_stage)`` does to get the frames (the HTTP server's route,
     which picks the tier and the text conditioning itself); returns the
-    launch counts of pass 1 (media encode included) and of pass 2."""
+    launch counts of pass 1 (media encode included) and of pass 2. The
+    tier is pinned for the request with ``set_attention_mode(mode)``, as
+    ``LTXV_TPU_ATTN`` pins it for a process, and ``generate`` asks for
+    ``auto``."""
     import torch
+
+    from ltx_video_gpupoor_tpu_torch.ops.attention import set_attention_mode
 
     height, width, frames = LTX13B_REQUEST
     dit = gen.pipeline.transformer
@@ -2093,11 +2302,15 @@ def run_ltx13b_request(gen, t5, name, mode, fused, bound, *, check=True,
     t0 = time.perf_counter()
     if serve is None:
         emb, mask, t5_sec = encode_prompts(t5)
-        frames_u8 = gen.generate(
-            emb, mask, height=height, width=width, frame_num=frames,
-            frame_rate=30.0, seed=SEED,
-            image_start=synthetic_image(height, width),
-            attn_mode=mode, on_stage=on_stage)
+        set_attention_mode(mode)
+        try:
+            frames_u8 = gen.generate(
+                emb, mask, height=height, width=width, frame_num=frames,
+                frame_rate=30.0, seed=SEED,
+                image_start=synthetic_image(height, width),
+                attn_mode="auto", on_stage=on_stage)
+        finally:
+            set_attention_mode("auto")
     else:
         t5_sec = 0.0
         frames_u8 = serve(on_stage)
@@ -2532,8 +2745,15 @@ def phase_wan():
 # --------------------------------------------------------------------------
 
 # kernel name fragment -> group, first match wins
+# K3 and K3q are the instances of K1's and K4's kernels whose last template
+# argument (BOUNDED) is true: "...flash_wgmma_kernel<128, 0, false, true>"
+BOUNDED_GROUPS = [
+    (re.compile(r"flash_wgmma_kernel<[^>]*\btrue>"),
+     "K3 bounded-score flash attention"),
+    (re.compile(r"flash_int8_wgmma_kernel<[^>]*\btrue>"),
+     "K3q int8-QK bounded-score flash attention"),
+]
 KERNEL_GROUPS = [
-    ("flash_bounded_kernel", "K3 bounded-score flash attention"),
     ("flash_wgmma_kernel", "K1 / K6 exact flash attention"),
     ("norm_mod_quantize_rows_kernel", "K5 prologue row kernel"),
     ("flash_int8", "K4 int8 flash attention"),
@@ -2625,8 +2845,9 @@ def summarize_trace(path):
         group = None
         if e["cat"] == "kernel":
             name = e["name"].lower()
-            group = next((g for frag, g in KERNEL_GROUPS if frag in name),
-                         None)
+            group = next((g for pat, g in BOUNDED_GROUPS if pat.search(name)),
+                         None) or next(
+                (g for frag, g in KERNEL_GROUPS if frag in name), None)
         if group is None:
             sub = scope_of(e) or _op_group(e["name"]) or "other"
             group = f"{ELEMENTWISE}: {sub}"
@@ -2755,7 +2976,8 @@ def profile_ltx13b(gen, t5, tier):
         lambda: run_ltx13b_request(gen, t5, name, mode, fused, bound,
                                    check=False))
     want = {1: "K5 prologue row kernel",
-            2: "K3 bounded-score flash attention"}[tier]
+            2: "K3 bounded-score flash attention",
+            3: "K3q int8-QK bounded-score flash attention"}[tier]
     assert want in s["groups"], (want, sorted(s["groups"]))
     return s
 
@@ -2774,8 +2996,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="after each path, profile one more headline "
                     "request (LTX-2B 704x480x121, LTX-13B 992x608x121 in "
-                    "tiers (b) and (c), Wan 832x480x81) and print the device time by "
-                    "kernel group")
+                    "tiers (b), (c) and (d), Wan 832x480x81) and print the "
+                    "device time by kernel group")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks and timings (phases "
                     "1 to 6): no path is driven, so no result line is "
@@ -2795,6 +3017,7 @@ def main(argv=None) -> int:
     k2_err = phase_k2(gen)
     k4_err = phase_k4(gen)
     k3_err = phase_k3(gen)
+    k3q_err = phase_k3q(gen)
     k5_err = phase_k5(gen)
     k6_err = phase_k6(gen)
     times, info = phase_timing(gen, ex2_per_s)
@@ -2812,8 +3035,8 @@ def main(argv=None) -> int:
     log(f"[clock] LTX-2B path done at {time.perf_counter() - t_start:.0f} s")
     ltx13b_launches, generator13b = phase_ltx13b(t5)
     if args.profile:
-        profile_ltx13b(generator13b, t5, 1)
-        profile_ltx13b(generator13b, t5, 2)
+        for tier in (1, 2, 3):
+            profile_ltx13b(generator13b, t5, tier)
     del generator13b, t5     # free the LTX models for the Wan path
     torch.cuda.empty_cache()
     log(f"[clock] LTX-13B path done at {time.perf_counter() - t_start:.0f} s")
@@ -2823,7 +3046,7 @@ def main(argv=None) -> int:
         profile_wan(pipe, umt5)
     log(f"[clock] Wan path done at {time.perf_counter() - t_start:.0f} s")
     by_tier = dict(zip((m for *_, m in WAN_REQUESTS), wan_launches))
-    tier_b, tier_c = LTX13B_TIERS[1][0], LTX13B_TIERS[2][0]
+    tier_b, tier_c, tier_d = (t[0] for t in LTX13B_TIERS[1:4])
     k2_key = f"K2 {K2_TIMED}"
     k5_key = f"K5 {K5_TIMED}"
     kernels = [
@@ -2841,6 +3064,10 @@ def main(argv=None) -> int:
         kernel_entry("flash_attention (bounded scores, no running max)",
                      K3_SOURCE, K3_REPLACES, ltx13b_launches[tier_c]["K3"],
                      k3_err, times, info, "K3 self pass 2"),
+        kernel_entry("flash_attention_int8 (int8 QK, bounded scores, no "
+                     "running max)", K3Q_SOURCE, K3Q_REPLACES,
+                     ltx13b_launches[tier_d]["K3q"], k3q_err, times, info,
+                     "K3q self pass 2"),
         kernel_entry("norm_mod_int8_matmul (fused adaLN prologue + int8 "
                      "linear)", K5_SOURCE, K5_REPLACES,
                      ltx13b_launches[tier_b]["K5"], k5_err, times, info,

@@ -1,11 +1,11 @@
-// K1's attention block, shared by the kernels built on it: K1 and K6
+// K1's attention block, shared by the kernels built on it: K1, K3 and K6
 // (flash_attention_wgmma.cu), K7's tensor-core body (ring_attention.cu) and
 // K8 (flash_attention_pipelined.cu). What lives here: the shared-memory
 // layout of the block (Q, a ring of K and V stages, their mbarriers), the
 // TMA tile loads and the producer's loop, the wgmma wrappers of Q.K^T at the
-// widths the kernels use, the online-softmax step, and the consumer's loop
-// over the kv tiles of one 128-row q tile (`attend_tiles`), with its
-// epilogue.
+// widths the kernels use, the softmax step (online, or K3's at a fixed
+// offset), and the consumer's loop over the kv tiles of one 128-row q tile
+// (`attend_tiles`), with its epilogue.
 //
 // The ring keeps a running position. Tile `it` of a block's life goes to
 // stage it % STAGES, and its full barrier completes phase (it / STAGES) & 1,
@@ -245,39 +245,54 @@ __device__ __forceinline__ void qk_issue(float (&sc)[N / 2], uint32_t q_rows,
 
 // ---- the softmax step ---------------------------------------------------------
 
-// One online-softmax step in the exp2 domain, in place, over N = kv
-// columns / 2 scores a thread: sc becomes p = exp2(s * c - m) with m the
-// running max of s * c; l takes the sum of p (per-thread partial sums,
-// reduced at the end): the fp32 p, or with ROUNDED the bf16-rounded p that
-// the P.V product sees (one conversion a pair, the halves read back with
-// integer ops; pack_rounded then packs them without converting again); a0
-// and a1 are the factors that the accumulator's two rows owe the new max.
-template <int N, bool ROUNDED = false>
+// One softmax step in the exp2 domain, in place, over N = kv columns / 2
+// scores a thread. Online (K1, K6, K7, K8): sc becomes p = exp2(s * c - m)
+// with m the running max of s * c; a0 and a1 are the factors that the
+// accumulator's two rows owe the new max. BOUNDED (K3): p = exp2(min(s * c,
+// sb) - sb) at the fixed offset sb = score_bound * log2(e), with no max, no
+// shuffle and no factor (m and a are left alone; a masked score at NEG_INF
+// gives 0). l takes the sum of p (per-thread partial sums, reduced at the
+// end): the fp32 p, or with ROUNDED the bf16-rounded p that the P.V product
+// sees (one conversion a pair, the halves read back with integer ops;
+// pack_rounded then packs them without converting again).
+template <int N, bool ROUNDED = false, bool BOUNDED = false>
 __device__ __forceinline__ void softmax_tile(float (&sc)[N], float c,
                                              float& m0, float& m1, float& l0,
-                                             float& l1, float& a0, float& a1) {
-  float mx0 = NEG_INF, mx1 = NEG_INF;
+                                             float& l1, float& a0, float& a1,
+                                             float sb = 0.f) {
+  float mn0 = 0.f, mn1 = 0.f;
+  if constexpr (!BOUNDED) {
+    float mx0 = NEG_INF, mx1 = NEG_INF;
 #pragma unroll
-  for (int jn = 0; jn < N / 4; ++jn) {
-    mx0 = fmaxf(mx0, fmaxf(sc[4 * jn], sc[4 * jn + 1]));
-    mx1 = fmaxf(mx1, fmaxf(sc[4 * jn + 2], sc[4 * jn + 3]));
+    for (int jn = 0; jn < N / 4; ++jn) {
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * jn], sc[4 * jn + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * jn + 2], sc[4 * jn + 3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    mn0 = fmaxf(m0, mx0 * c);
+    mn1 = fmaxf(m1, mx1 * c);
+    a0 = ex2(m0 - mn0);
+    a1 = ex2(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
   }
-  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-  const float mn0 = fmaxf(m0, mx0 * c), mn1 = fmaxf(m1, mx1 * c);
-  a0 = ex2(m0 - mn0);
-  a1 = ex2(m1 - mn1);
-  m0 = mn0;
-  m1 = mn1;
   float ls0 = 0.f, ls1 = 0.f;
 #pragma unroll
   for (int jn = 0; jn < N / 4; ++jn) {
-    sc[4 * jn] = ex2(fmaf(sc[4 * jn], c, -mn0));
-    sc[4 * jn + 1] = ex2(fmaf(sc[4 * jn + 1], c, -mn0));
-    sc[4 * jn + 2] = ex2(fmaf(sc[4 * jn + 2], c, -mn1));
-    sc[4 * jn + 3] = ex2(fmaf(sc[4 * jn + 3], c, -mn1));
+    if constexpr (BOUNDED) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[4 * jn + e] = ex2(fminf(sc[4 * jn + e] * c, sb) - sb);
+      }
+    } else {
+      sc[4 * jn] = ex2(fmaf(sc[4 * jn], c, -mn0));
+      sc[4 * jn + 1] = ex2(fmaf(sc[4 * jn + 1], c, -mn0));
+      sc[4 * jn + 2] = ex2(fmaf(sc[4 * jn + 2], c, -mn1));
+      sc[4 * jn + 3] = ex2(fmaf(sc[4 * jn + 3], c, -mn1));
+    }
     if constexpr (ROUNDED) {
 #pragma unroll
       for (int e = 0; e < 4; e += 2) {
@@ -289,8 +304,13 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[N], float c,
     ls0 += sc[4 * jn] + sc[4 * jn + 1];
     ls1 += sc[4 * jn + 2] + sc[4 * jn + 3];
   }
-  l0 = l0 * a0 + ls0;
-  l1 = l1 * a1 + ls1;
+  if constexpr (BOUNDED) {
+    l0 += ls0;
+    l1 += ls1;
+  } else {
+    l0 = l0 * a0 + ls0;
+    l1 = l1 * a1 + ls1;
+  }
 }
 
 // pack_p for p that are bf16 values already (softmax_tile<N, true>): the
@@ -339,6 +359,7 @@ struct Tiles {
   int it;            // ring position of the first kv tile
   int q_phase;       // the phase of q_full that brings this q tile
   float c;           // scale * log2(e)
+  float sb = 0.f;    // BOUNDED: score_bound * log2(e)
 };
 
 // One consumer warpgroup's 64 q rows of one 128-row q tile against n_tiles
@@ -349,14 +370,17 @@ struct Tiles {
 // CARRY: (acc, m, l) come in from an earlier kv range (K7's ring steps) and
 // the block goes on to another q tile afterwards, so tile 0's factor reaches
 // acc and the last V stage is released. ROUNDED: l sums the bf16-rounded p
-// (K8). needs_mask(j) says whether tile j compares columns (see MASK below).
+// (K8; K3 at D=64). BOUNDED: K3's step at the fixed offset tl.sb, so acc
+// owes no factor and is never rescaled. needs_mask(j) says whether tile j
+// compares columns (see MASK below).
 template <int D, int MASK, bool PRODUCER, bool CARRY, bool ROUNDED = false,
-          typename NeedsMask>
+          bool BOUNDED = false, typename NeedsMask>
 __device__ __forceinline__ void attend_tiles(const Ring& rg, const Tiles& tl,
                                              const Rows& r,
                                              NeedsMask needs_mask,
                                              float (&acc)[D / 2], float& m0,
                                              float& m1, float& l0, float& l1) {
+  static_assert(!(BOUNDED && CARRY), "K7 carries the online softmax state");
   using C = Cfg<D>;
   constexpr int STAGES = C::STAGES;
   const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31, t = lane & 3;
@@ -396,7 +420,8 @@ __device__ __forceinline__ void attend_tiles(const Ring& rg, const Tiles& tl,
     pin(sc);
     if (lane == 0) mbar_arrive(rg.k_empty + 8 * stage(0));
     if (needs_mask(0)) mask_tile<MASK>(sc, r, 0, t);
-    softmax_tile<64, ROUNDED>(sc, tl.c, m0, m1, l0, l1, a0, a1);
+    softmax_tile<64, ROUNDED, BOUNDED>(sc, tl.c, m0, m1, l0, l1, a0, a1,
+                                       tl.sb);
     if (CARRY) rescale<D>(acc, a0, a1);
     pack<ROUNDED>(sc, p);
   }
@@ -426,11 +451,12 @@ __device__ __forceinline__ void attend_tiles(const Ring& rg, const Tiles& tl,
     if (how == MASK_ALWAYS || (how == MASK_ASK && needs_mask(j))) {
       mask_tile<MASK>(sc, r, j * BKV, t);
     }
-    softmax_tile<64, ROUNDED>(sc, tl.c, m0, m1, l0, l1, a0, a1);
+    softmax_tile<64, ROUNDED, BOUNDED>(sc, tl.c, m0, m1, l0, l1, a0, a1,
+                                       tl.sb);
     wgmma_wait<0>();
     pin(acc);
     if (lane == 0) mbar_arrive(rg.v_empty + 8 * sp);
-    rescale<D>(acc, a0, a1);
+    if (!BOUNDED) rescale<D>(acc, a0, a1);
     pack<ROUNDED>(sc, p);
   };
   if (MASK == MASK_GENERAL) {

@@ -1,14 +1,17 @@
 // K4: int8 flash attention forward for sm_90a, in the two int8 tiers of
 // the JAX package: int8 Q.K^T with int8 P.V ("pallas_int8pv"), or int8
-// Q.K^T with bf16 P.V ("pallas_int8").
+// Q.K^T with bf16 P.V ("pallas_int8"); and K3q, the QK tier under a fixed
+// score bound ("pallas_int8" with score_bound=).
 //
 // Replaces the qk_int8 / pv_int8 branches of the Pallas TPU kernel
 // ltx_video_gpupoor_tpu/ops/flash_attention.py::_flash_kernel (reached
 // through flash_attention, :412 -> pl.pallas_call :631): the int8 scores
 // (:218-239), the int8 P.V (:270-292), the x127 exponent fold (:321-327)
-// and the finalize (:393-401). The quantize prologue (:484-533) runs
-// before the launch as plain torch ops (ops/flash_attention.py,
-// int8_prologue), shared with the plain version.
+// and the finalize (:393-401). K3q replaces the branch of the same kernel
+// that runs qk_int8 scores (:218-239, per-row k scales) into the bounded
+// softmax step (_update :296-313) with bf16 P.V (_pv :289-292). The
+// quantize prologue (:484-533) runs before the launch as plain torch ops
+// (ops/flash_attention.py, int8_prologue), shared with the plain version.
 //
 // Inputs are the prologue's int8 q and k ([B, H, S, D], any strides with
 // a unit last one, 16-byte aligned), fp32 q scales [B, H, Sq] with
@@ -31,6 +34,12 @@
 // tier. o = acc / l. JAX moves its running max once a kv block (4096 rows
 // at the Wan shape), this kernel once a 128-row tile, so p is quantized
 // against another max and the two agree to int8 noise, not bit for bit.
+// K3q (QK tier, BOUNDED): s = (s32 * qs) * ks as above, then p = exp2(min(s,
+// sb) - sb) at the fixed offset sb = score_bound * log2(e): no running max,
+// no factor, no rescale of acc; acc += bf16(p) . v, l sums p (the bf16 p at
+// D=64), o = acc / l. With per-row k scales and no max, nothing depends on
+// the kv block, so K3q agrees with its plain version to fp32 summation
+// order and ex2's approximation (int8_attention_plain with score_bound=).
 //
 // What bounds it on an H100: the softmax on the CUDA cores, not the tensor
 // cores. One ex2 a score (16 a clock an SM) takes 6.97 ms at the Wan 2.1
@@ -60,9 +69,14 @@
 //   issued together and tile j's softmax runs while P.V is in flight.
 // - Instances by mask kind, as K1: none, tail (the last tile compares),
 //   general (segment ids, causal).
+// - K3q is the QK tier's instance with the bounded step in place of
+//   softmax_k4 and without fold_pv's rescale: a min, a subtract and an ex2 a
+//   score, no max reduction and no shuffle.
 // Registers a thread (ptxas): QK tier 203-214 at D=128, QK+PV tier 232-255
 // (the s32 P.V accumulator in flight adds 64), 163-215 at D=64; no spills,
 // one block an SM.
+
+#include <cmath>
 
 #include "hopper.cuh"
 
@@ -281,6 +295,24 @@ __device__ __forceinline__ void softmax_k4(float (&s)[64], float& m0,
   }
 }
 
+// K3q's step, in place: s becomes p = exp2(min(s, sb) - sb) at the fixed
+// offset sb (a masked score, NEG_INF, gives 0); ls0 and ls1 are this
+// thread's sums of the fp32 p. No max, no shuffle, no factor.
+__device__ __forceinline__ void softmax_bounded(float (&s)[64], float sb,
+                                                float& ls0, float& ls1) {
+  ls0 = 0.f;
+  ls1 = 0.f;
+#pragma unroll
+  for (int jn = 0; jn < 16; ++jn) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[4 * jn + e] = ex2(fminf(s[4 * jn + e], sb) - sb);
+    }
+    ls0 += s[4 * jn] + s[4 * jn + 1];
+    ls1 += s[4 * jn + 2] + s[4 * jn + 3];
+  }
+}
+
 // p in [0, 127] -> int8 codes in the A-fragment order of the s8 P.V:
 // k-step kk takes score tiles 4 kk .. 4 kk + 3; its register 0 holds rows
 // g's codes of tiles 4 kk (elements 0, 1) and 4 kk + 1 (0, 1), register 1
@@ -325,7 +357,8 @@ __device__ __forceinline__ void ring_wait_empty(uint32_t empty, int j) {
   }
 }
 
-template <int D, bool PV8, int MASK>
+// BOUNDED: K3q, the QK tier at the fixed offset bound_log2 (K4 ignores it)
+template <int D, bool PV8, int MASK, bool BOUNDED>
 __global__ void __launch_bounds__(K4_THREADS, 1)
 flash_int8_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                         const __grid_constant__ CUtensorMap kmap,
@@ -336,7 +369,10 @@ flash_int8_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                         const float* __restrict__ kscale,
                         const float* __restrict__ vscale, int Sq, int Skv,
                         long long osb, long long osh, long long oss,
-                        int ks_block, int nks, int kv_end, int causal) {
+                        int ks_block, int nks, int kv_end, int causal,
+                        float bound_log2) {
+  // JAX refuses int8 P under a fixed offset (ops/flash_attention.py:477-483)
+  static_assert(!(PV8 && BOUNDED), "int8 P.V needs the running max");
   using C = K4Cfg<D, PV8>;
   constexpr int STAGES = C::STAGES;
   constexpr bool SUM_ROUNDED = D % 128 != 0;  // JAX's sum_col
@@ -500,8 +536,13 @@ flash_int8_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
           }
         }
       }
-      l0 = l0 * a0 + ls0;
-      l1 = l1 * a1 + ls1;
+      if constexpr (BOUNDED) {
+        l0 += ls0;
+        l1 += ls1;
+      } else {
+        l0 = l0 * a0 + ls0;
+        l1 = l1 * a1 + ls1;
+      }
     };
     auto issue_pv = [&](int s) {
       if constexpr (PV8) {
@@ -524,6 +565,8 @@ flash_int8_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
           acc[4 * n + 2] = fmaf(i2f(pv[4 * n + 2]), vs.x, acc[4 * n + 2]) * f1;
           acc[4 * n + 3] = fmaf(i2f(pv[4 * n + 3]), vs.y, acc[4 * n + 3]) * f1;
         }
+      } else if constexpr (BOUNDED) {
+        pin(acc);  // K3q: acc owes no factor
       } else {
         pin(acc);
 #pragma unroll
@@ -559,7 +602,11 @@ flash_int8_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       __syncwarp();  // the warp's reads of the stage's k scales are done
       if (lane == 0) mbar_arrive(k_empty);
       if (needs_mask(0)) mask_tile<MASK>(sf, r, 0, t);
-      softmax_k4<PV8>(sf, m0, m1, a0, a1, ls0, ls1);
+      if constexpr (BOUNDED) {
+        softmax_bounded(sf, bound_log2, ls0, ls1);
+      } else {
+        softmax_k4<PV8>(sf, m0, m1, a0, a1, ls0, ls1);
+      }
       take_p(sf, ls0, ls1);
     }
 
@@ -589,7 +636,11 @@ flash_int8_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       if (how == MASK_ALWAYS || (how == MASK_ASK && needs_mask(j))) {
         mask_tile<MASK>(sf, r, j * BKV, t);
       }
-      softmax_k4<PV8>(sf, m0, m1, a0, a1, ls0, ls1);
+      if constexpr (BOUNDED) {
+        softmax_bounded(sf, bound_log2, ls0, ls1);
+      } else {
+        softmax_k4<PV8>(sf, m0, m1, a0, a1, ls0, ls1);
+      }
       wgmma_wait<0>();
       if (lane == 0) mbar_arrive(v_empty + 8 * sp);
       fold_pv(a0, a1);
@@ -680,10 +731,11 @@ struct Call {
   int B, H, Sq, Skv;
   long long qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss;
   int ks_block, nks, kv_end, causal;
+  float bound_log2;
   cudaStream_t stream;
 };
 
-template <int D, bool PV8, int MASK>
+template <int D, bool PV8, int MASK, bool BOUNDED>
 int launch_instance(const Call& c) {
   CUtensorMap qmap = {}, kmap = {}, vmap = {};
   if (c.kv_end > 0) {  // with no key in sight the block loads nothing
@@ -696,7 +748,7 @@ int launch_instance(const Call& c) {
                           c.vsb));
     if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto kernel = flash_int8_wgmma_kernel<D, PV8, MASK>;
+  auto kernel = flash_int8_wgmma_kernel<D, PV8, MASK, BOUNDED>;
   constexpr int smem = K4Cfg<D, PV8>::SMEM_BYTES;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -705,15 +757,30 @@ int launch_instance(const Call& c) {
   kernel<<<grid, K4_THREADS, smem, c.stream>>>(
       qmap, kmap, vmap, static_cast<bf16*>(c.o), c.q_seg, c.kv_seg, c.qsc,
       c.ksc, c.vsc, c.Sq, c.Skv, c.osb, c.osh, c.oss, c.ks_block, c.nks,
-      c.kv_end, c.causal);
+      c.kv_end, c.causal, c.bound_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool PV8>
+template <int D, bool PV8, bool BOUNDED = false>
 int launch_kind(const Call& c, int mask_kind) {
-  if (mask_kind == MASK_NONE) return launch_instance<D, PV8, MASK_NONE>(c);
-  if (mask_kind == MASK_TAIL) return launch_instance<D, PV8, MASK_TAIL>(c);
-  return launch_instance<D, PV8, MASK_GENERAL>(c);
+  if (mask_kind == MASK_NONE) {
+    return launch_instance<D, PV8, MASK_NONE, BOUNDED>(c);
+  }
+  if (mask_kind == MASK_TAIL) {
+    return launch_instance<D, PV8, MASK_TAIL, BOUNDED>(c);
+  }
+  return launch_instance<D, PV8, MASK_GENERAL, BOUNDED>(c);
+}
+
+// the call's kv_end from kv_valid; false where the mask kind masks less
+// than the call needs, or segment ids come alone
+bool checked(Call& c, int kv_valid, int mask_kind) {
+  if (kv_valid >= 0 && kv_valid < c.kv_end) c.kv_end = kv_valid;
+  int need = MASK_NONE;
+  if (c.kv_end % BKV != 0) need = MASK_TAIL;
+  if (c.q_seg != nullptr || c.causal) need = MASK_GENERAL;
+  return mask_kind >= need && mask_kind <= MASK_GENERAL &&
+         (c.q_seg == nullptr) == (c.kv_seg == nullptr);
 }
 
 }  // namespace
@@ -747,18 +814,45 @@ extern "C" int k4_flash_attention_int8(
             static_cast<const float*>(k_scale),
             static_cast<const float*>(v_scale), B, H, Sq, Skv,
             qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss,
-            ks_block, nks, Skv, causal, static_cast<cudaStream_t>(stream)};
-  if (kv_valid >= 0 && kv_valid < c.kv_end) c.kv_end = kv_valid;
-  int need = MASK_NONE;
-  if (c.kv_end % BKV != 0) need = MASK_TAIL;
-  if (q_seg != nullptr || causal) need = MASK_GENERAL;
-  if (mask_kind < need || mask_kind > MASK_GENERAL ||
-      (q_seg == nullptr) != (kv_seg == nullptr)) {
+            ks_block, nks, Skv, causal, 0.f,
+            static_cast<cudaStream_t>(stream)};
+  if (!checked(c, kv_valid, mask_kind)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (D == 64 && pv_int8) return launch_kind<64, true>(c, mask_kind);
   if (D == 64) return launch_kind<64, false>(c, mask_kind);
   if (D == 128 && pv_int8) return launch_kind<128, true>(c, mask_kind);
   if (D == 128) return launch_kind<128, false>(c, mask_kind);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K3q: the QK tier's operands (q8, k8 and bf16 v [B, H, S, D] with element
+// strides (b, h, s), one fp32 k scale a kv row in rows of nks = Spad
+// entries), out bf16 with strides (b, h, s), then bound_log2 =
+// score_bound * log2(e); kv_valid and mask_kind as K4's
+extern "C" int k3q_flash_attention_int8_bounded(
+    const void* q, const void* k, const void* v, void* o,
+    const void* q_seg, const void* kv_seg,
+    const void* q_scale, const void* k_scale,
+    int B, int H, int Sq, int Skv, int D,
+    int qsb, int qsh, int qss, int ksb, int ksh, int kss,
+    int vsb, int vsh, int vss, int osb, int osh, int oss,
+    int nks, int kv_valid, int causal, int mask_kind, float bound_log2,
+    void* stream) {
+  if (Sq <= 0 || B <= 0 || H <= 0) return cudaGetLastError();
+  const int spad = (Skv + BKV - 1) / BKV * BKV;
+  Call c = {q, k, v, o, static_cast<const int*>(q_seg),
+            static_cast<const int*>(kv_seg),
+            static_cast<const float*>(q_scale),
+            static_cast<const float*>(k_scale), nullptr, B, H, Sq, Skv,
+            qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss,
+            1, nks, Skv, causal, bound_log2,
+            static_cast<cudaStream_t>(stream)};
+  if (nks != spad || !std::isfinite(bound_log2) ||
+      !checked(c, kv_valid, mask_kind)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (D == 64) return launch_kind<64, false, true>(c, mask_kind);
+  if (D == 128) return launch_kind<128, false, true>(c, mask_kind);
   return static_cast<int>(cudaErrorInvalidValue);
 }

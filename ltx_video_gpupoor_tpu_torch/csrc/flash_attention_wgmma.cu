@@ -1,28 +1,38 @@
-// K1 and K6: exact flash attention forward, bf16, for sm_90a, on wgmma.
+// K1, K3 and K6: flash attention forward, bf16, for sm_90a, on wgmma.
 //
 // K1 replaces the exact tier of the Pallas TPU kernel
 // ltx_video_gpupoor_tpu/ops/flash_attention.py::_flash_kernel (reached
-// through flash_attention, :412 -> pl.pallas_call :631) and K6 the
-// head-packed kernel _hp_kernel (:663, reached through flash_attention_hp,
-// :804 -> pl.pallas_call :866). Both entries run one block; K6 hands it the
-// strides of the projections' [B, S, H*D] layout (head h starts D*h values
-// into a token's row), which on the TPU needed a kernel of its own.
+// through flash_attention, :412 -> pl.pallas_call :631), K3 the same
+// kernel's bounded-score branch (_update, :294-313; flash_attention with
+// score_bound=) and K6 the head-packed kernel _hp_kernel (:663, reached
+// through flash_attention_hp, :804 -> pl.pallas_call :866). The three
+// entries run one block; K6 hands it the strides of the projections'
+// [B, S, H*D] layout (head h starts D*h values into a token's row), which
+// on the TPU needed a kernel of its own.
 //
-// Computes o = softmax(q k^T * scale) v, bf16 in and out, fp32 scores and
-// sums, D in {64, 128}, any Sq and Skv, any strides with a unit last stride
-// (head-split views and slices of a fused q/k/v projection are read in
-// place). Masks: a static kv_valid tail, segment ids (attend iff q_seg ==
-// kv_seg and kv_seg > 0) and causal. A row that sees no key returns exactly
-// 0: the running max starts at M_FLOOR, a masked score sits at NEG_INF, so
-// its exp2 underflows to 0 and the sum l stays 0.
+// K1 and K6 compute o = softmax(q k^T * scale) v, bf16 in and out, fp32
+// scores and sums, D in {64, 128}, any Sq and Skv, any strides with a unit
+// last stride (head-split views and slices of a fused q/k/v projection are
+// read in place). Masks: a static kv_valid tail, segment ids (attend iff
+// q_seg == kv_seg and kv_seg > 0) and causal. A row that sees no key
+// returns exactly 0: the running max starts at M_FLOOR, a masked score
+// sits at NEG_INF, so its exp2 underflows to 0 and the sum l stays 0.
+// K3 computes o = sum_j p_j v_j / sum_j p_j with p = exp2(min(s, sb) - sb),
+// s = q k^T * scale * log2(e) and the fixed offset sb = score_bound *
+// log2(e): no running max, no rescale of the accumulator; a score over the
+// bound ties at it, a masked one gives p = 0. Its denominator is the fp32
+// sum of p at D=128 and the sum of the bf16-rounded p at D=64, where the
+// TPU kernel reads it off a ones column of V (bounded_attention_plain in
+// ops/flash_attention.py is the contract).
 //
 // What bounds it on an H100: the tensor cores (4*B*H*Sq*Skv*D operations at
 // 989 TFLOP/s) and, at D=64, just as much the exponentials: one ex2 a score
 // on the special-function units (16 a clock on each of 132 SMs) takes as
 // long as the two products of a 64-wide head, so the two cannot both be
-// hidden and the tensor bound alone is out of reach there. Memory does not
-// bound it: every K/V tile is used by 128 q rows and stays in L2 across
-// the q tiles of a head.
+// hidden and the tensor bound alone is out of reach there. K3's step drops
+// the max, its shuffles and the rescale, which leaves the ex2 and the
+// products. Memory does not bound it: every K/V tile is used by 128 q rows
+// and stays in L2 across the q tiles of a head.
 //
 // Design. One block = 128 q rows of one (batch, head), in two consumer
 // warpgroups of 64 rows each.
@@ -41,15 +51,16 @@
 //   D/64 panels of [128 rows x 64 values] (a panel row is the swizzle span).
 // - The products of one tile run under the softmax of the next: Q.K^T of
 //   tile j and P.V of tile j - 1 are issued together, the exponentials of
-//   tile j run while P.V is in flight, and the accumulator takes the new
-//   max's factor once P.V has landed.
+//   tile j run while P.V is in flight, and (K1, K6) the accumulator takes the
+//   new max's factor once P.V has landed.
 // - Mask code runs only where it must. The block is instantiated for three
 //   mask kinds, chosen on the host from the call's static properties: none;
 //   tail (only the last kv tile, the one that straddles min(Skv, kv_valid),
 //   compares columns); general (segment ids compare in every tile; causal
 //   skips the tiles above the diagonal and compares on the diagonal tile).
 // - The exponent is one FMA and one ex2.approx a score: p = exp2(s*c - m),
-//   c = scale * log2(e), m the running max of s*c.
+//   c = scale * log2(e), m the running max of s*c; K3's is a multiply, a
+//   min, a subtract and the ex2.
 // - Who issues the loads, and whether the warpgroups take turns, differs by
 //   head dim: see Cfg. Registers a thread (ptxas, nvcc 12.9): 158-168 at
 //   D=64 with a producer (384 threads), 154 without, 186 at D=128 (256
@@ -58,11 +69,14 @@
 // over the kv tiles) lives in attention_block.cuh, which K7 and K8 run too;
 // this file holds the kernel around it and the host side.
 
+#include <cmath>
+
 #include "attention_block.cuh"
 
 namespace {
 
-template <int D, int MASK, bool PRODUCER>
+// BOUNDED: K3's softmax at the fixed offset bound_log2 (K1 and K6 ignore it)
+template <int D, int MASK, bool PRODUCER, bool BOUNDED>
 __global__ void __launch_bounds__(PRODUCER ? 384 : 256, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
@@ -70,7 +84,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    bf16* __restrict__ o, const int* __restrict__ q_seg,
                    const int* __restrict__ kv_seg, int Sq, int Skv,
                    long long osb, long long osh, long long oss,
-                   int kv_end, int causal, float scale_log2) {
+                   int kv_end, int causal, float scale_log2,
+                   float bound_log2) {
   extern __shared__ uint8_t smem_raw[];
   const Ring rg = ring_layout<D>(smem_raw);
 
@@ -127,9 +142,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
   if (n_tiles > 0) {
     const Tiles tl = {&qmap, &kmap, &vmap, q0, h, b, n_tiles, 0, 0,
-                      scale_log2};
-    attend_tiles<D, MASK, PRODUCER, false>(rg, tl, r, needs_mask, acc, m0,
-                                           m1, l0, l1);
+                      scale_log2, bound_log2};
+    // K3 at D=64 sums the bf16-rounded p, as the TPU kernel's ones column
+    attend_tiles<D, MASK, PRODUCER, false, BOUNDED && D % 128 != 0, BOUNDED>(
+        rg, tl, r, needs_mask, acc, m0, m1, l0, l1);
   }
 
   l0 = quad_sum(l0);
@@ -147,11 +163,11 @@ struct Call {
   int B, H, Sq, Skv;
   long long qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss;
   int kv_end, causal;
-  float scale_log2;
+  float scale_log2, bound_log2;
   cudaStream_t stream;
 };
 
-template <int D, int MASK, bool PRODUCER>
+template <int D, int MASK, bool PRODUCER, bool BOUNDED>
 int launch_layout(const Call& c) {
   CUtensorMap qmap = {}, kmap = {}, vmap = {};
   if (c.kv_end > 0) {  // with no key in sight the block loads nothing
@@ -161,7 +177,7 @@ int launch_layout(const Call& c) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  auto kernel = flash_wgmma_kernel<D, MASK, PRODUCER>;
+  auto kernel = flash_wgmma_kernel<D, MASK, PRODUCER, BOUNDED>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       Cfg<D>::SMEM_BYTES);
@@ -169,22 +185,24 @@ int launch_layout(const Call& c) {
   const dim3 grid((c.Sq + BQ - 1) / BQ, c.H, c.B);
   kernel<<<grid, PRODUCER ? 384 : 256, Cfg<D>::SMEM_BYTES, c.stream>>>(
       qmap, kmap, vmap, static_cast<bf16*>(c.o), c.q_seg, c.kv_seg, c.Sq,
-      c.Skv, c.osb, c.osh, c.oss, c.kv_end, c.causal, c.scale_log2);
+      c.Skv, c.osb, c.osh, c.oss, c.kv_end, c.causal, c.scale_log2,
+      c.bound_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, int MASK>
+template <int D, int MASK, bool BOUNDED>
 int launch_instance(const Call& c) {
   if constexpr (D == 64) {
     if (c.kv_end > Cfg<D>::STAGES * BKV) {
-      return launch_layout<D, MASK, true>(c);
+      return launch_layout<D, MASK, true, BOUNDED>(c);
     }
   }
-  return launch_layout<D, MASK, false>(c);
+  return launch_layout<D, MASK, false, BOUNDED>(c);
 }
 
 // mask_kind is the caller's choice (ops/flash_attention.py::mask_kind); a
 // kind that masks less than the call needs is refused
+template <bool BOUNDED>
 int launch(const Call& c, int D, int kv_valid, int mask_kind) {
   if (c.Sq <= 0 || c.B <= 0 || c.H <= 0) return cudaGetLastError();
   Call call = c;
@@ -194,18 +212,27 @@ int launch(const Call& c, int D, int kv_valid, int mask_kind) {
   if (call.kv_end % BKV != 0) need = MASK_TAIL;
   if (c.q_seg != nullptr || c.causal) need = MASK_GENERAL;
   if (mask_kind < need || mask_kind > MASK_GENERAL ||
-      !(c.scale_log2 > 0.f) || (c.q_seg == nullptr) != (c.kv_seg == nullptr)) {
+      !(c.scale_log2 > 0.f) || (c.q_seg == nullptr) != (c.kv_seg == nullptr) ||
+      (BOUNDED && !std::isfinite(c.bound_log2))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (D == 64) {
-    if (mask_kind == MASK_NONE) return launch_instance<64, MASK_NONE>(call);
-    if (mask_kind == MASK_TAIL) return launch_instance<64, MASK_TAIL>(call);
-    return launch_instance<64, MASK_GENERAL>(call);
+    if (mask_kind == MASK_NONE) {
+      return launch_instance<64, MASK_NONE, BOUNDED>(call);
+    }
+    if (mask_kind == MASK_TAIL) {
+      return launch_instance<64, MASK_TAIL, BOUNDED>(call);
+    }
+    return launch_instance<64, MASK_GENERAL, BOUNDED>(call);
   }
   if (D == 128) {
-    if (mask_kind == MASK_NONE) return launch_instance<128, MASK_NONE>(call);
-    if (mask_kind == MASK_TAIL) return launch_instance<128, MASK_TAIL>(call);
-    return launch_instance<128, MASK_GENERAL>(call);
+    if (mask_kind == MASK_NONE) {
+      return launch_instance<128, MASK_NONE, BOUNDED>(call);
+    }
+    if (mask_kind == MASK_TAIL) {
+      return launch_instance<128, MASK_TAIL, BOUNDED>(call);
+    }
+    return launch_instance<128, MASK_GENERAL, BOUNDED>(call);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -224,8 +251,26 @@ extern "C" int k1_flash_attention_bf16(
   const Call c = {q, k, v, o, static_cast<const int*>(q_seg),
                   static_cast<const int*>(kv_seg), B, H, Sq, Skv,
                   qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss,
-                  0, causal, scale_log2, static_cast<cudaStream_t>(stream)};
-  return launch(c, D, kv_valid, mask_kind);
+                  0, causal, scale_log2, 0.f,
+                  static_cast<cudaStream_t>(stream)};
+  return launch<false>(c, D, kv_valid, mask_kind);
+}
+
+// K3: K1's arguments, then bound_log2 = score_bound * log2(e)
+extern "C" int k3_flash_attention_bounded_bf16(
+    const void* q, const void* k, const void* v, void* o,
+    const void* q_seg, const void* kv_seg,
+    int B, int H, int Sq, int Skv, int D,
+    int qsb, int qsh, int qss, int ksb, int ksh, int kss,
+    int vsb, int vsh, int vss, int osb, int osh, int oss,
+    int kv_valid, int causal, int mask_kind, float scale_log2,
+    float bound_log2, void* stream) {
+  const Call c = {q, k, v, o, static_cast<const int*>(q_seg),
+                  static_cast<const int*>(kv_seg), B, H, Sq, Skv,
+                  qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss,
+                  0, causal, scale_log2, bound_log2,
+                  static_cast<cudaStream_t>(stream)};
+  return launch<true>(c, D, kv_valid, mask_kind);
 }
 
 // K6: q and out [B, S, H*D], k and v [B, Skv, H*D], each with a unit last
@@ -238,6 +283,6 @@ extern "C" int k6_flash_attention_hp_bf16(
     int kv_valid, int mask_kind, float scale_log2, void* stream) {
   const Call c = {q, k, v, o, nullptr, nullptr, B, H, S, Skv,
                   qsb, D, qss, ksb, D, kss, vsb, D, vss, osb, D, oss,
-                  0, 0, scale_log2, static_cast<cudaStream_t>(stream)};
-  return launch(c, D, kv_valid, mask_kind);
+                  0, 0, scale_log2, 0.f, static_cast<cudaStream_t>(stream)};
+  return launch<false>(c, D, kv_valid, mask_kind);
 }

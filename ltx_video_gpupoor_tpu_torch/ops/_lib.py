@@ -43,10 +43,10 @@ SIGNATURES = {
     "k1_flash_attention_bf16": [P, P, P, P, P, P, I, I, I, I, I,
                                 I, I, I, I, I, I, I, I, I, I, I, I,
                                 I, I, I, F, P],
-    # K1's arguments without the mask kind, then bound_log2 before the stream
+    # K1's arguments, then bound_log2 before the stream
     "k3_flash_attention_bounded_bf16": [P, P, P, P, P, P, I, I, I, I, I,
                                         I, I, I, I, I, I, I, I, I, I, I, I,
-                                        I, I, F, F, P],
+                                        I, I, I, F, F, P],
     # q, k, v, out ([B, S, H*D]), B, S, Skv, H, D, q/k/v/out strides
     # (batch, token), kv_valid (-1 = none), mask kind, scale, stream
     "k6_flash_attention_hp_bf16": [P, P, P, P, I, I, I, I, I,
@@ -58,6 +58,12 @@ SIGNATURES = {
     "k4_flash_attention_int8": [P, P, P, P, P, P, P, P, P, I, I, I, I, I,
                                 I, I, I, I, I, I, I, I, I, I, I, I,
                                 I, I, I, I, I, I, P],
+    # K3q: q8, k8, v (bf16), out, q_seg, kv_seg, q_scale, k_scale (a kv
+    # row's), B, H, Sq, Skv, D, q/k/v/out strides (b, h, s), nks, kv_valid
+    # (-1 = none), causal, mask kind, bound_log2, stream
+    "k3q_flash_attention_int8_bounded": [P, P, P, P, P, P, P, P, I, I, I, I,
+                                         I, I, I, I, I, I, I, I, I, I, I, I,
+                                         I, I, I, I, I, F, P],
     # x, M, K, x_dtype (0 bf16, 1 f32), xq, sx, stream
     "k2_quantize_rows": [P, I, I, I, P, P, P],
     # xq, w, M, N, K, sx, sw, bias, out, out_mode (0 s32, 1 bf16, 2 f32),

@@ -7,8 +7,8 @@ device: with a ``score_bound`` the bounded-score tier of the exact kernel
 (K3), else the exact tier (K1) at head dims up to 64 and the int8 QK+PV
 tier (K4) at 128 and above or an unknown head dim. ``pallas_int8`` and
 ``pallas_int8pv`` run K4's two tiers; an explicit ``pallas_int8pv`` drops
-the bound (:192-196), and ``pallas_int8`` with a bound raises, as the JAX
-kernel has no such combination on the port's path. ``pallas_hp`` runs the
+the bound (:192-196), and ``pallas_int8`` with a bound runs the int8 Q.K^T
+under the fixed offset (K3q), as the JAX kernel does. ``pallas_hp`` runs the
 head-packed kernel (K6) from :func:`attention_packed` and is ``pallas``
 for head-split callers (:162-165). ``xla`` runs
 :func:`~.flash_attention.reference_attention`, the plain fp32 attention,
@@ -98,7 +98,8 @@ def attention(
 ) -> torch.Tensor:
     """Multi-head attention over ``[B, H, S, D]``; segment id 0 = padding.
     ``score_bound``: a static bound on the |logits| that the caller can
-    vouch for (qk-normed attention); it selects the bounded tier (K3)."""
+    vouch for (qk-normed attention); it selects the bounded tier (K3, or
+    K3q under ``pallas_int8``)."""
     mode = resolve_mode(mode, score_bound, head_dim=q.shape[-1])
     if mode == "pallas_hp":
         # hp serves head-packed callers (attention_packed) only
@@ -114,14 +115,13 @@ def attention(
         return flash_attention(q, k, v, q_segment_ids, kv_segment_ids,
                                scale=scale, causal=causal,
                                score_bound=score_bound)
-    if mode == "pallas_int8" and score_bound is not None:
-        raise NotImplementedError(
-            "pallas_int8 with a score_bound (int8 QK under the fixed "
-            "offset): ROADMAP queue 1 step 12")
-    # pallas_int8pv: int8 P needs the running max, so the bound is dropped
+    pv_int8 = mode == "pallas_int8pv"
+    if pv_int8:
+        # int8 P needs the running max, so the bound is dropped
+        score_bound = None
     return flash_attention_int8(q, k, v, q_segment_ids, kv_segment_ids,
-                                scale=scale, causal=causal,
-                                pv_int8=mode == "pallas_int8pv")
+                                scale=scale, causal=causal, pv_int8=pv_int8,
+                                score_bound=score_bound)
 
 
 def attention_packed(

@@ -1,5 +1,5 @@
-"""Attention kernels K1 (exact), K3 (bounded scores), K4 (int8) and K6
-(head-packed) and their plain versions.
+"""Attention kernels K1 (exact), K3 (bounded scores), K4 (int8), K3q
+(int8 Q.K^T, bounded scores) and K6 (head-packed) and their plain versions.
 
 Port of ``ltx_video_gpupoor_tpu/ops/flash_attention.py``:
 
@@ -10,8 +10,9 @@ Port of ``ltx_video_gpupoor_tpu/ops/flash_attention.py``:
   online-softmax tier, backed by ``csrc/flash_attention_wgmma.cu`` (which
   replaces ``_flash_kernel``, :160). It takes any sequence length (the
   kernel masks its own ragged edge). With ``score_bound=`` it is the
-  bounded-score tier (:294-313), kernel K3 (``csrc/flash_attention.cu``),
-  whose plain version is :func:`bounded_attention_plain`.
+  bounded-score tier (:294-313), kernel K3 (the same source, K1's block
+  at a fixed exponent offset), whose plain version is
+  :func:`bounded_attention_plain`.
 - :func:`flash_attention_hp` is ``flash_attention_hp`` (:804, Pallas
   ``_hp_kernel`` :663), kernel K6: exact attention that reads and writes
   the projections' ``[B, S, H*D]`` layout, the other entry of K1's source;
@@ -27,7 +28,10 @@ Port of ``ltx_video_gpupoor_tpu/ops/flash_attention.py``:
   (K4, the int8 branches of ``_flash_kernel``: scores :218-239, P.V
   :270-292, the x127 fold :321-327, finalize :393-401). Its QK+PV tier
   reads V transposed and in its own kv order, which the prologue writes
-  (:func:`k4_v_layout`).
+  (:func:`k4_v_layout`). With ``pv_int8=False`` and ``score_bound=`` it is
+  the int8 Q.K^T branch under the bounded softmax (:218-239 into
+  :296-313), kernel K3q (the QK tier's instance in the same source); the
+  plain version is :func:`int8_attention_plain` with ``score_bound=``.
 
 The int8 tiers' numerics depend on JAX's compiled kv block: K scales are
 per block in the QK+PV tier, and P is quantized against the running max
@@ -244,9 +248,10 @@ def flash_attention(
 
     CPU tensors take :func:`reference_attention` (or
     :func:`bounded_attention_plain`); CUDA tensors launch K1 (K3 with a
-    bound; bf16, D in {64, 128}) or raise. The output has q's dtype and,
-    on the card, q's memory layout. K1 launches count in ``launches``,
-    K3's in ``bounded_launches``."""
+    bound; bf16, D in {64, 128}; both run the block instance that
+    :func:`mask_kind` names) or raise. The output has q's dtype and, on
+    the card, q's memory layout. K1 launches count in ``launches``, K3's
+    in ``bounded_launches``."""
     _check_seg_pair(q_segment_ids, kv_segment_ids)
     if q.device.type == "cpu":
         if score_bound is not None:
@@ -274,20 +279,20 @@ def flash_attention(
             *out.stride()[:3],
             -1 if kv_valid is None else max(0, int(kv_valid)),
             int(bool(causal)))
+    if not scale > 0:
+        raise ValueError(f"K1 takes a positive scale, got {scale}")
+    kind = MASK_KINDS.index(mask_kind(
+        skv, kv_valid, segments=q_segment_ids is not None, causal=causal))
     scale_log2 = ctypes.c_float(float(scale) * LOG2E)
     if score_bound is None:
-        if not scale > 0:
-            raise ValueError(f"K1 takes a positive scale, got {scale}")
-        kind = mask_kind(skv, kv_valid, segments=q_segment_ids is not None,
-                         causal=causal)
         code = _lib.library().k1_flash_attention_bf16(
-            *args, MASK_KINDS.index(kind), scale_log2,
-            _lib.stream_ptr(q.device))
+            *args, kind, scale_log2, _lib.stream_ptr(q.device))
         _lib.check(code, "K1 flash_attention launch")
         flash_attention.launches += 1
     else:
         code = _lib.library().k3_flash_attention_bounded_bf16(
-            *args, scale_log2, ctypes.c_float(float(score_bound) * LOG2E),
+            *args, kind, scale_log2,
+            ctypes.c_float(float(score_bound) * LOG2E),
             _lib.stream_ptr(q.device))
         _lib.check(code, "K3 bounded flash_attention launch")
         flash_attention.bounded_launches += 1
@@ -598,6 +603,7 @@ def int8_attention_plain(
     kv_valid: int | None = None,
     out_dtype: torch.dtype = torch.float32,
     block_kv: int | None = None,
+    score_bound: float | None = None,
 ) -> torch.Tensor:
     """The plain PyTorch version of K4: JAX's int8 kernel body with one
     sub-block per kv block (``nsub=1``), stepping its online softmax over
@@ -606,6 +612,12 @@ def int8_attention_plain(
     quantization the kernel's. (The k scales keep ``ops.k_block``.) P.V
     runs in float64: a kv block may sum 127**2 * 4096 > 2**24.
 
+    With ``score_bound`` (QK tier operands only: JAX refuses int8 P under
+    a fixed offset, :477-483) it is the plain version of K3q, JAX's
+    bounded ``_update`` (:296-313) on the int8 scores: ``p =
+    exp2(min(s, sb) - sb)``, ``sb = score_bound * log2(e)``, no running
+    max, so ``block_kv`` only orders the sums.
+
     At a head dim that is not a 128 multiple JAX appends a ones column
     to V, so the denominator sums the rounded p: ``127 * sum(p8)`` times
     the column's scale (QK+PV tier), the bf16 p (QK tier)."""
@@ -613,6 +625,10 @@ def int8_attention_plain(
     b, h, sq, d = ops.q8.shape
     v, v_scale = ops.v, ops.v_scale
     pv_int8 = v_scale is not None
+    bounded = score_bound is not None
+    if pv_int8 and bounded:
+        raise ValueError("pv_int8 requires the online-softmax path; drop "
+                         "score_bound")
     if pv_int8:
         v = k4_v_rows(v, ops.k8.shape[2])
     sum_rounded = d % 128 != 0
@@ -626,31 +642,40 @@ def int8_attention_plain(
             m = torch.full((b, h, r1 - r0, 1), M_FLOOR, device=dev)
             l = torch.zeros((b, h, r1 - r0, 1), device=dev)
             acc = torch.zeros((b, h, r1 - r0, d), device=dev)
-        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-        alpha = _exp2(m - m_new)
-        if pv_int8:
-            p = _exp2(s - (m_new - LOG2_127))
-            del s
-            p8 = torch.round(p).double()
-            pv = (p8 @ v[:, :, c0:c1].double()).float() * \
-                v_scale[:, :, None, :]
-            if sum_rounded:
-                l_blk = (p8.sum(-1, keepdim=True) * 127).float() * \
-                    SUM_COL_SCALE
-            else:
-                l_blk = p.sum(-1, keepdim=True)
-            del p8
-        else:
-            p = _exp2(s - m_new)
+        if bounded:
+            sb = score_bound * LOG2E
+            p = _exp2(torch.clamp(s, max=sb) - sb)
             del s
             pr = p.to(v.dtype).float()
-            pv = pr @ v[:, :, c0:c1].float()
-            l_blk = (pr if sum_rounded else p).sum(-1, keepdim=True)
-            del pr
-        del p
-        l = alpha * l + l_blk
-        acc = acc * alpha + pv
-        m = m_new
+            acc += pr @ v[:, :, c0:c1].float()
+            l += (pr if sum_rounded else p).sum(-1, keepdim=True)
+            del p, pr
+        else:
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            alpha = _exp2(m - m_new)
+            if pv_int8:
+                p = _exp2(s - (m_new - LOG2_127))
+                del s
+                p8 = torch.round(p).double()
+                pv = (p8 @ v[:, :, c0:c1].double()).float() * \
+                    v_scale[:, :, None, :]
+                if sum_rounded:
+                    l_blk = (p8.sum(-1, keepdim=True) * 127).float() * \
+                        SUM_COL_SCALE
+                else:
+                    l_blk = p.sum(-1, keepdim=True)
+                del p8
+            else:
+                p = _exp2(s - m_new)
+                del s
+                pr = p.to(v.dtype).float()
+                pv = pr @ v[:, :, c0:c1].float()
+                l_blk = (pr if sum_rounded else p).sum(-1, keepdim=True)
+                del pr
+            del p
+            l = alpha * l + l_blk
+            acc = acc * alpha + pv
+            m = m_new
         if c1 == ops.k8.shape[2]:
             out[:, :, r0:r1] = (acc / torch.where(l > 0, l, 1.0)
                                 ).to(out_dtype)
@@ -752,14 +777,21 @@ def int8_attention_cuda(
     causal: bool = False,
     kv_valid: int | None = None,
     out: torch.Tensor | None = None,
+    score_bound: float | None = None,
 ) -> torch.Tensor:
-    """Launch K4 on prologue operands that lie on the card; the result is
-    bf16, written into ``out`` (any 16-byte aligned layout) if given. Each
-    launch adds one to ``flash_attention_int8.launches``."""
+    """Launch K4 on prologue operands that lie on the card, or with
+    ``score_bound`` K3q (QK tier operands only); the result is bf16,
+    written into ``out`` (any 16-byte aligned layout) if given. Each
+    launch adds one to ``flash_attention_int8.launches`` (K4) or
+    ``flash_attention_int8.bounded_launches`` (K3q)."""
     from . import _lib
 
     _check_seg_pair(q_segment_ids, kv_segment_ids)
     _check_int8_operands(ops, ops.q8.device)
+    pv_int8 = ops.v_scale is not None
+    if pv_int8 and score_bound is not None:
+        raise ValueError("pv_int8 requires the online-softmax path; drop "
+                         "score_bound")
     b, h, sq, d = ops.q8.shape
     skv = ops.k8.shape[2]
     if out is None:
@@ -771,24 +803,28 @@ def int8_attention_cuda(
         _check_layout("K4", "out", out, torch.bfloat16, ops.q8.device)
     seg_q = q_segment_ids.data_ptr() if q_segment_ids is not None else None
     seg_kv = kv_segment_ids.data_ptr() if kv_segment_ids is not None else None
-    pv_int8 = ops.v_scale is not None
-    kind = mask_kind(skv, kv_valid, segments=q_segment_ids is not None,
-                     causal=causal)
-    code = _lib.library().k4_flash_attention_int8(
-        ops.q8.data_ptr(), ops.k8.data_ptr(), ops.v.data_ptr(),
-        out.data_ptr(), seg_q, seg_kv, ops.q_scale.data_ptr(),
-        ops.k_scale.data_ptr(),
-        ops.v_scale.data_ptr() if pv_int8 else None,
-        b, h, sq, skv, d,
-        *ops.q8.stride()[:3], *ops.k8.stride()[:3], *ops.v.stride()[:3],
-        *out.stride()[:3],
-        ops.k_block, ops.k_scale.shape[2],
-        -1 if kv_valid is None else max(0, int(kv_valid)),
-        int(bool(causal)), int(pv_int8), MASK_KINDS.index(kind),
-        _lib.stream_ptr(ops.q8.device),
-    )
-    _lib.check(code, "K4 flash_attention_int8 launch")
-    flash_attention_int8.launches += 1
+    kind = MASK_KINDS.index(mask_kind(
+        skv, kv_valid, segments=q_segment_ids is not None, causal=causal))
+    args = (ops.q8.data_ptr(), ops.k8.data_ptr(), ops.v.data_ptr(),
+            out.data_ptr(), seg_q, seg_kv, ops.q_scale.data_ptr(),
+            ops.k_scale.data_ptr())
+    shape = (b, h, sq, skv, d, *ops.q8.stride()[:3], *ops.k8.stride()[:3],
+             *ops.v.stride()[:3], *out.stride()[:3])
+    valid = -1 if kv_valid is None else max(0, int(kv_valid))
+    if score_bound is None:
+        code = _lib.library().k4_flash_attention_int8(
+            *args, ops.v_scale.data_ptr() if pv_int8 else None, *shape,
+            ops.k_block, ops.k_scale.shape[2], valid, int(bool(causal)),
+            int(pv_int8), kind, _lib.stream_ptr(ops.q8.device))
+        _lib.check(code, "K4 flash_attention_int8 launch")
+        flash_attention_int8.launches += 1
+    else:
+        code = _lib.library().k3q_flash_attention_int8_bounded(
+            *args, *shape, ops.k_scale.shape[2], valid, int(bool(causal)),
+            kind, ctypes.c_float(float(score_bound) * LOG2E),
+            _lib.stream_ptr(ops.q8.device))
+        _lib.check(code, "K3q bounded flash_attention_int8 launch")
+        flash_attention_int8.bounded_launches += 1
     return out
 
 
@@ -803,30 +839,37 @@ def flash_attention_int8(
     causal: bool = False,
     kv_valid: int | None = None,
     pv_int8: bool = True,
+    score_bound: float | None = None,
 ) -> torch.Tensor:
     """int8 flash attention over ``[B, H, S, D]``: the QK+PV tier
     (``pallas_int8pv``) or, with ``pv_int8=False``, the QK tier
-    (``pallas_int8``), at JAX's default blocks.
+    (``pallas_int8``), at JAX's default blocks; the QK tier with
+    ``score_bound`` is the bounded one (K3q). ``pv_int8`` with a bound
+    raises, as in JAX.
 
     CPU tensors take :func:`int8_attention_plain`; CUDA tensors (bf16,
-    D in {64, 128}) launch K4 or raise. The output has q's dtype and, on
-    the card, q's memory layout."""
+    D in {64, 128}) launch K4 (K3q) or raise. The output has q's dtype
+    and, on the card, q's memory layout."""
     _check_seg_pair(q_segment_ids, kv_segment_ids)
+    if pv_int8 and score_bound is not None:
+        raise ValueError("pv_int8 requires the online-softmax path; drop "
+                         "score_bound")
     if q.device.type == "cuda":
-        _check_cuda_operands(q, k, v, q_segment_ids, kv_segment_ids, "K4")
+        _check_cuda_operands(q, k, v, q_segment_ids, kv_segment_ids,
+                             "K4" if score_bound is None else "K3q")
     elif q.device.type != "cpu":
         raise ValueError(f"K4 runs on CUDA or the CPU, not {q.device}")
     ops = int8_prologue(q, k, v, scale=scale, pv_int8=pv_int8)
+    kw = dict(causal=causal, kv_valid=kv_valid, score_bound=score_bound)
     if q.device.type == "cpu":
         return int8_attention_plain(ops, q_segment_ids, kv_segment_ids,
-                                    causal=causal, kv_valid=kv_valid,
-                                    out_dtype=q.dtype)
+                                    out_dtype=q.dtype, **kw)
     return int8_attention_cuda(ops, q_segment_ids, kv_segment_ids,
-                               causal=causal, kv_valid=kv_valid,
-                               out=torch.empty_like(q))
+                               out=torch.empty_like(q), **kw)
 
 
 flash_attention_int8.launches = 0
+flash_attention_int8.bounded_launches = 0
 
 
 def attention_flops(b: int, h: int, sq: int, skv: int, d: int) -> int:

@@ -69,15 +69,21 @@ def test_summarize_trace_counts_overlap_once(tmp_path):
         "K2 / K5 int8 GEMM": (1.0, 1),
         "cuDNN conv3d (VAE)": (0.5, 1),
         "PyTorch elementwise and copies: casts and copies": (0.5, 1)}
-    # the bounded tier and the prologue's row kernel have groups of their own
+    # the bounded tiers (the instances of K1's and K4's kernels whose last
+    # template argument is true) and the prologue's row kernel have groups
+    # of their own
     trace["traceEvents"] += [
-        ev("kernel", "void (anonymous namespace)::flash_bounded_kernel<128>"
-           "(...)", 5000.0, 250.0),
+        ev("kernel", "void (anonymous namespace)::flash_wgmma_kernel"
+           "<128, 2, false, true>(...)", 5000.0, 250.0),
+        ev("kernel", "void (anonymous namespace)::flash_int8_wgmma_kernel"
+           "<128, false, 0, true>(...)", 5250.0, 50.0),
         ev("kernel", "norm_mod_quantize_rows_kernel(...)", 6000.0, 125.0)]
     path.write_text(json.dumps(trace))
     groups = chip_smoke.summarize_trace(str(path))["groups"]
     assert groups["K3 bounded-score flash attention"] == (0.25, 1)
+    assert groups["K3q int8-QK bounded-score flash attention"] == (0.05, 1)
     assert groups["K5 prologue row kernel"] == (0.125, 1)
+    assert groups["K1 / K6 exact flash attention"] == (1.0, 1)
     # PyTorch's own kernels go by the innermost record_function scope
     # around their launch (matched through the correlation id), the
     # redesigned kernels by their names
@@ -104,7 +110,7 @@ def test_summarize_trace_counts_overlap_once(tmp_path):
             e["tid"] = 7
     trace["traceEvents"] += [
         ev("kernel", "void (anonymous namespace)::flash_int8_wgmma_kernel"
-           "<128, true, 1>(...)", 8000.0, 500.0),
+           "<128, true, 1, false>(...)", 8000.0, 500.0),
         ev("kernel", "void (anonymous namespace)::int8_gemm_wgmma_kernel<1>"
            "(...)", 9000.0, 250.0)]
     path.write_text(json.dumps(trace))
@@ -158,7 +164,8 @@ def _stubbed_main(monkeypatch, capsys, argv):
     results = {
         "phase_device": ("a card", 4.18e12),
         "phase_build": 1.0, "phase_k1": 0.0, "phase_k2": 0.0,
-        "phase_k4": (0.0, 0.0), "phase_k3": 0.0, "phase_k5": 0.0,
+        "phase_k4": (0.0, 0.0), "phase_k3": 0.0, "phase_k3q": 0.0,
+        "phase_k5": 0.0,
         "phase_k6": 0.0, "phase_timing": (timed, info),
         "phase_k8": (0.0, 1), "phase_k7": (0.0, 1),
         "phase_path": ([ones], object(), object()),
@@ -182,7 +189,8 @@ def _stubbed_main(monkeypatch, capsys, argv):
 
 
 KERNEL_PHASES = ["phase_device", "phase_build", "phase_k1", "phase_k2",
-                 "phase_k4", "phase_k3", "phase_k5", "phase_k6",
+                 "phase_k4", "phase_k3", "phase_k3q", "phase_k5",
+                 "phase_k6",
                  "phase_timing", "phase_k8", "phase_k7"]
 
 
@@ -202,11 +210,16 @@ def test_default_run_drives_every_path_and_ends_with_the_result(
     assert json.loads(lines[-1]) == {"ok": True, "device": {
         "platform": "gpu", "kind": "a card", "count": 1}}
     kernels = json.loads(lines[-2])["kernels"]
-    assert len(kernels) == 9
+    assert len(kernels) == 10
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert all(keys <= set(k) for k in kernels)
     by_name = {k["name"].split(" (")[0]: k["source"] for k in kernels}
     assert by_name["flash_attention_hp"].endswith("flash_attention_wgmma.cu")
-    assert [k["source"] for k in kernels
-            if "bounded" in k["name"]][0].endswith("csrc/flash_attention.cu")
+    bounded = {k["name"].split(" (")[0]: k["source"] for k in kernels
+               if "bounded" in k["name"]}
+    assert bounded["flash_attention"].endswith("csrc/flash_attention_wgmma.cu")
+    assert bounded["flash_attention_int8"].endswith(
+        "csrc/flash_attention_int8.cu")
+    assert all(os.path.exists(os.path.join(REPO, k["source"]))
+               for k in kernels)

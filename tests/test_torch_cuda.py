@@ -23,7 +23,12 @@ most 1.1x the plain version's: it adds no error to the tier's own.
 (The 3e-2 max bound of the JAX tier tests holds on their inputs; the
 tiers' own math exceeds it on other draws, 0.05 at worst in 12 CPU
 draws, so it is no bound for every input.)
-K3 (bounded scores) against its plain version at atol = rtol = 2e-2. K5 (fused adaLN prologue): the int8 codes and
+K3 (bounded scores, on K1's block) against its plain version at atol =
+rtol = 2e-2 and within two bf16 ulps plus 2**-9 of the largest output, at
+every mask kind and both head dims; K3q (int8 Q.K^T, bounded scores)
+against its plain version on the same prologue operands within the same
+two ulps (per-row k scales and no running max: nothing depends on a kv
+block). K5 (fused adaLN prologue): the int8 codes and
 row scales of its row kernel and the int32 product exactly, as for K2
 (the mean of squares is rounded from a float64 sum on both sides, and
 ``rsqrt`` is the same device function), its outputs at 1e-2 relative.
@@ -274,6 +279,9 @@ def test_k4_rejects_what_it_does_not_take(cuda):
     (64, 300, 300, False, False, 211),           # D=64: bf16 denominator
     (128, 130, 77, True, False, None),           # text segments, a lost row
     (64, 200, 200, False, True, None),           # causal
+    (128, 256, 384, False, False, None),         # no mask code: none
+    (64, 384, 384, False, False, 256),           # kv_valid on a tile: none
+    (64, 1000, 1000, False, False, 777),         # D=64 with the producer
 ])
 def test_k3_matches_plain(cuda, d, sq, skv, seg, causal, kv_valid):
     gen = torch.Generator(device=cuda).manual_seed(5)
@@ -293,6 +301,7 @@ def test_k3_matches_plain(cuda, d, sq, skv, seg, causal, kv_valid):
     ref = fa.bounded_attention_plain(q, k, v, *args, score_bound=16.0, **kw)
     assert torch.isfinite(out.float()).all()
     torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    assert _within_two_ulps(out, ref)
     # within the bound it is exact attention
     q[0, 0, 3] /= 40
     out = fa.flash_attention(q, k, v, *args, score_bound=40.0, **kw)
@@ -301,6 +310,55 @@ def test_k3_matches_plain(cuda, d, sq, skv, seg, causal, kv_valid):
     torch.testing.assert_close(out.float(), exact, atol=2e-2, rtol=2e-2)
     if seg:
         assert float(out[1, :, 5].float().abs().max()) == 0.0
+
+
+def _counts():
+    return (fa.flash_attention.launches, fa.flash_attention.bounded_launches,
+            fa.flash_attention_int8.launches,
+            fa.flash_attention_int8.bounded_launches)
+
+
+@pytest.mark.parametrize("d,sq,skv,seg,causal,kv_valid,kind", [
+    (128, 300, 300, False, False, None, "tail"),     # ragged S
+    (64, 300, 300, False, False, 211, "tail"),       # bf16 denominator
+    (128, 130, 77, True, False, None, "general"),    # segments, a lost row
+    (64, 200, 200, False, True, None, "general"),    # causal
+    (128, 256, 384, False, False, None, "none"),     # no mask code
+    (64, 384, 384, False, False, 256, "none"),       # kv_valid on a tile
+])
+def test_k3q_matches_plain(cuda, d, sq, skv, seg, causal, kv_valid, kind):
+    """K3q against its plain version on the same prologue operands: one
+    launch, counted in ``flash_attention_int8.bounded_launches`` and in no
+    other counter; a row whose scores lie over the bound stays finite and
+    agrees; a row that sees no key returns 0; the wrapper (prologue +
+    kernel) gives the same bits in q's layout."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v = (_randn(gen, 2, 3, n, d).bfloat16() for n in (sq, skv, skv))
+    q[0, 0, 3] *= 40                               # scores over the bound
+    args = []
+    if seg:
+        args = [torch.ones(2, sq, dtype=torch.int32, device=cuda),
+                torch.ones(2, skv, dtype=torch.int32, device=cuda)]
+        args[1][0, 40:] = 0
+        args[0][1, 5] = 7                          # sees no key
+    assert fa.mask_kind(skv, kv_valid, segments=seg, causal=causal) == kind
+    kw = dict(causal=causal, kv_valid=kv_valid, score_bound=16.0)
+    ops = fa.int8_prologue(q, k, v, pv_int8=False)
+    before = _counts()
+    kern = fa.int8_attention_cuda(ops, *args, **kw)
+    assert _counts() == before[:3] + (before[3] + 1,)
+    plain = fa.int8_attention_plain(ops, *args, out_dtype=q.dtype, **kw)
+    assert torch.isfinite(kern.float()).all()
+    assert _within_two_ulps(kern, plain)
+    zeroed = kern.clone()                          # a planted fault: the
+    zeroed[:, :, (sq - 1) // 128 * 128:] = 0       # last q tile unwritten
+    assert not _within_two_ulps(zeroed, plain)
+    if seg:
+        assert float(kern[1, :, 5].float().abs().max()) == 0.0
+    out = fa.flash_attention_int8(q, k, v, *args, pv_int8=False, **kw)
+    assert out.stride() == q.stride() and torch.equal(out, kern)
+    with pytest.raises(ValueError, match="pv_int8"):
+        fa.int8_attention_cuda(fa.int8_prologue(q, k, v), score_bound=16.0)
 
 
 @pytest.mark.parametrize("heads,d,s,kv_valid", [(4, 64, 300, None),

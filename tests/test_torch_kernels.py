@@ -26,6 +26,7 @@ are compared with the plain versions on the card by
 tests/test_torch_cuda.py and chip_smoke.py.
 """
 
+import functools
 import inspect
 
 import jax
@@ -353,15 +354,22 @@ def test_attention_dispatches_by_tier(monkeypatch, mode, d, tier):
     """``attention`` reaches the tier ``resolve_mode`` names; an explicit
     ``pallas_int8pv`` drops a score bound (as in JAX), ``auto`` and
     ``pallas`` with a bound reach the bounded tier (K3), and
-    ``pallas_int8`` with a bound is not ported."""
+    ``pallas_int8`` with a bound the int8 Q.K^T bounded tier (K3q), the
+    bound passed through."""
     calls = []
     monkeypatch.setattr(
         tattn, "flash_attention",
         lambda *a, score_bound=None, **k: calls.append(
             "K1" if score_bound is None else f"K3:{score_bound}"))
-    monkeypatch.setattr(
-        tattn, "flash_attention_int8",
-        lambda *a, pv_int8, **k: calls.append("K4pv" if pv_int8 else "K4qk"))
+
+    def int8(*a, pv_int8, score_bound=None, **k):
+        if score_bound is not None:
+            assert not pv_int8
+            calls.append(f"K3q:{score_bound}")
+        else:
+            calls.append("K4pv" if pv_int8 else "K4qk")
+
+    monkeypatch.setattr(tattn, "flash_attention_int8", int8)
     q = torch.zeros(1, 1, 8, d)
     tattn.attention(q, q, q, mode=mode)
     assert calls == [tier]
@@ -369,8 +377,8 @@ def test_attention_dispatches_by_tier(monkeypatch, mode, d, tier):
         tattn.attention(q, q, q, mode=mode, score_bound=40.0)
         assert calls == [tier, tier]
     elif mode == "pallas_int8":
-        with pytest.raises(NotImplementedError, match="step 12"):
-            tattn.attention(q, q, q, mode=mode, score_bound=40.0)
+        tattn.attention(q, q, q, mode=mode, score_bound=40.0)
+        assert calls == [tier, "K3q:40.0"]
     else:
         tattn.attention(q, q, q, mode=mode, score_bound=40.0)
         assert calls == [tier, "K3:40.0"]
@@ -457,6 +465,91 @@ def test_k3_int8pv_with_a_bound_keeps_the_running_max():
     a = tattn.attention(*_t(q, k, v), mode="pallas_int8pv", score_bound=20.0)
     b_ = tattn.attention(*_t(q, k, v), mode="pallas_int8pv")
     assert torch.equal(a, b_)
+
+
+# --------------------------------------------------------------------------
+# K3q: int8 Q.K^T under the bounded softmax
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", ["none", "kv_tail", "segments", "causal"])
+def test_k3q_plain_matches_pallas_interpret(monkeypatch, d, case):
+    """``attention(mode="pallas_int8", score_bound=20)`` against JAX's
+    ``attention`` in the same mode, whose Pallas kernel runs its int8
+    Q.K^T branch (per-row k scales) into the bounded ``_update`` in
+    interpret mode (JAX pads to 128 rows and masks the kv tail with
+    ``kv_valid``; the port masks its own edge). One q row is scaled so
+    that its scores lie over the bound; with segments one q row sees no
+    key and returns 0. Both compute the same int8 codes and the same
+    exponent; tolerance 2e-5, the fp32 attention tolerance."""
+    monkeypatch.setattr(jattn, "flash_attention", functools.partial(
+        jfa.flash_attention, interpret=True))
+    sq, skv = (300, 300) if case == "kv_tail" else (256, 384)
+    if case == "causal":
+        skv = sq
+    q, k, v = _qkv(31, 2, 2, sq, skv, d)
+    q[0, 1, 7] *= 30.0
+    segs = ()
+    if case == "segments":
+        q_seg = np.ones((2, sq), np.int32)
+        q_seg[1, 4] = 3                    # a row that matches no key
+        kv_seg = np.ones((2, skv), np.int32)
+        kv_seg[0, 200:] = 0                # padded text
+        segs = (q_seg, kv_seg)
+    kw = dict(mode="pallas_int8", score_bound=20.0, causal=case == "causal")
+    ref = jattn.attention(*map(jnp.asarray, (q, k, v) + segs), **kw)
+    out = tattn.attention(*_t(q, k, v, *segs), **kw)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL,
+                               rtol=RTOL)
+    if segs:
+        np.testing.assert_array_equal(out[1, :, 4].numpy(), 0.0)
+    # in the rows whose scores stay under the bound it is the int8 QK
+    # tier's attention (softmax does not see the offset)
+    qk = tattn.attention(*_t(q, k, v, *segs), mode="pallas_int8",
+                         causal=case == "causal")
+    under = np.ones(out.shape[:3], bool)
+    under[0, 1, 7] = False
+    np.testing.assert_allclose(out.numpy()[under], qk.numpy()[under],
+                               atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_k3q_plain_bf16_denominator_and_any_kv_step(d):
+    """bf16 operands: at d=64 the denominator sums the bf16-rounded p (JAX
+    reads it off a ones column of V), at d=128 the fp32 p; against the
+    interpreted kernel at one bf16 ulp of outputs below 4 (as K3's bf16
+    test). With per-row k scales and no running max the result does not
+    depend on the kv step: stepped by K4's 128-row tile (the kernel's) it
+    agrees with JAX's block to fp32 summation order (1e-6)."""
+    b, h, s = 1, 2, 384
+    q, k, v = _qkv(32, b, h, s, s, d)
+    q[0, 0, 3] *= 40.0
+    jb = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    tb = [t.to(torch.bfloat16) for t in _t(q, k, v)]
+    ref = jfa.flash_attention(*jb, qk_int8=True, score_bound=24.0,
+                              block_q=128, block_kv=128, interpret=True)
+    out = tfa.flash_attention_int8(*tb, pv_int8=False, score_bound=24.0)
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               atol=2 ** -7, rtol=2 ** -7)
+    ops = tfa.int8_prologue(*_t(q, k, v), pv_int8=False)
+    assert ops.kv_block == s and ops.k_block == 1
+    whole = tfa.int8_attention_plain(ops, score_bound=24.0)
+    tiled = tfa.int8_attention_plain(ops, score_bound=24.0,
+                                     block_kv=tfa.K4_TILE_KV)
+    np.testing.assert_allclose(tiled.numpy(), whole.numpy(), atol=1e-6,
+                               rtol=1e-6)
+
+
+def test_k3q_refuses_int8_p_under_a_bound():
+    """JAX's kernel refuses ``pv_int8`` with a bound (:477-483); so do the
+    port's int8 entry points (the dispatch drops the bound first)."""
+    q = torch.zeros(1, 1, 128, 64)
+    with pytest.raises(ValueError, match="pv_int8"):
+        tfa.flash_attention_int8(q, q, q, score_bound=20.0)
+    ops = tfa.int8_prologue(q, q, q)
+    with pytest.raises(ValueError, match="pv_int8"):
+        tfa.int8_attention_plain(ops, score_bound=20.0)
 
 
 # --------------------------------------------------------------------------

@@ -21,7 +21,10 @@ Tiers: the default (``auto``: K4 + K2) against JAX's ``pallas_int8pv`` in
 interpret mode; K5 + K6 (``LTXV_TPU_FUSED_PROLOGUE`` and ``pallas_hp``)
 against JAX's fused prologue in interpret mode with exact attention; K3
 (``attention_score_bound=32``) against JAX's bounded Pallas branch in
-interpret mode. Bar: the repo's oracle bar (PARITY.md), >= 40 dB PSNR on
+interpret mode; K3q (``pallas_int8`` pinned process-wide, as
+``LTXV_TPU_ATTN=pallas_int8`` does, with ``attention_score_bound=32``)
+against JAX's int8 Q.K^T branch under the bounded softmax in interpret
+mode. Bar: the repo's oracle bar (PARITY.md), >= 40 dB PSNR on
 the latents and on the uint8 frames.
 """
 
@@ -280,16 +283,45 @@ def test_slice_i2v_bounded_scores_match_jax(monkeypatch, weights,
     _compare(ref_lat, ref_frames, seen, frames)
 
 
+def test_slice_i2v_int8_bounded_scores_match_jax(monkeypatch, weights,
+                                                 identity_crf):
+    """K3q: ``pallas_int8`` pinned in both packages' process-wide mode and
+    ``attention_score_bound=32`` in both DiT configs; JAX runs its Pallas
+    kernel's int8 Q.K^T branch under the bounded softmax in interpret
+    mode, the port K3q's plain version, for the self- and the
+    cross-attention."""
+    monkeypatch.setattr(jattn, "flash_attention", functools.partial(
+        jfa.flash_attention, interpret=True))
+    monkeypatch.setattr(jattn, "_FORCED_MODE", "pallas_int8")
+    calls = []
+    real = tattn.flash_attention_int8
+    monkeypatch.setattr(
+        tattn, "flash_attention_int8",
+        lambda *a, **k: calls.append((k["pv_int8"], k["score_bound"]))
+        or real(*a, **k))
+    extra = dict(attention_score_bound=32.0)
+    ref_lat, ref_frames = _jax_run(weights, extra)
+    try:
+        tattn.set_attention_mode("pallas_int8")
+        seen, frames = _port_run(weights, extra, "auto")
+    finally:
+        tattn.set_attention_mode("auto")
+    assert calls == [(False, 32.0)] * (2 * 2 * (7 + 3))
+    _compare(ref_lat, ref_frames, seen, frames)
+
+
 def test_slice_i2v_bf16_policy_runs_every_tier(monkeypatch, weights,
                                                identity_crf):
     """The card's program (DEFAULT_POLICY: bf16 weights and activations)
-    through the three tiers: finite latents of the right shape, frames
+    through the four tiers: finite latents of the right shape, frames
     that stay within 25 dB of the fp32 run of the default tier (bf16
     activations move int8 codes; the 40 dB bar is for fp32 against
     fp32)."""
     base_seen, base_frames = _port_run(weights, {}, "auto")
+    bound = dict(attention_score_bound=32.0)
     for extra, mode, env in (({}, "auto", None), ({}, "pallas_hp", "1"),
-                             (dict(attention_score_bound=32.0), "auto", None)):
+                             (bound, "auto", None),
+                             (bound, "pallas_int8", None)):
         if env:
             monkeypatch.setenv("LTXV_TPU_FUSED_PROLOGUE", env)
         else:
