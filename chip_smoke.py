@@ -12,9 +12,12 @@ micro-benchmark tool.
 Phases, one output line each (or a few):
 
 1. device   the card, its power limit, TF32 switched off for matmul/cuDNN.
-2. build    nvcc builds csrc/ into the kernel library (seconds, registers);
-            fails if ptxas serialized a wgmma or a kernel on K1's block
-            (K1/K6, K7's tensor-core body, K8) or K2/K4 spills.
+2. build    nvcc builds csrc/ into the kernel library (seconds, registers
+            of every instance, each K1/K6, K2, K4, K7 and K8 instance
+            beside its parent's in PARENT_REGISTERS: "MOVED" where it
+            differs); fails if ptxas serialized a wgmma or any kernel on
+            wgmma (K1/K3/K6, K7's tensor-core body, K8, K2, K4/K3q)
+            spills.
 3. K1       the exact attention kernel (wgmma, TMA tile loads) against its
             plain version at the main path's shapes (self-attention B=3
             H=32 S=5280 D=64; cross-attention to 256 masked text tokens
@@ -56,15 +59,24 @@ Phases, one output line each (or a few):
             kv block: max < 1e-1, mean < 1e-3. Against exact fp32
             attention the kernel's mean abs error is at most 1.1x the
             plain version's.
-5b. K3     the bounded-score tier of the exact kernel against its plain
-            version at the 13B shapes (self-attention B=1 H=32 S=3840 and
-            15360 D=128 on head-split views; cross-attention to 256 text
-            tokens with padding and a q row that sees no key) and at
-            ragged, kv_valid, causal and D=64 shapes, with one q row whose
-            scores lie over the bound: every element within two bf16 ulps
-            of the plain version plus 2**-9 of its largest output; planted
-            faults (the last q tile zeroed, a head scaled by 1 + 2**-5)
-            must fail that check.
+5b. K3     the bounded-score tier of the exact kernel (K1's block at a
+            fixed exponent offset) against its plain version at the 13B
+            shapes (self-attention B=1 H=32 S=3840 and 15360 D=128 on
+            head-split views; cross-attention to 256 text tokens with
+            padding and a q row that sees no key), at the LTX-2B
+            self-attention shape (B=3 H=32 S=5280 D=64) and at ragged,
+            kv_valid, causal and D=64 shapes, so that every mask kind runs
+            at both head dims, with one q row whose scores lie over the
+            bound: every element within two bf16 ulps of the plain version
+            plus 2**-9 of its largest output; planted faults (the last q
+            tile zeroed, a head scaled by 1 + 2**-5) at 13B pass 2 and at
+            the LTX-2B shape must fail that check.
+5b'. K3q   the int8 Q.K^T tier under the bounded softmax against its plain
+            version on the same prologue operands (per-row k scales, no
+            running max: nothing depends on a kv block) at the same shapes
+            and with K3's check and planted faults; each launch must move
+            its own counter and no other; then the wrapper (prologue +
+            kernel, q's layout).
 5c. K5     the fused adaLN prologue + int8 linear at the 13B shapes (M
             3840 and 15360, K 4096, N 12288 and 16384, 16 groups, so a
             group edge lies inside a GEMM tile) and at a ragged one: the
@@ -108,12 +120,14 @@ Phases, one output line each (or a few):
             K2's GEMM alone), timed here and used nowhere in the port;
             K1's, K2's, K4's and K6's times stand beside those of the
             kernels they replaced, K1's beside the same call through the
-            tail and the general mask instance, K4's beside K1 at the same
-            shape, K2's row quantize apart; each kernel's bound (the larger
-            of its operations over the card's peak rate and its bytes over
-            the memory rate; for K4 also its exponentials, one ex2 a score
-            at 16 a clock an SM at the card's highest SM clock) is
-            computed from the timed shapes.
+            tail and the general mask instance, K4's, K3's and K3q's beside
+            K1 at the same shape, K2's row quantize and K3q's prologue
+            apart; each kernel's bound (the larger of its operations over
+            the card's peak rate and its bytes over the memory rate; for
+            K3, K3q and K4 also their exponentials, one ex2 a score at 16
+            a clock an SM at the card's highest SM clock) is computed from
+            the timed shapes. K3 and K3q at the 13B shapes and at LTX-2B's
+            self-attention.
 7. path     LTX-2B at full width (28 layers, 32x64 heads, int8_dynamic),
             the 0.9.7 VAE decoder and T5-XXL, random weights from seeds:
             a 2-layer cut of the DiT on the card against the plain
@@ -127,17 +141,20 @@ Phases, one output line each (or a few):
             quantized layer by layer), the 0.9.7 VAE with its encoder, the
             latent upsampler (mid 512, 4 blocks a stage) and the same
             T5-XXL: a 2-layer cut of the DiT on the card against the plain
-            versions on the CPU in each tier, then three image-to-video
+            versions on the CPU in each tier, then four image-to-video
             requests at 992x608x121 from a seeded synthetic image through
             LTXVideoGenerator.generate with ltxv-13b-0.9.7-distilled (pass
             1 at 640x384, 3840 tokens, 7 steps; latent upsample; AdaIN;
             pass 2 at 1280x768, 15360 tokens, 3 steps; VAE decode in
-            temporal tiles; resize back): (a) auto (K4 + K2), (b)
-            pallas_hp with the fused prologue (K6, K5, K1 for the
+            temporal tiles; resize back), each tier pinned as
+            set_attention_mode / LTXV_TPU_ATTN pins it: (a) auto (K4 + K2),
+            (b) pallas_hp with the fused prologue (K6, K5, K1 for the
             cross-attention, K2 for the rest), (c) attention_score_bound=40
-            (K3 + K2). The launch counts are read per pass; the script
-            fails unless K5 and K6 were launched in both passes of (b) and
-            K3 in both passes of (c). Request (b) goes through the server:
+            (K3 + K2), (d) pallas_int8 with attention_score_bound=40 (K3q +
+            K2). The launch counts are read per pass; the script fails
+            unless each tier launched its kernels in both passes and none
+            of the others (LTX13B_EXPECT). Request (b) goes through the
+            server:
 7c. server  InferenceService around the 13B models with one warm-up
             bucket (which must complete, through K5, K6 and K2),
             create_stdlib_server on 127.0.0.1 in a thread, and
@@ -164,11 +181,11 @@ Phases, one output line each (or a few):
             and in the default one; stage times, peak memory, launch
             counts of K1, K2 and K4.
 9. profile  only with --profile: one more 704x480x121 LTX-2B request, one
-            more 13B request of kind (b) and one of kind (c) and one more
+            more 13B request of kinds (b), (c) and (d) and one more
             832x480x81 Wan request, each twice under torch.profiler: as it
             is, for the device span, busy time and idle share, then with
             scopes around the port's ops, for the device time by kernel
-            group (K1/K6, K3, K2, K4, K5, ...; PyTorch's own kernels by the
+            group (K1/K6, K3, K3q, K2, K4, K5, ...; PyTorch's own kernels by the
             op that launched them: RoPE, norms, GELU/GEGLU, K4's quantize
             prologue, casts and copies, the rest), read from the exported
             traces; the build
@@ -430,7 +447,45 @@ WGMMA_KERNELS = ("flash_wgmma_kernel", "int8_gemm_wgmma_kernel",
 # each instance beside its entry here: an edit of attention_block.cuh or
 # hopper.cuh that moves one shows as MOVED. (Printed, not asserted: another
 # nvcc would move them all.)
-PARENT_REGISTERS = {}
+PARENT_REGISTERS = {
+    "flash_int8_wgmma_kernel<Li128ELb0ELi0ELb0E>": 214,
+    "flash_int8_wgmma_kernel<Li128ELb0ELi1ELb0E>": 214,
+    "flash_int8_wgmma_kernel<Li128ELb0ELi2ELb0E>": 203,
+    "flash_int8_wgmma_kernel<Li128ELb1ELi0ELb0E>": 233,
+    "flash_int8_wgmma_kernel<Li128ELb1ELi1ELb0E>": 232,
+    "flash_int8_wgmma_kernel<Li128ELb1ELi2ELb0E>": 255,
+    "flash_int8_wgmma_kernel<Li64ELb0ELi0ELb0E>": 173,
+    "flash_int8_wgmma_kernel<Li64ELb0ELi1ELb0E>": 175,
+    "flash_int8_wgmma_kernel<Li64ELb0ELi2ELb0E>": 163,
+    "flash_int8_wgmma_kernel<Li64ELb1ELi0ELb0E>": 168,
+    "flash_int8_wgmma_kernel<Li64ELb1ELi1ELb0E>": 168,
+    "flash_int8_wgmma_kernel<Li64ELb1ELi2ELb0E>": 215,
+    "flash_pipelined_kernel<Li128ELi128E>": 158,
+    "flash_pipelined_kernel<Li128ELi16E>": 78,
+    "flash_pipelined_kernel<Li128ELi32E>": 94,
+    "flash_pipelined_kernel<Li128ELi64E>": 137,
+    "flash_pipelined_kernel<Li64ELi16E>": 78,
+    "flash_pipelined_kernel<Li64ELi32E>": 94,
+    "flash_pipelined_kernel<Li64ELi64E>": 167,
+    "flash_wgmma_kernel<Li128ELi0ELb0ELb0E>": 186,
+    "flash_wgmma_kernel<Li128ELi1ELb0ELb0E>": 195,
+    "flash_wgmma_kernel<Li128ELi2ELb0ELb0E>": 186,
+    "flash_wgmma_kernel<Li64ELi0ELb0ELb0E>": 154,
+    "flash_wgmma_kernel<Li64ELi0ELb1ELb0E>": 160,
+    "flash_wgmma_kernel<Li64ELi1ELb0ELb0E>": 154,
+    "flash_wgmma_kernel<Li64ELi1ELb1ELb0E>": 160,
+    "flash_wgmma_kernel<Li64ELi2ELb0ELb0E>": 154,
+    "flash_wgmma_kernel<Li64ELi2ELb1ELb0E>": 168,
+    "int8_gemm_wgmma_kernel<Li0E>": 154,
+    "int8_gemm_wgmma_kernel<Li1E>": 154,
+    "int8_gemm_wgmma_kernel<Li2E>": 154,
+    "ring_kernel<Li0ELi128ELi0E13__nv_bfloat16>": 196,
+    "ring_kernel<Li0ELi128ELi1E13__nv_bfloat16>": 221,
+    "ring_kernel<Li0ELi64ELi0E13__nv_bfloat16>": 160,
+    "ring_kernel<Li0ELi64ELi1E13__nv_bfloat16>": 168,
+    "ring_kernel<Li1ELi0ELi0E13__nv_bfloat16>": 123,
+    "ring_kernel<Li1ELi0ELi0Ef>": 123,
+}
 
 
 def _instance(entry):
