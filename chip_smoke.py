@@ -441,9 +441,10 @@ WGMMA_KERNELS = ("flash_wgmma_kernel", "int8_gemm_wgmma_kernel",
                  "flash_int8_wgmma_kernel", "ring_kernelILi0E",
                  "flash_pipelined_kernel")
 # Registers a thread of every instance of K1/K6, K2, K4, K7 and K8 as the
-# parent tree built them (PR 7's final sources, nvcc on the card), by
-# kernel and mangled template arguments; K1/K6's and K4's instances carry
-# the BOUNDED flag (false) since K3 and K3q joined them. phase_build prints
+# sources built them before K3 and K3q joined K1's and K4's kernels (ptxas
+# on the H100's host; the same with the flag), by kernel and mangled
+# template arguments; K1/K6's and K4's instances carry the BOUNDED flag
+# (false) since then. phase_build prints
 # each instance beside its entry here: an edit of attention_block.cuh or
 # hopper.cuh that moves one shows as MOVED. (Printed, not asserted: another
 # nvcc would move them all.)

@@ -73,8 +73,8 @@
 //   softmax_k4 and without fold_pv's rescale: a min, a subtract and an ex2 a
 //   score, no max reduction and no shuffle.
 // Registers a thread (ptxas): QK tier 203-214 at D=128, QK+PV tier 232-255
-// (the s32 P.V accumulator in flight adds 64), 163-215 at D=64; no spills,
-// one block an SM.
+// (the s32 P.V accumulator in flight adds 64), 163-215 at D=64; K3q 186-198
+// at D=128, 155-161 at D=64; no spills, one block an SM.
 
 #include <cmath>
 

@@ -63,8 +63,9 @@
 //   min, a subtract and the ex2.
 // - Who issues the loads, and whether the warpgroups take turns, differs by
 //   head dim: see Cfg. Registers a thread (ptxas, nvcc 12.9): 158-168 at
-//   D=64 with a producer (384 threads), 154 without, 186 at D=128 (256
-//   threads); no spills; one block an SM (145 and 161 KB of shared memory).
+//   D=64 with a producer (384 threads), 154 without, 186-195 at D=128 (256
+//   threads); K3 156-168, 154 and 186; no spills; one block an SM (145 and
+//   161 KB of shared memory).
 // The block itself (its layout, loads, products, softmax step and the loop
 // over the kv tiles) lives in attention_block.cuh, which K7 and K8 run too;
 // this file holds the kernel around it and the host side.

@@ -636,6 +636,7 @@ def int8_attention_plain(
         block_kv = ops.kv_block
     dev = ops.q8.device
     out = torch.empty(b, h, sq, d, dtype=out_dtype, device=dev)
+    sb = score_bound * LOG2E if bounded else None
     for r0, r1, c0, c1, s in _int8_tiles(ops, q_segment_ids, kv_segment_ids,
                                          causal, kv_valid, block_kv):
         if c0 == 0:
@@ -643,7 +644,6 @@ def int8_attention_plain(
             l = torch.zeros((b, h, r1 - r0, 1), device=dev)
             acc = torch.zeros((b, h, r1 - r0, d), device=dev)
         if bounded:
-            sb = score_bound * LOG2E
             p = _exp2(torch.clamp(s, max=sb) - sb)
             del s
             pr = p.to(v.dtype).float()
@@ -845,15 +845,12 @@ def flash_attention_int8(
     (``pallas_int8pv``) or, with ``pv_int8=False``, the QK tier
     (``pallas_int8``), at JAX's default blocks; the QK tier with
     ``score_bound`` is the bounded one (K3q). ``pv_int8`` with a bound
-    raises, as in JAX.
+    raises (in the plain version or the launch), as in JAX.
 
     CPU tensors take :func:`int8_attention_plain`; CUDA tensors (bf16,
     D in {64, 128}) launch K4 (K3q) or raise. The output has q's dtype
     and, on the card, q's memory layout."""
     _check_seg_pair(q_segment_ids, kv_segment_ids)
-    if pv_int8 and score_bound is not None:
-        raise ValueError("pv_int8 requires the online-softmax path; drop "
-                         "score_bound")
     if q.device.type == "cuda":
         _check_cuda_operands(q, k, v, q_segment_ids, kv_segment_ids,
                              "K4" if score_bound is None else "K3q")
