@@ -228,6 +228,10 @@ K5_REPLACES = "ltx_video_gpupoor_tpu/ops/fused_prologue.py:104"
 K6_REPLACES = "ltx_video_gpupoor_tpu/ops/flash_attention.py:663"
 K7_SOURCE = "ltx_video_gpupoor_tpu_torch/csrc/ring_attention.cu"
 K7_REPLACES = "ltx_video_gpupoor_tpu/parallel/ring_rdma.py:43"
+K1F_SOURCE = "ltx_video_gpupoor_tpu_torch/csrc/flash_attention_fp32.cu"
+# K1f: the fp32 branches of the same Pallas kernel (it runs in its input
+# dtype, :343-352)
+K1F_REPLACES = "ltx_video_gpupoor_tpu/ops/flash_attention.py:343"
 K8_SOURCE = "ltx_video_gpupoor_tpu_torch/csrc/flash_attention_pipelined.cu"
 K8_REPLACES = "tools/mb_selfattn_pipeline.py:32"
 # the card's published peaks (H100 SXM, dense): operations per second by
@@ -264,6 +268,11 @@ ACCEPTED_MS = {
 EX2_PER_SM_CLOCK = 16
 # the H100 SXM's published highest SM clock, where nvidia-smi gives none
 SM_CLOCK_MAX_MHZ = 1980.0
+# fp32 fused multiply-adds: 128 lanes on each SM, two operations each, at
+# the same highest clock (K1f's bound)
+FP32_LANES_PER_SM = 128
+# K1f against its plain version: the JAX tests' fp32 tolerance
+K1F_ATOL = K1F_RTOL = 2e-5
 # K4 against its plain version stepped by JAX's kv block (see _k4_case):
 # P against other running maxima (0.034 max, 1.4e-4 mean emulated on the
 # CPU at the cross shape)
@@ -346,6 +355,10 @@ LTX13B_SELF = [(1, 32, n, n, 128) for n in LTX13B_PASS_TOKENS]
 LTX13B_CROSS = [(1, 32, n, 256, 128) for n in LTX13B_PASS_TOKENS]
 # LTX-2B's self-attention at 704x480x121: three guidance streams of 5280
 LTX2B_SELF = (3, 32, 5280, 5280, 64)
+# the [fp32] request: LTX-2B under FP32_POLICY at 256x256x9 (2 x 8 x 8
+# latents), against the same request in the xla tier
+FP32_REQUEST = (256, 256, 9)
+FP32_REQUEST_TOKENS = 128
 K5_SHAPES = [("pass 1 qkv", 3840, 4096, 12288, 16),
              ("pass 1 proj_in", 3840, 4096, 16384, 16),
              ("pass 2 qkv", 15360, 4096, 12288, 16),
@@ -518,8 +531,12 @@ def phase_build(compare=False):
     lines = [ln.strip() for ln in report.splitlines()
              if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
     log(f"[build] {os.path.relpath(path, ROOT)} in {seconds:.2f} s")
-    entry, regs = "", {}
+    entry, regs, spills = "", {}, {}
     for ln in lines:
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          ln)
+        if spill:
+            spills[_instance(entry)] = int(spill.group(1)) + int(spill.group(2))
         if "Compiling entry" in ln:
             entry = ln.split("'")[1] if "'" in ln else ln
             # the template arguments (ILi<D>ELi<mask kind>E, and K7's
@@ -549,6 +566,13 @@ def phase_build(compare=False):
     log(f"[build] {known} instances of K1/K6, K2, K4, K7 and K8 beside the "
         f"parent's registers: " + (f"MOVED {moved}" if moved else
                                    "every one at its parent's"))
+    k1f = sorted(k for k in regs if k.startswith("flash_fp32_kernel"))
+    assert k1f, "no K1f instance was built"
+    log(f"[build] K1f (flash_fp32_kernel<D, mask kind, variant>), "
+        f"{len(k1f)} instances: " + ", ".join(
+            f"{k[len('flash_fp32_kernel'):]} {regs[k]} registers"
+            + (f" SPILLS {spills[k]} bytes" if spills.get(k) else "")
+            for k in k1f))
     return regs
 
 
@@ -1453,8 +1477,333 @@ def phase_k5(gen):
             f"int8 codes, row scales and int32 product exact, "
             f"max_abs_err={err:.3e}{planted} ok")
         del x, scale, shift, w8, sw, b
+    worst = max(worst, _k5_fp32_case(gen))
     torch.cuda.empty_cache()
     return worst
+
+
+def _k5_fp32_case(gen):
+    """K5's fp32 row-kernel instance (FP32_POLICY) against its plain
+    version at the 13B pass 1 q/k/v shape: row scales and int8 codes
+    (rsqrtf may round the norm the other way in a row, which moves a code
+    by one: at most 1e-4 of them), the output to 1e-2 relative; a planted
+    fault (two groups' rows swapped) must fail it."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.ops import fused_prologue as fp
+
+    m, k, n, g = 3840, 4096, 12288, 16
+    x, scale, shift, w8, sw, b = _k5_operands(m, k, n, g, gen)
+    x, scale, shift = x.float(), scale.float(), shift.float()
+    kw = dict(rows_per_group=m // g, eps=1e-6)
+    before = fp.norm_mod_int8_matmul.launches
+    out = fp.norm_mod_int8_matmul(x, scale, shift, w8, sw, b, **kw)
+    hq, _ = fp.norm_mod_quantize_rows(x, scale, shift, **kw)
+    torch.cuda.synchronize()
+    assert fp.norm_mod_int8_matmul.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == (m, n)
+
+    def agrees(p_scale, p_shift):
+        pq, _ = fp.norm_mod_quantize_plain(x, p_scale, p_shift, **kw)
+        flips = float((hq != pq).float().mean())
+        ref = fp.norm_mod_int8_matmul_plain(x, p_scale, p_shift, w8, sw, b,
+                                            **kw)
+        err = float((out - ref).abs().max())
+        close = torch.allclose(out, ref, rtol=1e-2, atol=1e-6)
+        return flips <= 1e-4 and close, flips, err
+
+    ok, flips, err = agrees(scale, shift)
+    assert ok, f"K5 fp32: codes differ in {flips:.2e}, max err {err:.3e}"
+    bad, bflips, _ = agrees(scale.roll(1, 0), shift.roll(1, 0))
+    assert not bad, "K5 fp32: the check passes a planted fault"
+    log(f"[K5] fp32 instance, pass 1 qkv: M={m} K={k} N={n} groups={g}: "
+        f"int8 codes differ in {flips:.2e} of the elements, "
+        f"max_abs_err={err:.3e}; a planted fault (groups' rows swapped) "
+        f"fails it (codes differ in {bflips:.2e}) ok")
+    return err
+
+
+# --------------------------------------------------------------------------
+# phase 5g: K1f, the fp32 attention kernel
+# --------------------------------------------------------------------------
+
+def _fp32_heads(b, h, s, d, gen, packed):
+    return _heads(b, h, s, d, gen, packed).float()
+
+
+def _k1f_check(kern, plain):
+    """(largest |kern - plain| / (atol + rtol |plain|), max abs error)."""
+    diff = (kern - plain).abs()
+    return (float((diff / (K1F_ATOL + K1F_RTOL * plain.abs())).max()),
+            float(diff.max()))
+
+
+def _k1f_planted(name, kern, plain):
+    """Two planted faults must fail ``_k1f_check``: the last 64-row q tile
+    zeroed, one head scaled by 1 + 2**-6."""
+    n = kern.shape[2]
+    zeroed = kern.clone()
+    zeroed[:, :, (n - 1) // 64 * 64:] = 0
+    scaled = kern.clone()
+    scaled[:, 1] *= 1 + 2.0 ** -6
+    found = []
+    for fault, out in (("last q tile zeroed", zeroed),
+                       ("a head scaled by 1 + 2**-6", scaled)):
+        ratio, _ = _k1f_check(out, plain)
+        assert ratio > 1.0, f"{name}: the check passes a planted fault ({fault})"
+        found.append(f"{fault}: {ratio:.1f} of the tolerance")
+    return "; planted faults fail it (" + "; ".join(found) + ")"
+
+
+def _k1f_case(name, b, h, sq, skv, d, *, gen, variant="exact", packed=False,
+              seg=None, causal=False, kv_valid=None, bound=None, plant=False):
+    """K1f against its plain version on the same fp32 operands (for the
+    int8 variants: the same prologue operands), at atol = rtol = 2e-5;
+    the QK+PV variant against the plain version stepped by K1f's 64-row
+    kv tile (the same P codes) within int8_tile_bound. Each launch must
+    move K1f's counter for its variant and no other kernel's."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = (_fp32_heads(b, h, n, d, gen, packed) for n in (sq, skv, skv))
+    if bound is not None:
+        q[0, 0, min(3, sq - 1)] *= 60      # a row over the bound
+    segs = seg(b, sq, skv) if seg else (None, None)
+    kw = dict(causal=causal, kv_valid=kv_valid)
+    counts = dict(fa.flash_attention_fp32.by_variant)
+    others = (fa.flash_attention.launches, fa.flash_attention.bounded_launches,
+              fa.flash_attention_int8.launches,
+              fa.flash_attention_int8.bounded_launches)
+    ops = None
+    if variant in ("exact", "bounded"):
+        kern = fa.flash_attention(q, k, v, *segs, score_bound=bound, **kw)
+    else:
+        ops = fa.int8_prologue(q, k, v, pv_int8=variant == "pv8")
+        kern = fa.int8_attention_fp32(ops, *segs, score_bound=bound, **kw)
+    torch.cuda.synchronize()
+    counts = {key: fa.flash_attention_fp32.by_variant[key] - n
+              for key, n in counts.items()}
+    assert counts == {key: int(key == variant) for key in counts}, \
+        f"K1f {name}: launches by variant {counts}, wanted one {variant}"
+    assert others == (fa.flash_attention.launches,
+                      fa.flash_attention.bounded_launches,
+                      fa.flash_attention_int8.launches,
+                      fa.flash_attention_int8.bounded_launches), \
+        f"K1f {name}: a bf16 kernel counted the launch"
+    assert kern.dtype == torch.float32 and torch.isfinite(kern).all(), \
+        f"K1f {name}: not finite fp32"
+    if variant == "pv8":
+        plain = fa.int8_attention_plain(ops, *segs, block_kv=fa.K1F_TILE_KV,
+                                        **kw)
+        bnd = fa.int8_tile_bound(ops, plain, *segs, **kw)
+        diff = (kern - plain).abs()
+        ratio, err = float((diff / bnd).max()), float(diff.max())
+        rel = float(diff.mean() / plain.abs().mean())
+        assert ratio <= 1.0 and rel < fa.K4_TILE_MEAN_REL, \
+            (f"K1f {name}: max {err:.3e}, {ratio:.3f} of int8_tile_bound, "
+             f"mean {rel:.3e}")
+        what = f"{ratio:.3f} of int8_tile_bound, mean {rel:.2e} of |output|"
+    else:
+        if ops is None:
+            fn = (fa.reference_attention if bound is None else
+                  lambda *a, **k_: fa.bounded_attention_plain(
+                      *a, score_bound=bound, **k_))
+            plain = torch.cat([_by_heads(lambda a, b_, c: fn(
+                a, b_, c, *(s_[i:i + 1] if s_ is not None else None
+                            for s_ in segs), **kw),
+                q[i:i + 1], k[i:i + 1], v[i:i + 1]) for i in range(b)])
+        else:
+            plain = fa.int8_attention_plain(ops, *segs, score_bound=bound,
+                                            **kw)
+        ratio, err = _k1f_check(kern, plain)
+        assert ratio <= 1.0, (f"K1f {name}: max_abs_err {err:.3e}, "
+                              f"{ratio:.3f} of atol + rtol |plain|")
+        what = f"{ratio:.3f} of atol + rtol |plain| (2e-5 each)"
+    planted = _k1f_planted(f"K1f {name}", kern, plain) if plant else ""
+    if seg:
+        assert float(kern[0, :, 17].abs().max()) == 0.0, \
+            f"K1f {name}: a row with no valid key must be 0"
+    kind = fa.mask_kind(skv, kv_valid, segments=seg is not None,
+                        causal=causal)
+    log(f"[k1f] {name} ({variant}): B={b} H={h} Sq={sq} Skv={skv} D={d} "
+        f"mask kind {kind}{'' if bound is None else f' bound={bound}'} "
+        f"max_abs_err={err:.3e}, {what}{planted} ok")
+    return err
+
+
+def _k1f_hp_case(name, b, s, heads, d, *, gen, kv_valid=None):
+    """K1f through flash_attention_hp: fp32 ``[B, S, H*D]`` slices of a
+    fused q/k/v projection read in place, against the plain version."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.ops import flash_attention as fa
+
+    qkv = torch.randn(b, s, 3 * heads * d, generator=gen, device="cuda")
+    q, k, v = qkv.chunk(3, dim=-1)
+    before = fa.flash_attention_fp32.by_variant["exact"]
+    k6 = fa.flash_attention_hp.launches
+    kern = fa.flash_attention_hp(q, k, v, heads=heads, kv_valid=kv_valid)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fp32.by_variant["exact"] == before + 1
+    assert fa.flash_attention_hp.launches == k6, "K6 counted an fp32 call"
+    assert kern.shape == q.shape and kern.dtype == torch.float32
+    plain = fa.flash_attention_hp_plain(q, k, v, heads=heads,
+                                        kv_valid=kv_valid)
+    ratio, err = _k1f_check(kern, plain)
+    assert ratio <= 1.0, f"K1f hp {name}: {err:.3e}, {ratio:.3f}"
+    log(f"[k1f] head-packed {name}: B={b} S={s} H={heads} D={d} "
+        f"kv_valid={kv_valid} max_abs_err={err:.3e}, {ratio:.3f} of "
+        f"atol + rtol |plain| ok")
+    return err
+
+
+def phase_k1f(gen):
+    """K1f at the shapes FP32_POLICY gives it (the [fp32] request's
+    LTX-2B 256x256x9 self- and cross-attention; the headline LTX-2B and
+    13B shapes), in each variant and mask kind; then attention() in each
+    tier on fp32 operands must launch what ops.attention.kernel_route
+    names."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.ops import attention as at
+    from ltx_video_gpupoor_tpu_torch.ops import flash_attention as fa
+
+    errs = []
+    b, h, s, _, d = LTX2B_SELF
+    errs.append(_k1f_case("LTX-2B self-attention", b, h, s, s, d, gen=gen,
+                          packed=True, plant=True))
+    torch.cuda.empty_cache()
+    errs.append(_k1f_case("LTX-2B cross-attention, text segments", b, h, s,
+                          256, d, gen=gen, packed=True,
+                          seg=_cross_segments))
+    sr = FP32_REQUEST_TOKENS
+    errs.append(_k1f_case("[fp32] request self-attention", b, h, sr, sr, d,
+                          gen=gen, packed=True))
+    errs.append(_k1f_case("[fp32] request cross-attention", b, h, sr, 256, d,
+                          gen=gen, packed=True, seg=_cross_segments))
+    b13, h13, s13, _, d13 = LTX13B_SELF[0]
+    errs.append(_k1f_case("13B pass 1 self-attention", b13, h13, s13, s13,
+                          d13, gen=gen, packed=True, plant=True))
+    errs.append(_k1f_case("13B pass 1 cross-attention", *LTX13B_CROSS[0],
+                          gen=gen, packed=True, seg=_cross_segments))
+    errs.append(_k1f_case("LTX-2B self-attention", b, h, s, s, d, gen=gen,
+                          packed=True, variant="bounded",
+                          bound=LTX13B_BOUND, plant=True))
+    errs.append(_k1f_case("13B pass 1 self-attention", b13, h13, s13, s13,
+                          d13, gen=gen, packed=True, variant="bounded",
+                          bound=LTX13B_BOUND))
+    for variant, bound in (("qk8", None), ("qk8_bounded", LTX13B_BOUND),
+                           ("pv8", None)):
+        errs.append(_k1f_case("13B pass 1 self-attention", b13, h13, s13,
+                              s13, d13, gen=gen, packed=True,
+                              variant=variant, bound=bound,
+                              plant=variant == "qk8"))
+        errs.append(_k1f_case("LTX-2B cross-attention, text segments", b, h,
+                              s, 256, d, gen=gen, packed=True,
+                              seg=_cross_segments, variant=variant,
+                              bound=bound))
+        torch.cuda.empty_cache()
+    errs.append(_k1f_hp_case("13B pass 1", 1, s13, h13, d13, gen=gen))
+    errs.append(_k1f_hp_case("LTX-2B", b, s, h, d, gen=gen))
+    errs.append(_k1f_hp_case("ragged, kv_valid", 2, 1000, 4, 64, gen=gen,
+                             kv_valid=777))
+    # every mask kind at the edges of the 64-row tiles, both head dims
+    for dd in (64, 128):
+        for variant, bound in (("exact", None), ("bounded", 20.0),
+                               ("qk8", None), ("pv8", None)):
+            for sq, skv, kv_valid, causal, seg in (
+                    (127, 255, None, False, None), (130, 1, None, False, None),
+                    (512, 512, 300, False, None), (512, 512, 384, False, None),
+                    (512, 512, 0, False, None), (333, 333, None, True, None),
+                    (700, 300, None, False, _cross_segments)):
+                errs.append(_k1f_case(
+                    "edges", 3 if seg else 1, 2, sq, skv, dd, gen=gen,
+                    variant=variant, bound=bound, kv_valid=kv_valid,
+                    causal=causal, seg=seg))
+    torch.cuda.empty_cache()
+    # the tiers: attention() on fp32 operands launches what kernel_route
+    # names, and no bf16 kernel
+    routes = []
+    for mode in ("auto", "pallas", "pallas_hp", "pallas_int8",
+                 "pallas_int8pv"):
+        for dd in (64, 128):
+            for bound in (None, LTX13B_BOUND):
+                q, k, v = (_fp32_heads(1, 2, 256, dd, gen, False)
+                           for _ in range(3))
+                want = at.kernel_route(mode, dtype=torch.float32,
+                                       head_dim=dd, score_bound=bound)
+                before = dict(fa.flash_attention_fp32.by_variant)
+                at.attention(q, k, v, mode=mode, score_bound=bound)
+                torch.cuda.synchronize()
+                moved = [key for key, n in
+                         fa.flash_attention_fp32.by_variant.items()
+                         if n != before[key]]
+                assert [f"K1f {key}" for key in moved] == [want], \
+                    (mode, dd, bound, moved, want)
+                routes.append(f"{mode}/D{dd}/"
+                              f"{'bound' if bound else 'none'}={want}")
+    log("[k1f] attention() on fp32 operands launches what kernel_route "
+        "names in every tier: " + ", ".join(routes))
+    return max(errs)
+
+
+def time_k1f(gen, times, info, ex2_per_s):
+    """K1f's time at the shapes it serves, beside its plain version, its
+    bound at the fp32 CUDA-core peak (the SMs x 128 lanes x 2 operations
+    at the highest SM clock that phase_device read) or the memory rate,
+    and scaled_dot_product_attention on the same fp32 operands."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.ops import flash_attention as fa
+
+    peak = ex2_per_s / EX2_PER_SM_CLOCK * FP32_LANES_PER_SM * 2
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, h, s, _, d = LTX2B_SELF
+    b13, h13, s13, _, d13 = LTX13B_SELF[0]
+    cases = [("K1f self", (b, h, s, s, d), None, None),
+             ("K1f cross", (b, h, s, 256, d), _cross_segments, None),
+             ("K1f request self", (b, h, FP32_REQUEST_TOKENS,
+                                   FP32_REQUEST_TOKENS, d), None, None),
+             ("K1f 13B pass 1 self", (b13, h13, s13, s13, d13), None, None),
+             ("K1f bounded self", (b, h, s, s, d), None, LTX13B_BOUND)]
+    for key, (bb, hh, sq, skv, dd), seg, bound in cases:
+        q, k, v = (_fp32_heads(bb, hh, n, dd, gen, True)
+                   for n in (sq, skv, skv))
+        segs = seg(bb, sq, skv) if seg else (None, None)
+        kern = cuda_time_ms(lambda: fa.flash_attention(q, k, v, *segs,
+                                                       score_bound=bound))
+
+        def plain():
+            for i in range(bb):
+                sl = [t[i:i + 1] if t is not None else None for t in segs]
+                _by_heads(lambda a, b_, c: (
+                    fa.reference_attention(a, b_, c, *sl) if bound is None
+                    else fa.bounded_attention_plain(a, b_, c, *sl,
+                                                    score_bound=bound)),
+                    q[i:i + 1], k[i:i + 1], v[i:i + 1])
+
+        plain_ms = cuda_time_ms(plain, reps=3, warmup=1)
+        keys = bb * skv if seg is None else int((segs[1] > 0).sum())
+        ops = 4 * hh * sq * keys * dd
+        nbytes = 4 * hh * dd * (bb * sq * 2 + keys * 2)
+        t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
+        bnd = (max(t_ops, t_bytes) * 1e3,
+               "operations" if t_ops >= t_bytes else "bytes")
+        lib = None
+        if bound is None:      # no PyTorch call clamps scores
+            mask = _key_mask(segs[1]) if seg else None
+            lib = cuda_time_ms(lambda: sdpa(q, k, v, attn_mask=mask))
+        times[key] = (kern, plain_ms)
+        info[key] = (*bnd, lib)
+        log(f"[time] {key} B={bb} H={hh} Sq={sq} Skv={skv} D={dd} fp32: "
+            f"kernel {kern:.3f} ms ({ops / kern / 1e9:.1f} TFLOP/s of "
+            f"{peak / 1e12:.1f}), plain {plain_ms:.3f} ms, bound "
+            f"{bnd[0]:.3f} ms ({bnd[1]}), scaled_dot_product_attention "
+            + ("none (no PyTorch call clamps scores)" if lib is None
+               else f"in fp32 {lib:.3f} ms"))
+        del q, k, v
+        torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------------
@@ -3076,7 +3425,9 @@ def main(argv=None) -> int:
     k3q_err = phase_k3q(gen)
     k5_err = phase_k5(gen)
     k6_err = phase_k6(gen)
+    k1f_err = phase_k1f(gen)
     times, info = phase_timing(gen, ex2_per_s)
+    time_k1f(gen, times, info, ex2_per_s)
     k8_err, k8_launches = phase_k8(gen, times, info)
     k7_err, k7_launches = phase_k7(gen, times, info)
     log(f"[clock] kernel checks and timings done at "

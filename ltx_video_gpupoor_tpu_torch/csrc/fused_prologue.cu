@@ -6,6 +6,8 @@
 //   rr  = rsqrt(mean(x^2) + eps)                       fp32, over the row
 //   h   = bf16(x * rr)
 //   h   = bf16(bf16(h * bf16(1 + scale_g)) + shift_g)  g = row / rows_per_group
+// (for fp32 activations, FP32_POLICY, the row kernel's other instance: no
+// bf16 rounding, each op one IEEE fp32 op; the product is the same)
 //   s_x = max(max|h| / 127, 1e-8)
 //   h_q = clip(round_half_even(h / s_x), -127, 127)    int8
 //   y   = (h_q . w_q) * s_x * s_w (+ bias)             int32 -> fp32 -> bf16
@@ -48,10 +50,32 @@ __device__ __forceinline__ float rb(float x) {  // round to bf16 and back
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// two values of a row as fp32
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
+  return make_float2(__bfloat162float(v.x), __bfloat162float(v.y));
+}
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+// h = (h * (1 + s)) + t in the activation dtype: each op rounds to bf16,
+// or (fp32 activations) is one IEEE fp32 op, never contracted into an FMA,
+// as PyTorch's separate elementwise ops compute it
+__device__ __forceinline__ float modulate(float h, float s, float t, bf16*) {
+  return rb(rb(h * rb(1.0f + s)) + t);
+}
+__device__ __forceinline__ float modulate(float h, float s, float t, float*) {
+  return __fadd_rn(__fmul_rn(h, __fadd_rn(1.0f, s)), t);
+}
+__device__ __forceinline__ float round_act(float x, bf16*) { return rb(x); }
+__device__ __forceinline__ float round_act(float x, float*) { return x; }
+
+template <typename T>
 __global__ void __launch_bounds__(ROW_THREADS)
-norm_mod_quantize_rows_kernel(const bf16* __restrict__ x,
-                              const bf16* __restrict__ scale,
-                              const bf16* __restrict__ shift, int K,
+norm_mod_quantize_rows_kernel(const T* __restrict__ x,
+                              const T* __restrict__ scale,
+                              const T* __restrict__ shift, int K,
                               int rows_per_group, float eps,
                               int8_t* __restrict__ xq,
                               float* __restrict__ sx) {
@@ -60,15 +84,15 @@ norm_mod_quantize_rows_kernel(const bf16* __restrict__ x,
   __shared__ float red_f[ROW_THREADS / 32];
   const long long row = blockIdx.x;
   const long long grp = row / rows_per_group;
-  const bf16* xr = x + row * K;
-  const bf16* sc = scale + grp * K;
-  const bf16* sh = shift + grp * K;
+  const T* xr = x + row * K;
+  const T* sc = scale + grp * K;
+  const T* sh = shift + grp * K;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
   double ss = 0.0;
   for (int i = threadIdx.x * 2; i < K; i += ROW_THREADS * 2) {
-    const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(xr + i);
-    const float a = __bfloat162float(v.x), b = __bfloat162float(v.y);
+    const float2 v = load2(xr + i);
+    const float a = v.x, b = v.y;
     row_s[i] = a;
     row_s[i + 1] = b;
     ss += (double)a * a + (double)b * b;
@@ -85,14 +109,14 @@ norm_mod_quantize_rows_kernel(const bf16* __restrict__ x,
 
   float amax = 0.f;
   for (int i = threadIdx.x * 2; i < K; i += ROW_THREADS * 2) {
-    const __nv_bfloat162 s2 = *reinterpret_cast<const __nv_bfloat162*>(sc + i);
-    const __nv_bfloat162 h2 = *reinterpret_cast<const __nv_bfloat162*>(sh + i);
+    const float2 s2 = load2(sc + i);
+    const float2 h2 = load2(sh + i);
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const float s = __bfloat162float(e ? s2.y : s2.x);
-      const float t = __bfloat162float(e ? h2.y : h2.x);
-      float h = rb(row_s[i + e] * rr);
-      h = rb(rb(h * rb(1.0f + s)) + t);
+      const float s = e ? s2.y : s2.x;
+      const float t = e ? h2.y : h2.x;
+      float h = round_act(row_s[i + e] * rr, static_cast<T*>(nullptr));
+      h = modulate(h, s, t, static_cast<T*>(nullptr));
       row_s[i + e] = h;
       amax = fmaxf(amax, fabsf(h));
     }
@@ -122,46 +146,63 @@ norm_mod_quantize_rows_kernel(const bf16* __restrict__ x,
   if (threadIdx.x == 0) sx[row] = s;
 }
 
+template <typename T>
+int launch_rows(const T* x, const T* scale, const T* shift, int M, int K,
+                int rows_per_group, float eps, void* xq, void* sx,
+                size_t smem, void* stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        norm_mod_quantize_rows_kernel<T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  norm_mod_quantize_rows_kernel<T><<<M, ROW_THREADS, smem,
+                                     static_cast<cudaStream_t>(stream)>>>(
+      x, scale, shift, K, rows_per_group, eps, static_cast<int8_t*>(xq),
+      static_cast<float*>(sx));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// x [M, K] bf16, scale/shift [M / rows_per_group, K] bf16 -> xq [M, K] int8,
-// sx [M] fp32. K must be even and K * 4 bytes must fit a block's shared
-// memory.
+// x [M, K] bf16 (x_dtype 0) or fp32 (1), scale/shift [M / rows_per_group,
+// K] in x's dtype -> xq [M, K] int8, sx [M] fp32. K must be even and K * 4
+// bytes must fit a block's shared memory.
 extern "C" int k5_norm_mod_quantize_rows(const void* x, const void* scale,
                                          const void* shift, int M, int K,
-                                         int rows_per_group, float eps,
-                                         void* xq, void* sx, void* stream) {
+                                         int x_dtype, int rows_per_group,
+                                         float eps, void* xq, void* sx,
+                                         void* stream) {
   if (M <= 0) return static_cast<int>(cudaGetLastError());
-  if (K <= 0 || K % 2 != 0 || rows_per_group <= 0) {
+  if (K <= 0 || K % 2 != 0 || rows_per_group <= 0 || x_dtype < 0 ||
+      x_dtype > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = static_cast<size_t>(K) * sizeof(float);
   if (smem > 200 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        norm_mod_quantize_rows_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  norm_mod_quantize_rows_kernel<<<M, ROW_THREADS, smem,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(scale),
-      static_cast<const bf16*>(shift), K, rows_per_group, eps,
-      static_cast<int8_t*>(xq), static_cast<float*>(sx));
-  return static_cast<int>(cudaGetLastError());
+  return x_dtype == 0
+             ? launch_rows(static_cast<const bf16*>(x),
+                           static_cast<const bf16*>(scale),
+                           static_cast<const bf16*>(shift), M, K,
+                           rows_per_group, eps, xq, sx, smem, stream)
+             : launch_rows(static_cast<const float*>(x),
+                           static_cast<const float*>(scale),
+                           static_cast<const float*>(shift), M, K,
+                           rows_per_group, eps, xq, sx, smem, stream);
 }
 
 // The whole of K5: the row kernel into the scratch xq / sx, then the s8
 // product with w [N, K] int8 (the concatenated weights), sw [N], bias [N]
-// or null, into out [M, N] (out_mode as k2_int8_gemm: 0 s32, 1 bf16).
+// or null, into out [M, N] (out_mode as k2_int8_gemm: 0 s32, 1 bf16, 2
+// f32).
 extern "C" int k5_norm_mod_int8_matmul(const void* x, const void* scale,
                                        const void* shift, int M, int K,
-                                       int rows_per_group, float eps,
-                                       void* xq, void* sx, const void* w,
-                                       int N, const void* sw,
+                                       int x_dtype, int rows_per_group,
+                                       float eps, void* xq, void* sx,
+                                       const void* w, int N, const void* sw,
                                        const void* bias, void* out,
                                        int out_mode, void* stream) {
-  const int code = k5_norm_mod_quantize_rows(x, scale, shift, M, K,
+  const int code = k5_norm_mod_quantize_rows(x, scale, shift, M, K, x_dtype,
                                              rows_per_group, eps, xq, sx,
                                              stream);
   if (code != 0) return code;

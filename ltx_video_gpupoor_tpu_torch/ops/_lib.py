@@ -69,12 +69,21 @@ SIGNATURES = {
     # xq, w, M, N, K, sx, sw, bias, out, out_mode (0 s32, 1 bf16, 2 f32),
     # stream
     "k2_int8_gemm": [P, P, I, I, I, P, P, P, P, I, P],
-    # x, scale, shift, M, K, rows_per_group, eps, xq, sx, stream
-    "k5_norm_mod_quantize_rows": [P, P, P, I, I, I, F, P, P, P],
-    # x, scale, shift, M, K, rows_per_group, eps, xq, sx (scratch), w, N,
-    # sw, bias, out, out_mode (0 s32, 1 bf16), stream
-    "k5_norm_mod_int8_matmul": [P, P, P, I, I, I, F, P, P, P, I, P, P, P, I,
-                                P],
+    # x, scale, shift, M, K, x_dtype (0 bf16, 1 f32), rows_per_group, eps,
+    # xq, sx, stream
+    "k5_norm_mod_quantize_rows": [P, P, P, I, I, I, I, F, P, P, P],
+    # x, scale, shift, M, K, x_dtype, rows_per_group, eps, xq, sx
+    # (scratch), w, N, sw, bias, out, out_mode (0 s32, 1 bf16, 2 f32),
+    # stream
+    "k5_norm_mod_int8_matmul": [P, P, P, I, I, I, I, F, P, P, P, I, P, P, P,
+                                I, P],
+    # K1f: q, k, v, out, q_seg, kv_seg, q_scale, k_scale, v_scale, B, H,
+    # Sq, Skv, D, q/k/v/out strides (b, h, s; int8 V^T: b, h, d), kv_valid
+    # (-1 = none), causal, mask kind, variant (K1F_VARIANTS), k_block, nks,
+    # scale * log2(e), score_bound * log2(e), stream
+    "k1f_flash_attention_fp32": [P, P, P, P, P, P, P, P, P, I, I, I, I, I,
+                                 I, I, I, I, I, I, I, I, I, I, I, I,
+                                 I, I, I, I, I, I, F, F, P],
     # q, k, v, out, B, H, S, D, q/k/v/out strides (b, h, s), block_kv, nsub,
     # D**-0.5 * log2(e), stream
     "k8_flash_attention_pipelined_bf16": [P, P, P, P, I, I, I, I,

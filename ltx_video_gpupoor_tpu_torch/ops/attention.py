@@ -18,7 +18,9 @@ the ``LTXV_TPU_ATTN`` environment variable (:40) pin what ``auto`` means
 for the whole process, as the CLI's ``--attention`` does. The
 128-multiple padding (:172-191,
 :289-298) is gone: the kernels mask their own ragged edge. ``ulysses:``
-raises ``NotImplementedError`` naming its ROADMAP step.
+raises ``NotImplementedError`` naming its ROADMAP step. fp32 operands
+(``FP32_POLICY``) take the same tiers through K1f, the fp32 kernel;
+:func:`kernel_route` names the kernel a call launches.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from .flash_attention import (
     flash_attention,
     flash_attention_hp,
     flash_attention_int8,
+    k1f_variant,
     reference_attention,
 )
 
@@ -82,6 +85,38 @@ def resolve_mode(mode: str, score_bound: float | None = None,
     if mode in _VALID_MODES:
         return mode
     raise ValueError(f"unknown attention mode {mode!r}")
+
+
+def _hp_serves(mode: str, d: int, heads: int, score_bound) -> bool:
+    """Whether :func:`attention_packed` takes the head-packed kernel."""
+    return (mode == "pallas_hp" and d in (64, 128) and score_bound is None
+            and (d == 128 or heads % 2 == 0))
+
+
+def kernel_route(mode: str, *, dtype: torch.dtype, head_dim: int,
+                 score_bound: float | None = None, heads: int | None = None
+                 ) -> str:
+    """The kernel that an attention call on CUDA tensors of ``dtype``
+    launches in ``mode``: ``"K1"``, ``"K3"``, ``"K4"``, ``"K3q"``, ``"K6"``
+    for bf16, ``"K1f <variant>"`` (:data:`~.flash_attention.K1F_VARIANTS`)
+    for fp32, or ``"xla"`` (the plain version). ``heads`` given: an
+    :func:`attention_packed` call. :func:`attention` and
+    :func:`attention_packed` dispatch by the same rules."""
+    mode = resolve_mode(mode, score_bound, head_dim=head_dim)
+    fp32 = dtype == torch.float32
+    if heads is not None and _hp_serves(mode, head_dim, heads, score_bound):
+        return "K1f exact" if fp32 else "K6"
+    if mode == "xla":
+        return "xla"
+    bounded = score_bound is not None
+    if mode in ("pallas", "pallas_hp"):
+        return f"K1f {k1f_variant(bounded=bounded)}" if fp32 \
+            else ("K3" if bounded else "K1")
+    pv_int8 = mode == "pallas_int8pv"
+    bounded = bounded and not pv_int8
+    if fp32:
+        return f"K1f {k1f_variant(qk_int8=True, pv_int8=pv_int8, bounded=bounded)}"
+    return "K3q" if bounded else "K4"
 
 
 def attention(
@@ -145,8 +180,7 @@ def attention_packed(
     b, s, hd_total = q.shape
     d = hd_total // heads
     mode = resolve_mode(mode, score_bound, head_dim=d)
-    if (mode == "pallas_hp" and d in (64, 128) and score_bound is None
-            and (d == 128 or heads % 2 == 0)):
+    if _hp_serves(mode, d, heads, score_bound):
         if k.shape[1] != s or v.shape[1] != s:
             raise ValueError(
                 "attention_packed hp path requires q/k/v of equal length")

@@ -43,6 +43,17 @@ with JAX's numerics to int8 noise, not bit for bit; stepped by the
 kernel's tile, the plain version runs the kernel's math, and
 :func:`int8_tile_bound` states how far the two may lie apart.
 
+fp32 operands (``FP32_POLICY``) take kernel K1f on the card,
+``csrc/flash_attention_fp32.cu``: the same functions on the CUDA cores in
+fp32 (the TPU kernel runs in its input dtype, :343-352), in five variants
+(:data:`K1F_VARIANTS`, chosen by :func:`k1f_variant`): exact, bounded, and
+the int8 tiers' scores with an fp32 V (QK tier, bounded or not) or int8
+P.V (QK+PV tier). :func:`flash_attention`, :func:`flash_attention_hp` and
+:func:`flash_attention_int8` route fp32 CUDA tensors there; the plain
+versions are the same functions as for bf16. K1f's kv tile is
+:data:`K1F_TILE_KV` rows, so its QK+PV tier agrees with the plain version
+stepped by that tile.
+
 Layout ``[B, H, S, D]``; the kernels read any strides whose last one is 1,
 so head-split views of ``[B, S, H*D]`` projections need no copy.
 """
@@ -85,6 +96,9 @@ K4_TILE_MEAN_REL = 5e-4
 # its block by the mask code they carry (the C entry's ``mask_kind``)
 K1_TILE_KV = 128
 MASK_KINDS = ("none", "tail", "general")
+# K1f: the fp32 kernel's variants (the C entry's ``variant``) and kv tile
+K1F_VARIANTS = ("exact", "bounded", "qk8", "qk8_bounded", "pv8")
+K1F_TILE_KV = 64
 
 
 def _check_seg_pair(q_segment_ids, kv_segment_ids):
@@ -209,7 +223,8 @@ def _check_layout(kernel: str, name: str, t: torch.Tensor, dtype, device):
         raise ValueError(f"{name} strides must fit the kernel's int32")
 
 
-def _check_cuda_operands(q, k, v, q_seg, kv_seg, kernel="K1"):
+def _check_cuda_operands(q, k, v, q_seg, kv_seg, kernel="K1",
+                         dtype=torch.bfloat16):
     b, h, sq, d = q.shape
     if k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be [B, H, S, D]")
@@ -220,7 +235,7 @@ def _check_cuda_operands(q, k, v, q_seg, kv_seg, kernel="K1"):
     if d not in (64, 128):
         raise ValueError(f"{kernel} takes head dims 64 and 128, got {d}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_layout(kernel, name, t, torch.bfloat16, q.device)
+        _check_layout(kernel, name, t, dtype, q.device)
     if q_seg is not None:
         for name, t, n in (("q_segment_ids", q_seg, sq),
                            ("kv_segment_ids", kv_seg, k.shape[2])):
@@ -249,7 +264,7 @@ def flash_attention(
     CPU tensors take :func:`reference_attention` (or
     :func:`bounded_attention_plain`); CUDA tensors launch K1 (K3 with a
     bound; bf16, D in {64, 128}; both run the block instance that
-    :func:`mask_kind` names) or raise. The output has q's dtype and, on
+    :func:`mask_kind` names), K1f for fp32 operands, or raise. The output has q's dtype and, on
     the card, q's memory layout. K1 launches count in ``launches``, K3's
     in ``bounded_launches``."""
     _check_seg_pair(q_segment_ids, kv_segment_ids)
@@ -263,6 +278,11 @@ def flash_attention(
             causal=causal, kv_valid=kv_valid)
     if q.device.type != "cuda":
         raise ValueError(f"K1 runs on CUDA or the CPU, not {q.device}")
+    if q.dtype == torch.float32:
+        return flash_attention_fp32(q, k, v, q_segment_ids, kv_segment_ids,
+                                    scale=scale, causal=causal,
+                                    kv_valid=kv_valid,
+                                    score_bound=score_bound)
     _check_cuda_operands(q, k, v, q_segment_ids, kv_segment_ids)
     from . import _lib
 
@@ -343,7 +363,7 @@ def flash_attention_hp(
 
     CPU tensors take :func:`flash_attention_hp_plain`; CUDA tensors (bf16,
     unit last stride: a slice of a fused q/k/v projection is read in
-    place) launch K6 or raise. The output is a new ``[B, S, H*D]``."""
+    place) launch K6, fp32 ones K1f on the same strides, or raise. The output is a new ``[B, S, H*D]``."""
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape \
             or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
         raise ValueError(f"q, k, v must be [B, S, H*D]: q {tuple(q.shape)}, "
@@ -360,6 +380,16 @@ def flash_attention_hp(
                                         kv_valid=kv_valid)
     if q.device.type != "cuda":
         raise ValueError(f"K6 runs on CUDA or the CPU, not {q.device}")
+    if q.dtype == torch.float32:
+        # K1f reads the head-packed layout through the strides of its
+        # head-split view and writes [B, S, H*D] the same way
+        def split(t):
+            return t.view(b, t.shape[1], heads, d).transpose(1, 2)
+
+        out = torch.empty((b, s, hd_total), dtype=q.dtype, device=q.device)
+        flash_attention_fp32(split(q), split(k), split(v), scale=scale,
+                             kv_valid=kv_valid, out=split(out))
+        return out
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16:
             raise ValueError(f"K6 takes bf16 {name}, got {t.dtype}")
@@ -848,12 +878,16 @@ def flash_attention_int8(
     raises (in the plain version or the launch), as in JAX.
 
     CPU tensors take :func:`int8_attention_plain`; CUDA tensors (bf16,
-    D in {64, 128}) launch K4 (K3q) or raise. The output has q's dtype
+    D in {64, 128}) launch K4 (K3q), fp32 ones K1f's int8 variants on the
+    same prologue operands, or raise. The output has q's dtype
     and, on the card, q's memory layout."""
     _check_seg_pair(q_segment_ids, kv_segment_ids)
+    fp32 = q.dtype == torch.float32
     if q.device.type == "cuda":
-        _check_cuda_operands(q, k, v, q_segment_ids, kv_segment_ids,
-                             "K4" if score_bound is None else "K3q")
+        _check_cuda_operands(
+            q, k, v, q_segment_ids, kv_segment_ids,
+            "K1f" if fp32 else "K4" if score_bound is None else "K3q",
+            torch.float32 if fp32 else torch.bfloat16)
     elif q.device.type != "cpu":
         raise ValueError(f"K4 runs on CUDA or the CPU, not {q.device}")
     ops = int8_prologue(q, k, v, scale=scale, pv_int8=pv_int8)
@@ -861,12 +895,168 @@ def flash_attention_int8(
     if q.device.type == "cpu":
         return int8_attention_plain(ops, q_segment_ids, kv_segment_ids,
                                     out_dtype=q.dtype, **kw)
+    if fp32:
+        return int8_attention_fp32(ops, q_segment_ids, kv_segment_ids,
+                                   out=torch.empty_like(q), **kw)
     return int8_attention_cuda(ops, q_segment_ids, kv_segment_ids,
                                out=torch.empty_like(q), **kw)
 
 
 flash_attention_int8.launches = 0
 flash_attention_int8.bounded_launches = 0
+
+
+# --------------------------------------------------------------------------
+# K1f: the fp32 kernel
+# --------------------------------------------------------------------------
+
+def k1f_variant(*, qk_int8: bool = False, pv_int8: bool = False,
+                bounded: bool = False) -> str:
+    """Which of :data:`K1F_VARIANTS` an fp32 call runs: the int8 QK+PV
+    tier (``pv8``, never bounded, as in JAX), the int8 QK tier (``qk8``,
+    ``qk8_bounded``: K3q's function), or fp32 scores (``exact``,
+    ``bounded``: K1's and K3's)."""
+    if pv_int8:
+        if bounded:
+            raise ValueError("pv_int8 requires the online-softmax path; drop "
+                             "score_bound")
+        return "pv8"
+    if qk_int8:
+        return "qk8_bounded" if bounded else "qk8"
+    return "bounded" if bounded else "exact"
+
+
+def _k1f_launch(q, k, v, out, q_seg, kv_seg, *, variant, kv_valid, causal,
+                scale_log2=0.0, bound_log2=0.0, q_scale=None, k_scale=None,
+                v_scale=None, k_block=1):
+    """One launch of K1f; ``k``'s shape gives Skv (for ``pv8`` ``v`` is
+    K4's V^T and its strides are (b, h, d))."""
+    from . import _lib
+
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    kind = MASK_KINDS.index(mask_kind(
+        skv, kv_valid, segments=q_seg is not None, causal=causal))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    code = _lib.library().k1f_flash_attention_fp32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        ptr(q_seg), ptr(kv_seg), ptr(q_scale), ptr(k_scale), ptr(v_scale),
+        b, h, sq, skv, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *out.stride()[:3], -1 if kv_valid is None else max(0, int(kv_valid)),
+        int(bool(causal)), kind, K1F_VARIANTS.index(variant), k_block,
+        1 if k_scale is None else k_scale.shape[2],
+        ctypes.c_float(scale_log2), ctypes.c_float(bound_log2),
+        _lib.stream_ptr(q.device))
+    _lib.check(code, f"K1f flash_attention_fp32 ({variant}) launch")
+    flash_attention_fp32.launches += 1
+    flash_attention_fp32.by_variant[variant] += 1
+    return out
+
+
+def _check_fp32_out(out, shape, device):
+    if out.shape != shape:
+        raise ValueError(f"K1f out must be {tuple(shape)}, got "
+                         f"{tuple(out.shape)}")
+    _check_layout("K1f", "out", out, torch.float32, device)
+
+
+def flash_attention_fp32(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_segment_ids: torch.Tensor | None = None,
+    kv_segment_ids: torch.Tensor | None = None,
+    *,
+    scale: float | None = None,
+    causal: bool = False,
+    kv_valid: int | None = None,
+    score_bound: float | None = None,
+    out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """K1f on fp32 CUDA tensors ``[B, H, S, D]`` (D in {64, 128}, any
+    16-byte aligned strides with a unit last one): exact attention, or
+    with ``score_bound`` the bounded tier; the plain versions are
+    :func:`reference_attention` and :func:`bounded_attention_plain`. The
+    result is fp32 in ``out`` (q's layout by default). Every launch adds
+    one to ``flash_attention_fp32.launches`` and to its variant's entry of
+    ``flash_attention_fp32.by_variant``."""
+    _check_seg_pair(q_segment_ids, kv_segment_ids)
+    if q.device.type != "cuda":
+        raise ValueError("flash_attention_fp32 launches the CUDA kernel")
+    _check_cuda_operands(q, k, v, q_segment_ids, kv_segment_ids, "K1f",
+                         torch.float32)
+    if out is None:
+        out = torch.empty_like(q)
+    _check_fp32_out(out, q.shape, q.device)
+    if scale is None:
+        scale = q.shape[3] ** -0.5
+    if not scale > 0:
+        raise ValueError(f"K1f takes a positive scale, got {scale}")
+    bounded = score_bound is not None
+    return _k1f_launch(
+        q, k, v, out, q_segment_ids, kv_segment_ids,
+        variant=k1f_variant(bounded=bounded), kv_valid=kv_valid,
+        causal=causal, scale_log2=float(scale) * LOG2E,
+        bound_log2=float(score_bound) * LOG2E if bounded else 0.0)
+
+
+flash_attention_fp32.launches = 0
+flash_attention_fp32.by_variant = dict.fromkeys(K1F_VARIANTS, 0)
+
+
+def int8_attention_fp32(
+    ops: Int8Operands,
+    q_segment_ids: torch.Tensor | None = None,
+    kv_segment_ids: torch.Tensor | None = None,
+    *,
+    causal: bool = False,
+    kv_valid: int | None = None,
+    out: torch.Tensor | None = None,
+    score_bound: float | None = None,
+) -> torch.Tensor:
+    """K1f's int8 variants on prologue operands of fp32 inputs that lie on
+    the card: the QK tier (``qk8``; with ``score_bound`` ``qk8_bounded``,
+    K3q's function) reads an fp32 ``ops.v``, the QK+PV tier (``pv8``) K4's
+    int8 V^T. The result is fp32 in ``out``; the plain version is
+    :func:`int8_attention_plain` (stepped by :data:`K1F_TILE_KV` for the
+    same P codes in the QK+PV tier)."""
+    _check_seg_pair(q_segment_ids, kv_segment_ids)
+    dev = ops.q8.device
+    for name, t in (("q8", ops.q8), ("k8", ops.k8)):
+        _check_layout("K1f", name, t, torch.int8, dev)
+    b, h, sq, d = ops.q8.shape
+    if d not in (64, 128):
+        raise ValueError(f"K1f takes head dims 64 and 128, got {d}")
+    pv_int8 = ops.v_scale is not None
+    spad = round_up(ops.k8.shape[2], K4_TILE_KV)
+    if pv_int8:
+        if ops.v.shape != (b, h, d, spad) or ops.v.dtype != torch.int8 \
+                or not ops.v.is_contiguous() or ops.v.device != dev:
+            raise ValueError("K1f takes int8 v as k4_v_layout lays it out")
+    else:
+        _check_layout("K1f", "v", ops.v, torch.float32, dev)
+    for name, t in (("q_scale", ops.q_scale), ("k_scale", ops.k_scale),
+                    ("v_scale", ops.v_scale)):
+        if t is not None and (t.dtype != torch.float32
+                              or not t.is_contiguous() or t.device != dev):
+            raise ValueError(f"K1f {name} must be contiguous fp32 on {dev}")
+    if q_segment_ids is not None:
+        _check_cuda_operands(ops.q8, ops.k8, ops.k8, q_segment_ids,
+                             kv_segment_ids, "K1f", torch.int8)
+    if out is None:
+        out = torch.empty(b, h, sq, d, dtype=torch.float32, device=dev)
+    _check_fp32_out(out, ops.q8.shape, dev)
+    bounded = score_bound is not None
+    return _k1f_launch(
+        ops.q8, ops.k8, ops.v, out, q_segment_ids, kv_segment_ids,
+        variant=k1f_variant(qk_int8=True, pv_int8=pv_int8, bounded=bounded),
+        kv_valid=kv_valid, causal=causal,
+        bound_log2=float(score_bound) * LOG2E if bounded else 0.0,
+        q_scale=ops.q_scale, k_scale=ops.k_scale, v_scale=ops.v_scale,
+        k_block=ops.k_block)
 
 
 def attention_flops(b: int, h: int, sq: int, skv: int, d: int) -> int:

@@ -24,7 +24,9 @@ that one setting selects the tier in both packages); the wiring is in
 ``models/ltx/transformer3d.py``. Weights are ``[N, K]`` int8 (torch's
 ``[out, in]``). CPU tensors take :func:`norm_mod_int8_matmul_plain`; CUDA
 tensors launch ``csrc/fused_prologue.cu`` (a row kernel, then K2's GEMM)
-or raise. The TPU kernel's refusal of a group size with no 16-multiple
+or raise; bf16 activations (the served tiers) or fp32 (``FP32_POLICY``,
+the row kernel's fp32 instance: no bf16 rounding between its ops, an fp32
+output from the same GEMM). The TPU kernel's refusal of a group size with no 16-multiple
 divisor (:165-174) has no counterpart: a block here holds one row, so no
 block straddles two groups; :func:`supports` keeps the JAX gate so that
 both packages take the same tier at the same shapes.
@@ -151,10 +153,14 @@ def _check(x, scale, shift, w_int8, w_scale, bias, rows_per_group):
         raise ValueError(f"bias must be [{n}], got {tuple(bias.shape)}")
 
 
+_X_DTYPES = {torch.bfloat16: 0, torch.float32: 1}   # the C entry's x_dtype
+_OUT_MODES = {torch.int32: 0, torch.bfloat16: 1, torch.float32: 2}
+
+
 def _check_cuda(x, scale, shift, w_int8, w_scale, bias):
     k = x.shape[1]
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"K5 takes bf16 activations, got {x.dtype}")
+    if x.dtype not in _X_DTYPES:
+        raise ValueError(f"K5 takes bf16 or fp32 activations, got {x.dtype}")
     if k % 16 or k > _MAX_K:
         raise ValueError(f"K5 needs K % 16 == 0 and K <= {_MAX_K}, got {k}")
     tensors = [("x", x), ("scale", scale), ("shift", shift)]
@@ -188,8 +194,8 @@ def norm_mod_quantize_rows(x, scale, shift, *, rows_per_group: int,
     sx = torch.empty((m,), dtype=torch.float32, device=x.device)
     code = _lib.library().k5_norm_mod_quantize_rows(
         x.data_ptr(), scale.data_ptr(), shift.data_ptr(), m, k,
-        rows_per_group, ctypes.c_float(eps), xq.data_ptr(), sx.data_ptr(),
-        _lib.stream_ptr(x.device))
+        _X_DTYPES[x.dtype], rows_per_group, ctypes.c_float(eps),
+        xq.data_ptr(), sx.data_ptr(), _lib.stream_ptr(x.device))
     _lib.check(code, "K5 norm_mod_quantize_rows launch")
     return xq, sx
 
@@ -206,11 +212,10 @@ def _launch(x, scale, shift, w_int8, w_scale, bias, rows_per_group, eps,
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     code = _lib.library().k5_norm_mod_int8_matmul(
         x.data_ptr(), scale.data_ptr(), shift.data_ptr(), m, k,
-        rows_per_group, ctypes.c_float(eps), xq.data_ptr(), sx.data_ptr(),
-        w_int8.data_ptr(), n, w_scale.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(),
-        {torch.int32: 0, torch.bfloat16: 1}[out_dtype],
-        _lib.stream_ptr(x.device))
+        _X_DTYPES[x.dtype], rows_per_group, ctypes.c_float(eps),
+        xq.data_ptr(), sx.data_ptr(), w_int8.data_ptr(), n,
+        w_scale.data_ptr(), None if bias is None else bias.data_ptr(),
+        out.data_ptr(), _OUT_MODES[out_dtype], _lib.stream_ptr(x.device))
     _lib.check(code, "K5 norm_mod_int8_matmul launch")
     return xq, sx, out
 
