@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one NVIDIA GPU: LTX-Video 2B
-text-to-video, LTX-Video 13B image-to-video through the two-pass
-multi-scale pipeline (one request of it through the HTTP server), the CLI,
-Wan 2.1 t2v-1.3B, the ring-attention kernel and the attention
-micro-benchmark tool.
+text-to-video (with TeaCache, and under FP32_POLICY), LTX-Video 13B
+image-to-video through the two-pass multi-scale pipeline (one request of
+it through the HTTP server, one through the CLI from checkpoint files in
+the published layout), the CLI, Wan 2.1 t2v-1.3B, the ring-attention
+kernel and the attention micro-benchmark tool.
 
     python3 chip_smoke.py              # one card; several minutes on an H100
     python3 chip_smoke.py --profile    # and device-time breakdowns
@@ -112,6 +113,20 @@ Phases, one output line each (or a few):
             body; on a dp2 x sp2 x tp2 mesh the rings that the neighbour
             ids spell out. Its time line gives the softmax state it moves
             through device memory.
+5g. K1f    the fp32 attention kernel (FP32_POLICY; CUDA cores, no tf32)
+            against its plain versions at atol = rtol = 2e-5 (the JAX
+            tests' fp32 tolerance) in each variant: exact at the LTX-2B
+            self-attention (B=3 H=32 S=5280 D=64), the cross-attention to
+            256 text tokens with segments, the [fp32] request's shapes
+            (S=128) and 13B pass 1 (S=3840 D=128); bounded at 40; the int8
+            Q.K^T codes with an fp32 V (bounded or not); the int8 QK+PV
+            tier against the plain version stepped by K1f's 64-row tile
+            within int8_tile_bound; head-packed [B, S, H*D]; every mask
+            kind at tile edges for both head dims; planted faults (the last
+            q tile zeroed, a head scaled by 1 + 2**-6) must fail the check;
+            then attention() on fp32 operands in every tier must launch the
+            variant ops.attention.kernel_route names. K5's fp32 row
+            instance beside K5's checks.
 6. timing   each kernel and its plain version, CUDA events, median of 5
             (plain versions at the large attention shapes: median of 3),
             and the one PyTorch call that computes the same function where
@@ -136,6 +151,16 @@ Phases, one output line each (or a few):
             (256x256x9, 704x480x121; 8 steps, CFG + STG, stochastic
             sampling, decode noise), each with its stage times (T5,
             denoise, decode), peak memory and kernel launch counts.
+7a. teacache  LTX-2B at full width, 704x480x121, ltxv-2b-0.9.6-dev at 30
+            steps (bench.py's headline) without TeaCache, at --teacache 2.2
+            and at 2.2 with attention_score_bound=40: steps computed,
+            denoise and total seconds, K1 / K3 / K2 launches (a skipped
+            step launches no block: K1 or K3 = 2 x 28 x steps computed),
+            frame PSNR against the request without TeaCache.
+7a'. fp32  LTX-2B at full width under FP32_POLICY (int8_dynamic weights,
+            fp32 activations, fp32 VAE decoder) at 256x256x9, served
+            (auto: K1f and K2 on fp32 activations, no bf16 attention
+            kernel) and in the xla tier: frames >= 40 dB apart.
 7b. ltx13b  the LTX-2B DiT is freed; LTX-13B at full width and depth (48
             layers, 32x128 heads, inner 4096, int8_dynamic, built and
             quantized layer by layer), the 0.9.7 VAE with its encoder, the
@@ -167,6 +192,16 @@ Phases, one output line each (or a few):
             /metrics (the request's seconds by stage, the mp4 write among
             them). Then one request through the CLI's main() at 256x256x9
             on the demo model.
+7d. load    synthetic files in the published layout in a temporary
+            directory (the 13B-dev quanto int8 transformer at full width
+            and all 48 layers, 13 GB; the distilled LoRA, rank 128; the
+            0.9.7 VAE; the spatial upscaler), then one 992x608x121
+            image-to-video request through the CLI's real branch
+            (--model-mode ltxv_13B_distilled --ckpt-dir, no --demo,
+            --quantize-transformer, --save-quantized): seconds to write,
+            read (and which reader), move to the card and dequantize there,
+            merge the LoRA, save the quantized file (its size), generate,
+            and which mp4 writer ran; the mp4 must read back.
 8. wan      the LTX models are freed; Wan 2.1 t2v-1.3B at full width (30
             layers, 12x128 heads, ffn 8960, int8_dynamic), UMT5-XXL (24
             layers, d 4096, bf16) and the Wan VAE decoder (dim 96, z 16),
@@ -1599,7 +1634,8 @@ def _k1f_case(name, b, h, sq, skv, d, *, gen, variant="exact", packed=False,
         bnd = fa.int8_tile_bound(ops, plain, *segs, **kw)
         diff = (kern - plain).abs()
         ratio, err = float((diff / bnd).max()), float(diff.max())
-        rel = float(diff.mean() / plain.abs().mean())
+        # no key in sight: the plain output is 0 and so must the kernel's be
+        rel = float(diff.mean()) / max(float(plain.abs().mean()), 1e-30)
         assert ratio <= 1.0 and rel < fa.K4_TILE_MEAN_REL, \
             (f"K1f {name}: max {err:.3e}, {ratio:.3f} of int8_tile_bound, "
              f"mean {rel:.3e}")
@@ -1669,7 +1705,7 @@ def phase_k1f(gen):
     from ltx_video_gpupoor_tpu_torch.ops import attention as at
     from ltx_video_gpupoor_tpu_torch.ops import flash_attention as fa
 
-    errs = []
+    errs, pv8_errs = [], []
     b, h, s, _, d = LTX2B_SELF
     errs.append(_k1f_case("LTX-2B self-attention", b, h, s, s, d, gen=gen,
                           packed=True, plant=True))
@@ -1695,11 +1731,12 @@ def phase_k1f(gen):
                           bound=LTX13B_BOUND))
     for variant, bound in (("qk8", None), ("qk8_bounded", LTX13B_BOUND),
                            ("pv8", None)):
-        errs.append(_k1f_case("13B pass 1 self-attention", b13, h13, s13,
+        into = pv8_errs if variant == "pv8" else errs
+        into.append(_k1f_case("13B pass 1 self-attention", b13, h13, s13,
                               s13, d13, gen=gen, packed=True,
                               variant=variant, bound=bound,
                               plant=variant == "qk8"))
-        errs.append(_k1f_case("LTX-2B cross-attention, text segments", b, h,
+        into.append(_k1f_case("LTX-2B cross-attention, text segments", b, h,
                               s, 256, d, gen=gen, packed=True,
                               seg=_cross_segments, variant=variant,
                               bound=bound))
@@ -1717,7 +1754,7 @@ def phase_k1f(gen):
                     (512, 512, 300, False, None), (512, 512, 384, False, None),
                     (512, 512, 0, False, None), (333, 333, None, True, None),
                     (700, 300, None, False, _cross_segments)):
-                errs.append(_k1f_case(
+                (pv8_errs if variant == "pv8" else errs).append(_k1f_case(
                     "edges", 3 if seg else 1, 2, sq, skv, dd, gen=gen,
                     variant=variant, bound=bound, kv_valid=kv_valid,
                     causal=causal, seg=seg))
@@ -1745,6 +1782,10 @@ def phase_k1f(gen):
                               f"{'bound' if bound else 'none'}={want}")
     log("[k1f] attention() on fp32 operands launches what kernel_route "
         "names in every tier: " + ", ".join(routes))
+    log(f"[k1f] max_abs_err {max(errs):.3e} where held to atol = rtol = "
+        f"2e-5 (exact, bounded, int8 QK); {max(pv8_errs):.3e} in the int8 "
+        f"QK+PV variant (P codes that round the other way, within "
+        f"int8_tile_bound)")
     return max(errs)
 
 
@@ -2453,6 +2494,295 @@ def phase_path():
     return launches, gen, t5
 
 
+def _psnr_db(a, b):
+    """PSNR of uint8 frames (peak 255)."""
+    import numpy as np
+
+    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+    return 10 * np.log10(255.0 ** 2 / mse) if mse > 0 else float("inf")
+
+
+def _timed_request(gen, emb, mask, height, width, frames, **kw):
+    """One ``generate`` from prompt embeddings: (uint8 frames, seconds by
+    stage, launches)."""
+    import torch
+
+    marks = {}
+
+    def on_stage(name, value):
+        torch.cuda.synchronize()
+        marks[name] = time.perf_counter()
+
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    out = gen.generate(emb, mask, height=height, width=width,
+                       frame_num=frames, frame_rate=25.0, seed=SEED,
+                       on_stage=on_stage, **kw)
+    t_end = time.perf_counter()
+    launches = kernel_counts()
+    assert out.dtype.name == "uint8" and \
+        out.shape == (frames, height, width, 3), out.shape
+    sec = {"denoise": marks["decode"] - marks["denoise"],
+           "decode": marks["postprocess"] - marks["decode"],
+           "total": t_end - t0}
+    return out, sec, launches
+
+
+TEACACHE_CONFIG = "ltxv-2b-0.9.6-dev"
+TEACACHE_STEPS = 30          # bench.py's headline step count
+TEACACHE_MULT = 2.2
+
+
+def phase_teacache(gen, t5):
+    """LTX-2B at full width, 704x480x121, ltxv-2b-0.9.6-dev at 30 steps,
+    three ways: without TeaCache, at --teacache 2.2, and at 2.2 with
+    attention_score_bound=40. A skipped step launches no block: K1 (K3)
+    launches = 2 x layers x computed steps exactly. Prints the steps
+    computed, the seconds, the launches and the frames' PSNR against the
+    request without TeaCache."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.pipelines import ltx_pipeline as lp
+    from ltx_video_gpupoor_tpu_torch.serving.orchestrator import (
+        LTXVideoGenerator,
+    )
+
+    dit = gen.pipeline.transformer
+    dev_gen = LTXVideoGenerator(gen.pipeline, pipeline_config=TEACACHE_CONFIG)
+    emb, mask, _ = encode_prompts(t5)
+    height, width, frames = REQUESTS[-1]
+    masks = []
+    schedule = lp.ltx_teacache_schedule
+
+    def spy(*args, **kwargs):
+        masks.append(schedule(*args, **kwargs))
+        return masks[-1]
+
+    lp.ltx_teacache_schedule = spy
+    results = {}
+    try:
+        for name, mult, bound in (("no TeaCache", 0.0, None),
+                                  (f"teacache {TEACACHE_MULT}",
+                                   TEACACHE_MULT, None),
+                                  (f"teacache {TEACACHE_MULT} + bound "
+                                   f"{LTX13B_BOUND:g}", TEACACHE_MULT,
+                                   LTX13B_BOUND)):
+            set_score_bound(dit, bound)
+            masks.clear()
+            out, sec, launches = _timed_request(
+                dev_gen, emb, mask, height, width, frames,
+                sampling_steps=TEACACHE_STEPS, teacache_multiplier=mult)
+            computed = int(masks[0].sum()) if masks else TEACACHE_STEPS
+            attn = launches["K3" if bound else "K1"]
+            assert attn == 2 * dit.cfg.num_layers * computed, \
+                (name, computed, launches)
+            assert launches["K1" if bound else "K3"] == 0, launches
+            if mult:
+                assert computed < TEACACHE_STEPS, computed
+            results[name] = out
+            db = _psnr_db(out, results["no TeaCache"])
+            log(f"[teacache] {name}: {width}x{height}x{frames} "
+                f"{TEACACHE_CONFIG} steps computed {computed}/"
+                f"{TEACACHE_STEPS} denoise={sec['denoise']:.3f} s "
+                f"decode={sec['decode']:.3f} s total={sec['total']:.3f} s "
+                f"launches K1={launches['K1']} K3={launches['K3']} "
+                f"K2={launches['K2']} frames PSNR against no TeaCache "
+                f"{db:.2f} dB")
+            torch.cuda.empty_cache()
+    finally:
+        lp.ltx_teacache_schedule = schedule
+        set_score_bound(dit, None)
+
+
+def phase_fp32(t5):
+    """LTX-2B at full width under FP32_POLICY (fp32 weights quantized
+    int8_dynamic, fp32 activations, fp32 VAE decoder) at 256x256x9: once
+    as served (auto: K1f, K2 on fp32 activations, no bf16 attention
+    kernel) and once in the xla tier (plain fp32 attention); frames >= 40
+    dB apart. Returns the first request's launches."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.core.dtypes import FP32_POLICY
+    from ltx_video_gpupoor_tpu_torch.models.ltx import transformer3d as tf
+    from ltx_video_gpupoor_tpu_torch.models.ltx import vae as vaem
+    from ltx_video_gpupoor_tpu_torch.ops.attention import set_attention_mode
+    from ltx_video_gpupoor_tpu_torch.ops.quant import quantize_params
+    from ltx_video_gpupoor_tpu_torch.pipelines.ltx_pipeline import LTXPipeline
+    from ltx_video_gpupoor_tpu_torch.serving.orchestrator import (
+        LTXVideoGenerator,
+    )
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    dit = tf.init_params(tf.LTXTransformer3D(ltx2b_config(), FP32_POLICY,
+                                             device=dev),
+                         torch.Generator(device=dev).manual_seed(SEED + 7))
+    quantize_params(dit, mode="dynamic")
+    vae = vaem.init_params(vaem.CausalVAEDecoder(vae_config(), FP32_POLICY,
+                                                 device=dev),
+                           torch.Generator(device=dev).manual_seed(SEED + 8))
+    gen = LTXVideoGenerator(LTXPipeline(dit, vae),
+                            pipeline_config="ltxv-2b-0.9.6-distilled")
+    emb, mask, _ = encode_prompts(t5)
+    log(f"[fp32] built LTX-2B (28 layers, fp32 activations, int8_dynamic) "
+        f"and the fp32 VAE decoder in {time.perf_counter() - t0:.1f} s")
+    height, width, frames = FP32_REQUEST
+    outs = {}
+    try:
+        for mode in ("auto", "xla"):
+            set_attention_mode(mode)
+            out, sec, launches = _timed_request(gen, emb, mask, height,
+                                                width, frames)
+            outs[mode] = (out, launches)
+            bf16 = {k: n for k, n in launches.items()
+                    if k not in ("K1f", "K2") and n}
+            assert not bf16, f"[fp32] a bf16 kernel ran: {bf16}"
+            assert launches["K2"] > 0, launches
+            assert (launches["K1f"] > 0) == (mode == "auto"), launches
+            log(f"[fp32] {width}x{height}x{frames} attention {mode}: "
+                f"denoise={sec['denoise']:.3f} s total={sec['total']:.3f} s "
+                f"launches K1f={launches['K1f']} (by variant "
+                f"{_k1f_by_variant()}) K2={launches['K2']} (fp32 "
+                f"activations)")
+    finally:
+        set_attention_mode("auto")
+    db = _psnr_db(outs["auto"][0], outs["xla"][0])
+    log(f"[fp32] frames, K1f against the xla tier: PSNR {db:.2f} dB "
+        f"(bar 40)")
+    assert db >= 40.0, f"[fp32] {db:.2f} dB < 40"
+    del gen, dit, vae
+    torch.cuda.empty_cache()
+    return outs["auto"][1]
+
+
+def _k1f_by_variant():
+    from ltx_video_gpupoor_tpu_torch.ops import flash_attention as fa
+
+    return {k: n for k, n in fa.flash_attention_fp32.by_variant.items() if n}
+
+
+# [load]: the 13B stack from files in the published layout. The depth is
+# fixed here, never adapted at run time: all 48 layers
+LOAD_LAYERS = 48
+LOAD_LORA_RANK = 128
+
+
+def phase_load():
+    """Write synthetic files in the published layout to a temporary
+    directory (the 13B-dev quanto int8 transformer at full width, the
+    distilled LoRA, the 0.9.7 VAE, the spatial upscaler), then serve one
+    992x608x121 image-to-video request through the CLI's real branch
+    (``--model-mode ltxv_13B_distilled --ckpt-dir <tmp>``, no ``--demo``;
+    ``--quantize-transformer`` for the int8_dynamic tier, ``--save-
+    quantized``). Prints the seconds of each stage, the reader of each
+    file, the mp4 writer and the saved file's size; the mp4 must read back
+    as 121 frames of 608x992. Returns the request's launches."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from ltx_video_gpupoor_tpu_torch.core import checkpoint as ck
+    from ltx_video_gpupoor_tpu_torch.models.ltx import latent_upsampler as lup
+    from ltx_video_gpupoor_tpu_torch.models.ltx import vae as vaem
+    from ltx_video_gpupoor_tpu_torch.serving import cli, model_zoo
+    from ltx_video_gpupoor_tpu_torch.serving import orchestrator as orch
+    from ltx_video_gpupoor_tpu_torch.tools import synthetic_ckpt as sc
+    from ltx_video_gpupoor_tpu_torch.utils import media
+
+    cfg = dataclasses.replace(ltx13b_config(), num_layers=LOAD_LAYERS)
+    up_cfg = lup.LatentUpsamplerConfig(in_channels=128, mid_channels=512,
+                                       num_blocks_per_stage=4, dims=3)
+    vae_cfg = {**vaem.LTX_VAE_CONFIG_097, "timestep_conditioning": True}
+    height, width, frames = LTX13B_REQUEST
+    root = tempfile.mkdtemp(prefix="ltx_ckpt_")
+    seen = {}
+    real = (model_zoo.load_ltxv_model, ck.save_quantized_model,
+            orch.LTXVideoGenerator.generate)
+
+    def timed(name, fn):
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seen[name] = time.perf_counter() - t0
+            seen[name + " result"] = out
+            return out
+        return wrapped
+
+    try:
+        info = sc.write_ltxv_ckpt_dir(root, cfg, vae_cfg, up_cfg,
+                                      lora_rank=LOAD_LORA_RANK,
+                                      seed=SEED + 30, device="cuda")
+        sizes = ", ".join(f"{k} {v / 1e9:.3f} GB"
+                          for k, v in info["bytes"].items())
+        log(f"[load] wrote the published layout ({LOAD_LAYERS} of 48 "
+            f"layers, hidden {cfg.inner_dim}, {cfg.num_attention_heads}x"
+            f"{cfg.attention_head_dim} heads, LoRA rank {LOAD_LORA_RANK}) "
+            f"in {info['write_s']:.3f} s (transformer "
+            f"{info['transformer_write_s']:.3f} s): {sizes}")
+        png = os.path.join(root, "start.png")
+        Image.fromarray(synthetic_image(height, width)).save(png)
+        out_mp4 = os.path.join(root, "out.mp4")
+        model_zoo.load_ltxv_model = timed("load", real[0])
+        ck.save_quantized_model = timed("save_quantized", real[1])
+        orch.LTXVideoGenerator.generate = timed("generate", real[2])
+        torch.cuda.empty_cache()
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        cli.main(["--prompt", "a red fox runs through fresh snow",
+                  "--model-mode", "ltxv_13B_distilled", "--ckpt-dir", root,
+                  "--height", str(height), "--width", str(width),
+                  "--video-length", str(frames), "--frame-rate", "25",
+                  "--image-start", png, "--seed", str(SEED),
+                  "--quantize-transformer", "--save-quantized",
+                  "--output-path", out_mp4])
+        total = time.perf_counter() - t0
+        launches = kernel_counts()
+    finally:
+        (model_zoo.load_ltxv_model, ck.save_quantized_model,
+         orch.LTXVideoGenerator.generate) = real
+    try:
+        stats = seen["load result"].load_stats
+        saved = seen["save_quantized result"]
+        saved_gb = os.path.getsize(saved) / 1e9
+        back = media.load_video(out_mp4)
+        assert back.shape == (frames, height, width, 3), back.shape
+        assert np.isfinite(back).all() and back.std() > 0
+        mp4_s = total - seen["load"] - seen["save_quantized"] - seen["generate"]
+        log(f"[load] read: transformer {stats['transformer_read_s']:.3f} s "
+            f"by the {stats['transformer_reader']} reader "
+            f"({stats['transformer_bytes'] / 1e9:.3f} GB), LoRA "
+            f"{stats['lora_read_s']:.3f} s ({stats['lora_reader']}), VAE "
+            f"{stats['vae_read_s']:.3f} s ({stats['vae_reader']}), upscaler "
+            f"{stats['upsampler_read_s']:.3f} s ({stats['upsampler_reader']})"
+            f"; to the card + dequantize there "
+            f"{stats['to_device_dequantize_s']:.3f} s; convert + assign "
+            f"{stats['convert_s']:.3f} s; LoRA merge "
+            f"{stats['lora_merge_s']:.3f} s ({stats['lora_layers']} "
+            f"layers); VAE to the card {stats['vae_to_device_s']:.3f} s; "
+            f"load_ltxv_model {seen['load']:.3f} s in all")
+        log(f"[load] --save-quantized {seen['save_quantized']:.3f} s, "
+            f"{saved_gb:.3f} GB ({os.path.basename(saved)}); request "
+            f"{width}x{height}x{frames} (ltxv-13b-0.9.7-distilled, "
+            f"int8_dynamic, auto) generate {seen['generate']:.3f} s, the "
+            f"rest of the CLI (quantize, mp4 write by {media.last_writer}) "
+            f"{mp4_s:.3f} s, cli.main {total:.3f} s; launches "
+            f"{ {k: n for k, n in launches.items() if n} }; the mp4 reads "
+            f"back as {back.shape[0]} frames of {back.shape[2]}x"
+            f"{back.shape[1]}")
+        assert launches["K2"] > 0 and launches["K4"] > 0, launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return launches
+
+
 # --------------------------------------------------------------------------
 # phase 7b: the LTX-13B image-to-video path
 # --------------------------------------------------------------------------
@@ -2550,7 +2880,8 @@ def kernel_counts():
             "K5": fp.norm_mod_int8_matmul.launches,
             "K6": fa.flash_attention_hp.launches,
             "K7": rr.ring_attention_rdma.launches,
-            "K8": mb.pipelined_attention.launches}
+            "K8": mb.pipelined_attention.launches,
+            "K1f": fa.flash_attention_fp32.launches}
 
 
 def reset_kernel_counts():
@@ -2563,6 +2894,8 @@ def reset_kernel_counts():
     fa.flash_attention_int8.launches = 0
     fa.flash_attention_int8.bounded_launches = 0
     fa.flash_attention_hp.launches = 0
+    fa.flash_attention_fp32.launches = 0
+    fa.flash_attention_fp32.by_variant = dict.fromkeys(fa.K1F_VARIANTS, 0)
     im.int8_linear.launches = 0
     fp.norm_mod_int8_matmul.launches = 0
     from ltx_video_gpupoor_tpu_torch.parallel import ring_rdma as rr
@@ -2576,16 +2909,16 @@ def reset_kernel_counts():
 
 # the kernels each tier must launch, and those it must not
 LTX13B_EXPECT = {"a: auto": (("K4", "K2"),
-                             ("K1", "K3", "K3q", "K5", "K6", "K7", "K8")),
+                             ("K1", "K3", "K3q", "K5", "K6", "K7", "K8", "K1f")),
                  "b: pallas_hp + fused prologue": (
                      ("K6", "K5", "K1", "K2"),
-                     ("K3", "K3q", "K4", "K7", "K8")),
+                     ("K3", "K3q", "K4", "K7", "K8", "K1f")),
                  "c: score bound": (("K3", "K2"),
                                     ("K1", "K3q", "K4", "K5", "K6", "K7",
-                                     "K8")),
+                                     "K8", "K1f")),
                  "d: pallas_int8 + score bound": (
                      ("K3q", "K2"),
-                     ("K1", "K3", "K4", "K5", "K6", "K7", "K8"))}
+                     ("K1", "K3", "K4", "K5", "K6", "K7", "K8", "K1f"))}
 
 
 def ltx13b_reference_check(cfg, dense_cut):
@@ -3435,6 +3768,8 @@ def main(argv=None) -> int:
     if args.kernels_only:
         return 0
     ltx_launches, generator, t5 = phase_path()
+    phase_teacache(generator, t5)
+    fp32_launches = phase_fp32(t5)
     if args.profile:
         profile_ltx(generator, t5)
     del generator            # free the LTX-2B DiT; the 13B path keeps T5
@@ -3447,6 +3782,8 @@ def main(argv=None) -> int:
     del generator13b, t5     # free the LTX models for the Wan path
     torch.cuda.empty_cache()
     log(f"[clock] LTX-13B path done at {time.perf_counter() - t_start:.0f} s")
+    phase_load()
+    log(f"[clock] load path done at {time.perf_counter() - t_start:.0f} s")
     phase_cli()
     wan_launches, pipe, umt5 = phase_wan()
     if args.profile:
@@ -3490,8 +3827,11 @@ def main(argv=None) -> int:
                      f"nsub={K8_JSON_NSUB})", K8_SOURCE, K8_REPLACES,
                      k8_launches, k8_err, times, info,
                      f"K8 nsub {K8_JSON_NSUB}"),
+        kernel_entry("flash_attention_fp32 (fp32 attention on the CUDA "
+                     "cores, FP32_POLICY)", K1F_SOURCE, K1F_REPLACES,
+                     fp32_launches["K1f"], k1f_err, times, info, "K1f self"),
     ]
-    kernels[-1]["ms_by_nsub"] = {
+    next(k for k in kernels if k["source"] == K8_SOURCE)["ms_by_nsub"] = {
         str(n): times[f"K8 nsub {n}"][0] for n in (1, 2, 4, 8)}
     assert all(k["launches"] > 0 for k in kernels), kernels
     log(json.dumps({"kernels": kernels}))

@@ -3,8 +3,10 @@
 Port of ``ltx_video_gpupoor_tpu/core/dtypes.py`` (``DtypePolicy``):
 params and activations in bfloat16; norms, adaLN modulation, timestep
 embeddings and softmax statistics always in float32 (the ops compute
-those in fp32 whatever the policy, so they need no field here). The
-CLI's ``policy_for`` joins with the CLI (ROADMAP queue 1 step 11).
+those in fp32 whatever the policy, so they need no field here).
+``FP32_POLICY`` runs on the card too: its attention takes K1f, the fp32
+kernel (``ops/flash_attention.py``), its int8 linears K2 on fp32
+activations. (JAX's ``policy_for`` is not ported: neither CLI reads it.)
 
 One difference from the JAX package: its pipelines hand the DiT float32
 latents, so its activations follow the latent dtype. The port casts the

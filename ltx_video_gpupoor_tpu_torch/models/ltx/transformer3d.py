@@ -18,8 +18,9 @@ and the q/k/v (and ``proj_in``) linears of a block run as kernel K5
 under the gates of the JAX block. Activations run in the policy's
 ``compute_dtype``; modulation and the timestep path stay fp32.
 
-Not ported yet: the ``ulysses:`` branch (:339-350), TeaCache
-(``previous_residual``) and the rope-on-heads layout; see ROADMAP.
+TeaCache's ``previous_residual`` / ``compute`` / ``return_residual``
+(:454-456, :529-551) skip the block stack on the host. Not ported yet: the
+``ulysses:`` branch (:339-350) and the rope-on-heads layout; see ROADMAP.
 """
 
 from __future__ import annotations
@@ -341,7 +342,16 @@ class LTXTransformer3D(nn.Module):
         skip_layer_strategy: Optional[str] = None,
         attn_mode: str = "auto",
         freqs: Optional[tuple] = None,
-    ) -> torch.Tensor:
+        previous_residual: Optional[torch.Tensor] = None,  # [B, S, D]
+        compute: bool = True,
+        return_residual: bool = False,
+    ):
+        """The velocity ``[B, S, C_out]`` (or ``(velocity, residual)`` with
+        ``return_residual``). TeaCache (JAX :454-456, :529-551): with a
+        ``previous_residual`` and ``compute=False`` the block stack is
+        skipped, so the step launches no block, and the previous step's
+        block-stack delta is added to this step's embedding; the residual
+        returned is ``x - x_in`` as the JAX function computes it."""
         cfg = self.cfg
         d = cfg.inner_dim
         b, s, _ = latents.shape
@@ -376,21 +386,30 @@ class LTXTransformer3D(nn.Module):
         q_seg = torch.ones(b, s, dtype=torch.int32, device=dev)
         if skip_layer_mask is not None:
             skip_layer_mask = torch.as_tensor(skip_layer_mask).cpu()
-        for i, blk in enumerate(self.blocks):
-            # a layer whose streams all keep needs no blend (x*1 + y*0 == x)
-            skip = None
-            if skip_layer_mask is not None and skip_layer_strategy \
-                    and bool((skip_layer_mask[i] != 1).any()):
-                skip = skip_layer_mask[i].to(dev)
-            x = blk(x, ctx, kv_seg.contiguous(), q_seg, ada, freqs, skip,
-                    skip_layer_strategy, attn_mode)
+        x_in = x
+        if previous_residual is None or compute:
+            for i, blk in enumerate(self.blocks):
+                # a layer whose streams all keep needs no blend (x*1 + y*0
+                # == x)
+                skip = None
+                if skip_layer_mask is not None and skip_layer_strategy \
+                        and bool((skip_layer_mask[i] != 1).any()):
+                    skip = skip_layer_mask[i].to(dev)
+                x = blk(x, ctx, kv_seg.contiguous(), q_seg, ada, freqs, skip,
+                        skip_layer_strategy, attn_mode)
+        else:
+            x = x + previous_residual.to(x.dtype)
+        residual = x - x_in if return_residual else None
 
         table = self.scale_shift_table.float()
         vals = table[None, None] + embedded[:, :, None]      # [B, G, 2, D]
         shift = vals[:, :, 0].to(x.dtype)
         scale = vals[:, :, 1].to(x.dtype)
         x = _modulate(layer_norm(x, eps=1e-6), scale, shift)
-        return self.proj_out(x)
+        out = self.proj_out(x)
+        if return_residual:
+            return out, residual
+        return out
 
 
 @torch.no_grad()

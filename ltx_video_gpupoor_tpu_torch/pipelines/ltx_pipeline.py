@@ -18,9 +18,10 @@ Randomness comes from one explicit ``torch.Generator`` on the latents'
 device: the initial noise (unless ``noise=`` is given), the noise of each
 extra conditioning token block, then per step the conditioning-noise
 refresh and the stochastic sampling noise, and last the decode noise,
-drawn in that order. Not ported yet: TeaCache, sequence parallelism, the
-multi-chip tiled decode and the interrupt hooks (ROADMAP queue 1 steps
-11 and 15).
+drawn in that order. TeaCache: ``ltx_teacache_schedule`` (:384) and
+``denoise``'s ``teacache_mask`` with the residual carried across steps
+(:509-511, :548-574). Not ported yet: sequence parallelism and the
+multi-chip tiled decode (ROADMAP queue 1 step 15).
 """
 
 from __future__ import annotations
@@ -37,8 +38,10 @@ from ..models.ltx.transformer3d import (
     LTXTransformer3D,
     SkipLayerStrategy,
     compute_freqs,
+    timestep_embedding,
 )
 from ..schedulers import rf
+from . import teacache
 
 
 @dataclasses.dataclass
@@ -239,6 +242,26 @@ def build_guidance_schedule(
 
 
 @torch.no_grad()
+@torch.no_grad()
+def ltx_teacache_schedule(transformer: LTXTransformer3D, timesteps,
+                          multiplier: float, start_step: int = 0
+                          ) -> np.ndarray:
+    """The per-step compute mask of the LTX DiT (JAX :384-411): the
+    adaLN-single timestep embeddings of the schedule, through the model's
+    own ``emb_linear_1`` / silu / ``emb_linear_2``, calibrated by
+    :func:`.teacache.calibrate_mask`. Computed on the host side of the
+    loop: the skip decisions depend only on the timestep list."""
+    cfg = transformer.cfg
+    dev = transformer.proj_out.bias.device
+    t = torch.as_tensor(np.asarray(timesteps, np.float32)
+                        * cfg.timestep_scale_multiplier, device=dev)
+    emb = timestep_embedding(t, cfg.frequency_embedding_size)
+    ada = transformer.adaln
+    e = ada.emb_linear_2(torch.nn.functional.silu(ada.emb_linear_1(emb)))
+    e_list = e.float().cpu().numpy()
+    return teacache.calibrate_mask(e_list, multiplier, start_step=start_step)
+
+
 def denoise(
     transformer: LTXTransformer3D,
     latents: torch.Tensor,            # [1, N, C] patchified tokens (noised)
@@ -254,11 +277,15 @@ def denoise(
     attn_mode: str = "auto",
     init_latents: Optional[torch.Tensor] = None,
     image_cond_noise_scale: float = 0.0,
+    teacache_mask: Optional[np.ndarray] = None,   # [steps] bool compute
     interrupt_flag=None,
     progress_callback=None,
 ) -> torch.Tensor:
     """The denoise loop; the guidance streams are batch rows
     ``[uncond, cond, perturbed]`` of one transformer call per step.
+    ``teacache_mask`` (:func:`ltx_teacache_schedule`): a step whose entry
+    is False skips the block stack and reuses the residual carried from
+    the last step (JAX :509-511, :562-574); step 0 always computes.
     With ``image_cond_noise_scale`` > 0, every step first re-noises the
     fully conditioned tokens around ``init_latents`` (the latents as they
     entered, by default) by ``scale * noise * t**2``. ``interrupt_flag``
@@ -299,6 +326,12 @@ def denoise(
 
     if init_latents is None:
         init_latents = latents
+    residual = None
+    if teacache_mask is not None:
+        teacache_mask = np.asarray(teacache_mask, bool)
+        if len(teacache_mask) != len(ts_host) or not teacache_mask[0]:
+            raise ValueError("teacache_mask: one entry a step, the first "
+                             "True")
 
     for i in range(len(ts_host)):
         check(interrupt_flag)
@@ -315,12 +348,16 @@ def denoise(
                                     tokens_per_group)[:, :, 0]     # [1, G]
         x = latents.expand(num_conds, -1, -1)
         tg = t_groups.expand(num_conds, -1)
-        pred = transformer(
-            x, coords, tg, ctx, ctx_mask,
-            skip_layer_mask=skip_masks[i],
-            skip_layer_strategy=schedule.skip_layer_strategy,
-            attn_mode=attn_mode, freqs=freqs,
-        ).float()
+        kw = dict(skip_layer_mask=skip_masks[i],
+                  skip_layer_strategy=schedule.skip_layer_strategy,
+                  attn_mode=attn_mode, freqs=freqs)
+        if teacache_mask is None:
+            pred = transformer(x, coords, tg, ctx, ctx_mask, **kw)
+        else:
+            pred, residual = transformer(
+                x, coords, tg, ctx, ctx_mask, previous_residual=residual,
+                compute=bool(teacache_mask[i]), return_residual=True, **kw)
+        pred = pred.float()
 
         streams = pred.split(1, dim=0)
         g = float(schedule.guidance_scale[i])
@@ -433,14 +470,16 @@ class LTXPipeline:
         decode_timestep: float = 0.0,
         decode_noise_scale: Optional[float] = None,
         attn_mode: str = "auto",
+        teacache_multiplier: float = 0.0,
         noise: Optional[torch.Tensor] = None,
         interrupt_flag=None,
         progress_callback=None,
     ):
         """Returns the latent grid ``[1, F', H', W', C]`` fp32
         (``output_type="latent"``) or pixels ``[1, F, H, W, 3]``.
-        ``interrupt_flag`` and ``progress_callback`` go to
-        :func:`denoise`."""
+        ``teacache_multiplier`` above 1.0 skips steps by
+        :func:`ltx_teacache_schedule` (JAX :850-866). ``interrupt_flag``
+        and ``progress_callback`` go to :func:`denoise`."""
         from ..utils.observability import stage as _stage
 
         dev = self.transformer.proj_out.bias.device
@@ -520,6 +559,10 @@ class LTXPipeline:
             rescaling_scale=rescaling_scale, skip_block_list=skip_block_list,
             guidance_timesteps=guidance_timesteps,
             skip_layer_strategy=skip_layer_strategy)
+        tc_mask = None
+        if teacache_multiplier and teacache_multiplier > 1.0:
+            tc_mask = ltx_teacache_schedule(self.transformer, ts,
+                                            teacache_multiplier)
         with _stage("denoise", sync=lambda: latents):
             latents = denoise(
                 self.transformer, tokens, cond_mask_tokens, pixel_coords, ts,
@@ -528,6 +571,7 @@ class LTXPipeline:
                 stochastic_sampling=stochastic_sampling, attn_mode=attn_mode,
                 init_latents=tokens,
                 image_cond_noise_scale=image_cond_noise_scale,
+                teacache_mask=tc_mask,
                 interrupt_flag=interrupt_flag,
                 progress_callback=progress_callback)
         if num_extra_tokens:

@@ -3,14 +3,19 @@
 Port of ``ltx_video_gpupoor_tpu/serving/cli.py``: ``parse_args`` (:20, the
 same flags and defaults, pinned by ``tests/test_torch_serving.py``),
 ``encode_or_hash`` (:97), ``hash_prompt_embeds`` (:109), ``infer`` (:125)
-and ``main``. ``--demo`` runs the full surface with tiny random weights;
-what needs a file from outside or a module not ported yet raises
-``NotImplementedError`` naming its ROADMAP step: real checkpoints (every
-run without ``--demo``), ``--enhance-prompt``, ``--save-quantized``,
-``--teacache``, the ``--int8-mode`` values other than ``dynamic``.
+and ``main``. Without ``--demo`` the LTX stack is loaded from the files in
+``--ckpt-dir`` (``model_zoo.load_ltxv_model``; nothing is downloaded);
+``--demo`` runs the full surface with tiny random weights. ``--teacache``
+skips steps, ``--save-quantized`` writes the transformer as a quanto int8
+file into ``--ckpt-dir``, and the frames go to the native h264 writer as
+planar YUV420 where it builds. What needs a module not ported yet raises
+``NotImplementedError`` naming its ROADMAP step: ``--enhance-prompt`` and
+the ``--int8-mode`` values other than ``dynamic``.
 
     python3 -m ltx_video_gpupoor_tpu_torch.serving.cli --demo \\
         --prompt "a red fox" --height 256 --width 256 --video-length 9
+    python3 -m ltx_video_gpupoor_tpu_torch.serving.cli --prompt "a red fox" \\
+        --model-mode ltxv_13B_distilled --ckpt-dir ckpts --quantize-transformer
 
 It runs on the card; ``--device cpu`` runs on the CPU with the kernels'
 plain versions.
@@ -63,7 +68,7 @@ def parse_args(argv=None):
     p.add_argument(
         "--enhance-prompt", action="store_true",
         help="cinematic prompt rewrite before encoding (Florence-2 "
-        "caption + LLM rewrite); not ported yet (ROADMAP queue 1 step 11)",
+        "caption + LLM rewrite); not ported yet (ROADMAP queue 1 step 14)",
     )
     p.add_argument("--device", type=str, default=None)
     p.add_argument("--VAE-tile-size", type=int, default=None)
@@ -101,9 +106,10 @@ def parse_args(argv=None):
 def encode_or_hash(pipe, prompt: str, negative: str):
     """The text conditioning of a request: ONE definition shared by the
     CLI and the HTTP server, so the encode path (and its sequence length)
-    cannot diverge between the two. No tokenizer or T5 checkpoint is
-    loaded by this package yet (ROADMAP queue 1 step 11), so it is always
-    the deterministic demo hash embeddings."""
+    cannot diverge between the two. The tokenizer files are not in the
+    repository and, as in the JAX package's loader, none is loaded (a T5
+    checkpoint may be: ``LoadedModel.t5``), so it is always the
+    deterministic demo hash embeddings."""
     return hash_prompt_embeds(
         prompt, negative, 128, pipe.transformer.cfg.caption_channels)
 
@@ -126,7 +132,7 @@ def hash_prompt_embeds(prompt: str, negative: str, seq_len: int, dim: int):
     return emb, mask
 
 
-def _not_ported(what: str, step: str = "ROADMAP queue 1 step 11"):
+def _not_ported(what: str, step: str):
     raise NotImplementedError(f"{what}: {step}")
 
 
@@ -138,11 +144,8 @@ def infer(args) -> str:
     if args.attention is not None:
         set_attention_mode(args.attention)
     if args.enhance_prompt:
-        _not_ported("--enhance-prompt (prompt enhancers)")
-    if args.save_quantized:
-        _not_ported("--save-quantized (core/checkpoint.py)")
-    if args.teacache:
-        _not_ported("--teacache")
+        _not_ported("--enhance-prompt (prompt enhancers)",
+                    "ROADMAP queue 1 step 14")
     if args.quantize_transformer and args.int8_mode != "dynamic":
         _not_ported(f"--int8-mode {args.int8_mode}",
                     "ROADMAP queue 1 step 12")
@@ -152,11 +155,28 @@ def infer(args) -> str:
     else:
         tf_file, te_file = model_zoo.select_model_files(
             args.model_mode, args.quantization, args.transformer_dtype_policy)
+        try:
+            from . import downloads
+
+            downloads.prepare_models_and_enhancers(te_file,
+                                                   ckpt_dir=args.ckpt_dir)
+        except Exception as e:
+            # a partly provisioned directory goes on to the loader, which
+            # names exactly the file that is missing
+            print(f"checkpoint download skipped: {e}")
         model = model_zoo.load_ltxv_model(
-            tf_file, args.model_mode, args.ckpt_dir, te_file)
+            tf_file, args.model_mode, args.ckpt_dir, te_file,
+            device=args.device)
 
     gen = model.generator
     pipe = gen.pipeline
+    if args.save_quantized:
+        from ..core.checkpoint import save_quantized_model
+
+        out = save_quantized_model(
+            os.path.join(args.ckpt_dir, f"{args.model_mode}"),
+            pipe.transformer)
+        print(f"saved quantized transformer: {out}")
     if args.quantize_transformer:
         from ..ops.quant import quantize_params
 
@@ -180,6 +200,11 @@ def infer(args) -> str:
         input_video = media_utils.load_video(args.video_source)
 
     embeds, mask = encode_or_hash(pipe, args.prompt, args.negative_prompt)
+    from ..utils import native_codec
+
+    # planar-YUV420 fetch halves the host-transfer bytes when the native
+    # writer can take the planes directly (JAX :209-213)
+    out_type = "yuv420" if native_codec.available() else "pixels"
     frames = gen.generate(
         embeds, mask,
         height=args.height, width=args.width,
@@ -190,9 +215,10 @@ def infer(args) -> str:
         image_cond_noise_scale=args.image_cond_noise_scale,
         fit_into_canvas=args.fit_into_canvas,
         bucket_resolution=args.bucket_resolution,
+        teacache_multiplier=args.teacache,
         sampling_steps=args.num_inference_steps,
         strength=args.strength,
-        output_type="pixels",
+        output_type=out_type,
     )
 
     out_path = args.output_path

@@ -8,8 +8,9 @@ start of a video-to-video run (:198-275), the ``"base"`` branch
 (:364-391) and the two-pass multi-scale branch (:312-363), the bilinear
 resize back to the padded size (:395-405), uint8 ``[F, H, W, 3]`` frames
 or planar YUV420 (``_rgb_to_yuv420``, :36), resolution bucketing (:198-212)
-and the ambient stage marks (``utils/observability.py::stage``). TeaCache
-raises ``NotImplementedError`` (ROADMAP queue 1 step 11).
+and the ambient stage marks (``utils/observability.py::stage``).
+``teacache_multiplier`` goes to both multi-scale passes, as in JAX
+(:176, :278).
 """
 
 from __future__ import annotations
@@ -181,14 +182,12 @@ class LTXVideoGenerator:
         ``noise`` ([1, tokens, C] fp32) replaces the initial noise draw of
         the base pipeline, ``noise_pass1`` / ``noise_pass2`` those of the
         two multi-scale passes. ``attn_mode`` selects the attention tier
-        (``ops.attention``). ``on_stage(name, value)``, if given, is
+        (``ops.attention``); ``teacache_multiplier`` above 1.0 skips
+        steps of every pass (TeaCache). ``on_stage(name, value)``, if given, is
         called as each stage starts: ``("denoise", None)``, in the
         multi-scale branch also ``("pass1", None)``, ``("upsample",
         latents)`` and ``("pass2", latents)``, then ``("decode", latent
         grid)`` and ``("postprocess", decoded pixels in [-1, 1])``."""
-        if teacache_multiplier > 0:
-            raise NotImplementedError(
-                "teacache_multiplier: ROADMAP queue 1 step 11")
         if output_type not in ("pixels", "yuv420", "latent"):
             raise ValueError(f"unknown output_type {output_type!r}")
         cfg = dict(self.pipeline_config)
@@ -250,6 +249,7 @@ class LTXVideoGenerator:
                     media_utils.pad_media(img, padding), fp - 1, 1.0))
 
         common = dict(
+            teacache_multiplier=teacache_multiplier,
             frame_rate=frame_rate,
             conditioning_items=conditioning,
             image_cond_noise_scale=(image_cond_noise_scale if conditioning

@@ -15,8 +15,11 @@ fields, status codes and JSON:
   ``save_video``);
 - the model preloaded at startup from the environment: ``DEMO_MODEL``
   builds the demo model; ``MODEL_MODE``, ``QUANTIZATION`` and
-  ``TRANSFORMER_DTYPE_POLICY`` name real checkpoints, whose loader is not
-  ported yet (ROADMAP queue 1 step 11); ``HTTPS`` rewrites the URL.
+  ``TRANSFORMER_DTYPE_POLICY`` name checkpoint files in the published
+  layout under ``CKPT_DIR`` (``model_zoo.load_ltxv_model``); ``HTTPS``
+  rewrites the URL;
+- the frames fetched as planar YUV420 when the native h264 writer is
+  available (``utils/native_codec.py``), as RGB otherwise.
 
 flask is optional: the stdlib ``http.server`` fallback implements the same
 routes. ``python3 -m ltx_video_gpupoor_tpu_torch.serving.server`` serves on
@@ -108,7 +111,7 @@ class InferenceService:
             pipe = gen.pipeline
             # ``enhance_prompt`` (a superset field) passes the prompt
             # through unchanged, as the JAX server does when no enhancer
-            # directory is configured (the enhancers: ROADMAP step 11)
+            # directory is configured (the enhancers: ROADMAP step 14)
             prompt = data["prompt"]
             from ..utils import media as media_utils
             from ..utils.observability import (
@@ -121,6 +124,11 @@ class InferenceService:
             with timer.stage("encode_prompt"):
                 embeds, mask = encode_or_hash(
                     pipe, prompt, data["negative_prompt"])
+            from ..utils import native_codec
+
+            # planar-YUV420 fetch when the native writer can take it: half
+            # the host-fetch bytes of uint8 RGB (JAX :132-136)
+            out_type = "yuv420" if native_codec.available() else "pixels"
             # serialize vs the warm-up and other requests
             with self.gen_lock, collect_stages(timer), stage("generate"):
                 frames = gen.generate(
@@ -130,7 +138,7 @@ class InferenceService:
                     frame_rate=int(data["frame_rate"]),
                     sampling_steps=int(data["num_inference_steps"]),
                     image_start=image_start,
-                    output_type="pixels",
+                    output_type=out_type,
                 )
             name = f"video_{uuid.uuid4().hex[:12]}.mp4"
             out_path = os.path.join(self.outputs_dir, name)

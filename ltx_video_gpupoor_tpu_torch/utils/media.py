@@ -11,13 +11,14 @@ tensors alike), ``resize_image`` (:79), ``resize_and_crop_image`` (:95),
 ``prepare_conditioning_image`` (:224), ``yuv420_to_rgb`` (:242),
 ``save_video`` (:257) and ``load_video`` (:322).
 
-``crf_compress`` keeps the ffmpeg route and the cv2 JPEG approximation;
-the JAX package's preferred route over its native libx264 shim
-(``runtime/h264_codec.cpp``) is not ported (ROADMAP queue 1 step 11), so
-on a machine with neither an ffmpeg binary nor cv2 the frame passes
-through unchanged. ``save_video`` and ``load_video`` keep the imageio
-route (tried only where imageio and an ffmpeg backend exist) and the
-OpenCV ``mp4v`` route; the native shim's routes wait with it.
+Every codec route tries the native libx264 shim first
+(``utils/native_codec.py`` over ``runtime/h264_codec.cpp``), as the JAX
+package does: ``crf_compress`` then an ffmpeg binary, then the cv2 JPEG
+approximation, then the identity; ``save_video`` takes the orchestrator's
+planar-YUV420 tuple straight to the shim, then imageio (where it and an
+ffmpeg backend exist), then OpenCV's ``mp4v``, and records the writer
+that ran in ``last_writer``; ``load_video`` reads through the
+shim, then imageio, then OpenCV.
 """
 
 from __future__ import annotations
@@ -29,6 +30,9 @@ import tempfile
 from typing import Optional
 
 import numpy as np
+
+# the writer that wrote the last mp4 (save_video)
+last_writer: Optional[str] = None
 
 
 def calculate_new_dimensions(
@@ -175,10 +179,18 @@ def crf_compress(image: np.ndarray, crf: int = 29) -> np.ndarray:
     matching the VAE's training-data compression artifacts
     (``crf_compressor.py:34-50``). Input/output [H, W, 3] float in [0, 1].
 
-    An ffmpeg binary if one exists; else a JPEG round-trip approximation
-    through cv2; else the identity. (The route over the native libx264
-    shim, ``runtime/h264_codec.cpp``, is ROADMAP queue 1 step 11.)
+    The native libavcodec/libx264 shim where it builds (the artifact
+    distribution the VAE was trained on); then an ffmpeg binary if one
+    exists; else a JPEG round-trip approximation through cv2; else the
+    identity.
     """
+    from . import native_codec
+
+    if native_codec.available():
+        arr = np.clip(image * 255.0, 0, 255).astype(np.uint8)
+        out = native_codec.crf_roundtrip(arr, crf)
+        if out is not None:
+            return out.astype(np.float32) / 255.0
     ffmpeg = _ffmpeg()
     if ffmpeg is None:
         # no h264 encoder in this image: approximate the compression
@@ -261,14 +273,29 @@ def save_video(frames, path: str, fps: float = 30.0, retries: int = 5) -> str:
 
     frames: [F, H, W, 3] float in [-1, 1] or uint8, or a planar-YUV420
     tuple ``(y, u, v)`` from the orchestrator's ``output_type="yuv420"``
-    (converted back to RGB here: no writer of this package takes planes).
-    imageio with libx264 where it and an ffmpeg backend exist, else
-    OpenCV's ``mp4v``."""
+    (written as it is by the native shim; converted back to RGB for the
+    other writers). The native libx264 shim where it builds, then imageio
+    with libx264 where it and an ffmpeg backend exist, else OpenCV's
+    ``mp4v``; the module's ``last_writer`` names the one that wrote."""
+    global last_writer
+    from . import native_codec
+
+    err = None
     if isinstance(frames, tuple):
-        frames = yuv420_to_rgb(*frames)
+        y, u, v = frames
+        if native_codec.available():
+            for _ in range(retries):
+                if native_codec.write_mp4_yuv(path, y, u, v, fps=fps, crf=18):
+                    last_writer = "native h264 (yuv420)"
+                    return path
+        frames = yuv420_to_rgb(y, u, v)
     if frames.dtype != np.uint8:
         frames = np.clip((frames + 1.0) * 127.5, 0, 255).astype(np.uint8)
-    err = None
+    if native_codec.available():
+        for _ in range(retries):
+            if native_codec.write_mp4(path, frames, fps=fps, crf=18):
+                last_writer = "native h264 (rgb)"
+                return path
     for _ in range(retries):
         try:
             import imageio
@@ -279,6 +306,7 @@ def save_video(frames, path: str, fps: float = 30.0, retries: int = 5) -> str:
             ) as writer:
                 for frame in frames:
                     writer.append_data(frame)
+            last_writer = "imageio libx264"
             return path
         except ImportError as e:
             err = e
@@ -296,6 +324,7 @@ def save_video(frames, path: str, fps: float = 30.0, retries: int = 5) -> str:
             for frame in frames:
                 writer.write(np.ascontiguousarray(frame[..., ::-1]))
             writer.release()
+            last_writer = "cv2 mp4v"
             return path
     except Exception as e:
         err = e
@@ -304,6 +333,12 @@ def save_video(frames, path: str, fps: float = 30.0, retries: int = 5) -> str:
 
 def load_video(path: str) -> np.ndarray:
     """Read a video into [F, H, W, 3] float32 in [-1, 1]."""
+    from . import native_codec
+
+    if native_codec.available():
+        arr = native_codec.read_video(path)
+        if arr is not None:
+            return arr.astype(np.float32) / 127.5 - 1.0
     try:
         import imageio
 

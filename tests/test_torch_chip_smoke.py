@@ -166,11 +166,13 @@ def _stubbed_main(monkeypatch, capsys, argv):
         "phase_build": 1.0, "phase_k1": 0.0, "phase_k2": 0.0,
         "phase_k4": (0.0, 0.0), "phase_k3": 0.0, "phase_k3q": 0.0,
         "phase_k5": 0.0,
-        "phase_k6": 0.0, "phase_timing": (timed, info),
+        "phase_k6": 0.0, "phase_k1f": 0.0, "phase_timing": (timed, info),
+        "time_k1f": None,
         "phase_k8": (0.0, 1), "phase_k7": (0.0, 1),
         "phase_path": ([ones], object(), object()),
+        "phase_teacache": None, "phase_fp32": ones,
         "phase_ltx13b": (collections.defaultdict(lambda: ones), object()),
-        "phase_cli": None,
+        "phase_load": ones, "phase_cli": None,
         "phase_wan": ([ones] * len(chip_smoke.WAN_REQUESTS), object(),
                       object()),
     }
@@ -190,8 +192,8 @@ def _stubbed_main(monkeypatch, capsys, argv):
 
 KERNEL_PHASES = ["phase_device", "phase_build", "phase_k1", "phase_k2",
                  "phase_k4", "phase_k3", "phase_k3q", "phase_k5",
-                 "phase_k6",
-                 "phase_timing", "phase_k8", "phase_k7"]
+                 "phase_k6", "phase_k1f",
+                 "phase_timing", "time_k1f", "phase_k8", "phase_k7"]
 
 
 def test_kernels_only_stops_before_the_paths(monkeypatch, capsys):
@@ -205,12 +207,13 @@ def test_default_run_drives_every_path_and_ends_with_the_result(
         monkeypatch, capsys):
     code, ran, lines = _stubbed_main(monkeypatch, capsys, [])
     assert code == 0
-    assert ran == KERNEL_PHASES + ["phase_path", "phase_ltx13b", "phase_cli",
-                                   "phase_wan"]
+    assert ran == KERNEL_PHASES + ["phase_path", "phase_teacache",
+                                   "phase_fp32", "phase_ltx13b",
+                                   "phase_load", "phase_cli", "phase_wan"]
     assert json.loads(lines[-1]) == {"ok": True, "device": {
         "platform": "gpu", "kind": "a card", "count": 1}}
     kernels = json.loads(lines[-2])["kernels"]
-    assert len(kernels) == 10
+    assert len(kernels) == 11
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert all(keys <= set(k) for k in kernels)

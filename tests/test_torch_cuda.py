@@ -137,7 +137,8 @@ def test_k1_rejects_what_it_does_not_take(cuda):
     q = torch.zeros(1, 1, 8, 32, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="head dims"):
         fa.flash_attention(q, q, q)
-    q = torch.zeros(1, 1, 8, 64, device=cuda)
+    # fp16 (fp32 is FP32_POLICY's, which takes K1f)
+    q = torch.zeros(1, 1, 8, 64, dtype=torch.float16, device=cuda)
     with pytest.raises(ValueError, match="bfloat16"):
         fa.flash_attention(q, q, q)
 
@@ -263,7 +264,7 @@ def test_k4_rejects_what_it_does_not_take(cuda):
     q = torch.zeros(1, 1, 8, 32, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="head dims"):
         fa.flash_attention_int8(q, q, q)
-    q = torch.zeros(1, 1, 8, 128, device=cuda)
+    q = torch.zeros(1, 1, 8, 128, dtype=torch.float16, device=cuda)
     with pytest.raises(ValueError, match="bfloat16"):
         fa.flash_attention_int8(q, q, q)
     q = torch.zeros(1, 1, 8, 128, dtype=torch.bfloat16, device=cuda)
@@ -430,7 +431,7 @@ def test_k5_matches_plain(cuda, m, k, n, groups, bias):
 
 
 def test_k5_rejects_what_it_does_not_take(cuda):
-    x = torch.zeros(32, 64, device=cuda)
+    x = torch.zeros(32, 64, dtype=torch.float16, device=cuda)
     w8 = torch.zeros(16, 64, dtype=torch.int8, device=cuda)
     ws = torch.ones(16, device=cuda)
     with pytest.raises(ValueError, match="bf16"):
@@ -543,3 +544,95 @@ def test_k7_rejects_what_it_does_not_take(cuda):
         rr.ring_attention_rdma_sharded(big, big, big, 2)
     with pytest.raises(ValueError, match="at most"):
         rr.ring_attention_rdma_sharded(q, q, q, 32)
+
+
+# K1f: fp32 attention on the CUDA cores (FP32_POLICY), every variant and
+# mask kind, at atol = rtol = 2e-5 (the JAX tests' fp32 tolerance); the
+# QK+PV variant against the plain version stepped by K1f's 64-row kv tile
+# within int8_tile_bound
+@pytest.mark.parametrize("variant", ["exact", "bounded", "qk8",
+                                     "qk8_bounded", "pv8"])
+@pytest.mark.parametrize("d,sq,skv,seg,causal,kv_valid", [
+    (64, 300, 300, False, False, None), (128, 256, 256, False, False, None),
+    (64, 200, 333, False, False, 250), (128, 333, 333, False, True, None),
+    (64, 150, 70, True, False, None), (128, 128, 128, False, False, 0)])
+def test_k1f_matches_plain(cuda, variant, d, sq, skv, seg, causal, kv_valid):
+    gen = torch.Generator(device=cuda).manual_seed(d + sq + skv)
+    q, k, v = (_randn(gen, 2, 3, n, d) for n in (sq, skv, skv))
+    segs = (None, None)
+    if seg:
+        q_seg = torch.ones(2, sq, dtype=torch.int32, device=cuda)
+        q_seg[0, 5] = 2
+        kv_seg = torch.zeros(2, skv, dtype=torch.int32, device=cuda)
+        kv_seg[0, :40] = 1
+        kv_seg[1, :] = 1
+        segs = (q_seg, kv_seg)
+    kw = dict(causal=causal, kv_valid=kv_valid)
+    bound = 20.0 if "bounded" in variant else None
+    before = dict(fa.flash_attention_fp32.by_variant)
+    if variant in ("exact", "bounded"):
+        out = fa.flash_attention(q, k, v, *segs, score_bound=bound, **kw)
+        plain = (fa.reference_attention(q.cpu(), k.cpu(), v.cpu(),
+                                        *(s.cpu() if s is not None else None
+                                          for s in segs), **kw)
+                 if bound is None else fa.bounded_attention_plain(
+                     q.cpu(), k.cpu(), v.cpu(),
+                     *(s.cpu() if s is not None else None for s in segs),
+                     score_bound=bound, **kw))
+    else:
+        ops = fa.int8_prologue(q, k, v, pv_int8=variant == "pv8")
+        out = fa.int8_attention_fp32(ops, *segs, score_bound=bound, **kw)
+        plain = fa.int8_attention_plain(
+            ops, *segs, score_bound=bound,
+            block_kv=fa.K1F_TILE_KV if variant == "pv8" else None, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fp32.by_variant[variant] == before[variant] + 1
+    assert out.dtype == torch.float32
+    plain = plain.to(cuda)
+    if variant == "pv8":
+        bnd = fa.int8_tile_bound(ops, plain, *segs, **kw)
+        assert ((out - plain).abs() <= bnd).all()
+    else:
+        torch.testing.assert_close(out, plain, atol=2e-5, rtol=2e-5)
+    if seg:
+        assert float(out[0, :, 5].abs().max()) == 0.0
+
+
+def test_k1f_reads_the_head_packed_layout(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    qkv = _randn(gen, 2, 300, 3 * 4 * 64)
+    q, k, v = qkv.chunk(3, dim=-1)
+    out = fa.flash_attention_hp(q, k, v, heads=4, kv_valid=250)
+    plain = fa.flash_attention_hp_plain(q.cpu(), k.cpu(), v.cpu(), heads=4,
+                                        kv_valid=250)
+    torch.testing.assert_close(out.cpu(), plain, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("mode", ["auto", "pallas", "pallas_hp",
+                                  "pallas_int8", "pallas_int8pv"])
+@pytest.mark.parametrize("d,bound", [(64, None), (128, None), (128, 30.0)])
+def test_fp32_tiers_launch_what_kernel_route_names(cuda, mode, d, bound):
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v = (_randn(gen, 1, 2, 200, d) for _ in range(3))
+    want = attn.kernel_route(mode, dtype=torch.float32, head_dim=d,
+                             score_bound=bound)
+    before = dict(fa.flash_attention_fp32.by_variant)
+    attn.attention(q, k, v, mode=mode, score_bound=bound)
+    torch.cuda.synchronize()
+    moved = [f"K1f {key}" for key, n in
+             fa.flash_attention_fp32.by_variant.items() if n != before[key]]
+    assert moved == [want]
+
+
+def test_k5_fp32_row_instance_matches_plain(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    m, kk, n, g = 96, 256, 192, 3
+    x = _randn(gen, m, kk) * 2
+    scale, shift = (_randn(gen, g, kk) * 0.3 for _ in range(2))
+    w = quantize_weights(_randn(gen, n, kk) * kk ** -0.5)
+    out = fp.norm_mod_int8_matmul(x, scale, shift, w.w_int8, w.scale,
+                                  rows_per_group=m // g)
+    plain = fp.norm_mod_int8_matmul_plain(x, scale, shift, w.w_int8, w.scale,
+                                          rows_per_group=m // g)
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, plain, rtol=1e-2, atol=1e-5)

@@ -405,13 +405,16 @@ def test_media_helpers_equal_jax(canvas, image, fit):
 
 def test_crf_compress_routes(monkeypatch):
     """Without an ffmpeg binary the cv2 JPEG route answers, as in the JAX
-    package once its native codec is out of the way; the result stays in
-    [0, 1] and close to the frame."""
+    package, once the native codec of both packages is out of the way (its
+    route: tests/test_torch_native_codec.py); the result stays in [0, 1]
+    and close to the frame."""
     from ltx_video_gpupoor_tpu.utils import native_codec
+    from ltx_video_gpupoor_tpu_torch.utils import native_codec as tnative
 
     rng = np.random.default_rng(15)
     img = np.clip(rng.normal(0.5, 0.05, (32, 48, 3)), 0, 1).astype(np.float32)
     monkeypatch.setattr(native_codec, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
     monkeypatch.setattr(tmedia, "_ffmpeg", lambda: None)
     monkeypatch.setattr(jmedia, "_ffmpeg", lambda: None)
     out = tmedia.crf_compress(img)

@@ -170,8 +170,9 @@ def test_slice_bf16_compute_matches_jax(weights, output_type):
 
 
 def test_generator_rejects_unported_branches(weights):
-    """TeaCache raises with its ROADMAP step and an unknown output type
-    is refused. ``yuv420`` and resolution bucketing are ported
+    """An unknown output type is refused. TeaCache is ported
+    (tests/test_torch_teacache.py); ``yuv420`` and resolution bucketing
+    are ported
     (tests/test_torch_serving.py), as are image conditioning and the
     multi-scale configs (tests/test_torch_ltx13b.py): what those still
     refuse is a VAE without its encoder and a multi-scale config without
@@ -182,8 +183,6 @@ def test_generator_rejects_unported_branches(weights):
                                  FP32_POLICY)
     gen = torch_orch.LTXVideoGenerator(tpipe.LTXPipeline(model, vae))
     emb, mask = torch.zeros(2, 4, 32), torch.ones(2, 4)
-    with pytest.raises(NotImplementedError, match="step 11"):
-        gen.generate(emb, mask, teacache_multiplier=1.5)
     with pytest.raises(ValueError, match="output_type"):
         gen.generate(emb, mask, output_type="yuv444")
     with pytest.raises(ValueError, match="encoder"):
