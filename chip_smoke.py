@@ -2606,6 +2606,7 @@ def phase_fp32(t5):
     from ltx_video_gpupoor_tpu_torch.core.dtypes import FP32_POLICY
     from ltx_video_gpupoor_tpu_torch.models.ltx import transformer3d as tf
     from ltx_video_gpupoor_tpu_torch.models.ltx import vae as vaem
+    from ltx_video_gpupoor_tpu_torch.ops import flash_attention as fa
     from ltx_video_gpupoor_tpu_torch.ops.attention import set_attention_mode
     from ltx_video_gpupoor_tpu_torch.ops.quant import quantize_params
     from ltx_video_gpupoor_tpu_torch.pipelines.ltx_pipeline import LTXPipeline
@@ -2640,11 +2641,12 @@ def phase_fp32(t5):
             assert not bf16, f"[fp32] a bf16 kernel ran: {bf16}"
             assert launches["K2"] > 0, launches
             assert (launches["K1f"] > 0) == (mode == "auto"), launches
+            variants = {k: n for k, n in
+                        fa.flash_attention_fp32.by_variant.items() if n}
             log(f"[fp32] {width}x{height}x{frames} attention {mode}: "
                 f"denoise={sec['denoise']:.3f} s total={sec['total']:.3f} s "
-                f"launches K1f={launches['K1f']} (by variant "
-                f"{_k1f_by_variant()}) K2={launches['K2']} (fp32 "
-                f"activations)")
+                f"launches K1f={launches['K1f']} (by variant {variants}) "
+                f"K2={launches['K2']} (fp32 activations)")
     finally:
         set_attention_mode("auto")
     db = _psnr_db(outs["auto"][0], outs["xla"][0])
@@ -2654,12 +2656,6 @@ def phase_fp32(t5):
     del gen, dit, vae
     torch.cuda.empty_cache()
     return outs["auto"][1]
-
-
-def _k1f_by_variant():
-    from ltx_video_gpupoor_tpu_torch.ops import flash_attention as fa
-
-    return {k: n for k, n in fa.flash_attention_fp32.by_variant.items() if n}
 
 
 # [load]: the 13B stack from files in the published layout. The depth is

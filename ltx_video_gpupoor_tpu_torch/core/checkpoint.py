@@ -63,19 +63,6 @@ _NAMES = {v: k for k, v in _DTYPES.items()}
 # safetensors
 # ---------------------------------------------------------------------------
 
-def read_header(path: str) -> tuple[dict, int]:
-    """``(header, offset of the data section)``; the header maps each
-    tensor name to ``{dtype, shape, data_offsets}`` and may hold
-    ``__metadata__``."""
-    with open(path, "rb") as f:
-        raw = f.read(8)
-        if len(raw) != 8:
-            raise ValueError(f"{path}: not a safetensors file")
-        n = struct.unpack("<Q", raw)[0]
-        header = json.loads(f.read(n))
-    return header, 8 + n
-
-
 def _config(meta: dict) -> dict:
     if "config" not in meta:
         return {}
@@ -87,8 +74,16 @@ def _config(meta: dict) -> dict:
 
 def load_safetensors(path: str) -> tuple[dict[str, torch.Tensor], dict]:
     """Tensors (CPU torch tensors, their own memory) + the parsed
-    ``config`` metadata entry ({} without one)."""
-    header, start = read_header(path)
+    ``config`` metadata entry ({} without one). The header maps each
+    tensor name to ``{dtype, shape, data_offsets}`` and may hold
+    ``__metadata__``."""
+    with open(path, "rb") as f:
+        raw = f.read(8)
+        if len(raw) != 8:
+            raise ValueError(f"{path}: not a safetensors file")
+        n = struct.unpack("<Q", raw)[0]
+        header = json.loads(f.read(n))
+    start = 8 + n
     meta = header.pop("__metadata__", None) or {}
     data = np.memmap(path, dtype=np.uint8, mode="r", offset=start) \
         if any(v["data_offsets"][1] > v["data_offsets"][0]

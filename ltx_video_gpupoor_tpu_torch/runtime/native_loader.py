@@ -108,10 +108,6 @@ def _get_lib():
     return lib
 
 
-def available() -> bool:
-    return _get_lib() is not None
-
-
 class NativeSafetensors:
     """A view over a safetensors file through the native loader."""
 

@@ -138,8 +138,10 @@ def _read(path: str, stats: dict, what: str, native: bool = False):
 
             tensors, config = load_safetensors_native(path)
             reader = "native mmap"
-        except Exception as e:  # no g++ or an unreadable file: the other
-            logging.getLogger(__name__).info(   # reader says which
+        # no g++ (RuntimeError), an unreadable file (OSError), a dtype the
+        # native reader does not know (KeyError): the Python reader says
+        except (RuntimeError, OSError, KeyError, ValueError) as e:
+            logging.getLogger(__name__).info(
                 "native safetensors reader unavailable (%s)", e)
     if tensors is None:
         tensors, config = ckpt.load_safetensors(path)
