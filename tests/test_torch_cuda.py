@@ -395,8 +395,9 @@ def test_k6_reads_a_fused_qkv_projection_in_place(cuda):
     ref = fa.flash_attention_hp_plain(q.float(), k.float(), v.float(),
                                       heads=heads)
     torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=2e-2)
+    # fp16 is refused (fp32 is FP32_POLICY's, which takes K1f)
     with pytest.raises(ValueError, match="bf16"):
-        fa.flash_attention_hp(q.float(), k.float(), v.float(), heads=heads)
+        fa.flash_attention_hp(q.half(), k.half(), v.half(), heads=heads)
 
 
 @pytest.mark.parametrize("m,k,n,groups,bias", [(64, 256, 384, 1, True),
