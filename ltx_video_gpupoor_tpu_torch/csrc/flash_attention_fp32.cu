@@ -1,4 +1,5 @@
-// K1f: flash attention forward in fp32 on the CUDA cores, for sm_90a.
+// K1f: flash attention forward in fp32 on Hopper's tensor cores, for
+// sm_90a: every product as three TF32 wgmma products (split TF32).
 //
 // Replaces the fp32 branches of the Pallas TPU kernel
 // ltx_video_gpupoor_tpu/ops/flash_attention.py::_flash_kernel (:160,
@@ -15,12 +16,12 @@
 //   qk8          int8 Q.K^T codes, fp32 V (QK tier)    int8_attention_plain
 //   qk8 bounded  the same under the bound (K3q's)      int8_attention_plain
 //   pv8          int8 Q.K^T and int8 P.V (QK+PV tier)  int8_attention_plain
-// with s = (s32 * q_scale) * k_scale in the QK tier, s32 * (q_scale *
-// k_scale) with per-kv-block k scales in the QK+PV tier (the int8 products
-// are integers below 2**24 and exact in fp32, so the scores equal the
-// plain version's bit for bit); P codes round(exp2(s - m + log2 127))
-// against the running max as of each 64-row kv tile, and the pv8
-// denominator sums fp32 p at D=128 and 127 * sum(P codes) * (1/127) at
+// with s = (s32 * q_scale) * k_scale in the QK tier (one k scale a kv
+// row), s32 * (q_scale * k_scale) with per-kv-block k scales in the QK+PV
+// tier (the int8 products are integers below 2**22, exact in fp32, so the
+// scores equal the plain version's bit for bit); P codes round(exp2(s - m
+// + log2 127)) against the running max as of each 64-row kv tile, and the
+// pv8 denominator sums fp32 p at D=128 and 127 * sum(P codes) * (1/127) at
 // D=64, as the TPU kernel's ones column of V does. The QK+PV tier reads V
 // as the prologue writes it for K4: int8 V^T [B, H, D, Spad] in K4's kv
 // order inside each 32-row chunk (k4_v_layout). Masks: a static kv_valid
@@ -29,38 +30,73 @@
 // any strides with a unit last stride, so head-split views of [B, S, H*D]
 // projections and the head-packed layout of K6 are read in place.
 //
-// What bounds it on an H100: fp32 operands do not feed the tensor cores
-// (tf32 would change the numbers), so the CUDA cores' fused multiply-adds
-// bind: 4*B*H*Sq*Skv*D operations at 132 SMs x 128 lanes x 2 x the SM
-// clock, about 67 TFLOP/s, 15x below bf16 on wgmma. Memory does not: every
-// K/V tile serves 64 q rows and stays in L2 across the q tiles of a head.
+// What bounds it on an H100: the tensor cores. fp32 operands do not feed
+// them as they are, and fp32 fused multiply-adds on the CUDA cores top out
+// near 67 TFLOP/s. TF32 wgmma runs at 495 TFLOP/s dense, with 10 mantissa
+// bits an operand. Each fp32 operand a splits into big = cvt.rna.tf32(a)
+// (written out, not left to how the tensor core reads the low 13 bits) and
+// small = cvt.rna.tf32(a - big); then A.B = Ab.Bb + Ab.Bs + As.Bb with
+// fp32 accumulation, and the dropped As.Bs is about 2**-22 of |A||B|
+// (tests/test_torch_k1f_split.py emulates it: 1 % of atol = rtol = 2e-5
+// at Skv 3840). Three products of 4*B*H*Sq*Skv*D / 2 operations each make
+// the bound 3 * 4*B*H*Sq*Skv*D / 495e12 s; the exponentials (one ex2 a
+// score) and the splits run on the CUDA cores beside them.
 //
-// Design, simple first. One block of 256 threads = 64 q rows of one
-// (batch, head). The Q tile stays in shared memory; K and V tiles of 64 kv
-// rows are loaded in turn (16-byte loads, rows past S zeroed). Each thread
-// holds a 4 x 4 block of the 64 x 64 scores (rows ty + 16i, columns tx +
-// 16j), built from 16-byte shared-memory reads of Q and K (rows padded by
-// four floats, so the eight threads of a quarter warp read eight banks
-// groups), reduces its rows' max over the 16 threads of a half warp with
-// shuffles, and writes p into shared memory over the K tile, which it has
-// finished reading. Then each thread accumulates 4 rows x D/16 output
-// columns of P.V from 16-byte reads of P and V. The online softmax keeps m
-// and a per-thread share of l a row; the shares are summed at the end.
-// No tf32, no wgmma, no cp.async ring: later PRs may pipeline the loads.
+// Design. 384 threads a block: a producer warpgroup and two consumer
+// warpgroups of 64 q rows each (128 q rows a block, as K1).
+// - TF32 wgmma reads both operands K-major only (no transpose flag for
+//   32-bit types). Q and K [S, D] are K-major already. P.V reduces over kv,
+//   so V is held as V^T [D, kv]. P stays in registers as the A operand:
+//   a thread holds score columns 2t and 2t + 1 of each 8-column group (the
+//   fp32 accumulator), the TF32 A fragment wants k indices t and t + 4, so
+//   V^T lays kv row 2t + i at k index t + 4i (ops/flash_attention.py
+//   K1F_PV_ORDER) and P needs no shuffle.
+// - The producer reads each tile from device memory with 16-byte loads
+//   into registers (one tile ahead of the shared-memory ring), splits it
+//   and stores big and small into the ring in the layout wgmma reads:
+//   K-major panels of 32 floats (128-byte rows) under the 128-byte swizzle
+//   (K1's descriptors by bytes: a k-step of 8 values is 32 bytes); V
+//   transposed on the way, four kv rows a thread so that each store is 16
+//   bytes. It fences the stores to the async proxy and arrives on the
+//   stage's full barrier; the consumers release a stage by its empty
+//   barrier once their wgmma have read it. No TMA: the split has to pass
+//   through registers anyway, and a raw staging tile would cost shared
+//   memory that the split operands need.
+// - Shared memory is the budget. An fp32 row of D=128 is 512 bytes, and
+//   the split doubles it: Q big + small for 128 rows is 128 KB. So the kv
+//   tile is 64 rows at D=64 (Q 64 KB + two stages of K and V^T, 32 KB
+//   each: 192 KB) and 32 rows at D=128 (Q 128 KB + one stage of K and V^T:
+//   192 KB). One block an SM.
+// - A consumer warpgroup per kv tile: Q.K^T (SS, 3 x D/8 wgmma), its
+//   release of the K stage, the mask, the softmax step, the split of p in
+//   registers, P.V (RS, 3 x kv/8 wgmma), its release of the V stage. The
+//   two warpgroups share the tensor cores, so one's softmax runs under the
+//   other's products.
+// - The int8 variants take Q.K^T on s8 wgmma (m64n64k32, K-major codes in
+//   64-byte rows under the 64-byte swizzle at D=64, 128-byte rows at
+//   D=128, as K4) with a 64-row kv tile at both head dims; qk8 and
+//   qk8_bounded then take P.V in split TF32 with an fp32 V, pv8 on s8
+//   wgmma with P codes from registers in K4's A-fragment order and V^T
+//   codes copied as k4_v_layout wrote them (64-byte rows, 64-byte
+//   swizzle).
+// - Instances by mask kind: none (no compare), tail (the last kv tile
+//   compares), general (segment ids, causal: every tile compares).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int BQ = 64;        // q rows a block
-constexpr int BKV = 64;       // kv rows a tile
-constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 scores each
-constexpr int PST = BKV + 16; // the P tile's row stride (floats)
-constexpr float NEG_INF = -1e30f;
-constexpr float M_FLOOR = -1e20f;
+constexpr int K1F_THREADS = 384;  // a producer and two consumer warpgroups
+constexpr int K1F_BQ = 128;       // q rows a block
 constexpr float LOG2_127 = 6.9886846867721655f;
 constexpr float SUM_COL_SCALE = 0.007874015718698502f;  // float32(1/127)
+constexpr float MAGIC = 12582912.0f;  // 1.5 * 2**23, bits 0x4B400000
+constexpr uint32_t MAGIC_BITS = 0x4B400000u;
 
 enum Variant { EXACT = 0, BOUNDED_V = 1, QK8 = 2, QK8_BOUNDED = 3, PV8 = 4 };
 
@@ -82,329 +118,872 @@ struct Params {
   float bound_log2;
 };
 
-template <int D>
-__host__ __device__ constexpr int kp_width() {  // the K tile's row stride, or P's if wider
-  return (D + 4 > PST) ? D + 4 : PST;
+// the kv tile, the ring and the shared-memory layout of one instance;
+// every region starts on a 1024-byte boundary (the swizzle's period)
+template <int D, int VARIANT>
+struct Cfg1f {
+  static constexpr bool INT8_QK = VARIANT >= QK8;
+  static constexpr bool INT8_PV = VARIANT == PV8;
+  static constexpr bool BOUNDED = VARIANT == BOUNDED_V ||
+                                  VARIANT == QK8_BOUNDED;
+  static constexpr bool SPLIT_QK = !INT8_QK;
+  static constexpr int BKV = (SPLIT_QK && D == 128) ? 32 : 64;
+  static constexpr int STAGES = (SPLIT_QK && D == 128) ? 1 : 2;
+  // split operands: big, then small, each in panels of 32 floats
+  static constexpr int Q_BYTES = INT8_QK ? K1F_BQ * D : 2 * K1F_BQ * D * 4;
+  static constexpr int K_BYTES = INT8_QK ? BKV * D : 2 * BKV * D * 4;
+  static constexpr int V_BYTES = INT8_PV ? D * BKV : 2 * D * BKV * 4;
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * K_BYTES;
+  static constexpr int VSC_OFF = V_OFF + STAGES * V_BYTES;
+  static constexpr int BAR_OFF = VSC_OFF + (INT8_PV ? 1024 : 0);
+  static constexpr int SMEM_BYTES = 1024 + BAR_OFF + 8 * (1 + 4 * STAGES);
+  // int8 Q and K rows: 64 bytes under the 64-byte swizzle at D=64
+  static constexpr int QK8_LAYOUT = D == 128 ? SWIZZLE_128B : SWIZZLE_64B;
+  static_assert(SMEM_BYTES <= 232448, "one block's shared memory");
+};
+
+// byte offset of 16-byte chunk c of row r in a tile of ROW-byte rows under
+// the swizzle of that span (128: c ^ r % 8; 64: c ^ (r / 2) % 4)
+template <int ROW>
+__device__ __forceinline__ int swz(int r, int c) {
+  if constexpr (ROW == 128) return r * 128 + ((c ^ (r & 7)) << 4);
+  return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
 }
 
-template <int D>
-__host__ __device__ constexpr int smem_floats() {
-  return BQ * (D + 4) + BKV * kp_width<D>() + BKV * D;
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return y;
 }
 
-// rows [row0, row0 + 64) of a [S, D] operand (fp32, or int8 codes as
-// floats) into dst with row stride ld; rows at or past n are zero
-template <int D, bool INT8>
-__device__ __forceinline__ void load_rows(float* dst, int ld,
-                                          const void* src,
-                                          long long row_stride, int row0,
-                                          int n) {
-  constexpr int C4 = D / 4;
-  for (int idx = threadIdx.x; idx < BQ * C4; idx += THREADS) {
-    const int r = idx / C4, c = (idx % C4) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n) {
-      const long long off = (long long)(row0 + r) * row_stride + c;
-      if (INT8) {
-        const char4 cv =
-            *reinterpret_cast<const char4*>(static_cast<const int8_t*>(src) +
-                                            off);
-        val = make_float4((float)cv.x, (float)cv.y, (float)cv.z,
-                          (float)cv.w);
-      } else {
-        val = *reinterpret_cast<const float4*>(
-            static_cast<const float*>(src) + off);
+// four floats -> their TF32 big and small parts
+__device__ __forceinline__ void split4(float4 v, uint4& big, uint4& small) {
+  big.x = tf32_rna(v.x);
+  big.y = tf32_rna(v.y);
+  big.z = tf32_rna(v.z);
+  big.w = tf32_rna(v.w);
+  small.x = tf32_rna(v.x - __uint_as_float(big.x));
+  small.y = tf32_rna(v.y - __uint_as_float(big.y));
+  small.z = tf32_rna(v.z - __uint_as_float(big.z));
+  small.w = tf32_rna(v.w - __uint_as_float(big.w));
+}
+
+__device__ __forceinline__ float comp(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// the stores of this thread made visible to the async proxy (wgmma)
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// an s32 of magnitude under 2**22 as a float, exactly
+__device__ __forceinline__ float i2f(uint32_t x) {
+  return __uint_as_float(x + MAGIC_BITS) - MAGIC;
+}
+
+__device__ __forceinline__ float quad_sum(float l) {
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  l += __shfl_xor_sync(0xffffffffu, l, 2);
+  return l;
+}
+
+// ---- the producer's tiles ------------------------------------------------------
+//
+// Each producer thread (tid 0..127) loads its share of a tile into
+// registers and stores it later, so that the next tile's loads are in
+// flight while the consumers work.
+
+// fp32 rows [row0, row0 + R) of an [S, D] operand (row stride ld floats;
+// rows at or past n read as 0): R * D / 4 float4, D / 4 a row; stored at
+// row r_off of a tile of PR rows
+template <int D, int R, int PR = R>
+struct RowsF32 {
+  static constexpr int N = R * D / 4 / 128;
+  float4 v[N];
+  __device__ __forceinline__ void load(const float* src, long long ld,
+                                       int row0, int n, int tid) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int u = tid + 128 * i, r = u / (D / 4), c4 = u % (D / 4);
+      v[i] = row0 + r < n
+                 ? __ldg(reinterpret_cast<const float4*>(
+                       src + (long long)(row0 + r) * ld + c4 * 4))
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  // big and small, K-major: panel c4 / 8 of PR rows x 128 bytes
+  __device__ __forceinline__ void store(uint8_t* dst, int tid,
+                                        int r_off = 0) const {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int u = tid + 128 * i, r = u / (D / 4) + r_off, c4 = u % (D / 4);
+      const int off = (c4 >> 3) * (PR * 128) + swz<128>(r, c4 & 7);
+      uint4 big, small;
+      split4(v[i], big, small);
+      *reinterpret_cast<uint4*>(dst + off) = big;
+      *reinterpret_cast<uint4*>(dst + PR * D * 4 + off) = small;
+    }
+  }
+};
+
+// int8 rows [row0, row0 + R) of an [S, D] operand: R * D / 16 chunks of
+// 16 bytes, in rows of D bytes (the 64-byte swizzle at D=64)
+template <int D, int R>
+struct RowsS8 {
+  static constexpr int N = R * D / 16 / 128;
+  uint4 v[N];
+  __device__ __forceinline__ void load(const int8_t* src, long long ld,
+                                       int row0, int n, int tid) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int u = tid + 128 * i, r = u / (D / 16), c = u % (D / 16);
+      v[i] = row0 + r < n
+                 ? __ldg(reinterpret_cast<const uint4*>(
+                       src + (long long)(row0 + r) * ld + c * 16))
+                 : make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  __device__ __forceinline__ void store(uint8_t* dst, int tid) const {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int u = tid + 128 * i, r = u / (D / 16), c = u % (D / 16);
+      *reinterpret_cast<uint4*>(dst + swz<D>(r, c)) = v[i];
+    }
+  }
+};
+
+// fp32 V rows [row0, row0 + BKV) as split V^T [D rows x BKV kv]: panels of
+// 32 kv (128-byte rows), kv row 2t + i of each 8-row group at k index
+// t + 4i. A unit is four kv rows that land in one 16-byte chunk (rows
+// 8 g + h + {0, 2, 4, 6} of a panel at chunk 2 g + h) by four d values.
+template <int D, int BKV>
+struct VtF32 {
+  static constexpr int UNITS = (BKV / 4) * (D / 4) / 128;
+  float4 v[4 * UNITS];
+  __device__ __forceinline__ void load(const float* src, long long ld,
+                                       int row0, int n, int tid) {
+#pragma unroll
+    for (int i = 0; i < UNITS; ++i) {
+      const int u = tid + 128 * i, kq = u % (BKV / 4), c = u / (BKV / 4);
+      const int cp = kq & 7;
+      const int kv = (kq >> 3) * 32 + (cp >> 1) * 8 + (cp & 1);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + kv + 2 * e;
+        v[4 * i + e] = row < n
+                           ? __ldg(reinterpret_cast<const float4*>(
+                                 src + (long long)row * ld + c * 4))
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
       }
     }
-    *reinterpret_cast<float4*>(dst + r * ld + c) = val;
   }
+  __device__ __forceinline__ void store(uint8_t* dst, int tid) const {
+#pragma unroll
+    for (int i = 0; i < UNITS; ++i) {
+      const int u = tid + 128 * i, kq = u % (BKV / 4), c = u / (BKV / 4);
+#pragma unroll
+      for (int dd = 0; dd < 4; ++dd) {
+        const int d = c * 4 + dd;
+        const int off = (kq >> 3) * (D * 128) + swz<128>(d, kq & 7);
+        const float4 col = make_float4(
+            comp(v[4 * i], dd), comp(v[4 * i + 1], dd),
+            comp(v[4 * i + 2], dd), comp(v[4 * i + 3], dd));
+        uint4 big, small;
+        split4(col, big, small);
+        *reinterpret_cast<uint4*>(dst + off) = big;
+        *reinterpret_cast<uint4*>(dst + D * BKV * 4 + off) = small;
+      }
+    }
+  }
+};
+
+// int8 V^T columns [col0, col0 + 64) of K4's [D, Spad] codes (d stride
+// ld), copied as they are into rows of 64 bytes (64-byte swizzle)
+template <int D>
+struct VtS8 {
+  static constexpr int N = D * 4 / 128;
+  uint4 v[N];
+  __device__ __forceinline__ void load(const int8_t* src, long long ld,
+                                       int col0, int, int tid) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int u = tid + 128 * i, d = u >> 2, c = u & 3;
+      v[i] = __ldg(reinterpret_cast<const uint4*>(src + d * ld + col0 +
+                                                  c * 16));
+    }
+  }
+  __device__ __forceinline__ void store(uint8_t* dst, int tid) const {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int u = tid + 128 * i;
+      *reinterpret_cast<uint4*>(dst + swz<64>(u >> 2, u & 3)) = v[i];
+    }
+  }
+};
+
+// ---- wgmma ----------------------------------------------------------------------
+
+// d (64 x 64 fp32) += a (64 x 8 tf32, shared, K-major) * b (64 x 8 tf32, shared,
+// K-major)^T; d is overwritten where scale_d == 0
+__device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-// kv rows [j0, j0 + 64) of K4's int8 V^T [D, Spad] (d stride d_stride)
-// into dst [64, D]: inside each 32-row chunk, column 16 h + 4 t + 2 a + c
-// holds kv row 16 h + 8 a + 2 t + c (k4_v_layout); Spad covers the tile
-template <int D>
-__device__ __forceinline__ void load_vt8(float* dst, const int8_t* src,
-                                         long long d_stride, int j0) {
-  for (int idx = threadIdx.x; idx < D * (BKV / 4); idx += THREADS) {
-    const int d = idx / (BKV / 4), x = (idx % (BKV / 4)) * 4;
-    const char4 cv =
-        *reinterpret_cast<const char4*>(src + d * d_stride + j0 + x);
-    const signed char vals[4] = {cv.x, cv.y, cv.z, cv.w};
+// the same with a 32 x 8 b
+__device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 64 fp32) += a (64 x 8 tf32, registers) * b (64 x 8 tf32, shared,
+// K-major)^T
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
+}
+
+// the same with a 128 x 8 b
+__device__ __forceinline__ void wgmma_tf32_rs_n128(float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 64 s32) += a (64 x 32 int8, shared, K-major) * b (64 x 32 int8,
+// shared, K-major)^T; d is overwritten where scale_d == 0
+__device__ __forceinline__ void wgmma_s8_ss_n64(uint32_t (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 64 s32) += a (64 x 32 int8, registers) * b (64 x 32 int8, shared,
+// K-major)^T
+__device__ __forceinline__ void wgmma_s8_rs_n64(uint32_t (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
+}
+
+// the same with a 128 x 32 b
+__device__ __forceinline__ void wgmma_s8_rs_n128(uint32_t (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
+}
+
+// Q.K^T of one kv tile in split TF32: sc (64 q rows x BKV) = Qb.Ks +
+// Qs.Kb, then + Qb.Kb; q and k are the big parts of this warpgroup's Q
+// rows (panels of 128 rows) and of the K stage (panels of BKV rows), the
+// small parts lie a whole tile further on. Issued and committed.
+template <int D, int BKV>
+__device__ __forceinline__ void qk_issue_f32(float (&sc)[BKV / 2],
+                                             uint32_t q, uint32_t k) {
+  constexpr int QP = K1F_BQ * 128, KP = BKV * 128;
+  constexpr int QS = K1F_BQ * D * 4, KS = BKV * D * 4;
+  auto mma = [&](uint32_t a, uint32_t b, int scale_d) {
+    const uint64_t da = wgmma_desc(a, 16, 1024);
+    const uint64_t db = wgmma_desc(b, 16, 1024);
+    if constexpr (BKV == 64) wgmma_tf32_ss_n64(sc, da, db, scale_d);
+    if constexpr (BKV == 32) wgmma_tf32_ss_n32(sc, da, db, scale_d);
+  };
+  wgmma_fence();
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int xx = x + e, w = xx & 31;
-      const int t = (w & 15) >> 2, a = (w & 3) >> 1, c = w & 1;
-      const int j = (xx & ~31) + (w & 16) + 8 * a + 2 * t + c;
-      dst[j * D + d] = (float)vals[e];
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const uint32_t qo = q + (kk >> 2) * QP + (kk & 3) * 32;
+    const uint32_t ko = k + (kk >> 2) * KP + (kk & 3) * 32;
+    mma(qo, ko + KS, kk > 0);
+    mma(qo + QS, ko, 1);
+  }
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    mma(q + (kk >> 2) * QP + (kk & 3) * 32, k + (kk >> 2) * KP + (kk & 3) * 32,
+        1);
+  }
+  wgmma_commit();
+}
+
+// acc += P.V of one kv tile in split TF32: Pb.Vs + Ps.Vb, then Pb.Vb; P
+// from registers (k-step kk: score columns 8 kk .. 8 kk + 7, registers
+// 4 kk .. 4 kk + 3 of the accumulator layout, which are the A fragment's
+// a0, a2, a1, a3), V^T big at v (panels of 32 kv), small a tile further.
+// Issued and committed.
+template <int D, int BKV>
+__device__ __forceinline__ void pv_issue_f32(float (&acc)[D / 2],
+                                             uint32_t (&pb)[BKV / 2],
+                                             uint32_t (&ps)[BKV / 2],
+                                             uint32_t v) {
+  constexpr int VP = D * 128, VS = D * BKV * 4;
+  auto mma = [&](const uint32_t (&a)[BKV / 2], int kk, uint32_t b) {
+    const uint64_t db = wgmma_desc(b + (kk >> 2) * VP + (kk & 3) * 32, 16,
+                                   1024);
+    if constexpr (D == 64) {
+      wgmma_tf32_rs_n64(acc, a[4 * kk], a[4 * kk + 2], a[4 * kk + 1],
+                        a[4 * kk + 3], db, 1);
+    } else {
+      wgmma_tf32_rs_n128(acc, a[4 * kk], a[4 * kk + 2], a[4 * kk + 1],
+                         a[4 * kk + 3], db, 1);
+    }
+  };
+  pin(acc);
+  pin(pb);
+  pin(ps);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BKV / 8; ++kk) {
+    mma(pb, kk, v + VS);
+    mma(ps, kk, v);
+  }
+#pragma unroll
+  for (int kk = 0; kk < BKV / 8; ++kk) mma(pb, kk, v);
+  wgmma_commit();
+}
+
+// s32 Q.K^T of one 64-row kv tile from int8 codes (rows of D bytes).
+// Issued and committed.
+template <int D>
+__device__ __forceinline__ void qk_issue_s8(uint32_t (&sc)[32], uint32_t q,
+                                            uint32_t k) {
+  constexpr int LAYOUT = Cfg1f<D, QK8>::QK8_LAYOUT;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 32; ++kk) {
+    wgmma_s8_ss_n64(sc, wgmma_desc(q + kk * 32, 16, 8 * D, LAYOUT),
+                    wgmma_desc(k + kk * 32, 16, 8 * D, LAYOUT), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// pv = P8.V8 (s32, fresh) of one 64-row kv tile: P codes from registers
+// (k-step kk: logical kv columns 32 kk .. 32 kk + 31), V^T codes in rows
+// of 64 bytes. Issued and committed.
+template <int D>
+__device__ __forceinline__ void pv_issue_s8(uint32_t (&pv)[D / 2],
+                                            uint32_t (&p8)[8], uint32_t v) {
+  pin(pv);
+  pin(p8);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    const uint64_t db = wgmma_desc(v + kk * 32, 16, 512, SWIZZLE_64B);
+    if constexpr (D == 64) {
+      wgmma_s8_rs_n64(pv, p8[4 * kk], p8[4 * kk + 1], p8[4 * kk + 2],
+                      p8[4 * kk + 3], db, kk > 0);
+    } else {
+      wgmma_s8_rs_n128(pv, p8[4 * kk], p8[4 * kk + 1], p8[4 * kk + 2],
+                       p8[4 * kk + 3], db, kk > 0);
+    }
+  }
+  wgmma_commit();
+}
+
+// p in [0, 127] (32 scores: 8 tiles of 8 columns) -> int8 codes in K4's
+// A-fragment order of the s8 P.V (pack_codes in flash_attention_int8.cu):
+// k-step kk takes tiles 4 kk .. 4 kk + 3; register r holds tiles
+// 4 kk + 2 (r >> 1) and + 1, elements 2 (r & 1) + {0, 1}. The add of MAGIC
+// rounds half to even; cs0 / cs1 return the sums of the codes of the
+// thread's two rows.
+__device__ __forceinline__ void pack_codes(const float (&p)[32],
+                                           uint32_t (&p8)[8], float& cs0,
+                                           float& cs1) {
+  cs0 = 0.f;
+  cs1 = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int j0 = 4 * kk + 2 * (r >> 1), e = 2 * (r & 1);
+      const float c0 = p[4 * j0 + e] + MAGIC, c1 = p[4 * j0 + e + 1] + MAGIC;
+      const float c2 = p[4 * j0 + 4 + e] + MAGIC;
+      const float c3 = p[4 * j0 + 4 + e + 1] + MAGIC;
+      const uint32_t lo = __byte_perm(__float_as_uint(c0), __float_as_uint(c1),
+                                      0x0040);
+      const uint32_t hi = __byte_perm(__float_as_uint(c2), __float_as_uint(c3),
+                                      0x0040);
+      p8[4 * kk + r] = __byte_perm(lo, hi, 0x5410);
+      const float sum = ((c0 - MAGIC) + (c1 - MAGIC)) +
+                        ((c2 - MAGIC) + (c3 - MAGIC));
+      if (r & 1) cs1 += sum; else cs0 += sum;
     }
   }
 }
 
-template <int NC>
-__device__ __forceinline__ void fma4(float (&dst)[NC], int c, float a,
-                                     float4 v) {
-  dst[c + 0] = fmaf(a, v.x, dst[c + 0]);
-  dst[c + 1] = fmaf(a, v.y, dst[c + 1]);
-  dst[c + 2] = fmaf(a, v.z, dst[c + 2]);
-  dst[c + 3] = fmaf(a, v.w, dst[c + 3]);
+// what a consumer thread knows of its two rows and of the call's masks
+struct RowsF {
+  int row0, row1, qs0, qs1;
+  const int* kv_seg;  // this batch row's kv segment ids, or null
+};
+
+// masked scores of one kv tile (columns kv0 + 8 jn + 2 t + c, rows row0
+// and row1) go to NEG_INF
+template <int MASK, int N>
+__device__ __forceinline__ void mask_scores(float (&x)[N], const Params& p,
+                                            const RowsF& r, int kv0, int t) {
+#pragma unroll
+  for (int jn = 0; jn < N / 4; ++jn) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int col = kv0 + jn * 8 + t * 2 + c;
+      bool ok0 = col < p.kv_end, ok1 = ok0;
+      if (MASK == MASK_GENERAL) {
+        if (p.causal) {
+          ok0 = ok0 && r.row0 >= col;
+          ok1 = ok1 && r.row1 >= col;
+        }
+        if (r.kv_seg != nullptr) {
+          const int ks = col < p.Skv ? r.kv_seg[col] : 0;
+          ok0 = ok0 && ks > 0 && ks == r.qs0;
+          ok1 = ok1 && ks > 0 && ks == r.qs1;
+        }
+      }
+      if (!ok0) x[4 * jn + c] = NEG_INF;
+      if (!ok1) x[4 * jn + 2 + c] = NEG_INF;
+    }
+  }
 }
+
+// ---- the kernel ---------------------------------------------------------------
 
 template <int D, int MASK, int VARIANT>
-__global__ void __launch_bounds__(THREADS)
-    flash_fp32_kernel(const Params p) {
-  constexpr bool INT8_QK = VARIANT >= QK8;
-  constexpr bool BOUNDED = VARIANT == BOUNDED_V || VARIANT == QK8_BOUNDED;
-  constexpr bool PV_INT8 = VARIANT == PV8;
-  constexpr int QST = D + 4, KST = D + 4, NC = D / 16, NV = D / 64;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Ks = Qs + BQ * QST;
-  float* Ps = Ks;  // P overwrites the K tile once every score is read
-  float* Vs = Ks + BKV * kp_width<D>();
+__global__ void __launch_bounds__(K1F_THREADS, 1)
+    flash_fp32_wgmma_kernel(const Params p) {
+  using C = Cfg1f<D, VARIANT>;
+  constexpr int BKV = C::BKV, STAGES = C::STAGES;
+  constexpr bool INT8_QK = C::INT8_QK, INT8_PV = C::INT8_PV;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* base_ptr = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t q_full = base + C::BAR_OFF;
+  const uint32_t k_full = q_full + 8;
+  const uint32_t k_empty = k_full + 8 * STAGES;
+  const uint32_t v_full = k_empty + 8 * STAGES;
+  const uint32_t v_empty = v_full + 8 * STAGES;
+  float* vsc_s = reinterpret_cast<float*>(base_ptr + C::VSC_OFF);
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int r0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * K1F_BQ;
   const long long bh = (long long)b * p.H + h;
-  const char* qb = static_cast<const char*>(p.q) +
-                   (b * p.qsb + h * p.qsh) * (INT8_QK ? 1 : 4);
-  const char* kb = static_cast<const char*>(p.k) +
-                   (b * p.ksb + h * p.ksh) * (INT8_QK ? 1 : 4);
-  const char* vb = static_cast<const char*>(p.v) +
-                   (b * p.vsb + h * p.vsh) * (PV_INT8 ? 1 : 4);
-
-  load_rows<D, INT8_QK>(Qs, QST, qb, p.qss, r0, p.Sq);
-
-  int rows[4], qseg[4];
-  float qsc[4], m[4], l[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    rows[i] = r0 + ty + 16 * i;
-    const bool in = rows[i] < p.Sq;
-    qsc[i] = (INT8_QK && in) ? p.q_scale[bh * p.Sq + rows[i]] : 0.f;
-    qseg[i] = (MASK == 2 && p.q_seg != nullptr && in)
-                  ? p.q_seg[(long long)b * p.Sq + rows[i]]
-                  : 0;
-    m[i] = M_FLOOR;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
-  float vsc[NC];
-#pragma unroll
-  for (int kq = 0; kq < NV; ++kq) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      vsc[kq * 4 + e] =
-          PV_INT8 ? p.v_scale[bh * D + kq * 64 + tx * 4 + e] : 0.f;
-    }
-  }
-
   int kv_hi = p.kv_end;
-  if (MASK == 2 && p.causal) kv_hi = min(kv_hi, r0 + BQ);
-  for (int c0 = 0; c0 < kv_hi; c0 += BKV) {
-    __syncthreads();  // the previous tile's P and V are read
-    load_rows<D, INT8_QK>(Ks, KST, kb, p.kss, c0, p.Skv);
-    if (PV_INT8) {
-      load_vt8<D>(Vs, reinterpret_cast<const int8_t*>(vb), p.vss, c0);
+  if (MASK == MASK_GENERAL && p.causal) kv_hi = min(kv_hi, q0 + K1F_BQ);
+  const int n_tiles = (kv_hi + BKV - 1) / BKV;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 128);  // every producer thread arrives
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full + 8 * s, 128);
+      mbar_init(v_full + 8 * s, 128);
+      mbar_init(k_empty + 8 * s, 8);  // one arrival a consumer warp
+      mbar_init(v_empty + 8 * s, 8);
+    }
+    mbar_init_fence();
+  }
+  if (INT8_PV) {
+    for (int i = threadIdx.x; i < D; i += K1F_THREADS) {
+      vsc_s[i] = p.v_scale[bh * D + i];
+    }
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer warpgroup
+    if (n_tiles == 0) return;
+    const int tid = threadIdx.x;
+    const int esz = INT8_QK ? 1 : 4;
+    const char* qg = static_cast<const char*>(p.q) +
+                     (b * p.qsb + h * p.qsh) * esz;
+    const char* kg = static_cast<const char*>(p.k) +
+                     (b * p.ksb + h * p.ksh) * esz;
+    const char* vg = static_cast<const char*>(p.v) +
+                     (b * p.vsb + h * p.vsh) * (INT8_PV ? 1 : 4);
+    if constexpr (INT8_QK) {
+      RowsS8<D, K1F_BQ> qt;
+      qt.load(reinterpret_cast<const int8_t*>(qg), p.qss, q0, p.Sq, tid);
+      qt.store(base_ptr, tid);
     } else {
-      load_rows<D, false>(Vs, D, vb, p.vss, c0, p.Skv);
+#pragma unroll 1
+      for (int r = 0; r < K1F_BQ; r += 32) {
+        RowsF32<D, 32, K1F_BQ> qt;
+        qt.load(reinterpret_cast<const float*>(qg), p.qss, q0 + r, p.Sq,
+                tid);
+        qt.store(base_ptr, tid, r);
+      }
     }
-    __syncthreads();
+    fence_async_shared();
+    mbar_arrive(q_full);
 
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    using KT = typename std::conditional<INT8_QK, RowsS8<D, BKV>,
+                                         RowsF32<D, BKV>>::type;
+    using VT = typename std::conditional<INT8_PV, VtS8<D>,
+                                         VtF32<D, BKV>>::type;
+    using KE = typename std::conditional<INT8_QK, int8_t, float>::type;
+    using VE = typename std::conditional<INT8_PV, int8_t, float>::type;
+    const KE* ksrc = reinterpret_cast<const KE*>(kg);
+    const VE* vsrc = reinterpret_cast<const VE*>(vg);
+    KT kt;
+    VT vt;
+    kt.load(ksrc, p.kss, 0, p.Skv, tid);
+    vt.load(vsrc, p.vss, 0, p.Skv, tid);
+#pragma unroll 1
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % STAGES;
+      const uint32_t empty_phase = ((j / STAGES) & 1) ^ 1;
+      if (j >= STAGES) mbar_wait(k_empty + 8 * s, empty_phase);
+      kt.store(base_ptr + C::K_OFF + s * C::K_BYTES, tid);
+      fence_async_shared();
+      mbar_arrive(k_full + 8 * s);
+      if (j + 1 < n_tiles) kt.load(ksrc, p.kss, (j + 1) * BKV, p.Skv, tid);
+      if (j >= STAGES) mbar_wait(v_empty + 8 * s, empty_phase);
+      vt.store(base_ptr + C::V_OFF + s * C::V_BYTES, tid);
+      fence_async_shared();
+      mbar_arrive(v_full + 8 * s);
+      if (j + 1 < n_tiles) vt.load(vsrc, p.vss, (j + 1) * BKV, p.Skv, tid);
     }
-#pragma unroll 4
-    for (int d0 = 0; d0 < D; d0 += 4) {
-      float4 qa[4], ka[4];
+    return;
+  }
+
+  // the consumer warpgroups
+  const int ct = threadIdx.x - 128, cw = ct >> 7;
+  const int warp = (ct >> 5) & 3, lane = ct & 31, g = lane >> 2, t = lane & 3;
+  RowsF r;
+  r.row0 = q0 + cw * 64 + warp * 16 + g;
+  r.row1 = r.row0 + 8;
+  r.qs0 = r.qs1 = 0;
+  r.kv_seg = nullptr;
+  if (MASK == MASK_GENERAL && p.q_seg != nullptr) {
+    r.qs0 = r.row0 < p.Sq ? p.q_seg[(long long)b * p.Sq + r.row0] : 0;
+    r.qs1 = r.row1 < p.Sq ? p.q_seg[(long long)b * p.Sq + r.row1] : 0;
+    r.kv_seg = p.kv_seg + (long long)b * p.Skv;
+  }
+  float qsc0 = 0.f, qsc1 = 0.f;
+  if (INT8_QK) {
+    qsc0 = r.row0 < p.Sq ? p.q_scale[bh * p.Sq + r.row0] : 0.f;
+    qsc1 = r.row1 < p.Sq ? p.q_scale[bh * p.Sq + r.row1] : 0.f;
+  }
+  const uint32_t sQ = base + cw * (INT8_QK ? 64 * D : 64 * 128);
+  const uint32_t sK = base + C::K_OFF, sV = base + C::V_OFF;
+
+  float acc[D / 2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qa[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * QST +
-                                                 d0);
-      }
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m0 = M_FLOOR, m1 = M_FLOOR, l0 = 0.f, l1 = 0.f;
+
+  // One kv tile; `masked` says at compile time whether it compares
+  // (MASK_ALWAYS), does not (MASK_NEVER) or finds out (MASK_ASK).
+  auto step = [&](int j, auto masked) {
+    const int s = j % STAGES, kv0 = j * BKV;
+    const uint32_t ph = (j / STAGES) & 1;
+    float x[BKV / 2];
+    mbar_wait(k_full + 8 * s, ph);
+    if constexpr (INT8_QK) {
+      uint32_t sc[BKV / 2];
+      qk_issue_s8<D>(sc, sQ, sK + s * C::K_BYTES);
+      wgmma_wait<0>();
+      pin(sc);
+      if (lane == 0) mbar_arrive(k_empty + 8 * s);
+      if constexpr (INT8_PV) {
+        const float ks = p.k_scale[bh * p.nks + kv0 / p.k_block];
+        const float f0 = qsc0 * ks, f1 = qsc1 * ks;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        ka[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * KST +
-                                                 d0);
-      }
+        for (int jn = 0; jn < BKV / 8; ++jn) {
+          x[4 * jn] = i2f(sc[4 * jn]) * f0;
+          x[4 * jn + 1] = i2f(sc[4 * jn + 1]) * f0;
+          x[4 * jn + 2] = i2f(sc[4 * jn + 2]) * f1;
+          x[4 * jn + 3] = i2f(sc[4 * jn + 3]) * f1;
+        }
+      } else {  // one k scale a kv row (k_block 1)
+        const float* ksr = p.k_scale + bh * p.nks + kv0 + 2 * t;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float t = s[i][j];
-          t = fmaf(qa[i].x, ka[j].x, t);
-          t = fmaf(qa[i].y, ka[j].y, t);
-          t = fmaf(qa[i].z, ka[j].z, t);
-          t = fmaf(qa[i].w, ka[j].w, t);
-          s[i][j] = t;
+        for (int jn = 0; jn < BKV / 8; ++jn) {
+          const float2 k2 = __ldg(reinterpret_cast<const float2*>(ksr + 8 * jn));
+          x[4 * jn] = (i2f(sc[4 * jn]) * qsc0) * k2.x;
+          x[4 * jn + 1] = (i2f(sc[4 * jn + 1]) * qsc0) * k2.y;
+          x[4 * jn + 2] = (i2f(sc[4 * jn + 2]) * qsc1) * k2.x;
+          x[4 * jn + 3] = (i2f(sc[4 * jn + 3]) * qsc1) * k2.y;
         }
       }
+    } else {
+      qk_issue_f32<D, BKV>(x, sQ, sK + s * C::K_BYTES);
+      wgmma_wait<0>();
+      pin(x);
+      if (lane == 0) mbar_arrive(k_empty + 8 * s);
+#pragma unroll
+      for (int i = 0; i < BKV / 2; ++i) x[i] *= p.scale_log2;
+    }
+    constexpr int how = decltype(masked)::value;
+    if (how == MASK_ALWAYS) mask_scores<MASK>(x, p, r, kv0, t);
+
+    // the softmax step: x becomes p
+    float ls0 = 0.f, ls1 = 0.f, a0 = 1.f, a1 = 1.f;
+    if constexpr (C::BOUNDED) {
+      const float sb = p.bound_log2;
+#pragma unroll
+      for (int i = 0; i < BKV / 2; ++i) x[i] = ex2(fminf(x[i], sb) - sb);
+    } else {
+      float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+      for (int jn = 0; jn < BKV / 8; ++jn) {
+        mx0 = fmaxf(mx0, fmaxf(x[4 * jn], x[4 * jn + 1]));
+        mx1 = fmaxf(mx1, fmaxf(x[4 * jn + 2], x[4 * jn + 3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      a0 = ex2(m0 - mn0);
+      a1 = ex2(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      // the x127 fold: in the QK+PV tier p lives in [0, 127]
+      const float off0 = INT8_PV ? mn0 - LOG2_127 : mn0;
+      const float off1 = INT8_PV ? mn1 - LOG2_127 : mn1;
+#pragma unroll
+      for (int jn = 0; jn < BKV / 8; ++jn) {
+        x[4 * jn] = ex2(x[4 * jn] - off0);
+        x[4 * jn + 1] = ex2(x[4 * jn + 1] - off0);
+        x[4 * jn + 2] = ex2(x[4 * jn + 2] - off1);
+        x[4 * jn + 3] = ex2(x[4 * jn + 3] - off1);
+      }
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        acc[4 * n] *= a0;
+        acc[4 * n + 1] *= a0;
+        acc[4 * n + 2] *= a1;
+        acc[4 * n + 3] *= a1;
+      }
+    }
+#pragma unroll
+    for (int jn = 0; jn < BKV / 8; ++jn) {
+      ls0 += x[4 * jn] + x[4 * jn + 1];
+      ls1 += x[4 * jn + 2] + x[4 * jn + 3];
     }
 
-    // scale, mask
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = c0 + tx + 16 * j;
-      const float ks = INT8_QK ? p.k_scale[bh * p.nks + col / p.k_block]
-                               : 0.f;
-      const int kseg = (MASK == 2 && p.kv_seg != nullptr && col < p.Skv)
-                           ? p.kv_seg[(long long)b * p.Skv + col]
-                           : 0;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float x;
-        if (PV_INT8) {
-          x = s[i][j] * (qsc[i] * ks);
-        } else if (INT8_QK) {
-          x = (s[i][j] * qsc[i]) * ks;
-        } else {
-          x = s[i][j] * p.scale_log2;
-        }
-        bool keep = true;
-        if (MASK >= 1) keep = col < p.kv_end;
-        if (MASK == 2) {
-          if (p.q_seg != nullptr) {
-            keep = keep && qseg[i] == kseg && kseg > 0;
-          }
-          if (p.causal) keep = keep && rows[i] >= col;
-        }
-        s[i][j] = keep ? x : NEG_INF;
+    mbar_wait(v_full + 8 * s, ph);
+    if constexpr (INT8_PV) {
+      uint32_t p8[8], pv[D / 2];
+      float cs0, cs1;
+      pack_codes(x, p8, cs0, cs1);
+      if (D % 128) {  // JAX's ones column of V sums the codes
+        ls0 = (cs0 * 127.f) * SUM_COL_SCALE;
+        ls1 = (cs1 * 127.f) * SUM_COL_SCALE;
       }
+      pv_issue_s8<D>(pv, p8, sV + s * C::V_BYTES);
+      wgmma_wait<0>();
+      pin(pv);
+      if (lane == 0) mbar_arrive(v_empty + 8 * s);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        const float2 vs =
+            *reinterpret_cast<const float2*>(vsc_s + n * 8 + 2 * t);
+        acc[4 * n] = fmaf(i2f(pv[4 * n]), vs.x, acc[4 * n]);
+        acc[4 * n + 1] = fmaf(i2f(pv[4 * n + 1]), vs.y, acc[4 * n + 1]);
+        acc[4 * n + 2] = fmaf(i2f(pv[4 * n + 2]), vs.x, acc[4 * n + 2]);
+        acc[4 * n + 3] = fmaf(i2f(pv[4 * n + 3]), vs.y, acc[4 * n + 3]);
+      }
+    } else {
+      uint32_t pb[BKV / 2], ps[BKV / 2];
+#pragma unroll
+      for (int i = 0; i < BKV / 2; ++i) {
+        pb[i] = tf32_rna(x[i]);
+        ps[i] = tf32_rna(x[i] - __uint_as_float(pb[i]));
+      }
+      pv_issue_f32<D, BKV>(acc, pb, ps, sV + s * C::V_BYTES);
+      wgmma_wait<0>();
+      pin(acc);
+      if (lane == 0) mbar_arrive(v_empty + 8 * s);
     }
+    if constexpr (C::BOUNDED) {
+      l0 += ls0;
+      l1 += ls1;
+    } else {
+      l0 = l0 * a0 + ls0;
+      l1 = l1 * a1 + ls1;
+    }
+  };
 
-    // softmax step: s becomes p (or P codes)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (BOUNDED) {
-        float ls = 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float pe = exp2f(fminf(s[i][j], p.bound_log2) - p.bound_log2);
-          s[i][j] = pe;
-          ls += pe;
-        }
-        l[i] += ls;
-      } else {
-        float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
-#pragma unroll
-        for (int o = 8; o > 0; o >>= 1) {
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-        }
-        const float m_new = fmaxf(m[i], mx);
-        const float alpha = exp2f(m[i] - m_new);
-        float ls = 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (PV_INT8) {
-            const float pe = exp2f(s[i][j] - (m_new - LOG2_127));
-            const float p8 = rintf(pe);
-            ls += (D % 128) ? p8 : pe;
-            s[i][j] = p8;
-          } else {
-            const float pe = exp2f(s[i][j] - m_new);
-            ls += pe;
-            s[i][j] = pe;
-          }
-        }
-        if (PV_INT8 && (D % 128)) ls = (ls * 127.f) * SUM_COL_SCALE;
-        l[i] = alpha * l[i] + ls;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
-        m[i] = m_new;
-      }
-    }
-
-    __syncthreads();  // every thread has read the K tile
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        Ps[(ty + 16 * i) * PST + tx + 16 * j] = s[i][j];
-      }
-    }
-    __syncthreads();
-
-    float t8[4][NC];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int c = 0; c < NC; ++c) t8[i][c] = 0.f;
-    }
-#pragma unroll 2
-    for (int j = 0; j < BKV; j += 4) {
-      float4 pr[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pr[i] = *reinterpret_cast<const float4*>(Ps + (ty + 16 * i) * PST +
-                                                 j);
-      }
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-        for (int kq = 0; kq < NV; ++kq) {
-          const float4 vv = *reinterpret_cast<const float4*>(
-              Vs + (j + jj) * D + kq * 64 + tx * 4);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float pij = jj == 0 ? pr[i].x
-                              : jj == 1 ? pr[i].y
-                              : jj == 2 ? pr[i].z
-                                        : pr[i].w;
-            if (PV_INT8) {
-              fma4<NC>(t8[i], kq * 4, pij, vv);
-            } else {
-              fma4<NC>(acc[i], kq * 4, pij, vv);
-            }
-          }
-        }
-      }
-    }
-    if (PV_INT8) {  // the tile's integer P.V, then its channel scale
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] += t8[i][c] * vsc[c];
-      }
+  if (n_tiles > 0) {
+    mbar_wait(q_full, 0);
+    if (MASK == MASK_GENERAL) {
+      for (int j = 0; j < n_tiles; ++j) step(j, How<MASK_ALWAYS>{});
+    } else {
+      // the tail kind's last tile, the one that straddles kv_end, compares
+      const int n_free = MASK == MASK_TAIL ? n_tiles - 1 : n_tiles;
+      for (int j = 0; j < n_free; ++j) step(j, How<MASK_NEVER>{});
+      if (MASK == MASK_TAIL) step(n_tiles - 1, How<MASK_ALWAYS>{});
     }
   }
 
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const float d0 = l0 > 0.f ? l0 : 1.f;
+  const float d1 = l1 > 0.f ? l1 : 1.f;
+  float* ob = p.out + b * p.osb + h * p.osh;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float lt = l[i];
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1) {
-      lt += __shfl_xor_sync(0xffffffffu, lt, o);
+  for (int n = 0; n < D / 8; ++n) {
+    const int c = n * 8 + t * 2;
+    if (r.row0 < p.Sq) {
+      *reinterpret_cast<float2*>(ob + r.row0 * p.oss + c) =
+          make_float2(acc[4 * n] / d0, acc[4 * n + 1] / d0);
     }
-    if (rows[i] >= p.Sq) continue;
-    const float den = lt > 0.f ? lt : 1.f;
-    float* orow = p.out + b * p.osb + h * p.osh + rows[i] * p.oss;
-#pragma unroll
-    for (int kq = 0; kq < NV; ++kq) {
-      float4 o;
-      o.x = acc[i][kq * 4 + 0] / den;
-      o.y = acc[i][kq * 4 + 1] / den;
-      o.z = acc[i][kq * 4 + 2] / den;
-      o.w = acc[i][kq * 4 + 3] / den;
-      *reinterpret_cast<float4*>(orow + kq * 64 + tx * 4) = o;
+    if (r.row1 < p.Sq) {
+      *reinterpret_cast<float2*>(ob + r.row1 * p.oss + c) =
+          make_float2(acc[4 * n + 2] / d1, acc[4 * n + 3] / d1);
     }
   }
 }
 
 template <int D, int MASK, int VARIANT>
 int launch(const Params& p, int B, cudaStream_t stream) {
-  auto kern = flash_fp32_kernel<D, MASK, VARIANT>;
-  const int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 grid((p.Sq + BQ - 1) / BQ, p.H, B);
-  kern<<<grid, THREADS, smem, stream>>>(p);
+  auto kern = flash_fp32_wgmma_kernel<D, MASK, VARIANT>;
+  constexpr int smem = Cfg1f<D, VARIANT>::SMEM_BYTES;
+  // once an instance: a launch does no other host work
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((p.Sq + K1F_BQ - 1) / K1F_BQ, p.H, B);
+  kern<<<grid, K1F_THREADS, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -424,9 +1003,9 @@ template <int D>
 int by_mask(const Params& p, int B, int mask_kind, int variant,
             cudaStream_t s) {
   switch (mask_kind) {
-    case 0: return by_variant<D, 0>(p, B, variant, s);
-    case 1: return by_variant<D, 1>(p, B, variant, s);
-    case 2: return by_variant<D, 2>(p, B, variant, s);
+    case MASK_NONE: return by_variant<D, MASK_NONE>(p, B, variant, s);
+    case MASK_TAIL: return by_variant<D, MASK_TAIL>(p, B, variant, s);
+    case MASK_GENERAL: return by_variant<D, MASK_GENERAL>(p, B, variant, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -435,13 +1014,16 @@ int by_mask(const Params& p, int B, int mask_kind, int variant,
 
 // q, k [B, H, S, D] fp32 (variants exact, bounded) or int8 codes (qk8,
 // qk8 bounded, pv8); v [B, H, Skv, D] fp32, or for pv8 int8 V^T [B, H, D,
-// Spad] in K4's kv order (its strides b, h, d); out [B, H, Sq, D] fp32.
-// Strides in elements, last stride 1; q_seg / kv_seg [B, S] int32 or null;
-// q_scale [B, H, Sq], k_scale [B, H, nks] (one a k_block kv rows), v_scale
-// [B, H, D] fp32 for the int8 variants; kv_valid -1 = none; mask_kind as
-// flash_attention.MASK_KINDS; variant 0 exact, 1 bounded, 2 qk8, 3 qk8
-// bounded, 4 pv8; scale_log2 = scale * log2(e) (fp32 scores; the int8
-// variants carry it in q_scale), bound_log2 = score_bound * log2(e).
+// Spad] in K4's kv order (its strides b, h, d; Spad a 64 multiple that
+// covers Skv); out [B, H, Sq, D] fp32. Strides in elements, last stride
+// 1, rows 16-byte aligned; q_seg / kv_seg [B, S] int32 or null; q_scale
+// [B, H, Sq], k_scale [B, H, nks] (one a k_block kv rows: k_block 1 for
+// qk8 and qk8 bounded, a 64 multiple for pv8), v_scale [B, H, D] fp32 for
+// the int8 variants; kv_valid -1 = none; mask_kind as
+// flash_attention.MASK_KINDS, refused where it masks less than the call
+// needs; variant 0 exact, 1 bounded, 2 qk8, 3 qk8 bounded, 4 pv8;
+// scale_log2 = scale * log2(e) (fp32 scores; the int8 variants carry it in
+// q_scale), bound_log2 = score_bound * log2(e).
 extern "C" int k1f_flash_attention_fp32(
     const void* q, const void* k, const void* v, void* out,
     const void* q_seg, const void* kv_seg, const void* q_scale,
@@ -451,13 +1033,17 @@ extern "C" int k1f_flash_attention_fp32(
     int mask_kind, int variant, int k_block, int nks, float scale_log2,
     float bound_log2, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0) return static_cast<int>(cudaGetLastError());
-  if (variant < 0 || variant > PV8 || Skv < 0 || k_block < 1) {
+  if (variant < 0 || variant > PV8 || Skv < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (variant >= QK8 && (q_scale == nullptr || k_scale == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (variant == PV8 && v_scale == nullptr) {
+  if ((variant == QK8 || variant == QK8_BOUNDED) && k_block != 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (variant == PV8 && (v_scale == nullptr || k_block < 64 ||
+                         k_block % 64 != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if ((q_seg == nullptr) != (kv_seg == nullptr)) {
@@ -486,6 +1072,11 @@ extern "C" int k1f_flash_attention_fp32(
   p.causal = causal;
   p.scale_log2 = scale_log2;
   p.bound_log2 = bound_log2;
+  // the mask kind must compare where the call needs it: a kv tail that
+  // ends inside a 64-row tile, segment ids, causal
+  int need = p.kv_end % 64 ? MASK_TAIL : MASK_NONE;
+  if (q_seg != nullptr || causal) need = MASK_GENERAL;
+  if (mask_kind < need) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) return by_mask<64>(p, B, mask_kind, variant, s);
   if (D == 128) return by_mask<128>(p, B, mask_kind, variant, s);

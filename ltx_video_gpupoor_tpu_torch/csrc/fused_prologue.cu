@@ -17,20 +17,31 @@
 // What bounds it on an H100: the product (M 3840 to 15360, K 4096, N 12288
 // or 16384) does thousands of int8 operations per byte, so the tensor cores
 // bound it; the prologue reads x once (2 bytes a value) and writes 1 byte a
-// value, bound by memory and a few percent of the product's time.
+// value, M * K * 3 bytes at 3.35 TB/s (56 us at M=15360, K=4096), bound by
+// memory, with about 20 instructions a value (the IEEE division of h / s_x
+// the dearest) close behind.
 // Design: two launches in one call. The TPU kernel holds whole rows of K in
 // VMEM for a 480-row block and recomputes the prologue for every block of
 // output columns; a block here has 227 KB, so the rows of a product tile do
 // not fit beside it, and recomputing is not worth copying. Instead a row
-// kernel gives one block to each row (the row lives in shared memory as
-// fp32, so x is read from device memory once), reduces the mean of squares
-// and the absmax inside the block, picks the row's scale and shift rows by
-// row / rows_per_group (never broadcast to [M, K]) and writes int8 codes and
-// one scale a row. Then K2's GEMM (k2_int8_gemm, csrc/int8_linear.cu) runs
-// over the concatenated weights with the rescale and bias in its epilogue.
-// The bf16 h never reaches device memory; what does is M*K int8 codes.
-// The sum of squares is accumulated in double and rounded to fp32 once, so
-// that the mean does not depend on the order of summation.
+// kernel writes int8 codes and one scale a row, and K2's GEMM
+// (k2_int8_gemm, csrc/int8_linear.cu) runs over the concatenated weights
+// with the rescale and bias in its epilogue. The bf16 h never reaches
+// device memory; what does is M*K int8 codes.
+// The row kernel keeps a row in registers: one warp a row up to K = 4096
+// (W warps a row, W a power of two, up to 16 for K = 65536), each lane
+// holding slots of 16 consecutive values (slot lane + 32 (w + W i), eight
+// a lane), read with 16-byte loads (two a slot in bf16, four in fp32) and
+// written as 16 int8 codes with one 16-byte store. The sum of squares and
+// the absmax reduce by shuffles within the warp (and, at W > 1, across the
+// row's warps through shared memory); the group's scale and shift rows are
+// read once a slot with 16-byte loads and stay in L2. The bf16 instance
+// modulates two values an instruction (mul.rn.bf16x2 / add.rn.bf16x2:
+// a product or sum of two bf16 values rounded once to bf16 equals the fp32
+// op rounded to bf16, and the .rn form is never contracted into an FMA).
+// The sum of squares is accumulated in double and rounded to fp32 once,
+// so that the mean does not depend on the order of summation; h / s_x is
+// the IEEE quotient, rounded half to even, as the plain version.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,151 +55,267 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int ROW_THREADS = 256;
+constexpr int ROW_SLOTS = 8;        // 16-value slots a lane
+constexpr int MAX_ROW_WARPS = 16;   // warps a row: K <= 16 * 32 * 8 * 16
+constexpr float MAGIC = 12582912.0f;  // 1.5 * 2**23: + MAGIC rounds to int
 
-__device__ __forceinline__ float rb(float x) {  // round to bf16 and back
-  return __bfloat162float(__float2bfloat16_rn(x));
+// 16 values of a row: bf16 as 8 bf16x2 words, fp32 as 16 floats
+template <typename T>
+struct Slot;
+
+template <>
+struct Slot<bf16> {
+  uint32_t w[8];
+  __device__ __forceinline__ void load(const bf16* p) {
+    const uint4 a = __ldg(reinterpret_cast<const uint4*>(p));
+    const uint4 b = __ldg(reinterpret_cast<const uint4*>(p) + 1);
+    w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
+    w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
+  }
+  __device__ __forceinline__ float at(int i) const {  // value i as fp32
+    return __uint_as_float(i & 1 ? w[i >> 1] & 0xffff0000u : w[i >> 1] << 16);
+  }
+};
+
+template <>
+struct Slot<float> {
+  float f[16];
+  __device__ __forceinline__ void load(const float* p) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(p) + i);
+      f[4 * i] = v.x; f[4 * i + 1] = v.y; f[4 * i + 2] = v.z;
+      f[4 * i + 3] = v.w;
+    }
+  }
+  __device__ __forceinline__ float at(int i) const { return f[i]; }
+};
+
+__device__ __forceinline__ uint32_t bf2_add(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t bf2_mul(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t bf2_max(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("max.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t bf2_pack(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// two values of a row as fp32
-__device__ __forceinline__ float2 load2(const bf16* p) {
-  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
-  return make_float2(__bfloat162float(v.x), __bfloat162float(v.y));
-}
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
+// h = bf16(x * rr), then h = bf16(bf16(h * bf16(1 + s)) + t), two values
+// an instruction; returns max |h| of the slot
+__device__ __forceinline__ float modulate(Slot<bf16>& x, const Slot<bf16>& s,
+                                          const Slot<bf16>& t, float rr) {
+  constexpr uint32_t ONE2 = 0x3F803F80u;  // bf16x2 (1, 1)
+  uint32_t amax2 = 0u;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    uint32_t h = bf2_pack(x.at(2 * i) * rr, x.at(2 * i + 1) * rr);
+    h = bf2_add(bf2_mul(h, bf2_add(ONE2, s.w[i])), t.w[i]);
+    x.w[i] = h;
+    amax2 = bf2_max(amax2, h & 0x7fff7fffu);  // |h| of each half
+  }
+  return fmaxf(__uint_as_float(amax2 << 16),
+               __uint_as_float(amax2 & 0xffff0000u));
 }
 
-// h = (h * (1 + s)) + t in the activation dtype: each op rounds to bf16,
-// or (fp32 activations) is one IEEE fp32 op, never contracted into an FMA,
-// as PyTorch's separate elementwise ops compute it
-__device__ __forceinline__ float modulate(float h, float s, float t, bf16*) {
-  return rb(rb(h * rb(1.0f + s)) + t);
+// fp32 activations (FP32_POLICY): each op one IEEE fp32 op, never
+// contracted into an FMA, as PyTorch's separate elementwise ops compute it
+__device__ __forceinline__ float modulate(Slot<float>& x, const Slot<float>& s,
+                                          const Slot<float>& t, float rr) {
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const float h = __fadd_rn(__fmul_rn(x.f[i] * rr, __fadd_rn(1.0f, s.f[i])),
+                              t.f[i]);
+    x.f[i] = h;
+    amax = fmaxf(amax, fabsf(h));
+  }
+  return amax;
 }
-__device__ __forceinline__ float modulate(float h, float s, float t, float*) {
-  return __fadd_rn(__fmul_rn(h, __fadd_rn(1.0f, s)), t);
+
+// 16 codes clip(round_half_even(h / s), -127, 127), little end first
+template <typename T>
+__device__ __forceinline__ uint4 codes(const Slot<T>& h, float s) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float c[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float q = __fdiv_rn(h.at(4 * i + e), s);
+      c[e] = fminf(fmaxf(q, -127.f), 127.f) + MAGIC;  // the add rounds
+    }
+    const uint32_t lo = __byte_perm(__float_as_uint(c[0]),
+                                    __float_as_uint(c[1]), 0x0040);
+    const uint32_t hi = __byte_perm(__float_as_uint(c[2]),
+                                    __float_as_uint(c[3]), 0x0040);
+    w[i] = __byte_perm(lo, hi, 0x5410);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
 }
-__device__ __forceinline__ float round_act(float x, bf16*) { return rb(x); }
-__device__ __forceinline__ float round_act(float x, float*) { return x; }
 
 template <typename T>
-__global__ void __launch_bounds__(ROW_THREADS)
+__device__ __forceinline__ double sum_squares(const Slot<T>& x) {
+  double ss = 0.0;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const double a = x.at(i);
+    ss += a * a;
+  }
+  return ss;
+}
+
+// W warps a row (W <= 8: 8 / W rows a 256-thread block; W = 16: one row a
+// 512-thread block)
+template <typename T, int W>
+__global__ void __launch_bounds__(W <= 8 ? 256 : 32 * W)
 norm_mod_quantize_rows_kernel(const T* __restrict__ x,
                               const T* __restrict__ scale,
-                              const T* __restrict__ shift, int K,
+                              const T* __restrict__ shift, int M, int K,
                               int rows_per_group, float eps,
                               int8_t* __restrict__ xq,
                               float* __restrict__ sx) {
-  extern __shared__ float row_s[];  // the row as fp32, then h as fp32
-  __shared__ double red_d[ROW_THREADS / 32];
-  __shared__ float red_f[ROW_THREADS / 32];
-  const long long row = blockIdx.x;
-  const long long grp = row / rows_per_group;
-  const T* xr = x + row * K;
-  const T* sc = scale + grp * K;
-  const T* sh = shift + grp * K;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  constexpr int RPB = W <= 8 ? 8 / W : 1;  // rows a block
+  constexpr int WARPS = RPB * W;
+  __shared__ double red_d[WARPS];
+  __shared__ float red_f[WARPS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wr = warp % W;  // the warp's place in its row
+  const long long row = (long long)blockIdx.x * RPB + warp / W;
+  const bool live = row < M;  // the last block's rows may run past M
+  const int nslot = K / 16;
+  const long long grp = live ? row / rows_per_group : 0;
 
+  Slot<T> v[ROW_SLOTS];
   double ss = 0.0;
-  for (int i = threadIdx.x * 2; i < K; i += ROW_THREADS * 2) {
-    const float2 v = load2(xr + i);
-    const float a = v.x, b = v.y;
-    row_s[i] = a;
-    row_s[i + 1] = b;
-    ss += (double)a * a + (double)b * b;
+#pragma unroll
+  for (int i = 0; i < ROW_SLOTS; ++i) {
+    const int sl = lane + 32 * (wr + W * i);
+    if (live && sl < nslot) {
+      v[i].load(x + row * K + sl * 16);
+      ss += sum_squares(v[i]);
+    }
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-  if (lane == 0) red_d[warp] = ss;
-  __syncthreads();
-  double tot = 0.0;
+  if (W > 1) {
+    if (lane == 0) red_d[warp] = ss;
+    __syncthreads();
+    ss = 0.0;
 #pragma unroll
-  for (int w = 0; w < ROW_THREADS / 32; ++w) tot += red_d[w];
-  const float mean = (float)(tot / (double)K);
+    for (int w = 0; w < W; ++w) ss += red_d[warp - wr + w];
+  }
+  const float mean = (float)(ss / (double)K);
   const float rr = rsqrtf(mean + eps);
 
   float amax = 0.f;
-  for (int i = threadIdx.x * 2; i < K; i += ROW_THREADS * 2) {
-    const float2 s2 = load2(sc + i);
-    const float2 h2 = load2(sh + i);
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const float s = e ? s2.y : s2.x;
-      const float t = e ? h2.y : h2.x;
-      float h = round_act(row_s[i + e] * rr, static_cast<T*>(nullptr));
-      h = modulate(h, s, t, static_cast<T*>(nullptr));
-      row_s[i + e] = h;
-      amax = fmaxf(amax, fabsf(h));
+  for (int i = 0; i < ROW_SLOTS; ++i) {
+    const int sl = lane + 32 * (wr + W * i);
+    if (live && sl < nslot) {
+      Slot<T> s, t;
+      s.load(scale + grp * K + sl * 16);
+      t.load(shift + grp * K + sl * 16);
+      amax = fmaxf(amax, modulate(v[i], s, t, rr));
     }
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
   }
-  if (lane == 0) red_f[warp] = amax;
-  __syncthreads();
+  if (W > 1) {
+    if (lane == 0) red_f[warp] = amax;
+    __syncthreads();
 #pragma unroll
-  for (int w = 0; w < ROW_THREADS / 32; ++w) amax = fmaxf(amax, red_f[w]);
+    for (int w = 0; w < W; ++w) amax = fmaxf(amax, red_f[warp - wr + w]);
+  }
   const float s = fmaxf(__fdiv_rn(amax, 127.0f), 1e-8f);
 
-  int8_t* qr = xq + row * K;
-  for (int i = threadIdx.x * 2; i < K; i += ROW_THREADS * 2) {
-    // each thread reads back only what it wrote
-    float q0 = rintf(__fdiv_rn(row_s[i], s));
-    float q1 = rintf(__fdiv_rn(row_s[i + 1], s));
-    q0 = fminf(fmaxf(q0, -127.f), 127.f);
-    q1 = fminf(fmaxf(q1, -127.f), 127.f);
-    char2 c;
-    c.x = static_cast<signed char>(q0);
-    c.y = static_cast<signed char>(q1);
-    *reinterpret_cast<char2*>(qr + i) = c;
+#pragma unroll
+  for (int i = 0; i < ROW_SLOTS; ++i) {
+    const int sl = lane + 32 * (wr + W * i);
+    if (live && sl < nslot) {
+      *reinterpret_cast<uint4*>(xq + row * K + sl * 16) = codes(v[i], s);
+    }
   }
-  if (threadIdx.x == 0) sx[row] = s;
+  if (live && wr == 0 && lane == 0) sx[row] = s;
 }
 
+template <typename T, int W>
+int launch_rows_w(const T* x, const T* scale, const T* shift, int M, int K,
+                  int rows_per_group, float eps, void* xq, void* sx,
+                  cudaStream_t stream) {
+  constexpr int RPB = W <= 8 ? 8 / W : 1;
+  norm_mod_quantize_rows_kernel<T, W>
+      <<<(M + RPB - 1) / RPB, 32 * RPB * W, 0, stream>>>(
+          x, scale, shift, M, K, rows_per_group, eps,
+          static_cast<int8_t*>(xq), static_cast<float*>(sx));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the fewest warps a row whose slots cover K
 template <typename T>
 int launch_rows(const T* x, const T* scale, const T* shift, int M, int K,
                 int rows_per_group, float eps, void* xq, void* sx,
-                size_t smem, void* stream) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        norm_mod_quantize_rows_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+                void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  constexpr int per_warp = 32 * ROW_SLOTS * 16;
+  if (K <= per_warp) {
+    return launch_rows_w<T, 1>(x, scale, shift, M, K, rows_per_group, eps,
+                               xq, sx, s);
   }
-  norm_mod_quantize_rows_kernel<T><<<M, ROW_THREADS, smem,
-                                     static_cast<cudaStream_t>(stream)>>>(
-      x, scale, shift, K, rows_per_group, eps, static_cast<int8_t*>(xq),
-      static_cast<float*>(sx));
-  return static_cast<int>(cudaGetLastError());
+  if (K <= 2 * per_warp) {
+    return launch_rows_w<T, 2>(x, scale, shift, M, K, rows_per_group, eps,
+                               xq, sx, s);
+  }
+  if (K <= 4 * per_warp) {
+    return launch_rows_w<T, 4>(x, scale, shift, M, K, rows_per_group, eps,
+                               xq, sx, s);
+  }
+  if (K <= 8 * per_warp) {
+    return launch_rows_w<T, 8>(x, scale, shift, M, K, rows_per_group, eps,
+                               xq, sx, s);
+  }
+  return launch_rows_w<T, 16>(x, scale, shift, M, K, rows_per_group, eps,
+                              xq, sx, s);
 }
 
 }  // namespace
 
 // x [M, K] bf16 (x_dtype 0) or fp32 (1), scale/shift [M / rows_per_group,
-// K] in x's dtype -> xq [M, K] int8, sx [M] fp32. K must be even and K * 4
-// bytes must fit a block's shared memory.
+// K] in x's dtype, all 16-byte aligned -> xq [M, K] int8, sx [M] fp32. K
+// must be a multiple of 16 and at most 16 warps x 32 lanes x 8 slots x 16
+// values (65536).
 extern "C" int k5_norm_mod_quantize_rows(const void* x, const void* scale,
                                          const void* shift, int M, int K,
                                          int x_dtype, int rows_per_group,
                                          float eps, void* xq, void* sx,
                                          void* stream) {
   if (M <= 0) return static_cast<int>(cudaGetLastError());
-  if (K <= 0 || K % 2 != 0 || rows_per_group <= 0 || x_dtype < 0 ||
-      x_dtype > 1) {
+  if (K <= 0 || K % 16 != 0 ||
+      K > MAX_ROW_WARPS * 32 * ROW_SLOTS * 16 || rows_per_group <= 0 ||
+      x_dtype < 0 || x_dtype > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = static_cast<size_t>(K) * sizeof(float);
-  if (smem > 200 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   return x_dtype == 0
              ? launch_rows(static_cast<const bf16*>(x),
                            static_cast<const bf16*>(scale),
                            static_cast<const bf16*>(shift), M, K,
-                           rows_per_group, eps, xq, sx, smem, stream)
+                           rows_per_group, eps, xq, sx, stream)
              : launch_rows(static_cast<const float*>(x),
                            static_cast<const float*>(scale),
                            static_cast<const float*>(shift), M, K,
-                           rows_per_group, eps, xq, sx, smem, stream);
+                           rows_per_group, eps, xq, sx, stream);
 }
 
 // The whole of K5: the row kernel into the scratch xq / sx, then the s8

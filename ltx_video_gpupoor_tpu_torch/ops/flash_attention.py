@@ -99,6 +99,11 @@ MASK_KINDS = ("none", "tail", "general")
 # K1f: the fp32 kernel's variants (the C entry's ``variant``) and kv tile
 K1F_VARIANTS = ("exact", "bounded", "qk8", "qk8_bounded", "pv8")
 K1F_TILE_KV = 64
+# K1f's split-TF32 P.V: inside each 8-row group of V^T, k index t + 4i
+# holds kv row 2t + i, so that the score columns a thread holds in the
+# fp32 accumulator (2t, 2t + 1) are its TF32 A fragment (k indices t and
+# t + 4)
+K1F_PV_ORDER = tuple(2 * t + i for i in (0, 1) for t in range(4))
 
 
 def _check_seg_pair(q_segment_ids, kv_segment_ids):

@@ -27,8 +27,9 @@ tensors launch ``csrc/fused_prologue.cu`` (a row kernel, then K2's GEMM)
 or raise; bf16 activations (the served tiers) or fp32 (``FP32_POLICY``,
 the row kernel's fp32 instance: no bf16 rounding between its ops, an fp32
 output from the same GEMM). The TPU kernel's refusal of a group size with no 16-multiple
-divisor (:165-174) has no counterpart: a block here holds one row, so no
-block straddles two groups; :func:`supports` keeps the JAX gate so that
+divisor (:165-174) has no counterpart: each row (one warp, or a few,
+of the row kernel) reads its own group's scale and shift rows, so a block
+may straddle two groups; :func:`supports` keeps the JAX gate so that
 both packages take the same tier at the same shapes.
 """
 
@@ -41,7 +42,9 @@ import torch
 
 from .int8_matmul import int8_gemm_acc_plain, quantize_rows_plain
 
-_MAX_K = 200 * 1024 // 4   # one fp32 row in a block's shared memory
+# the row kernel holds a row in registers: at most 16 warps x 32 lanes x 8
+# slots of 16 values
+_MAX_K = 16 * 32 * 8 * 16
 
 
 def enabled_mode() -> str | None:
