@@ -84,7 +84,8 @@ Phases, one output line each (or a few):
             int8 codes and row scales of the row kernel and the int32
             product equal the plain version's exactly, the outputs agree
             to 1e-2 relative; a planted fault (two groups' modulation rows
-            swapped) must fail the check.
+            swapped) must fail the check. Its row kernel is timed beside
+            its own memory bound, one call and in a CUDA graph.
 5d. K6     the head-packed kernel against its plain version at the 13B
             shapes (B=1 S=3840 and 15360, 32 heads of 128), at the LTX-2B
             shape (B=3 S=5280, 32 heads of 64), on slices of a fused q/k/v
@@ -113,7 +114,9 @@ Phases, one output line each (or a few):
             body; on a dp2 x sp2 x tp2 mesh the rings that the neighbour
             ids spell out. Its time line gives the softmax state it moves
             through device memory.
-5g. K1f    the fp32 attention kernel (FP32_POLICY; CUDA cores, no tf32)
+5g. K1f    the fp32 attention kernel (FP32_POLICY; each product as three
+            TF32 wgmma products, split TF32; the build phase refuses a
+            spill or a serialized wgmma in any of its instances)
             against its plain versions at atol = rtol = 2e-5 (the JAX
             tests' fp32 tolerance) in each variant: exact at the LTX-2B
             self-attention (B=3 H=32 S=5280 D=64), the cross-attention to
@@ -122,7 +125,8 @@ Phases, one output line each (or a few):
             Q.K^T codes with an fp32 V (bounded or not); the int8 QK+PV
             tier against the plain version stepped by K1f's 64-row tile
             within int8_tile_bound; head-packed [B, S, H*D]; every mask
-            kind at tile edges for both head dims; planted faults (the last
+            kind at the edges of its 128-row q tiles and 64- and 32-row kv
+            tiles for both head dims; planted faults (the last
             q tile zeroed, a head scaled by 1 + 2**-6) must fail the check;
             then attention() on fp32 operands in every tier must launch the
             variant ops.attention.kernel_route names. K5's fp32 row
@@ -271,7 +275,7 @@ K8_SOURCE = "ltx_video_gpupoor_tpu_torch/csrc/flash_attention_pipelined.cu"
 K8_REPLACES = "tools/mb_selfattn_pipeline.py:32"
 # the card's published peaks (H100 SXM, dense): operations per second by
 # operand type, and bytes per second of device memory
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "tf32": 495e12}
 PEAK_BYTES = 3.35e12
 # K1 and K6 before their redesign (the mma.sync block with 64-row tiles),
 # and K2, K4, K5, K7 and K8 on their mma.sync kernels, ms on an NVIDIA H100 80GB
@@ -304,8 +308,10 @@ EX2_PER_SM_CLOCK = 16
 # the H100 SXM's published highest SM clock, where nvidia-smi gives none
 SM_CLOCK_MAX_MHZ = 1980.0
 # fp32 fused multiply-adds: 128 lanes on each SM, two operations each, at
-# the same highest clock (K1f's bound)
+# the same highest clock (K1f's second figure, its PR 9 design's bound)
 FP32_LANES_PER_SM = 128
+# K1f takes each product as three TF32 products (split TF32)
+K1F_TF32_PRODUCTS = 3
 # K1f against its plain version: the JAX tests' fp32 tolerance
 K1F_ATOL = K1F_RTOL = 2e-5
 # K4 against its plain version stepped by JAX's kv block (see _k4_case):
@@ -449,6 +455,15 @@ def cuda_time_ms(fn, reps: int = 5, warmup: int = 2) -> float:
     return times[len(times) // 2]
 
 
+def graph_ms(fn, calls: int = 20) -> float:
+    """Device milliseconds a call of ``fn``, from ``calls`` calls in one
+    CUDA graph (``cuda_time_ms`` of a short kernel includes the host's
+    launch path)."""
+    from ltx_video_gpupoor_tpu_torch.tools._bench_util import graph_ms as g
+
+    return g(fn, calls)
+
+
 # --------------------------------------------------------------------------
 # phases 1-2
 # --------------------------------------------------------------------------
@@ -487,7 +502,7 @@ def phase_device():
 # tensor-core instances are ring_kernel<0, ...>)
 WGMMA_KERNELS = ("flash_wgmma_kernel", "int8_gemm_wgmma_kernel",
                  "flash_int8_wgmma_kernel", "ring_kernelILi0E",
-                 "flash_pipelined_kernel")
+                 "flash_pipelined_kernel", "flash_fp32_wgmma_kernel")
 # Registers a thread of every instance of K1/K6, K2, K4, K7 and K8 as the
 # sources built them before K3 and K3q joined K1's and K4's kernels (ptxas
 # on the H100's host; the same with the flag), by kernel and mangled
@@ -570,14 +585,15 @@ def phase_build(compare=False):
     for ln in lines:
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           ln)
-        if spill:
-            spills[_instance(entry)] = int(spill.group(1)) + int(spill.group(2))
+        spilled = int(spill.group(1)) + int(spill.group(2)) if spill else 0
+        if spilled:
+            spills[_instance(entry)] = spilled
         if "Compiling entry" in ln:
             entry = ln.split("'")[1] if "'" in ln else ln
             # the template arguments (ILi<D>ELi<mask kind>E, and K7's
             # element type) tell the instances of one kernel apart
             log("  " + _instance(entry))
-        elif "Used" in ln or ("spill" in ln and "0 bytes spill" not in ln):
+        elif "Used" in ln or spilled:
             note = ""
             used = re.search(r"Used (\d+) registers", ln)
             if used:
@@ -587,8 +603,9 @@ def phase_build(compare=False):
                     note = (" (the parent's registers)" if was == n else
                             f" (MOVED: the parent's {was})")
             log("    " + ln.replace("ptxas info    : ", "") + note)
-            # every kernel on wgmma (K1/K3/K6, K2, K4/K3q, K7, K8) keeps
-            # wgmma groups in flight: a spill there is a fault of the design
+            # every kernel on wgmma (K1/K3/K6, K2, K4/K3q, K7, K8, K1f)
+            # keeps wgmma groups in flight or their registers pinned: a
+            # spill there is a fault of the design
             assert "Used" in ln or not any(
                 k in entry for k in WGMMA_KERNELS), \
                 f"a wgmma kernel spills: {ln} ({entry})"
@@ -601,13 +618,14 @@ def phase_build(compare=False):
     log(f"[build] {known} instances of K1/K6, K2, K4, K7 and K8 beside the "
         f"parent's registers: " + (f"MOVED {moved}" if moved else
                                    "every one at its parent's"))
-    k1f = sorted(k for k in regs if k.startswith("flash_fp32_kernel"))
-    assert k1f, "no K1f instance was built"
-    log(f"[build] K1f (flash_fp32_kernel<D, mask kind, variant>), "
-        f"{len(k1f)} instances: " + ", ".join(
-            f"{k[len('flash_fp32_kernel'):]} {regs[k]} registers"
+    for what, kernel in (("K1f", "flash_fp32_wgmma_kernel"),
+                         ("K5's row kernel", "norm_mod_quantize_rows_kernel")):
+        found = sorted(k for k in regs if k.startswith(kernel + "<"))
+        assert found, f"no {what} instance was built"
+        log(f"[build] {what} ({kernel}), {len(found)} instances: " + ", ".join(
+            f"{k[len(kernel):]} {regs[k]} registers"
             + (f" SPILLS {spills[k]} bytes" if spills.get(k) else "")
-            for k in k1f))
+            for k in found))
     return regs
 
 
@@ -1551,10 +1569,14 @@ def _k5_fp32_case(gen):
     assert ok, f"K5 fp32: codes differ in {flips:.2e}, max err {err:.3e}"
     bad, bflips, _ = agrees(scale.roll(1, 0), shift.roll(1, 0))
     assert not bad, "K5 fp32: the check passes a planted fault"
+    rows = graph_ms(lambda: fp.norm_mod_quantize_rows(x, scale, shift, **kw))
+    rows_bound = (m * k * 5 + 2 * g * k * 4 + 4 * m) / PEAK_BYTES * 1e3
     log(f"[K5] fp32 instance, pass 1 qkv: M={m} K={k} N={n} groups={g}: "
         f"int8 codes differ in {flips:.2e} of the elements, "
         f"max_abs_err={err:.3e}; a planted fault (groups' rows swapped) "
-        f"fails it (codes differ in {bflips:.2e}) ok")
+        f"fails it (codes differ in {bflips:.2e}); its row kernel "
+        f"{rows:.4f} ms in a CUDA graph, memory bound {rows_bound:.4f} ms "
+        f"({rows / rows_bound:.2f}x) ok")
     return err
 
 
@@ -1745,7 +1767,9 @@ def phase_k1f(gen):
     errs.append(_k1f_hp_case("LTX-2B", b, s, h, d, gen=gen))
     errs.append(_k1f_hp_case("ragged, kv_valid", 2, 1000, 4, 64, gen=gen,
                              kv_valid=777))
-    # every mask kind at the edges of the 64-row tiles, both head dims
+    # every mask kind at the edges of the tiles (128 q rows a block; kv
+    # tiles of 64 rows, 32 at D=128 in the fp32-score variants), both head
+    # dims
     for dd in (64, 128):
         for variant, bound in (("exact", None), ("bounded", 20.0),
                                ("qk8", None), ("pv8", None)):
@@ -1753,7 +1777,10 @@ def phase_k1f(gen):
                     (127, 255, None, False, None), (130, 1, None, False, None),
                     (512, 512, 300, False, None), (512, 512, 384, False, None),
                     (512, 512, 0, False, None), (333, 333, None, True, None),
-                    (700, 300, None, False, _cross_segments)):
+                    (700, 300, None, False, _cross_segments),
+                    (129, 96, None, False, None), (64, 33, None, False, None),
+                    (256, 256, 96, False, None), (160, 65, None, True, None),
+                    (257, 128, 127, False, None)):
                 (pv8_errs if variant == "pv8" else errs).append(_k1f_case(
                     "edges", 3 if seg else 1, 2, sq, skv, dd, gen=gen,
                     variant=variant, bound=bound, kv_valid=kv_valid,
@@ -1791,9 +1818,14 @@ def phase_k1f(gen):
 
 def time_k1f(gen, times, info, ex2_per_s):
     """K1f's time at the shapes it serves, beside its plain version, its
-    bound at the fp32 CUDA-core peak (the SMs x 128 lanes x 2 operations
-    at the highest SM clock that phase_device read) or the memory rate,
-    and scaled_dot_product_attention on the same fp32 operands."""
+    bound (the larger of the split-TF32 products, three TF32 products of
+    2*B*H*Sq*Skv*D operations each for each of Q.K^T and P.V at 495
+    TFLOP/s, the ex2 floor of one exponential a score, and the bytes of q,
+    k, v and the output once), the fp32-FMA figure (the CUDA cores' SMs x
+    128 lanes x 2 operations at the highest SM clock that phase_device
+    read) and scaled_dot_product_attention on the same fp32 operands. Each
+    time is of one call as the path makes it (host included) and, for
+    both K1f and the library call, device time in a CUDA graph."""
     import torch
 
     from ltx_video_gpupoor_tpu_torch.ops import flash_attention as fa
@@ -1802,18 +1834,24 @@ def time_k1f(gen, times, info, ex2_per_s):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     b, h, s, _, d = LTX2B_SELF
     b13, h13, s13, _, d13 = LTX13B_SELF[0]
+    sr = FP32_REQUEST_TOKENS
     cases = [("K1f self", (b, h, s, s, d), None, None),
              ("K1f cross", (b, h, s, 256, d), _cross_segments, None),
-             ("K1f request self", (b, h, FP32_REQUEST_TOKENS,
-                                   FP32_REQUEST_TOKENS, d), None, None),
+             ("K1f request self", (b, h, sr, sr, d), None, None),
+             ("K1f request cross", (b, h, sr, 256, d), _cross_segments,
+              None),
              ("K1f 13B pass 1 self", (b13, h13, s13, s13, d13), None, None),
              ("K1f bounded self", (b, h, s, s, d), None, LTX13B_BOUND)]
     for key, (bb, hh, sq, skv, dd), seg, bound in cases:
         q, k, v = (_fp32_heads(bb, hh, n, dd, gen, True)
                    for n in (sq, skv, skv))
         segs = seg(bb, sq, skv) if seg else (None, None)
-        kern = cuda_time_ms(lambda: fa.flash_attention(q, k, v, *segs,
-                                                       score_bound=bound))
+
+        def kern_fn():
+            return fa.flash_attention(q, k, v, *segs, score_bound=bound)
+
+        kern = cuda_time_ms(kern_fn)
+        kern_dev = graph_ms(kern_fn, calls=20 if sq <= sr else 3)
 
         def plain():
             for i in range(bb):
@@ -1828,21 +1866,31 @@ def time_k1f(gen, times, info, ex2_per_s):
         keys = bb * skv if seg is None else int((segs[1] > 0).sum())
         ops = 4 * hh * sq * keys * dd
         nbytes = 4 * hh * dd * (bb * sq * 2 + keys * 2)
-        t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
-        bnd = (max(t_ops, t_bytes) * 1e3,
-               "operations" if t_ops >= t_bytes else "bytes")
-        lib = None
+        t_tf32 = K1F_TF32_PRODUCTS * ops / PEAK_OPS["tf32"] * 1e3
+        t_ex2 = _ex2_ms(hh * sq * keys, ex2_per_s)
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_fma = ops / peak * 1e3
+        bnd = (max(t_tf32, t_ex2, t_bytes),
+               "bytes" if t_bytes > max(t_tf32, t_ex2) else "operations")
+        lib = lib_dev = None
         if bound is None:      # no PyTorch call clamps scores
             mask = _key_mask(segs[1]) if seg else None
             lib = cuda_time_ms(lambda: sdpa(q, k, v, attn_mask=mask))
+            lib_dev = graph_ms(lambda: sdpa(q, k, v, attn_mask=mask),
+                               calls=20 if sq <= sr else 3)
         times[key] = (kern, plain_ms)
         info[key] = (*bnd, lib)
         log(f"[time] {key} B={bb} H={hh} Sq={sq} Skv={skv} D={dd} fp32: "
-            f"kernel {kern:.3f} ms ({ops / kern / 1e9:.1f} TFLOP/s of "
-            f"{peak / 1e12:.1f}), plain {plain_ms:.3f} ms, bound "
-            f"{bnd[0]:.3f} ms ({bnd[1]}), scaled_dot_product_attention "
+            f"kernel {kern:.3f} ms, {kern_dev:.4f} ms in a CUDA graph "
+            f"({K1F_TF32_PRODUCTS * ops / kern_dev / 1e9:.1f} TF32 TFLOP/s); "
+            f"plain {plain_ms:.3f} ms; bound {bnd[0]:.3f} ms ({bnd[1]}: "
+            f"split TF32 {t_tf32:.3f}, ex2 floor {t_ex2:.3f}, bytes "
+            f"{t_bytes:.4f}; {bnd[0] / kern_dev:.0%} of it), fp32 FMA "
+            f"{t_fma:.3f} ms; scaled_dot_product_attention "
             + ("none (no PyTorch call clamps scores)" if lib is None
-               else f"in fp32 {lib:.3f} ms"))
+               else f"in fp32 {lib:.3f} ms, {lib_dev:.4f} ms in a graph "
+                    f"(K1f / SDPA {kern / lib:.2f}x one call, "
+                    f"{kern_dev / lib_dev:.2f}x in graphs)"))
         del q, k, v
         torch.cuda.empty_cache()
 
@@ -2261,6 +2309,10 @@ def phase_timing(gen, ex2_per_s):
             x, scale, shift, w8, sw, bias, **kw))
         rows = cuda_time_ms(lambda: fp.norm_mod_quantize_rows(
             x, scale, shift, **kw))
+        rows_dev = graph_ms(lambda: fp.norm_mod_quantize_rows(
+            x, scale, shift, **kw))
+        # x read and the codes written once, the group rows, a scale a row
+        rows_bound = (m * kk * 3 + 2 * g * kk * 2 + 4 * m) / PEAK_BYTES * 1e3
         plain = cuda_time_ms(lambda: fp.norm_mod_int8_matmul_plain(
             x, scale, shift, w8, sw, bias, **kw), reps=3, warmup=1)
 
@@ -2275,7 +2327,9 @@ def phase_timing(gen, ex2_per_s):
         info[f"K5 {name}"] = (*bnd, None)
         log(f"[time] K5 {name} M={m} K={kk} N={n} groups={g}: kernel "
             f"{kern:.3f} ms ({2 * m * kk * n / kern / 1e9:.1f} TOP/s; its row "
-            f"kernel alone {rows:.3f} ms), plain {plain:.3f} ms, the unfused "
+            f"kernel alone {rows:.3f} ms one call, {rows_dev:.4f} ms in a "
+            f"CUDA graph, its memory bound {rows_bound:.4f} ms: "
+            f"{rows_dev / rows_bound:.2f}x), plain {plain:.3f} ms, the unfused "
             f"chain (PyTorch norm and modulation, then K2) {chain:.3f} ms, "
             f"bound {bnd[0]:.3f} ms ({bnd[1]}), the accepted mma.sync GEMM "
             f"{ACCEPTED_MS['K5 ' + name]:.3f} ms "
@@ -3823,8 +3877,8 @@ def main(argv=None) -> int:
                      f"nsub={K8_JSON_NSUB})", K8_SOURCE, K8_REPLACES,
                      k8_launches, k8_err, times, info,
                      f"K8 nsub {K8_JSON_NSUB}"),
-        kernel_entry("flash_attention_fp32 (fp32 attention on the CUDA "
-                     "cores, FP32_POLICY)", K1F_SOURCE, K1F_REPLACES,
+        kernel_entry("flash_attention_fp32 (fp32 attention on split-TF32 "
+                     "wgmma, FP32_POLICY)", K1F_SOURCE, K1F_REPLACES,
                      fp32_launches["K1f"], k1f_err, times, info, "K1f self"),
     ]
     next(k for k in kernels if k["source"] == K8_SOURCE)["ms_by_nsub"] = {

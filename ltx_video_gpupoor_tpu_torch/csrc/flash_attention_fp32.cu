@@ -71,7 +71,15 @@
 //   release of the K stage, the mask, the softmax step, the split of p in
 //   registers, P.V (RS, 3 x kv/8 wgmma), its release of the V stage. The
 //   two warpgroups share the tensor cores, so one's softmax runs under the
-//   other's products.
+//   other's products. Every consumer thread arrives on an empty barrier
+//   (a lane-0 arrival is a divergent path next to the wgmma, which ptxas
+//   then serialized), and the descriptors are built where they are used
+//   (desc_here), not hoisted out of the kv loop into registers.
+// - Registers: 384 threads leave 168 a thread. At D=128 the accumulator
+//   is 64 of them, so where a 64-row tile's split P (64 more) would not
+//   fit beside it (the int8-score variants), P.V runs in two chunks of 32
+//   kv rows, each waited for; pv8 takes its s8 P.V in two halves of 64
+//   output columns (one 32-register s32 accumulator).
 // - The int8 variants take Q.K^T on s8 wgmma (m64n64k32, K-major codes in
 //   64-byte rows under the 64-byte swizzle at D=64, 128-byte rows at
 //   D=128, as K4) with a 64-row kv tile at both head dims; qk8 and
@@ -129,6 +137,9 @@ struct Cfg1f {
   static constexpr bool SPLIT_QK = !INT8_QK;
   static constexpr int BKV = (SPLIT_QK && D == 128) ? 32 : 64;
   static constexpr int STAGES = (SPLIT_QK && D == 128) ? 1 : 2;
+  // kv rows of one split-TF32 P.V chunk: 32 where the accumulator (D=128)
+  // and a 64-row tile's split P would not fit beside each other
+  static constexpr int PVC = (D == 128 && BKV == 64) ? 32 : BKV;
   // split operands: big, then small, each in panels of 32 floats
   static constexpr int Q_BYTES = INT8_QK ? K1F_BQ * D : 2 * K1F_BQ * D * 4;
   static constexpr int K_BYTES = INT8_QK ? BKV * D : 2 * BKV * D * 4;
@@ -479,87 +490,61 @@ __device__ __forceinline__ void wgmma_s8_rs_n64(uint32_t (&d)[32], uint32_t a0, 
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
 }
 
-// the same with a 128 x 32 b
-__device__ __forceinline__ void wgmma_s8_rs_n128(uint32_t (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3, uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31, "
-      " %32, %33, %34, %35, %36, %37, %38, %39, "
-      " %40, %41, %42, %43, %44, %45, %46, %47, "
-      " %48, %49, %50, %51, %52, %53, %54, %55, "
-      " %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p;\n"
-      "}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
-        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
-        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
-        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
-        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
-        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
-        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
+// A shared-memory descriptor built where it is used: the asm hides its
+// value from the compiler, which would otherwise hoist every k-step's
+// descriptors out of the kv loop and hold them in registers (128 at D=128)
+__device__ __forceinline__ uint64_t desc_here(uint32_t addr, uint32_t sbo,
+                                              int layout = SWIZZLE_128B) {
+  uint64_t d = wgmma_desc(addr, 16, sbo, layout);
+  asm volatile("" : "+l"(d));
+  return d;
 }
 
 // Q.K^T of one kv tile in split TF32: sc (64 q rows x BKV) = Qb.Ks +
 // Qs.Kb, then + Qb.Kb; q and k are the big parts of this warpgroup's Q
 // rows (panels of 128 rows) and of the K stage (panels of BKV rows), the
-// small parts lie a whole tile further on. Issued and committed.
+// small parts lie a whole tile further on. A k-step of 8 values is 32
+// bytes of a 128-byte row, 16 units of the descriptor's address field.
+// Issued and committed.
 template <int D, int BKV>
 __device__ __forceinline__ void qk_issue_f32(float (&sc)[BKV / 2],
                                              uint32_t q, uint32_t k) {
   constexpr int QP = K1F_BQ * 128, KP = BKV * 128;
   constexpr int QS = K1F_BQ * D * 4, KS = BKV * D * 4;
-  auto mma = [&](uint32_t a, uint32_t b, int scale_d) {
-    const uint64_t da = wgmma_desc(a, 16, 1024);
-    const uint64_t db = wgmma_desc(b, 16, 1024);
-    if constexpr (BKV == 64) wgmma_tf32_ss_n64(sc, da, db, scale_d);
-    if constexpr (BKV == 32) wgmma_tf32_ss_n32(sc, da, db, scale_d);
+  const uint64_t qb = desc_here(q, 1024), qs = desc_here(q + QS, 1024);
+  const uint64_t kb = desc_here(k, 1024), ks = desc_here(k + KS, 1024);
+  auto mma = [&](uint64_t da, uint64_t db, int kk, int scale_d) {
+    const uint64_t qo = ((kk >> 2) * QP + (kk & 3) * 32) >> 4;
+    const uint64_t ko = ((kk >> 2) * KP + (kk & 3) * 32) >> 4;
+    if constexpr (BKV == 64) wgmma_tf32_ss_n64(sc, da + qo, db + ko, scale_d);
+    if constexpr (BKV == 32) wgmma_tf32_ss_n32(sc, da + qo, db + ko, scale_d);
   };
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 8; ++kk) {
-    const uint32_t qo = q + (kk >> 2) * QP + (kk & 3) * 32;
-    const uint32_t ko = k + (kk >> 2) * KP + (kk & 3) * 32;
-    mma(qo, ko + KS, kk > 0);
-    mma(qo + QS, ko, 1);
+    mma(qb, ks, kk, kk > 0);
+    mma(qs, kb, kk, 1);
   }
 #pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk) {
-    mma(q + (kk >> 2) * QP + (kk & 3) * 32, k + (kk >> 2) * KP + (kk & 3) * 32,
-        1);
-  }
+  for (int kk = 0; kk < D / 8; ++kk) mma(qb, kb, kk, 1);
   wgmma_commit();
 }
 
-// acc += P.V of one kv tile in split TF32: Pb.Vs + Ps.Vb, then Pb.Vb; P
-// from registers (k-step kk: score columns 8 kk .. 8 kk + 7, registers
-// 4 kk .. 4 kk + 3 of the accumulator layout, which are the A fragment's
-// a0, a2, a1, a3), V^T big at v (panels of 32 kv), small a tile further.
+// acc += P.V of KV kv rows of a tile (from k-step kk0, 8 kv rows a
+// k-step) in split TF32: Pb.Vs + Ps.Vb, then Pb.Vb; P from registers
+// (k-step kk: score columns 8 kk .. 8 kk + 7, registers 4 kk .. 4 kk + 3
+// of the accumulator layout, which are the A fragment's a0, a2, a1, a3),
+// V^T big at v (panels of 32 kv), small a tile (BKV kv rows) further.
 // Issued and committed.
-template <int D, int BKV>
+template <int D, int BKV, int KV>
 __device__ __forceinline__ void pv_issue_f32(float (&acc)[D / 2],
-                                             uint32_t (&pb)[BKV / 2],
-                                             uint32_t (&ps)[BKV / 2],
-                                             uint32_t v) {
+                                             uint32_t (&pb)[KV / 2],
+                                             uint32_t (&ps)[KV / 2],
+                                             uint32_t v, int kk0) {
   constexpr int VP = D * 128, VS = D * BKV * 4;
-  auto mma = [&](const uint32_t (&a)[BKV / 2], int kk, uint32_t b) {
-    const uint64_t db = wgmma_desc(b + (kk >> 2) * VP + (kk & 3) * 32, 16,
-                                   1024);
+  auto mma = [&](const uint32_t (&a)[KV / 2], int kk, uint64_t db) {
+    const int k = kk0 + kk;
+    db += ((k >> 2) * VP + (k & 3) * 32) >> 4;
     if constexpr (D == 64) {
       wgmma_tf32_rs_n64(acc, a[4 * kk], a[4 * kk + 2], a[4 * kk + 1],
                         a[4 * kk + 3], db, 1);
@@ -568,17 +553,18 @@ __device__ __forceinline__ void pv_issue_f32(float (&acc)[D / 2],
                          a[4 * kk + 3], db, 1);
     }
   };
+  const uint64_t vb = desc_here(v, 1024), vs = desc_here(v + VS, 1024);
   pin(acc);
   pin(pb);
   pin(ps);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < BKV / 8; ++kk) {
-    mma(pb, kk, v + VS);
-    mma(ps, kk, v);
+  for (int kk = 0; kk < KV / 8; ++kk) {
+    mma(pb, kk, vs);
+    mma(ps, kk, vb);
   }
 #pragma unroll
-  for (int kk = 0; kk < BKV / 8; ++kk) mma(pb, kk, v);
+  for (int kk = 0; kk < KV / 8; ++kk) mma(pb, kk, vb);
   wgmma_commit();
 }
 
@@ -588,34 +574,29 @@ template <int D>
 __device__ __forceinline__ void qk_issue_s8(uint32_t (&sc)[32], uint32_t q,
                                             uint32_t k) {
   constexpr int LAYOUT = Cfg1f<D, QK8>::QK8_LAYOUT;
+  const uint64_t qd = desc_here(q, 8 * D, LAYOUT);
+  const uint64_t kd = desc_here(k, 8 * D, LAYOUT);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 32; ++kk) {
-    wgmma_s8_ss_n64(sc, wgmma_desc(q + kk * 32, 16, 8 * D, LAYOUT),
-                    wgmma_desc(k + kk * 32, 16, 8 * D, LAYOUT), kk > 0);
+    wgmma_s8_ss_n64(sc, qd + kk * 2, kd + kk * 2, kk > 0);
   }
   wgmma_commit();
 }
 
-// pv = P8.V8 (s32, fresh) of one 64-row kv tile: P codes from registers
-// (k-step kk: logical kv columns 32 kk .. 32 kk + 31), V^T codes in rows
-// of 64 bytes. Issued and committed.
-template <int D>
-__device__ __forceinline__ void pv_issue_s8(uint32_t (&pv)[D / 2],
+// pv = P8.V8 (s32, fresh) of one 64-row kv tile against 64 rows (d) of
+// V^T codes in rows of 64 bytes: P codes from registers (k-step kk:
+// logical kv columns 32 kk .. 32 kk + 31). Issued and committed.
+__device__ __forceinline__ void pv_issue_s8(uint32_t (&pv)[32],
                                             uint32_t (&p8)[8], uint32_t v) {
+  const uint64_t vd = desc_here(v, 512, SWIZZLE_64B);
   pin(pv);
   pin(p8);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < 2; ++kk) {
-    const uint64_t db = wgmma_desc(v + kk * 32, 16, 512, SWIZZLE_64B);
-    if constexpr (D == 64) {
-      wgmma_s8_rs_n64(pv, p8[4 * kk], p8[4 * kk + 1], p8[4 * kk + 2],
-                      p8[4 * kk + 3], db, kk > 0);
-    } else {
-      wgmma_s8_rs_n128(pv, p8[4 * kk], p8[4 * kk + 1], p8[4 * kk + 2],
-                       p8[4 * kk + 3], db, kk > 0);
-    }
+    wgmma_s8_rs_n64(pv, p8[4 * kk], p8[4 * kk + 1], p8[4 * kk + 2],
+                    p8[4 * kk + 3], vd + kk * 2, kk > 0);
   }
   wgmma_commit();
 }
@@ -715,8 +696,10 @@ __global__ void __launch_bounds__(K1F_THREADS, 1)
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(k_full + 8 * s, 128);
       mbar_init(v_full + 8 * s, 128);
-      mbar_init(k_empty + 8 * s, 8);  // one arrival a consumer warp
-      mbar_init(v_empty + 8 * s, 8);
+      // every consumer thread arrives: a lane-0 arrival is a divergent
+      // path that made ptxas serialize the wgmma (C7520)
+      mbar_init(k_empty + 8 * s, 256);
+      mbar_init(v_empty + 8 * s, 256);
     }
     mbar_init_fence();
   }
@@ -821,7 +804,7 @@ __global__ void __launch_bounds__(K1F_THREADS, 1)
       qk_issue_s8<D>(sc, sQ, sK + s * C::K_BYTES);
       wgmma_wait<0>();
       pin(sc);
-      if (lane == 0) mbar_arrive(k_empty + 8 * s);
+      mbar_arrive(k_empty + 8 * s);
       if constexpr (INT8_PV) {
         const float ks = p.k_scale[bh * p.nks + kv0 / p.k_block];
         const float f0 = qsc0 * ks, f1 = qsc1 * ks;
@@ -847,15 +830,18 @@ __global__ void __launch_bounds__(K1F_THREADS, 1)
       qk_issue_f32<D, BKV>(x, sQ, sK + s * C::K_BYTES);
       wgmma_wait<0>();
       pin(x);
-      if (lane == 0) mbar_arrive(k_empty + 8 * s);
+      mbar_arrive(k_empty + 8 * s);
 #pragma unroll
       for (int i = 0; i < BKV / 2; ++i) x[i] *= p.scale_log2;
     }
     constexpr int how = decltype(masked)::value;
-    if (how == MASK_ALWAYS) mask_scores<MASK>(x, p, r, kv0, t);
+    if (how == MASK_ALWAYS || (how == MASK_ASK && j == n_tiles - 1)) {
+      mask_scores<MASK>(x, p, r, kv0, t);
+    }
 
     // the softmax step: x becomes p
-    float ls0 = 0.f, ls1 = 0.f, a0 = 1.f, a1 = 1.f;
+    float ls0 = 0.f, ls1 = 0.f;
+    [[maybe_unused]] float a0 = 1.f, a1 = 1.f;
     if constexpr (C::BOUNDED) {
       const float sb = p.bound_log2;
 #pragma unroll
@@ -902,37 +888,49 @@ __global__ void __launch_bounds__(K1F_THREADS, 1)
 
     mbar_wait(v_full + 8 * s, ph);
     if constexpr (INT8_PV) {
-      uint32_t p8[8], pv[D / 2];
+      uint32_t p8[8], pv[32];
       float cs0, cs1;
       pack_codes(x, p8, cs0, cs1);
       if (D % 128) {  // JAX's ones column of V sums the codes
         ls0 = (cs0 * 127.f) * SUM_COL_SCALE;
         ls1 = (cs1 * 127.f) * SUM_COL_SCALE;
       }
-      pv_issue_s8<D>(pv, p8, sV + s * C::V_BYTES);
-      wgmma_wait<0>();
-      pin(pv);
-      if (lane == 0) mbar_arrive(v_empty + 8 * s);
+      // 64 output columns at a time: one s32 accumulator of 32 registers
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const float2 vs =
-            *reinterpret_cast<const float2*>(vsc_s + n * 8 + 2 * t);
-        acc[4 * n] = fmaf(i2f(pv[4 * n]), vs.x, acc[4 * n]);
-        acc[4 * n + 1] = fmaf(i2f(pv[4 * n + 1]), vs.y, acc[4 * n + 1]);
-        acc[4 * n + 2] = fmaf(i2f(pv[4 * n + 2]), vs.x, acc[4 * n + 2]);
-        acc[4 * n + 3] = fmaf(i2f(pv[4 * n + 3]), vs.y, acc[4 * n + 3]);
+      for (int half = 0; half < D / 64; ++half) {
+        pv_issue_s8(pv, p8, sV + s * C::V_BYTES + half * 64 * 64);
+        wgmma_wait<0>();
+        pin(pv);
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const int a = 32 * half + 4 * n;
+          const float2 vs = *reinterpret_cast<const float2*>(
+              vsc_s + 64 * half + n * 8 + 2 * t);
+          acc[a] = fmaf(i2f(pv[4 * n]), vs.x, acc[a]);
+          acc[a + 1] = fmaf(i2f(pv[4 * n + 1]), vs.y, acc[a + 1]);
+          acc[a + 2] = fmaf(i2f(pv[4 * n + 2]), vs.x, acc[a + 2]);
+          acc[a + 3] = fmaf(i2f(pv[4 * n + 3]), vs.y, acc[a + 3]);
+        }
       }
+      mbar_arrive(v_empty + 8 * s);
     } else {
-      uint32_t pb[BKV / 2], ps[BKV / 2];
+      // in chunks of PVC kv rows, each waited for: the split P of a chunk
+      // is 2 x PVC / 2 registers
 #pragma unroll
-      for (int i = 0; i < BKV / 2; ++i) {
-        pb[i] = tf32_rna(x[i]);
-        ps[i] = tf32_rna(x[i] - __uint_as_float(pb[i]));
+      for (int c = 0; c < BKV / C::PVC; ++c) {
+        uint32_t pb[C::PVC / 2], ps[C::PVC / 2];
+#pragma unroll
+        for (int i = 0; i < C::PVC / 2; ++i) {
+          const float pe = x[c * (C::PVC / 2) + i];
+          pb[i] = tf32_rna(pe);
+          ps[i] = tf32_rna(pe - __uint_as_float(pb[i]));
+        }
+        pv_issue_f32<D, BKV, C::PVC>(acc, pb, ps, sV + s * C::V_BYTES,
+                                     c * (C::PVC / 8));
+        wgmma_wait<0>();
+        pin(acc);
       }
-      pv_issue_f32<D, BKV>(acc, pb, ps, sV + s * C::V_BYTES);
-      wgmma_wait<0>();
-      pin(acc);
-      if (lane == 0) mbar_arrive(v_empty + 8 * s);
+      mbar_arrive(v_empty + 8 * s);
     }
     if constexpr (C::BOUNDED) {
       l0 += ls0;
@@ -945,13 +943,13 @@ __global__ void __launch_bounds__(K1F_THREADS, 1)
 
   if (n_tiles > 0) {
     mbar_wait(q_full, 0);
+    // the tail kind's last tile, the one that straddles kv_end, compares
     if (MASK == MASK_GENERAL) {
       for (int j = 0; j < n_tiles; ++j) step(j, How<MASK_ALWAYS>{});
+    } else if (MASK == MASK_TAIL) {
+      for (int j = 0; j < n_tiles; ++j) step(j, How<MASK_ASK>{});
     } else {
-      // the tail kind's last tile, the one that straddles kv_end, compares
-      const int n_free = MASK == MASK_TAIL ? n_tiles - 1 : n_tiles;
-      for (int j = 0; j < n_free; ++j) step(j, How<MASK_NEVER>{});
-      if (MASK == MASK_TAIL) step(n_tiles - 1, How<MASK_ALWAYS>{});
+      for (int j = 0; j < n_tiles; ++j) step(j, How<MASK_NEVER>{});
     }
   }
 

@@ -18,8 +18,8 @@
 // or 16384) does thousands of int8 operations per byte, so the tensor cores
 // bound it; the prologue reads x once (2 bytes a value) and writes 1 byte a
 // value, M * K * 3 bytes at 3.35 TB/s (56 us at M=15360, K=4096), bound by
-// memory, with about 20 instructions a value (the IEEE division of h / s_x
-// the dearest) close behind.
+// memory, with about 20 instructions a value close behind (the IEEE
+// division of h / s_x is taken only where h * (1 / s_x) lies near a half).
 // Design: two launches in one call. The TPU kernel holds whole rows of K in
 // VMEM for a 480-row block and recomputes the prologue for every block of
 // output columns; a block here has 227 KB, so the rows of a product tile do
@@ -28,20 +28,21 @@
 // (k2_int8_gemm, csrc/int8_linear.cu) runs over the concatenated weights
 // with the rescale and bias in its epilogue. The bf16 h never reaches
 // device memory; what does is M*K int8 codes.
-// The row kernel keeps a row in registers: one warp a row up to K = 4096
-// (W warps a row, W a power of two, up to 16 for K = 65536), each lane
-// holding slots of 16 consecutive values (slot lane + 32 (w + W i), eight
-// a lane), read with 16-byte loads (two a slot in bf16, four in fp32) and
-// written as 16 int8 codes with one 16-byte store. The sum of squares and
-// the absmax reduce by shuffles within the warp (and, at W > 1, across the
-// row's warps through shared memory); the group's scale and shift rows are
+// The row kernel keeps a row in registers: W warps a row (8 at K=4096),
+// each lane holding slots of 16 consecutive values (slot lane + 32 (w + W
+// i); one a lane up to K = 4096, up to 8 for K = 32768), read with 16-byte
+// loads (two a slot in bf16, four in fp32) and written as 16 int8 codes
+// with one 16-byte store. The sum of squares and the absmax reduce by
+// shuffles within each warp, then across the row's warps through shared
+// memory; the group's scale and shift rows are
 // read once a slot with 16-byte loads and stay in L2. The bf16 instance
 // modulates two values an instruction (mul.rn.bf16x2 / add.rn.bf16x2:
 // a product or sum of two bf16 values rounded once to bf16 equals the fp32
 // op rounded to bf16, and the .rn form is never contracted into an FMA).
 // The sum of squares is accumulated in double and rounded to fp32 once,
-// so that the mean does not depend on the order of summation; h / s_x is
-// the IEEE quotient, rounded half to even, as the plain version.
+// so that the mean does not depend on the order of summation; the codes
+// are those of the IEEE quotient h / s_x rounded half to even, as the
+// plain version's (rint_quotient).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,8 +56,7 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int ROW_SLOTS = 8;        // 16-value slots a lane
-constexpr int MAX_ROW_WARPS = 16;   // warps a row: K <= 16 * 32 * 8 * 16
+constexpr int MAX_K = 32768;        // the longest row the kernel takes
 constexpr float MAGIC = 12582912.0f;  // 1.5 * 2**23: + MAGIC rounds to int
 
 // 16 values of a row: bf16 as 8 bf16x2 words, fp32 as 16 floats
@@ -143,17 +143,28 @@ __device__ __forceinline__ float modulate(Slot<float>& x, const Slot<float>& s,
   return amax;
 }
 
+// rint(h / s) with the IEEE quotient, from h * r (r = 1 / s rounded): the
+// product lies within 3 * 2**-24 * |h / s| < 2.3e-5 of the quotient for
+// |h / s| <= 128, so it rounds to the same integer unless it lies within
+// 1e-4 of a half; there (about 2 in 10**4 values) the quotient is taken
+__device__ __forceinline__ float rint_quotient(float h, float s, float r) {
+  const float q = h * r;
+  const float rq = rintf(q);
+  if (fabsf(fabsf(q - rq) - 0.5f) < 1e-4f) return rintf(__fdiv_rn(h, s));
+  return rq;
+}
+
 // 16 codes clip(round_half_even(h / s), -127, 127), little end first
 template <typename T>
-__device__ __forceinline__ uint4 codes(const Slot<T>& h, float s) {
+__device__ __forceinline__ uint4 codes(const Slot<T>& h, float s, float r) {
   uint32_t w[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     float c[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float q = __fdiv_rn(h.at(4 * i + e), s);
-      c[e] = fminf(fmaxf(q, -127.f), 127.f) + MAGIC;  // the add rounds
+      const float q = rint_quotient(h.at(4 * i + e), s, r);
+      c[e] = fminf(fmaxf(q, -127.f), 127.f) + MAGIC;  // its low byte
     }
     const uint32_t lo = __byte_perm(__float_as_uint(c[0]),
                                     __float_as_uint(c[1]), 0x0040);
@@ -175,18 +186,24 @@ __device__ __forceinline__ double sum_squares(const Slot<T>& x) {
   return ss;
 }
 
-// W warps a row (W <= 8: 8 / W rows a 256-thread block; W = 16: one row a
-// 512-thread block)
-template <typename T, int W>
-__global__ void __launch_bounds__(W <= 8 ? 256 : 32 * W)
+// W warps a row (8 / W rows a 256-thread block), SLOTS 16-value slots a
+// lane. One slot a lane keeps a thread under 40 registers (48 in fp32,
+// whose slot is 16 of them), so that six (five) blocks share an SM and
+// hide each other's latency: a row's load, reductions and stores follow
+// one another, and with eight slots a lane (106 registers, two blocks an
+// SM) the kernel stayed far from its memory bound however little
+// arithmetic it did; loading a warp's next row under its current one, at
+// fewer blocks an SM, did not close the gap either.
+template <typename T, int SLOTS, int W>
+__global__ void __launch_bounds__(256, SLOTS > 1 ? 1 : sizeof(T) == 2 ? 6 : 5)
 norm_mod_quantize_rows_kernel(const T* __restrict__ x,
                               const T* __restrict__ scale,
                               const T* __restrict__ shift, int M, int K,
                               int rows_per_group, float eps,
                               int8_t* __restrict__ xq,
                               float* __restrict__ sx) {
-  constexpr int RPB = W <= 8 ? 8 / W : 1;  // rows a block
-  constexpr int WARPS = RPB * W;
+  constexpr int RPB = 8 / W;  // rows a block
+  constexpr int WARPS = 8;
   __shared__ double red_d[WARPS];
   __shared__ float red_f[WARPS];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -196,6 +213,7 @@ norm_mod_quantize_rows_kernel(const T* __restrict__ x,
   const int nslot = K / 16;
   const long long grp = live ? row / rows_per_group : 0;
 
+  constexpr int ROW_SLOTS = SLOTS;
   Slot<T> v[ROW_SLOTS];
   double ss = 0.0;
 #pragma unroll
@@ -240,70 +258,63 @@ norm_mod_quantize_rows_kernel(const T* __restrict__ x,
     for (int w = 0; w < W; ++w) amax = fmaxf(amax, red_f[warp - wr + w]);
   }
   const float s = fmaxf(__fdiv_rn(amax, 127.0f), 1e-8f);
+  const float r = __frcp_rn(s);
 
 #pragma unroll
   for (int i = 0; i < ROW_SLOTS; ++i) {
     const int sl = lane + 32 * (wr + W * i);
     if (live && sl < nslot) {
-      *reinterpret_cast<uint4*>(xq + row * K + sl * 16) = codes(v[i], s);
+      *reinterpret_cast<uint4*>(xq + row * K + sl * 16) = codes(v[i], s, r);
     }
   }
   if (live && wr == 0 && lane == 0) sx[row] = s;
 }
 
-template <typename T, int W>
-int launch_rows_w(const T* x, const T* scale, const T* shift, int M, int K,
-                  int rows_per_group, float eps, void* xq, void* sx,
-                  cudaStream_t stream) {
-  constexpr int RPB = W <= 8 ? 8 / W : 1;
-  norm_mod_quantize_rows_kernel<T, W>
-      <<<(M + RPB - 1) / RPB, 32 * RPB * W, 0, stream>>>(
+template <typename T, int SLOTS, int W>
+int launch_rows_sw(const T* x, const T* scale, const T* shift, int M, int K,
+                   int rows_per_group, float eps, void* xq, void* sx,
+                   cudaStream_t stream) {
+  constexpr int RPB = 8 / W;
+  norm_mod_quantize_rows_kernel<T, SLOTS, W>
+      <<<(M + RPB - 1) / RPB, 256, 0, stream>>>(
           x, scale, shift, M, K, rows_per_group, eps,
           static_cast<int8_t*>(xq), static_cast<float*>(sx));
   return static_cast<int>(cudaGetLastError());
 }
 
-// the fewest warps a row whose slots cover K
+// one slot a lane and the fewest warps a row that cover K (up to 4096
+// values); longer rows take 8 warps and 2, 4 or 8 slots a lane
 template <typename T>
 int launch_rows(const T* x, const T* scale, const T* shift, int M, int K,
                 int rows_per_group, float eps, void* xq, void* sx,
                 void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  constexpr int per_warp = 32 * ROW_SLOTS * 16;
-  if (K <= per_warp) {
-    return launch_rows_w<T, 1>(x, scale, shift, M, K, rows_per_group, eps,
-                               xq, sx, s);
-  }
-  if (K <= 2 * per_warp) {
-    return launch_rows_w<T, 2>(x, scale, shift, M, K, rows_per_group, eps,
-                               xq, sx, s);
-  }
-  if (K <= 4 * per_warp) {
-    return launch_rows_w<T, 4>(x, scale, shift, M, K, rows_per_group, eps,
-                               xq, sx, s);
-  }
-  if (K <= 8 * per_warp) {
-    return launch_rows_w<T, 8>(x, scale, shift, M, K, rows_per_group, eps,
-                               xq, sx, s);
-  }
-  return launch_rows_w<T, 16>(x, scale, shift, M, K, rows_per_group, eps,
-                              xq, sx, s);
+#define K5_ROWS(SLOTS, W)                                                   \
+  return launch_rows_sw<T, SLOTS, W>(x, scale, shift, M, K, rows_per_group, \
+                                     eps, xq, sx, s)
+  if (K <= 512) K5_ROWS(1, 1);
+  if (K <= 1024) K5_ROWS(1, 2);
+  if (K <= 2048) K5_ROWS(1, 4);
+  if (K <= 4096) K5_ROWS(1, 8);
+  if (K <= 8192) K5_ROWS(2, 8);
+  if (K <= 16384) K5_ROWS(4, 8);
+  K5_ROWS(8, 8);
+#undef K5_ROWS
 }
 
 }  // namespace
 
 // x [M, K] bf16 (x_dtype 0) or fp32 (1), scale/shift [M / rows_per_group,
 // K] in x's dtype, all 16-byte aligned -> xq [M, K] int8, sx [M] fp32. K
-// must be a multiple of 16 and at most 16 warps x 32 lanes x 8 slots x 16
-// values (65536).
+// must be a multiple of 16 and at most MAX_K (32768: 8 warps of 8 slots a
+// lane).
 extern "C" int k5_norm_mod_quantize_rows(const void* x, const void* scale,
                                          const void* shift, int M, int K,
                                          int x_dtype, int rows_per_group,
                                          float eps, void* xq, void* sx,
                                          void* stream) {
   if (M <= 0) return static_cast<int>(cudaGetLastError());
-  if (K <= 0 || K % 16 != 0 ||
-      K > MAX_ROW_WARPS * 32 * ROW_SLOTS * 16 || rows_per_group <= 0 ||
+  if (K <= 0 || K % 16 != 0 || K > MAX_K || rows_per_group <= 0 ||
       x_dtype < 0 || x_dtype > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

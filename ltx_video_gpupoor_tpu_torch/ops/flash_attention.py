@@ -44,15 +44,18 @@ kernel's tile, the plain version runs the kernel's math, and
 :func:`int8_tile_bound` states how far the two may lie apart.
 
 fp32 operands (``FP32_POLICY``) take kernel K1f on the card,
-``csrc/flash_attention_fp32.cu``: the same functions on the CUDA cores in
-fp32 (the TPU kernel runs in its input dtype, :343-352), in five variants
+``csrc/flash_attention_fp32.cu``: the same functions in fp32 (the TPU
+kernel runs in its input dtype, :343-352), each fp32 product taken as
+three TF32 ``wgmma`` products of the operands' big and small parts (split
+TF32; V^T inside each 8-row group in :data:`K1F_PV_ORDER`), in five variants
 (:data:`K1F_VARIANTS`, chosen by :func:`k1f_variant`): exact, bounded, and
 the int8 tiers' scores with an fp32 V (QK tier, bounded or not) or int8
 P.V (QK+PV tier). :func:`flash_attention`, :func:`flash_attention_hp` and
 :func:`flash_attention_int8` route fp32 CUDA tensors there; the plain
-versions are the same functions as for bf16. K1f's kv tile is
-:data:`K1F_TILE_KV` rows, so its QK+PV tier agrees with the plain version
-stepped by that tile.
+versions are the same functions as for bf16. K1f's kv tile in the int8
+tiers is :data:`K1F_TILE_KV` rows, so its QK+PV tier agrees with the plain
+version stepped by that tile (its fp32-score variants take 32-row tiles
+at D=128, which no plain version depends on).
 
 Layout ``[B, H, S, D]``; the kernels read any strides whose last one is 1,
 so head-split views of ``[B, S, H*D]`` projections need no copy.
@@ -214,17 +217,20 @@ def mask_kind(skv: int, kv_valid: int | None = None, *,
 
 
 def _check_layout(kernel: str, name: str, t: torch.Tensor, dtype, device):
+    # on every launch: each tensor attribute is read once
     if t.dtype != dtype:
         raise ValueError(f"{kernel} takes {str(dtype)[6:]} {name}, got "
                          f"{t.dtype}")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, q on {device}")
-    if t.stride(3) != 1:
+    sb, sh, ss, sd = t.stride()
+    if sd != 1:
         raise ValueError(f"{name} needs a unit stride on the head dim")
-    if any(st * t.element_size() % 16 for st in t.stride()[:3]) \
+    es = t.element_size()
+    if (sb * es) % 16 or (sh * es) % 16 or (ss * es) % 16 \
             or t.data_ptr() % 16:
         raise ValueError(f"{name} strides must be 16-byte aligned")
-    if max(t.stride()) >= 2**31:
+    if max(sb, sh, ss) >= 2**31:
         raise ValueError(f"{name} strides must fit the kernel's int32")
 
 
@@ -994,8 +1000,9 @@ def flash_attention_fp32(
     _check_cuda_operands(q, k, v, q_segment_ids, kv_segment_ids, "K1f",
                          torch.float32)
     if out is None:
-        out = torch.empty_like(q)
-    _check_fp32_out(out, q.shape, q.device)
+        out = torch.empty_like(q)   # q's strides, checked above
+    else:
+        _check_fp32_out(out, q.shape, q.device)
     if scale is None:
         scale = q.shape[3] ** -0.5
     if not scale > 0:

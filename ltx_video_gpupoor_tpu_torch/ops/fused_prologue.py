@@ -42,9 +42,9 @@ import torch
 
 from .int8_matmul import int8_gemm_acc_plain, quantize_rows_plain
 
-# the row kernel holds a row in registers: at most 16 warps x 32 lanes x 8
-# slots of 16 values
-_MAX_K = 16 * 32 * 8 * 16
+# the row kernel holds a row in registers, 64 of them a lane: up to 8 warps
+# a bf16 row, 16 an fp32 one (MAX_K in csrc/fused_prologue.cu)
+_MAX_K = 32768
 
 
 def enabled_mode() -> str | None:

@@ -1,6 +1,8 @@
-"""Timing helper of the micro-benchmark tools: CUDA events around each
+"""Timing helpers of the micro-benchmark tools: CUDA events around each
 call, the median of a few repeats after a warm-up. PyTorch returns before
-the device finishes, so the events, not a host clock, take the time."""
+the device finishes, so the events, not a host clock, take the time. One
+call of a short kernel also holds the host's launch path; ``graph_ms``
+takes the device time alone."""
 
 from __future__ import annotations
 
@@ -24,3 +26,22 @@ def cuda_time_ms(fn, reps: int = 5, warmup: int = 2) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def graph_ms(fn, calls: int = 20) -> float:
+    """Device milliseconds a call of ``fn``: ``calls`` calls captured in
+    one CUDA graph, replayed between two events (median of 5), so that the
+    host's time to launch them is not in it."""
+    import torch
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_time_ms(graph.replay) / calls

@@ -226,3 +226,55 @@ def test_default_run_drives_every_path_and_ends_with_the_result(
         "csrc/flash_attention_int8.cu")
     assert all(os.path.exists(os.path.join(REPO, k["source"]))
                for k in kernels)
+
+
+def _ptxas_report(k1f_spill=0, serialized=False):
+    """A ptxas -v report of one K1f instance and one of K5's row kernel,
+    in the form nvcc prints it; ``k1f_spill`` bytes of spill stores and
+    loads in the K1f instance."""
+    k1f = ("_ZN56_GLOBAL__N__a364beb7_23_flash_attention_fp32_cu_664c2249"
+           "23flash_fp32_wgmma_kernelILi64ELi1ELi0EEEvNS_6ParamsE")
+    k5 = ("_ZN56_GLOBAL__N__0f0d6c2b_17_fused_prologue_cu_4c1f1c9b29norm_"
+          "mod_quantize_rows_kernelI13__nv_bfloat16Li1EEEvPKT_S4_S4_iiifPaPf")
+    lines = []
+    for name, regs, spill in ((k1f, 168, k1f_spill), (k5, 102, 0)):
+        lines += [
+            f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
+            f"ptxas info    : Function properties for {name}",
+            f"    {spill} bytes stack frame, {spill} bytes spill stores, "
+            f"{spill} bytes spill loads",
+            f"ptxas info    : Used {regs} registers, used 1 barriers"]
+    if serialized:
+        lines.insert(1, "ptxas info    : (C7520) Potential Performance Loss: "
+                        "wgmma.mma_async instructions are serialized due to "
+                        f"program dependence in the function '{k1f}'")
+    return "\n".join(lines) + "\n"
+
+
+@pytest.mark.parametrize("spill,serialized", [(0, False), (8, False),
+                                              (100, False), (0, True)])
+def test_build_refuses_a_spill_or_serialized_wgmma_in_k1f(
+        monkeypatch, capsys, spill, serialized):
+    """phase_build parses nvcc's ptxas report: K1f (flash_fp32_wgmma_kernel)
+    is a wgmma kernel, so any spill in one of its instances, 100 bytes as
+    much as 8, or a serialized wgmma fails the build phase; a clean report
+    gives each instance's registers."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from ltx_video_gpupoor_tpu_torch.ops import _lib
+
+    report = _ptxas_report(spill, serialized)
+    monkeypatch.setattr(_lib, "build", lambda force=False, parallel=True: (
+        _lib.BUILD_DIR / "libltx_kernels_test.so", 1.0, report))
+    monkeypatch.setattr(_lib, "library", lambda: None)
+    if spill or serialized:
+        with pytest.raises(AssertionError,
+                           match="spills" if spill else "serialized"):
+            chip_smoke.phase_build()
+        return
+    regs = chip_smoke.phase_build()
+    assert regs == {"flash_fp32_wgmma_kernel<Li64ELi1ELi0E>": 168,
+                    "norm_mod_quantize_rows_kernel<13__nv_bfloat16Li1E>": 102}
+    out = capsys.readouterr().out
+    assert "K1f (flash_fp32_wgmma_kernel), 1 instances" in out
+    assert "K5's row kernel (norm_mod_quantize_rows_kernel)" in out

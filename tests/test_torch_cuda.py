@@ -556,7 +556,13 @@ def test_k7_rejects_what_it_does_not_take(cuda):
 @pytest.mark.parametrize("d,sq,skv,seg,causal,kv_valid", [
     (64, 300, 300, False, False, None), (128, 256, 256, False, False, None),
     (64, 200, 333, False, False, 250), (128, 333, 333, False, True, None),
-    (64, 150, 70, True, False, None), (128, 128, 128, False, False, 0)])
+    (64, 150, 70, True, False, None), (128, 128, 128, False, False, 0),
+    # the edges of the split-TF32 design's tiles: 128 q rows a block, kv
+    # tiles of 64 rows (32 at D=128 in the fp32-score variants)
+    (128, 129, 96, False, False, None), (64, 129, 96, False, False, None),
+    (128, 64, 33, False, False, None), (64, 64, 33, False, False, None),
+    (128, 256, 256, False, False, 96), (64, 160, 65, False, True, None),
+    (128, 257, 128, False, False, 127), (128, 100, 32, True, False, None)])
 def test_k1f_matches_plain(cuda, variant, d, sq, skv, seg, causal, kv_valid):
     gen = torch.Generator(device=cuda).manual_seed(d + sq + skv)
     q, k, v = (_randn(gen, 2, 3, n, d) for n in (sq, skv, skv))
@@ -623,6 +629,35 @@ def test_fp32_tiers_launch_what_kernel_route_names(cuda, mode, d, bound):
     moved = [f"K1f {key}" for key, n in
              fa.flash_attention_fp32.by_variant.items() if n != before[key]]
     assert moved == [want]
+
+
+@pytest.mark.parametrize("m,k,groups", [
+    (3840, 4096, 16), (15360, 4096, 16), (240, 4096, 3), (17, 48, 1),
+    (129, 8960, 3), (64, 16384, 4), (16, 32768, 2)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k5_row_kernel_matches_plain(cuda, m, k, groups, dtype):
+    """K5's row kernel at the 13B pass 1 and pass 2 shapes, the ragged
+    case and K up to its limit (one slot a lane up to K = 4096, more
+    beyond): bf16 codes and row scales exactly; fp32 codes where rsqrt
+    may round a norm the other way in a row (at most 1e-4 of them)."""
+    gen = torch.Generator(device=cuda).manual_seed(m + k)
+    x = (_randn(gen, m, k)
+         * torch.rand(m, 1, generator=gen, device=cuda) * 4).to(dtype)
+    x[1] = 0
+    scale, shift = ((_randn(gen, groups, k) * 0.3).to(dtype) for _ in "st")
+    kw = dict(rows_per_group=m // groups, eps=1e-6)
+    hq, sx = fp.norm_mod_quantize_rows(x, scale, shift, **kw)
+    pq, ps = fp.norm_mod_quantize_plain(x, scale, shift, **kw)
+    if dtype == torch.bfloat16:
+        assert torch.equal(hq, pq) and torch.equal(sx, ps[:, 0])
+    else:
+        assert float((hq != pq).float().mean()) <= 1e-4
+    with pytest.raises(ValueError, match="K <= 32768"):
+        fp.norm_mod_quantize_rows(torch.zeros(2, 32784, dtype=dtype,
+                                              device=cuda),
+                                  scale[:1, :1].expand(1, 32784).contiguous(),
+                                  scale[:1, :1].expand(1, 32784).contiguous(),
+                                  rows_per_group=2)
 
 
 def test_k5_fp32_row_instance_matches_plain(cuda):

@@ -723,8 +723,8 @@ def test_k5_plain_matches_pallas_interpret_fp32():
 def test_k5_group_rows_and_shape_checks():
     """Row r reads group r // rows_per_group: with a group size that has
     no 16-multiple divisor (the TPU kernel refuses it,
-    tests/test_fused_prologue.py:52; a block here holds one row) the rows
-    of group 1 still get group 1's modulation. Shape errors raise as in
+    tests/test_fused_prologue.py:52; each row of the row kernel reads its
+    own group's rows) the rows of group 1 still get group 1's modulation. Shape errors raise as in
     JAX."""
     m, k, n = 48, 64, 64
     rng = np.random.default_rng(5)
@@ -752,6 +752,22 @@ def test_k5_group_rows_and_shape_checks():
     with pytest.raises(ValueError, match="scale shape"):
         tfp.norm_mod_int8_matmul(x, scale[:1], shift[:1], w.w_int8, w.scale,
                                  rows_per_group=24)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k5_row_kernel_limit_is_named(dtype):
+    """The row kernel holds a row in registers, up to K = 32768 (8 warps of
+    8 slots of 16 values a lane); the CUDA wrapper's check takes every K
+    that is a 16-multiple up to that and names the limit beyond it."""
+    def check(k):
+        x = torch.zeros(4, k, dtype=dtype)
+        tfp._check_cuda(x, x[:1], x[:1], None, None, None)
+
+    for k in (16, 48, 4096, 8960, 32768):
+        check(k)
+    for k in (40, 32784, 51200):
+        with pytest.raises(ValueError, match="K % 16 == 0 and K <= 32768"):
+            check(k)
 
 
 def test_k5_supports_equal_jax_on_a_grid():

@@ -124,6 +124,23 @@ def test_tool_main_runs_its_check_on_the_cpu(capsys):
             _bench_util.cuda_time_ms(lambda: None)
 
 
+def test_kernel_times_names_the_shapes_it_times_and_needs_the_card():
+    """``tools/kernel_times.py`` times K1f and K5's row kernel at the
+    served shapes through the wrappers' public entry points only (so that
+    it runs in an older checkout too); without a card it refuses."""
+    from ltx_video_gpupoor_tpu_torch.tools import kernel_times as kt
+
+    assert [s[0] for s in kt.K1F_SHAPES][:3] == [
+        "K1f LTX-2B self", "K1f LTX-2B cross", "K1f request self"]
+    assert {s[1:3] for s in kt.K5_SHAPES} == {(3840, 4096), (15360, 4096)}
+    q_seg, kv_seg = kt._segments(2, 5, 256, torch.device("cpu"))
+    assert q_seg.tolist() == [[1] * 5] * 2
+    assert kv_seg.sum().item() == 400
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            kt.main([])
+
+
 def test_port_and_chip_smoke_name_no_jax_import():
     """No source of the port, nor ``chip_smoke.py``, imports jax or the
     JAX package (``tests/test_torch_configs.py`` also imports every module
