@@ -455,15 +455,6 @@ def cuda_time_ms(fn, reps: int = 5, warmup: int = 2) -> float:
     return times[len(times) // 2]
 
 
-def graph_ms(fn, calls: int = 20) -> float:
-    """Device milliseconds a call of ``fn``, from ``calls`` calls in one
-    CUDA graph (``cuda_time_ms`` of a short kernel includes the host's
-    launch path)."""
-    from ltx_video_gpupoor_tpu_torch.tools._bench_util import graph_ms as g
-
-    return g(fn, calls)
-
-
 # --------------------------------------------------------------------------
 # phases 1-2
 # --------------------------------------------------------------------------
@@ -1544,6 +1535,7 @@ def _k5_fp32_case(gen):
     import torch
 
     from ltx_video_gpupoor_tpu_torch.ops import fused_prologue as fp
+    from ltx_video_gpupoor_tpu_torch.tools._bench_util import graph_ms
 
     m, k, n, g = 3840, 4096, 12288, 16
     x, scale, shift, w8, sw, b = _k5_operands(m, k, n, g, gen)
@@ -1829,6 +1821,7 @@ def time_k1f(gen, times, info, ex2_per_s):
     import torch
 
     from ltx_video_gpupoor_tpu_torch.ops import flash_attention as fa
+    from ltx_video_gpupoor_tpu_torch.tools._bench_util import graph_ms
 
     peak = ex2_per_s / EX2_PER_SM_CLOCK * FP32_LANES_PER_SM * 2
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2301,6 +2294,7 @@ def phase_timing(gen, ex2_per_s):
 
     from ltx_video_gpupoor_tpu_torch.ops import fused_prologue as fp
     from ltx_video_gpupoor_tpu_torch.ops.norms import rms_norm
+    from ltx_video_gpupoor_tpu_torch.tools._bench_util import graph_ms
 
     for name, m, kk, n, g in K5_SHAPES:
         x, scale, shift, w8, sw, bias = _k5_operands(m, kk, n, g, gen)
