@@ -91,9 +91,7 @@
 //   compares), general (segment ids, causal: every tile compares).
 
 #include <cuda_runtime.h>
-#include <stddef.h>
 #include <stdint.h>
-#include <string.h>
 
 #include <type_traits>
 
@@ -1010,20 +1008,6 @@ int by_mask(const Params& p, int B, int mask_kind, int variant,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The call's pointers and ints, packed by ops/flash_attention.py
-// (K1F_ARGS, struct format "<9Q23i": little-endian, no padding) so that
-// a launch crosses from Python in one 164-byte buffer and three scalars,
-// not 35 converted arguments: the device addresses (0 = none), then the
-// ints in this order.
-struct K1fArgs {
-  unsigned long long q, k, v, out, q_seg, kv_seg, q_scale, k_scale, v_scale;
-  int B, H, Sq, Skv, D, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh,
-      oss, kv_valid, causal, mask_kind, variant, k_block, nks;
-};
-constexpr int K1F_ARGS_BYTES = 9 * 8 + 23 * 4;
-static_assert(offsetof(K1fArgs, nks) + 4 == K1F_ARGS_BYTES,
-              "K1fArgs must match K1F_ARGS");
-
 }  // namespace
 
 // q, k [B, H, S, D] fp32 (variants exact, bounded) or int8 codes (qk8,
@@ -1037,19 +1021,15 @@ static_assert(offsetof(K1fArgs, nks) + 4 == K1F_ARGS_BYTES,
 // flash_attention.MASK_KINDS, refused where it masks less than the call
 // needs; variant 0 exact, 1 bounded, 2 qk8, 3 qk8 bounded, 4 pv8;
 // scale_log2 = scale * log2(e) (fp32 scores; the int8 variants carry it in
-// q_scale), bound_log2 = score_bound * log2(e). All but the last three
-// arrive packed in `packed` (K1fArgs).
-extern "C" int k1f_flash_attention_fp32(const void* packed, float scale_log2,
-                                        float bound_log2, void* stream) {
-  K1fArgs a;
-  memcpy(&a, packed, K1F_ARGS_BYTES);
-  const void* q_seg = reinterpret_cast<const void*>(a.q_seg);
-  const void* q_scale = reinterpret_cast<const void*>(a.q_scale);
-  const void* k_scale = reinterpret_cast<const void*>(a.k_scale);
-  const void* v_scale = reinterpret_cast<const void*>(a.v_scale);
-  const int B = a.B, H = a.H, Sq = a.Sq, Skv = a.Skv, D = a.D;
-  const int variant = a.variant, k_block = a.k_block, causal = a.causal;
-  const int mask_kind = a.mask_kind, kv_valid = a.kv_valid;
+// q_scale), bound_log2 = score_bound * log2(e).
+extern "C" int k1f_flash_attention_fp32(
+    const void* q, const void* k, const void* v, void* out,
+    const void* q_seg, const void* kv_seg, const void* q_scale,
+    const void* k_scale, const void* v_scale, int B, int H, int Sq, int Skv,
+    int D, int qsb, int qsh, int qss, int ksb, int ksh, int kss, int vsb,
+    int vsh, int vss, int osb, int osh, int oss, int kv_valid, int causal,
+    int mask_kind, int variant, int k_block, int nks, float scale_log2,
+    float bound_log2, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0) return static_cast<int>(cudaGetLastError());
   if (variant < 0 || variant > PV8 || Skv < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1064,28 +1044,28 @@ extern "C" int k1f_flash_attention_fp32(const void* packed, float scale_log2,
                          k_block % 64 != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if ((a.q_seg == 0) != (a.kv_seg == 0)) {
+  if ((q_seg == nullptr) != (kv_seg == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
-  p.q = reinterpret_cast<const void*>(a.q);
-  p.k = reinterpret_cast<const void*>(a.k);
-  p.v = reinterpret_cast<const void*>(a.v);
-  p.out = reinterpret_cast<float*>(a.out);
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.out = static_cast<float*>(out);
   p.q_seg = static_cast<const int*>(q_seg);
-  p.kv_seg = reinterpret_cast<const int*>(a.kv_seg);
+  p.kv_seg = static_cast<const int*>(kv_seg);
   p.q_scale = static_cast<const float*>(q_scale);
   p.k_scale = static_cast<const float*>(k_scale);
   p.v_scale = static_cast<const float*>(v_scale);
   p.H = H;
   p.Sq = Sq;
   p.Skv = Skv;
-  p.nks = a.nks;
+  p.nks = nks;
   p.k_block = k_block;
-  p.qsb = a.qsb; p.qsh = a.qsh; p.qss = a.qss;
-  p.ksb = a.ksb; p.ksh = a.ksh; p.kss = a.kss;
-  p.vsb = a.vsb; p.vsh = a.vsh; p.vss = a.vss;
-  p.osb = a.osb; p.osh = a.osh; p.oss = a.oss;
+  p.qsb = qsb; p.qsh = qsh; p.qss = qss;
+  p.ksb = ksb; p.ksh = ksh; p.kss = kss;
+  p.vsb = vsb; p.vsh = vsh; p.vss = vss;
+  p.osb = osb; p.osh = osh; p.oss = oss;
   p.kv_end = kv_valid < 0 ? Skv : (kv_valid < Skv ? kv_valid : Skv);
   p.causal = causal;
   p.scale_log2 = scale_log2;

@@ -77,12 +77,13 @@ SIGNATURES = {
     # stream
     "k5_norm_mod_int8_matmul": [P, P, P, I, I, I, I, F, P, P, P, I, P, P, P,
                                 I, P],
-    # K1f: the arguments packed by flash_attention.K1F_ARGS (q, k, v, out,
-    # q_seg, kv_seg, q_scale, k_scale, v_scale; B, H, Sq, Skv, D, q/k/v/out
-    # strides (b, h, s; int8 V^T: b, h, d), kv_valid (-1 = none), causal,
-    # mask kind, variant (K1F_VARIANTS), k_block, nks), scale * log2(e),
-    # score_bound * log2(e), stream
-    "k1f_flash_attention_fp32": [ctypes.c_char_p, F, F, P],
+    # K1f: q, k, v, out, q_seg, kv_seg, q_scale, k_scale, v_scale, B, H,
+    # Sq, Skv, D, q/k/v/out strides (b, h, s; int8 V^T: b, h, d), kv_valid
+    # (-1 = none), causal, mask kind, variant (K1F_VARIANTS), k_block, nks,
+    # scale * log2(e), score_bound * log2(e), stream
+    "k1f_flash_attention_fp32": [P, P, P, P, P, P, P, P, P, I, I, I, I, I,
+                                 I, I, I, I, I, I, I, I, I, I, I, I,
+                                 I, I, I, I, I, I, F, F, P],
     # q, k, v, out, B, H, S, D, q/k/v/out strides (b, h, s), block_kv, nsub,
     # D**-0.5 * log2(e), stream
     "k8_flash_attention_pipelined_bf16": [P, P, P, P, I, I, I, I,

@@ -64,7 +64,6 @@ so head-split views of ``[B, S, H*D]`` projections need no copy.
 from __future__ import annotations
 
 import ctypes
-import struct
 from typing import NamedTuple
 
 import torch
@@ -103,11 +102,6 @@ MASK_KINDS = ("none", "tail", "general")
 # K1f: the fp32 kernel's variants (the C entry's ``variant``) and kv tile
 K1F_VARIANTS = ("exact", "bounded", "qk8", "qk8_bounded", "pv8")
 K1F_TILE_KV = 64
-# K1f's C entry takes its pointers and ints packed in one buffer, laid out
-# as csrc/flash_attention_fp32.cu's K1fArgs: nine device addresses (0 =
-# none), then 23 ints (B, H, Sq, Skv, D, the q/k/v/out strides, kv_valid,
-# causal, mask kind, variant, k_block, nks)
-K1F_ARGS = struct.Struct("<9Q23i")
 # K1f's split-TF32 P.V: inside each 8-row group of V^T, k index t + 4i
 # holds kv row 2t + i, so that the score columns a thread holds in the
 # fp32 accumulator (2t, 2t + 1) are its TF32 A fragment (k indices t and
@@ -947,25 +941,26 @@ def _k1f_launch(q, k, v, out, q_seg, kv_seg, *, variant, kv_valid, causal,
                 scale_log2=0.0, bound_log2=0.0, q_scale=None, k_scale=None,
                 v_scale=None, k_block=1):
     """One launch of K1f; ``k``'s shape gives Skv (for ``pv8`` ``v`` is
-    K4's V^T and its strides are (b, h, d)). The arguments cross to the C
-    entry packed (:data:`K1F_ARGS`): one buffer, not 35 converted
-    arguments, which kept a short call's launch path host-bound."""
+    K4's V^T and its strides are (b, h, d))."""
     from . import _lib
 
     b, h, sq, d = q.shape
     skv = k.shape[2]
     kind = MASK_KINDS.index(mask_kind(
         skv, kv_valid, segments=q_seg is not None, causal=causal))
-    packed = K1F_ARGS.pack(
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    code = _lib.library().k1f_flash_attention_fp32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        *(0 if t is None else t.data_ptr()
-          for t in (q_seg, kv_seg, q_scale, k_scale, v_scale)),
+        ptr(q_seg), ptr(kv_seg), ptr(q_scale), ptr(k_scale), ptr(v_scale),
         b, h, sq, skv, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3], -1 if kv_valid is None else max(0, int(kv_valid)),
         int(bool(causal)), kind, K1F_VARIANTS.index(variant), k_block,
-        1 if k_scale is None else k_scale.shape[2])
-    code = _lib.library().k1f_flash_attention_fp32(
-        packed, scale_log2, bound_log2, _lib.stream_ptr(q.device))
+        1 if k_scale is None else k_scale.shape[2],
+        ctypes.c_float(scale_log2), ctypes.c_float(bound_log2),
+        _lib.stream_ptr(q.device))
     _lib.check(code, f"K1f flash_attention_fp32 ({variant}) launch")
     flash_attention_fp32.launches += 1
     flash_attention_fp32.by_variant[variant] += 1

@@ -163,44 +163,3 @@ def test_pv_order_makes_the_accumulator_the_a_fragment():
     perm = torch.tensor([8 * g + o for g in range(8) for o in order])
     torch.testing.assert_close(p[:, perm] @ v[perm], p @ v, atol=1e-5,
                                rtol=1e-5)
-
-
-def test_k1f_launch_packs_the_c_entry_arguments(monkeypatch):
-    """K1f's C entry reads its pointers and ints from one buffer laid out
-    as ``K1fArgs`` (csrc/flash_attention_fp32.cu: 9 addresses, 23 ints,
-    164 bytes); the wrapper packs them in that order and passes the two
-    scales and the stream beside it."""
-    from ltx_video_gpupoor_tpu_torch.ops import _lib
-
-    calls = []
-
-    class Lib:
-        @staticmethod
-        def k1f_flash_attention_fp32(packed, scale_log2, bound_log2, stream):
-            calls.append((packed, scale_log2, bound_log2, stream))
-            return 0
-
-    monkeypatch.setattr(_lib, "library", lambda: Lib)
-    monkeypatch.setattr(_lib, "stream_ptr", lambda device: 77)
-    assert tfa.K1F_ARGS.size == 9 * 8 + 23 * 4
-    assert _lib.SIGNATURES["k1f_flash_attention_fp32"][1:] == [
-        _lib.F, _lib.F, _lib.P]
-    q = torch.zeros(2, 300, 3 * 64).view(2, 300, 3, 64).transpose(1, 2)
-    k = v = torch.zeros(2, 3, 250, 64)
-    out = torch.empty_like(q)
-    before = tfa.flash_attention_fp32.by_variant["bounded"]
-    tfa._k1f_launch(q, k, v, out, None, None, variant="bounded",
-                    kv_valid=200, causal=False, scale_log2=0.5,
-                    bound_log2=7.0)
-    (packed, scale_log2, bound_log2, stream), = calls
-    fields = tfa.K1F_ARGS.unpack(packed)
-    assert fields[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          out.data_ptr())
-    assert fields[4:9] == (0,) * 5
-    assert fields[9:14] == (2, 3, 300, 250, 64)
-    assert fields[14:26] == (*q.stride()[:3], *k.stride()[:3],
-                             *v.stride()[:3], *out.stride()[:3])
-    assert fields[26:] == (200, 0, tfa.MASK_KINDS.index("tail"),
-                           tfa.K1F_VARIANTS.index("bounded"), 1, 1)
-    assert (scale_log2, bound_log2, stream) == (0.5, 7.0, 77)
-    assert tfa.flash_attention_fp32.by_variant["bounded"] == before + 1
