@@ -308,7 +308,7 @@ EX2_PER_SM_CLOCK = 16
 # the H100 SXM's published highest SM clock, where nvidia-smi gives none
 SM_CLOCK_MAX_MHZ = 1980.0
 # fp32 fused multiply-adds: 128 lanes on each SM, two operations each, at
-# the same highest clock (K1f's second figure, its PR 9 design's bound)
+# the same highest clock (K1f's second figure, its CUDA-core design's bound)
 FP32_LANES_PER_SM = 128
 # K1f takes each product as three TF32 products (split TF32)
 K1F_TF32_PRODUCTS = 3

@@ -4,7 +4,7 @@ path included) and the device time a call in a CUDA graph.
 
 It uses only the wrappers' public entry points, so the same file (with
 ``tools/_bench_util.py`` beside it) copied into an older checkout times
-that checkout's kernels: two trees compared on one card in one session,
+that checkout's kernels: two trees compared on one card in one call,
 in turns (old, new, new, old), is the comparison these numbers are for.
 Run on the card from the root of a checkout::
 
