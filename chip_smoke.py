@@ -349,6 +349,13 @@ K2_RAGGED = [
     ("ragged M=17 K=48 N=257", 17, 48, 257, "fp32"),
     ("ragged M=129 K=8960 N=600", 129, 8960, 600, "bf16"),
     ("ragged M=1000 K=4096 N=4100", 1000, 4096, 4100, "bf16"),
+    # K that is not a 16-multiple (codes padded to one, the weight padded
+    # at the call) and K past the row kernel's registers (its two-pass
+    # form), as JAX's chain takes them
+    ("ragged K=40 M=33 N=72", 33, 40, 72, "bf16"),
+    ("ragged K=1000 M=130 N=256", 130, 1000, 256, "fp32"),
+    ("two-pass K=20000 M=64 N=300", 64, 20000, 300, "bf16"),
+    ("two-pass ragged K=20008 M=40 N=264", 40, 20008, 264, "fp32"),
 ]
 K2_PLANTED = "13B pass 2 ffn_in 4096->16384"
 
@@ -764,6 +771,10 @@ def phase_k2(gen):
         pq, ps = im.quantize_rows_plain(x)
         assert torch.equal(xq, pq), f"K2 {name}: int8 activations differ"
         assert torch.equal(sx, ps[:, 0]), f"K2 {name}: row scales differ"
+        if k % 16:
+            padded = im.quantize_rows(x)[0]
+            assert padded.shape[1] == -(-k // 16) * 16 \
+                and not padded[:, k:].any(), f"K2 {name}: codes past K"
         pacc = im.int8_gemm_acc_plain(pq, w8)
         assert torch.equal(acc, pacc), f"K2 {name}: int32 accumulators differ"
         planted = ""
@@ -772,9 +783,16 @@ def phase_k2(gen):
             short = im.int8_gemm_acc_plain(pq[:, :-16], w8[:, :-16])
             wrong = float((acc != short).float().mean())
             assert wrong > 0, "K2: the check passes a planted fault"
-            planted = (f"; a planted fault (the last K step dropped) fails "
-                       f"it in {wrong:.2%} of the elements")
-            del short
+            # and so must codes taken from x * (1 / s) with no IEEE
+            # quotient near a half
+            xf = x.float()
+            fast = torch.clamp(torch.round(xf * (1.0 / ps)), -127, 127)
+            flips = int((fast.to(torch.int8) != xq).sum())
+            assert flips > 0, "K2: the code check passes a planted fault"
+            planted = (f"; planted faults fail it (the last K step dropped: "
+                       f"{wrong:.2%} of the elements; codes from x * (1 / "
+                       f"s) alone: {flips} codes)")
+            del short, xf, fast
         out = im.int8_linear(x, w8, sw, bias)
         ref = im.int8_linear_plain(x, w8, sw, bias)
         torch.cuda.synchronize()
@@ -787,6 +805,67 @@ def phase_k2(gen):
             f"max_abs_err={err:.3e}{planted} ok")
         del x, w8, sw, bias, xq, sx, acc, pq, ps, pacc, out, ref
     return worst
+
+
+# (name, (B, H, Sq, Skv, D), activation dtype, int8 P.V tiers): the shapes
+# that the int8 attention tiers' prologue meets, on head-split views of
+# [B, S, H*D] projections as the DiT hands them over: K3q's (13B tier d,
+# LTX-2B), K4's (Wan, 13B tier a) and K1f's int8 variants (fp32)
+PROLOGUE_SHAPES = [
+    ("13B pass 1 self", LTX13B_SELF[0], "bf16", (False, True)),
+    ("13B pass 2 self", LTX13B_SELF[1], "bf16", (False, True)),
+    ("13B pass 2 cross", LTX13B_CROSS[1], "bf16", (False, True)),
+    ("LTX-2B self", LTX2B_SELF, "bf16", (False,)),
+    ("Wan self", WAN_SELF, "bf16", (True, False)),
+    ("Wan cross", WAN_CROSS, "bf16", (True,)),
+    ("LTX-2B self fp32", (3, 32, 1024, 1024, 64), "fp32", (False, True)),
+]
+PROLOGUE_PLANTED = "13B pass 2 self"
+
+
+def phase_prologue(gen):
+    """The int8 tiers' quantize prologue on the card: Q's codes and scales
+    in every tier and the QK tier's per-row K codes and scales come from
+    K2's row kernel on the prologue's contract, one launch each, and must
+    equal the plain torch ops bit for bit (so K4's and K3q's results do
+    not move); the QK+PV tier's per-block K and per-channel V stay plain
+    torch. A planted fault (Q's scale times the unfolded factors) must
+    fail the check."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.ops import flash_attention as fa
+
+    for name, (b, h, sq, skv, d), dtype, tiers in PROLOGUE_SHAPES:
+        q, k, v = (_heads(b, h, n, d, gen, True) for n in (sq, skv, skv))
+        if dtype == "fp32":
+            q, k, v = (t.float() for t in (q, k, v))
+        q[0, 0, 1] = 0                     # the 1e-6 floor
+        for pv in tiers:
+            before = fa.int8_prologue.kernel_launches
+            ops = fa.int8_prologue(q, k, v, pv_int8=pv)
+            launched = fa.int8_prologue.kernel_launches - before
+            plain = fa.int8_prologue_plain(q, k, v, pv_int8=pv)
+            torch.cuda.synchronize()
+            assert launched == (1 if pv else 2), (name, pv, launched)
+            for field in ("q8", "q_scale", "k8", "k_scale", "v", "v_scale"):
+                a, b_ = getattr(ops, field), getattr(plain, field)
+                assert (a is None and b_ is None) or torch.equal(a, b_), \
+                    f"prologue {name} ({'QK+PV' if pv else 'QK'}): {field}"
+            planted = ""
+            if name == PROLOGUE_PLANTED and not pv:
+                amax = q.float().abs().amax(-1).clamp(min=1e-6)
+                c = d ** -0.5 * fa.LOG2E
+                bad = (amax * fa.INV127_F32) * c
+                rows = int((bad != ops.q_scale).sum())
+                assert rows > 0, "prologue: the check passes a planted fault"
+                planted = (f"; a planted fault (Q's scale times the "
+                           f"unfolded factors) fails it in {rows} rows")
+            log(f"[prologue] {name} B={b} H={h} Sq={sq} Skv={skv} D={d} "
+                f"{dtype} {'QK+PV' if pv else 'QK'} tier: {launched} "
+                f"launches, codes and scales equal the plain ops{planted} ok")
+            del ops, plain
+        del q, k, v
+        torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------------
@@ -3797,6 +3876,7 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     k1_err = phase_k1(gen)
     k2_err = phase_k2(gen)
+    phase_prologue(gen)
     k4_err = phase_k4(gen)
     k3_err = phase_k3(gen)
     k3q_err = phase_k3q(gen)

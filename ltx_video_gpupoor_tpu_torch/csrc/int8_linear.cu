@@ -17,11 +17,17 @@
 // the quantize pass reads the activation once and writes a quarter of it,
 // so it is bound by memory.
 //
-// Design: two launches. k2_quantize_rows gives one block to each row, so
-// the row's absmax needs no cross-block reduction (the TPU kernel got the
-// same by holding the full K in VMEM); folding it into the GEMM would read
-// each row once per column tile. k2_int8_gemm (also K5's product) is a
-// Hopper GEMM:
+// Design: two launches. The row quantizer (k2_quantize_rows) holds each row
+// in registers (row_quant.cuh): one 16-value slot a lane read with 16-byte
+// loads, the fewest warps a row that cover K (several rows a 256-thread
+// block for short rows, so that six blocks share an SM and hide a row's
+// serial phases: load, absmax, codes), up to 4096 values; 2 or 4 slots a
+// lane up to 16384; beyond that, two passes over the row (the second from
+// L2). Codes leave as 16-byte stores into rows of round_up(K, 16) bytes
+// with zero codes past K (which add 0 to the product), so the GEMM takes
+// any K. The same kernel, on the attention prologue's contract, quantizes
+// the int8 attention tiers' Q and K rows (k2_prologue_quantize).
+// k2_int8_gemm (also K5's product) is a Hopper GEMM:
 // - One block computes a 128 x 256 output tile in two consumer warpgroups
 //   of 64 rows, on wgmma.mma_async m64n256k32 s32.s8.s8. 8-bit wgmma reads
 //   both operands K-major, and x_q [M, K] and the weights [N, K] (torch's
@@ -34,7 +40,7 @@
 //   wait on an empty barrier in a divergent path). 288 threads leave 168
 //   registers a thread; the 64 x 256 s32 accumulator and the rest take
 //   154. TMA's zero fill covers the ragged M, N and K edges; K % 16 == 0 is
-//   TMA's stride rule.
+//   TMA's stride rule (the wrapper pads a weight whose K is not).
 // - The tiles are walked in groups of eight row tiles, so that a wave of
 //   132 blocks reads a few MB of x_q and w and keeps them in L2.
 // - Epilogue through shared memory: the accumulator goes to the drained
@@ -45,47 +51,181 @@
 //   out_mode 0 writes the int32 accumulator, for the exactness check only.
 
 #include "hopper.cuh"
+#include "row_quant.cuh"
 
 namespace {
 
-__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_float(float x) { return x; }
+// ---- the row quantizer: K2's activation rows and the attention prologue ----
 
-template <typename T>
-__global__ void quantize_rows_kernel(const T* __restrict__ x, int K,
-                                     int8_t* __restrict__ xq,
-                                     float* __restrict__ sx) {
-  const long long row = blockIdx.x;
-  const T* xr = x + row * K;
-  float amax = 0.f;
-  for (int i = threadIdx.x; i < K; i += blockDim.x) {
-    amax = fmaxf(amax, fabsf(to_float(xr[i])));
+// The two quantize contracts the kernel serves. K2 (quant.py:196-198):
+// s = max(amax / 127, 1e-8) with the IEEE quotient. The int8 attention
+// tiers' prologue (flash_attention.py:484-505): s = max(amax, 1e-6) *
+// float32(1/127), as XLA computes it, and the stored scale max(amax, 1e-6)
+// * c, c being the constant XLA folds: float32(1/127) for K, times the
+// softmax scale and log2(e) for Q. Both take codes clip(round_half_even(x /
+// s), -127, 127); JAX's prologue does not clip, but there s >= amax / 127
+// to a relative 2**-23, so |x / s| stays under 127.5 and the clip never
+// binds.
+constexpr int K2_ROWS = 0, PROLOGUE = 1;
+constexpr float INV127 = 0.007874015718698502f;  // float32(1 / 127)
+
+struct RowArgs {
+  const void* x;
+  long long rows;     // rows of K values
+  int K;
+  int nslot;          // 16-value slots a row: round_up(K, 16) / 16
+  // K2: row r at x + r * K, codes at xq + r * 16 nslot (zeros past K),
+  // its scale at sx[r]. PROLOGUE: row r = (b * H + h) * S + s at x + b sb
+  // + h sh + s ss (elements), codes at xq + r K, its scale at sx[(b * H +
+  // h) * scale_pitch + s]
+  int S, H;
+  long long sb, sh, ss;
+  int scale_pitch;
+  float c;
+  int8_t* xq;
+  float* sx;
+};
+
+template <typename T, int CONTRACT>
+__device__ __forceinline__ const T* row_at(const RowArgs& a, long long r) {
+  if (CONTRACT == K2_ROWS) return static_cast<const T*>(a.x) + r * a.K;
+  const long long bh = r / a.S, s = r - bh * a.S;
+  const long long b = bh / a.H, h = bh - b * a.H;
+  return static_cast<const T*>(a.x) + b * a.sb + h * a.sh + s * a.ss;
+}
+
+// K2 stores s; the prologue max(amax, 1e-6) * c
+template <int CONTRACT>
+__device__ __forceinline__ void store_scale(const RowArgs& a, long long r,
+                                            float s, float amax) {
+  if (CONTRACT == K2_ROWS) {
+    a.sx[r] = s;
+  } else {
+    const long long bh = r / a.S;
+    a.sx[bh * a.scale_pitch + (r - bh * a.S)] = __fmul_rn(amax, a.c);
   }
-  __shared__ float red[32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+}
+
+// max over the LANES lanes of a row: shuffles within a warp, then shared
+// memory across the row's warps (every thread of the block calls it)
+template <int LANES>
+__device__ __forceinline__ float row_max(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  for (int o = (LANES < 32 ? LANES : 32) / 2; o > 0; o >>= 1) {
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   }
-  if (lane == 0) red[warp] = amax;
-  __syncthreads();
-  if (warp == 0) {
-    float v = lane < (int)(blockDim.x >> 5) ? red[lane] : 0.f;
+  if constexpr (LANES > 32) {
+    constexpr int W = LANES / 32;
+    __shared__ float red[8];
+    const int warp = threadIdx.x >> 5;
+    if ((threadIdx.x & 31) == 0) red[warp] = v;
+    __syncthreads();
+    const int first = warp - warp % W;
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+    for (int w = 0; w < W; ++w) v = fmaxf(v, red[first + w]);
+  }
+  return v;
+}
+
+template <int CONTRACT>
+__device__ __forceinline__ float row_scale(float amax) {
+  if (CONTRACT == K2_ROWS) return fmaxf(__fdiv_rn(amax, 127.0f), 1e-8f);
+  return __fmul_rn(fmaxf(amax, 1e-6f), INV127);
+}
+
+// A row (or 256 / LANES rows) a 256-thread block, LANES lanes a row, each
+// holding SLOTS slots of 16 values in registers (slot lane + LANES i): the
+// row is read once, its absmax reduced, and its codes written from the
+// registers. VEC: 16-byte loads (rows 16-byte aligned, K a 16-multiple);
+// otherwise each value is read alone. SLOTS == 0 is the two-pass form for
+// rows longer than the registers hold: the absmax pass, then a second read
+// of the row (from L2) for the codes.
+template <typename T, int CONTRACT, int LANES, int SLOTS, bool VEC>
+__global__ void __launch_bounds__(256, SLOTS == 1 ? (sizeof(T) == 2 ? 6 : 5)
+                                      : SLOTS == 2 ? 4 : SLOTS == 4 ? 3 : 4)
+quantize_rows_kernel(const RowArgs a) {
+  constexpr int RPB = 256 / LANES;  // rows a block
+  const int lane = threadIdx.x % LANES;
+  const long long row = (long long)blockIdx.x * RPB + threadIdx.x / LANES;
+  const bool live = row < a.rows;  // the last block's rows may run past
+  const T* x = row_at<T, CONTRACT>(a, live ? row : 0);
+  int8_t* q = a.xq + (live ? row : 0) * (16LL * a.nslot);
+  auto load = [&](Slot<T>& v, int sl) {
+    if (VEC) {
+      v.load(x + sl * 16);
+    } else {
+      v.load_some(x + sl * 16, a.K - sl * 16);
     }
-    if (lane == 0) red[0] = v;
+  };
+  float amax = 0.f;
+  if constexpr (SLOTS == 0) {
+    for (int sl = lane; live && sl < a.nslot; sl += LANES) {
+      Slot<T> v;
+      load(v, sl);
+      amax = fmaxf(amax, v.amax());
+    }
+    amax = row_max<LANES>(amax);
+    const float s = row_scale<CONTRACT>(amax);
+    const float r = __frcp_rn(s);
+    for (int sl = lane; live && sl < a.nslot; sl += LANES) {
+      Slot<T> v;
+      load(v, sl);
+      *reinterpret_cast<uint4*>(q + sl * 16) = codes(v, s, r);
+    }
+    if (live && lane == 0) {
+      store_scale<CONTRACT>(a, row, s, fmaxf(amax, 1e-6f));
+    }
+  } else {
+    Slot<T> v[SLOTS];
+#pragma unroll
+    for (int i = 0; i < SLOTS; ++i) {
+      const int sl = lane + LANES * i;
+      if (live && sl < a.nslot) {
+        load(v[i], sl);
+        amax = fmaxf(amax, v[i].amax());
+      }
+    }
+    amax = row_max<LANES>(amax);
+    const float s = row_scale<CONTRACT>(amax);
+    const float r = __frcp_rn(s);
+#pragma unroll
+    for (int i = 0; i < SLOTS; ++i) {
+      const int sl = lane + LANES * i;
+      if (live && sl < a.nslot) {
+        *reinterpret_cast<uint4*>(q + sl * 16) = codes(v[i], s, r);
+      }
+    }
+    if (live && lane == 0) {
+      store_scale<CONTRACT>(a, row, s, fmaxf(amax, 1e-6f));
+    }
   }
-  __syncthreads();
-  const float s = fmaxf(__fdiv_rn(red[0], 127.0f), 1e-8f);
-  int8_t* qr = xq + row * K;
-  for (int i = threadIdx.x; i < K; i += blockDim.x) {
-    float qv = rintf(__fdiv_rn(to_float(xr[i]), s));
-    qv = fminf(fmaxf(qv, -127.f), 127.f);
-    qr[i] = static_cast<int8_t>(qv);
-  }
-  if (threadIdx.x == 0) sx[row] = s;
+}
+
+template <typename T, int CONTRACT, int LANES, int SLOTS, bool VEC>
+int launch_rows(const RowArgs& a, cudaStream_t st) {
+  constexpr int RPB = 256 / LANES;
+  const long long blocks = (a.rows + RPB - 1) / RPB;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  quantize_rows_kernel<T, CONTRACT, LANES, SLOTS, VEC>
+      <<<static_cast<unsigned>(blocks), 256, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2's rows: one slot a lane and the fewest warps a row that cover K (up
+// to 4096 values), then 8 warps of 2 or 4 slots (up to 16384), then the
+// two-pass form; rows that are not 16-byte aligned or whose K is not a
+// 16-multiple take the two-pass form with single-value loads
+template <typename T>
+int launch_k2_rows(const RowArgs& a, bool vec, cudaStream_t st) {
+  const int K = a.K;
+  if (!vec) return launch_rows<T, K2_ROWS, 256, 0, false>(a, st);
+  if (K <= 512) return launch_rows<T, K2_ROWS, 32, 1, true>(a, st);
+  if (K <= 1024) return launch_rows<T, K2_ROWS, 64, 1, true>(a, st);
+  if (K <= 2048) return launch_rows<T, K2_ROWS, 128, 1, true>(a, st);
+  if (K <= 4096) return launch_rows<T, K2_ROWS, 256, 1, true>(a, st);
+  if (K <= 8192) return launch_rows<T, K2_ROWS, 256, 2, true>(a, st);
+  if (K <= 16384) return launch_rows<T, K2_ROWS, 256, 4, true>(a, st);
+  return launch_rows<T, K2_ROWS, 256, 0, true>(a, st);
 }
 
 constexpr int GBM = 128, GBN = 256;   // output tile
@@ -342,20 +482,68 @@ int launch_gemm(const void* xq, const void* w, int M, int N, int K,
 
 }  // namespace
 
+// x [M, K] bf16 (x_dtype 0) or fp32 (1), contiguous -> xq [M, round_up(K,
+// 16)] int8 (zero codes past K; 16-byte aligned) and sx [M] fp32, K2's
+// contract. Any K >= 1 and any alignment of x.
 extern "C" int k2_quantize_rows(const void* x, int M, int K, int x_dtype,
                                 void* xq, void* sx, void* stream) {
   if (M <= 0) return static_cast<int>(cudaGetLastError());
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int8_t* q = static_cast<int8_t*>(xq);
-  float* s = static_cast<float*>(sx);
-  if (x_dtype == 0) {
-    quantize_rows_kernel<bf16><<<M, 256, 0, st>>>(static_cast<const bf16*>(x), K, q, s);
-  } else if (x_dtype == 1) {
-    quantize_rows_kernel<float><<<M, 256, 0, st>>>(static_cast<const float*>(x), K, q, s);
-  } else {
+  if (K <= 0 || x_dtype < 0 || x_dtype > 1 ||
+      reinterpret_cast<uintptr_t>(xq) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  RowArgs a = {};
+  a.x = x;
+  a.rows = M;
+  a.K = K;
+  a.nslot = (K + 15) / 16;
+  a.xq = static_cast<int8_t*>(xq);
+  a.sx = static_cast<float*>(sx);
+  const bool vec = K % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return x_dtype == 0 ? launch_k2_rows<bf16>(a, vec, st)
+                      : launch_k2_rows<float>(a, vec, st);
+}
+
+// The int8 attention tiers' quantize of Q or K: x [B, H, S, D] bf16 (x_dtype
+// 0) or fp32 (1) with element strides (sb, sh, ss) and a unit last one, 16-
+// byte aligned, D 64 or 128 -> codes xq [B, H, S, D] int8 (contiguous) and
+// scales sx[(b H + h) scale_pitch + s] = max(amax, 1e-6) * c, fp32 (the
+// entries past S are left alone).
+extern "C" int k2_prologue_quantize(const void* x, int B, int H, int S, int D,
+                                    long long sb, long long sh, long long ss,
+                                    int x_dtype, float c, void* xq, void* sx,
+                                    int scale_pitch, void* stream) {
+  if (B <= 0 || H <= 0 || S <= 0) return static_cast<int>(cudaGetLastError());
+  const int esize = x_dtype == 0 ? 2 : 4;
+  if ((D != 64 && D != 128) || x_dtype < 0 || x_dtype > 1 ||
+      scale_pitch < S || reinterpret_cast<uintptr_t>(x) % 16 ||
+      (sb * esize) % 16 || (sh * esize) % 16 || (ss * esize) % 16 ||
+      reinterpret_cast<uintptr_t>(xq) % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  RowArgs a = {};
+  a.x = x;
+  a.rows = (long long)B * H * S;
+  a.K = D;
+  a.nslot = D / 16;
+  a.S = S;
+  a.H = H;
+  a.sb = sb;
+  a.sh = sh;
+  a.ss = ss;
+  a.scale_pitch = scale_pitch;
+  a.c = c;
+  a.xq = static_cast<int8_t*>(xq);
+  a.sx = static_cast<float*>(sx);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // one slot a lane: a row is D / 16 lanes of a warp
+  if (x_dtype == 0) {
+    return D == 64 ? launch_rows<bf16, PROLOGUE, 4, 1, true>(a, st)
+                   : launch_rows<bf16, PROLOGUE, 8, 1, true>(a, st);
+  }
+  return D == 64 ? launch_rows<float, PROLOGUE, 4, 1, true>(a, st)
+                 : launch_rows<float, PROLOGUE, 8, 1, true>(a, st);
 }
 
 // xq [M, K] and w [N, K] int8 (16-byte aligned), sx [M], sw [N] and bias

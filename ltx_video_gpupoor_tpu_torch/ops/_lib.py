@@ -32,6 +32,7 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 U = ctypes.c_uint
 F = ctypes.c_float
+L = ctypes.c_longlong
 
 # C signatures: name -> argtypes (restype is int, the cudaError_t, but for
 # RESTYPES).
@@ -64,8 +65,12 @@ SIGNATURES = {
     "k3q_flash_attention_int8_bounded": [P, P, P, P, P, P, P, P, I, I, I, I,
                                          I, I, I, I, I, I, I, I, I, I, I, I,
                                          I, I, I, I, I, F, P],
-    # x, M, K, x_dtype (0 bf16, 1 f32), xq, sx, stream
+    # x, M, K, x_dtype (0 bf16, 1 f32), xq (rows of round_up(K, 16)), sx,
+    # stream
     "k2_quantize_rows": [P, I, I, I, P, P, P],
+    # x, B, H, S, D, x strides (b, h, s), x_dtype, c (the scale's factor),
+    # xq, sx, scale_pitch, stream
+    "k2_prologue_quantize": [P, I, I, I, I, L, L, L, I, F, P, P, I, P],
     # xq, w, M, N, K, sx, sw, bias, out, out_mode (0 s32, 1 bf16, 2 f32),
     # stream
     "k2_int8_gemm": [P, P, I, I, I, P, P, P, P, I, P],

@@ -524,55 +524,126 @@ def _absmax_scale(x: torch.Tensor, dims) -> torch.Tensor:
     return torch.clamp(x.abs().amax(dim=dims), min=1e-6) * INV127_F32
 
 
-def int8_prologue(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  scale: float | None = None, pv_int8: bool = True,
-                  block_kv: int = DEFAULT_BLOCK_KV) -> Int8Operands:
-    """The int8 tiers' quantize prologue (JAX :484-533), plain torch ops.
-    ``block_kv`` is the kv block requested of JAX's kernel; the k scales
-    take the block that :func:`fit_blocks` makes of it.
+def _prologue_blocks(sq: int, skv: int, block_kv: int) -> tuple[int, int]:
+    """(Skv padded to K4's tile, the kv block of the k scales)."""
+    spad = round_up(skv, K4_TILE_KV)
+    _, kv_block = fit_blocks(round_up(sq, 128), spad, DEFAULT_BLOCK_Q,
+                             block_kv)
+    return spad, kv_block
+
+
+def _q_scale_factor(scale: float | None, d: int) -> float:
+    """What multiplies Q's ``max(amax, 1e-6)`` into its stored scale: XLA
+    folds ``/ 127`` and the softmax scale times log2(e) into one float32
+    constant, float32(float32(1/127) * float32(scale * log2 e))."""
+    c = (d ** -0.5 if scale is None else scale) * LOG2E
+    return (torch.tensor(INV127_F32) * torch.tensor(c)).item()
+
+
+def _quantize_q_plain(q: torch.Tensor, c_q: float):
+    """Q's codes, and its scales ``max(amax, 1e-6) * c_q``, plain torch
+    ops."""
+    qf = q.float()
+    amax = torch.clamp(qf.abs().amax(dim=-1), min=1e-6)
+    q8 = torch.round(qf / (amax * INV127_F32)[..., None]).to(torch.int8)
+    return q8, (amax * c_q).contiguous()
+
+
+def _quantize_k_rows_plain(k: torch.Tensor, spad: int):
+    """K's codes and one scale a kv row, padded with zeros to ``spad``."""
+    kf = k.float()
+    k_s = _absmax_scale(kf, -1)
+    k8 = torch.round(kf / k_s[..., None]).to(torch.int8)
+    return k8, F.pad(k_s, (0, spad - k.shape[2])).contiguous()
+
+
+def _quantize_kv_blocks_plain(k, v, spad: int, kv_block: int):
+    """The QK+PV tier's K codes with a scale a kv block, and V's codes in
+    K4's layout with a scale a channel (JAX's ``v_scale * 127``)."""
+    b, h, skv, d = k.shape
+    nkv = spad // kv_block
+    kp = F.pad(k.float(), (0, 0, 0, spad - skv))
+    k_s = _absmax_scale(kp.reshape(b, h, nkv, kv_block, d), (3, 4))
+    k8 = torch.round(kp.reshape(b, h, nkv, kv_block, d)
+                     / k_s[..., None, None])
+    k8 = k8.reshape(b, h, -1, d)[:, :, :skv].to(torch.int8)
+    del kp
+    vf = torch.empty(b, h, spad, d, device=v.device)
+    vf[:, :, :skv] = v
+    vf[:, :, skv:] = 0
+    v_s = _absmax_scale(vf, 2)                        # [B, H, D]
+    vt = k4_v_layout(torch.round(vf / v_s[:, :, None, :]))
+    return k8, k_s.contiguous(), vt, (v_s * INV127_F32 * 127.0).contiguous()
+
+
+def int8_prologue_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        scale: float | None = None, pv_int8: bool = True,
+                        block_kv: int = DEFAULT_BLOCK_KV) -> Int8Operands:
+    """The int8 tiers' quantize prologue (JAX :484-533), plain torch ops
+    on any device. ``block_kv`` is the kv block requested of JAX's kernel;
+    the k scales take the block that :func:`fit_blocks` makes of it.
 
     The k and v scales take their absmax over every kv row (rows that a
     segment mask hides included, as in JAX; its zero padding rows add
     nothing). The QK+PV tier's v codes are written straight into K4's V^T
     layout, so a launch copies nothing."""
+    spad, kv_block = _prologue_blocks(q.shape[2], k.shape[2], block_kv)
+    q8, q_scale = _quantize_q_plain(q, _q_scale_factor(scale, q.shape[-1]))
+    if pv_int8:
+        k8, k_s, v, v_scale = _quantize_kv_blocks_plain(k, v, spad, kv_block)
+        return Int8Operands(q8, q_scale, k8, k_s, kv_block, v, v_scale,
+                            kv_block)
+    k8, k_s = _quantize_k_rows_plain(k, spad)
+    return Int8Operands(q8, q_scale, k8, k_s, 1, v, None, kv_block)
+
+
+def _quantize_rows_cuda(x: torch.Tensor, c: float, pitch: int):
+    """Q's or K's rows through K2's row kernel on the prologue's contract:
+    ``(codes [B, H, S, D] int8 contiguous, scales max(amax, 1e-6) * c
+    [B, H, pitch] fp32, zeros past S)``; one launch, counted in
+    ``int8_prologue.kernel_launches``."""
+    from . import _lib
+
+    b, h, s, d = x.shape
+    if x.stride(3) != 1 or x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError("the prologue kernel takes bf16 or fp32 rows with a "
+                         "unit stride on the head dim")
+    x8 = torch.empty(b, h, s, d, dtype=torch.int8, device=x.device)
+    alloc = torch.empty if pitch == s else torch.zeros
+    sx = alloc(b, h, pitch, dtype=torch.float32, device=x.device)
+    code = _lib.library().k2_prologue_quantize(
+        x.data_ptr(), b, h, s, d, *x.stride()[:3],
+        0 if x.dtype == torch.bfloat16 else 1, ctypes.c_float(c),
+        x8.data_ptr(), sx.data_ptr(), pitch, _lib.stream_ptr(x.device))
+    _lib.check(code, "int8 prologue quantize launch")
+    int8_prologue.kernel_launches += 1
+    return x8, sx
+
+
+def int8_prologue(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  scale: float | None = None, pv_int8: bool = True,
+                  block_kv: int = DEFAULT_BLOCK_KV) -> Int8Operands:
+    """The int8 tiers' quantize prologue (JAX :484-533). CPU tensors take
+    :func:`int8_prologue_plain`. On the card Q's codes and scales in every
+    tier, and K's in the QK tier (one scale a kv row), come from K2's row
+    kernel on the prologue's contract, bit-equal to the plain ops (one
+    launch each, counted in ``int8_prologue.kernel_launches``); the QK+PV
+    tier's per-block K scales and per-channel V codes stay plain torch."""
+    if q.device.type != "cuda":
+        return int8_prologue_plain(q, k, v, scale=scale, pv_int8=pv_int8,
+                                   block_kv=block_kv)
     b, h, sq, d = q.shape
-    skv = k.shape[2]
-    if scale is None:
-        scale = d ** -0.5
-    spad = round_up(skv, K4_TILE_KV)
-    _, kv_block = fit_blocks(round_up(sq, 128), spad, DEFAULT_BLOCK_Q,
-                             block_kv)
-    qf = q.float()
-    q_s = _absmax_scale(qf, -1)
-    q8 = torch.round(qf / q_s[..., None]).to(torch.int8)
-    del qf
-    q_scale = (q_s * (scale * LOG2E)).contiguous()
-    kf = k.float()
+    spad, kv_block = _prologue_blocks(sq, k.shape[2], block_kv)
+    q8, q_scale = _quantize_rows_cuda(q, _q_scale_factor(scale, d), sq)
     if pv_int8:
-        nkv = spad // kv_block
-        kp = F.pad(kf, (0, 0, 0, spad - skv))
-        k_s = _absmax_scale(kp.reshape(b, h, nkv, kv_block, d), (3, 4))
-        k8 = torch.round(kp.reshape(b, h, nkv, kv_block, d)
-                         / k_s[..., None, None])
-        k8 = k8.reshape(b, h, -1, d)[:, :, :skv].to(torch.int8)
-        k_block = kv_block
-    else:
-        k_s = _absmax_scale(kf, -1)
-        k8 = torch.round(kf / k_s[..., None]).to(torch.int8)
-        k_s = F.pad(k_s, (0, spad - skv))
-        k_block = 1
-    del kf
-    v_scale = None
-    if pv_int8:
-        vf = torch.empty(b, h, spad, d, device=v.device)
-        vf[:, :, :skv] = v
-        vf[:, :, skv:] = 0
-        v_s = _absmax_scale(vf, 2)                        # [B, H, D]
-        v = k4_v_layout(torch.round(vf / v_s[:, :, None, :]))
-        del vf
-        v_scale = (v_s * INV127_F32 * 127.0).contiguous()
-    return Int8Operands(q8, q_scale, k8, k_s.contiguous(), k_block, v,
-                        v_scale, kv_block)
+        k8, k_s, v, v_scale = _quantize_kv_blocks_plain(k, v, spad, kv_block)
+        return Int8Operands(q8, q_scale, k8, k_s, kv_block, v, v_scale,
+                            kv_block)
+    k8, k_s = _quantize_rows_cuda(k, INV127_F32, spad)
+    return Int8Operands(q8, q_scale, k8, k_s, 1, v, None, kv_block)
+
+
+int8_prologue.kernel_launches = 0
 
 
 def _masks(q_seg, kv_seg, rows, cols, kv_valid, causal):

@@ -90,14 +90,36 @@ def fused_weights(p_linears):
     return w, ws, bias
 
 
+def row_kernel_takes(k: int) -> bool:
+    """Whether K5's row kernel takes rows of ``k`` values (the limit that
+    :func:`_check_cuda` names)."""
+    return k % 16 == 0 and k <= _MAX_K
+
+
 def apply_fused(x: torch.Tensor, scale_g: torch.Tensor, shift_g: torch.Tensor,
                 p_linears, *, eps: float) -> torch.Tensor:
     """Prologue + all the linears that consume it, one call: ``x [B, S,
     K]``, adaLN rows ``scale_g`` / ``shift_g`` ``[B, G, K]``; returns
-    ``[B, S, sum(N_i)]`` for the caller to split."""
+    ``[B, S, sum(N_i)]`` for the caller to split.
+
+    JAX's tier takes any K. A K that K5's row kernel does not take (not a
+    16-multiple, or past its registers) goes, by this shape test, to the
+    unfused chain over the same concatenated weights: the port's RMS norm
+    and modulation, then K2 (which takes any K). Each such call adds one
+    to ``norm_mod_int8_matmul.unfused_calls``; no shipped config has such
+    a K."""
     b, s, k = x.shape
     g = scale_g.shape[1]
     w, ws, bias = fused_weights(p_linears)
+    if not row_kernel_takes(k):
+        from .int8_matmul import int8_linear
+        from .norms import rms_norm
+
+        h = rms_norm(x, eps=eps).reshape(b, g, s // g, k)
+        h = h * (1 + scale_g.to(x.dtype)[:, :, None]) \
+            + shift_g.to(x.dtype)[:, :, None]
+        norm_mod_int8_matmul.unfused_calls += 1
+        return int8_linear(h.reshape(b, s, k), w, ws, bias)
     out = norm_mod_int8_matmul(
         x.reshape(b * s, k),
         scale_g.to(x.dtype).reshape(b * g, k),
@@ -265,3 +287,4 @@ def norm_mod_int8_matmul(
 
 
 norm_mod_int8_matmul.launches = 0
+norm_mod_int8_matmul.unfused_calls = 0

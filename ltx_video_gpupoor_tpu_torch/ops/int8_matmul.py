@@ -10,12 +10,16 @@ input dtype.
 Weights are ``w_int8 [N, K]`` (torch's ``[out, in]``; the JAX package
 stores ``[K, N]``) with fp32 per-output-channel scales ``[N]``.
 :func:`int8_linear` takes :func:`int8_linear_plain` for CPU tensors and
-launches ``csrc/int8_linear.cu`` for CUDA tensors, or raises.
+launches ``csrc/int8_linear.cu`` for CUDA tensors, or raises. Both take
+any K, as JAX does: the row kernel writes the codes in rows of
+``round_up(K, 16)`` bytes with zero codes past K, which add nothing to the
+int32 accumulator, and the GEMM runs at that padded K.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 _X_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _OUT_MODES = {torch.int32: 0, torch.bfloat16: 1, torch.float32: 2}
@@ -58,8 +62,6 @@ def _check(x, w_int8, w_scale, bias):
     n, k = w_int8.shape
     if x.shape[-1] != k:
         raise ValueError(f"x {tuple(x.shape)} does not match w [N={n}, K={k}]")
-    if k % 16:
-        raise ValueError(f"K2 needs K % 16 == 0, got K={k}")
     if x.dtype not in _X_DTYPES:
         raise ValueError(f"K2 takes bf16 or fp32 activations, got {x.dtype}")
     if w_int8.dtype != torch.int8 or not w_int8.is_contiguous():
@@ -77,15 +79,40 @@ def _check(x, w_int8, w_scale, bias):
 
 
 def _quantize_rows_cuda(lib, x2, stream):
+    """The row kernel on contiguous ``[M, K]``: ``(x_q [M, round_up(K,
+    16)] int8, zero codes past K; s_x [M] fp32)``."""
     from . import _lib
 
     m, k = x2.shape
-    xq = torch.empty((m, k), dtype=torch.int8, device=x2.device)
+    xq = torch.empty((m, -(-k // 16) * 16), dtype=torch.int8,
+                     device=x2.device)
     sx = torch.empty((m,), dtype=torch.float32, device=x2.device)
     code = lib.k2_quantize_rows(x2.data_ptr(), m, k, _X_DTYPES[x2.dtype],
                                 xq.data_ptr(), sx.data_ptr(), stream)
     _lib.check(code, "K2 quantize_rows launch")
     return xq, sx
+
+
+def quantize_rows(x2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2's row kernel alone on the card, to check and to time it:
+    ``(x_q [M, round_up(K, 16)] int8, s_x [M] fp32)``; ``x_q[:, :K]`` is
+    :func:`quantize_rows_plain`'s codes and the rest are zeros. Not counted
+    as a launch."""
+    if x2.device.type != "cuda" or x2.dim() != 2 \
+            or x2.dtype not in _X_DTYPES:
+        raise ValueError("quantize_rows checks the CUDA kernel on bf16 or "
+                         "fp32 [M, K]")
+    from . import _lib
+
+    return _quantize_rows_cuda(_lib.library(), x2.contiguous(),
+                               _lib.stream_ptr(x2.device))
+
+
+def _padded_weight(w_int8: torch.Tensor, kp: int) -> torch.Tensor:
+    """``w_int8 [N, K]`` with zero columns up to ``kp``: a copy at every
+    call where K is not a 16-multiple (no shipped linear has such a K)."""
+    k = w_int8.shape[1]
+    return w_int8 if kp == k else F.pad(w_int8, (0, kp - k))
 
 
 def _gemm_cuda(lib, xq, sx, w_int8, w_scale, bias, out_dtype, stream):
@@ -104,7 +131,10 @@ def _gemm_cuda(lib, xq, sx, w_int8, w_scale, bias, out_dtype, stream):
 
 def int8_linear(x: torch.Tensor, w_int8: torch.Tensor, w_scale: torch.Tensor,
                 bias: torch.Tensor | None = None) -> torch.Tensor:
-    """Dynamic-int8 linear ``[..., K] -> [..., N]`` in x's dtype."""
+    """Dynamic-int8 linear ``[..., K] -> [..., N]`` in x's dtype, any K.
+    On the card a K that is not a 16-multiple costs a zero-padded copy of
+    the weight at each call (the GEMM's TMA rows are 16-byte multiples);
+    every shipped linear has a 16-multiple K."""
     _check(x, w_int8, w_scale, bias)
     if x.device.type == "cpu":
         return int8_linear_plain(x, w_int8, w_scale, bias)
@@ -120,6 +150,7 @@ def int8_linear(x: torch.Tensor, w_int8: torch.Tensor, w_scale: torch.Tensor,
     if bias is not None:
         bias = bias.float().contiguous()
     xq, sx = _quantize_rows_cuda(lib, x2, stream)
+    w_int8 = _padded_weight(w_int8, xq.shape[1])
     out = _gemm_cuda(lib, xq, sx, w_int8, w_scale, bias, x.dtype, stream)
     int8_linear.launches += 1
     return out.reshape(*x.shape[:-1], w_int8.shape[0])
@@ -143,5 +174,6 @@ def int8_linear_acc(x: torch.Tensor, w_int8: torch.Tensor) -> tuple[
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     xq, sx = _quantize_rows_cuda(lib, x2, stream)
     ones = torch.ones(w_int8.shape[0], dtype=torch.float32, device=x.device)
-    acc = _gemm_cuda(lib, xq, sx, w_int8, ones, None, torch.int32, stream)
-    return xq, sx, acc
+    acc = _gemm_cuda(lib, xq, sx, _padded_weight(w_int8, xq.shape[1]), ones,
+                     None, torch.int32, stream)
+    return xq[:, :x2.shape[1]], sx, acc

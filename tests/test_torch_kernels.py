@@ -1173,9 +1173,19 @@ def test_quantize_params_defaults_to_jax_mode():
 
 
 def test_k2_rejects_bad_operands():
-    w8 = torch.zeros(32, 40, dtype=torch.int8)
-    with pytest.raises(ValueError, match="K % 16"):
-        tim.int8_linear(torch.zeros(3, 40), w8, torch.ones(32))
+    """K2 takes any K, as JAX's chain does: at K = 40 it equals
+    ``int8_dynamic_matmul`` (tests/test_torch_row_quant.py holds the codes
+    and the accumulator exactly); an activation dtype it does not take
+    raises."""
+    x, w, b = _w_x(9, 3, 40, 32)
+    ql = jq.quantize_weights(jnp.asarray(w))
+    ref = jq.int8_dynamic_matmul(jnp.asarray(x), ql, jnp.asarray(b))
+    out = tim.int8_linear(torch.from_numpy(x),
+                          torch.from_numpy(np.asarray(ql.w_int8).T.copy()),
+                          torch.from_numpy(np.array(ql.scale)),
+                          torch.from_numpy(b))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=INT8_TOL,
+                               rtol=INT8_TOL)
     w8 = torch.zeros(32, 48, dtype=torch.int8)
     with pytest.raises(ValueError, match="bf16 or fp32"):
         tim.int8_linear(torch.zeros(3, 48, dtype=torch.float64), w8,
