@@ -262,6 +262,9 @@ K3_REPLACES = "ltx_video_gpupoor_tpu/ops/flash_attention.py:294"
 # K3q: the int8 Q.K^T branch (:218-239) under the bounded step (:296)
 K3Q_SOURCE = K4_SOURCE
 K3Q_REPLACES = "ltx_video_gpupoor_tpu/ops/flash_attention.py:218"
+# the int8 tiers' quantize prologue, which JAX leaves to XLA around the
+# Pallas call; K2's row kernel computes it on the card
+PROLOGUE_REPLACES = "ltx_video_gpupoor_tpu/ops/flash_attention.py:484"
 K5_SOURCE = "ltx_video_gpupoor_tpu_torch/csrc/fused_prologue.cu"
 K5_REPLACES = "ltx_video_gpupoor_tpu/ops/fused_prologue.py:104"
 K6_REPLACES = "ltx_video_gpupoor_tpu/ops/flash_attention.py:663"
@@ -342,6 +345,7 @@ K2_SHAPES = [
     ("wan time_projection 1536->9216 M=2", 2, 1536, 9216, "fp32"),
 ]
 K2_TIMED = "wan ffn_in 1536->8960"
+K2_ROWS_TIMED = "wan ffn_out 8960->1536"   # the longest rows of the Wan path
 # ragged K2 shapes: M 1, 17, 129; N off the 256-column tile (and off a
 # multiple of 4, the 16-byte store); K 16, 48, 8960
 K2_RAGGED = [
@@ -500,7 +504,8 @@ def phase_device():
 # tensor-core instances are ring_kernel<0, ...>)
 WGMMA_KERNELS = ("flash_wgmma_kernel", "int8_gemm_wgmma_kernel",
                  "flash_int8_wgmma_kernel", "ring_kernelILi0E",
-                 "flash_pipelined_kernel", "flash_fp32_wgmma_kernel")
+                 "flash_pipelined_kernel", "flash_fp32_wgmma_kernel",
+                 "k3q_wgmma_kernel")
 # Registers a thread of every instance of K1/K6, K2, K4, K7 and K8 as the
 # sources built them before K3 and K3q joined K1's and K4's kernels (ptxas
 # on the H100's host; the same with the flag), by kernel and mangled
@@ -510,18 +515,18 @@ WGMMA_KERNELS = ("flash_wgmma_kernel", "int8_gemm_wgmma_kernel",
 # hopper.cuh that moves one shows as MOVED. (Printed, not asserted: another
 # nvcc would move them all.)
 PARENT_REGISTERS = {
-    "flash_int8_wgmma_kernel<Li128ELb0ELi0ELb0E>": 214,
-    "flash_int8_wgmma_kernel<Li128ELb0ELi1ELb0E>": 214,
-    "flash_int8_wgmma_kernel<Li128ELb0ELi2ELb0E>": 203,
-    "flash_int8_wgmma_kernel<Li128ELb1ELi0ELb0E>": 233,
-    "flash_int8_wgmma_kernel<Li128ELb1ELi1ELb0E>": 232,
-    "flash_int8_wgmma_kernel<Li128ELb1ELi2ELb0E>": 255,
-    "flash_int8_wgmma_kernel<Li64ELb0ELi0ELb0E>": 173,
-    "flash_int8_wgmma_kernel<Li64ELb0ELi1ELb0E>": 175,
-    "flash_int8_wgmma_kernel<Li64ELb0ELi2ELb0E>": 163,
-    "flash_int8_wgmma_kernel<Li64ELb1ELi0ELb0E>": 168,
-    "flash_int8_wgmma_kernel<Li64ELb1ELi1ELb0E>": 168,
-    "flash_int8_wgmma_kernel<Li64ELb1ELi2ELb0E>": 215,
+    "flash_int8_wgmma_kernel<Li128ELb0ELi0E>": 214,
+    "flash_int8_wgmma_kernel<Li128ELb0ELi1E>": 214,
+    "flash_int8_wgmma_kernel<Li128ELb0ELi2E>": 203,
+    "flash_int8_wgmma_kernel<Li128ELb1ELi0E>": 233,
+    "flash_int8_wgmma_kernel<Li128ELb1ELi1E>": 232,
+    "flash_int8_wgmma_kernel<Li128ELb1ELi2E>": 255,
+    "flash_int8_wgmma_kernel<Li64ELb0ELi0E>": 173,
+    "flash_int8_wgmma_kernel<Li64ELb0ELi1E>": 175,
+    "flash_int8_wgmma_kernel<Li64ELb0ELi2E>": 163,
+    "flash_int8_wgmma_kernel<Li64ELb1ELi0E>": 168,
+    "flash_int8_wgmma_kernel<Li64ELb1ELi1E>": 168,
+    "flash_int8_wgmma_kernel<Li64ELb1ELi2E>": 215,
     "flash_pipelined_kernel<Li128ELi128E>": 158,
     "flash_pipelined_kernel<Li128ELi16E>": 78,
     "flash_pipelined_kernel<Li128ELi32E>": 94,
@@ -617,7 +622,9 @@ def phase_build(compare=False):
         f"parent's registers: " + (f"MOVED {moved}" if moved else
                                    "every one at its parent's"))
     for what, kernel in (("K1f", "flash_fp32_wgmma_kernel"),
-                         ("K5's row kernel", "norm_mod_quantize_rows_kernel")):
+                         ("K5's row kernel", "norm_mod_quantize_rows_kernel"),
+                         ("K2's row kernel", "quantize_rows_kernel"),
+                         ("K3q", "k3q_wgmma_kernel")):
         found = sorted(k for k in regs if k.startswith(kernel + "<"))
         assert found, f"no {what} instance was built"
         log(f"[build] {what} ({kernel}), {len(found)} instances: " + ", ".join(
@@ -2080,6 +2087,7 @@ def _bounded_times(times, info, name, q, k, v, segs, ex2_per_s, k1_ms):
     (one a score in sight). No PyTorch call clamps the scores: no library
     time."""
     from ltx_video_gpupoor_tpu_torch.ops import flash_attention as fa
+    from ltx_video_gpupoor_tpu_torch.tools._bench_util import graph_ms
 
     b, h, sq, d = q.shape
     skv = k.shape[2]
@@ -2102,6 +2110,14 @@ def _bounded_times(times, info, name, q, k, v, segs, ex2_per_s, k1_ms):
     ops = fa.int8_prologue(q, k, v, pv_int8=False)
     k3q = cuda_time_ms(lambda: fa.int8_attention_cuda(ops, *segs, **kw))
     pro = cuda_time_ms(lambda: fa.int8_prologue(q, k, v, pv_int8=False))
+    pro_dev = graph_ms(lambda: fa.int8_prologue(q, k, v, pv_int8=False), 5)
+    pro_plain = cuda_time_ms(lambda: fa.int8_prologue_plain(
+        q, k, v, pv_int8=False))
+    # Q and K read once, their codes and (padded) scales written once
+    pro_bytes = (q.numel() + k.numel()) * (q.element_size() + 1) \
+        + 4 * (ops.q_scale.numel() + ops.k_scale.numel())
+    times[f"prologue {name}"] = (pro, pro_plain)
+    info[f"prologue {name}"] = (*bound_ms({}, pro_bytes), None)
     k3q_plain = cuda_time_ms(lambda: fa.int8_attention_plain(
         ops, *segs, **kw), **reps)
     scales = 4 * (ops.q_scale.numel() + ops.k_scale.numel())
@@ -2122,7 +2138,9 @@ def _bounded_times(times, info, name, q, k, v, segs, ex2_per_s, k1_ms):
         f"TFLOP/s; plain {k3_plain:.3f} ms; bound {t3[0]:.3f} ms bf16 "
         f"tensor, ex2 floor {ex2:.3f} ms), K3q {k3q:.3f} ms "
         f"({flops / k3q / 1e9:.1f} TOP/s; plain {k3q_plain:.3f} ms; "
-        f"prologue {pro:.3f} ms; bound {t3q[0]:.3f} ms int8 QK + bf16 PV "
+        f"prologue {pro:.3f} ms one call, {pro_dev:.4f} ms in a CUDA graph, "
+        f"its bytes bound {info[f'prologue {name}'][0]:.4f} ms, the plain "
+        f"prologue {pro_plain:.3f} ms; bound {t3q[0]:.3f} ms int8 QK + bf16 PV "
         f"tensor ({t3q[1]})), K1 {k1_ms:.3f} ms (K3 {k3 / k1_ms:.2f}x, K3q "
         f"{k3q / k1_ms:.2f}x)")
     del ops
@@ -2133,6 +2151,7 @@ def phase_timing(gen, ex2_per_s):
 
     from ltx_video_gpupoor_tpu_torch.ops import flash_attention as fa
     from ltx_video_gpupoor_tpu_torch.ops import int8_matmul as im
+    from ltx_video_gpupoor_tpu_torch.tools._bench_util import graph_ms
 
     times = {}
     info = {}     # name -> (bound ms, what bounds it, library call ms or None)
@@ -2275,6 +2294,19 @@ def phase_timing(gen, ex2_per_s):
         # its two launches apart: the row quantize, then the GEMM with the
         # scale / bias epilogue
         rows = cuda_time_ms(lambda: im._quantize_rows_cuda(lib_k, x, stream))
+        rows_note = ""
+        if m >= 3840:
+            rows_dev = graph_ms(
+                lambda: im._quantize_rows_cuda(lib_k, x, stream))
+            rows_plain = cuda_time_ms(lambda: im.quantize_rows_plain(x),
+                                      reps=3, warmup=1)
+            rows_bnd = bound_ms({}, m * kk * (x.element_size() + 1) + 4 * m)
+            times[f"K2 rows {name}"] = (rows, rows_plain)
+            info[f"K2 rows {name}"] = (*rows_bnd, None)
+            rows_note = (f", {rows_dev:.4f} ms in a CUDA graph against its "
+                         f"bytes bound {rows_bnd[0]:.4f} ms "
+                         f"({rows_dev / rows_bnd[0]:.2f}x), plain "
+                         f"{rows_plain:.3f} ms")
         xq, sx = im._quantize_rows_cuda(lib_k, x, stream)
         gemm = cuda_time_ms(lambda: im._gemm_cuda(lib_k, xq, sx, w8, sw, bias,
                                                   x.dtype, stream))
@@ -2289,7 +2321,8 @@ def phase_timing(gen, ex2_per_s):
         key = f"K2 {name}"
         log(f"[time] K2 {name} M={m}: kernel {kern:.3f} ms "
             f"({2 * m * kk * n / kern / 1e9:.1f} TOP/s; row quantize "
-            f"{rows:.3f} ms, GEMM with its epilogue {gemm:.3f} ms, "
+            f"{rows:.3f} ms one call{rows_note}, GEMM with its epilogue "
+            f"{gemm:.3f} ms, "
             f"{2 * m * kk * n / gemm / 1e9:.1f} TOP/s), plain {plain:.3f} ms, "
             f"bound {bnd[0]:.3f} ms ({bnd[1]}), torch._int_mm (GEMM alone) "
             + (f"{lib:.3f} ms (kernel {kern / lib:.2f}x, GEMM "
@@ -2997,6 +3030,10 @@ def kernel_counts():
 
     return {"K1": fa.flash_attention.launches,
             "K2": im.int8_linear.launches,
+            # K2's row kernel on the int8 attention prologue's contract
+            "K2p": fa.int8_prologue.kernel_launches,
+            # fused-tier calls that K5's row kernel does not take (F6)
+            "K5u": fp.norm_mod_int8_matmul.unfused_calls,
             "K3": fa.flash_attention.bounded_launches,
             "K3q": fa.flash_attention_int8.bounded_launches,
             "K4": fa.flash_attention_int8.launches,
@@ -3020,7 +3057,9 @@ def reset_kernel_counts():
     fa.flash_attention_fp32.launches = 0
     fa.flash_attention_fp32.by_variant = dict.fromkeys(fa.K1F_VARIANTS, 0)
     im.int8_linear.launches = 0
+    fa.int8_prologue.kernel_launches = 0
     fp.norm_mod_int8_matmul.launches = 0
+    fp.norm_mod_int8_matmul.unfused_calls = 0
     from ltx_video_gpupoor_tpu_torch.parallel import ring_rdma as rr
     from ltx_video_gpupoor_tpu_torch.tools import mb_selfattn_pipeline as mb
 
@@ -3031,17 +3070,19 @@ def reset_kernel_counts():
 
 
 # the kernels each tier must launch, and those it must not
-LTX13B_EXPECT = {"a: auto": (("K4", "K2"),
-                             ("K1", "K3", "K3q", "K5", "K6", "K7", "K8", "K1f")),
+LTX13B_EXPECT = {"a: auto": (("K4", "K2", "K2p"),
+                             ("K1", "K3", "K3q", "K5", "K5u", "K6", "K7",
+                              "K8", "K1f")),
                  "b: pallas_hp + fused prologue": (
                      ("K6", "K5", "K1", "K2"),
-                     ("K3", "K3q", "K4", "K7", "K8", "K1f")),
+                     ("K2p", "K3", "K3q", "K4", "K5u", "K7", "K8", "K1f")),
                  "c: score bound": (("K3", "K2"),
-                                    ("K1", "K3q", "K4", "K5", "K6", "K7",
-                                     "K8", "K1f")),
+                                    ("K1", "K2p", "K3q", "K4", "K5", "K5u",
+                                     "K6", "K7", "K8", "K1f")),
                  "d: pallas_int8 + score bound": (
-                     ("K3q", "K2"),
-                     ("K1", "K3", "K4", "K5", "K6", "K7", "K8", "K1f"))}
+                     ("K3q", "K2", "K2p"),
+                     ("K1", "K3", "K4", "K5", "K5u", "K6", "K7", "K8",
+                      "K1f"))}
 
 
 def ltx13b_reference_check(cfg, dense_cut):
@@ -3554,6 +3595,7 @@ def run_wan_request(pipe, umt5, height, width, frames, mode):
     t_dec = time.perf_counter()
     launches = {"K1": fa.flash_attention.launches,
                 "K2": im.int8_linear.launches,
+                "K2p": fa.int8_prologue.kernel_launches,
                 "K4": fa.flash_attention_int8.launches}
     peak = torch.cuda.max_memory_allocated() / 2**30
     pixels_finite = bool(torch.isfinite(video.float()).all())
@@ -3577,6 +3619,9 @@ def run_wan_request(pipe, umt5, height, width, frames, mode):
     exact = mode == "pallas"
     assert (launches["K1"] > 0) == exact and (launches["K4"] > 0) != exact, \
         launches
+    # the prologue quantizes Q for every K4 call, and K in the QK tier
+    per_call = 0 if exact else 2 if mode == "pallas_int8" else 1
+    assert launches["K2p"] == per_call * launches["K4"], launches
     assert frames_u8.std() > 0, "constant frames"
     return launches
 
@@ -3609,9 +3654,13 @@ def phase_wan():
 # K3 and K3q are the instances of K1's and K4's kernels whose last template
 # argument (BOUNDED) is true: "...flash_wgmma_kernel<128, 0, false, true>"
 BOUNDED_GROUPS = [
+    # K2's row kernel on the attention prologue's contract (template
+    # argument CONTRACT = 1; K5's row kernel shares the name's tail)
+    (re.compile(r"(?<!norm_mod_)quantize_rows_kernel<[^,]*, 1,"),
+     "int8 attention prologue (K2's row kernel)"),
     (re.compile(r"flash_wgmma_kernel<[^>]*\btrue>"),
      "K3 bounded-score flash attention"),
-    (re.compile(r"flash_int8_wgmma_kernel<[^>]*\btrue>"),
+    (re.compile(r"k3q_wgmma_kernel"),
      "K3q int8-QK bounded-score flash attention"),
 ]
 KERNEL_GROUPS = [
@@ -3639,7 +3688,7 @@ PROFILED_OPS = [
     ("models.wan.model", "layer_norm", "norms"),
     ("models.ltx.transformer3d.F", "gelu", "GELU / GEGLU"),
     ("models.wan.model.F", "gelu", "GELU / GEGLU"),
-    ("ops.flash_attention", "int8_prologue", "K4 quantize prologue (torch)"),
+    ("ops.flash_attention", "int8_prologue", "int8 attention prologue (torch ops)"),
 ]
 
 
@@ -3923,6 +3972,17 @@ def main(argv=None) -> int:
                      "K1 self"),
         kernel_entry("int8_linear (dynamic int8)", K2_SOURCE, K2_REPLACES,
                      wan_launches[-1]["K2"], k2_err, times, info, k2_key),
+        # its codes and scales equal the plain version's at every checked
+        # shape (phase_k2, phase_prologue): no error
+        kernel_entry("quantize_rows (K2's row kernel: per-row absmax, scale "
+                     "and int8 codes)", K2_SOURCE, K2_REPLACES,
+                     wan_launches[-1]["K2"], 0.0, times, info,
+                     f"K2 rows {K2_ROWS_TIMED}"),
+        kernel_entry("int8_prologue (K2's row kernel on the int8 attention "
+                     "prologue's contract: Q, and K in the QK tier)",
+                     K2_SOURCE, PROLOGUE_REPLACES,
+                     ltx13b_launches[tier_d]["K2p"], 0.0, times, info,
+                     "prologue self pass 2"),
         kernel_entry("flash_attention_int8 (int8 QK + int8 PV)", K4_SOURCE,
                      K4_REPLACES, wan_launches[-1]["K4"], k4_err[0], times,
                      info, "K4 int8pv self"),

@@ -10,8 +10,11 @@
 // and the finalize (:393-401). K3q replaces the branch of the same kernel
 // that runs qk_int8 scores (:218-239, per-row k scales) into the bounded
 // softmax step (_update :296-313) with bf16 P.V (_pv :289-292). The
-// quantize prologue (:484-533) runs before the launch as plain torch ops
-// (ops/flash_attention.py, int8_prologue), shared with the plain version.
+// quantize prologue (:484-533) runs before the launch
+// (ops/flash_attention.py, int8_prologue: Q's rows, and the QK tier's K
+// rows, by K2's row kernel in int8_linear.cu; the QK+PV tier's block K
+// scales and channel V scales as torch ops), bit-equal to the plain
+// version's.
 //
 // Inputs are the prologue's int8 q and k ([B, H, S, D], any strides with
 // a unit last one, 16-byte aligned), fp32 q scales [B, H, Sq] with
@@ -34,7 +37,7 @@
 // tier. o = acc / l. JAX moves its running max once a kv block (4096 rows
 // at the Wan shape), this kernel once a 128-row tile, so p is quantized
 // against another max and the two agree to int8 noise, not bit for bit.
-// K3q (QK tier, BOUNDED): s = (s32 * qs) * ks as above, then p = exp2(min(s,
+// K3q (QK tier, bounded): s = (s32 * qs) * ks as above, then p = exp2(min(s,
 // sb) - sb) at the fixed offset sb = score_bound * log2(e): no running max,
 // no factor, no rescale of acc; acc += bf16(p) . v, l sums p (the bf16 p at
 // D=64), o = acc / l. With per-row k scales and no max, nothing depends on
@@ -69,12 +72,12 @@
 //   issued together and tile j's softmax runs while P.V is in flight.
 // - Instances by mask kind, as K1: none, tail (the last tile compares),
 //   general (segment ids, causal).
-// - K3q is the QK tier's instance with the bounded step in place of
-//   softmax_k4 and without fold_pv's rescale: a min, a subtract and an ex2 a
-//   score, no max reduction and no shuffle.
 // Registers a thread (ptxas): QK tier 203-214 at D=128, QK+PV tier 232-255
-// (the s32 P.V accumulator in flight adds 64), 163-215 at D=64; K3q 186-198
-// at D=128, 155-161 at D=64; no spills, one block an SM.
+// (the s32 P.V accumulator in flight adds 64), 163-215 at D=64; no spills,
+// one block an SM.
+// K3q has a kernel of its own (k3q_wgmma_kernel, below), built on the same
+// products and masks, with a deeper ring whose loads wait for no one and
+// the warpgroups taking turns on the tensor cores.
 
 #include <cmath>
 
@@ -295,24 +298,6 @@ __device__ __forceinline__ void softmax_k4(float (&s)[64], float& m0,
   }
 }
 
-// K3q's step, in place: s becomes p = exp2(min(s, sb) - sb) at the fixed
-// offset sb (a masked score, NEG_INF, gives 0); ls0 and ls1 are this
-// thread's sums of the fp32 p. No max, no shuffle, no factor.
-__device__ __forceinline__ void softmax_bounded(float (&s)[64], float sb,
-                                                float& ls0, float& ls1) {
-  ls0 = 0.f;
-  ls1 = 0.f;
-#pragma unroll
-  for (int jn = 0; jn < 16; ++jn) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      s[4 * jn + e] = ex2(fminf(s[4 * jn + e], sb) - sb);
-    }
-    ls0 += s[4 * jn] + s[4 * jn + 1];
-    ls1 += s[4 * jn + 2] + s[4 * jn + 3];
-  }
-}
-
 // p in [0, 127] -> int8 codes in the A-fragment order of the s8 P.V:
 // k-step kk takes score tiles 4 kk .. 4 kk + 3; its register 0 holds rows
 // g's codes of tiles 4 kk (elements 0, 1) and 4 kk + 1 (0, 1), register 1
@@ -357,8 +342,7 @@ __device__ __forceinline__ void ring_wait_empty(uint32_t empty, int j) {
   }
 }
 
-// BOUNDED: K3q, the QK tier at the fixed offset bound_log2 (K4 ignores it)
-template <int D, bool PV8, int MASK, bool BOUNDED>
+template <int D, bool PV8, int MASK>
 __global__ void __launch_bounds__(K4_THREADS, 1)
 flash_int8_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                         const __grid_constant__ CUtensorMap kmap,
@@ -369,10 +353,7 @@ flash_int8_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                         const float* __restrict__ kscale,
                         const float* __restrict__ vscale, int Sq, int Skv,
                         long long osb, long long osh, long long oss,
-                        int ks_block, int nks, int kv_end, int causal,
-                        float bound_log2) {
-  // JAX refuses int8 P under a fixed offset (ops/flash_attention.py:477-483)
-  static_assert(!(PV8 && BOUNDED), "int8 P.V needs the running max");
+                        int ks_block, int nks, int kv_end, int causal) {
   using C = K4Cfg<D, PV8>;
   constexpr int STAGES = C::STAGES;
   constexpr bool SUM_ROUNDED = D % 128 != 0;  // JAX's sum_col
@@ -536,13 +517,8 @@ flash_int8_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
           }
         }
       }
-      if constexpr (BOUNDED) {
-        l0 += ls0;
-        l1 += ls1;
-      } else {
-        l0 = l0 * a0 + ls0;
-        l1 = l1 * a1 + ls1;
-      }
+      l0 = l0 * a0 + ls0;
+      l1 = l1 * a1 + ls1;
     };
     auto issue_pv = [&](int s) {
       if constexpr (PV8) {
@@ -565,8 +541,6 @@ flash_int8_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
           acc[4 * n + 2] = fmaf(i2f(pv[4 * n + 2]), vs.x, acc[4 * n + 2]) * f1;
           acc[4 * n + 3] = fmaf(i2f(pv[4 * n + 3]), vs.y, acc[4 * n + 3]) * f1;
         }
-      } else if constexpr (BOUNDED) {
-        pin(acc);  // K3q: acc owes no factor
       } else {
         pin(acc);
 #pragma unroll
@@ -602,11 +576,7 @@ flash_int8_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       __syncwarp();  // the warp's reads of the stage's k scales are done
       if (lane == 0) mbar_arrive(k_empty);
       if (needs_mask(0)) mask_tile<MASK>(sf, r, 0, t);
-      if constexpr (BOUNDED) {
-        softmax_bounded(sf, bound_log2, ls0, ls1);
-      } else {
-        softmax_k4<PV8>(sf, m0, m1, a0, a1, ls0, ls1);
-      }
+      softmax_k4<PV8>(sf, m0, m1, a0, a1, ls0, ls1);
       take_p(sf, ls0, ls1);
     }
 
@@ -636,11 +606,7 @@ flash_int8_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       if (how == MASK_ALWAYS || (how == MASK_ASK && needs_mask(j))) {
         mask_tile<MASK>(sf, r, j * BKV, t);
       }
-      if constexpr (BOUNDED) {
-        softmax_bounded(sf, bound_log2, ls0, ls1);
-      } else {
-        softmax_k4<PV8>(sf, m0, m1, a0, a1, ls0, ls1);
-      }
+      softmax_k4<PV8>(sf, m0, m1, a0, a1, ls0, ls1);
       wgmma_wait<0>();
       if (lane == 0) mbar_arrive(v_empty + 8 * sp);
       fold_pv(a0, a1);
@@ -680,6 +646,461 @@ flash_int8_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     if (r.row1 < Sq) {
       *reinterpret_cast<uint32_t*>(ob + r.row1 * oss + c) =
           pack_f(acc[4 * n + 2] / d1, acc[4 * n + 3] / d1);
+    }
+  }
+}
+
+// ---- K3q: the QK tier under the bounded softmax ------------------------------
+
+// K3q's block, the QK tier's products and masks with the bounded softmax,
+// laid out for what measuring K4's block showed: its loads, its softmax
+// and its products ran one after another (ablations at the 13B pass 2
+// self-attention: loads alone took 1.85 ms in a two-deep ring, P.V alone
+// with its loads 4.23 ms against 1.95 ms of tensor time, and the scores
+// and exponentials, about 1500 of a tile's 3300 cycles, mostly beside the
+// products, not under them); issuing a tile's TMA loads from a consumer
+// warp stalled that warp for hundreds of cycles, and with it its
+// warpgroup's next product.
+// - A producer warp (the ninth) issues every load: Q, then each tile's K
+//   (int8), its k scales (a bulk copy) and V (bf16 in K1's panels) into a
+//   ring of STAGES tiles, 4 deep (210 KB at D=128, 106 KB at D=64); it
+//   alone waits on the empty barriers.
+// - 288 threads leave 168 registers a thread (the register file is split
+//   by SM quarter; three warps share one), under the 186-212 that a 128-kv
+//   score tile in flight beside P.V needs at D=128. So each consumer
+//   warpgroup walks a tile in two halves of 64 kv rows: Q.K^T of a half
+//   is m64n64k32 (32 score registers), its P.V m64nDk16 over 64 kv rows
+//   (16 P registers), and a half's bounded softmax runs under the P.V of
+//   the half before (K4's overlap, at half the registers).
+// - The k scales are read as float2 pairs, 8 a half a thread.
+// - The output is staged through the drained ring and leaves in 16-byte
+//   stores, a row's 16-byte chunks on neighbouring threads.
+constexpr int K3Q_THREADS = 288;
+constexpr int K3Q_CONSUMERS = 256;
+#ifndef K3Q_TURNS
+#define K3Q_TURNS 1
+#endif
+
+#ifndef K3Q_D128_FULL
+#define K3Q_D128_FULL 1
+#endif
+template <int D>
+struct K3qCfg {
+  // whether a part's softmax runs under the P.V of the part before
+  static constexpr bool OVERLAP = D == 64 || !K3Q_D128_FULL;
+  // kv rows a step of a consumer: the whole tile at D=64, half at D=128
+  static constexpr int HKV = D == 64 || K3Q_D128_FULL ? 128 : 64;
+  static constexpr int PARTS = BKV / HKV;
+  static constexpr int QK_LAYOUT = D == 128 ? SWIZZLE_128B : SWIZZLE_64B;
+  static constexpr int QK_SBO = 8 * D;  // bytes between 8-row groups
+  static constexpr int STAGES = 4;
+  static constexpr int Q_BYTES = BQ * D;
+  static constexpr int K_BYTES = BKV * D;
+  static constexpr int V_BYTES = BKV * D * 2;  // D / 64 panels of K1's
+  static constexpr int KS_BYTES = BKV * 4;
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * K_BYTES;
+  static constexpr int KS_OFF = V_OFF + STAGES * V_BYTES;
+  static constexpr int BAR_OFFSET = KS_OFF + STAGES * KS_BYTES;
+  static constexpr int SMEM_BYTES = 1024 + BAR_OFFSET + 8 * (1 + 4 * STAGES);
+  // the staged output, bf16 rows padded by 16 bytes (conflict-free writes
+  // of a quad's four 4-byte columns by eight rows), over the V stages
+  static constexpr int O_PITCH = D * 2 + 16;
+  static_assert(BQ * O_PITCH <= STAGES * V_BYTES, "staging fits the ring");
+};
+
+// d (64 x 64 s32) += a (64 x 32 int8, shared, K-major) * b (64 x 32 int8,
+// shared, K-major)^T; d is overwritten where scale_d == 0
+__device__ __forceinline__ void wgmma_s8_ss_n64(uint32_t (&d)[32], uint64_t desc_a,
+    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// sc = Q K^T (s32) for HKV kv rows from k_rows (a multiple of 8 rows into
+// a tile), issued and committed, not waited for
+template <int D, int N>
+__device__ __forceinline__ void qk_issue_part(uint32_t (&sc)[N / 2],
+                                              uint32_t q_rows,
+                                              uint32_t k_rows) {
+  using C = K3qCfg<D>;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 32; ++kk) {
+    const uint64_t da = wgmma_desc(q_rows + kk * 32, 16, C::QK_SBO,
+                                   C::QK_LAYOUT);
+    const uint64_t db = wgmma_desc(k_rows + kk * 32, 16, C::QK_SBO,
+                                   C::QK_LAYOUT);
+    if constexpr (N == 128) {
+      wgmma_s8_ss_n128(sc, da, db, kk > 0);
+    } else {
+      wgmma_s8_ss_n64(sc, da, db, kk > 0);
+    }
+  }
+  wgmma_commit();
+}
+
+// K3q's step over N / 2 kv columns, in place: s becomes p = exp2(min(s, sb)
+// - sb) at the fixed offset sb (a masked score, NEG_INF, gives 0); ls0 and
+// ls1 are this thread's sums of the fp32 p. No max, no shuffle, no factor.
+template <int N>
+__device__ __forceinline__ void softmax_bounded(float (&s)[N], float sb,
+                                                float& ls0, float& ls1) {
+  ls0 = 0.f;
+  ls1 = 0.f;
+#pragma unroll
+  for (int jn = 0; jn < N / 4; ++jn) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[4 * jn + e] = ex2(fminf(s[4 * jn + e], sb) - sb);
+    }
+    ls0 += s[4 * jn] + s[4 * jn + 1];
+    ls1 += s[4 * jn + 2] + s[4 * jn + 3];
+  }
+}
+
+// masked scores of N / 2 columns from kv0 (mask_tile's rule) go to NEG_INF
+template <int MASK, int N>
+__device__ __forceinline__ void mask_part(float (&sc)[N], const Rows& r,
+                                          int kv0, int t) {
+#pragma unroll
+  for (int jn = 0; jn < N / 4; ++jn) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int col = kv0 + jn * 8 + t * 2 + c;
+      bool ok0 = col < r.kv_lim, ok1 = ok0;
+      if (MASK == MASK_GENERAL) {
+        if (r.causal) {
+          ok0 = ok0 && r.row0 >= col;
+          ok1 = ok1 && r.row1 >= col;
+        }
+        if (r.kv_seg != nullptr) {
+          const int ks = col < r.Skv ? r.kv_seg[col] : 0;
+          ok0 = ok0 && ks > 0 && ks == r.qs0;
+          ok1 = ok1 && ks > 0 && ks == r.qs1;
+        }
+      }
+      if (!ok0) sc[4 * jn + c] = NEG_INF;
+      if (!ok1) sc[4 * jn + 2 + c] = NEG_INF;
+    }
+  }
+}
+
+template <int D, int MASK>
+__global__ void __launch_bounds__(K3Q_THREADS, 1)
+k3q_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                 const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap,
+                 bf16* __restrict__ o, const int* __restrict__ q_seg,
+                 const int* __restrict__ kv_seg,
+                 const float* __restrict__ qscale,
+                 const float* __restrict__ kscale, int Sq, int Skv,
+                 long long osb, long long osh, long long oss, int nks,
+                 int kv_end, int causal, float bound_log2) {
+  using C = K3qCfg<D>;
+  constexpr int STAGES = C::STAGES;
+  constexpr bool SUM_ROUNDED = D % 128 != 0;  // JAX's sum_col
+  extern __shared__ uint8_t smem_raw[];
+
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* base_ptr = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t sQ = base;
+  const uint32_t sK = base + C::K_OFF;
+  const uint32_t sV = base + C::V_OFF;
+  const uint32_t sKS = base + C::KS_OFF;
+  const uint32_t q_full = base + C::BAR_OFFSET;
+  const uint32_t k_full = q_full + 8;
+  const uint32_t k_empty = k_full + 8 * STAGES;
+  const uint32_t v_full = k_empty + 8 * STAGES;
+  const uint32_t v_empty = v_full + 8 * STAGES;
+
+  const int b = blockIdx.z, h = blockIdx.y;
+  const long long bh = static_cast<long long>(b) * gridDim.y + h;
+  const int q0 = blockIdx.x * BQ;
+
+  int kv_lim = kv_end;  // columns at or past it are masked for every row
+  if (MASK == MASK_GENERAL && causal && q0 + BQ < kv_lim) kv_lim = q0 + BQ;
+  const int n_tiles = (kv_lim + BKV - 1) / BKV;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, 8);  // one arrival a consumer warp
+      mbar_init(v_empty + 8 * s, 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= K3Q_CONSUMERS) {
+    // ---- the producer warp: its first thread keeps the ring full ----
+    if (threadIdx.x == K3Q_CONSUMERS && n_tiles > 0) {
+      mbar_expect_tx(q_full, C::Q_BYTES);
+      tma_load_4d(sQ, &qmap, q_full, 0, q0, h, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % STAGES;
+        ring_wait_empty<STAGES>(k_empty, j);
+        mbar_expect_tx(k_full + 8 * s, C::K_BYTES + C::KS_BYTES);
+        tma_load_4d(sK + s * C::K_BYTES, &kmap, k_full + 8 * s, 0, j * BKV, h,
+                    b);
+        bulk_load(sKS + s * C::KS_BYTES, kscale + bh * nks + j * BKV,
+                  C::KS_BYTES, k_full + 8 * s);
+        ring_wait_empty<STAGES>(v_empty, j);
+        mbar_expect_tx(v_full + 8 * s, C::V_BYTES);
+#pragma unroll
+        for (int p = 0; p < D / 64; ++p) {
+          tma_load_4d(sV + s * C::V_BYTES + p * PANEL_BYTES, &vmap,
+                      v_full + 8 * s, p * 64, j * BKV, h, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- two consumer warpgroups of 64 q rows ----
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wg_row0 = q0 + wg * 64;
+  Rows r;
+  r.row0 = wg_row0 + warp * 16 + g;
+  r.row1 = r.row0 + 8;
+  r.qs0 = r.qs1 = 0;
+  r.kv_seg = nullptr;
+  r.Skv = Skv;
+  r.kv_lim = kv_lim;
+  r.causal = causal;
+  if (MASK == MASK_GENERAL && q_seg != nullptr) {
+    r.qs0 = r.row0 < Sq ? q_seg[(long long)b * Sq + r.row0] : 0;
+    r.qs1 = r.row1 < Sq ? q_seg[(long long)b * Sq + r.row1] : 0;
+    r.kv_seg = kv_seg + (long long)b * Skv;
+  }
+  const float qsc0 = r.row0 < Sq ? qscale[bh * Sq + r.row0] : 0.f;
+  const float qsc1 = r.row1 < Sq ? qscale[bh * Sq + r.row1] : 0.f;
+  constexpr int HKV = C::HKV, PARTS = C::PARTS;
+  constexpr int NS = HKV / 2;  // scores of a part a thread
+  // whether part u (kv rows HKV u ..) compares columns
+  auto needs_mask = [&](int u) {
+    if (MASK == MASK_TAIL) return u / PARTS == n_tiles - 1;
+    if (MASK == MASK_GENERAL) {
+      return r.kv_seg != nullptr || (u + 1) * HKV > kv_lim ||
+             (causal && (u + 1) * HKV - 1 > wg_row0);
+    }
+    return false;
+  };
+  // part u's s32 scores as floats in the exp2 domain, (s32 * qs) * ks
+  auto scores = [&](const uint32_t (&sc)[NS], float (&sf)[NS], int u) {
+    const float* ks = reinterpret_cast<const float*>(
+        base_ptr + C::KS_OFF + ((u / PARTS) % STAGES) * C::KS_BYTES) +
+        (u % PARTS) * HKV;
+#pragma unroll
+    for (int jn = 0; jn < NS / 4; ++jn) {
+      const float2 k2 = *reinterpret_cast<const float2*>(ks + jn * 8 + 2 * t);
+      sf[4 * jn] = (i2f(sc[4 * jn]) * qsc0) * k2.x;
+      sf[4 * jn + 1] = (i2f(sc[4 * jn + 1]) * qsc0) * k2.y;
+      sf[4 * jn + 2] = (i2f(sc[4 * jn + 2]) * qsc1) * k2.x;
+      sf[4 * jn + 3] = (i2f(sc[4 * jn + 3]) * qsc1) * k2.y;
+    }
+  };
+  auto k_part = [&](int u) {
+    return sK + ((u / PARTS) % STAGES) * C::K_BYTES + (u % PARTS) * (HKV * D);
+  };
+  auto v_part = [&](int u) {
+    return sV + ((u / PARTS) % STAGES) * C::V_BYTES +
+           (u % PARTS) * (HKV * 128);
+  };
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float l0 = 0.f, l1 = 0.f;
+  const int n_parts = PARTS * n_tiles;
+
+  if (n_tiles > 0) {
+    const uint32_t sQw = sQ + wg * (64 * D);  // this warpgroup's rows
+    uint32_t p[HKV / 4];  // bf16 P of the part whose P.V is next
+    // P -> registers, and l's step (the bf16 p at D=64)
+    auto take_p = [&](float (&sf)[NS], float ls0, float ls1) {
+      pack_p(sf, p);
+      if (SUM_ROUNDED) {
+        ls0 = ls1 = 0.f;
+#pragma unroll
+        for (int i = 0; i < HKV / 4; ++i) {
+          const __nv_bfloat162 pr = *reinterpret_cast<__nv_bfloat162*>(&p[i]);
+          const float sum = __low2float(pr) + __high2float(pr);
+          if (i & 1) ls1 += sum; else ls0 += sum;
+        }
+      }
+      l0 += ls0;
+      l1 += ls1;
+    };
+    // the last part of a tile frees its K stage (its k scales read too)
+    auto release_k = [&](int u) {
+      if (u % PARTS == PARTS - 1) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(k_empty + 8 * ((u / PARTS) % STAGES));
+      }
+    };
+    // warpgroup 0 issues its products first
+    if (K3Q_TURNS && wg == 1) bar_arrive(2, K3Q_CONSUMERS);
+
+    if constexpr (!C::OVERLAP) {
+    // one tile a step, the tile's P.V left in flight while this warpgroup
+    // waits for its turn to issue the next Q.K^T
+    auto serial = [&](int u, auto masked) {
+      uint32_t sc[NS];
+      float sf[NS], ls0, ls1;
+      mbar_wait(k_full + 8 * (u % STAGES), (u / STAGES) & 1);
+      if (K3Q_TURNS) bar_sync(2 + wg, K3Q_CONSUMERS);
+      wgmma_wait<0>();  // the P.V of tile u - 1
+      pin(acc);
+      if (u > 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(v_empty + 8 * ((u - 1) % STAGES));
+      }
+      qk_issue_part<D, HKV>(sc, sQw, k_part(u));
+      if (K3Q_TURNS) bar_arrive(3 - wg, K3Q_CONSUMERS);
+      wgmma_wait<0>();
+      pin(sc);
+      scores(sc, sf, u);
+      release_k(u);
+      constexpr int how = decltype(masked)::value;
+      if (how == MASK_ALWAYS || (how == MASK_ASK && needs_mask(u))) {
+        mask_part<MASK>(sf, r, u * HKV, t);
+      }
+      softmax_bounded(sf, bound_log2, ls0, ls1);
+      take_p(sf, ls0, ls1);
+      mbar_wait(v_full + 8 * (u % STAGES), (u / STAGES) & 1);
+      pv_issue_bf16<D, HKV>(acc, p, v_part(u));
+    };
+    mbar_wait(q_full, 0);
+    if (MASK == MASK_GENERAL) {
+      for (int u = 0; u < n_parts; ++u) serial(u, How<MASK_ASK>{});
+    } else {
+      const int n_free = MASK == MASK_TAIL ? n_parts - 1 : n_parts;
+      for (int u = 0; u < n_free; ++u) serial(u, How<MASK_NEVER>{});
+      if (MASK == MASK_TAIL) serial(n_parts - 1, How<MASK_ALWAYS>{});
+    }
+    wgmma_wait<0>();
+    pin(acc);
+    } else {
+
+    // part 0: scores and softmax; its P.V is issued with part 1's Q.K^T
+    {
+      uint32_t sc[NS];
+      float sf[NS], ls0, ls1;
+      mbar_wait(q_full, 0);
+      mbar_wait(k_full, 0);
+      qk_issue_part<D, HKV>(sc, sQw, k_part(0));
+      wgmma_wait<0>();
+      pin(sc);
+      scores(sc, sf, 0);
+      release_k(0);
+      if (needs_mask(0)) mask_part<MASK>(sf, r, 0, t);
+      softmax_bounded(sf, bound_log2, ls0, ls1);
+      take_p(sf, ls0, ls1);
+    }
+
+    // one step for part u >= 1: Q.K^T of part u and P.V of part u - 1 are
+    // issued together (in turns with the other warpgroup), part u's softmax
+    // runs under the P.V; `masked` as in K4's loop
+    auto step = [&](int u, auto masked) {
+      const int j = u / PARTS, jp = (u - 1) / PARTS;
+      uint32_t sc[NS];
+      float sf[NS], ls0, ls1;
+      if (u % PARTS == 0) mbar_wait(k_full + 8 * (j % STAGES), (j / STAGES) & 1);
+      if ((u - 1) % PARTS == 0) {  // part u - 1 opened tile jp's V
+        mbar_wait(v_full + 8 * (jp % STAGES), (jp / STAGES) & 1);
+      }
+      if (K3Q_TURNS) bar_sync(2 + wg, K3Q_CONSUMERS);
+      qk_issue_part<D, HKV>(sc, sQw, k_part(u));
+      pv_issue_bf16<D, HKV>(acc, p, v_part(u - 1));
+      if (K3Q_TURNS) bar_arrive(3 - wg, K3Q_CONSUMERS);
+      wgmma_wait<1>();  // the scores of part u are in
+      pin(sc);
+      scores(sc, sf, u);
+      release_k(u);
+      constexpr int how = decltype(masked)::value;
+      if (how == MASK_ALWAYS || (how == MASK_ASK && needs_mask(u))) {
+        mask_part<MASK>(sf, r, u * HKV, t);
+      }
+      softmax_bounded(sf, bound_log2, ls0, ls1);
+      wgmma_wait<0>();
+      pin(acc);
+      if ((u - 1) % PARTS == PARTS - 1) {  // part u - 1 closed tile jp's V
+        __syncwarp();
+        if (lane == 0) mbar_arrive(v_empty + 8 * (jp % STAGES));
+      }
+      take_p(sf, ls0, ls1);
+    };
+    if (MASK == MASK_GENERAL) {
+      for (int u = 1; u < n_parts; ++u) step(u, How<MASK_ASK>{});
+    } else {
+      // the tail kind's last tile, every part of it, compares
+      const int n_free = MASK == MASK_TAIL ? n_parts - PARTS : n_parts;
+      for (int u = 1; u < n_free; ++u) step(u, How<MASK_NEVER>{});
+      if (MASK == MASK_TAIL) {
+        for (int u = max(n_free, 1); u < n_parts; ++u) {
+          step(u, How<MASK_ALWAYS>{});
+        }
+      }
+    }
+
+    pv_issue_bf16<D, HKV>(acc, p, v_part(n_parts - 1));
+    wgmma_wait<0>();
+    pin(acc);
+    }
+  }
+
+  // both warpgroups are done with the ring (every load issued was waited
+  // for), so its V stages take the output tile
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float d0 = l0 > 0.f ? l0 : 1.f;
+  const float d1 = l1 > 0.f ? l1 : 1.f;
+  bar_sync(1, K3Q_CONSUMERS);
+  uint8_t* stage = base_ptr + C::V_OFF;
+  const int lr = wg * 64 + warp * 16 + g;  // this thread's first row
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int cb = (n * 8 + t * 2) * 2;  // column bytes
+    *reinterpret_cast<uint32_t*>(stage + lr * C::O_PITCH + cb) =
+        pack_f(acc[4 * n] / d0, acc[4 * n + 1] / d0);
+    *reinterpret_cast<uint32_t*>(stage + (lr + 8) * C::O_PITCH + cb) =
+        pack_f(acc[4 * n + 2] / d1, acc[4 * n + 3] / d1);
+  }
+  bar_sync(1, K3Q_CONSUMERS);
+  constexpr int CHUNKS = D / 8;  // 16-byte chunks a row
+  bf16* ob = o + b * osb + h * osh;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < BQ * CHUNKS; i += K3Q_CONSUMERS) {
+    const int row = i / CHUNKS, c = i % CHUNKS;
+    if (q0 + row < Sq) {
+      *reinterpret_cast<uint4*>(ob + (q0 + row) * oss + c * 8) =
+          *reinterpret_cast<const uint4*>(stage + row * C::O_PITCH + c * 16);
     }
   }
 }
@@ -735,7 +1156,7 @@ struct Call {
   cudaStream_t stream;
 };
 
-template <int D, bool PV8, int MASK, bool BOUNDED>
+template <int D, bool PV8, int MASK>
 int launch_instance(const Call& c) {
   CUtensorMap qmap = {}, kmap = {}, vmap = {};
   if (c.kv_end > 0) {  // with no key in sight the block loads nothing
@@ -748,7 +1169,7 @@ int launch_instance(const Call& c) {
                           c.vsb));
     if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto kernel = flash_int8_wgmma_kernel<D, PV8, MASK, BOUNDED>;
+  auto kernel = flash_int8_wgmma_kernel<D, PV8, MASK>;
   constexpr int smem = K4Cfg<D, PV8>::SMEM_BYTES;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -757,19 +1178,45 @@ int launch_instance(const Call& c) {
   kernel<<<grid, K4_THREADS, smem, c.stream>>>(
       qmap, kmap, vmap, static_cast<bf16*>(c.o), c.q_seg, c.kv_seg, c.qsc,
       c.ksc, c.vsc, c.Sq, c.Skv, c.osb, c.osh, c.oss, c.ks_block, c.nks,
-      c.kv_end, c.causal, c.bound_log2);
+      c.kv_end, c.causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool PV8, bool BOUNDED = false>
+template <int D, bool PV8>
 int launch_kind(const Call& c, int mask_kind) {
-  if (mask_kind == MASK_NONE) {
-    return launch_instance<D, PV8, MASK_NONE, BOUNDED>(c);
+  if (mask_kind == MASK_NONE) return launch_instance<D, PV8, MASK_NONE>(c);
+  if (mask_kind == MASK_TAIL) return launch_instance<D, PV8, MASK_TAIL>(c);
+  return launch_instance<D, PV8, MASK_GENERAL>(c);
+}
+
+template <int D, int MASK>
+int launch_k3q(const Call& c) {
+  CUtensorMap qmap = {}, kmap = {}, vmap = {};
+  if (c.kv_end > 0) {  // with no key in sight the block loads nothing
+    const bool ok =
+        make_qk_map(&qmap, c.q, D, c.Sq, c.H, c.B, c.qss, c.qsh, c.qsb) &&
+        make_qk_map(&kmap, c.k, D, c.Skv, c.H, c.B, c.kss, c.ksh, c.ksb) &&
+        make_v_map(&vmap, c.v, D, c.Skv, c.H, c.B, c.vss, c.vsh, c.vsb);
+    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (mask_kind == MASK_TAIL) {
-    return launch_instance<D, PV8, MASK_TAIL, BOUNDED>(c);
-  }
-  return launch_instance<D, PV8, MASK_GENERAL, BOUNDED>(c);
+  auto kernel = k3q_wgmma_kernel<D, MASK>;
+  constexpr int smem = K3qCfg<D>::SMEM_BYTES;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((c.Sq + BQ - 1) / BQ, c.H, c.B);
+  kernel<<<grid, K3Q_THREADS, smem, c.stream>>>(
+      qmap, kmap, vmap, static_cast<bf16*>(c.o), c.q_seg, c.kv_seg, c.qsc,
+      c.ksc, c.Sq, c.Skv, c.osb, c.osh, c.oss, c.nks, c.kv_end, c.causal,
+      c.bound_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_k3q_kind(const Call& c, int mask_kind) {
+  if (mask_kind == MASK_NONE) return launch_k3q<D, MASK_NONE>(c);
+  if (mask_kind == MASK_TAIL) return launch_k3q<D, MASK_TAIL>(c);
+  return launch_k3q<D, MASK_GENERAL>(c);
 }
 
 // the call's kv_end from kv_valid; false where the mask kind masks less
@@ -852,7 +1299,7 @@ extern "C" int k3q_flash_attention_int8_bounded(
       !checked(c, kv_valid, mask_kind)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (D == 64) return launch_kind<64, false, true>(c, mask_kind);
-  if (D == 128) return launch_kind<128, false, true>(c, mask_kind);
+  if (D == 64) return launch_k3q_kind<64>(c, mask_kind);
+  if (D == 128) return launch_k3q_kind<128>(c, mask_kind);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -69,20 +69,28 @@ def test_summarize_trace_counts_overlap_once(tmp_path):
         "K2 / K5 int8 GEMM": (1.0, 1),
         "cuDNN conv3d (VAE)": (0.5, 1),
         "PyTorch elementwise and copies: casts and copies": (0.5, 1)}
-    # the bounded tiers (the instances of K1's and K4's kernels whose last
-    # template argument is true) and the prologue's row kernel have groups
-    # of their own
+    # the bounded tiers (K3: the instances of K1's kernel whose last
+    # template argument is true; K3q: its own kernel), K5's row kernel and
+    # the two instances of K2's row kernel (by its CONTRACT argument) have
+    # groups of their own
     trace["traceEvents"] += [
         ev("kernel", "void (anonymous namespace)::flash_wgmma_kernel"
            "<128, 2, false, true>(...)", 5000.0, 250.0),
-        ev("kernel", "void (anonymous namespace)::flash_int8_wgmma_kernel"
-           "<128, false, 0, true>(...)", 5250.0, 50.0),
-        ev("kernel", "norm_mod_quantize_rows_kernel(...)", 6000.0, 125.0)]
+        ev("kernel", "void (anonymous namespace)::k3q_wgmma_kernel"
+           "<128, 0>(...)", 5250.0, 50.0),
+        ev("kernel", "norm_mod_quantize_rows_kernel<__nv_bfloat16, 1, 8>"
+           "(...)", 6000.0, 125.0),
+        ev("kernel", "void (anonymous namespace)::quantize_rows_kernel"
+           "<__nv_bfloat16, 1, 8, 1, true>(...)", 6125.0, 75.0),
+        ev("kernel", "void (anonymous namespace)::quantize_rows_kernel"
+           "<__nv_bfloat16, 0, 256, 1, true>(...)", 6200.0, 100.0)]
     path.write_text(json.dumps(trace))
     groups = chip_smoke.summarize_trace(str(path))["groups"]
     assert groups["K3 bounded-score flash attention"] == (0.25, 1)
     assert groups["K3q int8-QK bounded-score flash attention"] == (0.05, 1)
     assert groups["K5 prologue row kernel"] == (0.125, 1)
+    assert groups["int8 attention prologue (K2's row kernel)"] == (0.075, 1)
+    assert groups["K2 row quantize"] == (0.1, 1)
     assert groups["K1 / K6 exact flash attention"] == (1.0, 1)
     # PyTorch's own kernels go by the innermost record_function scope
     # around their launch (matched through the correlation id), the
@@ -164,6 +172,7 @@ def _stubbed_main(monkeypatch, capsys, argv):
     results = {
         "phase_device": ("a card", 4.18e12),
         "phase_build": 1.0, "phase_k1": 0.0, "phase_k2": 0.0,
+        "phase_prologue": None,
         "phase_k4": (0.0, 0.0), "phase_k3": 0.0, "phase_k3q": 0.0,
         "phase_k5": 0.0,
         "phase_k6": 0.0, "phase_k1f": 0.0, "phase_timing": (timed, info),
@@ -191,7 +200,7 @@ def _stubbed_main(monkeypatch, capsys, argv):
 
 
 KERNEL_PHASES = ["phase_device", "phase_build", "phase_k1", "phase_k2",
-                 "phase_k4", "phase_k3", "phase_k3q", "phase_k5",
+                 "phase_prologue", "phase_k4", "phase_k3", "phase_k3q", "phase_k5",
                  "phase_k6", "phase_k1f",
                  "phase_timing", "time_k1f", "phase_k8", "phase_k7"]
 
@@ -213,7 +222,7 @@ def test_default_run_drives_every_path_and_ends_with_the_result(
     assert json.loads(lines[-1]) == {"ok": True, "device": {
         "platform": "gpu", "kind": "a card", "count": 1}}
     kernels = json.loads(lines[-2])["kernels"]
-    assert len(kernels) == 11
+    assert len(kernels) == 13
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert all(keys <= set(k) for k in kernels)
@@ -229,15 +238,20 @@ def test_default_run_drives_every_path_and_ends_with_the_result(
 
 
 def _ptxas_report(k1f_spill=0, serialized=False):
-    """A ptxas -v report of one K1f instance and one of K5's row kernel,
-    in the form nvcc prints it; ``k1f_spill`` bytes of spill stores and
-    loads in the K1f instance."""
+    """A ptxas -v report of one K1f instance, one of K5's row kernel, one
+    of K2's and one of K3q, in the form nvcc prints it; ``k1f_spill`` bytes
+    of spill stores and loads in the K1f instance."""
     k1f = ("_ZN56_GLOBAL__N__a364beb7_23_flash_attention_fp32_cu_664c2249"
            "23flash_fp32_wgmma_kernelILi64ELi1ELi0EEEvNS_6ParamsE")
     k5 = ("_ZN56_GLOBAL__N__0f0d6c2b_17_fused_prologue_cu_4c1f1c9b29norm_"
           "mod_quantize_rows_kernelI13__nv_bfloat16Li1EEEvPKT_S4_S4_iiifPaPf")
+    k2 = ("_ZN56_GLOBAL__N__5e7c0a11_14_int8_linear_cu_8f3e2d1a20quantize_"
+          "rows_kernelI13__nv_bfloat16Li0ELi32ELi1ELb1EEEvNS_7RowArgsE")
+    k3q = ("_ZN56_GLOBAL__N__6d8a1b22_22_flash_attention_int8_cu_1a2b3c4d16"
+           "k3q_wgmma_kernelILi128ELi0EEEv14CUtensorMap_st")
     lines = []
-    for name, regs, spill in ((k1f, 168, k1f_spill), (k5, 102, 0)):
+    for name, regs, spill in ((k1f, 168, k1f_spill), (k5, 102, 0),
+                              (k2, 32, 0), (k3q, 200, 0)):
         lines += [
             f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
             f"ptxas info    : Function properties for {name}",
@@ -274,7 +288,9 @@ def test_build_refuses_a_spill_or_serialized_wgmma_in_k1f(
         return
     regs = chip_smoke.phase_build()
     assert regs == {"flash_fp32_wgmma_kernel<Li64ELi1ELi0E>": 168,
-                    "norm_mod_quantize_rows_kernel<13__nv_bfloat16Li1E>": 102}
+                    "norm_mod_quantize_rows_kernel<13__nv_bfloat16Li1E>": 102,
+                    "quantize_rows_kernel<13__nv_bfloat16Li0ELi32ELi1ELb1E>":
+                    32, "k3q_wgmma_kernel<Li128ELi0E>": 200}
     out = capsys.readouterr().out
     assert "K1f (flash_fp32_wgmma_kernel), 1 instances" in out
     assert "K5's row kernel (norm_mod_quantize_rows_kernel)" in out

@@ -177,14 +177,79 @@ def test_k2_matches_plain(cuda, m, k, n, dtype):
 
 
 def test_k2_rejects_what_it_does_not_take(cuda):
-    w8 = torch.zeros(32, 40, dtype=torch.int8, device=cuda)
-    with pytest.raises(ValueError, match="K % 16"):
-        im.int8_linear(torch.zeros(3, 40, device=cuda), w8,
-                       torch.ones(32, device=cuda))
+    """K2 takes any K, as JAX does: at K = 40 the codes, the row scales and
+    the int32 accumulator equal the plain version's exactly (codes in rows
+    of 48 bytes, zeros past K; the weight zero-padded at the call); a
+    weight on another device raises."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = _randn(gen, 33, 40).bfloat16()
+    ql = quantize_weights(_randn(gen, 72, 40))
+    xq, sx, acc = im.int8_linear_acc(x, ql.w_int8)
+    pq, ps = im.quantize_rows_plain(x)
+    assert torch.equal(xq, pq) and torch.equal(sx, ps[:, 0])
+    assert torch.equal(acc, im.int8_gemm_acc_plain(pq, ql.w_int8))
+    out = im.int8_linear(x, ql.w_int8, ql.scale)
+    ref = im.int8_linear_plain(x, ql.w_int8, ql.scale)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-6)
     w8 = torch.zeros(32, 48, dtype=torch.int8, device=cuda)
     with pytest.raises(ValueError, match="on cpu"):
         im.int8_linear(torch.zeros(3, 48, device=cuda), w8,
                        torch.ones(32))
+
+
+@pytest.mark.parametrize("m,k,dtype,offset", [
+    (15840, 2048, torch.bfloat16, 0),    # one slot a lane, 4 warps a row
+    (300, 512, torch.bfloat16, 0),       # 8 rows a block, ragged M
+    (129, 8960, torch.bfloat16, 0),      # 2 slots a lane
+    (64, 16384, torch.float32, 0),       # 4 slots a lane
+    (33, 20000, torch.bfloat16, 0),      # two passes
+    (17, 40, torch.float32, 0),          # K off a 16-multiple
+    (9, 4096, torch.bfloat16, 1),        # rows off a 16-byte boundary
+])
+def test_k2_row_kernel_matches_plain(cuda, m, k, dtype, offset):
+    """K2's row kernel: codes and row scales equal ``quantize_rows_plain``
+    bit for bit at every form of the kernel, zero codes up to the padded
+    row; one all-zero row (the 1e-8 floor)."""
+    gen = torch.Generator(device=cuda).manual_seed(m + k)
+    buf = (_randn(gen, m * k + offset) * 3).to(dtype)
+    x = buf[offset:].view(m, k)
+    x[m // 2] = 0
+    xq, sx = im.quantize_rows(x)
+    pq, ps = im.quantize_rows_plain(x)
+    kp = -(-k // 16) * 16
+    assert xq.shape == (m, kp) and xq.data_ptr() % 16 == 0
+    assert torch.equal(xq[:, :k], pq) and torch.equal(sx, ps[:, 0])
+    assert not xq[:, k:].any()
+
+
+@pytest.mark.parametrize("d,dtype,pv_int8", [
+    (64, torch.bfloat16, False), (128, torch.bfloat16, False),
+    (128, torch.bfloat16, True), (64, torch.float32, False),
+    (128, torch.float32, True)])
+def test_prologue_kernel_matches_plain(cuda, d, dtype, pv_int8):
+    """The int8 tiers' prologue on the card (Q by the row kernel in every
+    tier, K too in the QK tier) equals the plain ops bit for bit on
+    head-split views of ``[B, S, H*D]`` projections, one launch a
+    quantized operand."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    b, h, sq, skv = 2, 3, 300, 200
+
+    def heads(n):
+        t = (_randn(gen, b, n, h * d) * 2).to(dtype)
+        return t.view(b, n, h, d).transpose(1, 2)
+
+    q, k, v = heads(sq), heads(skv), heads(skv)
+    q[0, 1, 5] = 0
+    before = fa.int8_prologue.kernel_launches
+    ops = fa.int8_prologue(q, k, v, pv_int8=pv_int8)
+    assert fa.int8_prologue.kernel_launches == before + (1 if pv_int8 else 2)
+    plain = fa.int8_prologue_plain(q, k, v, pv_int8=pv_int8)
+    for name in fa.Int8Operands._fields:
+        a, p = getattr(ops, name), getattr(plain, name)
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, p), name
+        else:
+            assert a == p, name
 
 
 K4_BLOCK_MAX, K4_BLOCK_MEAN = 1e-1, 1e-3
