@@ -16,9 +16,10 @@ Phases, one output line each (or a few):
 2. build    nvcc builds csrc/ into the kernel library (seconds, registers
             of every instance, each K1/K6, K2, K4, K7 and K8 instance
             beside its parent's in PARENT_REGISTERS: "MOVED" where it
-            differs); fails if ptxas serialized a wgmma or any kernel on
-            wgmma (K1/K3/K6, K7's tensor-core body, K8, K2, K4/K3q)
-            spills.
+            differs; K1f, K3q and the row kernels of K2 and K5 listed
+            apart); fails if ptxas serialized a wgmma or any kernel on
+            wgmma (K1/K3/K6, K7's tensor-core body, K8, K2, K4, K3q,
+            K1f) spills.
 3. K1       the exact attention kernel (wgmma, TMA tile loads) against its
             plain version at the main path's shapes (self-attention B=3
             H=32 S=5280 D=64; cross-attention to 256 masked text tokens
@@ -38,10 +39,20 @@ Phases, one output line each (or a few):
             token counts: 4096->4096, 4096->16384, 16384->4096, patchify,
             proj_out, the caption and adaLN projections) and at ragged
             ones (M 1, 17, 129; N off the 256-column tile; K 16, 48,
-            8960): the int8 activations and int32 accumulators equal the
-            plain version's exactly, the outputs agree to 1e-2 relative;
-            a planted fault (the last 16-byte K step dropped from the
-            plain accumulator) must fail the check.
+            8960; K 40 and 1000, off a 16-multiple; K 20000 and 20008,
+            past the row kernel's registers, its two-pass form): the
+            int8 activations (zero codes past K in the padded rows) and
+            int32 accumulators equal the plain version's exactly, the
+            outputs agree to 1e-2 relative; planted faults (the last
+            16-byte K step dropped from the plain accumulator, codes
+            from x * (1 / s) without the IEEE quotient near a half)
+            must fail the check.
+4b. prologue the int8 attention tiers' quantize prologue on the card (Q
+            in every tier and the QK tier's K by K2's row kernel on the
+            prologue's contract, one counted launch each) at K3q's, K4's
+            and K1f's shapes on head-split views, bf16 and fp32: codes
+            and scales equal the plain torch ops bit for bit; a planted
+            fault (Q's scale times the unfolded factors) must fail it.
 5. K4       the int8 attention kernel, both tiers (QK+PV, QK), against its
             plain version on the same prologue operands at the Wan shapes
             (self-attention B=2 H=12 S=32760 D=128 on head-split views;
@@ -72,12 +83,13 @@ Phases, one output line each (or a few):
             plus 2**-9 of its largest output; planted faults (the last q
             tile zeroed, a head scaled by 1 + 2**-5) at 13B pass 2 and at
             the LTX-2B shape must fail that check.
-5b'. K3q   the int8 Q.K^T tier under the bounded softmax against its plain
-            version on the same prologue operands (per-row k scales, no
-            running max: nothing depends on a kv block) at the same shapes
-            and with K3's check and planted faults; each launch must move
-            its own counter and no other; then the wrapper (prologue +
-            kernel, q's layout).
+5b'. K3q   the int8 Q.K^T tier under the bounded softmax (a kernel of its
+            own: a producer warp, the warpgroups taking turns) against
+            its plain version on the same prologue operands (per-row k
+            scales, no running max: nothing depends on a kv block) at the
+            same shapes and with K3's check and planted faults; each
+            launch must move its own counter and no other; then the
+            wrapper (prologue + kernel, q's layout).
 5c. K5     the fused adaLN prologue + int8 linear at the 13B shapes (M
             3840 and 15360, K 4096, N 12288 and 16384, 16 groups, so a
             group edge lies inside a GEMM tile) and at a ragged one: the
@@ -140,8 +152,9 @@ Phases, one output line each (or a few):
             K1's, K2's, K4's and K6's times stand beside those of the
             kernels they replaced, K1's beside the same call through the
             tail and the general mask instance, K4's, K3's and K3q's beside
-            K1 at the same shape, K2's row quantize and K3q's prologue
-            apart; each kernel's bound (the larger of its operations over
+            K1 at the same shape, K2's row quantize (one call and in a
+            CUDA graph, beside its bytes bound and its plain version) and
+            K3q's prologue (the same, beside the plain prologue) apart; each kernel's bound (the larger of its operations over
             the card's peak rate and its bytes over the memory rate; for
             K3, K3q and K4 also their exponentials, one ex2 a score at 16
             a clock an SM at the card's highest SM clock) is computed from
@@ -180,9 +193,10 @@ Phases, one output line each (or a few):
             (b) pallas_hp with the fused prologue (K6, K5, K1 for the
             cross-attention, K2 for the rest), (c) attention_score_bound=40
             (K3 + K2), (d) pallas_int8 with attention_score_bound=40 (K3q +
-            K2). The launch counts are read per pass; the script fails
-            unless each tier launched its kernels in both passes and none
-            of the others (LTX13B_EXPECT). Request (b) goes through the
+            K2 + the prologue's row kernel). The launch counts are read per
+            pass; the script fails unless each tier launched its kernels
+            in both passes and none of the others, the fused tier's
+            unfused route (F6) included (LTX13B_EXPECT). Request (b) goes through the
             server:
 7c. server  InferenceService around the 13B models with one warm-up
             bucket (which must complete, through K5, K6 and K2),
@@ -224,9 +238,10 @@ Phases, one output line each (or a few):
             832x480x81 Wan request, each twice under torch.profiler: as it
             is, for the device span, busy time and idle share, then with
             scopes around the port's ops, for the device time by kernel
-            group (K1/K6, K3, K3q, K2, K4, K5, ...; PyTorch's own kernels by the
-            op that launched them: RoPE, norms, GELU/GEGLU, K4's quantize
-            prologue, casts and copies, the rest), read from the exported
+            group (K1/K6, K3, K3q, K2, its row quantize and its prologue
+            instance, K4, K5, ...; PyTorch's own kernels by the op that
+            launched them: RoPE, norms, GELU/GEGLU, the int8 prologue's
+            torch ops, casts and copies, the rest), read from the exported
             traces; the build
             phase also builds once with one source after another and
             prints that time beside the parallel build's.
@@ -509,8 +524,8 @@ WGMMA_KERNELS = ("flash_wgmma_kernel", "int8_gemm_wgmma_kernel",
 # Registers a thread of every instance of K1/K6, K2, K4, K7 and K8 as the
 # sources built them before K3 and K3q joined K1's and K4's kernels (ptxas
 # on the H100's host; the same with the flag), by kernel and mangled
-# template arguments; K1/K6's and K4's instances carry the BOUNDED flag
-# (false) since then. phase_build prints
+# template arguments; K1/K6's instances carry the BOUNDED flag (false)
+# since then, K4's lost it again when K3q took a kernel of its own. phase_build prints
 # each instance beside its entry here: an edit of attention_block.cuh or
 # hopper.cuh that moves one shows as MOVED. (Printed, not asserted: another
 # nvcc would move them all.)
@@ -552,6 +567,35 @@ PARENT_REGISTERS = {
     "ring_kernel<Li0ELi64ELi1E13__nv_bfloat16>": 168,
     "ring_kernel<Li1ELi0ELi0E13__nv_bfloat16>": 123,
     "ring_kernel<Li1ELi0ELi0Ef>": 123,
+    # the instances redesigned since: K3q's own kernel and K2's row
+    # kernel, both instances of its contract (<T, CONTRACT, LANES, SLOTS,
+    # VEC>)
+    "k3q_wgmma_kernel<Li128ELi0E>": 156,
+    "k3q_wgmma_kernel<Li128ELi1E>": 157,
+    "k3q_wgmma_kernel<Li128ELi2E>": 160,
+    "k3q_wgmma_kernel<Li64ELi0E>": 160,
+    "k3q_wgmma_kernel<Li64ELi1E>": 160,
+    "k3q_wgmma_kernel<Li64ELi2E>": 168,
+    "quantize_rows_kernel<13__nv_bfloat16Li0ELi32ELi1ELb1E>": 32,
+    "quantize_rows_kernel<13__nv_bfloat16Li0ELi64ELi1ELb1E>": 32,
+    "quantize_rows_kernel<13__nv_bfloat16Li0ELi128ELi1ELb1E>": 32,
+    "quantize_rows_kernel<13__nv_bfloat16Li0ELi256ELi1ELb1E>": 32,
+    "quantize_rows_kernel<13__nv_bfloat16Li0ELi256ELi2ELb1E>": 38,
+    "quantize_rows_kernel<13__nv_bfloat16Li0ELi256ELi4ELb1E>": 53,
+    "quantize_rows_kernel<13__nv_bfloat16Li0ELi256ELi0ELb1E>": 56,
+    "quantize_rows_kernel<13__nv_bfloat16Li0ELi256ELi0ELb0E>": 43,
+    "quantize_rows_kernel<13__nv_bfloat16Li1ELi4ELi1ELb1E>": 37,
+    "quantize_rows_kernel<13__nv_bfloat16Li1ELi8ELi1ELb1E>": 37,
+    "quantize_rows_kernel<fLi0ELi32ELi1ELb1E>": 40,
+    "quantize_rows_kernel<fLi0ELi64ELi1ELb1E>": 36,
+    "quantize_rows_kernel<fLi0ELi128ELi1ELb1E>": 36,
+    "quantize_rows_kernel<fLi0ELi256ELi1ELb1E>": 36,
+    "quantize_rows_kernel<fLi0ELi256ELi2ELb1E>": 56,
+    "quantize_rows_kernel<fLi0ELi256ELi4ELb1E>": 80,
+    "quantize_rows_kernel<fLi0ELi256ELi0ELb1E>": 64,
+    "quantize_rows_kernel<fLi0ELi256ELi0ELb0E>": 47,
+    "quantize_rows_kernel<fLi1ELi4ELi1ELb1E>": 44,
+    "quantize_rows_kernel<fLi1ELi8ELi1ELb1E>": 44,
 }
 
 
@@ -618,9 +662,9 @@ def phase_build(compare=False):
     moved = sorted(k for k, n in regs.items()
                    if PARENT_REGISTERS.get(k, n) != n)
     known = sum(k in PARENT_REGISTERS for k in regs)
-    log(f"[build] {known} instances of K1/K6, K2, K4, K7 and K8 beside the "
-        f"parent's registers: " + (f"MOVED {moved}" if moved else
-                                   "every one at its parent's"))
+    log(f"[build] {known} instances of K1/K6, K2 (its GEMM and its row "
+        f"kernel), K3q, K4, K7 and K8 beside the parent's registers: "
+        + (f"MOVED {moved}" if moved else "every one at its parent's"))
     for what, kernel in (("K1f", "flash_fp32_wgmma_kernel"),
                          ("K5's row kernel", "norm_mod_quantize_rows_kernel"),
                          ("K2's row kernel", "quantize_rows_kernel"),
@@ -2296,8 +2340,9 @@ def phase_timing(gen, ex2_per_s):
         rows = cuda_time_ms(lambda: im._quantize_rows_cuda(lib_k, x, stream))
         rows_note = ""
         if m >= 3840:
-            rows_dev = graph_ms(
-                lambda: im._quantize_rows_cuda(lib_k, x, stream))
+            # the stream read at call time: a graph capture runs on its own
+            rows_dev = graph_ms(lambda: im._quantize_rows_cuda(
+                lib_k, x, _lib.stream_ptr(x.device)))
             rows_plain = cuda_time_ms(lambda: im.quantize_rows_plain(x),
                                       reps=3, warmup=1)
             rows_bnd = bound_ms({}, m * kk * (x.element_size() + 1) + 4 * m)

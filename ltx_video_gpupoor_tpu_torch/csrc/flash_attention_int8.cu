@@ -652,48 +652,43 @@ flash_int8_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
 // ---- K3q: the QK tier under the bounded softmax ------------------------------
 
-// K3q's block, the QK tier's products and masks with the bounded softmax,
-// laid out for what measuring K4's block showed: its loads, its softmax
-// and its products ran one after another (ablations at the 13B pass 2
-// self-attention: loads alone took 1.85 ms in a two-deep ring, P.V alone
-// with its loads 4.23 ms against 1.95 ms of tensor time, and the scores
-// and exponentials, about 1500 of a tile's 3300 cycles, mostly beside the
-// products, not under them); issuing a tile's TMA loads from a consumer
-// warp stalled that warp for hundreds of cycles, and with it its
-// warpgroup's next product.
+// K3q's block: the QK tier's products, masks and scores with the bounded
+// softmax, laid out for what measuring K4's block at the 13B pass 2
+// self-attention showed (PERF.md, PR 11): without its scores and
+// exponentials it took 4.52 of 6.46 ms, without Q.K^T 5.52, without P.V
+// 5.67; clock64 stamps put the two warpgroups in the same phase, their
+// softmax at once (two warps of an SM quarter share its ex2 unit, 4 a
+// clock), and thread 0 stalled for about 600 cycles a tile issuing the
+// loads and waiting on the empty barriers of a two-deep ring, with its
+// warpgroup's next product waiting on it.
 // - A producer warp (the ninth) issues every load: Q, then each tile's K
 //   (int8), its k scales (a bulk copy) and V (bf16 in K1's panels) into a
-//   ring of STAGES tiles, 4 deep (210 KB at D=128, 106 KB at D=64); it
-//   alone waits on the empty barriers.
-// - 288 threads leave 168 registers a thread (the register file is split
-//   by SM quarter; three warps share one), under the 186-212 that a 128-kv
-//   score tile in flight beside P.V needs at D=128. So each consumer
-//   warpgroup walks a tile in two halves of 64 kv rows: Q.K^T of a half
-//   is m64n64k32 (32 score registers), its P.V m64nDk16 over 64 kv rows
-//   (16 P registers), and a half's bounded softmax runs under the P.V of
-//   the half before (K4's overlap, at half the registers).
-// - The k scales are read as float2 pairs, 8 a half a thread.
+//   ring of stages; it alone waits on the empty barriers.
+// - 288 threads leave 168 registers a thread (three warps share an SM
+//   quarter's registers). At D=64 that holds K4's overlap (a tile's
+//   scores, 64 registers, in flight beside the P.V of the tile before,
+//   32 + 32): a tile's softmax runs under that P.V, and the warpgroups
+//   take their turns to issue (FlashAttention-3's ping-pong). At D=128 it
+//   does not (the 64 accumulator registers more), so a warpgroup takes a
+//   tile at a time: its turn runs from the Q.K^T issue to the end of the
+//   softmax, so that one warpgroup's exponentials run while the other's
+//   wait for their products, and its P.V stays in flight while it waits
+//   for its next turn. (Keeping 128 kv rows in flight in halves of 64
+//   under the same cap, or issuing the loads from the consumer warp
+//   whose release frees a stage, both measured slower than K4's block.)
 // - The output is staged through the drained ring and leaves in 16-byte
 //   stores, a row's 16-byte chunks on neighbouring threads.
 constexpr int K3Q_THREADS = 288;
 constexpr int K3Q_CONSUMERS = 256;
-#ifndef K3Q_TURNS
-#define K3Q_TURNS 1
-#endif
 
-#ifndef K3Q_D128_FULL
-#define K3Q_D128_FULL 1
-#endif
 template <int D>
 struct K3qCfg {
-  // whether a part's softmax runs under the P.V of the part before
-  static constexpr bool OVERLAP = D == 64 || !K3Q_D128_FULL;
-  // kv rows a step of a consumer: the whole tile at D=64, half at D=128
-  static constexpr int HKV = D == 64 || K3Q_D128_FULL ? 128 : 64;
-  static constexpr int PARTS = BKV / HKV;
-  static constexpr int QK_LAYOUT = D == 128 ? SWIZZLE_128B : SWIZZLE_64B;
-  static constexpr int QK_SBO = 8 * D;  // bytes between 8-row groups
-  static constexpr int STAGES = 4;
+  // whether a tile's softmax runs under the P.V of the tile before
+  static constexpr bool OVERLAP = D == 64;
+  // a ring 4 deep at D=64 (106 KB); at D=128 (113 KB) 2 deep, which
+  // leaves the L1 the general mask's kv segment ids go through (a 4-deep
+  // ring took 210 KB and a text cross-attention 15 % longer)
+  static constexpr int STAGES = D == 64 ? 4 : 2;
   static constexpr int Q_BYTES = BQ * D;
   static constexpr int K_BYTES = BKV * D;
   static constexpr int V_BYTES = BKV * D * 2;  // D / 64 panels of K1's
@@ -709,98 +704,21 @@ struct K3qCfg {
   static_assert(BQ * O_PITCH <= STAGES * V_BYTES, "staging fits the ring");
 };
 
-// d (64 x 64 s32) += a (64 x 32 int8, shared, K-major) * b (64 x 32 int8,
-// shared, K-major)^T; d is overwritten where scale_d == 0
-__device__ __forceinline__ void wgmma_s8_ss_n64(uint32_t (&d)[32], uint64_t desc_a,
-    uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p;\n"
-      "}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
-        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
-        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-// sc = Q K^T (s32) for HKV kv rows from k_rows (a multiple of 8 rows into
-// a tile), issued and committed, not waited for
-template <int D, int N>
-__device__ __forceinline__ void qk_issue_part(uint32_t (&sc)[N / 2],
-                                              uint32_t q_rows,
-                                              uint32_t k_rows) {
-  using C = K3qCfg<D>;
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < D / 32; ++kk) {
-    const uint64_t da = wgmma_desc(q_rows + kk * 32, 16, C::QK_SBO,
-                                   C::QK_LAYOUT);
-    const uint64_t db = wgmma_desc(k_rows + kk * 32, 16, C::QK_SBO,
-                                   C::QK_LAYOUT);
-    if constexpr (N == 128) {
-      wgmma_s8_ss_n128(sc, da, db, kk > 0);
-    } else {
-      wgmma_s8_ss_n64(sc, da, db, kk > 0);
-    }
-  }
-  wgmma_commit();
-}
-
-// K3q's step over N / 2 kv columns, in place: s becomes p = exp2(min(s, sb)
+// K3q's step over a tile, in place: s becomes p = exp2(min(s, sb)
 // - sb) at the fixed offset sb (a masked score, NEG_INF, gives 0); ls0 and
 // ls1 are this thread's sums of the fp32 p. No max, no shuffle, no factor.
-template <int N>
-__device__ __forceinline__ void softmax_bounded(float (&s)[N], float sb,
+__device__ __forceinline__ void softmax_bounded(float (&s)[64], float sb,
                                                 float& ls0, float& ls1) {
   ls0 = 0.f;
   ls1 = 0.f;
 #pragma unroll
-  for (int jn = 0; jn < N / 4; ++jn) {
+  for (int jn = 0; jn < 16; ++jn) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       s[4 * jn + e] = ex2(fminf(s[4 * jn + e], sb) - sb);
     }
     ls0 += s[4 * jn] + s[4 * jn + 1];
     ls1 += s[4 * jn + 2] + s[4 * jn + 3];
-  }
-}
-
-// masked scores of N / 2 columns from kv0 (mask_tile's rule) go to NEG_INF
-template <int MASK, int N>
-__device__ __forceinline__ void mask_part(float (&sc)[N], const Rows& r,
-                                          int kv0, int t) {
-#pragma unroll
-  for (int jn = 0; jn < N / 4; ++jn) {
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int col = kv0 + jn * 8 + t * 2 + c;
-      bool ok0 = col < r.kv_lim, ok1 = ok0;
-      if (MASK == MASK_GENERAL) {
-        if (r.causal) {
-          ok0 = ok0 && r.row0 >= col;
-          ok1 = ok1 && r.row1 >= col;
-        }
-        if (r.kv_seg != nullptr) {
-          const int ks = col < r.Skv ? r.kv_seg[col] : 0;
-          ok0 = ok0 && ks > 0 && ks == r.qs0;
-          ok1 = ok1 && ks > 0 && ks == r.qs1;
-        }
-      }
-      if (!ok0) sc[4 * jn + c] = NEG_INF;
-      if (!ok1) sc[4 * jn + 2 + c] = NEG_INF;
-    }
   }
 }
 
@@ -898,24 +816,20 @@ k3q_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
   const float qsc0 = r.row0 < Sq ? qscale[bh * Sq + r.row0] : 0.f;
   const float qsc1 = r.row1 < Sq ? qscale[bh * Sq + r.row1] : 0.f;
-  constexpr int HKV = C::HKV, PARTS = C::PARTS;
-  constexpr int NS = HKV / 2;  // scores of a part a thread
-  // whether part u (kv rows HKV u ..) compares columns
-  auto needs_mask = [&](int u) {
-    if (MASK == MASK_TAIL) return u / PARTS == n_tiles - 1;
+  auto needs_mask = [&](int j) {
+    if (MASK == MASK_TAIL) return j == n_tiles - 1;
     if (MASK == MASK_GENERAL) {
-      return r.kv_seg != nullptr || (u + 1) * HKV > kv_lim ||
-             (causal && (u + 1) * HKV - 1 > wg_row0);
+      return r.kv_seg != nullptr || (j + 1) * BKV > kv_lim ||
+             (causal && (j + 1) * BKV - 1 > wg_row0);
     }
     return false;
   };
-  // part u's s32 scores as floats in the exp2 domain, (s32 * qs) * ks
-  auto scores = [&](const uint32_t (&sc)[NS], float (&sf)[NS], int u) {
+  // tile j's s32 scores as floats in the exp2 domain, (s32 * qs) * ks
+  auto scores = [&](const uint32_t (&sc)[64], float (&sf)[64], int j) {
     const float* ks = reinterpret_cast<const float*>(
-        base_ptr + C::KS_OFF + ((u / PARTS) % STAGES) * C::KS_BYTES) +
-        (u % PARTS) * HKV;
+        base_ptr + C::KS_OFF + (j % STAGES) * C::KS_BYTES);
 #pragma unroll
-    for (int jn = 0; jn < NS / 4; ++jn) {
+    for (int jn = 0; jn < 16; ++jn) {
       const float2 k2 = *reinterpret_cast<const float2*>(ks + jn * 8 + 2 * t);
       sf[4 * jn] = (i2f(sc[4 * jn]) * qsc0) * k2.x;
       sf[4 * jn + 1] = (i2f(sc[4 * jn + 1]) * qsc0) * k2.y;
@@ -923,30 +837,29 @@ k3q_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       sf[4 * jn + 3] = (i2f(sc[4 * jn + 3]) * qsc1) * k2.y;
     }
   };
-  auto k_part = [&](int u) {
-    return sK + ((u / PARTS) % STAGES) * C::K_BYTES + (u % PARTS) * (HKV * D);
-  };
-  auto v_part = [&](int u) {
-    return sV + ((u / PARTS) % STAGES) * C::V_BYTES +
-           (u % PARTS) * (HKV * 128);
+  auto k_tile = [&](int j) { return sK + (j % STAGES) * C::K_BYTES; };
+  auto v_tile = [&](int j) { return sV + (j % STAGES) * C::V_BYTES; };
+  // this warp is done with tile j's K (its k scales too) or V
+  auto release = [&](uint32_t empty, int j) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * (j % STAGES));
   };
 
   float acc[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   float l0 = 0.f, l1 = 0.f;
-  const int n_parts = PARTS * n_tiles;
 
   if (n_tiles > 0) {
     const uint32_t sQw = sQ + wg * (64 * D);  // this warpgroup's rows
-    uint32_t p[HKV / 4];  // bf16 P of the part whose P.V is next
+    uint32_t p[32];  // bf16 P of the tile whose P.V is next
     // P -> registers, and l's step (the bf16 p at D=64)
-    auto take_p = [&](float (&sf)[NS], float ls0, float ls1) {
+    auto take_p = [&](float (&sf)[64], float ls0, float ls1) {
       pack_p(sf, p);
       if (SUM_ROUNDED) {
         ls0 = ls1 = 0.f;
 #pragma unroll
-        for (int i = 0; i < HKV / 4; ++i) {
+        for (int i = 0; i < 32; ++i) {
           const __nv_bfloat162 pr = *reinterpret_cast<__nv_bfloat162*>(&p[i]);
           const float sum = __low2float(pr) + __high2float(pr);
           if (i & 1) ls1 += sum; else ls0 += sum;
@@ -955,122 +868,105 @@ k3q_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       l0 += ls0;
       l1 += ls1;
     };
-    // the last part of a tile frees its K stage (its k scales read too)
-    auto release_k = [&](int u) {
-      if (u % PARTS == PARTS - 1) {
-        __syncwarp();
-        if (lane == 0) mbar_arrive(k_empty + 8 * ((u / PARTS) % STAGES));
-      }
-    };
-    // warpgroup 0 issues its products first
-    if (K3Q_TURNS && wg == 1) bar_arrive(2, K3Q_CONSUMERS);
-
-    if constexpr (!C::OVERLAP) {
-    // one tile a step, the tile's P.V left in flight while this warpgroup
-    // waits for its turn to issue the next Q.K^T
-    auto serial = [&](int u, auto masked) {
-      uint32_t sc[NS];
-      float sf[NS], ls0, ls1;
-      mbar_wait(k_full + 8 * (u % STAGES), (u / STAGES) & 1);
-      if (K3Q_TURNS) bar_sync(2 + wg, K3Q_CONSUMERS);
-      wgmma_wait<0>();  // the P.V of tile u - 1
-      pin(acc);
-      if (u > 0) {
-        __syncwarp();
-        if (lane == 0) mbar_arrive(v_empty + 8 * ((u - 1) % STAGES));
-      }
-      qk_issue_part<D, HKV>(sc, sQw, k_part(u));
-      if (K3Q_TURNS) bar_arrive(3 - wg, K3Q_CONSUMERS);
-      wgmma_wait<0>();
-      pin(sc);
-      scores(sc, sf, u);
-      release_k(u);
-      constexpr int how = decltype(masked)::value;
-      if (how == MASK_ALWAYS || (how == MASK_ASK && needs_mask(u))) {
-        mask_part<MASK>(sf, r, u * HKV, t);
-      }
-      softmax_bounded(sf, bound_log2, ls0, ls1);
-      take_p(sf, ls0, ls1);
-      mbar_wait(v_full + 8 * (u % STAGES), (u / STAGES) & 1);
-      pv_issue_bf16<D, HKV>(acc, p, v_part(u));
-    };
+    // The warpgroups take turns (named barriers 2 and 3, warpgroup 0
+    // first) where the kv loop is long enough to pay for the hand-over; a
+    // short loop (a text cross-attention's two tiles) runs them side by
+    // side.
+    const bool turns = n_tiles > STAGES;
+    if (turns && wg == 1) bar_arrive(2, K3Q_CONSUMERS);
     mbar_wait(q_full, 0);
-    if (MASK == MASK_GENERAL) {
-      for (int u = 0; u < n_parts; ++u) serial(u, How<MASK_ASK>{});
-    } else {
-      const int n_free = MASK == MASK_TAIL ? n_parts - 1 : n_parts;
-      for (int u = 0; u < n_free; ++u) serial(u, How<MASK_NEVER>{});
-      if (MASK == MASK_TAIL) serial(n_parts - 1, How<MASK_ALWAYS>{});
-    }
-    wgmma_wait<0>();
-    pin(acc);
-    } else {
 
-    // part 0: scores and softmax; its P.V is issued with part 1's Q.K^T
-    {
-      uint32_t sc[NS];
-      float sf[NS], ls0, ls1;
-      mbar_wait(q_full, 0);
-      mbar_wait(k_full, 0);
-      qk_issue_part<D, HKV>(sc, sQw, k_part(0));
-      wgmma_wait<0>();
-      pin(sc);
-      scores(sc, sf, 0);
-      release_k(0);
-      if (needs_mask(0)) mask_part<MASK>(sf, r, 0, t);
-      softmax_bounded(sf, bound_log2, ls0, ls1);
-      take_p(sf, ls0, ls1);
-    }
-
-    // one step for part u >= 1: Q.K^T of part u and P.V of part u - 1 are
-    // issued together (in turns with the other warpgroup), part u's softmax
-    // runs under the P.V; `masked` as in K4's loop
-    auto step = [&](int u, auto masked) {
-      const int j = u / PARTS, jp = (u - 1) / PARTS;
-      uint32_t sc[NS];
-      float sf[NS], ls0, ls1;
-      if (u % PARTS == 0) mbar_wait(k_full + 8 * (j % STAGES), (j / STAGES) & 1);
-      if ((u - 1) % PARTS == 0) {  // part u - 1 opened tile jp's V
-        mbar_wait(v_full + 8 * (jp % STAGES), (jp / STAGES) & 1);
+    if constexpr (C::OVERLAP) {
+      // tile 0: scores and softmax; its P.V is issued with tile 1's Q.K^T
+      {
+        uint32_t sc[64];
+        float sf[64], ls0, ls1;
+        mbar_wait(k_full, 0);
+        qk_issue_s8<D, false>(sc, sQw, k_tile(0));
+        wgmma_wait<0>();
+        pin(sc);
+        scores(sc, sf, 0);
+        release(k_empty, 0);
+        if (needs_mask(0)) mask_tile<MASK>(sf, r, 0, t);
+        softmax_bounded(sf, bound_log2, ls0, ls1);
+        take_p(sf, ls0, ls1);
       }
-      if (K3Q_TURNS) bar_sync(2 + wg, K3Q_CONSUMERS);
-      qk_issue_part<D, HKV>(sc, sQw, k_part(u));
-      pv_issue_bf16<D, HKV>(acc, p, v_part(u - 1));
-      if (K3Q_TURNS) bar_arrive(3 - wg, K3Q_CONSUMERS);
-      wgmma_wait<1>();  // the scores of part u are in
-      pin(sc);
-      scores(sc, sf, u);
-      release_k(u);
-      constexpr int how = decltype(masked)::value;
-      if (how == MASK_ALWAYS || (how == MASK_ASK && needs_mask(u))) {
-        mask_part<MASK>(sf, r, u * HKV, t);
-      }
-      softmax_bounded(sf, bound_log2, ls0, ls1);
-      wgmma_wait<0>();
-      pin(acc);
-      if ((u - 1) % PARTS == PARTS - 1) {  // part u - 1 closed tile jp's V
-        __syncwarp();
-        if (lane == 0) mbar_arrive(v_empty + 8 * (jp % STAGES));
-      }
-      take_p(sf, ls0, ls1);
-    };
-    if (MASK == MASK_GENERAL) {
-      for (int u = 1; u < n_parts; ++u) step(u, How<MASK_ASK>{});
-    } else {
-      // the tail kind's last tile, every part of it, compares
-      const int n_free = MASK == MASK_TAIL ? n_parts - PARTS : n_parts;
-      for (int u = 1; u < n_free; ++u) step(u, How<MASK_NEVER>{});
-      if (MASK == MASK_TAIL) {
-        for (int u = max(n_free, 1); u < n_parts; ++u) {
-          step(u, How<MASK_ALWAYS>{});
+      // tile j >= 1: Q.K^T of tile j and P.V of tile j - 1 issued together
+      // in this warpgroup's turn, tile j's softmax under that P.V;
+      // `masked` as in K4's loop
+      auto step = [&](int j, auto masked) {
+        uint32_t sc[64];
+        float sf[64], ls0, ls1;
+        mbar_wait(k_full + 8 * (j % STAGES), (j / STAGES) & 1);
+        mbar_wait(v_full + 8 * ((j - 1) % STAGES), ((j - 1) / STAGES) & 1);
+        if (turns) bar_sync(2 + wg, K3Q_CONSUMERS);
+        qk_issue_s8<D, false>(sc, sQw, k_tile(j));
+        pv_issue_bf16<D>(acc, p, v_tile(j - 1));
+        if (turns) bar_arrive(3 - wg, K3Q_CONSUMERS);
+        wgmma_wait<1>();  // the scores of tile j are in
+        pin(sc);
+        scores(sc, sf, j);
+        release(k_empty, j);
+        constexpr int how = decltype(masked)::value;
+        if (how == MASK_ALWAYS || (how == MASK_ASK && needs_mask(j))) {
+          mask_tile<MASK>(sf, r, j * BKV, t);
+        }
+        softmax_bounded(sf, bound_log2, ls0, ls1);
+        wgmma_wait<0>();
+        pin(acc);
+        release(v_empty, j - 1);
+        take_p(sf, ls0, ls1);
+      };
+      if (MASK == MASK_GENERAL) {
+        for (int j = 1; j < n_tiles; ++j) step(j, How<MASK_ASK>{});
+      } else {
+        const int n_free = MASK == MASK_TAIL ? n_tiles - 1 : n_tiles;
+        for (int j = 1; j < n_free; ++j) step(j, How<MASK_NEVER>{});
+        if (MASK == MASK_TAIL && n_tiles > 1) {
+          step(n_tiles - 1, How<MASK_ALWAYS>{});
         }
       }
+      const int jl = n_tiles - 1;
+      mbar_wait(v_full + 8 * (jl % STAGES), (jl / STAGES) & 1);
+      pv_issue_bf16<D>(acc, p, v_tile(jl));
+    } else {
+      // one tile a step: the turn runs from the Q.K^T issue to the end of
+      // the softmax, so that one warpgroup's exponentials run while the
+      // other's wait for their products; the tile's P.V stays in flight
+      // while the warpgroup waits for its next turn
+      auto serial = [&](int j, auto masked) {
+        uint32_t sc[64];
+        float sf[64], ls0, ls1;
+        mbar_wait(k_full + 8 * (j % STAGES), (j / STAGES) & 1);
+        if (turns) bar_sync(2 + wg, K3Q_CONSUMERS);
+        wgmma_wait<0>();  // the P.V of tile j - 1
+        pin(acc);
+        if (j > 0) release(v_empty, j - 1);
+        qk_issue_s8<D, false>(sc, sQw, k_tile(j));
+        wgmma_wait<0>();
+        pin(sc);
+        scores(sc, sf, j);
+        release(k_empty, j);
+        constexpr int how = decltype(masked)::value;
+        if (how == MASK_ALWAYS || (how == MASK_ASK && needs_mask(j))) {
+          mask_tile<MASK>(sf, r, j * BKV, t);
+        }
+        softmax_bounded(sf, bound_log2, ls0, ls1);
+        if (turns) bar_arrive(3 - wg, K3Q_CONSUMERS);
+        take_p(sf, ls0, ls1);
+        mbar_wait(v_full + 8 * (j % STAGES), (j / STAGES) & 1);
+        pv_issue_bf16<D>(acc, p, v_tile(j));
+      };
+      if (MASK == MASK_GENERAL) {
+        for (int j = 0; j < n_tiles; ++j) serial(j, How<MASK_ASK>{});
+      } else {
+        const int n_free = MASK == MASK_TAIL ? n_tiles - 1 : n_tiles;
+        for (int j = 0; j < n_free; ++j) serial(j, How<MASK_NEVER>{});
+        if (MASK == MASK_TAIL) serial(n_tiles - 1, How<MASK_ALWAYS>{});
+      }
     }
-
-    pv_issue_bf16<D, HKV>(acc, p, v_part(n_parts - 1));
     wgmma_wait<0>();
     pin(acc);
-    }
   }
 
   // both warpgroups are done with the ring (every load issued was waited

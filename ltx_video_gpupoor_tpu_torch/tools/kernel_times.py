@@ -12,6 +12,7 @@ in turns (old, new, new, old), is the comparison these numbers are for.
 Run on the card from the root of a checkout::
 
     python3 -m ltx_video_gpupoor_tpu_torch.tools.kernel_times --label new
+    python3 -m ltx_video_gpupoor_tpu_torch.tools.kernel_times --only k2 k3q
 
 It prints the card's name and power limit, then one line a shape.
 """
@@ -71,6 +72,8 @@ K3Q_SHAPES = [("13B pass 2 self", 1, 32, 15360, 15360, 128, False),
               ("13B pass 2 cross", 1, 32, 15360, 256, 128, True),
               ("LTX-2B self", 3, 32, 5280, 5280, 64, False)]
 WAN_SELF = ("Wan self", 2, 12, 32760, 32760, 128, False)
+# --only: K1f; K5's row kernel; K2's row kernel; the prologue and K3q
+GROUPS = ["k1f", "k5", "k2", "k3q"]
 PEAK_BYTES = 3.35e12
 
 
@@ -96,6 +99,8 @@ def _segments(b, sq, skv, dev):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--label", default="", help="printed on every line")
+    ap.add_argument("--only", nargs="+", choices=GROUPS, default=GROUPS,
+                    help="the kernels to time (default: all)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times measures the card: no CUDA device")
@@ -106,7 +111,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    for name, b, h, sq, skv, d, seg, bound in K1F_SHAPES:
+    for name, b, h, sq, skv, d, seg, bound in (
+            K1F_SHAPES if "k1f" in args.only else []):
         q, k, v = (torch.randn(b, n, h * d, generator=gen, device=dev)
                    .view(b, n, h, d).transpose(1, 2) for n in (sq, skv, skv))
         segs = _segments(b, sq, skv, dev) if seg else (None, None)
@@ -119,7 +125,7 @@ def main(argv=None) -> int:
               f"call {cuda_time_ms(call):.4f} ms, in a CUDA graph "
               f"{graph_ms(call, calls):.4f} ms", flush=True)
         del q, k, v
-    for name, m, kk, g, dtype in K5_SHAPES:
+    for name, m, kk, g, dtype in K5_SHAPES if "k5" in args.only else []:
         x = torch.randn(m, kk, generator=gen, device=dev).to(dtype)
         scale, shift = (torch.randn(g, kk, generator=gen, device=dev)
                         .mul(0.3).to(dtype) for _ in range(2))
@@ -132,12 +138,13 @@ def main(argv=None) -> int:
               f"{cuda_time_ms(call):.4f} ms, in a CUDA graph "
               f"{graph_ms(call, 20):.4f} ms", flush=True)
         del x, scale, shift
-    lib, stream = _lib.library(), _lib.stream_ptr(dev)
-    for name, m, kk, dtype in K2_ROW_SHAPES:
+    lib = _lib.library()
+    for name, m, kk, dtype in K2_ROW_SHAPES if "k2" in args.only else []:
         x = torch.randn(m, kk, generator=gen, device=dev).to(dtype)
 
         def call():
-            return im._quantize_rows_cuda(lib, x, stream)
+            # the stream read at call time: a graph capture runs on its own
+            return im._quantize_rows_cuda(lib, x, _lib.stream_ptr(dev))
 
         bound = _bytes_ms(m * kk * (x.element_size() + 1) + 4 * m)
         dev_ms = graph_ms(call, 20)
@@ -146,7 +153,8 @@ def main(argv=None) -> int:
               f"ms, bytes bound {bound:.4f} ms ({dev_ms / bound:.2f}x)",
               flush=True)
         del x
-    for name, b, h, sq, skv, d, seg in K3Q_SHAPES + [WAN_SELF]:
+    for name, b, h, sq, skv, d, seg in (
+            K3Q_SHAPES + [WAN_SELF] if "k3q" in args.only else []):
         q, k, v = (_heads(b, h, n, d, gen, dev) for n in (sq, skv, skv))
         segs = _segments(b, sq, skv, dev) if seg else (None, None)
         for pv in ((True,) if name == WAN_SELF[0] else (False,)):

@@ -391,6 +391,11 @@ def _counts():
     (64, 200, 200, False, True, None, "general"),    # causal
     (128, 256, 384, False, False, None, "none"),     # no mask code
     (64, 384, 384, False, False, 256, "none"),       # kv_valid on a tile
+    # more kv tiles than ring stages: the warpgroups take turns
+    (128, 200, 1000, False, False, None, "tail"),
+    (64, 300, 1024, False, False, None, "none"),
+    (128, 700, 700, False, True, None, "general"),   # turns in late q tiles
+    (64, 600, 900, True, False, None, "general"),
 ])
 def test_k3q_matches_plain(cuda, d, sq, skv, seg, causal, kv_valid, kind):
     """K3q against its plain version on the same prologue operands: one
