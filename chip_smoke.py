@@ -3843,6 +3843,11 @@ class _ProfiledOps:
                 with torch.profiler.record_function(_label):
                     return _fn(*a, **k)
 
+            if hasattr(fn, "__dict__"):
+                # one dict: a launch counter kept on the function (the
+                # prologue's kernel_launches) counts through either name
+                scoped.__dict__ = fn.__dict__
+
             self.saved.append((owner, attr, fn))
             setattr(owner, attr, scoped)
         return self

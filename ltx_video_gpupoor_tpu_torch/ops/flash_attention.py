@@ -64,6 +64,7 @@ so head-split views of ``[B, S, H*D]`` projections need no copy.
 from __future__ import annotations
 
 import ctypes
+import struct
 from typing import NamedTuple
 
 import torch
@@ -532,12 +533,18 @@ def _prologue_blocks(sq: int, skv: int, block_kv: int) -> tuple[int, int]:
     return spad, kv_block
 
 
+def _f32(x: float) -> float:
+    """``x`` rounded to the nearest float32."""
+    return struct.unpack("f", struct.pack("f", x))[0]
+
+
 def _q_scale_factor(scale: float | None, d: int) -> float:
     """What multiplies Q's ``max(amax, 1e-6)`` into its stored scale: XLA
     folds ``/ 127`` and the softmax scale times log2(e) into one float32
-    constant, float32(float32(1/127) * float32(scale * log2 e))."""
+    constant, float32(float32(1/127) * float32(scale * log2 e)) (the
+    product of two float32 values is exact in a double)."""
     c = (d ** -0.5 if scale is None else scale) * LOG2E
-    return (torch.tensor(INV127_F32) * torch.tensor(c)).item()
+    return _f32(INV127_F32 * _f32(c))
 
 
 def _quantize_q_plain(q: torch.Tensor, c_q: float):
@@ -597,7 +604,7 @@ def int8_prologue_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return Int8Operands(q8, q_scale, k8, k_s, 1, v, None, kv_block)
 
 
-def _quantize_rows_cuda(x: torch.Tensor, c: float, pitch: int):
+def _prologue_rows_cuda(x: torch.Tensor, c: float, pitch: int):
     """Q's or K's rows through K2's row kernel on the prologue's contract:
     ``(codes [B, H, S, D] int8 contiguous, scales max(amax, 1e-6) * c
     [B, H, pitch] fp32, zeros past S)``; one launch, counted in
@@ -634,12 +641,12 @@ def int8_prologue(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                    block_kv=block_kv)
     b, h, sq, d = q.shape
     spad, kv_block = _prologue_blocks(sq, k.shape[2], block_kv)
-    q8, q_scale = _quantize_rows_cuda(q, _q_scale_factor(scale, d), sq)
+    q8, q_scale = _prologue_rows_cuda(q, _q_scale_factor(scale, d), sq)
     if pv_int8:
         k8, k_s, v, v_scale = _quantize_kv_blocks_plain(k, v, spad, kv_block)
         return Int8Operands(q8, q_scale, k8, k_s, kv_block, v, v_scale,
                             kv_block)
-    k8, k_s = _quantize_rows_cuda(k, INV127_F32, spad)
+    k8, k_s = _prologue_rows_cuda(k, INV127_F32, spad)
     return Int8Operands(q8, q_scale, k8, k_s, 1, v, None, kv_block)
 
 

@@ -159,6 +159,23 @@ def test_profiled_ops_scope_only_the_ports_own_calls():
     assert torch.nn.functional.gelu is gelu
 
 
+def test_profiled_ops_keep_the_prologue_launch_counter():
+    """The prologue counts its kernel launches on ``int8_prologue``, which
+    the profiled run wraps in a scope: the wrapper shares the counter, so
+    a launch inside the scope counts and the count survives the exit."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from ltx_video_gpupoor_tpu_torch.ops import flash_attention as fa
+
+    before = fa.int8_prologue.kernel_launches
+    with chip_smoke._ProfiledOps():
+        wrapped = fa.int8_prologue
+        wrapped.kernel_launches += 1
+    assert wrapped is not fa.int8_prologue
+    assert fa.int8_prologue.kernel_launches == before + 1
+    fa.int8_prologue.kernel_launches = before
+
+
 def _stubbed_main(monkeypatch, capsys, argv):
     """``chip_smoke.main`` with every phase replaced by a stub that records
     its name: (exit code, the phases in order, the printed lines)."""
