@@ -75,9 +75,9 @@
 // Registers a thread (ptxas): QK tier 203-214 at D=128, QK+PV tier 232-255
 // (the s32 P.V accumulator in flight adds 64), 163-215 at D=64; no spills,
 // one block an SM.
-// K3q has a kernel of its own (k3q_wgmma_kernel, below), built on the same
-// products and masks, with a deeper ring whose loads wait for no one and
-// the warpgroups taking turns on the tensor cores.
+// K3q has a kernel of its own (k3q_wgmma_kernel, below) on the same
+// products, masks and scores: a producer warp that alone issues the loads,
+// the warpgroups taking turns on the tensor cores, staged output stores.
 
 #include <cmath>
 
@@ -654,13 +654,13 @@ flash_int8_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
 // K3q's block: the QK tier's products, masks and scores with the bounded
 // softmax, laid out for what measuring K4's block at the 13B pass 2
-// self-attention showed (PERF.md, PR 11): without its scores and
-// exponentials it took 4.52 of 6.46 ms, without Q.K^T 5.52, without P.V
-// 5.67; clock64 stamps put the two warpgroups in the same phase, their
-// softmax at once (two warps of an SM quarter share its ex2 unit, 4 a
-// clock), and thread 0 stalled for about 600 cycles a tile issuing the
-// loads and waiting on the empty barriers of a two-deep ring, with its
-// warpgroup's next product waiting on it.
+// self-attention showed (tools/k3q_ablation.py; PERF.md): without its
+// scores and exponentials it took 4.47 of 6.59 ms, without Q.K^T 5.67,
+// without P.V 5.68; clock64 stamps put the two warpgroups in the same
+// phase, their softmax at once (two warps of an SM quarter share its ex2
+// unit, 4 a clock), and thread 0 stalled for about 600 cycles a tile
+// issuing the loads and waiting on the empty barriers of a two-deep ring,
+// with its warpgroup's next product waiting on it.
 // - A producer warp (the ninth) issues every load: Q, then each tile's K
 //   (int8), its k scales (a bulk copy) and V (bf16 in K1's panels) into a
 //   ring of stages; it alone waits on the empty barriers.
@@ -686,8 +686,8 @@ struct K3qCfg {
   // whether a tile's softmax runs under the P.V of the tile before
   static constexpr bool OVERLAP = D == 64;
   // a ring 4 deep at D=64 (106 KB); at D=128 (113 KB) 2 deep, which
-  // leaves the L1 the general mask's kv segment ids go through (a 4-deep
-  // ring took 210 KB and a text cross-attention 15 % longer)
+  // leaves the L1 the general mask's kv segment ids go through (with a
+  // 4-deep ring, 210 KB, a text cross-attention took longer)
   static constexpr int STAGES = D == 64 ? 4 : 2;
   static constexpr int Q_BYTES = BQ * D;
   static constexpr int K_BYTES = BKV * D;
