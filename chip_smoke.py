@@ -154,8 +154,9 @@ Phases, one output line each (or a few):
             tail and the general mask instance, K4's, K3's and K3q's beside
             K1 at the same shape, K2's row quantize (one call and in a
             CUDA graph, beside its bytes bound and its plain version) and
-            K3q's prologue (the same, beside the plain prologue) apart; each kernel's bound (the larger of its operations over
-            the card's peak rate and its bytes over the memory rate; for
+            K3q's prologue (the same, beside the plain prologue) apart;
+            each kernel's bound (the larger of its operations over the
+            card's peak rate and its bytes over the memory rate; for
             K3, K3q and K4 also their exponentials, one ex2 a score at 16
             a clock an SM at the card's highest SM clock) is computed from
             the timed shapes. K3 and K3q at the 13B shapes and at LTX-2B's
@@ -196,8 +197,8 @@ Phases, one output line each (or a few):
             K2 + the prologue's row kernel). The launch counts are read per
             pass; the script fails unless each tier launched its kernels
             in both passes and none of the others, the fused tier's
-            unfused route (F6) included (LTX13B_EXPECT). Request (b) goes through the
-            server:
+            unfused route (F6) included (LTX13B_EXPECT). Request (b)
+            goes through the server:
 7c. server  InferenceService around the 13B models with one warm-up
             bucket (which must complete, through K5, K6 and K2),
             create_stdlib_server on 127.0.0.1 in a thread, and
@@ -525,10 +526,11 @@ WGMMA_KERNELS = ("flash_wgmma_kernel", "int8_gemm_wgmma_kernel",
 # sources built them before K3 and K3q joined K1's and K4's kernels (ptxas
 # on the H100's host; the same with the flag), by kernel and mangled
 # template arguments; K1/K6's instances carry the BOUNDED flag (false)
-# since then, K4's lost it again when K3q took a kernel of its own. phase_build prints
-# each instance beside its entry here: an edit of attention_block.cuh or
-# hopper.cuh that moves one shows as MOVED. (Printed, not asserted: another
-# nvcc would move them all.)
+# since then, K4's lost it again when K3q took a kernel of its own.
+# phase_build prints each instance beside its entry here (the redesigned
+# K3q and K2 row-kernel instances at the end): an edit of
+# attention_block.cuh or hopper.cuh that moves one shows as MOVED.
+# (Printed, not asserted: another nvcc would move them all.)
 PARENT_REGISTERS = {
     "flash_int8_wgmma_kernel<Li128ELb0ELi0E>": 214,
     "flash_int8_wgmma_kernel<Li128ELb0ELi1E>": 214,
@@ -2184,7 +2186,8 @@ def _bounded_times(times, info, name, q, k, v, segs, ex2_per_s, k1_ms):
         f"({flops / k3q / 1e9:.1f} TOP/s; plain {k3q_plain:.3f} ms; "
         f"prologue {pro:.3f} ms one call, {pro_dev:.4f} ms in a CUDA graph, "
         f"its bytes bound {info[f'prologue {name}'][0]:.4f} ms, the plain "
-        f"prologue {pro_plain:.3f} ms; bound {t3q[0]:.3f} ms int8 QK + bf16 PV "
+        f"prologue {pro_plain:.3f} ms; bound {t3q[0]:.3f} ms int8 QK + bf16 "
+        f"PV "
         f"tensor ({t3q[1]})), K1 {k1_ms:.3f} ms (K3 {k3 / k1_ms:.2f}x, K3q "
         f"{k3q / k1_ms:.2f}x)")
     del ops
@@ -3733,7 +3736,8 @@ PROFILED_OPS = [
     ("models.wan.model", "layer_norm", "norms"),
     ("models.ltx.transformer3d.F", "gelu", "GELU / GEGLU"),
     ("models.wan.model.F", "gelu", "GELU / GEGLU"),
-    ("ops.flash_attention", "int8_prologue", "int8 attention prologue (torch ops)"),
+    ("ops.flash_attention", "int8_prologue",
+     "int8 attention prologue (torch ops)"),
 ]
 
 

@@ -217,8 +217,8 @@ def _stubbed_main(monkeypatch, capsys, argv):
 
 
 KERNEL_PHASES = ["phase_device", "phase_build", "phase_k1", "phase_k2",
-                 "phase_prologue", "phase_k4", "phase_k3", "phase_k3q", "phase_k5",
-                 "phase_k6", "phase_k1f",
+                 "phase_prologue", "phase_k4", "phase_k3", "phase_k3q",
+                 "phase_k5", "phase_k6", "phase_k1f",
                  "phase_timing", "time_k1f", "phase_k8", "phase_k7"]
 
 
