@@ -196,8 +196,8 @@ Phases, one output line each (or a few):
             (K3 + K2), (d) pallas_int8 with attention_score_bound=40 (K3q +
             K2 + the prologue's row kernel). The launch counts are read per
             pass; the script fails unless each tier launched its kernels
-            in both passes and none of the others, the fused tier's
-            unfused route (F6) included (LTX13B_EXPECT). Request (b)
+            in both passes and none of the others (LTX13B_EXPECT).
+            Request (b)
             goes through the server:
 7c. server  InferenceService around the 13B models with one warm-up
             bucket (which must complete, through K5, K6 and K2),
@@ -817,11 +817,12 @@ def phase_k2(gen):
 
     from ltx_video_gpupoor_tpu_torch.ops import int8_matmul as im
 
-    worst = 0.0
+    worst = rows_worst = 0.0
     for name, m, k, n, dtype in K2_SHAPES + K2_RAGGED:
         x, w8, sw, bias = _k2_operands(m, k, n, dtype, gen)
         xq, sx, acc = im.int8_linear_acc(x, w8)
         pq, ps = im.quantize_rows_plain(x)
+        rows_worst = max(rows_worst, _max_diff(xq, pq), _max_diff(sx, ps[:, 0]))
         assert torch.equal(xq, pq), f"K2 {name}: int8 activations differ"
         assert torch.equal(sx, ps[:, 0]), f"K2 {name}: row scales differ"
         if k % 16:
@@ -857,7 +858,12 @@ def phase_k2(gen):
         log(f"[K2] {name}: M={m} K={k} N={n} x={dtype} int8/int32 exact, "
             f"max_abs_err={err:.3e}{planted} ok")
         del x, w8, sw, bias, xq, sx, acc, pq, ps, pacc, out, ref
-    return worst
+    return worst, rows_worst
+
+
+def _max_diff(a, b) -> float:
+    """max |a - b| of two int8 or fp32 tensors, in fp64 (0.0 when empty)."""
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
 # (name, (B, H, Sq, Skv, D), activation dtype, int8 P.V tiers): the shapes
@@ -883,11 +889,13 @@ def phase_prologue(gen):
     equal the plain torch ops bit for bit (so K4's and K3q's results do
     not move); the QK+PV tier's per-block K and per-channel V stay plain
     torch. A planted fault (Q's scale times the unfolded factors) must
-    fail the check."""
+    fail the check. Returns the largest difference of a code or a scale
+    from the plain ops."""
     import torch
 
     from ltx_video_gpupoor_tpu_torch.ops import flash_attention as fa
 
+    worst = 0.0
     for name, (b, h, sq, skv, d), dtype, tiers in PROLOGUE_SHAPES:
         q, k, v = (_heads(b, h, n, d, gen, True) for n in (sq, skv, skv))
         if dtype == "fp32":
@@ -902,6 +910,8 @@ def phase_prologue(gen):
             assert launched == (1 if pv else 2), (name, pv, launched)
             for field in ("q8", "q_scale", "k8", "k_scale", "v", "v_scale"):
                 a, b_ = getattr(ops, field), getattr(plain, field)
+                if a is not None and b_ is not None:
+                    worst = max(worst, _max_diff(a, b_))
                 assert (a is None and b_ is None) or torch.equal(a, b_), \
                     f"prologue {name} ({'QK+PV' if pv else 'QK'}): {field}"
             planted = ""
@@ -919,6 +929,7 @@ def phase_prologue(gen):
             del ops, plain
         del q, k, v
         torch.cuda.empty_cache()
+    return worst
 
 
 # --------------------------------------------------------------------------
@@ -1635,8 +1646,10 @@ def phase_k5(gen):
 
     worst = 0.0
     cases = [(name, m, k, n, g, True) for name, m, k, n, g in K5_SHAPES]
-    cases.append(("ragged M=240, N=200, 3 groups, no bias", 240, 4096, 200, 3,
-                  False))
+    cases += [("ragged M=240, N=200, 3 groups, no bias", 240, 4096, 200, 3,
+               False),
+              ("K=40, off a 16-multiple", 64, 40, 96, 2, True),
+              ("K=32784, past the registers", 64, 32784, 256, 2, False)]
     for name, m, k, n, g, bias in cases:
         x, scale, shift, w8, sw, b = _k5_operands(m, k, n, g, gen, bias)
         ok, err, why = _k5_agrees(x, scale, shift, w8, sw, b, m // g, 1e-6)
@@ -3080,8 +3093,6 @@ def kernel_counts():
             "K2": im.int8_linear.launches,
             # K2's row kernel on the int8 attention prologue's contract
             "K2p": fa.int8_prologue.kernel_launches,
-            # fused-tier calls that K5's row kernel does not take (F6)
-            "K5u": fp.norm_mod_int8_matmul.unfused_calls,
             "K3": fa.flash_attention.bounded_launches,
             "K3q": fa.flash_attention_int8.bounded_launches,
             "K4": fa.flash_attention_int8.launches,
@@ -3107,7 +3118,6 @@ def reset_kernel_counts():
     im.int8_linear.launches = 0
     fa.int8_prologue.kernel_launches = 0
     fp.norm_mod_int8_matmul.launches = 0
-    fp.norm_mod_int8_matmul.unfused_calls = 0
     from ltx_video_gpupoor_tpu_torch.parallel import ring_rdma as rr
     from ltx_video_gpupoor_tpu_torch.tools import mb_selfattn_pipeline as mb
 
@@ -3119,18 +3129,17 @@ def reset_kernel_counts():
 
 # the kernels each tier must launch, and those it must not
 LTX13B_EXPECT = {"a: auto": (("K4", "K2", "K2p"),
-                             ("K1", "K3", "K3q", "K5", "K5u", "K6", "K7",
-                              "K8", "K1f")),
+                             ("K1", "K3", "K3q", "K5", "K6", "K7", "K8",
+                              "K1f")),
                  "b: pallas_hp + fused prologue": (
                      ("K6", "K5", "K1", "K2"),
-                     ("K2p", "K3", "K3q", "K4", "K5u", "K7", "K8", "K1f")),
+                     ("K2p", "K3", "K3q", "K4", "K7", "K8", "K1f")),
                  "c: score bound": (("K3", "K2"),
-                                    ("K1", "K2p", "K3q", "K4", "K5", "K5u",
-                                     "K6", "K7", "K8", "K1f")),
+                                    ("K1", "K2p", "K3q", "K4", "K5", "K6",
+                                     "K7", "K8", "K1f")),
                  "d: pallas_int8 + score bound": (
                      ("K3q", "K2", "K2p"),
-                     ("K1", "K3", "K4", "K5", "K5u", "K6", "K7", "K8",
-                      "K1f"))}
+                     ("K1", "K3", "K4", "K5", "K6", "K7", "K8", "K1f"))}
 
 
 def ltx13b_reference_check(cfg, dense_cut):
@@ -3978,8 +3987,8 @@ def main(argv=None) -> int:
     phase_build(compare=args.profile)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     k1_err = phase_k1(gen)
-    k2_err = phase_k2(gen)
-    phase_prologue(gen)
+    k2_err, rows_err = phase_k2(gen)
+    prologue_err = phase_prologue(gen)
     k4_err = phase_k4(gen)
     k3_err = phase_k3(gen)
     k3q_err = phase_k3q(gen)
@@ -4026,16 +4035,15 @@ def main(argv=None) -> int:
                      "K1 self"),
         kernel_entry("int8_linear (dynamic int8)", K2_SOURCE, K2_REPLACES,
                      wan_launches[-1]["K2"], k2_err, times, info, k2_key),
-        # its codes and scales equal the plain version's at every checked
-        # shape (phase_k2, phase_prologue): no error
         kernel_entry("quantize_rows (K2's row kernel: per-row absmax, scale "
                      "and int8 codes)", K2_SOURCE, K2_REPLACES,
-                     wan_launches[-1]["K2"], 0.0, times, info,
+                     wan_launches[-1]["K2"], rows_err, times, info,
                      f"K2 rows {K2_ROWS_TIMED}"),
         kernel_entry("int8_prologue (K2's row kernel on the int8 attention "
                      "prologue's contract: Q, and K in the QK tier)",
                      K2_SOURCE, PROLOGUE_REPLACES,
-                     ltx13b_launches[tier_d]["K2p"], 0.0, times, info,
+                     ltx13b_launches[tier_d]["K2p"], prologue_err, times,
+                     info,
                      "prologue self pass 2"),
         kernel_entry("flash_attention_int8 (int8 QK + int8 PV)", K4_SOURCE,
                      K4_REPLACES, wan_launches[-1]["K4"], k4_err[0], times,

@@ -654,7 +654,7 @@ flash_int8_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
 // K3q's block: the QK tier's products, masks and scores with the bounded
 // softmax, laid out for what measuring K4's block at the 13B pass 2
-// self-attention showed (tools/k3q_ablation.py; PERF.md): without its
+// self-attention showed (ablations of its source; PERF.md): without its
 // scores and exponentials it took 4.47 of 6.59 ms, without Q.K^T 5.67,
 // without P.V 5.68; clock64 stamps put the two warpgroups in the same
 // phase, their softmax at once (two warps of an SM quarter share its ex2

@@ -32,7 +32,11 @@
 // each lane holding slots of 16 consecutive values (slot lane + 32 (w + W
 // i); one a lane up to K = 4096, up to 8 for K = 32768), read with 16-byte
 // loads (two a slot in bf16, four in fp32) and written as 16 int8 codes
-// with one 16-byte store. The sum of squares and the absmax reduce by
+// with one 16-byte store. It takes any K, as JAX's tier does: a longer row
+// is read three times (the later reads from L2), a K that is not a
+// 16-multiple a value at a time, and the codes go to rows of round_up(K,
+// 16) bytes with zero codes past K, so that the GEMM runs at that padded
+// K over weights with zero columns past K. The sum of squares and the absmax reduce by
 // shuffles within each warp, then across the row's warps through shared
 // memory; the group's scale and shift rows are
 // read once a slot with 16-byte loads and stay in L2. The bf16 instance
@@ -54,7 +58,7 @@ extern "C" int k2_int8_gemm(const void* xq, const void* w, int M, int N, int K,
 
 namespace {
 
-constexpr int MAX_K = 32768;        // the longest row the kernel takes
+constexpr int MAX_SLOT_K = 32768;   // the longest row held in registers
 
 __device__ __forceinline__ uint32_t bf2_add(uint32_t a, uint32_t b) {
   uint32_t d;
@@ -122,8 +126,14 @@ __device__ __forceinline__ double sum_squares(const Slot<T>& x) {
 // SM) the kernel stayed far from its memory bound however little
 // arithmetic it did; loading a warp's next row under its current one, at
 // fewer blocks an SM, did not close the gap either.
-template <typename T, int SLOTS, int W>
-__global__ void __launch_bounds__(256, SLOTS > 1 ? 1 : sizeof(T) == 2 ? 6 : 5)
+// VEC: 16-byte loads (K a 16-multiple); otherwise each value is read
+// alone, zeros past K (which add nothing to the sum of squares, modulate
+// to 0 and quantize to code 0). SLOTS == 0 is the form for rows longer
+// than the registers hold: the row is read three times (the sum of
+// squares, the absmax of h, the codes), the later reads from L2.
+template <typename T, int SLOTS, int W, bool VEC>
+__global__ void __launch_bounds__(256, SLOTS == 1 ? (sizeof(T) == 2 ? 6 : 5)
+                                                  : 1)
 norm_mod_quantize_rows_kernel(const T* __restrict__ x,
                               const T* __restrict__ scale,
                               const T* __restrict__ shift, int M, int K,
@@ -138,18 +148,39 @@ norm_mod_quantize_rows_kernel(const T* __restrict__ x,
   const int wr = warp % W;  // the warp's place in its row
   const long long row = (long long)blockIdx.x * RPB + warp / W;
   const bool live = row < M;  // the last block's rows may run past M
-  const int nslot = K / 16;
+  const int nslot = (K + 15) / 16;  // codes: rows of 16 nslot bytes
   const long long grp = live ? row / rows_per_group : 0;
+  const T* xr = x + row * K;
+  const T* sr = scale + grp * K;
+  const T* tr = shift + grp * K;
+  int8_t* qr = xq + row * (16LL * nslot);
+  auto load = [&](Slot<T>& v, const T* p, int sl) {
+    if (VEC) {
+      v.load(p + sl * 16);
+    } else {
+      v.load_some(p + sl * 16, K - sl * 16);
+    }
+  };
+  // the slots of a lane: lane + 32 (wr + W i)
+  constexpr int STEP = 32 * W;
+  const int first = lane + 32 * wr;
 
-  constexpr int ROW_SLOTS = SLOTS;
+  constexpr int ROW_SLOTS = SLOTS > 0 ? SLOTS : 1;
   Slot<T> v[ROW_SLOTS];
   double ss = 0.0;
+  if constexpr (SLOTS == 0) {
+    for (int sl = first; live && sl < nslot; sl += STEP) {
+      load(v[0], xr, sl);
+      ss += sum_squares(v[0]);
+    }
+  } else {
 #pragma unroll
-  for (int i = 0; i < ROW_SLOTS; ++i) {
-    const int sl = lane + 32 * (wr + W * i);
-    if (live && sl < nslot) {
-      v[i].load(x + row * K + sl * 16);
-      ss += sum_squares(v[i]);
+    for (int i = 0; i < SLOTS; ++i) {
+      const int sl = first + STEP * i;
+      if (live && sl < nslot) {
+        load(v[i], xr, sl);
+        ss += sum_squares(v[i]);
+      }
     }
   }
 #pragma unroll
@@ -164,15 +195,24 @@ norm_mod_quantize_rows_kernel(const T* __restrict__ x,
   const float mean = (float)(ss / (double)K);
   const float rr = rsqrtf(mean + eps);
 
+  // h = the modulated slot sl, in place of x's values
+  auto modulated = [&](Slot<T>& h, int sl) {
+    Slot<T> s, t;
+    load(s, sr, sl);
+    load(t, tr, sl);
+    return modulate(h, s, t, rr);
+  };
   float amax = 0.f;
+  if constexpr (SLOTS == 0) {
+    for (int sl = first; live && sl < nslot; sl += STEP) {
+      load(v[0], xr, sl);
+      amax = fmaxf(amax, modulated(v[0], sl));
+    }
+  } else {
 #pragma unroll
-  for (int i = 0; i < ROW_SLOTS; ++i) {
-    const int sl = lane + 32 * (wr + W * i);
-    if (live && sl < nslot) {
-      Slot<T> s, t;
-      s.load(scale + grp * K + sl * 16);
-      t.load(shift + grp * K + sl * 16);
-      amax = fmaxf(amax, modulate(v[i], s, t, rr));
+    for (int i = 0; i < SLOTS; ++i) {
+      const int sl = first + STEP * i;
+      if (live && sl < nslot) amax = fmaxf(amax, modulated(v[i], sl));
     }
   }
 #pragma unroll
@@ -188,22 +228,30 @@ norm_mod_quantize_rows_kernel(const T* __restrict__ x,
   const float s = fmaxf(__fdiv_rn(amax, 127.0f), 1e-8f);
   const float r = __frcp_rn(s);
 
+  if constexpr (SLOTS == 0) {
+    for (int sl = first; live && sl < nslot; sl += STEP) {
+      load(v[0], xr, sl);
+      modulated(v[0], sl);
+      *reinterpret_cast<uint4*>(qr + sl * 16) = codes(v[0], s, r);
+    }
+  } else {
 #pragma unroll
-  for (int i = 0; i < ROW_SLOTS; ++i) {
-    const int sl = lane + 32 * (wr + W * i);
-    if (live && sl < nslot) {
-      *reinterpret_cast<uint4*>(xq + row * K + sl * 16) = codes(v[i], s, r);
+    for (int i = 0; i < SLOTS; ++i) {
+      const int sl = first + STEP * i;
+      if (live && sl < nslot) {
+        *reinterpret_cast<uint4*>(qr + sl * 16) = codes(v[i], s, r);
+      }
     }
   }
   if (live && wr == 0 && lane == 0) sx[row] = s;
 }
 
-template <typename T, int SLOTS, int W>
+template <typename T, int SLOTS, int W, bool VEC>
 int launch_rows_sw(const T* x, const T* scale, const T* shift, int M, int K,
                    int rows_per_group, float eps, void* xq, void* sx,
                    cudaStream_t stream) {
   constexpr int RPB = 8 / W;
-  norm_mod_quantize_rows_kernel<T, SLOTS, W>
+  norm_mod_quantize_rows_kernel<T, SLOTS, W, VEC>
       <<<(M + RPB - 1) / RPB, 256, 0, stream>>>(
           x, scale, shift, M, K, rows_per_group, eps,
           static_cast<int8_t*>(xq), static_cast<float*>(sx));
@@ -211,38 +259,41 @@ int launch_rows_sw(const T* x, const T* scale, const T* shift, int M, int K,
 }
 
 // one slot a lane and the fewest warps a row that cover K (up to 4096
-// values); longer rows take 8 warps and 2, 4 or 8 slots a lane
+// values); longer rows take 8 warps and 2, 4 or 8 slots a lane, and rows
+// past 32768 values the three-read form; a K that is not a 16-multiple
+// takes the three-read form with single-value loads
 template <typename T>
 int launch_rows(const T* x, const T* scale, const T* shift, int M, int K,
                 int rows_per_group, float eps, void* xq, void* sx,
                 void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define K5_ROWS(SLOTS, W)                                                   \
-  return launch_rows_sw<T, SLOTS, W>(x, scale, shift, M, K, rows_per_group, \
-                                     eps, xq, sx, s)
-  if (K <= 512) K5_ROWS(1, 1);
-  if (K <= 1024) K5_ROWS(1, 2);
-  if (K <= 2048) K5_ROWS(1, 4);
-  if (K <= 4096) K5_ROWS(1, 8);
-  if (K <= 8192) K5_ROWS(2, 8);
-  if (K <= 16384) K5_ROWS(4, 8);
-  K5_ROWS(8, 8);
+#define K5_ROWS(SLOTS, W, VEC)                                          \
+  return launch_rows_sw<T, SLOTS, W, VEC>(x, scale, shift, M, K,        \
+                                          rows_per_group, eps, xq, sx, s)
+  if (K % 16 != 0) K5_ROWS(0, 8, false);
+  if (K <= 512) K5_ROWS(1, 1, true);
+  if (K <= 1024) K5_ROWS(1, 2, true);
+  if (K <= 2048) K5_ROWS(1, 4, true);
+  if (K <= 4096) K5_ROWS(1, 8, true);
+  if (K <= 8192) K5_ROWS(2, 8, true);
+  if (K <= 16384) K5_ROWS(4, 8, true);
+  if (K <= MAX_SLOT_K) K5_ROWS(8, 8, true);
+  K5_ROWS(0, 8, true);
 #undef K5_ROWS
 }
 
 }  // namespace
 
 // x [M, K] bf16 (x_dtype 0) or fp32 (1), scale/shift [M / rows_per_group,
-// K] in x's dtype, all 16-byte aligned -> xq [M, K] int8, sx [M] fp32. K
-// must be a multiple of 16 and at most MAX_K (32768: 8 warps of 8 slots a
-// lane).
+// K] in x's dtype, all 16-byte aligned, any K -> xq [M, round_up(K, 16)]
+// int8 (zero codes past K), sx [M] fp32.
 extern "C" int k5_norm_mod_quantize_rows(const void* x, const void* scale,
                                          const void* shift, int M, int K,
                                          int x_dtype, int rows_per_group,
                                          float eps, void* xq, void* sx,
                                          void* stream) {
   if (M <= 0) return static_cast<int>(cudaGetLastError());
-  if (K <= 0 || K % 16 != 0 || K > MAX_K || rows_per_group <= 0 ||
+  if (K <= 0 || rows_per_group <= 0 ||
       x_dtype < 0 || x_dtype > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -258,9 +309,9 @@ extern "C" int k5_norm_mod_quantize_rows(const void* x, const void* scale,
 }
 
 // The whole of K5: the row kernel into the scratch xq / sx, then the s8
-// product with w [N, K] int8 (the concatenated weights), sw [N], bias [N]
-// or null, into out [M, N] (out_mode as k2_int8_gemm: 0 s32, 1 bf16, 2
-// f32).
+// product with w [N, round_up(K, 16)] int8 (the concatenated weights, zero
+// columns past K), sw [N], bias [N] or null, into out [M, N] (out_mode as
+// k2_int8_gemm: 0 s32, 1 bf16, 2 f32).
 extern "C" int k5_norm_mod_int8_matmul(const void* x, const void* scale,
                                        const void* shift, int M, int K,
                                        int x_dtype, int rows_per_group,
@@ -272,5 +323,6 @@ extern "C" int k5_norm_mod_int8_matmul(const void* x, const void* scale,
                                              rows_per_group, eps, xq, sx,
                                              stream);
   if (code != 0) return code;
-  return k2_int8_gemm(xq, w, M, N, K, sx, sw, bias, out, out_mode, stream);
+  return k2_int8_gemm(xq, w, M, N, (K + 15) / 16 * 16, sx, sw, bias, out,
+                      out_mode, stream);
 }

@@ -30,7 +30,10 @@ output from the same GEMM). The TPU kernel's refusal of a group size with no 16-
 divisor (:165-174) has no counterpart: each row (one warp, or a few,
 of the row kernel) reads its own group's scale and shift rows, so a block
 may straddle two groups; :func:`supports` keeps the JAX gate so that
-both packages take the same tier at the same shapes.
+both packages take the same tier at the same shapes. Any K, as in JAX:
+the row kernel writes its codes in rows of ``round_up(K, 16)`` bytes with
+zero codes past K, and a weight whose K is not a 16-multiple is
+zero-padded at each call (every shipped linear has a 16-multiple K).
 """
 
 from __future__ import annotations
@@ -40,11 +43,8 @@ import os
 
 import torch
 
-from .int8_matmul import int8_gemm_acc_plain, quantize_rows_plain
-
-# the row kernel holds a row in registers, 64 of them a lane: up to 8 warps
-# a bf16 row, 16 an fp32 one (MAX_K in csrc/fused_prologue.cu)
-_MAX_K = 32768
+from .int8_matmul import int8_gemm_acc_plain, padded_weight, \
+    quantize_rows_plain
 
 
 def enabled_mode() -> str | None:
@@ -90,36 +90,14 @@ def fused_weights(p_linears):
     return w, ws, bias
 
 
-def row_kernel_takes(k: int) -> bool:
-    """Whether K5's row kernel takes rows of ``k`` values (the limit that
-    :func:`_check_cuda` names)."""
-    return k % 16 == 0 and k <= _MAX_K
-
-
 def apply_fused(x: torch.Tensor, scale_g: torch.Tensor, shift_g: torch.Tensor,
                 p_linears, *, eps: float) -> torch.Tensor:
     """Prologue + all the linears that consume it, one call: ``x [B, S,
     K]``, adaLN rows ``scale_g`` / ``shift_g`` ``[B, G, K]``; returns
-    ``[B, S, sum(N_i)]`` for the caller to split.
-
-    JAX's tier takes any K. A K that K5's row kernel does not take (not a
-    16-multiple, or past its registers) goes, by this shape test, to the
-    unfused chain over the same concatenated weights: the port's RMS norm
-    and modulation, then K2 (which takes any K). Each such call adds one
-    to ``norm_mod_int8_matmul.unfused_calls``; no shipped config has such
-    a K."""
+    ``[B, S, sum(N_i)]`` for the caller to split."""
     b, s, k = x.shape
     g = scale_g.shape[1]
     w, ws, bias = fused_weights(p_linears)
-    if not row_kernel_takes(k):
-        from .int8_matmul import int8_linear
-        from .norms import rms_norm
-
-        h = rms_norm(x, eps=eps).reshape(b, g, s // g, k)
-        h = h * (1 + scale_g.to(x.dtype)[:, :, None]) \
-            + shift_g.to(x.dtype)[:, :, None]
-        norm_mod_int8_matmul.unfused_calls += 1
-        return int8_linear(h.reshape(b, s, k), w, ws, bias)
     out = norm_mod_int8_matmul(
         x.reshape(b * s, k),
         scale_g.to(x.dtype).reshape(b * g, k),
@@ -182,12 +160,14 @@ _X_DTYPES = {torch.bfloat16: 0, torch.float32: 1}   # the C entry's x_dtype
 _OUT_MODES = {torch.int32: 0, torch.bfloat16: 1, torch.float32: 2}
 
 
+def _padded(k: int) -> int:
+    """The row pitch of the codes: K rounded up to a 16-multiple."""
+    return -(-k // 16) * 16
+
+
 def _check_cuda(x, scale, shift, w_int8, w_scale, bias):
-    k = x.shape[1]
     if x.dtype not in _X_DTYPES:
         raise ValueError(f"K5 takes bf16 or fp32 activations, got {x.dtype}")
-    if k % 16 or k > _MAX_K:
-        raise ValueError(f"K5 needs K % 16 == 0 and K <= {_MAX_K}, got {k}")
     tensors = [("x", x), ("scale", scale), ("shift", shift)]
     if w_int8 is not None:
         if w_scale.dtype != torch.float32:
@@ -207,7 +187,9 @@ def _check_cuda(x, scale, shift, w_int8, w_scale, bias):
 def norm_mod_quantize_rows(x, scale, shift, *, rows_per_group: int,
                            eps: float = 1e-5):
     """K5's row kernel alone on the card, to check and to time it: ``(h_q
-    [M, K] int8, s_x [M] fp32)``. Not counted as a launch."""
+    [M, round_up(K, 16)] int8, s_x [M] fp32)``; ``h_q[:, :K]`` is
+    :func:`norm_mod_quantize_plain`'s codes and the rest are zeros. Not
+    counted as a launch."""
     _check(x, scale, shift, None, None, None, rows_per_group)
     if x.device.type != "cuda":
         raise ValueError("norm_mod_quantize_rows checks the CUDA kernel")
@@ -215,7 +197,7 @@ def norm_mod_quantize_rows(x, scale, shift, *, rows_per_group: int,
     from . import _lib
 
     m, k = x.shape
-    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    xq = torch.empty((m, _padded(k)), dtype=torch.int8, device=x.device)
     sx = torch.empty((m,), dtype=torch.float32, device=x.device)
     code = _lib.library().k5_norm_mod_quantize_rows(
         x.data_ptr(), scale.data_ptr(), shift.data_ptr(), m, k,
@@ -227,12 +209,14 @@ def norm_mod_quantize_rows(x, scale, shift, *, rows_per_group: int,
 
 def _launch(x, scale, shift, w_int8, w_scale, bias, rows_per_group, eps,
             out_dtype):
-    """The row kernel, then the GEMM: ``(h_q, s_x, out [M, N])``."""
+    """The row kernel, then the GEMM: ``(h_q [M, round_up(K, 16)], s_x,
+    out [M, N])``."""
     from . import _lib
 
     m, k = x.shape
     n = w_int8.shape[0]
-    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    w_int8 = padded_weight(w_int8, _padded(k))
+    xq = torch.empty((m, _padded(k)), dtype=torch.int8, device=x.device)
     sx = torch.empty((m,), dtype=torch.float32, device=x.device)
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     code = _lib.library().k5_norm_mod_int8_matmul(
@@ -255,8 +239,9 @@ def norm_mod_int8_acc(x, scale, shift, w_int8, *, rows_per_group: int,
     ones = torch.ones(w_int8.shape[0], dtype=torch.float32, device=x.device)
     _check(x, scale, shift, w_int8, ones, None, rows_per_group)
     _check_cuda(x, scale, shift, w_int8, ones, None)
-    return _launch(x, scale, shift, w_int8, ones, None, rows_per_group, eps,
-                   torch.int32)
+    hq, sx, acc = _launch(x, scale, shift, w_int8, ones, None, rows_per_group,
+                          eps, torch.int32)
+    return hq[:, :x.shape[1]], sx, acc
 
 
 def norm_mod_int8_matmul(
@@ -287,4 +272,3 @@ def norm_mod_int8_matmul(
 
 
 norm_mod_int8_matmul.launches = 0
-norm_mod_int8_matmul.unfused_calls = 0

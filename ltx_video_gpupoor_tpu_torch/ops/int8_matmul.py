@@ -108,7 +108,7 @@ def quantize_rows(x2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
                                _lib.stream_ptr(x2.device))
 
 
-def _padded_weight(w_int8: torch.Tensor, kp: int) -> torch.Tensor:
+def padded_weight(w_int8: torch.Tensor, kp: int) -> torch.Tensor:
     """``w_int8 [N, K]`` with zero columns up to ``kp``: a copy at every
     call where K is not a 16-multiple (no shipped linear has such a K)."""
     k = w_int8.shape[1]
@@ -150,7 +150,7 @@ def int8_linear(x: torch.Tensor, w_int8: torch.Tensor, w_scale: torch.Tensor,
     if bias is not None:
         bias = bias.float().contiguous()
     xq, sx = _quantize_rows_cuda(lib, x2, stream)
-    w_int8 = _padded_weight(w_int8, xq.shape[1])
+    w_int8 = padded_weight(w_int8, xq.shape[1])
     out = _gemm_cuda(lib, xq, sx, w_int8, w_scale, bias, x.dtype, stream)
     int8_linear.launches += 1
     return out.reshape(*x.shape[:-1], w_int8.shape[0])
@@ -174,6 +174,6 @@ def int8_linear_acc(x: torch.Tensor, w_int8: torch.Tensor) -> tuple[
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     xq, sx = _quantize_rows_cuda(lib, x2, stream)
     ones = torch.ones(w_int8.shape[0], dtype=torch.float32, device=x.device)
-    acc = _gemm_cuda(lib, xq, sx, _padded_weight(w_int8, xq.shape[1]), ones,
+    acc = _gemm_cuda(lib, xq, sx, padded_weight(w_int8, xq.shape[1]), ones,
                      None, torch.int32, stream)
     return xq[:, :x2.shape[1]], sx, acc

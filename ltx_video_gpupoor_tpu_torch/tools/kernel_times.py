@@ -64,12 +64,14 @@ K2_ROW_SHAPES = [("K2 rows LTX-2B K=2048", 15840, 2048, torch.bfloat16),
                  ("K2 rows 13B pass 2 K=16384", 15360, 16384,
                   torch.bfloat16)]
 # (name, B, H, Sq, Skv, D, text segments): K3q's shapes in an LTX-13B tier
-# (d) request (pass 2 and pass 1 self-attention, pass 2 cross-attention to
-# 256 text tokens) and LTX-2B's self-attention; the prologue is timed at
-# each in the QK tier, and at the Wan self-attention in the QK+PV tier
+# (d) request (pass 2 and pass 1 self-attention, pass 2 and pass 1
+# cross-attention to 256 text tokens) and LTX-2B's self-attention; the
+# prologue is timed at each in the QK tier, and at the Wan self-attention
+# in the QK+PV tier
 K3Q_SHAPES = [("13B pass 2 self", 1, 32, 15360, 15360, 128, False),
               ("13B pass 1 self", 1, 32, 3840, 3840, 128, False),
               ("13B pass 2 cross", 1, 32, 15360, 256, 128, True),
+              ("13B pass 1 cross", 1, 32, 3840, 256, 128, True),
               ("LTX-2B self", 3, 32, 5280, 5280, 64, False)]
 WAN_SELF = ("Wan self", 2, 12, 32760, 32760, 128, False)
 # --only: K1f; K5's row kernel; K2's row kernel; the prologue and K3q

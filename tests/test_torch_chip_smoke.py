@@ -188,8 +188,8 @@ def _stubbed_main(monkeypatch, capsys, argv):
     info = collections.defaultdict(lambda: (1.0, "operations", None))
     results = {
         "phase_device": ("a card", 4.18e12),
-        "phase_build": 1.0, "phase_k1": 0.0, "phase_k2": 0.0,
-        "phase_prologue": None,
+        "phase_build": 1.0, "phase_k1": 0.0, "phase_k2": (0.0, 0.0),
+        "phase_prologue": 0.0,
         "phase_k4": (0.0, 0.0), "phase_k3": 0.0, "phase_k3q": 0.0,
         "phase_k5": 0.0,
         "phase_k6": 0.0, "phase_k1f": 0.0, "phase_timing": (timed, info),

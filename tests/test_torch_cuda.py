@@ -472,8 +472,13 @@ def test_k6_reads_a_fused_qkv_projection_in_place(cuda):
 
 @pytest.mark.parametrize("m,k,n,groups,bias", [(64, 256, 384, 1, True),
                                                (96, 4096, 200, 4, False),
-                                               (48, 64, 130, 2, True)])
+                                               (48, 64, 130, 2, True),
+                                               (48, 40, 130, 2, True),
+                                               (32, 32784, 64, 2, False)])
 def test_k5_matches_plain(cuda, m, k, n, groups, bias):
+    """K5 at every K: rows in registers, a K off a 16-multiple (codes in
+    rows of round_up(K, 16) with zeros past K, the weight zero-padded at
+    the call) and a row past the registers (read three times)."""
     gen = torch.Generator(device=cuda).manual_seed(8)
     x = (_randn(gen, m, k) * 3).bfloat16()
     x[1] = 0                                       # s_x floors at 1e-8
@@ -487,7 +492,8 @@ def test_k5_matches_plain(cuda, m, k, n, groups, bias):
     before = (fp.norm_mod_int8_matmul.launches, im.int8_linear.launches)
     hq, sx = fp.norm_mod_quantize_rows(x, scale, shift, **kw)
     pq, ps = fp.norm_mod_quantize_plain(x, scale, shift, **kw)
-    assert torch.equal(hq, pq) and torch.equal(sx, ps[:, 0])
+    assert hq.shape == (m, -(-k // 16) * 16) and not hq[:, k:].any()
+    assert torch.equal(hq[:, :k], pq) and torch.equal(sx, ps[:, 0])
     hq, sx, acc = fp.norm_mod_int8_acc(x, scale, shift, ql.w_int8, **kw)
     assert torch.equal(hq, pq) and torch.equal(sx, ps[:, 0])
     assert torch.equal(acc, im.int8_gemm_acc_plain(pq, ql.w_int8))
@@ -703,13 +709,16 @@ def test_fp32_tiers_launch_what_kernel_route_names(cuda, mode, d, bound):
 
 @pytest.mark.parametrize("m,k,groups", [
     (3840, 4096, 16), (15360, 4096, 16), (240, 4096, 3), (17, 48, 1),
-    (129, 8960, 3), (64, 16384, 4), (16, 32768, 2)])
+    (129, 8960, 3), (64, 16384, 4), (16, 32768, 2), (17, 40, 1),
+    (9, 1000, 3), (16, 32784, 2), (6, 40000, 2)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_k5_row_kernel_matches_plain(cuda, m, k, groups, dtype):
     """K5's row kernel at the 13B pass 1 and pass 2 shapes, the ragged
-    case and K up to its limit (one slot a lane up to K = 4096, more
-    beyond): bf16 codes and row scales exactly; fp32 codes where rsqrt
-    may round a norm the other way in a row (at most 1e-4 of them)."""
+    case and every form of the kernel (one slot a lane up to K = 4096,
+    more up to 32768, three reads of the row beyond, a value at a time
+    where K is not a 16-multiple): bf16 codes and row scales exactly,
+    zero codes up to the padded row; fp32 codes where rsqrt may round a
+    norm the other way in a row (at most 1e-4 of them)."""
     gen = torch.Generator(device=cuda).manual_seed(m + k)
     x = (_randn(gen, m, k)
          * torch.rand(m, 1, generator=gen, device=cuda) * 4).to(dtype)
@@ -718,16 +727,12 @@ def test_k5_row_kernel_matches_plain(cuda, m, k, groups, dtype):
     kw = dict(rows_per_group=m // groups, eps=1e-6)
     hq, sx = fp.norm_mod_quantize_rows(x, scale, shift, **kw)
     pq, ps = fp.norm_mod_quantize_plain(x, scale, shift, **kw)
+    assert hq.shape == (m, -(-k // 16) * 16) and not hq[:, k:].any()
+    hq = hq[:, :k]
     if dtype == torch.bfloat16:
         assert torch.equal(hq, pq) and torch.equal(sx, ps[:, 0])
     else:
         assert float((hq != pq).float().mean()) <= 1e-4
-    with pytest.raises(ValueError, match="K <= 32768"):
-        fp.norm_mod_quantize_rows(torch.zeros(2, 32784, dtype=dtype,
-                                              device=cuda),
-                                  scale[:1, :1].expand(1, 32784).contiguous(),
-                                  scale[:1, :1].expand(1, 32784).contiguous(),
-                                  rows_per_group=2)
 
 
 def test_k5_fp32_row_instance_matches_plain(cuda):

@@ -756,18 +756,21 @@ def test_k5_group_rows_and_shape_checks():
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_k5_row_kernel_limit_is_named(dtype):
-    """The row kernel holds a row in registers, up to K = 32768 (8 warps of
-    8 slots of 16 values a lane); the CUDA wrapper's check takes every K
-    that is a 16-multiple up to that and names the limit beyond it."""
-    def check(k):
-        x = torch.zeros(4, k, dtype=dtype)
+    """The row kernel takes any K, as JAX's tier does: a row in registers
+    up to K = 32768 (8 warps of 8 slots of 16 values a lane), read three
+    times beyond, a value at a time where K is not a 16-multiple. The
+    CUDA wrapper's check takes every K and names what it refuses: another
+    activation dtype, a tensor that is not contiguous or 16-byte
+    aligned."""
+    def check(x):
         tfp._check_cuda(x, x[:1], x[:1], None, None, None)
 
-    for k in (16, 48, 4096, 8960, 32768):
-        check(k)
-    for k in (40, 32784, 51200):
-        with pytest.raises(ValueError, match="K % 16 == 0 and K <= 32768"):
-            check(k)
+    for k in (16, 40, 48, 1000, 4096, 8960, 32768, 32784, 51200):
+        check(torch.zeros(4, k, dtype=dtype))
+    with pytest.raises(ValueError, match="bf16 or fp32 activations"):
+        check(torch.zeros(4, 64, dtype=torch.float16))
+    with pytest.raises(ValueError, match="contiguous 16-byte aligned x"):
+        check(torch.zeros(4, 80, dtype=dtype)[:, 8:])
 
 
 def test_k5_supports_equal_jax_on_a_grid():

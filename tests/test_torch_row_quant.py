@@ -4,17 +4,20 @@ JAX's dynamic-int8 chain (``ltx_video_gpupoor_tpu/ops/quant.py:190-206``)
 and its fused adaLN tier take any K. The port's plain K2 does too: at K =
 40 and K = 1000 its int8 codes and int32 accumulator equal those of JAX's
 arithmetic exactly and its output agrees with ``int8_dynamic_matmul`` at
-the K2 tolerance (``tests/test_int8_matmul.py``: 2e-2). A fused-tier call
-whose K K5's row kernel does not take goes, by a shape test, to the
-unfused chain (the port's RMS norm and modulation, then K2), counted, and
-agrees with JAX's ``apply_fused`` in interpret mode within the JAX
-package's own 5e-2 (its kernel may keep the modulation's last bf16 sum in
-fp32). The attention tiers' quantize prologue (Q codes and scales, the QK
-tier's per-row K codes and scales) is the JAX prologue's arithmetic, bit
-for bit, on contiguous and head-split operands. The CUDA kernels are held
-to these plain versions on the card (``tests/test_torch_cuda.py``,
+the K2 tolerance (``tests/test_int8_matmul.py``: 2e-2). The fused tier
+(K5) at such a K agrees with JAX's ``apply_fused`` in interpret mode
+within the JAX package's own 5e-2 (its kernel may keep the modulation's
+last bf16 sum in fp32). The attention tiers' quantize prologue (Q codes
+and scales, the QK tier's per-row K codes and scales) equals, bit for
+bit, what the JAX package's own jitted ``flash_attention`` hands its
+Pallas call, on contiguous and head-split operands. The CUDA kernels are
+held to these plain versions on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``).
 """
+
+import functools
+from unittest import mock
+
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from ltx_video_gpupoor_tpu.ops import flash_attention as jfa
 from ltx_video_gpupoor_tpu.ops import fused_prologue as jfp
 from ltx_video_gpupoor_tpu.ops import quant as jq
 from ltx_video_gpupoor_tpu_torch.ops import flash_attention as tfa
@@ -68,11 +72,11 @@ def test_k2_plain_takes_any_k_as_jax(m, k, n):
         acc.numpy(), jx.astype(np.int64) @ np.asarray(ql.w_int8, np.int64))
 
 
-@pytest.mark.parametrize("k,groups", [(40, 2), (24, 1)])
-def test_fused_tier_outside_k5_takes_the_unfused_chain(k, groups):
-    """bf16 activations, q/k/v side by side with biases, as the DiT calls
-    it; the call is counted and agrees with JAX's ``apply_fused``."""
-    assert not tfp.row_kernel_takes(k)
+@pytest.mark.parametrize("k,groups", [(40, 2), (24, 1), (1000, 2)])
+def test_fused_tier_at_any_k_equals_jax(k, groups):
+    """bf16 activations at a K that is not a 16-multiple, q/k/v side by
+    side with biases, as the DiT calls it: K5's plain version agrees with
+    JAX's ``apply_fused``."""
     rng = np.random.default_rng(11)
     b, s = 2, 32
     x = rng.standard_normal((b, s, k)).astype(np.float32)
@@ -96,30 +100,39 @@ def test_fused_tier_outside_k5_takes_the_unfused_chain(k, groups):
         tlins.append(lin)
     ref = jfp.apply_fused(jnp.asarray(x, jnp.bfloat16), jnp.asarray(sc),
                           jnp.asarray(sh), jlins, eps=1e-6, interpret=True)
-    before = (tfp.norm_mod_int8_matmul.unfused_calls,
-              tfp.norm_mod_int8_matmul.launches)
     out = tfp.apply_fused(torch.from_numpy(x).bfloat16(),
                           torch.from_numpy(sc), torch.from_numpy(sh), tlins,
                           eps=1e-6)
-    assert (tfp.norm_mod_int8_matmul.unfused_calls,
-            tfp.norm_mod_int8_matmul.launches) == (before[0] + 1, before[1])
     assert out.shape == (b, s, 384) and out.dtype == torch.bfloat16
     np.testing.assert_allclose(out.float().numpy(),
                                np.asarray(ref.astype(jnp.float32)),
                                atol=FUSED_TOL, rtol=FUSED_TOL)
 
 
-@jax.jit
-def _jax_prologue_qk(q, k, c):
-    """The QK tier's prologue as JAX writes it
-    (``ltx_video_gpupoor_tpu/ops/flash_attention.py:484-505``)."""
-    qf = q.astype(jnp.float32)
-    kf = k.astype(jnp.float32)
-    q_s = jnp.maximum(jnp.max(jnp.abs(qf), axis=-1), 1e-6) / 127.0
-    q8 = jnp.round(qf / q_s[..., None]).astype(jnp.int8)
-    k_s = jnp.maximum(jnp.max(jnp.abs(kf), axis=-1), 1e-6) / 127.0
-    k8 = jnp.round(kf / k_s[..., None]).astype(jnp.int8)
-    return q8, q_s * c, k8, k_s
+def _jax_package_prologue(q, k):
+    """The QK tier's operands as the JAX package's own jitted
+    ``flash_attention`` hands them to its Pallas call (the prologue,
+    ``ltx_video_gpupoor_tpu/ops/flash_attention.py:484-505``, compiled by
+    XLA with the softmax scale a Python constant, as the package runs it):
+    ``(q8, q_scale, k8, k_scale)``, read back by a host callback that
+    stands in for the Pallas call."""
+    got = {}
+
+    def pallas_call(kernel, *, out_shape, **_):
+        def call(*args):
+            jax.debug.callback(lambda *a: got.update(args=a), *args)
+            return jnp.zeros(out_shape.shape, out_shape.dtype)
+        return call
+
+    # a fresh jit of the undecorated function, so that no trace cached by
+    # another test runs in place of this one
+    fa = jax.jit(functools.partial(jfa.flash_attention.__wrapped__,
+                                   qk_int8=True))
+    with mock.patch.object(jfa.pl, "pallas_call", pallas_call):
+        jax.block_until_ready(fa(q, k, k))
+        jax.effects_barrier()
+    q8, k8, _, q_scale, k_scale = (np.asarray(t) for t in got["args"])
+    return q8, q_scale[:, :, 0], k8, k_scale[:, :, 0]
 
 
 @pytest.mark.parametrize("d,packed", [(64, False), (128, True), (64, True)])
@@ -127,9 +140,11 @@ def test_prologue_rows_equal_jax(d, packed):
     """Q's codes and scales (the softmax scale times log2(e) folded in) and
     the QK tier's per-row K codes and scales, on bf16 operands, some rows
     all zero (the 1e-6 floor); head-split views of a ``[B, S, H*D]``
-    projection read as they lie."""
+    projection read as they lie. XLA folds ``/ 127`` and ``scale * log2
+    e`` into one constant: the unfolded product is another float in some
+    rows, so the check tells the two apart."""
     rng = np.random.default_rng(d)
-    b, h, sq, skv = 2, 3, 40, 200
+    b, h, sq, skv = 2, 3, 128, 256
     arrays = []
     for n in (sq, skv):
         a = (rng.standard_normal((b, n, h * d)) * rng.uniform(
@@ -142,10 +157,13 @@ def test_prologue_rows_equal_jax(d, packed):
     if not packed:
         q, k = q.contiguous(), k.contiguous()
     ops = tfa.int8_prologue(q, k, k, pv_int8=False)
-    c = d ** -0.5 * tfa.LOG2E
-    jq8, jqs, jk8, jks = (np.asarray(t) for t in _jax_prologue_qk(
+    jq8, jqs, jk8, jks = _jax_package_prologue(
         jnp.asarray(q.float().numpy(), jnp.bfloat16),
-        jnp.asarray(k.float().numpy(), jnp.bfloat16), c))
+        jnp.asarray(k.float().numpy(), jnp.bfloat16))
+    amax = np.abs(q.float().numpy()).max(axis=-1)
+    unfolded = (np.maximum(amax, np.float32(1e-6)) / np.float32(127.0)
+                * np.float32(d ** -0.5 * tfa.LOG2E))
+    assert not np.array_equal(unfolded, jqs)
     np.testing.assert_array_equal(ops.q8.numpy(), jq8)
     np.testing.assert_array_equal(ops.q_scale.numpy(), jqs)
     np.testing.assert_array_equal(ops.k8.numpy(), jk8)
