@@ -239,9 +239,12 @@ def save_quantized_model(path: str, model_or_state: Any,
             out[key + "._scale"] = torch.stack(scales) if stacked \
                 else scales[0]
             continue
-        vals = [(_TO_JAX[t.dim()](t)
-                 if key.endswith((".kernel", ".w_int8_dyn")) else t).cpu()
-                for t in ts]
+        # the tiers' weights and group scales are [out, ...] here, [..., out]
+        # in JAX
+        to_jax = key.endswith((".kernel", ".w_int8_dyn", ".w_int8",
+                               ".w_int4")) or (key.endswith(".scale")
+                                               and ts[0].dim() == 2)
+        vals = [(_TO_JAX[t.dim()](t) if to_jax else t).cpu() for t in ts]
         vals = [v.float() if v.dtype == torch.bfloat16 else v for v in vals]
         out[key] = torch.stack(vals) if stacked else vals[0]
     if not path.endswith(".safetensors"):

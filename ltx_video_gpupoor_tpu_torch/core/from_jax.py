@@ -10,9 +10,11 @@ JAX keys as attribute names, so the conversion is mechanical:
   (conv, JAX ``(kt, kh, kw, cin, cout)``) is permuted to
   ``(cout, cin, kt, kh, kw)``, a 4-D one (the Wan VAE's framewise 2-D
   convs, JAX ``(kh, kw, cin, cout)``) to ``(cout, cin, kh, kw)``.
-- int8 leaves ``{w_int8_dyn [K, N] int8, scale [N] f32}`` become
-  ``w_int8_dyn [N, K]`` (row-major, K contiguous: the column-major B
-  operand that kernel K2 reads) and ``scale [N]``.
+- int8 leaves ``{w_int8_dyn | w_int8 [K, N] int8, scale [N] f32}`` become
+  ``[N, K]`` (row-major, K contiguous: the column-major B operand that
+  kernel K2 reads) and ``scale [N]``; int4 leaves ``{w_int4 [K/2, N],
+  scale [K/g, N] or [N]}`` become ``w_int4 [N, K/2]`` (the nibble pairs
+  still run along K) and ``scale [N, K/g]`` or ``[N]``.
 - per-layer stacks (``blocks``, leading axis L) become ``blocks.{i}.*``.
 - lists (the VAE's ``up_blocks``, ``res_blocks``) become ``name.{i}.*``.
 - every other leaf keeps its name and layout; empty dicts vanish.
@@ -47,7 +49,8 @@ def _leaf(name: str, a: np.ndarray) -> tuple[str, torch.Tensor]:
         if t.dim() == 4:
             return "weight", t.permute(3, 2, 0, 1).contiguous()
         raise ValueError(f"kernel of rank {t.dim()}")
-    if name == "w_int8_dyn":
+    if name in ("w_int8_dyn", "w_int8", "w_int4") or (
+            name == "scale" and t.dim() == 2):
         return name, t.T.contiguous()
     return name, t
 
@@ -92,7 +95,8 @@ def state_dict(tree: dict, stacked: Iterable[str] = STACKED) -> dict:
     ``quantize_params(mode="dynamic")``) -> ``LTXTransformer3D``, the Wan
     ``model.init_params`` (stacked ``blocks``, ``[1, 6, D]`` modulation
     leaves, the 5-D patch conv; optionally quantized) -> ``WanModel``,
-    ``t5.init_params`` -> ``T5Encoder``."""
+    ``t5.init_params`` -> ``T5Encoder``, the Wan ``vae.init_params`` ->
+    ``WanVAE``, the Wan ``clip.init_params`` -> ``CLIPVision``."""
     out: dict[str, torch.Tensor] = {}
     _walk(tree, "", out, tuple(stacked))
     return out
@@ -124,3 +128,9 @@ def wan_vae_decoder_state_dict(params: dict) -> dict:
     encoder and its ``conv1`` are dropped)."""
     keep = {k: v for k, v in params.items() if k not in ("encoder", "conv1")}
     return state_dict(keep)
+
+
+def wan_vae_state_dict(params: dict) -> dict:
+    """Wan ``models/wan/vae.init_params`` tree -> ``WanVAE`` (the encoder,
+    its ``conv1`` and the decoder)."""
+    return state_dict(params)

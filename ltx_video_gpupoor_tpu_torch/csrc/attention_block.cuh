@@ -480,14 +480,16 @@ __device__ __forceinline__ void attend_tiles(const Ring& rg, const Tiles& tl,
 }
 
 // this thread's two rows of acc / (d0, d1) as bf16 into o (row stride oss),
-// rows at or past `rows` left alone
-template <int D>
+// rows at or past `rows` left alone; the first DV columns (a head of DV < D
+// values run in the D layout: its columns past DV are zeros)
+template <int D, int DV = D>
 __device__ __forceinline__ void store_rows(const float (&acc)[D / 2], float d0,
                                            float d1, bf16* o, long long oss,
                                            int row0, int row1, int rows,
                                            int t) {
+  static_assert(DV <= D && DV % 8 == 0, "whole 8-column groups of acc");
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < DV / 8; ++n) {
     const int c = n * 8 + t * 2;
     if (row0 < rows) {
       *reinterpret_cast<uint32_t*>(o + row0 * oss + c) =
@@ -510,7 +512,8 @@ __device__ __forceinline__ float quad_sum(float l) {
 // ---- host side ------------------------------------------------------------------
 
 // (D, S, H, B) bf16 with element strides (1, ss, sh, sb); boxes of one
-// panel by `rows` rows; rows past S read as 0
+// panel by `rows` rows; rows past S read as 0, and so do the columns past D
+// of a panel (a head of D = 80 values loads as two panels of 64)
 inline bool make_map(CUtensorMap* map, const void* ptr, int D, int S, int H,
                      int B, long long ss, long long sh, long long sb,
                      int rows = BKV) {

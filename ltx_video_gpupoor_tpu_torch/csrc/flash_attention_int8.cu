@@ -25,7 +25,12 @@
 // in the QK tier v bf16 [B, H, S, D] and one fp32 k scale a kv row, padded
 // to rows of nks = Spad entries. Masks as in K1: a kv_valid tail, segment
 // ids (attend iff q_seg == kv_seg and kv_seg > 0), causal; rows that see no
-// key return 0. D in {64, 128}, any Sq and Skv.
+// key return 0. D in {64, 128}, any Sq and Skv; K4 also takes D = 80 (CLIP
+// ViT-H/14's heads) in the D = 128 layout: the tensor maps' inner extent
+// is 80 (Q and K rows of 80 bytes, V^T's 80 rows, V's 80 columns), TMA
+// fills the rest of each box with zeros, the v scales past 80 are 0, the
+// epilogue stores 80 columns, and the denominator is the rounded one of
+// JAX's ones column (below).
 //
 // Math per kv tile, as in JAX: s = s32 * (qs * ks) (QK+PV) or
 // (s32 * qs) * ks (QK); online softmax in the exp2 domain with the running
@@ -342,7 +347,8 @@ __device__ __forceinline__ void ring_wait_empty(uint32_t empty, int j) {
   }
 }
 
-template <int D, bool PV8, int MASK>
+// DV: the head's values, D or (80, in the D = 128 layout) fewer
+template <int D, bool PV8, int MASK, int DV = D>
 __global__ void __launch_bounds__(K4_THREADS, 1)
 flash_int8_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                         const __grid_constant__ CUtensorMap kmap,
@@ -356,7 +362,8 @@ flash_int8_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                         int ks_block, int nks, int kv_end, int causal) {
   using C = K4Cfg<D, PV8>;
   constexpr int STAGES = C::STAGES;
-  constexpr bool SUM_ROUNDED = D % 128 != 0;  // JAX's sum_col
+  constexpr bool SUM_ROUNDED = DV % 128 != 0;  // JAX's sum_col
+  static_assert(DV <= D && DV % 8 == 0, "whole 8-column groups of acc");
   extern __shared__ uint8_t smem_raw[];
 
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -395,7 +402,7 @@ flash_int8_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
   if (PV8) {
     for (int i = threadIdx.x; i < D; i += K4_THREADS) {
-      vsc_s[i] = vscale[bh * D + i];
+      vsc_s[i] = i < DV ? vscale[bh * DV + i] : 0.f;
     }
   }
   __syncthreads();
@@ -637,7 +644,7 @@ flash_int8_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const float d1 = l1 > 0.f ? l1 : 1.f;
   bf16* ob = o + b * osb + h * osh;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < DV / 8; ++n) {
     const int c = n * 8 + t * 2;
     if (r.row0 < Sq) {
       *reinterpret_cast<uint32_t*>(ob + r.row0 * oss + c) =
@@ -1003,11 +1010,12 @@ k3q_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
 // ---- host side ------------------------------------------------------------------
 
-// int8 (D, S, H, B) with byte strides (ss, sh, sb): boxes of [128 rows x D
-// bytes], the 128-byte swizzle at D=128, the 64-byte one at D=64
-bool make_qk_map(CUtensorMap* map, const void* ptr, int D, int S, int H, int B,
-                 long long ss, long long sh, long long sb) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
+// int8 (DV, S, H, B) with byte strides (ss, sh, sb): boxes of [128 rows x D
+// bytes] (bytes past DV read as 0), the 128-byte swizzle at D=128, the
+// 64-byte one at D=64
+bool make_qk_map(CUtensorMap* map, const void* ptr, int D, int DV, int S,
+                 int H, int B, long long ss, long long sh, long long sb) {
+  const cuuint64_t dims[4] = {(cuuint64_t)DV, (cuuint64_t)S, (cuuint64_t)H,
                               (cuuint64_t)B};
   const long long strides[3] = {ss, sh, sb};
   const cuuint32_t box[4] = {(cuuint32_t)D, 128, 1, 1};
@@ -1017,12 +1025,12 @@ bool make_qk_map(CUtensorMap* map, const void* ptr, int D, int S, int H, int B,
                              : CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
-// V^T int8 (Spad, D, H, B) with byte strides (row, sh, sb): boxes of [D
-// rows x 128 kv bytes], 128-byte swizzle
-bool make_vt_map(CUtensorMap* map, const void* ptr, int D, int Spad, int H,
-                 int B, long long row, long long sh, long long sb) {
-  const cuuint64_t dims[4] = {(cuuint64_t)Spad, (cuuint64_t)D, (cuuint64_t)H,
-                              (cuuint64_t)B};
+// V^T int8 (Spad, DV, H, B) with byte strides (row, sh, sb): boxes of [D
+// rows x 128 kv bytes] (rows past DV read as 0), 128-byte swizzle
+bool make_vt_map(CUtensorMap* map, const void* ptr, int D, int DV, int Spad,
+                 int H, int B, long long row, long long sh, long long sb) {
+  const cuuint64_t dims[4] = {(cuuint64_t)Spad, (cuuint64_t)DV,
+                              (cuuint64_t)H, (cuuint64_t)B};
   const long long strides[3] = {row, sh, sb};
   const cuuint32_t box[4] = {128, (cuuint32_t)D, 1, 1};
   return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 4, ptr, dims,
@@ -1052,20 +1060,23 @@ struct Call {
   cudaStream_t stream;
 };
 
-template <int D, bool PV8, int MASK>
+template <int D, bool PV8, int MASK, int DV>
 int launch_instance(const Call& c) {
   CUtensorMap qmap = {}, kmap = {}, vmap = {};
   if (c.kv_end > 0) {  // with no key in sight the block loads nothing
     const int spad = (c.Skv + BKV - 1) / BKV * BKV;
     const bool ok =
-        make_qk_map(&qmap, c.q, D, c.Sq, c.H, c.B, c.qss, c.qsh, c.qsb) &&
-        make_qk_map(&kmap, c.k, D, c.Skv, c.H, c.B, c.kss, c.ksh, c.ksb) &&
-        (PV8 ? make_vt_map(&vmap, c.v, D, spad, c.H, c.B, c.vss, c.vsh, c.vsb)
-             : make_v_map(&vmap, c.v, D, c.Skv, c.H, c.B, c.vss, c.vsh,
+        make_qk_map(&qmap, c.q, D, DV, c.Sq, c.H, c.B, c.qss, c.qsh,
+                    c.qsb) &&
+        make_qk_map(&kmap, c.k, D, DV, c.Skv, c.H, c.B, c.kss, c.ksh,
+                    c.ksb) &&
+        (PV8 ? make_vt_map(&vmap, c.v, D, DV, spad, c.H, c.B, c.vss, c.vsh,
+                           c.vsb)
+             : make_v_map(&vmap, c.v, DV, c.Skv, c.H, c.B, c.vss, c.vsh,
                           c.vsb));
     if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto kernel = flash_int8_wgmma_kernel<D, PV8, MASK>;
+  auto kernel = flash_int8_wgmma_kernel<D, PV8, MASK, DV>;
   constexpr int smem = K4Cfg<D, PV8>::SMEM_BYTES;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1078,11 +1089,15 @@ int launch_instance(const Call& c) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool PV8>
+template <int D, bool PV8, int DV = D>
 int launch_kind(const Call& c, int mask_kind) {
-  if (mask_kind == MASK_NONE) return launch_instance<D, PV8, MASK_NONE>(c);
-  if (mask_kind == MASK_TAIL) return launch_instance<D, PV8, MASK_TAIL>(c);
-  return launch_instance<D, PV8, MASK_GENERAL>(c);
+  if (mask_kind == MASK_NONE) {
+    return launch_instance<D, PV8, MASK_NONE, DV>(c);
+  }
+  if (mask_kind == MASK_TAIL) {
+    return launch_instance<D, PV8, MASK_TAIL, DV>(c);
+  }
+  return launch_instance<D, PV8, MASK_GENERAL, DV>(c);
 }
 
 template <int D, int MASK>
@@ -1090,8 +1105,9 @@ int launch_k3q(const Call& c) {
   CUtensorMap qmap = {}, kmap = {}, vmap = {};
   if (c.kv_end > 0) {  // with no key in sight the block loads nothing
     const bool ok =
-        make_qk_map(&qmap, c.q, D, c.Sq, c.H, c.B, c.qss, c.qsh, c.qsb) &&
-        make_qk_map(&kmap, c.k, D, c.Skv, c.H, c.B, c.kss, c.ksh, c.ksb) &&
+        make_qk_map(&qmap, c.q, D, D, c.Sq, c.H, c.B, c.qss, c.qsh, c.qsb) &&
+        make_qk_map(&kmap, c.k, D, D, c.Skv, c.H, c.B, c.kss, c.ksh,
+                    c.ksb) &&
         make_v_map(&vmap, c.v, D, c.Skv, c.H, c.B, c.vss, c.vsh, c.vsb);
     if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1166,6 +1182,9 @@ extern "C" int k4_flash_attention_int8(
   if (D == 64) return launch_kind<64, false>(c, mask_kind);
   if (D == 128 && pv_int8) return launch_kind<128, true>(c, mask_kind);
   if (D == 128) return launch_kind<128, false>(c, mask_kind);
+  // a head of 80 in the D = 128 layout
+  if (D == 80 && pv_int8) return launch_kind<128, true, 80>(c, mask_kind);
+  if (D == 80) return launch_kind<128, false, 80>(c, mask_kind);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

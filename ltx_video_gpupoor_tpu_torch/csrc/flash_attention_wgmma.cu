@@ -11,8 +11,8 @@
 // on the TPU needed a kernel of its own.
 //
 // K1 and K6 compute o = softmax(q k^T * scale) v, bf16 in and out, fp32
-// scores and sums, D in {64, 128}, any Sq and Skv, any strides with a unit
-// last stride (head-split views and slices of a fused q/k/v projection are
+// scores and sums, D in {64, 128} (and 80 for K1 and K3, CLIP ViT-H/14's
+// heads), any Sq and Skv, any strides with a unit last stride (head-split views and slices of a fused q/k/v projection are
 // read in place). Masks: a static kv_valid tail, segment ids (attend iff
 // q_seg == kv_seg and kv_seg > 0) and causal. A row that sees no key
 // returns exactly 0: the running max starts at M_FLOOR, a masked score
@@ -24,6 +24,13 @@
 // sum of p at D=128 and the sum of the bf16-rounded p at D=64, where the
 // TPU kernel reads it off a ones column of V (bounded_attention_plain in
 // ops/flash_attention.py is the contract).
+// A head of DV = 80 runs in the D = 128 layout: the tensor maps' inner
+// extent is 80, so TMA fills the panels' columns 80..127 with zeros (no
+// copy), Q.K^T and P.V see zero channels, and the epilogue stores 80
+// columns. Its denominator, in K1 too, is the sum of the bf16-rounded p
+// that the TPU kernel reads off its ones column at a head dim that is not
+// a 128 multiple (flash_attention.py:510-523). The scale is the caller's
+// (80^-0.5 by default).
 //
 // What bounds it on an H100: the tensor cores (4*B*H*Sq*Skv*D operations at
 // 989 TFLOP/s) and, at D=64, just as much the exponentials: one ex2 a score
@@ -76,8 +83,9 @@
 
 namespace {
 
-// BOUNDED: K3's softmax at the fixed offset bound_log2 (K1 and K6 ignore it)
-template <int D, int MASK, bool PRODUCER, bool BOUNDED>
+// BOUNDED: K3's softmax at the fixed offset bound_log2 (K1 and K6 ignore it);
+// DV: the head's values, D or (80, in the D = 128 layout) fewer
+template <int D, int MASK, bool PRODUCER, bool BOUNDED, int DV = D>
 __global__ void __launch_bounds__(PRODUCER ? 384 : 256, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
@@ -144,14 +152,16 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   if (n_tiles > 0) {
     const Tiles tl = {&qmap, &kmap, &vmap, q0, h, b, n_tiles, 0, 0,
                       scale_log2, bound_log2};
-    // K3 at D=64 sums the bf16-rounded p, as the TPU kernel's ones column
-    attend_tiles<D, MASK, PRODUCER, false, BOUNDED && D % 128 != 0, BOUNDED>(
+    // K3 at D=64 and every instance at DV=80 sum the bf16-rounded p, as
+    // the TPU kernel's ones column
+    constexpr bool ROUNDED = DV != D || (BOUNDED && D % 128 != 0);
+    attend_tiles<D, MASK, PRODUCER, false, ROUNDED, BOUNDED>(
         rg, tl, r, needs_mask, acc, m0, m1, l0, l1);
   }
 
   l0 = quad_sum(l0);
   l1 = quad_sum(l1);
-  store_rows<D>(acc, l0 > 0.f ? l0 : 1.f, l1 > 0.f ? l1 : 1.f,
+  store_rows<D, DV>(acc, l0 > 0.f ? l0 : 1.f, l1 > 0.f ? l1 : 1.f,
                 o + b * osb + h * osh, oss, r.row0, r.row1, Sq, t);
 }
 
@@ -168,17 +178,17 @@ struct Call {
   cudaStream_t stream;
 };
 
-template <int D, int MASK, bool PRODUCER, bool BOUNDED>
+template <int D, int MASK, bool PRODUCER, bool BOUNDED, int DV>
 int launch_layout(const Call& c) {
   CUtensorMap qmap = {}, kmap = {}, vmap = {};
   if (c.kv_end > 0) {  // with no key in sight the block loads nothing
-    if (!make_map(&qmap, c.q, D, c.Sq, c.H, c.B, c.qss, c.qsh, c.qsb) ||
-        !make_map(&kmap, c.k, D, c.Skv, c.H, c.B, c.kss, c.ksh, c.ksb) ||
-        !make_map(&vmap, c.v, D, c.Skv, c.H, c.B, c.vss, c.vsh, c.vsb)) {
+    if (!make_map(&qmap, c.q, DV, c.Sq, c.H, c.B, c.qss, c.qsh, c.qsb) ||
+        !make_map(&kmap, c.k, DV, c.Skv, c.H, c.B, c.kss, c.ksh, c.ksb) ||
+        !make_map(&vmap, c.v, DV, c.Skv, c.H, c.B, c.vss, c.vsh, c.vsb)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  auto kernel = flash_wgmma_kernel<D, MASK, PRODUCER, BOUNDED>;
+  auto kernel = flash_wgmma_kernel<D, MASK, PRODUCER, BOUNDED, DV>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       Cfg<D>::SMEM_BYTES);
@@ -191,14 +201,14 @@ int launch_layout(const Call& c) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, int MASK, bool BOUNDED>
+template <int D, int MASK, bool BOUNDED, int DV = D>
 int launch_instance(const Call& c) {
   if constexpr (D == 64) {
     if (c.kv_end > Cfg<D>::STAGES * BKV) {
-      return launch_layout<D, MASK, true, BOUNDED>(c);
+      return launch_layout<D, MASK, true, BOUNDED, DV>(c);
     }
   }
-  return launch_layout<D, MASK, false, BOUNDED>(c);
+  return launch_layout<D, MASK, false, BOUNDED, DV>(c);
 }
 
 // mask_kind is the caller's choice (ops/flash_attention.py::mask_kind); a
@@ -235,13 +245,23 @@ int launch(const Call& c, int D, int kv_valid, int mask_kind) {
     }
     return launch_instance<128, MASK_GENERAL, BOUNDED>(call);
   }
+  if (D == 80) {  // the D = 128 layout, 80 columns loaded and stored
+    if (mask_kind == MASK_NONE) {
+      return launch_instance<128, MASK_NONE, BOUNDED, 80>(call);
+    }
+    if (mask_kind == MASK_TAIL) {
+      return launch_instance<128, MASK_TAIL, BOUNDED, 80>(call);
+    }
+    return launch_instance<128, MASK_GENERAL, BOUNDED, 80>(call);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // K1: q, k, v and out [B, H, S, D] views with element strides (b, h, s) and a
-// unit last stride; kv_valid -1 = none; mask_kind 0 none, 1 tail, 2 general
+// unit last stride, D 64, 80 or 128; kv_valid -1 = none; mask_kind 0 none,
+// 1 tail, 2 general
 extern "C" int k1_flash_attention_bf16(
     const void* q, const void* k, const void* v, void* o,
     const void* q_seg, const void* kv_seg,
@@ -282,6 +302,9 @@ extern "C" int k6_flash_attention_hp_bf16(
     int B, int S, int Skv, int H, int D,
     int qsb, int qss, int ksb, int kss, int vsb, int vss, int osb, int oss,
     int kv_valid, int mask_kind, float scale_log2, void* stream) {
+  if (D != 64 && D != 128) {  // JAX's hp gate: d in (64, 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Call c = {q, k, v, o, nullptr, nullptr, B, H, S, Skv,
                   qsb, D, qss, ksb, D, kss, vsb, D, vss, osb, D, oss,
                   0, 0, scale_log2, 0.f, static_cast<cudaStream_t>(stream)};

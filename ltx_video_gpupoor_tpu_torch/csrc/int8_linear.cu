@@ -507,7 +507,7 @@ extern "C" int k2_quantize_rows(const void* x, int M, int K, int x_dtype,
 
 // The int8 attention tiers' quantize of Q or K: x [B, H, S, D] bf16 (x_dtype
 // 0) or fp32 (1) with element strides (sb, sh, ss) and a unit last one, 16-
-// byte aligned, D 64 or 128 -> codes xq [B, H, S, D] int8 (contiguous) and
+// byte aligned, D 64, 80 or 128 -> codes xq [B, H, S, D] int8 (contiguous) and
 // scales sx[(b H + h) scale_pitch + s] = max(amax, 1e-6) * c, fp32 (the
 // entries past S are left alone).
 extern "C" int k2_prologue_quantize(const void* x, int B, int H, int S, int D,
@@ -516,7 +516,7 @@ extern "C" int k2_prologue_quantize(const void* x, int B, int H, int S, int D,
                                     int scale_pitch, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0) return static_cast<int>(cudaGetLastError());
   const int esize = x_dtype == 0 ? 2 : 4;
-  if ((D != 64 && D != 128) || x_dtype < 0 || x_dtype > 1 ||
+  if ((D != 64 && D != 80 && D != 128) || x_dtype < 0 || x_dtype > 1 ||
       scale_pitch < S || reinterpret_cast<uintptr_t>(x) % 16 ||
       (sb * esize) % 16 || (sh * esize) % 16 || (ss * esize) % 16 ||
       reinterpret_cast<uintptr_t>(xq) % 16) {
@@ -537,7 +537,8 @@ extern "C" int k2_prologue_quantize(const void* x, int B, int H, int S, int D,
   a.xq = static_cast<int8_t*>(xq);
   a.sx = static_cast<float*>(sx);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // one slot a lane: a row is D / 16 lanes of a warp
+  // one slot a lane: a row is D / 16 lanes of a warp (8 lanes at D = 80,
+  // the last 3 idle)
   if (x_dtype == 0) {
     return D == 64 ? launch_rows<bf16, PROLOGUE, 4, 1, true>(a, st)
                    : launch_rows<bf16, PROLOGUE, 8, 1, true>(a, st);

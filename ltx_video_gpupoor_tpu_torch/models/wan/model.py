@@ -1,13 +1,17 @@
-"""Wan 2.1 diffusion transformer (WanModel), text-to-video.
+"""Wan 2.1 diffusion transformer (WanModel), text- and image-to-video.
 
 Port of ``ltx_video_gpupoor_tpu/models/wan/model.py``: ``WanConfig``,
-``WAN_T2V_1_3B``, ``WAN_T2V_14B`` (:48-98), ``sinusoidal_embedding_1d``,
-``patch_embed`` (Conv3d), ``unpatchify``, ``_mod``, ``_gate``,
-``_self_attention`` (full-dim q/k RMS norm, RoPE shared by the heads),
-``_cross_attention`` (segment ids from ``context_mask``), ``_ffn`` with
+``WAN_T2V_1_3B``, ``WAN_T2V_14B``, ``WAN_I2V_14B`` (:48-102),
+``sinusoidal_embedding_1d``, ``patch_embed`` (Conv3d), ``unpatchify``,
+``_mod``, ``_gate``, ``_self_attention`` (full-dim q/k RMS norm, RoPE
+shared by the heads), ``_cross_attention`` (segment ids from
+``context_mask``; i2v adds the attention to the CLIP tokens through
+``k_img`` / ``v_img`` / ``norm_k_img``, :361-375), ``_ffn`` with
 ``ffn_chunks``, ``block_forward`` with the SLG keep mask,
-``time_modulation``, ``embed_text`` and ``forward`` (:100-593) with
-``compute=True``.
+``time_modulation``, ``embed_text``, ``embed_clip`` (the i2v ``img_emb``
+MLP, :468) and ``forward`` (:480-593) with TeaCache's residual: each call
+returns ``out_tokens - in_tokens``, and ``compute=False`` skips the block
+stack and adds ``previous_residual`` instead.
 
 The parameter tree becomes modules whose attribute names are the JAX
 keys (``core/from_jax.py`` relies on that); the per-layer ``lax.scan``
@@ -18,8 +22,7 @@ in the policy's ``compute_dtype``; modulation and the timestep path stay
 fp32. The tokens live in ``[B, L, D]``, the latent video in JAX's
 channels-last ``[B, F, H, W, C]``.
 
-Not ported: i2v (CLIP context, ROADMAP queue 1 step 13), VACE, ReCamMaster,
-fps conditioning and the TeaCache skip (``compute=False``), which raise
+Not ported: VACE, ReCamMaster and fps conditioning, which raise
 ``NotImplementedError`` naming their ROADMAP entry.
 """
 
@@ -73,6 +76,10 @@ WAN_T2V_1_3B = WanConfig(
     model_type="t2v", dim=1536, ffn_dim=8960, num_heads=12, num_layers=30)
 WAN_T2V_14B = WanConfig(
     model_type="t2v", dim=5120, ffn_dim=13824, num_heads=40, num_layers=40)
+WAN_I2V_14B = WanConfig(
+    model_type="i2v", dim=5120, ffn_dim=13824, num_heads=40, num_layers=40,
+    in_dim=36)
+CLIP_DIM = 1280   # the CLIP ViT-H/14 features that i2v attends to
 
 _TO_PORT = "ROADMAP queue 1 step 13"
 
@@ -102,7 +109,7 @@ class _Weight(nn.Module):
 
 
 class _Attn(nn.Module):
-    def __init__(self, cfg: WanConfig, **kw):
+    def __init__(self, cfg: WanConfig, img: bool = False, **kw):
         super().__init__()
         d = cfg.dim
         self.q = Linear(d, d, **kw)
@@ -111,6 +118,10 @@ class _Attn(nn.Module):
         self.o = Linear(d, d, **kw)
         self.norm_q = _Weight(d, **kw)
         self.norm_k = _Weight(d, **kw)
+        if img:  # i2v: the keys and values of the CLIP tokens
+            self.k_img = Linear(d, d, **kw)
+            self.v_img = Linear(d, d, **kw)
+            self.norm_k_img = _Weight(d, **kw)
 
 
 class _MLP(nn.Module):
@@ -129,14 +140,14 @@ class Block(nn.Module):
             torch.empty(1, 6, d, device=kw.get("device"),
                         dtype=kw.get("dtype")), requires_grad=False)
         self.self_attn = _Attn(cfg, **kw)
-        self.cross_attn = _Attn(cfg, **kw)
+        self.cross_attn = _Attn(cfg, cfg.model_type == "i2v", **kw)
         self.ffn = _MLP(d, cfg.ffn_dim, d, **kw)
         self.norm3 = _Weight(d, True, **kw) if cfg.cross_attn_norm else None
 
     def forward(self, x, e0, freqs, context, context_mask, keep=None,
-                attn_mode="auto"):
+                attn_mode="auto", img_context=None):
         return block_forward(self, self.cfg, x, e0, freqs, context,
-                             context_mask, keep, attn_mode)
+                             context_mask, keep, attn_mode, img_context)
 
 
 class _Head(nn.Module):
@@ -159,16 +170,26 @@ class _PatchEmbed(nn.Module):
                                              dtype=dtype), requires_grad=False)
 
 
+class _ImgEmb(nn.Module):
+    """i2v's ``MLPProj``: CLIP features ``[B, 257, 1280]`` -> ``[B, 257,
+    D]``."""
+
+    def __init__(self, cfg: WanConfig, **kw):
+        super().__init__()
+        self.norm_in = _Weight(CLIP_DIM, True, **kw)
+        self.fc1 = Linear(CLIP_DIM, CLIP_DIM, **kw)
+        self.fc2 = Linear(CLIP_DIM, cfg.dim, **kw)
+        self.norm_out = _Weight(cfg.dim, True, **kw)
+
+
 class WanModel(nn.Module):
     """The denoiser; :meth:`forward` returns ``(velocity, residual)``."""
 
     def __init__(self, cfg: WanConfig, policy: DtypePolicy = DEFAULT_POLICY,
                  *, device=None):
         super().__init__()
-        if cfg.model_type != "t2v":
-            raise NotImplementedError(
-                f"Wan {cfg.model_type}: only t2v is ported; i2v (CLIP "
-                f"context) is {_TO_PORT}")
+        if cfg.model_type not in ("t2v", "i2v"):
+            raise ValueError(f"Wan model_type {cfg.model_type!r}")
         for flag in ("vace_layers", "recammaster", "inject_sample_info"):
             if getattr(cfg, flag):
                 raise NotImplementedError(f"WanConfig.{flag}: {_TO_PORT}")
@@ -183,6 +204,8 @@ class WanModel(nn.Module):
         self.blocks = nn.ModuleList(Block(cfg, **kw)
                                     for _ in range(cfg.num_layers))
         self.head = _Head(cfg, **kw)
+        if cfg.model_type == "i2v":
+            self.img_emb = _ImgEmb(cfg, **kw)
 
     def forward(
         self,
@@ -200,18 +223,17 @@ class WanModel(nn.Module):
         compute: bool = True,
         attn_mode: str = "auto",
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        for name, val in (("clip_features (i2v)", clip_features),
-                          ("vace_context", vace_context),
+        for name, val in (("vace_context", vace_context),
                           ("cam_emb (ReCamMaster)", cam_emb),
-                          ("fps_idx", fps_idx),
-                          ("previous_residual (TeaCache)", previous_residual)):
+                          ("fps_idx", fps_idx)):
             if val is not None:
                 raise NotImplementedError(f"Wan forward {name}: {_TO_PORT}")
-        if compute is not True:
-            raise NotImplementedError(
-                f"Wan forward compute=False (the TeaCache skip): {_TO_PORT}")
+        if not compute and previous_residual is None:
+            raise ValueError("compute=False reuses previous_residual; none "
+                             "was given")
         return forward(self, x, t, context, context_mask, freqs, slg_keep,
-                       attn_mode)
+                       attn_mode, clip_features, previous_residual,
+                       bool(compute))
 
 
 def patch_embed(p: _PatchEmbed, cfg: WanConfig, video: torch.Tensor
@@ -273,26 +295,39 @@ def _self_attention(p: _Attn, cfg: WanConfig, x, freqs, attn_mode):
 
 
 def _cross_attention(p: _Attn, cfg: WanConfig, x, context, context_mask,
-                     attn_mode):
+                     attn_mode, img_context=None):
     b, s, d = x.shape
     n, hd = cfg.num_heads, cfg.head_dim
     q = p.q(x)
     if cfg.qk_norm:
         q = rms_norm(q, p.norm_q.weight, eps=cfg.eps)
+    qh = q.reshape(b, s, n, hd).transpose(1, 2)
     k = p.k(context)
     if cfg.qk_norm:
         k = rms_norm(k, p.norm_k.weight, eps=cfg.eps)
     v = p.v(context)
     sc = context.shape[1]
+    sb = cfg.attention_score_bound if cfg.qk_norm else None
     out = attention(
-        q.reshape(b, s, n, hd).transpose(1, 2),
+        qh,
         k.reshape(b, sc, n, hd).transpose(1, 2),
         v.reshape(b, sc, n, hd).transpose(1, 2),
         torch.ones(b, s, dtype=torch.int32, device=x.device),
         context_mask.to(torch.int32),
         mode=attn_mode,
-        score_bound=cfg.attention_score_bound if cfg.qk_norm else None,
+        score_bound=sb,
     )
+    if img_context is not None:
+        # i2v: the CLIP tokens, every one in sight (no mask)
+        k_img = rms_norm(p.k_img(img_context), p.norm_k_img.weight,
+                         eps=cfg.eps)
+        v_img = p.v_img(img_context)
+        si = img_context.shape[1]
+        out = out + attention(
+            qh,
+            k_img.reshape(b, si, n, hd).transpose(1, 2),
+            v_img.reshape(b, si, n, hd).transpose(1, 2),
+            mode=attn_mode, score_bound=sb)
     return p.o(out.transpose(1, 2).reshape(b, s, d))
 
 
@@ -313,9 +348,10 @@ def _ffn(cfg: WanConfig, p: _MLP, x):
 
 
 def block_forward(p: Block, cfg: WanConfig, x, e0, freqs, context,
-                  context_mask, keep=None, attn_mode="auto"):
+                  context_mask, keep=None, attn_mode="auto", img_context=None):
     """One block; ``e0 [B, G, 6, D]`` fp32, ``keep [B]`` (1 = run the
-    block, 0 = skip it, SLG) or None."""
+    block, 0 = skip it, SLG) or None; ``img_context [B, 257, D]`` (i2v)
+    or None."""
     e = p.modulation.float()[:, None] + e0           # [B, G, 6, D]
     e = [e[:, :, i].to(x.dtype) for i in range(6)]
     original = x
@@ -326,7 +362,7 @@ def block_forward(p: Block, cfg: WanConfig, x, e0, freqs, context,
     else:
         h = x
     x = x + _cross_attention(p.cross_attn, cfg, h, context, context_mask,
-                             attn_mode)
+                             attn_mode, img_context)
     h = _mod(layer_norm(x, eps=cfg.eps), e[3], e[4])
     x = _gate(x, _ffn(cfg, p.ffn, h), e[5])
     if keep is not None:
@@ -357,10 +393,24 @@ def embed_text(model: WanModel, cfg: WanConfig,
     return te.fc2(F.gelu(te.fc1(text_embeds), approximate="tanh"))
 
 
+def embed_clip(model: WanModel, clip_features: torch.Tensor) -> torch.Tensor:
+    """i2v's ``img_emb``: CLIP features ``[B, 257, 1280]`` -> ``[B, 257,
+    D]`` (layer norms at eps 1e-5, the exact GELU)."""
+    p = model.img_emb
+    h = layer_norm(clip_features, p.norm_in.weight, p.norm_in.bias, eps=1e-5)
+    h = p.fc2(F.gelu(p.fc1(h), approximate="none"))
+    return layer_norm(h, p.norm_out.weight, p.norm_out.bias, eps=1e-5)
+
+
 def forward(model: WanModel, x, t, context, context_mask, freqs,
-            slg_keep=None, attn_mode="auto"):
+            slg_keep=None, attn_mode="auto", clip_features=None,
+            previous_residual=None, compute=True):
     """One denoiser evaluation: (velocity ``[B, F, H, W, C_out]``, the
-    token-space residual ``out_tokens - in_tokens``)."""
+    token-space residual ``out_tokens - in_tokens``). ``clip_features``
+    (i2v; ignored by a t2v model, as in JAX): ``[B, 257, 1280]``. With
+    ``compute=False`` the block stack is skipped: the output tokens are
+    the input tokens plus ``previous_residual``, which is returned as the
+    residual (TeaCache)."""
     cfg = model.cfg
     dev = x.device
     tokens, grid = patch_embed(model.patch_embedding, cfg,
@@ -373,18 +423,27 @@ def forward(model: WanModel, x, t, context, context_mask, freqs,
     freqs = (cos.to(dev), sin.to(dev))
     t = torch.as_tensor(t, dtype=torch.float32, device=dev)
     e, e0 = time_modulation(model, cfg, t)
-    ctx = embed_text(model, cfg, context.to(device=dev, dtype=tokens.dtype))
-    cmask = context_mask.to(device=dev, dtype=torch.int32).contiguous()
-    if slg_keep is not None:
-        slg_keep = torch.as_tensor(slg_keep).cpu()
-    out = tokens
-    for i, blk in enumerate(model.blocks):
-        keep = None
-        # a layer whose streams all run needs no blend (x*1 + y*0 == x)
-        if slg_keep is not None and bool((slg_keep[i] != 1).any()):
-            keep = slg_keep[i].to(dev)
-        out = blk(out, e0, freqs, ctx, cmask, keep, attn_mode)
-    residual = out - tokens
+    if not compute:
+        residual = previous_residual.to(device=dev, dtype=tokens.dtype)
+        out = tokens + residual
+    else:
+        ctx = embed_text(model, cfg,
+                         context.to(device=dev, dtype=tokens.dtype))
+        cmask = context_mask.to(device=dev, dtype=torch.int32).contiguous()
+        img_ctx = None
+        if clip_features is not None and hasattr(model, "img_emb"):
+            img_ctx = embed_clip(model, clip_features.to(
+                device=dev, dtype=tokens.dtype))
+        if slg_keep is not None:
+            slg_keep = torch.as_tensor(slg_keep).cpu()
+        out = tokens
+        for i, blk in enumerate(model.blocks):
+            keep = None
+            # a layer whose streams all run needs no blend (x*1 + y*0 == x)
+            if slg_keep is not None and bool((slg_keep[i] != 1).any()):
+                keep = slg_keep[i].to(dev)
+            out = blk(out, e0, freqs, ctx, cmask, keep, attn_mode, img_ctx)
+        residual = out - tokens
 
     # the head runs in fp32 whatever the policy: guidance multiplies the
     # difference of two velocities by guide_scale, and with it their

@@ -1,20 +1,33 @@
-"""Wan 2.1 causal 3-D VAE: the decoder.
+"""Wan 2.1 causal 3-D VAE: the decoder and the encoder.
 
 Port of ``ltx_video_gpupoor_tpu/models/wan/vae.py``: ``WanVAEConfig`` and
 the latent statistics (:38-59), ``causal_conv3d``, ``conv2d_framewise``,
-``wan_rms_norm`` (:66-118), the residual and attention blocks and the
-spatial and time upsamples (:121-187), ``_decoder_structure`` (:259),
-``_run_blocks`` (:340), ``decode`` (:398-425), ``get_vae_tile_size`` and
-``spatial_tiled_decode`` (:435-510). Every CausalConv3d is a zero pad of
-``2*(kt//2)`` frames in front and a same pad in space; the decoder's time
-upsample passes frame 0 through and turns each later frame into two.
+``wan_rms_norm`` (:66-118), the residual and attention blocks, the spatial
+and time downsamples and upsamples (:121-187), ``_encoder_structure``
+(:238), ``_decoder_structure`` (:259), ``_run_blocks`` (:340),
+``_encode_raw`` and ``encode`` with ``any_end_frame`` (:359-395),
+``decode`` (:398-425), ``get_vae_tile_size``, ``spatial_tiled_decode``
+(:435-510) and ``spatial_tiled_encode`` (:561). Every CausalConv3d is a
+zero pad of ``2*(kt//2)`` frames in front and a same pad in space; the
+decoder's time upsample passes frame 0 through and turns each later frame
+into two; the encoder's time downsample passes frame 0 through and takes
+frames ``2j - 2 .. 2j`` into frame j.
+
+The encoder runs the whole clip, as JAX does, but a few frames at a time
+inside each stride-1 layer (:data:`ENCODE_CHUNK_FRAMES`): a causal conv's
+output frames ``t0 .. t1`` read input frames ``t0 - 2 .. t1`` (zeros
+before the first), and the norms, SiLU and the per-frame attention act on
+each frame alone, so the chunks compute the same function while the
+temporaries stay a chunk's size (an 832x480x81 clip's first activation is
+6 GB in bf16; the norm's fp32 temporaries of the whole clip would be
+four times that).
 
 The public functions keep JAX's channels-last ``[B, F, H, W, C]``; inside,
 activations are torch's ``[B, C, F, H, W]`` and run in the policy's
 ``compute_dtype``. The convolutions are cuDNN's (``F.conv3d``; the 2-D
 framewise ones as 3-D with a time kernel of 1), the attention block a
-plain fp32 einsum as in JAX. The encoder belongs to i2v (ROADMAP queue 1
-step 13).
+plain fp32 einsum as in JAX. :class:`WanVAEDecoder` holds the decoder
+half, :class:`WanVAE` both (i2v encodes its conditioning frames).
 """
 
 from __future__ import annotations
@@ -44,6 +57,9 @@ class WanVAEConfig:
     def temperal_upsample(self) -> tuple:
         return tuple(reversed(self.temperal_downsample))
 
+
+# output frames a stride-1 encoder layer computes at a time
+ENCODE_CHUNK_FRAMES = 4
 
 WAN_LATENT_MEAN = np.array([
     -0.7571, -0.7089, -0.9113, 0.1075, -0.1745, 0.9653, -0.1517, 1.5508,
@@ -104,6 +120,36 @@ class Upsample3d(nn.Module):
         self.time_conv = Conv(cin, 2 * cin, (3, 1, 1), **kw)
 
 
+class Downsample3d(nn.Module):
+    def __init__(self, cin, cout, **kw):
+        super().__init__()
+        self.resample = Conv(cin, cout, (3, 3), **kw)
+        self.time_conv = Conv(cout, cout, (3, 1, 1), **kw)
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: WanVAEConfig, **kw):
+        super().__init__()
+        structure, enc_out = _encoder_structure(cfg)
+        self.conv1 = Conv(3, cfg.dim, (3, 3, 3), **kw)
+        blocks = []
+        for kind, cin, cout, _ in structure:
+            if kind == "res":
+                blocks.append(ResBlock(cin, cout, **kw))
+            elif kind == "attn":
+                blocks.append(AttnBlock(cin, **kw))
+            elif kind == "downsample2d":
+                blocks.append(Conv(cin, cout, (3, 3), **kw))
+            elif kind == "downsample3d":
+                blocks.append(Downsample3d(cin, cout, **kw))
+        self.downsamples = nn.ModuleList(blocks)
+        self.middle = nn.ModuleList([ResBlock(enc_out, enc_out, **kw),
+                                     AttnBlock(enc_out, **kw),
+                                     ResBlock(enc_out, enc_out, **kw)])
+        self.head_norm = RMSNorm(enc_out, **kw)
+        self.head_conv = Conv(enc_out, 2 * cfg.z_dim, (3, 3, 3), **kw)
+
+
 class Decoder(nn.Module):
     def __init__(self, cfg: WanVAEConfig, **kw):
         super().__init__()
@@ -141,6 +187,18 @@ class WanVAEDecoder(nn.Module):
         self.decoder = Decoder(cfg, **kw)
 
 
+class WanVAE(WanVAEDecoder):
+    """The whole VAE: the decoder half and the encoder (``encoder`` and
+    the posterior's ``conv1``)."""
+
+    def __init__(self, cfg: WanVAEConfig, policy: DtypePolicy = DEFAULT_POLICY,
+                 *, device=None):
+        super().__init__(cfg, policy, device=device)
+        kw = dict(device=device, dtype=policy.param_dtype)
+        self.encoder = Encoder(cfg, **kw)
+        self.conv1 = Conv(2 * cfg.z_dim, 2 * cfg.z_dim, (1, 1, 1), **kw)
+
+
 # ---------------------------------------------------------------------------
 # Primitives, on [B, C, F, H, W]
 # ---------------------------------------------------------------------------
@@ -172,15 +230,71 @@ def wan_rms_norm(p: RMSNorm, x: torch.Tensor) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def _residual_block(p: ResBlock, x):
-    h = causal_conv3d(p.conv1, F.silu(wan_rms_norm(p.norm1, x)))
-    h = causal_conv3d(p.conv2, F.silu(wan_rms_norm(p.norm2, h)))
-    sc = causal_conv3d(p.shortcut, x) if p.shortcut is not None else x
-    return sc + h
+def _framewise(fn, x, chunk):
+    """``fn(x)`` for an ``fn`` that acts on each frame alone, ``chunk``
+    frames at a time (None: at once)."""
+    f = x.shape[2]
+    if chunk is None or f <= chunk:
+        return fn(x)
+    out = None
+    for t0 in range(0, f, chunk):
+        y = fn(x[:, :, t0:t0 + chunk])
+        if out is None:
+            out = y.new_empty(y.shape[:2] + (f,) + y.shape[3:])
+        out[:, :, t0:t0 + y.shape[2]] = y
+    return out
 
 
-def _attention_block(p: AttnBlock, x):
-    """Single-head spatial attention within each frame, fp32 einsum."""
+def _causal_chunked(p: Conv, x, chunk, fn=None):
+    """``causal_conv3d(p, fn(x))`` (``fn`` per frame, or none), ``chunk``
+    output frames at a time: each chunk reads the ``2*(kt//2)`` input
+    frames before it (zeros before the first), as the whole-clip conv
+    does."""
+    kt = p.weight.shape[2]
+    front = 2 * (kt // 2)
+    f = x.shape[2]
+    if chunk is None or f <= chunk:
+        return causal_conv3d(p, fn(x) if fn is not None else x)
+    out = None
+    for t0 in range(0, f, chunk):
+        t1 = min(t0 + chunk, f)
+        lo = max(0, t0 - front)
+        xin = x[:, :, lo:t1]
+        if fn is not None:
+            xin = fn(xin)
+        pad = front - (t0 - lo)        # zero frames still owed in front
+        kh, kw = p.weight.shape[3:]
+        xin = F.pad(xin, (kw // 2, kw // 2, kh // 2, kh // 2, pad, 0))
+        y = F.conv3d(xin, p.weight.to(xin.dtype))
+        y = y + p.bias.to(y.dtype)[:, None, None, None]
+        if out is None:
+            out = y.new_empty(y.shape[:2] + (f,) + y.shape[3:])
+        out[:, :, t0:t1] = y
+    return out
+
+
+def _residual_block(p: ResBlock, x, chunk=None):
+    """The residual block; ``chunk`` frames at a time in each layer where
+    given."""
+    if chunk is None:
+        h = causal_conv3d(p.conv1, F.silu(wan_rms_norm(p.norm1, x)))
+        h = causal_conv3d(p.conv2, F.silu(wan_rms_norm(p.norm2, h)))
+        sc = causal_conv3d(p.shortcut, x) if p.shortcut is not None else x
+        return sc + h
+    h = _causal_chunked(p.conv1, x, chunk,
+                        lambda t: F.silu(wan_rms_norm(p.norm1, t)))
+    h = _causal_chunked(p.conv2, h, chunk,
+                        lambda t: F.silu(wan_rms_norm(p.norm2, t)))
+    sc = _causal_chunked(p.shortcut, x, chunk) if p.shortcut is not None \
+        else x
+    return h.add_(sc)
+
+
+def _attention_block(p: AttnBlock, x, chunk=None):
+    """Single-head spatial attention within each frame, fp32 einsum
+    (``chunk`` frames at a time where given)."""
+    if chunk is not None:
+        return _framewise(lambda t: _attention_block(p, t), x, chunk)
     b, c, f, h, w = x.shape
     identity = x
     qkv = conv2d_framewise(p.to_qkv, wan_rms_norm(p.norm, x))
@@ -190,6 +304,24 @@ def _attention_block(p: AttnBlock, x):
     out = torch.einsum("bij,bjc->bic", torch.softmax(scores, dim=-1), v)
     out = out.to(x.dtype).reshape(b, f, h, w, c).permute(0, 4, 1, 2, 3)
     return conv2d_framewise(p.proj, out) + identity
+
+
+def _downsample_spatial(p: Conv, x):
+    """A zero row and column at the bottom and right, then a stride-2 3x3
+    conv on each frame."""
+    y = F.conv3d(F.pad(x, (0, 1, 0, 1)), p.weight.to(x.dtype)[:, :, None],
+                 stride=(1, 2, 2))
+    return y + p.bias.to(y.dtype)[:, None, None, None]
+
+
+def _downsample_time(p: Conv, x):
+    """Frame 0 passes; frame j >= 1 is the stride-2 kernel-3 window over
+    frames ``2j - 2 .. 2j``."""
+    if x.shape[2] == 1:
+        return x
+    y = F.conv3d(x, p.weight.to(x.dtype), stride=(2, 1, 1))
+    y = y + p.bias.to(y.dtype)[:, None, None, None]
+    return torch.cat([x[:, :, :1], y], dim=2)
 
 
 def _upsample_spatial(p: Conv, x):
@@ -207,6 +339,27 @@ def _upsample_time(p: Conv, x):
     y = causal_conv3d(p, x[:, :, 1:])                     # [B, 2C, F-1, H, W]
     y = y.reshape(b, 2, c, f - 1, h, w).permute(0, 2, 3, 1, 4, 5)
     return torch.cat([x[:, :, :1], y.reshape(b, c, 2 * (f - 1), h, w)], dim=2)
+
+
+def _encoder_structure(cfg: WanVAEConfig):
+    """(kind, cin, cout, extra) descriptors in forward order, and the
+    encoder's output width."""
+    dims = [cfg.dim * u for u in (1,) + tuple(cfg.dim_mult)]
+    out = []
+    scale = 1.0
+    for i, (cin, cout) in enumerate(zip(dims[:-1], dims[1:])):
+        cur = cin
+        for _ in range(cfg.num_res_blocks):
+            out.append(("res", cur, cout, None))
+            if scale in cfg.attn_scales:
+                out.append(("attn", cout, cout, None))
+            cur = cout
+        if i != len(cfg.dim_mult) - 1:
+            mode = ("downsample3d" if cfg.temperal_downsample[i]
+                    else "downsample2d")
+            out.append((mode, cout, cout, None))
+            scale /= 2.0
+    return out, dims[-1]
 
 
 def _decoder_structure(cfg: WanVAEConfig):
@@ -228,12 +381,18 @@ def _decoder_structure(cfg: WanVAEConfig):
     return out, dims[0]
 
 
-def _run_blocks(structure, blocks, x):
+def _run_blocks(structure, blocks, x, chunk=None):
     for (kind, _, _, _), p in zip(structure, blocks):
         if kind == "res":
-            x = _residual_block(p, x)
+            x = _residual_block(p, x, chunk)
         elif kind == "attn":
-            x = _attention_block(p, x)
+            x = _attention_block(p, x, chunk)
+        elif kind == "downsample2d":
+            x = _framewise(lambda t: _downsample_spatial(p, t), x, chunk)
+        elif kind == "downsample3d":
+            x = _framewise(lambda t: _downsample_spatial(p.resample, t), x,
+                           chunk)
+            x = _downsample_time(p.time_conv, x)
         elif kind == "upsample2d":
             x = _upsample_spatial(p, x)
         elif kind == "upsample3d":
@@ -246,6 +405,43 @@ def _latent_stats(cfg: WanVAEConfig, z: torch.Tensor):
     mean = torch.from_numpy(WAN_LATENT_MEAN[: cfg.z_dim]).to(z.device, z.dtype)
     std = torch.from_numpy(WAN_LATENT_STD[: cfg.z_dim]).to(z.device, z.dtype)
     return mean, std
+
+
+def _encode_raw(vae: WanVAE, x: torch.Tensor, chunk) -> torch.Tensor:
+    """``[B, 3, F, H, W]`` -> the posterior's ``[B, 2z, F', H/8, W/8]``
+    before ``conv1``."""
+    enc = vae.encoder
+    x = _causal_chunked(enc.conv1, x, chunk)
+    structure, _ = _encoder_structure(vae.cfg)
+    x = _run_blocks(structure, enc.downsamples, x, chunk)
+    for i, p in enumerate(enc.middle):
+        x = _attention_block(p, x, chunk) if i == 1 \
+            else _residual_block(p, x, chunk)
+    return _causal_chunked(enc.head_conv, x, chunk,
+                           lambda t: F.silu(wan_rms_norm(enc.head_norm, t)))
+
+
+def encode(vae: WanVAE, video: torch.Tensor, normalize: bool = True,
+           any_end_frame: bool = False,
+           chunk: int | None = ENCODE_CHUNK_FRAMES) -> torch.Tensor:
+    """video ``[B, F, H, W, 3]`` in [-1, 1] -> the posterior mean ``[B,
+    F', H/8, W/8, z]`` (normalized by the latent statistics unless
+    ``normalize=False``), in the policy's compute dtype. F is 4k+1 (4k+2
+    with ``any_end_frame``, whose last frame is encoded alone, from a
+    fresh causal state, and appended). ``chunk``: the frames a stride-1
+    layer computes at a time (None: the whole clip at once); the result
+    is the same function either way."""
+    x = video.to(vae.compute_dtype).permute(0, 4, 1, 2, 3)
+    if any_end_frame:
+        x = torch.cat([_encode_raw(vae, x[:, :, :-1], chunk),
+                       _encode_raw(vae, x[:, :, -1:], chunk)], dim=2)
+    else:
+        x = _encode_raw(vae, x, chunk)
+    mu = causal_conv3d(vae.conv1, x)[:, :vae.cfg.z_dim].permute(0, 2, 3, 4, 1)
+    if normalize:
+        mean, std = _latent_stats(vae.cfg, mu)
+        mu = (mu - mean) / std
+    return mu
 
 
 def decode(vae: WanVAEDecoder, z: torch.Tensor, normalized: bool = True,
@@ -321,6 +517,44 @@ def spatial_tiled_decode(vae: WanVAEDecoder, z: torch.Tensor,
             out_row.append(tile[:, :, :row_limit, :row_limit])
         result_rows.append(torch.cat(out_row, dim=3))
     return torch.clamp(torch.cat(result_rows, dim=2), -1.0, 1.0)
+
+
+def spatial_tiled_encode(vae: WanVAE, video: torch.Tensor,
+                         tile_size: int = 256, normalize: bool = True,
+                         any_end_frame: bool = False) -> torch.Tensor:
+    """Tiled :func:`encode` with a 25% overlap crossfade of the latent
+    tiles (a different function from :func:`encode`: each tile sees only
+    its own pixels)."""
+    cfg = vae.cfg
+    sf = 2 ** (len(cfg.dim_mult) - 1)
+    lat_tile = tile_size // sf
+    overlap = int(tile_size * 0.75)
+    blend_extent = int(lat_tile * 0.25)
+    row_limit = lat_tile - blend_extent
+    h, w = video.shape[2], video.shape[3]
+    if h <= tile_size and w <= tile_size:
+        return encode(vae, video, normalize, any_end_frame)
+    rows = []
+    for i in range(0, h, overlap):
+        rows.append([encode(vae, video[:, :, i:i + tile_size,
+                                       j:j + tile_size], False, any_end_frame)
+                     for j in range(0, w, overlap)])
+    result_rows = []
+    for i, row in enumerate(rows):
+        out_row = []
+        for j, tile in enumerate(row):
+            if i > 0:
+                tile = blend(rows[i - 1][j], tile, blend_extent, axis=2)
+            if j > 0:
+                tile = blend(row[j - 1], tile, blend_extent, axis=3)
+            row[j] = tile
+            out_row.append(tile[:, :, :row_limit, :row_limit])
+        result_rows.append(torch.cat(out_row, dim=3))
+    mu = torch.cat(result_rows, dim=2)
+    if normalize:
+        mean, std = _latent_stats(cfg, mu)
+        mu = (mu - mean) / std
+    return mu
 
 
 @torch.no_grad()

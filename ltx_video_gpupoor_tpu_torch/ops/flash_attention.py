@@ -235,6 +235,13 @@ def _check_layout(kernel: str, name: str, t: torch.Tensor, dtype, device):
         raise ValueError(f"{name} strides must fit the kernel's int32")
 
 
+# the head dims each card kernel takes: K1, K3 and K4 run a head of 80
+# (CLIP ViT-H/14) in their D=128 layout; K3q and K1f at 80 are ROADMAP
+# queue 3 F7
+HEAD_DIMS = {"K1": (64, 80, 128), "K3": (64, 80, 128), "K4": (64, 80, 128),
+             "K3q": (64, 128), "K1f": (64, 128)}
+
+
 def _check_cuda_operands(q, k, v, q_seg, kv_seg, kernel="K1",
                          dtype=torch.bfloat16):
     b, h, sq, d = q.shape
@@ -244,8 +251,10 @@ def _check_cuda_operands(q, k, v, q_seg, kv_seg, kernel="K1",
             or k.shape[3] != d:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if d not in (64, 128):
-        raise ValueError(f"{kernel} takes head dims 64 and 128, got {d}")
+    if d not in HEAD_DIMS[kernel]:
+        raise ValueError(f"{kernel} takes head dims {HEAD_DIMS[kernel]}, "
+                         f"got {d}"
+                         + (" (ROADMAP queue 3 F7)" if d == 80 else ""))
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_layout(kernel, name, t, dtype, q.device)
     if q_seg is not None:
@@ -275,7 +284,7 @@ def flash_attention(
 
     CPU tensors take :func:`reference_attention` (or
     :func:`bounded_attention_plain`); CUDA tensors launch K1 (K3 with a
-    bound; bf16, D in {64, 128}; both run the block instance that
+    bound; bf16, D in {64, 80, 128}; both run the block instance that
     :func:`mask_kind` names), K1f for fp32 operands, or raise. The output has q's dtype and, on
     the card, q's memory layout. K1 launches count in ``launches``, K3's
     in ``bounded_launches``."""
@@ -295,7 +304,8 @@ def flash_attention(
                                     scale=scale, causal=causal,
                                     kv_valid=kv_valid,
                                     score_bound=score_bound)
-    _check_cuda_operands(q, k, v, q_segment_ids, kv_segment_ids)
+    _check_cuda_operands(q, k, v, q_segment_ids, kv_segment_ids,
+                         "K1" if score_bound is None else "K3")
     from . import _lib
 
     b, h, sq, d = q.shape
@@ -967,8 +977,8 @@ def flash_attention_int8(
     raises (in the plain version or the launch), as in JAX.
 
     CPU tensors take :func:`int8_attention_plain`; CUDA tensors (bf16,
-    D in {64, 128}) launch K4 (K3q), fp32 ones K1f's int8 variants on the
-    same prologue operands, or raise. The output has q's dtype
+    D in {64, 80, 128}; K3q: 64, 128) launch K4 (K3q), fp32 ones K1f's
+    int8 variants on the same prologue operands, or raise. The output has q's dtype
     and, on the card, q's memory layout."""
     _check_seg_pair(q_segment_ids, kv_segment_ids)
     fp32 = q.dtype == torch.float32

@@ -68,7 +68,7 @@ def supports(p_linears, s: int, g: int) -> bool:
     if (s // g) % 16:
         return False
     for p in p_linears:
-        if not p.quantized or p.w_int8_dyn.dim() != 2:
+        if p.mode != "dynamic" or p.w_int8_dyn.dim() != 2:
             return False
     has_bias = [p.bias is not None for p in p_linears]
     return all(has_bias) or not any(has_bias)

@@ -1,18 +1,23 @@
-"""Wan 2.1 text-to-video pipeline.
+"""Wan 2.1 text-to-video and image-to-video pipelines.
 
-Port of ``ltx_video_gpupoor_tpu/pipelines/wan.py`` (:53-63, :98-505),
-t2v only: ``optimized_scale`` (CFG-Zero-star), ``WanPipeline`` with
-``latent_shape``, ``_solve_schedule`` (UniPC, Euler), ``_vae_decode``
-(spatially tiled at ``vae_tile_size=256`` as in JAX), ``denoise`` (its
-``lax.scan`` is a host loop here) in its 1- and 2-stream branches with
-the SLG layer-skip window, and ``generate_t2v`` with ``noise=`` injection.
+Port of ``ltx_video_gpupoor_tpu/pipelines/wan.py``:
+``TEACACHE_COEFFICIENTS`` (:41), ``optimized_scale`` (CFG-Zero-star),
+``teacache_skip_schedule`` (:65, on ``pipelines/teacache.py``'s
+``calibrate_mask``), ``WanPipeline`` with ``latent_shape``,
+``_solve_schedule`` (UniPC, DPM++, Euler), ``_vae_decode`` (spatially
+tiled at ``vae_tile_size=256`` as in JAX), ``denoise`` (its ``lax.scan``
+is a host loop here) in its 1- and 2-stream branches with the SLG
+layer-skip window, TeaCache's precomputed skip mask and i2v's CLIP
+features and conditioning channels, ``generate_t2v`` (with TeaCache),
+``prepare_i2v_conditioning`` (:507) and ``generate_i2v`` (:537), both
+entry points with ``noise=`` injection.
 
 Guidance streams are batch rows: (cond, uncond) in one forward. The
 initial noise, unless ``noise=`` is given, comes from an explicit
-``torch.Generator``. Not ported (each raises ``NotImplementedError``
-naming its ROADMAP entry): the DPM++ solver, i2v, Phantom, ReCamMaster
-source latents, VACE, the sliding-window overlap, TeaCache and the
-sequence-parallel mesh.
+``torch.Generator``. A skipped TeaCache step runs no block and reuses the
+last computed residual. Not ported (each raises ``NotImplementedError``
+naming its ROADMAP entry): Phantom, ReCamMaster source latents, VACE, the
+sliding-window overlap and the sequence-parallel mesh.
 """
 
 from __future__ import annotations
@@ -23,12 +28,27 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..models.wan import model as wan_model
 from ..models.wan import vae as wan_vae
 from ..models.wan.model import WanModel
 from ..ops.rope import wan_rope_freqs
-from ..schedulers import flowmatch, unipc
+from ..schedulers import dpm, flowmatch, unipc
+from . import teacache
 
 _STEP13 = "ROADMAP queue 1 step 13"
+
+# The published TeaCache polynomial coefficients of the Wan 2.1 family
+# (JAX :41-52).
+TEACACHE_COEFFICIENTS = {
+    "t2v_1.3B": [2.39676752e03, -1.31110545e03, 2.01331979e02,
+                 -8.29855975e00, 1.37887774e-01],
+    "t2v_14B": [-5784.54975374, 5449.50911966, -1811.16591783,
+                256.27178429, -13.02252404],
+    "i2v_480p": [-3.02331670e02, 2.23948934e02, -5.25463970e01,
+                 5.87348440e00, -2.01973289e-01],
+    "i2v_720p": [-114.36346466, 65.26524496, -18.82220707,
+                 4.91518089, -0.23412683],
+}
 
 
 def optimized_scale(positive: torch.Tensor,
@@ -39,15 +59,38 @@ def optimized_scale(positive: torch.Tensor,
     return dot / sq
 
 
+@torch.no_grad()
+def teacache_skip_schedule(model: WanModel, timesteps, coefficients,
+                           multiplier: float, start_step: int = 0
+                           ) -> np.ndarray:
+    """The boolean compute mask of the steps: the time embedding of each
+    timestep (through the model's own ``time_embedding``, in its tier)
+    into ``teacache.calibrate_mask``, which computes about ``len /
+    multiplier`` steps."""
+    dev = next(model.parameters()).device
+    t = torch.as_tensor(np.asarray(timesteps, np.float32), device=dev)
+    emb = wan_model.sinusoidal_embedding_1d(model.cfg.freq_dim, t)
+    te = model.time_embedding
+    e = te.fc2(torch.nn.functional.silu(te.fc1(emb)))
+    return teacache.calibrate_mask(e.float().cpu().numpy(), multiplier,
+                                   coefficients, start_step)
+
+
 @dataclasses.dataclass
 class WanPipeline:
     model: WanModel
+    # a WanVAE (with its encoder) for i2v, the decoder half for t2v
     vae: wan_vae.WanVAEDecoder
     vae_stride: tuple = (4, 8, 8)
     num_train_timesteps: int = 1000
     # pixel tile size for the VAE decode; 0 = untiled
     vae_tile_size: int = 256
     sp_mesh: object = None
+    # the encoders a loader found (serving/model_zoo.py::load_wan_model):
+    # the pipeline takes UMT5 embeddings and CLIP features, which callers
+    # compute with models/t5.py::encode and models/wan/clip.py::visual
+    t5: object = None
+    clip: object = None
 
     def _vae_decode(self, latents: torch.Tensor) -> torch.Tensor:
         if self.vae_tile_size:
@@ -60,7 +103,8 @@ class WanPipeline:
         if solver == "unipc":
             return unipc.unipc_sigmas(steps, shift=shift)
         if solver == "dpm++":
-            raise NotImplementedError(f"solver 'dpm++': {_STEP13}")
+            return dpm.dpm_sigmas_from_custom(
+                dpm.get_sampling_sigmas(steps, shift))
         if solver == "euler":
             sched = flowmatch.make_flowmatch_schedule(steps, shift=shift)
             return torch.cat([sched.sigmas, torch.zeros(1)])
@@ -87,38 +131,35 @@ class WanPipeline:
         slg_start: float = 0.0,
         slg_end: float = 1.0,
         enable_riflex: bool = False,
-        clip_features=None,
-        y=None,
+        clip_features: Optional[torch.Tensor] = None,   # [1, 257, 1280]
+        y: Optional[torch.Tensor] = None,     # i2v cond [1, F', H', W', 20]
         ref_latents=None,
         ref_latents_neg=None,
         source_latents=None,
         cam_emb=None,
         vace_context=None,
         vace_scale: float = 1.0,
-        teacache_mask=None,
+        teacache_mask: Optional[np.ndarray] = None,    # [steps] bool
         attn_mode: str = "auto",
         overlapped_latents=None,
         overlap_noise: float = 0.0,
     ) -> torch.Tensor:
-        """The sampling loop; returns the latents in their dtype (fp32)."""
+        """The sampling loop; returns the latents in their dtype (fp32).
+        ``teacache_mask[i]`` False skips step i's block stack (the last
+        computed residual is reused); the first step must compute."""
         cfg = self.model.cfg
-        for name, val in (("clip_features (i2v)", clip_features),
-                          ("y (i2v)", y),
-                          ("ref_latents (Phantom)", ref_latents),
+        for name, val in (("ref_latents (Phantom)", ref_latents),
                           ("ref_latents_neg (Phantom)", ref_latents_neg),
                           ("source_latents (ReCamMaster)", source_latents),
                           ("cam_emb (ReCamMaster)", cam_emb),
                           ("vace_context", vace_context),
-                          ("teacache_mask", teacache_mask),
                           ("overlapped_latents", overlapped_latents)):
             if val is not None:
                 raise NotImplementedError(f"Wan denoise {name}: {_STEP13}")
         if self.sp_mesh is not None:
             raise NotImplementedError(
                 "the sequence-parallel mesh is ROADMAP queue 1 step 15")
-        if solver == "dpm++":
-            raise NotImplementedError(f"solver 'dpm++': {_STEP13}")
-        if solver not in ("unipc", "euler"):
+        if solver not in ("unipc", "dpm++", "euler"):
             raise ValueError(f"unsupported solver {solver!r}")
         dev = next(self.model.parameters()).device
         num_steps = sigmas.shape[0] - 1
@@ -141,18 +182,35 @@ class WanPipeline:
                     keep_steps[i, layer, 1:] = 0.0
         keep_steps = torch.from_numpy(keep_steps)
 
+        tc_mask = (np.ones(num_steps, bool) if teacache_mask is None
+                   else np.asarray(teacache_mask, bool))
+        if not tc_mask[0]:
+            raise ValueError("teacache_mask: the first step must compute")
+
         context = context.to(dev)
         context_mask = context_mask.to(dev)
         if num_streams == 1:
             context, context_mask = context[0:1], context_mask[0:1]
+        clip = None
+        if clip_features is not None:
+            clip = torch.cat([clip_features.to(dev)] * num_streams)
+        ys = None
+        if y is not None:
+            ys = torch.cat([y.to(dev, torch.float32)] * num_streams)
         x = latents.to(dev)
-        state = (unipc.unipc_init(x.shape, device=dev)
-                 if solver == "unipc" else None)
+        state = (unipc.unipc_init(x.shape, device=dev) if solver == "unipc"
+                 else dpm.dpm_init(x.shape, device=dev)
+                 if solver == "dpm++" else None)
+        residual = None
         for i in range(num_steps):
             t = (sigmas[i] * self.num_train_timesteps).expand(num_streams)
             xs = torch.cat([x] * num_streams) if num_streams > 1 else x
-            out, _ = self.model(xs, t, context, context_mask, freqs,
-                                slg_keep=keep_steps[i], attn_mode=attn_mode)
+            if ys is not None:
+                xs = torch.cat([xs, ys], dim=-1)
+            out, residual = self.model(
+                xs, t, context, context_mask, freqs, clip_features=clip,
+                slg_keep=keep_steps[i], previous_residual=residual,
+                compute=bool(tc_mask[i]), attn_mode=attn_mode)
             out = out[:, :latents.shape[1]].float()
             if num_streams == 2:
                 cond, uncond = out[0:1], out[1:2]
@@ -166,6 +224,9 @@ class WanPipeline:
             if solver == "unipc":
                 state, x = unipc.unipc_step(state, noise_pred, x, i, sigmas,
                                             num_steps)
+            elif solver == "dpm++":
+                state, x = dpm.dpm_step(state, noise_pred, x, i, sigmas,
+                                        num_steps)
             else:
                 x = (x.float() + (sigmas[i + 1] - sigmas[i]) * noise_pred
                      ).to(x.dtype)
@@ -186,6 +247,7 @@ class WanPipeline:
         enable_riflex: bool = False,
         output_type: str = "latent",
         teacache_multiplier: float = 0.0,
+        teacache_model: str = "t2v_14B",
         return_latent_slice=None,
         noise: Optional[torch.Tensor] = None,
         on_stage=None,
@@ -193,31 +255,120 @@ class WanPipeline:
     ) -> torch.Tensor:
         """Text-to-video: latents ``[1, F', H', W', z]`` (``output_type
         ="latent"``) or the decoded video ``[1, F, H, W, 3]`` in [-1, 1].
+        ``teacache_multiplier > 0`` skips steps by TeaCache's schedule
+        with ``TEACACHE_COEFFICIENTS[teacache_model]``.
         ``on_stage(name, tensor)``, if given, is called as each stage
         starts: ``"denoise"`` with the noise, ``"decode"`` with the
         latents."""
-        if teacache_multiplier > 0:
-            raise NotImplementedError(f"TeaCache: {_STEP13}")
         if return_latent_slice is not None:
             raise NotImplementedError(
                 f"return_latent_slice (sliding window): {_STEP13}")
+        noise = self._noise(noise, generator, height, width, frame_num)
+        sigmas = self._solve_schedule(solver, sampling_steps, shift)
+        tc_mask = None
+        if teacache_multiplier > 0:
+            tc_mask = teacache_skip_schedule(
+                self.model, sigmas[:-1].numpy() * self.num_train_timesteps,
+                TEACACHE_COEFFICIENTS[teacache_model], teacache_multiplier)
+        if on_stage is not None:
+            on_stage("denoise", noise)
+        latents = self.denoise(
+            noise, context, context_mask, sigmas, guide_scale=guide_scale,
+            solver=solver, enable_riflex=enable_riflex, teacache_mask=tc_mask,
+            **denoise_kwargs)
+        return self._output(latents, output_type, on_stage)
+
+    def _noise(self, noise, generator, height, width, frame_num):
+        """The initial latents, fp32 on the model's device: ``noise`` or a
+        draw from ``generator``."""
         dev = next(self.model.parameters()).device
-        f_lat, h_lat, w_lat = self.latent_shape(height, width, frame_num)
         if noise is None:
+            f_lat, h_lat, w_lat = self.latent_shape(height, width, frame_num)
             noise = torch.randn((1, f_lat, h_lat, w_lat, self.vae.cfg.z_dim),
                                 generator=generator, dtype=torch.float32,
                                 device=dev if generator is None
                                 else generator.device)
-        sigmas = self._solve_schedule(solver, sampling_steps, shift)
-        if on_stage is not None:
-            on_stage("denoise", noise)
-        latents = self.denoise(
-            noise.to(device=dev, dtype=torch.float32), context, context_mask,
-            sigmas, guide_scale=guide_scale, solver=solver,
-            enable_riflex=enable_riflex, **denoise_kwargs)
+        return noise.to(device=dev, dtype=torch.float32)
+
+    def _output(self, latents, output_type, on_stage):
         if output_type == "latent":
             return latents
         if on_stage is not None:
             on_stage("decode", latents)
         with torch.no_grad():
             return self._vae_decode(latents)
+
+    @torch.no_grad()
+    def prepare_i2v_conditioning(
+        self,
+        first_frame: torch.Tensor,        # [H, W, 3] in [-1, 1]
+        height: int,
+        width: int,
+        frame_num: int,
+        last_frame: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """The i2v ``y`` ``[1, F', H', W', 4 + z]``: the frame mask (1 on
+        the given frames, each latent frame's 4 pixel frames as 4
+        channels; the first pixel frame repeated 4 times) and the VAE
+        latents of [first, zeros..., (last)], encoded as one clip (JAX
+        encodes it untiled; :func:`~..models.wan.vae.encode` runs it a few
+        frames at a time inside each layer, the same function)."""
+        if not hasattr(self.vae, "encoder"):
+            raise ValueError("i2v conditioning needs a VAE with its encoder "
+                             "(models/wan/vae.py::WanVAE)")
+        f_lat, h_lat, w_lat = self.latent_shape(height, width, frame_num)
+        ts = self.vae_stride[0]
+        msk = np.ones((frame_num, h_lat, w_lat, 1), np.float32)
+        msk[1:] = 0.0
+        if last_frame is not None:
+            msk[-1] = 1.0
+        msk = np.concatenate([np.repeat(msk[:1], ts, axis=0), msk[1:]], 0)
+        msk = msk.reshape(msk.shape[0] // ts, ts, h_lat, w_lat, 1)
+        msk = np.transpose(msk, (0, 4, 2, 3, 1))[:, 0]   # [F', H', W', ts]
+        dev = next(self.model.parameters()).device
+        video = torch.zeros(1, frame_num, height, width, 3, device=dev)
+        video[0, 0] = first_frame.to(dev)
+        if last_frame is not None:
+            video[0, -1] = last_frame.to(dev)
+        lat = wan_vae.encode(self.vae, video).float()
+        del video
+        return torch.cat([torch.from_numpy(msk)[None].to(dev), lat], dim=-1)
+
+    def generate_i2v(
+        self,
+        context: torch.Tensor,
+        context_mask: torch.Tensor,
+        clip_features: torch.Tensor,      # [1, 257, 1280]
+        first_frame: torch.Tensor,        # [H, W, 3] in [-1, 1]
+        width: int = 832,
+        height: int = 480,
+        frame_num: int = 81,
+        sampling_steps: int = 40,
+        shift: float = 5.0,
+        solver: str = "unipc",
+        guide_scale: float = 5.0,
+        generator: Optional[torch.Generator] = None,
+        last_frame: Optional[torch.Tensor] = None,
+        output_type: str = "latent",
+        noise: Optional[torch.Tensor] = None,
+        on_stage=None,
+        **denoise_kwargs,
+    ) -> torch.Tensor:
+        """Image-to-video: the first frame (and optionally the last)
+        conditions the latents through ``y`` and the CLIP features through
+        the DiT's image cross-attention. Returns as ``generate_t2v``;
+        ``on_stage`` also sees ``"encode"`` (with the first frame) before
+        the VAE encode."""
+        noise = self._noise(noise, generator, height, width, frame_num)
+        if on_stage is not None:
+            on_stage("encode", first_frame)
+        y = self.prepare_i2v_conditioning(first_frame, height, width,
+                                          frame_num, last_frame)
+        sigmas = self._solve_schedule(solver, sampling_steps, shift)
+        if on_stage is not None:
+            on_stage("denoise", noise)
+        latents = self.denoise(
+            noise, context, context_mask, sigmas, guide_scale=guide_scale,
+            solver=solver, clip_features=clip_features, y=y,
+            **denoise_kwargs)
+        return self._output(latents, output_type, on_stage)

@@ -9,8 +9,9 @@ and ``main``. Without ``--demo`` the LTX stack is loaded from the files in
 skips steps, ``--save-quantized`` writes the transformer as a quanto int8
 file into ``--ckpt-dir``, and the frames go to the native h264 writer as
 planar YUV420 where it builds. What needs a module not ported yet raises
-``NotImplementedError`` naming its ROADMAP step: ``--enhance-prompt`` and
-the ``--int8-mode`` values other than ``dynamic``.
+``NotImplementedError`` naming its ROADMAP step: ``--enhance-prompt``.
+``--quantize-transformer`` quantizes in the tier ``--int8-mode`` names
+(``dynamic``, ``wo``, ``wo_int4`` or ``mixed_int4``).
 
     python3 -m ltx_video_gpupoor_tpu_torch.serving.cli --demo \\
         --prompt "a red fox" --height 256 --width 256 --video-length 9
@@ -79,9 +80,10 @@ def parse_args(argv=None):
     p.add_argument(
         "--int8-mode", choices=("dynamic", "wo", "wo_int4", "mixed_int4"),
         default="dynamic",
-        help="quantized runtime: dynamic-activation int8 (ported), int8 "
+        help="quantized runtime: dynamic-activation int8, int8 "
         "weight-only dequant, nibble-packed int4 weight-only, or "
-        "mixed_int4 (ROADMAP queue 1 step 12)",
+        "mixed_int4 (int4, and int8 weight-only where the output is "
+        "sensitive)",
     )
     p.add_argument("--mixed-precision-transformer", action="store_true")
     p.add_argument("--save-quantized", action="store_true")
@@ -146,9 +148,6 @@ def infer(args) -> str:
     if args.enhance_prompt:
         _not_ported("--enhance-prompt (prompt enhancers)",
                     "ROADMAP queue 1 step 14")
-    if args.quantize_transformer and args.int8_mode != "dynamic":
-        _not_ported(f"--int8-mode {args.int8_mode}",
-                    "ROADMAP queue 1 step 12")
 
     if args.demo:
         model = model_zoo.build_demo_model(args.seed, device=args.device)
@@ -180,7 +179,7 @@ def infer(args) -> str:
     if args.quantize_transformer:
         from ..ops.quant import quantize_params
 
-        quantize_params(pipe.transformer, mode="dynamic")
+        quantize_params(pipe.transformer, mode=args.int8_mode)
     if args.VAE_tile_size is not None:
         # 0 disables tiling entirely; otherwise hw tile pixels (+ z tiling)
         pipe.vae_tile_size = (

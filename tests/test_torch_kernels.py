@@ -1158,21 +1158,35 @@ def test_linear_tiers_dispatch():
                            mode="dynamic")["l"], jnp.asarray(x))
     np.testing.assert_allclose(lin(torch.from_numpy(x)).numpy(),
                                np.asarray(ref), atol=INT8_TOL, rtol=INT8_TOL)
-    with pytest.raises(NotImplementedError, match="step 12"):
-        tq.quantize_params(tq.Linear(16, 16), mode="wo")
+    wo = tq.Linear(64, 32)
+    wo.weight.data.copy_(torch.from_numpy(w.T.copy()))
+    wo.bias.data.copy_(torch.from_numpy(b))
+    tq.quantize_params(wo, mode="wo")
+    assert wo.mode == "wo" and not hasattr(wo, "weight")
+    ref = jq.maybe_quantized_matmul(
+        jq.quantize_params({"l": {"kernel": jnp.asarray(w),
+                                  "bias": jnp.asarray(b)}},
+                           mode="wo")["l"], jnp.asarray(x))
+    np.testing.assert_allclose(wo(torch.from_numpy(x)).numpy(),
+                               np.asarray(ref), atol=1e-5, rtol=1e-5)
 
 
 def test_quantize_params_defaults_to_jax_mode():
-    """The default mode is JAX's weight-only ``"wo"``, which is not ported:
-    a call without ``mode`` raises and leaves the model dense instead of
-    quietly quantizing another tier."""
+    """The default mode is JAX's weight-only ``"wo"``: a call without
+    ``mode`` stores the int8 codes and scales JAX's default stores (its
+    ``[in, out]`` codes transposed)."""
     default = inspect.signature(tq.quantize_params).parameters["mode"].default
     assert default == inspect.signature(
         jq.quantize_params).parameters["mode"].default == "wo"
+    w = np.random.default_rng(7).standard_normal((16, 16)).astype(np.float32)
     lin = tq.Linear(16, 16)
-    with pytest.raises(NotImplementedError, match="mode='wo'.*step 12"):
-        tq.quantize_params(lin)
-    assert not lin.quantized and hasattr(lin, "weight")
+    lin.weight.data.copy_(torch.from_numpy(w.T.copy()))
+    tq.quantize_params(lin)
+    ref = jq.quantize_params({"l": {"kernel": jnp.asarray(w)}})["l"]
+    assert lin.mode == "wo" and not hasattr(lin, "weight")
+    np.testing.assert_array_equal(lin.w_int8.numpy(),
+                                  np.asarray(ref["w_int8"]).T)
+    np.testing.assert_array_equal(lin.scale.numpy(), np.asarray(ref["scale"]))
 
 
 def test_k2_rejects_bad_operands():

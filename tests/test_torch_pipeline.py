@@ -100,10 +100,12 @@ def weights():
 
 def _run(weights, tier, output_type, policy=FP32_POLICY):
     """The JAX package in fp32 against the port under ``policy`` (the T5
-    weights in its ``param_dtype``, as on the card)."""
+    weights in its ``param_dtype``, as on the card); ``tier`` is
+    ``"fp32"``, ``"int8_dynamic"`` or a ``quantize_params`` mode."""
     tf_p, vcfg, vae_p, t5_p, ids, mask = weights
-    if tier == "int8_dynamic":
-        tf_p = jq.quantize_params(tf_p, mode="dynamic")
+    mode = {"fp32": None, "int8_dynamic": "dynamic"}.get(tier, tier)
+    if mode is not None:
+        tf_p = jq.quantize_params(tf_p, mode=mode)
 
     # JAX package
     emb = jt5.encode(t5_p, jt5.T5Config(**T5_KW), jnp.asarray(ids),
@@ -123,8 +125,8 @@ def _run(weights, tier, output_type, policy=FP32_POLICY):
     t5.load_state_dict(from_jax.state_dict(_np_tree(t5_p)))
     temb = tt5.encode(t5, torch.from_numpy(ids), torch.from_numpy(mask))
     model = ttf.LTXTransformer3D(ttf.LTXTransformerConfig(**TF_KW), policy)
-    if tier == "int8_dynamic":
-        quantize_params(model, mode="dynamic")
+    if mode is not None:
+        quantize_params(model, mode=mode)
     model.load_state_dict(from_jax.state_dict(_np_tree(tf_p)))
     vae = tvae.CausalVAEDecoder(tvae.VAEConfig.from_dict(VAE_DICT), policy)
     vae.load_state_dict(from_jax.vae_decoder_state_dict(_np_tree(vae_p)))

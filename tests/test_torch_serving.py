@@ -280,16 +280,20 @@ def test_parse_args_equal_jax_flag_for_flag():
 
 def test_cli_raises_for_what_is_not_ported(tmp_path):
     """What still waits for its module raises naming its ROADMAP step;
-    ``--teacache``, ``--save-quantized`` and a run without ``--demo`` are
-    ported (tests/test_torch_teacache.py, tests/test_torch_checkpoint.py):
-    on an empty checkpoint directory the loader names the missing file."""
+    ``--teacache``, ``--save-quantized``, a run without ``--demo`` and the
+    weight-only ``--int8-mode`` tiers are ported
+    (tests/test_torch_teacache.py, tests/test_torch_checkpoint.py,
+    tests/test_torch_quant_tiers.py): on an empty checkpoint directory the
+    loader names the missing file, and ``--int8-mode wo`` parses to the
+    mode JAX's CLI hands ``quantize_params``."""
     base = ["--prompt", "x", "--device", "cpu"]
-    for extra, what in ((["--demo", "--enhance-prompt"], "enhance-prompt"),
-                        (["--demo", "--quantize-transformer", "--int8-mode",
-                          "wo"], "int8-mode wo")):
+    for extra, what in ((["--demo", "--enhance-prompt"], "enhance-prompt"),):
         with pytest.raises(NotImplementedError, match="ROADMAP") as e:
             tcli.main(base + extra)
         assert what in str(e.value)
+    argv = base + ["--demo", "--quantize-transformer", "--int8-mode", "wo"]
+    assert tcli.parse_args(argv).int8_mode == \
+        jcli.parse_args(argv).int8_mode == "wo"
     with pytest.raises(FileNotFoundError, match="13B_dev_quanto"):
         tcli.main(base + ["--ckpt-dir", str(tmp_path)])
 
