@@ -526,24 +526,26 @@ WGMMA_KERNELS = ("flash_wgmma_kernel", "int8_gemm_wgmma_kernel",
 # sources built them before K3 and K3q joined K1's and K4's kernels (ptxas
 # on the H100's host; the same with the flag), by kernel and mangled
 # template arguments; K1/K6's instances carry the BOUNDED flag (false)
-# since then, K4's lost it again when K3q took a kernel of its own.
+# since then, K4's lost it again when K3q took a kernel of its own; both
+# gained DV, the head's values (D for these; 80 for CLIP's heads in the D=128
+# layout, PR 12), as their last argument.
 # phase_build prints each instance beside its entry here (the redesigned
 # K3q and K2 row-kernel instances at the end): an edit of
 # attention_block.cuh or hopper.cuh that moves one shows as MOVED.
 # (Printed, not asserted: another nvcc would move them all.)
 PARENT_REGISTERS = {
-    "flash_int8_wgmma_kernel<Li128ELb0ELi0E>": 214,
-    "flash_int8_wgmma_kernel<Li128ELb0ELi1E>": 214,
-    "flash_int8_wgmma_kernel<Li128ELb0ELi2E>": 203,
-    "flash_int8_wgmma_kernel<Li128ELb1ELi0E>": 233,
-    "flash_int8_wgmma_kernel<Li128ELb1ELi1E>": 232,
-    "flash_int8_wgmma_kernel<Li128ELb1ELi2E>": 255,
-    "flash_int8_wgmma_kernel<Li64ELb0ELi0E>": 173,
-    "flash_int8_wgmma_kernel<Li64ELb0ELi1E>": 175,
-    "flash_int8_wgmma_kernel<Li64ELb0ELi2E>": 163,
-    "flash_int8_wgmma_kernel<Li64ELb1ELi0E>": 168,
-    "flash_int8_wgmma_kernel<Li64ELb1ELi1E>": 168,
-    "flash_int8_wgmma_kernel<Li64ELb1ELi2E>": 215,
+    "flash_int8_wgmma_kernel<Li128ELb0ELi0ELi128E>": 214,
+    "flash_int8_wgmma_kernel<Li128ELb0ELi1ELi128E>": 214,
+    "flash_int8_wgmma_kernel<Li128ELb0ELi2ELi128E>": 203,
+    "flash_int8_wgmma_kernel<Li128ELb1ELi0ELi128E>": 233,
+    "flash_int8_wgmma_kernel<Li128ELb1ELi1ELi128E>": 232,
+    "flash_int8_wgmma_kernel<Li128ELb1ELi2ELi128E>": 255,
+    "flash_int8_wgmma_kernel<Li64ELb0ELi0ELi64E>": 173,
+    "flash_int8_wgmma_kernel<Li64ELb0ELi1ELi64E>": 175,
+    "flash_int8_wgmma_kernel<Li64ELb0ELi2ELi64E>": 163,
+    "flash_int8_wgmma_kernel<Li64ELb1ELi0ELi64E>": 168,
+    "flash_int8_wgmma_kernel<Li64ELb1ELi1ELi64E>": 168,
+    "flash_int8_wgmma_kernel<Li64ELb1ELi2ELi64E>": 215,
     "flash_pipelined_kernel<Li128ELi128E>": 158,
     "flash_pipelined_kernel<Li128ELi16E>": 78,
     "flash_pipelined_kernel<Li128ELi32E>": 94,
@@ -551,15 +553,15 @@ PARENT_REGISTERS = {
     "flash_pipelined_kernel<Li64ELi16E>": 78,
     "flash_pipelined_kernel<Li64ELi32E>": 94,
     "flash_pipelined_kernel<Li64ELi64E>": 167,
-    "flash_wgmma_kernel<Li128ELi0ELb0ELb0E>": 186,
-    "flash_wgmma_kernel<Li128ELi1ELb0ELb0E>": 195,
-    "flash_wgmma_kernel<Li128ELi2ELb0ELb0E>": 186,
-    "flash_wgmma_kernel<Li64ELi0ELb0ELb0E>": 154,
-    "flash_wgmma_kernel<Li64ELi0ELb1ELb0E>": 160,
-    "flash_wgmma_kernel<Li64ELi1ELb0ELb0E>": 154,
-    "flash_wgmma_kernel<Li64ELi1ELb1ELb0E>": 160,
-    "flash_wgmma_kernel<Li64ELi2ELb0ELb0E>": 154,
-    "flash_wgmma_kernel<Li64ELi2ELb1ELb0E>": 168,
+    "flash_wgmma_kernel<Li128ELi0ELb0ELb0ELi128E>": 186,
+    "flash_wgmma_kernel<Li128ELi1ELb0ELb0ELi128E>": 195,
+    "flash_wgmma_kernel<Li128ELi2ELb0ELb0ELi128E>": 186,
+    "flash_wgmma_kernel<Li64ELi0ELb0ELb0ELi64E>": 154,
+    "flash_wgmma_kernel<Li64ELi0ELb1ELb0ELi64E>": 160,
+    "flash_wgmma_kernel<Li64ELi1ELb0ELb0ELi64E>": 154,
+    "flash_wgmma_kernel<Li64ELi1ELb1ELb0ELi64E>": 160,
+    "flash_wgmma_kernel<Li64ELi2ELb0ELb0ELi64E>": 154,
+    "flash_wgmma_kernel<Li64ELi2ELb1ELb0ELi64E>": 168,
     "int8_gemm_wgmma_kernel<Li0E>": 154,
     "int8_gemm_wgmma_kernel<Li1E>": 154,
     "int8_gemm_wgmma_kernel<Li2E>": 154,
@@ -3708,14 +3710,15 @@ def phase_wan():
 # --------------------------------------------------------------------------
 
 # kernel name fragment -> group, first match wins
-# K3 and K3q are the instances of K1's and K4's kernels whose last template
-# argument (BOUNDED) is true: "...flash_wgmma_kernel<128, 0, false, true>"
+# K3 is the instance of K1's kernel whose fourth template argument (BOUNDED)
+# is true: "...flash_wgmma_kernel<128, 0, false, true, 128>" (the fifth is
+# the head's values, DV)
 BOUNDED_GROUPS = [
     # K2's row kernel on the attention prologue's contract (template
     # argument CONTRACT = 1; K5's row kernel shares the name's tail)
     (re.compile(r"(?<!norm_mod_)quantize_rows_kernel<[^,]*, 1,"),
      "int8 attention prologue (K2's row kernel)"),
-    (re.compile(r"flash_wgmma_kernel<[^>]*\btrue>"),
+    (re.compile(r"flash_wgmma_kernel<[^,>]*, [^,>]*, [^,>]*, true\b"),
      "K3 bounded-score flash attention"),
     (re.compile(r"k3q_wgmma_kernel"),
      "K3q int8-QK bounded-score flash attention"),

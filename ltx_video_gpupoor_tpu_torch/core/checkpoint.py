@@ -5,7 +5,9 @@ Port of ``ltx_video_gpupoor_tpu/core/checkpoint.py``: ``load_safetensors``
 / ``save_safetensors`` (:34, :52), ``save_quantized_model`` (:67),
 ``dequantize_quanto`` (:112), ``convert_ltx_transformer`` (:169),
 ``_apply_vae_renames`` + ``convert_ltx_vae`` (:281-289) and
-``convert_t5_encoder`` (:861). The on-disk conventions are the
+``convert_wan_vae`` (:603), ``convert_wan_model`` (:697),
+``convert_clip_vision`` (:808) and ``convert_t5_encoder`` (:861). The
+on-disk conventions are the
 reference's: one safetensors file with a JSON ``config`` entry in its
 metadata; the diffusers key renames; the quanto int8 variant
 ``*_quanto_{bf16,fp16}_int8.safetensors`` whose weights ship as
@@ -29,8 +31,8 @@ Differences from the JAX module:
   file dequantized wholesale to fp32 would take about 52 GB of host
   memory.
 
-The Wan, Wan-VAE, CLIP and legacy-VAE converters come with their models
-(ROADMAP queue 1 steps 13 and 14) and raise until then.
+The legacy-VAE converter comes with its model (ROADMAP queue 1 step 14)
+and raises until then.
 """
 
 from __future__ import annotations
@@ -702,6 +704,193 @@ def convert_t5_encoder(sd: dict[str, torch.Tensor], num_layers: int,
 
 
 # ---------------------------------------------------------------------------
+# Wan VAE, Wan DiT, CLIP vision tower
+# ---------------------------------------------------------------------------
+
+def convert_wan_vae(sd: dict[str, torch.Tensor], cfg,
+                    dtype: torch.dtype = torch.float32
+                    ) -> dict[str, torch.Tensor]:
+    """A Wan VAE state dict in the reference's naming
+    (``encoder.downsamples.N.residual.{0,2,3,6}``, ``resample.1``,
+    ``time_conv``, ``middle.{0,1,2}``, ``head.{0,2}``) -> the
+    ``state_dict`` of ``models/wan/vae.WanVAE`` (convs in ``dtype``, the
+    norms' gammas flat fp32, as JAX's converter keeps them)."""
+    from ..models.wan.vae import _decoder_structure, _encoder_structure
+
+    def conv(prefix):
+        p = {"kernel": _cast(sd[prefix + ".weight"], dtype)}
+        if prefix + ".bias" in sd:
+            p["bias"] = _cast(sd[prefix + ".bias"], dtype)
+        return p
+
+    def norm(prefix):
+        p = {"gamma": _cast(sd[prefix + ".gamma"].reshape(-1), torch.float32)}
+        if prefix + ".bias" in sd:
+            p["bias"] = _cast(sd[prefix + ".bias"].reshape(-1), torch.float32)
+        return p
+
+    def res(prefix):
+        p = {"norm1": norm(prefix + ".residual.0"),
+             "conv1": conv(prefix + ".residual.2"),
+             "norm2": norm(prefix + ".residual.3"),
+             "conv2": conv(prefix + ".residual.6")}
+        if prefix + ".shortcut.weight" in sd:
+            p["shortcut"] = conv(prefix + ".shortcut")
+        return p
+
+    def attn(prefix):
+        return {"norm": norm(prefix + ".norm"),
+                "to_qkv": conv(prefix + ".to_qkv"),
+                "proj": conv(prefix + ".proj")}
+
+    def stage_blocks(structure, prefix):
+        blocks = []
+        for i, (kind, _, _, _) in enumerate(structure):
+            pre = f"{prefix}.{i}"
+            if kind == "res":
+                blocks.append(res(pre))
+            elif kind == "attn":
+                blocks.append(attn(pre))
+            elif kind in ("downsample2d", "upsample2d"):
+                blocks.append(conv(pre + ".resample.1"))
+            else:  # *sample3d
+                blocks.append({"resample": conv(pre + ".resample.1"),
+                               "time_conv": conv(pre + ".time_conv")})
+        return blocks
+
+    enc_struct, _ = _encoder_structure(cfg)
+    dec_struct, _ = _decoder_structure(cfg)
+    return _flatten({
+        "encoder": {
+            "conv1": conv("encoder.conv1"),
+            "downsamples": stage_blocks(enc_struct, "encoder.downsamples"),
+            "middle": [res("encoder.middle.0"), attn("encoder.middle.1"),
+                       res("encoder.middle.2")],
+            "head_norm": norm("encoder.head.0"),
+            "head_conv": conv("encoder.head.2"),
+        },
+        "conv1": conv("conv1"),
+        "conv2": conv("conv2"),
+        "decoder": {
+            "conv1": conv("decoder.conv1"),
+            "middle": [res("decoder.middle.0"), attn("decoder.middle.1"),
+                       res("decoder.middle.2")],
+            "upsamples": stage_blocks(dec_struct, "decoder.upsamples"),
+            "head_norm": norm("decoder.head.0"),
+            "head_conv": conv("decoder.head.2"),
+        },
+    })
+
+
+def convert_wan_model(sd: dict[str, torch.Tensor], cfg,
+                      dtype: torch.dtype = torch.bfloat16
+                      ) -> dict[str, torch.Tensor]:
+    """A Wan state dict in the reference's naming (``blocks.N.self_attn.q``,
+    ``ffn.0`` / ``ffn.2``, ``modulation``, the ``patch_embedding`` Conv3d,
+    i2v's ``cross_attn.k_img`` / ``v_img`` / ``norm_k_img`` and
+    ``img_emb.proj.{0,1,3,4}``) -> the ``state_dict`` of
+    ``models/wan/model.WanModel``: the blocks' and the text and image
+    embeddings' linears in ``dtype``, the time path, the head, the norms,
+    the modulation tables and the patch conv in fp32, as JAX's converter
+    keeps them. The weights of branches the port does not run yet (VACE,
+    ReCamMaster, fps) are left out."""
+    def lin(prefix, d=dtype):
+        p = {"kernel": _cast(sd[prefix + ".weight"], d)}
+        if prefix + ".bias" in sd:
+            p["bias"] = _cast(sd[prefix + ".bias"], d)
+        return p
+
+    def norm_w(prefix, bias=False):
+        p = {"weight": _cast(sd[prefix + ".weight"], torch.float32)}
+        if bias and prefix + ".bias" in sd:
+            p["bias"] = _cast(sd[prefix + ".bias"], torch.float32)
+        return p
+
+    def attn(prefix, img=False):
+        p = {"q": lin(prefix + ".q"), "k": lin(prefix + ".k"),
+             "v": lin(prefix + ".v"), "o": lin(prefix + ".o"),
+             "norm_q": norm_w(prefix + ".norm_q"),
+             "norm_k": norm_w(prefix + ".norm_k")}
+        if img and prefix + ".k_img.weight" in sd:
+            p["k_img"] = lin(prefix + ".k_img")
+            p["v_img"] = lin(prefix + ".v_img")
+            p["norm_k_img"] = norm_w(prefix + ".norm_k_img")
+        return p
+
+    def block(prefix):
+        p = {"modulation": _cast(sd[prefix + ".modulation"], torch.float32),
+             "self_attn": attn(prefix + ".self_attn"),
+             "cross_attn": attn(prefix + ".cross_attn", img=True),
+             "ffn": {"fc1": lin(prefix + ".ffn.0"),
+                     "fc2": lin(prefix + ".ffn.2")}}
+        if prefix + ".norm3.weight" in sd:
+            p["norm3"] = norm_w(prefix + ".norm3", bias=True)
+        return p
+
+    params: dict[str, Any] = {
+        "patch_embedding": {
+            "kernel": _cast(sd["patch_embedding.weight"], torch.float32),
+            "bias": _cast(sd["patch_embedding.bias"], torch.float32),
+        },
+        "text_embedding": {"fc1": lin("text_embedding.0"),
+                           "fc2": lin("text_embedding.2")},
+        "time_embedding": {"fc1": lin("time_embedding.0", torch.float32),
+                           "fc2": lin("time_embedding.2", torch.float32)},
+        "time_projection": lin("time_projection.1", torch.float32),
+        "blocks": [block(f"blocks.{i}") for i in range(cfg.num_layers)],
+        "head": {"modulation": _cast(sd["head.modulation"], torch.float32),
+                 "head": lin("head.head", torch.float32)},
+    }
+    if "img_emb.proj.0.weight" in sd:
+        params["img_emb"] = {
+            "norm_in": norm_w("img_emb.proj.0", bias=True),
+            "fc1": lin("img_emb.proj.1"),
+            "fc2": lin("img_emb.proj.3"),
+            "norm_out": norm_w("img_emb.proj.4", bias=True),
+        }
+    return _flatten(params)
+
+
+def convert_clip_vision(sd: dict[str, torch.Tensor], num_layers: int,
+                        dtype: torch.dtype = torch.bfloat16
+                        ) -> dict[str, torch.Tensor]:
+    """An open-clip / Wan ``visual.*`` state dict (a whole CLIP state dict
+    gives its ``visual.`` part) -> the ``state_dict`` of
+    ``models/wan/clip.CLIPVision``: linears, the patch conv and the
+    embeddings in ``dtype``, the norms fp32."""
+    if any(k.startswith("visual.") for k in sd):
+        sd = {k[len("visual."):]: v for k, v in sd.items()
+              if k.startswith("visual.")}
+
+    def lin(prefix):
+        p = {"kernel": _cast(sd[prefix + ".weight"], dtype)}
+        if prefix + ".bias" in sd:
+            p["bias"] = _cast(sd[prefix + ".bias"], dtype)
+        return p
+
+    def norm(prefix):
+        return {"weight": _cast(sd[prefix + ".weight"], torch.float32),
+                "bias": _cast(sd[prefix + ".bias"], torch.float32)}
+
+    blocks = [{
+        "norm1": norm(f"transformer.{i}.norm1"),
+        "attn": {"to_qkv": lin(f"transformer.{i}.attn.to_qkv"),
+                 "proj": lin(f"transformer.{i}.attn.proj")},
+        "norm2": norm(f"transformer.{i}.norm2"),
+        "mlp": {"fc1": lin(f"transformer.{i}.mlp.0"),
+                "fc2": lin(f"transformer.{i}.mlp.2")},
+    } for i in range(num_layers)]
+    return _flatten({
+        "patch_embedding": {"kernel": _cast(sd["patch_embedding.weight"],
+                                            dtype)},
+        "cls_embedding": _cast(sd["cls_embedding"], dtype),
+        "pos_embedding": _cast(sd["pos_embedding"], dtype),
+        "pre_norm": norm("pre_norm"),
+        "blocks": blocks,
+    })
+
+
+# ---------------------------------------------------------------------------
 # converters that come with their models
 # ---------------------------------------------------------------------------
 
@@ -713,7 +902,4 @@ def _with_its_model(what: str, step: str):
     return convert
 
 
-convert_wan_model = _with_its_model("convert_wan_model", "13")
-convert_wan_vae = _with_its_model("convert_wan_vae", "13")
-convert_clip_vision = _with_its_model("convert_clip_vision", "13")
 convert_legacy_vae = _with_its_model("convert_legacy_vae", "14")

@@ -91,6 +91,8 @@ class WanPipeline:
     # compute with models/t5.py::encode and models/wan/clip.py::visual
     t5: object = None
     clip: object = None
+    # a loader's readers and seconds by stage
+    load_stats: dict = dataclasses.field(default_factory=dict)
 
     def _vae_decode(self, latents: torch.Tensor) -> torch.Tensor:
         if self.vae_tile_size:

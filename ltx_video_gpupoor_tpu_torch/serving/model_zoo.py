@@ -11,7 +11,9 @@ safetensors files in the published layout under a checkpoint directory
 (the native mmap reader first, then the Python one; the LoRA-distilled
 convention; the VAE file or a combined file; T5 where its file is there,
 else JAX's warning and the hash embeddings; the spatial upscaler ->
-``MultiScalePipeline``); ``convert_latent_upsampler`` (:384); and
+``MultiScalePipeline``); ``convert_latent_upsampler`` (:384);
+``load_wan_model`` (:433), which builds a ``WanPipeline`` (t2v or i2v,
+with UMT5 and the CLIP vision tower where named) the same way; and
 ``build_demo_model`` (:594), the tiny random-weight stack that exercises
 the whole serving surface. Weights go to the card unless ``device="cpu"``.
 A legacy (pre-causal) VAE raises (ROADMAP queue 1 step 14); the
@@ -345,6 +347,107 @@ def load_ltxv_model(
         generator=LTXVideoGenerator(pipeline=pipeline, multiscale=multiscale,
                                     pipeline_config=config_name),
         t5=t5, load_stats=stats)
+
+
+def load_wan_model(
+    model_filename: str,
+    config_name: str = "t2v-1.3B",
+    ckpt_dir: str = "ckpts",
+    vae_filename: str = "Wan2.1_VAE.safetensors",
+    text_encoder_filename: Optional[str] = None,
+    clip_filename: Optional[str] = None,
+    *,
+    spec: Optional[dict] = None,
+    vae_cfg=None,
+    t5_cfg=None,
+    clip_cfg=None,
+    device=None,
+    policy: DtypePolicy = DEFAULT_POLICY,
+):
+    """Assemble a ``WanPipeline`` from local safetensors files in the
+    published layout (JAX :433-532), on the card unless ``device="cpu"``:
+    the transformer (quanto int8 pairs moved to the device and folded
+    there), the VAE (with its encoder for i2v), and, where named, UMT5 and
+    the CLIP vision tower, which the pipeline carries for callers to run
+    (``WanPipeline.t5`` / ``.clip``). ``spec`` / ``vae_cfg`` / ``t5_cfg``
+    / ``clip_cfg`` override the catalogue configs. A missing file raises
+    ``FileNotFoundError`` naming it (nothing is downloaded); the
+    pipeline's ``load_stats`` names each file's reader and the seconds of
+    each stage."""
+    from ..configs import WAN_CONFIGS
+    from ..models import t5 as t5m
+    from ..models.wan import clip as wan_clip
+    from ..models.wan import model as wan_model
+    from ..models.wan import vae as wan_vae
+    from ..pipelines.wan import WanPipeline
+
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("load_wan_model: no CUDA device (pass "
+                           "device='cpu' for the CPU)")
+    stats: dict = {}
+    if spec is None:
+        spec = WAN_CONFIGS[config_name]
+    cfg = wan_model.WanConfig(
+        model_type=spec["model_type"], dim=spec["dim"],
+        ffn_dim=spec["ffn_dim"], freq_dim=spec["freq_dim"],
+        num_heads=spec["num_heads"], num_layers=spec["num_layers"],
+        in_dim=spec.get("in_dim", 16),
+        attention_score_bound=_score_bound_opt_in())
+
+    def need(name, what):
+        path = _maybe(name, ckpt_dir)
+        if path is None:
+            raise FileNotFoundError(
+                f"Wan {what} checkpoint not found: {name} (looked in "
+                f"{ckpt_dir}/; nothing is downloaded)")
+        return path
+
+    tensors, _ = _read(need(model_filename, "transformer"), stats,
+                       "transformer", native=True)
+    t0 = time.perf_counter()
+    tensors = ckpt.dequantize_quanto(tensors, policy.param_dtype,
+                                     consume=True, device=dev)
+    dit = _build(wan_model.WanModel(cfg, policy, device="meta"),
+                 ckpt.convert_wan_model(tensors, cfg), "transformer", dev)
+    del tensors
+    stats["transformer_to_device_s"] = time.perf_counter() - t0
+
+    vae_cfg = vae_cfg if vae_cfg is not None else wan_vae.WanVAEConfig()
+    vae_tensors, _ = _read(need(vae_filename, "VAE"), stats, "vae")
+    sd = ckpt.convert_wan_vae(vae_tensors, vae_cfg)
+    del vae_tensors
+    if cfg.model_type == "i2v":   # i2v encodes its conditioning frames
+        vae = wan_vae.WanVAE(vae_cfg, policy, device="meta")
+    else:
+        vae = wan_vae.WanVAEDecoder(vae_cfg, policy, device="meta")
+        sd = {k: v for k, v in sd.items()
+              if not k.startswith(("encoder.", "conv1."))}
+    vae = _build(vae, sd, "VAE", dev)
+
+    t5 = clip = None
+    if text_encoder_filename:
+        te_tensors, _ = _read(need(text_encoder_filename, "text encoder"),
+                              stats, "text_encoder")
+        te_tensors = ckpt.dequantize_quanto(te_tensors, torch.bfloat16,
+                                            consume=True)
+        t5_cfg = t5_cfg if t5_cfg is not None else t5m.UMT5_XXL
+        t5 = _build(
+            t5m.T5Encoder(t5_cfg, device="meta", dtype=torch.bfloat16),
+            ckpt.convert_t5_encoder(te_tensors, t5_cfg.num_layers,
+                                    t5_cfg.shared_pos), "text encoder", dev)
+        del te_tensors
+    if clip_filename:
+        clip_tensors, _ = _read(need(clip_filename, "CLIP"), stats, "clip")
+        clip_cfg = clip_cfg if clip_cfg is not None \
+            else wan_clip.CLIPVisionConfig()
+        clip = _build(wan_clip.CLIPVision(clip_cfg, policy, device="meta"),
+                      ckpt.convert_clip_vision(clip_tensors,
+                                               clip_cfg.num_layers),
+                      "CLIP", dev)
+        del clip_tensors
+    return WanPipeline(dit, vae, vae_stride=tuple(spec["vae_stride"]),
+                       t5=t5, clip=clip, load_stats=stats)
 
 
 def convert_latent_upsampler(sd: dict, dtype=torch.bfloat16) -> dict:

@@ -172,13 +172,15 @@ K1_TILE_EDGES = [
 ]
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128])
 @pytest.mark.parametrize("sq,skv,kv_valid", K1_TILE_EDGES)
 def test_k1_plain_matches_pallas_interpret_at_tile_edges(sq, skv, kv_valid, d):
     """K1's plain version at the shapes that land on each mask kind and
     tile edge of the CUDA block, against the interpreted Pallas kernel fed
     as the JAX dispatch feeds it (zero rows up to a 128 multiple, the real
-    length as ``kv_valid``); fp32, atol = rtol = 2e-5."""
+    length as ``kv_valid``); fp32, atol = rtol = 2e-5. At d = 80 (CLIP's
+    heads; (129, 257) is CLIP's 257 tokens) the Pallas kernel reads its
+    denominator off a ones column of V."""
     q, k, v = _qkv(40 + sq, 1, 2, sq, skv, d)
     valid = skv if kv_valid is None else min(skv, kv_valid)
     ref = jfa.flash_attention(
@@ -870,6 +872,8 @@ def test_k5_fused_weights_are_views_of_one_buffer():
     (128, 256, 256, True, None, False),    # segments and a lost q row
     (64, 384, 384, False, 300, False),     # kv_valid tail
     (128, 256, 256, False, None, True),    # causal
+    (80, 384, 384, False, 257, False),     # CLIP's heads and 257 tokens
+    (80, 256, 256, True, None, False),     # d = 80 with segments
 ])
 def test_k4_plain_matches_pallas_interpret(pv_int8, d, sq, skv, seg,
                                            kv_valid, causal):

@@ -249,17 +249,39 @@ def test_wan_dit_forward_matches_jax(pallas_interpret, jax_mode, port_mode,
 
 
 def test_wan_dit_rejects_unported_branches():
-    _, model = _dit()
+    """VACE and fps conditioning still raise naming step 13. What this
+    test once refused is ported and held to JAX here: CLIP features
+    reach only an i2v model (a t2v one ignores them, as in JAX), TeaCache's
+    ``compute=False`` adds the given residual to the input tokens, and an
+    i2v model holds JAX's i2v parameters (tests/test_torch_wan_i2v.py
+    holds its forward)."""
+    jp, model = _dit()
     x, t, ctx, mask, grid, _ = _dit_inputs(b=1)
     args = [torch.from_numpy(a) for a in (x, t, ctx, mask)]
     freqs = trope.wan_rope_freqs(grid, 128)
-    for kw in (dict(clip_features=torch.zeros(1, 257, 1280)),
-               dict(vace_context=torch.zeros(1)), dict(fps_idx=0),
-               dict(compute=False)):
+    for kw in (dict(vace_context=torch.zeros(1)), dict(fps_idx=0)):
         with pytest.raises(NotImplementedError, match="step 13"):
             model(*args, freqs, **kw)
-    with pytest.raises(NotImplementedError, match="step 13"):
-        twm.WanModel(twm.WanConfig(**{**DIT_KW, "model_type": "i2v"}))
+    jargs = (jp, jwm.WanConfig(**DIT_KW), *map(jnp.asarray, (x, t, ctx, mask)),
+             jrope.wan_rope_freqs(grid, 128))
+    with torch.no_grad():
+        plain, res = model(*args, freqs, attn_mode="pallas")
+        with_clip, _ = model(*args, freqs, attn_mode="pallas",
+                             clip_features=torch.ones(1, 257, 1280))
+        skip, skip_res = model(*args, freqs, previous_residual=res,
+                               compute=False)
+    assert torch.equal(plain, with_clip)
+    ref, _ = jwm.forward(*jargs, previous_residual=jnp.asarray(res.numpy()),
+                         compute=False)
+    np.testing.assert_allclose(skip.numpy(), np.asarray(ref), atol=ATOL)
+    assert torch.equal(skip_res, res)
+    i2v = {**DIT_KW, "model_type": "i2v", "in_dim": 12}
+    want = from_jax.state_dict(_np_tree(jax.jit(
+        lambda k: jwm.init_params(k, jwm.WanConfig(**i2v)))(
+            jax.random.key(0))))
+    got = twm.WanModel(twm.WanConfig(**i2v)).state_dict()
+    assert {k: tuple(v.shape) for k, v in got.items()} == \
+        {k: tuple(v.shape) for k, v in want.items()}
 
 
 # --------------------------------------------------------------------------
@@ -411,14 +433,21 @@ def test_pipeline_helpers_match_jax(weights):
     jp = jpipe.WanPipeline(model_params=None, model_cfg=None, vae_params=None,
                            vae_cfg=None, vae_stride=STRIDE)
     assert tp.latent_shape(480, 832, 81) == jp.latent_shape(480, 832, 81)
-    for solver in ("unipc", "euler"):
+    for solver in ("unipc", "euler", "dpm++"):
         np.testing.assert_array_equal(
             tp._solve_schedule(solver, 4, 5.0).numpy(),
             np.asarray(jp._solve_schedule(solver, 4, 5.0)))
+    # TeaCache's schedule (once refused here): JAX's mask from the same
+    # time embedding (tests/test_torch_wan_i2v.py holds the slice)
+    timesteps = tp._solve_schedule("unipc", 12, 5.0)[:-1].numpy() * 1000
+    np.testing.assert_array_equal(
+        tpipe.teacache_skip_schedule(
+            model, timesteps, tpipe.TEACACHE_COEFFICIENTS["t2v_1.3B"], 1.5),
+        jpipe.teacache_skip_schedule(
+            _dit_params(0), jwm.WanConfig(**DIT_KW), timesteps,
+            jpipe.TEACACHE_COEFFICIENTS["t2v_1.3B"], 1.5))
     ctx, mask = torch.zeros(2, 16, 32), torch.ones(2, 16)
-    for kw, msg in ((dict(solver="dpm++"), "step 13"),
-                    (dict(teacache_multiplier=1.5), "step 13"),
-                    (dict(ref_latents=torch.zeros(1)), "step 13"),
+    for kw, msg in ((dict(ref_latents=torch.zeros(1)), "step 13"),
                     (dict(source_latents=torch.zeros(1)), "step 13"),
                     (dict(vace_context=torch.zeros(1)), "step 13"),
                     (dict(overlapped_latents=torch.zeros(1)), "step 13")):
