@@ -3,8 +3,10 @@
 text-to-video (with TeaCache, and under FP32_POLICY), LTX-Video 13B
 image-to-video through the two-pass multi-scale pipeline (one request of
 it through the HTTP server, one through the CLI from checkpoint files in
-the published layout), the CLI, Wan 2.1 t2v-1.3B, the ring-attention
-kernel and the attention micro-benchmark tool.
+the published layout), the CLI (in each quantization tier), Wan 2.1
+t2v-1.3B (UniPC, DPM++, TeaCache), Wan 2.1 i2v-14B with CLIP ViT-H/14 and
+the Wan VAE encoder, the ring-attention kernel and the attention
+micro-benchmark tool.
 
     python3 chip_smoke.py              # one card; several minutes on an H100
     python3 chip_smoke.py --profile    # and device-time breakdowns
@@ -83,6 +85,13 @@ Phases, one output line each (or a few):
             plus 2**-9 of its largest output; planted faults (the last q
             tile zeroed, a head scaled by 1 + 2**-5) at 13B pass 2 and at
             the LTX-2B shape must fail that check.
+5a'. d=80   K1, K3 and K4 at CLIP ViT-H/14's head dim of 80 (the D=128
+            layout, 80 columns loaded and stored, the rounded denominator
+            of JAX's ones column) at CLIP's self-attention (B=1 H=16 S=257
+            on head-split views, no padding: the tail instance), with the
+            planted faults of K1's and K4's checks, then tile edges,
+            kv_valid, causal and segments; the prologue's row kernel at
+            D=80 in [prologue].
 5b'. K3q   the int8 Q.K^T tier under the bounded softmax (a kernel of its
             own: a producer warp, the warpgroups taking turns) against
             its plain version on the same prologue operands (per-row k
@@ -160,7 +169,8 @@ Phases, one output line each (or a few):
             K3, K3q and K4 also their exponentials, one ex2 a score at 16
             a clock an SM at the card's highest SM clock) is computed from
             the timed shapes. K3 and K3q at the 13B shapes and at LTX-2B's
-            self-attention.
+            self-attention. K1 and K4 at CLIP's d=80 shape (one call and in
+            a CUDA graph; SDPA beside K1).
 7. path     LTX-2B at full width (28 layers, 32x64 heads, int8_dynamic),
             the 0.9.7 VAE decoder and T5-XXL, random weights from seeds:
             a 2-layer cut of the DiT on the card against the plain
@@ -209,11 +219,14 @@ Phases, one output line each (or a few):
             reads back to 121 frames of 608x992), a POST with a field
             missing (400), a path that leaves outputs/ (404), GET
             /metrics (the request's seconds by stage, the mp4 write among
-            them). Then one request through the CLI's main() at 256x256x9
-            on the demo model.
+            them). Then requests through the CLI's main() at 256x256x9
+            on the demo model: as it is, then with --quantize-transformer
+            in each --int8-mode of wo, wo_int4 and mixed_int4 (no K2).
 7d. load    synthetic files in the published layout in a temporary
             directory (the 13B-dev quanto int8 transformer at full width
-            and all 48 layers, 13 GB; the distilled LoRA, rank 128; the
+            and 24 of its 48 layers, 6.5 GB, so that the script with
+            [wan_i2v] keeps near its former time; the distilled LoRA,
+            rank 128; the
             0.9.7 VAE; the spatial upscaler), then one 992x608x121
             image-to-video request through the CLI's real branch
             (--model-mode ltxv_13B_distilled --ckpt-dir, no --demo,
@@ -233,7 +246,26 @@ Phases, one output line each (or a few):
             tokens a stream) in the default tier (K4 QK+PV) and in the
             QK tier, and 832x480x81 (32760 tokens) in the exact tier (K1)
             and in the default one; stage times, peak memory, launch
-            counts of K1, K2 and K4.
+            counts of K1, K2 and K4. Then 832x480x17 with DPM++, and with
+            TeaCache 2.0 (t2v_1.3B coefficients) at 10 steps: the steps
+            computed, K4 launches = 2 x 30 x steps computed.
+8b. wan_i2v the 1.3B DiT is freed; Wan 2.1 i2v-14B at full width and depth
+            (40 layers, dim 5120, 40x128 heads, ffn 13824, in_dim 36),
+            built one block at a time and quantized as it goes into two
+            DiTs of the same weights (dynamic, mixed_int4), CLIP ViT-H/14
+            (32 blocks of 1280, 16x80 heads) and the Wan VAE with its
+            encoder, random weights from seeds: a 2-layer cut of the DiT
+            against the CPU plain versions in each of dynamic, wo, wo_int4
+            and mixed_int4, CLIP's first two blocks the same way (K4 at
+            D=80), then two 832x480x81 image-to-video requests through a
+            UMT5 encode (the Wan path's), CLIP visual on the seeded image
+            resized to 224, and WanPipeline.generate_i2v (the whole clip
+            VAE-encoded, 4 frames at a time a layer; UniPC; tiled decode):
+            (1) dynamic, attention auto, 4 steps (K4 at D=128 and D=80, K2,
+            K2p), (2) mixed_int4 with the exact tier pinned, 2 steps (K1 at
+            D=128 and D=80, no K2); seconds by stage (UMT5, CLIP, VAE
+            encode, denoise, decode), peak GiB, the DiT's resident bytes;
+            the launch counts must equal wan_i2v_expect.
 9. profile  only with --profile: one more 704x480x121 LTX-2B request, one
             more 13B request of kinds (b), (c) and (d) and one more
             832x480x81 Wan request, each twice under torch.profiler: as it
@@ -388,6 +420,9 @@ WAN_CROSS = (2, 12, 32760, 512, 128)
 WAN_REQUESTS = [(480, 832, 17, "auto"), (480, 832, 17, "pallas_int8"),
                 (480, 832, 81, "pallas"), (480, 832, 81, "auto")]
 WAN_STEPS = 4
+WAN_EXTRA_SHAPE = (480, 832, 17)    # the DPM++ and TeaCache requests
+WAN_TEACACHE_STEPS = 10
+WAN_TEACACHE_MULT = 2.0
 WAN_CFG_ZERO_STEP = 0    # the default 5 of 50 steps, cut with the steps
 
 REQUESTS = [(256, 256, 9), (480, 704, 121)]  # (H, W, F)
@@ -423,6 +458,10 @@ LTX13B_SELF = [(1, 32, n, n, 128) for n in LTX13B_PASS_TOKENS]
 LTX13B_CROSS = [(1, 32, n, 256, 128) for n in LTX13B_PASS_TOKENS]
 # LTX-2B's self-attention at 704x480x121: three guidance streams of 5280
 LTX2B_SELF = (3, 32, 5280, 5280, 64)
+# CLIP ViT-H/14's self-attention in Wan i2v: 16 heads of 80, 257 tokens (a
+# class token and 16 x 16 patches), K1 and K4 in their D=128 layout with 80
+# columns loaded and stored
+CLIP_SELF = (1, 16, 257, 257, 80)
 # the [fp32] request: LTX-2B under FP32_POLICY at 256x256x9 (2 x 8 x 8
 # latents), against the same request in the xla tier
 FP32_REQUEST = (256, 256, 9)
@@ -527,8 +566,8 @@ WGMMA_KERNELS = ("flash_wgmma_kernel", "int8_gemm_wgmma_kernel",
 # on the H100's host; the same with the flag), by kernel and mangled
 # template arguments; K1/K6's instances carry the BOUNDED flag (false)
 # since then, K4's lost it again when K3q took a kernel of its own; both
-# gained DV, the head's values (D for these; 80 for CLIP's heads in the D=128
-# layout, PR 12), as their last argument.
+# carry DV, the head's values (D for these; 80 for CLIP's heads in the
+# D=128 layout), as their last argument.
 # phase_build prints each instance beside its entry here (the redesigned
 # K3q and K2 row-kernel instances at the end): an edit of
 # attention_block.cuh or hopper.cuh that moves one shows as MOVED.
@@ -880,6 +919,7 @@ PROLOGUE_SHAPES = [
     ("Wan self", WAN_SELF, "bf16", (True, False)),
     ("Wan cross", WAN_CROSS, "bf16", (True,)),
     ("LTX-2B self fp32", (3, 32, 1024, 1024, 64), "fp32", (False, True)),
+    ("CLIP self d=80", CLIP_SELF, "bf16", (True, False)),
 ]
 PROLOGUE_PLANTED = "13B pass 2 self"
 
@@ -1082,6 +1122,45 @@ def phase_k4(gen):
     assert out.stride() == q.stride() and torch.equal(out, ref)
     log("[K4] wrapper: prologue + kernel in q's head-split layout ok")
     return max(errs[True]), max(errs[False])
+
+
+def phase_d80(gen):
+    """K1, K3 and K4 at CLIP's head dim of 80 (the D=128 layout, 80
+    columns loaded and stored, the rounded denominator of JAX's ones
+    column): CLIP's self-attention B=1 H=16 S=257 on head-split views of a
+    [B, S, H*D] projection, as CLIP's call hands them over (no padding:
+    the tail instance masks the last tile), with the planted faults, then
+    every mask kind at the tile edges. Returns K1's and K4's worst error
+    (both K4 tiers)."""
+    import torch
+
+    k1 = [_k1_case("CLIP d=80 self-attention", *CLIP_SELF, packed=True,
+                   plant=True, gen=gen)[0]]
+    for sq, skv in ((127, 255), (128, 256), (130, 1)):
+        k1.append(_k1_case("d=80 tile edges", 1, 2, sq, skv, 80, gen=gen)[0])
+    for kv_valid in (500, 384, 0):
+        k1.append(_k1_case("d=80 kv_valid", 1, 2, 512, 512, 80,
+                           kv_valid=kv_valid, gen=gen)[0])
+    k1.append(_k1_case("d=80 causal", 1, 2, 512, 512, 80, causal=True,
+                       gen=gen)[0])
+    k1.append(_k1_case("d=80 segments over three kv tiles", 3, 4, 700, 300,
+                       80, seg=_cross_segments, gen=gen)[0])
+    _k3_case("CLIP d=80 self-attention", *CLIP_SELF, packed=True, plant=True,
+             gen=gen)
+    _k3_case("d=80 segments", 3, 4, 700, 300, 80, seg=_cross_segments,
+             gen=gen)
+    k4 = []
+    for pv in (True, False):
+        k4.append(_k4_case("CLIP d=80 self-attention", *CLIP_SELF,
+                           pv_int8=pv, packed=True, plant=True, gen=gen))
+        k4.append(_k4_case("d=80 ragged S, kv_valid", 2, 4, 1000, 1000, 80,
+                           pv_int8=pv, kv_valid=777, gen=gen))
+        k4.append(_k4_case("d=80 text segments", 3, 4, 700, 300, 80,
+                           pv_int8=pv, seg=_cross_segments, gen=gen))
+        k4.append(_k4_case("d=80 causal", 1, 2, 333, 333, 80, pv_int8=pv,
+                           causal=True, gen=gen))
+    torch.cuda.empty_cache()
+    return max(k1), max(k4)
 
 
 # --------------------------------------------------------------------------
@@ -2333,6 +2412,41 @@ def phase_timing(gen, ex2_per_s):
         del q, k, v
         torch.cuda.empty_cache()
 
+    # K1 and K4 at CLIP's head dim of 80 (the D=128 layout): 48 blocks of
+    # 128 q rows on 132 SMs, three kv tiles each
+    b, h, sq, skv, d = CLIP_SELF
+    q, k, v = (_heads(b, h, n, d, gen, True) for n in (sq, skv, skv))
+    kern = cuda_time_ms(lambda: fa.flash_attention(q, k, v))
+    plain = cuda_time_ms(lambda: fa.reference_attention(q, k, v))
+    lib = cuda_time_ms(lambda: sdpa(q, k, v))
+    dev_ms = graph_ms(lambda: fa.flash_attention(q, k, v))
+    times["K1 CLIP d=80"] = (kern, plain)
+    info["K1 CLIP d=80"] = (*attention_bound(b, h, sq, skv, d), lib)
+    log(f"[time] K1 CLIP self-attention B={b} H={h} S={sq} D={d}: kernel "
+        f"{kern:.4f} ms (device {dev_ms:.4f} ms in a CUDA graph), plain "
+        f"{plain:.4f} ms, bound {info['K1 CLIP d=80'][0]:.4f} ms "
+        f"({info['K1 CLIP d=80'][1]}), scaled_dot_product_attention "
+        f"{lib:.4f} ms")
+    ops = fa.int8_prologue(q, k, v, pv_int8=True)
+    kern = cuda_time_ms(lambda: fa.int8_attention_cuda(ops))
+    dev_ms = graph_ms(lambda: fa.int8_attention_cuda(ops))
+    whole = cuda_time_ms(lambda: fa.flash_attention_int8(q, k, v))
+    plain = cuda_time_ms(lambda: fa.int8_attention_plain(ops))
+    scales = 4 * (ops.q_scale.numel() + ops.k_scale.numel()
+                  + ops.v_scale.numel())
+    tensor = attention_bound(b, h, sq, skv, d, qk="int8", pv="int8",
+                             q_bytes=1, kv_bytes=1, v_bytes=1,
+                             extra_bytes=scales)
+    ex2 = _ex2_ms(b * h * sq * skv, ex2_per_s)
+    times["K4 CLIP d=80"] = (kern, plain)
+    info["K4 CLIP d=80"] = (*max(tensor, (ex2, "operations")), None)
+    log(f"[time] K4 int8pv CLIP self-attention B={b} H={h} S={sq} D={d}: "
+        f"kernel {kern:.4f} ms (device {dev_ms:.4f} ms in a CUDA graph), "
+        f"with its prologue {whole:.4f} ms, plain {plain:.4f} ms, bound "
+        f"{info['K4 CLIP d=80'][0]:.4f} ms (int8 tensor {tensor[0]:.4f} ms, "
+        f"{tensor[1]}; ex2 floor {ex2:.4f} ms)")
+    del q, k, v, ops
+
     from ltx_video_gpupoor_tpu_torch.ops import _lib
 
     lib_k = _lib.library()
@@ -2882,8 +2996,9 @@ def phase_fp32(t5):
 
 
 # [load]: the 13B stack from files in the published layout. The depth is
-# fixed here, never adapted at run time: all 48 layers
-LOAD_LAYERS = 48
+# fixed here, never adapted at run time: 24 of the 48 layers at full width
+# (the time goes to [wan_i2v])
+LOAD_LAYERS = 24
 LOAD_LORA_RANK = 128
 
 
@@ -3092,6 +3207,11 @@ def kernel_counts():
     from ltx_video_gpupoor_tpu_torch.tools import mb_selfattn_pipeline as mb
 
     return {"K1": fa.flash_attention.launches,
+            # K1's and K4's launches at CLIP's head dim and at the DiTs'
+            "K1d80": fa.flash_attention.launches_by_d.get(80, 0),
+            "K1d128": fa.flash_attention.launches_by_d.get(128, 0),
+            "K4d80": fa.flash_attention_int8.launches_by_d.get(80, 0),
+            "K4d128": fa.flash_attention_int8.launches_by_d.get(128, 0),
             "K2": im.int8_linear.launches,
             # K2's row kernel on the int8 attention prologue's contract
             "K2p": fa.int8_prologue.kernel_launches,
@@ -3111,8 +3231,10 @@ def reset_kernel_counts():
     from ltx_video_gpupoor_tpu_torch.ops import int8_matmul as im
 
     fa.flash_attention.launches = 0
+    fa.flash_attention.launches_by_d = {}
     fa.flash_attention.bounded_launches = 0
     fa.flash_attention_int8.launches = 0
+    fa.flash_attention_int8.launches_by_d = {}
     fa.flash_attention_int8.bounded_launches = 0
     fa.flash_attention_hp.launches = 0
     fa.flash_attention_fp32.launches = 0
@@ -3467,30 +3589,44 @@ def phase_server(gen, t5, name, mode, fused, bound):
     return p1, p2
 
 
+# the CLI's --int8-mode tiers, each with --quantize-transformer on the demo
+CLI_INT8_MODES = (None, "wo", "wo_int4", "mixed_int4")
+
+
 def phase_cli():
-    """One request through the CLI's ``main`` on the demo model."""
+    """Requests through the CLI's ``main`` on the demo model: as it is,
+    then quantized in each weight-only ``--int8-mode`` (which launch no
+    K2)."""
     from ltx_video_gpupoor_tpu_torch.serving import cli
     from ltx_video_gpupoor_tpu_torch.utils import media
 
     height, width, frames = CLI_REQUEST
-    path = os.path.join(ROOT, "outputs", "cli_demo.mp4")
-    reset_kernel_counts()
-    t0 = time.perf_counter()
-    out = cli.main(["--demo", "--prompt", "a red fox in the snow",
-                    "--height", str(height), "--width", str(width),
-                    "--video-length", str(frames), "--seed", str(SEED),
-                    "--output-path", path])
-    sec = time.perf_counter() - t0
-    counts = kernel_counts()
-    video = media.load_video(out)
-    assert out == path and os.path.getsize(path) > 0
-    assert video.shape == (frames, height, width, 3), video.shape
-    assert counts["K1"] > 0, counts
-    log(f"[cli] main(--demo ... {width}x{height}x{frames}) wrote "
-        f"{os.path.relpath(out, ROOT)} ({os.path.getsize(path)} bytes, "
-        f"{video.shape[0]} frames) in {sec:.3f} s with the model build; "
-        f"launches {counts}")
-    return counts
+    first = None
+    for mode in CLI_INT8_MODES:
+        tag = f"_{mode}" if mode else ""
+        path = os.path.join(ROOT, "outputs", f"cli_demo{tag}.mp4")
+        quant = ["--quantize-transformer", "--int8-mode", mode] if mode \
+            else []
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        out = cli.main(["--demo", "--prompt", "a red fox in the snow",
+                        "--height", str(height), "--width", str(width),
+                        "--video-length", str(frames), "--seed", str(SEED),
+                        "--output-path", path] + quant)
+        sec = time.perf_counter() - t0
+        counts = kernel_counts()
+        video = media.load_video(out)
+        assert out == path and os.path.getsize(path) > 0
+        assert video.shape == (frames, height, width, 3), video.shape
+        assert counts["K1"] > 0, counts
+        assert mode is None or counts["K2"] == 0, (mode, counts)
+        log(f"[cli] main(--demo ... {width}x{height}x{frames}"
+            f"{' ' + ' '.join(quant) if quant else ''}) wrote "
+            f"{os.path.relpath(out, ROOT)} ({os.path.getsize(path)} bytes, "
+            f"{video.shape[0]} frames) in {sec:.3f} s with the model build; "
+            f"launches {counts}")
+        first = first or counts
+    return first
 
 
 # --------------------------------------------------------------------------
@@ -3623,8 +3759,10 @@ def encode_wan_prompts(umt5):
     return emb, mask, sec
 
 
-def run_wan_request(pipe, umt5, height, width, frames, mode):
-    """One request: a UMT5 encode, then ``generate_t2v`` to pixels."""
+def run_wan_request(pipe, umt5, height, width, frames, mode,
+                    steps=WAN_STEPS, solver="unipc", **gen_kw):
+    """One request: a UMT5 encode, then ``generate_t2v`` to pixels
+    (``gen_kw``: TeaCache's ``teacache_multiplier`` / ``teacache_model``)."""
     import torch
 
     from ltx_video_gpupoor_tpu_torch.ops import flash_attention as fa
@@ -3646,10 +3784,10 @@ def run_wan_request(pipe, umt5, height, width, frames, mode):
     emb, mask, t5_sec = encode_wan_prompts(umt5)
     video = pipe.generate_t2v(
         emb, mask, width=width, height=height, frame_num=frames,
-        sampling_steps=WAN_STEPS, shift=5.0, solver="unipc", guide_scale=5.0,
+        sampling_steps=steps, shift=5.0, solver=solver, guide_scale=5.0,
         cfg_zero_step=WAN_CFG_ZERO_STEP,
         generator=torch.Generator(device="cuda").manual_seed(SEED),
-        output_type="pixels", attn_mode=mode, on_stage=on_stage)
+        output_type="pixels", attn_mode=mode, on_stage=on_stage, **gen_kw)
     torch.cuda.synchronize()
     t_dec = time.perf_counter()
     launches = {"K1": fa.flash_attention.launches,
@@ -3663,8 +3801,10 @@ def run_wan_request(pipe, umt5, height, width, frames, mode):
     t_end = time.perf_counter()
     f, h, w = checks["latent_shape"][1:4]
     tokens = f * (h // 2) * (w // 2)
+    extra = "".join(f" {k}={v}" for k, v in gen_kw.items())
     log(f"[wan] request {width}x{height}x{frames} tier={mode}: "
-        f"tokens={tokens} a stream, steps={WAN_STEPS} umt5={t5_sec:.3f} s "
+        f"tokens={tokens} a stream, steps={steps} solver={solver}{extra} "
+        f"umt5={t5_sec:.3f} s "
         f"denoise={marks['decode'] - marks['denoise']:.3f} s "
         f"decode={t_dec - marks['decode']:.3f} s "
         f"postprocess={t_end - t_dec:.3f} s total={t_end - t0:.3f} s "
@@ -3702,7 +3842,338 @@ def phase_wan():
         launches.append(run_wan_request(pipe, umt5, height, width, frames,
                                         mode))
         torch.cuda.empty_cache()
+    # the other solver and TeaCache, each at 832x480x17 in the default tier
+    run_wan_request(pipe, umt5, *WAN_EXTRA_SHAPE, "auto", solver="dpm++")
+    from ltx_video_gpupoor_tpu_torch.pipelines import wan as wpipe
+
+    sigmas = pipe._solve_schedule("unipc", WAN_TEACACHE_STEPS, 5.0)
+    mask = wpipe.teacache_skip_schedule(
+        dit, sigmas[:-1].numpy() * pipe.num_train_timesteps,
+        wpipe.TEACACHE_COEFFICIENTS["t2v_1.3B"], WAN_TEACACHE_MULT)
+    tc = run_wan_request(pipe, umt5, *WAN_EXTRA_SHAPE, "auto",
+                         steps=WAN_TEACACHE_STEPS,
+                         teacache_multiplier=WAN_TEACACHE_MULT,
+                         teacache_model="t2v_1.3B")
+    computed = int(mask.sum())
+    # a skipped step runs no block: self- and cross-attention a layer for
+    # each computed step
+    assert tc["K4"] == 2 * dit.cfg.num_layers * computed, (tc, mask)
+    log(f"[wan] TeaCache {WAN_TEACACHE_MULT} (t2v_1.3B coefficients): "
+        f"{computed} of {WAN_TEACACHE_STEPS} steps computed, mask "
+        f"{mask.astype(int).tolist()}; K4 launches {tc['K4']} = 2 x "
+        f"{dit.cfg.num_layers} x {computed}")
+    torch.cuda.empty_cache()
     return launches, pipe, umt5
+
+
+# --------------------------------------------------------------------------
+# phase 8b: Wan 2.1 i2v-14B
+# --------------------------------------------------------------------------
+
+WAN_I2V_REQUEST = (480, 832, 81)
+# (quantize_params mode, attention tier, UniPC steps): the default tier,
+# then the mixed int4 tier with the exact attention pinned (as a served Wan
+# request pins it on the H100), which runs K1 at both head dims
+WAN_I2V_REQUESTS = [("dynamic", "auto", 4), ("mixed_int4", "pallas", 2)]
+WAN_I2V_CUT_TIERS = ("dynamic", "wo", "wo_int4", "mixed_int4")
+WAN_I2V_CUT_GRID = (2, 6, 10)      # latent frames, token rows, token columns
+CLIP_CUT_BLOCKS = 2
+# the blocks' linears (q, k, v, o of both attentions, k_img, v_img, the
+# FFN's two) and those outside (text 2, time 2, time projection, img_emb 2,
+# head)
+WAN_I2V_LINEARS = (12, 8)
+
+
+def wan_i2v_expect(mode, tier, steps, layers, clip_blocks):
+    """The launches an i2v request makes (``must``, exactly) and the
+    kernels it must not launch: one forward a step with both CFG streams
+    as batch rows; three attentions a layer (self, text, image); CLIP's
+    blocks once (K4 at D=80 under ``auto``, K1 under ``pallas``); K2p one
+    a K4 call (Q; the QK+PV tier); K2 in the dynamic tier only."""
+    attn = 3 * layers * steps
+    if tier == "auto":
+        must = {"K4d128": attn, "K4d80": clip_blocks,
+                "K2p": attn + clip_blocks}
+        must_not = ("K1", "K3", "K3q", "K5", "K6", "K1f")
+    else:
+        must = {"K1d128": attn, "K1d80": clip_blocks}
+        must_not = ("K2p", "K3", "K3q", "K4", "K5", "K6", "K1f")
+    linears = (WAN_I2V_LINEARS[0] * layers + WAN_I2V_LINEARS[1]) * steps
+    if mode == "dynamic":
+        must["K2"] = linears
+    else:
+        must_not += ("K2",)
+    return must, must_not
+
+
+def _resident_bytes(module):
+    return sum(t.numel() * t.element_size()
+               for t in module.state_dict().values())
+
+
+def build_wan_i2v_models():
+    """Wan 2.1 i2v-14B at full width and depth, built one block at a time
+    from the seed and quantized as it goes in two tiers (``dynamic`` and
+    ``mixed_int4``: the same weights, two DiTs), CLIP ViT-H/14 (32 blocks
+    of 1280) and the Wan VAE with its encoder; also the dense bf16 weights
+    of the DiT's first two blocks and of everything outside the blocks,
+    and of CLIP's first two blocks, on the CPU."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.core.dtypes import DEFAULT_POLICY
+    from ltx_video_gpupoor_tpu_torch.models.wan import clip as wc
+    from ltx_video_gpupoor_tpu_torch.models.wan import model as wm
+    from ltx_video_gpupoor_tpu_torch.models.wan import vae as wv
+    from ltx_video_gpupoor_tpu_torch.ops.quant import quantize_params
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    cfg = wm.WAN_I2V_14B
+    g = torch.Generator(device=dev).manual_seed(SEED + 30)
+    base = wm.init_params(wm.WanModel(
+        dataclasses.replace(cfg, num_layers=0), DEFAULT_POLICY, device=dev),
+        g)
+    base.cfg = cfg
+    dense_cut = {k: v.cpu() for k, v in base.state_dict().items()}
+    dits = {"dynamic": base, "mixed_int4": copy.deepcopy(base)}
+    for mode, dit in dits.items():
+        quantize_params(dit, mode=mode)
+    kw = dict(device=dev, dtype=DEFAULT_POLICY.param_dtype)
+    for i in range(cfg.num_layers):
+        blk = wm.init_params(wm.Block(cfg, **kw), g)
+        if i < 2:
+            dense_cut.update({f"blocks.{i}.{k}": v.cpu()
+                              for k, v in blk.state_dict().items()})
+        dits["mixed_int4"].blocks.append(
+            quantize_params(copy.deepcopy(blk), mode="mixed_int4"))
+        dits["dynamic"].blocks.append(quantize_params(blk, mode="dynamic"))
+    clip = wc.init_params(wc.CLIPVision(wc.CLIPVisionConfig(), DEFAULT_POLICY,
+                                        device=dev),
+                          torch.Generator(device=dev).manual_seed(SEED + 31))
+    clip_cut = {k: v.cpu() for k, v in clip.state_dict().items()
+                if not k.startswith("blocks.")
+                or int(k.split(".")[1]) < CLIP_CUT_BLOCKS}
+    vae = wv.init_params(wv.WanVAE(wv.WanVAEConfig(), DEFAULT_POLICY,
+                                   device=dev),
+                         torch.Generator(device=dev).manual_seed(SEED + 32))
+    torch.cuda.synchronize()
+    n_dense = sum(t.numel() for k, t in dits["dynamic"].state_dict().items()
+                  if not k.endswith(".scale"))
+    log(f"[wan_i2v] built i2v-14B ({cfg.num_layers} layers, dim {cfg.dim}, "
+        f"{cfg.num_heads}x{cfg.head_dim} heads, ffn {cfg.ffn_dim}, in_dim "
+        f"{cfg.in_dim}; layer by layer) in two tiers, resident "
+        + ", ".join(f"{m} {_resident_bytes(d) / 1e9:.3f} GB"
+                    for m, d in dits.items())
+        + f" (dense bf16 would be {2 * n_dense / 1e9:.3f} GB); "
+        f"CLIP ViT-H/14 ({clip.cfg.num_layers} blocks of {clip.cfg.dim}, "
+        f"{clip.cfg.num_heads}x{clip.cfg.dim // clip.cfg.num_heads} heads, "
+        f"{_resident_bytes(clip) / 1e9:.3f} GB), Wan VAE with encoder in "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    return dits, dense_cut, clip, clip_cut, vae
+
+
+def wan_i2v_reference_check(dense_cut):
+    """A 2-layer cut of the i2v-14B DiT at full width (its own first two
+    blocks) in each tier of WAN_I2V_CUT_TIERS, on the card with the
+    kernels against the same cut on the CPU with the plain versions, both
+    in bf16: two CFG streams of 120 tokens, 64 text tokens with padding,
+    257 CLIP tokens, the i2v channels. Bar: 30 dB PSNR on the velocity,
+    as the t2v cut (an int8 code may round the other way)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.core.dtypes import DEFAULT_POLICY
+    from ltx_video_gpupoor_tpu_torch.models.wan import model as wm
+    from ltx_video_gpupoor_tpu_torch.ops.quant import quantize_params
+    from ltx_video_gpupoor_tpu_torch.ops.rope import wan_rope_freqs
+
+    cut = dataclasses.replace(wm.WAN_I2V_14B, num_layers=2)
+    g = torch.Generator().manual_seed(SEED + 33)
+    f, h, w = WAN_I2V_CUT_GRID
+    x = torch.randn(2, f, 2 * h, 2 * w, cut.in_dim, generator=g)
+    t = torch.tensor([900.0, 900.0])
+    ctx = torch.randn(2, 64, cut.text_dim, generator=g)
+    mask = torch.zeros(2, 64, dtype=torch.int32)
+    mask[0, :40] = 1
+    mask[1, :17] = 1
+    clip = torch.randn(2, 257, wm.CLIP_DIM, generator=g)
+    dbs = {}
+    for mode in WAN_I2V_CUT_TIERS:
+        models = []
+        for d in (torch.device("cuda"), torch.device("cpu")):
+            m = wm.WanModel(cut, DEFAULT_POLICY, device=d)
+            m.load_state_dict(dense_cut)
+            models.append(quantize_params(m, mode=mode))
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out, _ = models[0](*(a.cuda() for a in (x, t, ctx, mask)),
+                               wan_rope_freqs((f, h, w), cut.head_dim,
+                                              device="cuda"),
+                               clip_features=clip.cuda())
+            torch.cuda.synchronize()
+            counts = kernel_counts()
+            t1 = time.perf_counter()
+            ref, _ = models[1](x, t, ctx, mask,
+                               wan_rope_freqs((f, h, w), cut.head_dim),
+                               clip_features=clip)
+        assert counts["K4d128"] == 3 * cut.num_layers, (mode, counts)
+        assert (counts["K2"] > 0) == (mode == "dynamic"), (mode, counts)
+        o = out.float().cpu().numpy()
+        r = ref.float().numpy()
+        assert np.isfinite(o).all() and o.shape == r.shape
+        peak = max(np.abs(r).max(), np.abs(o).max()) * 2
+        mse = float(np.mean((o - r) ** 2))
+        db = dbs[mode] = 10 * np.log10(peak ** 2 / mse) if mse > 0 \
+            else float("inf")
+        log(f"[wan_i2v] reference check, tier {mode}, 2-layer cut at full "
+            f"width ({f * h * w} tokens a stream, 2 streams, 257 CLIP "
+            f"tokens), kernels on the card ({t1 - t0:.2f} s) vs plain "
+            f"versions on the CPU ({time.perf_counter() - t1:.1f} s): PSNR "
+            f"{db:.2f} dB (bar 30), launches K4 {counts['K4']} K2 "
+            f"{counts['K2']} K2p {counts['K2p']}")
+        assert db >= 30.0, f"i2v reference check ({mode}) {db:.2f} dB < 30"
+        del models
+    return dbs
+
+
+def clip_reference_check(clip_cut):
+    """CLIP's first two blocks at full width (16 heads of 80, 257 tokens),
+    two images, on the card (attention ``auto``: K4 at D=80) against the
+    CPU (the plain K4). Bar: 30 dB."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.core.dtypes import DEFAULT_POLICY
+    from ltx_video_gpupoor_tpu_torch.models.wan import clip as wc
+
+    cfg = dataclasses.replace(wc.CLIPVisionConfig(),
+                              num_layers=CLIP_CUT_BLOCKS)
+    img = torch.rand(2, 224, 224, 3,
+                     generator=torch.Generator().manual_seed(SEED + 34)) * 2 - 1
+    outs = []
+    for d in (torch.device("cuda"), torch.device("cpu")):
+        m = wc.CLIPVision(cfg, DEFAULT_POLICY, device=d)
+        m.load_state_dict(clip_cut)
+        reset_kernel_counts()
+        outs.append(wc.visual(m, img.to(d), use_31_block=False))
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            counts = kernel_counts()
+    assert counts["K4d80"] == CLIP_CUT_BLOCKS, counts
+    o, r = (t.float().cpu().numpy() for t in outs)
+    assert np.isfinite(o).all() and o.shape == r.shape == (2, 257, 1280)
+    peak = max(np.abs(r).max(), np.abs(o).max()) * 2
+    mse = float(np.mean((o - r) ** 2))
+    db = 10 * np.log10(peak ** 2 / mse) if mse > 0 else float("inf")
+    log(f"[wan_i2v] CLIP reference check, {CLIP_CUT_BLOCKS} blocks at full "
+        f"width, 2 images: K4 at D=80 on the card vs the plain versions on "
+        f"the CPU: PSNR {db:.2f} dB (bar 30), K4 D=80 launches "
+        f"{counts['K4d80']}")
+    assert db >= 30.0, f"CLIP reference check {db:.2f} dB < 30"
+    return db
+
+
+def run_wan_i2v_request(pipe, umt5, clip, mode, tier, steps):
+    """One image-to-video request: UMT5, CLIP (the first frame resized to
+    224 bicubic), then ``generate_i2v`` (the VAE encode of the
+    conditioning clip, the denoise, the tiled decode) to pixels."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.models.wan import clip as wc
+    from ltx_video_gpupoor_tpu_torch.ops.attention import set_attention_mode
+
+    height, width, frames = WAN_I2V_REQUEST
+    marks, checks = {}, {}
+
+    def on_stage(name, value):
+        torch.cuda.synchronize()
+        marks[name] = time.perf_counter()
+        if name == "decode":
+            checks["latents_finite"] = bool(torch.isfinite(value).all())
+            checks["latent_shape"] = tuple(value.shape)
+
+    image = torch.from_numpy(synthetic_image(height, width)).cuda()
+    image = image.float() / 127.5 - 1.0
+    set_attention_mode(tier)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        emb, mask, t5_sec = encode_wan_prompts(umt5)
+        t1 = time.perf_counter()
+        feats = wc.visual(clip, wc.resize_bicubic(image[None], 224))
+        torch.cuda.synchronize()
+        t_clip = time.perf_counter() - t1
+        video = pipe.generate_i2v(
+            emb, mask, feats, image, width=width, height=height,
+            frame_num=frames, sampling_steps=steps, shift=5.0,
+            solver="unipc", guide_scale=5.0, cfg_zero_step=WAN_CFG_ZERO_STEP,
+            generator=torch.Generator(device="cuda").manual_seed(SEED),
+            output_type="pixels", on_stage=on_stage)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+    finally:
+        set_attention_mode("auto")
+    counts = kernel_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    pixels_finite = bool(torch.isfinite(video.float()).all())
+    frames_u8 = torch.clamp((video[0].float() + 1.0) * 127.5, 0, 255)
+    frames_u8 = frames_u8.to(torch.uint8).cpu().numpy()
+    resident = _resident_bytes(pipe.model)
+    f, h, w = checks["latent_shape"][1:4]
+    stages = {"umt5": t5_sec, "clip": t_clip,
+              "vae_encode": marks["denoise"] - marks["encode"],
+              "denoise": marks["decode"] - marks["denoise"],
+              "decode": t_end - marks["decode"], "total": t_end - t0}
+    log(f"[wan_i2v] request {width}x{height}x{frames} i2v-14B tier={mode} "
+        f"attention={tier}: tokens={f * (h // 2) * (w // 2)} a stream, "
+        f"steps={steps} " + " ".join(f"{k}={v:.3f} s" for k, v in
+                                    stages.items())
+        + f" peak={peak:.2f} GiB DiT resident={resident / 1e9:.3f} GB "
+        f"frames={list(frames_u8.shape)} latents_finite="
+        f"{checks['latents_finite']} pixels_finite={pixels_finite} "
+        f"launches={counts}")
+    assert frames_u8.shape == (frames, height, width, 3), frames_u8.shape
+    assert checks["latents_finite"] and pixels_finite
+    assert frames_u8.std() > 0, "constant frames"
+    must, must_not = wan_i2v_expect(mode, tier, steps,
+                                    pipe.model.cfg.num_layers,
+                                    clip.cfg.num_layers - 1)
+    bad = {k: (counts[k], n) for k, n in must.items() if counts[k] != n}
+    assert not bad and not any(counts[k] for k in must_not), \
+        (mode, tier, bad, counts)
+    return counts, stages, peak, resident
+
+
+def phase_wan_i2v(umt5):
+    """Build i2v-14B in two tiers, CLIP and the VAE with its encoder;
+    check the cuts against the plain versions; serve WAN_I2V_REQUESTS
+    with the Wan path's UMT5. Returns the launch counts per request."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.pipelines.wan import WanPipeline
+
+    dits, dense_cut, clip, clip_cut, vae = build_wan_i2v_models()
+    wan_i2v_reference_check(dense_cut)
+    clip_reference_check(clip_cut)
+    del dense_cut, clip_cut
+    launches = []
+    for mode, tier, steps in WAN_I2V_REQUESTS:
+        pipe = WanPipeline(dits[mode], vae)
+        launches.append(run_wan_i2v_request(pipe, umt5, clip, mode, tier,
+                                            steps)[0])
+        torch.cuda.empty_cache()
+    return launches
 
 
 # --------------------------------------------------------------------------
@@ -3995,6 +4466,7 @@ def main(argv=None) -> int:
     k4_err = phase_k4(gen)
     k3_err = phase_k3(gen)
     k3q_err = phase_k3q(gen)
+    k1_d80_err, k4_d80_err = phase_d80(gen)
     k5_err = phase_k5(gen)
     k6_err = phase_k6(gen)
     k1f_err = phase_k1f(gen)
@@ -4027,7 +4499,13 @@ def main(argv=None) -> int:
     wan_launches, pipe, umt5 = phase_wan()
     if args.profile:
         profile_wan(pipe, umt5)
+    del pipe                 # free Wan t2v-1.3B; i2v-14B keeps UMT5
+    torch.cuda.empty_cache()
     log(f"[clock] Wan path done at {time.perf_counter() - t_start:.0f} s")
+    i2v_launches = phase_wan_i2v(umt5)
+    del umt5
+    torch.cuda.empty_cache()
+    log(f"[clock] Wan i2v path done at {time.perf_counter() - t_start:.0f} s")
     by_tier = dict(zip((m for *_, m in WAN_REQUESTS), wan_launches))
     tier_b, tier_c, tier_d = (t[0] for t in LTX13B_TIERS[1:4])
     k2_key = f"K2 {K2_TIMED}"
@@ -4079,6 +4557,19 @@ def main(argv=None) -> int:
         kernel_entry("flash_attention_fp32 (fp32 attention on split-TF32 "
                      "wgmma, FP32_POLICY)", K1F_SOURCE, K1F_REPLACES,
                      fp32_launches["K1f"], k1f_err, times, info, "K1f self"),
+    ]
+    # CLIP's attention at d = 80 in the i2v requests: K4 under auto
+    # (request 1), K1 with the exact tier pinned (request 2)
+    by_req = dict(zip((t for _, t, _ in WAN_I2V_REQUESTS), i2v_launches))
+    kernels += [
+        kernel_entry("flash_attention (exact online softmax, d=80: CLIP "
+                     "ViT-H/14's heads in the D=128 layout)", K1_SOURCE,
+                     K1_REPLACES, by_req["pallas"]["K1d80"], k1_d80_err,
+                     times, info, "K1 CLIP d=80"),
+        kernel_entry("flash_attention_int8 (int8 QK + int8 PV, d=80: CLIP "
+                     "ViT-H/14's heads in the D=128 layout)", K4_SOURCE,
+                     K4_REPLACES, by_req["auto"]["K4d80"], k4_d80_err,
+                     times, info, "K4 CLIP d=80"),
     ]
     next(k for k in kernels if k["source"] == K8_SOURCE)["ms_by_nsub"] = {
         str(n): times[f"K8 nsub {n}"][0] for n in (1, 2, 4, 8)}

@@ -128,9 +128,3 @@ def wan_vae_decoder_state_dict(params: dict) -> dict:
     encoder and its ``conv1`` are dropped)."""
     keep = {k: v for k, v in params.items() if k not in ("encoder", "conv1")}
     return state_dict(keep)
-
-
-def wan_vae_state_dict(params: dict) -> dict:
-    """Wan ``models/wan/vae.init_params`` tree -> ``WanVAE`` (the encoder,
-    its ``conv1`` and the decoder)."""
-    return state_dict(params)

@@ -456,11 +456,12 @@ def forward(model: WanModel, x, t, context, context_mask, freqs,
 
 
 @torch.no_grad()
-def init_params(model: WanModel, generator: torch.Generator) -> WanModel:
+def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random weights in the JAX ``init_params`` distribution: linear
     kernels N(0, 1/d_in), zero biases, unit norm weights, the patch
-    conv N(0, 1/fan_in), modulation tables N(0, 1/D). Draws on the
-    model's device from ``generator``."""
+    conv N(0, 1/fan_in), modulation tables N(0, 1/D). ``model`` is a
+    :class:`WanModel` or one :class:`Block` (a layer-by-layer build).
+    Draws on the model's device from ``generator``."""
     d = model.cfg.dim
 
     def randn(t):
@@ -472,9 +473,11 @@ def init_params(model: WanModel, generator: torch.Generator) -> WanModel:
             mod.weight.copy_(randn(mod.weight) * mod.d_in ** -0.5)
             if mod.bias is not None:
                 mod.bias.zero_()
-    pe = model.patch_embedding
-    pe.weight.copy_(randn(pe.weight) * math.prod(pe.weight.shape[1:]) ** -0.5)
-    pe.bias.zero_()
+    pe = getattr(model, "patch_embedding", None)
+    if pe is not None:
+        pe.weight.copy_(randn(pe.weight)
+                        * math.prod(pe.weight.shape[1:]) ** -0.5)
+        pe.bias.zero_()
     for name, p in model.named_parameters():
         if name.endswith("modulation"):
             p.copy_(randn(p) / d ** 0.5)

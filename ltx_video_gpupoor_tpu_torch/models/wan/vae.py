@@ -422,15 +422,15 @@ def _encode_raw(vae: WanVAE, x: torch.Tensor, chunk) -> torch.Tensor:
 
 
 def encode(vae: WanVAE, video: torch.Tensor, normalize: bool = True,
-           any_end_frame: bool = False,
-           chunk: int | None = ENCODE_CHUNK_FRAMES) -> torch.Tensor:
+           any_end_frame: bool = False) -> torch.Tensor:
     """video ``[B, F, H, W, 3]`` in [-1, 1] -> the posterior mean ``[B,
     F', H/8, W/8, z]`` (normalized by the latent statistics unless
     ``normalize=False``), in the policy's compute dtype. F is 4k+1 (4k+2
     with ``any_end_frame``, whose last frame is encoded alone, from a
-    fresh causal state, and appended). ``chunk``: the frames a stride-1
-    layer computes at a time (None: the whole clip at once); the result
-    is the same function either way."""
+    fresh causal state, and appended). Each stride-1 layer computes
+    :data:`ENCODE_CHUNK_FRAMES` frames at a time (None: the whole clip at
+    once): the same function either way."""
+    chunk = ENCODE_CHUNK_FRAMES
     x = video.to(vae.compute_dtype).permute(0, 4, 1, 2, 3)
     if any_end_frame:
         x = torch.cat([_encode_raw(vae, x[:, :, :-1], chunk),

@@ -286,8 +286,8 @@ def flash_attention(
     :func:`bounded_attention_plain`); CUDA tensors launch K1 (K3 with a
     bound; bf16, D in {64, 80, 128}; both run the block instance that
     :func:`mask_kind` names), K1f for fp32 operands, or raise. The output has q's dtype and, on
-    the card, q's memory layout. K1 launches count in ``launches``, K3's
-    in ``bounded_launches``."""
+    the card, q's memory layout. K1 launches count in ``launches`` (and by
+    head dim in ``launches_by_d``), K3's in ``bounded_launches``."""
     _check_seg_pair(q_segment_ids, kv_segment_ids)
     if q.device.type == "cpu":
         if score_bound is not None:
@@ -331,6 +331,8 @@ def flash_attention(
             *args, kind, scale_log2, _lib.stream_ptr(q.device))
         _lib.check(code, "K1 flash_attention launch")
         flash_attention.launches += 1
+        by_d = flash_attention.launches_by_d
+        by_d[d] = by_d.get(d, 0) + 1
     else:
         code = _lib.library().k3_flash_attention_bounded_bf16(
             *args, kind, scale_log2,
@@ -343,6 +345,8 @@ def flash_attention(
 
 flash_attention.launches = 0
 flash_attention.bounded_launches = 0
+# K1's launches by head dim (its D=80 instance is CLIP's)
+flash_attention.launches_by_d = {}
 
 
 # --------------------------------------------------------------------------
@@ -911,7 +915,8 @@ def int8_attention_cuda(
     """Launch K4 on prologue operands that lie on the card, or with
     ``score_bound`` K3q (QK tier operands only); the result is bf16,
     written into ``out`` (any 16-byte aligned layout) if given. Each
-    launch adds one to ``flash_attention_int8.launches`` (K4) or
+    launch adds one to ``flash_attention_int8.launches`` (K4; and to its
+    head dim's entry of ``flash_attention_int8.launches_by_d``) or
     ``flash_attention_int8.bounded_launches`` (K3q)."""
     from . import _lib
 
@@ -947,6 +952,8 @@ def int8_attention_cuda(
             int(pv_int8), kind, _lib.stream_ptr(ops.q8.device))
         _lib.check(code, "K4 flash_attention_int8 launch")
         flash_attention_int8.launches += 1
+        by_d = flash_attention_int8.launches_by_d
+        by_d[d] = by_d.get(d, 0) + 1
     else:
         code = _lib.library().k3q_flash_attention_int8_bounded(
             *args, *shape, ops.k_scale.shape[2], valid, int(bool(causal)),
@@ -1003,6 +1010,8 @@ def flash_attention_int8(
 
 flash_attention_int8.launches = 0
 flash_attention_int8.bounded_launches = 0
+# K4's launches by head dim (its D=80 instance is CLIP's)
+flash_attention_int8.launches_by_d = {}
 
 
 # --------------------------------------------------------------------------

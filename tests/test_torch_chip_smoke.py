@@ -69,13 +69,13 @@ def test_summarize_trace_counts_overlap_once(tmp_path):
         "K2 / K5 int8 GEMM": (1.0, 1),
         "cuDNN conv3d (VAE)": (0.5, 1),
         "PyTorch elementwise and copies: casts and copies": (0.5, 1)}
-    # the bounded tiers (K3: the instances of K1's kernel whose last
+    # the bounded tiers (K3: the instances of K1's kernel whose fourth
     # template argument is true; K3q: its own kernel), K5's row kernel and
     # the two instances of K2's row kernel (by its CONTRACT argument) have
     # groups of their own
     trace["traceEvents"] += [
         ev("kernel", "void (anonymous namespace)::flash_wgmma_kernel"
-           "<128, 2, false, true>(...)", 5000.0, 250.0),
+           "<128, 2, false, true, 128>(...)", 5000.0, 250.0),
         ev("kernel", "void (anonymous namespace)::k3q_wgmma_kernel"
            "<128, 0>(...)", 5250.0, 50.0),
         ev("kernel", "norm_mod_quantize_rows_kernel<__nv_bfloat16, 1, 8>"
@@ -191,7 +191,7 @@ def _stubbed_main(monkeypatch, capsys, argv):
         "phase_build": 1.0, "phase_k1": 0.0, "phase_k2": (0.0, 0.0),
         "phase_prologue": 0.0,
         "phase_k4": (0.0, 0.0), "phase_k3": 0.0, "phase_k3q": 0.0,
-        "phase_k5": 0.0,
+        "phase_d80": (0.0, 0.0), "phase_k5": 0.0,
         "phase_k6": 0.0, "phase_k1f": 0.0, "phase_timing": (timed, info),
         "time_k1f": None,
         "phase_k8": (0.0, 1), "phase_k7": (0.0, 1),
@@ -201,6 +201,7 @@ def _stubbed_main(monkeypatch, capsys, argv):
         "phase_load": ones, "phase_cli": None,
         "phase_wan": ([ones] * len(chip_smoke.WAN_REQUESTS), object(),
                       object()),
+        "phase_wan_i2v": [ones] * len(chip_smoke.WAN_I2V_REQUESTS),
     }
     for name, result in results.items():
         def stub(*args, _name=name, _result=result, **kwargs):
@@ -218,7 +219,7 @@ def _stubbed_main(monkeypatch, capsys, argv):
 
 KERNEL_PHASES = ["phase_device", "phase_build", "phase_k1", "phase_k2",
                  "phase_prologue", "phase_k4", "phase_k3", "phase_k3q",
-                 "phase_k5", "phase_k6", "phase_k1f",
+                 "phase_d80", "phase_k5", "phase_k6", "phase_k1f",
                  "phase_timing", "time_k1f", "phase_k8", "phase_k7"]
 
 
@@ -235,11 +236,16 @@ def test_default_run_drives_every_path_and_ends_with_the_result(
     assert code == 0
     assert ran == KERNEL_PHASES + ["phase_path", "phase_teacache",
                                    "phase_fp32", "phase_ltx13b",
-                                   "phase_load", "phase_cli", "phase_wan"]
+                                   "phase_load", "phase_cli", "phase_wan",
+                                   "phase_wan_i2v"]
     assert json.loads(lines[-1]) == {"ok": True, "device": {
         "platform": "gpu", "kind": "a card", "count": 1}}
     kernels = json.loads(lines[-2])["kernels"]
-    assert len(kernels) == 13
+    assert len(kernels) == 15
+    # CLIP's head dim of 80: K1's and K4's D=80 instances, own entries
+    d80 = [k for k in kernels if "d=80" in k["name"]]
+    assert [k["source"].rsplit("/", 1)[1] for k in d80] == [
+        "flash_attention_wgmma.cu", "flash_attention_int8.cu"]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert all(keys <= set(k) for k in kernels)

@@ -39,6 +39,16 @@ ATOL = 1e-5
 PSNR_BAR_DB = 40.0
 
 
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """The plain ops on the calling thread alone (the fresh-thread
+    ``torch.exp`` effect of ``tests/test_torch_kernels.py``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _psnr(a, b):
     a = np.asarray(a, np.float64)
     b = np.asarray(b, np.float64)

@@ -98,6 +98,10 @@ def _within_two_ulps(kern, plain):
     # causal from a tile edge on; segments over three kv tiles
     (64, 512, 512, False, True, None, "general"),
     (128, 300, 300, True, False, None, "general"),
+    # d = 80 (CLIP ViT-H/14's heads, 257 tokens) in the D=128 layout
+    (80, 257, 257, False, False, None, "tail"),
+    (80, 256, 512, False, False, 384, "none"),
+    (80, 300, 300, True, False, None, "general"),
 ])
 def test_k1_matches_plain(cuda, d, sq, skv, seg, causal, kv_valid, kind):
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -272,6 +276,8 @@ def _k4_tile_ok(ops, kern, tile, *args, **kw):
     (64, 200, 200, False, True, None, 128),      # causal: general
     (128, 256, 512, False, False, None, 256),    # no mask code: none
     (64, 384, 384, False, False, 256, 128),      # kv_valid on a tile: none
+    (80, 257, 257, False, False, None, 4096),    # CLIP's heads and tokens
+    (80, 130, 77, True, False, None, 4096),      # d = 80, text segments
 ])
 def test_k4_matches_plain(cuda, pv_int8, d, sq, skv, seg, causal, kv_valid,
                           block_kv):
@@ -747,3 +753,22 @@ def test_k5_fp32_row_instance_matches_plain(cuda):
                                           rows_per_group=m // g)
     assert out.dtype == torch.float32
     torch.testing.assert_close(out, plain, rtol=1e-2, atol=1e-5)
+
+
+def test_int4_unpack_on_the_card_equals_the_cpu(cuda):
+    """The int4 weight-only tier's unpack (int8 shifts and masks) gives
+    the CPU's codes for every byte, and its dequantized weight the CPU's
+    bit for bit, per group and per channel."""
+    from ltx_video_gpupoor_tpu_torch.ops import quant as tq
+
+    packed = torch.arange(-128, 128, dtype=torch.int8).reshape(2, 128)
+    torch.testing.assert_close(tq.unpack_int4(packed.to(cuda)).cpu(),
+                               tq.unpack_int4(packed), atol=0, rtol=0)
+    gen = torch.Generator().manual_seed(5)
+    for din, group in ((256, 64), (96, 64)):
+        q = tq.quantize_weights_int4(torch.randn(40, din, generator=gen),
+                                     group_size=group)
+        on_card = tq.QuantizedLinear4(q.w_int4.to(cuda), q.scale.to(cuda))
+        torch.testing.assert_close(
+            tq.dequantize_int4(on_card, torch.bfloat16).cpu(),
+            tq.dequantize_int4(q, torch.bfloat16), atol=0, rtol=0)

@@ -264,12 +264,15 @@ def test_wan_dit_rejects_unported_branches():
             model(*args, freqs, **kw)
     jargs = (jp, jwm.WanConfig(**DIT_KW), *map(jnp.asarray, (x, t, ctx, mask)),
              jrope.wan_rope_freqs(grid, 128))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)     # the fresh-thread exp of test_torch_kernels
     with torch.no_grad():
         plain, res = model(*args, freqs, attn_mode="pallas")
         with_clip, _ = model(*args, freqs, attn_mode="pallas",
                              clip_features=torch.ones(1, 257, 1280))
         skip, skip_res = model(*args, freqs, previous_residual=res,
                                compute=False)
+    torch.set_num_threads(threads)
     assert torch.equal(plain, with_clip)
     ref, _ = jwm.forward(*jargs, previous_residual=jnp.asarray(res.numpy()),
                          compute=False)
