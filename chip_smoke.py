@@ -289,6 +289,7 @@ nonzero and prints no result. It needs CUDA and this repository.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import re
@@ -3113,6 +3114,10 @@ def phase_load():
         assert launches["K2"] > 0 and launches["K4"] > 0, launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
+        # the loaded stack (held by ``seen``) leaves the card now, not at
+        # the cyclic collector's next pass
+        seen.clear()
+        gc.collect()
         torch.cuda.empty_cache()
     return launches
 
@@ -4500,6 +4505,7 @@ def main(argv=None) -> int:
     if args.profile:
         profile_wan(pipe, umt5)
     del pipe                 # free Wan t2v-1.3B; i2v-14B keeps UMT5
+    gc.collect()
     torch.cuda.empty_cache()
     log(f"[clock] Wan path done at {time.perf_counter() - t_start:.0f} s")
     i2v_launches = phase_wan_i2v(umt5)
