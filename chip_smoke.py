@@ -251,21 +251,25 @@ Phases, one output line each (or a few):
             computed, K4 launches = 2 x 30 x steps computed.
 8b. wan_i2v the 1.3B DiT is freed; Wan 2.1 i2v-14B at full width and depth
             (40 layers, dim 5120, 40x128 heads, ffn 13824, in_dim 36),
-            built one block at a time and quantized as it goes into two
-            DiTs of the same weights (dynamic, mixed_int4), CLIP ViT-H/14
-            (32 blocks of 1280, 16x80 heads) and the Wan VAE with its
-            encoder, random weights from seeds: a 2-layer cut of the DiT
-            against the CPU plain versions in each of dynamic, wo, wo_int4
-            and mixed_int4, CLIP's first two blocks the same way (K4 at
-            D=80), then two 832x480x81 image-to-video requests through a
+            built one block at a time and quantized as it goes, in one
+            tier at a time (the same weights from the seed in each), CLIP
+            ViT-H/14 (32 blocks of 1280, 16x80 heads) and the Wan VAE with
+            its encoder, random weights from seeds: a 2-layer cut of the
+            DiT against the CPU plain versions in each of dynamic, wo,
+            wo_int4 and mixed_int4, CLIP's first two blocks the same way
+            (K4 at D=80), then three image-to-video requests through a
             UMT5 encode (the Wan path's), CLIP visual on the seeded image
             resized to 224, and WanPipeline.generate_i2v (the whole clip
             VAE-encoded, 4 frames at a time a layer; UniPC; tiled decode):
-            (1) dynamic, attention auto, 4 steps (K4 at D=128 and D=80, K2,
-            K2p), (2) mixed_int4 with the exact tier pinned, 2 steps (K1 at
-            D=128 and D=80, no K2); seconds by stage (UMT5, CLIP, VAE
-            encode, denoise, decode), peak GiB, the DiT's resident bytes;
-            the launch counts must equal wan_i2v_expect.
+            (1) 832x480x81, dynamic, attention auto, 4 steps (K4 at D=128
+            and D=80, K2, K2p); the dynamic DiT is freed and the
+            mixed_int4 one built; (2) 832x480x81, mixed_int4, auto, 2
+            steps (K4 at both head dims, no K2); (3) 832x480x17,
+            mixed_int4 with the exact tier pinned, 1 step (K1 at D=128 and
+            D=80); seconds by stage (UMT5, CLIP, VAE encode, denoise,
+            decode), peak GiB (UMT5-XXL, CLIP, the VAE and the one DiT
+            resident), the DiT's resident bytes; the launch counts must
+            equal wan_i2v_expect.
 9. profile  only with --profile: one more 704x480x121 LTX-2B request, one
             more 13B request of kinds (b), (c) and (d) and one more
             832x480x81 Wan request, each twice under torch.profiler: as it
@@ -392,6 +396,14 @@ K2_SHAPES = [
     ("wan cross k/v 1536->1536 M=1024", 1024, 1536, 1536, "bf16"),
     ("wan text 4096->1536 M=1024", 1024, 4096, 1536, "bf16"),
     ("wan time_projection 1536->9216 M=2", 2, 1536, 9216, "fp32"),
+    # Wan 2.1 i2v-14B at 832x480x81 (dynamic tier): the blocks' linears
+    # over both CFG streams, the image k/v and img_emb over 2 x 257 CLIP
+    # tokens
+    ("i2v-14B qkvo 5120->5120", 2 * 32760, 5120, 5120, "bf16"),
+    ("i2v-14B ffn_in 5120->13824", 2 * 32760, 5120, 13824, "bf16"),
+    ("i2v-14B ffn_out 13824->5120", 2 * 32760, 13824, 5120, "bf16"),
+    ("i2v-14B image k/v 5120->5120 M=514", 2 * 257, 5120, 5120, "bf16"),
+    ("i2v-14B img_emb 1280->5120 M=514", 2 * 257, 1280, 5120, "bf16"),
 ]
 K2_TIMED = "wan ffn_in 1536->8960"
 K2_ROWS_TIMED = "wan ffn_out 8960->1536"   # the longest rows of the Wan path
@@ -415,6 +427,11 @@ K2_PLANTED = "13B pass 2 ffn_in 4096->16384"
 # Wan 2.1 1.3B attention shapes (B, H, Sq, Skv, D)
 WAN_SELF = (2, 12, 32760, 32760, 128)
 WAN_CROSS = (2, 12, 32760, 512, 128)
+# Wan 2.1 i2v-14B at 832x480x81: 40 heads; the text cross-attention (512
+# padded T5 tokens under segments) and the image cross-attention (257 CLIP
+# tokens, no mask: the last 128-row kv tile holds one key)
+WAN_I2V_TEXT_CROSS = (2, 40, 32760, 512, 128)
+WAN_I2V_IMAGE_CROSS = (2, 40, 32760, 257, 128)
 # (H, W, F, attention tier); the exact tier at 832x480x81 beside the
 # default (int8 QK+PV) one says which a served request should pin; the
 # default one comes last (the kernels line reads its launches)
@@ -806,6 +823,16 @@ def phase_k1(gen):
         errs.append(_k1_case(f"13B self-attention pass {i + 1}", *shape,
                              packed=True, plant=i == 1, gen=gen)[0])
         torch.cuda.empty_cache()
+    # the i2v-14B path with the exact tier pinned
+    errs.append(_k1_case("i2v image cross-attention", *WAN_I2V_IMAGE_CROSS,
+                         packed=True, plant=True, gen=gen)[0])
+    e, out, _ = _k1_case("i2v text cross-attention", *WAN_I2V_TEXT_CROSS,
+                         packed=True, seg=_cross_segments, gen=gen)
+    errs.append(e)
+    assert float(out[0, :, 17].float().abs().max()) == 0.0, \
+        "K1: a row with no valid key must be 0"
+    del out
+    torch.cuda.empty_cache()
     errs.append(_k1_case("ragged S, kv_valid", 2, 4, 1000, 1000, 64,
                          kv_valid=777, gen=gen)[0])
     errs.append(_k1_case("ragged causal", 1, 2, 333, 333, 128, causal=True,
@@ -1087,8 +1114,8 @@ def _k4_case(name, b, h, sq, skv, d, *, pv_int8, gen, packed=False,
 
 
 def phase_k4(gen):
-    """Both tiers at the Wan and the 13B shapes and at the edges; returns
-    the worst error per tier."""
+    """Both tiers at the Wan t2v, Wan i2v and 13B shapes and at the
+    edges; returns the worst error per tier."""
     import torch
 
     from ltx_video_gpupoor_tpu_torch.ops import flash_attention as fa
@@ -1100,6 +1127,14 @@ def phase_k4(gen):
         errs[pv].append(_k4_case("wan cross-attention", *WAN_CROSS,
                                  pv_int8=pv, gen=gen, packed=True,
                                  seg=_cross_segments))
+        # the i2v-14B path under auto
+        errs[pv].append(_k4_case("i2v image cross-attention",
+                                 *WAN_I2V_IMAGE_CROSS, pv_int8=pv, gen=gen,
+                                 packed=True, plant=True))
+        errs[pv].append(_k4_case("i2v text cross-attention",
+                                 *WAN_I2V_TEXT_CROSS, pv_int8=pv, gen=gen,
+                                 packed=True, seg=_cross_segments))
+        torch.cuda.empty_cache()
         # the 13B path: tier (a) runs both attentions through K4
         for i, shape in enumerate(LTX13B_SELF):
             errs[pv].append(_k4_case(f"13B self-attention pass {i + 1}",
@@ -3875,11 +3910,14 @@ def phase_wan():
 # phase 8b: Wan 2.1 i2v-14B
 # --------------------------------------------------------------------------
 
-WAN_I2V_REQUEST = (480, 832, 81)
-# (quantize_params mode, attention tier, UniPC steps): the default tier,
-# then the mixed int4 tier with the exact attention pinned (as a served Wan
-# request pins it on the H100), which runs K1 at both head dims
-WAN_I2V_REQUESTS = [("dynamic", "auto", 4), ("mixed_int4", "pallas", 2)]
+# (quantize_params mode, attention tier, UniPC steps, (H, W, F)): the
+# default tier, the mixed int4 tier under auto (one DiT resident at a time,
+# so each peak is its tier's), then a short request in the mixed int4 tier
+# with the exact attention pinned (as a served Wan request pins it on the
+# H100), which runs K1 at both head dims
+WAN_I2V_REQUESTS = [("dynamic", "auto", 4, (480, 832, 81)),
+                    ("mixed_int4", "auto", 2, (480, 832, 81)),
+                    ("mixed_int4", "pallas", 1, (480, 832, 17))]
 WAN_I2V_CUT_TIERS = ("dynamic", "wo", "wo_int4", "mixed_int4")
 WAN_I2V_CUT_GRID = (2, 6, 10)      # latent frames, token rows, token columns
 CLIP_CUT_BLOCKS = 2
@@ -3916,45 +3954,61 @@ def _resident_bytes(module):
                for t in module.state_dict().values())
 
 
-def build_wan_i2v_models():
+def build_wan_i2v_dit(mode, keep_cut=False):
     """Wan 2.1 i2v-14B at full width and depth, built one block at a time
-    from the seed and quantized as it goes in two tiers (``dynamic`` and
-    ``mixed_int4``: the same weights, two DiTs), CLIP ViT-H/14 (32 blocks
-    of 1280) and the Wan VAE with its encoder; also the dense bf16 weights
-    of the DiT's first two blocks and of everything outside the blocks,
-    and of CLIP's first two blocks, on the CPU."""
-    import copy
+    from the seed and quantized to ``mode`` as it goes (the same weights
+    in every tier); with ``keep_cut`` also the dense bf16 weights of its
+    first two blocks and of everything outside the blocks, on the CPU."""
     import dataclasses
 
     import torch
 
     from ltx_video_gpupoor_tpu_torch.core.dtypes import DEFAULT_POLICY
-    from ltx_video_gpupoor_tpu_torch.models.wan import clip as wc
     from ltx_video_gpupoor_tpu_torch.models.wan import model as wm
-    from ltx_video_gpupoor_tpu_torch.models.wan import vae as wv
     from ltx_video_gpupoor_tpu_torch.ops.quant import quantize_params
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     cfg = wm.WAN_I2V_14B
     g = torch.Generator(device=dev).manual_seed(SEED + 30)
-    base = wm.init_params(wm.WanModel(
+    dit = wm.init_params(wm.WanModel(
         dataclasses.replace(cfg, num_layers=0), DEFAULT_POLICY, device=dev),
         g)
-    base.cfg = cfg
-    dense_cut = {k: v.cpu() for k, v in base.state_dict().items()}
-    dits = {"dynamic": base, "mixed_int4": copy.deepcopy(base)}
-    for mode, dit in dits.items():
-        quantize_params(dit, mode=mode)
+    dit.cfg = cfg
+    dense_cut = {k: v.cpu() for k, v in dit.state_dict().items()} \
+        if keep_cut else None
+    n_dense = sum(t.numel() for t in dit.state_dict().values())
+    quantize_params(dit, mode=mode)
     kw = dict(device=dev, dtype=DEFAULT_POLICY.param_dtype)
     for i in range(cfg.num_layers):
         blk = wm.init_params(wm.Block(cfg, **kw), g)
-        if i < 2:
+        n_dense += sum(t.numel() for t in blk.state_dict().values())
+        if keep_cut and i < 2:
             dense_cut.update({f"blocks.{i}.{k}": v.cpu()
                               for k, v in blk.state_dict().items()})
-        dits["mixed_int4"].blocks.append(
-            quantize_params(copy.deepcopy(blk), mode="mixed_int4"))
-        dits["dynamic"].blocks.append(quantize_params(blk, mode="dynamic"))
+        dit.blocks.append(quantize_params(blk, mode=mode))
+    torch.cuda.synchronize()
+    log(f"[wan_i2v] built i2v-14B ({cfg.num_layers} layers, dim {cfg.dim}, "
+        f"{cfg.num_heads}x{cfg.head_dim} heads, ffn {cfg.ffn_dim}, in_dim "
+        f"{cfg.in_dim}; layer by layer) in tier {mode}: resident "
+        f"{_resident_bytes(dit) / 1e9:.3f} GB (dense bf16 would be "
+        f"{2 * n_dense / 1e9:.3f} GB) in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    return dit, dense_cut
+
+
+def build_wan_i2v_encoders():
+    """CLIP ViT-H/14 (32 blocks of 1280) and the Wan VAE with its encoder
+    from seeds; also the dense weights of CLIP's first two blocks and of
+    everything outside its blocks, on the CPU."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.core.dtypes import DEFAULT_POLICY
+    from ltx_video_gpupoor_tpu_torch.models.wan import clip as wc
+    from ltx_video_gpupoor_tpu_torch.models.wan import vae as wv
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
     clip = wc.init_params(wc.CLIPVision(wc.CLIPVisionConfig(), DEFAULT_POLICY,
                                         device=dev),
                           torch.Generator(device=dev).manual_seed(SEED + 31))
@@ -3965,20 +4019,12 @@ def build_wan_i2v_models():
                                    device=dev),
                          torch.Generator(device=dev).manual_seed(SEED + 32))
     torch.cuda.synchronize()
-    n_dense = sum(t.numel() for k, t in dits["dynamic"].state_dict().items()
-                  if not k.endswith(".scale"))
-    log(f"[wan_i2v] built i2v-14B ({cfg.num_layers} layers, dim {cfg.dim}, "
-        f"{cfg.num_heads}x{cfg.head_dim} heads, ffn {cfg.ffn_dim}, in_dim "
-        f"{cfg.in_dim}; layer by layer) in two tiers, resident "
-        + ", ".join(f"{m} {_resident_bytes(d) / 1e9:.3f} GB"
-                    for m, d in dits.items())
-        + f" (dense bf16 would be {2 * n_dense / 1e9:.3f} GB); "
-        f"CLIP ViT-H/14 ({clip.cfg.num_layers} blocks of {clip.cfg.dim}, "
-        f"{clip.cfg.num_heads}x{clip.cfg.dim // clip.cfg.num_heads} heads, "
-        f"{_resident_bytes(clip) / 1e9:.3f} GB), Wan VAE with encoder in "
-        f"{time.perf_counter() - t0:.1f} s; "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    return dits, dense_cut, clip, clip_cut, vae
+    log(f"[wan_i2v] built CLIP ViT-H/14 ({clip.cfg.num_layers} blocks of "
+        f"{clip.cfg.dim}, {clip.cfg.num_heads}x"
+        f"{clip.cfg.dim // clip.cfg.num_heads} heads, "
+        f"{_resident_bytes(clip) / 1e9:.3f} GB) and the Wan VAE with its "
+        f"encoder in {time.perf_counter() - t0:.1f} s")
+    return clip, clip_cut, vae
 
 
 def wan_i2v_reference_check(dense_cut):
@@ -4087,7 +4133,7 @@ def clip_reference_check(clip_cut):
     return db
 
 
-def run_wan_i2v_request(pipe, umt5, clip, mode, tier, steps):
+def run_wan_i2v_request(pipe, umt5, clip, mode, tier, steps, shape):
     """One image-to-video request: UMT5, CLIP (the first frame resized to
     224 bicubic), then ``generate_i2v`` (the VAE encode of the
     conditioning clip, the denoise, the tiled decode) to pixels."""
@@ -4096,7 +4142,7 @@ def run_wan_i2v_request(pipe, umt5, clip, mode, tier, steps):
     from ltx_video_gpupoor_tpu_torch.models.wan import clip as wc
     from ltx_video_gpupoor_tpu_torch.ops.attention import set_attention_mode
 
-    height, width, frames = WAN_I2V_REQUEST
+    height, width, frames = shape
     marks, checks = {}, {}
 
     def on_stage(name, value):
@@ -4144,7 +4190,8 @@ def run_wan_i2v_request(pipe, umt5, clip, mode, tier, steps):
         f"attention={tier}: tokens={f * (h // 2) * (w // 2)} a stream, "
         f"steps={steps} " + " ".join(f"{k}={v:.3f} s" for k, v in
                                     stages.items())
-        + f" peak={peak:.2f} GiB DiT resident={resident / 1e9:.3f} GB "
+        + f" peak={peak:.2f} GiB (UMT5-XXL, CLIP, VAE and this DiT "
+        f"resident) DiT resident={resident / 1e9:.3f} GB "
         f"frames={list(frames_u8.shape)} latents_finite="
         f"{checks['latents_finite']} pixels_finite={pixels_finite} "
         f"launches={counts}")
@@ -4161,22 +4208,30 @@ def run_wan_i2v_request(pipe, umt5, clip, mode, tier, steps):
 
 
 def phase_wan_i2v(umt5):
-    """Build i2v-14B in two tiers, CLIP and the VAE with its encoder;
-    check the cuts against the plain versions; serve WAN_I2V_REQUESTS
-    with the Wan path's UMT5. Returns the launch counts per request."""
+    """Build i2v-14B, CLIP and the VAE with its encoder; check the cuts
+    against the plain versions; serve WAN_I2V_REQUESTS with the Wan path's
+    UMT5, one tier's DiT on the card at a time. Returns the launch counts
+    per request."""
     import torch
 
     from ltx_video_gpupoor_tpu_torch.pipelines.wan import WanPipeline
 
-    dits, dense_cut, clip, clip_cut, vae = build_wan_i2v_models()
+    mode = WAN_I2V_REQUESTS[0][0]
+    dit, dense_cut = build_wan_i2v_dit(mode, keep_cut=True)
+    clip, clip_cut, vae = build_wan_i2v_encoders()
     wan_i2v_reference_check(dense_cut)
     clip_reference_check(clip_cut)
     del dense_cut, clip_cut
     launches = []
-    for mode, tier, steps in WAN_I2V_REQUESTS:
-        pipe = WanPipeline(dits[mode], vae)
-        launches.append(run_wan_i2v_request(pipe, umt5, clip, mode, tier,
-                                            steps)[0])
+    for req_mode, tier, steps, shape in WAN_I2V_REQUESTS:
+        if req_mode != mode:
+            del dit            # free one tier's DiT before the next is built
+            gc.collect()
+            torch.cuda.empty_cache()
+            mode = req_mode
+            dit, _ = build_wan_i2v_dit(mode)
+        launches.append(run_wan_i2v_request(
+            WanPipeline(dit, vae), umt5, clip, mode, tier, steps, shape)[0])
         torch.cuda.empty_cache()
     return launches
 
@@ -4565,16 +4620,16 @@ def main(argv=None) -> int:
                      fp32_launches["K1f"], k1f_err, times, info, "K1f self"),
     ]
     # CLIP's attention at d = 80 in the i2v requests: K4 under auto
-    # (request 1), K1 with the exact tier pinned (request 2)
-    by_req = dict(zip((t for _, t, _ in WAN_I2V_REQUESTS), i2v_launches))
+    # (requests 1 and 2), K1 with the exact tier pinned (request 3)
+    i2v_d80 = {k: sum(c[k] for c in i2v_launches) for k in ("K1d80", "K4d80")}
     kernels += [
         kernel_entry("flash_attention (exact online softmax, d=80: CLIP "
                      "ViT-H/14's heads in the D=128 layout)", K1_SOURCE,
-                     K1_REPLACES, by_req["pallas"]["K1d80"], k1_d80_err,
+                     K1_REPLACES, i2v_d80["K1d80"], k1_d80_err,
                      times, info, "K1 CLIP d=80"),
         kernel_entry("flash_attention_int8 (int8 QK + int8 PV, d=80: CLIP "
                      "ViT-H/14's heads in the D=128 layout)", K4_SOURCE,
-                     K4_REPLACES, by_req["auto"]["K4d80"], k4_d80_err,
+                     K4_REPLACES, i2v_d80["K4d80"], k4_d80_err,
                      times, info, "K4 CLIP d=80"),
     ]
     next(k for k in kernels if k["source"] == K8_SOURCE)["ms_by_nsub"] = {

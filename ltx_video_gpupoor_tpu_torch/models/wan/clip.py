@@ -14,10 +14,11 @@ JAX calls it: ``auto`` at the head dim of 80 resolves to the int8 QK+PV
 tier, kernel K4 on the card (its D = 80 instance). The linears are dense
 (``x @ kernel + bias`` in the activation dtype, as JAX's ``_block``).
 
-``resize_bicubic`` is torch's bicubic (``align_corners=False``, no
-antialias), the reference's call; ``jax.image.resize``'s bicubic kernel
-is Keys' with a = -0.5 where torch's takes -0.75, so the two resizes
-agree on smooth images (about 60 dB) but not to the last bit.
+``resize_bicubic`` computes what the JAX package's does,
+``jax.image.resize(..., "bicubic", antialias=False)``: Keys' cubic with
+a = -0.5 (torch's ``F.interpolate`` bicubic takes -0.75, a different
+function), its weights renormalized over the taps that fall inside the
+image, one weight matrix a spatial axis.
 """
 
 from __future__ import annotations
@@ -163,12 +164,39 @@ def visual(model: CLIPVision, images: torch.Tensor,
     return x
 
 
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """Keys' cubic convolution kernel with a = -0.5, at ``x >= 0``."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
+def _resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:
+    """``[n_in, n_out]``: output sample j at ``(j + 0.5) n_in / n_out -
+    0.5``, the kernel at its distance to each input pixel, each column
+    divided by its sum (0 where the sum is about 0 or the sample lies
+    outside the image), in fp32 as ``jax.image``'s weight matrix."""
+    inv_scale = 1.0 / (n_out / n_in)
+    sample = (torch.arange(n_out, dtype=torch.float32, device=device)
+              + 0.5) * inv_scale - 0.5
+    pos = torch.arange(n_in, dtype=torch.float32, device=device)
+    w = _keys_cubic((sample[None, :] - pos[:, None]).abs())
+    total = w.sum(dim=0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                    w / torch.where(total != 0, total, 1.0),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
 def resize_bicubic(image: torch.Tensor, size: int) -> torch.Tensor:
-    """``[B, H, W, C]`` -> ``[B, size, size, C]``, torch's bicubic with
-    ``align_corners=False`` and no antialias (the reference's resize)."""
-    y = F.interpolate(image.permute(0, 3, 1, 2), size=(size, size),
-                      mode="bicubic", align_corners=False, antialias=False)
-    return y.permute(0, 2, 3, 1)
+    """``[B, H, W, C]`` -> ``[B, size, size, C]``: JAX's bicubic resize
+    without antialias (the reference's ``F.interpolate(mode="bicubic",
+    align_corners=False)`` call as the JAX package computes it)."""
+    b, h, w, c = image.shape
+    wh = _resize_weights(h, size, image.device).to(image.dtype)
+    ww = _resize_weights(w, size, image.device).to(image.dtype)
+    return torch.einsum("bhwc,hp,wq->bpqc", image, wh, ww)
 
 
 @torch.no_grad()

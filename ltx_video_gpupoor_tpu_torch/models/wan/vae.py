@@ -276,11 +276,6 @@ def _causal_chunked(p: Conv, x, chunk, fn=None):
 def _residual_block(p: ResBlock, x, chunk=None):
     """The residual block; ``chunk`` frames at a time in each layer where
     given."""
-    if chunk is None:
-        h = causal_conv3d(p.conv1, F.silu(wan_rms_norm(p.norm1, x)))
-        h = causal_conv3d(p.conv2, F.silu(wan_rms_norm(p.norm2, h)))
-        sc = causal_conv3d(p.shortcut, x) if p.shortcut is not None else x
-        return sc + h
     h = _causal_chunked(p.conv1, x, chunk,
                         lambda t: F.silu(wan_rms_norm(p.norm1, t)))
     h = _causal_chunked(p.conv2, h, chunk,

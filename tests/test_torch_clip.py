@@ -8,9 +8,10 @@ the two agree to 1e-5. In the port ``auto`` at d = 80 is the int8 QK+PV
 tier (K4), as JAX resolves it on the TPU; it is held against JAX's
 ``pallas_int8pv`` Pallas kernel run in interpret mode (a test-side
 patch), which pads the 257 tokens to 384 with a kv tail the port's call
-does not need. ``resize_bicubic`` is torch's bicubic, the reference's
-call; JAX's ``jax.image.resize`` uses another cubic kernel (Keys a = -0.5
-against torch's -0.75), so the two are held apart only on a smooth image.
+does not need. ``resize_bicubic`` computes JAX's ``jax.image.resize``
+bicubic (Keys a = -0.5, no antialias), which is not torch's
+``F.interpolate`` bicubic (a = -0.75); the two are held to 1e-5 on a
+smooth image and to 1e-4 on random ones, down and up.
 """
 
 import functools
@@ -118,19 +119,45 @@ def test_visual_auto_tier_is_k4_and_matches_jax_int8pv(clip_pair,
 
 
 def test_resize_bicubic_is_torch_bicubic_near_jax():
-    """The port's resize is torch's bicubic exactly (the reference's
-    call); on a smooth image it lies within the oracle bar of JAX's
-    ``jax.image.resize(..., "bicubic", antialias=False)``."""
+    """On a smooth image the port's resize is JAX's
+    ``jax.image.resize(..., "bicubic", antialias=False)`` to 1e-5, and
+    not torch's own bicubic (Keys a = -0.75), which lies about 5e-4
+    apart."""
     yy, xx = np.meshgrid(np.linspace(0, 1, 480), np.linspace(0, 1, 832),
                          indexing="ij")
     img = np.stack([np.sin(3 * xx + 2 * yy), np.cos(5 * yy), xx * yy - 0.5],
                    -1)[None].astype(np.float32)
     out = tclip.resize_bicubic(torch.from_numpy(img), 224)
-    want = F.interpolate(torch.from_numpy(img).permute(0, 3, 1, 2),
-                         size=(224, 224), mode="bicubic",
-                         align_corners=False).permute(0, 2, 3, 1)
-    assert torch.equal(out, want) and tuple(out.shape) == (1, 224, 224, 3)
-    ref = jclip.resize_bicubic(jnp.asarray(img), 224)
-    assert _psnr(ref, out) >= PSNR_BAR_DB, f"{_psnr(ref, out):.2f} dB"
+    assert tuple(out.shape) == (1, 224, 224, 3)
+    ref = np.asarray(jclip.resize_bicubic(jnp.asarray(img), 224))
+    np.testing.assert_allclose(out.numpy(), ref, atol=ATOL, rtol=0)
+    torch_bicubic = F.interpolate(
+        torch.from_numpy(img).permute(0, 3, 1, 2), size=(224, 224),
+        mode="bicubic", align_corners=False).permute(0, 2, 3, 1)
+    assert float(np.abs(torch_bicubic.numpy() - ref).max()) > 20 * ATOL
     np.testing.assert_array_equal(tclip.CLIP_MEAN, jclip.CLIP_MEAN)
     np.testing.assert_array_equal(tclip.CLIP_STD, jclip.CLIP_STD)
+
+
+@pytest.mark.parametrize("h, w, size", [(480, 832, 224), (100, 150, 224),
+                                        (224, 224, 224), (37, 53, 16)])
+def test_resize_bicubic_matches_jax_on_random_images(h, w, size):
+    """Uniform noise in [-1, 1], where a cubic kernel's sign changes and
+    the renormalized border taps show: down, up, the identity and an odd
+    downscale, each to 1e-4 of JAX's resize, while torch's own bicubic
+    lies more than 1e-2 off. The port's eager fp32 weights are within
+    2e-7 of the same resize in float64; XLA's compiled weight matrix is up
+    to 4e-5 off it (480 -> 224), which sets the bar."""
+    img = np.random.default_rng(h * w).uniform(
+        -1, 1, (2, h, w, 3)).astype(np.float32)
+    out = tclip.resize_bicubic(torch.from_numpy(img), size)
+    ref = np.asarray(jclip.resize_bicubic(jnp.asarray(img), size))
+    assert out.shape == ref.shape == (2, size, size, 3)
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-4, rtol=0)
+    exact = tclip.resize_bicubic(torch.from_numpy(img).double(), size)
+    np.testing.assert_allclose(out.numpy(), exact.numpy(), atol=1e-6, rtol=0)
+    if (h, w) != (size, size):
+        torch_bicubic = F.interpolate(
+            torch.from_numpy(img).permute(0, 3, 1, 2), size=(size, size),
+            mode="bicubic", align_corners=False).permute(0, 2, 3, 1)
+        assert float(np.abs(torch_bicubic.numpy() - ref).max()) > 1e-2
