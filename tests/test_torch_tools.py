@@ -154,3 +154,15 @@ def test_port_and_chip_smoke_name_no_jax_import():
     assert len(files) > 40
     bad = [f for f in files if pat.search(open(f).read())]
     assert not bad, bad
+
+
+@pytest.mark.parametrize("seed, d", [(14, 64), (12, 80)])
+def test_k4_order_gap_passes_the_block_cap_on_some_draws(seed, d):
+    """K4's plain version stepped by the kernel's tile and by JAX's kv
+    block lies past ``chip_smoke.py``'s ``K4_BLOCK_MAX`` on these draws
+    in the QK+PV tier (P codes rounded against other maxima), and far
+    inside it in the QK tier."""
+    from ltx_video_gpupoor_tpu_torch.tools import k4_order_gap as og
+
+    assert og.order_gap(seed, d, pv_int8=True) > og.K4_BLOCK_MAX
+    assert og.order_gap(seed, d, pv_int8=False) < og.K4_BLOCK_MAX / 10
