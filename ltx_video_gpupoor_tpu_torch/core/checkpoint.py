@@ -792,8 +792,12 @@ def convert_wan_model(sd: dict[str, torch.Tensor], cfg,
     ``models/wan/model.WanModel``: the blocks' and the text and image
     embeddings' linears in ``dtype``, the time path, the head, the norms,
     the modulation tables and the patch conv in fp32, as JAX's converter
-    keeps them. The weights of branches the port does not run yet (VACE,
-    ReCamMaster, fps) are left out."""
+    keeps them; the variants' keys where the file has them (JAX :730-800):
+    ReCamMaster's ``blocks.N.cam_encoder`` / ``projector``, the fps
+    conditioning's ``fps_embedding`` and ``fps_projection.{0,2}``, VACE's
+    ``vace_patch_embedding`` and ``vace_blocks.N`` (blocks with
+    ``after_proj``, and ``before_proj`` on the first), those projections
+    and embeddings in fp32 as JAX keeps them."""
     def lin(prefix, d=dtype):
         p = {"kernel": _cast(sd[prefix + ".weight"], d)}
         if prefix + ".bias" in sd:
@@ -817,7 +821,7 @@ def convert_wan_model(sd: dict[str, torch.Tensor], cfg,
             p["norm_k_img"] = norm_w(prefix + ".norm_k_img")
         return p
 
-    def block(prefix):
+    def block(prefix, vace=False):
         p = {"modulation": _cast(sd[prefix + ".modulation"], torch.float32),
              "self_attn": attn(prefix + ".self_attn"),
              "cross_attn": attn(prefix + ".cross_attn", img=True),
@@ -825,6 +829,13 @@ def convert_wan_model(sd: dict[str, torch.Tensor], cfg,
                      "fc2": lin(prefix + ".ffn.2")}}
         if prefix + ".norm3.weight" in sd:
             p["norm3"] = norm_w(prefix + ".norm3", bias=True)
+        if prefix + ".cam_encoder.weight" in sd:
+            p["cam_encoder"] = lin(prefix + ".cam_encoder", torch.float32)
+            p["projector"] = lin(prefix + ".projector", torch.float32)
+        if vace:
+            p["after_proj"] = lin(prefix + ".after_proj", torch.float32)
+            if prefix + ".before_proj.weight" in sd:
+                p["before_proj"] = lin(prefix + ".before_proj", torch.float32)
         return p
 
     params: dict[str, Any] = {
@@ -848,6 +859,21 @@ def convert_wan_model(sd: dict[str, torch.Tensor], cfg,
             "fc2": lin("img_emb.proj.3"),
             "norm_out": norm_w("img_emb.proj.4", bias=True),
         }
+    if "fps_embedding.weight" in sd:
+        params["fps_embedding"] = _cast(sd["fps_embedding.weight"],
+                                        torch.float32)
+        params["fps_projection"] = {
+            "fc1": lin("fps_projection.0", torch.float32),
+            "fc2": lin("fps_projection.2", torch.float32)}
+    if "vace_patch_embedding.weight" in sd:
+        params["vace_patch_embedding"] = {
+            "kernel": _cast(sd["vace_patch_embedding.weight"], torch.float32),
+            "bias": _cast(sd["vace_patch_embedding.bias"], torch.float32)}
+        n_vace = 0
+        while f"vace_blocks.{n_vace}.after_proj.weight" in sd:
+            n_vace += 1
+        params["vace_blocks"] = [block(f"vace_blocks.{i}", vace=True)
+                                 for i in range(n_vace)]
     return _flatten(params)
 
 

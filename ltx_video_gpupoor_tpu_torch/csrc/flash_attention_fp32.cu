@@ -26,7 +26,10 @@
 // as the prologue writes it for K4: int8 V^T [B, H, D, Spad] in K4's kv
 // order inside each 32-row chunk (k4_v_layout). Masks: a static kv_valid
 // tail, segment ids (attend iff q_seg == kv_seg and kv_seg > 0) and
-// causal; a row that sees no key returns exactly 0. Head dims 64 and 128;
+// causal; a row that sees no key returns exactly 0. Head dims 64 and 128,
+// and 80 in the D=128 layout (the producer reads 80 columns of each row
+// and zero-fills the rest, 80 are stored, and pv8's denominator sums the
+// codes as at D=64);
 // any strides with a unit last stride, so head-split views of [B, S, H*D]
 // projections and the head-packed layout of K6 are read in place.
 //
@@ -206,18 +209,24 @@ __device__ __forceinline__ float quad_sum(float l) {
 // registers and stores it later, so that the next tile's loads are in
 // flight while the consumers work.
 
-// fp32 rows [row0, row0 + R) of an [S, D] operand (row stride ld floats;
-// rows at or past n read as 0): R * D / 4 float4, D / 4 a row; stored at
-// row r_off of a tile of PR rows
-template <int D, int R, int PR = R>
+// fp32 rows [row0, row0 + R) of an [S, DV] operand (row stride ld floats;
+// rows at or past n read as 0), D / 4 float4 a row in shared memory;
+// stored at row r_off of a tile of PR rows. With DV < D the threads take
+// the DV / 4 float4 of each row that hold values (PACKED: no register
+// goes to the columns past DV) and zero_tail writes those columns' zeros
+// once, before the first tile.
+template <int D, int R, int PR = R, int DV = D>
 struct RowsF32 {
-  static constexpr int N = R * D / 4 / 128;
+  static constexpr bool PACKED = DV < D && (R * DV / 4) % 128 == 0;
+  static_assert(DV == D || PACKED, "whole float4 units a thread");
+  static constexpr int W = DV / 4;  // float4 a row that hold values
+  static constexpr int N = R * W / 128;
   float4 v[N];
   __device__ __forceinline__ void load(const float* src, long long ld,
                                        int row0, int n, int tid) {
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      const int u = tid + 128 * i, r = u / (D / 4), c4 = u % (D / 4);
+      const int u = tid + 128 * i, r = u / W, c4 = u % W;
       v[i] = row0 + r < n
                  ? __ldg(reinterpret_cast<const float4*>(
                        src + (long long)(row0 + r) * ld + c4 * 4))
@@ -229,7 +238,7 @@ struct RowsF32 {
                                         int r_off = 0) const {
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      const int u = tid + 128 * i, r = u / (D / 4) + r_off, c4 = u % (D / 4);
+      const int u = tid + 128 * i, r = u / W + r_off, c4 = u % W;
       const int off = (c4 >> 3) * (PR * 128) + swz<128>(r, c4 & 7);
       uint4 big, small;
       split4(v[i], big, small);
@@ -237,11 +246,23 @@ struct RowsF32 {
       *reinterpret_cast<uint4*>(dst + PR * D * 4 + off) = small;
     }
   }
+  // zeros in columns DV .. D - 1 of all PR rows, big and small
+  static __device__ __forceinline__ void zero_tail(uint8_t* dst, int tid) {
+    constexpr int TAIL = (D - DV) / 4;
+    for (int i = tid; i < PR * TAIL; i += 128) {
+      const int r = i / TAIL, c4 = W + i % TAIL;
+      const int off = (c4 >> 3) * (PR * 128) + swz<128>(r, c4 & 7);
+      *reinterpret_cast<uint4*>(dst + off) = make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(dst + PR * D * 4 + off) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
 };
 
-// int8 rows [row0, row0 + R) of an [S, D] operand: R * D / 16 chunks of
-// 16 bytes, in rows of D bytes (the 64-byte swizzle at D=64)
-template <int D, int R>
+// int8 rows [row0, row0 + R) of an [S, DV] operand: R * D / 16 chunks of
+// 16 bytes (those at or past DV read as 0), in rows of D bytes (the
+// 64-byte swizzle at D=64)
+template <int D, int R, int DV = D>
 struct RowsS8 {
   static constexpr int N = R * D / 16 / 128;
   uint4 v[N];
@@ -250,7 +271,7 @@ struct RowsS8 {
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       const int u = tid + 128 * i, r = u / (D / 16), c = u % (D / 16);
-      v[i] = row0 + r < n
+      v[i] = row0 + r < n && c * 16 < DV
                  ? __ldg(reinterpret_cast<const uint4*>(
                        src + (long long)(row0 + r) * ld + c * 16))
                  : make_uint4(0u, 0u, 0u, 0u);
@@ -269,7 +290,11 @@ struct RowsS8 {
 // 32 kv (128-byte rows), kv row 2t + i of each 8-row group at k index
 // t + 4i. A unit is four kv rows that land in one 16-byte chunk (rows
 // 8 g + h + {0, 2, 4, 6} of a panel at chunk 2 g + h) by four d values.
-template <int D, int BKV>
+// Rows d of V^T at or past DV are neither read nor written: they reach
+// only the output columns that are not stored. A unit whose d values lie
+// past DV for every thread (constant once the loop is unrolled) holds no
+// registers.
+template <int D, int BKV, int DV = D>
 struct VtF32 {
   static constexpr int UNITS = (BKV / 4) * (D / 4) / 128;
   float4 v[4 * UNITS];
@@ -277,13 +302,14 @@ struct VtF32 {
                                        int row0, int n, int tid) {
 #pragma unroll
     for (int i = 0; i < UNITS; ++i) {
+      if ((128 * i) / (BKV / 4) * 4 >= DV) continue;
       const int u = tid + 128 * i, kq = u % (BKV / 4), c = u / (BKV / 4);
       const int cp = kq & 7;
       const int kv = (kq >> 3) * 32 + (cp >> 1) * 8 + (cp & 1);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int row = row0 + kv + 2 * e;
-        v[4 * i + e] = row < n
+        v[4 * i + e] = row < n && c * 4 < DV
                            ? __ldg(reinterpret_cast<const float4*>(
                                  src + (long long)row * ld + c * 4))
                            : make_float4(0.f, 0.f, 0.f, 0.f);
@@ -293,6 +319,7 @@ struct VtF32 {
   __device__ __forceinline__ void store(uint8_t* dst, int tid) const {
 #pragma unroll
     for (int i = 0; i < UNITS; ++i) {
+      if ((128 * i) / (BKV / 4) * 4 >= DV) continue;
       const int u = tid + 128 * i, kq = u % (BKV / 4), c = u / (BKV / 4);
 #pragma unroll
       for (int dd = 0; dd < 4; ++dd) {
@@ -310,9 +337,11 @@ struct VtF32 {
   }
 };
 
-// int8 V^T columns [col0, col0 + 64) of K4's [D, Spad] codes (d stride
-// ld), copied as they are into rows of 64 bytes (64-byte swizzle)
-template <int D>
+// int8 V^T columns [col0, col0 + 64) of K4's [DV, Spad] codes (d stride
+// ld), copied as they are into rows of 64 bytes (64-byte swizzle); rows d
+// at or past DV are neither read nor written (as in VtF32: their output
+// columns are not stored, and their v scales are 0)
+template <int D, int DV = D>
 struct VtS8 {
   static constexpr int N = D * 4 / 128;
   uint4 v[N];
@@ -320,16 +349,22 @@ struct VtS8 {
                                        int col0, int, int tid) {
 #pragma unroll
     for (int i = 0; i < N; ++i) {
+      if (32 * i >= DV) continue;
       const int u = tid + 128 * i, d = u >> 2, c = u & 3;
-      v[i] = __ldg(reinterpret_cast<const uint4*>(src + d * ld + col0 +
-                                                  c * 16));
+      if (d < DV) {
+        v[i] = __ldg(reinterpret_cast<const uint4*>(src + d * ld + col0 +
+                                                    c * 16));
+      }
     }
   }
   __device__ __forceinline__ void store(uint8_t* dst, int tid) const {
 #pragma unroll
     for (int i = 0; i < N; ++i) {
+      if (32 * i >= DV) continue;
       const int u = tid + 128 * i;
-      *reinterpret_cast<uint4*>(dst + swz<64>(u >> 2, u & 3)) = v[i];
+      if ((u >> 2) < DV) {
+        *reinterpret_cast<uint4*>(dst + swz<64>(u >> 2, u & 3)) = v[i];
+      }
     }
   }
 };
@@ -440,6 +475,34 @@ __device__ __forceinline__ void wgmma_tf32_rs_n128(float (&d)[64], uint32_t a0, 
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
 }
 
+// the same with an 80 x 8 b (a head of 80: 80 output columns, 40
+// accumulator registers)
+__device__ __forceinline__ void wgmma_tf32_rs_n80(float (&d)[40], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
+}
+
 // d (64 x 64 s32) += a (64 x 32 int8, shared, K-major) * b (64 x 32 int8,
 // shared, K-major)^T; d is overwritten where scale_d == 0
 __device__ __forceinline__ void wgmma_s8_ss_n64(uint32_t (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d) {
@@ -534,10 +597,10 @@ __device__ __forceinline__ void qk_issue_f32(float (&sc)[BKV / 2],
 // k-step) in split TF32: Pb.Vs + Ps.Vb, then Pb.Vb; P from registers
 // (k-step kk: score columns 8 kk .. 8 kk + 7, registers 4 kk .. 4 kk + 3
 // of the accumulator layout, which are the A fragment's a0, a2, a1, a3),
-// V^T big at v (panels of 32 kv), small a tile (BKV kv rows) further.
-// Issued and committed.
-template <int D, int BKV, int KV>
-__device__ __forceinline__ void pv_issue_f32(float (&acc)[D / 2],
+// V^T big at v (panels of 32 kv), small a tile (BKV kv rows) further;
+// the first DV rows of V^T (output columns). Issued and committed.
+template <int D, int BKV, int KV, int DV = D>
+__device__ __forceinline__ void pv_issue_f32(float (&acc)[DV / 2],
                                              uint32_t (&pb)[KV / 2],
                                              uint32_t (&ps)[KV / 2],
                                              uint32_t v, int kk0) {
@@ -545,8 +608,11 @@ __device__ __forceinline__ void pv_issue_f32(float (&acc)[D / 2],
   auto mma = [&](const uint32_t (&a)[KV / 2], int kk, uint64_t db) {
     const int k = kk0 + kk;
     db += ((k >> 2) * VP + (k & 3) * 32) >> 4;
-    if constexpr (D == 64) {
+    if constexpr (DV == 64) {
       wgmma_tf32_rs_n64(acc, a[4 * kk], a[4 * kk + 2], a[4 * kk + 1],
+                        a[4 * kk + 3], db, 1);
+    } else if constexpr (DV == 80) {
+      wgmma_tf32_rs_n80(acc, a[4 * kk], a[4 * kk + 2], a[4 * kk + 1],
                         a[4 * kk + 3], db, 1);
     } else {
       wgmma_tf32_rs_n128(acc, a[4 * kk], a[4 * kk + 2], a[4 * kk + 1],
@@ -668,9 +734,11 @@ __device__ __forceinline__ void mask_scores(float (&x)[N], const Params& p,
 
 // ---- the kernel ---------------------------------------------------------------
 
-template <int D, int MASK, int VARIANT>
+// DV: the head's values, D or (80, in the D = 128 layout) fewer
+template <int D, int MASK, int VARIANT, int DV = D>
 __global__ void __launch_bounds__(K1F_THREADS, 1)
     flash_fp32_wgmma_kernel(const Params p) {
+  static_assert(DV <= D && DV % 16 == 0, "whole 16-byte int8 chunks a row");
   using C = Cfg1f<D, VARIANT>;
   constexpr int BKV = C::BKV, STAGES = C::STAGES;
   constexpr bool INT8_QK = C::INT8_QK, INT8_PV = C::INT8_PV;
@@ -705,7 +773,7 @@ __global__ void __launch_bounds__(K1F_THREADS, 1)
   }
   if (INT8_PV) {
     for (int i = threadIdx.x; i < D; i += K1F_THREADS) {
-      vsc_s[i] = p.v_scale[bh * D + i];
+      vsc_s[i] = i < DV ? p.v_scale[bh * DV + i] : 0.f;
     }
   }
   __syncthreads();
@@ -721,13 +789,21 @@ __global__ void __launch_bounds__(K1F_THREADS, 1)
     const char* vg = static_cast<const char*>(p.v) +
                      (b * p.vsb + h * p.vsh) * (INT8_PV ? 1 : 4);
     if constexpr (INT8_QK) {
-      RowsS8<D, K1F_BQ> qt;
+      RowsS8<D, K1F_BQ, DV> qt;
       qt.load(reinterpret_cast<const int8_t*>(qg), p.qss, q0, p.Sq, tid);
       qt.store(base_ptr, tid);
     } else {
+      if constexpr (DV < D) {  // Q's and every K stage's columns past DV
+        RowsF32<D, 32, K1F_BQ, DV>::zero_tail(base_ptr, tid);
+#pragma unroll 1
+        for (int st = 0; st < STAGES; ++st) {
+          RowsF32<D, BKV, BKV, DV>::zero_tail(
+              base_ptr + C::K_OFF + st * C::K_BYTES, tid);
+        }
+      }
 #pragma unroll 1
       for (int r = 0; r < K1F_BQ; r += 32) {
-        RowsF32<D, 32, K1F_BQ> qt;
+        RowsF32<D, 32, K1F_BQ, DV> qt;
         qt.load(reinterpret_cast<const float*>(qg), p.qss, q0 + r, p.Sq,
                 tid);
         qt.store(base_ptr, tid, r);
@@ -736,10 +812,10 @@ __global__ void __launch_bounds__(K1F_THREADS, 1)
     fence_async_shared();
     mbar_arrive(q_full);
 
-    using KT = typename std::conditional<INT8_QK, RowsS8<D, BKV>,
-                                         RowsF32<D, BKV>>::type;
-    using VT = typename std::conditional<INT8_PV, VtS8<D>,
-                                         VtF32<D, BKV>>::type;
+    using KT = typename std::conditional<INT8_QK, RowsS8<D, BKV, DV>,
+                                         RowsF32<D, BKV, BKV, DV>>::type;
+    using VT = typename std::conditional<INT8_PV, VtS8<D, DV>,
+                                         VtF32<D, BKV, DV>>::type;
     using KE = typename std::conditional<INT8_QK, int8_t, float>::type;
     using VE = typename std::conditional<INT8_PV, int8_t, float>::type;
     const KE* ksrc = reinterpret_cast<const KE*>(kg);
@@ -787,9 +863,11 @@ __global__ void __launch_bounds__(K1F_THREADS, 1)
   const uint32_t sQ = base + cw * (INT8_QK ? 64 * D : 64 * 128);
   const uint32_t sK = base + C::K_OFF, sV = base + C::V_OFF;
 
-  float acc[D / 2];
+  // the DV output columns only: a head of 80 keeps 40 accumulator
+  // registers (P.V on m64n80 wgmma; pv8's second half folds 16 columns)
+  float acc[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
   float m0 = M_FLOOR, m1 = M_FLOOR, l0 = 0.f, l1 = 0.f;
 
   // One kv tile; `masked` says at compile time whether it compares
@@ -873,7 +951,7 @@ __global__ void __launch_bounds__(K1F_THREADS, 1)
         x[4 * jn + 3] = ex2(x[4 * jn + 3] - off1);
       }
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
+      for (int n = 0; n < DV / 8; ++n) {
         acc[4 * n] *= a0;
         acc[4 * n + 1] *= a0;
         acc[4 * n + 2] *= a1;
@@ -891,7 +969,7 @@ __global__ void __launch_bounds__(K1F_THREADS, 1)
       uint32_t p8[8], pv[32];
       float cs0, cs1;
       pack_codes(x, p8, cs0, cs1);
-      if (D % 128) {  // JAX's ones column of V sums the codes
+      if (DV % 128) {  // JAX's ones column of V sums the codes
         ls0 = (cs0 * 127.f) * SUM_COL_SCALE;
         ls1 = (cs1 * 127.f) * SUM_COL_SCALE;
       }
@@ -903,6 +981,7 @@ __global__ void __launch_bounds__(K1F_THREADS, 1)
         pin(pv);
 #pragma unroll
         for (int n = 0; n < 8; ++n) {
+          if (64 * half + 8 * n >= DV) break;
           const int a = 32 * half + 4 * n;
           const float2 vs = *reinterpret_cast<const float2*>(
               vsc_s + 64 * half + n * 8 + 2 * t);
@@ -925,8 +1004,8 @@ __global__ void __launch_bounds__(K1F_THREADS, 1)
           pb[i] = tf32_rna(pe);
           ps[i] = tf32_rna(pe - __uint_as_float(pb[i]));
         }
-        pv_issue_f32<D, BKV, C::PVC>(acc, pb, ps, sV + s * C::V_BYTES,
-                                     c * (C::PVC / 8));
+        pv_issue_f32<D, BKV, C::PVC, DV>(acc, pb, ps, sV + s * C::V_BYTES,
+                                         c * (C::PVC / 8));
         wgmma_wait<0>();
         pin(acc);
       }
@@ -959,7 +1038,7 @@ __global__ void __launch_bounds__(K1F_THREADS, 1)
   const float d1 = l1 > 0.f ? l1 : 1.f;
   float* ob = p.out + b * p.osb + h * p.osh;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < DV / 8; ++n) {
     const int c = n * 8 + t * 2;
     if (r.row0 < p.Sq) {
       *reinterpret_cast<float2*>(ob + r.row0 * p.oss + c) =
@@ -972,9 +1051,9 @@ __global__ void __launch_bounds__(K1F_THREADS, 1)
   }
 }
 
-template <int D, int MASK, int VARIANT>
+template <int D, int MASK, int VARIANT, int DV>
 int launch(const Params& p, int B, cudaStream_t stream) {
-  auto kern = flash_fp32_wgmma_kernel<D, MASK, VARIANT>;
+  auto kern = flash_fp32_wgmma_kernel<D, MASK, VARIANT, DV>;
   constexpr int smem = Cfg1f<D, VARIANT>::SMEM_BYTES;
   // once an instance: a launch does no other host work
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -985,25 +1064,26 @@ int launch(const Params& p, int B, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, int MASK>
+template <int D, int MASK, int DV>
 int by_variant(const Params& p, int B, int variant, cudaStream_t s) {
   switch (variant) {
-    case EXACT: return launch<D, MASK, EXACT>(p, B, s);
-    case BOUNDED_V: return launch<D, MASK, BOUNDED_V>(p, B, s);
-    case QK8: return launch<D, MASK, QK8>(p, B, s);
-    case QK8_BOUNDED: return launch<D, MASK, QK8_BOUNDED>(p, B, s);
-    case PV8: return launch<D, MASK, PV8>(p, B, s);
+    case EXACT: return launch<D, MASK, EXACT, DV>(p, B, s);
+    case BOUNDED_V: return launch<D, MASK, BOUNDED_V, DV>(p, B, s);
+    case QK8: return launch<D, MASK, QK8, DV>(p, B, s);
+    case QK8_BOUNDED: return launch<D, MASK, QK8_BOUNDED, DV>(p, B, s);
+    case PV8: return launch<D, MASK, PV8, DV>(p, B, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int D>
+template <int D, int DV = D>
 int by_mask(const Params& p, int B, int mask_kind, int variant,
             cudaStream_t s) {
   switch (mask_kind) {
-    case MASK_NONE: return by_variant<D, MASK_NONE>(p, B, variant, s);
-    case MASK_TAIL: return by_variant<D, MASK_TAIL>(p, B, variant, s);
-    case MASK_GENERAL: return by_variant<D, MASK_GENERAL>(p, B, variant, s);
+    case MASK_NONE: return by_variant<D, MASK_NONE, DV>(p, B, variant, s);
+    case MASK_TAIL: return by_variant<D, MASK_TAIL, DV>(p, B, variant, s);
+    case MASK_GENERAL:
+      return by_variant<D, MASK_GENERAL, DV>(p, B, variant, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1078,5 +1158,8 @@ extern "C" int k1f_flash_attention_fp32(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) return by_mask<64>(p, B, mask_kind, variant, s);
   if (D == 128) return by_mask<128>(p, B, mask_kind, variant, s);
+  // a head of 80 in the D = 128 layout: 80 columns read (the rest of each
+  // row zero-filled in shared memory), 80 stored
+  if (D == 80) return by_mask<128, 80>(p, B, mask_kind, variant, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -729,7 +729,8 @@ __device__ __forceinline__ void softmax_bounded(float (&s)[64], float sb,
   }
 }
 
-template <int D, int MASK>
+// DV: the head's values, D or (80, in the D = 128 layout) fewer
+template <int D, int MASK, int DV = D>
 __global__ void __launch_bounds__(K3Q_THREADS, 1)
 k3q_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                  const __grid_constant__ CUtensorMap kmap,
@@ -742,7 +743,8 @@ k3q_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                  int kv_end, int causal, float bound_log2) {
   using C = K3qCfg<D>;
   constexpr int STAGES = C::STAGES;
-  constexpr bool SUM_ROUNDED = D % 128 != 0;  // JAX's sum_col
+  constexpr bool SUM_ROUNDED = DV % 128 != 0;  // JAX's sum_col
+  static_assert(DV <= D && DV % 8 == 0, "whole 16-byte chunks a row");
   extern __shared__ uint8_t smem_raw[];
 
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -988,7 +990,7 @@ k3q_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   uint8_t* stage = base_ptr + C::V_OFF;
   const int lr = wg * 64 + warp * 16 + g;  // this thread's first row
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < DV / 8; ++n) {
     const int cb = (n * 8 + t * 2) * 2;  // column bytes
     *reinterpret_cast<uint32_t*>(stage + lr * C::O_PITCH + cb) =
         pack_f(acc[4 * n] / d0, acc[4 * n + 1] / d0);
@@ -996,7 +998,7 @@ k3q_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         pack_f(acc[4 * n + 2] / d1, acc[4 * n + 3] / d1);
   }
   bar_sync(1, K3Q_CONSUMERS);
-  constexpr int CHUNKS = D / 8;  // 16-byte chunks a row
+  constexpr int CHUNKS = DV / 8;  // 16-byte chunks a row
   bf16* ob = o + b * osb + h * osh;
 #pragma unroll 4
   for (int i = threadIdx.x; i < BQ * CHUNKS; i += K3Q_CONSUMERS) {
@@ -1100,18 +1102,19 @@ int launch_kind(const Call& c, int mask_kind) {
   return launch_instance<D, PV8, MASK_GENERAL, DV>(c);
 }
 
-template <int D, int MASK>
+template <int D, int MASK, int DV>
 int launch_k3q(const Call& c) {
   CUtensorMap qmap = {}, kmap = {}, vmap = {};
   if (c.kv_end > 0) {  // with no key in sight the block loads nothing
     const bool ok =
-        make_qk_map(&qmap, c.q, D, D, c.Sq, c.H, c.B, c.qss, c.qsh, c.qsb) &&
-        make_qk_map(&kmap, c.k, D, D, c.Skv, c.H, c.B, c.kss, c.ksh,
+        make_qk_map(&qmap, c.q, D, DV, c.Sq, c.H, c.B, c.qss, c.qsh,
+                    c.qsb) &&
+        make_qk_map(&kmap, c.k, D, DV, c.Skv, c.H, c.B, c.kss, c.ksh,
                     c.ksb) &&
-        make_v_map(&vmap, c.v, D, c.Skv, c.H, c.B, c.vss, c.vsh, c.vsb);
+        make_v_map(&vmap, c.v, DV, c.Skv, c.H, c.B, c.vss, c.vsh, c.vsb);
     if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto kernel = k3q_wgmma_kernel<D, MASK>;
+  auto kernel = k3q_wgmma_kernel<D, MASK, DV>;
   constexpr int smem = K3qCfg<D>::SMEM_BYTES;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1124,11 +1127,11 @@ int launch_k3q(const Call& c) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, int DV = D>
 int launch_k3q_kind(const Call& c, int mask_kind) {
-  if (mask_kind == MASK_NONE) return launch_k3q<D, MASK_NONE>(c);
-  if (mask_kind == MASK_TAIL) return launch_k3q<D, MASK_TAIL>(c);
-  return launch_k3q<D, MASK_GENERAL>(c);
+  if (mask_kind == MASK_NONE) return launch_k3q<D, MASK_NONE, DV>(c);
+  if (mask_kind == MASK_TAIL) return launch_k3q<D, MASK_TAIL, DV>(c);
+  return launch_k3q<D, MASK_GENERAL, DV>(c);
 }
 
 // the call's kv_end from kv_valid; false where the mask kind masks less
@@ -1216,5 +1219,7 @@ extern "C" int k3q_flash_attention_int8_bounded(
   }
   if (D == 64) return launch_k3q_kind<64>(c, mask_kind);
   if (D == 128) return launch_k3q_kind<128>(c, mask_kind);
+  // a head of 80 in the D = 128 layout
+  if (D == 80) return launch_k3q_kind<128, 80>(c, mask_kind);
   return static_cast<int>(cudaErrorInvalidValue);
 }

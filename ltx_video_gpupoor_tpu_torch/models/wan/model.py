@@ -11,7 +11,14 @@ shared by the heads), ``_cross_attention`` (segment ids from
 ``time_modulation``, ``embed_text``, ``embed_clip`` (the i2v ``img_emb``
 MLP, :468) and ``forward`` (:480-593) with TeaCache's residual: each call
 returns ``out_tokens - in_tokens``, and ``compute=False`` skips the block
-stack and adds ``previous_residual`` instead.
+stack and adds ``previous_residual`` instead. The variants: fps
+conditioning (``inject_sample_info``: ``fps_embedding`` /
+``fps_projection`` add to the modulation table, :518-522), VACE
+(``vace_blocks`` with ``before_proj`` / ``after_proj`` and
+``vace_patch_embedding``: the hint stream ``_run_blocks_vace``, :632-674,
+each hint added as its block runs and held back where SLG skips the
+block) and ReCamMaster (``cam_encoder`` / ``projector`` in every block,
+``_encode_cam`` :596 and ``expand_cam_to_frames`` :617).
 
 The parameter tree becomes modules whose attribute names are the JAX
 keys (``core/from_jax.py`` relies on that); the per-layer ``lax.scan``
@@ -21,9 +28,6 @@ head dim 128 resolves to kernel K4 (``ops/attention.py``). Activations run
 in the policy's ``compute_dtype``; modulation and the timestep path stay
 fp32. The tokens live in ``[B, L, D]``, the latent video in JAX's
 channels-last ``[B, F, H, W, C]``.
-
-Not ported: VACE, ReCamMaster and fps conditioning, which raise
-``NotImplementedError`` naming their ROADMAP entry.
 """
 
 from __future__ import annotations
@@ -80,8 +84,7 @@ WAN_I2V_14B = WanConfig(
     model_type="i2v", dim=5120, ffn_dim=13824, num_heads=40, num_layers=40,
     in_dim=36)
 CLIP_DIM = 1280   # the CLIP ViT-H/14 features that i2v attends to
-
-_TO_PORT = "ROADMAP queue 1 step 13"
+CAM_DIM = 12      # ReCamMaster's pose row: a flattened [3, 4] camera
 
 
 def sinusoidal_embedding_1d(dim: int, position: torch.Tensor) -> torch.Tensor:
@@ -132,7 +135,13 @@ class _MLP(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: WanConfig, **kw):
+    """A DiT block; ``vace=True`` makes it a VACE hint block (text cross
+    attention whatever the model type, ``after_proj``, and ``before_proj``
+    on the first, ``first=True``). Under ``cfg.recammaster`` every block
+    has ReCamMaster's ``cam_encoder`` and ``projector``."""
+
+    def __init__(self, cfg: WanConfig, *, vace: bool = False,
+                 first: bool = False, **kw):
         super().__init__()
         self.cfg = cfg
         d = cfg.dim
@@ -140,14 +149,21 @@ class Block(nn.Module):
             torch.empty(1, 6, d, device=kw.get("device"),
                         dtype=kw.get("dtype")), requires_grad=False)
         self.self_attn = _Attn(cfg, **kw)
-        self.cross_attn = _Attn(cfg, cfg.model_type == "i2v", **kw)
+        self.cross_attn = _Attn(cfg, cfg.model_type == "i2v" and not vace,
+                                **kw)
         self.ffn = _MLP(d, cfg.ffn_dim, d, **kw)
         self.norm3 = _Weight(d, True, **kw) if cfg.cross_attn_norm else None
+        if cfg.recammaster:
+            _add_cam(self, **kw)
+        if vace:
+            self.after_proj = Linear(d, d, **kw)
+            if first:
+                self.before_proj = Linear(d, d, **kw)
 
     def forward(self, x, e0, freqs, context, context_mask, keep=None,
-                attn_mode="auto", img_context=None):
+                attn_mode="auto", img_context=None, cam=None):
         return block_forward(self, self.cfg, x, e0, freqs, context,
-                             context_mask, keep, attn_mode, img_context)
+                             context_mask, keep, attn_mode, img_context, cam)
 
 
 class _Head(nn.Module):
@@ -161,11 +177,12 @@ class _Head(nn.Module):
 
 
 class _PatchEmbed(nn.Module):
-    def __init__(self, cfg: WanConfig, *, device=None, dtype=torch.float32):
+    def __init__(self, cfg: WanConfig, in_dim: Optional[int] = None, *,
+                 device=None, dtype=torch.float32):
         super().__init__()
         self.weight = nn.Parameter(
-            torch.empty(cfg.dim, cfg.in_dim, *cfg.patch_size, device=device,
-                        dtype=dtype), requires_grad=False)
+            torch.empty(cfg.dim, in_dim or cfg.in_dim, *cfg.patch_size,
+                        device=device, dtype=dtype), requires_grad=False)
         self.bias = nn.Parameter(torch.zeros(cfg.dim, device=device,
                                              dtype=dtype), requires_grad=False)
 
@@ -182,6 +199,48 @@ class _ImgEmb(nn.Module):
         self.norm_out = _Weight(cfg.dim, True, **kw)
 
 
+def _add_cam(block: nn.Module, **kw) -> None:
+    """ReCamMaster's ``cam_encoder`` and ``projector`` on one block."""
+    d = block.cfg.dim
+    block.cam_encoder = Linear(CAM_DIM, d, **kw)
+    block.projector = Linear(d, d, **kw)
+
+
+def add_variant_modules(model: nn.Module, cfg: WanConfig,
+                        **kw) -> nn.Module:
+    """Give ``model`` (a :class:`WanModel`) the modules that ``cfg``'s
+    variants add and it lacks: the fps table and projection
+    (``inject_sample_info``), VACE's hint blocks and patch embedding
+    (``vace_layers``), ReCamMaster's ``cam_encoder`` / ``projector`` in
+    every block (``recammaster``); ``model.cfg`` (and each block's)
+    becomes ``cfg``. :class:`WanModel` builds its variants through this;
+    a built model takes them in place. ``kw``: device and dtype. Returns a
+    module holding just the new ones, under the model's names (the cameras
+    in ``cams``), for :func:`init_params`."""
+    new = nn.Module()
+    new.cfg = model.cfg = cfg
+    d = cfg.dim
+    if cfg.inject_sample_info and not hasattr(model, "fps_embedding"):
+        model.fps_embedding = new.fps_embedding = nn.Parameter(
+            torch.empty(2, d, **kw), requires_grad=False)
+        model.fps_projection = new.fps_projection = _MLP(d, d, 6 * d, **kw)
+    if cfg.vace_layers is not None and not hasattr(model, "vace_blocks"):
+        model.vace_blocks = new.vace_blocks = nn.ModuleList(
+            Block(cfg, vace=True, first=i == 0, **kw)
+            for i in range(len(cfg.vace_layers)))
+        model.vace_patch_embedding = new.vace_patch_embedding = _PatchEmbed(
+            cfg, cfg.vace_in_dim or cfg.in_dim, **kw)
+    cams = []
+    for blk in model.blocks:
+        blk.cfg = cfg
+        if cfg.recammaster and not hasattr(blk, "cam_encoder"):
+            _add_cam(blk, **kw)
+            cams.append(nn.ModuleDict({"cam_encoder": blk.cam_encoder,
+                                       "projector": blk.projector}))
+    new.cams = nn.ModuleList(cams)
+    return new
+
+
 class WanModel(nn.Module):
     """The denoiser; :meth:`forward` returns ``(velocity, residual)``."""
 
@@ -190,9 +249,6 @@ class WanModel(nn.Module):
         super().__init__()
         if cfg.model_type not in ("t2v", "i2v"):
             raise ValueError(f"Wan model_type {cfg.model_type!r}")
-        for flag in ("vace_layers", "recammaster", "inject_sample_info"):
-            if getattr(cfg, flag):
-                raise NotImplementedError(f"WanConfig.{flag}: {_TO_PORT}")
         self.cfg = cfg
         self.compute_dtype = policy.compute_dtype
         kw = dict(device=device, dtype=policy.param_dtype)
@@ -206,6 +262,7 @@ class WanModel(nn.Module):
         self.head = _Head(cfg, **kw)
         if cfg.model_type == "i2v":
             self.img_emb = _ImgEmb(cfg, **kw)
+        add_variant_modules(self, cfg, **kw)
 
     def forward(
         self,
@@ -215,25 +272,23 @@ class WanModel(nn.Module):
         context_mask: torch.Tensor,       # [B, text_len]
         freqs: tuple,                     # (cos, sin) [L, head_dim]
         clip_features=None,
-        vace_context=None,
+        vace_context: Optional[torch.Tensor] = None,   # [B, F, H, W, vace_in]
         slg_keep: Optional[torch.Tensor] = None,   # [num_layers, B] 1 = run
-        cam_emb=None,
-        fps_idx=None,
+        cam_emb: Optional[torch.Tensor] = None,    # [B, F', 12] camera poses
+        fps_idx: Optional[int] = None,
         previous_residual=None,
         compute: bool = True,
         attn_mode: str = "auto",
+        vace_scale: float = 1.0,
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        for name, val in (("vace_context", vace_context),
-                          ("cam_emb (ReCamMaster)", cam_emb),
-                          ("fps_idx", fps_idx)):
-            if val is not None:
-                raise NotImplementedError(f"Wan forward {name}: {_TO_PORT}")
         if not compute and previous_residual is None:
             raise ValueError("compute=False reuses previous_residual; none "
                              "was given")
         return forward(self, x, t, context, context_mask, freqs, slg_keep,
                        attn_mode, clip_features, previous_residual,
-                       bool(compute))
+                       bool(compute), vace_context=vace_context,
+                       vace_scale=vace_scale, cam_emb=cam_emb,
+                       fps_idx=fps_idx)
 
 
 def patch_embed(p: _PatchEmbed, cfg: WanConfig, video: torch.Tensor
@@ -348,15 +403,24 @@ def _ffn(cfg: WanConfig, p: _MLP, x):
 
 
 def block_forward(p: Block, cfg: WanConfig, x, e0, freqs, context,
-                  context_mask, keep=None, attn_mode="auto", img_context=None):
+                  context_mask, keep=None, attn_mode="auto", img_context=None,
+                  cam=None):
     """One block; ``e0 [B, G, 6, D]`` fp32, ``keep [B]`` (1 = run the
     block, 0 = skip it, SLG) or None; ``img_context [B, 257, D]`` (i2v)
-    or None."""
+    or None; ``cam [B, L, D]``, this block's encoded camera tokens
+    (:func:`_encode_cam`), or None: ReCamMaster adds them to the
+    self-attention's input and projects its output (only where poses are
+    given, as the reference does)."""
     e = p.modulation.float()[:, None] + e0           # [B, G, 6, D]
     e = [e[:, :, i].to(x.dtype) for i in range(6)]
     original = x
     h = _mod(layer_norm(x, eps=cfg.eps), e[0], e[1])
-    x = _gate(x, _self_attention(p.self_attn, cfg, h, freqs, attn_mode), e[2])
+    if cam is not None:
+        h = h + cam
+    y = _self_attention(p.self_attn, cfg, h, freqs, attn_mode)
+    if cam is not None:
+        y = p.projector(y)
+    x = _gate(x, y, e[2])
     if p.norm3 is not None:
         h = layer_norm(x, p.norm3.weight, p.norm3.bias, eps=cfg.eps)
     else:
@@ -404,18 +468,23 @@ def embed_clip(model: WanModel, clip_features: torch.Tensor) -> torch.Tensor:
 
 def forward(model: WanModel, x, t, context, context_mask, freqs,
             slg_keep=None, attn_mode="auto", clip_features=None,
-            previous_residual=None, compute=True):
+            previous_residual=None, compute=True, *, vace_context=None,
+            vace_scale=1.0, cam_emb=None, fps_idx=None):
     """One denoiser evaluation: (velocity ``[B, F, H, W, C_out]``, the
     token-space residual ``out_tokens - in_tokens``). ``clip_features``
     (i2v; ignored by a t2v model, as in JAX): ``[B, 257, 1280]``. With
     ``compute=False`` the block stack is skipped: the output tokens are
     the input tokens plus ``previous_residual``, which is returned as the
-    residual (TeaCache)."""
+    residual (TeaCache). ``vace_context [B, F, H, W, vace_in]`` runs the
+    VACE hint blocks (a model with ``vace_layers``), each hint times
+    ``vace_scale``; ``cam_emb [B, F', 12]`` the ReCamMaster pose rows;
+    ``fps_idx`` (0 for 16 fps, 1 otherwise) the fps conditioning of a
+    model with ``inject_sample_info``."""
     cfg = model.cfg
     dev = x.device
     tokens, grid = patch_embed(model.patch_embedding, cfg,
                                x.to(model.compute_dtype))
-    b = tokens.shape[0]
+    b, l = tokens.shape[:2]
     cos, sin = freqs
     if cos.shape[-1] == cfg.head_dim:
         # one conversion per forward: the blocks take the half layout
@@ -423,6 +492,11 @@ def forward(model: WanModel, x, t, context, context_mask, freqs,
     freqs = (cos.to(dev), sin.to(dev))
     t = torch.as_tensor(t, dtype=torch.float32, device=dev)
     e, e0 = time_modulation(model, cfg, t)
+    if cfg.inject_sample_info and fps_idx is not None:
+        fp = model.fps_projection
+        emb = model.fps_embedding[fps_idx].float()[None]
+        e0 = e0 + fp.fc2(F.silu(fp.fc1(emb))).float().reshape(
+            1, 1, 6, cfg.dim)
     if not compute:
         residual = previous_residual.to(device=dev, dtype=tokens.dtype)
         out = tokens + residual
@@ -436,13 +510,39 @@ def forward(model: WanModel, x, t, context, context_mask, freqs,
                 device=dev, dtype=tokens.dtype))
         if slg_keep is not None:
             slg_keep = torch.as_tensor(slg_keep).cpu()
+        if cam_emb is not None:
+            cam_emb = cam_emb.to(dev)
+        vace = {}
+        if cfg.vace_layers is not None and vace_context is not None:
+            vace = {layer: i for i, layer in enumerate(cfg.vace_layers)}
+            c, _ = patch_embed(model.vace_patch_embedding, cfg,
+                               vace_context.to(dev, tokens.dtype))
         out = tokens
         for i, blk in enumerate(model.blocks):
             keep = None
             # a layer whose streams all run needs no blend (x*1 + y*0 == x)
             if slg_keep is not None and bool((slg_keep[i] != 1).any()):
                 keep = slg_keep[i].to(dev)
-            out = blk(out, e0, freqs, ctx, cmask, keep, attn_mode, img_ctx)
+            cam = _encode_cam(blk, cfg, cam_emb, grid, b, l, out.dtype)
+            if i not in vace:
+                out = blk(out, e0, freqs, ctx, cmask, keep, attn_mode,
+                          img_ctx, cam)
+                continue
+            # a VACE hint block: it takes the embedded context (through
+            # before_proj) plus the tokens at the first hint layer, then
+            # its own stream; each hint is added as its layer runs
+            vp = model.vace_blocks[vace[i]]
+            if vace[i] == 0:
+                c = vp.before_proj(c) + out
+            c = vp(c, e0, freqs, ctx, cmask, None, attn_mode)
+            out = blk(out, e0, freqs, ctx, cmask, keep, attn_mode, img_ctx,
+                      cam)
+            hint = vp.after_proj(c) * vace_scale
+            if keep is not None:
+                # an SLG-skipped stream skips the whole block, hint included
+                hint = hint * keep.to(hint.dtype)[:, None, None]
+            out = out + hint
+            del hint
         residual = out - tokens
 
     # the head runs in fp32 whatever the policy: guidance multiplies the
@@ -455,11 +555,43 @@ def forward(model: WanModel, x, t, context, context_mask, freqs,
     return unpatchify(y, grid, cfg), residual
 
 
+def _encode_cam(p: Block, cfg: WanConfig, cam_emb, grid, b, l, dtype):
+    """ReCamMaster's camera tokens of one block: the pose rows ``[B, F',
+    12]`` through this block's ``cam_encoder``, tiled (a repeat of the
+    whole row list, as torch's ``.repeat(1, 2, 1)``) where they cover
+    fewer frames than the grid, one row a latent frame broadcast over (H,
+    W): ``[B, L, D]``. Rows that already cover the frames
+    (:func:`expand_cam_to_frames`) are not tiled. None without poses or
+    without a ``cam_encoder``."""
+    if cam_emb is None or not hasattr(p, "cam_encoder"):
+        return None
+    f, h, w = grid
+    ce = p.cam_encoder(cam_emb.to(dtype))
+    if ce.shape[1] < f:
+        ce = ce.repeat(1, 2, 1)                      # [B, 2F', D]
+    ce = ce[:, :f, None, None, :].expand(b, f, h, w, cfg.dim)
+    return ce.reshape(b, -1, cfg.dim)[:, :l]
+
+
+def expand_cam_to_frames(cam_emb: torch.Tensor,
+                         num_frames: int) -> torch.Tensor:
+    """Pose rows ``[B, F', 12]`` -> one a frame ``[B, F, 12]``, the frame
+    -> pose map of :func:`_encode_cam` (frame f takes row f, wrapping past
+    F')."""
+    tiled = torch.cat([cam_emb, cam_emb], dim=1)
+    if tiled.shape[1] < num_frames:
+        raise ValueError(f"cam_emb rows ({cam_emb.shape[1]}) cover at most "
+                         f"2x rows; need {num_frames} frames")
+    return tiled[:, :num_frames]
+
+
 @torch.no_grad()
 def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random weights in the JAX ``init_params`` distribution: linear
     kernels N(0, 1/d_in), zero biases, unit norm weights, the patch
-    conv N(0, 1/fan_in), modulation tables N(0, 1/D). ``model`` is a
+    convs N(0, 1/fan_in), modulation tables N(0, 1/D), the fps table
+    N(0, 0.02**2), ReCamMaster's projector the identity and VACE's
+    before / after projections zero. ``model`` is a
     :class:`WanModel` or one :class:`Block` (a layer-by-layer build).
     Draws on the model's device from ``generator``."""
     d = model.cfg.dim
@@ -473,12 +605,24 @@ def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
             mod.weight.copy_(randn(mod.weight) * mod.d_in ** -0.5)
             if mod.bias is not None:
                 mod.bias.zero_()
-    pe = getattr(model, "patch_embedding", None)
-    if pe is not None:
-        pe.weight.copy_(randn(pe.weight)
-                        * math.prod(pe.weight.shape[1:]) ** -0.5)
-        pe.bias.zero_()
+    for name in ("patch_embedding", "vace_patch_embedding"):
+        pe = getattr(model, name, None)
+        if pe is not None:
+            pe.weight.copy_(randn(pe.weight)
+                            * math.prod(pe.weight.shape[1:]) ** -0.5)
+            pe.bias.zero_()
     for name, p in model.named_parameters():
         if name.endswith("modulation"):
             p.copy_(randn(p) / d ** 0.5)
+        elif name == "fps_embedding":
+            p.copy_(randn(p) * 0.02)
+    # JAX's starting values: ReCamMaster's projector the identity, VACE's
+    # before / after projections zero
+    for mod in model.modules():
+        for name in ("projector", "before_proj", "after_proj"):
+            lin = getattr(mod, name, None)
+            if isinstance(lin, Linear) and not lin.quantized:
+                lin.weight.zero_()
+                if name == "projector":
+                    lin.weight.fill_diagonal_(1.0)
     return model

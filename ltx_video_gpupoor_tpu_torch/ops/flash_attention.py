@@ -96,6 +96,12 @@ K4_KV_ORDER = tuple(half + 2 * t + i for half in (0, 16) for t in range(4)
 # share of the mean |output|
 K4_TILE_FLIPS = 4
 K4_TILE_MEAN_REL = 5e-4
+# K4 against its plain version at JAX's kv block: the root mean square over
+# all elements of |difference| / (int8_tile_bound + int8_order_bound), which
+# a fault spread over many elements inside the elementwise bound exceeds;
+# the two plain versions read 0.0216-0.0312 of int8_order_bound on each
+# other (tools/k4_order_gap.py, 40 draws at D=64 and D=80 in both tiers)
+K4_ORDER_RMS = 0.05
 # K1/K6: the kv tile of csrc/flash_attention_wgmma.cu and the instances of
 # its block by the mask code they carry (the C entry's ``mask_kind``)
 K1_TILE_KV = 128
@@ -235,11 +241,10 @@ def _check_layout(kernel: str, name: str, t: torch.Tensor, dtype, device):
         raise ValueError(f"{name} strides must fit the kernel's int32")
 
 
-# the head dims each card kernel takes: K1, K3 and K4 run a head of 80
-# (CLIP ViT-H/14) in their D=128 layout; K3q and K1f at 80 are ROADMAP
-# queue 3 F7
+# the head dims each card kernel takes: K1, K3, K4, K3q and K1f run a head
+# of 80 (CLIP ViT-H/14) in their D=128 layout
 HEAD_DIMS = {"K1": (64, 80, 128), "K3": (64, 80, 128), "K4": (64, 80, 128),
-             "K3q": (64, 128), "K1f": (64, 128)}
+             "K3q": (64, 80, 128), "K1f": (64, 80, 128)}
 
 
 def _check_cuda_operands(q, k, v, q_seg, kv_seg, kernel="K1",
@@ -253,8 +258,7 @@ def _check_cuda_operands(q, k, v, q_seg, kv_seg, kernel="K1",
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if d not in HEAD_DIMS[kernel]:
         raise ValueError(f"{kernel} takes head dims {HEAD_DIMS[kernel]}, "
-                         f"got {d}"
-                         + (" (ROADMAP queue 3 F7)" if d == 80 else ""))
+                         f"got {d}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_layout(kernel, name, t, dtype, q.device)
     if q_seg is not None:
@@ -875,6 +879,109 @@ def int8_tile_bound(
     return flips + torch.ldexp(torch.ones_like(flips), e - 8)
 
 
+def int8_order_bound(
+    ops: Int8Operands,
+    plain: torch.Tensor,
+    q_segment_ids: torch.Tensor | None = None,
+    kv_segment_ids: torch.Tensor | None = None,
+    *,
+    causal: bool = False,
+    kv_valid: int | None = None,
+) -> torch.Tensor:
+    """How far the plain version stepped by ``K4_TILE_KV`` may lie from
+    ``plain``, the same version stepped by JAX's kv block (``ops.kv_block``,
+    a 128-multiple), element by element; both bf16.
+
+    The two quantize P against other running maxima. Write M for a row's
+    final max (exp2 domain) and ``w_j = T * 2**(s_j - M)`` for key j's
+    exact weight (T = 127 in the QK+PV tier, whose P codes are
+    ``round(127 * 2**(s - m))``; T = 1 in the QK tier, whose p is
+    rounded to bf16). Key j sees the running max ``a_j`` in the tile
+    order (the max through the end of its 128-row tile) and ``b_j`` in
+    the block order (through the end of its block), and enters the sum as
+    its rounded p times ``2**(m - M)``. Where ``a_j == b_j`` the two
+    round the same number and agree bit for bit. Elsewhere each rounding
+    is off ``w_j`` by at most ``min(0.5 * 2**(m - M), w_j)`` (a P code
+    is a step of 1 / 127 of its running max, times the rescale to M; a
+    code under one half rounds to 0), or ``2**-8 * w_j`` for a bf16 p (8
+    significant bits); so
+    ``|c_a - c_b| <= delta_j``, the sum of the two. With ``N = sum c_j
+    v_j`` and ``L`` the denominator,
+
+        |out_tile - out_block| <= (sum_j delta_j |v_j| + |out_block| *
+                                   dL) / L_tile,
+
+    where ``dL = sum_j delta_j`` where the denominator sums the rounded
+    p (a head dim off a 128-multiple: JAX's ones column) and 0 where it
+    sums the exact p, and ``L_tile >= T * mass - R`` with R the tile
+    order's rounding summed over every key in sight. ``|v_j|`` is the
+    dequantized V (codes times scales in the QK+PV tier). Then fp32's
+    share (2**-16 of max |v|, 2**-10 of the bound) and one bf16 ulp, as
+    both outputs are rounded to bf16. Keys a mask hides weigh nothing.
+    One pass over the scores, by JAX's block, with the tile maxima of
+    each block taken inside it."""
+    b, h, sq, d = ops.q8.shape
+    skv = ops.k8.shape[2]
+    if ops.kv_block % K4_TILE_KV:
+        raise ValueError(f"the kv block {ops.kv_block} is no multiple of "
+                         f"{K4_TILE_KV}")
+    pv_int8 = ops.v_scale is not None
+    top = 127.0 if pv_int8 else 1.0
+    if pv_int8:
+        va = (k4_v_rows(ops.v, skv).float() * ops.v_scale[:, :, None, :]
+              ).abs()
+    else:
+        va = ops.v.float().abs()
+    sum_rounded = d % 128 != 0
+    dev = ops.q8.device
+    bound = torch.empty(b, h, sq, d, device=dev)
+    for r0, r1, c0, c1, s in _int8_tiles(ops, q_segment_ids, kv_segment_ids,
+                                         causal, kv_valid, ops.kv_block):
+        rows = r1 - r0
+        if c0 == 0:
+            m = torch.full((b, h, rows, 1), M_FLOOR, device=dev)
+            num = torch.zeros((b, h, rows, d), device=dev)
+            den = torch.zeros((b, h, rows, 1), device=dev)
+            rnd = torch.zeros((b, h, rows, 1), device=dev)
+            mass = torch.zeros((b, h, rows, 1), device=dev)
+        n = c1 - c0
+        nt = -(-n // K4_TILE_KV)
+        st = F.pad(s, (0, nt * K4_TILE_KV - n), value=NEG_INF).view(
+            b, h, rows, nt, K4_TILE_KV)
+        del s
+        tmax = st.amax(-1)                                # [b, h, r, nt]
+        a = torch.maximum(m, torch.cummax(tmax, -1).values)
+        m_new = torch.maximum(m, tmax.amax(-1, keepdim=True))
+        alpha = _exp2(m - m_new)
+        e = _exp2(st - m_new[..., None])                  # 2**(s - m_new)
+        del st
+        w = top * e
+        if pv_int8:
+            r_a = torch.minimum(0.5 * _exp2(a - m_new)[..., None], w)
+            r_b = w.clamp(max=0.5)
+        else:
+            r_a = r_b = w * 2.0 ** -8
+        moved = (a < m_new)[..., None]
+        delta = torch.where(moved, r_a + r_b, 0.0).view(b, h, rows, -1)
+        num = num * alpha + delta[..., :n] @ va[:, :, c0:c1]
+        den = den * alpha + delta.sum(-1, keepdim=True)
+        rnd = rnd * alpha + r_a.sum((-2, -1))[..., None]
+        mass = mass * alpha + e.sum((-2, -1))[..., None]
+        del e, w, r_a, r_b, delta
+        m = m_new
+        if c1 == skv:
+            out = plain[:, :, r0:r1].float().abs()
+            d_l = den if sum_rounded else 0.0
+            l_tile = top * mass - (rnd if sum_rounded else 0.0)
+            l_tile = torch.where(mass > 0, l_tile.clamp(min=1e-30), 1.0)
+            bound[:, :, r0:r1] = (num + out * d_l) / l_tile
+    vmax = va.amax(dim=2)[:, :, None, :]                  # [B, H, 1, D]
+    bound = bound * (1 + 2.0 ** -10) + vmax * 2.0 ** -16
+    _, ex = torch.frexp(plain.float().abs() + bound)
+    # bf16 has 8 significant bits: its ulp below 2**e is 2**(e - 8)
+    return bound + torch.ldexp(torch.ones_like(bound), ex - 8)
+
+
 def _check_int8_operands(ops: Int8Operands, device):
     for name, t in (("q8", ops.q8), ("k8", ops.k8)):
         _check_layout("K4", name, t, torch.int8, device)
@@ -917,7 +1024,8 @@ def int8_attention_cuda(
     written into ``out`` (any 16-byte aligned layout) if given. Each
     launch adds one to ``flash_attention_int8.launches`` (K4; and to its
     head dim's entry of ``flash_attention_int8.launches_by_d``) or
-    ``flash_attention_int8.bounded_launches`` (K3q)."""
+    ``flash_attention_int8.bounded_launches`` (K3q; and to its head dim's
+    entry of ``flash_attention_int8.bounded_launches_by_d``)."""
     from . import _lib
 
     _check_seg_pair(q_segment_ids, kv_segment_ids)
@@ -961,6 +1069,8 @@ def int8_attention_cuda(
             _lib.stream_ptr(ops.q8.device))
         _lib.check(code, "K3q bounded flash_attention_int8 launch")
         flash_attention_int8.bounded_launches += 1
+        by_d = flash_attention_int8.bounded_launches_by_d
+        by_d[d] = by_d.get(d, 0) + 1
     return out
 
 
@@ -1010,8 +1120,9 @@ def flash_attention_int8(
 
 flash_attention_int8.launches = 0
 flash_attention_int8.bounded_launches = 0
-# K4's launches by head dim (its D=80 instance is CLIP's)
+# K4's and K3q's launches by head dim (their D=80 instances are CLIP's)
 flash_attention_int8.launches_by_d = {}
+flash_attention_int8.bounded_launches_by_d = {}
 
 
 # --------------------------------------------------------------------------
@@ -1061,6 +1172,8 @@ def _k1f_launch(q, k, v, out, q_seg, kv_seg, *, variant, kv_valid, causal,
     _lib.check(code, f"K1f flash_attention_fp32 ({variant}) launch")
     flash_attention_fp32.launches += 1
     flash_attention_fp32.by_variant[variant] += 1
+    by_d = flash_attention_fp32.launches_by_d
+    by_d[d] = by_d.get(d, 0) + 1
     return out
 
 
@@ -1084,13 +1197,14 @@ def flash_attention_fp32(
     score_bound: float | None = None,
     out: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """K1f on fp32 CUDA tensors ``[B, H, S, D]`` (D in {64, 128}, any
+    """K1f on fp32 CUDA tensors ``[B, H, S, D]`` (D in {64, 80, 128}, any
     16-byte aligned strides with a unit last one): exact attention, or
     with ``score_bound`` the bounded tier; the plain versions are
     :func:`reference_attention` and :func:`bounded_attention_plain`. The
     result is fp32 in ``out`` (q's layout by default). Every launch adds
-    one to ``flash_attention_fp32.launches`` and to its variant's entry of
-    ``flash_attention_fp32.by_variant``."""
+    one to ``flash_attention_fp32.launches``, to its variant's entry of
+    ``flash_attention_fp32.by_variant`` and to its head dim's of
+    ``flash_attention_fp32.launches_by_d``."""
     _check_seg_pair(q_segment_ids, kv_segment_ids)
     if q.device.type != "cuda":
         raise ValueError("flash_attention_fp32 launches the CUDA kernel")
@@ -1114,6 +1228,7 @@ def flash_attention_fp32(
 
 flash_attention_fp32.launches = 0
 flash_attention_fp32.by_variant = dict.fromkeys(K1F_VARIANTS, 0)
+flash_attention_fp32.launches_by_d = {}
 
 
 def int8_attention_fp32(
@@ -1137,8 +1252,8 @@ def int8_attention_fp32(
     for name, t in (("q8", ops.q8), ("k8", ops.k8)):
         _check_layout("K1f", name, t, torch.int8, dev)
     b, h, sq, d = ops.q8.shape
-    if d not in (64, 128):
-        raise ValueError(f"K1f takes head dims 64 and 128, got {d}")
+    if d not in HEAD_DIMS["K1f"]:
+        raise ValueError(f"K1f takes head dims {HEAD_DIMS['K1f']}, got {d}")
     pv_int8 = ops.v_scale is not None
     spad = round_up(ops.k8.shape[2], K4_TILE_KV)
     if pv_int8:

@@ -1,4 +1,5 @@
-"""Wan 2.1 text-to-video and image-to-video pipelines.
+"""Wan 2.1 pipelines: text-to-video, image-to-video, Phantom, VACE,
+ReCamMaster and the sliding window.
 
 Port of ``ltx_video_gpupoor_tpu/pipelines/wan.py``:
 ``TEACACHE_COEFFICIENTS`` (:41), ``optimized_scale`` (CFG-Zero-star),
@@ -6,18 +7,23 @@ Port of ``ltx_video_gpupoor_tpu/pipelines/wan.py``:
 ``calibrate_mask``), ``WanPipeline`` with ``latent_shape``,
 ``_solve_schedule`` (UniPC, DPM++, Euler), ``_vae_decode`` (spatially
 tiled at ``vae_tile_size=256`` as in JAX), ``denoise`` (its ``lax.scan``
-is a host loop here) in its 1- and 2-stream branches with the SLG
-layer-skip window, TeaCache's precomputed skip mask and i2v's CLIP
-features and conditioning channels, ``generate_t2v`` (with TeaCache),
+is a host loop here) with the SLG layer-skip window, TeaCache's
+precomputed skip mask, i2v's CLIP features and conditioning channels,
+Phantom's three guidance streams over appended reference frames
+(:204-260), ReCamMaster's source latents and poses, the VACE context and
+the sliding window's overlapped latents with the VACE context's
+overlap-noise floor (:328-383, the clean restore :440-443),
+``generate_t2v`` (with TeaCache and ``return_latent_slice``, :499-503),
 ``prepare_i2v_conditioning`` (:507) and ``generate_i2v`` (:537), both
 entry points with ``noise=`` injection.
 
 Guidance streams are batch rows: (cond, uncond) in one forward. The
 initial noise, unless ``noise=`` is given, comes from an explicit
-``torch.Generator``. A skipped TeaCache step runs no block and reuses the
-last computed residual. Not ported (each raises ``NotImplementedError``
-naming its ROADMAP entry): Phantom, ReCamMaster source latents, VACE, the
-sliding-window overlap and the sequence-parallel mesh.
+``torch.Generator``, as do the sliding window's per-step noises unless
+``overlap_noises=`` hands them over (JAX draws them from per-step keys).
+A skipped TeaCache step runs no block and reuses the last computed
+residual. The sequence-parallel mesh raises ``NotImplementedError``
+naming its ROADMAP entry (queue 1 step 15).
 """
 
 from __future__ import annotations
@@ -35,8 +41,6 @@ from ..ops.rope import wan_rope_freqs
 from ..schedulers import dpm, flowmatch, unipc
 from . import teacache
 
-_STEP13 = "ROADMAP queue 1 step 13"
-
 # The published TeaCache polynomial coefficients of the Wan 2.1 family
 # (JAX :41-52).
 TEACACHE_COEFFICIENTS = {
@@ -49,6 +53,14 @@ TEACACHE_COEFFICIENTS = {
     "i2v_720p": [-114.36346466, 65.26524496, -18.82220707,
                  4.91518089, -0.23412683],
 }
+
+
+def randn(shape, generator, device) -> torch.Tensor:
+    """fp32 normal noise on ``device``, drawn from ``generator`` (on its
+    own device) if given."""
+    gdev = device if generator is None else generator.device
+    return torch.randn(shape, generator=generator, dtype=torch.float32,
+                       device=gdev).to(device)
 
 
 def optimized_scale(positive: torch.Tensor,
@@ -135,29 +147,40 @@ class WanPipeline:
         enable_riflex: bool = False,
         clip_features: Optional[torch.Tensor] = None,   # [1, 257, 1280]
         y: Optional[torch.Tensor] = None,     # i2v cond [1, F', H', W', 20]
-        ref_latents=None,
-        ref_latents_neg=None,
-        source_latents=None,
-        cam_emb=None,
-        vace_context=None,
+        ref_latents: Optional[torch.Tensor] = None,   # Phantom [1, R, H', W', z]
+        ref_latents_neg: Optional[torch.Tensor] = None,
+        source_latents: Optional[torch.Tensor] = None,  # ReCamMaster
+        cam_emb: Optional[torch.Tensor] = None,          # [1, F'', 12]
+        vace_context: Optional[torch.Tensor] = None,  # [1, F', H', W', C]
         vace_scale: float = 1.0,
         teacache_mask: Optional[np.ndarray] = None,    # [steps] bool
         attn_mode: str = "auto",
-        overlapped_latents=None,
+        overlapped_latents: Optional[torch.Tensor] = None,  # [1, n+1, ...]
         overlap_noise: float = 0.0,
+        overlap_noises: Optional[Sequence] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """The sampling loop; returns the latents in their dtype (fp32).
         ``teacache_mask[i]`` False skips step i's block stack (the last
-        computed residual is reused); the first step must compute."""
+        computed residual is reused); the first step must compute.
+
+        Guidance streams are batch rows: (cond, uncond), or Phantom's
+        three (text + reference images, reference images alone, the
+        negative reference images) where ``ref_latents`` is given and
+        ``guide_scale != 1``; the reference frames are appended after the
+        latent frames and stripped from the output. ReCamMaster's
+        ``source_latents`` are appended the same way (RoPE then runs over
+        both), with the poses ``cam_emb``. ``vace_context`` feeds the VACE
+        hint blocks. ``overlapped_latents`` (a sliding window's tail,
+        boundary frame included) replaces the leading latent frames at
+        every step, noised to the step's level, and is restored clean at
+        the end; with a VACE context and ``overlap_noise > 0`` the
+        context's leading frames and z channels are re-noised from their
+        clean values at the fixed level ``overlap_noise / 1000`` each
+        step. The noises of a step, ``(x_noise, vace_noise or None)``,
+        are ``overlap_noises[i]`` where given (JAX draws them from
+        per-step keys), else drawn from ``generator``."""
         cfg = self.model.cfg
-        for name, val in (("ref_latents (Phantom)", ref_latents),
-                          ("ref_latents_neg (Phantom)", ref_latents_neg),
-                          ("source_latents (ReCamMaster)", source_latents),
-                          ("cam_emb (ReCamMaster)", cam_emb),
-                          ("vace_context", vace_context),
-                          ("overlapped_latents", overlapped_latents)):
-            if val is not None:
-                raise NotImplementedError(f"Wan denoise {name}: {_STEP13}")
         if self.sp_mesh is not None:
             raise NotImplementedError(
                 "the sequence-parallel mesh is ROADMAP queue 1 step 15")
@@ -166,15 +189,21 @@ class WanPipeline:
         dev = next(self.model.parameters()).device
         num_steps = sigmas.shape[0] - 1
         sigmas = sigmas.to(device=dev, dtype=torch.float32)
-        f_all = latents.shape[1]
+        f_lat = latents.shape[1]
+        # guide_scale 1 outranks Phantom, as in the reference: one cond
+        # pass on the bare latents
+        phantom = ref_latents is not None and guide_scale != 1
+        f_all = f_lat + (ref_latents.shape[1] if phantom else 0)
+        if source_latents is not None:
+            f_all = f_lat + source_latents.shape[1]
         h_tok = latents.shape[2] // cfg.patch_size[1]
         w_tok = latents.shape[3] // cfg.patch_size[2]
         freqs = wan_rope_freqs((f_all, h_tok, w_tok), head_dim=cfg.head_dim,
                                enable_riflex=enable_riflex, device=dev)
 
         # SLG keep mask per step: the reference skips the slg layers of the
-        # uncond stream only (stream 0 is cond)
-        num_streams = 2 if guide_scale != 1 else 1
+        # unconditional streams (stream 0 is the conditional one)
+        num_streams = 3 if phantom else (2 if guide_scale != 1 else 1)
         keep_steps = np.ones((num_steps, cfg.num_layers, num_streams),
                              np.float32)
         if slg_layers is not None and num_streams > 1:
@@ -191,30 +220,77 @@ class WanPipeline:
 
         context = context.to(dev)
         context_mask = context_mask.to(dev)
-        if num_streams == 1:
+        if phantom:   # (text, ref), (null, ref), (null, negative ref)
+            context = context[[0, 1, 1]]
+            context_mask = context_mask[[0, 1, 1]]
+        elif num_streams == 1:
             context, context_mask = context[0:1], context_mask[0:1]
-        clip = None
-        if clip_features is not None:
-            clip = torch.cat([clip_features.to(dev)] * num_streams)
-        ys = None
-        if y is not None:
-            ys = torch.cat([y.to(dev, torch.float32)] * num_streams)
+
+        def streams(t):
+            return None if t is None else torch.cat(
+                [t.to(dev, torch.float32)] * num_streams)
+
+        clip = streams(clip_features)
+        ys = streams(y)
+        tail = streams(source_latents)
+        refs = None
+        if phantom:
+            refs = torch.cat([ref_latents, ref_latents, ref_latents_neg]).to(
+                dev, torch.float32)
+        vctx = streams(vace_context)
         x = latents.to(dev)
+        n_over = 0
+        if overlapped_latents is not None:
+            overlapped_latents = overlapped_latents.to(dev, x.dtype)
+            n_over = overlapped_latents.shape[1]
+            renoise_vace = vace_context is not None and overlap_noise > 0
+            z = overlapped_latents.shape[-1]
         state = (unipc.unipc_init(x.shape, device=dev) if solver == "unipc"
                  else dpm.dpm_init(x.shape, device=dev)
                  if solver == "dpm++" else None)
         residual = None
         for i in range(num_steps):
-            t = (sigmas[i] * self.num_train_timesteps).expand(num_streams)
+            t_scalar = sigmas[i] * self.num_train_timesteps
+            vctx_i = vctx
+            if n_over:
+                if overlap_noises is not None:
+                    x_noise, v_noise = overlap_noises[i]
+                else:
+                    x_noise = randn(overlapped_latents.shape, generator, dev)
+                    v_noise = (randn((1, n_over) + vace_context.shape[2:4]
+                                     + (z,), generator, dev)
+                               if renoise_vace else None)
+                factor = t_scalar / self.num_train_timesteps
+                x = x.clone()
+                x[:, :n_over] = (overlapped_latents * (1 - factor)
+                                 + x_noise.to(dev, x.dtype) * factor)
+                if renoise_vace:
+                    onf = overlap_noise / self.num_train_timesteps
+                    v = vace_context.to(dev, torch.float32).clone()
+                    snap = v[:, :n_over, :, :, :z]
+                    v[:, :n_over, :, :, :z] = (
+                        snap * (1 - onf) + v_noise.to(dev, v.dtype) * onf)
+                    vctx_i = streams(v)
             xs = torch.cat([x] * num_streams) if num_streams > 1 else x
+            if refs is not None:
+                xs = torch.cat([xs, refs], dim=1)
+            if tail is not None:
+                xs = torch.cat([xs, tail], dim=1)
             if ys is not None:
                 xs = torch.cat([xs, ys], dim=-1)
             out, residual = self.model(
-                xs, t, context, context_mask, freqs, clip_features=clip,
-                slg_keep=keep_steps[i], previous_residual=residual,
-                compute=bool(tc_mask[i]), attn_mode=attn_mode)
-            out = out[:, :latents.shape[1]].float()
-            if num_streams == 2:
+                xs, t_scalar.expand(num_streams), context, context_mask,
+                freqs, clip_features=clip, vace_context=vctx_i,
+                vace_scale=vace_scale, slg_keep=keep_steps[i], cam_emb=cam_emb,
+                previous_residual=residual, compute=bool(tc_mask[i]),
+                attn_mode=attn_mode)
+            del xs
+            out = out[:, :f_lat].float()    # strip reference / source frames
+            if phantom:
+                pos_it, pos_i, neg = out[0:1], out[1:2], out[2:3]
+                noise_pred = (neg + 5.0 * (pos_i - neg)
+                              + guide_scale * (pos_it - pos_i))
+            elif num_streams == 2:
                 cond, uncond = out[0:1], out[1:2]
                 if cfg_star_switch and i > cfg_zero_step:
                     # the reference's executed behaviour: early steps skip
@@ -232,6 +308,9 @@ class WanPipeline:
             else:
                 x = (x.float() + (sigmas[i + 1] - sigmas[i]) * noise_pred
                      ).to(x.dtype)
+        if n_over:   # the clean overlapped latents back in place
+            x = x.clone()
+            x[:, :n_over] = overlapped_latents
         return x
 
     def generate_t2v(
@@ -261,10 +340,10 @@ class WanPipeline:
         with ``TEACACHE_COEFFICIENTS[teacache_model]``.
         ``on_stage(name, tensor)``, if given, is called as each stage
         starts: ``"denoise"`` with the noise, ``"decode"`` with the
-        latents."""
-        if return_latent_slice is not None:
-            raise NotImplementedError(
-                f"return_latent_slice (sliding window): {_STEP13}")
+        latents. ``return_latent_slice`` (a sliding window's
+        continuation) returns ``{"x": the result, "latent_slice": latents[:,
+        return_latent_slice]}``. ``generator`` also draws the overlap
+        noises of a sliding window (:meth:`denoise`)."""
         noise = self._noise(noise, generator, height, width, frame_num)
         sigmas = self._solve_schedule(solver, sampling_steps, shift)
         tc_mask = None
@@ -277,8 +356,11 @@ class WanPipeline:
         latents = self.denoise(
             noise, context, context_mask, sigmas, guide_scale=guide_scale,
             solver=solver, enable_riflex=enable_riflex, teacache_mask=tc_mask,
-            **denoise_kwargs)
-        return self._output(latents, output_type, on_stage)
+            generator=generator, **denoise_kwargs)
+        result = self._output(latents, output_type, on_stage)
+        if return_latent_slice is not None:
+            return {"x": result, "latent_slice": latents[:, return_latent_slice]}
+        return result
 
     def _noise(self, noise, generator, height, width, frame_num):
         """The initial latents, fp32 on the model's device: ``noise`` or a
@@ -286,10 +368,8 @@ class WanPipeline:
         dev = next(self.model.parameters()).device
         if noise is None:
             f_lat, h_lat, w_lat = self.latent_shape(height, width, frame_num)
-            noise = torch.randn((1, f_lat, h_lat, w_lat, self.vae.cfg.z_dim),
-                                generator=generator, dtype=torch.float32,
-                                device=dev if generator is None
-                                else generator.device)
+            noise = randn((1, f_lat, h_lat, w_lat, self.vae.cfg.z_dim),
+                          generator, dev)
         return noise.to(device=dev, dtype=torch.float32)
 
     def _output(self, latents, output_type, on_stage):

@@ -223,6 +223,9 @@ _WAN_TO_PUBLISHED = [
     (r"^img_emb\.fc1\.", "img_emb.proj.1."),
     (r"^img_emb\.fc2\.", "img_emb.proj.3."),
     (r"^img_emb\.norm_out\.", "img_emb.proj.4."),
+    (r"^fps_projection\.fc1\.", "fps_projection.0."),
+    (r"^fps_projection\.fc2\.", "fps_projection.2."),
+    (r"^fps_embedding$", "fps_embedding.weight"),
 ]
 
 
@@ -231,7 +234,11 @@ def wan_transformer_tensors(cfg: wan_model.WanConfig, *, seed: int = 0,
                             device="cpu") -> dict[str, torch.Tensor]:
     """The Wan DiT file's tensors (on the CPU), drawn as the JAX
     ``init_params`` draws them: the blocks' linears as quanto int8 pairs,
-    the rest bf16."""
+    the rest bf16; a config with ``vace_layers``, ``recammaster`` or
+    ``inject_sample_info`` adds its published keys (``vace_blocks.N``,
+    ``vace_patch_embedding``, ``blocks.N.cam_encoder`` / ``projector``,
+    ``fps_embedding`` / ``fps_projection``), with VACE's and the fps
+    projections drawn as every other linear (JAX starts some at zero)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     meta = wan_model.WanModel(cfg, DEFAULT_POLICY, device="meta")
     out: dict[str, torch.Tensor] = {}
@@ -251,9 +258,12 @@ def wan_transformer_tensors(cfg: wan_model.WanConfig, *, seed: int = 0,
         elif key.endswith("modulation"):
             out[name] = _draw(p.shape, cfg.dim ** -0.5, gen,
                               device).to(torch.bfloat16).cpu()
-        elif key == "patch_embedding.weight":
+        elif key.endswith("patch_embedding.weight"):
             out[name] = _draw(p.shape, math.prod(p.shape[1:]) ** -0.5, gen,
                               device).to(torch.bfloat16).cpu()
+        elif key == "fps_embedding":
+            out[name] = _draw(p.shape, 0.02, gen, device).to(
+                torch.bfloat16).cpu()
         elif ("norm" in key and key.endswith(".weight")):
             out[name] = torch.ones(p.shape, dtype=torch.bfloat16)
         else:   # biases

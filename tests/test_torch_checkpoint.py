@@ -420,6 +420,43 @@ def test_converters_of_later_slices_raise():
                                        atol=0, rtol=0, msg=k)
 
 
+@pytest.mark.parametrize("variant", [
+    dict(vace_layers=(0, 2), vace_in_dim=12),
+    dict(recammaster=True),
+    dict(inject_sample_info=True),
+    dict(vace_layers=(1,), vace_in_dim=20, recammaster=True,
+         inject_sample_info=True),
+], ids=["vace", "recammaster", "fps", "all"])
+def test_convert_wan_model_variants_equal_jax(variant):
+    """A synthetic Wan file in the published layout with VACE's, the
+    camera's and the fps conditioning's keys (tools/synthetic_ckpt.py):
+    the port's converter gives ``from_jax`` of JAX's converter on it, and
+    its output loads into a ``WanModel`` of that config."""
+    from ltx_video_gpupoor_tpu_torch.models.wan import model as twm
+
+    wcfg = twm.WanConfig(model_type="t2v", dim=128, ffn_dim=256, freq_dim=32,
+                         text_dim=64, num_heads=1, num_layers=3, **variant)
+    sd = sc.wan_transformer_tensors(wcfg)
+    if "vace_layers" in variant:
+        assert "vace_blocks.0.before_proj.weight" in sd
+        assert "vace_patch_embedding.weight" in sd
+    if variant.get("recammaster"):
+        assert "blocks.2.cam_encoder.weight._data" in sd
+    if variant.get("inject_sample_info"):
+        assert {"fps_embedding.weight", "fps_projection.2.bias"} <= set(sd)
+    sd = tckpt.dequantize_quanto(sd, torch.float32)
+    got = tckpt.convert_wan_model(sd, wcfg)
+    want = from_jax.state_dict(jax.tree.map(np.asarray, jckpt.convert_wan_model(
+        {k: _np(v) for k, v in sd.items()}, wcfg)))
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype, k
+        torch.testing.assert_close(got[k], v.reshape(got[k].shape), atol=0,
+                                   rtol=0, msg=k)
+    model = twm.WanModel(wcfg)
+    model.load_state_dict(got)
+
+
 # ---------------------------------------------------------------------------
 # LoRA
 # ---------------------------------------------------------------------------

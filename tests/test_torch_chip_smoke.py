@@ -176,14 +176,20 @@ def test_profiled_ops_keep_the_prologue_launch_counter():
     fa.int8_prologue.kernel_launches = before
 
 
-def _stubbed_main(monkeypatch, capsys, argv):
+# the requests the stubbed [wan_variants] returns counts for
+VARIANT_STUBS = ("vace", "clip_fp32")
+
+
+def _stubbed_main(monkeypatch, capsys, argv, k3q_d80=0):
     """``chip_smoke.main`` with every phase replaced by a stub that records
-    its name: (exit code, the phases in order, the printed lines)."""
+    its name: (exit code, the phases in order, the printed lines). Every
+    request's stubbed counts read 1 for each kernel, ``k3q_d80`` for K3q
+    at head dim 80."""
     sys.path.insert(0, REPO)
     import chip_smoke
 
     ran = []
-    ones = collections.defaultdict(lambda: 1)
+    ones = collections.defaultdict(lambda: 1, K3qd80=k3q_d80)
     timed = collections.defaultdict(lambda: (1.0, 1.0))
     info = collections.defaultdict(lambda: (1.0, "operations", None))
     results = {
@@ -191,17 +197,19 @@ def _stubbed_main(monkeypatch, capsys, argv):
         "phase_build": 1.0, "phase_k1": 0.0, "phase_k2": (0.0, 0.0),
         "phase_prologue": 0.0,
         "phase_k4": (0.0, 0.0), "phase_k3": 0.0, "phase_k3q": 0.0,
-        "phase_d80": (0.0, 0.0), "phase_k5": 0.0,
+        "phase_d80": (0.0, 0.0, 0.0, 0.0), "phase_k5": 0.0,
         "phase_k6": 0.0, "phase_k1f": 0.0, "phase_timing": (timed, info),
         "time_k1f": None,
         "phase_k8": (0.0, 1), "phase_k7": (0.0, 1),
         "phase_path": ([ones], object(), object()),
         "phase_teacache": None, "phase_fp32": ones,
-        "phase_ltx13b": (collections.defaultdict(lambda: ones), object()),
-        "phase_load": ones, "phase_cli": None,
+        "phase_ltx13b": ({t[0]: ones for t in chip_smoke.LTX13B_TIERS},
+                         object()),
+        "phase_load": ones, "phase_cli": ones,
         "phase_wan": ([ones] * len(chip_smoke.WAN_REQUESTS), object(),
                       object()),
         "phase_wan_i2v": [ones] * len(chip_smoke.WAN_I2V_REQUESTS),
+        "phase_wan_variants": dict.fromkeys(VARIANT_STUBS, ones),
     }
     for name, result in results.items():
         def stub(*args, _name=name, _result=result, **kwargs):
@@ -237,15 +245,20 @@ def test_default_run_drives_every_path_and_ends_with_the_result(
     assert ran == KERNEL_PHASES + ["phase_path", "phase_teacache",
                                    "phase_fp32", "phase_ltx13b",
                                    "phase_load", "phase_cli", "phase_wan",
-                                   "phase_wan_i2v"]
+                                   "phase_wan_variants", "phase_wan_i2v"]
     assert json.loads(lines[-1]) == {"ok": True, "device": {
         "platform": "gpu", "kind": "a card", "count": 1}}
     kernels = json.loads(lines[-2])["kernels"]
-    assert len(kernels) == 15
-    # CLIP's head dim of 80: K1's and K4's D=80 instances, own entries
+    assert len(kernels) == 17
+    # CLIP's head dim of 80: the D=80 instances of K1, K4, K1f and K3q,
+    # own entries (K3q's the one no request runs)
     d80 = [k for k in kernels if "d=80" in k["name"]]
     assert [k["source"].rsplit("/", 1)[1] for k in d80] == [
-        "flash_attention_wgmma.cu", "flash_attention_int8.cu"]
+        "flash_attention_wgmma.cu", "flash_attention_int8.cu",
+        "flash_attention_fp32.cu", "flash_attention_int8.cu"]
+    assert d80[-1]["launches"] == 0 and "bounded" in d80[-1]["name"]
+    # K1f's d=80 launches are summed over every request's counts
+    assert d80[2]["launches"] == _stubbed_runs()
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert all(keys <= set(k) for k in kernels)
@@ -258,6 +271,27 @@ def test_default_run_drives_every_path_and_ends_with_the_result(
         "csrc/flash_attention_int8.cu")
     assert all(os.path.exists(os.path.join(REPO, k["source"]))
                for k in kernels)
+
+
+def _stubbed_runs():
+    """How many count dicts the stubbed paths return: LTX-2B's one
+    request, [fp32], the LTX-13B tiers, [load], [cli], Wan's, the
+    variants' and the i2v requests."""
+    import chip_smoke
+
+    return 4 + len(chip_smoke.LTX13B_TIERS) + len(chip_smoke.WAN_REQUESTS) \
+        + len(VARIANT_STUBS) + len(chip_smoke.WAN_I2V_REQUESTS)
+
+
+def test_k3q_d80_launches_are_counted_not_assumed(monkeypatch, capsys):
+    """The kernels line gives K3q's d=80 instance the launches the
+    requests' counts hold at head dim 80: a request that ran it shows."""
+    code, _, lines = _stubbed_main(monkeypatch, capsys, [], k3q_d80=2)
+    assert code == 0
+    kernels = json.loads(lines[-2])["kernels"]
+    k3q = [k for k in kernels if "d=80" in k["name"] and "bounded" in
+           k["name"]]
+    assert len(k3q) == 1 and k3q[0]["launches"] == 2 * _stubbed_runs()
 
 
 def _ptxas_report(k1f_spill=0, serialized=False):
@@ -317,3 +351,67 @@ def test_build_refuses_a_spill_or_serialized_wgmma_in_k1f(
     out = capsys.readouterr().out
     assert "K1f (flash_fp32_wgmma_kernel), 1 instances" in out
     assert "K5's row kernel (norm_mod_quantize_rows_kernel)" in out
+
+
+@pytest.mark.parametrize("variant", ["t2v", "vace", "recammaster", "df",
+                                     "all"])
+def test_variant_expect_counts_what_a_forward_runs(monkeypatch, variant):
+    """``variant_expect`` (the launches [wan_variants] requires of each
+    request) against the calls one forward of a small DiT with the same
+    modules makes on the CPU: every ``Linear`` in the dynamic tier is a K2
+    launch on the card, every attention at head dim 128 under ``auto`` a
+    K4 launch."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from ltx_video_gpupoor_tpu_torch.core.dtypes import FP32_POLICY
+    from ltx_video_gpupoor_tpu_torch.models.wan import model as wm
+    from ltx_video_gpupoor_tpu_torch.ops import quant
+    from ltx_video_gpupoor_tpu_torch.ops.quant import quantize_params
+    from ltx_video_gpupoor_tpu_torch.ops.rope import wan_rope_freqs
+
+    flags = {"vace": dict(vace_layers=(0, 2), vace_in_dim=12),
+             "recammaster": dict(recammaster=True),
+             "df": dict(inject_sample_info=True)}
+    kw = {} if variant == "t2v" else flags.get(variant) or {
+        k: v for f in flags.values() for k, v in f.items()}
+    cfg = wm.WanConfig(model_type="t2v", text_len=8, in_dim=4, dim=256,
+                       ffn_dim=64, freq_dim=32, text_dim=16, out_dim=4,
+                       num_heads=2, num_layers=3, **kw)
+    model = wm.init_params(wm.WanModel(cfg, FP32_POLICY),
+                           torch.Generator().manual_seed(0))
+    quantize_params(model, mode="dynamic")
+    calls = collections.Counter()
+    linear_forward = quant.Linear.forward
+    attention = wm.attention
+
+    def count_linear(self, x):
+        calls["K2"] += 1
+        return linear_forward(self, x)
+
+    def count_attention(q, *args, **kwargs):
+        calls["K4"] += 1
+        assert q.shape[-1] == 128
+        return attention(q, *args, **kwargs)
+
+    monkeypatch.setattr(quant.Linear, "forward", count_linear)
+    monkeypatch.setattr(wm, "attention", count_attention)
+    f = 4 if cfg.recammaster else 2
+    x = torch.randn(2, f, 4, 4, 4)
+    extra = {}
+    if cfg.vace_layers:
+        extra["vace_context"] = torch.randn(2, f, 4, 4, 12)
+    if cfg.recammaster:
+        extra["cam_emb"] = torch.randn(1, f // 2, 12)
+    if cfg.inject_sample_info:
+        extra["fps_idx"] = 1
+    t = torch.full((2, f), 500.0) if cfg.inject_sample_info \
+        else torch.full((2,), 500.0)
+    with torch.no_grad():
+        model(x, t, torch.randn(2, 8, 16), torch.ones(2, 8),
+              wan_rope_freqs((f, 2, 2), 128), **extra)
+    must, _ = chip_smoke.variant_expect(
+        variant, cfg.num_layers, 1,
+        vace_blocks=len(cfg.vace_layers or ()), cam=cfg.recammaster,
+        fps=cfg.inject_sample_info)
+    assert calls["K2"] == must["K2"]
+    assert calls["K4"] == must["K4d128"] == must["K2p"]

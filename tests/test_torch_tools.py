@@ -159,10 +159,40 @@ def test_port_and_chip_smoke_name_no_jax_import():
 @pytest.mark.parametrize("seed, d", [(14, 64), (12, 80)])
 def test_k4_order_gap_passes_the_block_cap_on_some_draws(seed, d):
     """K4's plain version stepped by the kernel's tile and by JAX's kv
-    block lies past ``chip_smoke.py``'s ``K4_BLOCK_MAX`` on these draws
-    in the QK+PV tier (P codes rounded against other maxima), and far
-    inside it in the QK tier."""
+    block lies past the fixed cap the card check used before (``OLD_CAP``)
+    on these draws in the QK+PV tier (P codes rounded against other
+    maxima), and far inside it in the QK tier; in both tiers every element
+    lies within ``int8_order_bound``, the bound derived for that order,
+    and the ratio's root mean square under ``K4_ORDER_RMS``."""
     from ltx_video_gpupoor_tpu_torch.tools import k4_order_gap as og
 
-    assert og.order_gap(seed, d, pv_int8=True) > og.K4_BLOCK_MAX
-    assert og.order_gap(seed, d, pv_int8=False) < og.K4_BLOCK_MAX / 10
+    gap, ratio, _, rms = og.order_gap(seed, d, pv_int8=True)
+    assert gap > og.OLD_CAP and ratio <= 1.0
+    assert rms <= og.fa.K4_ORDER_RMS
+    gap, ratio, _, rms = og.order_gap(seed, d, pv_int8=False)
+    assert gap < og.OLD_CAP / 10 and ratio <= 1.0
+    assert rms <= og.fa.K4_ORDER_RMS
+
+
+@pytest.mark.parametrize("pv_int8", [True, False])
+@pytest.mark.parametrize("seed, d", [(14, 64), (12, 80)])
+def test_k4_order_bound_fails_planted_faults(seed, d, pv_int8):
+    """A q tile left unwritten, or a channel without its v scale, lies
+    past ``int8_order_bound`` by far."""
+    from ltx_video_gpupoor_tpu_torch.tools import k4_order_gap as og
+
+    ratios = og.planted_ratios(seed, d, pv_int8)
+    assert min(ratios.values()) > 10, ratios
+
+
+@pytest.mark.parametrize("pv_int8", [True, False])
+@pytest.mark.parametrize("seed, d", [(14, 64), (12, 80)])
+def test_k4_order_rms_fails_a_fault_spread_inside_the_bound(seed, d,
+                                                           pv_int8):
+    """An order fault that moves every element where the two orders
+    disagree to 0.9 of ``int8_order_bound`` passes the elementwise bound
+    and fails ``K4_ORDER_RMS``."""
+    from ltx_video_gpupoor_tpu_torch.tools import k4_order_gap as og
+
+    ratio, rms = og.spread_fault(seed, d, pv_int8)
+    assert ratio <= 1.0 < rms / og.fa.K4_ORDER_RMS, (ratio, rms)

@@ -249,9 +249,12 @@ def test_wan_dit_forward_matches_jax(pallas_interpret, jax_mode, port_mode,
 
 
 def test_wan_dit_rejects_unported_branches():
-    """VACE and fps conditioning still raise naming step 13. What this
-    test once refused is ported and held to JAX here: CLIP features
-    reach only an i2v model (a t2v one ignores them, as in JAX), TeaCache's
+    """What this test once refused is ported and held to JAX here: a
+    VACE context and an fps index reach only a model built with
+    ``vace_layers`` / ``inject_sample_info`` (a plain t2v model ignores
+    them, as JAX's does: the same output on both sides;
+    tests/test_torch_wan_vace.py and tests/test_torch_wan_variants.py hold
+    those models), CLIP features reach only an i2v model, TeaCache's
     ``compute=False`` adds the given residual to the input tokens, and an
     i2v model holds JAX's i2v parameters (tests/test_torch_wan_i2v.py
     holds its forward)."""
@@ -259,13 +262,22 @@ def test_wan_dit_rejects_unported_branches():
     x, t, ctx, mask, grid, _ = _dit_inputs(b=1)
     args = [torch.from_numpy(a) for a in (x, t, ctx, mask)]
     freqs = trope.wan_rope_freqs(grid, 128)
-    for kw in (dict(vace_context=torch.zeros(1)), dict(fps_idx=0)):
-        with pytest.raises(NotImplementedError, match="step 13"):
-            model(*args, freqs, **kw)
     jargs = (jp, jwm.WanConfig(**DIT_KW), *map(jnp.asarray, (x, t, ctx, mask)),
              jrope.wan_rope_freqs(grid, 128))
     threads = torch.get_num_threads()
     torch.set_num_threads(1)     # the fresh-thread exp of test_torch_kernels
+    vctx = np.ones((1, 2, 12, 12, 4), np.float32)
+    for kw in (dict(vace_context=vctx), dict(fps_idx=0)):
+        tkw = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+               for k, v in kw.items()}
+        jkw = {k: jnp.asarray(v) if isinstance(v, np.ndarray) else v
+               for k, v in kw.items()}
+        with torch.no_grad():
+            out, _ = model(*args, freqs, attn_mode="pallas", **tkw)
+            bare, _ = model(*args, freqs, attn_mode="pallas")
+        ref, _ = jwm.forward(*jargs, attn_mode="xla", **jkw)
+        assert torch.equal(out, bare)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
     with torch.no_grad():
         plain, res = model(*args, freqs, attn_mode="pallas")
         with_clip, _ = model(*args, freqs, attn_mode="pallas",
@@ -449,14 +461,42 @@ def test_pipeline_helpers_match_jax(weights):
         jpipe.teacache_skip_schedule(
             _dit_params(0), jwm.WanConfig(**DIT_KW), timesteps,
             jpipe.TEACACHE_COEFFICIENTS["t2v_1.3B"], 1.5))
+    # Phantom's reference latents, ReCamMaster's source latents, a VACE
+    # context (which a model without hint blocks ignores) and a sliding
+    # window's overlapped latents, each held to JAX's generate_t2v with the
+    # same arguments (the window's per-step noises drawn from JAX's keys)
+    from test_torch_wan_variants import _loop_noises
+
+    rng = np.random.default_rng(7)
+    ctx = rng.standard_normal((2, 16, 32)).astype(np.float32)
+    mask = np.ones((2, 16), np.int32)
+    noise = rng.standard_normal((1, 3, 8, 8, 4)).astype(np.float32)
+    key = jax.random.key(2)
+    _, k_loop = jax.random.split(key)
+    over = rng.standard_normal((1, 2, 8, 8, 4)).astype(np.float32)
+    for kw in (dict(ref_latents=rng.standard_normal((1, 1, 8, 8, 4))),
+               dict(source_latents=rng.standard_normal((1, 3, 8, 8, 4))),
+               dict(vace_context=rng.standard_normal((1, 3, 8, 8, 12))),
+               dict(overlapped_latents=over)):
+        kw = {k: v.astype(np.float32) for k, v in kw.items()}
+        if "ref_latents" in kw:
+            kw["ref_latents_neg"] = np.zeros_like(kw["ref_latents"])
+        gen = dict(width=16, height=16, frame_num=5, sampling_steps=2)
+        jp_full = jpipe.WanPipeline(
+            model_params=_dit_params(0), model_cfg=jwm.WanConfig(**DIT_KW),
+            vae_params=None, vae_cfg=None, vae_stride=STRIDE)
+        ref = jp_full.generate_t2v(
+            jnp.asarray(ctx), jnp.asarray(mask), noise=jnp.asarray(noise),
+            key=key, attn_mode="xla", **gen,
+            **{k: jnp.asarray(v) for k, v in kw.items()})
+        extra = ({"overlap_noises": _loop_noises(k_loop, 2, over.shape)}
+                 if "overlapped_latents" in kw else {})
+        got = tp.generate_t2v(
+            torch.from_numpy(ctx), torch.from_numpy(mask),
+            noise=torch.from_numpy(noise), attn_mode="pallas", **gen,
+            **{k: torch.from_numpy(v) for k, v in kw.items()}, **extra)
+        assert _psnr(np.asarray(ref), got.numpy()) >= PSNR_BAR_DB, kw.keys()
     ctx, mask = torch.zeros(2, 16, 32), torch.ones(2, 16)
-    for kw, msg in ((dict(ref_latents=torch.zeros(1)), "step 13"),
-                    (dict(source_latents=torch.zeros(1)), "step 13"),
-                    (dict(vace_context=torch.zeros(1)), "step 13"),
-                    (dict(overlapped_latents=torch.zeros(1)), "step 13")):
-        with pytest.raises(NotImplementedError, match=msg):
-            tp.generate_t2v(ctx, mask, width=16, height=16, frame_num=5,
-                            sampling_steps=2, **kw)
     tp.sp_mesh = object()
     with pytest.raises(NotImplementedError, match="step 15"):
         tp.generate_t2v(ctx, mask, width=16, height=16, frame_num=5,

@@ -217,10 +217,32 @@ def test_wan_dit_i2v_weights_and_remaining_raises(i2v_params):
     freqs = trope.wan_rope_freqs((1, 2, 2), 128)
     with pytest.raises(ValueError, match="previous_residual"):
         model(*args, freqs, compute=False)
-    for kw in (dict(vace_context=torch.zeros(1)), dict(fps_idx=0),
-               dict(cam_emb=torch.zeros(1))):
-        with pytest.raises(NotImplementedError, match="step 13"):
-            model(*args, freqs, **kw)
+    # a VACE context, an fps index and camera poses reach only a model
+    # built for them: an i2v model ignores them on both sides
+    jp, _ = _i2v_model(i2v_params)
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((1, 1, 4, 4, I2V_KW["in_dim"])).astype(
+        np.float32)
+    ctx = rng.standard_normal((1, 16, 32)).astype(np.float32)
+    targs = [torch.from_numpy(x), torch.full((1,), 500.0),
+             torch.from_numpy(ctx), torch.ones(1, 16)]
+    jargs = (jp, jwm.WanConfig(**I2V_KW), jnp.asarray(x),
+             jnp.full((1,), 500.0), jnp.asarray(ctx), jnp.ones((1, 16)),
+             jrope.wan_rope_freqs((1, 2, 2), 128))
+    with torch.no_grad():
+        bare, _ = model(*targs, freqs, attn_mode="pallas")
+    for kw in (dict(vace_context=np.ones((1, 1, 4, 4, 4), np.float32)),
+               dict(fps_idx=0),
+               dict(cam_emb=np.ones((1, 1, 12), np.float32))):
+        tkw = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+               for k, v in kw.items()}
+        jkw = {k: jnp.asarray(v) if isinstance(v, np.ndarray) else v
+               for k, v in kw.items()}
+        with torch.no_grad():
+            out, _ = model(*targs, freqs, attn_mode="pallas", **tkw)
+        ref, _ = jwm.forward(*jargs, attn_mode="xla", **jkw)
+        assert torch.equal(out, bare)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
 
 
 # --------------------------------------------------------------------------
