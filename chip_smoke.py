@@ -5,8 +5,10 @@ image-to-video through the two-pass multi-scale pipeline (one request of
 it through the HTTP server, one through the CLI from checkpoint files in
 the published layout), the CLI (in each quantization tier), Wan 2.1
 t2v-1.3B (UniPC, DPM++, TeaCache), Wan 2.1 i2v-14B with CLIP ViT-H/14 and
-the Wan VAE encoder, the ring-attention kernel and the attention
-micro-benchmark tool.
+the Wan VAE encoder, the prompt enhancer (Florence-2-large + Llama-3.2-3B)
+on a served request, the Wan prompt extenders (Qwen2.5-VL-7B,
+Qwen2.5-3B), U2-Net background removal, the legacy LTX VAE, the
+ring-attention kernel and the attention micro-benchmark tool.
 
     python3 chip_smoke.py              # one card; several minutes on an H100
     python3 chip_smoke.py --profile    # and device-time breakdowns
@@ -225,7 +227,24 @@ Phases, one output line each (or a few):
             reads back to 121 frames of 608x992), a POST with a field
             missing (400), a path that leaves outputs/ (404), GET
             /metrics (the request's seconds by stage, the mp4 write among
-            them). Then requests through the CLI's main() at 256x256x9
+            them).
+7c'. enhance inside [server], on the same InferenceService: Llama-3.2-3B-
+            Instruct (28 layers, dim 3072, 24/8 heads of 128, vocabulary
+            128256, llama3 RoPE) and Florence-2-large (DaViT 256-2048,
+            BART 12 + 12 layers of 1024; FLORENCE2_LARGE_HF, pinned from
+            the published config.json) built on the card in bf16 from
+            seeds; their 2-layer cuts against fp32 copies on the CPU (Llama
+            prefill logits, 8 cached decode steps against one full
+            forward, Florence's tower features and decoder logits; bar 30
+            dB); then the tier-(b) POST / again with "enhance_prompt":
+            true, the enhancer set on the service with its models and the
+            word-level stand-in tokenizers (WordTokenizer): the caption
+            (768x768) and the rewrite run on the card, the text encoding
+            gets the rewrite (its embeddings differ from the original
+            prompt's), the launches are exactly tier (b)'s
+            (ENHANCE_EXPECT); caption s, rewrite s, tokens, stages, peak
+            GiB. The enhancer is freed. Then requests through the CLI's
+            main() at 256x256x9
             on the demo model: as it is, then with --quantize-transformer
             in each --int8-mode of wo, wo_int4 and mixed_int4 (no K2).
 7d. load    synthetic files in the published layout in a temporary
@@ -297,6 +316,18 @@ Phases, one output line each (or a few):
             decode), peak GiB (UMT5-XXL, CLIP, the VAE and the one DiT
             resident), the DiT's resident bytes; the launch counts must
             equal wan_i2v_expect.
+8c. aux    on a free card: Qwen2.5-VL-7B-Instruct at full width (tower 32
+            blocks of 1280, full attention at 7/15/23/31; LLM 28 layers of
+            3584, 28/4 heads, M-RoPE (16, 24, 24)), its 2-layer cut
+            against the CPU, one extend_with_img chat on a 448x448 image;
+            Qwen2.5-3B-Instruct, one extend; U2-Net (U2NET) from a random
+            u2net.pth through load_torch_checkpoint: salience_map of 4
+            frames at 832x480 against the CPU (30 dB), remove_background
+            with the matting at 256x256; the legacy VAE at its default
+            widths: encode and decode of 512x320x41, a decode against the
+            CPU (30 dB); cli.main from synthetic files whose VAE is a
+            legacy one (the 13B transformer at 2 layers) through
+            load_ltxv_model's legacy branch, 512x320x41.
 9. profile  only with --profile: one more 704x480x121 LTX-2B request, one
             more 13B request of kinds (b), (c) and (d) and one more
             832x480x81 Wan request, each twice under torch.profiler: as it
@@ -3602,8 +3633,10 @@ def run_ltx13b_request(gen, t5, name, mode, fused, bound, *, check=True,
 
 def phase_ltx13b(t5):
     """Build the 13B models, check a cut in each tier, serve one request
-    per tier (tier (b) through the HTTP server, ``phase_server``); returns
-    the launch counts per tier (both passes summed) and the generator."""
+    per tier (tier (b) through the HTTP server, ``phase_server``, then the
+    enhanced request there too); returns the launch counts per tier and of
+    the enhanced request (``ENHANCED``; both passes summed) and the
+    generator."""
     import torch
 
     from ltx_video_gpupoor_tpu_torch.pipelines.ltx_pipeline import LTXPipeline
@@ -3624,7 +3657,8 @@ def phase_ltx13b(t5):
     launches = {}
     for name, mode, fused, bound in LTX13B_TIERS:
         if name == LTX13B_SERVED:
-            p1, p2 = phase_server(gen, t5, name, mode, fused, bound)
+            p1, p2, launches[ENHANCED] = phase_server(gen, t5, name, mode,
+                                                      fused, bound)
         else:
             p1, p2 = run_ltx13b_request(gen, t5, name, mode, fused, bound)
         launches[name] = {k: p1[k] + p2[k] for k in p1}
@@ -3653,8 +3687,10 @@ def _http(url, body=None):
 
 def phase_server(gen, t5, name, mode, fused, bound):
     """The tier-(b) 13B request through ``InferenceService`` and the
-    stdlib HTTP server over a real socket, then the error answers and
-    ``/metrics``; returns the launch counts of the request's two passes."""
+    stdlib HTTP server over a real socket, then ``[enhance]`` (the same
+    request with ``enhance_prompt``, ``phase_enhance``), the error answers
+    and ``/metrics``; returns the launch counts of the first request's two
+    passes and the enhanced request's (both passes summed)."""
     import base64
     import io
     import threading
@@ -3703,11 +3739,14 @@ def phase_server(gen, t5, name, mode, fused, bound):
             "num_inference_steps": 10, "creation_id": "chip_smoke"}
     seen = {}
 
-    def serve(on_stage):
+    def make_serve(req_body):
+        return lambda on_stage: serve(req_body, on_stage)
+
+    def serve(req_body, on_stage):
         real = gen.generate
         gen.generate = lambda *a, **k: real(*a, on_stage=on_stage, **k)
         try:
-            status, payload = _http(root + "/", body)
+            status, payload = _http(root + "/", req_body)
         finally:
             del gen.generate
         assert status == 200, (status, payload[:500])
@@ -3727,7 +3766,10 @@ def phase_server(gen, t5, name, mode, fused, bound):
 
     try:
         p1, p2 = run_ltx13b_request(gen, t5, name, mode, fused, bound,
-                                    serve=serve)
+                                    serve=make_serve(body))
+        first = Metrics.snapshot()["gauges"]
+        enhanced = phase_enhance(service, make_serve, body, gen, t5,
+                                 (name, mode, fused, bound))
         status, payload = _http(root + "/", {k: v for k, v in body.items()
                                              if k != "prompt"})
         assert status == 400 and b"Missing fields: prompt" in payload, \
@@ -3736,7 +3778,7 @@ def phase_server(gen, t5, name, mode, fused, bound):
         assert status == 404, (status, payload[:200])
         status, payload = _http(root + "/metrics")
         metrics = json.loads(payload)
-        assert status == 200 and metrics["counters"]["requests_ok"] == 1, \
+        assert status == 200 and metrics["counters"]["requests_ok"] == 2, \
             metrics
     finally:
         httpd.shutdown()
@@ -3744,7 +3786,7 @@ def phase_server(gen, t5, name, mode, fused, bound):
         thread.join()
         set_attention_mode("auto")
         set_fused_prologue(False)
-    g = metrics["gauges"]
+    g = first
     stages = {k.split("/", 1)[1]: v for k, v in g.items()
               if k.startswith("last_stage_s/")}
     assert stages["save_video"] > 0 and stages["generate"] > 0, stages
@@ -3755,7 +3797,322 @@ def phase_server(gen, t5, name, mode, fused, bound):
         f"read back to {frames} frames, {seen['download_s']:.3f} s with the "
         "decode; a missing field answers 400, a path out of outputs/ 404, "
         "GET /metrics 200")
-    return p1, p2
+    return p1, p2, enhanced
+
+
+# --------------------------------------------------------------------------
+# phase 7c': [enhance], the prompt enhancer on the served 13B stack
+# --------------------------------------------------------------------------
+
+# Florence-2-large's published widths (microsoft/Florence-2-large
+# config.json, vision_config and text_config): the JAX package has no
+# preset for it and config_from_hf reads Florence-2-base's defaults
+FLORENCE2_LARGE_HF = {
+    "vision_config": {"depths": [1, 1, 9, 1], "patch_size": [7, 3, 3, 3],
+                      "patch_stride": [4, 2, 2, 2],
+                      "patch_padding": [3, 1, 1, 1],
+                      "patch_prenorm": [False, True, True, True],
+                      "embed_dim": [256, 512, 1024, 2048],
+                      "num_heads": [8, 16, 32, 64],
+                      "num_groups": [8, 16, 32, 64], "window_size": 12,
+                      "mlp_ratio": 4.0, "projection_dim": 1024,
+                      "max_position_embeddings": 50,
+                      "max_temporal_embeddings": 100},
+    "text_config": {"vocab_size": 51289, "d_model": 1024,
+                    "encoder_layers": 12, "decoder_layers": 12,
+                    "encoder_attention_heads": 16, "encoder_ffn_dim": 4096,
+                    "max_position_embeddings": 1024},
+    "image_token_id": 51289,
+}
+# the enhancer's generation budget: the JAX enhancer's max_new_tokens
+ENHANCE_NEW_TOKENS = 256
+# the enhanced request launches what tier (b) launches, and nothing more:
+# the enhancer's models run on PyTorch's own kernels (JAX's on XLA's)
+ENHANCE_EXPECT = LTX13B_EXPECT[LTX13B_SERVED]
+ENHANCED = "b: enhanced POST /"      # its entry among the 13B launches
+
+
+class WordTokenizer:
+    """A word-level stand-in for a checkpoint's tokenizer files, which
+    are not in the repository: the special tokens by their strings, any
+    other word by its CRC32 into the ids below ``special_from``; ``decode``
+    writes an id as the word ``w<id>``. It offers what the enhancers call
+    (``apply_chat_template``, ``__call__``, ``decode``, ``bos_token``,
+    ``eos_token``, ``eos_token_id``), so no tokenizer package is needed."""
+
+    def __init__(self, special: dict, special_from: int, eos_token: str,
+                 bos_token: str = "", turn: str = "{content}",
+                 prefix: str = "", generation_prompt: str = ""):
+        import re
+
+        self.special = dict(special)
+        self.special_ids = set(special.values())
+        self.special_from = special_from
+        self.bos_token, self.eos_token = bos_token, eos_token
+        self.eos_token_id = special[eos_token]
+        self.turn, self.prefix = turn, prefix
+        self.generation_prompt = generation_prompt
+        self._split = re.compile("(" + "|".join(
+            re.escape(s) for s in sorted(special, key=len, reverse=True))
+            + ")")
+
+    def encode(self, text: str) -> list:
+        import zlib
+
+        ids = []
+        for part in self._split.split(text):
+            if part in self.special:
+                ids.append(self.special[part])
+            else:
+                ids.extend(zlib.crc32(w.encode()) % self.special_from
+                           for w in part.split())
+        return ids
+
+    def __call__(self, text, add_special_tokens=False,
+                 return_attention_mask=False):
+        return {"input_ids": self.encode(text)}
+
+    def apply_chat_template(self, messages, add_generation_prompt=True):
+        text = self.prefix + "".join(
+            self.turn.format(role=m["role"], content=m["content"])
+            for m in messages)
+        if add_generation_prompt:
+            text += self.generation_prompt
+        return self.encode(text)
+
+    def decode(self, ids, skip_special_tokens=True):
+        inverse = {v: k for k, v in self.special.items()}
+        return " ".join(
+            inverse.get(int(i), f"w{int(i)}") for i in ids
+            if not (skip_special_tokens and int(i) in self.special_ids))
+
+
+def llama3_tokenizer():
+    """Llama-3.x Instruct's special tokens and chat layout."""
+    return WordTokenizer(
+        {"<|begin_of_text|>": 128000, "<|end_of_text|>": 128001,
+         "<|start_header_id|>": 128006, "<|end_header_id|>": 128007,
+         "<|eot_id|>": 128009}, 128000, "<|eot_id|>",
+        bos_token="<|begin_of_text|>",
+        turn="<|start_header_id|>{role}<|end_header_id|>\n\n"
+             "{content}<|eot_id|>",
+        prefix="<|begin_of_text|>",
+        generation_prompt="<|start_header_id|>assistant<|end_header_id|>"
+                          "\n\n")
+
+
+def qwen_tokenizer():
+    """Qwen2.5's (and Qwen2.5-VL's) special tokens and chat layout."""
+    return WordTokenizer(
+        {"<|endoftext|>": 151643, "<|im_start|>": 151644,
+         "<|im_end|>": 151645, "<|vision_start|>": 151652,
+         "<|vision_end|>": 151653, "<|image_pad|>": 151655,
+         "<|video_pad|>": 151656}, 151643, "<|im_end|>",
+        turn="<|im_start|>{role}\n{content}<|im_end|>\n",
+        generation_prompt="<|im_start|>assistant\n")
+
+
+def florence_tokenizer():
+    """BART's special tokens (Florence-2's tokenizer)."""
+    return WordTokenizer({"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3},
+                         51289, "</s>", bos_token="<s>")
+
+
+def _db(out, ref) -> float:
+    """PSNR of ``out`` against ``ref`` with the peak the larger magnitude
+    of the two, doubled (the cuts' bar is 30 dB)."""
+    import numpy as np
+
+    o = out.float().cpu().numpy() if hasattr(out, "cpu") else out
+    r = ref.float().cpu().numpy() if hasattr(ref, "cpu") else ref
+    assert o.shape == r.shape and np.isfinite(o).all(), (o.shape, r.shape)
+    peak = max(np.abs(r).max(), np.abs(o).max()) * 2
+    mse = float(np.mean((o.astype(np.float64) - r) ** 2))
+    return 10 * np.log10(peak ** 2 / mse) if mse > 0 else float("inf")
+
+
+def _cut(module_cls, cut_cfg, full, **kw):
+    """``module_cls(cut_cfg)`` on the card sharing ``full``'s tensors (its
+    first blocks), and an fp32 copy on the CPU."""
+    import torch
+
+    card = module_cls(cut_cfg, device="meta", **kw)
+    want = card.state_dict()
+    sd = {k: v for k, v in full.state_dict().items() if k in want}
+    card.load_state_dict(sd, assign=True)
+    cpu = module_cls(cut_cfg, device="cpu", dtype=torch.float32)
+    cpu.load_state_dict({k: v.float().cpu() for k, v in sd.items()})
+    return card, cpu
+
+
+def build_enhancer():
+    """Llama-3.2-3B-Instruct and Florence-2-large at full width on the
+    card, bf16, random weights from seeds; returns (lm, captioner) behind
+    the stand-in tokenizers, and the seconds of the build."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.models import florence2 as fl
+    from ltx_video_gpupoor_tpu_torch.models import llm
+    from ltx_video_gpupoor_tpu_torch.utils import prompt_enhance as pe
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    lm = llm.init_params(llm.LLM(llm.LLAMA_3_2_3B, device="cuda"), gen)
+    flo = fl.init_params(fl.Florence2(fl.config_from_hf(FLORENCE2_LARGE_HF),
+                                      device="cuda"), gen)
+    # JAX's init leaves the logit bias at 0, and a random BART then copies
+    # its input token (the forced BOS) at every step, an empty caption: a
+    # drawn bias gives the caption words
+    bias = flo.text.final_logits_bias
+    bias.copy_(torch.randn(bias.shape, generator=gen, device="cuda"))
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    n_lm = sum(p.numel() for p in lm.parameters())
+    n_flo = sum(p.numel() for p in flo.parameters())
+    log(f"[enhance] built Llama-3.2-3B-Instruct ({lm.cfg.num_layers} layers, "
+        f"dim {lm.cfg.dim}, {lm.cfg.num_heads}/{lm.cfg.num_kv_heads} heads "
+        f"of {lm.cfg.hd}, vocabulary {lm.cfg.vocab_size}, {n_lm / 1e9:.3f} B "
+        f"parameters) and Florence-2-large ({n_flo / 1e9:.3f} B) on the "
+        f"card in bf16 in {built:.3f} s")
+    return (pe.ChatLM(model=lm, tokenizer=llama3_tokenizer(),
+                      max_new_tokens=ENHANCE_NEW_TOKENS),
+            pe.FlorenceCaptioner(model=flo, tokenizer=florence_tokenizer(),
+                                 max_new_tokens=ENHANCE_NEW_TOKENS))
+
+
+def enhancer_reference_check(lm, captioner):
+    """2-layer cuts of the two models (the full models' own first
+    blocks) on the card against fp32 copies on the CPU: Llama's prefill
+    logits over left-padded ids; its 8 cached decode steps' logits against
+    one full forward over the same tokens (both on the card); Florence's
+    tower features (its 9-block stage cut to 2) on a 384x384 image and its
+    decoder's logits (BART cut to 2 + 2 layers). Bar: 30 dB."""
+    import dataclasses
+
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.models import florence2 as fl
+    from ltx_video_gpupoor_tpu_torch.models import llm
+
+    g = torch.Generator().manual_seed(SEED + 41)
+    lcfg = dataclasses.replace(lm.model.cfg, num_layers=2)
+    card, cpu = _cut(llm.LLM, lcfg, lm.model)
+    ids = torch.randint(0, 128000, (1, 48), generator=g)
+    mask = torch.ones(1, 48, dtype=torch.int32)
+    mask[:, :5] = 0
+    dbs = {"llama prefill": _db(llm.forward(card, ids, mask),
+                                llm.forward(cpu, ids, mask))}
+    toks, seen = llm.generate(card, ids, mask, 8, return_logits=True)
+    full = llm.forward(card, torch.cat([ids.to(toks.device), toks], 1),
+                       torch.cat([mask, torch.ones(1, 8, dtype=torch.int32)],
+                                 1))
+    dbs["llama 8 cached steps"] = _db(seen, full[:, 47:-1])
+    del card, cpu, full
+    cfg = captioner.model.cfg
+    fcfg = fl.FlorenceConfig(
+        vision=dataclasses.replace(cfg.vision, depths=(1, 1, 2, 1)),
+        text=dataclasses.replace(cfg.text, encoder_layers=2,
+                                 decoder_layers=2),
+        image_token_id=cfg.image_token_id)
+    card, cpu = _cut(fl.Florence2, fcfg, captioner.model)
+    px = torch.randn(1, 384, 384, 3, generator=g)
+    feat = fl.vision_forward(card, px)
+    ref = fl.vision_forward(cpu, px)
+    dbs["florence tower"] = _db(feat, ref)
+    n_img = 12 * 12 + 1
+    ids = torch.cat([torch.full((1, n_img), cfg.image_token_id),
+                     torch.randint(4, 50000, (1, 15), generator=g)], 1)
+    dec = torch.tensor([[2, 0] + list(range(100, 106))])
+    dbs["florence decoder"] = _db(fl.forward(card, ids, px, dec),
+                                  fl.forward(cpu, ids, px, dec))
+    del card, cpu
+    log("[enhance] reference check, 2-layer cuts at full width, the card "
+        "in bf16 vs fp32 copies on the CPU (cached decode vs a full "
+        "forward on the card): " + ", ".join(
+            f"{k} {v:.2f} dB" for k, v in dbs.items()) + " (bar 30)")
+    assert all(v >= 30.0 for v in dbs.values()), dbs
+    return dbs
+
+
+def phase_enhance(service, make_serve, body, gen, t5, tier):
+    """[enhance] on the served 13B stack: build the enhancer's models,
+    check their cuts, set the enhancer on the service, then serve one
+    POST / with ``"enhance_prompt": true``: the caption and the rewrite
+    run on the card, the rewrite is the prompt the text encoding gets
+    (its embeddings differ from the original prompt's), and the request
+    launches exactly tier (b)'s kernels (``ENHANCE_EXPECT``). Frees the
+    enhancer; returns the request's launches (both passes)."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.serving import cli
+    from ltx_video_gpupoor_tpu_torch.utils import prompt_enhance as pe
+    from ltx_video_gpupoor_tpu_torch.utils.observability import Metrics
+
+    t_phase = time.perf_counter()
+    lm, captioner = build_enhancer()
+    enhancer_reference_check(lm, captioner)
+    service.enhancer = pe.PromptEnhancer(lm=lm, captioner=captioner)
+    marks = {}
+
+    def timed(name, fn):
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            marks[name] = (time.perf_counter() - t0, out)
+            return out
+        return wrapped
+
+    captioner.caption = timed("caption", captioner.caption)
+    lm.chat = timed("rewrite", lm.chat)
+    prompts = []
+    real_encode = cli.encode_or_hash
+    cli.encode_or_hash = lambda pipe, p, n: (prompts.append(p),
+                                             real_encode(pipe, p, n))[1]
+    name, mode, fused, bound = tier
+    try:
+        p1, p2 = run_ltx13b_request(
+            gen, t5, name, mode, fused, bound,
+            serve=make_serve(dict(body, enhance_prompt=True)))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        cli.encode_or_hash = real_encode
+    counts = {k: p1[k] + p2[k] for k in p1}
+    must, must_not = ENHANCE_EXPECT
+    assert all(counts[k] > 0 for k in must) and \
+        not any(counts[k] for k in must_not), counts
+    caption_s, caption = marks["caption"]
+    rewrite_s, rewrite = marks["rewrite"]
+    assert lm.model.device.type == captioner.model.device.type == "cuda"
+    assert caption and rewrite and prompts == [rewrite], (prompts, rewrite)
+    assert rewrite != body["prompt"]
+    pipe = gen.pipeline
+    emb, _ = real_encode(pipe, rewrite, body["negative_prompt"])
+    orig, _ = real_encode(pipe, body["prompt"], body["negative_prompt"])
+    assert not torch.equal(emb, orig)
+    g = Metrics.snapshot()["gauges"]
+    stages = {k.split("/", 1)[1]: v for k, v in g.items()
+              if k.startswith("last_stage_s/")}
+    assert stages["enhance_prompt"] > 0, stages
+    height, width, frames = LTX13B_REQUEST
+    log(f"[enhance] POST / {width}x{height}x{frames} with enhance_prompt in "
+        f"tier ({name}): caption {caption_s:.3f} s "
+        f"({captioner.last_new_tokens} tokens, 768x768, {len(caption)} "
+        f"characters), rewrite {rewrite_s:.3f} s ({lm.last_new_tokens} "
+        f"tokens of {lm.max_new_tokens}), answered in "
+        f"{g['last_request_s']:.3f} s: "
+        + " ".join(f"{k}={v:.3f}s" for k, v in stages.items())
+        + f"; peak {peak:.2f} GiB with the enhancer's models resident; "
+        f"the text encoding got the rewrite (embeddings differ from the "
+        f"original prompt's); launches {counts}, exactly tier (b)'s kinds; "
+        f"the phase {time.perf_counter() - t_phase:.3f} s")
+    service.enhancer = None
+    del lm, captioner, marks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
 
 
 # the CLI's --int8-mode tiers, each with --quantize-transformer on the demo
@@ -4899,6 +5256,303 @@ def phase_wan_i2v(umt5):
 
 
 # --------------------------------------------------------------------------
+# phase 8c: [aux], the Wan extenders, U2-Net, the legacy VAE
+# --------------------------------------------------------------------------
+
+# Qwen2.5-VL-7B-Instruct's published widths (Qwen/Qwen2.5-VL-7B-Instruct
+# config.json: vision_config and the text fields)
+QWEN25_VL_7B_HF = {
+    "vision_config": {"depth": 32, "hidden_size": 1280,
+                      "intermediate_size": 3420, "num_heads": 16,
+                      "patch_size": 14, "spatial_merge_size": 2,
+                      "temporal_patch_size": 2, "window_size": 112,
+                      "out_hidden_size": 3584,
+                      "fullatt_block_indexes": [7, 15, 23, 31]},
+    "vocab_size": 152064, "hidden_size": 3584, "num_hidden_layers": 28,
+    "num_attention_heads": 28, "num_key_value_heads": 4,
+    "intermediate_size": 18944, "rope_theta": 1000000.0,
+    "rms_norm_eps": 1e-6, "tie_word_embeddings": False,
+    "rope_scaling": {"type": "mrope", "mrope_section": [16, 24, 24]},
+}
+AUX_IMAGE = 448                       # the VL chat's image, 32x32 patches
+AUX_U2NET_FRAMES = (4, 480, 832)      # salience_map's frames
+AUX_REMBG = 256                       # remove_background's image side
+AUX_VAE_REQUEST = (320, 512, 41)      # the legacy VAE's clip (H, W, F)
+# the legacy VAE (LegacyVAEConfig's default widths) as a published file's
+# config says it
+LEGACY_VAE_CFG = {"_class_name": "VideoAutoencoder", "dims": 3,
+                  "latent_channels": 128,
+                  "block_out_channels": [128, 256, 512, 512]}
+AUX_CLI_LAYERS = 2                    # the 13B transformer cut for the CLI
+
+
+def _timed_cuda(fn, *args, **kwargs):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def aux_qwen_vl(image):
+    """Qwen2.5-VL-7B-Instruct at full width on the card: a 2-layer cut
+    (2 tower blocks, the second with full attention, 2 LLM layers) against
+    an fp32 copy on the CPU on a 224x224 image's patches, then one
+    ``extend_with_img`` chat on the 448x448 image."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.models import qwen25_vl as qvl
+    from ltx_video_gpupoor_tpu_torch.utils import prompt_enhance as pe
+    from ltx_video_gpupoor_tpu_torch.utils.qwen_vl import preprocess_image
+
+    cfg = qvl.config_from_hf(QWEN25_VL_7B_HF)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    (model, build_s) = _timed_cuda(lambda: qvl.init_params(
+        qvl.QwenVL(cfg, device="cuda"), gen))
+    n = sum(p.numel() for p in model.parameters())
+    cut_cfg = qvl.QwenVLConfig(
+        vision=dataclasses.replace(cfg.vision, depth=2,
+                                   fullatt_block_indexes=(1,)),
+        text=dataclasses.replace(cfg.text, num_layers=2))
+    card, cpu = _cut(qvl.QwenVL, cut_cfg, model)
+    small = np.asarray(image[:224, :224])
+    patches, grid = preprocess_image(small, min_pixels=224 * 224,
+                                     max_pixels=224 * 224)
+    tok = qwen_tokenizer()
+    ids = tok.encode("<|im_start|>user\n<|vision_start|>") + \
+        [cfg.image_token_id] * (int(np.prod(grid)) // 4) + \
+        tok.encode("<|vision_end|>a seeded synthetic frame<|im_end|>\n")
+    ids = torch.tensor([ids])
+    px = torch.from_numpy(patches)
+    db = _db(qvl.forward(card, ids, px, np.asarray([grid])),
+             qvl.forward(cpu, ids, px, np.asarray([grid])))
+    del card, cpu
+    assert db >= 30.0, f"Qwen2.5-VL cut {db:.2f} dB < 30"
+    torch.cuda.reset_peak_memory_stats()
+    exp = pe.QwenVLPromptExpander(vl=pe.VLChat(model=model, tokenizer=tok))
+    out, chat_s = _timed_cuda(exp.extend_with_img,
+                              "a seeded synthetic frame comes alive",
+                              _pil(image), seed=SEED)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    assert out and exp.vl.last_new_tokens > 0
+    log(f"[aux] Qwen2.5-VL-7B-Instruct (tower {cfg.vision.depth} blocks of "
+        f"{cfg.vision.hidden_size}, LLM {cfg.text.num_layers} layers of "
+        f"{cfg.text.dim}, {cfg.text.num_heads}/{cfg.text.num_kv_heads} heads, "
+        f"{n / 1e9:.3f} B parameters) built in {build_s:.3f} s; 2-layer cut "
+        f"vs the CPU {db:.2f} dB (bar 30); extend_with_img on "
+        f"{AUX_IMAGE}x{AUX_IMAGE} ({AUX_IMAGE // 28}x{AUX_IMAGE // 28} merged "
+        f"patches) {chat_s:.3f} s, {exp.vl.last_new_tokens} tokens of "
+        f"{exp.vl.max_new_tokens}, peak {peak:.2f} GiB")
+    return {"vl_cut_db": db, "vl_chat_s": chat_s}
+
+
+def aux_qwen():
+    """Qwen2.5-3B-Instruct (``QWEN_2_5_3B``) on the card: one ``extend``."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.models import llm
+    from ltx_video_gpupoor_tpu_torch.utils import prompt_enhance as pe
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 51)
+    model, build_s = _timed_cuda(lambda: llm.init_params(
+        llm.LLM(llm.QWEN_2_5_3B, device="cuda"), gen))
+    torch.cuda.reset_peak_memory_stats()
+    exp = pe.QwenPromptExpander(lm=pe.ChatLM(
+        model=model, tokenizer=qwen_tokenizer(), max_new_tokens=512))
+    out, s = _timed_cuda(exp.extend, "a red fox runs through fresh snow",
+                         seed=SEED)
+    assert out and exp.lm.last_new_tokens > 0
+    log(f"[aux] Qwen2.5-3B-Instruct ({model.cfg.num_layers} layers of "
+        f"{model.cfg.dim}) built in {build_s:.3f} s; extend {s:.3f} s, "
+        f"{exp.lm.last_new_tokens} tokens of 512, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return {"qwen_extend_s": s}
+
+
+def _pil(image):
+    from PIL import Image
+
+    return Image.fromarray(image)
+
+
+def aux_u2net(root):
+    """U2-Net (``U2NET``) from a random ``u2net.pth`` in the official
+    naming, loaded by ``load_torch_checkpoint`` on the card and on the CPU:
+    ``salience_map`` of 4 frames at 832x480 against the CPU (bar 30 dB),
+    then ``remove_background`` with the matting on one 256x256 image."""
+    import numpy as np
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.models import u2net
+    from ltx_video_gpupoor_tpu_torch.tools import synthetic_ckpt as sc
+    from ltx_video_gpupoor_tpu_torch.utils import video_ops
+
+    path = os.path.join(root, "u2net.pth")
+    torch.save(sc.u2net_tensors(u2net.U2NET, seed=SEED + 52), path)
+    card = u2net.load_torch_checkpoint(path)
+    cpu = u2net.load_torch_checkpoint(path, device="cpu")
+    n, h, w = AUX_U2NET_FRAMES
+    frames = [synthetic_image(h, w) for _ in range(n)]
+    times, dbs = [], []
+    for i, f in enumerate(frames):
+        f = np.roll(f, 40 * i, axis=1)
+        a, s = _timed_cuda(u2net.salience_map, card, f)
+        times.append(s)
+        ref = u2net.salience_map(cpu, f)
+        dbs.append(_db(a, ref))
+    assert min(dbs) >= 30.0, dbs
+    os.environ["LTXV_TPU_U2NET_PATH"] = path
+    os.environ["LTXV_TPU_REMBG_MATTING"] = "1"
+    try:
+        img = synthetic_image(AUX_REMBG, AUX_REMBG)
+        (out,), rembg_s = _timed_cuda(video_ops.remove_background, [img])
+    finally:
+        del os.environ["LTXV_TPU_U2NET_PATH"]
+        del os.environ["LTXV_TPU_REMBG_MATTING"]
+        video_ops._u2net_cache.clear()
+    assert out.shape == img.shape and out.dtype == np.uint8
+    log(f"[aux] U2-Net ({sum(p.numel() for p in card.parameters()) / 1e6:.1f}"
+        f" M parameters, fp32) salience_map of {n} frames at {w}x{h}: "
+        + " ".join(f"{s:.3f}" for s in times) + " s; vs the CPU "
+        + " ".join(f"{d:.2f}" for d in dbs) + " dB (bar 30); "
+        f"remove_background with matting at {AUX_REMBG}x{AUX_REMBG} "
+        f"{rembg_s:.3f} s")
+    return {"u2net_s": times, "rembg_s": rembg_s}
+
+
+def aux_legacy_vae():
+    """The legacy VAE at LegacyVAEConfig's default widths on the card:
+    encode and decode of a 512x320x41 clip; the decode of a small latent
+    grid against an fp32 copy on the CPU (bar 30 dB)."""
+    import numpy as np
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.core.dtypes import (
+        DEFAULT_POLICY,
+        FP32_POLICY,
+    )
+    from ltx_video_gpupoor_tpu_torch.models.ltx import video_autoencoder as lv
+
+    cfg = lv.LegacyVAEConfig.from_dict(LEGACY_VAE_CFG)
+    vae = lv.init_params(lv.LegacyVAE(cfg, DEFAULT_POLICY, device="cuda"),
+                         torch.Generator(device="cuda").manual_seed(SEED + 53))
+    h, w, f = AUX_VAE_REQUEST
+    clip = np.stack([synthetic_image(h, w)] * f).astype(np.float32)
+    media = torch.from_numpy(clip / 127.5 - 1.0)[None].cuda()
+    torch.cuda.reset_peak_memory_stats()
+    enc, enc_s = _timed_cuda(lv.encode, vae, media)
+    z = enc[..., :cfg.latent_channels]
+    pix, dec_s = _timed_cuda(lv.decode, vae, z)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    assert torch.isfinite(pix).all() and torch.isfinite(enc).all()
+    cpu = lv.LegacyVAE(cfg, FP32_POLICY, device="cpu")
+    cpu.load_state_dict({k: v.float().cpu()
+                         for k, v in vae.state_dict().items()})
+    small = torch.randn(1, 2, 4, 6, cfg.latent_channels,
+                        generator=torch.Generator().manual_seed(SEED + 54))
+    db = _db(lv.decode(vae, small.cuda()), lv.decode(cpu, small))
+    assert db >= 30.0, f"legacy VAE decode {db:.2f} dB < 30"
+    log(f"[aux] legacy VAE (dims 3, {list(cfg.block_out_channels)}, latent "
+        f"{cfg.latent_channels}, bf16): encode {w}x{h}x{f} -> "
+        f"{list(enc.shape[1:4])} latents {enc_s:.3f} s, decode -> "
+        f"{list(pix.shape[1:4])} {dec_s:.3f} s, peak {peak:.2f} GiB; "
+        f"decode of a {list(small.shape[1:4])} grid vs the CPU {db:.2f} dB "
+        f"(bar 30); the headline 704x480x121 not run (predicted peak over "
+        f"50 GiB: fp32 group-norm temporaries of 128 channels at full "
+        f"resolution)")
+    return {"vae_encode_s": enc_s, "vae_decode_s": dec_s, "vae_db": db}
+
+
+def aux_cli_legacy(root):
+    """``cli.main`` from synthetic published-layout files whose VAE is a
+    legacy one (the 13B-dev transformer at full width, AUX_CLI_LAYERS
+    layers; the distilled LoRA; the upscaler): load_ltxv_model's legacy
+    branch, a 512x320x41 text-to-video request; the mp4 must read back.
+    Returns the request's launches."""
+    import dataclasses
+
+    import numpy as np
+
+    from ltx_video_gpupoor_tpu_torch.models.ltx import latent_upsampler as lup
+    from ltx_video_gpupoor_tpu_torch.models.ltx import video_autoencoder as lv
+    from ltx_video_gpupoor_tpu_torch.serving import cli, model_zoo
+    from ltx_video_gpupoor_tpu_torch.tools import synthetic_ckpt as sc
+    from ltx_video_gpupoor_tpu_torch.utils import media
+
+    cfg = dataclasses.replace(ltx13b_config(), num_layers=AUX_CLI_LAYERS)
+    up_cfg = lup.LatentUpsamplerConfig(in_channels=128, mid_channels=512,
+                                       num_blocks_per_stage=4, dims=3)
+    ckpt = os.path.join(root, "ckpts")
+    info = sc.write_ltxv_ckpt_dir(ckpt, cfg, LEGACY_VAE_CFG, up_cfg,
+                                  lora_rank=LOAD_LORA_RANK, seed=SEED + 55,
+                                  device="cuda")
+    h, w, f = AUX_VAE_REQUEST
+    out_mp4 = os.path.join(root, "legacy.mp4")
+    loaded = {}
+    real = model_zoo.load_ltxv_model
+
+    def load(*a, **k):
+        loaded["model"] = real(*a, **k)
+        return loaded["model"]
+
+    model_zoo.load_ltxv_model = load
+    reset_kernel_counts()
+    try:
+        _, s = _timed_cuda(cli.main, [
+            "--prompt", "a red fox runs through fresh snow", "--model-mode",
+            "ltxv_13B_distilled", "--ckpt-dir", ckpt, "--height", str(h),
+            "--width", str(w), "--video-length", str(f), "--seed", str(SEED),
+            "--quantize-transformer", "--output-path", out_mp4])
+    finally:
+        model_zoo.load_ltxv_model = real
+    launches = kernel_counts()
+    vae = loaded.pop("model").generator.pipeline.vae
+    assert isinstance(vae, lv.LegacyVAE), type(vae)
+    back = media.load_video(out_mp4)
+    assert back.shape == (f, h, w, 3) and np.isfinite(back).all(), back.shape
+    assert launches["K2"] > 0, launches
+    log(f"[aux] cli.main on synthetic files ({AUX_CLI_LAYERS} of 48 layers, "
+        f"{info['bytes'][sc.VAE_FILE] / 1e9:.3f} GB legacy VAE file) through "
+        f"load_ltxv_model's legacy branch: {w}x{h}x{f} text-to-video "
+        f"{s:.3f} s with the load; the mp4 reads back as {back.shape[0]} "
+        f"frames; launches { {k: n for k, n in launches.items() if n} }")
+    del vae
+    return launches
+
+
+def phase_aux():
+    """[aux] on a free card: the Wan prompt extenders (Qwen2.5-VL-7B,
+    Qwen2.5-3B), U2-Net and background removal, the legacy VAE, and a
+    CLI run through the legacy-VAE loader. Returns the CLI's launches."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    image = synthetic_image(AUX_IMAGE, AUX_IMAGE)
+    root = tempfile.mkdtemp(prefix="aux_")
+    try:
+        for step in (lambda: aux_qwen_vl(image), aux_qwen,
+                     lambda: aux_u2net(root), aux_legacy_vae):
+            step()
+            gc.collect()
+            torch.cuda.empty_cache()
+        launches = aux_cli_legacy(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[aux] the phase {time.perf_counter() - t0:.3f} s")
+    return launches
+
+
+# --------------------------------------------------------------------------
 # phase 9 (--profile): where the device time of the headline requests goes
 # --------------------------------------------------------------------------
 
@@ -5231,10 +5885,15 @@ def main(argv=None) -> int:
     del umt5
     torch.cuda.empty_cache()
     log(f"[clock] Wan i2v path done at {time.perf_counter() - t_start:.0f} s")
+    aux_launches = phase_aux()
+    log(f"[clock] aux models done at {time.perf_counter() - t_start:.0f} s")
     by_tier = dict(zip((m for *_, m in WAN_REQUESTS), wan_launches))
     tier_b, tier_c, tier_d = (t[0] for t in LTX13B_TIERS[1:4])
     k2_key = f"K2 {K2_TIMED}"
     k5_key = f"K5 {K5_TIMED}"
+    # tier (b)'s kernels over its two POST / requests, the enhanced one too
+    served = {k: ltx13b_launches[tier_b][k] + ltx13b_launches[ENHANCED][k]
+              for k in ("K5", "K6")}
     kernels = [
         kernel_entry("flash_attention (exact online softmax)", K1_SOURCE,
                      K1_REPLACES, ltx_launches[-1]["K1"], k1_err, times, info,
@@ -5265,12 +5924,11 @@ def main(argv=None) -> int:
                      ltx13b_launches[tier_d]["K3q"], k3q_err, times, info,
                      "K3q self pass 2"),
         kernel_entry("norm_mod_int8_matmul (fused adaLN prologue + int8 "
-                     "linear)", K5_SOURCE, K5_REPLACES,
-                     ltx13b_launches[tier_b]["K5"], k5_err, times, info,
-                     k5_key),
+                     "linear)", K5_SOURCE, K5_REPLACES, served["K5"], k5_err,
+                     times, info, k5_key),
         kernel_entry("flash_attention_hp (head-packed exact attention)",
-                     K1_SOURCE, K6_REPLACES, ltx13b_launches[tier_b]["K6"],
-                     k6_err, times, info, "K6 self pass 2"),
+                     K1_SOURCE, K6_REPLACES, served["K6"], k6_err, times,
+                     info, "K6 self pass 2"),
         kernel_entry("ring_attention_rdma (ring attention, the whole ring "
                      f"in one cooperative launch, p={RING_TIMED_P})",
                      K7_SOURCE, K7_REPLACES, k7_launches, k7_err, times, info,
@@ -5289,7 +5947,7 @@ def main(argv=None) -> int:
     # K3q's and K1f's d=80 launches summed over every request's counts
     runs = [*ltx_launches, fp32_launches, *ltx13b_launches.values(),
             load_launches, cli_launches, *wan_launches,
-            *variant_launches.values(), *i2v_launches]
+            *variant_launches.values(), *i2v_launches, aux_launches]
     path_d80 = {k: sum(c[k] for c in runs) for k in ("K3qd80", "K1fd80")}
     kernels += [
         kernel_entry("flash_attention (exact online softmax, d=80: CLIP "

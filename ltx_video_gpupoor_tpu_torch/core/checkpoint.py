@@ -31,13 +31,16 @@ Differences from the JAX module:
   file dequantized wholesale to fp32 would take about 52 GB of host
   memory.
 
-The legacy-VAE converter comes with its model (ROADMAP queue 1 step 14)
-and raises until then.
+``convert_legacy_vae`` (:491) maps the pre-causal VAE's names for
+``models/ltx/video_autoencoder.py``; ``build_module`` assigns a converted
+``state_dict`` to a module built on the meta device (every loader's last
+step).
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import struct
 from typing import Any, Optional
 
@@ -917,15 +920,124 @@ def convert_clip_vision(sd: dict[str, torch.Tensor], num_layers: int,
 
 
 # ---------------------------------------------------------------------------
-# converters that come with their models
+# the legacy (pre-causal) video VAE
 # ---------------------------------------------------------------------------
 
-def _with_its_model(what: str, step: str):
-    def convert(*args, **kwargs):
-        raise NotImplementedError(
-            f"{what}: comes with its model, ROADMAP queue 1 step {step}")
-    convert.__name__ = what
-    return convert
+def convert_legacy_vae(sd: dict[str, torch.Tensor], cfg=None,
+                       dtype: torch.dtype = torch.float32
+                       ) -> dict[str, torch.Tensor]:
+    """A legacy video-VAE state dict (``VideoAutoencoder`` naming:
+    ``encoder.down_blocks.N.res_blocks.M``, ``.downsample.conv``,
+    ``mid_block.res_blocks``, ``decoder.up_blocks.N.upsample.conv``; a
+    ``vae.`` prefix dropped) -> the ``state_dict`` of ``models/ltx/
+    video_autoencoder.LegacyVAE`` (JAX :491-596): convs (plain 3-D or
+    2-D, or DualConv3d's ``weight1`` / ``weight2``) and the 1x1 quant
+    convs as linears in ``dtype``, the norms and latent statistics fp32.
+    ``cfg`` is not read: the keys say the structure, as in JAX."""
+    del cfg
+    sd = {k.removeprefix("vae."): v for k, v in sd.items()}
+
+    def conv(prefix):
+        if prefix + ".weight1" in sd:
+            p = {"weight1": _cast(sd[prefix + ".weight1"], dtype),
+                 "weight2": _cast(sd[prefix + ".weight2"], dtype)}
+            for b in ("bias1", "bias2"):
+                if f"{prefix}.{b}" in sd:
+                    p[b] = _cast(sd[f"{prefix}.{b}"], dtype)
+            return p
+        w = sd[prefix + ".weight"]
+        if w.dim() not in (4, 5):
+            raise ValueError(f"unexpected conv ndim {w.dim()} at {prefix}")
+        p = {"kernel": _cast(w, dtype)}
+        if prefix + ".bias" in sd:
+            p["bias"] = _cast(sd[prefix + ".bias"], dtype)
+        return p
+
+    def lin1x1(prefix):
+        w = sd[prefix + ".weight"]
+        p = {"kernel": _cast(w.reshape(w.shape[0], w.shape[1]), dtype)}
+        if prefix + ".bias" in sd:
+            p["bias"] = _cast(sd[prefix + ".bias"], dtype)
+        return p
+
+    def norm(prefix):
+        return {"weight": _cast(sd[prefix + ".weight"], torch.float32),
+                "bias": _cast(sd[prefix + ".bias"], torch.float32)}
+
+    def resnet(prefix):
+        p = {"conv1": conv(prefix + ".conv1"), "conv2": conv(prefix + ".conv2")}
+        if prefix + ".norm1.weight" in sd:
+            p["norm1"] = norm(prefix + ".norm1")
+            p["norm2"] = norm(prefix + ".norm2")
+        if prefix + ".conv_shortcut.weight" in sd:
+            p["conv_shortcut"] = lin1x1(prefix + ".conv_shortcut")
+        return p
+
+    def res_list(prefix):
+        out, j = [], 0
+        while any(k.startswith(f"{prefix}.res_blocks.{j}.") for k in sd):
+            out.append(resnet(f"{prefix}.res_blocks.{j}"))
+            j += 1
+        return out
+
+    def half(side, stage_key, updown):
+        p = {"conv_in": conv(f"{side}.conv_in"),
+             "conv_out": conv(f"{side}.conv_out"),
+             "mid_block": {"res_blocks": res_list(f"{side}.mid_block")},
+             stage_key: []}
+        if f"{side}.conv_norm_out.weight" in sd:
+            p["conv_norm_out"] = norm(f"{side}.conv_norm_out")
+        i = 0
+        while any(k.startswith(f"{side}.{stage_key}.{i}.") for k in sd):
+            stage = {"res_blocks": res_list(f"{side}.{stage_key}.{i}")}
+            pre = f"{side}.{stage_key}.{i}.{updown}.conv"
+            if pre + ".weight" in sd or pre + ".weight1" in sd:
+                stage[updown] = conv(pre)
+            p[stage_key].append(stage)
+            i += 1
+        return p
+
+    params = {"encoder": half("encoder", "down_blocks", "downsample"),
+              "decoder": half("decoder", "up_blocks", "upsample")}
+    for name in ("quant_conv", "post_quant_conv"):
+        if name + ".weight" in sd:
+            params[name] = lin1x1(name)
+    stats = {}
+    for ours, names in (
+        ("std_of_means",
+         ("per_channel_statistics.std-of-means", "latents_std")),
+        ("mean_of_means",
+         ("per_channel_statistics.mean-of-means", "latents_mean")),
+    ):
+        for theirs in names:
+            if theirs in sd:
+                stats[ours] = _cast(sd[theirs], torch.float32)
+                break
+    if stats:
+        params["per_channel_statistics"] = stats
+    return _flatten(params)
 
 
-convert_legacy_vae = _with_its_model("convert_legacy_vae", "14")
+# ---------------------------------------------------------------------------
+# modules from state_dicts
+# ---------------------------------------------------------------------------
+
+def build_module(module: torch.nn.Module, sd: dict, what: str, device):
+    """A module built on the meta device takes the given tensors as its
+    parameters (moved to ``device`` in the module's dtypes, no second
+    copy). A weight the module needs and the file lacks raises; keys the
+    module does not have are logged."""
+    want = module.state_dict()
+    missing = sorted(set(want) - set(sd))
+    if missing:
+        raise KeyError(f"{what} checkpoint lacks {missing[:8]} "
+                       f"({len(missing)} keys)")
+    unexpected = sorted(set(sd) - set(want))
+    if unexpected:
+        logging.getLogger(__name__).warning(
+            "%s checkpoint: %d keys the model does not use, e.g. %s", what,
+            len(unexpected), unexpected[:4])
+    module.load_state_dict(
+        {k: sd[k].to(device=device, dtype=t.dtype) for k, t in want.items()},
+        assign=True)
+    return module

@@ -128,3 +128,44 @@ def wan_vae_decoder_state_dict(params: dict) -> dict:
     encoder and its ``conv1`` are dropped)."""
     keep = {k: v for k, v in params.items() if k not in ("encoder", "conv1")}
     return state_dict(keep)
+
+
+def legacy_vae_state_dict(params: dict) -> dict:
+    """``models/ltx/video_autoencoder.init_params`` tree (or JAX's
+    ``convert_legacy_vae``) -> ``LegacyVAE``: DualConv3d's ``kernel1`` /
+    ``kernel2`` become ``weight1`` / ``weight2`` in torch's conv layout;
+    the identity latent statistics where the tree has none."""
+    out = {}
+    for k, t in state_dict(params).items():
+        head, name = k.rsplit(".", 1) if "." in k else ("", k)
+        if name in ("kernel1", "kernel2"):
+            k = f"{head}.weight{name[-1]}"
+            t = t.permute(4, 3, 0, 1, 2).contiguous()
+        out[k] = t
+    c = params["decoder"]["conv_in"]
+    c = np.asarray(c["kernel"] if "kernel" in c else c["kernel1"]).shape[-2]
+    out.setdefault("per_channel_statistics.std_of_means", torch.ones(c))
+    out.setdefault("per_channel_statistics.mean_of_means", torch.zeros(c))
+    return out
+
+
+def llm_state_dict(params: dict) -> dict:
+    """``models/llm.init_params`` tree (stacked ``blocks``) -> ``LLM``."""
+    return state_dict(params)
+
+
+def florence2_state_dict(params: dict) -> dict:
+    """``{"vision", "projector", "text"}`` of ``models/florence2`` (the
+    DaViT stages' stacked ``blocks``, BART's stacked ``layers``) ->
+    ``Florence2``."""
+    return state_dict(params, stacked=("blocks", "layers"))
+
+
+def qwen25_vl_state_dict(params: dict) -> dict:
+    """``{"vision", "text"}`` of ``models/qwen25_vl`` -> ``QwenVL``."""
+    return state_dict(params)
+
+
+def u2net_state_dict(params: dict) -> dict:
+    """``models/u2net.init_params`` tree (folded batch norms) -> ``U2Net``."""
+    return state_dict(params)

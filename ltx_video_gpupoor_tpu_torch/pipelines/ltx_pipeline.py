@@ -12,7 +12,10 @@ CFG-star, STG, rescaling and the per-step noise refresh of conditioned
 tokens (``image_cond_noise_scale``), ``LTXPipeline.generate`` (:711:
 conditioning items, ``media_latents`` / ``initial_timestep``, the extra
 frame groups; ``noise=`` injection kept), ``_decode_tiles`` (:885) and
-``LTXPipeline.decode`` (:917).
+``LTXPipeline.decode`` (:917). The VAE is the causal one or the legacy
+``models/ltx/video_autoencoder.py`` (JAX's ``vae_encode`` /
+``_decode_full`` dispatch, :80-98, :121-124): the legacy decode takes no
+timestep and no noise and is never tiled.
 
 Randomness comes from one explicit ``torch.Generator`` on the latents'
 device: the initial noise (unless ``noise=`` is given), the noise of each
@@ -80,13 +83,25 @@ def resize_bilinear(frames: torch.Tensor, height: int,
     return flat.permute(0, 2, 3, 1).reshape(*lead, height, width, -1)
 
 
+def _is_legacy(vae) -> bool:
+    from ..models.ltx.video_autoencoder import LegacyVAE
+
+    return isinstance(vae, LegacyVAE)
+
+
 def encode_media(vae: ltx_vae.CausalVAE, media: torch.Tensor) -> torch.Tensor:
     """Pixels ``[B, F, H, W, C]`` -> normalized latents (the posterior's
-    mode) in fp32."""
+    mode) in fp32, through the causal VAE or the legacy one."""
     if not hasattr(vae, "encoder"):
         raise ValueError("conditioning media need a VAE with its encoder "
                          "(models.ltx.vae.CausalVAE)")
-    z = ltx_vae.sample_posterior(ltx_vae.encode(vae, media)).float()
+    if _is_legacy(vae):
+        from ..models.ltx import video_autoencoder as legacy_vae
+
+        enc = legacy_vae.encode(vae, media)
+    else:
+        enc = ltx_vae.encode(vae, media)
+    z = ltx_vae.sample_posterior(enc).float()
     return ltx_vae.normalize_latents(z, vae.per_channel_statistics)
 
 
@@ -403,8 +418,13 @@ def decode_full(vae: ltx_vae.CausalVAEDecoder, latent_grid: torch.Tensor,
                 generator: Optional[torch.Generator], z_tile: int = 0,
                 hw_tile: int = 0) -> torch.Tensor:
     """Un-normalize, noise to the decode timestep (timestep-conditioned
-    VAEs only), decode: tiled if ``z_tile`` or ``hw_tile`` is set."""
+    VAEs only), decode: tiled if ``z_tile`` or ``hw_tile`` is set. The
+    legacy VAE decodes the un-normalized latents, untiled."""
     z = ltx_vae.un_normalize_latents(latent_grid, vae.per_channel_statistics)
+    if _is_legacy(vae):
+        from ..models.ltx import video_autoencoder as legacy_vae
+
+        return legacy_vae.decode(vae, z)
     t = None
     gen = None
     if vae.cfg.timestep_conditioning:
@@ -587,7 +607,10 @@ class LTXPipeline:
     def _decode_tiles(self, z: torch.Tensor) -> tuple[int, int]:
         """(z_tile, hw_tile) for this latent shape, by a voxel budget:
         untiled up to 704x480x121, temporal tiles of 4 latent frames when
-        one such tile fits that budget, else spatial tiles of 512 too."""
+        one such tile fits that budget, else spatial tiles of 512 too; the
+        legacy VAE untiled."""
+        if _is_legacy(self.vae):
+            return (0, 0)
         if self.vae_tile_size is not None:
             return self.vae_tile_size
         sf = self.vae.cfg.spatial_downscale_factor

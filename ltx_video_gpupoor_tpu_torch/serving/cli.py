@@ -8,9 +8,10 @@ and ``main``. Without ``--demo`` the LTX stack is loaded from the files in
 ``--demo`` runs the full surface with tiny random weights. ``--teacache``
 skips steps, ``--save-quantized`` writes the transformer as a quanto int8
 file into ``--ckpt-dir``, and the frames go to the native h264 writer as
-planar YUV420 where it builds. What needs a module not ported yet raises
-``NotImplementedError`` naming its ROADMAP step: ``--enhance-prompt``.
-``--quantize-transformer`` quantizes in the tier ``--int8-mode`` names
+planar YUV420 where it builds. ``--enhance-prompt`` rewrites the prompt
+with the port's Florence-2 captioner and LLM (``utils/prompt_enhance.py``,
+their directories in ``LTXV_TPU_CAPTIONER_DIR`` / ``LTXV_TPU_ENHANCER_LLM_DIR``;
+unset, the prompt stays as it is). ``--quantize-transformer`` quantizes in the tier ``--int8-mode`` names
 (``dynamic``, ``wo``, ``wo_int4`` or ``mixed_int4``).
 
     python3 -m ltx_video_gpupoor_tpu_torch.serving.cli --demo \\
@@ -134,10 +135,6 @@ def hash_prompt_embeds(prompt: str, negative: str, seq_len: int, dim: int):
     return emb, mask
 
 
-def _not_ported(what: str, step: str):
-    raise NotImplementedError(f"{what}: {step}")
-
-
 def infer(args) -> str:
     from ..ops.attention import set_attention_mode
     from ..utils import media as media_utils
@@ -145,9 +142,6 @@ def infer(args) -> str:
 
     if args.attention is not None:
         set_attention_mode(args.attention)
-    if args.enhance_prompt:
-        _not_ported("--enhance-prompt (prompt enhancers)",
-                    "ROADMAP queue 1 step 14")
 
     if args.demo:
         model = model_zoo.build_demo_model(args.seed, device=args.device)
@@ -198,7 +192,20 @@ def infer(args) -> str:
     if args.video_source:
         input_video = media_utils.load_video(args.video_source)
 
-    embeds, mask = encode_or_hash(pipe, args.prompt, args.negative_prompt)
+    prompt = args.prompt
+    if args.enhance_prompt:
+        # the reference wires this path but disables it at serving
+        # (ltxv.py:211-221); here an opt-in flag (JAX :191-204): the
+        # caption of the first frame and the rewrite, on the card beside
+        # the DiT, past the word-count gate
+        from ..utils.prompt_enhance import PromptEnhancer
+
+        prompt = PromptEnhancer(device=args.device).enhance(
+            prompt,
+            first_frames=[image_start] if image_start is not None else None)
+        if prompt != args.prompt:
+            print(f"enhanced prompt: {prompt}")
+    embeds, mask = encode_or_hash(pipe, prompt, args.negative_prompt)
     from ..utils import native_codec
 
     # planar-YUV420 fetch halves the host-transfer bytes when the native

@@ -153,27 +153,6 @@ def _read(path: str, stats: dict, what: str, native: bool = False):
     return tensors, config
 
 
-def _build(module: torch.nn.Module, sd: dict, what: str, device):
-    """A module built on the meta device takes the given tensors as its
-    parameters (moved to ``device`` in the module's dtypes, no second
-    copy). A weight the module needs and the file lacks raises; keys the
-    module does not have are logged."""
-    want = module.state_dict()
-    missing = sorted(set(want) - set(sd))
-    if missing:
-        raise KeyError(f"{what} checkpoint lacks {missing[:8]} "
-                       f"({len(missing)} keys)")
-    unexpected = sorted(set(sd) - set(want))
-    if unexpected:
-        logging.getLogger(__name__).warning(
-            "%s checkpoint: %d keys the model does not use, e.g. %s", what,
-            len(unexpected), unexpected[:4])
-    module.load_state_dict(
-        {k: sd[k].to(device=device, dtype=t.dtype) for k, t in want.items()},
-        assign=True)
-    return module
-
-
 def load_ltxv_model(
     model_filename: str,
     model_mode: str = "ltxv_13B_distilled",
@@ -238,8 +217,9 @@ def load_ltxv_model(
     t0 = time.perf_counter()
     sd = ckpt.convert_ltx_transformer(tensors, tcfg.num_layers,
                                       dtype=policy.param_dtype)
-    dit = _build(tf.LTXTransformer3D(tcfg, policy, device="meta"), sd,
-                 "transformer", dev)
+    dit = ckpt.build_module(
+        tf.LTXTransformer3D(tcfg, policy, device="meta"), sd, "transformer",
+        dev)
     sync()
     stats["convert_s"] = time.perf_counter() - t0
     combined = tensors    # a combined file also holds the VAE
@@ -284,13 +264,26 @@ def load_ltxv_model(
     from ..core.diffusers_compat import maybe_translate_config
 
     vcfg_dict = maybe_translate_config(vcfg_dict)
-    if ckpt.is_legacy_vae(vcfg_dict, vae_tensors):
-        raise NotImplementedError(
-            "the legacy (pre-causal) video VAE: ROADMAP queue 1 step 14")
-    vcfg = ltx_vae.VAEConfig.from_dict(vcfg_dict)
     t0 = time.perf_counter()
-    vae = _build(ltx_vae.CausalVAE(vcfg, policy, device="meta"),
-                 ckpt.convert_ltx_vae(vae_tensors, vcfg), "VAE", dev)
+    if ckpt.is_legacy_vae(vcfg_dict, vae_tensors):
+        # the pre-causal 2B-era VAE (``video_autoencoder.py`` naming);
+        # without latent statistics in the file they are the identity, as
+        # JAX skips the (un)normalization then
+        from ..models.ltx import video_autoencoder as legacy_vae
+
+        lvcfg = legacy_vae.LegacyVAEConfig.from_dict(vcfg_dict)
+        sd = ckpt.convert_legacy_vae(vae_tensors, lvcfg)
+        c = lvcfg.latent_channels
+        sd.setdefault("per_channel_statistics.std_of_means", torch.ones(c))
+        sd.setdefault("per_channel_statistics.mean_of_means", torch.zeros(c))
+        vae = ckpt.build_module(
+            legacy_vae.LegacyVAE(lvcfg, policy, device="meta"), sd, "VAE",
+            dev)
+    else:
+        vcfg = ltx_vae.VAEConfig.from_dict(vcfg_dict)
+        vae = ckpt.build_module(
+            ltx_vae.CausalVAE(vcfg, policy, device="meta"),
+            ckpt.convert_ltx_vae(vae_tensors, vcfg), "VAE", dev)
     sync()
     stats["vae_to_device_s"] = time.perf_counter() - t0
     del vae_tensors
@@ -302,7 +295,7 @@ def load_ltxv_model(
         te_tensors = ckpt.dequantize_quanto(te_tensors, torch.bfloat16,
                                             consume=True)
         t5_cfg = t5_cfg or t5m.T5_XXL
-        t5 = _build(
+        t5 = ckpt.build_module(
             t5m.T5Encoder(t5_cfg, device="meta", dtype=torch.bfloat16),
             ckpt.convert_t5_encoder(te_tensors, t5_cfg.num_layers,
                                     t5_cfg.shared_pos), "text encoder", dev)
@@ -335,7 +328,7 @@ def load_ltxv_model(
             w = up_tensors.get("initial_conv.weight")
             if w is not None:
                 up_kwargs["dims"] = 2 if w.dim() == 4 else 3
-        up = _build(
+        up = ckpt.build_module(
             lup.LatentUpsampler(lup.LatentUpsamplerConfig(**up_kwargs),
                                 policy, device="meta"),
             convert_latent_upsampler(up_tensors), "latent upsampler", dev)
@@ -408,8 +401,9 @@ def load_wan_model(
     t0 = time.perf_counter()
     tensors = ckpt.dequantize_quanto(tensors, policy.param_dtype,
                                      consume=True, device=dev)
-    dit = _build(wan_model.WanModel(cfg, policy, device="meta"),
-                 ckpt.convert_wan_model(tensors, cfg), "transformer", dev)
+    dit = ckpt.build_module(wan_model.WanModel(cfg, policy, device="meta"),
+                            ckpt.convert_wan_model(tensors, cfg),
+                            "transformer", dev)
     del tensors
     stats["transformer_to_device_s"] = time.perf_counter() - t0
 
@@ -423,7 +417,7 @@ def load_wan_model(
         vae = wan_vae.WanVAEDecoder(vae_cfg, policy, device="meta")
         sd = {k: v for k, v in sd.items()
               if not k.startswith(("encoder.", "conv1."))}
-    vae = _build(vae, sd, "VAE", dev)
+    vae = ckpt.build_module(vae, sd, "VAE", dev)
 
     t5 = clip = None
     if text_encoder_filename:
@@ -432,7 +426,7 @@ def load_wan_model(
         te_tensors = ckpt.dequantize_quanto(te_tensors, torch.bfloat16,
                                             consume=True)
         t5_cfg = t5_cfg if t5_cfg is not None else t5m.UMT5_XXL
-        t5 = _build(
+        t5 = ckpt.build_module(
             t5m.T5Encoder(t5_cfg, device="meta", dtype=torch.bfloat16),
             ckpt.convert_t5_encoder(te_tensors, t5_cfg.num_layers,
                                     t5_cfg.shared_pos), "text encoder", dev)
@@ -441,10 +435,10 @@ def load_wan_model(
         clip_tensors, _ = _read(need(clip_filename, "CLIP"), stats, "clip")
         clip_cfg = clip_cfg if clip_cfg is not None \
             else wan_clip.CLIPVisionConfig()
-        clip = _build(wan_clip.CLIPVision(clip_cfg, policy, device="meta"),
-                      ckpt.convert_clip_vision(clip_tensors,
-                                               clip_cfg.num_layers),
-                      "CLIP", dev)
+        clip = ckpt.build_module(
+            wan_clip.CLIPVision(clip_cfg, policy, device="meta"),
+            ckpt.convert_clip_vision(clip_tensors, clip_cfg.num_layers),
+            "CLIP", dev)
         del clip_tensors
     return WanPipeline(dit, vae, vae_stride=tuple(spec["vae_stride"]),
                        t5=t5, clip=clip, load_stats=stats)

@@ -5,13 +5,15 @@ fields, status codes and JSON:
 
 - ``POST /``: JSON body with ``image`` (base64), ``prompt``,
   ``negative_prompt``, ``height``, ``width``, ``num_frames``,
-  ``frame_rate``, ``num_inference_steps`` (+ optional ``creation_id``);
-  an image-to-video request; responds ``[{"video": <download url>}]``;
+  ``frame_rate``, ``num_inference_steps`` (+ optional ``creation_id`` and
+  ``enhance_prompt``, the caption + rewrite of the prompt by the port's
+  Florence-2 and LLM); an image-to-video request; responds ``[{"video": <download url>}]``;
 - ``GET /download/<file>`` serving from ``outputs/``;
 - ``GET /metrics``: the process-wide counters and gauges. Beside JAX's
   ``requests_ok`` and ``last_request_s`` the port publishes the last
   request's seconds by stage as gauges ``last_stage_s/<stage>``
-  (``encode_prompt``, ``generate/...`` as the pipelines mark them,
+  (``enhance_prompt`` when asked, ``encode_prompt``, ``generate/...`` as
+  the pipelines mark them,
   ``save_video``);
 - the model preloaded at startup from the environment: ``DEMO_MODEL``
   builds the demo model; ``MODEL_MODE``, ``QUANTIZATION`` and
@@ -58,6 +60,9 @@ class InferenceService:
         if model is None:
             model = self._load_from_env()
         self.model = model
+        # the prompt enhancer, built at the first ``enhance_prompt`` request
+        # (or set beforehand with its models)
+        self.enhancer = None
         # one generation at a time: the card cannot hold two full-size
         # generations' memory at once, and the background warm-up must not
         # race the first live request
@@ -109,9 +114,6 @@ class InferenceService:
 
             gen = self.model.generator
             pipe = gen.pipeline
-            # ``enhance_prompt`` (a superset field) passes the prompt
-            # through unchanged, as the JAX server does when no enhancer
-            # directory is configured (the enhancers: ROADMAP step 14)
             prompt = data["prompt"]
             from ..utils import media as media_utils
             from ..utils.observability import (
@@ -121,6 +123,22 @@ class InferenceService:
             # only: encoding the prompt and writing the mp4 hold no lock, so
             # they overlap another request's generation
             timer = StageTimer()
+            # ``enhance_prompt`` (a superset field, JAX :112-126): the
+            # caption + rewrite of ``utils/prompt_enhance.py``, its models
+            # from LTXV_TPU_CAPTIONER_DIR / LTXV_TPU_ENHANCER_LLM_DIR
+            # (unset: the prompt as it is), timed as the stage
+            # ``enhance_prompt``. The enhancer is cached on the
+            # service (its models load once) and runs under gen_lock: its
+            # models share the card with the diffusion weights, so it must
+            # not race a generation or the warm-up
+            if data.get("enhance_prompt"):
+                if self.enhancer is None:
+                    from ..utils.prompt_enhance import PromptEnhancer
+
+                    self.enhancer = PromptEnhancer(native_only=True)
+                with self.gen_lock, timer.stage("enhance_prompt"):
+                    prompt = self.enhancer.enhance(
+                        prompt, first_frames=[image_start])
             with timer.stage("encode_prompt"):
                 embeds, mask = encode_or_hash(
                     pipe, prompt, data["negative_prompt"])

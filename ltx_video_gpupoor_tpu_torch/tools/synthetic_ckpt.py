@@ -19,7 +19,11 @@ provisions (``serving/downloads.py``):
 - ``ltxv_0.9.7_VAE.safetensors``: the causal VAE (encoder and decoder)
   with ``per_channel_statistics.std-of-means`` / ``mean-of-means`` and
   ``time_embedder.timestep_embedder.linear_1``, bf16 weights, its config
-  as metadata;
+  as metadata; or, where that config names ``"_class_name":
+  "VideoAutoencoder"``, the legacy (pre-causal) VAE in its published
+  naming (``encoder.down_blocks.N.res_blocks.M``, ``.downsample.conv``,
+  ``decoder.up_blocks.N.upsample.conv``, the 1x1 convs 5-D;
+  :func:`legacy_vae_tensors`);
 - ``ltxv_0.9.7_spatial_upscaler.safetensors``: the latent upsampler
   (``upsampler.0``), its config as metadata;
 - the Wan files that ``serving/model_zoo.py::load_wan_model`` reads (as
@@ -31,7 +35,14 @@ provisions (``serving/downloads.py``):
   (``downsamples.N.residual.{0,2,3,6}``, ``resample.1``, ``head.{0,2}``,
   gammas shaped ``[C, 1, 1, 1]``; :data:`WAN_VAE_FILE`); the CLIP vision
   tower under ``visual.`` (``transformer.{i}.mlp.{0,2}``;
-  :data:`WAN_CLIP_FILE`).
+  :data:`WAN_CLIP_FILE`);
+- the official ``u2net.pth`` / ``u2netp.pth`` naming of U2-Net
+  (``stage1.rebnconvin.conv_s1.weight``, ``bn_s1.running_var``,
+  ``side1``, ``outconv``; :func:`u2net_tensors`), batch norms unfolded;
+- HF-layout model directories (``config.json`` + ``model.safetensors``)
+  for the prompt enhancers: a Llama / Qwen2 LLM (:func:`write_hf_llm_dir`)
+  and Florence-2 (:func:`write_hf_florence_dir`). Their tokenizer files
+  are the caller's to add.
 
 Weights follow the JAX ``init_params`` distributions (linear weights
 N(0, 1/d_in), zero biases, unit norm weights, tables N(0, 1/d)), drawn
@@ -42,6 +53,7 @@ whole model is ever materialized in floats.
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 import os
 import re
@@ -54,6 +66,7 @@ from ..core.dtypes import DEFAULT_POLICY
 from ..models.ltx import latent_upsampler as lup
 from ..models.ltx import transformer3d as tf
 from ..models.ltx import vae as ltx_vae
+from ..models.ltx import video_autoencoder as legacy_vae
 from ..models.wan import clip as wan_clip
 from ..models.wan import model as wan_model
 from ..models.wan import vae as wan_vae
@@ -166,6 +179,31 @@ def vae_tensors(vae_cfg: dict, *, seed: int = 2, device="cpu"
 
 
 @torch.no_grad()
+def legacy_vae_tensors(vae_cfg: dict, *, seed: int = 2, device="cpu"
+                       ) -> dict[str, torch.Tensor]:
+    """The legacy VAE file's tensors in the reference's naming, bf16, with
+    non-trivial latent statistics."""
+    cfg = legacy_vae.LegacyVAEConfig.from_dict(vae_cfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    vae = legacy_vae.init_params(
+        legacy_vae.LegacyVAE(cfg, DEFAULT_POLICY, device=device), gen)
+    out = {}
+    for key, t in vae.state_dict().items():
+        if key.startswith("per_channel_statistics."):
+            key = key.replace("_of_", "-of-")
+            t = (1.0 + 0.5 * torch.rand(t.shape, generator=gen,
+                                        device=device)
+                 if "std" in key else
+                 0.1 * torch.randn(t.shape, generator=gen, device=device))
+        elif re.search(r"\.(downsample|upsample)\.", key):
+            key = re.sub(r"\.(downsample|upsample)\.", r".\1.conv.", key)
+        elif re.search(r"(conv_shortcut|quant_conv)\.weight$", key):
+            t = t[:, :, None, None, None]
+        out[key] = t.to(torch.bfloat16).cpu()
+    return out
+
+
+@torch.no_grad()
 def upscaler_tensors(cfg: lup.LatentUpsamplerConfig, *, seed: int = 3,
                      device="cpu") -> dict[str, torch.Tensor]:
     up = lup.init_params(lup.LatentUpsampler(cfg, DEFAULT_POLICY,
@@ -196,8 +234,11 @@ def write_ltxv_ckpt_dir(root: str, tcfg: tf.LTXTransformerConfig,
              {"transformer": tcfg_meta}),
             (LORA_FILE, lambda: lora_tensors(tcfg, lora_rank, seed=seed + 1,
                                              device=device), None),
-            (VAE_FILE, lambda: vae_tensors(vae_cfg, seed=seed + 2,
-                                           device=device), {"vae": vae_cfg}),
+            (VAE_FILE, lambda: (
+                legacy_vae_tensors if vae_cfg.get("_class_name")
+                == "VideoAutoencoder" else vae_tensors)(
+                    vae_cfg, seed=seed + 2, device=device),
+             {"vae": vae_cfg}),
             (UPSCALER_FILE, lambda: upscaler_tensors(up_cfg, seed=seed + 3,
                                                      device=device),
              dataclasses.asdict(up_cfg))):
@@ -344,3 +385,98 @@ def write_wan_ckpt_dir(root: str, cfg: wan_model.WanConfig,
         info["paths"][name] = path
         info["bytes"][name] = os.path.getsize(path)
     return info
+
+
+# ---------------------------------------------------------------------------
+# HF-layout directories of the prompt enhancers' models
+# ---------------------------------------------------------------------------
+
+def _write_hf_dir(root: str, module, names: dict, hf_config: dict,
+                  reshape: dict | None = None) -> str:
+    os.makedirs(root, exist_ok=True)
+    reshape = reshape or {}
+    tensors = {names[k]: (t.reshape(reshape[k]) if k in reshape else t)
+               .contiguous().cpu() for k, t in module.state_dict().items()}
+    save_safetensors(os.path.join(root, "model.safetensors"), tensors)
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump(hf_config, f)
+    return root
+
+
+@torch.no_grad()
+def write_hf_llm_dir(root: str, cfg, *, seed: int = 0,
+                     dtype: torch.dtype = torch.float32) -> str:
+    """A Llama (or, with ``qkv_bias``, Qwen2) ``LLMConfig`` as a HF model
+    directory: ``config.json`` in ``LlamaConfig`` / ``Qwen2Config`` fields
+    and ``model.safetensors`` in the published names, weights drawn as
+    ``models/llm.init_params`` draws them."""
+    from ..models import llm
+
+    model = llm.init_params(llm.LLM(cfg, device="cpu", dtype=dtype),
+                            torch.Generator().manual_seed(seed))
+    hf = {"architectures": ["Qwen2ForCausalLM" if cfg.qkv_bias
+                            else "LlamaForCausalLM"],
+          "vocab_size": cfg.vocab_size, "hidden_size": cfg.dim,
+          "num_hidden_layers": cfg.num_layers,
+          "num_attention_heads": cfg.num_heads,
+          "num_key_value_heads": cfg.num_kv_heads,
+          "intermediate_size": cfg.ffn_dim, "rope_theta": cfg.rope_theta,
+          "rms_norm_eps": cfg.rms_eps,
+          "tie_word_embeddings": cfg.tie_embeddings}
+    if cfg.head_dim:
+        hf["head_dim"] = cfg.head_dim
+    if cfg.rope_scaling:
+        hf["rope_scaling"] = {
+            "rope_type": cfg.rope_scaling, "factor": cfg.rope_factor,
+            "low_freq_factor": cfg.rope_low_freq_factor,
+            "high_freq_factor": cfg.rope_high_freq_factor,
+            "original_max_position_embeddings": cfg.rope_original_max_pos}
+    return _write_hf_dir(root, model, llm.hf_names(cfg), hf)
+
+
+@torch.no_grad()
+def write_hf_florence_dir(root: str, hf_config: dict, *, seed: int = 0,
+                          dtype: torch.dtype = torch.float32) -> str:
+    """Florence-2 as a HF model directory: ``hf_config`` (its
+    ``vision_config`` / ``text_config`` fields) as ``config.json`` and
+    ``model.safetensors`` in the published names, weights drawn as
+    ``models/florence2.init_params`` draws them."""
+    from ..models import florence2
+
+    cfg = florence2.config_from_hf(hf_config)
+    model = florence2.init_params(
+        florence2.Florence2(cfg, device="cpu", dtype=dtype),
+        torch.Generator().manual_seed(seed))
+    return _write_hf_dir(root, model, florence2.hf_names(cfg), hf_config)
+
+
+@torch.no_grad()
+def u2net_tensors(cfg=None, *, seed: int = 0, device="cpu"
+                  ) -> dict[str, torch.Tensor]:
+    """A random U2-Net state dict in the official naming: each REBNCONV's
+    conv (N(0, 1 / fan-in), a bias) and batch norm (weight, bias, running
+    mean and variance near their identity), the side and fuse convs."""
+    from ..models import u2net
+
+    cfg = cfg or u2net.U2NET
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = {}
+
+    def put(name, shape, std, base=0.0):
+        out[name] = (base + _draw(shape, std, gen, device)).cpu()
+
+    for name, mod in u2net.U2Net(cfg, device="meta").named_modules():
+        if isinstance(mod, u2net.REBNConv):
+            cout, cin = mod.weight.shape[:2]
+            put(f"{name}.conv_s1.weight", (cout, cin, 3, 3), (9 * cin) ** -0.5)
+            put(f"{name}.conv_s1.bias", (cout,), 0.1)
+            put(f"{name}.bn_s1.weight", (cout,), 0.1, 1.0)
+            put(f"{name}.bn_s1.bias", (cout,), 0.1)
+            put(f"{name}.bn_s1.running_mean", (cout,), 0.1)
+            out[f"{name}.bn_s1.running_var"] = (0.5 + torch.rand(
+                (cout,), generator=gen, device=device)).cpu()
+        elif name.startswith(("side", "outconv")):
+            cout, cin, k = mod.weight.shape[:3]
+            put(f"{name}.weight", (cout, cin, k, k), (cin * k * k) ** -0.5)
+            put(f"{name}.bias", (cout,), 0.1)
+    return out

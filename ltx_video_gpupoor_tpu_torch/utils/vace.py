@@ -2,7 +2,7 @@
 
 Port of ``ltx_video_gpupoor_tpu/utils/vace.py`` (:24-181): the host-side
 numpy preprocessing is the port's own copy (``resize_crop``,
-``VaceVideoProcessor`` with the frame resampling of
+``VaceVideoProcessor``, its frames resampled by the port's
 ``utils/video_ops.py::resample``), held equal to the JAX package's by
 ``tests/test_torch_wan_vace.py``; ``vace_encode_frames`` runs over the
 port's Wan VAE encoder (``models/wan/vae.py::encode``), and
@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..models.wan import vae as wan_vae
+from .video_ops import resample
 
 
 def resize_crop(video: np.ndarray, oh: int, ow: int) -> np.ndarray:
@@ -47,36 +48,6 @@ def resize_crop(video: np.ndarray, oh: int, ow: int) -> np.ndarray:
     if frames.dtype == np.uint8:
         frames = frames.astype(np.float32) / 127.5 - 1.0
     return frames
-
-
-def resample(video_fps: float, video_frames_count: int,
-             max_target_frames_count: int, target_fps: float,
-             start_target_frame: int = 0) -> list[int]:
-    """Source frame indices for the slots of a ``target_fps`` clip, by
-    timestamp binning: a slower source is taken at the target fps, slot
-    offsets are rounded at 1e-5."""
-    if video_fps < target_fps:
-        video_fps = target_fps
-    video_frame_duration = 1 / video_fps
-    target_frame_duration = 1 / target_fps
-    target_time = start_target_frame * target_frame_duration
-    frame_no = math.ceil(target_time / video_frame_duration)
-    cur_time = frame_no * video_frame_duration
-    frame_ids: list[int] = []
-    while True:
-        if max_target_frames_count != 0 and \
-                len(frame_ids) >= max_target_frames_count:
-            break
-        diff = round((target_time - cur_time) / video_frame_duration, 5)
-        add_frames_count = math.ceil(diff)
-        frame_no += add_frames_count
-        if frame_no >= video_frames_count:
-            break
-        frame_ids.append(frame_no)
-        cur_time += add_frames_count * video_frame_duration
-        target_time += target_frame_duration
-    return frame_ids[:max_target_frames_count] if max_target_frames_count \
-        else frame_ids
 
 
 @dataclasses.dataclass

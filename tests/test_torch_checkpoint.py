@@ -82,6 +82,11 @@ VAE_DICT = {
     "use_quant_conv": False, "causal_decoder": False,
     "timestep_conditioning": True,
 }
+LEGACY_VAE_DICT = {
+    "_class_name": "VideoAutoencoder", "dims": [2, 1], "latent_channels": 16,
+    "block_out_channels": [8, 16], "layers_per_block": 1,
+    "norm_num_groups": 4, "patch_size": 2,
+}
 UP_CFG = tlup.LatentUpsamplerConfig(in_channels=16, mid_channels=32,
                                     num_blocks_per_stage=1, dims=3)
 LORA_FILE = "ckpts/ltxv_0.9.7_13B_distilled_lora128_bf16.safetensors"
@@ -382,12 +387,20 @@ def test_convert_latent_upsampler_equal_jax(dims):
 
 
 def test_converters_of_later_slices_raise():
-    """The legacy VAE's converter still raises naming step 14. The Wan,
-    Wan VAE and CLIP converters, which raised here until their models were
-    ported, give ``from_jax`` of JAX's converters on the same published
-    tensors (synthetic, tools/synthetic_ckpt.py)."""
-    with pytest.raises(NotImplementedError, match="step 14"):
-        tckpt.convert_legacy_vae({}, None)
+    """No converter raises any more. The legacy VAE's (since the
+    prompt-enhancer slice), the Wan, Wan VAE and CLIP converters, which
+    raised here until their models were ported, give ``from_jax`` of JAX's
+    converters on the same published tensors (synthetic,
+    tools/synthetic_ckpt.py)."""
+    from ltx_video_gpupoor_tpu.models.ltx import video_autoencoder as jlv
+
+    legacy = sc.legacy_vae_tensors(LEGACY_VAE_DICT)
+    legacy = {k: v.float() for k, v in legacy.items()}
+    _check_converted(
+        jckpt.convert_legacy_vae({k: _np(v) for k, v in legacy.items()},
+                                 jlv.LegacyVAEConfig.from_dict(
+                                     LEGACY_VAE_DICT)),
+        tckpt.convert_legacy_vae(legacy), from_jax.legacy_vae_state_dict)
     from ltx_video_gpupoor_tpu.models.wan import vae as jwv
     from ltx_video_gpupoor_tpu_torch.models.wan import clip as tclip
     from ltx_video_gpupoor_tpu_torch.models.wan import model as twm
@@ -696,16 +709,30 @@ def test_cli_without_demo_on_the_checkpoint_dir(ckpt_dir, tmp_path):
 
 
 def test_legacy_vae_raises_naming_its_step(tmp_path, ckpt_dir):
+    """The legacy (pre-causal) VAE raised here until its model was
+    ported: a directory whose VAE file is a legacy one (its config names
+    ``VideoAutoencoder``) now loads, through the same detection rule as
+    JAX's loader, into ``LegacyVAE`` with JAX's weights and statistics."""
     import shutil
+
+    from ltx_video_gpupoor_tpu_torch.models.ltx import video_autoencoder
 
     root = tmp_path / "legacy"
     shutil.copytree(ckpt_dir, root)
-    vae, config = tckpt.load_safetensors(str(root / sc.VAE_FILE))
-    vae["encoder.mid_block.res_blocks.0.conv1.weight"] = torch.zeros(1)
-    tckpt.save_safetensors(str(root / sc.VAE_FILE), vae, config)
-    with pytest.raises(NotImplementedError, match="step 14"):
-        tzoo.load_ltxv_model(LORA_FILE, "ltxv_13B_distilled", str(root),
-                             device="cpu")
+    tckpt.save_safetensors(str(root / sc.VAE_FILE),
+                           sc.legacy_vae_tensors(LEGACY_VAE_DICT, seed=5),
+                           {"vae": LEGACY_VAE_DICT})
+    port = tzoo.load_ltxv_model(LORA_FILE, "ltxv_13B_distilled", str(root),
+                                device="cpu", policy=BF16_PARAMS)
+    vae = port.generator.pipeline.vae
+    assert isinstance(vae, video_autoencoder.LegacyVAE)
+    ref = jzoo.load_ltxv_model(LORA_FILE, "ltxv_13B_distilled", str(root))
+    want = from_jax.legacy_vae_state_dict(jax.tree.map(
+        np.asarray, ref.generator.pipeline.vae_params))
+    got = vae.state_dict()
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert _same(want[k].float(), got[k].float()), k
 
 
 def test_new_modules_import_with_jax_blocked():

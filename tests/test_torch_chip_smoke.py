@@ -203,13 +203,14 @@ def _stubbed_main(monkeypatch, capsys, argv, k3q_d80=0):
         "phase_k8": (0.0, 1), "phase_k7": (0.0, 1),
         "phase_path": ([ones], object(), object()),
         "phase_teacache": None, "phase_fp32": ones,
-        "phase_ltx13b": ({t[0]: ones for t in chip_smoke.LTX13B_TIERS},
-                         object()),
+        "phase_ltx13b": ({**{t[0]: ones for t in chip_smoke.LTX13B_TIERS},
+                          chip_smoke.ENHANCED: ones}, object()),
         "phase_load": ones, "phase_cli": ones,
         "phase_wan": ([ones] * len(chip_smoke.WAN_REQUESTS), object(),
                       object()),
         "phase_wan_i2v": [ones] * len(chip_smoke.WAN_I2V_REQUESTS),
         "phase_wan_variants": dict.fromkeys(VARIANT_STUBS, ones),
+        "phase_aux": ones,
     }
     for name, result in results.items():
         def stub(*args, _name=name, _result=result, **kwargs):
@@ -245,7 +246,8 @@ def test_default_run_drives_every_path_and_ends_with_the_result(
     assert ran == KERNEL_PHASES + ["phase_path", "phase_teacache",
                                    "phase_fp32", "phase_ltx13b",
                                    "phase_load", "phase_cli", "phase_wan",
-                                   "phase_wan_variants", "phase_wan_i2v"]
+                                   "phase_wan_variants", "phase_wan_i2v",
+                                   "phase_aux"]
     assert json.loads(lines[-1]) == {"ok": True, "device": {
         "platform": "gpu", "kind": "a card", "count": 1}}
     kernels = json.loads(lines[-2])["kernels"]
@@ -275,11 +277,11 @@ def test_default_run_drives_every_path_and_ends_with_the_result(
 
 def _stubbed_runs():
     """How many count dicts the stubbed paths return: LTX-2B's one
-    request, [fp32], the LTX-13B tiers, [load], [cli], Wan's, the
-    variants' and the i2v requests."""
+    request, [fp32], the LTX-13B tiers and the enhanced request, [load],
+    [cli], Wan's, the variants' and the i2v requests, [aux]'s CLI run."""
     import chip_smoke
 
-    return 4 + len(chip_smoke.LTX13B_TIERS) + len(chip_smoke.WAN_REQUESTS) \
+    return 6 + len(chip_smoke.LTX13B_TIERS) + len(chip_smoke.WAN_REQUESTS) \
         + len(VARIANT_STUBS) + len(chip_smoke.WAN_I2V_REQUESTS)
 
 
@@ -415,3 +417,84 @@ def test_variant_expect_counts_what_a_forward_runs(monkeypatch, variant):
         fps=cfg.inject_sample_info)
     assert calls["K2"] == must["K2"]
     assert calls["K4"] == must["K4d128"] == must["K2p"]
+
+
+def test_stand_in_tokenizers_need_no_tokenizer_package():
+    """chip_smoke.py defines its word-level tokenizers without importing
+    ``transformers`` or ``tokenizers``: the card's machine is not known to
+    have them."""
+    code = ("import sys; sys.path.insert(0, %r); import chip_smoke\n"
+            "for make in (chip_smoke.llama3_tokenizer, "
+            "chip_smoke.qwen_tokenizer, chip_smoke.florence_tokenizer):\n"
+            "    tok = make(); ids = tok('a b <|im_end|> </s>')['input_ids']\n"
+            "    assert tok.decode(ids) and tok.eos_token_id in "
+            "tok.special_ids\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('transformers', 'tokenizers', 'jax')]\n"
+            "sys.exit(1 if bad else 0)\n" % REPO)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr[-2000:]
+
+
+def test_enhanced_request_expects_tier_b(monkeypatch):
+    """The enhanced POST / must launch what tier (b) launches: the
+    enhancer's models (here small ones on the CPU behind chip_smoke.py's
+    stand-in tokenizers, at Llama-3's and Florence-2's vocabularies) call
+    no kernel wrapper (their linears are dense, their attention plain
+    torch ops); and the enhancer rewrites the prompt through them."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    import numpy as np
+    from ltx_video_gpupoor_tpu_torch.models import florence2 as fl
+    from ltx_video_gpupoor_tpu_torch.models import llm
+    from ltx_video_gpupoor_tpu_torch.ops import attention as attn
+    from ltx_video_gpupoor_tpu_torch.ops import flash_attention as fa
+    from ltx_video_gpupoor_tpu_torch.ops import fused_prologue as fp
+    from ltx_video_gpupoor_tpu_torch.ops import int8_matmul as im
+    from ltx_video_gpupoor_tpu_torch.ops import quant
+    from ltx_video_gpupoor_tpu_torch.utils import prompt_enhance as pe
+
+    assert chip_smoke.ENHANCE_EXPECT == \
+        chip_smoke.LTX13B_EXPECT[chip_smoke.LTX13B_SERVED]
+    calls = []
+    for mod, name in ((attn, "attention"), (fa, "flash_attention"),
+                      (fa, "flash_attention_hp"), (fa, "flash_attention_int8"),
+                      (fa, "flash_attention_fp32"), (im, "int8_linear"),
+                      (fp, "norm_mod_int8_matmul")):
+        monkeypatch.setattr(mod, name, lambda *a, _n=name, **k: calls.append(
+            _n))
+    g = torch.Generator().manual_seed(0)
+    lm = llm.init_params(llm.LLM(llm.LLMConfig(
+        vocab_size=128256, dim=16, num_layers=1, num_heads=2, num_kv_heads=1,
+        ffn_dim=32, rope_scaling="llama3"), dtype=torch.float32), g)
+    hf = dict(chip_smoke.FLORENCE2_LARGE_HF)
+    hf["vision_config"] = dict(hf["vision_config"], depths=[1, 1],
+                               embed_dim=[8, 16], num_heads=[1, 2],
+                               num_groups=[1, 2], patch_size=[7, 3],
+                               patch_stride=[4, 2], patch_padding=[3, 1],
+                               patch_prenorm=[False, True],
+                               projection_dim=16)
+    hf["text_config"] = dict(hf["text_config"], d_model=16,
+                             encoder_layers=1, decoder_layers=1,
+                             encoder_attention_heads=2, encoder_ffn_dim=32)
+    flo = fl.init_params(fl.Florence2(fl.config_from_hf(hf),
+                                      dtype=torch.float32), g)
+    # as build_enhancer draws it: a random BART copies its forced BOS else
+    flo.text.final_logits_bias.copy_(torch.randn(51289, generator=g))
+    for m in (lm, flo):
+        assert not any(x.quantized for x in m.modules()
+                       if isinstance(x, quant.Linear))
+    enh = pe.PromptEnhancer(
+        lm=pe.ChatLM(model=lm, tokenizer=chip_smoke.llama3_tokenizer(),
+                     max_new_tokens=6),
+        captioner=pe.FlorenceCaptioner(
+            model=flo, tokenizer=chip_smoke.florence_tokenizer(),
+            max_new_tokens=6, image_size=64))
+    img = np.random.default_rng(0).integers(0, 255, (48, 64, 3)).astype(
+        np.uint8)
+    prompt = "a seeded synthetic gradient comes alive"
+    out = enh.enhance(prompt, first_frames=[img])
+    assert calls == []
+    assert out != prompt and enh.lm.last_new_tokens > 0
+    assert enh.captioner.last_new_tokens > 0

@@ -278,19 +278,20 @@ def test_parse_args_equal_jax_flag_for_flag():
         tcli.parse_args([])                       # --prompt is required
 
 
-def test_cli_raises_for_what_is_not_ported(tmp_path):
-    """What still waits for its module raises naming its ROADMAP step;
-    ``--teacache``, ``--save-quantized``, a run without ``--demo`` and the
-    weight-only ``--int8-mode`` tiers are ported
-    (tests/test_torch_teacache.py, tests/test_torch_checkpoint.py,
-    tests/test_torch_quant_tiers.py): on an empty checkpoint directory the
-    loader names the missing file, and ``--int8-mode wo`` parses to the
-    mode JAX's CLI hands ``quantize_params``."""
+def test_cli_raises_for_what_is_not_ported(tmp_path, monkeypatch):
+    """Every flag is ported (``--enhance-prompt`` since the prompt
+    enhancers, tests/test_torch_prompt_enhance.py): an enhancer directory
+    that holds no model raises, with no fallback; ``--teacache``,
+    ``--save-quantized``, a run without ``--demo`` and the weight-only
+    ``--int8-mode`` tiers (tests/test_torch_teacache.py,
+    tests/test_torch_checkpoint.py, tests/test_torch_quant_tiers.py): on an
+    empty checkpoint directory the loader names the missing file, and
+    ``--int8-mode wo`` parses to the mode JAX's CLI hands
+    ``quantize_params``."""
     base = ["--prompt", "x", "--device", "cpu"]
-    for extra, what in ((["--demo", "--enhance-prompt"], "enhance-prompt"),):
-        with pytest.raises(NotImplementedError, match="ROADMAP") as e:
-            tcli.main(base + extra)
-        assert what in str(e.value)
+    monkeypatch.setenv("LTXV_TPU_ENHANCER_LLM_DIR", str(tmp_path / "no_lm"))
+    with pytest.raises(FileNotFoundError, match="config.json"):
+        tcli.main(base + ["--demo", "--enhance-prompt"])
     argv = base + ["--demo", "--quantize-transformer", "--int8-mode", "wo"]
     assert tcli.parse_args(argv).int8_mode == \
         jcli.parse_args(argv).int8_mode == "wo"
