@@ -4072,6 +4072,9 @@ def phase_enhance(service, make_serve, body, gen, t5, tier):
     cli.encode_or_hash = lambda pipe, p, n: (prompts.append(p),
                                              real_encode(pipe, p, n))[1]
     name, mode, fused, bound = tier
+    # the first request's end switched the prologue off (the attention
+    # mode stays the server process's)
+    set_fused_prologue(fused)
     try:
         p1, p2 = run_ltx13b_request(
             gen, t5, name, mode, fused, bound,

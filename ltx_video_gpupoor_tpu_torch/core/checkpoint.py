@@ -965,7 +965,8 @@ def convert_legacy_vae(sd: dict[str, torch.Tensor], cfg=None,
                 "bias": _cast(sd[prefix + ".bias"], torch.float32)}
 
     def resnet(prefix):
-        p = {"conv1": conv(prefix + ".conv1"), "conv2": conv(prefix + ".conv2")}
+        p = {"conv1": conv(prefix + ".conv1"),
+             "conv2": conv(prefix + ".conv2")}
         if prefix + ".norm1.weight" in sd:
             p["norm1"] = norm(prefix + ".norm1")
             p["norm2"] = norm(prefix + ".norm2")

@@ -9,9 +9,10 @@ and ``main``. Without ``--demo`` the LTX stack is loaded from the files in
 skips steps, ``--save-quantized`` writes the transformer as a quanto int8
 file into ``--ckpt-dir``, and the frames go to the native h264 writer as
 planar YUV420 where it builds. ``--enhance-prompt`` rewrites the prompt
-with the port's Florence-2 captioner and LLM (``utils/prompt_enhance.py``,
-their directories in ``LTXV_TPU_CAPTIONER_DIR`` / ``LTXV_TPU_ENHANCER_LLM_DIR``;
-unset, the prompt stays as it is). ``--quantize-transformer`` quantizes in the tier ``--int8-mode`` names
+with the port's Florence-2 captioner and LLM (``utils/prompt_enhance.py``;
+their directories in ``LTXV_TPU_CAPTIONER_DIR`` and
+``LTXV_TPU_ENHANCER_LLM_DIR``, unset: the prompt stays as it is).
+``--quantize-transformer`` quantizes in the tier ``--int8-mode`` names
 (``dynamic``, ``wo``, ``wo_int4`` or ``mixed_int4``).
 
     python3 -m ltx_video_gpupoor_tpu_torch.serving.cli --demo \\
@@ -70,7 +71,8 @@ def parse_args(argv=None):
     p.add_argument(
         "--enhance-prompt", action="store_true",
         help="cinematic prompt rewrite before encoding (Florence-2 "
-        "caption + LLM rewrite); not ported yet (ROADMAP queue 1 step 14)",
+        "caption + LLM rewrite; their directories in "
+        "LTXV_TPU_CAPTIONER_DIR / LTXV_TPU_ENHANCER_LLM_DIR)",
     )
     p.add_argument("--device", type=str, default=None)
     p.add_argument("--VAE-tile-size", type=int, default=None)

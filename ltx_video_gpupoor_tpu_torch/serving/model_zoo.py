@@ -16,8 +16,9 @@ else JAX's warning and the hash embeddings; the spatial upscaler ->
 with UMT5 and the CLIP vision tower where named) the same way; and
 ``build_demo_model`` (:594), the tiny random-weight stack that exercises
 the whole serving surface. Weights go to the card unless ``device="cpu"``.
-A legacy (pre-causal) VAE raises (ROADMAP queue 1 step 14); the
-finetune registry (``register_finetune``, :123) is not ported. The tokenizer files
+A legacy (pre-causal) VAE file loads into ``models/ltx/video_autoencoder.
+LegacyVAE`` (JAX :290-304, the same detection rule); the finetune
+registry (``register_finetune``, :123) is not ported. The tokenizer files
 are not in the repository: as in JAX, no tokenizer is loaded, so prompts
 take the hash embeddings (``serving/cli.py::encode_or_hash``).
 """

@@ -7,14 +7,14 @@ fields, status codes and JSON:
   ``negative_prompt``, ``height``, ``width``, ``num_frames``,
   ``frame_rate``, ``num_inference_steps`` (+ optional ``creation_id`` and
   ``enhance_prompt``, the caption + rewrite of the prompt by the port's
-  Florence-2 and LLM); an image-to-video request; responds ``[{"video": <download url>}]``;
+  Florence-2 and LLM); an image-to-video request; responds
+  ``[{"video": <download url>}]``;
 - ``GET /download/<file>`` serving from ``outputs/``;
 - ``GET /metrics``: the process-wide counters and gauges. Beside JAX's
   ``requests_ok`` and ``last_request_s`` the port publishes the last
   request's seconds by stage as gauges ``last_stage_s/<stage>``
   (``enhance_prompt`` when asked, ``encode_prompt``, ``generate/...`` as
-  the pipelines mark them,
-  ``save_video``);
+  the pipelines mark them, ``save_video``);
 - the model preloaded at startup from the environment: ``DEMO_MODEL``
   builds the demo model; ``MODEL_MODE``, ``QUANTIZATION`` and
   ``TRANSFORMER_DTYPE_POLICY`` name checkpoint files in the published
@@ -135,7 +135,7 @@ class InferenceService:
                 if self.enhancer is None:
                     from ..utils.prompt_enhance import PromptEnhancer
 
-                    self.enhancer = PromptEnhancer(native_only=True)
+                    self.enhancer = PromptEnhancer()
                 with self.gen_lock, timer.stage("enhance_prompt"):
                     prompt = self.enhancer.enhance(
                         prompt, first_frames=[image_start])

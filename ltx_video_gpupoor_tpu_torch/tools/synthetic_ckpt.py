@@ -391,12 +391,10 @@ def write_wan_ckpt_dir(root: str, cfg: wan_model.WanConfig,
 # HF-layout directories of the prompt enhancers' models
 # ---------------------------------------------------------------------------
 
-def _write_hf_dir(root: str, module, names: dict, hf_config: dict,
-                  reshape: dict | None = None) -> str:
+def _write_hf_dir(root: str, module, names: dict, hf_config: dict) -> str:
     os.makedirs(root, exist_ok=True)
-    reshape = reshape or {}
-    tensors = {names[k]: (t.reshape(reshape[k]) if k in reshape else t)
-               .contiguous().cpu() for k, t in module.state_dict().items()}
+    tensors = {names[k]: t.contiguous().cpu()
+               for k, t in module.state_dict().items()}
     save_safetensors(os.path.join(root, "model.safetensors"), tensors)
     with open(os.path.join(root, "config.json"), "w") as f:
         json.dump(hf_config, f)

@@ -24,7 +24,8 @@ rewrite to a ``transformers`` model from the Hub on the host. Here, when
 a model is configured (its ``*_dir`` or environment variable set, or the
 model handed over), it runs and any error it raises propagates; when
 none is configured, the prompt comes back unchanged with one warning that
-names the variable, as JAX behaves offline and under ``native_only``.
+names the variable, as JAX behaves offline and under ``native_only``
+(JAX's serving switch, which the port needs not: it has no other route).
 """
 
 from __future__ import annotations
@@ -334,8 +335,6 @@ class PromptEnhancer:
     max_new_tokens: int = 256
     llm_dir: Optional[str] = None
     captioner_dir: Optional[str] = None
-    # JAX's serving flag (no Hub fallback); the port has none to skip
-    native_only: bool = False
     device: object = None
     lm: Optional[ChatLM] = None
     captioner: Optional[FlorenceCaptioner] = None

@@ -175,7 +175,8 @@ def test_hf_tokenizer_wrapper_equal_jax(tmp_path):
         t = ttok.HuggingfaceTokenizer(str(tmp_path), seq_len=6, clean=clean)
         j = jtok.HuggingfaceTokenizer(str(tmp_path), seq_len=6, clean=clean)
         for seq in ("Hello   world", ["a cat", "snake_case x y z w v"]):
-            for a, b in zip(t(seq, return_mask=True), j(seq, return_mask=True)):
+            for a, b in zip(t(seq, return_mask=True),
+                            j(seq, return_mask=True)):
                 np.testing.assert_array_equal(a, b)
 
 
