@@ -320,7 +320,7 @@ Phases, one output line each (or a few):
             blocks of 1280, full attention at 7/15/23/31; LLM 28 layers of
             3584, 28/4 heads, M-RoPE (16, 24, 24)), its 2-layer cut
             against the CPU, one extend_with_img chat on a 448x448 image;
-            Qwen2.5-3B-Instruct, one extend; U2-Net (U2NET) from a random
+            Qwen2.5-3B-Instruct, one extend (both 128 tokens); U2-Net (U2NET) from a random
             u2net.pth through load_torch_checkpoint: salience_map of 4
             frames at 832x480 against the CPU (30 dB), remove_background
             with the matting at 256x256; the legacy VAE at its default
@@ -5287,6 +5287,9 @@ LEGACY_VAE_CFG = {"_class_name": "VideoAutoencoder", "dims": 3,
                   "latent_channels": 128,
                   "block_out_channels": [128, 256, 512, 512]}
 AUX_CLI_LAYERS = 2                    # the 13B transformer cut for the CLI
+# the extenders' generation length here (their default is 512): each step
+# is host-bound, about 30-40 ms, and the script aims at half its limit
+AUX_NEW_TOKENS = 128
 
 
 def _timed_cuda(fn, *args, **kwargs):
@@ -5303,7 +5306,7 @@ def aux_qwen_vl(image):
     """Qwen2.5-VL-7B-Instruct at full width on the card: a 2-layer cut
     (2 tower blocks, the second with full attention, 2 LLM layers) against
     an fp32 copy on the CPU on a 224x224 image's patches, then one
-    ``extend_with_img`` chat on the 448x448 image."""
+    ``extend_with_img`` chat on the 448x448 image (AUX_NEW_TOKENS)."""
     import dataclasses
 
     import numpy as np
@@ -5337,7 +5340,8 @@ def aux_qwen_vl(image):
     del card, cpu
     assert db >= 30.0, f"Qwen2.5-VL cut {db:.2f} dB < 30"
     torch.cuda.reset_peak_memory_stats()
-    exp = pe.QwenVLPromptExpander(vl=pe.VLChat(model=model, tokenizer=tok))
+    exp = pe.QwenVLPromptExpander(vl=pe.VLChat(
+        model=model, tokenizer=tok, max_new_tokens=AUX_NEW_TOKENS))
     out, chat_s = _timed_cuda(exp.extend_with_img,
                               "a seeded synthetic frame comes alive",
                               _pil(image), seed=SEED)
@@ -5355,7 +5359,8 @@ def aux_qwen_vl(image):
 
 
 def aux_qwen():
-    """Qwen2.5-3B-Instruct (``QWEN_2_5_3B``) on the card: one ``extend``."""
+    """Qwen2.5-3B-Instruct (``QWEN_2_5_3B``) on the card: one ``extend``
+    (AUX_NEW_TOKENS)."""
     import torch
 
     from ltx_video_gpupoor_tpu_torch.models import llm
@@ -5366,13 +5371,14 @@ def aux_qwen():
         llm.LLM(llm.QWEN_2_5_3B, device="cuda"), gen))
     torch.cuda.reset_peak_memory_stats()
     exp = pe.QwenPromptExpander(lm=pe.ChatLM(
-        model=model, tokenizer=qwen_tokenizer(), max_new_tokens=512))
+        model=model, tokenizer=qwen_tokenizer(),
+        max_new_tokens=AUX_NEW_TOKENS))
     out, s = _timed_cuda(exp.extend, "a red fox runs through fresh snow",
                          seed=SEED)
     assert out and exp.lm.last_new_tokens > 0
     log(f"[aux] Qwen2.5-3B-Instruct ({model.cfg.num_layers} layers of "
         f"{model.cfg.dim}) built in {build_s:.3f} s; extend {s:.3f} s, "
-        f"{exp.lm.last_new_tokens} tokens of 512, peak "
+        f"{exp.lm.last_new_tokens} tokens of {AUX_NEW_TOKENS}, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return {"qwen_extend_s": s}
 
