@@ -279,7 +279,7 @@ def test_no_fallback_hides_a_fault(llm_dir, florence_dir, tmp_path):
 
 @pytest.mark.parametrize("configured", [True, False])
 def test_cli_demo_enhance_prompt(llm_dir, florence_dir, tmp_path,
-                                 monkeypatch, capsys, configured):
+                                 monkeypatch, capsys, caplog, configured):
     from PIL import Image
 
     from ltx_video_gpupoor_tpu_torch.serving import cli as tcli
@@ -298,16 +298,21 @@ def test_cli_demo_enhance_prompt(llm_dir, florence_dir, tmp_path,
     png = tmp_path / "start.png"
     Image.fromarray(_image(64, 64)).save(png)
     out = str(tmp_path / "v.mp4")
-    tcli.main(["--prompt", "w3 w4", "--demo", "--device", "cpu", "--height",
-               "64", "--width", "64", "--video-length", "9",
-               "--num-inference-steps", "2", "--image-start", str(png),
-               "--enhance-prompt", "--output-path", out])
+    with caplog.at_level(logging.WARNING):
+        tcli.main(["--prompt", "w3 w4", "--demo", "--device", "cpu",
+                   "--height", "64", "--width", "64", "--video-length", "9",
+                   "--num-inference-steps", "2", "--image-start", str(png),
+                   "--enhance-prompt", "--output-path", out])
+    warned = [r.getMessage() for r in caplog.records
+              if "LTXV_TPU_CAPTIONER_DIR" in r.getMessage()]
     assert os.path.getsize(out) > 0
     printed = capsys.readouterr().out
     if configured:
         assert seen[0] != "w3 w4" and f"enhanced prompt: {seen[0]}" in printed
+        assert not warned
     else:
         assert seen == ["w3 w4"] and "enhanced prompt" not in printed
+        assert len(warned) == 1
 
 
 def test_server_enhance_prompt(llm_dir, florence_dir, tmp_path, monkeypatch):
