@@ -717,7 +717,29 @@ PARENT_REGISTERS = {
     "quantize_rows_kernel<fLi0ELi256ELi0ELb0E>": 47,
     "quantize_rows_kernel<fLi1ELi4ELi1ELb1E>": 44,
     "quantize_rows_kernel<fLi1ELi8ELi1ELb1E>": 44,
+    # K2's given-scale entry (CONTRACT 2; its first build's registers,
+    # the fp32 4-slot instance at 2 blocks an SM)
+    "quantize_rows_kernel<13__nv_bfloat16Li2ELi32ELi1ELb1E>": 29,
+    "quantize_rows_kernel<13__nv_bfloat16Li2ELi64ELi1ELb1E>": 29,
+    "quantize_rows_kernel<13__nv_bfloat16Li2ELi128ELi1ELb1E>": 29,
+    "quantize_rows_kernel<13__nv_bfloat16Li2ELi256ELi1ELb1E>": 29,
+    "quantize_rows_kernel<13__nv_bfloat16Li2ELi256ELi2ELb1E>": 36,
+    "quantize_rows_kernel<13__nv_bfloat16Li2ELi256ELi4ELb1E>": 60,
+    "quantize_rows_kernel<13__nv_bfloat16Li2ELi256ELi0ELb1E>": 34,
+    "quantize_rows_kernel<13__nv_bfloat16Li2ELi256ELi0ELb0E>": 40,
+    "quantize_rows_kernel<fLi2ELi32ELi1ELb1E>": 37,
+    "quantize_rows_kernel<fLi2ELi64ELi1ELb1E>": 37,
+    "quantize_rows_kernel<fLi2ELi128ELi1ELb1E>": 37,
+    "quantize_rows_kernel<fLi2ELi256ELi1ELb1E>": 37,
+    "quantize_rows_kernel<fLi2ELi256ELi2ELb1E>": 52,
+    "quantize_rows_kernel<fLi2ELi256ELi4ELb1E>": 92,
+    "quantize_rows_kernel<fLi2ELi256ELi0ELb1E>": 40,
+    "quantize_rows_kernel<fLi2ELi256ELi0ELb0E>": 48,
 }
+
+
+# the row kernel's instances on the GIVEN contract (K2's given-scale entry)
+GIVEN_ROWS = re.compile(r"quantize_rows_kernel<(13__nv_bfloat16|f)Li2E")
 
 
 def _instance(entry):
@@ -778,6 +800,10 @@ def phase_build(compare=False):
                 wgmma_spills.append(f"{ln} ({_instance(entry)})")
     assert not wgmma_spills, "a wgmma kernel spills:\n" + "\n".join(
         wgmma_spills)
+    # K2's given-scale entry (the row kernel's GIVEN contract, 2) must not
+    # spill either: the row-parallel linears of tp run it at every layer
+    given = sorted(k for k in spills if GIVEN_ROWS.match(k))
+    assert not given, f"K2's given-scale row kernel spills: {given}"
     serialized = [ln.strip() for ln in report.splitlines()
                   if "serializ" in ln.lower()]
     assert not serialized, "ptxas serialized wgmma:\n" + "\n".join(serialized)
@@ -5814,6 +5840,609 @@ def profile_ltx13b(gen, t5, tier):
     return s
 
 
+# --------------------------------------------------------------------------
+# [mesh]: the port's multi-rank routes over torch.distributed
+# --------------------------------------------------------------------------
+
+MESH_LTX = (480, 704, 121)        # B=2 CFG streams, 5280 tokens a stream
+MESH_WAN = (480, 832, 29)         # 8 latent frames, 12480 tokens a stream
+# what the ranks that share one card stage through pinned host memory: this
+# PyTorch's gloo writes a CUDA tensor's pointer to its socket (a rank dies
+# with "writev ... Bad address"), so every tensor collective
+MESH_STAGED = ("all_to_all", "all_reduce", "all_gather", "ring_shift")
+MESH_SERVE_STEPS = 8
+MESH_WAN_STEPS = 2
+MESH_WAN_TILE = 256
+MESH_RING = (1, 12, 8192, 128)    # B, H, S, D, split over 2 ranks
+MESH_TIMEOUT = 300.0
+# sp runs every token and head through the same math as one process: the
+# bar is bf16 noise, max |diff| <= 4 bf16 ulps of the largest output
+MESH_SP_NOISE = 4 * 2.0 ** -8
+MESH_TP_DB = 40.0
+MESH_SERVE_DB = 40.0
+# K2's given-scale entry at the row-parallel linears' tp=2 shapes: (name,
+# M, K/2, N) of LTX-2B (2 streams of 5280 tokens) and Wan-1.3B (2 of 12480)
+MESH_K2S_SHAPES = [("ltx to_out", 10560, 1024, 2048),
+                   ("ltx ff.proj_out", 10560, 4096, 2048),
+                   ("wan o", 24960, 768, 1536),
+                   ("wan ffn.fc2", 24960, 4480, 1536)]
+MESH_K2S_TIMED = "ltx ff.proj_out"
+# launches a rank makes in one forward (K2s: K2's given-scale entry)
+MESH_EXPECT = {
+    "ltx sp": {"K1": 56, "K2": 287, "K2s": 0, "K4": 0, "K6": 0},
+    "ltx tp": {"K1": 28, "K6": 28, "K2": 203, "K2s": 84, "K4": 0},
+    "wan sp": {"K4": 60, "K2": 306, "K2s": 0, "K1": 0, "K6": 0},
+    "wan tp": {"K4": 60, "K2": 216, "K2s": 90, "K1": 0, "K6": 0},
+}
+
+
+def _mesh_counts():
+    from ltx_video_gpupoor_tpu_torch.ops import int8_matmul as im
+
+    c = kernel_counts()
+    return {"K1": c["K1"], "K2": c["K2"], "K2s": im.int8_linear_scaled.launches,
+            "K4": c["K4"], "K6": c["K6"]}
+
+
+def _mesh_reset():
+    from ltx_video_gpupoor_tpu_torch.ops import int8_matmul as im
+
+    reset_kernel_counts()
+    im.int8_linear_scaled.launches = 0
+
+
+def _mesh_ltx_model():
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.core.dtypes import DEFAULT_POLICY
+    from ltx_video_gpupoor_tpu_torch.models.ltx import transformer3d as tf
+    from ltx_video_gpupoor_tpu_torch.ops.quant import quantize_params
+
+    dev = torch.device("cuda")
+    dit = tf.init_params(tf.LTXTransformer3D(ltx2b_config(), DEFAULT_POLICY,
+                                             device=dev),
+                         torch.Generator(device=dev).manual_seed(SEED))
+    return quantize_params(dit, mode="dynamic")
+
+
+def _mesh_wan_model():
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.core.dtypes import DEFAULT_POLICY
+    from ltx_video_gpupoor_tpu_torch.models.wan import model as wm
+    from ltx_video_gpupoor_tpu_torch.ops.quant import quantize_params
+
+    dev = torch.device("cuda")
+    dit = wm.init_params(wm.WanModel(wm.WAN_T2V_1_3B, DEFAULT_POLICY,
+                                     device=dev),
+                         torch.Generator(device=dev).manual_seed(SEED + 10))
+    return quantize_params(dit, mode="dynamic")
+
+
+def _mesh_ltx_inputs():
+    """Two CFG streams at MESH_LTX, seeded on the CPU (the same in every
+    process): latents, coordinates, per-frame timesteps, caption, mask."""
+    import torch
+
+    h, w, frames = MESH_LTX
+    f, hh, ww = (frames - 1) // 8 + 1, h // 32, w // 32
+    g = torch.Generator().manual_seed(SEED + 20)
+    lat = torch.randn(2, f * hh * ww, 128, generator=g)
+    grid = torch.stack(torch.meshgrid(torch.arange(f), torch.arange(hh),
+                                      torch.arange(ww), indexing="ij"))
+    grid = (grid.reshape(1, 3, -1).float()
+            * torch.tensor([8 / 25, 32.0, 32.0])[None, :, None]
+            ).expand(2, -1, -1).contiguous()
+    t = torch.rand(2, f, generator=g) * 0.8 + 0.1
+    cap = torch.randn(2, 256, 4096, generator=g)
+    mask = torch.ones(2, 256, dtype=torch.int32)
+    mask[0, 20:] = 0
+    mask[1, 77:] = 0
+    return [x.cuda() for x in (lat, grid, t, cap, mask)]
+
+
+def _mesh_wan_inputs():
+    """Two CFG streams at MESH_WAN: video latents, t, context, mask, RoPE."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.ops.rope import wan_rope_freqs
+
+    h, w, frames = MESH_WAN
+    f, hh, ww = (frames - 1) // 4 + 1, h // 8, w // 8
+    g = torch.Generator().manual_seed(SEED + 21)
+    x = torch.randn(2, f, hh, ww, 16, generator=g)
+    t = torch.full((2,), 500.0)
+    ctx = torch.randn(2, 512, 4096, generator=g)
+    mask = torch.zeros(2, 512, dtype=torch.int32)
+    mask[0, :20] = 1
+    mask[1, :77] = 1
+    freqs = wan_rope_freqs((f, hh // 2, ww // 2), head_dim=128,
+                           device="cuda")
+    return [x.cuda(), t.cuda(), ctx.cuda(), mask.cuda(), freqs]
+
+
+def _mesh_serve_model():
+    """The served model: LTX-2B (int8_dynamic) and the 0.9.7 VAE,
+    ltxv-2b-0.9.6-distilled, no text encoder (hash embeddings), the decode
+    untiled (one process and the ranks decode alike)."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.core.dtypes import DEFAULT_POLICY
+    from ltx_video_gpupoor_tpu_torch.models.ltx import vae as vaem
+    from ltx_video_gpupoor_tpu_torch.pipelines.ltx_pipeline import LTXPipeline
+    from ltx_video_gpupoor_tpu_torch.serving.model_zoo import LoadedModel
+    from ltx_video_gpupoor_tpu_torch.serving.orchestrator import (
+        LTXVideoGenerator,
+    )
+
+    dev = torch.device("cuda")
+    # the VAE with its encoder: a served request conditions on its image
+    vae = vaem.init_params(vaem.CausalVAE(vae_config(), DEFAULT_POLICY,
+                                          device=dev),
+                           torch.Generator(device=dev).manual_seed(SEED + 1))
+    pipe = LTXPipeline(_mesh_ltx_model(), vae, vae_tile_size=(0, 0))
+    return LoadedModel(generator=LTXVideoGenerator(
+        pipeline=pipe, pipeline_config="ltxv-2b-0.9.6-distilled"))
+
+
+def _mesh_body():
+    import base64
+    import io
+
+    from PIL import Image
+
+    h, w, frames = MESH_LTX
+    buf = io.BytesIO()
+    Image.fromarray(synthetic_image(h, w)).save(buf, format="PNG")
+    return {"image": base64.b64encode(buf.getvalue()).decode(),
+            "prompt": "a red fox in the snow", "negative_prompt": "blurry",
+            "height": h, "width": w, "num_frames": frames, "frame_rate": 25,
+            "num_inference_steps": MESH_SERVE_STEPS, "creation_id": "mesh"}
+
+
+def _mesh_wan_pipe():
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.core.dtypes import DEFAULT_POLICY
+    from ltx_video_gpupoor_tpu_torch.models.wan import vae as wv
+    from ltx_video_gpupoor_tpu_torch.pipelines.wan import WanPipeline
+
+    dev = torch.device("cuda")
+    vae = wv.init_params(wv.WanVAEDecoder(wv.WanVAEConfig(), DEFAULT_POLICY,
+                                          device=dev),
+                         torch.Generator(device=dev).manual_seed(SEED + 11))
+    return WanPipeline(_mesh_wan_model(), vae, vae_tile_size=MESH_WAN_TILE)
+
+
+def _mesh_wan_generate(pipe, output_type="pixels"):
+    """A Wan t2v generate at MESH_WAN, MESH_WAN_STEPS UniPC steps, pixels
+    out (the tiled decode) by default: seeded noise and context."""
+    import torch
+
+    x, _, ctx, mask, _ = _mesh_wan_inputs()
+    noise = torch.randn(x[:1].shape, generator=torch.Generator().manual_seed(
+        SEED + 22)).cuda()
+    h, w, frames = MESH_WAN
+    return pipe.generate_t2v(ctx, mask, width=w, height=h, frame_num=frames,
+                             sampling_steps=MESH_WAN_STEPS, shift=5.0,
+                             guide_scale=5.0, noise=noise,
+                             output_type=output_type, attn_mode="auto")
+
+
+def _mesh_reference(rank, world, out_dir):
+    """One process on the card: every one-process result the ranks are held
+    to, in ``out_dir``."""
+    import numpy as np
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.serving.server import InferenceService
+
+    ref, sec = {}, {}
+    with torch.no_grad():
+        ltx = _mesh_ltx_model()
+        inputs = _mesh_ltx_inputs()
+        for mode in ("auto", "pallas_hp"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref[f"ltx {mode}"] = ltx(*inputs, attn_mode=mode).float().cpu()
+            sec[f"ltx {mode}"] = time.perf_counter() - t0
+        del ltx, inputs
+        wan = _mesh_wan_model()
+        x, t, ctx, mask, freqs = _mesh_wan_inputs()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref["wan"] = wan(x, t, ctx, mask, freqs)[0].float().cpu()
+        sec["wan"] = time.perf_counter() - t0
+        del wan
+    torch.cuda.empty_cache()
+    svc = InferenceService(model=_mesh_serve_model(),
+                           outputs_dir=os.path.join(out_dir, "videos"),
+                           warmup_spec="off")
+    t0 = time.perf_counter()
+    frames, _ = svc._produce(_mesh_body())
+    sec["serve"] = time.perf_counter() - t0
+    np.save(os.path.join(out_dir, "serve.npy"), np.asarray(frames))
+    del svc, frames
+    torch.cuda.empty_cache()
+    pipe = _mesh_wan_pipe()
+    t0 = time.perf_counter()
+    video = _mesh_wan_generate(pipe)
+    sec["wan generate"] = time.perf_counter() - t0
+    ref["wan video"] = video.float().cpu()
+    # the same latents through the parallel decode's tiles (edge-padded
+    # tails) on this one rank: what the ranks' spread decode must give
+    from ltx_video_gpupoor_tpu_torch.core.mesh import MeshConfig, make_mesh
+    from ltx_video_gpupoor_tpu_torch.models.wan.vae import spread_tiled_decode
+
+    latents = _mesh_wan_generate(pipe, output_type="latent")
+    ref["wan video spread"] = spread_tiled_decode(
+        make_mesh(MeshConfig(dp=1, sp=1, tp=1)), pipe.vae, latents,
+        MESH_WAN_TILE).float().cpu()
+    torch.save(ref, os.path.join(out_dir, "reference.pt"))
+    return sec
+
+
+def _mesh_timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    _mesh_reset()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, _mesh_counts()
+
+
+def _mesh_rank(rank, world, out_dir):
+    """A rank of the 2-rank group sharing the card (gloo; the tensor
+    collectives staged through pinned host memory): (b) sp and tp forwards
+    of LTX-2B and Wan-1.3B, (c) the served request and the Wan generate
+    through the parallel decode, (d) ring attention. Rank 0 returns the
+    joined results; every rank its launch counts and seconds."""
+    import numpy as np
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.core.mesh import MeshConfig, make_mesh
+    from ltx_video_gpupoor_tpu_torch.ops import flash_attention as fa
+    from ltx_video_gpupoor_tpu_torch.parallel import comm
+    from ltx_video_gpupoor_tpu_torch.parallel.ring_attention import (
+        ring_attention_sharded,
+    )
+    from ltx_video_gpupoor_tpu_torch.parallel.sharding import (
+        shard_params,
+        shard_wan_params,
+    )
+    from ltx_video_gpupoor_tpu_torch.parallel.usp import (
+        gather,
+        usp_ltx_forward,
+        usp_wan_forward,
+    )
+    from ltx_video_gpupoor_tpu_torch.serving import model_zoo
+    from ltx_video_gpupoor_tpu_torch.serving import server as tserver
+
+    comm.set_staged(MESH_STAGED)
+    sp_mesh = make_mesh(MeshConfig(dp=1, sp=world, tp=1))
+    tp_mesh = make_mesh(MeshConfig(dp=1, sp=1, tp=world))
+    res = {"counts": {}, "sec": {}, "out": {}}
+
+    def keep(name, out, sec, counts):
+        res["sec"][name], res["counts"][name] = sec, counts
+        if rank == 0:
+            res["out"][name] = out.float().cpu()
+
+    with torch.no_grad():
+        ltx = _mesh_ltx_model()
+        inputs = _mesh_ltx_inputs()
+        out, sec, c = _mesh_timed(lambda: gather(sp_mesh, usp_ltx_forward(
+            sp_mesh, ltx, *inputs, attn_mode="auto")[0], 1))
+        keep("ltx sp", out, sec, c)
+        shard_params(tp_mesh, ltx)
+        out, sec, c = _mesh_timed(lambda: ltx(*inputs,
+                                              attn_mode="pallas_hp"))
+        keep("ltx tp", out, sec, c)
+        del ltx, inputs
+        torch.cuda.empty_cache()
+        wan = _mesh_wan_model()
+        x, t, ctx, mask, freqs = _mesh_wan_inputs()
+        out, sec, c = _mesh_timed(lambda: gather(sp_mesh, usp_wan_forward(
+            sp_mesh, wan, x, t, ctx, mask, freqs, attn_mode="auto")[0], 1))
+        keep("wan sp", out, sec, c)
+        shard_wan_params(tp_mesh, wan)
+        out, sec, c = _mesh_timed(lambda: wan(x, t, ctx, mask, freqs)[0])
+        keep("wan tp", out, sec, c)
+        del wan, x, ctx, freqs
+        torch.cuda.empty_cache()
+
+    # (c) the served request: LTXV_TPU_MESH names the mesh, rank 0 listens
+    os.environ["LTXV_TPU_MESH"] = f"dp1,sp{world},tp1"
+    model = _mesh_serve_model()
+    model_zoo.apply_serving_mesh(model.generator.pipeline)
+    svc = tserver.InferenceService(
+        model=model, outputs_dir=os.path.join(out_dir, "videos"))
+    assert svc.channel is not None and svc._warmup_thread is None
+    if rank != 0:
+        t0 = time.perf_counter()
+        svc.follow()
+        res["sec"]["serve"] = time.perf_counter() - t0
+    else:
+        import json
+        import threading
+        import urllib.request
+
+        produced = []
+        produce = svc._produce
+
+        def capture(data):
+            out = produce(data)
+            produced.append(out[0])
+            return out
+        svc._produce = capture
+        httpd = tserver.create_stdlib_server(svc, host="127.0.0.1", port=0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        t0 = time.perf_counter()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{httpd.server_address[1]}/",
+            data=json.dumps(_mesh_body()).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=MESH_TIMEOUT) as resp:
+                answer = (resp.status, json.loads(resp.read()))
+        finally:
+            res["sec"]["serve"] = time.perf_counter() - t0
+            svc.stop()
+            httpd.shutdown()
+            httpd.server_close()
+        assert answer[0] == 200, answer
+        ref = np.load(os.path.join(out_dir, "serve.npy"))
+        res["serve_db"] = _psnr_db(np.asarray(produced[0]), ref)
+        res["serve_answer"] = answer[1]
+    del svc, model
+    os.environ.pop("LTXV_TPU_MESH")
+    torch.cuda.empty_cache()
+
+    # the Wan generate through the parallel tiled decode
+    pipe = _mesh_wan_pipe()
+    pipe.sp_mesh = sp_mesh
+    video, sec, c = _mesh_timed(lambda: _mesh_wan_generate(pipe))
+    keep("wan generate", video, sec, c)
+    del pipe, video
+    torch.cuda.empty_cache()
+
+    # (d) ring attention over the ranks, against K1 on the joined tensors
+    b, h, s, d = MESH_RING
+    g = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    q, k, v = (torch.randn(b, h, s, d, generator=g, device="cuda").to(
+        torch.bfloat16) for _ in range(3))
+    out, sec, _ = _mesh_timed(lambda: ring_attention_sharded(sp_mesh, q, k,
+                                                             v))
+    res["sec"]["ring"] = sec
+    if rank == 0:
+        launches = fa.flash_attention.launches
+        want = fa.flash_attention(q, k, v)
+        fa.flash_attention.launches = launches      # a comparison launch
+        res["ring"] = ((out.float() - want.float()).abs().max().item(),
+                       want.float().abs().max().item())
+    res["staged"] = dict(comm.staged_counts)
+    return res
+
+
+def _mesh_nccl(rank, world):
+    """(a) One rank a card over NCCL: usp_ltx_forward at sp = world, joined,
+    against the plain forward of the same weights."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.core.mesh import (
+        MeshConfig,
+        make_mesh,
+        mesh_shape,
+    )
+    from ltx_video_gpupoor_tpu_torch.parallel.usp import gather, usp_ltx_forward
+
+    from ltx_video_gpupoor_tpu_torch.core.mesh import axis_group
+    from ltx_video_gpupoor_tpu_torch.parallel import comm
+
+    mesh = make_mesh(MeshConfig(dp=1, sp=world, tp=1), "cuda")
+    ones = comm.all_reduce(torch.ones(4, device="cuda"),
+                           axis_group(mesh, "sp"))
+    assert ones.tolist() == [float(world)] * 4, ones
+    with torch.no_grad():
+        ltx = _mesh_ltx_model()
+        inputs = _mesh_ltx_inputs()
+        out, sec, c = _mesh_timed(lambda: gather(mesh, usp_ltx_forward(
+            mesh, ltx, *inputs, attn_mode="auto")[0], 1))
+        want = ltx(*inputs, attn_mode="auto")
+    diff = (out.float() - want.float()).abs().max().item()
+    return (torch.distributed.get_backend(), mesh.device_type,
+            mesh_shape(mesh), diff, want.float().abs().max().item(), sec, c)
+
+
+def _k2s_check(x, s_x, w, sw, plain_codes):
+    """K2's given-scale entry against its plain version: codes bit for bit
+    (zeros past K), the output bit for bit."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.ops import int8_matmul as im
+
+    k = x.shape[1]
+    codes = im.quantize_rows_scaled(x, s_x)
+    if not (torch.equal(codes[:, :k], plain_codes)
+            and bool((codes[:, k:] == 0).all())):
+        return False, float("inf")
+    y = im.int8_linear_scaled(x, s_x, w, sw)
+    yp = im.int8_linear_scaled_plain(x, s_x, w, sw)
+    return torch.equal(y, yp), (y - yp).abs().max().item()
+
+
+def phase_k2s(gen, times, info):
+    """K2's given-scale entry (the row-parallel linears of tp) at the tp=2
+    shapes of LTX-2B and Wan-1.3B: codes and output bit for bit against the
+    plain version (the scale of a whole row, 1.7 times this half's amax);
+    a planted fault (the last 16 codes of every row zeroed in the plain
+    codes) must fail the check; then the timed shape beside its bound, its
+    plain version and torch._int_mm."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.ops import int8_matmul as im
+
+    err = 0.0
+    for name, m, k, n in MESH_K2S_SHAPES:
+        x = torch.randn(m, k, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        amax = x.abs().amax(-1).float() * 1.7
+        s_x = torch.clamp(amax / torch.full_like(amax, 127.0), min=1e-8)
+        w, sw = im.quantize_rows_plain(torch.randn(n, k, generator=gen,
+                                                   device="cuda"))
+        sw = sw.reshape(-1)
+        codes = im.quantize_rows_scaled_plain(x, s_x)
+        ok, diff = _k2s_check(x, s_x, w, sw, codes)
+        assert ok, f"K2 given-scale entry at {name}: off by {diff}"
+        planted = codes.clone()
+        planted[:, -16:] = 0
+        assert not _k2s_check(x, s_x, w, sw, planted)[0], \
+            "the planted fault passed K2's given-scale check"
+        err = max(err, diff)
+        log(f"[K2s] {name} M={m} K={k} N={n}: codes and output equal the "
+            f"plain version's bit for bit; planted fault caught")
+        if name == MESH_K2S_TIMED:
+            key = f"K2s {name}"
+            kern = cuda_time_ms(lambda: im.int8_linear_scaled(x, s_x, w, sw))
+            plain = cuda_time_ms(
+                lambda: im.int8_linear_scaled_plain(x, s_x, w, sw), reps=3)
+            xq = im.quantize_rows_scaled(x, s_x)
+            lib = cuda_time_ms(lambda: torch._int_mm(xq, w.t()))
+            bnd = linear_bound(m, k, n, out_bytes=4, extra_bytes=4 * m)
+            times[key] = (kern, plain)
+            info[key] = (*bnd, lib)
+            log(f"[time] K2s {name} M={m} K={k} N={n}, fp32 out: kernel "
+                f"{kern:.3f} ms, plain {plain:.3f} ms, bound {bnd[0]:.3f} ms "
+                f"({bnd[1]}), torch._int_mm (GEMM alone) {lib:.3f} ms")
+        del x, w, codes, planted
+    im.int8_linear_scaled.launches = 0
+    return err
+
+
+def phase_mesh():
+    """[mesh]: (a) NCCL, one rank a card; (b) two ranks sharing the card
+    over gloo: sp and tp forwards of LTX-2B and Wan-1.3B at full width and
+    depth against one process; (c) a served request on 2 ranks and a Wan
+    generate through the parallel decode; (d) ring attention. The kernel
+    library is built in this process first, so that no rank builds it.
+    Returns the tp forwards' launches of K2's given-scale entry on rank 0.
+    """
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.core.mesh import spawn_ranks
+    from ltx_video_gpupoor_tpu_torch.ops import _lib
+
+    _lib.library()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip().splitlines()[0]
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="mesh_", dir=os.path.join(
+        ROOT, "ltx_video_gpupoor_tpu_torch", "build"))
+    os.makedirs(os.path.join(work, "videos"))
+
+    n = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    backend, dev_type, shape, diff, peak, sec, c = spawn_ranks(
+        _mesh_nccl, n, backend="nccl", timeout=MESH_TIMEOUT, device=None,
+        store_dir=work, threads=0)[0]
+    log(f"[mesh] (a) {n} rank(s), one a card, {backend} on a {dev_type} "
+        f"DeviceMesh {shape}: usp_ltx_forward at sp={n}, LTX-2B "
+        f"{MESH_LTX[1]}x{MESH_LTX[0]}x{MESH_LTX[2]}, 2 streams, against the "
+        f"plain forward: max |diff| {diff:.3g} (max |out| {peak:.3g}); "
+        f"forward {sec:.3f} s, launches {c}; {time.perf_counter() - t0:.1f} "
+        f"s with the start ({card})")
+    assert backend == "nccl" and diff <= MESH_SP_NOISE * peak, diff
+
+    t0 = time.perf_counter()
+    ref_sec = spawn_ranks(_mesh_reference, 1, backend="gloo",
+                          timeout=MESH_TIMEOUT, device=None, store_dir=work,
+                          threads=0, args=(work,))[0]
+    ref = torch.load(os.path.join(work, "reference.pt"))
+    log(f"[mesh] one-process references in {time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in ref_sec.items())
+        + f" ({card})")
+
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(_mesh_rank, 2, backend="gloo", timeout=MESH_TIMEOUT,
+                        device=None, store_dir=work, threads=0,
+                        args=(work,))
+    log(f"[mesh] (b)-(d) 2 ranks on one card, gloo, staged through pinned "
+        f"host memory {MESH_STAGED}: {time.perf_counter() - t0:.1f} s with "
+        f"the start ({card}); staged calls by rank "
+        f"{[r['staged'] for r in ranks]}")
+    r0 = ranks[0]
+    for name, want in (("ltx sp", "ltx auto"), ("ltx tp", "ltx pallas_hp"),
+                       ("wan sp", "wan"), ("wan tp", "wan")):
+        got, exp = r0["out"][name], ref[want]
+        assert got.shape == exp.shape and torch.isfinite(got).all(), name
+        d = (got - exp).abs().max().item()
+        peak = exp.abs().max().item()
+        db = _psnr_db_float(got, exp)
+        for rank, r in enumerate(ranks):
+            assert r["counts"][name] == MESH_EXPECT[name], (
+                name, rank, r["counts"][name], MESH_EXPECT[name])
+        bar = (f"bf16 noise: max |diff| <= {MESH_SP_NOISE:.4f} x max |out|"
+               if "sp" in name else f">= {MESH_TP_DB:.0f} dB")
+        log(f"[mesh] (b) {name} (2 ranks on one card): max |diff| {d:.4g} "
+            f"(max |out| {peak:.4g}, {d / peak:.3g} of it), PSNR {db:.2f} dB "
+            f"(bar: {bar}); forward {r0['sec'][name]:.3f} s (one process "
+            f"{ref_sec[want]:.3f} s); launches "
+            f"a rank {[r['counts'][name] for r in ranks]} (expected "
+            f"{MESH_EXPECT[name]})")
+        if "sp" in name:
+            assert d <= MESH_SP_NOISE * peak, (name, d, peak)
+        else:
+            assert db >= MESH_TP_DB, (name, db)
+    log(f"[mesh] (c) POST / on rank 0, LTXV_TPU_MESH=dp1,sp2,tp1, LTX-2B "
+        f"{MESH_LTX[1]}x{MESH_LTX[0]}x{MESH_LTX[2]}, {MESH_SERVE_STEPS} "
+        f"steps: answered {r0['serve_answer']} in {r0['sec']['serve']:.3f} "
+        f"s (one process {ref_sec['serve']:.3f} s); frames against the "
+        f"one-process request {r0['serve_db']:.2f} dB (bar "
+        f"{MESH_SERVE_DB:.0f})")
+    assert r0["serve_db"] >= MESH_SERVE_DB, r0["serve_db"]
+    got = r0["out"]["wan generate"]
+    exp, seq = ref["wan video spread"], ref["wan video"]
+    assert got.shape == exp.shape == seq.shape and torch.isfinite(got).all()
+    d = (got - exp).abs().max().item()
+    log(f"[mesh] (c) Wan t2v-1.3B generate with sp_mesh, "
+        f"{MESH_WAN[1]}x{MESH_WAN[0]}x{MESH_WAN[2]}, {MESH_WAN_STEPS} steps, "
+        f"parallel_spatial_tiled_decode at {MESH_WAN_TILE} px: "
+        f"{r0['sec']['wan generate']:.3f} s (one process, sequential tiles "
+        f"{ref_sec['wan generate']:.3f} s); against one process decoding "
+        f"the same edge-padded tiles: max |diff| {d:.4g} (bar "
+        f"{MESH_SP_NOISE:.4f}, pixels in [-1, 1]); against the sequential "
+        f"tiles (truncated tails): {_psnr_db_float(got, seq):.2f} dB; "
+        f"launches a rank {[r['counts']['wan generate'] for r in ranks]}")
+    assert d <= MESH_SP_NOISE, d
+    d, peak = r0["ring"]
+    log(f"[mesh] (d) ring_attention over 2 ranks, B{MESH_RING[0]} "
+        f"H{MESH_RING[1]} S{MESH_RING[2]} D{MESH_RING[3]} bf16, against K1 on "
+        f"the joined tensors: max |diff| {d:.4g} (max |out| {peak:.4g}; bar "
+        f"{MESH_SP_NOISE:.4f} of it); {r0['sec']['ring']:.3f} s")
+    assert d <= MESH_SP_NOISE * peak, d
+    log(f"[mesh] done in {time.perf_counter() - t_phase:.1f} s ({card})")
+    return sum(r0["counts"][k]["K2s"] for k in ("ltx tp", "wan tp"))
+
+
+def _psnr_db_float(a, b):
+    """PSNR of ``a`` against ``b`` with the peak of twice their largest
+    magnitude (the repo's oracle convention)."""
+    peak = max(a.abs().max().item(), b.abs().max().item(), 1e-9) * 2
+    mse = ((a.double() - b.double()) ** 2).mean().item()
+    import math
+
+    return 10 * math.log10(peak * peak / mse) if mse > 0 else float("inf")
+
+
 def kernel_entry(name, source, replaces, launches, err, times, info, key):
     """One entry of the ``kernels`` line, from the timed shape ``key``."""
     bound, bound_by, library = info[key]
@@ -5830,6 +6459,10 @@ def main(argv=None) -> int:
                     "request (LTX-2B 704x480x121, LTX-13B 992x608x121 in "
                     "tiers (b), (c) and (d), Wan 832x480x81) and print the "
                     "device time by kernel group")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="the device, the build, K2's given-scale entry and "
+                    "[mesh] alone (no result line); for work on the "
+                    "multi-rank routes")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks and timings (phases "
                     "1 to 6): no path is driven, so no result line is "
@@ -5845,6 +6478,11 @@ def main(argv=None) -> int:
     kind, ex2_per_s = phase_device()
     phase_build(compare=args.profile)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    if args.mesh_only:
+        phase_k2s(gen, {}, {})
+        phase_mesh()
+        log(f"[clock] mesh done at {time.perf_counter() - t_start:.0f} s")
+        return 0
     k1_err = phase_k1(gen)
     k2_err, rows_err = phase_k2(gen)
     prologue_err = phase_prologue(gen)
@@ -5859,6 +6497,7 @@ def main(argv=None) -> int:
     time_k1f(gen, times, info, ex2_per_s)
     k8_err, k8_launches = phase_k8(gen, times, info)
     k7_err, k7_launches = phase_k7(gen, times, info)
+    k2s_err = phase_k2s(gen, times, info)
     log(f"[clock] kernel checks and timings done at "
         f"{time.perf_counter() - t_start:.0f} s")
     if args.kernels_only:
@@ -5896,6 +6535,8 @@ def main(argv=None) -> int:
     log(f"[clock] Wan i2v path done at {time.perf_counter() - t_start:.0f} s")
     aux_launches = phase_aux()
     log(f"[clock] aux models done at {time.perf_counter() - t_start:.0f} s")
+    k2s_launches = phase_mesh()
+    log(f"[clock] mesh done at {time.perf_counter() - t_start:.0f} s")
     by_tier = dict(zip((m for *_, m in WAN_REQUESTS), wan_launches))
     tier_b, tier_c, tier_d = (t[0] for t in LTX13B_TIERS[1:4])
     k2_key = f"K2 {K2_TIMED}"
@@ -5978,12 +6619,17 @@ def main(argv=None) -> int:
                      path_d80["K3qd80"], k3q_d80_err, times, info,
                      "K3q CLIP d=80"),
     ]
+    kernels.append(kernel_entry(
+        "int8_linear_scaled (K2 with a given row scale: the row-parallel "
+        "linears of tensor parallelism, tp=2)", K2_SOURCE, K2_REPLACES,
+        k2s_launches, k2s_err, times, info, f"K2s {MESH_K2S_TIMED}"))
     next(k for k in kernels if k["source"] == K8_SOURCE)["ms_by_nsub"] = {
         str(n): times[f"K8 nsub {n}"][0] for n in (1, 2, 4, 8)}
     # every kernel a path runs launched; K3q's d=80 instance runs on none
     # (CLIP passes no score bound), so its measured count may be 0: its
     # checks and time are phase_d80's and phase_timing's
-    k3q_d80 = kernels[-1]
+    k3q_d80 = next(k for k in kernels if "d=80" in k["name"]
+                   and "bounded" in k["name"])
     assert all(k["launches"] > 0 for k in kernels if k is not k3q_d80), \
         kernels
     log(json.dumps({"kernels": kernels}))

@@ -26,7 +26,10 @@
 // L2). Codes leave as 16-byte stores into rows of round_up(K, 16) bytes
 // with zero codes past K (which add 0 to the product), so the GEMM takes
 // any K. The same kernel, on the attention prologue's contract, quantizes
-// the int8 attention tiers' Q and K rows (k2_prologue_quantize).
+// the int8 attention tiers' Q and K rows (k2_prologue_quantize), and, with
+// no amax pass, against row scales the caller gives (k2_quantize_rows_scaled:
+// the row-parallel linears of tensor parallelism, whose rows are quantized by
+// the amax of the whole row, all-reduced over the ranks).
 // k2_int8_gemm (also K5's product) is a Hopper GEMM:
 // - One block computes a 128 x 256 output tile in two consumer warpgroups
 //   of 64 rows, on wgmma.mma_async m64n256k32 s32.s8.s8. 8-bit wgmma reads
@@ -66,7 +69,10 @@ namespace {
 // s), -127, 127); JAX's prologue does not clip, but there s >= amax / 127
 // to a relative 2**-23, so |x / s| stays under 127.5 and the clip never
 // binds.
-constexpr int K2_ROWS = 0, PROLOGUE = 1;
+// GIVEN: K2's codes against a scale the caller gives a row (sgiven[r], the
+// scale of a whole row whose slice this rank holds under tensor
+// parallelism): no amax pass, nothing stored but the codes.
+constexpr int K2_ROWS = 0, PROLOGUE = 1, GIVEN = 2;
 constexpr float INV127 = 0.007874015718698502f;  // float32(1 / 127)
 
 struct RowArgs {
@@ -84,11 +90,12 @@ struct RowArgs {
   float c;
   int8_t* xq;
   float* sx;
+  const float* sgiven;  // GIVEN: the scale of row r
 };
 
 template <typename T, int CONTRACT>
 __device__ __forceinline__ const T* row_at(const RowArgs& a, long long r) {
-  if (CONTRACT == K2_ROWS) return static_cast<const T*>(a.x) + r * a.K;
+  if (CONTRACT != PROLOGUE) return static_cast<const T*>(a.x) + r * a.K;
   const long long bh = r / a.S, s = r - bh * a.S;
   const long long b = bh / a.H, h = bh - b * a.H;
   return static_cast<const T*>(a.x) + b * a.sb + h * a.sh + s * a.ss;
@@ -140,9 +147,14 @@ __device__ __forceinline__ float row_scale(float amax) {
 // otherwise each value is read alone. SLOTS == 0 is the two-pass form for
 // rows longer than the registers hold: the absmax pass, then a second read
 // of the row (from L2) for the codes.
+// (the GIVEN contract's fp32 rows of 4 slots a lane spilled 40 bytes at the
+// 85 registers of 3 blocks an SM: 2 blocks an SM give them room)
 template <typename T, int CONTRACT, int LANES, int SLOTS, bool VEC>
 __global__ void __launch_bounds__(256, SLOTS == 1 ? (sizeof(T) == 2 ? 6 : 5)
-                                      : SLOTS == 2 ? 4 : SLOTS == 4 ? 3 : 4)
+                                      : SLOTS == 2 ? 4
+                                      : SLOTS == 4 ? (CONTRACT == GIVEN &&
+                                                      sizeof(T) == 4 ? 2 : 3)
+                                                   : 4)
 quantize_rows_kernel(const RowArgs a) {
   constexpr int RPB = 256 / LANES;  // rows a block
   const int lane = threadIdx.x % LANES;
@@ -159,20 +171,25 @@ quantize_rows_kernel(const RowArgs a) {
   };
   float amax = 0.f;
   if constexpr (SLOTS == 0) {
-    for (int sl = lane; live && sl < a.nslot; sl += LANES) {
-      Slot<T> v;
-      load(v, sl);
-      amax = fmaxf(amax, v.amax());
+    float s;
+    if constexpr (CONTRACT == GIVEN) {
+      s = live ? a.sgiven[row] : 1.f;
+    } else {
+      for (int sl = lane; live && sl < a.nslot; sl += LANES) {
+        Slot<T> v;
+        load(v, sl);
+        amax = fmaxf(amax, v.amax());
+      }
+      amax = row_max<LANES>(amax);
+      s = row_scale<CONTRACT>(amax);
     }
-    amax = row_max<LANES>(amax);
-    const float s = row_scale<CONTRACT>(amax);
     const float r = __frcp_rn(s);
     for (int sl = lane; live && sl < a.nslot; sl += LANES) {
       Slot<T> v;
       load(v, sl);
       *reinterpret_cast<uint4*>(q + sl * 16) = codes(v, s, r);
     }
-    if (live && lane == 0) {
+    if (CONTRACT != GIVEN && live && lane == 0) {
       store_scale<CONTRACT>(a, row, s, fmaxf(amax, 1e-6f));
     }
   } else {
@@ -182,11 +199,16 @@ quantize_rows_kernel(const RowArgs a) {
       const int sl = lane + LANES * i;
       if (live && sl < a.nslot) {
         load(v[i], sl);
-        amax = fmaxf(amax, v[i].amax());
+        if (CONTRACT != GIVEN) amax = fmaxf(amax, v[i].amax());
       }
     }
-    amax = row_max<LANES>(amax);
-    const float s = row_scale<CONTRACT>(amax);
+    float s;
+    if constexpr (CONTRACT == GIVEN) {
+      s = live ? a.sgiven[row] : 1.f;
+    } else {
+      amax = row_max<LANES>(amax);
+      s = row_scale<CONTRACT>(amax);
+    }
     const float r = __frcp_rn(s);
 #pragma unroll
     for (int i = 0; i < SLOTS; ++i) {
@@ -195,7 +217,7 @@ quantize_rows_kernel(const RowArgs a) {
         *reinterpret_cast<uint4*>(q + sl * 16) = codes(v[i], s, r);
       }
     }
-    if (live && lane == 0) {
+    if (CONTRACT != GIVEN && live && lane == 0) {
       store_scale<CONTRACT>(a, row, s, fmaxf(amax, 1e-6f));
     }
   }
@@ -215,17 +237,18 @@ int launch_rows(const RowArgs& a, cudaStream_t st) {
 // to 4096 values), then 8 warps of 2 or 4 slots (up to 16384), then the
 // two-pass form; rows that are not 16-byte aligned or whose K is not a
 // 16-multiple take the two-pass form with single-value loads
-template <typename T>
+// (the GIVEN contract takes the same shapes)
+template <typename T, int CONTRACT = K2_ROWS>
 int launch_k2_rows(const RowArgs& a, bool vec, cudaStream_t st) {
   const int K = a.K;
-  if (!vec) return launch_rows<T, K2_ROWS, 256, 0, false>(a, st);
-  if (K <= 512) return launch_rows<T, K2_ROWS, 32, 1, true>(a, st);
-  if (K <= 1024) return launch_rows<T, K2_ROWS, 64, 1, true>(a, st);
-  if (K <= 2048) return launch_rows<T, K2_ROWS, 128, 1, true>(a, st);
-  if (K <= 4096) return launch_rows<T, K2_ROWS, 256, 1, true>(a, st);
-  if (K <= 8192) return launch_rows<T, K2_ROWS, 256, 2, true>(a, st);
-  if (K <= 16384) return launch_rows<T, K2_ROWS, 256, 4, true>(a, st);
-  return launch_rows<T, K2_ROWS, 256, 0, true>(a, st);
+  if (!vec) return launch_rows<T, CONTRACT, 256, 0, false>(a, st);
+  if (K <= 512) return launch_rows<T, CONTRACT, 32, 1, true>(a, st);
+  if (K <= 1024) return launch_rows<T, CONTRACT, 64, 1, true>(a, st);
+  if (K <= 2048) return launch_rows<T, CONTRACT, 128, 1, true>(a, st);
+  if (K <= 4096) return launch_rows<T, CONTRACT, 256, 1, true>(a, st);
+  if (K <= 8192) return launch_rows<T, CONTRACT, 256, 2, true>(a, st);
+  if (K <= 16384) return launch_rows<T, CONTRACT, 256, 4, true>(a, st);
+  return launch_rows<T, CONTRACT, 256, 0, true>(a, st);
 }
 
 constexpr int GBM = 128, GBN = 256;   // output tile
@@ -503,6 +526,31 @@ extern "C" int k2_quantize_rows(const void* x, int M, int K, int x_dtype,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return x_dtype == 0 ? launch_k2_rows<bf16>(a, vec, st)
                       : launch_k2_rows<float>(a, vec, st);
+}
+
+// K2's codes against given row scales: x [M, K] bf16 (x_dtype 0) or fp32 (1),
+// contiguous, and sx [M] fp32 -> xq [M, round_up(K, 16)] int8 (zero codes
+// past K; 16-byte aligned). The same shapes and loads as k2_quantize_rows,
+// without the amax pass; sx is read, not written.
+extern "C" int k2_quantize_rows_scaled(const void* x, int M, int K,
+                                       int x_dtype, const void* sx, void* xq,
+                                       void* stream) {
+  if (M <= 0) return static_cast<int>(cudaGetLastError());
+  if (K <= 0 || x_dtype < 0 || x_dtype > 1 || sx == nullptr ||
+      reinterpret_cast<uintptr_t>(xq) % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  RowArgs a = {};
+  a.x = x;
+  a.rows = M;
+  a.K = K;
+  a.nslot = (K + 15) / 16;
+  a.xq = static_cast<int8_t*>(xq);
+  a.sgiven = static_cast<const float*>(sx);
+  const bool vec = K % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return x_dtype == 0 ? launch_k2_rows<bf16, GIVEN>(a, vec, st)
+                      : launch_k2_rows<float, GIVEN>(a, vec, st);
 }
 
 // The int8 attention tiers' quantize of Q or K: x [B, H, S, D] bf16 (x_dtype

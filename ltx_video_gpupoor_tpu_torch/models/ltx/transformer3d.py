@@ -19,8 +19,16 @@ under the gates of the JAX block. Activations run in the policy's
 ``compute_dtype``; modulation and the timestep path stay fp32.
 
 TeaCache's ``previous_residual`` / ``compute`` / ``return_residual``
-(:454-456, :529-551) skip the block stack on the host. Not ported yet: the
-``ulysses:`` branch (:339-350) and the rope-on-heads layout; see ROADMAP.
+(:454-456, :529-551) skip the block stack on the host. The ``ulysses:``
+branch (:337-349): under ``parallel/usp.py`` each rank holds a slice of
+the tokens whose RoPE rows are their global ones, and the self-attention
+runs ``parallel/ulysses.py`` (the cross-attention takes the base mode: q
+rows against replicated context). Under tensor parallelism
+(``parallel/sharding.py``) a block holds ``H/tp`` heads: the heads come
+from ``to_q``'s (local) width, the q/k RMS norms all-reduce their sum of
+squares, and AttentionSkip mixes in this rank's slice of the normed input.
+Not ported: the rope-on-heads layout (an opt-in relayout of the TPU
+path); see ROADMAP.
 """
 
 from __future__ import annotations
@@ -35,7 +43,7 @@ from torch import nn
 
 from ...core.dtypes import DEFAULT_POLICY, DtypePolicy
 from ...ops import fused_prologue as _fp
-from ...ops.attention import attention, attention_packed
+from ...ops.attention import attention, attention_packed, parse_sp
 from ...ops.norms import layer_norm, rms_norm
 from ...ops.quant import Linear
 from ...ops.rope import apply_rotary_emb, ltx_freqs_cis
@@ -102,9 +110,13 @@ class Attention(nn.Module):
             self.q_norm = NormWeight(d, **kw)
             self.k_norm = NormWeight(d, **kw)
 
+    # set by parallel/sharding.py on a tensor-parallel rank
+    tp = None
+
     def norm(self, name: str, x: torch.Tensor) -> torch.Tensor:
         mod = getattr(self, name, None)
-        return x if mod is None else rms_norm(x, mod.weight, eps=1e-5)
+        return x if mod is None else rms_norm(x, mod.weight, eps=1e-5,
+                                              tp=self.tp)
 
 
 class FeedForward(nn.Module):
@@ -194,7 +206,9 @@ class Block(nn.Module):
     ) -> torch.Tensor:
         cfg = self.cfg
         b, s, d = x.shape
-        heads, hd = cfg.num_attention_heads, cfg.attention_head_dim
+        hd = cfg.attention_head_dim
+        # this rank's heads (all of them unless tensor-parallel)
+        heads = self.attn1.to_q.d_out // hd
         ada_v = self.scale_shift_table.float()[None, None] + ada
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = [
             ada_v[:, :, i].to(x.dtype) for i in range(6)]
@@ -229,13 +243,33 @@ class Block(nn.Module):
             k = a1.norm("k_norm", a1.to_k(h))
             v = a1.to_v(h)
         cos, sin = freqs
+        if a1.tp is not None:
+            # the tables span the packed heads: this rank's slice
+            cos, sin = a1.tp.local(cos), a1.tp.local(sin)
         q = apply_rotary_emb(q, cos, sin)
         k = apply_rotary_emb(k, cos, sin)
-        attn_raw = attention_packed(q, k, v, heads, mode=attn_mode,
-                                    score_bound=sb)
+        base_mode, sp_axis = parse_sp(attn_mode)
+        if sp_axis is not None:
+            # USP: tokens sequence-sharded over sp_axis (parallel/usp.py);
+            # RoPE above used this shard's GLOBAL coordinates, so only the
+            # attention itself needs the exchange
+            from ...parallel.ulysses import ulysses_attention
+
+            def to_heads(t):
+                return t.reshape(b, s, heads, hd).transpose(1, 2)
+
+            attn_raw = ulysses_attention(
+                to_heads(q), to_heads(k), to_heads(v), axis_name=sp_axis,
+                attn_mode=base_mode, score_bound=sb,
+            ).transpose(1, 2).reshape(b, s, heads * hd)
+        else:
+            attn_raw = attention_packed(q, k, v, heads, mode=base_mode,
+                                        score_bound=sb)
         if skip_mask is not None:
             m = skip_mask.to(x.dtype)[:, None, None]
             if skip_strategy == SkipLayerStrategy.AttentionSkip:
+                if a1.tp is not None:
+                    h = a1.tp.local(h)
                 attn_raw = attn_raw * m + h * (1 - m)
             elif skip_strategy == SkipLayerStrategy.AttentionValues:
                 attn_raw = attn_raw * m + v * (1 - m)
@@ -251,7 +285,7 @@ class Block(nn.Module):
             q.reshape(b, s, heads, hd).transpose(1, 2),
             k.reshape(b, sc, heads, hd).transpose(1, 2),
             v.reshape(b, sc, heads, hd).transpose(1, 2),
-            q_seg, kv_seg, mode=attn_mode, score_bound=sb,
+            q_seg, kv_seg, mode=base_mode, score_bound=sb,
         )
         x = x + a2.to_out(ca.transpose(1, 2).reshape(b, s, heads * hd))
 

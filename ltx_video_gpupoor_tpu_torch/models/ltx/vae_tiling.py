@@ -8,7 +8,12 @@ tiles of ``z_tile`` latent frames with a quarter overlap, spatial tiles of
 ``hw_tile`` pixels, each neighbour blended into the next. The tile loops
 run on the host, one tile's intermediates at a time (the JAX package's
 sequencing tokens and concurrent compile warm-up have no counterpart
-here). ``parallel_*`` (:323-496) wait for ROADMAP queue 1 step 15.
+here). :func:`parallel_spatial_map`, :func:`_parallel_spatial_decode` and
+:func:`parallel_tiled_decode` (:323-496) deal the spatial tile grid to
+every rank of the mesh (contiguous blocks of the flat tile list, as JAX's
+flat ``shard_map``), make tail tiles uniform by edge-replicate padding,
+bring the decoded tiles back with one ``all_gather`` and blend them as
+:func:`tiled_spatial` does.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
 
 from . import vae as ltx_vae
 
@@ -164,5 +170,129 @@ def tiled_decode(vae: ltx_vae.CausalVAEDecoder, latents: torch.Tensor,
     tile_sample_t = z_tile * cfg.temporal_downscale_factor
     blend_extent = int(tile_sample_t * overlap_factor)
     return _tiled_temporal(decode_maybe_hw, latents, z_tile,
+                           int(z_tile * (1 - overlap_factor)), blend_extent,
+                           tile_sample_t - blend_extent)
+
+
+def parallel_spatial_map(mesh, tile_fn: Callable[[int, torch.Tensor],
+                                                 torch.Tensor],
+                         z: torch.Tensor, tile_in: int, tile_out: int,
+                         overlap_factor: float) -> torch.Tensor:
+    """Overlapping-tile spatial map of ``z [B, F, H, W, C]`` with the tile
+    grid spread over every rank of ``mesh`` (the whole process group), then
+    blended exactly like :func:`tiled_spatial`. ``tile_fn(index, tile)``
+    maps tile ``index`` of the flat grid (row-major) ``[B, F, tile_in,
+    tile_in, C]`` to ``[B, F', tile_out', tile_out', C']``. Tail tiles are
+    made uniform by edge-replicate padding of the latent, and the tile list
+    is padded to a multiple of the ranks with its last tile; each rank maps
+    its contiguous block one tile at a time. Returns the blended output
+    uncropped along H/W (callers crop to ``h * sf`` / ``w * sf``)."""
+    import torch.distributed as dist
+
+    from ...parallel import comm
+
+    world = dist.get_world_size()
+    if mesh.size() != world:
+        raise ValueError(f"the mesh spans {mesh.size()} of {world} ranks")
+    overlap_in = int(tile_in * (1 - overlap_factor))
+    blend_extent = int(tile_out * overlap_factor)
+    limit = tile_out - blend_extent
+    h, w = z.shape[2], z.shape[3]
+    starts_h = list(range(0, h, overlap_in))
+    starts_w = list(range(0, w, overlap_in))
+    pad_h = max(0, starts_h[-1] + tile_in - h)
+    pad_w = max(0, starts_w[-1] + tile_in - w)
+    # edge-replicate along H and W: [B, F, H, W, C] -> [B*F, C, H, W]
+    b, f, _, _, c = z.shape
+    zp = F.pad(z.permute(0, 1, 4, 2, 3).reshape(b * f, c, h, w),
+               (0, pad_w, 0, pad_h), mode="replicate")
+    zp = zp.reshape(b, f, c, h + pad_h, w + pad_w).permute(0, 1, 3, 4, 2)
+    starts = [(i, j) for i in starts_h for j in starts_w]
+    n_tiles = len(starts)
+    per = -(-n_tiles // world)
+    rank = dist.get_rank()
+    mine = []
+    for t in range(rank * per, (rank + 1) * per):
+        i, j = starts[min(t, n_tiles - 1)]
+        mine.append(tile_fn(min(t, n_tiles - 1),
+                            zp[:, :, i:i + tile_in, j:j + tile_in]))
+    out = comm.all_gather_cat(torch.stack(mine), None, 0)[:n_tiles]
+    nw = len(starts_w)
+    grid = [[out[r * nw + cix] for cix in range(nw)]
+            for r in range(len(starts_h))]
+    result_rows = []
+    for i, row in enumerate(grid):
+        result_row = []
+        for j, tile in enumerate(row):
+            if i > 0:
+                tile = blend(grid[i - 1][j], tile, blend_extent, 2)
+            if j > 0:
+                tile = blend(row[j - 1], tile, blend_extent, 3)
+            row[j] = tile
+            result_row.append(tile[:, :, :limit, :limit])
+        result_rows.append(torch.cat(result_row, dim=3))
+    return torch.cat(result_rows, dim=2)
+
+
+def _tile_generators(generator: Optional[torch.Generator]):
+    """Per-tile generators for the parallel decode's noise: one seed drawn
+    from ``generator`` (whose state every rank holds alike), tile i seeded
+    ``seed + i``, so that every rank draws a tile's noise alike wherever
+    it is decoded (the noise is not the sequential decode's)."""
+    if generator is None:
+        return lambda i: None
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                             device=generator.device))
+
+    def make(i):
+        g = torch.Generator(device=generator.device)
+        g.manual_seed(seed + i)
+        return g
+    return make
+
+
+def _parallel_spatial_decode(mesh, vae: ltx_vae.CausalVAEDecoder,
+                             z: torch.Tensor, tile_in: int, tile_out: int,
+                             overlap_factor: float,
+                             timestep: Optional[torch.Tensor],
+                             generator: Optional[torch.Generator]
+                             ) -> torch.Tensor:
+    """The LTX decode over :func:`parallel_spatial_map`."""
+    gen = _tile_generators(generator)
+    full = parallel_spatial_map(
+        mesh, lambda i, tile: ltx_vae.decode(vae, tile, timestep, gen(i)),
+        z, tile_in, tile_out, overlap_factor)
+    sf = vae.cfg.spatial_downscale_factor
+    return full[:, :, :z.shape[2] * sf, :z.shape[3] * sf]
+
+
+@torch.no_grad()
+def parallel_tiled_decode(mesh, vae: ltx_vae.CausalVAEDecoder,
+                          latents: torch.Tensor, z_tile: int = 4,
+                          hw_tile: int = 0, overlap_factor: float = 0.25,
+                          timestep: Optional[torch.Tensor] = None,
+                          generator: Optional[torch.Generator] = None
+                          ) -> torch.Tensor:
+    """:func:`tiled_decode` with each temporal tile's spatial grid spread
+    over every rank of ``mesh``; temporal tiles stay sequential. Without a
+    mesh, on one rank, or without spatial tiling it is
+    :func:`tiled_decode`."""
+    sf = vae.cfg.spatial_downscale_factor
+    tile_lat = hw_tile // sf if hw_tile else 0
+    t, h, w = latents.shape[1:4]
+    spatial = bool(tile_lat) and (h > tile_lat or w > tile_lat)
+    if mesh is None or mesh.size() == 1 or not spatial:
+        return tiled_decode(vae, latents, z_tile, hw_tile, overlap_factor,
+                            timestep, generator)
+
+    def decode_hw(zz):
+        return _parallel_spatial_decode(mesh, vae, zz, tile_lat, hw_tile,
+                                        overlap_factor, timestep, generator)
+
+    if not (z_tile > 1 and t > z_tile + 1):
+        return decode_hw(latents)
+    tile_sample_t = z_tile * vae.cfg.temporal_downscale_factor
+    blend_extent = int(tile_sample_t * overlap_factor)
+    return _tiled_temporal(decode_hw, latents, z_tile,
                            int(z_tile * (1 - overlap_factor)), blend_extent,
                            tile_sample_t - blend_extent)

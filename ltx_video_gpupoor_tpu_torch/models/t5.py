@@ -131,10 +131,13 @@ def _t5_gelu(x):
         math.sqrt(2.0 / math.pi) * (x + 0.044715 * x ** 3)))
 
 
-def _attn(p: _Attn, x, mask_bias, pos_bias, num_heads):
-    """T5 attention: no 1/sqrt(d) scaling, fp32 softmax, additive bias."""
+def _attn(p: _Attn, x, mask_bias, pos_bias, num_heads, dim_attn):
+    """T5 attention: no 1/sqrt(d) scaling, fp32 softmax, additive bias.
+    Under tensor parallelism ``p`` holds a slice of the heads (``q``'s
+    local width) and ``pos_bias`` those heads' rows."""
     b, s, _ = x.shape
-    hd = p.q.d_out // num_heads
+    hd = dim_attn // num_heads
+    num_heads = p.q.d_out // hd
     q = p.q(x).reshape(b, s, num_heads, hd)
     k = p.k(x).reshape(b, s, num_heads, hd)
     v = p.v(x).reshape(b, s, num_heads, hd)
@@ -163,7 +166,8 @@ def encode(model: T5Encoder, ids: torch.Tensor,
         pos = shared if shared is not None else relative_bias(
             blk.pos_embedding.float(), s, s, cfg.num_buckets, cfg.max_dist)
         h = rms_norm(x, blk.norm1.weight, eps=1e-6)
-        x = x + _attn(blk.attn, h, mask_bias, pos, cfg.num_heads)
+        x = x + _attn(blk.attn, h, mask_bias, pos, cfg.num_heads,
+                      cfg.dim_attn)
         h = rms_norm(x, blk.norm2.weight, eps=1e-6)
         ff = blk.ffn.fc1(h) * _t5_gelu(blk.ffn.gate(h))
         x = x + blk.ffn.fc2(ff)

@@ -42,7 +42,7 @@ from einops import rearrange
 from torch import nn
 
 from ...core.dtypes import DEFAULT_POLICY, DtypePolicy
-from ...ops.attention import attention
+from ...ops.attention import attention, parse_sp
 from ...ops.norms import layer_norm, rms_norm
 from ...ops.quant import Linear
 from ...ops.rope import apply_rotary_emb_shared_heads, full_to_half
@@ -112,6 +112,9 @@ class _Weight(nn.Module):
 
 
 class _Attn(nn.Module):
+    # set by parallel/sharding.py on a tensor-parallel rank
+    tp = None
+
     def __init__(self, cfg: WanConfig, img: bool = False, **kw):
         super().__init__()
         d = cfg.dim
@@ -333,33 +336,49 @@ def _gate(x, y, e_gate):
 
 
 def _self_attention(p: _Attn, cfg: WanConfig, x, freqs, attn_mode):
-    b, s, d = x.shape
-    n, hd = cfg.num_heads, cfg.head_dim
+    """Self-attention; under a ``ulysses:`` mode the tokens are this rank's
+    slice (``parallel/usp.py``) and the attention runs the exchange, and
+    under tensor parallelism ``p`` holds ``num_heads / tp`` heads (the q/k
+    norms all-reduce their sum of squares)."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    n = p.q.d_out // hd               # this rank's heads
     q, k, v = p.q(x), p.k(x), p.v(x)
     if cfg.qk_norm:
-        q = rms_norm(q, p.norm_q.weight, eps=cfg.eps)
-        k = rms_norm(k, p.norm_k.weight, eps=cfg.eps)
+        q = rms_norm(q, p.norm_q.weight, eps=cfg.eps, tp=p.tp)
+        k = rms_norm(k, p.norm_k.weight, eps=cfg.eps, tp=p.tp)
     cos, sin = freqs  # half layout [L, hd/2]
     cos, sin = cos[None, :, None, :], sin[None, :, None, :]
     qh = apply_rotary_emb_shared_heads(q.reshape(b, s, n, hd), cos, sin)
     kh = apply_rotary_emb_shared_heads(k.reshape(b, s, n, hd), cos, sin)
     vh = v.reshape(b, s, n, hd).transpose(1, 2)
     sb = cfg.attention_score_bound if cfg.qk_norm else None
-    out = attention(qh, kh, vh, mode=attn_mode, score_bound=sb)
-    return p.o(out.transpose(1, 2).reshape(b, s, d))
+    base_mode, sp_axis = parse_sp(attn_mode)
+    if sp_axis is not None:
+        # USP (parallel/usp.py): RoPE above used this shard's rows of the
+        # GLOBAL table; only the attention needs the exchange
+        from ...parallel.ulysses import ulysses_attention
+
+        out = ulysses_attention(qh, kh, vh, axis_name=sp_axis,
+                                attn_mode=base_mode, score_bound=sb)
+    else:
+        out = attention(qh, kh, vh, mode=base_mode, score_bound=sb)
+    return p.o(out.transpose(1, 2).reshape(b, s, n * hd))
 
 
 def _cross_attention(p: _Attn, cfg: WanConfig, x, context, context_mask,
                      attn_mode, img_context=None):
-    b, s, d = x.shape
-    n, hd = cfg.num_heads, cfg.head_dim
+    attn_mode, _ = parse_sp(attn_mode)
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    n = p.q.d_out // hd               # this rank's heads
     q = p.q(x)
     if cfg.qk_norm:
-        q = rms_norm(q, p.norm_q.weight, eps=cfg.eps)
+        q = rms_norm(q, p.norm_q.weight, eps=cfg.eps, tp=p.tp)
     qh = q.reshape(b, s, n, hd).transpose(1, 2)
     k = p.k(context)
     if cfg.qk_norm:
-        k = rms_norm(k, p.norm_k.weight, eps=cfg.eps)
+        k = rms_norm(k, p.norm_k.weight, eps=cfg.eps, tp=p.tp)
     v = p.v(context)
     sc = context.shape[1]
     sb = cfg.attention_score_bound if cfg.qk_norm else None
@@ -377,13 +396,17 @@ def _cross_attention(p: _Attn, cfg: WanConfig, x, context, context_mask,
         k_img = rms_norm(p.k_img(img_context), p.norm_k_img.weight,
                          eps=cfg.eps)
         v_img = p.v_img(img_context)
+        if p.tp is not None:
+            # k_img / v_img stay whole (JAX's rules replicate them): this
+            # rank's heads of them
+            k_img, v_img = p.tp.local(k_img), p.tp.local(v_img)
         si = img_context.shape[1]
         out = out + attention(
             qh,
             k_img.reshape(b, si, n, hd).transpose(1, 2),
             v_img.reshape(b, si, n, hd).transpose(1, 2),
             mode=attn_mode, score_bound=sb)
-    return p.o(out.transpose(1, 2).reshape(b, s, d))
+    return p.o(out.transpose(1, 2).reshape(b, s, n * hd))
 
 
 def _ffn(cfg: WanConfig, p: _MLP, x):

@@ -7,7 +7,8 @@ and time downsamples and upsamples (:121-187), ``_encoder_structure``
 (:238), ``_decoder_structure`` (:259), ``_run_blocks`` (:340),
 ``_encode_raw`` and ``encode`` with ``any_end_frame`` (:359-395),
 ``decode`` (:398-425), ``get_vae_tile_size``, ``spatial_tiled_decode``
-(:435-510) and ``spatial_tiled_encode`` (:561). Every CausalConv3d is a
+(:435-510), ``parallel_spatial_tiled_decode`` (:513-550, the tile grid
+over every rank of a mesh) and ``spatial_tiled_encode`` (:561). Every CausalConv3d is a
 zero pad of ``2*(kt//2)`` frames in front and a same pad in space; the
 decoder's time upsample passes frame 0 through and turns each later frame
 into two; the encoder's time downsample passes frame 0 through and takes
@@ -512,6 +513,48 @@ def spatial_tiled_decode(vae: WanVAEDecoder, z: torch.Tensor,
             out_row.append(tile[:, :, :row_limit, :row_limit])
         result_rows.append(torch.cat(out_row, dim=3))
     return torch.clamp(torch.cat(result_rows, dim=2), -1.0, 1.0)
+
+
+@torch.no_grad()
+def parallel_spatial_tiled_decode(mesh, vae: WanVAEDecoder, z: torch.Tensor,
+                                  tile_size: int = 256,
+                                  normalized: bool = True) -> torch.Tensor:
+    """:func:`spatial_tiled_decode` with the tile grid spread over every
+    rank of ``mesh`` (``ltx/vae_tiling.parallel_spatial_map``; JAX
+    :513-550): tail tiles made uniform by edge-replicate padding, the
+    tiles brought back by one ``all_gather``, the blend the sequential
+    one's. Without a mesh, on one rank, or when one tile covers the
+    latent it is :func:`spatial_tiled_decode`."""
+    sf = 2 ** (len(vae.cfg.dim_mult) - 1)
+    lat_tile = tile_size // sf
+    h_lat, w_lat = z.shape[2], z.shape[3]
+    if (mesh is None or mesh.size() == 1
+            or (h_lat <= lat_tile and w_lat <= lat_tile)):
+        return spatial_tiled_decode(vae, z, tile_size, normalized)
+    return spread_tiled_decode(mesh, vae, z, tile_size, normalized)
+
+
+@torch.no_grad()
+def spread_tiled_decode(mesh, vae: WanVAEDecoder, z: torch.Tensor,
+                        tile_size: int = 256,
+                        normalized: bool = True) -> torch.Tensor:
+    """The tiled decode of :func:`parallel_spatial_tiled_decode` on any
+    mesh, one rank's included (that rank then decodes every padded tile):
+    what the parallel decode computes, without its fallback."""
+    from ..ltx.vae_tiling import parallel_spatial_map
+
+    cfg = vae.cfg
+    sf = 2 ** (len(cfg.dim_mult) - 1)
+    lat_tile = tile_size // sf
+    h_lat, w_lat = z.shape[2], z.shape[3]
+    z = z.to(vae.compute_dtype)
+    if normalized:
+        mean, std = _latent_stats(cfg, z)
+        z = z * std + mean
+    full = parallel_spatial_map(
+        mesh, lambda i, tile: decode(vae, tile, False, False), z, lat_tile,
+        tile_size, 0.25)
+    return torch.clamp(full[:, :, :h_lat * sf, :w_lat * sf], -1.0, 1.0)
 
 
 def spatial_tiled_encode(vae: WanVAE, video: torch.Tensor,

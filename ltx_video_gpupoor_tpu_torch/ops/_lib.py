@@ -68,6 +68,8 @@ SIGNATURES = {
     # x, M, K, x_dtype (0 bf16, 1 f32), xq (rows of round_up(K, 16)), sx,
     # stream
     "k2_quantize_rows": [P, I, I, I, P, P, P],
+    # x, M, K, x_dtype, sx (given, [M] fp32), xq, stream
+    "k2_quantize_rows_scaled": [P, I, I, I, P, P, P],
     # x, B, H, S, D, x strides (b, h, s), x_dtype, c (the scale's factor),
     # xq, sx, scale_pitch, stream
     "k2_prologue_quantize": [P, I, I, I, I, L, L, L, I, F, P, P, I, P],

@@ -17,8 +17,11 @@ JAX). :func:`set_attention_mode` (:63) and
 the ``LTXV_TPU_ATTN`` environment variable (:40) pin what ``auto`` means
 for the whole process, as the CLI's ``--attention`` does. The
 128-multiple padding (:172-191,
-:289-298) is gone: the kernels mask their own ragged edge. ``ulysses:``
-raises ``NotImplementedError`` naming its ROADMAP step. fp32 operands
+:289-298) is gone: the kernels mask their own ragged edge.
+:func:`parse_sp` (:47-61) splits the ``ulysses:<axis>[:<base>]`` modes
+that ``parallel/usp.py`` hands the models: their self-attention runs
+``parallel/ulysses.py`` over the mesh axis, and every attention call takes
+the base mode (which :func:`resolve_mode` also accepts). fp32 operands
 (``FP32_POLICY``) take the same tiers through K1f, the fp32 kernel;
 :func:`kernel_route` names the kernel a call launches.
 """
@@ -64,17 +67,28 @@ def get_attention_mode() -> str:
     return _FORCED_MODE
 
 
+def parse_sp(mode: str) -> tuple[str, str | None]:
+    """Split a sequence-parallel mode string:
+    ``"ulysses:<axis>[:<base>]"`` -> (base or ``"auto"``, axis), the
+    self-attention then running the Ulysses exchange over mesh axis
+    ``<axis>`` with ``<base>`` as the local kernel mode; any other mode ->
+    (mode, None). Cross-attention callers use only the base mode:
+    sequence-sharded q rows against replicated kv need no collective."""
+    if mode.startswith("ulysses:"):
+        parts = mode.split(":", 2)
+        return (parts[2] if len(parts) > 2 else "auto"), parts[1]
+    return mode, None
+
+
 def resolve_mode(mode: str, score_bound: float | None = None,
                  head_dim: int | None = None) -> str:
     """Resolve ``auto`` to a concrete tier, as the JAX package does on the
     TPU: ``pallas`` when a ``score_bound`` is given (the bounded tier, K3,
     which an int8 P cannot serve), else ``pallas`` (K1) for ``head_dim <=
     64`` and ``pallas_int8pv`` (K4) for larger or unknown head dims. Every
-    other mode is returned as it is."""
-    if mode.startswith("ulysses:"):
-        raise NotImplementedError(
-            f"attention mode {mode!r}: sequence parallelism is ROADMAP "
-            "queue 1 step 15")
+    other mode is returned as it is; a ``ulysses:`` mode resolves its base
+    mode (:func:`parse_sp`)."""
+    mode = parse_sp(mode)[0]
     if mode == "auto":
         mode = _FORCED_MODE
     if mode == "auto":

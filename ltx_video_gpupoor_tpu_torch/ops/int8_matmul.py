@@ -7,6 +7,10 @@ scales ``max(absmax / 127, 1e-8)``, round half to even, clip to +-127,
 int8 x int8 -> int32, ``acc * s_x * s_w + bias`` in fp32, cast to the
 input dtype.
 
+:func:`int8_linear_scaled` is K2 with a given per-row scale (the row
+kernel skips its amax pass), for the row-parallel linears of tensor
+parallelism (``ops/quant.py::row_parallel_matmul``).
+
 Weights are ``w_int8 [N, K]`` (torch's ``[out, in]``; the JAX package
 stores ``[K, N]``) with fp32 per-output-channel scales ``[N]``.
 :func:`int8_linear` takes :func:`int8_linear_plain` for CPU tensors and
@@ -56,6 +60,32 @@ def int8_linear_plain(x: torch.Tensor, w_int8: torch.Tensor,
     if bias is not None:
         y = y + bias.float()
     return y.to(x.dtype).reshape(*x.shape[:-1], w_int8.shape[0])
+
+
+def quantize_rows_scaled_plain(x2: torch.Tensor,
+                               s_x: torch.Tensor) -> torch.Tensor:
+    """``[M, K]`` codes ``clip(round(x / s_x), -127, 127)`` against given
+    row scales ``s_x [M]`` fp32 (a tensor divisor: the IEEE quotient)."""
+    return torch.clamp(torch.round(x2.float() / s_x.reshape(-1, 1)),
+                       -127, 127).to(torch.int8)
+
+
+def int8_linear_scaled_plain(x: torch.Tensor, s_x: torch.Tensor,
+                             w_int8: torch.Tensor, w_scale: torch.Tensor,
+                             bias: torch.Tensor | None = None,
+                             out_dtype: torch.dtype = torch.float32
+                             ) -> torch.Tensor:
+    """The plain version of K2's entry with a given row scale: the codes
+    of :func:`quantize_rows_scaled_plain`, the exact int32 product, ``acc *
+    s_x * s_w (+ bias)`` in fp32, cast to ``out_dtype``."""
+    k = x.shape[-1]
+    sx = s_x.reshape(-1, 1).float()
+    acc = int8_gemm_acc_plain(quantize_rows_scaled_plain(
+        x.reshape(-1, k), sx), w_int8)
+    y = acc.float() * sx * w_scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(out_dtype).reshape(*x.shape[:-1], w_int8.shape[0])
 
 
 def _check(x, w_int8, w_scale, bias):
@@ -177,3 +207,80 @@ def int8_linear_acc(x: torch.Tensor, w_int8: torch.Tensor) -> tuple[
     acc = _gemm_cuda(lib, xq, sx, padded_weight(w_int8, xq.shape[1]), ones,
                      None, torch.int32, stream)
     return xq[:, :x2.shape[1]], sx, acc
+
+
+def _check_scale(x, s_x):
+    m = x.numel() // x.shape[-1]
+    if s_x.shape != (m,) or s_x.dtype != torch.float32 \
+            or s_x.device != x.device:
+        raise ValueError(f"s_x must be fp32 [{m}] on {x.device}")
+
+
+def _quantize_rows_scaled_cuda(lib, x2, s_x, stream):
+    from . import _lib
+
+    m, k = x2.shape
+    xq = torch.empty((m, -(-k // 16) * 16), dtype=torch.int8,
+                     device=x2.device)
+    code = lib.k2_quantize_rows_scaled(x2.data_ptr(), m, k,
+                                       _X_DTYPES[x2.dtype],
+                                       s_x.contiguous().data_ptr(),
+                                       xq.data_ptr(), stream)
+    _lib.check(code, "K2 quantize_rows_scaled launch")
+    return xq
+
+
+def quantize_rows_scaled(x2: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
+    """The given-scale row kernel alone on the card, to check it: codes
+    ``[M, round_up(K, 16)]`` int8 (``[:, :K]`` is
+    :func:`quantize_rows_scaled_plain`'s, zeros after). Not counted as a
+    launch."""
+    if x2.device.type != "cuda" or x2.dim() != 2 \
+            or x2.dtype not in _X_DTYPES:
+        raise ValueError("quantize_rows_scaled checks the CUDA kernel on "
+                         "bf16 or fp32 [M, K]")
+    _check_scale(x2, s_x)
+    from . import _lib
+
+    return _quantize_rows_scaled_cuda(_lib.library(), x2.contiguous(), s_x,
+                                      _lib.stream_ptr(x2.device))
+
+
+def int8_linear_scaled(x: torch.Tensor, s_x: torch.Tensor,
+                       w_int8: torch.Tensor, w_scale: torch.Tensor,
+                       bias: torch.Tensor | None = None,
+                       out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """K2 with a given per-row activation scale ``s_x [M]`` fp32 (M = the
+    rows of ``x [..., K]``): the row kernel skips its own amax pass and
+    writes ``clip(round(x / s_x), -127, 127)``, then the s8 GEMM with the
+    scale-and-bias epilogue, ``[..., N]`` in ``out_dtype`` (fp32 or bf16).
+    A row-parallel linear passes the scale of the whole row, its amax
+    all-reduced over the ``tp`` group. CPU tensors take
+    :func:`int8_linear_scaled_plain`; CUDA ones launch or raise."""
+    _check(x, w_int8, w_scale, bias)
+    _check_scale(x, s_x)
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"out_dtype {out_dtype}: fp32 or bf16")
+    if x.device.type == "cpu":
+        return int8_linear_scaled_plain(x, s_x, w_int8, w_scale, bias,
+                                        out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"K2 runs on CUDA or the CPU, not {x.device}")
+    from . import _lib
+
+    lib = _lib.library()
+    stream = _lib.stream_ptr(x.device)
+    x2 = x.reshape(-1, x.shape[-1])
+    if not x2.is_contiguous():
+        x2 = x2.contiguous()
+    if bias is not None:
+        bias = bias.float().contiguous()
+    xq = _quantize_rows_scaled_cuda(lib, x2, s_x, stream)
+    w_int8 = padded_weight(w_int8, xq.shape[1])
+    out = _gemm_cuda(lib, xq, s_x.contiguous(), w_int8, w_scale, bias,
+                     out_dtype, stream)
+    int8_linear_scaled.launches += 1
+    return out.reshape(*x.shape[:-1], w_int8.shape[0])
+
+
+int8_linear_scaled.launches = 0

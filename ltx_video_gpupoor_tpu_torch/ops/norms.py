@@ -12,9 +12,21 @@ import torch
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor | None = None,
-             eps: float = 1e-5) -> torch.Tensor:
+             eps: float = 1e-5, tp=None) -> torch.Tensor:
+    """RMS norm over the last axis. ``tp`` (a
+    ``parallel.comm.TensorParallel``): ``x`` holds this rank's slice of the
+    axis, and the sum of squares is all-reduced over the ``tp`` group (the
+    psum XLA derives for a norm over packed heads under SPMD)."""
     xf = x.float()
-    y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    if tp is None:
+        ms = xf.square().mean(dim=-1, keepdim=True)
+    else:
+        from ..parallel import comm
+
+        ss = comm.all_reduce(xf.square().sum(dim=-1, keepdim=True),
+                             tp.group)
+        ms = ss / (x.shape[-1] * tp.size)
+    y = xf * torch.rsqrt(ms + eps)
     if weight is not None:
         y = y * weight.float()
     return y.to(x.dtype)

@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .int8_matmul import int8_linear, int8_linear_plain
+from .int8_matmul import int8_linear, int8_linear_plain, int8_linear_scaled
 
 INT4_GROUP_SIZE = 64
 MODES = ("dynamic", "wo", "wo_int4", "mixed_int4")
@@ -178,7 +178,14 @@ def jax_path(name: str) -> str:
 
 
 class Linear(nn.Module):
-    """``y = x W^T (+ b)`` in the JAX package's quantization-tier dispatch."""
+    """``y = x W^T (+ b)`` in the JAX package's quantization-tier dispatch.
+    ``parallel/sharding.py`` may cut it over the ``tp`` axis: ``tp`` (a
+    ``parallel.comm.TensorParallel``) and ``tp_kind`` ``"col"`` (this
+    rank's output columns) or ``"row"`` (its input rows; the partial
+    products are all-reduced)."""
+
+    tp = None
+    tp_kind = None
 
     def __init__(self, d_in: int, d_out: int, bias: bool = True, *,
                  device=None, dtype=torch.float32):
@@ -220,11 +227,47 @@ class Linear(nn.Module):
         return maybe_quantized_matmul(self, x)
 
 
+def row_parallel_matmul(p: Linear, x: torch.Tensor) -> torch.Tensor:
+    """A row-parallel :class:`Linear` (``x [..., K/tp]``, this rank's rows
+    of the weight): the partial products are summed over the ``tp`` group
+    in fp32, and the bias is added once, after the sum. In the
+    ``int8_dynamic`` tier each activation row is quantized by the amax of
+    the *whole* row (``quant.py:190-198``): the local amax is all-reduced
+    with MAX and K2's entry that takes a given row scale does the rest."""
+    from ..parallel import comm
+
+    tp = p.tp
+    mode = p.mode
+    if mode == "dynamic":
+        amax = x.reshape(-1, x.shape[-1]).abs().amax(dim=-1).float()
+        comm.all_reduce(amax, tp.group, op=comm.dist.ReduceOp.MAX)
+        s_x = torch.clamp(amax / torch.full_like(amax, 127.0), min=1e-8)
+        y = int8_linear_scaled(x, s_x, p.w_int8_dyn, p.scale)
+        comm.all_reduce(y, tp.group)
+        if p.bias is not None:
+            y = y + p.bias.float()
+        return y.to(x.dtype)
+    if mode == "wo":
+        w = p.w_int8.to(x.dtype) * p.scale.to(x.dtype)[:, None]
+    elif mode == "wo_int4":
+        w = dequantize_int4(QuantizedLinear4(p.w_int4, p.scale), x.dtype)
+    else:
+        w = p.weight.to(x.dtype)
+    y = F.linear(x.float(), w.float())
+    comm.all_reduce(y, tp.group)
+    y = y.to(x.dtype)
+    if p.bias is not None:
+        y = y + p.bias.to(x.dtype)
+    return y
+
+
 def maybe_quantized_matmul(p: Linear, x: torch.Tensor) -> torch.Tensor:
     """Apply a :class:`Linear` in its tier: K2 for ``w_int8_dyn``, the
     weight-only chains for ``w_int8`` and ``w_int4``, a dense matmul (fp32
     accumulation, result in x's dtype, then the bias in x's dtype)
-    otherwise."""
+    otherwise; a row-parallel one through :func:`row_parallel_matmul`."""
+    if p.tp_kind == "row":
+        return row_parallel_matmul(p, x)
     mode = p.mode
     if mode == "dynamic":
         return int8_linear(x, p.w_int8_dyn, p.scale, p.bias)

@@ -1,0 +1,144 @@
+"""The collectives of the port, written out, and the shared-card transport.
+
+JAX's ``shard_map`` and SPMD partitioning insert ``all_to_all`` / ``psum``
+/ ``all_gather`` / ``ppermute`` for the code; here every one of them is a
+call of this module on a process group (``core/mesh.py``), so that each
+place where ranks meet can be read and counted:
+
+- :func:`all_to_all` (Ulysses' exchange), :func:`all_reduce` (row-parallel
+  linears, the q/k norms over packed heads, the amax of row-parallel int8
+  rows), :func:`all_gather_cat` (joining shards), :func:`ring_shift` (ring
+  attention's KV pass, ``batch_isend_irecv``), :func:`broadcast_object`
+  (the server's requests).
+
+The shared-card transport: NCCL refuses two ranks on one card, so the
+ranks that share one H100 run ``gloo``, whose collectives are written for
+host memory. :func:`set_staged` names the collectives that copy their
+CUDA tensors through pinned host memory and back; it is set by the
+caller (``chip_smoke.py``'s ``[mesh]`` phase), never by a failure, and
+:data:`staged_counts` counts the staged calls by name. Under NCCL, or on
+CPU tensors, nothing is staged.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable, Sequence
+
+import torch
+import torch.distributed as dist
+
+COLLECTIVES = ("all_to_all", "all_reduce", "all_gather", "ring_shift")
+
+_STAGED: set[str] = set()
+staged_counts: dict[str, int] = {}
+
+
+def set_staged(names: Iterable[str]) -> None:
+    """Stage the named collectives (:data:`COLLECTIVES`) through pinned
+    host memory from now on; an empty set stages none."""
+    names = set(names)
+    unknown = names - set(COLLECTIVES)
+    if unknown:
+        raise ValueError(f"unknown collectives {sorted(unknown)}")
+    _STAGED.clear()
+    _STAGED.update(names)
+
+
+def _stages(name: str, tensors: Sequence[torch.Tensor]) -> bool:
+    if name in _STAGED and any(t.is_cuda for t in tensors):
+        staged_counts[name] = staged_counts.get(name, 0) + 1
+        return True
+    return False
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    h.copy_(t)
+    return h
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """``x [p, ...]``: chunk j goes to rank j of ``group``; returns ``[p,
+    ...]`` whose chunk j came from rank j."""
+    x = x.contiguous()
+    if _stages("all_to_all", [x]):
+        h = _host(x)
+        out = torch.empty_like(h)
+        dist.all_to_all_single(out, h, group=group)
+        return out.to(x.device)
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """In place on ``x`` (contiguous); returns it."""
+    if _stages("all_reduce", [x]):
+        h = _host(x)
+        dist.all_reduce(h, op=op, group=group)
+        x.copy_(h)
+        return x
+    dist.all_reduce(x, op=op, group=group)
+    return x
+
+
+def all_gather_cat(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` (one shape on all), joined along ``dim`` in rank
+    order."""
+    x = x.contiguous()
+    p = dist.get_world_size(group)
+    if _stages("all_gather", [x]):
+        h = _host(x)
+        parts = [torch.empty_like(h) for _ in range(p)]
+        dist.all_gather(parts, h, group=group)
+        return torch.cat(parts, dim=dim).to(x.device)
+    parts = [torch.empty_like(x) for _ in range(p)]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def ring_shift(tensors: Sequence[torch.Tensor], group) -> list[torch.Tensor]:
+    """Send each tensor to the next rank of ``group`` and receive the
+    previous rank's (one ``batch_isend_irecv``)."""
+    p = dist.get_world_size(group)
+    r = dist.get_rank(group)
+    nxt = dist.get_global_rank(group, (r + 1) % p)
+    prv = dist.get_global_rank(group, (r - 1) % p)
+    tensors = [t.contiguous() for t in tensors]
+    stage = _stages("ring_shift", tensors)
+    src = [_host(t) for t in tensors] if stage else tensors
+    dst = [torch.empty_like(t) for t in src]
+    ops = []
+    for s, d in zip(src, dst):
+        ops.append(dist.P2POp(dist.isend, s, nxt, group))
+        ops.append(dist.P2POp(dist.irecv, d, prv, group))
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+    if stage:
+        return [d.to(t.device) for d, t in zip(dst, tensors)]
+    return dst
+
+
+def broadcast_object(obj, src: int = 0, group=None):
+    """``obj`` of global rank ``src`` on every rank (pickled; a CUDA
+    backend carries it on this rank's card, so it is staged only by the
+    backend itself)."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=src, group=group)
+    return box[0]
+
+
+class TensorParallel:
+    """A module's place on the ``tp`` axis: its process group, the axis
+    size and this rank's index (set by ``parallel/sharding.py``)."""
+
+    def __init__(self, group, size: int, rank: int):
+        self.group, self.size, self.rank = group, size, rank
+
+    def local(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """This rank's contiguous slice of a full-width ``x`` along ``dim``."""
+        n = x.shape[dim] // self.size
+        return x.narrow(dim, self.rank * n, n)
+
+    def __repr__(self) -> str:
+        return f"TensorParallel(size={self.size}, rank={self.rank})"

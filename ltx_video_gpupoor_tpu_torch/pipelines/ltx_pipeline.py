@@ -23,8 +23,15 @@ extra conditioning token block, then per step the conditioning-noise
 refresh and the stochastic sampling noise, and last the decode noise,
 drawn in that order. TeaCache: ``ltx_teacache_schedule`` (:384) and
 ``denoise``'s ``teacache_mask`` with the residual carried across steps
-(:509-511, :548-574). Not ported yet: sequence parallelism and the
-multi-chip tiled decode (ROADMAP queue 1 step 15).
+(:509-511, :548-574). Sequence parallelism (:435-469, :543-556): with
+``sp_mesh`` set every denoiser evaluation runs ``parallel/usp.py``'s
+``usp_ltx_forward`` on this rank's tokens and the velocity shards are
+joined; shapes whose tokens, heads or frame groups do not divide over sp
+log a warning and run this call unsharded (the same decision on every
+rank: it depends on shapes only). ``mesh`` (the whole serving mesh, also
+at sp = 1) spreads the tiled decode's spatial grid over every rank
+(``models/ltx/vae_tiling.py::parallel_tiled_decode``, :674-679,
+:895-932), preferring spatial tiles when there are several ranks.
 """
 
 from __future__ import annotations
@@ -295,6 +302,8 @@ def denoise(
     teacache_mask: Optional[np.ndarray] = None,   # [steps] bool compute
     interrupt_flag=None,
     progress_callback=None,
+    sp_mesh=None,
+    sp_axis: str = "sp",
 ) -> torch.Tensor:
     """The denoise loop; the guidance streams are batch rows
     ``[uncond, cond, perturbed]`` of one transformer call per step.
@@ -313,6 +322,23 @@ def denoise(
     if latents.shape[0] != 1:
         raise ValueError("guidance streams occupy the batch dim; batch=1")
     dev = latents.device
+
+    if sp_mesh is not None:
+        # serving robustness: USP needs tokens, heads and timestep groups
+        # to divide over sp; shapes that do not (odd user resolutions) run
+        # this call unsharded, on every rank alike
+        from ..core.mesh import axis_size
+
+        sp = axis_size(sp_mesh, sp_axis)
+        if (n_tokens % sp or transformer.cfg.num_attention_heads % sp
+                or num_frame_groups % sp):
+            import logging
+
+            logging.getLogger(__name__).warning(
+                "USP disabled for this call: tokens=%d / heads=%d / "
+                "frame groups=%d not all divisible by sp=%d", n_tokens,
+                transformer.cfg.num_attention_heads, num_frame_groups, sp)
+            sp_mesh = None
 
     if num_conds == 1:
         rows = [prompt_embeds.shape[0] - 1]
@@ -366,7 +392,18 @@ def denoise(
         kw = dict(skip_layer_mask=skip_masks[i],
                   skip_layer_strategy=schedule.skip_layer_strategy,
                   attn_mode=attn_mode, freqs=freqs)
-        if teacache_mask is None:
+        if sp_mesh is not None:
+            from ..parallel.usp import gather, usp_ltx_forward
+
+            tc = ({} if teacache_mask is None else dict(
+                previous_residual=residual, compute=bool(teacache_mask[i])))
+            pred, new_res = usp_ltx_forward(
+                sp_mesh, transformer, x, coords, tg, ctx, ctx_mask,
+                axis_name=sp_axis, **kw, **tc)
+            if teacache_mask is not None:
+                residual = new_res
+            pred = gather(sp_mesh, pred, 1, sp_axis)
+        elif teacache_mask is None:
             pred = transformer(x, coords, tg, ctx, ctx_mask, **kw)
         else:
             pred, residual = transformer(
@@ -416,9 +453,10 @@ def denoise(
 def decode_full(vae: ltx_vae.CausalVAEDecoder, latent_grid: torch.Tensor,
                 decode_timestep: float, decode_noise_scale: float,
                 generator: Optional[torch.Generator], z_tile: int = 0,
-                hw_tile: int = 0) -> torch.Tensor:
+                hw_tile: int = 0, mesh=None) -> torch.Tensor:
     """Un-normalize, noise to the decode timestep (timestep-conditioned
-    VAEs only), decode: tiled if ``z_tile`` or ``hw_tile`` is set. The
+    VAEs only), decode: tiled if ``z_tile`` or ``hw_tile`` is set, the
+    spatial tiles spread over ``mesh``'s ranks where one is given. The
     legacy VAE decodes the un-normalized latents, untiled."""
     z = ltx_vae.un_normalize_latents(latent_grid, vae.per_channel_statistics)
     if _is_legacy(vae):
@@ -435,6 +473,12 @@ def decode_full(vae: ltx_vae.CausalVAEDecoder, latent_grid: torch.Tensor,
         t = torch.tensor(decode_timestep, dtype=torch.float32,
                          device=z.device)
         gen = generator
+    if mesh is not None and hw_tile:
+        from ..models.ltx.vae_tiling import parallel_tiled_decode
+
+        return parallel_tiled_decode(mesh, vae, z, z_tile=z_tile,
+                                     hw_tile=hw_tile, timestep=t,
+                                     generator=gen)
     if z_tile or hw_tile:
         from ..models.ltx.vae_tiling import tiled_decode
 
@@ -453,6 +497,13 @@ class LTXPipeline:
     # (z_tile latent frames, hw_tile pixels) of the VAE decode; None =
     # by size: untiled up to 704x480x121 voxels, tiled above
     vae_tile_size: Optional[tuple] = None
+    # sequence parallelism: every denoiser evaluation runs usp_ltx_forward
+    # over `sp_axis` of this mesh
+    sp_mesh: object = None
+    sp_axis: str = "sp"
+    # the whole serving mesh (also when sp == 1): the tiled decode spreads
+    # its spatial grid over every rank
+    mesh: object = None
 
     def latent_shape(self, height: int, width: int, num_frames: int):
         sf = self.vae.cfg.spatial_downscale_factor
@@ -593,7 +644,8 @@ class LTXPipeline:
                 image_cond_noise_scale=image_cond_noise_scale,
                 teacache_mask=tc_mask,
                 interrupt_flag=interrupt_flag,
-                progress_callback=progress_callback)
+                progress_callback=progress_callback,
+                sp_mesh=self.sp_mesh, sp_axis=self.sp_axis)
         if num_extra_tokens:
             latents = latents[:, num_extra_tokens:]
         latent_grid = patchifier.unpatchify(latents, h_lat, w_lat, c)
@@ -608,7 +660,9 @@ class LTXPipeline:
         """(z_tile, hw_tile) for this latent shape, by a voxel budget:
         untiled up to 704x480x121, temporal tiles of 4 latent frames when
         one such tile fits that budget, else spatial tiles of 512 too; the
-        legacy VAE untiled."""
+        legacy VAE untiled. On a mesh of several ranks spatial tiles come
+        first (256 px from 4 ranks, else 512), so that the decode spreads
+        over them."""
         if _is_legacy(self.vae):
             return (0, 0)
         if self.vae_tile_size is not None:
@@ -618,6 +672,11 @@ class LTXPipeline:
         h, w = z.shape[2] * sf, z.shape[3] * sf
         frames = (z.shape[1] - 1) * tf + 1
         envelope = 704 * 480 * 121
+        n_dev = self.mesh.size() if self.mesh is not None else 1
+        if n_dev > 1:
+            hw = 256 if n_dev >= 4 else 512
+            if z.shape[2] > hw // sf or z.shape[3] > hw // sf:
+                return (0 if h * w * frames <= envelope else 4, hw)
         if h * w * frames <= envelope:
             return (0, 0)
         if h * w * (4 * tf + 1) <= envelope:
@@ -631,4 +690,4 @@ class LTXPipeline:
         z_tile, hw_tile = self._decode_tiles(latent_grid)
         return decode_full(self.vae, latent_grid, decode_timestep,
                            decode_noise_scale, generator, z_tile=z_tile,
-                           hw_tile=hw_tile)
+                           hw_tile=hw_tile, mesh=self.mesh)

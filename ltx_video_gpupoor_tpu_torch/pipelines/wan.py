@@ -22,8 +22,13 @@ initial noise, unless ``noise=`` is given, comes from an explicit
 ``torch.Generator``, as do the sliding window's per-step noises unless
 ``overlap_noises=`` hands them over (JAX draws them from per-step keys).
 A skipped TeaCache step runs no block and reuses the last computed
-residual. The sequence-parallel mesh raises ``NotImplementedError``
-naming its ROADMAP entry (queue 1 step 15).
+residual. Sequence parallelism (:106-133, :218-231, :295-299): with
+``sp_mesh`` set every denoiser evaluation runs ``parallel/usp.py``'s
+``usp_wan_forward`` on this rank's frames and the velocity shards are
+joined; frames, heads or a temporal patch that do not divide over sp log
+a warning and run the request unsharded. ``mesh`` (or ``sp_mesh``) of
+several ranks spreads the tiled decode over them
+(``models/wan/vae.py::parallel_spatial_tiled_decode``).
 """
 
 from __future__ import annotations
@@ -88,6 +93,26 @@ def teacache_skip_schedule(model: WanModel, timesteps, coefficients,
                                    coefficients, start_step)
 
 
+def sp_fallback(sp_mesh, sp_axis: str, cfg, frames: int):
+    """``sp_mesh``, or None (with a warning) where the frames, the heads or
+    the temporal patch do not divide over its sp axis: the request then
+    runs unsharded (a decision of shapes alone, so every rank takes it)."""
+    if sp_mesh is None:
+        return None
+    from ..core.mesh import axis_size
+
+    sp = axis_size(sp_mesh, sp_axis)
+    if cfg.patch_size[0] != 1 or frames % sp or cfg.num_heads % sp:
+        import logging
+
+        logging.getLogger(__name__).warning(
+            "sp-mesh fallback: frames=%d heads=%d patch_t=%d do not divide "
+            "sp=%d; running this request single-device", frames,
+            cfg.num_heads, cfg.patch_size[0], sp)
+        return None
+    return sp_mesh
+
+
 @dataclasses.dataclass
 class WanPipeline:
     model: WanModel
@@ -97,7 +122,12 @@ class WanPipeline:
     num_train_timesteps: int = 1000
     # pixel tile size for the VAE decode; 0 = untiled
     vae_tile_size: int = 256
+    # sequence parallelism: every denoiser evaluation runs usp_wan_forward
+    # over `sp_axis` of this mesh (frames sharded)
     sp_mesh: object = None
+    sp_axis: str = "sp"
+    # the whole serving mesh: the tiled decode spreads over every rank
+    mesh: object = None
     # the encoders a loader found (serving/model_zoo.py::load_wan_model):
     # the pipeline takes UMT5 embeddings and CLIP features, which callers
     # compute with models/t5.py::encode and models/wan/clip.py::visual
@@ -108,6 +138,10 @@ class WanPipeline:
 
     def _vae_decode(self, latents: torch.Tensor) -> torch.Tensor:
         if self.vae_tile_size:
+            mesh = self.mesh if self.mesh is not None else self.sp_mesh
+            if mesh is not None and mesh.size() > 1:
+                return wan_vae.parallel_spatial_tiled_decode(
+                    mesh, self.vae, latents, tile_size=self.vae_tile_size)
             return wan_vae.spatial_tiled_decode(
                 self.vae, latents, tile_size=self.vae_tile_size)
         return wan_vae.decode(self.vae, latents)
@@ -181,9 +215,6 @@ class WanPipeline:
         are ``overlap_noises[i]`` where given (JAX draws them from
         per-step keys), else drawn from ``generator``."""
         cfg = self.model.cfg
-        if self.sp_mesh is not None:
-            raise NotImplementedError(
-                "the sequence-parallel mesh is ROADMAP queue 1 step 15")
         if solver not in ("unipc", "dpm++", "euler"):
             raise ValueError(f"unsupported solver {solver!r}")
         dev = next(self.model.parameters()).device
@@ -200,6 +231,7 @@ class WanPipeline:
         w_tok = latents.shape[3] // cfg.patch_size[2]
         freqs = wan_rope_freqs((f_all, h_tok, w_tok), head_dim=cfg.head_dim,
                                enable_riflex=enable_riflex, device=dev)
+        sp_mesh = sp_fallback(self.sp_mesh, self.sp_axis, cfg, f_all)
 
         # SLG keep mask per step: the reference skips the slg layers of the
         # unconditional streams (stream 0 is the conditional one)
@@ -278,12 +310,21 @@ class WanPipeline:
                 xs = torch.cat([xs, tail], dim=1)
             if ys is not None:
                 xs = torch.cat([xs, ys], dim=-1)
-            out, residual = self.model(
-                xs, t_scalar.expand(num_streams), context, context_mask,
-                freqs, clip_features=clip, vace_context=vctx_i,
-                vace_scale=vace_scale, slg_keep=keep_steps[i], cam_emb=cam_emb,
-                previous_residual=residual, compute=bool(tc_mask[i]),
-                attn_mode=attn_mode)
+            fwd = dict(clip_features=clip, vace_context=vctx_i,
+                       vace_scale=vace_scale, slg_keep=keep_steps[i],
+                       cam_emb=cam_emb, previous_residual=residual,
+                       compute=bool(tc_mask[i]), attn_mode=attn_mode)
+            ts = t_scalar.expand(num_streams)
+            if sp_mesh is not None:
+                from ..parallel.usp import gather, usp_wan_forward
+
+                out, residual = usp_wan_forward(
+                    sp_mesh, self.model, xs, ts, context, context_mask,
+                    freqs, axis_name=self.sp_axis, **fwd)
+                out = gather(sp_mesh, out, 1, self.sp_axis)
+            else:
+                out, residual = self.model(xs, ts, context, context_mask,
+                                           freqs, **fwd)
             del xs
             out = out[:, :f_lat].float()    # strip reference / source frames
             if phantom:

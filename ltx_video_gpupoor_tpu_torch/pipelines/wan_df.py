@@ -18,7 +18,13 @@ updated frames are grouped by their counter and each group takes one
 order follows its counter); a frame that is not updated keeps its
 latents and state bit for bit. The per-row prefix noises come from
 ``generator`` unless ``prefix_noises=`` hands them over (JAX draws them
-from per-row keys). ``sp_mesh`` raises naming its ROADMAP entry.
+from per-row keys). Sequence parallelism (:115-119, :202-214, :263-267):
+with ``sp_mesh`` set each row's denoiser evaluation runs
+``usp_wan_forward`` with the frames and the ``[B, F]`` timestep row
+sharded, and the velocity shards are joined; the timestep matrix stays
+whole on every rank. Shapes that do not divide fall back, as in
+``pipelines/wan.py``; ``mesh`` (or ``sp_mesh``) of several ranks spreads
+the tiled decode over them (:315-319).
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ from ..models.wan import vae as wan_vae
 from ..models.wan.model import WanModel
 from ..ops.rope import wan_rope_freqs
 from ..schedulers import unipc
-from .wan import randn
+from .wan import randn, sp_fallback
 
 
 def snap_frame_num(frame_num: int) -> int:
@@ -116,7 +122,11 @@ class WanDFPipeline:
     num_train_timesteps: int = 1000
     # pixel tile size for the decode; None = untiled
     vae_tile_size: Optional[int] = None
+    # sequence parallelism over `sp_axis` of this mesh (frames sharded)
     sp_mesh: object = None
+    sp_axis: str = "sp"
+    # the whole serving mesh: the tiled decode spreads over every rank
+    mesh: object = None
 
     @torch.no_grad()
     def generate(
@@ -150,9 +160,6 @@ class WanDFPipeline:
         latents' shape, else drawn from ``generator``). ``on_stage(name,
         tensor)`` is called as ``"encode"``, ``"denoise"`` and
         ``"decode"`` start."""
-        if self.sp_mesh is not None:
-            raise NotImplementedError(
-                "the sequence-parallel mesh is ROADMAP queue 1 step 15")
         cfg = self.model.cfg
         dev = next(self.model.parameters()).device
         frame_num = snap_frame_num(frame_num)
@@ -196,6 +203,7 @@ class WanDFPipeline:
         freqs = wan_rope_freqs(
             (f_lat, h_lat // cfg.patch_size[1], w_lat // cfg.patch_size[2]),
             head_dim=cfg.head_dim, device=dev)
+        sp_mesh = sp_fallback(self.sp_mesh, self.sp_axis, cfg, f_lat)
         fps_idx = (0 if fps == 16 else 1) if cfg.inject_sample_info else None
         num_streams = 2 if guide_scale != 1 else 1
         if num_streams == 1:
@@ -224,9 +232,18 @@ class WanDFPipeline:
                                      + pn[:, :prefix_len] * nf)
                 t_row[:prefix_len] = float(overlap_noise)
             xs = torch.cat([x] * num_streams) if num_streams > 1 else x
-            out, _ = self.model(xs, t_row[None].expand(num_streams, -1),
-                                context, context_mask, freqs, fps_idx=fps_idx,
-                                attn_mode=attn_mode)
+            ts = t_row[None].expand(num_streams, -1)
+            if sp_mesh is not None:
+                from ..parallel.usp import gather, usp_wan_forward
+
+                out, _ = usp_wan_forward(
+                    sp_mesh, self.model, xs, ts, context, context_mask,
+                    freqs, axis_name=self.sp_axis, fps_idx=fps_idx,
+                    attn_mode=attn_mode)
+                out = gather(sp_mesh, out, 1, self.sp_axis)
+            else:
+                out, _ = self.model(xs, ts, context, context_mask, freqs,
+                                    fps_idx=fps_idx, attn_mode=attn_mode)
             del xs, x
             out = out.float()
             if num_streams == 2:
@@ -258,6 +275,10 @@ class WanDFPipeline:
         if on_stage is not None:
             on_stage("decode", latents)
         if self.vae_tile_size:
+            mesh = self.mesh if self.mesh is not None else self.sp_mesh
+            if mesh is not None and mesh.size() > 1:
+                return wan_vae.parallel_spatial_tiled_decode(
+                    mesh, self.vae, latents, tile_size=self.vae_tile_size)
             return wan_vae.spatial_tiled_decode(
                 self.vae, latents, tile_size=self.vae_tile_size)
         return wan_vae.decode(self.vae, latents)

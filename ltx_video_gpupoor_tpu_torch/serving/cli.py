@@ -21,7 +21,11 @@ their directories in ``LTXV_TPU_CAPTIONER_DIR`` and
         --model-mode ltxv_13B_distilled --ckpt-dir ckpts --quantize-transformer
 
 It runs on the card; ``--device cpu`` runs on the CPU with the kernels'
-plain versions.
+plain versions. Under ``torchrun --nproc-per-node N`` with
+``LTXV_TPU_MESH`` (e.g. ``dp1,sp2,tp1``) every rank loads the model, takes
+its share of the mesh (``model_zoo.apply_serving_mesh``, after any
+``--quantize-transformer``) and runs the same request; rank 0 writes the
+video.
 """
 
 from __future__ import annotations
@@ -144,6 +148,11 @@ def infer(args) -> str:
 
     if args.attention is not None:
         set_attention_mode(args.attention)
+    from ..core.mesh import dist_env, rank_device
+
+    rank, world, _ = dist_env()
+    if world > 1 and torch.device(args.device or "cuda").type == "cuda":
+        torch.cuda.set_device(rank_device())   # "cuda": this rank's card
 
     if args.demo:
         model = model_zoo.build_demo_model(args.seed, device=args.device)
@@ -176,6 +185,7 @@ def infer(args) -> str:
         from ..ops.quant import quantize_params
 
         quantize_params(pipe.transformer, mode=args.int8_mode)
+    model_zoo.apply_serving_mesh(pipe)
     if args.VAE_tile_size is not None:
         # 0 disables tiling entirely; otherwise hw tile pixels (+ z tiling)
         pipe.vae_tile_size = (
@@ -229,6 +239,8 @@ def infer(args) -> str:
         output_type=out_type,
     )
 
+    if rank != 0:
+        return None
     out_path = args.output_path
     if out_path is None:
         os.makedirs("outputs", exist_ok=True)

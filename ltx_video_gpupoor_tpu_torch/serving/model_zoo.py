@@ -16,6 +16,12 @@ else JAX's warning and the hash embeddings; the spatial upscaler ->
 with UMT5 and the CLIP vision tower where named) the same way; and
 ``build_demo_model`` (:594), the tiny random-weight stack that exercises
 the whole serving surface. Weights go to the card unless ``device="cpu"``.
+``apply_serving_mesh`` and ``apply_wan_serving_mesh`` (:36-80, :530-591)
+engage several ranks where ``LTXV_TPU_MESH`` names a mesh (under
+``torchrun``): the DiT (and T5) cut over ``tp``, ``sp_mesh`` set where sp >
+1, the whole mesh for the tiled decode; the server and the CLI apply them
+after loading (and after any quantization, so that per-channel scales are
+those of the whole weights).
 A legacy (pre-causal) VAE file loads into ``models/ltx/video_autoencoder.
 LegacyVAE`` (JAX :290-304, the same detection rule); the finetune
 registry (``register_finetune``, :123) is not ported. The tokenizer files
@@ -88,6 +94,57 @@ def select_model_files(model_mode: str, quantization: str = "int8",
     """(transformer file, text-encoder file)."""
     return (get_model_filename(model_mode, quantization, dtype_policy),
             get_text_encoder_filename(quantization))
+
+
+def apply_serving_mesh(pipeline: LTXPipeline, mesh=None) -> LTXPipeline:
+    """Engage multi-rank serving when ``mesh`` (or ``LTXV_TPU_MESH``, e.g.
+    ``dp1,sp2,tp1`` under ``torchrun``) names one: the DiT and T5 weights
+    are cut in place over ``tp`` (``parallel/sharding.py``), ``sp > 1``
+    runs every denoiser evaluation under USP, and the tiled decode spreads
+    over every rank. One rank / unset returns the pipeline unchanged. The
+    pipeline is changed in place (a multi-scale pipeline holding it sees
+    the mesh too) and returned."""
+    from ..core.mesh import SEQUENCE_AXIS, TENSOR_AXIS, axis_size, \
+        mesh_from_env, mesh_shape
+    from ..parallel.sharding import shard_pipeline
+
+    mesh = mesh if mesh is not None else mesh_from_env()
+    if mesh is None:
+        return pipeline
+    logging.getLogger(__name__).info("serving mesh engaged: %s",
+                                     mesh_shape(mesh))
+    shard_pipeline(pipeline, mesh)
+    if axis_size(mesh, TENSOR_AXIS) > 1 and os.environ.get(
+            "LTXV_TPU_FUSED_PROLOGUE"):
+        # K5 fuses the q/k/v products of the whole row; on tp-cut weights
+        # it has no contract (JAX: no partitioning rule for the fused call)
+        logging.getLogger(__name__).warning(
+            "LTXV_TPU_FUSED_PROLOGUE disabled: no partitioning rule for "
+            "the fused kernel on a tp-sharded mesh")
+        os.environ.pop("LTXV_TPU_FUSED_PROLOGUE", None)
+    if axis_size(mesh, SEQUENCE_AXIS) > 1:
+        pipeline.sp_mesh = mesh
+    return pipeline
+
+
+def apply_wan_serving_mesh(pipeline, mesh=None):
+    """The Wan pipeline's :func:`apply_serving_mesh`: sp > 1 runs USP with
+    the weights whole on every rank (the Ulysses exchange regroups heads),
+    tp > 1 cuts the DiT and UMT5 over ``tp``; either way the tiled decode
+    spreads over every rank."""
+    from ..core.mesh import SEQUENCE_AXIS, axis_size, mesh_from_env, \
+        mesh_shape
+    from ..parallel.sharding import shard_pipeline
+
+    mesh = mesh if mesh is not None else mesh_from_env()
+    if mesh is None:
+        return pipeline
+    logging.getLogger(__name__).info("wan serving mesh engaged: %s",
+                                     mesh_shape(mesh))
+    shard_pipeline(pipeline, mesh)
+    if axis_size(mesh, SEQUENCE_AXIS) > 1:
+        pipeline.sp_mesh = mesh
+    return pipeline
 
 
 @dataclasses.dataclass
@@ -441,8 +498,11 @@ def load_wan_model(
             ckpt.convert_clip_vision(clip_tensors, clip_cfg.num_layers),
             "CLIP", dev)
         del clip_tensors
-    return WanPipeline(dit, vae, vae_stride=tuple(spec["vae_stride"]),
-                       t5=t5, clip=clip, load_stats=stats)
+    # LTXV_TPU_MESH (under torchrun) engages the ranks, as JAX's loader
+    # does (:527)
+    return apply_wan_serving_mesh(WanPipeline(
+        dit, vae, vae_stride=tuple(spec["vae_stride"]), t5=t5, clip=clip,
+        load_stats=stats))
 
 
 def convert_latent_upsampler(sd: dict, dtype=torch.bfloat16) -> dict:

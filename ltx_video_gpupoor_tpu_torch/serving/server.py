@@ -26,6 +26,19 @@ fields, status codes and JSON:
 flask is optional: the stdlib ``http.server`` fallback implements the same
 routes. ``python3 -m ltx_video_gpupoor_tpu_torch.serving.server`` serves on
 port 7860, on the card.
+
+Several ranks (``torchrun --nproc-per-node N -m
+ltx_video_gpupoor_tpu_torch.serving.server`` with ``LTXV_TPU_MESH``, e.g.
+``dp1,sp2,tp1``): every rank loads the model and takes its share of the
+mesh (``model_zoo.apply_serving_mesh``); rank 0 listens and answers. For
+each request it hands the body to the other ranks
+(``broadcast_object_list``, :class:`RankChannel`), every rank runs the same
+encode and ``generate`` and leaves its outcome in the group's store: a
+follower's error reaches rank 0's answer as a 500 naming the rank (and
+breaks the group: the ranks must be restarted). While idle, rank 0 sends
+a heartbeat well inside the group's timeout, so that no rank waits past
+it. The background warm-up is off on a mesh (the followers would not
+join it).
 """
 
 from __future__ import annotations
@@ -50,6 +63,114 @@ REQUIRED_FIELDS = [
 ]
 
 
+class RankChannel:
+    """Rank 0's line to the other ranks of a serving mesh. :meth:`call`
+    runs a function with one request's body on every rank (rank 0
+    broadcasts it); each rank then leaves its outcome in the group's
+    key-value store, outside the collectives, so that a rank that failed
+    half way (and left the others waiting in a collective until the
+    group's timeout) still reaches rank 0's answer. Any failed rank
+    breaks the group: the failed follower leaves, and rank 0 answers
+    every later request with the error (the ranks must be restarted).
+    The other ranks sit in :meth:`follow`. While idle, rank 0 sends a
+    heartbeat every quarter of the group's timeout, so that no follower
+    waits past it."""
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        from ..core.mesh import group_timeout
+
+        self.rank = dist.get_rank()
+        self.world = dist.get_world_size()
+        self.timeout_s = group_timeout()
+        self.store = dist.distributed_c10d._get_default_store()
+        self.lock = threading.Lock()
+        self.broken = None
+        self.requests = 0
+        self._stopped = threading.Event()
+        if self.rank == 0:
+            threading.Thread(target=self._heartbeat, daemon=True).start()
+
+    def _send(self, msg):
+        from ..parallel import comm
+
+        return comm.broadcast_object(msg, src=0)
+
+    def _heartbeat(self):
+        while not self._stopped.wait(self.timeout_s / 4):
+            if self.lock.acquire(blocking=False):
+                try:
+                    if not self._stopped.is_set() and self.broken is None:
+                        self._send(("noop", None))
+                finally:
+                    self.lock.release()
+
+    def _run(self, fn, n, data):
+        """``fn(data)``; this rank's outcome goes to the store."""
+        result, err = None, ""
+        try:
+            result = fn(data)
+        except Exception as e:
+            import traceback
+
+            traceback.print_exc()
+            err = f"{type(e).__name__}: {e}"
+        self.store.set(f"serving/{n}/{self.rank}", err)
+        return result, err
+
+    def _outcome(self, n, r):
+        import datetime
+
+        key = f"serving/{n}/{r}"
+        try:
+            self.store.wait([key], datetime.timedelta(seconds=self.timeout_s))
+        except Exception:
+            return f"no answer within {self.timeout_s:.0f} s"
+        return self.store.get(key).decode()
+
+    def call(self, fn, data):
+        """``fn(data)`` on every rank; rank 0's result, or a RuntimeError
+        naming each rank that failed."""
+        with self.lock:
+            if self.broken is not None:
+                raise RuntimeError(f"the serving ranks are broken since "
+                                   f"{self.broken}; restart them")
+            self.requests += 1
+            n = self.requests
+            self._send(("run", (n, data)))
+            result, err = self._run(fn, n, data)
+            errs = [err] + [self._outcome(n, r)
+                            for r in range(1, self.world)]
+            failed = [f"rank {r}: {e}" for r, e in enumerate(errs) if e]
+            if failed:
+                self.broken = "; ".join(failed)
+                raise RuntimeError(self.broken)
+        return result
+
+    def follow(self, fn):
+        """A follower's loop: run ``fn`` on each request rank 0 sends,
+        until it stops the channel or a request fails."""
+        while True:
+            try:
+                kind, payload = self._send(None)
+            except Exception as e:
+                logger.error("rank %d leaves: %s", self.rank, e)
+                return
+            if kind == "stop":
+                return
+            if kind == "run":
+                if self._run(fn, *payload)[1]:
+                    return
+
+    def stop(self):
+        """Rank 0: release the followers (nothing to release once broken)."""
+        with self.lock:
+            self._stopped.set()
+            if self.broken is None:
+                self._send(("stop", None))
+
+
 class InferenceService:
     """Model preload + request handling, shared by both HTTP backends."""
 
@@ -60,6 +181,12 @@ class InferenceService:
         if model is None:
             model = self._load_from_env()
         self.model = model
+        # several ranks: rank 0 answers, the others follow (RankChannel)
+        mesh = getattr(model.generator.pipeline, "mesh", None)
+        self.channel = (RankChannel() if mesh is not None and mesh.size() > 1
+                        else None)
+        if self.channel is not None:
+            warmup_spec = "off"
         # the prompt enhancer, built at the first ``enhance_prompt`` request
         # (or set beforehand with its models)
         self.enhancer = None
@@ -82,15 +209,89 @@ class InferenceService:
         model_mode = os.environ.get("MODEL_MODE", "ltxv_13B_distilled")
         quantization = os.environ.get("QUANTIZATION", "int8")
         dtype_policy = os.environ.get("TRANSFORMER_DTYPE_POLICY", "")
+        from ..core.mesh import dist_env, rank_device
+
+        if dist_env()[1] > 1:
+            # under torchrun "cuda" is this rank's card
+            import torch
+
+            torch.cuda.set_device(rank_device())
         if os.environ.get("DEMO_MODEL", "").lower() in ("1", "true"):
-            return model_zoo.build_demo_model()      # on the card
-        tf_file, te_file = model_zoo.select_model_files(
-            model_mode, quantization, dtype_policy
-        )
-        return model_zoo.load_ltxv_model(
-            tf_file, model_mode,
-            os.environ.get("CKPT_DIR", "ckpts"), te_file,
-        )
+            model = model_zoo.build_demo_model()      # on the card
+        else:
+            tf_file, te_file = model_zoo.select_model_files(
+                model_mode, quantization, dtype_policy
+            )
+            model = model_zoo.load_ltxv_model(
+                tf_file, model_mode,
+                os.environ.get("CKPT_DIR", "ckpts"), te_file,
+            )
+        model_zoo.apply_serving_mesh(model.generator.pipeline)
+        return model
+
+    def _produce(self, data: dict):
+        """Everything of a request that the ranks of a mesh run together:
+        the image, the prompt (enhanced where asked), its embeddings and
+        ``generate``; returns (frames, the stage timer)."""
+        from PIL import Image
+
+        from .cli import encode_or_hash
+        from ..utils import native_codec
+        from ..utils.observability import StageTimer, collect_stages, stage
+
+        image_bytes = base64.b64decode(data["image"])
+        pil = Image.open(io.BytesIO(image_bytes)).convert("RGB")
+        image_start = np.asarray(pil)
+        gen = self.model.generator
+        prompt = data["prompt"]
+        # the ambient marks are collected under the generation lock only:
+        # encoding the prompt holds no lock, so it overlaps another
+        # request's generation
+        timer = StageTimer()
+        # ``enhance_prompt`` (a superset field, JAX :112-126): the caption
+        # + rewrite of ``utils/prompt_enhance.py``, its models from
+        # LTXV_TPU_CAPTIONER_DIR / LTXV_TPU_ENHANCER_LLM_DIR (unset: the
+        # prompt as it is), timed as the stage ``enhance_prompt``. The
+        # enhancer is cached on the service (its models load once) and
+        # runs under gen_lock: its models share the card with the
+        # diffusion weights, so it must not race a generation or the
+        # warm-up
+        if data.get("enhance_prompt"):
+            if self.enhancer is None:
+                from ..utils.prompt_enhance import PromptEnhancer
+
+                self.enhancer = PromptEnhancer()
+            with self.gen_lock, timer.stage("enhance_prompt"):
+                prompt = self.enhancer.enhance(
+                    prompt, first_frames=[image_start])
+        with timer.stage("encode_prompt"):
+            embeds, mask = encode_or_hash(
+                gen.pipeline, prompt, data["negative_prompt"])
+        # planar-YUV420 fetch when the native writer can take it: half the
+        # host-fetch bytes of uint8 RGB (JAX :132-136)
+        out_type = "yuv420" if native_codec.available() else "pixels"
+        # serialize vs the warm-up and other requests
+        with self.gen_lock, collect_stages(timer), stage("generate"):
+            frames = gen.generate(
+                embeds, mask,
+                height=int(data["height"]), width=int(data["width"]),
+                frame_num=int(data["num_frames"]),
+                frame_rate=int(data["frame_rate"]),
+                sampling_steps=int(data["num_inference_steps"]),
+                image_start=image_start,
+                output_type=out_type,
+            )
+        return frames, timer
+
+    def follow(self):
+        """A follower rank of a mesh: run every request rank 0 hands over,
+        until it stops."""
+        self.channel.follow(self._produce)
+
+    def stop(self):
+        """Rank 0 of a mesh: release the followers."""
+        if self.channel is not None:
+            self.channel.stop()
 
     def run(self, data: dict, url_root: str) -> tuple[int, object]:
         start = time.time()
@@ -104,60 +305,13 @@ class InferenceService:
         if missing:
             return 400, {"error": f"Missing fields: {', '.join(missing)}"}
         try:
-            from PIL import Image
-
-            from .cli import encode_or_hash
-
-            image_bytes = base64.b64decode(data["image"])
-            pil = Image.open(io.BytesIO(image_bytes)).convert("RGB")
-            image_start = np.asarray(pil)
-
-            gen = self.model.generator
-            pipe = gen.pipeline
-            prompt = data["prompt"]
             from ..utils import media as media_utils
-            from ..utils.observability import (
-                Metrics, StageTimer, collect_stages, stage)
+            from ..utils.observability import Metrics
 
-            # the ambient marks are collected under the generation lock
-            # only: encoding the prompt and writing the mp4 hold no lock, so
-            # they overlap another request's generation
-            timer = StageTimer()
-            # ``enhance_prompt`` (a superset field, JAX :112-126): the
-            # caption + rewrite of ``utils/prompt_enhance.py``, its models
-            # from LTXV_TPU_CAPTIONER_DIR / LTXV_TPU_ENHANCER_LLM_DIR
-            # (unset: the prompt as it is), timed as the stage
-            # ``enhance_prompt``. The enhancer is cached on the
-            # service (its models load once) and runs under gen_lock: its
-            # models share the card with the diffusion weights, so it must
-            # not race a generation or the warm-up
-            if data.get("enhance_prompt"):
-                if self.enhancer is None:
-                    from ..utils.prompt_enhance import PromptEnhancer
-
-                    self.enhancer = PromptEnhancer()
-                with self.gen_lock, timer.stage("enhance_prompt"):
-                    prompt = self.enhancer.enhance(
-                        prompt, first_frames=[image_start])
-            with timer.stage("encode_prompt"):
-                embeds, mask = encode_or_hash(
-                    pipe, prompt, data["negative_prompt"])
-            from ..utils import native_codec
-
-            # planar-YUV420 fetch when the native writer can take it: half
-            # the host-fetch bytes of uint8 RGB (JAX :132-136)
-            out_type = "yuv420" if native_codec.available() else "pixels"
-            # serialize vs the warm-up and other requests
-            with self.gen_lock, collect_stages(timer), stage("generate"):
-                frames = gen.generate(
-                    embeds, mask,
-                    height=int(data["height"]), width=int(data["width"]),
-                    frame_num=int(data["num_frames"]),
-                    frame_rate=int(data["frame_rate"]),
-                    sampling_steps=int(data["num_inference_steps"]),
-                    image_start=image_start,
-                    output_type=out_type,
-                )
+            if self.channel is None:
+                frames, timer = self._produce(data)
+            else:
+                frames, timer = self.channel.call(self._produce, data)
             name = f"video_{uuid.uuid4().hex[:12]}.mp4"
             out_path = os.path.join(self.outputs_dir, name)
             with timer.stage("save_video"):
@@ -296,6 +450,9 @@ def create_stdlib_server(service: InferenceService, host="0.0.0.0", port=7860):
 
 def main():
     service = InferenceService()
+    if service.channel is not None and service.channel.rank != 0:
+        service.follow()           # rank 0 listens and answers
+        return
     try:
         app = create_flask_app(service)
         app.run(host="0.0.0.0", port=7860)

@@ -211,6 +211,7 @@ def _stubbed_main(monkeypatch, capsys, argv, k3q_d80=0):
         "phase_wan_i2v": [ones] * len(chip_smoke.WAN_I2V_REQUESTS),
         "phase_wan_variants": dict.fromkeys(VARIANT_STUBS, ones),
         "phase_aux": ones,
+        "phase_k2s": 0.0, "phase_mesh": 1,
     }
     for name, result in results.items():
         def stub(*args, _name=name, _result=result, **kwargs):
@@ -229,7 +230,8 @@ def _stubbed_main(monkeypatch, capsys, argv, k3q_d80=0):
 KERNEL_PHASES = ["phase_device", "phase_build", "phase_k1", "phase_k2",
                  "phase_prologue", "phase_k4", "phase_k3", "phase_k3q",
                  "phase_d80", "phase_k5", "phase_k6", "phase_k1f",
-                 "phase_timing", "time_k1f", "phase_k8", "phase_k7"]
+                 "phase_timing", "time_k1f", "phase_k8", "phase_k7",
+                 "phase_k2s"]
 
 
 def test_kernels_only_stops_before_the_paths(monkeypatch, capsys):
@@ -247,11 +249,15 @@ def test_default_run_drives_every_path_and_ends_with_the_result(
                                    "phase_fp32", "phase_ltx13b",
                                    "phase_load", "phase_cli", "phase_wan",
                                    "phase_wan_variants", "phase_wan_i2v",
-                                   "phase_aux"]
+                                   "phase_aux", "phase_mesh"]
     assert json.loads(lines[-1]) == {"ok": True, "device": {
         "platform": "gpu", "kind": "a card", "count": 1}}
     kernels = json.loads(lines[-2])["kernels"]
-    assert len(kernels) == 17
+    assert len(kernels) == 18
+    # K2's given-scale entry, launched by [mesh]'s tensor-parallel ranks
+    k2s = [k for k in kernels if k["name"].startswith("int8_linear_scaled")]
+    assert len(k2s) == 1 and k2s[0]["launches"] == 1
+    assert k2s[0]["source"].endswith("csrc/int8_linear.cu")
     # CLIP's head dim of 80: the D=80 instances of K1, K4, K1f and K3q,
     # own entries (K3q's the one no request runs)
     d80 = [k for k in kernels if "d=80" in k["name"]]
@@ -273,6 +279,47 @@ def test_default_run_drives_every_path_and_ends_with_the_result(
         "csrc/flash_attention_int8.cu")
     assert all(os.path.exists(os.path.join(REPO, k["source"]))
                for k in kernels)
+
+
+def test_mesh_only_runs_the_build_k2s_and_mesh(monkeypatch, capsys):
+    """``--mesh-only``: the device, the build, K2's given-scale entry and
+    [mesh]; no result line."""
+    code, ran, lines = _stubbed_main(monkeypatch, capsys, ["--mesh-only"])
+    assert code == 0
+    assert ran == ["phase_device", "phase_build", "phase_k2s", "phase_mesh"]
+    assert not any('"ok"' in ln or '"kernels"' in ln for ln in lines)
+
+
+def test_build_refuses_a_spill_in_the_given_scale_row_kernel(monkeypatch):
+    """A spill in an instance of the row kernel's GIVEN contract (K2's
+    given-scale entry) fails ``[build]``; one in K2's own contract is
+    only listed."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from ltx_video_gpupoor_tpu_torch.ops import _lib
+
+    def report(contract):
+        name = ("_ZN56_GLOBAL__N__5e7c0a11_14_int8_linear_cu_8f3e2d1a20"
+                f"quantize_rows_kernelIfLi{contract}ELi256ELi4ELb1EEEvNS_"
+                "7RowArgsE")
+        return (f"ptxas info    : Compiling entry function '{name}' for "
+                "'sm_90a'\n"
+                f"ptxas info    : Function properties for {name}\n"
+                "    8 bytes stack frame, 8 bytes spill stores, 32 bytes "
+                "spill loads\n"
+                "ptxas info    : Used 80 registers, used 0 barriers\n")
+
+    for contract, fails in ((2, True), (0, False)):
+        monkeypatch.setattr(_lib, "build", lambda force=False, parallel=True,
+                            _c=contract: ("lib.so", 1.0, report(_c)))
+        monkeypatch.setattr(_lib, "library", lambda: None)
+        monkeypatch.setattr(chip_smoke, "log", lambda msg: None)
+        if fails:
+            with pytest.raises(AssertionError, match="given-scale"):
+                chip_smoke.phase_build()
+        else:
+            with pytest.raises(AssertionError, match="no K1f instance"):
+                chip_smoke.phase_build()
 
 
 def _stubbed_runs():

@@ -250,7 +250,10 @@ def test_attention_packed_matches_jax():
     ("pallas_hp", "K6"), ("ulysses:sp", "step 15"),
     ("xla", "reference_attention")])
 def test_unported_attention_tiers_raise(monkeypatch, mode, entry):
-    """``ulysses:`` raises with its ROADMAP step. ``xla`` runs the plain
+    """``ulysses:`` (ROADMAP step 15, ported since) runs its base mode
+    here, ``auto``: the Ulysses exchange belongs to the model's layer
+    (``parallel/ulysses.py``), and a head-split or packed caller that
+    hands the mode on gets the base tier's kernel. ``xla`` runs the plain
     fp32 attention (``reference_attention``) and no kernel, for head-split
     and head-packed callers alike. ``pallas_hp`` (K6) is ported:
     head-split callers get the exact kernel and packed callers the
@@ -269,8 +272,9 @@ def test_unported_attention_tiers_raise(monkeypatch, mode, entry):
                         or a[0])
     q = torch.zeros(1, 1, 8, 64)
     if mode == "ulysses:sp":
-        with pytest.raises(NotImplementedError, match=entry):
-            tattn.attention(q, q, q, mode=mode)
+        tattn.attention(q, q, q, mode=mode)
+        tattn.attention(q, q, q, mode=mode, score_bound=40.0)
+        assert calls == ["K1", "K3"]
     else:
         tattn.attention(q, q, q, mode=mode)
         tattn.attention(q, q, q, mode=mode, score_bound=40.0)

@@ -496,8 +496,13 @@ def test_pipeline_helpers_match_jax(weights):
             noise=torch.from_numpy(noise), attn_mode="pallas", **gen,
             **{k: torch.from_numpy(v) for k, v in kw.items()}, **extra)
         assert _psnr(np.asarray(ref), got.numpy()) >= PSNR_BAR_DB, kw.keys()
+    # the sequence-parallel route (ported): on a one-rank mesh it is the
+    # unsharded run bit for bit (tests/test_torch_usp.py holds it at 2)
+    from torch_mesh_workers import OneRankMesh
+
     ctx, mask = torch.zeros(2, 16, 32), torch.ones(2, 16)
-    tp.sp_mesh = object()
-    with pytest.raises(NotImplementedError, match="step 15"):
-        tp.generate_t2v(ctx, mask, width=16, height=16, frame_num=5,
-                        sampling_steps=2)
+    run = dict(width=16, height=16, frame_num=5, sampling_steps=2,
+               noise=torch.from_numpy(noise), attn_mode="pallas")
+    want = tp.generate_t2v(ctx, mask, **run)
+    tp.sp_mesh = OneRankMesh()
+    assert torch.equal(tp.generate_t2v(ctx, mask, **run), want)

@@ -165,9 +165,18 @@ def test_df_generate_with_prefix_matches_jax(overlap_noise, tile):
 
 
 def test_df_sp_mesh_names_step_15():
+    """``sp_mesh`` (ROADMAP step 15, which the route used to name in its
+    error, is ported): on a one-rank mesh the sequence-parallel route is
+    the unsharded run bit for bit (tests/test_torch_usp.py holds it at 2
+    ranks against JAX)."""
+    from torch_mesh_workers import OneRankMesh
+
     _, tp = _pipes()
-    tp.sp_mesh = object()
     ctx, mask = _text()
-    with pytest.raises(NotImplementedError, match="step 15"):
-        tp.generate(torch.from_numpy(ctx), torch.from_numpy(mask),
-                    height=H, width=W, frame_num=FRAMES, sampling_steps=1)
+    run = dict(height=H, width=W, frame_num=FRAMES, sampling_steps=1,
+               ar_step=1, causal_block_size=1, attn_mode="pallas",
+               noise=torch.from_numpy(_noise()))
+    want = tp.generate(torch.from_numpy(ctx), torch.from_numpy(mask), **run)
+    tp.sp_mesh = OneRankMesh()
+    got = tp.generate(torch.from_numpy(ctx), torch.from_numpy(mask), **run)
+    assert torch.equal(got, want)
