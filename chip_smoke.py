@@ -8,11 +8,14 @@ t2v-1.3B (UniPC, DPM++, TeaCache), Wan 2.1 i2v-14B with CLIP ViT-H/14 and
 the Wan VAE encoder, the prompt enhancer (Florence-2-large + Llama-3.2-3B)
 on a served request, the Wan prompt extenders (Qwen2.5-VL-7B,
 Qwen2.5-3B), U2-Net background removal, the legacy LTX VAE, the
-ring-attention kernel and the attention micro-benchmark tool.
+ring-attention kernel and the attention micro-benchmark tool, the
+multi-rank routes, and the flow-matching train step.
 
     python3 chip_smoke.py              # one card; several minutes on an H100
     python3 chip_smoke.py --profile    # and device-time breakdowns
     python3 chip_smoke.py --kernels-only   # phases 1 to 6, no result line
+    python3 chip_smoke.py --mesh-only  # build, K2s and [mesh], no result line
+    python3 chip_smoke.py --train-only     # [train] alone, no result line
 
 Phases, one output line each (or a few):
 
@@ -328,6 +331,21 @@ Phases, one output line each (or a few):
             CPU (30 dB); cli.main from synthetic files whose VAE is a
             legacy one (the 13B transformer at 2 layers) through
             load_ltxv_model's legacy branch, 512x320x41.
+8d. mesh   the multi-rank routes (K2's given-scale entry first): NCCL
+            at one rank a card, then two gloo ranks sharing the card with
+            every tensor collective staged through pinned host memory
+            (sp and tp forwards, a served request, the parallel decode,
+            ring attention), each against one process.
+8e. train  the flow-matching train step (``training/``; the ``xla``
+            attention tier and dense linears: no kernel has a backward):
+            (a) LTX-2B at full width and depth, bf16, per-block remat,
+            TRAIN_STEPS steps on one 704x480x121 stream (seconds a step,
+            peak GiB, losses that must be finite and fall; no kernel
+            launched; an ``auto`` forward under grad must raise); (b) a
+            2-layer cut's grads in fp32 against the CPU's within
+            TRAIN_BOUND, a planted fault caught; (c) the 4-layer cut's
+            sharded step at sp=2 and tp=2 on two gloo ranks sharing the
+            card against one process.
 9. profile  only with --profile: one more 704x480x121 LTX-2B request, one
             more 13B request of kinds (b), (c) and (d) and one more
             832x480x81 Wan request, each twice under torch.profiler: as it
@@ -353,6 +371,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -6433,6 +6452,306 @@ def phase_mesh():
     return sum(r0["counts"][k]["K2s"] for k in ("ltx tp", "wan tp"))
 
 
+# --------------------------------------------------------------------------
+# [train]: the flow-matching train step (training/trainer.py)
+# --------------------------------------------------------------------------
+
+TRAIN_SHAPE = (480, 704, 121)       # (H, W, F): one stream, 5280 tokens
+TRAIN_CAPTION = 128                 # caption tokens (100 valid)
+TRAIN_STEPS = 5
+TRAIN_LR = 1e-4                     # TrainConfig's default
+TRAIN_CUT_SHAPE = (384, 704, 25)    # (b): 4 x 12 x 22 = 1056 tokens
+TRAIN_CUT_LAYERS = 2
+TRAIN_MESH_LAYERS = 4               # (c)
+# (b), (c): in fp32 (TF32 off since [device]) the card and the reference
+# run the same ops in other orders and tilings: grads agree to about 1e-6
+# relative; a leaf further than TRAIN_BOUND (relative norm of the
+# difference) fails, and so does the planted fault (one leaf scaled by
+# 1 + 2**-5, 3e-2 off)
+TRAIN_BOUND = 1e-3
+TRAIN_FAULT = 1 + 2.0 ** -5
+TRAIN_TIMEOUT = 300.0
+
+
+def _train_tokens(shape):
+    h, w, frames = shape
+    return ((frames - 1) // 8 + 1) * (h // 32) * (w // 32)
+
+
+def _train_inputs(shape, device):
+    """One stream at ``shape``, seeded on the CPU (the same in every
+    process): the batch, t and eps of every step."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.training import TrainBatch
+
+    h, w, frames = shape
+    f, hh, ww = (frames - 1) // 8 + 1, h // 32, w // 32
+    g = torch.Generator().manual_seed(SEED + 30)
+    s = f * hh * ww
+    tokens = torch.randn(1, s, 128, generator=g)
+    grid = torch.stack(torch.meshgrid(torch.arange(f), torch.arange(hh),
+                                      torch.arange(ww), indexing="ij"))
+    grid = (grid.reshape(1, 3, -1).float()
+            * torch.tensor([8 / 25, 32.0, 32.0])[None, :, None])
+    cap = torch.randn(1, TRAIN_CAPTION, 4096, generator=g)
+    mask = torch.ones(1, TRAIN_CAPTION, dtype=torch.int32)
+    mask[0, 100:] = 0
+    t = torch.tensor([0.6])
+    eps = torch.randn(1, s, 128, generator=g)
+    batch = TrainBatch(*(x.to(device) for x in (tokens, grid, cap, mask)))
+    return batch, t.to(device), eps.to(device)
+
+
+def _grad_gaps(grads, want, cut=None):
+    """The relative norm of (grads - want) by leaf; ``cut(name, whole)``
+    gives a rank's share of a whole reference leaf."""
+    out = {}
+    for name, g in grads.items():
+        w = want[name].to(g.device)
+        if cut is not None:
+            w = cut(name, w)
+        out[name] = ((g.float() - w.float()).norm()
+                     / w.float().norm().clamp_min(1e-30)).item()
+    return out
+
+
+def _train_cut_model(layers, policy, device, seed):
+    import dataclasses
+
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.models.ltx import transformer3d as tf
+
+    cfg = dataclasses.replace(ltx2b_config(), num_layers=layers)
+    return tf.init_params(tf.LTXTransformer3D(cfg, policy, device=device),
+                          torch.Generator(device=device).manual_seed(seed))
+
+
+def _train_rank(rank, world, work):
+    """A rank of the 2-rank group sharing the card (gloo, the collectives
+    staged through pinned host memory): the 4-layer cut's backward at sp=2
+    and at tp=2 against the one-process grads, then the update."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.core.dtypes import FP32_POLICY
+    from ltx_video_gpupoor_tpu_torch.core.mesh import MeshConfig, make_mesh
+    from ltx_video_gpupoor_tpu_torch.parallel import comm
+    from ltx_video_gpupoor_tpu_torch.parallel.sharding import (
+        cut_param,
+        shard_params,
+    )
+    from ltx_video_gpupoor_tpu_torch.training import (
+        TrainConfig,
+        make_train_step,
+    )
+
+    comm.set_staged(MESH_STAGED)
+    ref = torch.load(os.path.join(work, "train_reference.pt"))
+    batch, t, eps = _train_inputs(TRAIN_SHAPE, "cuda")
+    out = {}
+    for name, cfg in (("sp=2", MeshConfig(dp=1, sp=world, tp=1)),
+                      ("tp=2", MeshConfig(dp=1, sp=1, tp=world))):
+        mesh = make_mesh(cfg)
+        model = _train_cut_model(TRAIN_MESH_LAYERS, FP32_POLICY, "cuda",
+                                 SEED + 32)
+        shard_params(mesh, model)
+        step = make_train_step(model, TrainConfig(learning_rate=TRAIN_LR),
+                               attn_mode="xla", mesh=mesh)
+        comm.staged_counts.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step.backward(batch, t=t, eps=eps)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+
+        def cut(n, w):
+            return cut_param(w, step.cuts[n]) if n in step.cuts else w
+
+        gaps = _grad_gaps({n: p.grad for n, p in step.params.items()},
+                          ref["grads"], cut)
+        m = step.update(m)
+        torch.cuda.synchronize()
+        out[name] = {"loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "gap": max(gaps.values()),
+                     "worst": max(gaps, key=gaps.get),
+                     "backward_s": t1 - t0,
+                     "update_s": time.perf_counter() - t1,
+                     "staged": dict(comm.staged_counts),
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del model, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train():
+    """[train]: (a) LTX-2B at full width and depth, DEFAULT_POLICY, dense,
+    the ``xla`` tier, per-block remat: TRAIN_STEPS steps on one stream of
+    5280 tokens (the same batch, t and eps each step), the losses finite
+    and falling, no kernel launched, and the guard raising on an ``auto``
+    forward under grad; (b) a 2-layer cut's grads at 1056 tokens in fp32
+    against the same step on the CPU, a planted fault caught; (c) the
+    4-layer cut at 5280 tokens in fp32 on 2 ranks sharing the card (sp=2,
+    tp=2) against one process. Returns the seconds a step of (a)."""
+    import statistics
+    import tempfile
+
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.core.dtypes import (
+        DEFAULT_POLICY,
+        FP32_POLICY,
+    )
+    from ltx_video_gpupoor_tpu_torch.core.mesh import spawn_ranks
+    from ltx_video_gpupoor_tpu_torch.training import (
+        TrainConfig,
+        flow_match_loss,
+        make_train_step,
+    )
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip().splitlines()[0]
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+
+    # (a) full width and depth
+    t0 = time.perf_counter()
+    dit = _train_cut_model(ltx2b_config().num_layers, DEFAULT_POLICY, dev,
+                           SEED)
+    n_params = sum(p.numel() for p in dit.parameters())
+    batch, t, eps = _train_inputs(TRAIN_SHAPE, dev)
+    tc = TrainConfig(learning_rate=TRAIN_LR, remat=True)
+    step = make_train_step(dit, tc, attn_mode="xla")
+    torch.cuda.synchronize()
+    log(f"[train] (a) LTX-2B {n_params / 1e9:.3f}e9 parameters "
+        f"(bf16, dense, requires_grad), fp32 moments; built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    counts = kernel_counts()
+    try:
+        flow_match_loss(dit, batch, tc, t=t, eps=eps, attn_mode="auto")
+        raise AssertionError("an auto forward under grad launched a kernel")
+    except RuntimeError as e:
+        assert "K1" in str(e) and "xla" in str(e), e
+        log(f"[train] (a) the guard: an auto forward under grad raises "
+            f"before K1 launches: {e}")
+    assert kernel_counts() == counts, "the guard let a kernel launch"
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, secs = [], [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(batch, t=t, eps=eps)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    assert kernel_counts() == counts, (
+        "a hand-written kernel launched under grad", kernel_counts())
+    assert all(math.isfinite(x) for x in losses + norms), losses
+    assert losses[-1] < losses[0], losses
+    sec = statistics.median(secs[1:])
+    log(f"[train] (a) {TRAIN_STEPS} steps, {TRAIN_SHAPE[1]}x{TRAIN_SHAPE[0]}"
+        f"x{TRAIN_SHAPE[2]} ({_train_tokens(TRAIN_SHAPE)} tokens, "
+        f"{TRAIN_CAPTION} caption tokens), "
+        f"lr {TRAIN_LR}: {sec:.3f} s a step (median after the first; "
+        f"{', '.join(f'{s:.3f}' for s in secs)}), peak {peak:.2f} GiB; "
+        f"losses {', '.join(f'{x:.6f}' for x in losses)}; grad norms "
+        f"{', '.join(f'{x:.4f}' for x in norms)}; no kernel launched "
+        f"({card})")
+    del dit, step, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the 2-layer cut against the CPU, both fp32
+    t0 = time.perf_counter()
+    cpu = _train_cut_model(TRAIN_CUT_LAYERS, FP32_POLICY, "cpu", SEED + 31)
+    gpu = _train_cut_model(TRAIN_CUT_LAYERS, FP32_POLICY, dev, SEED + 31)
+    gpu.load_state_dict(cpu.state_dict())
+    batch, t, eps = _train_inputs(TRAIN_CUT_SHAPE, "cpu")
+    s_cpu = make_train_step(cpu, TrainConfig(remat=False), attn_mode="xla")
+    m_cpu = s_cpu.backward(batch, t=t, eps=eps)
+    t_cpu = time.perf_counter() - t0
+    s_gpu = make_train_step(gpu, TrainConfig(remat=True), attn_mode="xla")
+    m_gpu = s_gpu.backward(type(batch)(*(x.to(dev) for x in batch)),
+                           t=t.to(dev), eps=eps.to(dev))
+    want = {n: p.grad for n, p in s_cpu.params.items()}
+    got = {n: p.grad for n, p in s_gpu.params.items()}
+    gaps = _grad_gaps(got, want)
+    worst = max(gaps, key=gaps.get)
+    loss_gap = abs(float(m_gpu["loss"]) - float(m_cpu["loss"])) \
+        / float(m_cpu["loss"])
+    planted = dict(got)
+    planted[worst] = got[worst] * TRAIN_FAULT
+    caught = max(_grad_gaps(planted, want).values()) > TRAIN_BOUND
+    log(f"[train] (b) {TRAIN_CUT_LAYERS}-layer cut at full width, "
+        f"{TRAIN_CUT_SHAPE[1]}x{TRAIN_CUT_SHAPE[0]}x{TRAIN_CUT_SHAPE[2]} "
+        f"({_train_tokens(TRAIN_CUT_SHAPE)} tokens), fp32, the card (remat) "
+        f"against the CPU (no remat): "
+        f"loss {float(m_gpu['loss']):.6f} vs {float(m_cpu['loss']):.6f} "
+        f"({loss_gap:.3g}); grads' relative gap by leaf at most "
+        f"{gaps[worst]:.3g} ({worst}; bound {TRAIN_BOUND:g}), median "
+        f"{statistics.median(gaps.values()):.3g}; planted fault (x "
+        f"{TRAIN_FAULT}) {'caught' if caught else 'MISSED'}; the CPU step "
+        f"{t_cpu:.1f} s")
+    assert gaps[worst] <= TRAIN_BOUND and loss_gap <= TRAIN_BOUND, gaps
+    assert caught, "the planted fault passed the grad check"
+    m = s_gpu.update(m_gpu)
+    assert math.isfinite(float(m["grad_norm"]))
+    del cpu, gpu, s_cpu, s_gpu, want, got, planted
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) two ranks sharing the card, against one process
+    work = tempfile.mkdtemp(prefix="train_", dir=os.path.join(
+        ROOT, "ltx_video_gpupoor_tpu_torch", "build"))
+    t0 = time.perf_counter()
+    model = _train_cut_model(TRAIN_MESH_LAYERS, FP32_POLICY, dev, SEED + 32)
+    batch, t, eps = _train_inputs(TRAIN_SHAPE, dev)
+    one = make_train_step(model, TrainConfig(learning_rate=TRAIN_LR),
+                          attn_mode="xla")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    m = one.backward(batch, t=t, eps=eps)
+    torch.cuda.synchronize()
+    t_one = time.perf_counter() - t1
+    torch.save({"grads": {n: p.grad.cpu() for n, p in one.params.items()}},
+               os.path.join(work, "train_reference.pt"))
+    m = one.update(m)
+    ref = {k: float(m[k]) for k in ("loss", "grad_norm")}
+    del model, one, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = spawn_ranks(_train_rank, 2, backend="gloo", timeout=TRAIN_TIMEOUT,
+                        device=None, store_dir=work, threads=0, args=(work,))
+    for name in ("sp=2", "tp=2"):
+        for rank, r in enumerate(ranks):
+            got = r[name]
+            dl = abs(got["loss"] - ref["loss"]) / ref["loss"]
+            dn = abs(got["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+            if rank == 0:
+                log(f"[train] (c) {name}, {TRAIN_MESH_LAYERS}-layer cut, "
+                    f"{_train_tokens(TRAIN_SHAPE)} tokens, fp32, 2 ranks on "
+                    f"one card (gloo, "
+                    f"staged): loss {got['loss']:.6f} ({dl:.3g} from one "
+                    f"process), grad norm {got['grad_norm']:.6f} ({dn:.3g}); "
+                    f"grads' relative gap at most {got['gap']:.3g} "
+                    f"({got['worst']}; bound {TRAIN_BOUND:g}); backward "
+                    f"{got['backward_s']:.3f} s (one process {t_one:.3f} s), "
+                    f"update {got['update_s']:.3f} s, peak "
+                    f"{got['peak_gib']:.2f} GiB a rank; staged calls "
+                    f"{got['staged']}")
+            assert max(dl, dn, got["gap"]) <= TRAIN_BOUND, (name, rank, got)
+    log(f"[train] (c) both ranks within the bound; {time.perf_counter() - t0:.1f}"
+        f" s with the reference and the start")
+    log(f"[train] done in {time.perf_counter() - t_phase:.1f} s ({card})")
+    return sec
+
+
 def _psnr_db_float(a, b):
     """PSNR of ``a`` against ``b`` with the peak of twice their largest
     magnitude (the repo's oracle convention)."""
@@ -6463,6 +6782,9 @@ def main(argv=None) -> int:
                     help="the device, the build, K2's given-scale entry and "
                     "[mesh] alone (no result line); for work on the "
                     "multi-rank routes")
+    ap.add_argument("--train-only", action="store_true",
+                    help="the device and [train] alone (no result line); "
+                    "for work on the trainer")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks and timings (phases "
                     "1 to 6): no path is driven, so no result line is "
@@ -6476,6 +6798,10 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     t_start = time.perf_counter()
     kind, ex2_per_s = phase_device()
+    if args.train_only:
+        phase_train()
+        log(f"[clock] train done at {time.perf_counter() - t_start:.0f} s")
+        return 0
     phase_build(compare=args.profile)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     if args.mesh_only:
@@ -6537,6 +6863,8 @@ def main(argv=None) -> int:
     log(f"[clock] aux models done at {time.perf_counter() - t_start:.0f} s")
     k2s_launches = phase_mesh()
     log(f"[clock] mesh done at {time.perf_counter() - t_start:.0f} s")
+    phase_train()
+    log(f"[clock] train done at {time.perf_counter() - t_start:.0f} s")
     by_tier = dict(zip((m for *_, m in WAN_REQUESTS), wan_launches))
     tier_b, tier_c, tier_d = (t[0] for t in LTX13B_TIERS[1:4])
     k2_key = f"K2 {K2_TIMED}"

@@ -169,3 +169,29 @@ def qwen25_vl_state_dict(params: dict) -> dict:
 def u2net_state_dict(params: dict) -> dict:
     """``models/u2net.init_params`` tree (folded batch norms) -> ``U2Net``."""
     return state_dict(params)
+
+
+def _adam_leaf(tree):
+    if hasattr(tree, "_fields") and {"count", "mu", "nu"} <= set(tree._fields):
+        return tree
+    if isinstance(tree, (tuple, list)):
+        for sub in tree:
+            found = _adam_leaf(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def adamw_state(opt_state):
+    """The JAX trainer's optax state (``chain(clip_by_global_norm,
+    adamw)``, numpy leaves) -> the port's ``training.trainer.AdamWState``:
+    the ``ScaleByAdamState`` inside it, ``mu`` and ``nu`` by the port's
+    parameter names (a kernel's moments transposed like the kernel)."""
+    from ..training.trainer import AdamWState
+
+    adam = _adam_leaf(opt_state)
+    if adam is None:
+        raise ValueError("no ScaleByAdamState in this optimizer state")
+    return AdamWState(
+        count=torch.tensor(int(np.asarray(adam.count)), dtype=torch.int32),
+        mu=state_dict(adam.mu), nu=state_dict(adam.nu))

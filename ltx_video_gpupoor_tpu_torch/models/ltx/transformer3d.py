@@ -40,6 +40,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ...core.dtypes import DEFAULT_POLICY, DtypePolicy
 from ...ops import fused_prologue as _fp
@@ -379,13 +380,20 @@ class LTXTransformer3D(nn.Module):
         previous_residual: Optional[torch.Tensor] = None,  # [B, S, D]
         compute: bool = True,
         return_residual: bool = False,
+        remat: bool = False,
     ):
         """The velocity ``[B, S, C_out]`` (or ``(velocity, residual)`` with
         ``return_residual``). TeaCache (JAX :454-456, :529-551): with a
         ``previous_residual`` and ``compute=False`` the block stack is
         skipped, so the step launches no block, and the previous step's
         block-stack delta is added to this step's embedding; the residual
-        returned is ``x - x_in`` as the JAX function computes it."""
+        returned is ``x - x_in`` as the JAX function computes it.
+        ``remat`` (the trainer's, under autograd): each block is a
+        ``torch.utils.checkpoint`` segment, which keeps only its input and
+        recomputes the rest in the backward. The JAX trainer wraps the
+        whole forward in one ``jax.checkpoint`` instead; the function and
+        its gradients are the same, and here only one block's residuals
+        (the ``xla`` tier's fp32 scores) live at a time."""
         cfg = self.cfg
         d = cfg.inner_dim
         b, s, _ = latents.shape
@@ -429,8 +437,14 @@ class LTXTransformer3D(nn.Module):
                 if skip_layer_mask is not None and skip_layer_strategy \
                         and bool((skip_layer_mask[i] != 1).any()):
                     skip = skip_layer_mask[i].to(dev)
-                x = blk(x, ctx, kv_seg.contiguous(), q_seg, ada, freqs, skip,
+                args = (x, ctx, kv_seg.contiguous(), q_seg, ada, freqs, skip,
                         skip_layer_strategy, attn_mode)
+                if remat and torch.is_grad_enabled():
+                    # the blocks draw no random numbers
+                    x = checkpoint(blk, *args, use_reentrant=False,
+                                   preserve_rng_state=False)
+                else:
+                    x = blk(*args)
         else:
             x = x + previous_residual.to(x.dtype)
         residual = x - x_in if return_residual else None

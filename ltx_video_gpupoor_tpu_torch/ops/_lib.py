@@ -214,3 +214,24 @@ def stream_ptr(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def refuse_grad(route, device, *tensors) -> None:
+    """Raise where a call would launch kernel ``route`` (a name, or a
+    function that gives it, called only then) on CUDA tensors that
+    autograd is recording: the kernels write into outputs with no
+    backward, so the inputs would get no gradient through them. Training
+    runs the ``xla`` attention tier and dense linears (plain torch, as the
+    JAX trainer runs XLA); nothing here swaps one in. CPU tensors take the
+    plain versions, which autograd passes through."""
+    import torch
+
+    if torch.device(device).type != "cuda" or not torch.is_grad_enabled() \
+            or not any(t is not None and t.requires_grad for t in tensors):
+        return
+    route = route() if callable(route) else route
+    if route != "xla":
+        raise RuntimeError(
+            f"kernel route {route} has no backward: under autograd run "
+            "attn_mode='xla' (the plain fp32 attention) and dense "
+            "(unquantized) linears")

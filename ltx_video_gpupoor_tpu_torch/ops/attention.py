@@ -23,7 +23,9 @@ that ``parallel/usp.py`` hands the models: their self-attention runs
 ``parallel/ulysses.py`` over the mesh axis, and every attention call takes
 the base mode (which :func:`resolve_mode` also accepts). fp32 operands
 (``FP32_POLICY``) take the same tiers through K1f, the fp32 kernel;
-:func:`kernel_route` names the kernel a call launches.
+:func:`kernel_route` names the kernel a call launches. No kernel has a
+backward: a kernel route on CUDA tensors under autograd raises, naming
+the route (the train step runs ``xla``, as the JAX trainer does).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import os
 
 import torch
 
+from . import _lib
 from .flash_attention import (
     flash_attention,
     flash_attention_hp,
@@ -148,8 +151,14 @@ def attention(
     """Multi-head attention over ``[B, H, S, D]``; segment id 0 = padding.
     ``score_bound``: a static bound on the |logits| that the caller can
     vouch for (qk-normed attention); it selects the bounded tier (K3, or
-    K3q under ``pallas_int8``)."""
+    K3q under ``pallas_int8``). A kernel route on CUDA tensors that
+    autograd records raises (``_lib.refuse_grad``): training runs
+    ``xla``."""
     mode = resolve_mode(mode, score_bound, head_dim=q.shape[-1])
+    if q.is_cuda:
+        _lib.refuse_grad(lambda: kernel_route(
+            mode, dtype=q.dtype, head_dim=q.shape[-1],
+            score_bound=score_bound), q.device, q, k, v)
     if mode == "pallas_hp":
         # hp serves head-packed callers (attention_packed) only
         mode = "pallas"
@@ -195,6 +204,10 @@ def attention_packed(
     d = hd_total // heads
     mode = resolve_mode(mode, score_bound, head_dim=d)
     if _hp_serves(mode, d, heads, score_bound):
+        if q.is_cuda:
+            _lib.refuse_grad(lambda: kernel_route(
+                mode, dtype=q.dtype, head_dim=d, heads=heads), q.device,
+                q, k, v)
         if k.shape[1] != s or v.shape[1] != s:
             raise ValueError(
                 "attention_packed hp path requires q/k/v of equal length")

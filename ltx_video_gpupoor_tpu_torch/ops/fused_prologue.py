@@ -43,6 +43,7 @@ import os
 
 import torch
 
+from . import _lib
 from .int8_matmul import int8_gemm_acc_plain, padded_weight, \
     quantize_rows_plain
 
@@ -194,8 +195,6 @@ def norm_mod_quantize_rows(x, scale, shift, *, rows_per_group: int,
     if x.device.type != "cuda":
         raise ValueError("norm_mod_quantize_rows checks the CUDA kernel")
     _check_cuda(x, scale, shift, None, None, None)
-    from . import _lib
-
     m, k = x.shape
     xq = torch.empty((m, _padded(k)), dtype=torch.int8, device=x.device)
     sx = torch.empty((m,), dtype=torch.float32, device=x.device)
@@ -211,8 +210,6 @@ def _launch(x, scale, shift, w_int8, w_scale, bias, rows_per_group, eps,
             out_dtype):
     """The row kernel, then the GEMM: ``(h_q [M, round_up(K, 16)], s_x,
     out [M, N])``."""
-    from . import _lib
-
     m, k = x.shape
     n = w_int8.shape[0]
     w_int8 = padded_weight(w_int8, _padded(k))
@@ -256,7 +253,8 @@ def norm_mod_int8_matmul(
     eps: float = 1e-5,
 ) -> torch.Tensor:
     """``(rms_norm(x) * (1 + scale) + shift) @ dequant(w)`` in one call;
-    ``[M, N]`` in x's dtype."""
+    ``[M, N]`` in x's dtype. On CUDA tensors that autograd records it
+    raises: the kernel has no backward."""
     _check(x, scale, shift, w_int8, w_scale, bias, rows_per_group)
     if x.device.type == "cpu":
         return norm_mod_int8_matmul_plain(
@@ -264,6 +262,7 @@ def norm_mod_int8_matmul(
             rows_per_group=rows_per_group, eps=eps)
     if x.device.type != "cuda":
         raise ValueError(f"K5 runs on CUDA or the CPU, not {x.device}")
+    _lib.refuse_grad("K5", x.device, x, scale, shift, bias)
     _check_cuda(x, scale, shift, w_int8, w_scale, bias)
     out = _launch(x, scale, shift, w_int8, w_scale, bias, rows_per_group, eps,
                   x.dtype)[2]

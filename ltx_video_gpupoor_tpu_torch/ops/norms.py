@@ -23,8 +23,10 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor | None = None,
     else:
         from ..parallel import comm
 
-        ss = comm.all_reduce(xf.square().sum(dim=-1, keepdim=True),
-                             tp.group)
+        # each rank goes on with its own heads: the gradient of the sum
+        # is summed over the group
+        ss = comm.reduce_sum(xf.square().sum(dim=-1, keepdim=True),
+                             tp.group, sum_grads=True)
         ms = ss / (x.shape[-1] * tp.size)
     y = xf * torch.rsqrt(ms + eps)
     if weight is not None:

@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import _lib
 from .int8_matmul import int8_linear, int8_linear_plain, int8_linear_scaled
 
 INT4_GROUP_SIZE = 64
@@ -186,6 +187,7 @@ class Linear(nn.Module):
 
     tp = None
     tp_kind = None
+    tp_halves = 1
 
     def __init__(self, d_in: int, d_out: int, bias: bool = True, *,
                  device=None, dtype=torch.float32):
@@ -239,6 +241,7 @@ def row_parallel_matmul(p: Linear, x: torch.Tensor) -> torch.Tensor:
     tp = p.tp
     mode = p.mode
     if mode == "dynamic":
+        _lib.refuse_grad("K2s", x.device, x, p.bias)
         amax = x.reshape(-1, x.shape[-1]).abs().amax(dim=-1).float()
         comm.all_reduce(amax, tp.group, op=comm.dist.ReduceOp.MAX)
         s_x = torch.clamp(amax / torch.full_like(amax, 127.0), min=1e-8)
@@ -253,8 +256,8 @@ def row_parallel_matmul(p: Linear, x: torch.Tensor) -> torch.Tensor:
         w = dequantize_int4(QuantizedLinear4(p.w_int4, p.scale), x.dtype)
     else:
         w = p.weight.to(x.dtype)
-    y = F.linear(x.float(), w.float())
-    comm.all_reduce(y, tp.group)
+    # the output is the same on every rank: its gradient passes as it is
+    y = comm.reduce_sum(F.linear(x.float(), w.float()), tp.group)
     y = y.to(x.dtype)
     if p.bias is not None:
         y = y + p.bias.to(x.dtype)
@@ -265,11 +268,18 @@ def maybe_quantized_matmul(p: Linear, x: torch.Tensor) -> torch.Tensor:
     """Apply a :class:`Linear` in its tier: K2 for ``w_int8_dyn``, the
     weight-only chains for ``w_int8`` and ``w_int4``, a dense matmul (fp32
     accumulation, result in x's dtype, then the bias in x's dtype)
-    otherwise; a row-parallel one through :func:`row_parallel_matmul`."""
+    otherwise; a row-parallel one through :func:`row_parallel_matmul`, a
+    column-parallel one behind ``comm.tp_input``. K2 on CUDA tensors under
+    autograd raises (``_lib.refuse_grad``)."""
     if p.tp_kind == "row":
         return row_parallel_matmul(p, x)
+    if p.tp_kind == "col":
+        from ..parallel import comm
+
+        x = comm.tp_input(x, p.tp.group)
     mode = p.mode
     if mode == "dynamic":
+        _lib.refuse_grad("K2", x.device, x, p.bias)
         return int8_linear(x, p.w_int8_dyn, p.scale, p.bias)
     if mode == "wo":
         return int8_wo_matmul(x, QuantizedLinear(p.w_int8, p.scale), p.bias)

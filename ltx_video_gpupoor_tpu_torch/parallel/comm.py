@@ -11,6 +11,20 @@ place where ranks meet can be read and counted:
   attention's KV pass, ``batch_isend_irecv``), :func:`broadcast_object`
   (the server's requests).
 
+Under autograd (grad enabled and an input that requires grad) the tensor
+collectives that the train step meets are ``torch.autograd.Function`` classes
+over the same calls, so that the staging below applies in both
+directions: :func:`all_to_all`'s backward is the same exchange (chunk j
+of rank r went to rank j, so its gradient comes back from there);
+:func:`reduce_sum` is an out-of-place SUM whose backward is the identity
+where what follows is the same on every rank (a row-parallel linear's
+output) or a SUM where each rank goes on with its own slice (the q/k
+norms of each rank's heads); :func:`tp_input` is the identity whose
+backward sums the partial input gradients of column-parallel linears;
+:func:`all_gather_cat`'s backward takes this rank's slice. Without grad
+they are the plain calls (in place for :func:`all_reduce`), so serving
+runs exactly what it ran before.
+
 The shared-card transport: NCCL refuses two ranks on one card, so the
 ranks that share one H100 run ``gloo``, whose collectives are written for
 host memory. :func:`set_staged` names the collectives that copy their
@@ -57,9 +71,67 @@ def _host(t: torch.Tensor) -> torch.Tensor:
     return h
 
 
+def _tracked(x: torch.Tensor) -> bool:
+    """Whether autograd records a call on ``x``."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+class _ReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, sum_grads):
+        ctx.group, ctx.sum_grads = group, sum_grads
+        return all_reduce(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.sum_grads:
+            return all_reduce(g.contiguous().clone(), ctx.group), None, None
+        return g, None, None
+
+
+class _TpInput(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.group), None
+
+
+class _AllGatherCat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.dim, ctx.n = dim, x.shape[dim]
+        ctx.rank = dist.get_rank(group)
+        return _all_gather_cat(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None
+
+
 def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     """``x [p, ...]``: chunk j goes to rank j of ``group``; returns ``[p,
     ...]`` whose chunk j came from rank j."""
+    if _tracked(x):
+        return _AllToAll.apply(x, group)
+    return _all_to_all(x, group)
+
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     x = x.contiguous()
     if _stages("all_to_all", [x]):
         h = _host(x)
@@ -82,9 +154,38 @@ def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     return x
 
 
+def reduce_sum(x: torch.Tensor, group, sum_grads: bool = False
+               ) -> torch.Tensor:
+    """The SUM of ``x`` over ``group``. Under autograd it is out of place,
+    and its backward passes the gradient on as it is (``sum_grads``
+    False: what follows is the same on every rank) or sums it over the
+    group (True: each rank goes on with its own slice). Without grad it is
+    :func:`all_reduce`, in place."""
+    if _tracked(x):
+        return _ReduceSum.apply(x, group, sum_grads)
+    return all_reduce(x, group)
+
+
+def tp_input(x: torch.Tensor, group) -> torch.Tensor:
+    """The identity; under autograd its backward sums the gradient over
+    ``group``. The input of a column-parallel linear is the same on every
+    rank, and each rank's product gives only its part of the input's
+    gradient."""
+    if _tracked(x):
+        return _TpInput.apply(x, group)
+    return x
+
+
 def all_gather_cat(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """Every rank's ``x`` (one shape on all), joined along ``dim`` in rank
-    order."""
+    order. Under autograd the backward takes this rank's slice of the
+    gradient (what follows is the same on every rank)."""
+    if _tracked(x):
+        return _AllGatherCat.apply(x, group, dim)
+    return _all_gather_cat(x, group, dim)
+
+
+def _all_gather_cat(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     x = x.contiguous()
     p = dist.get_world_size(group)
     if _stages("all_gather", [x]):

@@ -122,7 +122,7 @@ def shard_linear(lin: Linear, kind: str, tp: TensorParallel,
         lin.d_out //= tp.size
     else:
         lin.d_in //= tp.size
-    lin.tp, lin.tp_kind = tp, kind
+    lin.tp, lin.tp_kind, lin.tp_halves = tp, kind, halves
 
 
 def _shard_norms(model: nn.Module, tp: TensorParallel) -> None:
@@ -139,6 +139,50 @@ def _shard_norms(model: nn.Module, tp: TensorParallel) -> None:
                 norm.weight = nn.Parameter(_cut(norm.weight, 0, tp),
                                            requires_grad=False)
         mod.tp = tp
+
+
+def tp_cuts(model: nn.Module) -> dict[str, tuple[TensorParallel, int, int]]:
+    """Every parameter that :func:`shard_params` cut, by its name in
+    ``model.named_parameters()``: ``(tp, dim, halves)`` (:func:`_cut`'s
+    arguments). The train step counts these leaves' squares over the tp
+    group; the train checkpointer gathers and cuts them."""
+    out = {}
+    for name, mod in model.named_modules():
+        pre = f"{name}." if name else ""
+        if isinstance(mod, Linear) and mod.tp is not None:
+            for leaf in _WEIGHT_LEAVES:
+                if isinstance(getattr(mod, leaf, None), nn.Parameter):
+                    out[pre + leaf] = (mod.tp, 0 if mod.tp_kind == COL else 1,
+                                       mod.tp_halves)
+            if mod.tp_kind == COL and mod.bias is not None:
+                out[pre + "bias"] = (mod.tp, 0, mod.tp_halves)
+        elif not isinstance(mod, Linear) and \
+                getattr(mod, "tp", None) is not None:
+            for n in ("q_norm", "k_norm", "norm_q", "norm_k"):
+                if getattr(mod, n, None) is not None:
+                    out[f"{pre}{n}.weight"] = (mod.tp, 0, 1)
+    return out
+
+
+def cut_param(t: torch.Tensor, cut) -> torch.Tensor:
+    """This rank's share of a whole leaf ``t`` (a :func:`tp_cuts` value)."""
+    tp, dim, halves = cut
+    return _cut(t, dim, tp, halves)
+
+
+def gather_param(t: torch.Tensor, cut) -> torch.Tensor:
+    """The whole leaf from every tp rank's share ``t`` (the inverse of
+    :func:`cut_param`; a collective of the tp group)."""
+    from . import comm
+
+    tp, dim, halves = cut
+    with torch.no_grad():
+        whole = comm.all_gather_cat(t, tp.group, dim)
+    if halves == 1:
+        return whole
+    # rank r holds its slice of each half: put the halves back together
+    split = [p.chunk(halves, dim) for p in whole.chunk(tp.size, dim)]
+    return torch.cat([s[i] for i in range(halves) for s in split], dim)
 
 
 def _apply_rules(model: nn.Module, rules, tp: TensorParallel,

@@ -128,12 +128,14 @@ def usp_ltx_forward(
     previous_residual: Optional[torch.Tensor] = None,
     compute: bool = True,
     freqs: Optional[tuple] = None,    # precomputed (cos, sin) [B, N, d]
+    remat: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """This rank's shard of ``(velocity [B, N/p, C_out], residual [B, N/p,
     D])``. Tokens and heads must divide over the sp size, and per-group
     timesteps' group count too (:163-244). RoPE follows the tokens: give
     the step-invariant tables in ``freqs`` (whole or this rank's rows), or
-    each rank computes its rows from its slice of ``indices_grid``."""
+    each rank computes its rows from its slice of ``indices_grid``.
+    ``remat``: the model's per-block checkpointing (the train step)."""
     cfg = model.cfg
     sp = _mesh.axis_size(mesh, axis_name)
     n = latents.shape[1]
@@ -161,5 +163,5 @@ def usp_ltx_forward(
             attn_mode=f"ulysses:{axis_name}:{attn_mode}",
             freqs=freqs,
             previous_residual=_slice(previous_residual, 1, n, sp, r),
-            compute=compute, return_residual=True,
+            compute=compute, return_residual=True, remat=remat,
         )

@@ -211,7 +211,7 @@ def _stubbed_main(monkeypatch, capsys, argv, k3q_d80=0):
         "phase_wan_i2v": [ones] * len(chip_smoke.WAN_I2V_REQUESTS),
         "phase_wan_variants": dict.fromkeys(VARIANT_STUBS, ones),
         "phase_aux": ones,
-        "phase_k2s": 0.0, "phase_mesh": 1,
+        "phase_k2s": 0.0, "phase_mesh": 1, "phase_train": 1.0,
     }
     for name, result in results.items():
         def stub(*args, _name=name, _result=result, **kwargs):
@@ -249,7 +249,7 @@ def test_default_run_drives_every_path_and_ends_with_the_result(
                                    "phase_fp32", "phase_ltx13b",
                                    "phase_load", "phase_cli", "phase_wan",
                                    "phase_wan_variants", "phase_wan_i2v",
-                                   "phase_aux", "phase_mesh"]
+                                   "phase_aux", "phase_mesh", "phase_train"]
     assert json.loads(lines[-1]) == {"ok": True, "device": {
         "platform": "gpu", "kind": "a card", "count": 1}}
     kernels = json.loads(lines[-2])["kernels"]
@@ -287,6 +287,15 @@ def test_mesh_only_runs_the_build_k2s_and_mesh(monkeypatch, capsys):
     code, ran, lines = _stubbed_main(monkeypatch, capsys, ["--mesh-only"])
     assert code == 0
     assert ran == ["phase_device", "phase_build", "phase_k2s", "phase_mesh"]
+    assert not any('"ok"' in ln or '"kernels"' in ln for ln in lines)
+
+
+def test_train_only_runs_the_device_and_train(monkeypatch, capsys):
+    """``--train-only``: the device and [train] (no kernel runs under
+    grad, so nothing is built); no result line."""
+    code, ran, lines = _stubbed_main(monkeypatch, capsys, ["--train-only"])
+    assert code == 0
+    assert ran == ["phase_device", "phase_train"]
     assert not any('"ok"' in ln or '"kernels"' in ln for ln in lines)
 
 
