@@ -6544,6 +6544,7 @@ def _train_rank(rank, world, work):
     from ltx_video_gpupoor_tpu_torch.training import (
         TrainConfig,
         make_train_step,
+        trainer,
     )
 
     comm.set_staged(MESH_STAGED)
@@ -6572,13 +6573,24 @@ def _train_rank(rank, world, work):
                           ref["grads"], cut)
         m = step.update(m)
         torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        staged = dict(comm.staged_counts)
+        # the grads' sum over dp and sp alone, on zeros (the update freed
+        # the grads): the share of the backward that the transport takes
+        for p in step.params.values():
+            p.grad = torch.zeros_like(p)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        trainer._reduce_grads(step.params, mesh)
+        torch.cuda.synchronize()
         out[name] = {"loss": float(m["loss"]),
+                     "reduce_s": time.perf_counter() - t3,
                      "grad_norm": float(m["grad_norm"]),
                      "gap": max(gaps.values()),
                      "worst": max(gaps, key=gaps.get),
                      "backward_s": t1 - t0,
-                     "update_s": time.perf_counter() - t1,
-                     "staged": dict(comm.staged_counts),
+                     "update_s": t2 - t1,
+                     "staged": staged,
                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
         del model, step
         torch.cuda.empty_cache()
@@ -6641,14 +6653,18 @@ def phase_train():
             f"before K1 launches: {e}")
     assert kernel_counts() == counts, "the guard let a kernel launch"
     torch.cuda.reset_peak_memory_stats()
-    losses, norms, secs = [], [], []
+    losses, norms, secs, upd = [], [], [], []
     for _ in range(TRAIN_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        m = step(batch, t=t, eps=eps)
+        m = step.backward(batch, t=t, eps=eps)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        m = step.update(m)
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
         secs.append(time.perf_counter() - t0)
+        upd.append(time.perf_counter() - t1)
     peak = torch.cuda.max_memory_allocated() / 2**30
     assert kernel_counts() == counts, (
         "a hand-written kernel launched under grad", kernel_counts())
@@ -6659,7 +6675,9 @@ def phase_train():
         f"x{TRAIN_SHAPE[2]} ({_train_tokens(TRAIN_SHAPE)} tokens, "
         f"{TRAIN_CAPTION} caption tokens), "
         f"lr {TRAIN_LR}: {sec:.3f} s a step (median after the first; "
-        f"{', '.join(f'{s:.3f}' for s in secs)}), peak {peak:.2f} GiB; "
+        f"{', '.join(f'{s:.3f}' for s in secs)}; of it the update "
+        f"{statistics.median(upd[1:]):.3f} s: clip, AdamW, the norm), peak "
+        f"{peak:.2f} GiB; "
         f"losses {', '.join(f'{x:.6f}' for x in losses)}; grad norms "
         f"{', '.join(f'{x:.4f}' for x in norms)}; no kernel launched "
         f"({card})")
@@ -6741,7 +6759,9 @@ def phase_train():
                     f"process), grad norm {got['grad_norm']:.6f} ({dn:.3g}); "
                     f"grads' relative gap at most {got['gap']:.3g} "
                     f"({got['worst']}; bound {TRAIN_BOUND:g}); backward "
-                    f"{got['backward_s']:.3f} s (one process {t_one:.3f} s), "
+                    f"{got['backward_s']:.3f} s (one process {t_one:.3f} s; "
+                    f"the grads' sum over dp and sp alone "
+                    f"{got['reduce_s']:.3f} s), "
                     f"update {got['update_s']:.3f} s, peak "
                     f"{got['peak_gib']:.2f} GiB a rank; staged calls "
                     f"{got['staged']}")

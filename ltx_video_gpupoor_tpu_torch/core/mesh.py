@@ -250,6 +250,11 @@ def _rank_main(fn, rank, world, backend, store_path, timeout, device, args,
         store = dist.FileStore(store_path, world)
         init_ranks(backend=backend, device=device, timeout=timeout,
                    store=store)
+        # every rank has connected before any goes on: a gloo rank whose
+        # fn returns at once could otherwise exit, closing its sockets,
+        # while a peer is still connecting in init_process_group
+        # ("Connection closed by peer" there)
+        dist.barrier()
         result = fn(rank, world, *args)
         torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
     except BaseException:

@@ -109,9 +109,10 @@ class AdamW:
     b1, b2, weight_decay=weight_decay, mask=decay_mask))`` in optax's
     arithmetic, applied in place one leaf at a time."""
 
+    eps = 1e-8      # optax's adamw default (and eps_root 0)
+
     def __init__(self, tc: TrainConfig):
         self.tc = tc
-        self.eps, self.eps_root = 1e-8, 0.0
 
     def init(self, params: Mapping[str, torch.Tensor]) -> AdamWState:
         zeros = {n: torch.zeros(p.shape, dtype=torch.float32,
@@ -145,8 +146,7 @@ class AdamW:
             mu = (1 - b1) * g + b1 * state.mu[name]
             nu = (1 - b2) * (g ** 2) + b2 * state.nu[name]
             state.mu[name], state.nu[name] = mu, nu
-            u = (mu / bc1) / (torch.sqrt(nu / bc2 + self.eps_root)
-                              + self.eps)
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
             p32 = p.float()
             if decays(name, p):
                 u = u + tc.weight_decay * p32
@@ -325,9 +325,11 @@ def make_train_step(model: LTXTransformer3D, tc: TrainConfig,
     here unless given) in place. Its two halves are ``step.backward``
     (the same arguments: the loss, and each parameter's ``.grad`` in its
     dtype, summed over dp and sp) and ``step.update(metrics)`` (the
-    global norm, the clip and AdamW; the grads are freed). With a
-    ``mesh``, ``model`` is this rank's (``parallel.sharding.shard_params``
-    first) and every rank passes the same global batch and draws."""
+    global norm, the clip and AdamW; the grads are freed);
+    ``step.params`` are the parameters by name, ``step.cuts`` the tp-cut
+    ones (``parallel.sharding.tp_cuts``). With a ``mesh``, ``model`` is
+    this rank's (``parallel.sharding.shard_params`` first) and every rank
+    passes the same global batch and draws."""
     from ..parallel.sharding import tp_cuts
 
     opt = optimizer if optimizer is not None else make_optimizer(tc)
@@ -365,7 +367,5 @@ def make_train_step(model: LTXTransformer3D, tc: TrainConfig,
 
     step.backward, step.update = backward, update
     step.state = state if state is not None else opt.init(params)
-    step.optimizer = opt
-    step.params = params
-    step.cuts = cuts
+    step.params, step.cuts = params, cuts
     return step

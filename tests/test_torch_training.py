@@ -215,12 +215,16 @@ def test_steps_match_jax(params, steps, clip):
             assert (d <= bound[n]).all(), (n, d.max(), i)
 
 
-@pytest.mark.parametrize("clip", [1.0, 1e3], ids=["clipped", "unclipped"])
-def test_optimizer_matches_optax(params, clip):
-    """The port's AdamW and optax's chain on the same grads (the port's
-    own, drawn here), three steps: params, mu, nu, count. The decay mask,
-    the clip above and below its bound and the bias correction are all
-    in the arithmetic."""
+@pytest.mark.parametrize("clip,scale", [(1.0, 0.5), (1e3, 1e-3),
+                                        (1e-6, 1e-7)],
+                         ids=["clipped", "unclipped", "clipped_tiny"])
+def test_optimizer_matches_optax(params, clip, scale):
+    """The port's AdamW and optax's chain on the same grads (drawn here),
+    three steps: params, mu, nu, count. The decay mask, the clip above
+    and below its bound and the bias correction are all in the
+    arithmetic; at a global norm near 1e-5 (``clipped_tiny``) a clip that
+    divided by ``norm + 1e-6``, as ``clip_grad_norm_`` does, would be 10 %
+    off."""
     jtc, ttc = _jax_tc(learning_rate=2e-3, grad_clip=clip)
     update = jax.jit(jtr.make_optimizer(jtc).update)
     jp = params
@@ -233,7 +237,7 @@ def test_optimizer_matches_optax(params, clip):
     names = list(_sd(params))
     for _ in range(3):
         g_sd = {n: gen.standard_normal(tp[n].shape).astype(np.float32)
-                * (0.5 if clip == 1.0 else 1e-3) for n in names}
+                * scale for n in names}
         # the same grads as a JAX tree: a kernel is the weight transposed,
         # the blocks stacked
         g_tree = jax.tree.map(np.zeros_like, jax.tree.map(np.asarray, jp))
@@ -243,7 +247,7 @@ def test_optimizer_matches_optax(params, clip):
         jp = jax.tree.map(lambda p, u: p + u, jp, updates)
         grads = {n: torch.from_numpy(g) for n, g in g_sd.items()}
         norm = ttrainer.global_norm(grads)
-        assert (float(norm) > clip) == (clip == 1.0)
+        assert (float(norm) > clip) == (clip < 1e3)
         topt.update_(tp, grads, state, norm)
     want = _adam(jo)
     assert int(state.count) == int(want.count) == 3

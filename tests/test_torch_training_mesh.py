@@ -145,7 +145,9 @@ def two_ranks(tmp_path_factory, params, jax_steps):
     names = ["dp2", "sp2", "tp2"]
     outs = spawn(tmp_path_factory.mktemp("two"), workers.session, 2,
                  _runs(params, jax_steps, names))
-    return {k: [o[0][i] for o in outs] for i, k in enumerate(names)}
+    out = {k: [o[0][i] for o in outs] for i, k in enumerate(names)}
+    out["collective grads"] = [o[2] for o in outs]
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -199,6 +201,30 @@ def test_sharded_step_matches_jax(request, jax_steps, name):
             assert got.shape == w.shape, n
             assert (np.abs(got - w) <= bound).all(), (
                 n, np.abs(got - w).max())
+
+
+def test_collectives_carry_their_gradients(two_ranks):
+    """The backward of each autograd collective on 2 ranks, for a loss
+    ``sum(out * c_r)`` with ``c_r = r + 1 + arange``: the all-to-all sends
+    each chunk's gradient back to the rank it came from, the all-gather
+    keeps this rank's rows, ``reduce_sum`` passes the gradient on as it
+    is (or sums it over the ranks), ``tp_input`` sums it. Exact."""
+    grads = two_ranks["collective grads"]
+    world = len(grads)
+
+    def c(r, shape):
+        return np.arange(math.prod(shape), dtype=np.float32).reshape(shape) \
+            + r + 1
+    for r, g in enumerate(grads):
+        # rank j's out chunk r came from this rank's chunk j
+        want = np.stack([c(j, (world, 3))[r] for j in range(world)])
+        np.testing.assert_array_equal(g["all_to_all"], want)
+        np.testing.assert_array_equal(g["all_gather_cat"],
+                                      c(r, (2 * world, 3))[2 * r:2 * r + 2])
+        np.testing.assert_array_equal(g["reduce_sum"], c(r, (2, 3)))
+        total = sum(c(j, (2, 3)) for j in range(world))
+        np.testing.assert_array_equal(g["reduce_sum grads"], total)
+        np.testing.assert_array_equal(g["tp_input"], total)
 
 
 def test_restore_one_rank_save_onto_mesh_and_back(eight_ranks):

@@ -83,9 +83,41 @@ def restore_and_save(rank, world, dims, cfg_kw, src, dst):
     return out
 
 
+def collective_grads(rank, world):
+    """The gradient each autograd collective of ``parallel/comm.py`` gives
+    this rank's input, for a loss ``sum(out * c)`` with a rank-distinct
+    ``c = rank + 1 + arange`` (numpy, by collective)."""
+    import torch.distributed as dist
+
+    from ltx_video_gpupoor_tpu_torch.parallel import comm
+
+    group = dist.group.WORLD
+    out = {}
+
+    def grad(fn, shape):
+        x = torch.ones(shape, requires_grad=True)
+        y = fn(x)
+        c = torch.arange(y.numel(), dtype=torch.float32).reshape(y.shape) \
+            + rank + 1
+        (y * c).sum().backward()
+        return x.grad.numpy().copy()
+
+    out["all_to_all"] = grad(lambda x: comm.all_to_all(x, group),
+                             (world, 3))
+    out["all_gather_cat"] = grad(
+        lambda x: comm.all_gather_cat(x, group, 0), (2, 3))
+    out["reduce_sum"] = grad(lambda x: comm.reduce_sum(x, group), (2, 3))
+    out["reduce_sum grads"] = grad(
+        lambda x: comm.reduce_sum(x, group, sum_grads=True), (2, 3))
+    out["tp_input"] = grad(lambda x: comm.tp_input(x, group), (2, 3))
+    return out
+
+
 def session(rank, world, runs, restore=None):
-    """Several ``train_step`` runs in one group (each on a mesh of its
-    own), then ``restore_and_save`` if ``restore`` is given."""
+    """The autograd collectives' grads, then several ``train_step`` runs
+    in one group (each on a mesh of its own), then ``restore_and_save``
+    if ``restore`` is given."""
+    grads = collective_grads(rank, world)
     steps = [train_step(rank, world, *run) for run in runs]
     return steps, (restore_and_save(rank, world, *restore)
-                   if restore is not None else None)
+                   if restore is not None else None), grads
