@@ -215,7 +215,8 @@ def ring_attention_rdma(q_shards, k_shards, v_shards,
     ``out_shards`` if given).
 
     CPU tensors take :func:`ring_attention_plain`; CUDA tensors launch K7
-    (one cooperative launch for the whole ring) or raise. Calls that share
+    (one cooperative launch for the whole ring) or raise (also under
+    autograd: the kernel has no backward). Calls that share
     a shape share a workspace and must be issued on one stream.
     ``_fault=(rank, step)`` makes that rank skip the math of that step: a
     planted fault for the check of the checks."""
@@ -235,8 +236,10 @@ def ring_attention_rdma(q_shards, k_shards, v_shards,
         raise ValueError(f"K7 runs on CUDA or the CPU, not {ref.device}")
     if p > MAX_RANKS:
         raise ValueError(f"K7 takes at most {MAX_RANKS} ranks, got {p}")
-    body = ring_body(ref.dtype, s_loc, d)
     from ..ops import _lib
+
+    _lib.refuse_grad("K7", ref.device, *q_shards, *k_shards, *v_shards)
+    body = ring_body(ref.dtype, s_loc, d)
 
     lib = _lib.library()
     if out_shards is None:

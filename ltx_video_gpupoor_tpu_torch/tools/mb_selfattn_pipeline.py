@@ -94,7 +94,8 @@ def pipelined_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     one's softmax.
 
     CPU tensors take :func:`pipelined_attention_plain`; CUDA tensors (bf16,
-    unit last stride) launch K8 or raise."""
+    unit last stride) launch K8 or raise (also under autograd: the kernel
+    has no backward)."""
     if q.dim() != 4 or q.shape != k.shape or k.shape != v.shape:
         raise ValueError(f"q, k, v must share one [B, H, S, D]: q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
@@ -108,6 +109,8 @@ def pipelined_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"K8 runs on CUDA or the CPU, not {q.device}")
     from ..ops import _lib
     from ..ops.flash_attention import _check_layout
+
+    _lib.refuse_grad("K8", q.device, q, k, v)
 
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_layout("K8", name, t, torch.bfloat16, q.device)

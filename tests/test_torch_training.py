@@ -339,13 +339,14 @@ def test_sample_timesteps_modes():
 
 
 ROUTES = ["K1", "K3", "K4", "K3q", "K6", "K1f exact", "K1f qk8", "K2", "K2s",
-          "K5"]
+          "K5", "K7", "K8"]
 
 
 @pytest.mark.parametrize("route", ROUTES)
 def test_guard_refuses_kernel_routes_under_grad(route):
     """``refuse_grad``, which every kernel dispatch calls on CUDA tensors
-    (``ops/attention.py``, ``ops/quant.py``, ``ops/fused_prologue.py``):
+    (``ops/attention.py``, ``ops/quant.py``, ``ops/fused_prologue.py``, K7's
+    ``parallel/ring_rdma.py`` and K8's ``tools/mb_selfattn_pipeline.py``):
     a kernel route, a CUDA device, grad enabled and an input that requires
     grad raise, naming the route and the ``xla`` tier; each missing
     condition passes."""
