@@ -6349,6 +6349,7 @@ def phase_mesh():
     library is built in this process first, so that no rank builds it.
     Returns the tp forwards' launches of K2's given-scale entry on rank 0.
     """
+    import shutil
     import tempfile
 
     import numpy as np
@@ -6366,90 +6367,93 @@ def phase_mesh():
     torch.cuda.empty_cache()
     work = tempfile.mkdtemp(prefix="mesh_", dir=os.path.join(
         ROOT, "ltx_video_gpupoor_tpu_torch", "build"))
-    os.makedirs(os.path.join(work, "videos"))
+    try:
+        os.makedirs(os.path.join(work, "videos"))
 
-    n = torch.cuda.device_count()
-    t0 = time.perf_counter()
-    backend, dev_type, shape, diff, peak, sec, c = spawn_ranks(
-        _mesh_nccl, n, backend="nccl", timeout=MESH_TIMEOUT, device=None,
-        store_dir=work, threads=0)[0]
-    log(f"[mesh] (a) {n} rank(s), one a card, {backend} on a {dev_type} "
-        f"DeviceMesh {shape}: usp_ltx_forward at sp={n}, LTX-2B "
-        f"{MESH_LTX[1]}x{MESH_LTX[0]}x{MESH_LTX[2]}, 2 streams, against the "
-        f"plain forward: max |diff| {diff:.3g} (max |out| {peak:.3g}); "
-        f"forward {sec:.3f} s, launches {c}; {time.perf_counter() - t0:.1f} "
-        f"s with the start ({card})")
-    assert backend == "nccl" and diff <= MESH_SP_NOISE * peak, diff
+        n = torch.cuda.device_count()
+        t0 = time.perf_counter()
+        backend, dev_type, shape, diff, peak, sec, c = spawn_ranks(
+            _mesh_nccl, n, backend="nccl", timeout=MESH_TIMEOUT, device=None,
+            store_dir=work, threads=0)[0]
+        log(f"[mesh] (a) {n} rank(s), one a card, {backend} on a {dev_type} "
+            f"DeviceMesh {shape}: usp_ltx_forward at sp={n}, LTX-2B "
+            f"{MESH_LTX[1]}x{MESH_LTX[0]}x{MESH_LTX[2]}, 2 streams, against the "
+            f"plain forward: max |diff| {diff:.3g} (max |out| {peak:.3g}); "
+            f"forward {sec:.3f} s, launches {c}; {time.perf_counter() - t0:.1f} "
+            f"s with the start ({card})")
+        assert backend == "nccl" and diff <= MESH_SP_NOISE * peak, diff
 
-    t0 = time.perf_counter()
-    ref_sec = spawn_ranks(_mesh_reference, 1, backend="gloo",
-                          timeout=MESH_TIMEOUT, device=None, store_dir=work,
-                          threads=0, args=(work,))[0]
-    ref = torch.load(os.path.join(work, "reference.pt"))
-    log(f"[mesh] one-process references in {time.perf_counter() - t0:.1f} s: "
-        + ", ".join(f"{k} {v:.3f} s" for k, v in ref_sec.items())
-        + f" ({card})")
+        t0 = time.perf_counter()
+        ref_sec = spawn_ranks(_mesh_reference, 1, backend="gloo",
+                              timeout=MESH_TIMEOUT, device=None, store_dir=work,
+                              threads=0, args=(work,))[0]
+        ref = torch.load(os.path.join(work, "reference.pt"))
+        log(f"[mesh] one-process references in {time.perf_counter() - t0:.1f} s: "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in ref_sec.items())
+            + f" ({card})")
 
-    t0 = time.perf_counter()
-    ranks = spawn_ranks(_mesh_rank, 2, backend="gloo", timeout=MESH_TIMEOUT,
-                        device=None, store_dir=work, threads=0,
-                        args=(work,))
-    log(f"[mesh] (b)-(d) 2 ranks on one card, gloo, staged through pinned "
-        f"host memory {MESH_STAGED}: {time.perf_counter() - t0:.1f} s with "
-        f"the start ({card}); staged calls by rank "
-        f"{[r['staged'] for r in ranks]}")
-    r0 = ranks[0]
-    for name, want in (("ltx sp", "ltx auto"), ("ltx tp", "ltx pallas_hp"),
-                       ("wan sp", "wan"), ("wan tp", "wan")):
-        got, exp = r0["out"][name], ref[want]
-        assert got.shape == exp.shape and torch.isfinite(got).all(), name
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(_mesh_rank, 2, backend="gloo", timeout=MESH_TIMEOUT,
+                            device=None, store_dir=work, threads=0,
+                            args=(work,))
+        log(f"[mesh] (b)-(d) 2 ranks on one card, gloo, staged through pinned "
+            f"host memory {MESH_STAGED}: {time.perf_counter() - t0:.1f} s with "
+            f"the start ({card}); staged calls by rank "
+            f"{[r['staged'] for r in ranks]}")
+        r0 = ranks[0]
+        for name, want in (("ltx sp", "ltx auto"), ("ltx tp", "ltx pallas_hp"),
+                           ("wan sp", "wan"), ("wan tp", "wan")):
+            got, exp = r0["out"][name], ref[want]
+            assert got.shape == exp.shape and torch.isfinite(got).all(), name
+            d = (got - exp).abs().max().item()
+            peak = exp.abs().max().item()
+            db = _psnr_db_float(got, exp)
+            for rank, r in enumerate(ranks):
+                assert r["counts"][name] == MESH_EXPECT[name], (
+                    name, rank, r["counts"][name], MESH_EXPECT[name])
+            bar = (f"bf16 noise: max |diff| <= {MESH_SP_NOISE:.4f} x max |out|"
+                   if "sp" in name else f">= {MESH_TP_DB:.0f} dB")
+            log(f"[mesh] (b) {name} (2 ranks on one card): max |diff| {d:.4g} "
+                f"(max |out| {peak:.4g}, {d / peak:.3g} of it), PSNR {db:.2f} dB "
+                f"(bar: {bar}); forward {r0['sec'][name]:.3f} s (one process "
+                f"{ref_sec[want]:.3f} s); launches "
+                f"a rank {[r['counts'][name] for r in ranks]} (expected "
+                f"{MESH_EXPECT[name]})")
+            if "sp" in name:
+                assert d <= MESH_SP_NOISE * peak, (name, d, peak)
+            else:
+                assert db >= MESH_TP_DB, (name, db)
+        log(f"[mesh] (c) POST / on rank 0, LTXV_TPU_MESH=dp1,sp2,tp1, LTX-2B "
+            f"{MESH_LTX[1]}x{MESH_LTX[0]}x{MESH_LTX[2]}, {MESH_SERVE_STEPS} "
+            f"steps: answered {r0['serve_answer']} in {r0['sec']['serve']:.3f} "
+            f"s (one process {ref_sec['serve']:.3f} s); frames against the "
+            f"one-process request {r0['serve_db']:.2f} dB (bar "
+            f"{MESH_SERVE_DB:.0f})")
+        assert r0["serve_db"] >= MESH_SERVE_DB, r0["serve_db"]
+        got = r0["out"]["wan generate"]
+        exp, seq = ref["wan video spread"], ref["wan video"]
+        assert got.shape == exp.shape == seq.shape and torch.isfinite(got).all()
         d = (got - exp).abs().max().item()
-        peak = exp.abs().max().item()
-        db = _psnr_db_float(got, exp)
-        for rank, r in enumerate(ranks):
-            assert r["counts"][name] == MESH_EXPECT[name], (
-                name, rank, r["counts"][name], MESH_EXPECT[name])
-        bar = (f"bf16 noise: max |diff| <= {MESH_SP_NOISE:.4f} x max |out|"
-               if "sp" in name else f">= {MESH_TP_DB:.0f} dB")
-        log(f"[mesh] (b) {name} (2 ranks on one card): max |diff| {d:.4g} "
-            f"(max |out| {peak:.4g}, {d / peak:.3g} of it), PSNR {db:.2f} dB "
-            f"(bar: {bar}); forward {r0['sec'][name]:.3f} s (one process "
-            f"{ref_sec[want]:.3f} s); launches "
-            f"a rank {[r['counts'][name] for r in ranks]} (expected "
-            f"{MESH_EXPECT[name]})")
-        if "sp" in name:
-            assert d <= MESH_SP_NOISE * peak, (name, d, peak)
-        else:
-            assert db >= MESH_TP_DB, (name, db)
-    log(f"[mesh] (c) POST / on rank 0, LTXV_TPU_MESH=dp1,sp2,tp1, LTX-2B "
-        f"{MESH_LTX[1]}x{MESH_LTX[0]}x{MESH_LTX[2]}, {MESH_SERVE_STEPS} "
-        f"steps: answered {r0['serve_answer']} in {r0['sec']['serve']:.3f} "
-        f"s (one process {ref_sec['serve']:.3f} s); frames against the "
-        f"one-process request {r0['serve_db']:.2f} dB (bar "
-        f"{MESH_SERVE_DB:.0f})")
-    assert r0["serve_db"] >= MESH_SERVE_DB, r0["serve_db"]
-    got = r0["out"]["wan generate"]
-    exp, seq = ref["wan video spread"], ref["wan video"]
-    assert got.shape == exp.shape == seq.shape and torch.isfinite(got).all()
-    d = (got - exp).abs().max().item()
-    log(f"[mesh] (c) Wan t2v-1.3B generate with sp_mesh, "
-        f"{MESH_WAN[1]}x{MESH_WAN[0]}x{MESH_WAN[2]}, {MESH_WAN_STEPS} steps, "
-        f"parallel_spatial_tiled_decode at {MESH_WAN_TILE} px: "
-        f"{r0['sec']['wan generate']:.3f} s (one process, sequential tiles "
-        f"{ref_sec['wan generate']:.3f} s); against one process decoding "
-        f"the same edge-padded tiles: max |diff| {d:.4g} (bar "
-        f"{MESH_SP_NOISE:.4f}, pixels in [-1, 1]); against the sequential "
-        f"tiles (truncated tails): {_psnr_db_float(got, seq):.2f} dB; "
-        f"launches a rank {[r['counts']['wan generate'] for r in ranks]}")
-    assert d <= MESH_SP_NOISE, d
-    d, peak = r0["ring"]
-    log(f"[mesh] (d) ring_attention over 2 ranks, B{MESH_RING[0]} "
-        f"H{MESH_RING[1]} S{MESH_RING[2]} D{MESH_RING[3]} bf16, against K1 on "
-        f"the joined tensors: max |diff| {d:.4g} (max |out| {peak:.4g}; bar "
-        f"{MESH_SP_NOISE:.4f} of it); {r0['sec']['ring']:.3f} s")
-    assert d <= MESH_SP_NOISE * peak, d
-    log(f"[mesh] done in {time.perf_counter() - t_phase:.1f} s ({card})")
-    return sum(r0["counts"][k]["K2s"] for k in ("ltx tp", "wan tp"))
+        log(f"[mesh] (c) Wan t2v-1.3B generate with sp_mesh, "
+            f"{MESH_WAN[1]}x{MESH_WAN[0]}x{MESH_WAN[2]}, {MESH_WAN_STEPS} steps, "
+            f"parallel_spatial_tiled_decode at {MESH_WAN_TILE} px: "
+            f"{r0['sec']['wan generate']:.3f} s (one process, sequential tiles "
+            f"{ref_sec['wan generate']:.3f} s); against one process decoding "
+            f"the same edge-padded tiles: max |diff| {d:.4g} (bar "
+            f"{MESH_SP_NOISE:.4f}, pixels in [-1, 1]); against the sequential "
+            f"tiles (truncated tails): {_psnr_db_float(got, seq):.2f} dB; "
+            f"launches a rank {[r['counts']['wan generate'] for r in ranks]}")
+        assert d <= MESH_SP_NOISE, d
+        d, peak = r0["ring"]
+        log(f"[mesh] (d) ring_attention over 2 ranks, B{MESH_RING[0]} "
+            f"H{MESH_RING[1]} S{MESH_RING[2]} D{MESH_RING[3]} bf16, against K1 on "
+            f"the joined tensors: max |diff| {d:.4g} (max |out| {peak:.4g}; bar "
+            f"{MESH_SP_NOISE:.4f} of it); {r0['sec']['ring']:.3f} s")
+        assert d <= MESH_SP_NOISE * peak, d
+        log(f"[mesh] done in {time.perf_counter() - t_phase:.1f} s ({card})")
+        return sum(r0["counts"][k]["K2s"] for k in ("ltx tp", "wan tp"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 # --------------------------------------------------------------------------
@@ -6544,7 +6548,6 @@ def _train_rank(rank, world, work):
     from ltx_video_gpupoor_tpu_torch.training import (
         TrainConfig,
         make_train_step,
-        trainer,
     )
 
     comm.set_staged(MESH_STAGED)
@@ -6574,23 +6577,13 @@ def _train_rank(rank, world, work):
         m = step.update(m)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        staged = dict(comm.staged_counts)
-        # the grads' sum over dp and sp alone, on zeros (the update freed
-        # the grads): the share of the backward that the transport takes
-        for p in step.params.values():
-            p.grad = torch.zeros_like(p)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        trainer._reduce_grads(step.params, mesh)
-        torch.cuda.synchronize()
         out[name] = {"loss": float(m["loss"]),
-                     "reduce_s": time.perf_counter() - t3,
                      "grad_norm": float(m["grad_norm"]),
                      "gap": max(gaps.values()),
                      "worst": max(gaps, key=gaps.get),
                      "backward_s": t1 - t0,
                      "update_s": t2 - t1,
-                     "staged": staged,
+                     "staged": dict(comm.staged_counts),
                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
         del model, step
         torch.cuda.empty_cache()
@@ -6606,6 +6599,7 @@ def phase_train():
     against the same step on the CPU, a planted fault caught; (c) the
     4-layer cut at 5280 tokens in fp32 on 2 ranks sharing the card (sp=2,
     tp=2) against one process. Returns the seconds a step of (a)."""
+    import shutil
     import statistics
     import tempfile
 
@@ -6727,47 +6721,48 @@ def phase_train():
     # (c) two ranks sharing the card, against one process
     work = tempfile.mkdtemp(prefix="train_", dir=os.path.join(
         ROOT, "ltx_video_gpupoor_tpu_torch", "build"))
-    t0 = time.perf_counter()
-    model = _train_cut_model(TRAIN_MESH_LAYERS, FP32_POLICY, dev, SEED + 32)
-    batch, t, eps = _train_inputs(TRAIN_SHAPE, dev)
-    one = make_train_step(model, TrainConfig(learning_rate=TRAIN_LR),
-                          attn_mode="xla")
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    m = one.backward(batch, t=t, eps=eps)
-    torch.cuda.synchronize()
-    t_one = time.perf_counter() - t1
-    torch.save({"grads": {n: p.grad.cpu() for n, p in one.params.items()}},
-               os.path.join(work, "train_reference.pt"))
-    m = one.update(m)
-    ref = {k: float(m[k]) for k in ("loss", "grad_norm")}
-    del model, one, m
-    gc.collect()
-    torch.cuda.empty_cache()
-    ranks = spawn_ranks(_train_rank, 2, backend="gloo", timeout=TRAIN_TIMEOUT,
-                        device=None, store_dir=work, threads=0, args=(work,))
-    for name in ("sp=2", "tp=2"):
-        for rank, r in enumerate(ranks):
-            got = r[name]
-            dl = abs(got["loss"] - ref["loss"]) / ref["loss"]
-            dn = abs(got["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
-            if rank == 0:
-                log(f"[train] (c) {name}, {TRAIN_MESH_LAYERS}-layer cut, "
-                    f"{_train_tokens(TRAIN_SHAPE)} tokens, fp32, 2 ranks on "
-                    f"one card (gloo, "
-                    f"staged): loss {got['loss']:.6f} ({dl:.3g} from one "
-                    f"process), grad norm {got['grad_norm']:.6f} ({dn:.3g}); "
-                    f"grads' relative gap at most {got['gap']:.3g} "
-                    f"({got['worst']}; bound {TRAIN_BOUND:g}); backward "
-                    f"{got['backward_s']:.3f} s (one process {t_one:.3f} s; "
-                    f"the grads' sum over dp and sp alone "
-                    f"{got['reduce_s']:.3f} s), "
-                    f"update {got['update_s']:.3f} s, peak "
-                    f"{got['peak_gib']:.2f} GiB a rank; staged calls "
-                    f"{got['staged']}")
-            assert max(dl, dn, got["gap"]) <= TRAIN_BOUND, (name, rank, got)
-    log(f"[train] (c) both ranks within the bound; {time.perf_counter() - t0:.1f}"
-        f" s with the reference and the start")
+    try:
+        t0 = time.perf_counter()
+        model = _train_cut_model(TRAIN_MESH_LAYERS, FP32_POLICY, dev, SEED + 32)
+        batch, t, eps = _train_inputs(TRAIN_SHAPE, dev)
+        one = make_train_step(model, TrainConfig(learning_rate=TRAIN_LR),
+                              attn_mode="xla")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        m = one.backward(batch, t=t, eps=eps)
+        torch.cuda.synchronize()
+        t_one = time.perf_counter() - t1
+        torch.save({"grads": {n: p.grad.cpu() for n, p in one.params.items()}},
+                   os.path.join(work, "train_reference.pt"))
+        m = one.update(m)
+        ref = {k: float(m[k]) for k in ("loss", "grad_norm")}
+        del model, one, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        ranks = spawn_ranks(_train_rank, 2, backend="gloo", timeout=TRAIN_TIMEOUT,
+                            device=None, store_dir=work, threads=0, args=(work,))
+        for name in ("sp=2", "tp=2"):
+            for rank, r in enumerate(ranks):
+                got = r[name]
+                dl = abs(got["loss"] - ref["loss"]) / ref["loss"]
+                dn = abs(got["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+                if rank == 0:
+                    log(f"[train] (c) {name}, {TRAIN_MESH_LAYERS}-layer cut, "
+                        f"{_train_tokens(TRAIN_SHAPE)} tokens, fp32, 2 ranks on "
+                        f"one card (gloo, "
+                        f"staged): loss {got['loss']:.6f} ({dl:.3g} from one "
+                        f"process), grad norm {got['grad_norm']:.6f} ({dn:.3g}); "
+                        f"grads' relative gap at most {got['gap']:.3g} "
+                        f"({got['worst']}; bound {TRAIN_BOUND:g}); backward "
+                        f"{got['backward_s']:.3f} s (one process {t_one:.3f} s), "
+                        f"update {got['update_s']:.3f} s, peak "
+                        f"{got['peak_gib']:.2f} GiB a rank; staged calls "
+                        f"{got['staged']}")
+                assert max(dl, dn, got["gap"]) <= TRAIN_BOUND, (name, rank, got)
+        log(f"[train] (c) both ranks within the bound; {time.perf_counter() - t0:.1f}"
+            f" s with the reference and the start")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     log(f"[train] done in {time.perf_counter() - t_phase:.1f} s ({card})")
     return sec
 

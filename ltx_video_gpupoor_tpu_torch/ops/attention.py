@@ -155,10 +155,9 @@ def attention(
     autograd records raises (``_lib.refuse_grad``): training runs
     ``xla``."""
     mode = resolve_mode(mode, score_bound, head_dim=q.shape[-1])
-    if q.is_cuda:
-        _lib.refuse_grad(lambda: kernel_route(
-            mode, dtype=q.dtype, head_dim=q.shape[-1],
-            score_bound=score_bound), q.device, q, k, v)
+    _lib.refuse_grad(lambda: kernel_route(
+        mode, dtype=q.dtype, head_dim=q.shape[-1],
+        score_bound=score_bound), q.device, q, k, v)
     if mode == "pallas_hp":
         # hp serves head-packed callers (attention_packed) only
         mode = "pallas"
@@ -204,10 +203,8 @@ def attention_packed(
     d = hd_total // heads
     mode = resolve_mode(mode, score_bound, head_dim=d)
     if _hp_serves(mode, d, heads, score_bound):
-        if q.is_cuda:
-            _lib.refuse_grad(lambda: kernel_route(
-                mode, dtype=q.dtype, head_dim=d, heads=heads), q.device,
-                q, k, v)
+        _lib.refuse_grad(lambda: kernel_route(
+            mode, dtype=q.dtype, head_dim=d, heads=heads), q.device, q, k, v)
         if k.shape[1] != s or v.shape[1] != s:
             raise ValueError(
                 "attention_packed hp path requires q/k/v of equal length")

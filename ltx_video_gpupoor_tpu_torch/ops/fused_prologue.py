@@ -256,13 +256,13 @@ def norm_mod_int8_matmul(
     ``[M, N]`` in x's dtype. On CUDA tensors that autograd records it
     raises: the kernel has no backward."""
     _check(x, scale, shift, w_int8, w_scale, bias, rows_per_group)
+    _lib.refuse_grad("K5", x.device, x, scale, shift, bias)
     if x.device.type == "cpu":
         return norm_mod_int8_matmul_plain(
             x, scale, shift, w_int8, w_scale, bias,
             rows_per_group=rows_per_group, eps=eps)
     if x.device.type != "cuda":
         raise ValueError(f"K5 runs on CUDA or the CPU, not {x.device}")
-    _lib.refuse_grad("K5", x.device, x, scale, shift, bias)
     _check_cuda(x, scale, shift, w_int8, w_scale, bias)
     out = _launch(x, scale, shift, w_int8, w_scale, bias, rows_per_group, eps,
                   x.dtype)[2]

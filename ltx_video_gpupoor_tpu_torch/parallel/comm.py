@@ -11,19 +11,18 @@ place where ranks meet can be read and counted:
   attention's KV pass, ``batch_isend_irecv``), :func:`broadcast_object`
   (the server's requests).
 
-Under autograd (grad enabled and an input that requires grad) the tensor
-collectives that the train step meets are ``torch.autograd.Function`` classes
-over the same calls, so that the staging below applies in both
-directions: :func:`all_to_all`'s backward is the same exchange (chunk j
-of rank r went to rank j, so its gradient comes back from there);
-:func:`reduce_sum` is an out-of-place SUM whose backward is the identity
-where what follows is the same on every rank (a row-parallel linear's
-output) or a SUM where each rank goes on with its own slice (the q/k
-norms of each rank's heads); :func:`tp_input` is the identity whose
-backward sums the partial input gradients of column-parallel linears;
-:func:`all_gather_cat`'s backward takes this rank's slice. Without grad
-they are the plain calls (in place for :func:`all_reduce`), so serving
-runs exactly what it ran before.
+The tensor collectives that the train step meets are
+``torch.autograd.Function`` classes over the same calls, so that the
+staging below applies in both directions: :func:`all_to_all`'s backward
+is the same exchange (chunk j of rank r went to rank j, so its gradient
+comes back from there); :func:`reduce_sum` is :func:`all_reduce`'s SUM,
+in place, whose backward is the identity where what follows is the same
+on every rank (a row-parallel linear's output) or a SUM where each rank
+goes on with its own slice (the q/k norms of each rank's heads);
+:func:`tp_input` is the identity whose backward sums the partial input
+gradients of column-parallel linears; :func:`all_gather_cat`'s backward
+takes this rank's slice. Without grad, or on inputs that need none,
+autograd records nothing and each is its plain call.
 
 The shared-card transport: NCCL refuses two ranks on one card, so the
 ranks that share one H100 run ``gloo``, whose collectives are written for
@@ -71,11 +70,6 @@ def _host(t: torch.Tensor) -> torch.Tensor:
     return h
 
 
-def _tracked(x: torch.Tensor) -> bool:
-    """Whether autograd records a call on ``x``."""
-    return torch.is_grad_enabled() and x.requires_grad
-
-
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -91,7 +85,8 @@ class _ReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, sum_grads):
         ctx.group, ctx.sum_grads = group, sum_grads
-        return all_reduce(x.contiguous().clone(), group)
+        ctx.mark_dirty(x)
+        return all_reduce(x, group)
 
     @staticmethod
     def backward(ctx, g):
@@ -114,21 +109,19 @@ class _TpInput(torch.autograd.Function):
 class _AllGatherCat(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim):
-        ctx.dim, ctx.n = dim, x.shape[dim]
-        ctx.rank = dist.get_rank(group)
+        ctx.group, ctx.dim, ctx.n = group, dim, x.shape[dim]
         return _all_gather_cat(x, group, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None
+        start = dist.get_rank(ctx.group) * ctx.n
+        return g.narrow(ctx.dim, start, ctx.n), None, None
 
 
 def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     """``x [p, ...]``: chunk j goes to rank j of ``group``; returns ``[p,
     ...]`` whose chunk j came from rank j."""
-    if _tracked(x):
-        return _AllToAll.apply(x, group)
-    return _all_to_all(x, group)
+    return _AllToAll.apply(x, group)
 
 
 def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
@@ -156,14 +149,12 @@ def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
 
 def reduce_sum(x: torch.Tensor, group, sum_grads: bool = False
                ) -> torch.Tensor:
-    """The SUM of ``x`` over ``group``. Under autograd it is out of place,
-    and its backward passes the gradient on as it is (``sum_grads``
-    False: what follows is the same on every rank) or sums it over the
-    group (True: each rank goes on with its own slice). Without grad it is
-    :func:`all_reduce`, in place."""
-    if _tracked(x):
-        return _ReduceSum.apply(x, group, sum_grads)
-    return all_reduce(x, group)
+    """The SUM of ``x`` (contiguous, not a leaf that requires grad) over
+    ``group``, in place as :func:`all_reduce`; returns it. Its backward
+    passes the gradient on as it is (``sum_grads`` False: what follows is
+    the same on every rank) or sums it over the group (True: each rank
+    goes on with its own slice)."""
+    return _ReduceSum.apply(x, group, sum_grads)
 
 
 def tp_input(x: torch.Tensor, group) -> torch.Tensor:
@@ -171,18 +162,14 @@ def tp_input(x: torch.Tensor, group) -> torch.Tensor:
     ``group``. The input of a column-parallel linear is the same on every
     rank, and each rank's product gives only its part of the input's
     gradient."""
-    if _tracked(x):
-        return _TpInput.apply(x, group)
-    return x
+    return _TpInput.apply(x, group)
 
 
 def all_gather_cat(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """Every rank's ``x`` (one shape on all), joined along ``dim`` in rank
     order. Under autograd the backward takes this rank's slice of the
     gradient (what follows is the same on every rank)."""
-    if _tracked(x):
-        return _AllGatherCat.apply(x, group, dim)
-    return _all_gather_cat(x, group, dim)
+    return _AllGatherCat.apply(x, group, dim)
 
 
 def _all_gather_cat(x: torch.Tensor, group, dim: int) -> torch.Tensor:

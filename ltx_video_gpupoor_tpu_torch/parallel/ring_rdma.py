@@ -225,6 +225,9 @@ def ring_attention_rdma(q_shards, k_shards, v_shards,
     b, h, s_loc, d = ref.shape
     if scale is None:
         scale = d ** -0.5
+    from ..ops import _lib
+
+    _lib.refuse_grad("K7", ref.device, *q_shards, *k_shards, *v_shards)
     if ref.device.type == "cpu":
         outs = ring_attention_plain(q_shards, k_shards, v_shards, scale)
         if out_shards is not None:
@@ -236,9 +239,6 @@ def ring_attention_rdma(q_shards, k_shards, v_shards,
         raise ValueError(f"K7 runs on CUDA or the CPU, not {ref.device}")
     if p > MAX_RANKS:
         raise ValueError(f"K7 takes at most {MAX_RANKS} ranks, got {p}")
-    from ..ops import _lib
-
-    _lib.refuse_grad("K7", ref.device, *q_shards, *k_shards, *v_shards)
     body = ring_body(ref.dtype, s_loc, d)
 
     lib = _lib.library()

@@ -102,15 +102,15 @@ def pipelined_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(v.shape)}")
     b, h, s, d = q.shape
     _check_blocks(s, d, block_kv, nsub)
+    from ..ops import _lib
+
+    _lib.refuse_grad("K8", q.device, q, k, v)
     if q.device.type == "cpu":
         return pipelined_attention_plain(q, k, v, block_kv=block_kv,
                                          nsub=nsub)
     if q.device.type != "cuda":
         raise ValueError(f"K8 runs on CUDA or the CPU, not {q.device}")
-    from ..ops import _lib
     from ..ops.flash_attention import _check_layout
-
-    _lib.refuse_grad("K8", q.device, q, k, v)
 
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_layout("K8", name, t, torch.bfloat16, q.device)

@@ -290,11 +290,14 @@ def global_norm(grads: Mapping[str, torch.Tensor], cuts=None
     return torch.sqrt(rep + shd)
 
 
-def _reduce_grads(params: Mapping[str, torch.Tensor], mesh,
-                  bucket: int = 1 << 26) -> None:
-    """Sum every leaf's grad over dp and sp, in fp32 (the partial grads
-    of bf16 leaves are rounded once, after the sum), in flat buckets of
-    up to ``bucket`` values: one all-reduce a bucket and an axis."""
+GRAD_BUCKET = 1 << 26   # values a flat bucket of grads holds (fp32)
+
+
+def _reduce_grads(params: Mapping[str, torch.Tensor], mesh) -> None:
+    """Sum every leaf's grad over dp and sp, in fp32, in flat buckets of
+    up to :data:`GRAD_BUCKET` values: one all-reduce a bucket and an axis.
+    A bf16 leaf's grad is each rank's partial, already rounded to bf16 by
+    its backward; the sum in fp32 is rounded to bf16 once more."""
     grads = []
     for p in params.values():
         if p.grad is None:
@@ -302,8 +305,8 @@ def _reduce_grads(params: Mapping[str, torch.Tensor], mesh,
         grads.append(p.grad)
     while grads:
         n, take = 0, 0
-        while take < len(grads) and (take == 0
-                                     or n + grads[take].numel() <= bucket):
+        while take < len(grads) and (
+                take == 0 or n + grads[take].numel() <= GRAD_BUCKET):
             n += grads[take].numel()
             take += 1
         group, grads = grads[:take], grads[take:]

@@ -45,12 +45,14 @@ plain ring: the CUDA-core body at fp32 atol 2e-5 and bf16 atol 3e-2 (the
 tolerances of the JAX package's tests), the tensor-core body (K1's block)
 at K8's bound at p = 1, 2, 4, 8 and where S/p is an odd multiple of 64;
 each twice in a row on one workspace, so that a call cannot take the
-previous call's flags.
+previous call's flags. Under autograd each wrapper raises, naming its
+route, before its kernel launches (``tests/torch_guard_cases.py``).
 """
 
 import numpy as np
 import pytest
 import torch
+import torch_guard_cases as guard_cases
 
 from ltx_video_gpupoor_tpu_torch.ops import attention as attn
 from ltx_video_gpupoor_tpu_torch.ops import flash_attention as fa
@@ -794,3 +796,15 @@ def test_int4_unpack_on_the_card_equals_the_cpu(cuda):
         torch.testing.assert_close(
             tq.dequantize_int4(on_card, torch.bfloat16).cpu(),
             tq.dequantize_int4(q, torch.bfloat16), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("route", sorted(guard_cases.CASES))
+def test_guard_refuses_under_grad(cuda, route):
+    """A kernel wrapper's call on CUDA tensors that autograd records raises
+    ``RuntimeError`` naming its route and the ``xla`` tier, and no kernel
+    launches (the kernels write outputs with no backward)."""
+    call = guard_cases.CASES[route](cuda)
+    before = guard_cases.launches()
+    with pytest.raises(RuntimeError, match=f"route {route} .*attn_mode='xla'"):
+        call()
+    assert guard_cases.launches() == before

@@ -29,6 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_guard_cases as guard_cases
 
 from ltx_video_gpupoor_tpu import training as jtr
 from ltx_video_gpupoor_tpu.models.ltx.transformer3d import (
@@ -338,29 +339,40 @@ def test_sample_timesteps_modes():
         ttr.sample_timesteps(gen, 4, ttr.TrainConfig(timestep_sampling="x"))
 
 
-ROUTES = ["K1", "K3", "K4", "K3q", "K6", "K1f exact", "K1f qk8", "K2", "K2s",
-          "K5", "K7", "K8"]
+@pytest.mark.parametrize("route", sorted(guard_cases.CASES))
+def test_guard_refuses_kernel_routes_under_grad(route, monkeypatch):
+    """Each kernel wrapper (``ops/attention.py``, ``ops/quant.py``,
+    ``ops/fused_prologue.py``, K7's ``parallel/ring_rdma.py``, K8's
+    ``tools/mb_selfattn_pipeline.py``) calls ``refuse_grad`` with its route
+    and the inputs that require grad before it dispatches: with the guard
+    taking every device for CUDA, the call raises, naming the route and
+    the ``xla`` tier, and no kernel launches. The same calls on the card:
+    ``tests/test_torch_cuda.py::test_guard_refuses_under_grad``."""
+    real = _lib.refuse_grad
+    monkeypatch.setattr(_lib, "refuse_grad",
+                        lambda r, device, *ts: real(r, "cuda", *ts))
+    call = guard_cases.CASES[route]("cpu")
+    before = guard_cases.launches()
+    with pytest.raises(RuntimeError, match=f"route {route} .*attn_mode='xla'"):
+        call()
+    assert guard_cases.launches() == before
 
 
-@pytest.mark.parametrize("route", ROUTES)
-def test_guard_refuses_kernel_routes_under_grad(route):
-    """``refuse_grad``, which every kernel dispatch calls on CUDA tensors
-    (``ops/attention.py``, ``ops/quant.py``, ``ops/fused_prologue.py``, K7's
-    ``parallel/ring_rdma.py`` and K8's ``tools/mb_selfattn_pipeline.py``):
-    a kernel route, a CUDA device, grad enabled and an input that requires
-    grad raise, naming the route and the ``xla`` tier; each missing
-    condition passes."""
+def test_refuse_grad_predicate():
+    """``refuse_grad`` raises only for a kernel route (a name, or a function
+    that gives it) on a CUDA device with grad enabled and an input that
+    requires grad; each missing condition passes."""
     x = torch.ones(2, requires_grad=True)
-    with pytest.raises(RuntimeError, match=f"{route}.*attn_mode='xla'"):
-        _lib.refuse_grad(route, "cuda", None, x)
-    with pytest.raises(RuntimeError, match=route):
-        _lib.refuse_grad(lambda: route, torch.device("cuda", 0), x)
+    with pytest.raises(RuntimeError, match="K1 .*attn_mode='xla'"):
+        _lib.refuse_grad("K1", "cuda", None, x)
+    with pytest.raises(RuntimeError, match="K1"):
+        _lib.refuse_grad(lambda: "K1", torch.device("cuda", 0), x)
     _lib.refuse_grad("xla", "cuda", x)
     _lib.refuse_grad(lambda: "xla", "cuda", x)
-    _lib.refuse_grad(route, "cpu", x)
-    _lib.refuse_grad(route, "cuda", x.detach())
+    _lib.refuse_grad("K1", "cpu", x)
+    _lib.refuse_grad("K1", "cuda", x.detach())
     with torch.no_grad():
-        _lib.refuse_grad(route, "cuda", x)
+        _lib.refuse_grad("K1", "cuda", x)
 
 
 def test_guard_leaves_cpu_routes_differentiable(params):

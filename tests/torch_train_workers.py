@@ -106,9 +106,11 @@ def collective_grads(rank, world):
                              (world, 3))
     out["all_gather_cat"] = grad(
         lambda x: comm.all_gather_cat(x, group, 0), (2, 3))
-    out["reduce_sum"] = grad(lambda x: comm.reduce_sum(x, group), (2, 3))
+    # reduce_sum sums in place, so it takes a copy of the leaf
+    out["reduce_sum"] = grad(lambda x: comm.reduce_sum(x.clone(), group),
+                             (2, 3))
     out["reduce_sum grads"] = grad(
-        lambda x: comm.reduce_sum(x, group, sum_grads=True), (2, 3))
+        lambda x: comm.reduce_sum(x.clone(), group, sum_grads=True), (2, 3))
     out["tp_input"] = grad(lambda x: comm.tp_input(x, group), (2, 3))
     return out
 
