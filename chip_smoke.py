@@ -9,12 +9,15 @@ the Wan VAE encoder, the prompt enhancer (Florence-2-large + Llama-3.2-3B)
 on a served request, the Wan prompt extenders (Qwen2.5-VL-7B,
 Qwen2.5-3B), U2-Net background removal, the legacy LTX VAE, the
 ring-attention kernel and the attention micro-benchmark tool, the
-multi-rank routes, and the flow-matching train step.
+multi-rank routes, and the flow-matching train step; with --cards-only,
+the port on four cards of one host.
 
     python3 chip_smoke.py              # one card; several minutes on an H100
     python3 chip_smoke.py --profile    # and device-time breakdowns
     python3 chip_smoke.py --kernels-only   # phases 1 to 6, no result line
     python3 chip_smoke.py --mesh-only  # build, K2s and [mesh], no result line
+    python3 chip_smoke.py --cards-only # four cards: probe, build, K7 once
+                                       # per card, [cards]; no result line
     python3 chip_smoke.py --train-only     # [train] alone, no result line
 
 Phases, one output line each (or a few):
@@ -145,7 +148,10 @@ Phases, one output line each (or a few):
             fp32 (atol 2e-5) and bf16 (atol 3e-2) through the CUDA-core
             body; on a dp2 x sp2 x tp2 mesh the rings that the neighbour
             ids spell out. Its time line gives the softmax state it moves
-            through device memory.
+            through device memory. Then the per-rank entry (the launch
+            once per card, ring_attention_rdma_rank) at world 1 under a
+            one-rank mesh: bit-equal to the list entry, timed, its own
+            entry in the kernels line.
 5g. K1f    the fp32 attention kernel (FP32_POLICY; each product as three
             TF32 wgmma products, split TF32; the build phase refuses a
             spill or a serialized wgmma in any of its instances)
@@ -346,6 +352,29 @@ Phases, one output line each (or a few):
             TRAIN_BOUND, a planted fault caught; (c) the 4-layer cut's
             sharded step at sp=2 and tp=2 on two gloo ranks sharing the
             card against one process.
+8f. cards  only with --cards-only, on four cards of one host (fails with
+            fewer, or without peer access between every pair): the probe
+            (nvidia-smi topo -m, name and power limit, peer access, a
+            1 GiB copy between cards each way), then on 4 NCCL ranks, one
+            a card: (a) K7 launched once per card over peer-mapped
+            workspaces (a small CUDA-core ring first: each rank stores
+            into its right neighbour's slot and raises a counter in that
+            card's memory), B1 H12 S32768 D128 at sp=4 against each rank's
+            plain ring over NCCL, the one-card ring on card 0, a planted
+            fault, two calls on one workspace, a rank that never launches
+            (the others raise after their bound), and a dp2 x sp2 mesh's
+            two rings; timed beside the per-card bound, ring_attention
+            over NCCL and the one-card ring; (b) the [mesh] forwards of
+            LTX-2B and Wan-1.3B at full width and depth at sp=4, tp=4 and
+            sp2 x tp2 against one process on card 0, with each rank's
+            launches and collective calls (cards_expect) and nothing
+            staged; (c) LTX-13B i2v 1216x704x121 as POST / with
+            LTXV_TPU_MESH=dp1,sp4,tp1 (tier (b), USP in both passes by the
+            all-to-all counts) and Wan t2v-14B 1280x720x81 over tp=4
+            through apply_wan_serving_mesh and the parallel spatial tiled
+            decode, each against the same request in one process on card
+            0 (decoding the same tiles), with seconds by stage, peak GiB
+            and the launches a rank (cards_request_expect).
 9. profile  only with --profile: one more 704x480x121 LTX-2B request, one
             more 13B request of kinds (b), (c) and (d) and one more
             832x480x81 Wan request, each twice under torch.profiler: as it
@@ -653,9 +682,11 @@ def phase_device():
 
 
 # the kernels on wgmma, by a fragment of their mangled names (K7's
-# tensor-core instances are ring_kernel<0, ...>)
+# tensor-core instances are ring_kernel<0, ...> and, once per card,
+# ring_card_kernel<0, ...>)
 WGMMA_KERNELS = ("flash_wgmma_kernel", "int8_gemm_wgmma_kernel",
                  "flash_int8_wgmma_kernel", "ring_kernelILi0E",
+                 "ring_card_kernelILi0E",
                  "flash_pipelined_kernel", "flash_fp32_wgmma_kernel",
                  "k3q_wgmma_kernel")
 # Registers a thread of every instance of K1/K6, K2, K4, K7 and K8 as the
@@ -1867,10 +1898,58 @@ def phase_k7(gen, times, info):
     torch.cuda.synchronize()
     launches = kernel_counts()["K7"]
     assert launches == rr.ring_attention_rdma.launches_tc == 1, launches
+    card = _k7_card_world1(q, k, v, times, info)
     del q, k, v, k1, out
     rr.release_workspaces()      # slots and state of every ring run here
     torch.cuda.empty_cache()
-    return max(errs), launches
+    return max(errs), launches, card
+
+
+def _k7_card_world1(q, k, v, times, info):
+    """K7's per-rank entry (the launch once per card) at world 1, under a
+    one-rank mesh of this process, against the list entry on the same
+    tensors (the same math, one ring step: bit for bit); timed, and its
+    own main-path call counted. Returns (max abs error, launches)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from ltx_video_gpupoor_tpu_torch.core import mesh as M
+    from ltx_video_gpupoor_tpu_torch.parallel import ring_rdma as rr
+
+    fn = rr.ring_attention_rdma_rank
+    b, h, s_, d = q.shape
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("gloo", store=dist.FileStore(
+            os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        try:
+            with M.use_mesh(M.make_mesh(M.MeshConfig(1, 1, 1), "cpu")):
+                card = fn(q, k, v, 1)
+                listed = rr.ring_attention_rdma([q], [k], [v])[0]
+                torch.cuda.synchronize()
+                equal = torch.equal(card, listed)
+                assert equal, "K7 once per card at world 1: not the list entry"
+                plain = rr.ring_attention_plain([q], [k], [v])[0]
+                ratio, err = _exact_check(card, plain)
+                assert ratio <= 1.0, (ratio, err)
+                ms = cuda_time_ms(lambda: fn(q, k, v, 1))
+                reset_kernel_counts()
+                fn(q, k, v, 1)
+                torch.cuda.synchronize()
+                launches = kernel_counts()["K7c"]
+                assert launches == fn.launches_tc == 1, launches
+                assert kernel_counts()["K7"] == 0
+        finally:
+            dist.destroy_process_group()
+    times["K7 card p=1"] = (ms, times["K7 p=1"][1])
+    info["K7 card p=1"] = info["K7 p=1"]
+    log(f"[K7] once per card (ring_attention_rdma_rank) at world 1, B{b} "
+        f"H{h} S{s_} D{d}: bit-equal to the list entry; max_abs_err "
+        f"{err:.3e}, {ratio:.3f} of the bound against the plain ring")
+    log(f"[time] K7 once per card p=1: kernel {ms:.3f} ms (the list entry "
+        f"{times['K7 p=1'][0]:.3f} ms), bound {info['K7 p=1'][0]:.3f} ms")
+    return err, launches
 
 
 def _k5_operands(m, k, n, groups, gen, bias=True):
@@ -3464,6 +3543,8 @@ def kernel_counts():
             "K5": fp.norm_mod_int8_matmul.launches,
             "K6": fa.flash_attention_hp.launches,
             "K7": rr.ring_attention_rdma.launches,
+            # K7 launched once per card (its per-rank entry)
+            "K7c": rr.ring_attention_rdma_rank.launches,
             "K8": mb.pipelined_attention.launches,
             "K1f": fa.flash_attention_fp32.launches}
 
@@ -3490,9 +3571,8 @@ def reset_kernel_counts():
     from ltx_video_gpupoor_tpu_torch.parallel import ring_rdma as rr
     from ltx_video_gpupoor_tpu_torch.tools import mb_selfattn_pipeline as mb
 
-    rr.ring_attention_rdma.launches = 0
-    rr.ring_attention_rdma.launches_tc = 0
-    rr.ring_attention_rdma.launches_simple = 0
+    for fn in (rr.ring_attention_rdma, rr.ring_attention_rdma_rank):
+        fn.launches = fn.launches_tc = fn.launches_simple = 0
     mb.pipelined_attention.launches = 0
 
 
@@ -5021,11 +5101,12 @@ def _resident_bytes(module):
                for t in module.state_dict().values())
 
 
-def build_wan_i2v_dit(mode, keep_cut=False):
-    """Wan 2.1 i2v-14B at full width and depth, built one block at a time
-    from the seed and quantized to ``mode`` as it goes (the same weights
-    in every tier); with ``keep_cut`` also the dense bf16 weights of its
-    first two blocks and of everything outside the blocks, on the CPU."""
+def build_wan_i2v_dit(mode, keep_cut=False, cfg=None):
+    """Wan 2.1 i2v-14B (or ``cfg``, the t2v-14B of [cards]) at full width
+    and depth, built one block at a time from the seed and quantized to
+    ``mode`` as it goes (the same weights in every tier); with
+    ``keep_cut`` also the dense bf16 weights of its first two blocks and
+    of everything outside the blocks, on the CPU."""
     import dataclasses
 
     import torch
@@ -5036,7 +5117,7 @@ def build_wan_i2v_dit(mode, keep_cut=False):
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    cfg = wm.WAN_I2V_14B
+    cfg = cfg or wm.WAN_I2V_14B
     g = torch.Generator(device=dev).manual_seed(SEED + 30)
     dit = wm.init_params(wm.WanModel(
         dataclasses.replace(cfg, num_layers=0), DEFAULT_POLICY, device=dev),
@@ -5055,7 +5136,8 @@ def build_wan_i2v_dit(mode, keep_cut=False):
                               for k, v in blk.state_dict().items()})
         dit.blocks.append(quantize_params(blk, mode=mode))
     torch.cuda.synchronize()
-    log(f"[wan_i2v] built i2v-14B ({cfg.num_layers} layers, dim {cfg.dim}, "
+    log(f"[wan_i2v] built {cfg.model_type}-14B ({cfg.num_layers} layers, "
+        f"dim {cfg.dim}, "
         f"{cfg.num_heads}x{cfg.head_dim} heads, ffn {cfg.ffn_dim}, in_dim "
         f"{cfg.in_dim}; layer by layer) in tier {mode}: resident "
         f"{_resident_bytes(dit) / 1e9:.3f} GB (dense bf16 would be "
@@ -6278,7 +6360,8 @@ def _mesh_nccl(rank, world):
 
 def _k2s_check(x, s_x, w, sw, plain_codes):
     """K2's given-scale entry against its plain version: codes bit for bit
-    (zeros past K), the output bit for bit."""
+    (zeros past K), the int32 accumulator (what a row-parallel linear's
+    ranks sum) and the output bit for bit."""
     import torch
 
     from ltx_video_gpupoor_tpu_torch.ops import int8_matmul as im
@@ -6287,6 +6370,10 @@ def _k2s_check(x, s_x, w, sw, plain_codes):
     codes = im.quantize_rows_scaled(x, s_x)
     if not (torch.equal(codes[:, :k], plain_codes)
             and bool((codes[:, k:] == 0).all())):
+        return False, float("inf")
+    acc = im.int8_linear_scaled(x, s_x, w, sw, out_dtype=torch.int32)
+    if not torch.equal(acc, im.int8_linear_scaled_plain(
+            x, s_x, w, sw, out_dtype=torch.int32).to(acc.dtype)):
         return False, float("inf")
     y = im.int8_linear_scaled(x, s_x, w, sw)
     yp = im.int8_linear_scaled_plain(x, s_x, w, sw)
@@ -6321,8 +6408,9 @@ def phase_k2s(gen, times, info):
         assert not _k2s_check(x, s_x, w, sw, planted)[0], \
             "the planted fault passed K2's given-scale check"
         err = max(err, diff)
-        log(f"[K2s] {name} M={m} K={k} N={n}: codes and output equal the "
-            f"plain version's bit for bit; planted fault caught")
+        log(f"[K2s] {name} M={m} K={k} N={n}: codes, int32 accumulator and "
+            f"output equal the plain version's bit for bit; planted fault "
+            f"caught")
         if name == MESH_K2S_TIMED:
             key = f"K2s {name}"
             kern = cuda_time_ms(lambda: im.int8_linear_scaled(x, s_x, w, sw))
@@ -6454,6 +6542,937 @@ def phase_mesh():
         return sum(r0["counts"][k]["K2s"] for k in ("ltx tp", "wan tp"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+# --------------------------------------------------------------------------
+# [cards]: the port on four cards of one host, one rank a card over NCCL
+# --------------------------------------------------------------------------
+
+CARDS = 4
+CARDS_TIMEOUT = 900.0
+# (a) K7 once per card: a small CUDA-core ring first (the probe's
+# cross-process write-then-flag: each rank stores its kv block into its
+# right neighbour's peer-mapped slot and raises a counter there), then
+# RING_SHAPE over sp=4, and the rings of a dp2 x sp2 mesh
+CARDS_RING_SMALL = (1, 2, 256, 32)       # fp32, S/p = 64
+CARDS_RING_MESH = (2, 2, 1)               # dp, sp, tp
+CARDS_RING_MESH_SHAPE = (1, 12, 8192, 128)
+CARDS_SKIP_TIMEOUT_S = 0.5                # a spin's bound while a rank skips
+CARDS_NVLINK_BYTES = 1 << 30              # the probe's copy between cards
+# (b) the [mesh] forwards at 4 ranks: layout -> (dp, sp, tp)
+CARDS_LAYOUTS = {"sp4": (1, 4, 1), "tp4": (1, 1, 4), "sp2tp2": (1, 2, 2)}
+# (c) LTX-13B at its published resolution over sp=4 as POST /, tier (b);
+# Wan 2.1 t2v-14B at 720p over tp=4 (21 latent frames do not divide sp=4)
+CARDS_LTX13B = (704, 1216, 121)           # (H, W, F)
+CARDS_LTX13B_MESH = "dp1,sp4,tp1"
+CARDS_LTX13B_STEPS = (7, 3)               # ltxv-13b-0.9.7-distilled's passes
+# the decode's tiles on 4 ranks at that size (LTXPipeline._decode_tiles:
+# temporal tiles of 4 latent frames, spatial ones of 256 px)
+CARDS_LTX13B_TILES = (4, 256)
+CARDS_WAN14B = (720, 1280, 81)
+CARDS_WAN14B_MESH = "dp1,sp1,tp4"
+CARDS_WAN14B_STEPS = 2
+
+# linears a DiT forward runs through K2 in the dynamic tier: a block's ten
+# (q, k, v, o of both attentions, the FFN's two), of which three are
+# row-parallel under tp (both attentions' o, the FFN's second: K2's
+# given-scale entry); outside the blocks LTX's patchify, caption
+# projection (2), adaLN (3) and proj_out, Wan's T2V_LINEARS[1]
+CARDS_LINEARS = {"ltx": 7, "wan": T2V_LINEARS[1]}
+BLOCK_LINEARS, ROW_PARALLEL = T2V_LINEARS[0], 3
+# collective calls a block makes: Ulysses' four all-to-alls (q, k, v out,
+# the result back) under sp; under tp the all-reduces of the row-parallel
+# int8 linears (the row amax, then the sum) and of the q/k norms of both
+# attentions over this rank's heads, in LTX and in Wan alike
+TP_BLOCK_REDUCES = 2 * ROW_PARALLEL + 4
+
+
+def cards_mode(kind, layout):
+    """The attention tier of a forward, as [mesh] runs it: ``pallas_hp``
+    for LTX under tp alone, else ``auto``."""
+    return "pallas_hp" if kind == "ltx" and layout == "tp4" else "auto"
+
+
+def cards_expect(kind, layout, layers):
+    """What one forward of an LTX or a Wan DiT of ``layers`` blocks makes
+    on each rank under ``layout`` (:data:`CARDS_LAYOUTS`), its result
+    joined over sp: kernel launches (LTX-2B at head dim 64: K1 for every
+    attention under ``auto``, K6 + K1 under ``pallas_hp``; Wan: K4) and
+    collective calls (``comm.call_counts``)."""
+    _, sp, tp = CARDS_LAYOUTS[layout]
+    mode = cards_mode(kind, layout)
+    linears = BLOCK_LINEARS * layers + CARDS_LINEARS[kind]
+    row = ROW_PARALLEL * layers if tp > 1 else 0
+    k = {"K1": 0, "K2": linears - row, "K2s": row, "K4": 0, "K6": 0}
+    if kind == "wan":
+        k["K4"] = 2 * layers
+    elif mode == "pallas_hp":
+        k["K6"] = k["K1"] = layers
+    else:
+        k["K1"] = 2 * layers
+    c = {}
+    if sp > 1:
+        c["all_to_all"] = 4 * layers
+        c["all_gather"] = 1
+    if tp > 1:
+        c["all_reduce"] = TP_BLOCK_REDUCES * layers
+    return k, c
+
+
+def cards_meshes():
+    """The meshes of :data:`CARDS_LAYOUTS` over the started group, built
+    once (every rank builds them alike, in one order), their groups warm."""
+    from ltx_video_gpupoor_tpu_torch.core.mesh import MeshConfig, make_mesh
+
+    meshes = {name: make_mesh(MeshConfig(*dims))
+              for name, dims in CARDS_LAYOUTS.items()}
+    for mesh in meshes.values():
+        _warm_groups(mesh)
+    return meshes
+
+
+def _warm_groups(mesh):
+    """One all-reduce on each axis group of ``mesh`` that spans several
+    ranks: NCCL sets a group's communicator up at its first collective
+    (seconds), which is start-up, not part of the forward or the request
+    timed next."""
+    import torch
+    import torch.distributed as dist
+
+    for i, name in enumerate(mesh.mesh_dim_names):
+        if mesh.size(i) > 1:
+            dist.all_reduce(torch.zeros(1, device="cuda"),
+                            group=mesh.get_group(name))
+    torch.cuda.synchronize()
+
+
+def cards_forward(mesh, layout, kind, model, inputs):
+    """One forward of ``model`` (built whole on this rank) under
+    ``layout``: sp cuts its tokens (LTX) or frames (Wan) with USP, tp cuts
+    its weights in place; returns the output joined over sp."""
+    from ltx_video_gpupoor_tpu_torch.parallel.sharding import (
+        shard_params,
+        shard_wan_params,
+    )
+    from ltx_video_gpupoor_tpu_torch.parallel.usp import (
+        gather,
+        usp_ltx_forward,
+        usp_wan_forward,
+    )
+
+    _, sp, tp = CARDS_LAYOUTS[layout]
+    mode = cards_mode(kind, layout)
+    if tp > 1:
+        (shard_params if kind == "ltx" else shard_wan_params)(mesh, model)
+    if kind == "ltx":
+        if sp > 1:
+            return gather(mesh, usp_ltx_forward(mesh, model, *inputs,
+                                                attn_mode=mode)[0], 1)
+        return model(*inputs, attn_mode=mode)
+    x, t, ctx, mask, freqs = inputs
+    if sp > 1:
+        return gather(mesh, usp_wan_forward(mesh, model, x, t, ctx, mask,
+                                            freqs, attn_mode=mode)[0], 1)
+    return model(x, t, ctx, mask, freqs, attn_mode=mode)[0]
+
+
+def _cards_counts():
+    from ltx_video_gpupoor_tpu_torch.parallel import comm
+
+    return _mesh_counts(), dict(comm.call_counts)
+
+
+def _cards_reset():
+    from ltx_video_gpupoor_tpu_torch.parallel import comm
+
+    _mesh_reset()
+    comm.reset_counts()
+
+
+def phase_cards_probe():
+    """The host: four cards at least (fails, never skips, with fewer), the
+    topology, every card's name and power limit, peer access between
+    every pair (fails where one lacks it), and a copy between cards
+    (cudaMemcpyPeer through ``Tensor.copy_``) each way, timed."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < CARDS:
+        raise RuntimeError(f"[cards] needs {CARDS} CUDA devices of one host, "
+                           f"this process sees {n}")
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                          text=True).stdout.rstrip()
+    log("[cards] nvidia-smi topo -m:\n" + topo)
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip().splitlines()
+    log(f"[cards] {n} cards: " + "; ".join(cards))
+    peer = {(i, j): torch.cuda.can_device_access_peer(i, j)
+            for i in range(CARDS) for j in range(CARDS) if i != j}
+    log("[cards] peer access (torch.cuda.can_device_access_peer): "
+        + ", ".join(f"{i}->{j} {'yes' if ok else 'NO'}"
+                    for (i, j), ok in peer.items()))
+    missing = [pair for pair, ok in peer.items() if not ok]
+    if missing:
+        raise RuntimeError(f"[cards] no peer access between cards {missing}: "
+                           "K7 once per card needs it between neighbours")
+    rates = []
+    for i, j in ((0, 1), (1, 0), (0, 2), (0, 3)):
+        src = torch.empty(CARDS_NVLINK_BYTES, dtype=torch.uint8,
+                          device=f"cuda:{i}")
+        dst = torch.empty_like(src, device=f"cuda:{j}")
+        dst.copy_(src)
+        torch.cuda.synchronize(i)
+        torch.cuda.synchronize(j)
+        reps = 5
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            dst.copy_(src)
+        torch.cuda.synchronize(i)
+        torch.cuda.synchronize(j)
+        rates.append((i, j, reps * CARDS_NVLINK_BYTES
+                      / (time.perf_counter() - t0) / 1e9))
+        del src, dst
+    for d in range(CARDS):
+        with torch.cuda.device(d):
+            torch.cuda.empty_cache()
+    log("[cards] a 1 GiB copy between cards (Tensor.copy_, host clock over "
+        "5): " + ", ".join(f"{i}->{j} {r:.1f} GB/s" for i, j, r in rates)
+        + " (NVLink: 450 GB/s each way by the data sheet)")
+    return cards[0], rates
+
+
+def _cards_k7_rank(rank, world, work):
+    """(a) K7 once per card on this rank's card. Returns, for rank 0, the
+    checks and times; every rank raises on a failed check."""
+    import torch
+    import torch.distributed as dist
+
+    from ltx_video_gpupoor_tpu_torch.core import mesh as M
+    from ltx_video_gpupoor_tpu_torch.ops import _lib
+    from ltx_video_gpupoor_tpu_torch.ops import flash_attention as fa
+    from ltx_video_gpupoor_tpu_torch.parallel import comm
+    from ltx_video_gpupoor_tpu_torch.parallel import ring_attention as ra
+    from ltx_video_gpupoor_tpu_torch.parallel import ring_rdma as rr
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    res = {"card": dev.index}
+    sp_mesh = M.make_mesh(M.MeshConfig(1, world, 1))
+    group = M.axis_group(sp_mesh, "sp")
+    fn = rr.ring_attention_rdma_rank
+
+    # the smallest ring: the CUDA-core body in fp32, twice on one workspace
+    g = torch.Generator(device=dev).manual_seed(SEED + 40)
+    q, k, v = (torch.randn(CARDS_RING_SMALL, generator=g, device=dev)
+               for _ in range(3))
+    with M.use_mesh(sp_mesh):
+        parts = [t.chunk(world, dim=2)[rank].contiguous() for t in (q, k, v)]
+        plain = rr.ring_attention_rank_plain(*parts, group)
+        for call in range(2):
+            out = fn(*parts, world)
+            err = (out - plain).abs().max().item()
+            assert err <= 2e-5, ("K7 card small", rank, call, err)
+    assert fn.launches_simple == 2
+    res["small"] = err
+
+    # RING_SHAPE over sp=4: against the plain ring of this rank (the same
+    # ring over NCCL in plain torch), twice on one workspace, a planted
+    # fault, a rank that does not launch
+    b, h, s, d = RING_SHAPE
+    g = torch.Generator(device=dev).manual_seed(SEED + 41)
+    q, k, v = (_heads(b, h, s, d, g, True) for _ in range(3))
+    parts = [t.chunk(world, dim=2)[rank] for t in (q, k, v)]
+    with M.use_mesh(sp_mesh):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = rr.ring_attention_rank_plain(*parts, group)
+        torch.cuda.synchronize()
+        res["plain_s"] = time.perf_counter() - t0
+        for call in range(2):
+            out = fn(*parts, world)
+            ratio, err = _exact_check(out, plain)
+            assert ratio <= 1.0, ("K7 card", rank, call, err, ratio)
+        res["err"], res["ratio"] = err, ratio
+        bad = fn(*parts, world, _fault=(1, 1))
+        fault, _ = _exact_check(bad, plain)
+        res["fault"] = fault
+        again, _ = _exact_check(fn(*parts, world), plain)
+        assert again <= 1.0, ("K7 card after the fault", rank, again)
+        res["again"] = again
+        joined = comm.all_gather_cat(out, group, 2)
+        # timed: this rank's launch (the call waits for its end), the ring
+        # of parallel/ring_attention.py over NCCL, and SDPA on this rank's
+        # q against the whole k and v
+        ms = cuda_time_ms(lambda: fn(*parts, world))
+        nccl = cuda_time_ms(lambda: ra.ring_attention(*parts, mesh=sp_mesh),
+                            reps=3, warmup=1)
+        sdpa = cuda_time_ms(lambda: torch.nn.functional.
+                            scaled_dot_product_attention(parts[0], k, v))
+        res["ms"], res["nccl_ms"], res["sdpa_ms"] = ms, nccl, sdpa
+        # the main path's own run: the sharded entry, counts from zero
+        reset_kernel_counts()
+        main = rr.ring_attention_rdma_rank_sharded(sp_mesh, q, k, v)
+        torch.cuda.synchronize()
+        res["launches"] = (fn.launches, fn.launches_tc,
+                           rr.ring_attention_rdma.launches)
+        assert res["launches"] == (1, 1, 0), res["launches"]
+        assert torch.equal(main, joined), "the sharded entry's result"
+        # a rank that never launches: the others give up after their bound
+        # and raise; every rank then drops its workspaces and starts anew
+        dist.barrier()
+        raised = None
+        if rank != world - 1:
+            try:
+                fn(*parts, world, _timeout_s=CARDS_SKIP_TIMEOUT_S)
+            except RuntimeError as e:
+                raised = str(e)
+            assert raised is not None, "K7 card: a missing rank passed"
+        res["skip"] = raised
+        dist.barrier()
+        rr.release_workspaces()
+        dist.barrier()
+        fresh, _ = _exact_check(fn(*parts, world), plain)
+        assert fresh <= 1.0, ("K7 card after a skipped rank", rank, fresh)
+        res["fresh"] = fresh
+    # against the one-card ring (the whole ring in one launch on card 0)
+    if rank == 0:
+        one = rr.ring_attention_rdma_sharded(q, k, v, world)
+        torch.cuda.synchronize()
+        res["one_card"] = _exact_check(joined, one)
+        res["one_card_equal"] = torch.equal(joined, one)
+        res["one_card_ms"] = cuda_time_ms(
+            lambda: rr.ring_attention_rdma_sharded(q, k, v, world))
+        res["k1_ms"] = cuda_time_ms(lambda: fa.flash_attention(q, k, v))
+    del q, k, v, plain, out, joined, main
+    dist.barrier()
+    rr.release_workspaces()
+
+    # a dp2 x sp2 mesh: two rings (global ranks 0, 1 and 2, 3), each on its
+    # dp row's data
+    dp_mesh = M.make_mesh(M.MeshConfig(*CARDS_RING_MESH))
+    row = M.axis_rank(dp_mesh, "dp")
+    b, h, s, d = CARDS_RING_MESH_SHAPE
+    g = torch.Generator(device=dev).manual_seed(SEED + 42 + row)
+    q, k, v = (_heads(b, h, s, d, g, True) for _ in range(3))
+    with M.use_mesh(dp_mesh):
+        my = M.axis_rank(dp_mesh, "sp")
+        parts = [t.chunk(2, dim=2)[my] for t in (q, k, v)]
+        mesh_axes = tuple((n, M.axis_size(dp_mesh, n))
+                          for n in dp_mesh.mesh_dim_names)
+        out = fn(*parts, 2, "sp", mesh_axes)
+        plain = rr.ring_attention_rank_plain(*parts,
+                                             M.axis_group(dp_mesh, "sp"))
+        ratio, err = _exact_check(out, plain)
+        assert ratio <= 1.0, ("K7 card dp2 x sp2", rank, err, ratio)
+        coords = {n: M.axis_rank(dp_mesh, n) for n in dp_mesh.mesh_dim_names}
+        res["mesh"] = (rr.ring_neighbours(mesh_axes, "sp", coords), err,
+                       ratio)
+    dist.barrier()
+    rr.release_workspaces()
+    torch.cuda.synchronize()
+    return res
+
+
+def phase_cards_k7(card):
+    """(a) K7 once per card on 4 NCCL ranks, one a card (the kernel library
+    built in this process first); returns its numbers."""
+    from ltx_video_gpupoor_tpu_torch.core.mesh import spawn_ranks
+    from ltx_video_gpupoor_tpu_torch.ops import _lib
+    from ltx_video_gpupoor_tpu_torch.ops import flash_attention as fa
+
+    _lib.library()
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(_cards_k7_rank, CARDS, backend="nccl",
+                        timeout=CARDS_TIMEOUT, device=None, threads=0,
+                        args=(None,))
+    r0 = ranks[0]
+    b, h, s, d = RING_SHAPE
+    bnd = attention_bound(b, h, s // CARDS, s, d)
+    flops = fa.attention_flops(b, h, s // CARDS, s, d)
+    log(f"[cards] (a) K7 once per card, {CARDS} NCCL ranks on cards "
+        f"{[r['card'] for r in ranks]}: the CUDA-core body B{CARDS_RING_SMALL[0]} "
+        f"H{CARDS_RING_SMALL[1]} S{CARDS_RING_SMALL[2]} D{CARDS_RING_SMALL[3]} "
+        f"fp32 (each rank stores its kv block into its right neighbour's "
+        f"peer-mapped slot and raises a counter in that card's memory): max "
+        f"|diff| {max(r['small'] for r in ranks):.3e} against the plain ring "
+        f"(atol 2e-5), two calls ok")
+    log(f"[cards] (a) K7 once per card B{b} H{h} S{s} D{d} bf16 at sp={CARDS} "
+        f"(S/p={s // CARDS}): max_abs_err "
+        f"{max(r['err'] for r in ranks):.3e}, "
+        f"{max(r['ratio'] for r in ranks):.3f} of the bound against each "
+        f"rank's plain ring over NCCL, two calls on one workspace; rank 1 "
+        f"skipping step 1 fails it ({max(r['fault'] for r in ranks):.1f} of "
+        f"the bound on some rank), the next call passes "
+        f"({max(r['again'] for r in ranks):.3f}); against the one-card ring "
+        f"(one launch on card 0) {r0['one_card'][0]:.3f} of the bound "
+        f"(bit-equal: {r0['one_card_equal']}); a rank that does not launch: "
+        f"the others raise after {CARDS_SKIP_TIMEOUT_S} s "
+        f"({ranks[0]['skip']!r}), and after release_workspaces() the ring "
+        f"passes again ({max(r['fresh'] for r in ranks):.3f})")
+    assert max(r["fault"] for r in ranks) > 1.0, \
+        "K7 once per card: the check passes a skipped ring step"
+    assert r0["one_card"][0] <= 1.0, r0["one_card"]
+    rings = sorted({tuple(sorted({i, *r["mesh"][0]})) for i, r in
+                    enumerate(ranks)})
+    log(f"[cards] (a) dp2 x sp2 mesh: (left, right) by rank "
+        f"{[r['mesh'][0] for r in ranks]} (rings {rings}), each rank against "
+        f"its ring's plain version: max_abs_err "
+        f"{max(r['mesh'][1] for r in ranks):.3e}, "
+        f"{max(r['mesh'][2] for r in ranks):.3f} of the bound")
+    assert [r["mesh"][0] for r in ranks] == [(1, 1), (0, 0), (3, 3), (2, 2)]
+    ms = max(r["ms"] for r in ranks)
+    log(f"[time] K7 once per card, sp={CARDS}, B{b} H{h} S{s} D{d}: a rank's "
+        f"launch {ms:.3f} ms (slowest rank; by rank "
+        f"{[round(r['ms'], 3) for r in ranks]}; {flops / ms / 1e9:.1f} "
+        f"TFLOP/s a card), bound {bnd[0]:.3f} ms ({bnd[1]}) a card; "
+        f"parallel/ring_attention.py over NCCL "
+        f"{max(r['nccl_ms'] for r in ranks):.3f} ms; the plain ring over "
+        f"NCCL {1e3 * max(r['plain_s'] for r in ranks):.3f} ms (one call); "
+        f"the one-card ring at p={CARDS} on card 0 {r0['one_card_ms']:.3f} "
+        f"ms; one K1 call on the joined tensors {r0['k1_ms']:.3f} ms; SDPA "
+        f"of a rank's q against the whole k, v "
+        f"{max(r['sdpa_ms'] for r in ranks):.3f} ms; launches on the main "
+        f"path a rank {[r['launches'][0] for r in ranks]} ({card}); "
+        f"{time.perf_counter() - t0:.1f} s with the start")
+    return {"launches": r0["launches"][0], "err": max(r["err"] for r in ranks),
+            "ms": ms, "plain_ms": 1e3 * max(r["plain_s"] for r in ranks),
+            "bound": bnd, "sdpa_ms": max(r["sdpa_ms"] for r in ranks)}
+
+
+def _cards_models(kind):
+    """LTX-2B or Wan t2v-1.3B at full width and depth, whole, from [mesh]'s
+    seeds, with [mesh]'s inputs."""
+    if kind == "ltx":
+        return _mesh_ltx_model(), _mesh_ltx_inputs()
+    return _mesh_wan_model(), _mesh_wan_inputs()
+
+
+def _cards_forward_reference(rank, world, work):
+    """(b) one process on card 0: each model's forward in each layout's
+    tier, whole; into ``work``."""
+    import torch
+
+    ref, sec = {}, {}
+    with torch.no_grad():
+        for kind in ("ltx", "wan"):
+            model, inputs = _cards_models(kind)
+            for mode in sorted({cards_mode(kind, lay)
+                                for lay in CARDS_LAYOUTS}):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = model(*inputs, attn_mode=mode)
+                if kind == "wan":
+                    out = out[0]
+                torch.cuda.synchronize()
+                sec[f"{kind} {mode}"] = time.perf_counter() - t0
+                ref[f"{kind} {mode}"] = out.float().cpu()
+            del model, inputs
+            torch.cuda.empty_cache()
+    torch.save(ref, os.path.join(work, "forwards.pt"))
+    return sec
+
+
+def _cards_forward_rank(rank, world, work):
+    """(b) a rank of 4 (NCCL, one a card): each model's forward in each
+    layout; rank 0 keeps the outputs, every rank its launches, collective
+    calls and seconds."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.parallel import comm
+
+    meshes = cards_meshes()
+    res = {"out": {}, "sec": {}, "counts": {}, "calls": {}}
+    with torch.no_grad():
+        for kind in ("ltx", "wan"):
+            for layout in CARDS_LAYOUTS:
+                model, inputs = _cards_models(kind)
+                name = f"{kind} {layout}"
+                torch.cuda.synchronize()
+                _cards_reset()
+                t0 = time.perf_counter()
+                out = cards_forward(meshes[layout], layout, kind, model,
+                                    inputs)
+                torch.cuda.synchronize()
+                res["sec"][name] = time.perf_counter() - t0
+                res["counts"][name], res["calls"][name] = _cards_counts()
+                if rank == 0:
+                    res["out"][name] = out.float().cpu()
+                del model, inputs, out
+                torch.cuda.empty_cache()
+    res["staged"] = dict(comm.staged_counts)
+    res["peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return res
+
+
+def phase_cards_forwards(card, work):
+    """(b) LTX-2B and Wan-1.3B forwards at full width and depth at sp=4,
+    tp=4 and sp2 x tp2 on 4 NCCL ranks, against one process on card 0."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.core.mesh import spawn_ranks
+
+    t0 = time.perf_counter()
+    ref_sec = spawn_ranks(_cards_forward_reference, 1, backend="gloo",
+                          timeout=CARDS_TIMEOUT, device=None, threads=0,
+                          args=(work,))[0]
+    ref = torch.load(os.path.join(work, "forwards.pt"))
+    t1 = time.perf_counter()
+    ranks = spawn_ranks(_cards_forward_rank, CARDS, backend="nccl",
+                        timeout=CARDS_TIMEOUT, device=None, threads=0,
+                        args=(work,))
+    log(f"[cards] (b) one process on card 0 in {t1 - t0:.1f} s, {CARDS} "
+        f"NCCL ranks in {time.perf_counter() - t1:.1f} s with their start "
+        f"({card}); staged calls by rank {[r['staged'] for r in ranks]}")
+    assert all(r["staged"] == {} for r in ranks), "NCCL staged a collective"
+    r0 = ranks[0]
+    for kind, layers in (("ltx", 28), ("wan", 30)):
+        for layout, (_, sp, tp) in CARDS_LAYOUTS.items():
+            mode = cards_mode(kind, layout)
+            name = f"{kind} {layout}"
+            got, exp = r0["out"][name], ref[f"{kind} {mode}"]
+            assert got.shape == exp.shape and torch.isfinite(got).all(), name
+            d = (got - exp).abs().max().item()
+            peak = exp.abs().max().item()
+            db = _psnr_db_float(got, exp)
+            want = cards_expect(kind, layout, layers)
+            for rank, r in enumerate(ranks):
+                assert (r["counts"][name], r["calls"][name]) == want, (
+                    name, rank, r["counts"][name], r["calls"][name], want)
+            bar = (f"bf16 noise: max |diff| <= {MESH_SP_NOISE:.4f} x max "
+                   f"|out|" if tp == 1 else f">= {MESH_TP_DB:.0f} dB")
+            log(f"[cards] (b) {name} ({mode}): max |diff| {d:.4g} (max |out| "
+                f"{peak:.4g}), PSNR {db:.2f} dB (bar: {bar}); forward "
+                f"{max(r['sec'][name] for r in ranks):.3f} s (slowest rank; "
+                f"one process {ref_sec[f'{kind} {mode}']:.3f} s); launches "
+                f"and collective calls a rank as expected: {want[0]} "
+                f"{want[1]}")
+            if tp == 1:
+                assert d <= MESH_SP_NOISE * peak, (name, d, peak)
+            else:
+                assert db >= MESH_TP_DB, (name, db)
+    log(f"[cards] (b) peak GiB a rank {[round(r['peak'], 2) for r in ranks]}")
+
+
+def _cards_stages():
+    """A recorder of ``on_stage`` marks (host clock after a synchronize)
+    with the launches and collective calls at each."""
+    import torch
+
+    marks = {}
+
+    def on_stage(stage, value):
+        torch.cuda.synchronize()
+        marks[stage] = (time.perf_counter(), *_cards_counts(),
+                        tuple(getattr(value, "shape", ())))
+    return marks, on_stage
+
+
+def _cards_ltx13b_stack():
+    """The 13B served stack of [ltx13b] (the same seeds), no text encoder
+    (hash embeddings, as [mesh]'s served model)."""
+    from ltx_video_gpupoor_tpu_torch.pipelines.ltx_pipeline import LTXPipeline
+    from ltx_video_gpupoor_tpu_torch.pipelines.multiscale import (
+        MultiScalePipeline,
+    )
+    from ltx_video_gpupoor_tpu_torch.serving.model_zoo import LoadedModel
+    from ltx_video_gpupoor_tpu_torch.serving.orchestrator import (
+        LTXVideoGenerator,
+    )
+
+    dit, dense_cut, vae, up = build_ltx13b_models(ltx13b_config(),
+                                                  vae_config())
+    del dense_cut
+    pipe = LTXPipeline(dit, vae)
+    gen = LTXVideoGenerator(pipe, multiscale=MultiScalePipeline(pipe, up),
+                            pipeline_config="ltxv-13b-0.9.7-distilled")
+    return LoadedModel(generator=gen)
+
+
+def _cards_ltx13b_body():
+    import base64
+    import io
+
+    from PIL import Image
+
+    h, w, frames = CARDS_LTX13B
+    buf = io.BytesIO()
+    Image.fromarray(synthetic_image(h, w)).save(buf, format="PNG")
+    return {"image": base64.b64encode(buf.getvalue()).decode(),
+            "prompt": "a seeded synthetic gradient comes alive",
+            "negative_prompt": "worst quality", "height": h, "width": w,
+            "num_frames": frames, "frame_rate": 30,
+            "num_inference_steps": sum(CARDS_LTX13B_STEPS),
+            "creation_id": "cards"}
+
+
+def _one_rank_spread_decode():
+    """Make ``parallel_tiled_decode`` spread its spatial tiles over a
+    one-rank mesh too (it otherwise decodes sequentially there, with
+    truncated tails and other noise): the one-process reference then
+    decodes the very tiles the 4 ranks decode."""
+    from ltx_video_gpupoor_tpu_torch.models.ltx import vae_tiling as vt
+
+    def spread(mesh, vae, latents, z_tile=4, hw_tile=0, overlap_factor=0.25,
+               timestep=None, generator=None):
+        sf = vae.cfg.spatial_downscale_factor
+
+        def decode_hw(zz):
+            return vt._parallel_spatial_decode(
+                mesh, vae, zz, hw_tile // sf, hw_tile, overlap_factor,
+                timestep, generator)
+
+        if not (z_tile > 1 and latents.shape[1] > z_tile + 1):
+            return decode_hw(latents)
+        tile_t = z_tile * vae.cfg.temporal_downscale_factor
+        blend = int(tile_t * overlap_factor)
+        return vt._tiled_temporal(decode_hw, latents, z_tile,
+                                  int(z_tile * (1 - overlap_factor)), blend,
+                                  tile_t - blend)
+    vt.parallel_tiled_decode = spread
+
+
+def _cards_wan14b_stack():
+    """Wan 2.1 t2v-14B at full width and depth (int8_dynamic, built block
+    by block), the Wan VAE decoder and UMT5-XXL, random weights from
+    seeds."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.core.dtypes import DEFAULT_POLICY
+    from ltx_video_gpupoor_tpu_torch.models import t5 as t5m
+    from ltx_video_gpupoor_tpu_torch.models.wan import model as wm
+    from ltx_video_gpupoor_tpu_torch.models.wan import vae as wv
+    from ltx_video_gpupoor_tpu_torch.pipelines.wan import WanPipeline
+
+    dev = torch.device("cuda")
+    dit, _ = build_wan_i2v_dit("dynamic", cfg=wm.WAN_T2V_14B)
+    vae = wv.init_params(wv.WanVAEDecoder(wv.WanVAEConfig(), DEFAULT_POLICY,
+                                          device=dev),
+                         torch.Generator(device=dev).manual_seed(SEED + 11))
+    umt5 = t5m.init_params(t5m.T5Encoder(t5m.UMT5_XXL, device=dev,
+                                         dtype=torch.bfloat16),
+                           torch.Generator(device=dev).manual_seed(SEED + 12))
+    return WanPipeline(dit, vae), umt5
+
+
+def _cards_wan14b_generate(pipe, umt5, output_type="pixels"):
+    """The Wan request: a UMT5 encode, then ``generate_t2v`` at
+    CARDS_WAN14B, CARDS_WAN14B_STEPS UniPC steps, the default tier;
+    returns (video, stage marks, the encode's seconds)."""
+    import torch
+
+    marks, on_stage = _cards_stages()
+    emb, mask, t5_sec = encode_wan_prompts(umt5)
+    h, w, frames = CARDS_WAN14B
+    video = pipe.generate_t2v(
+        emb, mask, width=w, height=h, frame_num=frames,
+        sampling_steps=CARDS_WAN14B_STEPS, shift=5.0, guide_scale=5.0,
+        cfg_zero_step=WAN_CFG_ZERO_STEP,
+        generator=torch.Generator(device=emb.device).manual_seed(SEED),
+        output_type=output_type, attn_mode="auto", on_stage=on_stage)
+    on_stage("end", video)
+    return video, marks, t5_sec
+
+
+def _cards_request_reference(rank, world, work):
+    """(c) one process on card 0: the 13B request (the served route's
+    ``_produce``, tier (b), decoded over the 4 ranks' tiles) and the Wan
+    request (its latents through the spread decode on a one-rank mesh);
+    frames into ``work``; returns seconds and peak GiB."""
+    import numpy as np
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.core.mesh import MeshConfig, make_mesh
+    from ltx_video_gpupoor_tpu_torch.models.wan.vae import spread_tiled_decode
+    from ltx_video_gpupoor_tpu_torch.ops.attention import set_attention_mode
+    from ltx_video_gpupoor_tpu_torch.serving.server import InferenceService
+
+    res = {}
+    one = make_mesh(MeshConfig(1, 1, 1))
+    set_attention_mode("pallas_hp")
+    set_fused_prologue(True)
+    model = _cards_ltx13b_stack()
+    pipe = model.generator.pipeline
+    pipe.mesh, pipe.vae_tile_size = one, CARDS_LTX13B_TILES
+    _one_rank_spread_decode()
+    svc = InferenceService(model=model, outputs_dir=os.path.join(
+        work, "videos"), warmup_spec="off")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    frames, _ = svc._produce(_cards_ltx13b_body())
+    res["ltx13b"] = time.perf_counter() - t0
+    res["ltx13b peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    np.save(os.path.join(work, "ltx13b.npy"), np.asarray(frames))
+    del svc, model, pipe, frames
+    set_attention_mode("auto")
+    set_fused_prologue(False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipe, umt5 = _cards_wan14b_stack()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    latents, marks, t5_sec = _cards_wan14b_generate(pipe, umt5, "latent")
+    video = spread_tiled_decode(one, pipe.vae, latents, pipe.vae_tile_size)
+    torch.cuda.synchronize()
+    res["wan14b"] = time.perf_counter() - t0
+    res["wan14b peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.save(video.float().cpu(), os.path.join(work, "wan14b.pt"))
+    return res
+
+
+def _cards_request_rank(rank, world, work):
+    """(c) a rank of 4 (NCCL, one a card): the 13B request as POST / on
+    rank 0 (LTXV_TPU_MESH=dp1,sp4,tp1, the followers serve it through
+    RankChannel), then the Wan request over tp=4 (LTXV_TPU_MESH=dp1,sp1,
+    tp4) through apply_wan_serving_mesh; seconds by stage, peak GiB,
+    launches and collective calls by pass a rank; rank 0 the frames."""
+    import json
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.ops.attention import set_attention_mode
+    from ltx_video_gpupoor_tpu_torch.parallel import comm
+    from ltx_video_gpupoor_tpu_torch.serving import model_zoo
+    from ltx_video_gpupoor_tpu_torch.serving import server as tserver
+
+    res = {}
+    os.environ["LTXV_TPU_MESH"] = CARDS_LTX13B_MESH
+    set_attention_mode("pallas_hp")
+    set_fused_prologue(True)
+    model = _cards_ltx13b_stack()
+    model_zoo.apply_serving_mesh(model.generator.pipeline)
+    gen = model.generator
+    assert gen.pipeline.sp_mesh is not None, "the serving mesh has no sp"
+    _warm_groups(gen.pipeline.sp_mesh)
+    marks, on_stage = _cards_stages()
+    real = gen.generate
+    gen.generate = lambda *a, **k: real(*a, on_stage=on_stage, **k)
+    svc = tserver.InferenceService(
+        model=model, outputs_dir=os.path.join(work, "videos"))
+    assert svc.channel is not None and svc._warmup_thread is None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cards_reset()
+    t0 = time.perf_counter()
+    if rank != 0:
+        svc.follow()
+    else:
+        produced = []
+        produce = svc._produce
+
+        def capture(data):
+            out = produce(data)
+            produced.append(out[0])
+            return out
+        svc._produce = capture
+        httpd = tserver.create_stdlib_server(svc, host="127.0.0.1", port=0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{httpd.server_address[1]}/",
+            data=json.dumps(_cards_ltx13b_body()).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=CARDS_TIMEOUT) as resp:
+                answer = (resp.status, json.loads(resp.read()))
+        finally:
+            res["ltx13b post"] = time.perf_counter() - t0
+            svc.stop()
+            httpd.shutdown()
+            httpd.server_close()
+        assert answer[0] == 200, answer
+        res["ltx13b answer"] = answer[1]
+        res["ltx13b frames"] = np.asarray(produced[0])
+        # the reference decodes these tiles on one rank
+        latent = torch.empty(marks["decode"][3], device="meta")
+        res["ltx13b tiles"] = gen.pipeline._decode_tiles(latent)
+    res["ltx13b marks"] = dict(marks)
+    res["ltx13b peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del svc, model, gen, real
+    os.environ.pop("LTXV_TPU_MESH")
+    set_attention_mode("auto")
+    set_fused_prologue(False)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    os.environ["LTXV_TPU_MESH"] = CARDS_WAN14B_MESH
+    pipe, umt5 = _cards_wan14b_stack()
+    model_zoo.apply_wan_serving_mesh(pipe)
+    assert pipe.mesh is not None and pipe.sp_mesh is None, (pipe.mesh,
+                                                            pipe.sp_mesh)
+    _warm_groups(pipe.mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cards_reset()
+    t0 = time.perf_counter()
+    video, marks, t5_sec = _cards_wan14b_generate(pipe, umt5)
+    res["wan14b"] = time.perf_counter() - t0
+    res["wan14b marks"] = dict(marks)
+    res["wan14b counts"] = _cards_counts()
+    res["wan14b umt5"] = t5_sec
+    res["wan14b peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    if rank == 0:
+        res["wan14b video"] = video.float().cpu()
+    res["staged"] = dict(comm.staged_counts)
+    os.environ.pop("LTXV_TPU_MESH")
+    return res
+
+
+# launches a rank makes in one pass of the 13B request over sp=4, tier (b)
+# at 1216x704 (K1 for both attentions: the Ulysses exchange hands the
+# self-attention over as split heads, so the head-packed K6 does not run;
+# K2 for every linear: the fused prologue stands aside, a latent frame of
+# 25 x 14 or 50 x 28 tokens being no 16-multiple) and collective calls
+# (Ulysses' four all-to-alls a block); Wan t2v-14B's request over tp=4 in
+# the default tier (K4 with its prologue, K2, K2s on the row-parallel
+# linears; ten all-reduces a block)
+def cards_request_expect(what, layers, steps):
+    if what == "ltx13b":
+        fwd = steps
+        k = {"K1": 2 * layers * fwd, "K2": (BLOCK_LINEARS * layers
+                                           + CARDS_LINEARS["ltx"]) * fwd,
+             "K2s": 0, "K4": 0, "K6": 0}
+        return k, {"all_to_all": 4 * layers * fwd, "all_reduce": 0}
+    fwd = steps
+    k, c = cards_expect("wan", "tp4", layers)
+    return ({n: v * fwd for n, v in k.items()},
+            {"all_to_all": 0, "all_reduce": c["all_reduce"] * fwd})
+
+
+def _cards_span(marks, start, end):
+    """(seconds, launches, collective calls) between two stage marks."""
+    t0, k0, c0, _ = marks[start]
+    t1, k1, c1, _ = marks[end]
+    return (t1 - t0, {n: k1[n] - k0[n] for n in k1},
+            {n: c1.get(n, 0) - c0.get(n, 0) for n in set(c0) | set(c1)})
+
+
+def phase_cards_requests(card, work):
+    """(c) the LTX-13B 1216x704x121 POST / over sp=4 and the Wan t2v-14B
+    1280x720x81 request over tp=4, against one process on card 0."""
+    import numpy as np
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.core.mesh import spawn_ranks
+
+    t0 = time.perf_counter()
+    ref = spawn_ranks(_cards_request_reference, 1, backend="gloo",
+                      timeout=CARDS_TIMEOUT, device=None, threads=0,
+                      args=(work,))[0]
+    t1 = time.perf_counter()
+    log(f"[cards] (c) one process on card 0 in {t1 - t0:.1f} s: LTX-13B "
+        f"{ref['ltx13b']:.3f} s (peak {ref['ltx13b peak']:.2f} GiB), Wan "
+        f"t2v-14B {ref['wan14b']:.3f} s (peak {ref['wan14b peak']:.2f} "
+        f"GiB) ({card})")
+    ranks = spawn_ranks(_cards_request_rank, CARDS, backend="nccl",
+                        timeout=CARDS_TIMEOUT, device=None, threads=0,
+                        args=(work,))
+    log(f"[cards] (c) {CARDS} NCCL ranks in {time.perf_counter() - t1:.1f} s "
+        f"with their start; staged calls by rank "
+        f"{[r['staged'] for r in ranks]}")
+    assert all(r["staged"] == {} for r in ranks), "NCCL staged a collective"
+    r0 = ranks[0]
+
+    # the 13B request: both passes sharded, launches as expected a rank
+    h, w, frames = CARDS_LTX13B
+    got = r0["ltx13b frames"]
+    want = np.load(os.path.join(work, "ltx13b.npy"))
+    assert got.shape == want.shape == (frames, h, w, 3), (got.shape,
+                                                          want.shape)
+    assert got.std() > 0, "constant frames"
+    db = _psnr_db(got, want)
+    assert r0["ltx13b tiles"] == CARDS_LTX13B_TILES, r0["ltx13b tiles"]
+    spans = []
+    for rank, r in enumerate(ranks):
+        m = r["ltx13b marks"]
+        p1 = _cards_span(m, "pass1", "upsample")
+        p2 = _cards_span(m, "pass2", "decode")
+        for (sec, k, c), n in zip((p1, p2), CARDS_LTX13B_STEPS):
+            k_want, c_want = cards_request_expect(
+                "ltx13b", ltx13b_config().num_layers, n)
+            assert k == k_want, ("13B launches", rank, n, k, k_want)
+            assert {n_: c.get(n_, 0) for n_ in c_want} == c_want, (
+                "13B collectives", rank, n, c, c_want)
+        spans.append((p1, p2, m))
+    m = spans[0][2]
+    stages = {"pass1": m["upsample"][0] - m["pass1"][0],
+              "upsample+adain": m["pass2"][0] - m["upsample"][0],
+              "pass2": m["decode"][0] - m["pass2"][0],
+              "decode": m["postprocess"][0] - m["decode"][0]}
+    log(f"[cards] (c) POST / on rank 0, LTXV_TPU_MESH={CARDS_LTX13B_MESH}, "
+        f"LTX-13B ltxv-13b-0.9.7-distilled i2v {w}x{h}x{frames}, tier (b) "
+        f"(pallas_hp + LTXV_TPU_FUSED_PROLOGUE=1): answered "
+        f"{r0['ltx13b answer']} in {r0['ltx13b post']:.3f} s (one process "
+        f"{ref['ltx13b']:.3f} s); rank 0 by stage "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
+        + f"; pass 1 latents {m['upsample'][3][1:4]}, pass 2 "
+        f"{m['decode'][3][1:4]}; frames against one process {db:.2f} dB "
+        f"(bar {MESH_SERVE_DB:.0f}); peak GiB a rank "
+        f"{[round(r['ltx13b peak'], 2) for r in ranks]}; a rank's launches "
+        f"pass 1 {spans[0][0][1]}, pass 2 {spans[0][1][1]}, collective "
+        f"calls pass 1 {spans[0][0][2]}, pass 2 {spans[0][1][2]} (USP in "
+        "both passes; every rank as expected)")
+    assert db >= MESH_SERVE_DB, db
+
+    # the Wan request over tp=4
+    got = r0["wan14b video"]
+    want = torch.load(os.path.join(work, "wan14b.pt"))
+    h, w, frames = CARDS_WAN14B
+    assert got.shape == want.shape and got.shape[1:4] == (frames, h, w), (
+        got.shape, want.shape)
+    assert torch.isfinite(got).all() and got.std() > 0
+    db = _psnr_db_float(got, want)
+    from ltx_video_gpupoor_tpu_torch.models.wan.model import WAN_T2V_14B
+
+    k_want, c_want = cards_request_expect("wan14b", WAN_T2V_14B.num_layers,
+                                          CARDS_WAN14B_STEPS)
+    for rank, r in enumerate(ranks):
+        k, c = r["wan14b counts"]
+        assert {n: k[n] for n in k_want} == k_want, ("Wan-14B launches",
+                                                    rank, k, k_want)
+        assert {n: c.get(n, 0) for n in c_want} == c_want, (
+            "Wan-14B collectives", rank, c, c_want)
+    m = r0["wan14b marks"]
+    log(f"[cards] (c) Wan t2v-14B {w}x{h}x{frames} over tp=4 "
+        f"(LTXV_TPU_MESH={CARDS_WAN14B_MESH}, apply_wan_serving_mesh), "
+        f"{CARDS_WAN14B_STEPS} UniPC steps, default tier: "
+        f"{r0['wan14b']:.3f} s on rank 0 (one process {ref['wan14b']:.3f} "
+        f"s): umt5 {r0['wan14b umt5']:.3f} s, denoise "
+        f"{m['decode'][0] - m['denoise'][0]:.3f} s, the parallel spatial "
+        f"tiled decode over {CARDS} ranks {m['end'][0] - m['decode'][0]:.3f}"
+        f" s; frames against one process decoding the same tiles "
+        f"{db:.2f} dB (bar {MESH_TP_DB:.0f}); peak GiB a rank "
+        f"{[round(r['wan14b peak'], 2) for r in ranks]}; a rank's launches "
+        f"{ranks[0]['wan14b counts'][0]}, collective calls "
+        f"{ranks[0]['wan14b counts'][1]} (every rank as expected)")
+    assert db >= MESH_TP_DB, db
+
+
+def phase_cards(card):
+    """[cards] (b) the [mesh] forwards at 4 NCCL ranks and (c) the two
+    requests spread over cards (after ``phase_cards_probe`` and (a),
+    ``phase_cards_k7``)."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="cards_", dir=os.path.join(
+        ROOT, "ltx_video_gpupoor_tpu_torch", "build"))
+    try:
+        os.makedirs(os.path.join(work, "videos"))
+        phase_cards_forwards(card, work)
+        log(f"[clock] cards (b) done at "
+            f"{time.perf_counter() - t_phase:.0f} s")
+        phase_cards_requests(card, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"[cards] (b), (c) done in {time.perf_counter() - t_phase:.1f} s "
+        f"({card})")
 
 
 # --------------------------------------------------------------------------
@@ -6797,6 +7816,12 @@ def main(argv=None) -> int:
                     help="the device, the build, K2's given-scale entry and "
                     "[mesh] alone (no result line); for work on the "
                     "multi-rank routes")
+    ap.add_argument("--cards-only", action="store_true",
+                    help="four cards of one host: the device, the probe "
+                    "(topology, peer access), the build, K7 once per card "
+                    "and [cards] (the forwards and two requests over 4 "
+                    "NCCL ranks) alone (no result line); fails with fewer "
+                    "than four cards or without peer access")
     ap.add_argument("--train-only", action="store_true",
                     help="the device and [train] alone (no result line); "
                     "for work on the trainer")
@@ -6816,6 +7841,14 @@ def main(argv=None) -> int:
     if args.train_only:
         phase_train()
         log(f"[clock] train done at {time.perf_counter() - t_start:.0f} s")
+        return 0
+    if args.cards_only:
+        card, _ = phase_cards_probe()
+        phase_build()
+        phase_cards_k7(card)
+        log(f"[clock] cards (a) done at {time.perf_counter() - t_start:.0f} s")
+        phase_cards(card)
+        log(f"[clock] cards done at {time.perf_counter() - t_start:.0f} s")
         return 0
     phase_build(compare=args.profile)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -6837,7 +7870,7 @@ def main(argv=None) -> int:
     times, info = phase_timing(gen, ex2_per_s)
     time_k1f(gen, times, info, ex2_per_s)
     k8_err, k8_launches = phase_k8(gen, times, info)
-    k7_err, k7_launches = phase_k7(gen, times, info)
+    k7_err, k7_launches, k7_card = phase_k7(gen, times, info)
     k2s_err = phase_k2s(gen, times, info)
     log(f"[clock] kernel checks and timings done at "
         f"{time.perf_counter() - t_start:.0f} s")
@@ -6926,6 +7959,10 @@ def main(argv=None) -> int:
                      f"in one cooperative launch, p={RING_TIMED_P})",
                      K7_SOURCE, K7_REPLACES, k7_launches, k7_err, times, info,
                      f"K7 p={RING_TIMED_P}"),
+        kernel_entry("ring_attention_rdma_rank (ring attention, K7 launched "
+                     "once per card over peer-mapped memory; here at world "
+                     "1)", K7_SOURCE, K7_REPLACES, k7_card[1], k7_card[0],
+                     times, info, "K7 card p=1"),
         kernel_entry("pipelined_attention (sub-block-pipelined attention, "
                      f"nsub={K8_JSON_NSUB})", K8_SOURCE, K8_REPLACES,
                      k8_launches, k8_err, times, info,

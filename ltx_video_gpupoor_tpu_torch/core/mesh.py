@@ -12,10 +12,13 @@ written out (``parallel/comm.py``): nothing is inserted for it.
 
 Ranks and devices: ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` come from
 the environment ``torchrun`` sets; a rank's device is ``cuda:LOCAL_RANK``
-unless the caller asks for the CPU. The backend is NCCL when each rank
-has a card of its own; ``gloo`` only when the caller names it (the CPU
-tests, and two ranks sharing one card). A backend that fails to start
-raises: nothing switches to another one.
+(modulo the cards it sees) unless the caller asks for the CPU. Every rank
+sees every card of the host: a per-rank ``CUDA_VISIBLE_DEVICES`` would
+hide its neighbours' cards from the CUDA IPC that K7 once per card maps
+their memory through. The backend is NCCL when each rank has a card of
+its own; ``gloo`` only when the caller names it (the CPU tests, and two
+ranks sharing one card). A backend that fails to start raises: nothing
+switches to another one.
 
 Functions that run a layer of one rank's model under the mesh read it
 from :func:`active_mesh`, which :func:`use_mesh` sets (the port's

@@ -46,11 +46,37 @@
 //   signals for its own.
 // - Ranks wait on each other, so all blocks must be resident at once: one
 //   cudaLaunchCooperativeKernel, its grid sized from the occupancy query.
-//   Every spin is bounded: a protocol fault traps instead of hanging. The
-//   ring waits only between items, where no wgmma group is in flight.
-// - The kernel takes each rank's buffers as base pointers. On a host with
-//   several cards the same kernel would be launched once a device with
-//   peer-mapped pointers; that launch is not written here.
+//   Every spin is bounded in time (%globaltimer): in the one-launch ring a
+//   protocol fault traps instead of hanging. The ring waits only between
+//   items, where no wgmma group or TMA load is in flight.
+//
+// Two launches of the one protocol (the same device code, ring_body):
+// - The whole ring in one launch on one card (ring_kernel, entry
+//   k7_ring_attention): grid = blocks per rank x p, the rank is blockIdx.y,
+//   every rank's buffers are base pointers on that card.
+// - Once per card (ring_card_kernel, entry k7_ring_attention_card), as the
+//   TPU kernel runs once per chip: grid = blocks per rank (the whole card),
+//   the rank is an argument, and the right neighbour's two k and two v slots
+//   and its counters arrive as peer pointers (cudaIpcOpenMemHandle of its
+//   workspace, one cudaMalloc'd allocation: a header of counters, then the
+//   slots). Every counter lies in the memory of the rank that spins on it:
+//   `arrived` (raised by the left neighbour's blocks after their stores) in
+//   the receiver's, `done` (raised by the right neighbour's blocks after
+//   the step that read a slot) in the sender's, so every spin reads local
+//   memory and every cross-card access is a store or a remote atomic. The
+//   tensor maps cover this rank's own inputs and slots, all local. Three
+//   things the one launch never meets: (1) a rank's next call may start
+//   while its right neighbour still reads a slot of this one, so the first
+//   step waits until every block of the right neighbour has finished the
+//   last call (`done` of the last step, raised only here); (2) the ranks
+//   launch from separate processes, tens of milliseconds apart, and one may
+//   never launch: a spin gives up after the caller's bound, writes a status
+//   code into its own header and its neighbours' (which makes their spins
+//   give up at once), and the blocks return; the wrapper reads the status
+//   after the launch and raises; (3) a rank that skipped a call would take
+//   its neighbour's later signals for its own: the sender leaves its call
+//   epoch in the receiver's header with its first share, and the receiver
+//   compares it with its own.
 //
 // Two bodies do the tile math under the one protocol.
 // - The tensor-core body (bf16, D 64 or 128, shards of a multiple of 64
@@ -70,7 +96,12 @@
 //
 // What bounds it on an H100: the math, as K1 (6.6e12 FLOP at the Wan-1.3B
 // width against 3 * 2 * 25 MB of copies a rank at p = 4, and about 1.2 GB of
-// softmax state written and read back in all at p = 4).
+// softmax state written and read back in all at p = 4). Once per card at
+// p = 4 a card does a quarter of the math, and sends 3 kv blocks of 50 MB
+// over NVLink (450 GB/s each way: about 0.11 ms a step against a step's
+// 0.42 ms of math at the bound), issued before the step's math.
+
+#include <cstring>
 
 #include "attention_block.cuh"
 
@@ -82,8 +113,20 @@ constexpr int TC_THREADS = 256;   // the tensor-core body's: K1's two consumers
 constexpr int TC_ROWS = 64;       // S/p the tensor-core body takes: multiples
 constexpr int MAXD_SIMPLE = 128;
 constexpr float L_FLOOR = 1e-20f;
-// about ten seconds at the card's clock: far beyond any honest wait
-constexpr long long SPIN_LIMIT = 20000000000LL;
+// the one-launch ring's bound on a spin, in ns: far beyond any honest wait
+constexpr unsigned long long SPIN_NS = 10000000000ULL;
+
+// The per-card workspace: a header of counters (unsigned words), then the
+// two k slots and the two v slots, each rounded up to 256 bytes.
+constexpr int HDR_ARRIVED = 0;          // [MAXP]: shares of step s delivered
+constexpr int HDR_DONE = MAXP;          // [MAXP]: right's blocks past step s
+constexpr int HDR_EPOCH = 2 * MAXP;     // the left neighbour's call epoch
+constexpr int HDR_STATUS = 2 * MAXP + 1;  // 0, or why a launch gave up
+constexpr int HDR_BYTES = 256;
+// status codes (ring_rdma.py's K7_STATUS names them)
+constexpr int ST_TIMEOUT = 1;   // a spin outlasted the caller's bound
+constexpr int ST_PEER = 2;      // a neighbour gave up
+constexpr int ST_EPOCH = 3;     // the left neighbour is at another call
 
 struct RingArgs {
   const void* q[MAXP];
@@ -100,6 +143,16 @@ struct RingArgs {
   unsigned target;      // this call's epoch times the blocks per rank
   float scale;          // D**-0.5 (tensor-core body: times log2 e)
   int fault_rank, fault_step;  // a planted fault: that rank skips that step
+  unsigned long long spin_ns;  // a spin's bound
+  // once per card: this rank's place on the ring (its buffers at index 0),
+  // its header, the neighbours' (peer-mapped), the right one's slots
+  int rank;
+  unsigned epoch;
+  unsigned* hdr;
+  unsigned* hdr_right;
+  unsigned* hdr_left;
+  void* kslot_right;
+  void* vslot_right;
 };
 
 // ---------------------------------------------------------------- protocol
@@ -120,10 +173,43 @@ __device__ __forceinline__ void signal(unsigned* flag) {
   }
 }
 
-__device__ __forceinline__ void wait_for(const unsigned* flag,
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ unsigned load_relaxed(const unsigned* p) {
+  unsigned val;
+  asm volatile("ld.relaxed.sys.global.u32 %0, [%1];"
+               : "=r"(val)
+               : "l"(p)
+               : "memory");
+  return val;
+}
+
+// once per card: record why this rank gives up, in its own header and its
+// neighbours' (whose spins then give up at once)
+__device__ __forceinline__ void give_up(const RingArgs& a, int code) {
+  atomicCAS_system(reinterpret_cast<int*>(a.hdr + HDR_STATUS), 0, code);
+  atomicCAS_system(reinterpret_cast<int*>(a.hdr_right + HDR_STATUS), 0,
+                   ST_PEER);
+  atomicCAS_system(reinterpret_cast<int*>(a.hdr_left + HDR_STATUS), 0,
+                   ST_PEER);
+}
+
+// Thread 0 spins until *flag reaches target (wrap-around compare), then
+// the block goes on. Bounded by a.spin_ns: the one-launch ring traps; once
+// per card (CARD) the rank gives up, or stops at once where its status
+// says that a neighbour did, and every thread returns false.
+template <bool CARD>
+__device__ __forceinline__ bool wait_for(const RingArgs& a,
+                                         const unsigned* flag,
                                          unsigned target) {
+  __shared__ int ok;
   if (threadIdx.x == 0) {
-    const long long t0 = clock64();
+    const unsigned long long t0 = global_ns();
+    int good = 1;
     for (;;) {
       unsigned val;
       asm volatile("ld.acquire.sys.global.u32 %0, [%1];"
@@ -131,12 +217,42 @@ __device__ __forceinline__ void wait_for(const unsigned* flag,
                    : "l"(flag)
                    : "memory");
       if (static_cast<int>(val - target) >= 0) break;
-      if (clock64() - t0 > SPIN_LIMIT) __trap();
+      if (CARD && load_relaxed(a.hdr + HDR_STATUS) != 0) {
+        good = 0;
+        break;
+      }
+      if (global_ns() - t0 > a.spin_ns) {
+        if constexpr (CARD) {
+          give_up(a, ST_TIMEOUT);
+          good = 0;
+          break;
+        } else {
+          __trap();
+        }
+      }
       __nanosleep(100);
     }
-    proxy_fence();  // thread 0 issues the TMA loads of what arrived
+    if (good) proxy_fence();  // thread 0 issues the TMA loads of what arrived
+    ok = good;
   }
   __syncthreads();
+  const bool went = ok;
+  __syncthreads();  // read by all before the next wait writes it
+  return went;
+}
+
+// once per card, after the first share arrived: the left neighbour left its
+// call epoch with it, which must be this call's
+__device__ __forceinline__ bool epoch_agrees(const RingArgs& a) {
+  __shared__ int ok;
+  if (threadIdx.x == 0) {
+    ok = load_relaxed(a.hdr + HDR_EPOCH) == a.epoch;
+    if (!ok) give_up(a, ST_EPOCH);
+  }
+  __syncthreads();
+  const bool same = ok;
+  __syncthreads();
+  return same;
 }
 
 // where a kv block lies: a rank's own input (strided) or a slot (packed)
@@ -187,7 +303,8 @@ __device__ void copy_share(const Block& src, char* dst, int H, int BH, int Sl,
 // ------------------------------------------------- the tensor-core body
 
 // Tensor maps a rank reads, in the buffer `maps`: q, k, v of rank r at
-// 3 r .. 3 r + 2; its k slots 0, 1 and v slots 0, 1 at 3 p + 4 r .. + 3.
+// 3 r .. 3 r + 2; its k slots 0, 1 and v slots 0, 1 at 3 p + 4 r .. + 3
+// (once per card the buffer holds one rank's: r = 0, p = 1).
 __device__ __forceinline__ const CUtensorMap* kv_map(const CUtensorMap* maps,
                                                      int p, int rank,
                                                      int step, int v) {
@@ -206,9 +323,10 @@ __device__ __forceinline__ void map_acquire(const CUtensorMap* map) {
 // the first step's empty one), the kv block of this step folded in, the
 // state out (or, at the last step, the output). `it` and `q_phase` are the
 // ring's position and Q's barrier phase, carried across items and steps.
+// `me` indexes this rank's buffers in `a` and its maps among `mp` ranks'.
 template <int D, int MASK>
-__device__ void tc_step(const RingArgs& a, const CUtensorMap* maps, int rank,
-                        int step, int items, const Ring& rg, int& it,
+__device__ void tc_step(const RingArgs& a, const CUtensorMap* maps, int me,
+                        int mp, int step, int items, const Ring& rg, int& it,
                         int& q_phase) {
   constexpr int NST = 4 + D / 2;  // state floats a thread: m, l, acc
   const bool first = step == 0, last = step == a.p - 1;
@@ -226,9 +344,9 @@ __device__ void tc_step(const RingArgs& a, const CUtensorMap* maps, int rank,
     return MASK == MASK_TAIL && j == n_tiles - 1;
   };
   Tiles tl;
-  tl.qmap = maps + 3 * rank;
-  tl.kmap = kv_map(maps, a.p, rank, step, 0);
-  tl.vmap = kv_map(maps, a.p, rank, step, 1);
+  tl.qmap = maps + 3 * me;
+  tl.kmap = kv_map(maps, mp, me, step, 0);
+  tl.vmap = kv_map(maps, mp, me, step, 1);
   tl.n_tiles = n_tiles;
   tl.c = a.scale;
   for (int item = blockIdx.x; item < items; item += gridDim.x) {
@@ -240,7 +358,7 @@ __device__ void tc_step(const RingArgs& a, const CUtensorMap* maps, int rank,
     tl.q_phase = q_phase;
     r.row0 = tl.q0 + wg * 64 + warp * 16 + g;
     r.row1 = r.row0 + 8;
-    float* st = a.state[rank] +
+    float* st = a.state[me] +
                 static_cast<long long>(item) * NST * TC_THREADS + threadIdx.x;
     float acc[D / 2];
     float m0 = M_FLOOR, m1 = M_FLOOR, l0 = 0.f, l1 = 0.f;
@@ -273,7 +391,7 @@ __device__ void tc_step(const RingArgs& a, const CUtensorMap* maps, int rank,
     }
     l0 = quad_sum(l0);
     l1 = quad_sum(l1);
-    bf16* ob = static_cast<bf16*>(a.o[rank]) + tl.b * a.osb + tl.h * a.osh;
+    bf16* ob = static_cast<bf16*>(a.o[me]) + tl.b * a.osb + tl.h * a.osh;
     store_rows<D>(acc, fmaxf(l0, L_FLOOR), fmaxf(l1, L_FLOOR), ob, a.oss,
                   r.row0, r.row1, a.Sl, t);
   }
@@ -360,20 +478,45 @@ __device__ void simple_item(const RingArgs& a, int rank, int item,
 
 // ---------------------------------------------------------------- the ring
 
-// BODY 0: tensor cores, bf16, D = DT, MASK none or tail; BODY 1: CUDA
-// cores, T in
-template <int BODY, int DT, int MASK, typename T>
-__global__ void __launch_bounds__(BODY == 0 ? TC_THREADS : NTHREADS, 1)
-ring_kernel(const RingArgs a, const CUtensorMap* __restrict__ maps,
-            int items) {
-  extern __shared__ uint8_t smem_raw[];  // the tensor-core body's block
-  const int rank = blockIdx.y;
+// The protocol and the math of one rank. BODY 0: tensor cores, bf16,
+// D = DT, MASK none or tail; BODY 1: CUDA cores, T in. CARD: launched once
+// per card (the rank is a.rank, its buffers at index 0, the neighbours'
+// through peer pointers); else the whole ring in one launch.
+template <bool CARD, int BODY, int DT, int MASK, typename T>
+__device__ __forceinline__ void ring_body(const RingArgs& a,
+                                          const CUtensorMap* maps, int items,
+                                          uint8_t* smem_raw) {
+  const int rank = CARD ? a.rank : static_cast<int>(blockIdx.y);
+  const int me = CARD ? 0 : rank;   // this rank's buffers in a, its maps
   const int p = a.p;
+  const int mp = CARD ? 1 : p;      // ranks whose maps the buffer holds
   const int right = (rank + 1) % p;
   const int esize = sizeof(T);
   const int row_bytes = a.D * esize;
   const long long slot_bytes =
       static_cast<long long>(a.BH) * a.Sl * row_bytes;
+  // the slots this rank sends into, and the counters of step s: raised
+  // there, and waited for here (once per card all in the header of the
+  // rank that waits; in one launch [p][p] arrays, a row a rank); formed
+  // where they are used
+  auto kdst = [&] {
+    return static_cast<char*>(CARD ? a.kslot_right : a.kslot[right]);
+  };
+  auto vdst = [&] {
+    return static_cast<char*>(CARD ? a.vslot_right : a.vslot[right]);
+  };
+  auto arrive_at = [&](int s) {
+    return (CARD ? a.hdr_right + HDR_ARRIVED : a.arrived + right * p) + s;
+  };
+  auto arrived_here = [&](int s) {
+    return (CARD ? a.hdr + HDR_ARRIVED : a.arrived + rank * p) + s;
+  };
+  auto done_at = [&](int s) {
+    return (CARD ? a.hdr_left + HDR_DONE : a.done + rank * p) + s;
+  };
+  auto done_here = [&](int s) {
+    return (CARD ? a.hdr + HDR_DONE : a.done + right * p) + s;
+  };
   Ring rg;
   int it = 0, q_phase = 0;
   if constexpr (BODY == 0) {
@@ -381,26 +524,33 @@ ring_kernel(const RingArgs a, const CUtensorMap* __restrict__ maps,
     if (threadIdx.x == 0) {
       ring_init<DT>(rg);
       for (int step = 0; step < p && step < 3; ++step) {
-        if (step == 0) map_acquire(maps + 3 * rank);
-        map_acquire(kv_map(maps, p, rank, step, 0));
-        map_acquire(kv_map(maps, p, rank, step, 1));
+        if (step == 0) map_acquire(maps + 3 * me);
+        map_acquire(kv_map(maps, mp, me, step, 0));
+        map_acquire(kv_map(maps, mp, me, step, 1));
       }
     }
     __syncthreads();
+  }
+  if (CARD && p > 1) {
+    // every block of the right neighbour is past its last call, whose last
+    // steps read the slots that this call's first two steps overwrite
+    if (!wait_for<CARD>(a, done_here(p - 1), a.target - gridDim.x)) {
+      return;
+    }
   }
 
   for (int step = 0; step < p; ++step) {
     Block kblk, vblk;
     if (step == 0) {
-      kblk = Block{static_cast<const char*>(a.k[rank]), a.ksb, a.ksh, a.kss};
-      vblk = Block{static_cast<const char*>(a.v[rank]), a.vsb, a.vsh, a.vss};
+      kblk = Block{static_cast<const char*>(a.k[me]), a.ksb, a.ksh, a.kss};
+      vblk = Block{static_cast<const char*>(a.v[me]), a.vsb, a.vsh, a.vss};
     } else {
       const long long off = (step % 2) * slot_bytes;
       const long long sh = static_cast<long long>(a.Sl) * a.D;
       // a slot is [B*H, Sl, D] packed: batch stride H * Sl * D
-      kblk = Block{static_cast<const char*>(a.kslot[rank]) + off, a.H * sh,
+      kblk = Block{static_cast<const char*>(a.kslot[me]) + off, a.H * sh,
                    sh, a.D};
-      vblk = Block{static_cast<const char*>(a.vslot[rank]) + off, a.H * sh,
+      vblk = Block{static_cast<const char*>(a.vslot[me]) + off, a.H * sh,
                    sh, a.D};
     }
     if (step + 1 < p) {
@@ -408,39 +558,73 @@ ring_kernel(const RingArgs a, const CUtensorMap* __restrict__ maps,
       if (step >= 2) {
         // the right neighbour read slot `nxt` at step - 1: every one of its
         // blocks must be past that step before the slot is overwritten
-        wait_for(a.done + right * p + (step - 1), a.target);
+        if (!wait_for<CARD>(a, done_here(step - 1), a.target)) return;
       }
-      copy_share(kblk, static_cast<char*>(a.kslot[right]) + nxt * slot_bytes,
-                 a.H, a.BH, a.Sl, row_bytes, esize);
-      copy_share(vblk, static_cast<char*>(a.vslot[right]) + nxt * slot_bytes,
-                 a.H, a.BH, a.Sl, row_bytes, esize);
-      signal(a.arrived + right * p + (step + 1));
+      copy_share(kblk, kdst() + nxt * slot_bytes, a.H, a.BH, a.Sl,
+                 row_bytes, esize);
+      copy_share(vblk, vdst() + nxt * slot_bytes, a.H, a.BH, a.Sl,
+                 row_bytes, esize);
+      if (CARD && step == 0 && blockIdx.x == 0 && threadIdx.x == 0) {
+        // released with this block's first share below
+        asm volatile("st.relaxed.sys.global.u32 [%0], %1;" ::"l"(
+                         a.hdr_right + HDR_EPOCH),
+                     "r"(a.epoch)
+                     : "memory");
+      }
+      signal(arrive_at(step + 1));
     }
 
     // the math of this step, while the block for the next one is in flight
     if (!(rank == a.fault_rank && step == a.fault_step)) {
       if constexpr (BODY == 0) {
-        tc_step<DT, MASK>(a, maps, rank, step, items, rg, it, q_phase);
+        tc_step<DT, MASK>(a, maps, me, mp, step, items, rg, it, q_phase);
       } else {
         for (int item = blockIdx.x; item < items; item += gridDim.x) {
-          simple_item<T>(a, rank, item, kblk, vblk, step == 0, step == p - 1);
+          simple_item<T>(a, me, item, kblk, vblk, step == 0, step == p - 1);
         }
       }
     }
 
+    // once per card the last step is signalled too (see the first wait)
+    if (step + 1 < p || (CARD && p > 1)) signal(done_at(step));
     if (step + 1 < p) {
-      signal(a.done + rank * p + step);
-      wait_for(a.arrived + rank * p + (step + 1), a.target);
+      if (!wait_for<CARD>(a, arrived_here(step + 1), a.target)) return;
+      if (CARD && step == 0 && !epoch_agrees(a)) return;
     }
+  }
+}
+
+template <int BODY, int DT, int MASK, typename T>
+__global__ void __launch_bounds__(BODY == 0 ? TC_THREADS : NTHREADS, 1)
+ring_kernel(const RingArgs a, const CUtensorMap* __restrict__ maps,
+            int items) {
+  extern __shared__ uint8_t smem_raw[];  // the tensor-core body's block
+  ring_body<false, BODY, DT, MASK, T>(a, maps, items, smem_raw);
+}
+
+template <int BODY, int DT, int MASK, typename T>
+__global__ void __launch_bounds__(BODY == 0 ? TC_THREADS : NTHREADS, 1)
+ring_card_kernel(const RingArgs a, const CUtensorMap* __restrict__ maps,
+                 int items) {
+  extern __shared__ uint8_t smem_raw[];
+  ring_body<true, BODY, DT, MASK, T>(a, maps, items, smem_raw);
+}
+
+template <bool CARD, int BODY, int DT, int MASK, typename T>
+constexpr auto kernel_of() {
+  if constexpr (CARD) {
+    return ring_card_kernel<BODY, DT, MASK, T>;
+  } else {
+    return ring_kernel<BODY, DT, MASK, T>;
   }
 }
 
 // dynamic shared memory of an instance, set as its attribute (above 48 KB a
 // kernel must ask for it); -1 on failure
-template <int BODY, int DT, int MASK, typename T>
+template <bool CARD, int BODY, int DT, int MASK, typename T>
 int prepare() {
   if constexpr (BODY == 0) {
-    if (cudaFuncSetAttribute(ring_kernel<BODY, DT, MASK, T>,
+    if (cudaFuncSetAttribute(kernel_of<CARD, BODY, DT, MASK, T>(),
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              Cfg<DT>::SMEM_BYTES) != cudaSuccess) {
       return -1;
@@ -450,48 +634,53 @@ int prepare() {
   return 0;
 }
 
-template <int BODY, int DT, int MASK, typename T>
+// blocks a rank: the card's share of one rank (all of it once per card)
+template <bool CARD, int BODY, int DT, int MASK, typename T>
 int blocks_for(int p, int items) {
   int dev = 0, sms = 0, per_sm = 0, coop = 0;
-  const int smem = prepare<BODY, DT, MASK, T>();
+  const int smem = prepare<CARD, BODY, DT, MASK, T>();
   if (smem < 0 || cudaGetDevice(&dev) != cudaSuccess) return -1;
   cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (!coop ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, ring_kernel<BODY, DT, MASK, T>,
+          &per_sm, kernel_of<CARD, BODY, DT, MASK, T>(),
           BODY == 0 ? TC_THREADS : NTHREADS, smem) != cudaSuccess) {
     return -1;
   }
-  const int cap = per_sm * sms / p;
+  const int cap = per_sm * sms / (CARD ? 1 : p);
   return items < cap ? items : cap;
 }
 
-template <int BODY, int DT, int MASK, typename T>
+template <bool CARD, int BODY, int DT, int MASK, typename T>
 int launch_ring(const RingArgs& a, const void* maps, int items, int nblk,
                 cudaStream_t st) {
-  const int smem = prepare<BODY, DT, MASK, T>();
+  const int smem = prepare<CARD, BODY, DT, MASK, T>();
   if (smem < 0) return static_cast<int>(cudaErrorInvalidValue);
   RingArgs args = a;
   const CUtensorMap* map_arg = static_cast<const CUtensorMap*>(maps);
   void* params[] = {&args, &map_arg, &items};
-  const dim3 grid(nblk, a.p);
+  const dim3 grid(nblk, CARD ? 1 : a.p);
   const cudaError_t err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(ring_kernel<BODY, DT, MASK, T>), grid,
+      reinterpret_cast<void*>(kernel_of<CARD, BODY, DT, MASK, T>()), grid,
       dim3(BODY == 0 ? TC_THREADS : NTHREADS), params, smem, st);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // body: 0 tensor cores (bf16, D 64 / 128; `tail`: S/p not a multiple of
 // the 128-row tile), 1 CUDA cores fp32 in, 2 CUDA cores bf16 in
-#define K7_DISPATCH(FN, ...)                                                \
-  (body == 0 && D == 64 && !tail    ? FN<0, 64, MASK_NONE, bf16>(__VA_ARGS__) \
-   : body == 0 && D == 64           ? FN<0, 64, MASK_TAIL, bf16>(__VA_ARGS__) \
-   : body == 0 && D == 128 && !tail ? FN<0, 128, MASK_NONE, bf16>(__VA_ARGS__) \
-   : body == 0 && D == 128          ? FN<0, 128, MASK_TAIL, bf16>(__VA_ARGS__) \
-   : body == 1                      ? FN<1, 0, MASK_NONE, float>(__VA_ARGS__) \
-   : body == 2                      ? FN<1, 0, MASK_NONE, bf16>(__VA_ARGS__) \
-                                    : -1)
+// (CARD: the launch once per card, else the whole ring in one)
+#define K7_DISPATCH(FN, CARD, ...)                                      \
+  (body == 0 && D == 64 && !tail                                        \
+       ? FN<CARD, 0, 64, MASK_NONE, bf16>(__VA_ARGS__)                  \
+   : body == 0 && D == 64 ? FN<CARD, 0, 64, MASK_TAIL, bf16>(__VA_ARGS__) \
+   : body == 0 && D == 128 && !tail                                     \
+       ? FN<CARD, 0, 128, MASK_NONE, bf16>(__VA_ARGS__)                 \
+   : body == 0 && D == 128                                              \
+       ? FN<CARD, 0, 128, MASK_TAIL, bf16>(__VA_ARGS__)                 \
+   : body == 1 ? FN<CARD, 1, 0, MASK_NONE, float>(__VA_ARGS__)          \
+   : body == 2 ? FN<CARD, 1, 0, MASK_NONE, bf16>(__VA_ARGS__)           \
+               : -1)
 
 int item_count(int body, int BH, int Sl) {
   if (body == 0) return BH * ((Sl + BQ - 1) / BQ);
@@ -517,7 +706,17 @@ extern "C" int k7_ring_blocks(int body, int p, int BH, int Sl, int D) {
   if (!takes(body, p, BH, Sl, D)) return -1;
   const bool tail = Sl % BKV != 0;
   const int items = item_count(body, BH, Sl);
-  const int n = K7_DISPATCH(blocks_for, p, items);
+  const int n = K7_DISPATCH(blocks_for, false, p, items);
+  return n < 1 ? -1 : n;
+}
+
+// blocks of one rank's launch once per card (the whole card; at most one
+// per item); -1 if the device cannot launch it
+extern "C" int k7_card_blocks(int body, int BH, int Sl, int D) {
+  if (!takes(body, 1, BH, Sl, D)) return -1;
+  const bool tail = Sl % BKV != 0;
+  const int items = item_count(body, BH, Sl);
+  const int n = K7_DISPATCH(blocks_for, true, 1, items);
   return n < 1 ? -1 : n;
 }
 
@@ -574,6 +773,8 @@ extern "C" int k7_ring_attention(
   a.scale = scale;
   a.fault_rank = fault_rank;
   a.fault_step = fault_step;
+  a.spin_ns = SPIN_NS;
+  a.rank = -1;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (body == 0) {
     if (maps == nullptr || reinterpret_cast<uintptr_t>(maps) % 64 ||
@@ -609,5 +810,167 @@ extern "C" int k7_ring_attention(
   }
   const int items = item_count(body, B * H, Sl);
   const bool tail = Sl % BKV != 0;
-  return K7_DISPATCH(launch_ring, a, maps, items, nblk, st);
+  return K7_DISPATCH(launch_ring, false, a, maps, items, nblk, st);
+}
+
+namespace {
+
+long long round256(long long n) { return (n + 255) / 256 * 256; }
+
+long long slot_bytes_of(int body, int BH, int Sl, int D) {
+  return static_cast<long long>(BH) * Sl * D * (body == 1 ? 4 : 2);
+}
+
+}  // namespace
+
+// bytes of one rank's workspace once per card: the header of counters,
+// then two k slots and two v slots of [B*H, Sl, D]
+extern "C" long long k7_card_workspace_bytes(int body, int BH, int Sl,
+                                             int D) {
+  return HDR_BYTES + 4 * round256(slot_bytes_of(body, BH, Sl, D));
+}
+
+// One rank's launch of the ring once per card. q, k, v, o: this rank's
+// [B, H, Sl, D] (the common strides below); ws: its workspace (from
+// k7_ipc_alloc: counters zeroed once, never reset), ws_right / ws_left:
+// its neighbours' (peer-mapped by k7_ipc_open; unused at p = 1, where ws
+// may be null); state: its softmax state; maps: the tensor-core body's
+// device buffer of 7 maps (3 at p = 1), 64-byte aligned, whose slot maps
+// are written only when maps_ready is 0; rank: its place on the ring of p;
+// nblk: k7_card_blocks on every rank alike; epoch: this call's, counted
+// from 1 alike on every rank; timeout_s: a spin's bound. A launch that
+// gives up leaves a status code in ws (k7_card_status).
+extern "C" int k7_ring_attention_card(
+    const void* q, const void* k, const void* v, void* o, void* ws,
+    void* ws_right, void* ws_left, void* state, void* maps, int maps_ready,
+    int body, int rank, int p, int B, int H, int Sl, int D,
+    int qsb, int qsh, int qss, int ksb, int ksh, int kss,
+    int vsb, int vsh, int vss, int osb, int osh, int oss,
+    int nblk, unsigned epoch, float scale, int fault_rank, int fault_step,
+    float timeout_s, void* stream) {
+  if (k7_card_blocks(body, B * H, Sl, D) < nblk || nblk < 1 || rank < 0 ||
+      rank >= p || timeout_s <= 0.f ||
+      (p > 1 && (ws == nullptr || ws_right == nullptr ||
+                 ws_left == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long slot = round256(slot_bytes_of(body, B * H, Sl, D));
+  char* const mine = static_cast<char*>(ws);
+  char* const theirs = static_cast<char*>(ws_right);
+  RingArgs a;
+  a.q[0] = q;
+  a.k[0] = k;
+  a.v[0] = v;
+  a.o[0] = o;
+  a.kslot[0] = p > 1 ? mine + HDR_BYTES : nullptr;
+  a.vslot[0] = p > 1 ? mine + HDR_BYTES + 2 * slot : nullptr;
+  a.kslot_right = p > 1 ? theirs + HDR_BYTES : nullptr;
+  a.vslot_right = p > 1 ? theirs + HDR_BYTES + 2 * slot : nullptr;
+  a.state[0] = static_cast<float*>(state);
+  a.hdr = static_cast<unsigned*>(ws);
+  a.hdr_right = static_cast<unsigned*>(ws_right);
+  a.hdr_left = static_cast<unsigned*>(ws_left);
+  a.arrived = a.done = nullptr;
+  a.p = p;
+  a.H = H;
+  a.BH = B * H;
+  a.Sl = Sl;
+  a.D = D;
+  a.qsb = qsb; a.qsh = qsh; a.qss = qss;
+  a.ksb = ksb; a.ksh = ksh; a.kss = kss;
+  a.vsb = vsb; a.vsh = vsh; a.vss = vss;
+  a.osb = osb; a.osh = osh; a.oss = oss;
+  a.epoch = epoch;
+  a.target = epoch * static_cast<unsigned>(nblk);
+  a.scale = scale;
+  a.fault_rank = fault_rank;
+  a.fault_step = fault_step;
+  a.spin_ns = static_cast<unsigned long long>(timeout_s * 1e9);
+  a.rank = rank;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (body == 0) {
+    if (maps == nullptr || reinterpret_cast<uintptr_t>(maps) % 64) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    CUtensorMap host[7];
+    bool ok = make_map(&host[0], q, D, Sl, H, B, qss, qsh, qsb) &&
+              make_map(&host[1], k, D, Sl, H, B, kss, ksh, ksb) &&
+              make_map(&host[2], v, D, Sl, H, B, vss, vsh, vsb);
+    const bool slots = p > 1 && !maps_ready;
+    // the kernel finds slot s of a kind s slot_bytes after the first
+    const long long sh = static_cast<long long>(Sl) * D;
+    const long long packed = slot_bytes_of(body, B * H, Sl, D);
+    for (int s = 0; slots && s < 2; ++s) {
+      ok = ok &&
+           make_map(&host[3 + s], mine + HDR_BYTES + s * packed, D, Sl, H, B,
+                    D, sh, H * sh) &&
+           make_map(&host[5 + s], mine + HDR_BYTES + 2 * slot + s * packed,
+                    D, Sl, H, B, D, sh, H * sh);
+    }
+    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+    const cudaError_t err =
+        cudaMemcpyAsync(maps, host, (slots ? 7 : 3) * sizeof(CUtensorMap),
+                        cudaMemcpyHostToDevice, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int items = item_count(body, B * H, Sl);
+  const bool tail = Sl % BKV != 0;
+  return K7_DISPATCH(launch_ring, true, a, maps, items, nblk, st);
+}
+
+// Waits for the stream, then reads the status a launch once per card left
+// in ws (0: none; ST_TIMEOUT, ST_PEER, ST_EPOCH) into *status.
+extern "C" int k7_card_status(void* ws, void* stream, int* status) {
+  cudaError_t err = cudaStreamSynchronize(static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaMemcpy(status, static_cast<unsigned*>(ws) + HDR_STATUS,
+                   sizeof(int), cudaMemcpyDeviceToHost);
+  return static_cast<int>(err);
+}
+
+// What the runtime must do for the launch once per card: a workspace
+// outside PyTorch's caching allocator (an IPC handle maps a whole
+// allocation, and a cached tensor may lie inside a larger one), its handle,
+// a peer's mapped into this process, and the peer-access query.
+extern "C" int k7_ipc_alloc(int dev, long long bytes, void** ptr,
+                            void* handle) {
+  cudaError_t err = cudaSetDevice(dev);
+  if (err == cudaSuccess) err = cudaMalloc(ptr, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaMemset(*ptr, 0, bytes);
+  if (err == cudaSuccess) err = cudaDeviceSynchronize();
+  if (err == cudaSuccess) {
+    err = cudaIpcGetMemHandle(static_cast<cudaIpcMemHandle_t*>(handle), *ptr);
+  }
+  if (err != cudaSuccess) cudaFree(*ptr);
+  return static_cast<int>(err);
+}
+
+extern "C" int k7_ipc_handle_bytes() {
+  return static_cast<int>(sizeof(cudaIpcMemHandle_t));
+}
+
+extern "C" int k7_ipc_open(int dev, const void* handle, void** ptr) {
+  cudaError_t err = cudaSetDevice(dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  return static_cast<int>(
+      cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess));
+}
+
+extern "C" int k7_ipc_close(int dev, void* ptr) {
+  cudaError_t err = cudaSetDevice(dev);
+  if (err == cudaSuccess) err = cudaIpcCloseMemHandle(ptr);
+  return static_cast<int>(err);
+}
+
+extern "C" int k7_device_free(int dev, void* ptr) {
+  cudaError_t err = cudaSetDevice(dev);
+  if (err == cudaSuccess) err = cudaFree(ptr);
+  return static_cast<int>(err);
+}
+
+extern "C" int k7_can_access_peer(int dev, int peer, int* out) {
+  return static_cast<int>(cudaDeviceCanAccessPeer(out, dev, peer));
 }

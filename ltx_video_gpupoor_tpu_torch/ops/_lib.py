@@ -109,9 +109,34 @@ SIGNATURES = {
     "k7_ring_attention": [P, P, P, P, P, P, P, P, I, P, P, I, I, I, I, I, I,
                           I, I, I, I, I, I, I, I, I, I, I, I,
                           I, U, F, I, I, P],
+    # K7 once per card: body, B*H, S/p, D -> blocks of one rank's launch
+    # (-1: none)
+    "k7_card_blocks": [I, I, I, I],
+    # body, B*H, S/p, D -> bytes of a rank's workspace (a long long)
+    "k7_card_workspace_bytes": [I, I, I, I],
+    # this rank's q, k, v, out; its workspace, the right and the left
+    # neighbour's (peer-mapped); its state; the maps' buffer and whether
+    # its slot maps are written; body, rank, p, B, H, S/p, D; q/k/v/out
+    # strides (b, h, s); blocks, the call's epoch, scale, the planted
+    # fault's rank and step (-1 = none), a spin's bound in s, stream
+    "k7_ring_attention_card": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                               I, I, I, I, I, I, I, I, I, I, I, I, I, I,
+                               I, U, F, I, I, F, P],
+    # workspace, stream, int* status: waits for the stream, reads it
+    "k7_card_status": [P, P, P],
+    # device, bytes, void** ptr, the IPC handle's bytes (out)
+    "k7_ipc_alloc": [I, L, P, P],
+    "k7_ipc_handle_bytes": [],
+    # device, handle, void** ptr
+    "k7_ipc_open": [I, P, P],
+    "k7_ipc_close": [I, P],
+    "k7_device_free": [I, P],
+    # device, peer, int* can
+    "k7_can_access_peer": [I, I, P],
 }
 # entries that return something other than a cudaError_t
-RESTYPES = {"k7_ring_state_floats": ctypes.c_longlong}
+RESTYPES = {"k7_ring_state_floats": ctypes.c_longlong,
+            "k7_card_workspace_bytes": ctypes.c_longlong}
 
 
 def _nvcc() -> str:
@@ -235,3 +260,59 @@ def refuse_grad(route, device, *tensors) -> None:
             f"kernel route {route} has no backward: under autograd run "
             "attn_mode='xla' (the plain fp32 attention) and dense "
             "(unquantized) linears")
+
+
+# ---- device memory outside PyTorch's caching allocator, and CUDA IPC ----
+# (K7 once per card: a rank's workspace is one cudaMalloc'd allocation
+# whose IPC handle its neighbours map; a tensor from the caching allocator
+# may lie inside a larger segment, and a handle maps whole allocations)
+
+
+def _index(device) -> int:
+    import torch
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"device memory and IPC need a CUDA device, not "
+                         f"{device}")
+    return device.index if device.index is not None \
+        else torch.cuda.current_device()
+
+
+def device_alloc(nbytes: int, device) -> tuple[int, bytes]:
+    """``cudaMalloc`` of ``nbytes`` on ``device``, zeroed; returns the
+    pointer and its IPC handle (``cudaIpcGetMemHandle``). Free it with
+    :func:`device_free`."""
+    lib = library()
+    ptr = ctypes.c_void_p()
+    handle = ctypes.create_string_buffer(lib.k7_ipc_handle_bytes())
+    check(lib.k7_ipc_alloc(_index(device), nbytes, ctypes.byref(ptr),
+                           handle), f"cudaMalloc + IPC handle of {nbytes} B")
+    return ptr.value, handle.raw
+
+
+def device_free(ptr: int, device) -> None:
+    check(library().k7_device_free(_index(device), ptr), "cudaFree")
+
+
+def ipc_open(handle: bytes, device) -> int:
+    """Map another process's allocation into this one
+    (``cudaIpcOpenMemHandle`` with ``cudaIpcMemLazyEnablePeerAccess``);
+    returns the pointer. Unmap it with :func:`ipc_close`."""
+    ptr = ctypes.c_void_p()
+    check(library().k7_ipc_open(_index(device), handle, ctypes.byref(ptr)),
+          "cudaIpcOpenMemHandle")
+    return ptr.value
+
+
+def ipc_close(ptr: int, device) -> None:
+    check(library().k7_ipc_close(_index(device), ptr),
+          "cudaIpcCloseMemHandle")
+
+
+def can_access_peer(device: int, peer: int) -> bool:
+    """``cudaDeviceCanAccessPeer``: may ``device`` map ``peer``'s memory."""
+    can = ctypes.c_int()
+    check(library().k7_can_access_peer(device, peer, ctypes.byref(can)),
+          "cudaDeviceCanAccessPeer")
+    return bool(can.value)

@@ -77,11 +77,14 @@ def int8_linear_scaled_plain(x: torch.Tensor, s_x: torch.Tensor,
                              ) -> torch.Tensor:
     """The plain version of K2's entry with a given row scale: the codes
     of :func:`quantize_rows_scaled_plain`, the exact int32 product, ``acc *
-    s_x * s_w (+ bias)`` in fp32, cast to ``out_dtype``."""
+    s_x * s_w (+ bias)`` in fp32, cast to ``out_dtype`` (``torch.int32``:
+    the product itself, before the scales and the bias)."""
     k = x.shape[-1]
     sx = s_x.reshape(-1, 1).float()
     acc = int8_gemm_acc_plain(quantize_rows_scaled_plain(
         x.reshape(-1, k), sx), w_int8)
+    if out_dtype == torch.int32:
+        return acc.reshape(*x.shape[:-1], w_int8.shape[0])
     y = acc.float() * sx * w_scale.float()
     if bias is not None:
         y = y + bias.float()
@@ -253,14 +256,17 @@ def int8_linear_scaled(x: torch.Tensor, s_x: torch.Tensor,
     """K2 with a given per-row activation scale ``s_x [M]`` fp32 (M = the
     rows of ``x [..., K]``): the row kernel skips its own amax pass and
     writes ``clip(round(x / s_x), -127, 127)``, then the s8 GEMM with the
-    scale-and-bias epilogue, ``[..., N]`` in ``out_dtype`` (fp32 or bf16).
-    A row-parallel linear passes the scale of the whole row, its amax
-    all-reduced over the ``tp`` group. CPU tensors take
-    :func:`int8_linear_scaled_plain`; CUDA ones launch or raise."""
+    scale-and-bias epilogue, ``[..., N]`` in ``out_dtype`` (fp32 or bf16;
+    ``torch.int32``: the exact accumulator, the GEMM's int32 output mode
+    with no epilogue). A row-parallel linear passes the scale of the whole
+    row, its amax all-reduced over the ``tp`` group, and asks for the
+    accumulator, which the ranks sum as XLA's SPMD sums the int8 dot's
+    int32 partials. CPU tensors take :func:`int8_linear_scaled_plain`;
+    CUDA ones launch or raise."""
     _check(x, w_int8, w_scale, bias)
     _check_scale(x, s_x)
-    if out_dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"out_dtype {out_dtype}: fp32 or bf16")
+    if out_dtype not in (torch.float32, torch.bfloat16, torch.int32):
+        raise ValueError(f"out_dtype {out_dtype}: fp32, bf16 or int32")
     if x.device.type == "cpu":
         return int8_linear_scaled_plain(x, s_x, w_int8, w_scale, bias,
                                         out_dtype)

@@ -16,19 +16,25 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor | None = None,
     """RMS norm over the last axis. ``tp`` (a
     ``parallel.comm.TensorParallel``): ``x`` holds this rank's slice of the
     axis, and the sum of squares is all-reduced over the ``tp`` group (the
-    psum XLA derives for a norm over packed heads under SPMD)."""
+    psum XLA derives for a norm over packed heads under SPMD). The squares
+    are summed in float64 and the mean rounded to fp32 once, so that it
+    does not depend on the order of summation: the ranks' partial sums and
+    one process's whole sum round alike (in fp32 one rounding apart, which
+    the int8 quantizers downstream turn into other codes)."""
     xf = x.float()
     if tp is None:
-        ms = xf.square().mean(dim=-1, keepdim=True)
+        ms = xf.square().sum(dim=-1, keepdim=True, dtype=torch.float64) \
+            / x.shape[-1]
     else:
         from ..parallel import comm
 
         # each rank goes on with its own heads: the gradient of the sum
         # is summed over the group
-        ss = comm.reduce_sum(xf.square().sum(dim=-1, keepdim=True),
+        ss = comm.reduce_sum(xf.square().sum(dim=-1, keepdim=True,
+                                             dtype=torch.float64),
                              tp.group, sum_grads=True)
         ms = ss / (x.shape[-1] * tp.size)
-    y = xf * torch.rsqrt(ms + eps)
+    y = xf * torch.rsqrt(ms.float() + eps)
     if weight is not None:
         y = y * weight.float()
     return y.to(x.dtype)

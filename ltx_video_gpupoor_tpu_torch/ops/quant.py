@@ -231,11 +231,15 @@ class Linear(nn.Module):
 
 def row_parallel_matmul(p: Linear, x: torch.Tensor) -> torch.Tensor:
     """A row-parallel :class:`Linear` (``x [..., K/tp]``, this rank's rows
-    of the weight): the partial products are summed over the ``tp`` group
-    in fp32, and the bias is added once, after the sum. In the
-    ``int8_dynamic`` tier each activation row is quantized by the amax of
-    the *whole* row (``quant.py:190-198``): the local amax is all-reduced
-    with MAX and K2's entry that takes a given row scale does the rest."""
+    of the weight): the partial products are summed over the ``tp`` group,
+    and the bias is added once, after the sum. In the ``int8_dynamic`` tier
+    each activation row is quantized by the amax of the *whole* row
+    (``quant.py:190-198``): the local amax is all-reduced with MAX, K2's
+    entry that takes a given row scale gives this rank's exact int32
+    accumulator, the ranks sum those (as XLA's SPMD sums the int8 dot's
+    int32 partials), and K2's epilogue follows, ``(acc * s_x) * s_w +
+    bias`` in fp32: the output is the unsharded K2's bit for bit. The
+    other tiers sum fp32 partial products."""
     from ..parallel import comm
 
     tp = p.tp
@@ -245,8 +249,10 @@ def row_parallel_matmul(p: Linear, x: torch.Tensor) -> torch.Tensor:
         amax = x.reshape(-1, x.shape[-1]).abs().amax(dim=-1).float()
         comm.all_reduce(amax, tp.group, op=comm.dist.ReduceOp.MAX)
         s_x = torch.clamp(amax / torch.full_like(amax, 127.0), min=1e-8)
-        y = int8_linear_scaled(x, s_x, p.w_int8_dyn, p.scale)
-        comm.all_reduce(y, tp.group)
+        acc = int8_linear_scaled(x, s_x, p.w_int8_dyn, p.scale,
+                                 out_dtype=torch.int32)
+        comm.all_reduce(acc, tp.group)
+        y = acc.float() * s_x.reshape(*x.shape[:-1], 1) * p.scale.float()
         if p.bias is not None:
             y = y + p.bias.float()
         return y.to(x.dtype)

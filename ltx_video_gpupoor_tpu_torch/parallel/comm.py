@@ -24,6 +24,11 @@ gradients of column-parallel linears; :func:`all_gather_cat`'s backward
 takes this rank's slice. Without grad, or on inputs that need none,
 autograd records nothing and each is its plain call.
 
+:data:`call_counts` counts every tensor collective by name
+(:data:`COLLECTIVES`), under every backend, so that a run can show which
+exchanges it made (Ulysses' all-to-alls under sp, tp's all-reduces);
+:func:`reset_counts` sets them to 0.
+
 The shared-card transport: NCCL refuses two ranks on one card, so the
 ranks that share one H100 run ``gloo``, whose collectives are written for
 host memory. :func:`set_staged` names the collectives that copy their
@@ -44,6 +49,13 @@ COLLECTIVES = ("all_to_all", "all_reduce", "all_gather", "ring_shift")
 
 _STAGED: set[str] = set()
 staged_counts: dict[str, int] = {}
+call_counts: dict[str, int] = {}
+
+
+def reset_counts() -> None:
+    """Set :data:`call_counts` and :data:`staged_counts` to 0."""
+    call_counts.clear()
+    staged_counts.clear()
 
 
 def set_staged(names: Iterable[str]) -> None:
@@ -58,6 +70,8 @@ def set_staged(names: Iterable[str]) -> None:
 
 
 def _stages(name: str, tensors: Sequence[torch.Tensor]) -> bool:
+    """Count a call of collective ``name``; True where it is staged."""
+    call_counts[name] = call_counts.get(name, 0) + 1
     if name in _STAGED and any(t.is_cuda for t in tensors):
         staged_counts[name] = staged_counts.get(name, 0) + 1
         return True

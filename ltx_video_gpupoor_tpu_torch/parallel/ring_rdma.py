@@ -6,31 +6,38 @@ cut into ``p`` shards; rank ``r`` holds ``[B, H, S/p, D]`` of q, k and v;
 the kv shards rotate to the right neighbour through two slots per rank,
 and every rank folds the block it holds into an fp32 online softmax
 (``exp``, the output divided by ``max(l, 1e-20)``). Non-causal, no mask.
+Backed by ``csrc/ring_attention.cu`` (K7, which replaces ``_ring_kernel``,
+:43): a transfer is plain stores through the neighbour's slot pointer
+followed by a release of a counter, and the counters carry a call epoch
+(see the source's header). Two bodies do the tile math (:func:`ring_body`
+picks one): K1's ``wgmma`` block on the tensor cores (bf16, D 64 or 128,
+shards of a multiple of 64 rows) and CUDA cores in fp32 (every other
+shape and type; test-sized shapes only). Which one ran is counted in
+``.launches_tc`` and ``.launches_simple`` of each entry; their sum is
+``.launches``. The kernel is launched in one of two ways:
 
-- :func:`ring_attention_rdma` is ``ring_attention_rdma`` (:122) over the
-  ``p`` per-rank tensors, backed by ``csrc/ring_attention.cu`` (K7, which
-  replaces ``_ring_kernel``, :43). On the TPU each rank is a chip and the
-  call sits inside ``shard_map``; here the whole ring is one cooperative
-  launch on one card: a rank is a set of persistent thread blocks, the
-  slots and the softmax state live in device memory, a transfer is plain
-  stores through the neighbour's slot pointer followed by a release of a
-  counter, and the counters carry a call epoch (see the source's
-  header). Two bodies do the tile math (:func:`ring_body` picks one): K1's
-  ``wgmma`` block on the tensor cores (bf16, D 64 or 128, shards of a
-  multiple of 64 rows; its tensor maps live in a device buffer, the slots'
-  written once a workspace) and CUDA cores in fp32 (every other shape and
-  type; test-sized shapes only). Which one ran is counted in
-  ``ring_attention_rdma.launches_tc`` and ``.launches_simple``; their sum
-  is ``.launches``.
-- :func:`ring_attention_rdma_sharded` is ``ring_attention_rdma_sharded``
-  (:179): it cuts a global ``[B, H, S, D]`` on S and joins the result.
+- :func:`ring_attention_rdma_rank` is JAX's ``ring_attention_rdma`` (:122)
+  as ``shard_map`` calls it: this rank's ``[B, H, S/p, D]`` under the
+  active mesh (``core/mesh.py``), launched once per card, as the TPU
+  kernel runs once per chip. The right neighbour's two k and two v slots
+  and its counters are peer pointers: each rank's workspace is one
+  ``cudaMalloc``'d allocation whose IPC handle the ring's ranks exchange
+  over the group once a shape and map (``ops/_lib.py``). It needs peer
+  access between the ranks' cards and raises without it; nothing falls
+  back. :func:`ring_attention_rdma_rank_sharded` is
+  ``ring_attention_rdma_sharded`` (:179): a global ``[B, H, S, D]`` cut,
+  run and joined over the ``sp`` axis of a mesh.
+- :func:`ring_attention_rdma` runs the whole ring of ``p`` per-rank
+  tensors on one card in one cooperative launch: a rank is a set of
+  persistent thread blocks, the slots and the softmax state live in that
+  card's memory. :func:`ring_attention_rdma_sharded` cuts a global
+  ``[B, H, S, D]`` into ``p`` shards on S for it and joins the result.
+
 - :func:`logical_id` is ``_logical_id`` (:32): the global id of a ring
   neighbour on a multi-axis mesh.
-- :func:`ring_attention_plain` is the same ring in plain PyTorch.
-
-The launch of the same kernel once per device over peer-mapped pointers
-(several cards on one host) is not written: the whole ring is verified on
-one card.
+- :func:`ring_attention_plain` is the ring in plain PyTorch over the ``p``
+  shards; :func:`ring_attention_rank_plain` the same ring of one rank over
+  ``comm.ring_shift``, which CPU tensors take in the per-rank entry.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.distributed as dist
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
@@ -88,6 +96,33 @@ def _check_shards(q_shards, k_shards, v_shards):
     return p
 
 
+def _fold(qf, kb, vb, scale, m, l, acc, heads):
+    """Fold one kv block into the running (m, l, acc) of one rank, in
+    place, ``heads`` heads at a time: the block's max first, ``exp``
+    against the new max, the old sums rescaled (fp32)."""
+    h = qf.shape[1]
+    for h0 in range(0, h, heads):
+        hs = slice(h0, h0 + heads)
+        s = (qf[:, hs] @ kb[:, hs].float().transpose(-1, -2)) * scale
+        m_prev = m[:, hs]
+        m_new = torch.maximum(m_prev, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m_prev - m_new)
+        pexp = torch.exp(s - m_new)
+        del s
+        l[:, hs] = l[:, hs] * alpha + pexp.sum(dim=-1, keepdim=True)
+        acc[:, hs] = acc[:, hs] * alpha + pexp @ vb[:, hs].float()
+        del pexp
+        m[:, hs] = m_new
+
+
+def _plain_state(shape, device):
+    b, h, s_loc, d = shape
+    return (torch.full((b, h, s_loc, 1), NEG_INF, device=device),
+            torch.zeros((b, h, s_loc, 1), device=device),
+            torch.zeros((b, h, s_loc, d), device=device),
+            max(1, min(h, PLAIN_SCORE_ELEMS // max(1, b * s_loc * s_loc))))
+
+
 def ring_attention_plain(q_shards, k_shards, v_shards,
                          scale: float | None = None) -> list[torch.Tensor]:
     """The ring in plain PyTorch: two kv slots per rank, slot 0 filled with
@@ -97,16 +132,12 @@ def ring_attention_plain(q_shards, k_shards, v_shards,
     new max, the old sums rescaled. Returns the ``p`` outputs in the
     inputs' dtype."""
     p = _check_shards(q_shards, k_shards, v_shards)
-    b, h, s_loc, d = q_shards[0].shape
+    d = q_shards[0].shape[-1]
     if scale is None:
         scale = d ** -0.5
-    dev = q_shards[0].device
     kslot = [[k_shards[r], None] for r in range(p)]
     vslot = [[v_shards[r], None] for r in range(p)]
-    m = [torch.full((b, h, s_loc, 1), NEG_INF, device=dev) for _ in range(p)]
-    l = [torch.zeros((b, h, s_loc, 1), device=dev) for _ in range(p)]
-    acc = [torch.zeros((b, h, s_loc, d), device=dev) for _ in range(p)]
-    heads = max(1, min(h, PLAIN_SCORE_ELEMS // max(1, b * s_loc * s_loc)))
+    states = [_plain_state(q.shape, q.device) for q in q_shards]
     for step in range(p):
         slot, nxt = step % 2, (step + 1) % 2
         if step + 1 < p:
@@ -115,24 +146,34 @@ def ring_attention_plain(q_shards, k_shards, v_shards,
                 right = (r + 1) % p
                 kslot[right][nxt], vslot[right][nxt] = sent[r]
         for r in range(p):
-            for h0 in range(0, h, heads):
-                hs = slice(h0, h0 + heads)
-                qf = q_shards[r][:, hs].float()
-                kb = kslot[r][slot][:, hs].float()
-                vb = vslot[r][slot][:, hs].float()
-                s = (qf @ kb.transpose(-1, -2)) * scale
-                m_prev = m[r][:, hs]
-                m_new = torch.maximum(m_prev, s.amax(dim=-1, keepdim=True))
-                alpha = torch.exp(m_prev - m_new)
-                pexp = torch.exp(s - m_new)
-                del s
-                l[r][:, hs] = l[r][:, hs] * alpha \
-                    + pexp.sum(dim=-1, keepdim=True)
-                acc[r][:, hs] = acc[r][:, hs] * alpha + pexp @ vb
-                del pexp
-                m[r][:, hs] = m_new
-    return [(acc[r] / torch.clamp(l[r], min=L_FLOOR)).to(q_shards[r].dtype)
-            for r in range(p)]
+            _fold(q_shards[r].float(), kslot[r][slot], vslot[r][slot], scale,
+                  *states[r])
+    return [(acc / torch.clamp(l, min=L_FLOOR)).to(q_shards[r].dtype)
+            for r, (_, l, acc, _) in enumerate(states)]
+
+
+def ring_attention_rank_plain(q, k, v, group,
+                              scale: float | None = None) -> torch.Tensor:
+    """One rank's ring in plain PyTorch, over the process ``group`` (the
+    ring's ranks in ring order): two slots, slot 0 this rank's own k and
+    v; at step ``s`` the slot it holds goes to the right neighbour
+    (``comm.ring_shift``) and the rank folds it into its running (m, l,
+    acc) as :func:`ring_attention_plain` does."""
+    from . import comm
+
+    p = dist.get_world_size(group) if group is not None else 1
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    state = _plain_state(q.shape, q.device)
+    qf = q.float()
+    slots = [(k, v), None]
+    for step in range(p):
+        slot, nxt = step % 2, (step + 1) % 2
+        if step + 1 < p:
+            slots[nxt] = tuple(comm.ring_shift(list(slots[slot]), group))
+        _fold(qf, *slots[slot], scale, *state)
+    _, l, acc, _ = state
+    return (acc / torch.clamp(l, min=L_FLOOR)).to(q.dtype)
 
 
 def _map_buffer(n_maps, device):
@@ -163,12 +204,6 @@ class _Workspace:
 
 
 _workspaces: dict = {}
-
-
-def release_workspaces() -> None:
-    """Drop every cached workspace (a ring of a new shape allocates its
-    own at its first call, and keeps it for the next)."""
-    _workspaces.clear()
 
 
 def _pointer_array(tensors):
@@ -309,3 +344,249 @@ def ring_attention_rdma_sharded(q: torch.Tensor, k: torch.Tensor,
                         v.chunk(p, dim=2), scale,
                         out_shards=out.chunk(p, dim=2))
     return out
+
+
+# ---- once per card: the per-rank entry -----------------------------------
+
+# a spin's bound in the launch once per card: far beyond the launch skew
+# between processes (tens of milliseconds) and a step's wait for a peer's
+# math, so that only a rank that never launches ends it
+K7_SPIN_S = 10.0
+# why a launch once per card gave up (the status it leaves in its header)
+K7_STATUS = {
+    1: "a spin outlasted its bound: a neighbour did not launch in time",
+    2: "a neighbour gave up",
+    3: "the left neighbour is at another call: the ranks called this ring "
+       "a different number of times",
+}
+
+
+class _CardWorkspace:
+    """One rank's share of a ring of one shape once per card: its own
+    allocation (header of counters, two k and two v slots; outside the
+    caching allocator, zeroed once), its neighbours' mapped into this
+    process, its softmax state and tensor maps, and the call epoch, which
+    every rank of the ring advances alike."""
+
+    def __init__(self, key, group, right, left, body, b, h, s_loc, d,
+                 device, nblk, lib):
+        from ..ops import _lib
+
+        self.device = device
+        self.ptr, handle = _lib.device_alloc(
+            lib.k7_card_workspace_bytes(body, b * h, s_loc, d), device)
+        self.state = torch.empty(lib.k7_ring_state_floats(body, b * h, s_loc,
+                                                          d),
+                                 dtype=torch.float32, device=device)
+        self.maps, self.maps_ptr = _map_buffer(7, device)
+        self.maps_ready = False
+        self.epoch = 0
+        self.peers: dict = {}
+        me = dist.get_rank()
+        try:
+            # every rank of the ring meets here once a shape: the key and
+            # the blocks must agree, or the counters could never meet, and
+            # each card must map its neighbours' memory
+            got = [None] * dist.get_world_size(group)
+            dist.all_gather_object(got, (me, key, nblk, handle,
+                                         device.index), group=group)
+            for rank, their_key, their_nblk, their_handle, card in got:
+                if their_key != key or their_nblk != nblk:
+                    raise RuntimeError(
+                        f"K7 once per card: rank {rank} calls the ring with "
+                        f"{their_key} on {their_nblk} blocks, rank {me} with "
+                        f"{key} on {nblk}")
+                if rank not in (right, left) or rank == me:
+                    continue
+                if card != device.index and not _lib.can_access_peer(
+                        device.index, card):
+                    raise RuntimeError(
+                        f"K7 once per card: card {device.index} (rank {me}) "
+                        f"has no peer access to card {card} (rank {rank}), "
+                        f"its neighbour on the ring {key[-1]}")
+                self.peers[rank] = _lib.ipc_open(their_handle, device)
+            self.right, self.left = self.peers[right], self.peers[left]
+            # the ranks start the first call together
+            dist.barrier(group=group)
+        except BaseException:
+            self.release()
+            raise
+
+    def release(self):
+        from ..ops import _lib
+
+        for ptr in self.peers.values():
+            _lib.ipc_close(ptr, self.device)
+        self.peers = {}
+        if self.ptr:
+            _lib.device_free(self.ptr, self.device)
+            self.ptr = 0
+
+
+_card_workspaces: dict = {}
+# once per card, the workspaces of rings that gave up: unmapped and freed
+# only by release_workspaces, when the caller knows no peer still uses them
+_given_up: list = []
+
+
+def release_workspaces() -> None:
+    """Drop every cached workspace (a ring of a new shape allocates its
+    own at its first call, and keeps it for the next); once per card,
+    unmap the neighbours' and free this rank's, also those of rings that
+    gave up (every rank of a ring releases alike, with no launch of it in
+    flight on any rank)."""
+    _workspaces.clear()
+    while _card_workspaces:
+        _given_up.append(_card_workspaces.popitem()[1])
+    while _given_up:
+        _given_up.pop().release()
+
+
+def _mesh_ring(mesh, axis_size, axis_name, mesh_axes):
+    """``(p, my index on the ring, right, left, the ring's group)`` of this
+    rank: the neighbours as global ids from ``mesh_axes`` (the mesh's own
+    axes by default) and this rank's coordinates."""
+    from ..core import mesh as _mesh
+
+    names = tuple(mesh.mesh_dim_names)
+    if not mesh_axes:
+        mesh_axes = tuple((n, _mesh.axis_size(mesh, n)) for n in names)
+    if dict(mesh_axes).get(axis_name) != axis_size \
+            or _mesh.axis_size(mesh, axis_name) != axis_size:
+        raise ValueError(f"axis {axis_name!r} of size {axis_size} is not "
+                         f"the mesh's {dict(mesh_axes)}")
+    coords = {n: _mesh.axis_rank(mesh, n) for n in names}
+    left, right = ring_neighbours(mesh_axes, axis_name, coords)
+    group = _mesh.axis_group(mesh, axis_name) if axis_size > 1 else None
+    if group is not None:
+        my = coords[axis_name]
+        want = (dist.get_global_rank(group, (my + 1) % axis_size),
+                dist.get_global_rank(group, (my - 1) % axis_size))
+        if want != (right, left):
+            raise RuntimeError(f"K7: the ring's neighbours {(right, left)} "
+                               f"are not the {axis_name} group's {want}")
+    return axis_size, coords[axis_name], right, left, group
+
+
+def ring_attention_rdma_rank(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, axis_size: int,
+                             axis_name: str = "sp", mesh_axes: tuple = (),
+                             scale: float | None = None, *,
+                             _fault: tuple[int, int] | None = None,
+                             _timeout_s: float = K7_SPIN_S) -> torch.Tensor:
+    """Non-causal ring attention of this rank: q, k, v ``[B, H, S/p, D]``
+    sequence-sharded over ``axis_name`` (of size ``axis_size``) of the
+    active mesh, as JAX calls ``ring_attention_rdma`` inside ``shard_map``;
+    ``mesh_axes`` ((name, size), ...) in mesh order resolve the neighbours
+    on multi-axis meshes (default: the mesh's). Every rank of the ring
+    calls it alike.
+
+    CPU tensors take :func:`ring_attention_rank_plain`; CUDA tensors launch
+    K7 once on this rank's card (or raise, also under autograd). Calls
+    that share a shape share a workspace and must be issued on one stream;
+    a call returns after its launch has ended, and raises where it gave up
+    (:data:`K7_STATUS`; the workspace is dropped: every rank of the ring
+    must then :func:`release_workspaces` once no launch of it is in flight
+    on any rank). ``_fault=(rank, step)``: that ring index skips the math
+    of that step (a planted fault for the check of the checks);
+    ``_timeout_s``: a spin's bound."""
+    from ..core import mesh as _mesh
+    from ..ops import _lib
+
+    p, my, right, left, group = _mesh_ring(_mesh.active_mesh(), axis_size,
+                                           axis_name, mesh_axes)
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape \
+            or k.dtype != q.dtype or v.dtype != q.dtype \
+            or k.device != q.device or v.device != q.device:
+        raise ValueError("q, k and v must be one [B, H, S/p, D] shape, type "
+                         "and device")
+    b, h, s_loc, d = q.shape
+    if scale is None:
+        scale = d ** -0.5
+    _lib.refuse_grad("K7", q.device, q, k, v)
+    if q.device.type == "cpu":
+        return ring_attention_rank_plain(q, k, v, group, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"K7 runs on CUDA or the CPU, not {q.device}")
+    if p > MAX_RANKS:
+        raise ValueError(f"K7 takes at most {MAX_RANKS} ranks, got {p}")
+    body = ring_body(q.dtype, s_loc, d)
+    lib = _lib.library()
+    out = torch.empty((b, h, s_loc, d), dtype=q.dtype, device=q.device)
+    strides = [_common_strides(name, [t]) for name, t in (
+        ("q", q), ("k", k), ("v", v), ("out", out))]
+    nblk = lib.k7_card_blocks(body, b * h, s_loc, d)
+    if nblk < 1:
+        raise RuntimeError("K7: the card cannot hold a rank in one "
+                           "cooperative launch")
+    ws = None
+    if p > 1:
+        ring = tuple(dist.get_global_rank(group, i) for i in range(p))
+        key = (p, body, b, h, s_loc, d, str(q.dtype), ring)
+        ws = _card_workspaces.get((key, q.device))
+        if ws is None:
+            ws = _card_workspaces[(key, q.device)] = _CardWorkspace(
+                key, group, right, left, body, b, h, s_loc, d, q.device,
+                nblk, lib)
+        ws.epoch = (ws.epoch + 1) % 2 ** 32 or 1
+    maps_ptr, maps_ready = None, 0
+    if body == 0:
+        if ws is None:
+            _maps, maps_ptr = _map_buffer(3, q.device)
+        else:
+            maps_ptr, maps_ready = ws.maps_ptr, int(ws.maps_ready)
+    fault_rank, fault_step = _fault if _fault is not None else (-1, -1)
+    stream = _lib.stream_ptr(q.device)
+    code = lib.k7_ring_attention_card(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        ws.ptr if ws else None, ws.right if ws else None,
+        ws.left if ws else None, ws.state.data_ptr() if ws else None,
+        maps_ptr, maps_ready, body, my, p, b, h, s_loc, d, *strides[0],
+        *strides[1], *strides[2], *strides[3], nblk, ws.epoch if ws else 1,
+        ctypes.c_float(float(scale) * (LOG2E if body == 0 else 1.0)),
+        fault_rank, fault_step, ctypes.c_float(_timeout_s), stream)
+    _lib.check(code, "K7 ring_attention_rdma_rank launch")
+    ring_attention_rdma_rank.launches += 1
+    if body == 0:
+        ring_attention_rdma_rank.launches_tc += 1
+    else:
+        ring_attention_rdma_rank.launches_simple += 1
+    if ws is not None:
+        if body == 0:
+            ws.maps_ready = True
+        status = ctypes.c_int()
+        _lib.check(lib.k7_card_status(ws.ptr, stream, ctypes.byref(status)),
+                   "K7 ring_attention_rdma_rank")
+        if status.value:
+            _given_up.append(_card_workspaces.pop((key, q.device)))
+            raise RuntimeError(
+                f"K7 once per card, rank {dist.get_rank()} (ring index {my} "
+                f"of {p}): {K7_STATUS.get(status.value, status.value)}")
+    return out
+
+
+ring_attention_rdma_rank.launches = 0
+ring_attention_rdma_rank.launches_tc = 0
+ring_attention_rdma_rank.launches_simple = 0
+
+
+def ring_attention_rdma_rank_sharded(mesh, q: torch.Tensor, k: torch.Tensor,
+                                     v: torch.Tensor, axis_name: str = "sp",
+                                     scale: float | None = None
+                                     ) -> torch.Tensor:
+    """JAX's ``ring_attention_rdma_sharded`` (:179): a global ``[B, H, S,
+    D]`` (the same on every rank) cut on S over ``axis_name`` of ``mesh``,
+    :func:`ring_attention_rdma_rank` on each rank's chunk, the chunks
+    joined in rank order (every axis but ``axis_name`` replicated)."""
+    from ..core import mesh as _mesh
+    from .ulysses import shard_seq
+
+    p = _mesh.axis_size(mesh, axis_name)
+    parts = [shard_seq(t, mesh, axis_name, 2) for t in (q, k, v)]
+    with _mesh.use_mesh(mesh):
+        out = ring_attention_rdma_rank(*parts, p, axis_name, scale=scale)
+    if p == 1:
+        return out
+    from . import comm
+
+    return comm.all_gather_cat(out, _mesh.axis_group(mesh, axis_name), 2)

@@ -180,11 +180,11 @@ def test_profiled_ops_keep_the_prologue_launch_counter():
 VARIANT_STUBS = ("vace", "clip_fp32")
 
 
-def _stubbed_main(monkeypatch, capsys, argv, k3q_d80=0):
+def _stubbed_main(monkeypatch, capsys, argv, k3q_d80=0, keep=()):
     """``chip_smoke.main`` with every phase replaced by a stub that records
-    its name: (exit code, the phases in order, the printed lines). Every
-    request's stubbed counts read 1 for each kernel, ``k3q_d80`` for K3q
-    at head dim 80."""
+    its name (but those in ``keep``): (exit code, the phases in order, the
+    printed lines). Every request's stubbed counts read 1 for each kernel,
+    ``k3q_d80`` for K3q at head dim 80."""
     sys.path.insert(0, REPO)
     import chip_smoke
 
@@ -200,7 +200,7 @@ def _stubbed_main(monkeypatch, capsys, argv, k3q_d80=0):
         "phase_d80": (0.0, 0.0, 0.0, 0.0), "phase_k5": 0.0,
         "phase_k6": 0.0, "phase_k1f": 0.0, "phase_timing": (timed, info),
         "time_k1f": None,
-        "phase_k8": (0.0, 1), "phase_k7": (0.0, 1),
+        "phase_k8": (0.0, 1), "phase_k7": (0.0, 1, (0.0, 1)),
         "phase_path": ([ones], object(), object()),
         "phase_teacache": None, "phase_fp32": ones,
         "phase_ltx13b": ({**{t[0]: ones for t in chip_smoke.LTX13B_TIERS},
@@ -212,8 +212,12 @@ def _stubbed_main(monkeypatch, capsys, argv, k3q_d80=0):
         "phase_wan_variants": dict.fromkeys(VARIANT_STUBS, ones),
         "phase_aux": ones,
         "phase_k2s": 0.0, "phase_mesh": 1, "phase_train": 1.0,
+        "phase_cards_probe": ("a card", []), "phase_cards_k7": {},
+        "phase_cards": None,
     }
     for name, result in results.items():
+        if name in keep:
+            continue
         def stub(*args, _name=name, _result=result, **kwargs):
             ran.append(_name)
             return _result
@@ -253,7 +257,12 @@ def test_default_run_drives_every_path_and_ends_with_the_result(
     assert json.loads(lines[-1]) == {"ok": True, "device": {
         "platform": "gpu", "kind": "a card", "count": 1}}
     kernels = json.loads(lines[-2])["kernels"]
-    assert len(kernels) == 18
+    assert len(kernels) == 19
+    # K7's per-rank entry, launched once per card (at world 1 on one card)
+    card = [k for k in kernels
+            if k["name"].startswith("ring_attention_rdma_rank")]
+    assert len(card) == 1 and card[0]["launches"] == 1
+    assert card[0]["source"].endswith("csrc/ring_attention.cu")
     # K2's given-scale entry, launched by [mesh]'s tensor-parallel ranks
     k2s = [k for k in kernels if k["name"].startswith("int8_linear_scaled")]
     assert len(k2s) == 1 and k2s[0]["launches"] == 1
@@ -288,6 +297,42 @@ def test_mesh_only_runs_the_build_k2s_and_mesh(monkeypatch, capsys):
     assert code == 0
     assert ran == ["phase_device", "phase_build", "phase_k2s", "phase_mesh"]
     assert not any('"ok"' in ln or '"kernels"' in ln for ln in lines)
+
+
+def test_cards_only_runs_the_probe_build_k7_and_cards(monkeypatch, capsys):
+    """``--cards-only``: the device, the probe of the host, the build, K7
+    once per card and [cards]; no result line."""
+    code, ran, lines = _stubbed_main(monkeypatch, capsys, ["--cards-only"])
+    assert code == 0
+    assert ran == ["phase_device", "phase_cards_probe", "phase_build",
+                   "phase_cards_k7", "phase_cards"]
+    assert not any('"ok"' in ln or '"kernels"' in ln for ln in lines)
+
+
+def test_cards_only_refuses_fewer_than_four_cards(monkeypatch, capsys):
+    """With fewer than four cards ``--cards-only`` fails in its probe,
+    before any build: it does not skip, and prints no result."""
+    with pytest.raises(RuntimeError, match="needs 4 CUDA devices"):
+        _stubbed_main(monkeypatch, capsys, ["--cards-only"],
+                      keep=("phase_cards_probe",))
+    assert '"ok"' not in capsys.readouterr().out
+
+
+def test_cards_probe_refuses_a_pair_without_peer_access(monkeypatch):
+    """Four cards, one pair without peer access: the probe raises naming
+    it (K7 once per card maps its neighbours' memory; nothing falls back
+    to host staging)."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch.cuda, "can_device_access_peer",
+                        lambda i, j: {i, j} != {1, 2})
+    monkeypatch.setattr(chip_smoke.subprocess, "run", lambda *a, **k:
+                        subprocess.CompletedProcess(a, 0, "a card, 700 W\n",
+                                                    ""))
+    with pytest.raises(RuntimeError, match=r"\(1, 2\), \(2, 1\)"):
+        chip_smoke.phase_cards_probe()
 
 
 def test_train_only_runs_the_device_and_train(monkeypatch, capsys):

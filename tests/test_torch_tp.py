@@ -223,6 +223,30 @@ def test_row_parallel_int8_codes_equal_unsharded(tmp_path, k):
         np.testing.assert_allclose(y, want.numpy(), atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("world", [2, 4])
+def test_row_parallel_int8_output_equals_unsharded_bit_for_bit(tmp_path,
+                                                               world):
+    """The ranks sum their exact int32 accumulators, as XLA's SPMD sums the
+    int8 dot's int32 partials, and K2's epilogue runs once on the sum: the
+    row-parallel output is the unsharded K2's bit for bit (a sum of the
+    ranks' fp32 partial products is not: it rounds each partial, and the
+    partials cancel)."""
+    rng = np.random.default_rng(5)
+    k = 128
+    x = (rng.standard_normal((6, 4, k)) * rng.uniform(0.1, 4, (6, 4, 1))
+         ).astype(np.float32)
+    w = rng.standard_normal((40, k)).astype(np.float32)
+    w_int8, w_scale = int8_matmul.quantize_rows_plain(torch.from_numpy(w))
+    w_scale = w_scale.reshape(-1)
+    bias = rng.standard_normal(40).astype(np.float32)
+    want = int8_matmul.int8_linear_plain(torch.from_numpy(x), w_int8,
+                                         w_scale, torch.from_numpy(bias))
+    outs = spawn(tmp_path, workers.row_parallel_codes, world, x,
+                 w_int8.numpy(), w_scale.numpy(), bias)
+    for _, y in outs:
+        np.testing.assert_array_equal(y, want.numpy())
+
+
 def test_scaled_k2_plain_is_k2_at_its_own_scale():
     """K2's given-scale entry (plain version, as the CPU runs it) handed
     the scale K2 computes gives K2's result bit for bit."""
