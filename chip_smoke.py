@@ -18,6 +18,8 @@ the port on four cards of one host.
     python3 chip_smoke.py --mesh-only  # build, K2s and [mesh], no result line
     python3 chip_smoke.py --cards-only # four cards: probe, build, K7 once
                                        # per card, [cards]; no result line
+    python3 chip_smoke.py --cards-train-only   # four cards: probe and
+                                       # [cards] (d) alone, no result line
     python3 chip_smoke.py --train-only     # [train] alone, no result line
 
 Phases, one output line each (or a few):
@@ -374,7 +376,28 @@ Phases, one output line each (or a few):
             through apply_wan_serving_mesh and the parallel spatial tiled
             decode, each against the same request in one process on card
             0 (decoding the same tiles), with seconds by stage, peak GiB
-            and the launches a rank (cards_request_expect).
+            and the launches a rank (cards_request_expect); (e) in the
+            same processes, Wan i2v-14B 1280x720x81 over tp=4 (CLIP
+            ViT-H/14 whole on every rank, the Wan VAE encode of the first
+            frame, 2 steps, the spread decode) against one process on
+            card 0, with seconds by stage, peak GiB and the launches a
+            rank (cards_i2v_expect); (f) in fresh processes, (c)'s 13B
+            POST / with LTXV_TPU_WARMUP set to its bucket: rank 0's
+            warm-up hands the bucket to every rank through RankChannel,
+            then two requests, each against (c)'s one process, the
+            warm-up's seconds and each generation's stages; then (d) the
+            train step (training/, comm.py's autograd collectives over
+            NCCL): the 4-layer cuts at full width in fp32 of LTX-2B
+            (sp=4, tp=4, sp2 x tp2, dp2 x sp2) and LTX-13B (tp=4)
+            against one process on card 0 (grads and updated leaves
+            within TRAIN_BOUND, a planted fault caught, collective calls
+            a rank as train_expect says, nothing staged), the checkpoint
+            saved on the tp=4 mesh and restored onto one process, sp2 x
+            tp2 and tp=4 bit for bit, then LTX-13B over tp=4 at 704x480x121
+            and LTX-2B over sp=4 at 1216x704x121 at full depth, bf16,
+            CARDS_TRAIN_STEPS steps (seconds a step, peak GiB a rank,
+            finite losses, the guard, no kernel launched).
+            --cards-train-only runs (d) alone.
 9. profile  only with --profile: one more 704x480x121 LTX-2B request, one
             more 13B request of kinds (b), (c) and (d) and one more
             832x480x81 Wan request, each twice under torch.profiler: as it
@@ -6258,8 +6281,10 @@ def _mesh_rank(rank, world, out_dir):
     os.environ["LTXV_TPU_MESH"] = f"dp1,sp{world},tp1"
     model = _mesh_serve_model()
     model_zoo.apply_serving_mesh(model.generator.pipeline)
+    # no warm-up here: [cards] (f) measures it on four cards
     svc = tserver.InferenceService(
-        model=model, outputs_dir=os.path.join(out_dir, "videos"))
+        model=model, outputs_dir=os.path.join(out_dir, "videos"),
+        warmup_spec="off")
     assert svc.channel is not None and svc._warmup_thread is None
     if rank != 0:
         t0 = time.perf_counter()
@@ -7177,8 +7202,9 @@ def _cards_wan14b_generate(pipe, umt5, output_type="pixels"):
 def _cards_request_reference(rank, world, work):
     """(c) one process on card 0: the 13B request (the served route's
     ``_produce``, tier (b), decoded over the 4 ranks' tiles) and the Wan
-    request (its latents through the spread decode on a one-rank mesh);
-    frames into ``work``; returns seconds and peak GiB."""
+    request (its latents through the spread decode on a one-rank mesh),
+    then (e)'s i2v request; frames into ``work``; returns seconds and peak
+    GiB."""
     import numpy as np
     import torch
 
@@ -7219,15 +7245,20 @@ def _cards_request_reference(rank, world, work):
     res["wan14b"] = time.perf_counter() - t0
     res["wan14b peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
     torch.save(video.float().cpu(), os.path.join(work, "wan14b.pt"))
+    del pipe, latents, video
+    gc.collect()
+    torch.cuda.empty_cache()
+    _cards_i2v_reference(umt5, work, res)
     return res
 
 
 def _cards_request_rank(rank, world, work):
     """(c) a rank of 4 (NCCL, one a card): the 13B request as POST / on
     rank 0 (LTXV_TPU_MESH=dp1,sp4,tp1, the followers serve it through
-    RankChannel), then the Wan request over tp=4 (LTXV_TPU_MESH=dp1,sp1,
-    tp4) through apply_wan_serving_mesh; seconds by stage, peak GiB,
-    launches and collective calls by pass a rank; rank 0 the frames."""
+    RankChannel; no warm-up: (f) has it), then the Wan request over tp=4
+    (LTXV_TPU_MESH=dp1,sp1,tp4) through apply_wan_serving_mesh, then (e)'s
+    i2v request; seconds by stage, peak GiB, launches and collective calls
+    by pass a rank; rank 0 the frames."""
     import json
     import threading
     import urllib.request
@@ -7253,7 +7284,8 @@ def _cards_request_rank(rank, world, work):
     real = gen.generate
     gen.generate = lambda *a, **k: real(*a, on_stage=on_stage, **k)
     svc = tserver.InferenceService(
-        model=model, outputs_dir=os.path.join(work, "videos"))
+        model=model, outputs_dir=os.path.join(work, "videos"),
+        warmup_spec="off")
     assert svc.channel is not None and svc._warmup_thread is None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -7318,9 +7350,193 @@ def _cards_request_rank(rank, world, work):
     res["wan14b peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
     if rank == 0:
         res["wan14b video"] = video.float().cpu()
-    res["staged"] = dict(comm.staged_counts)
     os.environ.pop("LTXV_TPU_MESH")
+    del pipe, video
+    gc.collect()
+    torch.cuda.empty_cache()
+    _cards_i2v_rank(rank, umt5, res)
+    res["staged"] = dict(comm.staged_counts)
     return res
+
+
+# (e) Wan 2.1 i2v-14B 1280x720x81 over tp=4 in the processes of (c), after
+# the t2v request (UMT5 stays): CLIP ViT-H/14 whole on every rank, the Wan
+# VAE encode of the first frame, CARDS_WAN14B_STEPS steps, the spread decode
+
+
+def _cards_i2v_stack():
+    """Wan 2.1 i2v-14B at full width and depth (int8_dynamic, built block
+    by block), CLIP ViT-H/14 and the Wan VAE with its encoder, from
+    [wan_i2v]'s seeds."""
+    from ltx_video_gpupoor_tpu_torch.pipelines.wan import WanPipeline
+
+    dit, _ = build_wan_i2v_dit("dynamic")
+    clip, _, vae = build_wan_i2v_encoders()
+    return WanPipeline(dit, vae), clip
+
+
+def _cards_i2v_counts():
+    """The launches of (e)'s kernels (K4 and K1 by head dim, K2, K2s, K2p)
+    and the collective calls."""
+    from ltx_video_gpupoor_tpu_torch.ops import int8_matmul as im
+    from ltx_video_gpupoor_tpu_torch.parallel import comm
+
+    c = kernel_counts()
+    return ({k: c[k] for k in ("K1", "K1d80", "K1d128", "K2", "K2p", "K4",
+                               "K4d80", "K4d128", "K6")}
+            | {"K2s": im.int8_linear_scaled.launches},
+            dict(comm.call_counts))
+
+
+def _cards_i2v_generate(pipe, umt5, clip, output_type="pixels"):
+    """The i2v request: UMT5, CLIP of the first frame (resized to 224
+    bicubic), then ``generate_i2v`` at CARDS_WAN14B, CARDS_WAN14B_STEPS
+    UniPC steps, the default tier (``auto``); returns (video, stage marks,
+    UMT5's seconds, CLIP's seconds)."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.models.wan import clip as wc
+
+    h, w, frames = CARDS_WAN14B
+    image = torch.from_numpy(synthetic_image(h, w)).cuda().float() \
+        / 127.5 - 1.0
+    marks, on_stage = _cards_stages()
+    emb, mask, t5_sec = encode_wan_prompts(umt5)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        feats = wc.visual(clip, wc.resize_bicubic(image[None], 224))
+    torch.cuda.synchronize()
+    clip_sec = time.perf_counter() - t0
+    video = pipe.generate_i2v(
+        emb, mask, feats, image, width=w, height=h, frame_num=frames,
+        sampling_steps=CARDS_WAN14B_STEPS, shift=5.0, solver="unipc",
+        guide_scale=5.0, cfg_zero_step=WAN_CFG_ZERO_STEP,
+        generator=torch.Generator(device="cuda").manual_seed(SEED),
+        output_type=output_type, attn_mode="auto", on_stage=on_stage)
+    on_stage("end", video)
+    return video, marks, t5_sec, clip_sec
+
+
+def _cards_i2v_reference(umt5, work, res):
+    """(e) one process on card 0: the i2v request, its latents through
+    the spread decode on a one-rank mesh (the tiles the 4 ranks decode);
+    the frames into ``work``, seconds and peak GiB into ``res``."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.core.mesh import MeshConfig, make_mesh
+    from ltx_video_gpupoor_tpu_torch.models.wan.vae import spread_tiled_decode
+
+    pipe, clip = _cards_i2v_stack()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    latents, marks, t5_sec, clip_sec = _cards_i2v_generate(pipe, umt5, clip,
+                                                           "latent")
+    video = spread_tiled_decode(make_mesh(MeshConfig(1, 1, 1)), pipe.vae,
+                                latents, pipe.vae_tile_size)
+    torch.cuda.synchronize()
+    res["wan i2v"] = time.perf_counter() - t0
+    res["wan i2v stages"] = {"umt5": t5_sec, "clip": clip_sec,
+                             "encode": marks["denoise"][0]
+                             - marks["encode"][0],
+                             "denoise": marks["decode"][0]
+                             - marks["denoise"][0]}
+    res["wan i2v peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.save(video.float().cpu(), os.path.join(work, "wan_i2v.pt"))
+
+
+def _cards_i2v_rank(rank, umt5, res):
+    """(e) a rank of 4: the i2v request over tp=4 (LTXV_TPU_MESH=dp1,sp1,
+    tp4, ``apply_wan_serving_mesh``); seconds by stage, launches and
+    collective calls, peak GiB into ``res``, rank 0's frames."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.serving import model_zoo
+
+    os.environ["LTXV_TPU_MESH"] = CARDS_WAN14B_MESH
+    pipe, clip = _cards_i2v_stack()
+    model_zoo.apply_wan_serving_mesh(pipe)
+    assert pipe.mesh is not None and pipe.sp_mesh is None, (pipe.mesh,
+                                                            pipe.sp_mesh)
+    _warm_groups(pipe.mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cards_reset()
+    t0 = time.perf_counter()
+    video, marks, t5_sec, clip_sec = _cards_i2v_generate(pipe, umt5, clip)
+    res["wan i2v"] = time.perf_counter() - t0
+    res["wan i2v counts"] = _cards_i2v_counts()
+    m = marks
+    res["wan i2v stages"] = {"umt5": t5_sec, "clip": clip_sec,
+                             "encode": m["denoise"][0] - m["encode"][0],
+                             "denoise": m["decode"][0] - m["denoise"][0],
+                             "decode": m["end"][0] - m["decode"][0]}
+    res["wan i2v peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    if rank == 0:
+        res["wan i2v video"] = video.float().cpu()
+    os.environ.pop("LTXV_TPU_MESH")
+
+
+def cards_i2v_expect(layers, steps, clip_blocks):
+    """The launches a rank makes in (e)'s request, and its collective
+    calls: one DiT forward a step (both guidance streams as batch rows)
+    with three attentions a block (self, text, image), K4 at head dim 128
+    under ``auto``; CLIP whole on every rank, K4 at head dim 80 a block;
+    K2p one a K4 call (Q, the QK+PV tier); K2 on every linear but each
+    block's three row-parallel ones, which take K2s; TP_BLOCK_REDUCES
+    all-reduces a block (the image keys' norm is whole: ``k_img`` is not
+    cut)."""
+    attn = 3 * layers * steps
+    k = {"K1": 0, "K1d80": 0, "K1d128": 0, "K4": attn + clip_blocks,
+         "K4d80": clip_blocks, "K4d128": attn, "K2p": attn + clip_blocks,
+         "K2": ((WAN_I2V_LINEARS[0] - ROW_PARALLEL) * layers
+                + WAN_I2V_LINEARS[1]) * steps,
+         "K2s": ROW_PARALLEL * layers * steps, "K6": 0}
+    return k, {"all_to_all": 0, "all_reduce": TP_BLOCK_REDUCES * layers
+               * steps}
+
+
+def phase_cards_i2v(ref, ranks, work, card):
+    """(e) the checks of the i2v request over tp=4 against one process."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.models.wan.clip import CLIPVisionConfig
+    from ltx_video_gpupoor_tpu_torch.models.wan.model import WAN_I2V_14B
+
+    r0 = ranks[0]
+    got = r0["wan i2v video"]
+    want = torch.load(os.path.join(work, "wan_i2v.pt"))
+    h, w, frames = CARDS_WAN14B
+    assert got.shape == want.shape and got.shape[1:4] == (frames, h, w), (
+        got.shape, want.shape)
+    assert torch.isfinite(got).all() and got.std() > 0
+    db = _psnr_db_float(got, want)
+    equal = torch.equal(got, want)
+    k_want, c_want = cards_i2v_expect(WAN_I2V_14B.num_layers,
+                                      CARDS_WAN14B_STEPS,
+                                      CLIPVisionConfig().num_layers - 1)
+    for rank, r in enumerate(ranks):
+        k, c = r["wan i2v counts"]
+        assert k == k_want, ("Wan i2v-14B launches", rank, k, k_want)
+        assert {n: c.get(n, 0) for n in c_want} == c_want, (
+            "Wan i2v-14B collectives", rank, c, c_want)
+    log(f"[cards] (e) Wan i2v-14B {w}x{h}x{frames} over tp=4 "
+        f"(LTXV_TPU_MESH={CARDS_WAN14B_MESH}, apply_wan_serving_mesh; "
+        f"{WAN_I2V_14B.num_heads // CARDS} heads of {WAN_I2V_14B.head_dim} "
+        f"and FFN {WAN_I2V_14B.ffn_dim // CARDS} a rank), "
+        f"{CARDS_WAN14B_STEPS} UniPC steps, default tier, CLIP ViT-H/14 "
+        f"whole on every rank: {r0['wan i2v']:.3f} s on rank 0 (one process "
+        f"{ref['wan i2v']:.3f} s: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ref["wan i2v stages"].items())
+        + "); rank 0 by stage " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in r0["wan i2v stages"].items())
+        + f"; frames against one process decoding the same tiles {db:.2f} "
+        f"dB (bit-equal: {equal}; bar {MESH_TP_DB:.0f}); peak GiB a rank "
+        f"{[round(r['wan i2v peak'], 2) for r in ranks]} (one process "
+        f"{ref['wan i2v peak']:.2f}); a rank's launches {k_want}, "
+        f"collective calls {ranks[0]['wan i2v counts'][1]} (every rank as "
+        f"expected) ({card})")
+    assert db >= MESH_TP_DB, db
 
 
 # launches a rank makes in one pass of the 13B request over sp=4, tier (b)
@@ -7451,12 +7667,170 @@ def phase_cards_requests(card, work):
         f"{ranks[0]['wan14b counts'][0]}, collective calls "
         f"{ranks[0]['wan14b counts'][1]} (every rank as expected)")
     assert db >= MESH_TP_DB, db
+    phase_cards_i2v(ref, ranks, work, card)
+
+
+# (f) the 13B request of (c) served over sp=4 again, in fresh processes
+# started with JAX's warm-up of the request's bucket (LTXV_TPU_WARMUP's
+# WxHxF; no group warmed by hand): rank 0's warm-up thread hands the
+# bucket to every rank through RankChannel, then POST / is served twice
+CARDS_WARM_REQUESTS = 2
+
+
+def _cards_warm_rank(rank, world, work):
+    """(f) a rank of 4 (NCCL, one a card): the 13B served stack over sp=4
+    (tier (b)) with the warm-up of its one bucket; rank 0 waits for the
+    warm-up thread, then takes POST / CARDS_WARM_REQUESTS times. Every
+    generation's stage marks (the warm-up's first), rank 0's warm-up
+    seconds and counters, each answer, its seconds and frames; peak
+    GiB."""
+    import json
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.ops.attention import set_attention_mode
+    from ltx_video_gpupoor_tpu_torch.parallel import comm
+    from ltx_video_gpupoor_tpu_torch.serving import model_zoo
+    from ltx_video_gpupoor_tpu_torch.serving import server as tserver
+    from ltx_video_gpupoor_tpu_torch.utils.observability import Metrics
+
+    os.environ["LTXV_TPU_MESH"] = CARDS_LTX13B_MESH
+    set_attention_mode("pallas_hp")
+    set_fused_prologue(True)
+    model = _cards_ltx13b_stack()
+    model_zoo.apply_serving_mesh(model.generator.pipeline)
+    gen = model.generator
+    assert gen.pipeline.sp_mesh is not None, "the serving mesh has no sp"
+    runs = []
+    real = gen.generate
+
+    def generate(*args, **kwargs):
+        marks, on_stage = _cards_stages()
+        runs.append(marks)
+        return real(*args, on_stage=on_stage, **kwargs)
+    gen.generate = generate
+    h, w, frames = CARDS_LTX13B
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cards_reset()
+    t0 = time.perf_counter()
+    svc = tserver.InferenceService(
+        model=model, outputs_dir=os.path.join(work, "videos"),
+        warmup_spec=f"{w}x{h}x{frames}")
+    res = {"runs": runs}
+    if rank != 0:
+        assert svc._warmup_thread is None
+        svc.follow()
+    else:
+        svc._warmup_thread.join(timeout=CARDS_TIMEOUT)
+        assert not svc._warmup_thread.is_alive(), "the warm-up hangs"
+        res["warmup s"] = time.perf_counter() - t0
+        res["warmup"] = {k: v for k, v in Metrics.snapshot()[
+            "counters"].items() if k.startswith("warmup")}
+        produced = []
+        produce = svc._produce
+
+        def capture(data):
+            out = produce(data)
+            produced.append(np.asarray(out[0]))
+            return out
+        svc._produce = capture
+        httpd = tserver.create_stdlib_server(svc, host="127.0.0.1", port=0)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        res["answers"] = []
+        try:
+            for _ in range(CARDS_WARM_REQUESTS):
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{httpd.server_address[1]}/",
+                    data=json.dumps(_cards_ltx13b_body()).encode(),
+                    headers={"Content-Type": "application/json"})
+                t1 = time.perf_counter()
+                with urllib.request.urlopen(req,
+                                            timeout=CARDS_TIMEOUT) as resp:
+                    res["answers"].append((resp.status,
+                                           json.loads(resp.read()),
+                                           time.perf_counter() - t1))
+        finally:
+            svc.stop()
+            httpd.shutdown()
+            httpd.server_close()
+        res["frames"] = produced
+    res["peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    res["staged"] = dict(comm.staged_counts)
+    os.environ.pop("LTXV_TPU_MESH")
+    return res
+
+
+def phase_cards_warm(card, work):
+    """(f) the warmed 13B POST / over sp=4, twice, against (c)'s one
+    process (its frames in ``work``)."""
+    import numpy as np
+
+    from ltx_video_gpupoor_tpu_torch.core.mesh import spawn_ranks
+
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(_cards_warm_rank, CARDS, backend="nccl",
+                        timeout=CARDS_TIMEOUT, device=None, threads=0,
+                        args=(work,))
+    r0 = ranks[0]
+    assert all(r["staged"] == {} for r in ranks), "NCCL staged a collective"
+    assert r0["warmup"] == {"warmup_ok": 1.0}, r0["warmup"]
+    assert [a[0] for a in r0["answers"]] == [200] * CARDS_WARM_REQUESTS, \
+        r0["answers"]
+    want = np.load(os.path.join(work, "ltx13b.npy"))
+    dbs = [_psnr_db(got, want) for got in r0["frames"]]
+    assert all(db >= MESH_SERVE_DB for db in dbs), dbs
+    layers = ltx13b_config().num_layers
+    for rank, r in enumerate(ranks):
+        # the warm-up's generation, then each request's
+        assert len(r["runs"]) == 1 + CARDS_WARM_REQUESTS, (rank,
+                                                           len(r["runs"]))
+        for m in r["runs"]:
+            for (start, end), n in zip((("pass1", "upsample"),
+                                        ("pass2", "decode")),
+                                       CARDS_LTX13B_STEPS):
+                _, k, c = _cards_span(m, start, end)
+                k_want, c_want = cards_request_expect("ltx13b", layers, n)
+                assert k == k_want, ("13B warm launches", rank, n, k)
+                assert {n_: c.get(n_, 0) for n_ in c_want} == c_want, (
+                    "13B warm collectives", rank, n, c)
+
+    def stages(m):
+        return {"pass1": m["upsample"][0] - m["pass1"][0],
+                "upsample+adain": m["pass2"][0] - m["upsample"][0],
+                "pass2": m["decode"][0] - m["pass2"][0],
+                "decode": m["postprocess"][0] - m["decode"][0]}
+    runs = [stages(m) for m in r0["runs"]]
+    log(f"[cards] (f) LTX-13B i2v {CARDS_LTX13B[1]}x{CARDS_LTX13B[0]}x"
+        f"{CARDS_LTX13B[2]} served over sp=4 (LTXV_TPU_MESH="
+        f"{CARDS_LTX13B_MESH}, tier (b)) in fresh processes with "
+        f"LTXV_TPU_WARMUP={CARDS_LTX13B[1]}x{CARDS_LTX13B[0]}x"
+        f"{CARDS_LTX13B[2]}: the warm-up (every rank through RankChannel, "
+        f"no group warmed by hand) {r0['warmup s']:.3f} s from the "
+        f"service's start ({r0['warmup']}); its generation on rank 0 "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in runs[0].items()))
+    for i, (answer, run, db) in enumerate(zip(r0["answers"], runs[1:], dbs)):
+        log(f"[cards] (f) POST / {i + 1} after the warm-up: answered "
+            f"{answer[0]} in {answer[2]:.3f} s; rank 0 by stage "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in run.items())
+            + f"; frames against (c)'s one process {db:.2f} dB (bar "
+            f"{MESH_SERVE_DB:.0f})")
+    p1 = [run["pass1"] for run in runs[1:]]
+    log(f"[cards] (f) pass 1 of the first request against the second: "
+        f"{p1[0] / p1[1]:.3f}x; launches and collective calls a pass as "
+        f"(c) on every rank in every generation, nothing staged; peak GiB "
+        f"a rank {[round(r['peak'], 2) for r in ranks]}; "
+        f"{time.perf_counter() - t0:.1f} s with the start ({card})")
 
 
 def phase_cards(card):
-    """[cards] (b) the [mesh] forwards at 4 NCCL ranks and (c) the two
-    requests spread over cards (after ``phase_cards_probe`` and (a),
-    ``phase_cards_k7``)."""
+    """[cards] (b) the [mesh] forwards at 4 NCCL ranks, (c) the two
+    requests spread over cards, (e) Wan i2v-14B over tp=4 and (f) the
+    warmed 13B server (after ``phase_cards_probe`` and (a),
+    ``phase_cards_k7``; (d) is ``phase_cards_train``)."""
     import shutil
     import tempfile
 
@@ -7469,10 +7843,13 @@ def phase_cards(card):
         log(f"[clock] cards (b) done at "
             f"{time.perf_counter() - t_phase:.0f} s")
         phase_cards_requests(card, work)
+        log(f"[clock] cards (c), (e) done at "
+            f"{time.perf_counter() - t_phase:.0f} s")
+        phase_cards_warm(card, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    log(f"[cards] (b), (c) done in {time.perf_counter() - t_phase:.1f} s "
-        f"({card})")
+    log(f"[cards] (b), (c), (e), (f) done in "
+        f"{time.perf_counter() - t_phase:.1f} s ({card})")
 
 
 # --------------------------------------------------------------------------
@@ -7501,9 +7878,9 @@ def _train_tokens(shape):
     return ((frames - 1) // 8 + 1) * (h // 32) * (w // 32)
 
 
-def _train_inputs(shape, device):
-    """One stream at ``shape``, seeded on the CPU (the same in every
-    process): the batch, t and eps of every step."""
+def _train_inputs(shape, device, batch=1):
+    """``batch`` streams at ``shape`` (one by default), seeded on the CPU
+    (the same in every process): the batch, t and eps of every step."""
     import torch
 
     from ltx_video_gpupoor_tpu_torch.training import TrainBatch
@@ -7512,16 +7889,17 @@ def _train_inputs(shape, device):
     f, hh, ww = (frames - 1) // 8 + 1, h // 32, w // 32
     g = torch.Generator().manual_seed(SEED + 30)
     s = f * hh * ww
-    tokens = torch.randn(1, s, 128, generator=g)
+    tokens = torch.randn(batch, s, 128, generator=g)
     grid = torch.stack(torch.meshgrid(torch.arange(f), torch.arange(hh),
                                       torch.arange(ww), indexing="ij"))
     grid = (grid.reshape(1, 3, -1).float()
-            * torch.tensor([8 / 25, 32.0, 32.0])[None, :, None])
-    cap = torch.randn(1, TRAIN_CAPTION, 4096, generator=g)
-    mask = torch.ones(1, TRAIN_CAPTION, dtype=torch.int32)
-    mask[0, 100:] = 0
-    t = torch.tensor([0.6])
-    eps = torch.randn(1, s, 128, generator=g)
+            * torch.tensor([8 / 25, 32.0, 32.0])[None, :, None]
+            ).expand(batch, -1, -1).contiguous()
+    cap = torch.randn(batch, TRAIN_CAPTION, 4096, generator=g)
+    mask = torch.ones(batch, TRAIN_CAPTION, dtype=torch.int32)
+    mask[:, 100:] = 0
+    t = torch.tensor([0.6, 0.3][:batch])
+    eps = torch.randn(batch, s, 128, generator=g)
     batch = TrainBatch(*(x.to(device) for x in (tokens, grid, cap, mask)))
     return batch, t.to(device), eps.to(device)
 
@@ -7539,14 +7917,15 @@ def _grad_gaps(grads, want, cut=None):
     return out
 
 
-def _train_cut_model(layers, policy, device, seed):
+def _train_cut_model(layers, policy, device, seed, cfg=None):
+    """LTX-2B (or ``cfg``) at full width, ``layers`` deep, from ``seed``."""
     import dataclasses
 
     import torch
 
     from ltx_video_gpupoor_tpu_torch.models.ltx import transformer3d as tf
 
-    cfg = dataclasses.replace(ltx2b_config(), num_layers=layers)
+    cfg = dataclasses.replace(cfg or ltx2b_config(), num_layers=layers)
     return tf.init_params(tf.LTXTransformer3D(cfg, policy, device=device),
                           torch.Generator(device=device).manual_seed(seed))
 
@@ -7786,6 +8165,494 @@ def phase_train():
     return sec
 
 
+# --------------------------------------------------------------------------
+# [cards] (d): the train step over four cards, one NCCL rank a card
+# --------------------------------------------------------------------------
+
+# (d) the 4-layer cuts at full width in fp32 (TF32 off since [device])
+# against one process on card 0: LTX-2B's layout (32 heads of 64) on two
+# streams of 704x480x121 (dp2's rows) on every mesh below, LTX-13B's (32
+# heads of 128) on one stream over tp=4
+CARDS_TRAIN_LAYERS = 4
+CARDS_TRAIN_MESHES = {"sp4": (1, 4, 1), "tp4": (1, 1, 4),
+                      "sp2tp2": (1, 2, 2), "dp2sp2": (2, 2, 1)}
+CARDS_TRAIN_CUTS = {"ltx2b": (2, tuple(CARDS_TRAIN_MESHES)),
+                    "ltx13b": (1, ("tp4",))}     # kind: (streams, meshes)
+# the checkpoint: saved on the tp=4 mesh after the 2B cut's step, restored
+# onto one process on card 0, onto sp2 x tp2 and onto tp=4 again
+CARDS_CKPT_ONTO = ("one", "sp2tp2", "tp4")
+# (d) at full depth, bf16, per-block remat, the xla tier, dense linears:
+# LTX-13B over tp=4 at 704x480x121 (5280 tokens) and LTX-2B over sp=4 at
+# LTX-13B's published 1216x704x121 (13376 tokens), one stream each
+CARDS_TRAIN_FULL = {"ltx13b tp4": ("tp4", (480, 704, 121)),
+                    "ltx2b sp4": ("sp4", (704, 1216, 121))}
+CARDS_TRAIN_STEPS = 3
+# collective calls of a train step a block under tp: a forward's
+# all-reduces (the row-parallel linears' sums; the q/k norms' sums of
+# squares; dense weights, so no int8 row amax), the same again where the
+# backward recomputes the block (remat), the norms' grads summed over the
+# ranks' heads, and the input grads of its column-parallel linears (q, k,
+# v of both attentions, the FFN's first) summed
+TP_COLUMN_PARALLEL = 7
+TRAIN_TP_BLOCK_REDUCES = 2 * (ROW_PARALLEL + 4) + 4 + TP_COLUMN_PARALLEL
+
+
+def grad_buckets(sizes):
+    """How many flat buckets of at most ``training.trainer.GRAD_BUCKET``
+    values the grads of leaves of ``sizes`` (in parameter order) fill:
+    each takes leaves in order until the next would overflow it."""
+    from ltx_video_gpupoor_tpu_torch.training.trainer import GRAD_BUCKET
+
+    buckets, n = 0, 0
+    for size in sizes:
+        if buckets == 0 or n + size > GRAD_BUCKET:
+            buckets, n = buckets + 1, size
+        else:
+            n += size
+    return buckets
+
+
+def train_expect(layout, layers, buckets):
+    """The collective calls (``comm.call_counts``) of one train step
+    (backward and update) of an LTX DiT of ``layers`` blocks under
+    ``layout`` (:data:`CARDS_TRAIN_MESHES`) with per-block remat, whose
+    grads fill ``buckets``: under sp each block's four all-to-alls three
+    times (the forward, its recompute, their backward); under tp
+    :data:`TRAIN_TP_BLOCK_REDUCES` all-reduces a block and one for the
+    global norm's sum of squares; over dp and over sp each an all-reduce
+    of the loss and one a bucket of grads."""
+    dp, sp, tp = CARDS_TRAIN_MESHES[layout]
+    calls = {}
+    if sp > 1:
+        calls["all_to_all"] = 12 * layers
+    reduces = TRAIN_TP_BLOCK_REDUCES * layers + 1 if tp > 1 else 0
+    reduces += sum(1 + buckets for axis in (dp, sp) if axis > 1)
+    if reduces:
+        calls["all_reduce"] = reduces
+    return calls
+
+
+def _cards_train_meshes():
+    """Every mesh of (d), built once and in one order on every rank, with
+    warm groups."""
+    from ltx_video_gpupoor_tpu_torch.core.mesh import MeshConfig, make_mesh
+
+    meshes = {name: make_mesh(MeshConfig(*dims))
+              for name, dims in CARDS_TRAIN_MESHES.items()}
+    for mesh in meshes.values():
+        _warm_groups(mesh)
+    return meshes
+
+
+def _cards_train_cfg(kind):
+    return ltx13b_config() if kind == "ltx13b" else ltx2b_config()
+
+
+def _cards_train_cut_model(kind, seed):
+    """The 4-layer cut of ``kind`` in fp32 on this rank's card, its biases
+    drawn N(0, 0.02^2) (``init_params`` zeros them): a zero leaf's update
+    is AdamW's sign of its grad alone, which a gap at rounding level can
+    flip element by element, so a relative gap of the updated leaf would
+    measure nothing of the step."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.core.dtypes import FP32_POLICY
+
+    model = _train_cut_model(CARDS_TRAIN_LAYERS, FP32_POLICY, "cuda", seed,
+                             _cards_train_cfg(kind))
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".bias"):
+                p.copy_(0.02 * torch.randn(p.shape, generator=g,
+                                           device=p.device))
+    return model
+
+
+def _broadcast_gaps(mine, whole, shapes, cuts):
+    """The relative gap by leaf between this rank's tensors ``mine`` and
+    rank 0's whole ones (``whole``, None on the other ranks), broadcast
+    leaf by leaf from card 0 and cut to this rank's share."""
+    import torch
+    import torch.distributed as dist
+
+    from ltx_video_gpupoor_tpu_torch.parallel.sharding import cut_param
+
+    gaps = {}
+    for name in sorted(shapes):
+        buf = whole[name] if whole is not None else torch.empty(
+            shapes[name], dtype=torch.float32, device="cuda")
+        dist.broadcast(buf, src=0)
+        want = cut_param(buf, cuts[name]) if name in cuts else buf
+        gaps[name] = ((mine[name].float() - want).norm()
+                      / want.norm().clamp_min(1e-30)).item()
+    return gaps
+
+
+def _cards_train_cut(rank, kind, meshes, work):
+    """(d) the 4-layer cut of ``kind`` on every mesh of
+    :data:`CARDS_TRAIN_CUTS` against one process on card 0 (rank 0, before
+    the meshes): loss, grad norm, grads and the updated leaves, each rank
+    its share; collective calls and staged calls a rank; after the 2B
+    cut's tp=4 step the checkpoint (:func:`_cards_train_ckpt`)."""
+    import dataclasses
+
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.core.dtypes import FP32_POLICY
+    from ltx_video_gpupoor_tpu_torch.models.ltx import transformer3d as tf
+    from ltx_video_gpupoor_tpu_torch.parallel import comm
+    from ltx_video_gpupoor_tpu_torch.parallel.sharding import shard_params
+    from ltx_video_gpupoor_tpu_torch.training import (
+        TrainConfig,
+        make_train_step,
+    )
+
+    streams, layouts = CARDS_TRAIN_CUTS[kind]
+    seed = SEED + 33
+    batch, t, eps = _train_inputs(TRAIN_SHAPE, "cuda", streams)
+    tc = TrainConfig(learning_rate=TRAIN_LR)
+    meta = tf.LTXTransformer3D(dataclasses.replace(
+        _cards_train_cfg(kind), num_layers=CARDS_TRAIN_LAYERS), FP32_POLICY,
+        device="meta")
+    shapes = {n: tuple(p.shape) for n, p in meta.named_parameters()}
+    ref, ref_scalars = None, None
+    if rank == 0:
+        model = _cards_train_cut_model(kind, seed)
+        one = make_train_step(model, tc, attn_mode="xla")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = one.backward(batch, t=t, eps=eps)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        grads = {n: p.grad.float().clone() for n, p in one.params.items()}
+        m = one.update(m)
+        ref = {"grads": grads, "params": {n: p.detach().float().clone()
+                                          for n, p in one.params.items()}}
+        ref_scalars = {"loss": float(m["loss"]),
+                       "grad_norm": float(m["grad_norm"]), "sec": sec}
+        del model, one, m
+        torch.cuda.empty_cache()
+    ref_scalars = comm.broadcast_object(ref_scalars)
+    out = {"ref": ref_scalars, "meshes": {}}
+    for layout in layouts:
+        model = _cards_train_cut_model(kind, seed)
+        shard_params(meshes[layout], model)
+        step = make_train_step(model, tc, attn_mode="xla",
+                               mesh=meshes[layout])
+        buckets = grad_buckets([p.numel() for p in step.params.values()])
+        torch.cuda.synchronize()
+        _cards_reset()
+        t0 = time.perf_counter()
+        m = step.backward(batch, t=t, eps=eps)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = {n: p.grad.float().clone() for n, p in step.params.items()}
+        m = step.update(m)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        calls, staged = dict(comm.call_counts), dict(comm.staged_counts)
+        g_gaps = _broadcast_gaps(grads, ref and ref["grads"], shapes,
+                                 step.cuts)
+        p_gaps = _broadcast_gaps(step.params, ref and ref["params"], shapes,
+                                 step.cuts)
+        worst = max(g_gaps, key=g_gaps.get)
+        planted = dict(grads)
+        planted[worst] = grads[worst] * TRAIN_FAULT
+        fault = max(_broadcast_gaps(planted, ref and ref["grads"], shapes,
+                                    step.cuts).values())
+        out["meshes"][layout] = {
+            "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "grad_gap": g_gaps[worst], "worst": worst,
+            "leaf_gap": max(p_gaps.values()),
+            "worst_leaf": max(p_gaps, key=p_gaps.get), "fault": fault,
+            "backward_s": t1 - t0, "update_s": t2 - t1, "calls": calls,
+            "want": train_expect(layout, CARDS_TRAIN_LAYERS, buckets),
+            "staged": staged,
+            "peak": torch.cuda.max_memory_allocated() / 2 ** 30}
+        if kind == "ltx2b" and layout == "tp4":
+            out["ckpt"] = _cards_train_ckpt(rank, model, step, meshes,
+                                            batch, work)
+        del model, step, grads, planted, m
+        torch.cuda.empty_cache()
+    del ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cards_train_ckpt(rank, model, step, meshes, batch, work):
+    """(d) ``TrainCheckpointer.save`` on the tp=4 mesh after one step (the
+    moments non-zero), then the uninterrupted run's next step (t and eps
+    drawn from the generator); each rank's leaves, moments and generator
+    state against the file bit for bit; the file restored onto one
+    process on card 0, onto sp2 x tp2 and onto tp=4, each bit for bit
+    against the file and then taking that next step."""
+    import torch
+    import torch.distributed as dist
+
+    from ltx_video_gpupoor_tpu_torch.core.checkpoint import load_safetensors
+    from ltx_video_gpupoor_tpu_torch.parallel.sharding import (
+        cut_param,
+        shard_params,
+        tp_cuts,
+    )
+    from ltx_video_gpupoor_tpu_torch.training import (
+        TrainCheckpointer,
+        TrainConfig,
+        init_train_state,
+        make_train_step,
+    )
+
+    tc = TrainConfig(learning_rate=TRAIN_LR)
+    directory = os.path.join(work, "train_ckpt")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 34)
+    torch.rand(7, generator=gen, device="cuda")     # a used generator
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    TrainCheckpointer(directory).save(1, model, step.state, gen)
+    save_s = time.perf_counter() - t0
+    path = os.path.join(directory, "step_1", "state.safetensors")
+    tensors, _ = load_safetensors(path)
+
+    def equal(model, state, generator):
+        """Every leaf, moment and the generator against the file."""
+        cuts = tp_cuts(model)
+
+        def same(key, name, live):
+            want = tensors[f"{key}/{name}"]
+            if name in cuts:
+                want = cut_param(want, cuts[name])
+            return torch.equal(live.detach().cpu(), want)
+        return (all(same("params", n, p) and same("mu", n, state.mu[n])
+                    and same("nu", n, state.nu[n])
+                    for n, p in model.named_parameters())
+                and int(state.count) == int(tensors["count"][0])
+                and torch.equal(generator.get_state(), tensors["rng"]))
+
+    out = {"save_s": save_s, "saved": equal(model, step.state, gen),
+           "bytes": os.path.getsize(path)}
+    # the uninterrupted run's next step
+    out["next"] = float(step(batch, generator=gen)["loss"])
+    for onto in CARDS_CKPT_ONTO:
+        if onto == "one" and rank != 0:
+            dist.barrier()
+            continue
+        fresh = _cards_train_cut_model("ltx2b", SEED + 35)
+        mesh = None if onto == "one" else meshes[onto]
+        if mesh is not None:
+            shard_params(mesh, fresh)
+        state = init_train_state(fresh, tc)
+        g2 = torch.Generator(device="cuda").manual_seed(SEED + 36)
+        t0 = time.perf_counter()
+        got = TrainCheckpointer(directory).restore(fresh, state, g2)
+        restore_s = time.perf_counter() - t0
+        ok = got == 1 and equal(fresh, state, g2)
+        nxt = make_train_step(fresh, tc, attn_mode="xla", mesh=mesh,
+                              state=state)
+        loss = float(nxt(batch, generator=g2)["loss"])
+        out[onto] = {"equal": ok, "loss": loss, "restore_s": restore_s}
+        del fresh, state, nxt
+        torch.cuda.empty_cache()
+        if onto == "one":
+            dist.barrier()
+    del tensors
+    return out
+
+
+def _cards_train_full(rank, name, meshes):
+    """(d) at full depth: LTX-13B over tp=4 or LTX-2B over sp=4
+    (:data:`CARDS_TRAIN_FULL`), bf16, per-block remat, the ``xla`` tier,
+    dense: the guard on an ``auto`` forward under grad, then
+    CARDS_TRAIN_STEPS steps on one stream; seconds a step and of its
+    update, peak GiB, losses, no kernel launched."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.core.dtypes import DEFAULT_POLICY
+    from ltx_video_gpupoor_tpu_torch.parallel import comm
+    from ltx_video_gpupoor_tpu_torch.parallel.sharding import shard_params
+    from ltx_video_gpupoor_tpu_torch.training import (
+        TrainConfig,
+        flow_match_loss,
+        make_train_step,
+    )
+
+    layout, shape = CARDS_TRAIN_FULL[name]
+    kind = name.split()[0]
+    cfg = _cards_train_cfg(kind)
+    mesh = meshes[layout]
+    t0 = time.perf_counter()
+    model = _train_cut_model(cfg.num_layers, DEFAULT_POLICY, "cuda", SEED,
+                             cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    shard_params(mesh, model)
+    tc = TrainConfig(learning_rate=TRAIN_LR, remat=True)
+    step = make_train_step(model, tc, attn_mode="xla", mesh=mesh)
+    batch, t, eps = _train_inputs(shape, "cuda")
+    torch.cuda.synchronize()
+    out = {"build_s": time.perf_counter() - t0, "params": n_params,
+           "rank_params": sum(p.numel() for p in step.params.values()),
+           "tokens": _train_tokens(shape)}
+    counts = kernel_counts()
+    try:
+        from ltx_video_gpupoor_tpu_torch.core.mesh import use_mesh
+
+        with use_mesh(mesh):
+            flow_match_loss(model, batch, tc, t=t, eps=eps, attn_mode="auto",
+                            mesh=mesh)
+        out["guard"] = None
+    except RuntimeError as e:
+        out["guard"] = str(e)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    comm.reset_counts()
+    losses, secs, upd = [], [], []
+    for _ in range(CARDS_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step.backward(batch, t=t, eps=eps)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        m = step.update(m)
+        torch.cuda.synchronize()
+        losses.append(float(m["loss"]))
+        secs.append(t1 - t0)
+        upd.append(time.perf_counter() - t1)
+    out.update(losses=losses, backward_s=secs, update_s=upd,
+               grad_norm=float(m["grad_norm"]),
+               peak=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launched=kernel_counts() != counts,
+               staged=dict(comm.staged_counts),
+               calls=dict(comm.call_counts))
+    del model, step, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cards_train_rank(rank, world, work):
+    """(d) a rank of 4 (NCCL, one a card): the cuts against one process,
+    the checkpoint, then the two models at full depth."""
+    import torch
+
+    from ltx_video_gpupoor_tpu_torch.parallel import comm
+
+    meshes = _cards_train_meshes()
+    res = {"cuts": {}, "full": {}}
+    t0 = time.perf_counter()
+    for kind in CARDS_TRAIN_CUTS:
+        res["cuts"][kind] = _cards_train_cut(rank, kind, meshes, work)
+    res["cuts_s"] = time.perf_counter() - t0
+    for name in CARDS_TRAIN_FULL:
+        res["full"][name] = _cards_train_full(rank, name, meshes)
+    res["staged"] = dict(comm.staged_counts)
+    res["card"] = torch.cuda.current_device()
+    return res
+
+
+def phase_cards_train(card):
+    """[cards] (d): the train step over 4 NCCL ranks, one a card (see
+    ``_cards_train_rank``); every check here, on the ranks' results."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    from ltx_video_gpupoor_tpu_torch.core.mesh import spawn_ranks
+
+    work = tempfile.mkdtemp(prefix="cards_train_", dir=os.path.join(
+        ROOT, "ltx_video_gpupoor_tpu_torch", "build"))
+    try:
+        ranks = spawn_ranks(_cards_train_rank, CARDS, backend="nccl",
+                            timeout=CARDS_TIMEOUT, device=None, threads=0,
+                            args=(work,))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    assert [r["card"] for r in ranks] == list(range(CARDS)), ranks
+    for kind, (streams, layouts) in CARDS_TRAIN_CUTS.items():
+        ref = ranks[0]["cuts"][kind]["ref"]
+        for layout in layouts:
+            rs = [r["cuts"][kind]["meshes"][layout] for r in ranks]
+            for rank, got in enumerate(rs):
+                dl = abs(got["loss"] - ref["loss"]) / ref["loss"]
+                dn = abs(got["grad_norm"] - ref["grad_norm"]) \
+                    / ref["grad_norm"]
+                assert max(dl, dn, got["grad_gap"], got["leaf_gap"]) \
+                    <= TRAIN_BOUND, (kind, layout, rank, dl, dn, got)
+                assert got["fault"] > TRAIN_BOUND, (
+                    "the planted fault passed", kind, layout, rank)
+                assert got["staged"] == {}, (kind, layout, rank,
+                                             got["staged"])
+                assert got["calls"] == got["want"], (
+                    kind, layout, rank, got["calls"], got["want"])
+            r0 = rs[0]
+            log(f"[cards] (d) {kind} {CARDS_TRAIN_LAYERS}-layer cut at full "
+                f"width, fp32, {streams} x {_train_tokens(TRAIN_SHAPE)} "
+                f"tokens, {layout} {CARDS_TRAIN_MESHES[layout]} on 4 NCCL "
+                f"ranks against one process on card 0: loss "
+                f"{r0['loss']:.6f} (one process {ref['loss']:.6f}), grad "
+                f"norm {r0['grad_norm']:.6f} ({ref['grad_norm']:.6f}); "
+                f"largest relative gap by leaf over the ranks: grads "
+                f"{max(r['grad_gap'] for r in rs):.3g} ({r0['worst']}), "
+                f"updated leaves {max(r['leaf_gap'] for r in rs):.3g} "
+                f"({r0['worst_leaf']}) (bound {TRAIN_BOUND:g}); planted "
+                f"fault (x {TRAIN_FAULT}) caught on every rank (at least "
+                f"{min(r['fault'] for r in rs):.3g}); backward "
+                f"{max(r['backward_s'] for r in rs):.3f} s (one process "
+                f"{ref['sec']:.3f} s), update "
+                f"{max(r['update_s'] for r in rs):.3f} s; collective calls a "
+                f"rank as expected {r0['want']}, nothing staged; peak GiB "
+                f"{[round(r['peak'], 2) for r in rs]}")
+    ck = [r["cuts"]["ltx2b"]["ckpt"] for r in ranks]
+    c0 = ck[0]
+    assert all(c["saved"] for c in ck), "the saved file is not the mesh's"
+    assert all(c["next"] == c0["next"] for c in ck), [c["next"] for c in ck]
+    for onto in CARDS_CKPT_ONTO:
+        got = [c[onto] for c in (ck[:1] if onto == "one" else ck)]
+        assert all(g["equal"] for g in got), (onto, got)
+        gap = max(abs(g["loss"] - c0["next"]) / c0["next"] for g in got)
+        # on tp=4 again the same forward of the same leaves: bit-equal
+        assert (gap == 0.0) if onto == "tp4" else (gap <= TRAIN_BOUND), (
+            onto, gap)
+    log(f"[cards] (d) checkpoint of the 2B cut saved on the tp=4 mesh "
+        f"(gathered, rank 0 writes) in {c0['save_s']:.2f} s "
+        f"({c0['bytes'] / 1e9:.2f} GB): every rank's leaves, moments and "
+        f"generator bit-equal to the file; restored onto one process on "
+        f"card 0 ({c0['one']['restore_s']:.2f} s), onto sp2 x tp2 and onto "
+        f"tp=4, bit-equal to the file; the next step's loss "
+        f"{c0['next']:.8f} uninterrupted, "
+        + ", ".join(f"{o} {c0[o]['loss']:.8f}" for o in CARDS_CKPT_ONTO)
+        + f" (tp=4 bit-equal, the others within {TRAIN_BOUND:g})")
+    for name, (layout, shape) in CARDS_TRAIN_FULL.items():
+        rs = [r["full"][name] for r in ranks]
+        r0 = rs[0]
+        for rank, got in enumerate(rs):
+            assert got["guard"] is not None and "xla" in got["guard"], (
+                name, rank, got["guard"])
+            assert not got["launched"], (name, rank, "a kernel launched")
+            assert all(math.isfinite(x) for x in got["losses"]), (
+                name, rank, got["losses"])
+            assert got["losses"] == r0["losses"], (name, rank)
+            assert got["staged"] == {}, (name, rank, got["staged"])
+        sec = [max(r["backward_s"][i] for r in rs)
+               for i in range(CARDS_TRAIN_STEPS)]
+        upd = [max(r["update_s"][i] for r in rs)
+               for i in range(CARDS_TRAIN_STEPS)]
+        log(f"[cards] (d) {name} at full depth ({r0['params'] / 1e9:.3f}e9 "
+            f"parameters, {r0['rank_params'] / 1e9:.3f}e9 a rank; built and "
+            f"cut in {r0['build_s']:.1f} s), {shape[1]}x{shape[0]}x{shape[2]}"
+            f" ({r0['tokens']} tokens), bf16, per-block remat, xla, dense, "
+            f"{CARDS_TRAIN_STEPS} steps: backward "
+            + ", ".join(f"{x:.3f}" for x in sec) + " s, update "
+            + ", ".join(f"{x:.3f}" for x in upd) + " s (slowest rank); peak "
+            f"GiB a rank {[round(r['peak'], 2) for r in rs]}; losses "
+            + ", ".join(f"{x:.6f}" for x in r0["losses"])
+            + f" (finite, the same on every rank); last grad norm "
+            f"{r0['grad_norm']:.4f}; no kernel launched; collective calls a "
+            f"rank over the steps {r0['calls']}, nothing staged; the guard: "
+            f"{r0['guard']}")
+    log(f"[cards] (d) done in {time.perf_counter() - t0:.1f} s ({card})")
+
+
 def _psnr_db_float(a, b):
     """PSNR of ``a`` against ``b`` with the peak of twice their largest
     magnitude (the repo's oracle convention)."""
@@ -7822,6 +8689,11 @@ def main(argv=None) -> int:
                     "and [cards] (the forwards and two requests over 4 "
                     "NCCL ranks) alone (no result line); fails with fewer "
                     "than four cards or without peer access")
+    ap.add_argument("--cards-train-only", action="store_true",
+                    help="four cards of one host: the device, the probe and "
+                    "[cards] (d), the train step over 4 NCCL ranks, alone "
+                    "(no build, no result line); for work on the trainer "
+                    "across cards")
     ap.add_argument("--train-only", action="store_true",
                     help="the device and [train] alone (no result line); "
                     "for work on the trainer")
@@ -7842,12 +8714,20 @@ def main(argv=None) -> int:
         phase_train()
         log(f"[clock] train done at {time.perf_counter() - t_start:.0f} s")
         return 0
+    if args.cards_train_only:
+        card, _ = phase_cards_probe()
+        phase_cards_train(card)
+        log(f"[clock] cards (d) done at {time.perf_counter() - t_start:.0f} s")
+        return 0
     if args.cards_only:
         card, _ = phase_cards_probe()
         phase_build()
         phase_cards_k7(card)
         log(f"[clock] cards (a) done at {time.perf_counter() - t_start:.0f} s")
         phase_cards(card)
+        log(f"[clock] cards (b), (c), (e), (f) done at "
+            f"{time.perf_counter() - t_start:.0f} s")
+        phase_cards_train(card)
         log(f"[clock] cards done at {time.perf_counter() - t_start:.0f} s")
         return 0
     phase_build(compare=args.profile)

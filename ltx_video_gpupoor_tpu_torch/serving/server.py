@@ -37,8 +37,9 @@ encode and ``generate`` and leaves its outcome in the group's store: a
 follower's error reaches rank 0's answer as a 500 naming the rank (and
 breaks the group: the ranks must be restarted). While idle, rank 0 sends
 a heartbeat well inside the group's timeout, so that no rank waits past
-it. The background warm-up is off on a mesh (the followers would not
-join it).
+it. On a mesh rank 0's background warm-up hands each bucket over the same
+way, so that every rank runs it; a rank that fails it breaks the group as
+a failed request does, and the next request answers 500 naming the rank.
 """
 
 from __future__ import annotations
@@ -185,8 +186,6 @@ class InferenceService:
         mesh = getattr(model.generator.pipeline, "mesh", None)
         self.channel = (RankChannel() if mesh is not None and mesh.size() > 1
                         else None)
-        if self.channel is not None:
-            warmup_spec = "off"
         # the prompt enhancer, built at the first ``enhance_prompt`` request
         # (or set beforehand with its models)
         self.enhancer = None
@@ -195,12 +194,21 @@ class InferenceService:
         # race the first live request
         self.gen_lock = threading.Lock()
         # warm the serving shapes (LTXV_TPU_WARMUP); ``warmup_spec``
-        # overrides the environment (tests pass "off")
+        # overrides the environment (tests pass "off"). On a mesh rank 0
+        # hands each bucket to every rank through the channel, which takes
+        # the channel's lock and then the generation lock, in a request's
+        # order; the followers warm up in ``follow``
         from .warmup import start_background_warmup
 
-        self._warmup_thread = start_background_warmup(
-            model.generator, spec=warmup_spec, lock=self.gen_lock
-        )
+        self._warmup_thread = None
+        if self.channel is None:
+            self._warmup_thread = start_background_warmup(
+                model.generator, spec=warmup_spec, lock=self.gen_lock)
+        elif self.channel.rank == 0:
+            self._warmup_thread = start_background_warmup(
+                model.generator, spec=warmup_spec,
+                run=lambda bucket: self.channel.call(
+                    self._serve, ("warmup", bucket)))
 
     @staticmethod
     def _load_from_env():
@@ -283,10 +291,21 @@ class InferenceService:
             )
         return frames, timer
 
+    def _serve(self, message):
+        """What rank 0 hands every rank of a mesh: ``("request", body)``
+        (:meth:`_produce`) or ``("warmup", (W, H, F))`` (one bucket of the
+        warm-up, under the generation lock)."""
+        from .warmup import warm_bucket
+
+        kind, payload = message
+        if kind == "warmup":
+            return warm_bucket(self.model.generator, payload, self.gen_lock)
+        return self._produce(payload)
+
     def follow(self):
-        """A follower rank of a mesh: run every request rank 0 hands over,
-        until it stops."""
-        self.channel.follow(self._produce)
+        """A follower rank of a mesh: run every warm-up bucket and request
+        rank 0 hands over, until it stops."""
+        self.channel.follow(self._serve)
 
     def stop(self):
         """Rank 0 of a mesh: release the followers."""
@@ -311,7 +330,8 @@ class InferenceService:
             if self.channel is None:
                 frames, timer = self._produce(data)
             else:
-                frames, timer = self.channel.call(self._produce, data)
+                frames, timer = self.channel.call(self._serve,
+                                                  ("request", data))
             name = f"video_{uuid.uuid4().hex[:12]}.mp4"
             out_path = os.path.join(self.outputs_dir, name)
             with timer.stage("save_video"):

@@ -6,7 +6,10 @@ programs; PyTorch runs eagerly, so what a cold process pays here is the
 build of the kernel library (``ops/_lib.py``: nvcc at first use), cuDNN's
 choice of convolution algorithms and the allocator's first blocks. At
 startup the server runs one 1-step generation per configured bucket in a
-background thread, under the generation lock.
+background thread, under the generation lock; on a serving mesh every
+rank runs each bucket, so that the ranks' first collectives (NCCL sets a
+communicator's connections up at its first calls) are paid before the
+first request too.
 
 Env:
 - ``LTXV_TPU_WARMUP``: comma-separated ``WxHxF`` buckets, ``default`` for
@@ -32,40 +35,51 @@ DEFAULT_BUCKET = (704, 480, 121)
 HASH_TEXT_LEN = 128     # serving/cli.py::hash_prompt_embeds' length
 
 
+def warm_bucket(generator, bucket, lock: threading.Lock | None = None
+                ) -> None:
+    """One ``(W, H, F)`` bucket's 1-step image-to-video generation, as the
+    live server path requests it (a multi-scale config keeps its own
+    timesteps), under ``lock`` where one is given. Every rank of a
+    serving mesh runs it for the same bucket (``serving/server.py``)."""
+    w, h, f = bucket
+    pipe = generator.pipeline
+    cap = pipe.transformer.cfg.caption_channels
+    emb = torch.zeros((2, HASH_TEXT_LEN, cap), dtype=torch.bfloat16)
+    mask = torch.ones((2, HASH_TEXT_LEN), dtype=torch.int32)
+    img = np.zeros((h, w, 3), np.uint8)
+    with lock if lock is not None else contextlib.nullcontext():
+        generator.generate(
+            emb, mask, height=h, width=w, frame_num=f, image_start=img,
+            sampling_steps=1, seed=0, output_type="pixels")
+
+
 def warmup_shapes(generator, buckets=None,
-                  lock: threading.Lock | None = None) -> float:
-    """Run a 1-step image-to-video generation for each ``(W, H, F)``
-    bucket, as the live server path requests it (a multi-scale config
-    keeps its own timesteps; on the card the kernel library is built
-    first). Returns elapsed seconds. A bucket that fails
-    is logged and never takes the server down; the counters ``warmup_ok``
-    and ``warmup_failed`` of ``Metrics`` (``GET /metrics``) say how each
-    bucket ended.
+                  lock: threading.Lock | None = None, run=None) -> float:
+    """Run :func:`warm_bucket` for each ``(W, H, F)`` bucket (on the card
+    the kernel library is built first). Returns elapsed seconds. A bucket
+    that fails is logged and never takes the server down; the counters
+    ``warmup_ok`` and ``warmup_failed`` of ``Metrics`` (``GET /metrics``)
+    say how each bucket ended.
 
     ``lock``: the server's generation lock, held per bucket, so a warm-up
     never runs beside a live request (two full-size generations do not
     share one card's memory); a request arriving mid-bucket waits for that
-    bucket, not for the whole warm-up."""
+    bucket, not for the whole warm-up. ``run(bucket)``, where given, runs
+    a bucket instead (a serving mesh hands it to every rank, and takes the
+    lock itself)."""
     buckets = list(buckets or [DEFAULT_BUCKET])
     t0 = time.time()
-    pipe = generator.pipeline
-    dev = pipe.transformer.proj_out.bias.device
+    dev = generator.pipeline.transformer.proj_out.bias.device
     if dev.type == "cuda":
         from ..ops import _lib
 
         _lib.library()
-    cap = pipe.transformer.cfg.caption_channels
-    emb = torch.zeros((2, HASH_TEXT_LEN, cap), dtype=torch.bfloat16)
-    mask = torch.ones((2, HASH_TEXT_LEN), dtype=torch.int32)
-    ctx = lock if lock is not None else contextlib.nullcontext()
+    if run is None:
+        def run(bucket):
+            warm_bucket(generator, bucket, lock)
     for w, h, f in buckets:
-        img = np.zeros((h, w, 3), np.uint8)
         try:
-            with ctx:
-                generator.generate(
-                    emb, mask, height=h, width=w, frame_num=f,
-                    image_start=img, sampling_steps=1, seed=0,
-                    output_type="pixels")
+            run((w, h, f))
             Metrics.inc("warmup_ok")
             logger.info("warmup %dx%dx%df done (%.1f s elapsed)",
                         w, h, f, time.time() - t0)
@@ -94,10 +108,11 @@ def parse_buckets(spec: str):
 
 def start_background_warmup(
     generator, spec: str | None = None,
-    lock: threading.Lock | None = None,
+    lock: threading.Lock | None = None, run=None,
 ) -> threading.Thread | None:
     """Kick off the warm-up per ``spec`` (default: the ``LTXV_TPU_WARMUP``
-    environment variable) without blocking startup."""
+    environment variable) without blocking startup; ``lock`` and ``run``
+    as :func:`warmup_shapes` takes them."""
     if spec is None:
         spec = os.environ.get("LTXV_TPU_WARMUP", "default")
     buckets = parse_buckets(spec)
@@ -105,7 +120,7 @@ def start_background_warmup(
         return None
     th = threading.Thread(
         target=warmup_shapes, args=(generator, buckets),
-        kwargs={"lock": lock}, name="ltxv-warmup", daemon=True,
+        kwargs={"lock": lock, "run": run}, name="ltxv-warmup", daemon=True,
     )
     th.start()
     return th

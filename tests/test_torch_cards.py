@@ -2,7 +2,11 @@
 really run, on the CPU: ``cards_expect`` (the launches and collective calls
 a rank makes in one forward of each model in each layout over 4 ranks)
 against the calls that ``cards_forward`` makes on 4 gloo ranks with a small
-DiT of each kind, and ``cards_request_expect`` against ``cards_expect``.
+DiT of each kind, and ``cards_request_expect`` against ``cards_expect``;
+``cards_i2v_expect`` (the Wan i2v-14B request over tp = 4) against a small
+i2v forward cut over 4 ranks and CLIP's ``visual``; ``train_expect`` (the
+collective calls of a train step on each mesh of ``[cards]`` (d)) against
+a small LTX DiT's step on 4 ranks, its grads in several buckets.
 
 On the CPU a kernel's wrapper launches nothing and counts nothing, so the
 rank bodies (``tests/torch_cards_workers.py``) count the calls of the
@@ -86,3 +90,42 @@ def test_tp_int8_forward_equals_one_process_bit_for_bit(tmp_path, kind,
                                  backend="gloo", timeout=120.0,
                                  store_dir=str(tmp_path), args=(kind,)):
         assert (out == one).all()
+
+
+@pytest.fixture(scope="module")
+def train_counted(tmp_path_factory):
+    return tmesh.spawn_ranks(
+        workers.train_counts, 4, backend="gloo", timeout=120.0,
+        store_dir=str(tmp_path_factory.mktemp("train")), args=(LAYERS,))
+
+
+@pytest.mark.parametrize("layout", sorted(chip_smoke.CARDS_TRAIN_MESHES))
+def test_train_expect_counts_what_a_step_runs(train_counted, layout):
+    """Per-block remat recomputes each block's collectives in the
+    backward, which then runs their own backward; the loss and the grads'
+    buckets are summed over dp and sp, the global norm's squares over
+    tp."""
+    for rank, seen in enumerate(train_counted):
+        calls, buckets = seen[layout]
+        assert buckets > 1, buckets
+        assert calls == chip_smoke.train_expect(layout, LAYERS, buckets), (
+            rank, calls)
+
+
+CLIP_LAYERS = 3
+
+
+def test_cards_i2v_expect_counts_what_a_request_runs(tmp_path):
+    """A step's DiT forward of the i2v request over tp = 4 (K4 for the
+    self, text and image attentions; K2s on the three row-parallel linears
+    a block, K2 on the rest; the block's tp all-reduces), and CLIP's
+    blocks (the penultimate block's features: one K4 call a block but the
+    last) whole on every rank."""
+    k, c = chip_smoke.cards_i2v_expect(LAYERS, 1, CLIP_LAYERS - 1)
+    assert k["K4"] == k["K4d128"] + k["K4d80"] == k["K2p"]
+    for dit, clip, calls in tmesh.spawn_ranks(
+            workers.i2v_counts, 4, backend="gloo", timeout=120.0,
+            store_dir=str(tmp_path), args=(LAYERS, CLIP_LAYERS)):
+        assert dit == {"K2": k["K2"], "K2s": k["K2s"], "K4": k["K4d128"]}
+        assert clip == {"K4": k["K4d80"]}
+        assert calls == {"all_reduce": c["all_reduce"]}

@@ -10,7 +10,12 @@ virtual CPU devices:
 - Wan ``generate_t2v`` with the DiT cut over tp = 4 by
   ``apply_wan_serving_mesh``, against JAX's SPMD program: its parameters
   placed by ``wan_param_shardings`` on a 4-device tp mesh and every step
-  jitted.
+  jitted;
+- Wan ``generate_i2v`` the same way: CLIP's features (CLIP whole on every
+  rank, at CLIP ViT-H/14's width 1280 and head dim 80, two blocks), the
+  Wan VAE encode of the first frame, 2 steps of the 36-channel-style DiT
+  (latents, mask and the encoded frame) cut over tp = 4, and the parallel
+  spatial tiled decode over the 4 ranks against JAX's fused one.
 
 Weights come from JAX's ``init_params`` through ``core/from_jax.py``,
 inputs and noises from numpy with a seed, in fp32 with the exact
@@ -28,7 +33,9 @@ from ltx_video_gpupoor_tpu.core import mesh as jmesh
 from ltx_video_gpupoor_tpu.models.ltx import latent_upsampler as jlup
 from ltx_video_gpupoor_tpu.models.ltx import transformer3d as jtf
 from ltx_video_gpupoor_tpu.models.ltx import vae as jvae
+from ltx_video_gpupoor_tpu.models.wan import clip as jclip
 from ltx_video_gpupoor_tpu.models.wan import model as jwm
+from ltx_video_gpupoor_tpu.models.wan import vae as jwv
 from ltx_video_gpupoor_tpu.ops import attention as jattn
 from ltx_video_gpupoor_tpu.parallel import sharding as jsh
 from ltx_video_gpupoor_tpu.pipelines import ltx_pipeline as jpipe
@@ -39,6 +46,7 @@ from ltx_video_gpupoor_tpu.utils import media as jmedia
 from ltx_video_gpupoor_tpu_torch.configs import LTXV_13B_097_DISTILLED
 from ltx_video_gpupoor_tpu_torch.core import from_jax
 from ltx_video_gpupoor_tpu_torch.core import mesh as tmesh
+from test_torch_wan import _vae_params
 
 TOL = dict(atol=2e-4, rtol=2e-4)
 FRAMES_DB = 40.0
@@ -200,3 +208,69 @@ def test_wan_t2v_at_tp4_matches_jax_spmd(tmp_path):
         # all-to-all
         assert calls == {"all_reduce": 7 * WAN_KW["num_layers"] * STEPS}
 
+
+
+# ---- Wan generate_i2v over tp = 4 ------------------------------------------
+
+I2V_VAE_KW = dict(dim=8, z_dim=4, dim_mult=(1, 2), num_res_blocks=1,
+                  attn_scales=(), temperal_downsample=(True,))
+I2V_STRIDE = (2, 2, 2)
+# in_dim: the noisy latents, the first frame's mask (one channel a frame of
+# the temporal stride) and its encoded latents
+I2V_KW = dict(WAN_KW, model_type="i2v", in_dim=4 + I2V_STRIDE[0] + 4)
+# CLIP ViT-H/14's width and heads (the DiT's img_emb takes 1280 features),
+# cut to 3 layers (the features are the penultimate block's)
+CLIP_KW = dict(image_size=224, patch_size=14, dim=1280, num_heads=16,
+               num_layers=3)
+I2V_H, I2V_W, I2V_FRAMES = 32, 32, 5
+
+
+def test_wan_i2v_at_tp4_matches_jax_spmd(tmp_path):
+    cfg = jwm.WanConfig(**I2V_KW)
+    params = jax.jit(lambda k: jwm.init_params(k, cfg))(jax.random.key(0))
+    ccfg = jclip.CLIPVisionConfig(**CLIP_KW)
+    clip_p = jax.jit(lambda k: jclip.init_params(k, ccfg))(jax.random.key(1))
+    vae_p = _vae_params(2, **I2V_VAE_KW)
+    rng = np.random.default_rng(4)
+    image = rng.uniform(-1, 1, (1, 224, 224, 3)).astype(np.float32)
+    frame = rng.uniform(-1, 1, (I2V_H, I2V_W, 3)).astype(np.float32)
+    ctx = rng.standard_normal((2, 8, 64)).astype(np.float32)
+    cmask = np.ones((2, 8), np.int32)
+    cmask[1, 5:] = 0
+    f = (I2V_FRAMES - 1) // I2V_STRIDE[0] + 1
+    noise = rng.standard_normal(
+        (1, f, I2V_H // 2, I2V_W // 2, 4)).astype(np.float32)
+    kw = dict(width=I2V_W, height=I2V_H, frame_num=I2V_FRAMES,
+              sampling_steps=STEPS, guide_scale=5.0, attn_mode="xla")
+
+    feats = np.asarray(jclip.visual(clip_p, ccfg, jnp.asarray(image)))
+    mesh = _mesh(tp=4)
+    placed = jax.tree.map(jax.device_put, params,
+                          jsh.wan_param_shardings(mesh, params))
+    jp = WanPipeline(model_params=placed, model_cfg=cfg, vae_params=vae_p,
+                     vae_cfg=jwv.WanVAEConfig(**I2V_VAE_KW),
+                     vae_stride=I2V_STRIDE, vae_tile_size=16, mesh=mesh)
+    ref_lat = jp.generate_i2v(
+        jnp.asarray(ctx), jnp.asarray(cmask), jnp.asarray(feats),
+        jnp.asarray(frame), noise=jnp.asarray(noise), output_type="latent",
+        key=jax.random.key(5), **kw)
+    ref_frames = np.asarray(jp._vae_decode(ref_lat))
+    ref_lat = np.asarray(ref_lat)
+    outs = spawn(tmp_path, workers.wan_i2v_tp, 4, I2V_KW,
+                 _numpy(from_jax.state_dict(_np_tree(params))), CLIP_KW,
+                 _numpy(from_jax.state_dict(_np_tree(clip_p))), I2V_VAE_KW,
+                 _numpy(from_jax.state_dict(_np_tree(vae_p))), I2V_STRIDE,
+                 image, frame, ctx, cmask, noise, kw)
+    for lat, frames, got_feats, calls in outs:
+        np.testing.assert_allclose(got_feats, feats, atol=1e-4, rtol=1e-4)
+        assert lat.shape == ref_lat.shape == noise.shape
+        np.testing.assert_allclose(lat, ref_lat, **TOL)
+        assert frames.shape == ref_frames.shape == (1, I2V_FRAMES, I2V_H,
+                                                    I2V_W, 3)
+        assert _psnr(frames, ref_frames) >= FRAMES_DB
+        assert frames.std() > 0.05
+        # one forward a step; a block's all-reduces: its three row-parallel
+        # linears' sums and the four q/k norms (the image keys' norm_k_img
+        # is whole: k_img is not cut), and the decode's gather of tiles
+        assert calls == {"all_reduce": 7 * I2V_KW["num_layers"] * STEPS,
+                         "all_gather": 1}

@@ -185,7 +185,8 @@ def _request_body():
 
 def test_served_request_on_two_ranks(tmp_path):
     """``POST /`` on rank 0 of an sp = 2 mesh: the follower runs the same
-    request (the warm-up is off on a mesh) and the video lands; a
+    request (the warm-up off: ``test_warmup_on_two_ranks`` has it) and
+    the video lands; a
     follower's error in the next request reaches rank 0's answer as a 500
     naming the rank (rank 0 itself gives up in a collective at the group's
     timeout, 20 s here), and the next request is refused with that error
@@ -205,6 +206,41 @@ def test_served_request_on_two_ranks(tmp_path):
     assert third[0] == 500 and "restart" in third[1][0]["error"]
     assert follower == 2
     assert time.monotonic() - t0 < 90.0
+
+
+@pytest.mark.parametrize("spec,fail", [("64x64x9", False),
+                                       ("64x64x9", True), ("off", False)],
+                         ids=["warm", "follower_fails", "off"])
+def test_warmup_on_two_ranks(tmp_path, spec, fail):
+    """JAX's warm-up on a mesh: rank 0's warm-up thread hands each bucket
+    to the follower through the channel, so the follower runs the 1-step
+    generation and then the request; a follower that fails its warm-up
+    breaks the group (logged, ``warmup_failed``), and the first request
+    answers 500 naming the rank instead of hanging; ``off`` starts
+    nothing and the follower runs the request alone."""
+    out = tmp_path / "outputs"
+    out.mkdir()
+    t0 = time.monotonic()
+    (started, counters, answer), ran = tmesh.spawn_ranks(
+        workers.served_warmup, 2, backend="gloo", timeout=20.0,
+        store_dir=str(tmp_path), args=(str(out), _request_body(), spec,
+                                       fail))
+    assert time.monotonic() - t0 < 90.0
+    if spec == "off":
+        assert not started and counters == {}
+        assert answer[0] == 200 and ran == ["request"]
+        return
+    assert started
+    if not fail:
+        assert counters == {"warmup_ok": 1.0}
+        assert answer[0] == 200 and answer[1][0]["video"].endswith(".mp4")
+        assert ran == [("warmup", (64, 64, 9)), "request"]
+        return
+    assert counters == {"warmup_failed": 1.0}
+    assert answer[0] == 500
+    assert "rank 1: RuntimeError: planted warm-up failure on 1" in \
+        answer[1][0]["error"]
+    assert ran == [("warmup", (64, 64, 9))]
 
 
 def test_cli_on_two_ranks(tmp_path):

@@ -18,7 +18,10 @@ bound of ``tests/test_torch_training.py``) and of ``mu`` / ``nu`` (1e-4
 
 The config is ``tests/test_training.py``'s with 4 heads of 8 (the same
 width): at sp = tp = 2 each rank's Ulysses exchange splits its
-``H / tp`` heads over sp, which needs 4.
+``H / tp`` heads over sp, which needs 4. At sp = 4 and tp = 4 (one group
+of 4 ranks, against JAX on 4 of the virtual devices) each rank holds one
+head; ``tp4_d128`` is the tp = 4 step at LTX-13B's head dim (128) and
+its cross-attention width equal to the inner width.
 """
 
 import math
@@ -58,6 +61,9 @@ KW = dict(num_attention_heads=4, attention_head_dim=8, in_channels=8,
           out_channels=8, num_layers=2, cross_attention_dim=32,
           caption_channels=16)
 CFG = LTXTransformerConfig(**KW)
+# LTX-13B's layout at a small width: head dim 128, cross_attention_dim
+# the inner width (4 x 128)
+KW_13B = dict(KW, attention_head_dim=128, cross_attention_dim=512)
 TC = dict(learning_rate=1e-3, remat=True)
 SCALAR = dict(rtol=1e-5, atol=0)
 LEAF = 1e-4
@@ -71,6 +77,12 @@ def spawn(tmp_path, fn, world, *args):
 @pytest.fixture(scope="module")
 def params():
     return jax.jit(lambda k: init_params(k, CFG))(jax.random.key(0))
+
+
+@pytest.fixture(scope="module")
+def params_13b():
+    cfg = LTXTransformerConfig(**KW_13B)
+    return jax.jit(lambda k: init_params(k, cfg))(jax.random.key(0))
 
 
 def _np_tree(tree):
@@ -90,7 +102,7 @@ def _batch_np(b=2, s=32, sc=4):
             np.ones((b, sc), np.int32))
 
 
-def _jax_step(params, dims, batch_np, key):
+def _jax_step(params, dims, batch_np, key, cfg=CFG):
     """JAX's step jitted over the mesh ``dims``, as its test runs it."""
     dp, sp, tp = dims
     mesh = jmesh.make_mesh(jmesh.MeshConfig(dp=dp, sp=sp, tp=tp),
@@ -105,7 +117,7 @@ def _jax_step(params, dims, batch_np, key):
         coords=jax.device_put(coords, replicated(mesh)),
         caption=jax.device_put(cap, replicated(mesh)),
         caption_mask=jax.device_put(mask, replicated(mesh)))
-    p, o, m = jax.jit(jtr.make_train_step(CFG, tc, attn_mode="xla"))(
+    p, o, m = jax.jit(jtr.make_train_step(cfg, tc, attn_mode="xla"))(
         p, o, batch, key)
     kt, kn = jax.random.split(key)
     t = np.asarray(jtr.sample_timesteps(kt, tok.shape[0], tc))
@@ -123,20 +135,29 @@ def _cut(whole, name, out, tp):
 
 
 MESHES = {"dp2": (2, 1, 1), "sp2": (1, 2, 1), "tp2": (1, 1, 2),
-          "dp2xsp2xtp2": (2, 2, 2)}
+          "dp2xsp2xtp2": (2, 2, 2), "sp4": (1, 4, 1), "tp4": (1, 1, 4),
+          "tp4_d128": (1, 1, 4)}
+FOUR = ["sp4", "tp4", "tp4_d128"]
+
+
+def _kw(name):
+    return KW_13B if name == "tp4_d128" else KW
 
 
 @pytest.fixture(scope="module")
-def jax_steps(params):
+def jax_steps(params, params_13b):
     key = jax.random.key(3)
-    return {k: _jax_step(params, dims, _batch_np(), key)
+    cfg_13b = LTXTransformerConfig(**KW_13B)
+    return {k: _jax_step(params_13b, dims, _batch_np(), key, cfg_13b)
+            if k == "tp4_d128" else _jax_step(params, dims, _batch_np(), key)
             for k, dims in MESHES.items()}
 
 
-def _runs(params, jax_steps, names):
-    sd = {k: v.numpy() for k, v in _sd(params).items()}
-    return [(MESHES[k], KW, sd, _batch_np(), *jax_steps[k][3:], TC)
-            for k in names]
+def _runs(params, jax_steps, names, params_13b=None):
+    def sd(tree):
+        return {k: v.numpy() for k, v in _sd(tree).items()}
+    return [(MESHES[k], _kw(k), sd(params_13b if k == "tp4_d128" else params),
+             _batch_np(), *jax_steps[k][3:], TC) for k in names]
 
 
 @pytest.fixture(scope="module")
@@ -148,6 +169,15 @@ def two_ranks(tmp_path_factory, params, jax_steps):
     out = {k: [o[0][i] for o in outs] for i, k in enumerate(names)}
     out["collective grads"] = [o[2] for o in outs]
     return out
+
+
+@pytest.fixture(scope="module")
+def four_ranks(tmp_path_factory, params, params_13b, jax_steps):
+    """sp4, tp4 and tp4 at head dim 128, one after another in one group of
+    4 ranks."""
+    outs = spawn(tmp_path_factory.mktemp("four"), workers.session, 4,
+                 _runs(params, jax_steps, FOUR, params_13b))
+    return {k: [o[0][i] for o in outs] for i, k in enumerate(FOUR)}
 
 
 @pytest.fixture(scope="module")
@@ -173,9 +203,11 @@ def eight_ranks(tmp_path_factory, params, jax_steps):
 @pytest.mark.parametrize("name", list(MESHES))
 def test_sharded_step_matches_jax(request, jax_steps, name):
     dims = MESHES[name]
-    outs = request.getfixturevalue(
-        "eight_ranks" if name == "dp2xsp2xtp2" else "two_ranks")
-    outs = outs[0] if name == "dp2xsp2xtp2" else outs[name]
+    if name == "dp2xsp2xtp2":
+        outs = request.getfixturevalue("eight_ranks")[0]
+    else:
+        outs = request.getfixturevalue(
+            "four_ranks" if name in FOUR else "two_ranks")[name]
     want_p, want_o, jm = jax_steps[name][:3]
     b2 = TrainConfig().b2
     for out in outs:

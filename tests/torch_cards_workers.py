@@ -188,6 +188,96 @@ def cards_counts(rank, world, layers):
     return seen
 
 
+def train_counts(rank, world, layers):
+    """One train step (backward and update) of a small LTX DiT in fp32
+    with per-block remat on each of chip_smoke's CARDS_TRAIN_MESHES, the
+    grads in buckets of a few thousand values: this rank's collective
+    calls and the buckets its grads fill, by layout."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    from ltx_video_gpupoor_tpu_torch.core.dtypes import FP32_POLICY
+    from ltx_video_gpupoor_tpu_torch.models.ltx import transformer3d as tf
+    from ltx_video_gpupoor_tpu_torch.parallel import comm
+    from ltx_video_gpupoor_tpu_torch.parallel.sharding import shard_params
+    from ltx_video_gpupoor_tpu_torch.training import (
+        TrainBatch,
+        TrainConfig,
+        make_train_step,
+        trainer,
+    )
+
+    trainer.GRAD_BUCKET = 4096
+    seen = {}
+    for layout, dims in chip_smoke.CARDS_TRAIN_MESHES.items():
+        mesh = _mesh(*dims)
+        g = torch.Generator().manual_seed(0)
+        cfg = tf.LTXTransformerConfig(
+            num_attention_heads=8, attention_head_dim=8, in_channels=8,
+            out_channels=8, num_layers=layers, cross_attention_dim=64,
+            caption_channels=16)
+        model = tf.init_params(tf.LTXTransformer3D(cfg, FP32_POLICY), g)
+        shard_params(mesh, model)
+        f, h, w = 4, 2, 2
+        grid = torch.stack(torch.meshgrid(
+            torch.arange(f), torch.arange(h), torch.arange(w),
+            indexing="ij")).reshape(1, 3, -1).float().expand(2, -1, -1)
+        batch = TrainBatch(torch.randn(2, f * h * w, 8, generator=g),
+                           grid.contiguous(),
+                           torch.randn(2, 8, 16, generator=g),
+                           torch.ones(2, 8, dtype=torch.int32))
+        step = make_train_step(model, TrainConfig(), attn_mode="xla",
+                               mesh=mesh)
+        comm.reset_counts()
+        step(batch, t=torch.tensor([0.6, 0.3]),
+             eps=torch.randn(2, f * h * w, 8, generator=g))
+        seen[layout] = (dict(comm.call_counts), chip_smoke.grad_buckets(
+            [p.numel() for p in step.params.values()]))
+    return seen
+
+
+def i2v_counts(rank, world, layers, clip_layers):
+    """One forward of a small Wan i2v DiT (head dim 128, bf16, the dynamic
+    tier) cut over tp = world as ``apply_wan_serving_mesh`` cuts it, with
+    CLIP's features; then CLIP ``visual`` at head dim 80 (whole on every
+    rank): the calls of each kernel's wrapper in each, and the forward's
+    collective calls."""
+    from ltx_video_gpupoor_tpu_torch.core.dtypes import DEFAULT_POLICY
+    from ltx_video_gpupoor_tpu_torch.models.wan import clip as wc
+    from ltx_video_gpupoor_tpu_torch.models.wan import model as wm
+    from ltx_video_gpupoor_tpu_torch.ops.quant import quantize_params
+    from ltx_video_gpupoor_tpu_torch.ops.rope import wan_rope_freqs
+    from ltx_video_gpupoor_tpu_torch.parallel import comm
+    from ltx_video_gpupoor_tpu_torch.parallel.sharding import shard_wan_params
+
+    calls = collections.Counter()
+    _count_calls(calls)
+    g = torch.Generator().manual_seed(0)
+    cfg = wm.WanConfig(model_type="i2v", text_len=8, in_dim=36, dim=512,
+                       ffn_dim=64, freq_dim=32, text_dim=16, out_dim=16,
+                       num_heads=4, num_layers=layers)
+    model = quantize_params(wm.init_params(wm.WanModel(cfg, DEFAULT_POLICY),
+                                           g), mode="dynamic")
+    shard_wan_params(_mesh(tp=world), model)
+    comm.reset_counts()
+    with torch.no_grad():
+        out = model(torch.randn(2, 4, 4, 4, 36, generator=g),
+                    torch.full((2,), 500.0), torch.randn(2, 8, 16,
+                                                         generator=g),
+                    torch.ones(2, 8), wan_rope_freqs((4, 2, 2), 128),
+                    clip_features=torch.randn(2, 257, wm.CLIP_DIM,
+                                              generator=g))[0]
+    assert torch.isfinite(out.float()).all()
+    dit = dict(calls)
+    collectives = dict(comm.call_counts)
+    calls.clear()
+    clip = wc.init_params(wc.CLIPVision(wc.CLIPVisionConfig(
+        dim=160, num_heads=2, num_layers=clip_layers), DEFAULT_POLICY), g)
+    with torch.no_grad():
+        wc.visual(clip, torch.rand(1, 224, 224, 3, generator=g) * 2 - 1)
+    return dit, dict(calls), collectives
+
+
 def usp_hp_calls(rank, world, layers=2):
     """One ``usp_ltx_forward`` at sp = world of a small LTX DiT at the 13B's
     head dim (128) in ``pallas_hp``: the calls of each kernel's wrapper."""
@@ -341,3 +431,52 @@ def wan_t2v_tp(rank, world, cfg_kw, sd_np, ctx, cmask, noise, kw):
     out = pipe.generate_t2v(_t(ctx), _t(cmask), noise=_t(noise),
                             output_type="latent", **kw)
     return _np(out), dict(comm.call_counts)
+
+
+def wan_i2v_tp(rank, world, cfg_kw, sd_np, clip_kw, clip_np, vae_kw, vae_np,
+               stride, image, frame, ctx, cmask, noise, kw):
+    """Wan image-to-video with the DiT cut over tp = world by
+    ``apply_wan_serving_mesh``: CLIP's features of ``image`` (whole on
+    every rank, the exact tier, as JAX runs it), then ``generate_i2v``
+    (the Wan VAE encode of ``frame``, the steps, the parallel spatial
+    tiled decode over every rank). The latents, the frames and this
+    rank's collective calls."""
+    from ltx_video_gpupoor_tpu_torch.core.dtypes import FP32_POLICY
+    from ltx_video_gpupoor_tpu_torch.models.wan import clip as tclip
+    from ltx_video_gpupoor_tpu_torch.models.wan import model as twm
+    from ltx_video_gpupoor_tpu_torch.models.wan import vae as twv
+    from ltx_video_gpupoor_tpu_torch.ops.attention import set_attention_mode
+    from ltx_video_gpupoor_tpu_torch.parallel import comm
+    from ltx_video_gpupoor_tpu_torch.pipelines.wan import WanPipeline
+    from ltx_video_gpupoor_tpu_torch.serving.model_zoo import (
+        apply_wan_serving_mesh,
+    )
+
+    clip = tclip.CLIPVision(tclip.CLIPVisionConfig(**clip_kw), FP32_POLICY)
+    clip.load_state_dict(_sd(clip_np))
+    set_attention_mode("xla")
+    try:
+        with torch.no_grad():
+            feats = tclip.visual(clip, _t(image))
+    finally:
+        set_attention_mode("auto")
+    model = twm.WanModel(twm.WanConfig(**cfg_kw), FP32_POLICY)
+    model.load_state_dict(_sd(sd_np))
+    vae = twv.WanVAE(twv.WanVAEConfig(**vae_kw), FP32_POLICY)
+    vae.load_state_dict(_sd(vae_np))
+    pipe = apply_wan_serving_mesh(
+        WanPipeline(model, vae, vae_stride=tuple(stride), vae_tile_size=16),
+        _mesh(tp=world))
+    assert pipe.sp_mesh is None and pipe.mesh is not None
+    latents = {}
+
+    def on_stage(name, value):
+        if name == "decode":
+            latents["z"] = value
+    comm.reset_counts()
+    with torch.no_grad():
+        frames = pipe.generate_i2v(_t(ctx), _t(cmask), feats, _t(frame),
+                                   noise=_t(noise), output_type="pixels",
+                                   on_stage=on_stage, **kw)
+    return (_np(latents["z"]), _np(frames), _np(feats),
+            dict(comm.call_counts))

@@ -377,8 +377,9 @@ def served_request(rank, world, out_dir, body, fail_on_rank=None):
 
     model = model_zoo.build_demo_model(0, device="cpu")
     model_zoo.apply_serving_mesh(model.generator.pipeline, _mesh(sp=world))
+    # the warm-up on a mesh is served_warmup's
     svc = tserver.InferenceService(model=model, outputs_dir=out_dir,
-                                   warmup_spec="64x64x9")
+                                   warmup_spec="off")
     assert svc.channel is not None and svc._warmup_thread is None
     if rank != 0:
         calls = []
@@ -415,6 +416,68 @@ def served_request(rank, world, out_dir, body, fail_on_rank=None):
         httpd.server_close()
     name = answers[0][1][0]["video"].rsplit("/", 1)[-1]
     return answers, os.path.getsize(os.path.join(out_dir, name)) > 0
+
+
+def served_warmup(rank, world, out_dir, body, spec, fail=False):
+    """The demo model served over sp = world with the warm-up ``spec``
+    (``LTXV_TPU_WARMUP``'s form): rank 0 waits for its warm-up thread,
+    then takes ``POST /`` once over a socket; with ``fail`` the follower
+    raises after its first warm-up generation. Rank 0 returns whether a
+    warm-up thread started, the warm-up counters of ``Metrics`` and the
+    request's (status, payload); a follower returns what it ran, in
+    order: ``("warmup", (W, H, F))`` or ``"request"``."""
+    import json
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from ltx_video_gpupoor_tpu_torch.serving import model_zoo
+    from ltx_video_gpupoor_tpu_torch.serving import server as tserver
+    from ltx_video_gpupoor_tpu_torch.utils.observability import Metrics
+
+    model = model_zoo.build_demo_model(0, device="cpu")
+    model_zoo.apply_serving_mesh(model.generator.pipeline, _mesh(sp=world))
+    svc = tserver.InferenceService(model=model, outputs_dir=out_dir,
+                                   warmup_spec=spec)
+    if rank != 0:
+        assert svc._warmup_thread is None
+        ran = []
+        serve = svc._serve
+
+        def recorded(message):
+            out = serve(message)
+            kind, payload = message
+            ran.append((kind, tuple(payload)) if kind == "warmup" else kind)
+            if fail and kind == "warmup":
+                raise RuntimeError(f"planted warm-up failure on {rank}")
+            return out
+        svc._serve = recorded
+        svc.follow()
+        return ran
+    started = svc._warmup_thread is not None
+    if started:
+        svc._warmup_thread.join(timeout=100)
+        assert not svc._warmup_thread.is_alive(), "the warm-up hangs"
+    counters = {k: v for k, v in Metrics.snapshot()["counters"].items()
+                if k.startswith("warmup")}
+    httpd = tserver.create_stdlib_server(svc, host="127.0.0.1", port=0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{httpd.server_address[1]}/",
+        data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        try:
+            with urllib.request.urlopen(req, timeout=100) as resp:
+                answer = (resp.status, json.loads(resp.read()))
+        except urllib.error.HTTPError as e:
+            answer = (e.code, json.loads(e.read()))
+    finally:
+        svc.stop()
+        httpd.shutdown()
+        httpd.server_close()
+    return started, counters, answer
 
 
 def cli_on_ranks(rank, world, out_path):
