@@ -213,7 +213,7 @@ def _stubbed_main(monkeypatch, capsys, argv, k3q_d80=0, keep=()):
         "phase_aux": ones,
         "phase_k2s": 0.0, "phase_mesh": 1, "phase_train": 1.0,
         "phase_cards_probe": ("a card", []), "phase_cards_k7": {},
-        "phase_cards": None,
+        "phase_cards": None, "phase_cards_train": None,
     }
     for name, result in results.items():
         if name in keep:
@@ -301,11 +301,23 @@ def test_mesh_only_runs_the_build_k2s_and_mesh(monkeypatch, capsys):
 
 def test_cards_only_runs_the_probe_build_k7_and_cards(monkeypatch, capsys):
     """``--cards-only``: the device, the probe of the host, the build, K7
-    once per card and [cards]; no result line."""
+    once per card, [cards] (b), (c), (e), (f), then (d) the train step; no
+    result line."""
     code, ran, lines = _stubbed_main(monkeypatch, capsys, ["--cards-only"])
     assert code == 0
     assert ran == ["phase_device", "phase_cards_probe", "phase_build",
-                   "phase_cards_k7", "phase_cards"]
+                   "phase_cards_k7", "phase_cards", "phase_cards_train"]
+    assert not any('"ok"' in ln or '"kernels"' in ln for ln in lines)
+
+
+def test_cards_train_only_runs_the_probe_and_the_train_step(monkeypatch,
+                                                            capsys):
+    """``--cards-train-only``: the device, the probe and [cards] (d) (no
+    kernel runs under grad, so nothing is built); no result line."""
+    code, ran, lines = _stubbed_main(monkeypatch, capsys,
+                                     ["--cards-train-only"])
+    assert code == 0
+    assert ran == ["phase_device", "phase_cards_probe", "phase_cards_train"]
     assert not any('"ok"' in ln or '"kernels"' in ln for ln in lines)
 
 
