@@ -6644,13 +6644,14 @@ def cards_expect(kind, layout, layers):
     return k, c
 
 
-def cards_meshes():
-    """The meshes of :data:`CARDS_LAYOUTS` over the started group, built
-    once (every rank builds them alike, in one order), their groups warm."""
+def cards_meshes(layouts=None):
+    """The meshes of ``layouts`` (name -> (dp, sp, tp); default
+    :data:`CARDS_LAYOUTS`) over the started group, built once (every rank
+    builds them alike, in one order), their groups warm."""
     from ltx_video_gpupoor_tpu_torch.core.mesh import MeshConfig, make_mesh
 
     meshes = {name: make_mesh(MeshConfig(*dims))
-              for name, dims in CARDS_LAYOUTS.items()}
+              for name, dims in (layouts or CARDS_LAYOUTS).items()}
     for mesh in meshes.values():
         _warm_groups(mesh)
     return meshes
@@ -8232,18 +8233,6 @@ def train_expect(layout, layers, buckets):
     return calls
 
 
-def _cards_train_meshes():
-    """Every mesh of (d), built once and in one order on every rank, with
-    warm groups."""
-    from ltx_video_gpupoor_tpu_torch.core.mesh import MeshConfig, make_mesh
-
-    meshes = {name: make_mesh(MeshConfig(*dims))
-              for name, dims in CARDS_TRAIN_MESHES.items()}
-    for mesh in meshes.values():
-        _warm_groups(mesh)
-    return meshes
-
-
 def _cards_train_cfg(kind):
     return ltx13b_config() if kind == "ltx13b" else ltx2b_config()
 
@@ -8537,7 +8526,7 @@ def _cards_train_rank(rank, world, work):
 
     from ltx_video_gpupoor_tpu_torch.parallel import comm
 
-    meshes = _cards_train_meshes()
+    meshes = cards_meshes(CARDS_TRAIN_MESHES)
     res = {"cuts": {}, "full": {}}
     t0 = time.perf_counter()
     for kind in CARDS_TRAIN_CUTS:
