@@ -7437,11 +7437,13 @@ def _cards_i2v_reference(umt5, work, res):
                                 latents, pipe.vae_tile_size)
     torch.cuda.synchronize()
     res["wan i2v"] = time.perf_counter() - t0
+    # latents out: "end" marks the denoise's end, the decode follows
     res["wan i2v stages"] = {"umt5": t5_sec, "clip": clip_sec,
                              "encode": marks["denoise"][0]
                              - marks["encode"][0],
-                             "denoise": marks["decode"][0]
-                             - marks["denoise"][0]}
+                             "denoise": marks["end"][0]
+                             - marks["denoise"][0],
+                             "decode": time.perf_counter() - marks["end"][0]}
     res["wan i2v peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
     torch.save(video.float().cpu(), os.path.join(work, "wan_i2v.pt"))
 
