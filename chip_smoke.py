@@ -8270,13 +8270,14 @@ def _broadcast_gaps(mine, whole, shapes, cuts):
     from ltx_video_gpupoor_tpu_torch.parallel.sharding import cut_param
 
     gaps = {}
-    for name in sorted(shapes):
-        buf = whole[name] if whole is not None else torch.empty(
-            shapes[name], dtype=torch.float32, device="cuda")
-        dist.broadcast(buf, src=0)
-        want = cut_param(buf, cuts[name]) if name in cuts else buf
-        gaps[name] = ((mine[name].float() - want).norm()
-                      / want.norm().clamp_min(1e-30)).item()
+    with torch.no_grad():
+        for name in sorted(shapes):
+            buf = whole[name] if whole is not None else torch.empty(
+                shapes[name], dtype=torch.float32, device="cuda")
+            dist.broadcast(buf, src=0)
+            want = cut_param(buf, cuts[name]) if name in cuts else buf
+            gaps[name] = ((mine[name].float() - want).norm()
+                          / want.norm().clamp_min(1e-30)).item()
     return gaps
 
 
