@@ -14,14 +14,17 @@ decoder's time upsample passes frame 0 through and turns each later frame
 into two; the encoder's time downsample passes frame 0 through and takes
 frames ``2j - 2 .. 2j`` into frame j.
 
-The encoder runs the whole clip, as JAX does, but a few frames at a time
-inside each stride-1 layer (:data:`ENCODE_CHUNK_FRAMES`): a causal conv's
-output frames ``t0 .. t1`` read input frames ``t0 - 2 .. t1`` (zeros
-before the first), and the norms, SiLU and the per-frame attention act on
-each frame alone, so the chunks compute the same function while the
-temporaries stay a chunk's size (an 832x480x81 clip's first activation is
-6 GB in bf16; the norm's fp32 temporaries of the whole clip would be
-four times that).
+The encoder computes JAX's function of the whole clip, but streams it:
+the clip enters the frame 0 first, then :data:`ENCODE_CHUNK_FRAMES` frames
+at a time, each chunk through every layer (:class:`_EncodeStream`). A
+causal conv's output frames ``t0 .. t1`` read input frames ``t0 - 2 ..
+t1`` (zeros before the first), so each conv keeps the last two frames of
+its input; a time downsample keeps the frame its next window starts at;
+the norms, SiLU and the per-frame attention act on each frame alone. So
+the activations stay a chunk's size: a 1280x720x81 clip's first
+activation is 14.3 GB in bf16 a layer, and a residual block holds three
+(its input, its two convs' outputs), which with a 14B DiT, UMT5-XXL and
+CLIP resident does not fit an 80 GB card.
 
 The public functions keep JAX's channels-last ``[B, F, H, W, C]``; inside,
 activations are torch's ``[B, C, F, H, W]`` and run in the policy's
@@ -59,7 +62,8 @@ class WanVAEConfig:
         return tuple(reversed(self.temperal_downsample))
 
 
-# output frames a stride-1 encoder layer computes at a time
+# input frames the encoder takes at a time after the first (None: the whole
+# clip at once): a chunk of 4 makes one latent frame
 ENCODE_CHUNK_FRAMES = 4
 
 WAN_LATENT_MEAN = np.array([
@@ -231,66 +235,16 @@ def wan_rms_norm(p: RMSNorm, x: torch.Tensor) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def _framewise(fn, x, chunk):
-    """``fn(x)`` for an ``fn`` that acts on each frame alone, ``chunk``
-    frames at a time (None: at once)."""
-    f = x.shape[2]
-    if chunk is None or f <= chunk:
-        return fn(x)
-    out = None
-    for t0 in range(0, f, chunk):
-        y = fn(x[:, :, t0:t0 + chunk])
-        if out is None:
-            out = y.new_empty(y.shape[:2] + (f,) + y.shape[3:])
-        out[:, :, t0:t0 + y.shape[2]] = y
-    return out
-
-
-def _causal_chunked(p: Conv, x, chunk, fn=None):
-    """``causal_conv3d(p, fn(x))`` (``fn`` per frame, or none), ``chunk``
-    output frames at a time: each chunk reads the ``2*(kt//2)`` input
-    frames before it (zeros before the first), as the whole-clip conv
-    does."""
-    kt = p.weight.shape[2]
-    front = 2 * (kt // 2)
-    f = x.shape[2]
-    if chunk is None or f <= chunk:
-        return causal_conv3d(p, fn(x) if fn is not None else x)
-    out = None
-    for t0 in range(0, f, chunk):
-        t1 = min(t0 + chunk, f)
-        lo = max(0, t0 - front)
-        xin = x[:, :, lo:t1]
-        if fn is not None:
-            xin = fn(xin)
-        pad = front - (t0 - lo)        # zero frames still owed in front
-        kh, kw = p.weight.shape[3:]
-        xin = F.pad(xin, (kw // 2, kw // 2, kh // 2, kh // 2, pad, 0))
-        y = F.conv3d(xin, p.weight.to(xin.dtype))
-        y = y + p.bias.to(y.dtype)[:, None, None, None]
-        if out is None:
-            out = y.new_empty(y.shape[:2] + (f,) + y.shape[3:])
-        out[:, :, t0:t1] = y
-    return out
-
-
-def _residual_block(p: ResBlock, x, chunk=None):
-    """The residual block; ``chunk`` frames at a time in each layer where
-    given."""
-    h = _causal_chunked(p.conv1, x, chunk,
-                        lambda t: F.silu(wan_rms_norm(p.norm1, t)))
-    h = _causal_chunked(p.conv2, h, chunk,
-                        lambda t: F.silu(wan_rms_norm(p.norm2, t)))
-    sc = _causal_chunked(p.shortcut, x, chunk) if p.shortcut is not None \
-        else x
+def _residual_block(p: ResBlock, x, conv=causal_conv3d):
+    """The residual block, its causal convs through ``conv(p, x)``."""
+    h = conv(p.conv1, F.silu(wan_rms_norm(p.norm1, x)))
+    h = conv(p.conv2, F.silu(wan_rms_norm(p.norm2, h)))
+    sc = conv(p.shortcut, x) if p.shortcut is not None else x
     return h.add_(sc)
 
 
-def _attention_block(p: AttnBlock, x, chunk=None):
-    """Single-head spatial attention within each frame, fp32 einsum
-    (``chunk`` frames at a time where given)."""
-    if chunk is not None:
-        return _framewise(lambda t: _attention_block(p, t), x, chunk)
+def _attention_block(p: AttnBlock, x):
+    """Single-head spatial attention within each frame, fp32 einsum."""
     b, c, f, h, w = x.shape
     identity = x
     qkv = conv2d_framewise(p.to_qkv, wan_rms_norm(p.norm, x))
@@ -308,16 +262,6 @@ def _downsample_spatial(p: Conv, x):
     y = F.conv3d(F.pad(x, (0, 1, 0, 1)), p.weight.to(x.dtype)[:, :, None],
                  stride=(1, 2, 2))
     return y + p.bias.to(y.dtype)[:, None, None, None]
-
-
-def _downsample_time(p: Conv, x):
-    """Frame 0 passes; frame j >= 1 is the stride-2 kernel-3 window over
-    frames ``2j - 2 .. 2j``."""
-    if x.shape[2] == 1:
-        return x
-    y = F.conv3d(x, p.weight.to(x.dtype), stride=(2, 1, 1))
-    y = y + p.bias.to(y.dtype)[:, None, None, None]
-    return torch.cat([x[:, :, :1], y], dim=2)
 
 
 def _upsample_spatial(p: Conv, x):
@@ -377,18 +321,81 @@ def _decoder_structure(cfg: WanVAEConfig):
     return out, dims[0]
 
 
-def _run_blocks(structure, blocks, x, chunk=None):
+class _EncodeStream:
+    """The encoder's layers over a clip that arrives a few frames at a
+    time: each causal conv keeps the last ``2*(kt//2)`` frames of its
+    input, each time downsample the frames from its next window's start,
+    so that every output frame reads the input frames it reads in the
+    whole-clip layer (zeros before the first)."""
+
+    def __init__(self):
+        self.tails = {}
+
+    def conv(self, p: Conv, x: torch.Tensor) -> torch.Tensor:
+        """``causal_conv3d(p, x)`` of the clip so far, for ``x``'s
+        frames."""
+        front = 2 * (p.weight.shape[2] // 2)
+        prev = self.tails.get(id(p))
+        full = x if prev is None else torch.cat([prev, x], dim=2)
+        if front:
+            self.tails[id(p)] = full[:, :, -front:].clone()
+        pad = front - (full.shape[2] - x.shape[2])
+        kh, kw = p.weight.shape[3:]
+        full = F.pad(full, (kw // 2, kw // 2, kh // 2, kh // 2, pad, 0))
+        y = F.conv3d(full, p.weight.to(full.dtype))
+        return y + p.bias.to(y.dtype)[:, None, None, None]
+
+    def downsample_time(self, p: Conv, x: torch.Tensor) -> torch.Tensor:
+        """Frame 0 passes; frame j >= 1 is the stride-2 kernel-3 window
+        over frames ``2j - 2 .. 2j``: those of the windows ``x`` closes
+        (none, it may be)."""
+        key = id(p)
+        out = []
+        if key in self.tails:
+            x = torch.cat([self.tails[key], x], dim=2)
+        else:
+            out.append(x[:, :, :1])
+        k = (x.shape[2] - 1) // 2
+        if k > 0:
+            y = F.conv3d(x[:, :, :2 * k + 1], p.weight.to(x.dtype),
+                         stride=(2, 1, 1))
+            out.append(y + p.bias.to(y.dtype)[:, None, None, None])
+        self.tails[key] = x[:, :, 2 * k:].clone()
+        return torch.cat(out, dim=2) if out else x[:, :, :0]
+
+    def encode(self, vae: "WanVAE", x: torch.Tensor):
+        """The next frames of ``_encode_raw``'s output for input frames
+        ``x`` (None where they close no latent frame)."""
+        enc = vae.encoder
+        x = self.conv(enc.conv1, x)
+        structure, _ = _encoder_structure(vae.cfg)
+        for (kind, _, _, _), p in zip(structure, enc.downsamples):
+            if kind == "res":
+                x = _residual_block(p, x, self.conv)
+            elif kind == "attn":
+                x = _attention_block(p, x)
+            elif kind == "downsample2d":
+                x = _downsample_spatial(p, x)
+            else:                                   # downsample3d
+                x = self.downsample_time(
+                    p.time_conv, _downsample_spatial(p.resample, x))
+                if x.shape[2] == 0:
+                    return None
+        for i, p in enumerate(enc.middle):
+            x = _attention_block(p, x) if i == 1 \
+                else _residual_block(p, x, self.conv)
+        return self.conv(enc.head_conv,
+                         F.silu(wan_rms_norm(enc.head_norm, x)))
+
+
+def _run_blocks(structure, blocks, x):
+    """The decoder's blocks (residual, attention, the time and spatial
+    upsamples) over the whole clip."""
     for (kind, _, _, _), p in zip(structure, blocks):
         if kind == "res":
-            x = _residual_block(p, x, chunk)
+            x = _residual_block(p, x)
         elif kind == "attn":
-            x = _attention_block(p, x, chunk)
-        elif kind == "downsample2d":
-            x = _framewise(lambda t: _downsample_spatial(p, t), x, chunk)
-        elif kind == "downsample3d":
-            x = _framewise(lambda t: _downsample_spatial(p.resample, t), x,
-                           chunk)
-            x = _downsample_time(p.time_conv, x)
+            x = _attention_block(p, x)
         elif kind == "upsample2d":
             x = _upsample_spatial(p, x)
         elif kind == "upsample3d":
@@ -405,16 +412,14 @@ def _latent_stats(cfg: WanVAEConfig, z: torch.Tensor):
 
 def _encode_raw(vae: WanVAE, x: torch.Tensor, chunk) -> torch.Tensor:
     """``[B, 3, F, H, W]`` -> the posterior's ``[B, 2z, F', H/8, W/8]``
-    before ``conv1``."""
-    enc = vae.encoder
-    x = _causal_chunked(enc.conv1, x, chunk)
-    structure, _ = _encoder_structure(vae.cfg)
-    x = _run_blocks(structure, enc.downsamples, x, chunk)
-    for i, p in enumerate(enc.middle):
-        x = _attention_block(p, x, chunk) if i == 1 \
-            else _residual_block(p, x, chunk)
-    return _causal_chunked(enc.head_conv, x, chunk,
-                           lambda t: F.silu(wan_rms_norm(enc.head_norm, t)))
+    before ``conv1``: frame 0, then ``chunk`` frames at a time (None: the
+    whole clip at once) through :class:`_EncodeStream`."""
+    f = x.shape[2]
+    bounds = [0, f] if chunk is None else [0, *range(1, f, chunk), f]
+    stream = _EncodeStream()
+    out = [stream.encode(vae, x[:, :, t0:t1])
+           for t0, t1 in zip(bounds[:-1], bounds[1:])]
+    return torch.cat([y for y in out if y is not None], dim=2)
 
 
 def encode(vae: WanVAE, video: torch.Tensor, normalize: bool = True,
@@ -423,9 +428,9 @@ def encode(vae: WanVAE, video: torch.Tensor, normalize: bool = True,
     F', H/8, W/8, z]`` (normalized by the latent statistics unless
     ``normalize=False``), in the policy's compute dtype. F is 4k+1 (4k+2
     with ``any_end_frame``, whose last frame is encoded alone, from a
-    fresh causal state, and appended). Each stride-1 layer computes
-    :data:`ENCODE_CHUNK_FRAMES` frames at a time (None: the whole clip at
-    once): the same function either way."""
+    fresh causal state, and appended). The clip enters frame 0 first,
+    then :data:`ENCODE_CHUNK_FRAMES` frames at a time (None: the whole
+    clip at once): the same function either way."""
     chunk = ENCODE_CHUNK_FRAMES
     x = video.to(vae.compute_dtype).permute(0, 4, 1, 2, 3)
     if any_end_frame:

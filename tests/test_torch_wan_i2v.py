@@ -125,6 +125,40 @@ def test_wan_vae_encode_matches_jax(one_thread, monkeypatch, frames, end,
         jwv._encoder_structure(jwv.WanVAEConfig())
 
 
+def test_wan_vae_encode_streams_its_activations(one_thread, monkeypatch):
+    """The encoder takes frame 0, then ENCODE_CHUNK_FRAMES frames at a
+    time through every layer: no activation at the clip's resolution holds
+    more than a chunk and the two frames a causal conv reads in front,
+    where a whole-clip layer holds every frame (a 1280x720x81 clip's first
+    activation is 14.3 GB in bf16); the latents are the whole clip's."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    _, vae = _enc_vae()
+    frames, h, w = 17, 40, 48
+    video = torch.from_numpy(np.random.default_rng(17).uniform(
+        -1, 1, (1, frames, h, w, 3)).astype(np.float32))
+
+    class Widest(TorchDispatchMode):
+        frames = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in out if isinstance(out, (tuple, list)) else (out,):
+                if isinstance(t, torch.Tensor) and t.dim() == 5 \
+                        and tuple(t.shape[3:]) == (h, w) \
+                        and t.shape[1] >= ENC_KW["dim"]:
+                    self.frames = max(self.frames, t.shape[2])
+            return out
+
+    with Widest() as widest:
+        out = twv.encode(vae, video)
+    assert widest.frames == twv.ENCODE_CHUNK_FRAMES + 2
+    monkeypatch.setattr(twv, "ENCODE_CHUNK_FRAMES", None)
+    whole = twv.encode(vae, video)
+    assert out.shape == whole.shape == (1, 9, 5, 6, 4)
+    np.testing.assert_allclose(out.numpy(), whole.numpy(), atol=ATOL)
+
+
 def test_wan_vae_spatial_tiled_encode_matches_jax(one_thread):
     params, vae = _enc_vae()
     video = np.random.default_rng(3).uniform(
