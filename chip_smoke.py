@@ -3848,7 +3848,7 @@ def phase_server(gen, t5, name, mode, fused, bound):
 
     from ltx_video_gpupoor_tpu_torch.ops.attention import set_attention_mode
     from ltx_video_gpupoor_tpu_torch.serving import model_zoo, server
-    from ltx_video_gpupoor_tpu_torch.utils import media
+    from ltx_video_gpupoor_tpu_torch.utils import media, observability
     from ltx_video_gpupoor_tpu_torch.utils.observability import Metrics
 
     height, width, frames = LTX13B_REQUEST
@@ -3916,6 +3916,7 @@ def phase_server(gen, t5, name, mode, fused, bound):
         p1, p2 = run_ltx13b_request(gen, t5, name, mode, fused, bound,
                                     serve=make_serve(body))
         first = Metrics.snapshot()["gauges"]
+        first_record = observability.records()[-1]
         enhanced = phase_enhance(service, make_serve, body, gen, t5,
                                  (name, mode, fused, bound))
         status, payload = _http(root + "/", {k: v for k, v in body.items()
@@ -3935,8 +3936,8 @@ def phase_server(gen, t5, name, mode, fused, bound):
         set_attention_mode("auto")
         set_fused_prologue(False)
     g = first
-    stages = {k.split("/", 1)[1]: v for k, v in g.items()
-              if k.startswith("last_stage_s/")}
+    assert first_record["kind"] == "request", first_record
+    stages = observability.stage_seconds(first_record)
     assert stages["save_video"] > 0 and stages["generate"] > 0, stages
     log(f"[server] POST / {width}x{height}x{frames} answered 200 in "
         f"{g['last_request_s']:.3f} s: "
@@ -4194,6 +4195,7 @@ def phase_enhance(service, make_serve, body, gen, t5, tier):
     import torch
 
     from ltx_video_gpupoor_tpu_torch.serving import cli
+    from ltx_video_gpupoor_tpu_torch.utils import observability
     from ltx_video_gpupoor_tpu_torch.utils import prompt_enhance as pe
     from ltx_video_gpupoor_tpu_torch.utils.observability import Metrics
 
@@ -4244,8 +4246,9 @@ def phase_enhance(service, make_serve, body, gen, t5, tier):
     orig, _ = real_encode(pipe, body["prompt"], body["negative_prompt"])
     assert not torch.equal(emb, orig)
     g = Metrics.snapshot()["gauges"]
-    stages = {k.split("/", 1)[1]: v for k, v in g.items()
-              if k.startswith("last_stage_s/")}
+    record = observability.records()[-1]
+    assert record["kind"] == "request", record
+    stages = observability.stage_seconds(record)
     assert stages["enhance_prompt"] > 0, stages
     height, width, frames = LTX13B_REQUEST
     log(f"[enhance] POST / {width}x{height}x{frames} with enhance_prompt in "
@@ -6183,7 +6186,7 @@ def _mesh_reference(rank, world, out_dir):
                            outputs_dir=os.path.join(out_dir, "videos"),
                            warmup_spec="off")
     t0 = time.perf_counter()
-    frames, _ = svc._produce(_mesh_body())
+    frames = svc._produce(_mesh_body())
     sec["serve"] = time.perf_counter() - t0
     np.save(os.path.join(out_dir, "serve.npy"), np.asarray(frames))
     del svc, frames
@@ -6300,7 +6303,7 @@ def _mesh_rank(rank, world, out_dir):
 
         def capture(data):
             out = produce(data)
-            produced.append(out[0])
+            produced.append(out)
             return out
         svc._produce = capture
         httpd = tserver.create_stdlib_server(svc, host="127.0.0.1", port=0)
@@ -7227,7 +7230,7 @@ def _cards_request_reference(rank, world, work):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    frames, _ = svc._produce(_cards_ltx13b_body())
+    frames = svc._produce(_cards_ltx13b_body())
     res["ltx13b"] = time.perf_counter() - t0
     res["ltx13b peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
     np.save(os.path.join(work, "ltx13b.npy"), np.asarray(frames))
@@ -7300,7 +7303,7 @@ def _cards_request_rank(rank, world, work):
 
         def capture(data):
             out = produce(data)
-            produced.append(out[0])
+            produced.append(out)
             return out
         svc._produce = capture
         httpd = tserver.create_stdlib_server(svc, host="127.0.0.1", port=0)
@@ -7738,7 +7741,7 @@ def _cards_warm_rank(rank, world, work):
 
         def capture(data):
             out = produce(data)
-            produced.append(np.asarray(out[0]))
+            produced.append(np.asarray(out))
             return out
         svc._produce = capture
         httpd = tserver.create_stdlib_server(svc, host="127.0.0.1", port=0)

@@ -51,6 +51,7 @@ from ..models.ltx.transformer3d import (
     timestep_embedding,
 )
 from ..schedulers import rf
+from ..utils.observability import stage as _stage
 from . import teacache
 
 
@@ -375,77 +376,81 @@ def denoise(
                              "True")
 
     for i in range(len(ts_host)):
-        check(interrupt_flag)
-        t = float(ts_host[i])
-        if image_cond_noise_scale > 0.0:
-            noise = torch.randn(latents.shape, generator=generator,
-                                device=dev, dtype=latents.dtype)
-            need = (conditioning_mask > 1.0 - 1e-6)[..., None]
-            noised = init_latents + image_cond_noise_scale * noise * (t ** 2)
-            latents = torch.where(need, noised, latents)
-        t_tokens = torch.minimum(torch.tensor(t, device=dev),
-                                 1.0 - conditioning_mask)          # [1, N]
-        t_groups = t_tokens.reshape(1, num_frame_groups,
-                                    tokens_per_group)[:, :, 0]     # [1, G]
-        x = latents.expand(num_conds, -1, -1)
-        tg = t_groups.expand(num_conds, -1)
-        kw = dict(skip_layer_mask=skip_masks[i],
-                  skip_layer_strategy=schedule.skip_layer_strategy,
-                  attn_mode=attn_mode, freqs=freqs)
-        if sp_mesh is not None:
-            from ..parallel.usp import gather, usp_ltx_forward
+        with _stage("step", index=i):
+            check(interrupt_flag)
+            t = float(ts_host[i])
+            if image_cond_noise_scale > 0.0:
+                noise = torch.randn(latents.shape, generator=generator,
+                                    device=dev, dtype=latents.dtype)
+                need = (conditioning_mask > 1.0 - 1e-6)[..., None]
+                noised = init_latents + image_cond_noise_scale * noise * (
+                    t ** 2)
+                latents = torch.where(need, noised, latents)
+            t_tokens = torch.minimum(torch.tensor(t, device=dev),
+                                     1.0 - conditioning_mask)          # [1, N]
+            t_groups = t_tokens.reshape(1, num_frame_groups,
+                                        tokens_per_group)[:, :, 0]     # [1, G]
+            x = latents.expand(num_conds, -1, -1)
+            tg = t_groups.expand(num_conds, -1)
+            kw = dict(skip_layer_mask=skip_masks[i],
+                      skip_layer_strategy=schedule.skip_layer_strategy,
+                      attn_mode=attn_mode, freqs=freqs)
+            if sp_mesh is not None:
+                from ..parallel.usp import gather, usp_ltx_forward
 
-            tc = ({} if teacache_mask is None else dict(
-                previous_residual=residual, compute=bool(teacache_mask[i])))
-            pred, new_res = usp_ltx_forward(
-                sp_mesh, transformer, x, coords, tg, ctx, ctx_mask,
-                axis_name=sp_axis, **kw, **tc)
-            if teacache_mask is not None:
-                residual = new_res
-            pred = gather(sp_mesh, pred, 1, sp_axis)
-        elif teacache_mask is None:
-            pred = transformer(x, coords, tg, ctx, ctx_mask, **kw)
-        else:
-            pred, residual = transformer(
-                x, coords, tg, ctx, ctx_mask, previous_residual=residual,
-                compute=bool(teacache_mask[i]), return_residual=True, **kw)
-        pred = pred.float()
+                tc = ({} if teacache_mask is None else dict(
+                    previous_residual=residual,
+                    compute=bool(teacache_mask[i])))
+                pred, new_res = usp_ltx_forward(
+                    sp_mesh, transformer, x, coords, tg, ctx, ctx_mask,
+                    axis_name=sp_axis, **kw, **tc)
+                if teacache_mask is not None:
+                    residual = new_res
+                pred = gather(sp_mesh, pred, 1, sp_axis)
+            elif teacache_mask is None:
+                pred = transformer(x, coords, tg, ctx, ctx_mask, **kw)
+            else:
+                pred, residual = transformer(
+                    x, coords, tg, ctx, ctx_mask, previous_residual=residual,
+                    compute=bool(teacache_mask[i]), return_residual=True, **kw)
+            pred = pred.float()
 
-        streams = pred.split(1, dim=0)
-        g = float(schedule.guidance_scale[i])
-        stg = float(schedule.stg_scale[i])
-        if schedule.do_stg:
-            pred_text, pred_ptb = streams[-2], streams[-1]
-        else:
-            pred_text = streams[-1]
-        if schedule.do_cfg:
-            pred_uncond, pred_text = streams[0], streams[1]
-            if g != 0.0 and g != 1.0:
-                if schedule.cfg_star_rescale:
-                    dot = torch.sum(pred_text * pred_uncond)
-                    sq = torch.sum(pred_uncond ** 2) + 1e-8
-                    pred_uncond = (dot / sq) * pred_uncond
-                noise_pred = pred_uncond + g * (pred_text - pred_uncond)
+            streams = pred.split(1, dim=0)
+            g = float(schedule.guidance_scale[i])
+            stg = float(schedule.stg_scale[i])
+            if schedule.do_stg:
+                pred_text, pred_ptb = streams[-2], streams[-1]
+            else:
+                pred_text = streams[-1]
+            if schedule.do_cfg:
+                pred_uncond, pred_text = streams[0], streams[1]
+                if g != 0.0 and g != 1.0:
+                    if schedule.cfg_star_rescale:
+                        dot = torch.sum(pred_text * pred_uncond)
+                        sq = torch.sum(pred_uncond ** 2) + 1e-8
+                        pred_uncond = (dot / sq) * pred_uncond
+                    noise_pred = pred_uncond + g * (pred_text - pred_uncond)
+                else:
+                    noise_pred = pred_text
             else:
                 noise_pred = pred_text
-        else:
-            noise_pred = pred_text
-        if schedule.do_stg:
-            noise_pred = noise_pred + stg * (pred_text - pred_ptb)
-            if schedule.do_rescaling and stg > 0.0:
-                r = float(schedule.rescaling_scale[i])
-                # population std (ddof 0), as jnp.std
-                factor = pred_text.std(correction=0) / (
-                    noise_pred.std(correction=0) + 1e-8)
-                noise_pred = noise_pred * (r * factor + (1 - r))
+            if schedule.do_stg:
+                noise_pred = noise_pred + stg * (pred_text - pred_ptb)
+                if schedule.do_rescaling and stg > 0.0:
+                    r = float(schedule.rescaling_scale[i])
+                    # population std (ddof 0), as jnp.std
+                    factor = pred_text.std(correction=0) / (
+                        noise_pred.std(correction=0) + 1e-8)
+                    noise_pred = noise_pred * (r * factor + (1 - r))
 
-        denoised = rf.step(rf_sched, noise_pred.to(latents.dtype), t_tokens,
-                           latents, stochastic_sampling=stochastic_sampling,
-                           generator=generator)
-        to_denoise = (t - 1e-6 < (1.0 - conditioning_mask))[..., None]
-        latents = torch.where(to_denoise, denoised, latents)
-        if progress_callback is not None:
-            progress_callback(i, len(ts_host))
+            denoised = rf.step(rf_sched, noise_pred.to(latents.dtype),
+                               t_tokens, latents,
+                               stochastic_sampling=stochastic_sampling,
+                               generator=generator)
+            to_denoise = (t - 1e-6 < (1.0 - conditioning_mask))[..., None]
+            latents = torch.where(to_denoise, denoised, latents)
+            if progress_callback is not None:
+                progress_callback(i, len(ts_host))
     return latents
 
 
@@ -551,8 +556,6 @@ class LTXPipeline:
         ``teacache_multiplier`` above 1.0 skips steps by
         :func:`ltx_teacache_schedule` (JAX :850-866). ``interrupt_flag``
         and ``progress_callback`` go to :func:`denoise`."""
-        from ..utils.observability import stage as _stage
-
         dev = self.transformer.proj_out.bias.device
         f_lat, h_lat, w_lat = self.latent_shape(height, width, num_frames)
         c = self.transformer.cfg.in_channels
@@ -580,7 +583,7 @@ class LTXPipeline:
                                      dtype=torch.float32, device=dev)
         extras = []
         if conditioning_items:
-            with _stage("cond_encode", sync=lambda: cond_latents):
+            with _stage("cond_encode"):
                 cond_latents, cond_mask_grid, extras = prepare_conditioning(
                     torch.zeros((1, f_lat, h_lat, w_lat, c),
                                 dtype=torch.float32, device=dev),
@@ -634,7 +637,7 @@ class LTXPipeline:
         if teacache_multiplier and teacache_multiplier > 1.0:
             tc_mask = ltx_teacache_schedule(self.transformer, ts,
                                             teacache_multiplier)
-        with _stage("denoise", sync=lambda: latents):
+        with _stage("denoise"):
             latents = denoise(
                 self.transformer, tokens, cond_mask_tokens, pixel_coords, ts,
                 schedule, prompt_embeds, prompt_mask, generator,
@@ -651,7 +654,7 @@ class LTXPipeline:
         latent_grid = patchifier.unpatchify(latents, h_lat, w_lat, c)
         if output_type == "latent":
             return latent_grid
-        with _stage("vae_decode", sync=lambda: px):
+        with _stage("vae_decode"):
             px = self.decode(latent_grid, decode_timestep, decode_noise_scale,
                              generator)
         return px

@@ -100,7 +100,7 @@ class MultiScalePipeline:
                 **kwargs)
         if on_stage is not None:
             on_stage("upsample", latents)
-        with _stage("upsample_adain", sync=lambda: up):
+        with _stage("upsample_adain"):
             up = upsample_latents(self.upsampler,
                                   self.pipeline.vae.per_channel_statistics,
                                   latents)

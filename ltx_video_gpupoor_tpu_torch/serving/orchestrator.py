@@ -330,7 +330,7 @@ class LTXVideoGenerator:
             return latents
         if on_stage is not None:
             on_stage("decode", latents)
-        with _stage("vae_decode", sync=lambda: px):
+        with _stage("vae_decode"):
             px = self.pipeline.decode(
                 latents, cfg.get("decode_timestep", 0.0),
                 cfg.get("decode_noise_scale"), generator)

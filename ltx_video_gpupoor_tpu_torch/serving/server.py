@@ -10,11 +10,15 @@ fields, status codes and JSON:
   Florence-2 and LLM); an image-to-video request; responds
   ``[{"video": <download url>}]``;
 - ``GET /download/<file>`` serving from ``outputs/``;
-- ``GET /metrics``: the process-wide counters and gauges. Beside JAX's
-  ``requests_ok`` and ``last_request_s`` the port publishes the last
-  request's seconds by stage as gauges ``last_stage_s/<stage>``
-  (``enhance_prompt`` when asked, ``encode_prompt``, ``generate/...`` as
-  the pipelines mark them, ``save_video``);
+- ``GET /metrics``: the process-wide counters and gauges (JAX's
+  ``requests_ok`` and ``last_request_s``; the warm-up's ``warmup_ok`` and
+  ``warmup_failed``) and, under ``"requests"``, the records of the last
+  requests and warm-up generations (``utils/observability.py``): each with
+  its id (and ``creation_id``), its kind and its spans: ``read_image``,
+  ``enhance_prompt`` when asked, ``encode_prompt``, ``lock_wait`` (the
+  generation lock's acquisition), ``generate`` with the pipelines' spans
+  inside it (down to each denoise ``step``, with device intervals on the
+  card), ``save_video``. ``LTXV_TPU_TRACE=0`` records none;
 - the model preloaded at startup from the environment: ``DEMO_MODEL``
   builds the demo model; ``MODEL_MODE``, ``QUANTIZATION`` and
   ``TRANSFORMER_DTYPE_POLICY`` name checkpoint files in the published
@@ -62,6 +66,14 @@ REQUIRED_FIELDS = [
     "image", "prompt", "negative_prompt", "height", "width",
     "num_frames", "frame_rate", "num_inference_steps",
 ]
+
+
+def _creation(data) -> dict:
+    """A request body's ``creation_id``, for its record, where it has
+    one."""
+    if isinstance(data, dict) and data.get("creation_id"):
+        return {"creation_id": data["creation_id"]}
+    return {}
 
 
 class RankChannel:
@@ -240,26 +252,25 @@ class InferenceService:
     def _produce(self, data: dict):
         """Everything of a request that the ranks of a mesh run together:
         the image, the prompt (enhanced where asked), its embeddings and
-        ``generate``; returns (frames, the stage timer)."""
+        ``generate``; returns the frames."""
         from PIL import Image
 
         from .cli import encode_or_hash
         from ..utils import native_codec
-        from ..utils.observability import StageTimer, collect_stages, stage
+        from ..utils.observability import locked, stage
 
-        image_bytes = base64.b64decode(data["image"])
-        pil = Image.open(io.BytesIO(image_bytes)).convert("RGB")
-        image_start = np.asarray(pil)
+        with stage("read_image"):
+            image_bytes = base64.b64decode(data["image"])
+            pil = Image.open(io.BytesIO(image_bytes)).convert("RGB")
+            image_start = np.asarray(pil)
         gen = self.model.generator
         prompt = data["prompt"]
-        # the ambient marks are collected under the generation lock only:
         # encoding the prompt holds no lock, so it overlaps another
-        # request's generation
-        timer = StageTimer()
+        # request's generation.
         # ``enhance_prompt`` (a superset field, JAX :112-126): the caption
         # + rewrite of ``utils/prompt_enhance.py``, its models from
         # LTXV_TPU_CAPTIONER_DIR / LTXV_TPU_ENHANCER_LLM_DIR (unset: the
-        # prompt as it is), timed as the stage ``enhance_prompt``. The
+        # prompt as it is), the span ``enhance_prompt``. The
         # enhancer is cached on the service (its models load once) and
         # runs under gen_lock: its models share the card with the
         # diffusion weights, so it must not race a generation or the
@@ -269,17 +280,20 @@ class InferenceService:
                 from ..utils.prompt_enhance import PromptEnhancer
 
                 self.enhancer = PromptEnhancer()
-            with self.gen_lock, timer.stage("enhance_prompt"):
+            with locked(self.gen_lock), stage("enhance_prompt"):
                 prompt = self.enhancer.enhance(
                     prompt, first_frames=[image_start])
-        with timer.stage("encode_prompt"):
+        with stage("encode_prompt"):
             embeds, mask = encode_or_hash(
                 gen.pipeline, prompt, data["negative_prompt"])
         # planar-YUV420 fetch when the native writer can take it: half the
         # host-fetch bytes of uint8 RGB (JAX :132-136)
         out_type = "yuv420" if native_codec.available() else "pixels"
-        # serialize vs the warm-up and other requests
-        with self.gen_lock, collect_stages(timer), stage("generate"):
+        # serialize vs the warm-up and other requests; ``generate``
+        # anchors the request's device clock (one synchronize of an idle
+        # stream)
+        dev = gen.pipeline.transformer.proj_out.bias.device
+        with locked(self.gen_lock), stage("generate", anchor=dev):
             frames = gen.generate(
                 embeds, mask,
                 height=int(data["height"]), width=int(data["width"]),
@@ -289,18 +303,21 @@ class InferenceService:
                 image_start=image_start,
                 output_type=out_type,
             )
-        return frames, timer
+        return frames
 
     def _serve(self, message):
         """What rank 0 hands every rank of a mesh: ``("request", body)``
         (:meth:`_produce`) or ``("warmup", (W, H, F))`` (one bucket of the
         warm-up, under the generation lock)."""
         from .warmup import warm_bucket
+        from ..utils.observability import request
 
         kind, payload = message
         if kind == "warmup":
             return warm_bucket(self.model.generator, payload, self.gen_lock)
-        return self._produce(payload)
+        # a follower's own record of the request (rank 0 is inside one)
+        with request("request", **_creation(payload)):
+            return self._produce(payload)
 
     def follow(self):
         """A follower rank of a mesh: run every warm-up bucket and request
@@ -313,6 +330,12 @@ class InferenceService:
             self.channel.stop()
 
     def run(self, data: dict, url_root: str) -> tuple[int, object]:
+        from ..utils.observability import request
+
+        with request("request", **_creation(data)):
+            return self._run(data, url_root)
+
+    def _run(self, data, url_root: str) -> tuple[int, object]:
         start = time.time()
         if not isinstance(data, dict):
             return 400, [{"error": "request body must be a JSON object"}]
@@ -325,16 +348,15 @@ class InferenceService:
             return 400, {"error": f"Missing fields: {', '.join(missing)}"}
         try:
             from ..utils import media as media_utils
-            from ..utils.observability import Metrics
+            from ..utils.observability import Metrics, stage
 
             if self.channel is None:
-                frames, timer = self._produce(data)
+                frames = self._produce(data)
             else:
-                frames, timer = self.channel.call(self._serve,
-                                                  ("request", data))
+                frames = self.channel.call(self._serve, ("request", data))
             name = f"video_{uuid.uuid4().hex[:12]}.mp4"
             out_path = os.path.join(self.outputs_dir, name)
-            with timer.stage("save_video"):
+            with stage("save_video"):
                 media_utils.save_video(frames, out_path,
                                        fps=int(data["frame_rate"]))
             url = url_root.rstrip("/") + "/download/" + name
@@ -348,8 +370,6 @@ class InferenceService:
             )
             Metrics.inc("requests_ok")
             Metrics.set("last_request_s", end - start)
-            for stage_name, seconds in timer.stages.items():
-                Metrics.set(f"last_stage_s/{stage_name}", seconds)
             return 200, [{"video": url}]
         except Exception as e:  # any failure is a 500 with its message
             import traceback
@@ -391,9 +411,9 @@ def create_flask_app(service: InferenceService | None = None):
 
     @app.route("/metrics", methods=["GET"])
     def metrics():
-        from ..utils.observability import Metrics
+        from ..utils import observability
 
-        return jsonify(Metrics.snapshot())
+        return jsonify(observability.snapshot())
 
     return app
 
@@ -441,9 +461,9 @@ def create_stdlib_server(service: InferenceService, host="0.0.0.0", port=7860):
             url = urllib.parse.urlsplit(self.path)
             path_part = urllib.parse.unquote(url.path)
             if path_part == "/metrics":
-                from ..utils.observability import Metrics
+                from ..utils import observability
 
-                self._send_json(200, Metrics.snapshot())
+                self._send_json(200, observability.snapshot())
                 return
             if not path_part.startswith("/download/"):
                 self._send_json(404, {"error": "not found"})

@@ -27,7 +27,7 @@ import time
 import numpy as np
 import torch
 
-from ..utils.observability import Metrics
+from ..utils.observability import Metrics, locked, request, stage
 
 logger = logging.getLogger(__name__)
 
@@ -40,17 +40,21 @@ def warm_bucket(generator, bucket, lock: threading.Lock | None = None
     """One ``(W, H, F)`` bucket's 1-step image-to-video generation, as the
     live server path requests it (a multi-scale config keeps its own
     timesteps), under ``lock`` where one is given. Every rank of a
-    serving mesh runs it for the same bucket (``serving/server.py``)."""
+    serving mesh runs it for the same bucket (``serving/server.py``). It
+    is recorded as a request of kind ``warmup``."""
     w, h, f = bucket
     pipe = generator.pipeline
     cap = pipe.transformer.cfg.caption_channels
     emb = torch.zeros((2, HASH_TEXT_LEN, cap), dtype=torch.bfloat16)
     mask = torch.ones((2, HASH_TEXT_LEN), dtype=torch.int32)
     img = np.zeros((h, w, 3), np.uint8)
-    with lock if lock is not None else contextlib.nullcontext():
-        generator.generate(
-            emb, mask, height=h, width=w, frame_num=f, image_start=img,
-            sampling_steps=1, seed=0, output_type="pixels")
+    dev = pipe.transformer.proj_out.bias.device
+    with request("warmup", bucket=[w, h, f]):
+        with locked(lock) if lock is not None else \
+                contextlib.nullcontext(), stage("generate", anchor=dev):
+            generator.generate(
+                emb, mask, height=h, width=w, frame_num=f, image_start=img,
+                sampling_steps=1, seed=0, output_type="pixels")
 
 
 def warmup_shapes(generator, buckets=None,

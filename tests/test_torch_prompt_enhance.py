@@ -318,8 +318,8 @@ def test_cli_demo_enhance_prompt(llm_dir, florence_dir, tmp_path,
 def test_server_enhance_prompt(llm_dir, florence_dir, tmp_path, monkeypatch):
     """``enhance_prompt`` through ``InferenceService.run``: the enhancer
     set on the service (models prebuilt), the rewrite handed to the text
-    encoding, the stage in the metrics; a request without the field keeps
-    its prompt."""
+    encoding, the span in the request's record; a request without the
+    field keeps its prompt."""
     import base64
     import io
 
@@ -355,7 +355,8 @@ def test_server_enhance_prompt(llm_dir, florence_dir, tmp_path, monkeypatch):
     assert status == 200
     want = svc.enhancer.enhance("w3 w4", first_frames=[img])
     assert seen == [want]
-    gauges = tobs.Metrics.snapshot()["gauges"]
-    assert gauges["last_stage_s/enhance_prompt"] > 0
+    record = tobs.records()[-1]
+    assert record["kind"] == "request"
+    assert tobs.stage_seconds(record)["enhance_prompt"] > 0
     status, _ = svc.run(body, "http://x")
     assert status == 200 and seen[-1] == "w3 w4"

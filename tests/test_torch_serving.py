@@ -242,12 +242,17 @@ def test_stdlib_server_over_a_socket(demo_service):
     assert status == 200 and metrics["counters"]["requests_ok"] == 1
     gauges = metrics["gauges"]
     assert gauges["last_request_s"] > 0
-    for name in ("encode_prompt", "generate", "generate/pass1/denoise",
-                 "generate/upsample_adain", "generate/pass2/denoise",
-                 "generate/vae_decode", "generate/resize_quant_fetch",
-                 "save_video"):
-        assert gauges["last_stage_s/" + name] >= 0, name
-    assert gauges["last_stage_s/generate"] <= gauges["last_request_s"]
+    # the request's own record, after the warm-up's
+    warm, record = metrics["requests"][-2:]
+    assert warm["kind"] == "warmup" and record["kind"] == "request"
+    assert record["creation_id"] == "t"
+    seconds = tobs.stage_seconds(record)
+    for name in ("read_image", "encode_prompt", "lock_wait", "generate",
+                 "generate/pass1/denoise", "generate/upsample_adain",
+                 "generate/pass2/denoise", "generate/vae_decode",
+                 "generate/resize_quant_fetch", "save_video"):
+        assert seconds[name] >= 0, name
+    assert seconds["generate"] <= gauges["last_request_s"]
 
 
 @pytest.mark.parametrize("method,path,data,status", [
@@ -517,23 +522,28 @@ def test_interrupt_stops_a_run_between_steps():
 
 
 def test_stage_marks_and_metrics():
-    timer = tobs.StageTimer()
-    with tobs.collect_stages(timer):
+    tobs.clear()
+    with tobs.request("request"):
         with tobs.stage("outer"):
-            with tobs.stage("inner", sync=lambda: torch.zeros(1)):
+            with tobs.stage("inner"):
                 pass
+        # another thread starts outside any request: its marks are no-ops
         other = threading.Thread(target=lambda: tobs.stage("x").__enter__())
         other.start()
         other.join()
-    assert list(timer.stages) == ["outer/inner", "outer"]
-    assert "total=" in timer.report()
-    with tobs.stage("ignored"):                # no collector: a no-op
+    [record] = tobs.records()
+    assert [(s["name"], s["parent"]) for s in record["spans"]] == [
+        ("request", None), ("outer", 0), ("inner", 1)]
+    assert list(tobs.stage_seconds(record)) == ["outer", "outer/inner"]
+    with tobs.stage("ignored"):                # no request: a no-op
         pass
-    assert "ignored" not in timer.stages
+    assert len(tobs.records()) == 1
     tobs.Metrics.reset()
     tobs.Metrics.inc("n")
     tobs.Metrics.inc("n", 2)
     tobs.Metrics.set("g", 0.5)
     assert json.loads(tobs.Metrics.to_json()) == {
         "counters": {"n": 3.0}, "gauges": {"g": 0.5}}
+    assert tobs.snapshot() == {"counters": {"n": 3.0}, "gauges": {"g": 0.5},
+                               "requests": tobs.records()}
     tobs.Metrics.reset()
